@@ -1,0 +1,105 @@
+"""Arch registry: ``--arch`` lookup, reduced configs and decode-cache specs.
+
+The counterpart of ``repro/configs/registry.py`` for the PyTorch port. A
+cache spec is a ``TensorSpec`` (shape + torch dtype) instead of a
+``ShapeDtypeStruct``, and the cache is a flat list with one entry per layer
+(the port runs its layers in a Python loop, not a scan over groups).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs import archs
+from repro_torch.configs.base import EncoderConfig, ModelConfig, MoEConfig, SSMConfig
+
+_BY_NAME = {c.name: c for c in archs.ALL}
+
+TORCH_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    "float32": torch.float32,
+}
+
+
+def names():
+    return list(_BY_NAME)
+
+
+def get(name: str) -> ModelConfig:
+    if name not in _BY_NAME:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_BY_NAME)}")
+    return _BY_NAME[name]
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return TORCH_DTYPES[cfg.dtype]
+
+
+class TensorSpec(NamedTuple):
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def cache_specs(cfg: ModelConfig, B: int, cache: int) -> List[Dict[str, Any]]:
+    """Decode-cache spec of every layer, in layer order: ``{"kv": {"k", "v"}}``
+    of shape (B, cache, Hkv, head_dim). Attention-only decoders so far (SSM
+    state and encoder caches come with those families)."""
+    kinds = cfg.layer_kinds()
+    if cfg.family == "encdec" or any(k not in ("attn", "attn_local") for k in kinds):
+        raise NotImplementedError(f"{cfg.name}: only attention-layer caches are ported")
+    spec = TensorSpec((B, cache, cfg.num_kv_heads, cfg.head_dim), torch_dtype(cfg))
+    return [{"kv": {"k": spec, "v": spec}} for _ in kinds]
+
+
+def reduce_config(cfg: ModelConfig) -> ModelConfig:
+    """Same family/features, tiny dims: one fwd/serve step runs on CPU.
+
+    Identical to ``repro.configs.registry.reduce_config`` so one test can
+    key both packages by the same reduced config."""
+    heads = min(cfg.num_heads, 4) or 1
+    kv = max(1, min(cfg.num_kv_heads, heads))
+    while heads % kv:
+        kv -= 1
+    kw: Dict[str, Any] = dict(
+        d_model=64,
+        num_heads=heads,
+        num_kv_heads=kv,
+        head_dim=16,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab_size=512,
+        vocab_pad_to=64,
+        window=32 if cfg.window else None,
+        meta_tokens=8 if cfg.meta_tokens else 0,
+        learned_pos_embed=128 if cfg.learned_pos_embed else None,
+        max_seq_len=256,
+        dtype="float32",
+        num_patches=4 if cfg.num_patches else 0,
+    )
+    unit = cfg.layer_pattern
+    if len(unit) == cfg.num_layers:  # unrolled pattern (hymba): shrink it
+        kinds = sorted(set(unit), reverse=True)
+        pattern = tuple(kinds) + (unit[1],) * (4 - len(set(unit)))
+        kw["layer_pattern"] = pattern[:4]
+        kw["num_layers"] = 4
+    else:
+        kw["layer_pattern"] = unit
+        kw["num_layers"] = len(unit) * 2 + (1 if cfg.tail_pattern else 0)
+    if cfg.moe:
+        kw["moe"] = MoEConfig(
+            num_experts=min(cfg.moe.num_experts, 8),
+            top_k=min(cfg.moe.top_k, 2),
+            d_expert=64,
+            capacity_factor=2.0,
+        )
+    if cfg.ssm:
+        kw["ssm"] = SSMConfig(
+            d_state=8, d_conv=4, expand=2,
+            dt_rank=8, bcdt_norm=cfg.ssm.bcdt_norm,
+        )
+    if cfg.encoder:
+        kw["encoder"] = EncoderConfig(num_layers=2, max_frames=64)
+    return dataclasses.replace(cfg, name=cfg.name + "-reduced", **kw)

@@ -1,0 +1,344 @@
+// FlashAttention-2 forward for Hopper (sm_90a), bf16 in, f32 softmax.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_fwd.py:354
+// flash_fwd: its compact body _fwd_kernel_compact (:248) and the banded
+// launch _flash_fwd_partitioned (:510) with kv_splits == 1. On the TPU the
+// q tiles are dealt into bands to fill the cores; here the q tile is an
+// ordinary parallel grid axis, so one launch covers both.
+//
+// What bounds it on an H100: a causal prefill at head_dim 128 does about
+// 4 * S^2/2 * D flops per head against 2 * S * D * 2 bytes of K/V, so for
+// S in the hundreds and up it is bound by the tensor cores (989 TFLOP/s
+// bf16), not by HBM (3.35 TB/s). The design follows from that:
+//   * one CTA per (q tile of 16 * NWARPS rows, batch * q head); each warp
+//     owns 16 q rows and keeps them in registers as mma.sync A fragments;
+//   * K and V tiles of 64 rows stream through a 2-stage cp.async ring in
+//     shared memory (padded rows, conflict-free ldmatrix), so the next
+//     tile's copy overlaps this tile's two products;
+//   * S = Q K^T and O += P V run on mma.sync m16n8k16 (bf16 in, f32
+//     accumulate); P goes from the S accumulators to A fragments in
+//     registers and never touches shared memory;
+//   * the CTA reads its own list of visible kv tiles (kernels/schedule.py),
+//     so fully hidden tiles are never loaded, and only tiles flagged masked
+//     (partial under the mask, or on the ragged kv edge) apply the element
+//     mask;
+//   * online softmax in f32 with the un-rescaled accumulator (paper C1): the
+//     running max is corrected per tile and 1/l is applied once at the end.
+// It uses neither wgmma nor TMA yet; those are the next step for speed.
+//
+// Semantics match the JAX kernel: masked scores take the finite
+// DEFAULT_MASK_VALUE, K/V rows past the end read as zeros, the kv head of
+// q head h is h / group, rows that visit no tile give O = 0, lse = -inf.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kMaskValue = -0.7f * 3.402823466e38f;  // DEFAULT_MASK_VALUE
+constexpr int kBlockN = 64;
+
+struct FwdParams {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __nv_bfloat16* o;
+  float* lse;          // (B, Hq, Sq)
+  const int* table;    // row_ptr[t_q + 1], then (kv_tile << 1) | masked
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh;
+  int Hq, group, Sq, Skv, t_q;
+  int causal, window, sink, q_offset;  // window < 0: no window
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* smem) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// Copy rows [row0, row0 + ROWS) of a (rows, D) slice with row stride
+// `stride` into shared memory; rows at or past `nrows` are zero-filled.
+template <int ROWS, int D, int THREADS, int STRIDE>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long stride, int row0, int nrows) {
+  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += THREADS) {
+    const int r = idx / CHUNKS, c = idx % CHUNKS;
+    const int g = row0 + r;
+    const bool valid = g < nrows;
+    const __nv_bfloat16* from = valid ? src + g * stride + c * 8 : src;
+    cp_async16(dst + r * STRIDE + c * 8, from, valid);
+  }
+}
+
+__device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
+  if (col >= p.Skv) return false;
+  if (p.causal) {
+    if (qpos < col) return false;
+    return p.window < 0 || qpos - col < p.window || col < p.sink;
+  }
+  if (p.window < 0) return true;
+  const int d = qpos > col ? qpos - col : col - qpos;
+  return d < p.window || col < p.sink;
+}
+
+template <int D, int NWARPS>
+__global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p) {
+  constexpr int BM = 16 * NWARPS;
+  constexpr int BN = kBlockN;
+  constexpr int THREADS = NWARPS * 32;
+  constexpr int STRIDE = D + 8;  // padded row: ldmatrix rows hit distinct banks
+  constexpr int KSTEPS = D / 16;
+  constexpr int NT_S = BN / 8;
+  constexpr int NT_O = D / 8;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sK = sQ + BM * STRIDE;      // [2][BN][STRIDE]
+  __nv_bfloat16* sV = sK + 2 * BN * STRIDE;  // [2][BN][STRIDE]
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int qt = p.t_q - 1 - blockIdx.x;  // longest causal rows start first
+  const int bh = blockIdx.y;
+  const int b = bh / p.Hq, h = bh % p.Hq, hk = h / p.group;
+  const __nv_bfloat16* qg = p.q + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* kg = p.k + b * p.k_sb + hk * p.k_sh;
+  const __nv_bfloat16* vg = p.v + b * p.v_sb + hk * p.v_sh;
+  const int q0 = qt * BM;
+  const int beg = p.table[qt], end = p.table[qt + 1];
+  const int* steps = p.table + p.t_q + 1;
+  const int row_a = q0 + warp * 16 + lane / 4;  // this thread's two rows
+  const int row_b = row_a + 8;
+
+  float m_r[2] = {-INFINITY, -INFINITY};
+  float l_r[2] = {0.f, 0.f};
+  float acc[NT_O][4];
+#pragma unroll
+  for (int t = 0; t < NT_O; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+
+  if (beg < end) {
+    load_tile<BM, D, THREADS, STRIDE>(sQ, qg, p.q_ss, q0, p.Sq);
+    cp_async_commit();
+    const int j0 = steps[beg] >> 1;
+    load_tile<BN, D, THREADS, STRIDE>(sK, kg, p.k_ss, j0 * BN, p.Skv);
+    load_tile<BN, D, THREADS, STRIDE>(sV, vg, p.v_ss, j0 * BN, p.Skv);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    unsigned qf[KSTEPS][4];
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * STRIDE + kk * 16 + (lane >> 4) * 8);
+
+    for (int it = beg; it < end; ++it) {
+      const int stage = (it - beg) & 1;
+      if (it + 1 < end) {
+        const int jn = steps[it + 1] >> 1;
+        load_tile<BN, D, THREADS, STRIDE>(sK + (stage ^ 1) * BN * STRIDE, kg, p.k_ss, jn * BN,
+                                          p.Skv);
+        load_tile<BN, D, THREADS, STRIDE>(sV + (stage ^ 1) * BN * STRIDE, vg, p.v_ss, jn * BN,
+                                          p.Skv);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+
+      const int entry = steps[it];
+      const int j = entry >> 1;
+      const bool masked = entry & 1;
+      const __nv_bfloat16* cK = sK + stage * BN * STRIDE;
+      const __nv_bfloat16* cV = sV + stage * BN * STRIDE;
+
+      // S = Q K^T for this warp's 16 rows x BN columns.
+      float s[NT_S][4];
+#pragma unroll
+      for (int t = 0; t < NT_S; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NT_S / 2; ++np) {
+          unsigned bfr[4];
+          ldmatrix_x4(bfr, cK + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * STRIDE + kk * 16 +
+                               ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * np], qf[kk], bfr[0], bfr[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], bfr[2], bfr[3]);
+        }
+      }
+
+      if (masked) {
+#pragma unroll
+        for (int t = 0; t < NT_S; ++t) {
+          const int col = j * BN + t * 8 + (lane & 3) * 2;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = (e < 2 ? row_a : row_b) + p.q_offset;
+            if (!visible(p, row, col + (e & 1))) s[t][e] = kMaskValue;
+          }
+        }
+      }
+
+      // Online softmax (FA2 Algorithm 1 lines 8-10, un-rescaled accumulator).
+      float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+      for (int t = 0; t < NT_S; ++t) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[t][0], s[t][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[t][2], s[t][3]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) alpha[r] = m_r[r] == -INFINITY ? 0.f : expf(m_r[r] - mx[r]);
+#pragma unroll
+      for (int t = 0; t < NT_S; ++t) {
+        s[t][0] = expf(s[t][0] - mx[0]);
+        s[t][1] = expf(s[t][1] - mx[0]);
+        s[t][2] = expf(s[t][2] - mx[1]);
+        s[t][3] = expf(s[t][3] - mx[1]);
+        rs[0] += s[t][0] + s[t][1];
+        rs[1] += s[t][2] + s[t][3];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l_r[r] = l_r[r] * alpha[r] + rs[r];
+        m_r[r] = mx[r];
+      }
+#pragma unroll
+      for (int t = 0; t < NT_O; ++t) {
+        acc[t][0] *= alpha[0];
+        acc[t][1] *= alpha[0];
+        acc[t][2] *= alpha[1];
+        acc[t][3] *= alpha[1];
+      }
+
+      // O += P V, P taken from the S accumulators as bf16 A fragments.
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const unsigned a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < NT_O / 2; ++dp) {
+          unsigned bfr[4];
+          ldmatrix_x4_trans(bfr, cV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STRIDE +
+                                     dp * 16 + (lane >> 4) * 8);
+          mma_bf16(acc[2 * dp], a, bfr[0], bfr[1]);
+          mma_bf16(acc[2 * dp + 1], a, bfr[2], bfr[3]);
+        }
+      }
+      __syncthreads();  // this stage is refilled two iterations on
+    }
+  }
+
+  // Finalize: one 1/l per row (C1), then the f32 logsumexp.
+  const float l_a = l_r[0] == 0.f ? 1.f : l_r[0];
+  const float l_b = l_r[1] == 0.f ? 1.f : l_r[1];
+  __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh;
+  const int col0 = (lane & 3) * 2;
+#pragma unroll
+  for (int t = 0; t < NT_O; ++t) {
+    if (row_a < p.Sq)
+      *reinterpret_cast<unsigned*>(og + row_a * p.o_ss + t * 8 + col0) =
+          pack_bf16(acc[t][0] / l_a, acc[t][1] / l_a);
+    if (row_b < p.Sq)
+      *reinterpret_cast<unsigned*>(og + row_b * p.o_ss + t * 8 + col0) =
+          pack_bf16(acc[t][2] / l_b, acc[t][3] / l_b);
+  }
+  if ((lane & 3) == 0) {
+    float* lg = p.lse + static_cast<long long>(bh) * p.Sq;
+    if (row_a < p.Sq) lg[row_a] = l_r[0] == 0.f ? -INFINITY : m_r[0] + logf(l_a);
+    if (row_b < p.Sq) lg[row_b] = l_r[1] == 0.f ? -INFINITY : m_r[1] + logf(l_b);
+  }
+}
+
+template <int D, int NWARPS>
+cudaError_t launch(const FwdParams& p, int batch, cudaStream_t stream) {
+  constexpr int BM = 16 * NWARPS;
+  const size_t smem = static_cast<size_t>(BM + 4 * kBlockN) * (D + 8) * sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(fa2_fwd_kernel<D, NWARPS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.t_q, batch * p.Hq);
+  fa2_fwd_kernel<D, NWARPS><<<grid, NWARPS * 32, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                            const void* table, long long q_sb, long long q_ss, long long q_sh,
+                            long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+                            long long v_ss, long long v_sh, long long o_sb, long long o_ss,
+                            long long o_sh, int batch, int Hq, int Hkv, int Sq, int Skv,
+                            int head_dim, int block_q, int block_kv, int causal, int window,
+                            int sink, int q_offset, int t_q, void* stream) {
+  FwdParams p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.table = static_cast<const int*>(table);
+  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
+  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
+  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
+  p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
+  p.Hq = Hq; p.group = Hq / Hkv; p.Sq = Sq; p.Skv = Skv; p.t_q = t_q;
+  p.causal = causal; p.window = window; p.sink = sink; p.q_offset = q_offset;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // The one instantiation the serving path needs (qwen3: head_dim 128).
+  if (head_dim != 128 || block_q != 64 || block_kv != kBlockN) return cudaErrorInvalidValue;
+  return launch<128, 4>(p, batch, s);
+}

@@ -1,0 +1,158 @@
+"""Split-KV flash decode: the Hopper CUDA kernel and its plain version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_decode.py:77
+flash_decode_kernel`` (packed-cache segments not yet ported). The kernel
+source is ``csrc/flash_decode.cu``; its header says what bounds it on an
+H100 and how the design answers.
+
+Layouts: q (B*Hkv, G, D) pre-scaled, the G q heads of each kv head
+together; k/v the contiguous serving cache (B, S, Hkv, D), read in place;
+lengths (B,) int32 valid entries per row. Returns per-split partials in the
+JAX layout, o_parts (B*Hkv, ns, G, D) f32 and lse_parts (B*Hkv, ns, G) f32,
+for ``online_softmax.combine_lse_outputs`` to fold.
+
+The split geometry is the kernel's (ceil-div, 8-aligned chunks with a
+masked tail), not ``core/decode.py``'s (which degrades ``num_splits`` until
+it divides S): :func:`decode_geometry`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.masks import DEFAULT_MASK_VALUE
+from repro_torch.kernels import _build
+
+KERNEL_HEAD_DIMS = (128,)
+KERNEL_MAX_GROUP = 8
+
+
+def decode_geometry(S: int, num_splits: int):
+    """(ns, chunk): ``ns`` splits of ``chunk`` (a multiple of 8) positions
+    covering a cache of S, as ``flash_decode_kernel`` resolves them."""
+    ns = max(1, min(num_splits, -(-S // 8)))
+    chunk = -(-(-(-S // ns)) // 8) * 8
+    return -(-S // chunk), chunk
+
+
+def _check_layout(q, k, v, lengths):
+    if q.ndim != 3 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"want q (B*Hkv,G,D), k/v (B,S,Hkv,D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, Hkv, D = k.shape
+    if q.shape[0] != B * Hkv or q.shape[2] != D or lengths.shape != (B,):
+        raise ValueError(f"q {tuple(q.shape)} / lengths {tuple(lengths.shape)} "
+                         f"do not match the cache {tuple(k.shape)}")
+
+
+def flash_decode(q, k, v, lengths, *, num_splits: int = 8,
+                 window: Optional[int] = None, sink: int = 0):
+    """Per-split decode partials. See the module docstring for layouts."""
+    _check_layout(q, k, v, lengths)
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, lengths, num_splits=num_splits,
+                                  window=window, sink=sink)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode runs on cuda (kernel) or cpu (plain), not {q.device}")
+    B, S, Hkv, D = k.shape
+    G = q.shape[1]
+    _check_kernel_inputs(q, k, v, lengths)
+    ns, chunk = decode_geometry(S, num_splits)
+    o_parts = torch.empty((B * Hkv, ns, G, D), dtype=torch.float32, device=q.device)
+    lse_parts = torch.empty((B * Hkv, ns, G), dtype=torch.float32, device=q.device)
+    err = _lib().fa2_decode_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        o_parts.data_ptr(), lse_parts.data_ptr(),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        B, Hkv, G, S, D, chunk, ns,
+        -1 if window is None else int(window), int(sink),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "fa2_decode_bf16")
+    flash_decode.launches += 1
+    return o_parts, lse_parts
+
+
+flash_decode.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def _check_kernel_inputs(q, k, v, lengths):
+    for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the CUDA decode takes bfloat16; {name} is {t.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous (B*Hkv, G, D)")
+    for name, t in (("k", k), ("v", v)):
+        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(f"{name} needs a unit last stride and the others multiples "
+                             f"of 8, got strides {t.stride()}")
+    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
+        raise TypeError("lengths must be a contiguous int32 tensor")
+    if q.shape[2] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA decode supports head_dim in {KERNEL_HEAD_DIMS}, "
+                         f"got {q.shape[2]}")
+    if q.shape[1] > KERNEL_MAX_GROUP:
+        raise ValueError(f"the CUDA decode supports up to {KERNEL_MAX_GROUP} q heads "
+                         f"per kv head, got {q.shape[1]}")
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    lib = _build.load("flash_decode")
+    P, I, L = _build.VOIDP, _build.INT, _build.I64
+    lib.fa2_decode_bf16.argtypes = [P] * 6 + [L] * 6 + [I] * 9 + [P]
+    lib.fa2_decode_bf16.restype = ctypes.c_int
+    return lib
+
+
+def flash_decode_plain(q, k, v, lengths, *, num_splits: int = 8,
+                       window: Optional[int] = None, sink: int = 0):
+    """The JAX decode kernel's function in plain PyTorch, all splits at
+    once: per split, the max over the whole chunk (masked positions take
+    DEFAULT_MASK_VALUE), P rounded to the cache dtype before P V, and
+    (0, -inf) for a split with no visible position."""
+    flash_decode_plain.calls += 1
+    _check_layout(q, k, v, lengths)
+    B, S, Hk, D = k.shape
+    G = q.shape[1]
+    ns, chunk = decode_geometry(S, num_splits)
+    pad = ns * chunk - S
+
+    def split(x):  # (B, S, Hk, D) -> (B, Hk, ns, chunk, D), zero tail
+        return F.pad(x, (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3).reshape(B, Hk, ns, chunk, D)
+
+    kc, vc = split(k), split(v)
+    s = torch.einsum("bhgd,bhncd->bhngc", q.reshape(B, Hk, G, D).float(), kc.float())
+    cols = torch.arange(ns * chunk, device=q.device).reshape(ns, chunk)
+    L = lengths.to(q.device).long()[:, None, None]
+    valid = cols[None] < L  # (B, ns, chunk)
+    if window is not None:
+        in_win = cols[None] >= L - window
+        if sink:
+            in_win = in_win | (cols[None] < sink)
+        valid = valid & in_win
+    valid = valid[:, None, :, None, :]  # (B, 1, ns, 1, chunk)
+    s = s.masked_fill(~valid, DEFAULT_MASK_VALUE)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    any_valid = valid.any(dim=-1, keepdim=True)
+    l = torch.where(any_valid, p.sum(dim=-1, keepdim=True), torch.zeros_like(m))
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    o = torch.einsum("bhngc,bhncd->bhngd", p.to(v.dtype).float(), vc.float()) / l_safe
+    lse = torch.where(l == 0.0, torch.full_like(l, float("-inf")), m + torch.log(l_safe))
+    o = torch.where(any_valid, o, torch.zeros_like(o))
+    return o.reshape(B * Hk, ns, G, D), lse.reshape(B * Hk, ns, G)
+
+
+flash_decode_plain.calls = 0

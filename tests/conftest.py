@@ -15,6 +15,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: exhaustive sweeps excluded from the fast tier-1 run"
     )
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (CUDA kernels); skips without one"
+    )
     # Default to the fast tier: equivalent of addopts = -m "not slow", but
     # kept here so the repo needs no ini file and -m on the CLI still wins.
     # Explicit node ids (path::test) bypass the default so a slow test can
