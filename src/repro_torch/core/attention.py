@@ -3,9 +3,11 @@
 Every model calls :func:`attention` / :func:`decode_attention`; the backend
 is chosen by config, never by model code:
 
-  impl = 'ref'         dense O(N^2)-memory attention (the oracle)
-  impl = 'flash_cuda'  the hand-written Hopper kernels (kernels/ops.py);
-                       on CPU tensors their plain PyTorch versions
+  impl = 'ref'         dense O(N^2)-memory attention (the oracle),
+                       differentiated by autograd
+  impl = 'flash_cuda'  the hand-written Hopper kernels (kernels/ops.py),
+                       forward and backward; on CPU tensors their plain
+                       PyTorch versions
 
 The counterpart of ``repro/core/attention.py`` (``flash_cuda`` stands where
 ``flash_pallas`` stands there). There is no ring routing yet.

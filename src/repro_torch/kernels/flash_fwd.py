@@ -53,7 +53,7 @@ def flash_fwd(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int):
         raise ValueError(f"flash_fwd runs on cuda (kernel) or cpu (plain), not {q.device}")
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
-    _check_kernel_inputs(q, k, v, block_q, block_kv)
+    _check_kernel_inputs("the CUDA forward", (block_q, block_kv), q=q, k=k, v=v)
     t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
     table = _device_table(spec, t_q, t_kv, block_q, block_kv, Skv, str(q.device))
     o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
@@ -79,25 +79,30 @@ def flash_fwd(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int):
 flash_fwd.launches = 0  # kernel launches (CUDA tensors only)
 
 
-def _check_kernel_inputs(q, k, v, block_q, block_kv):
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+def _check_kernel_inputs(what: str, blocks, **tensors):
+    """Raise on what the CUDA kernels do not take: bf16 tensors on the first
+    one's device, unit last stride, 16-byte aligned rows, the head_dim and
+    (block_q, block_kv) they are instantiated for (``blocks`` None: no
+    tiles to check)."""
+    first = next(iter(tensors.values()))
+    for name, t in tensors.items():
+        if t.device != first.device:
+            raise ValueError(f"{name} is on {t.device}, the others on {first.device}")
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA forward takes bfloat16; {name} is {t.dtype}")
+            raise TypeError(f"{what} takes bfloat16; {name} is {t.dtype}")
         if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(f"{name} needs a unit last stride and the others multiples "
                              f"of 8, got strides {t.stride()}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if q.shape[3] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA forward supports head_dim in {KERNEL_HEAD_DIMS}, "
-                         f"got {q.shape[3]}")
-    if (block_q, block_kv) not in KERNEL_BLOCKS:
-        raise ValueError(f"the CUDA forward supports (block_q, block_kv) in "
-                         f"{KERNEL_BLOCKS}, got {(block_q, block_kv)}")
-    if q.shape[0] * q.shape[2] > 65535:
-        raise ValueError("batch * q heads exceeds the grid's y limit (65535)")
+    if first.shape[3] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what} supports head_dim in {KERNEL_HEAD_DIMS}, "
+                         f"got {first.shape[3]}")
+    if blocks is not None and tuple(blocks) not in KERNEL_BLOCKS:
+        raise ValueError(f"{what} supports (block_q, block_kv) in "
+                         f"{KERNEL_BLOCKS}, got {tuple(blocks)}")
+    if first.shape[0] * first.shape[2] > 65535:
+        raise ValueError("batch * heads exceeds the grid's y limit (65535)")
 
 
 @functools.lru_cache(maxsize=64)
@@ -143,7 +148,7 @@ def flash_fwd_plain(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int):
         l = torch.zeros_like(m)
         acc = torch.zeros((B, Hk, G, r1 - r0, D), device=q.device)
         for s in range(sched.row_ptr[i], sched.row_ptr[i + 1]):
-            j = int(sched.kv_tile[s])
+            j = int(sched.inner[s])
             c0, c1 = j * block_kv, (j + 1) * block_kv
             sc = torch.einsum("bqhgd,bkhd->bhgqk", qi, kp[:, c0:c1])
             if sched.masked[s]:

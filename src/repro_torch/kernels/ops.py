@@ -1,9 +1,8 @@
 """Public wrappers of the attention kernels: knob resolution, q pre-scaling,
-the decode split merge.
+the differentiable FA2 core, the decode split merge.
 
-The counterpart of ``repro/kernels/ops.py`` for the serving slice (forward
-only). Knobs are an explicit value or the H100 default; the TPU-measured
-``tuned.json`` is not consulted.
+The counterpart of ``repro/kernels/ops.py``. Knobs are an explicit value or
+the H100 default; the TPU-measured ``tuned.json`` is not consulted.
 
 Inputs keep the repo-wide public layout, q (B, Sq, Hq, D) and k/v
 (B, Skv, Hkv, D). The kernels read it in place through strides, so the
@@ -20,6 +19,7 @@ import torch
 
 from repro_torch.core.masks import MaskSpec
 from repro_torch.core.online_softmax import combine_lse_outputs
+from repro_torch.kernels import flash_bwd as _bwd
 from repro_torch.kernels import flash_decode as _dec
 from repro_torch.kernels import flash_fwd as _fwd
 
@@ -45,35 +45,74 @@ def _prep(q: torch.Tensor, scale: float) -> torch.Tensor:
     return (q.float() * scale).to(q.dtype)
 
 
-def _no_grad_inputs(*ts):
-    if any(t.requires_grad for t in ts):
+# Backward modes: "fused" is the one-pass kernel (the JAX default). The JAX
+# wrapper falls back to "split" when the fused kernel's per-q-tile delta
+# scratch, O(G * Sq) f32, would not fit in VMEM (``ops._resolve_bwd``); here
+# delta is a pre-pass that lives in HBM, so no such budget exists and
+# "fused" serves every shape.
+BWD_MODES = ("fused", "split")
+
+
+def _check_bwd(bwd: str) -> None:
+    if bwd not in BWD_MODES:
+        raise ValueError(f"unknown backward mode {bwd!r}; have {BWD_MODES}")
+    if bwd == "split":
         raise NotImplementedError(
-            "the CUDA attention kernels are forward-only so far; the backward "
-            "kernels come with the training slice of the port"
+            'bwd="split" (the deterministic delta + dkv + dq backward) is not '
+            "ported yet; see ROADMAP.md, kernels to port"
         )
+
+
+class _FlashCore(torch.autograd.Function):
+    """FA2 on pre-scaled q: the counterpart of ``_flash_core`` (JAX
+    ``ops.py:457``) and its ``_core_bwd`` (``:424``). Forward: the forward
+    kernel, saving (q, k, v, o, lse). Backward: the delta pre-pass, then the
+    fused kernel; the f32 gradients are cast to the inputs' dtypes. dq is
+    with respect to the scaled q: the scale is applied by autograd through
+    ``_prep``, which stays outside this Function."""
+
+    @staticmethod
+    def forward(ctx, qs, k, v, spec, block_q, block_kv):
+        o, lse = _fwd.flash_fwd(qs, k, v, spec, block_q=block_q, block_kv=block_kv)
+        ctx.save_for_backward(qs, k, v, o, lse)
+        ctx.meta = (spec, block_q, block_kv)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        qs, k, v, o, lse = ctx.saved_tensors
+        spec, block_q, block_kv = ctx.meta
+        do = do.to(qs.dtype).contiguous()
+        delta = _bwd.flash_bwd_delta(o, do)  # Algorithm 2 line 4
+        dq, dk, dv = _bwd.flash_bwd_fused(qs, k, v, do, lse, delta, spec,
+                                          block_q=block_q, block_kv=block_kv)
+        return dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
 
 def flash_attention_with_lse(
     q, k, v, spec: MaskSpec = MaskSpec(causal=True), *,
     scale: Optional[float] = None,
-    block_q: int = BLOCK_Q, block_kv: int = BLOCK_KV,
+    block_q: int = BLOCK_Q, block_kv: int = BLOCK_KV, bwd: str = "fused",
 ):
-    """FA2 forward. q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D) -> (o (B,Sq,Hq,D),
-    lse (B,Hq,Sq) f32). The counterpart of ``flash_attention_pallas_with_lse``."""
-    _no_grad_inputs(q, k, v)
+    """Differentiable FA2. q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D) -> (o (B,Sq,Hq,D),
+    lse (B,Hq,Sq) f32; lse carries no gradient). The counterpart of
+    ``flash_attention_pallas_with_lse``."""
+    _check_bwd(bwd)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _fwd.flash_fwd(_prep(q, scale), k, v, spec, block_q=block_q, block_kv=block_kv)
+    return _FlashCore.apply(_prep(q, scale), k, v, spec, block_q, block_kv)
 
 
 def flash_attention(
     q, k, v, spec: MaskSpec = MaskSpec(causal=True), *,
     scale: Optional[float] = None,
-    block_q: int = BLOCK_Q, block_kv: int = BLOCK_KV,
+    block_q: int = BLOCK_Q, block_kv: int = BLOCK_KV, bwd: str = "fused",
 ):
-    """FA2 forward, output only (the counterpart of ``flash_attention_pallas``)."""
+    """Differentiable FA2, output only (the counterpart of
+    ``flash_attention_pallas``)."""
     return flash_attention_with_lse(
-        q, k, v, spec, scale=scale, block_q=block_q, block_kv=block_kv
+        q, k, v, spec, scale=scale, block_q=block_q, block_kv=block_kv, bwd=bwd
     )[0]
 
 
@@ -85,7 +124,8 @@ def flash_decode(
     """Split-KV decode. q (B,1,Hq,D); caches (B,S,Hkv,D); cache_length (B,)
     valid entries. Returns (o (B,1,Hq,D), lse (B,Hq,1)), the counterpart of
     ``flash_decode_pallas``."""
-    _no_grad_inputs(q, k_cache, v_cache)
+    if any(t.requires_grad for t in (q, k_cache, v_cache)):
+        raise NotImplementedError("split-KV decode is forward-only, as in the JAX package")
     B, one, Hq, D = q.shape
     if one != 1:
         raise ValueError("flash_decode is a single-token step; q must be (B, 1, Hq, D)")

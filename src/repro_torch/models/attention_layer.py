@@ -1,5 +1,6 @@
 """GQA attention layer on the FA2 kernels: projections with qk-norm, RoPE,
-prefill with a KV cache, and single-token decode.
+full-sequence self-attention for training, prefill with a KV cache, and
+single-token decode.
 
 The counterpart of ``repro/models/attention_layer.py`` for the contiguous
 cache (the paged branch comes with paged serving). The attention math is
@@ -66,23 +67,38 @@ def _out(p: Attention, cfg, o):
     return o.reshape(B, S, cfg.q_dim) @ p.wo
 
 
-def prefill_attention(
-    p: Attention, cfg, x, positions, spec: MaskSpec, attn_cfg: AttentionConfig, *,
-    rope_theta: Optional[float] = None, cache_size: Optional[int] = None,
-):
-    """Causal self-attention over the prompt; also returns the KV cache,
-    padded with zeros to ``cache_size`` along the sequence."""
+def _self_attention(p: Attention, cfg, x, positions, spec, attn_cfg, rope_theta):
     q = _project_q(p, cfg, x)
     k, v = _project_kv(p, cfg, x)
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     o = attention(q, k, v, spec, attn_cfg)
+    return _out(p, cfg, o), k, v
+
+
+def apply_attention(
+    p: Attention, cfg, x, positions, spec: MaskSpec, attn_cfg: AttentionConfig, *,
+    rope_theta: Optional[float] = None,
+) -> torch.Tensor:
+    """Full-sequence self-attention (training). x (B,S,d). The counterpart
+    of ``apply_attention`` (JAX ``attention_layer.py:116``) without packed
+    segments or cross-attention."""
+    return _self_attention(p, cfg, x, positions, spec, attn_cfg, rope_theta)[0]
+
+
+def prefill_attention(
+    p: Attention, cfg, x, positions, spec: MaskSpec, attn_cfg: AttentionConfig, *,
+    rope_theta: Optional[float] = None, cache_size: Optional[int] = None,
+):
+    """Causal self-attention over the prompt; also returns the KV cache,
+    padded with zeros to ``cache_size`` along the sequence."""
+    y, k, v = _self_attention(p, cfg, x, positions, spec, attn_cfg, rope_theta)
     S = k.shape[1]
     if cache_size is not None and cache_size > S:
         k = F.pad(k, (0, 0, 0, 0, 0, cache_size - S))
         v = F.pad(v, (0, 0, 0, 0, 0, cache_size - S))
-    return _out(p, cfg, o), {"k": k, "v": v}
+    return y, {"k": k, "v": v}
 
 
 def decode_attention_step(

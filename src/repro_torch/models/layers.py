@@ -16,8 +16,9 @@ from torch import nn
 
 
 def new_param(shape, device, dtype) -> nn.Parameter:
-    """A serving parameter: uninitialized, no gradient."""
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
+    """An uninitialized trainable parameter (the serving entry points run
+    under ``torch.no_grad``, so serving records no autograd graph)."""
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
 def normal_(p: torch.Tensor, std: float, gen: torch.Generator) -> None:

@@ -1,9 +1,10 @@
 """Decoder-only LM for attention-only configs, as an ``nn.Module``.
 
-The counterpart of ``repro/models/lm.py`` for the serving slice: embed ->
-layers (``attn`` / ``attn_local``, each attention + MLP with pre-norms) ->
-final norm, with ``prefill``, ``decode_step`` and ``logits_from_hidden``.
-Layers run in a Python loop (the JAX package scans over layer groups).
+The counterpart of ``repro/models/lm.py``: embed -> layers (``attn`` /
+``attn_local``, each attention + MLP with pre-norms) -> final norm, with
+``forward`` (training), ``prefill``, ``decode_step`` and
+``logits_from_hidden``. Layers run in a Python loop (the JAX package scans
+over layer groups). The serving entry points run under ``torch.no_grad``.
 MoE, SSM, hybrid, encoder-decoder and VLM configs are not ported yet and
 raise.
 
@@ -20,6 +21,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.registry import torch_dtype
 from repro_torch.core.attention import AttentionConfig
@@ -27,6 +29,7 @@ from repro_torch.core.masks import MaskSpec
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.attention_layer import (
     Attention,
+    apply_attention,
     decode_attention_step,
     prefill_attention,
 )
@@ -99,11 +102,47 @@ class LM(nn.Module):
             h = (h.float() * (self.cfg.d_model ** 0.5)).to(h.dtype)
         return h
 
+    @torch.no_grad()
     def logits_from_hidden(self, hidden: torch.Tensor) -> torch.Tensor:
+        """Serving: logits of the hidden states (training unembeds inside
+        the chunked loss, ``training/losses.py``)."""
         return self.embed.logits(hidden)
 
     def _mlp_block(self, layer: Layer, x):
         return x + layer.mlp(layer.ln2(x))
+
+    def _apply_group(self, layers, x, positions, attn_cfg: AttentionConfig):
+        cfg = self.cfg
+        for layer in layers:
+            mix = apply_attention(
+                layer.mixer, cfg, layer.ln1(x), positions, spec_for(cfg, layer.kind),
+                attn_cfg, rope_theta=theta_for(cfg, layer.kind),
+            )
+            x = self._mlp_block(layer, x + mix)
+        return x
+
+    def forward(self, tokens: torch.Tensor, attn_cfg: AttentionConfig):
+        """tokens (B, S) -> (hidden (B, S, d), aux_loss, n_prefix), the
+        counterpart of ``lm.forward`` (JAX ``lm.py:269``); the caller
+        unembeds. With ``cfg.remat`` each group of ``cfg.group_size`` layers
+        is recomputed in the backward (``torch.utils.checkpoint``), as the
+        JAX package checkpoints each scan group (``lm.py:255``); the tail
+        layers are not checkpointed there either."""
+        cfg = self.cfg
+        h = self._embed(tokens)
+        positions = torch.arange(h.shape[1], device=h.device)
+        U = cfg.group_size
+        n_grouped = cfg.num_groups * U
+        for g0 in range(0, n_grouped, U):
+            group = self.layers[g0:g0 + U]
+            if cfg.remat:
+                h = checkpoint(self._apply_group, group, h, positions, attn_cfg,
+                               use_reentrant=False)
+            else:
+                h = self._apply_group(group, h, positions, attn_cfg)
+        h = self._apply_group(self.layers[n_grouped:], h, positions, attn_cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return self.ln_f(h), aux, 0
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, attn_cfg: AttentionConfig, cache_size: int,

@@ -121,7 +121,11 @@ def test_q_tile_schedule_is_the_compact_schedule(spec, geom):
 
 
 def test_forward_is_forward_only():
-    q = torch.zeros((1, 4, 2, D), requires_grad=True)
+    """Of the forward kernels, split-KV decode stays forward-only (as in the
+    JAX package); the FA2 forward now carries its backward
+    (tests/test_torch_flash_bwd.py)."""
+    q = torch.zeros((1, 1, 2, D), requires_grad=True)
     k = torch.zeros((1, 4, 2, D))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ops.flash_attention(q, k, k)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        ops.flash_decode(q, k, k, torch.tensor([4]))
+    assert ops.flash_attention(q, k, k).grad_fn is not None
