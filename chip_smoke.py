@@ -22,15 +22,27 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      ServingEngine; every prefill and decode must go through the kernels
      (launch counts > 0, plain versions 0), and a prefill and a decode step
      through the dense reference must give the same last-position logits;
-  5. the device busy share of a decode tick, from torch.profiler;
-  6. training parity: one step of 2-layer, full-width qwen3-8b through the
+  5. paged serving: the same model serves the same 6 requests through the
+     port's PagedServingEngine (a page pool sized so that admission waits
+     on pages and growth forces a preemption); every prefill must go
+     through the forward kernel and every decode through the paged decode
+     kernel (the contiguous decode kernel and the plain versions 0); a
+     decode step through shuffled pages must give the contiguous cache's
+     logits, and a W = 4 batched admission prefill the dense reference's;
+  6. decode ticks of both engines: timed in turns on the host clock, then
+     profiled (torch.profiler) for the device busy share, the kernels by
+     device time and the host operators by host time;
+  7. training parity: one step of 2-layer, full-width qwen3-8b through the
      dense reference and through the kernels, from the same weights and
      batch, must give the same loss and attention gradients;
-  7. the training slice: qwen3-8b at its published widths, depth cut to 8
+  8. the training slice: qwen3-8b at its published widths, depth cut to 8
      layers (one card's memory), takes 8 AdamW steps on the synthetic
      stream at B = 2, S = 2048; the loss must be finite and fall, and every
      attention forward and backward must go through the kernels (counts
      exact, plain versions 0).
+Phase 3 also holds the paged decode kernel against its plain version
+(page sizes 16 and 64, G in {1, 4, 8}, a window-256/sink-4 spec, shuffled
+pages) and times it beside the contiguous decode kernel.
 The last two lines are the kernels' JSON record and the result line.
 """
 
@@ -56,12 +68,23 @@ DEC_TOL = dict(o=2e-2, lse=1e-3)
 PROMPT_LENS = (7, 100, 700, 1500, 33, 260)
 MAX_NEW = 16
 CACHE = 2048
+PAGE_SIZE, PAGES_PER_SEQ = 16, 128  # the paged engine's logical capacity is CACHE
+# The paged engine's pool: 149 usable pages admit the first four requests
+# (1 + 7 + 44 + 94 pages with one page of headroom each) and run out while
+# they grow, so admission waits on pages and growth preempts the youngest
+# request exactly once. The schedule depends only on lengths, not on the
+# weights or the width: the port's engine on a reduced model on the CPU,
+# at these prompt lengths and MAX_NEW, preempts once at 150 pages (also at
+# 99 and 117) and never at 140 or 160.
+PAGED_POOL_PAGES = 150
+PAGED_PREEMPTIONS = 1
 SPIN_CYCLES = 1_000_000  # about 0.5 ms at the H100's clock
 # Logits of flash_cuda against the dense reference at full depth (bf16):
 # the first chip run read cosine 0.999744 and max|diff| 0.024 x max|logit|.
 LOGIT_COS = 0.999
 LOGIT_REL = 0.05
 PROFILED_TICKS = 8
+TICK_ROUNDS = 8  # rounds of fixed, paged, paged, fixed decode ticks
 # f32 delta from bf16 O and dO, summation order only: the first chip run
 # read at most 3.8e-6.
 DELTA_TOL = 2e-5
@@ -251,6 +274,123 @@ def kernel_phase(torch, dev, flush):
     }
 
 
+def paginate(torch, kc, table, num_pages: int):
+    """Page planes (Hkv, num_pages, ps, D) holding the contiguous cache kc
+    (B, n_pages * ps, Hkv, D) at the physical pages of ``table`` (B,
+    n_pages); pages no row names stay zero."""
+    B, n_pages = table.shape
+    _, S, Hkv, D = kc.shape
+    ps = S // n_pages
+    planes = torch.zeros((Hkv, num_pages, ps, D), dtype=kc.dtype, device=kc.device)
+    planes[:, table.long()] = kc.reshape(B, n_pages, ps, Hkv, D).permute(3, 0, 1, 2, 4)
+    return planes
+
+
+def shuffled_table(torch, B: int, n_pages: int, seed: int):
+    """A block table (B, n_pages) int32 of distinct physical pages 1.. in a
+    seeded random order (page 0 stays the null page)."""
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randperm(B * n_pages, generator=gen) + 1).reshape(B, n_pages).to(torch.int32)
+
+
+def paged_kernel_phase(torch, dev, flush):
+    """The paged decode kernel against its plain version (page sizes 16 and
+    64, G in {1, 4, 8}, ragged lengths with 0 and an odd-page length, a
+    window-256/sink-4 spec, shuffled pages), bitwise invariance to the
+    physical page order, (0, -inf) partials for a length-0 row; then its
+    time at the serving path's decode shape beside the contiguous kernel's."""
+    from repro_torch.kernels import flash_decode as dec
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    B, S = 4, CACHE
+    lengths = [0, 1, 700, 2048]  # 700 ends inside a page at both page sizes
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    err = 0.0
+    for ps in (16, 64):
+        n_pages = S // ps
+        for G in (1, 4, 8):
+            for window, sink in ((None, 0), (256, 4)):
+                kc, vc = randn(B, S, HKV, HD), randn(B, S, HKV, HD)
+                q = randn(B * HKV, G, HD)
+                tables = [shuffled_table(torch, B, n_pages, seed).to(dev) for seed in (0, 1)]
+                parts = []
+                for table in tables:
+                    kp = paginate(torch, kc, table, B * n_pages + 1)
+                    vp = paginate(torch, vc, table, B * n_pages + 1)
+                    table = table.clone()
+                    table[0] = 0  # the length-0 slot: an all-null row
+                    parts.append(dec.flash_decode_paged(q, kp, vp, lens, table, num_splits=8,
+                                                        window=window, sink=sink))
+                torch.cuda.synchronize()
+                o_pp, lse_pp = dec.flash_decode_paged_plain(q, kp, vp, lens, table, num_splits=8,
+                                                            window=window, sink=sink)
+                (o, lse), (o2, lse2) = parts
+                eo, el = max_err(torch, o, o_pp), max_err(torch, lse, lse_pp)
+                log(f"flash_decode_paged ps={ps} G={G} window={window} sink={sink} "
+                    f"lengths={lengths} splits=8: max|o-plain|={eo:.3e} (tol {DEC_TOL['o']}), "
+                    f"max|lse-plain|={el:.3e} (tol {DEC_TOL['lse']})")
+                if not (eo <= DEC_TOL["o"] and el <= DEC_TOL["lse"]):
+                    fail(f"flash_decode_paged disagrees with its plain version at ps={ps} G={G} "
+                         f"window={window}")
+                if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                    fail("flash_decode_paged changed with the physical page order")
+                if not ((o[:HKV] == 0).all() and torch.isneginf(lse[:HKV]).all()):
+                    fail("a length-0 row must give (o = 0, lse = -inf) partials")
+                err = max(err, eo)
+    log("flash_decode_paged: partials bitwise equal under a second shuffle of the pages, "
+        "and (0, -inf) for the length-0 row, in every case")
+
+    # Timing at the serving path's decode shape, as flash_decode is timed.
+    G = HQ // HKV
+    ps, n_pages = PAGE_SIZE, PAGES_PER_SEQ
+    scale = 1.0 / math.sqrt(HD)
+    qd = ops._prep(randn(B, 1, HQ, HD), scale)
+    qh = qd.reshape(B * HKV, G, HD).contiguous()
+    kc, vc = randn(B, S, HKV, HD), randn(B, S, HKV, HD)
+    table = shuffled_table(torch, B, n_pages, 2).to(dev)
+    kp = paginate(torch, kc, table, B * n_pages + 1)
+    vp = paginate(torch, vc, table, B * n_pages + 1)
+    lens_run = torch.tensor([n + 8 for n in PROMPT_LENS[:4]], dtype=torch.int32, device=dev)
+    ns, _ = dec.paged_geometry(n_pages, 8)
+
+    def paged():
+        return dec.flash_decode_paged(qh, kp, vp, lens_run, table, num_splits=8)
+
+    def contiguous():
+        return dec.flash_decode(qh, kc, vc, lens_run, num_splits=8)
+
+    # 16 pages of 16 per split cut the cache where the contiguous kernel's
+    # 256-position chunks do, so the two kernels do the same arithmetic.
+    (o_c, lse_c), (o_p, lse_p) = contiguous(), paged()
+    log(f"flash_decode_paged vs flash_decode on the same cache at the timing shape: partials "
+        f"bitwise equal {torch.equal(o_c, o_p) and torch.equal(lse_c, lse_p)}, "
+        f"max|o diff|={max_err(torch, o_p, o_c):.3e}")
+    c_ms = [time_ms(torch, contiguous, 50, flush)]
+    p_ms = [time_ms(torch, paged, 50, flush), time_ms(torch, paged, 50, flush)]
+    c_ms.append(time_ms(torch, contiguous, 50, flush))
+    plain_ms = time_ms(torch, lambda: dec.flash_decode_paged_plain(
+        qh, kp, vp, lens_run, table, num_splits=8), 5, flush)
+    n_pos = int(lens_run.sum())
+    paged_bound, paged_by = bound(
+        4 * G * HD * n_pos * HKV,
+        n_pos * HKV * HD * 2 * 2 + B * HQ * HD * 2 + B * n_pages * 4 + B * 4
+        + B * HKV * ns * G * (HD + 1) * 4,
+    )
+    ms = sum(p_ms) / 2
+    log(f"flash_decode_paged B={B} lengths={lens_run.tolist()} {n_pages} pages of {ps} per row "
+        f"(shuffled), splits {ns}: kernel {ms:.4f} ms (runs {p_ms[0]:.4f}, {p_ms[1]:.4f}), "
+        f"plain {plain_ms:.4f} ms, bound {paged_bound:.4f} ms ({paged_by}); contiguous "
+        f"flash_decode at the same lengths, same call: {c_ms[0]:.4f}, {c_ms[1]:.4f} ms")
+    return {"flash_decode_paged": dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=paged_bound, bound_by=paged_by,
+        library_ms=None, contiguous_ms_same_call=sum(c_ms) / 2)}
+
+
 def bwd_kernel_phase(torch, dev, flush):
     """The backward kernels against their plain versions (bf16 inputs, f32
     gradients), then their times, bounds and yardsticks at the training
@@ -385,33 +525,29 @@ def bwd_kernel_phase(torch, dev, flush):
     }
 
 
-def slice_phase(torch, dev):
+def serving_prompts(cfg):
     import numpy as np
 
-    from repro_torch.configs import registry
-    from repro_torch.core.attention import AttentionConfig
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+
+
+def run_engine(torch, dev, cfg, engine, n_requests: int, path: str):
+    """Tick ``engine`` until every request has finished, with every kernel
+    launch count and plain-version call count set to 0 just before; check
+    that each request generated MAX_NEW + 1 tokens inside the vocabulary.
+    Returns the counts read just after."""
     from repro_torch.kernels import flash_decode as dec
     from repro_torch.kernels import flash_fwd as fwd
-    from repro_torch.models.lm import init_lm
-    from repro_torch.serving.engine import Request, ServingEngine
 
-    cfg = registry.get("qwen3-8b")
-    t0 = time.perf_counter()
-    model = init_lm(cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"qwen3-8b: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
-        f"params ({cfg.dtype}), initialised in {time.perf_counter() - t0:.1f} s")
-
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
-    engine = ServingEngine(cfg, model, AttentionConfig(impl="flash_cuda"),
-                           max_batch=4, cache_size=CACHE)
-    for rid, prompt in enumerate(prompts):
-        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
-
-    fwd.flash_fwd.launches = fwd.flash_fwd_plain.calls = 0
-    dec.flash_decode.launches = dec.flash_decode_plain.calls = 0
+    kernels = {"flash_fwd": fwd.flash_fwd, "flash_decode": dec.flash_decode,
+               "flash_decode_paged": dec.flash_decode_paged}
+    plains = {"flash_fwd_plain": fwd.flash_fwd_plain, "flash_decode_plain": dec.flash_decode_plain,
+              "flash_decode_paged_plain": dec.flash_decode_paged_plain}
+    for f in kernels.values():
+        f.launches = 0
+    for f in plains.values():
+        f.calls = 0
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     decode_ticks, admit_ticks = [], []  # seconds of each engine tick
@@ -423,30 +559,53 @@ def slice_phase(torch, dev):
         (admit_ticks if len(engine.queue) < queued else decode_ticks).append(
             time.perf_counter() - t_tick)
     dt = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in kernels.items()}
+    counts.update({k: f.calls for k, f in plains.items()})
     finished = engine.finished
-    counts = dict(flash_fwd=fwd.flash_fwd.launches, flash_decode=dec.flash_decode.launches,
-                  flash_fwd_plain=fwd.flash_fwd_plain.calls,
-                  flash_decode_plain=dec.flash_decode_plain.calls)
     tokens = sum(len(r.generated) for r in finished.values())
-    log(f"served {len(finished)} requests (prompt lengths {list(PROMPT_LENS)}) in "
+    log(f"{path}: served {len(finished)} requests (prompt lengths {list(PROMPT_LENS)}) in "
         f"{engine.ticks} ticks: {tokens} tokens in {dt:.3f} s = {tokens / dt:.1f} tokens/s; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     decode_ticks.sort()
-    log(f"ticks with admission (prefill + decode): {len(admit_ticks)}, "
+    log(f"{path}: ticks with admission (prefill + decode): {len(admit_ticks)}, "
         f"{sum(admit_ticks):.3f} s in all; decode-only ticks: {len(decode_ticks)}, "
         f"median {decode_ticks[len(decode_ticks) // 2] * 1e3:.2f} ms "
         f"(min {decode_ticks[0] * 1e3:.2f} ms)")
-    log(f"launches on the serving path: {counts}")
-    if sorted(finished) != list(range(len(prompts))):
-        fail(f"finished requests {sorted(finished)}")
+    log(f"launches on the {path} path: {counts}")
+    if sorted(finished) != list(range(n_requests)):
+        fail(f"{path}: finished requests {sorted(finished)}")
     for rid, req in finished.items():
         if len(req.generated) != MAX_NEW + 1 or not all(
                 0 <= t < cfg.vocab_size for t in req.generated):
-            fail(f"request {rid} generated {req.generated}")
+            fail(f"{path}: request {rid} generated {req.generated}")
+    if any(counts[k] for k in plains):
+        fail(f"a plain version ran on the {path} path")
+    return counts
+
+
+def slice_phase(torch, dev):
+    from repro_torch.configs import registry
+    from repro_torch.core.attention import AttentionConfig
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = registry.get("qwen3-8b")
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"qwen3-8b: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
+        f"params ({cfg.dtype}), initialised in {time.perf_counter() - t0:.1f} s")
+
+    prompts = serving_prompts(cfg)
+    engine = ServingEngine(cfg, model, AttentionConfig(impl="flash_cuda"),
+                           max_batch=4, cache_size=CACHE)
+    for rid, prompt in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
+
+    counts = run_engine(torch, dev, cfg, engine, len(prompts), "serving")
     if counts["flash_fwd"] <= 0 or counts["flash_decode"] <= 0:
         fail("the serving path did not launch both kernels")
-    if counts["flash_fwd_plain"] or counts["flash_decode_plain"]:
-        fail("a plain version ran on the serving path")
 
     # The dense reference on the card gives the same last-position logits,
     # for a prefill and for one decode step from the same cache.
@@ -469,23 +628,88 @@ def slice_phase(torch, dev):
     d_fl, _ = model.decode_step(step_tok, cache_fl, step_len, fl_cfg)
     compare_logits(torch, f"decode step, B=4, lengths {step_len.tolist()}", d_ref, d_fl)
     del cache_fl, cache_ref
-    return counts, decode_ticks[len(decode_ticks) // 2], cfg, model
+    return counts, cfg, model
 
 
-def compare_logits(torch, what, l_ref, l_fl) -> None:
-    """Fail unless the flash_cuda logits match the dense reference's row by
-    row: cosine >= LOGIT_COS and max|diff| <= LOGIT_REL x max|logit|."""
+def paged_slice_phase(torch, dev, cfg, model):
+    """Paged serving at full width on the model of the serving phase: the six
+    requests through PagedServingEngine with a pool of PAGED_POOL_PAGES
+    pages. Then, from one cache state, a decode step through shuffled pages
+    against the same step through the contiguous cache (both flash_cuda),
+    and a W = 4 batched admission prefill against the dense reference."""
+    from repro_torch.core.attention import AttentionConfig
+    from repro_torch.serving.engine import PagedServingEngine, Request
+
+    fl_cfg, ref_cfg = AttentionConfig(impl="flash_cuda"), AttentionConfig(impl="ref")
+    prompts = serving_prompts(cfg)
+    engine = PagedServingEngine(cfg, model, fl_cfg, max_batch=4, num_pages=PAGED_POOL_PAGES,
+                                page_size=PAGE_SIZE, pages_per_seq_max=PAGES_PER_SEQ)
+    for rid, prompt in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
+    counts = run_engine(torch, dev, cfg, engine, len(prompts), "paged_serving")
+    log(f"paged_serving: pool of {PAGED_POOL_PAGES} pages of {PAGE_SIZE} ({engine.kv_capacity()} "
+        f"positions, {engine.pool.usable_pages} usable pages) against the fixed engine's "
+        f"4 x {CACHE}; preemptions {engine.preemptions} (expected {PAGED_PREEMPTIONS}); "
+        f"pages in use at the end {engine.pool.used_pages}")
+    if engine.preemptions != PAGED_PREEMPTIONS:
+        fail(f"paged serving preempted {engine.preemptions} times, the schedule says "
+             f"{PAGED_PREEMPTIONS}")
+    if counts["flash_fwd"] <= 0 or counts["flash_decode_paged"] <= 0:
+        fail("the paged serving path did not launch the forward and paged decode kernels")
+    if counts["flash_decode"]:
+        fail("the paged serving path launched the contiguous decode kernel")
+    if engine.pool.used_pages:
+        fail("pages were still allocated after every request finished")
+
+    # One decode step from one cache state: through shuffled pages and through
+    # the contiguous cache (four rows of the prompt's cache, ragged lengths).
+    tokens_in = torch.tensor([prompts[2]], device=dev)
+    h_fl, cache_c, _ = model.prefill(tokens_in, fl_cfg, CACHE)
+    cache_c = [{"kv": {n: t.expand(4, -1, -1, -1).clone() for n, t in c["kv"].items()}}
+               for c in cache_c]
+    table = shuffled_table(torch, 4, PAGES_PER_SEQ, 3).to(dev)
+    planes = [{"kv": {n: paginate(torch, t, table, 4 * PAGES_PER_SEQ + 1)
+                      for n, t in c["kv"].items()}} for c in cache_c]
+    step_len = torch.tensor([len(prompts[2]), 1, 350, 64], dtype=torch.int32, device=dev)
+    first = int(model.logits_from_hidden(h_fl)[..., :cfg.vocab_size].argmax())
+    step_tok = torch.tensor([[first], [5], [17], [99]], device=dev)
+    d_c, _ = model.decode_step(step_tok, cache_c, step_len, fl_cfg)
+    d_p, _ = model.decode_step(step_tok, planes, step_len, fl_cfg, block_table=table)
+    compare_logits(torch, f"decode step, B=4, lengths {step_len.tolist()}", d_c, d_p,
+                   names=("contiguous cache", "shuffled pages"))
+    del cache_c, planes
+
+    # A W = 4 batched admission prefill (the admit step's shapes: prompts of
+    # one bucket right-padded, lens-masked, cache rounded up to whole pages).
+    group = [prompts[i] for i in (0, 4, 1, 5)]  # 7, 33, 100 and 260 tokens
+    pad_to = -(-max(len(p) for p in group) // engine.prompt_pad) * engine.prompt_pad
+    inputs = torch.zeros((4, pad_to), dtype=torch.long, device=dev)
+    for i, p in enumerate(group):
+        inputs[i, :len(p)] = torch.tensor(p, device=dev)
+    lens = torch.tensor([len(p) for p in group], dtype=torch.int32, device=dev)
+    cache_size = -(-pad_to // PAGE_SIZE) * PAGE_SIZE
+    h_ref, _, _ = model.prefill(inputs, ref_cfg, cache_size, lens=lens)
+    h_fl, _, _ = model.prefill(inputs, fl_cfg, cache_size, lens=lens)
+    compare_logits(torch, f"W=4 admission prefill, lengths {lens.tolist()} padded to {pad_to}",
+                   model.logits_from_hidden(h_ref), model.logits_from_hidden(h_fl))
+    return counts
+
+
+def compare_logits(torch, what, l_ref, l_fl, names=("ref", "flash_cuda")) -> None:
+    """Fail unless the second logits match the first (by default flash_cuda
+    against the dense reference) row by row: cosine >= LOGIT_COS and
+    max|diff| <= LOGIT_REL x max|logit|."""
     l_ref = l_ref.float().reshape(l_ref.shape[0], -1)
     l_fl = l_fl.float().reshape(l_fl.shape[0], -1)
     diff = (l_ref - l_fl).abs().max().item()
     top = l_ref.abs().max().item()
     cos = torch.nn.functional.cosine_similarity(l_ref, l_fl, dim=1).min().item()
     same = bool((l_ref.argmax(dim=1) == l_fl.argmax(dim=1)).all())
-    log(f"{what}, ref vs flash_cuda last-position logits: max|diff|={diff:.4f} "
+    log(f"{what}, {names[0]} vs {names[1]} last-position logits: max|diff|={diff:.4f} "
         f"(max|logit|={top:.3f}, limit {LOGIT_REL * top:.4f}), min cosine {cos:.6f} "
         f"(limit {LOGIT_COS}), same argmax {same}")
     if not (torch.isfinite(l_fl).all() and cos >= LOGIT_COS and diff <= LOGIT_REL * top):
-        fail(f"{what}: flash_cuda logits disagree with the dense reference")
+        fail(f"{what}: {names[1]} logits disagree with {names[0]}")
 
 
 def device_busy(torch, prof):
@@ -506,49 +730,85 @@ def device_busy(torch, prof):
     return busy_us, by_name, len(spans)
 
 
-def busy_share_phase(torch, cfg, model, median_tick_s: float) -> None:
-    """Device busy share of a decode tick: a fresh engine admits four short
-    requests, then a few decode-only ticks run under torch.profiler. The
-    union of the device-side events is the busy time; it is divided by the
-    profiled ticks' wall time and by the slice phase's unprofiled median."""
+def tick_phase(torch, cfg, model) -> None:
+    """Decode ticks of the two engines on one model: a fresh fixed-slot and a
+    fresh paged engine (the paged phase's pool) each admit the same four
+    short requests. Their decode-only ticks are then timed in turns, fixed,
+    paged, paged, fixed, TICK_ROUNDS times, so that the host's drift over
+    the call falls on both alike. Last, PROFILED_TICKS more ticks of each
+    run under torch.profiler: the union of the device-side events is the
+    busy time, divided by the profiled ticks' wall time and by the engine's
+    unprofiled median tick; the kernels by device time and the host
+    operators by their own host time say where the tick goes."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.attention import AttentionConfig
-    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.engine import PagedServingEngine, Request, ServingEngine
 
-    rng = np.random.default_rng(1)
-    engine = ServingEngine(cfg, model, AttentionConfig(impl="flash_cuda"),
-                           max_batch=4, cache_size=CACHE)
-    for rid, n in enumerate((7, 100, 33, 260)):
-        engine.submit(Request(rid=rid, prompt=rng.integers(1, cfg.vocab_size, n).tolist(),
-                              max_new_tokens=MAX_NEW))
-    for _ in range(3):  # admission, then two warm decode ticks
-        engine.tick()
-    torch.cuda.synchronize()
-    walls = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED_TICKS):
-            t0 = time.perf_counter()
+    fl_cfg = AttentionConfig(impl="flash_cuda")
+    engines = {
+        "fixed": ServingEngine(cfg, model, fl_cfg, max_batch=4, cache_size=CACHE),
+        "paged": PagedServingEngine(cfg, model, fl_cfg, max_batch=4,
+                                    num_pages=PAGED_POOL_PAGES, page_size=PAGE_SIZE,
+                                    pages_per_seq_max=PAGES_PER_SEQ),
+    }
+    # Enough new tokens that no request retires before the last timed tick.
+    max_new = 3 + 4 * TICK_ROUNDS + PROFILED_TICKS
+    for engine in engines.values():
+        rng = np.random.default_rng(1)
+        for rid, n in enumerate((7, 100, 33, 260)):
+            engine.submit(Request(rid=rid, prompt=rng.integers(1, cfg.vocab_size, n).tolist(),
+                                  max_new_tokens=max_new))
+        for _ in range(3):  # admission, then two warm decode ticks
             engine.tick()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-    busy_us, by_name, n_events = device_busy(torch, prof)
-    if not n_events:
-        log("decode-tick device busy share: not measured (the profiler recorded no "
-            "device events)")
-        return
-    busy_ms = busy_us / 1e3 / PROFILED_TICKS
-    wall_ms = sum(walls) / PROFILED_TICKS * 1e3
-    log(f"decode tick under torch.profiler ({PROFILED_TICKS} ticks, B=4): "
-        f"{n_events / PROFILED_TICKS:.0f} device events per tick, device busy "
-        f"{busy_ms:.3f} ms per tick; wall {wall_ms:.3f} ms per profiled tick -> busy share "
-        f"{busy_ms / wall_ms:.4f}; against the unprofiled median tick "
-        f"{median_tick_s * 1e3:.2f} ms -> busy share {busy_ms / (median_tick_s * 1e3):.4f}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    for name, us in top:
-        log(f"  device {us / 1e3 / PROFILED_TICKS:8.3f} ms/tick "
-            f"({us / 1e3 / PROFILED_TICKS / busy_ms:6.1%}): {name[:90]}")
+    torch.cuda.synchronize()
+
+    def timed_tick(engine):
+        t0 = time.perf_counter()
+        engine.tick()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    ticks = {name: [] for name in engines}
+    for _ in range(TICK_ROUNDS):
+        for name in ("fixed", "paged", "paged", "fixed"):
+            ticks[name].append(timed_tick(engines[name]))
+    median = {name: float(np.median(t)) for name, t in ticks.items()}
+    pairs = [p > f for f, p in zip(ticks["fixed"], ticks["paged"])]
+    log(f"decode-only ticks in turns (fixed, paged, paged, fixed) x {TICK_ROUNDS}, B=4: "
+        + "; ".join(f"{name} median {median[name] * 1e3:.2f} ms (quartiles "
+                    f"{np.percentile(t, 25) * 1e3:.2f}, {np.percentile(t, 75) * 1e3:.2f})"
+                    for name, t in ticks.items())
+        + f"; paged / fixed {median['paged'] / median['fixed']:.3f}, paged slower in "
+        f"{sum(pairs)} of {len(pairs)} pairs")
+
+    for name, engine in engines.items():
+        walls = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED_TICKS):
+                walls.append(timed_tick(engine))
+        busy_us, by_name, n_events = device_busy(torch, prof)
+        if not n_events:
+            log(f"{name} decode tick device busy share: not measured (the profiler recorded "
+                "no device events)")
+            continue
+        busy_ms = busy_us / 1e3 / PROFILED_TICKS
+        wall_ms = sum(walls) / PROFILED_TICKS * 1e3
+        log(f"{name} decode tick under torch.profiler ({PROFILED_TICKS} ticks, B=4): "
+            f"{n_events / PROFILED_TICKS:.0f} device events per tick, device busy "
+            f"{busy_ms:.3f} ms per tick; wall {wall_ms:.3f} ms per profiled tick -> busy share "
+            f"{busy_ms / wall_ms:.4f}; against the unprofiled median tick "
+            f"{median[name] * 1e3:.2f} ms -> busy share {busy_ms / (median[name] * 1e3):.4f}")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        for kernel, us in top:
+            log(f"  device {us / 1e3 / PROFILED_TICKS:8.3f} ms/tick "
+                f"({us / 1e3 / PROFILED_TICKS / busy_ms:6.1%}): {kernel[:90]}")
+        # Operators by their own host time (children excluded).
+        host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]
+        for e in host:
+            log(f"  host   {e.self_cpu_time_total / 1e3 / PROFILED_TICKS:8.3f} ms/tick, "
+                f"{e.count / PROFILED_TICKS:6.0f} calls/tick: {e.key[:80]}")
 
 
 def train_model_flops(cfg, batch: int, seq: int) -> float:
@@ -745,11 +1005,13 @@ def main() -> None:
 
     scratch = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     results = kernel_phase(torch, dev, scratch.zero_)
+    results.update(paged_kernel_phase(torch, dev, scratch.zero_))
     results.update(bwd_kernel_phase(torch, dev, scratch.zero_))
     del scratch
-    serve_counts, median_tick_s, cfg, model = slice_phase(torch, dev)
+    serve_counts, cfg, model = slice_phase(torch, dev)
     with torch.no_grad():
-        busy_share_phase(torch, cfg, model, median_tick_s)
+        paged_counts = paged_slice_phase(torch, dev, cfg, model)
+        tick_phase(torch, cfg, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -761,13 +1023,16 @@ def main() -> None:
     results["flash_fwd"]["at_training_shape"] = results.pop("flash_fwd_at_training_shape")
     replaces = {"flash_fwd": "src/repro/kernels/flash_fwd.py:354",
                 "flash_decode": "src/repro/kernels/flash_decode.py:77",
+                "flash_decode_paged": "src/repro/kernels/flash_decode.py:250",
                 "flash_bwd_delta": "src/repro/kernels/flash_bwd.py:80",
                 "flash_bwd_fused": "src/repro/kernels/flash_bwd.py:718"}
     source = {"flash_fwd": "flash_fwd", "flash_decode": "flash_decode",
+              "flash_decode_paged": "flash_decode",
               "flash_bwd_delta": "flash_bwd", "flash_bwd_fused": "flash_bwd"}
     kernels = []
     for k in replaces:
-        by_path = {"serving": serve_counts.get(k, 0), "training": train_counts.get(k, 0)}
+        by_path = {"serving": serve_counts.get(k, 0), "paged_serving": paged_counts.get(k, 0),
+                   "training": train_counts.get(k, 0)}
         kernels.append({
             "name": k, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source[k]}.cu",
             "replaces": replaces[k], "launches": sum(by_path.values()),

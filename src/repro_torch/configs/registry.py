@@ -55,6 +55,20 @@ def cache_specs(cfg: ModelConfig, B: int, cache: int) -> List[Dict[str, Any]]:
     return [{"kv": {"k": spec, "v": spec}} for _ in kinds]
 
 
+def paged_cache_specs(cfg: ModelConfig, num_pages: int, page_size: int) -> List[Dict[str, Any]]:
+    """Cache spec of the paged serving engine, in layer order: per layer the
+    pool's physical page planes ``{"kv": {"k", "v"}}`` of shape
+    (Hkv, num_pages, page_size, head_dim), shared by every resident sequence
+    through one block table (``serving/kv_pool.py``). Attention-only: a page
+    holds no recurrent state."""
+    kinds = cfg.layer_kinds()
+    assert cfg.family != "encdec" and cfg.ssm is None and all(
+        k in ("attn", "attn_local") for k in kinds
+    ), "paged caches serve attention-only decoder configs"
+    spec = TensorSpec((cfg.num_kv_heads, num_pages, page_size, cfg.head_dim), torch_dtype(cfg))
+    return [{"kv": {"k": spec, "v": spec}} for _ in kinds]
+
+
 def reduce_config(cfg: ModelConfig) -> ModelConfig:
     """Same family/features, tiny dims: one fwd/serve step runs on CPU.
 

@@ -60,6 +60,35 @@ def decode_attention(q, k_cache, v_cache, cache_length,
                             sink=sink, scale=scale)[0]
 
 
+def decode_attention_paged(q, k_pages, v_pages, cache_length, block_table,
+                           cfg: AttentionConfig = AttentionConfig(), *,
+                           window: Optional[int] = None, sink: int = 0,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token decode against a *paged* cache: the pool's page planes
+    k/v_pages (Hkv,P,ps,D) read through block_table (B, n_pages) int32
+    (``serving/kv_pool.py``); cache_length (B,) logical lengths. Returns
+    (B,1,Hq,D). A row of length 0 (an inactive slot, all-null table) reads
+    no K/V on the kernel path and gives 0.
+
+    ``ref`` gathers the table's pages into a contiguous (B, n_pages*ps, Hkv,
+    D) view and runs the dense oracle, as ``repro/core/decode.py:103
+    flash_decode_paged`` gathers for its split decode. The split fan-out is
+    ``ops.DEFAULT_DECODE_SPLITS``: the TPU-tuned cache is not consulted."""
+    if cfg.impl == "ref":
+        B, n_pages = block_table.shape
+        Hk, _, ps, D = k_pages.shape
+        tbl = block_table.to(k_pages.device).long()
+
+        def gather(pages):  # (Hk, B, n_pages, ps, D) -> (B, n_pages*ps, Hk, D)
+            return pages[:, tbl].permute(1, 2, 3, 0, 4).reshape(B, n_pages * ps, Hk, D)
+
+        return _decode_reference(q, gather(k_pages), gather(v_pages), cache_length,
+                                 window=window, sink=sink, scale=scale)
+    return ops.flash_decode_paged(q, k_pages, v_pages, cache_length, block_table,
+                                  window=window, sink=sink, scale=scale,
+                                  num_splits=ops.DEFAULT_DECODE_SPLITS)[0]
+
+
 def _decode_reference(q, k_cache, v_cache, cache_length, *, window, sink, scale):
     """Row by row through the dense oracle, the query at position L - 1."""
     out = torch.zeros_like(q)

@@ -1,30 +1,46 @@
-// Split-KV flash decode for Hopper (sm_90a): one new token per sequence.
+// Split-KV flash decode for Hopper (sm_90a): one new token per sequence,
+// against a contiguous cache or through a block table into a page pool.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py:77
-// flash_decode_kernel (body _decode_kernel :34), without packed-cache
-// segments. Grid (batch * kv heads, splits): each CTA runs the G q heads of
-// one GQA group against one ceil-div, 8-aligned chunk of the cache and
-// writes a locally normalized f32 partial (o, lse) in the JAX layout,
-// o_parts (B*Hkv, ns, G, D) and lse_parts (B*Hkv, ns, G); the caller folds
-// the splits with combine_lse_outputs.
+// Two entries share one tile body (decode_split), templated on how a cache
+// row's address is found:
+//   * fa2_decode_bf16 replaces the Pallas TPU kernel
+//     src/repro/kernels/flash_decode.py:77 flash_decode_kernel (body
+//     _decode_kernel :34), without packed-cache segments. It reads the
+//     (B, S, Hkv, D) serving cache in place: row g of (b, h) sits at
+//     base + g * stride. Splits are ceil-div, 8-aligned chunks of S.
+//   * fa2_decode_paged_bf16 replaces src/repro/kernels/flash_decode.py:250
+//     flash_decode_paged_kernel (body _paged_decode_kernel :161). K/V live
+//     in the pool's page planes (Hkv, P, ps, D); logical row g of sequence
+//     b sits in physical page tbl[b, g / ps] at offset g % ps. Split c
+//     covers the pp logical pages [c * pp, c * pp + pp), the JAX geometry
+//     (ns = ceil(n_pages / pp)). The CTA reads its split's pp table entries
+//     once into shared memory.
+// Grid (batch * kv heads, splits): each CTA runs the G q heads of one GQA
+// group against one split and writes a locally normalized f32 partial
+// (o, lse) in the JAX layout, o_parts (B*Hkv, ns, G, D) and lse_parts
+// (B*Hkv, ns, G); the caller folds the splits with combine_lse_outputs.
 //
 // What bounds it on an H100: decode does 4 * G * D flops per cached
 // position against 2 * D * 2 bytes of K/V, so it is bound by HBM (3.35
 // TB/s) by two orders of magnitude. The design therefore tries to move only
 // the bytes the data needs, once, with many of them in flight:
-//   * K/V are read in place from the (B, S, Hkv, D) cache with its strides
-//     (the JAX wrapper transposed the whole cache to head-major every step);
+//   * K/V are read in place (the JAX wrapper transposed the whole contiguous
+//     cache to head-major every step);
 //   * one K/V row is read once for all G q heads of its group;
 //   * positions at or past the sequence's length, and whole 64-row tiles
 //     outside the sliding window, are never read, so a short sequence in a
-//     long cache costs what its length costs;
+//     long cache costs what its length costs; the paged entry reads no row
+//     that is not visible at all, so a page with no visible column, and a
+//     slot of length 0, cost no K/V traffic;
 //   * each 64-row K and V tile is copied to shared memory with cp.async,
-//     every 16-byte chunk of it in flight at once, in a two-stage ring so
-//     the next tile's copy overlaps this tile's math; scores and P V then
-//     read shared memory only.
+//     every 16-byte chunk of it in flight at once (with pages, each chunk's
+//     source comes from its row's page), in a two-stage ring so the next
+//     tile's copy overlaps this tile's math; scores and P V then read
+//     shared memory only.
 // Scores are f32 dot products of bf16 values; P is rounded to bf16 before
-// P V, as the JAX kernel does. Splits with no visible position give
-// (o = 0, lse = -inf).
+// P V, as the JAX kernels do. Splits with no visible position give
+// (o = 0, lse = -inf). The arithmetic depends on logical positions only, so
+// the physical order of pages does not change a paged result by one bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,6 +66,42 @@ struct DecodeParams {
   int window, sink;  // window < 0: no window
 };
 
+struct PagedParams {
+  const __nv_bfloat16* q;  // (B * Hkv, G, D), pre-scaled, contiguous
+  const __nv_bfloat16* k;  // (Hkv, P, ps, D) page planes, contiguous
+  const __nv_bfloat16* v;
+  const int* lengths;  // (B,)
+  const int* table;    // (B, n_pages) physical page of each logical page
+  float* o_parts;      // (B * Hkv, ns, G, D)
+  float* lse_parts;    // (B * Hkv, ns, G)
+  int Hkv, G, P, ps, n_pages, pp, ns;
+  int window, sink;  // window < 0: no window
+};
+
+// Row g of one kv head in a contiguous cache.
+struct ContiguousRows {
+  const __nv_bfloat16* base;
+  long long stride;
+  __device__ __forceinline__ const __nv_bfloat16* operator()(int g) const {
+    return base + g * stride;
+  }
+  __device__ __forceinline__ const __nv_bfloat16* any() const { return base; }
+};
+
+// Logical row g of one kv head through the split's table entries (logical
+// pages page0 .. page0 + pp - 1, in shared memory).
+template <int D>
+struct PagedRows {
+  const __nv_bfloat16* plane;  // (P, ps, D) of this kv head
+  const int* tbl;
+  int page0, ps;
+  __device__ __forceinline__ const __nv_bfloat16* operator()(int g) const {
+    const long long page = tbl[g / ps - page0];
+    return plane + (page * ps + g % ps) * D;
+  }
+  __device__ __forceinline__ const __nv_bfloat16* any() const { return plane; }
+};
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
@@ -64,16 +116,17 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Copy cache rows [row0, row0 + kTile) of one kv head into shared memory;
-// rows at or past `end` are zero-filled and never read from global memory.
-template <int D, int STRIDE>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long stride, int row0, int end) {
+// rows for which load(g) is false are zero-filled and never read from
+// global memory.
+template <int D, int STRIDE, class Rows, class Load>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const Rows& rows, int row0,
+                                          const Load& load) {
   constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
   for (int idx = threadIdx.x; idx < kTile * CHUNKS; idx += D) {
     const int r = idx / CHUNKS, c = idx % CHUNKS;
     const int g = row0 + r;
-    const bool valid = g < end;
-    cp_async16(dst + r * STRIDE + c * 8, valid ? src + g * stride + c * 8 : src, valid);
+    const bool valid = load(g);
+    cp_async16(dst + r * STRIDE + c * 8, valid ? rows(g) + c * 8 : rows.any(), valid);
   }
 }
 
@@ -89,17 +142,20 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// blockDim.x == D: one thread per output column in P V, and D / 64 threads
-// per cache row (64 elements each) for the scores.
-template <int D>
-__global__ void __launch_bounds__(D) fa2_decode_kernel(const DecodeParams p) {
+// One CTA's split: the G q heads at qg against rows [lo, end) (nothing at or
+// past `end` is visible), with the window counted back from L. blockDim.x ==
+// D: one thread per output column in P V, and D / 64 threads per cache row
+// (64 elements each) for the scores. Writes o_out (G, D) and lse_out (G).
+template <int D, class Rows, class Load>
+__device__ __forceinline__ void decode_split(const __nv_bfloat16* qg, const Rows& krows,
+                                             const Rows& vrows, const Load& load, int G, int L,
+                                             int lo, int end, int window, int sink, float* o_out,
+                                             float* lse_out, __nv_bfloat16* sK,
+                                             __nv_bfloat16* sV) {
   constexpr int NWARPS = D / 32;
   constexpr int TPR = D / 64;     // threads per cache row in the scores
   constexpr int STRIDE = D + 8;   // padded row: 16-byte reads hit distinct banks
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][kTile][STRIDE]
-  __nv_bfloat16* sV = sK + 2 * kTile * STRIDE;                     // [2][kTile][STRIDE]
   __shared__ __align__(16) float sq[kMaxGroup][D];
   __shared__ float sp[kMaxGroup][kTile];
   __shared__ float s_alpha[kMaxGroup];
@@ -107,34 +163,25 @@ __global__ void __launch_bounds__(D) fa2_decode_kernel(const DecodeParams p) {
   __shared__ float s_l[kMaxGroup];
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int bhk = blockIdx.x, split = blockIdx.y;
-  const int b = bhk / p.Hkv, hk = bhk % p.Hkv;
-  const int G = p.G;
-  const int L = min(p.lengths[b], p.S);
-  const int lo = split * p.chunk;
-  const int end = min(min(lo + p.chunk, p.S), L);  // past it nothing is visible
-  const int win_lo = p.window < 0 ? 0 : L - p.window;  // first in-window position
+  const int win_lo = window < 0 ? 0 : L - window;  // first in-window position
   const int ntiles = lo < end ? (end - lo + kTile - 1) / kTile : 0;
-  const __nv_bfloat16* kg = p.k + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* vg = p.v + b * p.v_sb + hk * p.v_sh;
 
   // A tile wholly before the window and past the sink holds nothing visible.
   auto next_tile = [&](int t) {
     for (; t < ntiles; ++t) {
       const int c0 = lo + t * kTile;
-      if (!(min(c0 + kTile, end) <= win_lo && c0 >= p.sink)) break;
+      if (!(min(c0 + kTile, end) <= win_lo && c0 >= sink)) break;
     }
     return t;
   };
 
   int t = next_tile(0);
   if (t < ntiles) {
-    load_tile<D, STRIDE>(sK, kg, p.k_ss, lo + t * kTile, end);
-    load_tile<D, STRIDE>(sV, vg, p.v_ss, lo + t * kTile, end);
+    load_tile<D, STRIDE>(sK, krows, lo + t * kTile, load);
+    load_tile<D, STRIDE>(sV, vrows, lo + t * kTile, load);
     cp_async_commit();
   }
-  for (int i = tid; i < G * D; i += D)
-    sq[i / D][i % D] = __bfloat162float(p.q[static_cast<long long>(bhk) * G * D + i]);
+  for (int i = tid; i < G * D; i += D) sq[i / D][i % D] = __bfloat162float(qg[i]);
   if (tid < kMaxGroup) {
     s_m[tid] = -INFINITY;
     s_l[tid] = 0.f;
@@ -149,8 +196,8 @@ __global__ void __launch_bounds__(D) fa2_decode_kernel(const DecodeParams p) {
   while (t < ntiles) {
     const int tn = next_tile(t + 1);
     if (tn < ntiles) {
-      load_tile<D, STRIDE>(sK + (stage ^ 1) * kTile * STRIDE, kg, p.k_ss, lo + tn * kTile, end);
-      load_tile<D, STRIDE>(sV + (stage ^ 1) * kTile * STRIDE, vg, p.v_ss, lo + tn * kTile, end);
+      load_tile<D, STRIDE>(sK + (stage ^ 1) * kTile * STRIDE, krows, lo + tn * kTile, load);
+      load_tile<D, STRIDE>(sV + (stage ^ 1) * kTile * STRIDE, vrows, lo + tn * kTile, load);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -191,7 +238,7 @@ __global__ void __launch_bounds__(D) fa2_decode_kernel(const DecodeParams p) {
     }
     const int c = c0 + r;
     const bool in_tile = c < c1;
-    const bool vis = in_tile && (p.window < 0 || c >= win_lo || c < p.sink);
+    const bool vis = in_tile && (window < 0 || c >= win_lo || c < sink);
     if (part == 0) {
 #pragma unroll
       for (int g = 0; g < kMaxGroup; ++g)
@@ -235,26 +282,86 @@ __global__ void __launch_bounds__(D) fa2_decode_kernel(const DecodeParams p) {
     stage ^= 1;
   }
 
-  const long long part_idx = static_cast<long long>(bhk) * p.ns + split;
 #pragma unroll
   for (int g = 0; g < kMaxGroup; ++g) {
     if (g >= G) break;
     const float l = any ? s_l[g] : 0.f;
     const float l_safe = l == 0.f ? 1.f : l;
-    p.o_parts[(part_idx * G + g) * D + tid] = any ? acc[g] / l_safe : 0.f;
-    if (tid == 0) p.lse_parts[part_idx * G + g] = l == 0.f ? -INFINITY : s_m[g] + logf(l_safe);
+    o_out[g * D + tid] = any ? acc[g] / l_safe : 0.f;
+    if (tid == 0) lse_out[g] = l == 0.f ? -INFINITY : s_m[g] + logf(l_safe);
   }
 }
 
 template <int D>
-cudaError_t launch(const DecodeParams& p, int bhk, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(4) * kTile * (D + 8) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(fa2_decode_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+constexpr size_t ring_bytes() {  // two stages of K and V tiles
+  return static_cast<size_t>(4) * kTile * (D + 8) * sizeof(__nv_bfloat16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(D) fa2_decode_kernel(const DecodeParams p) {
+  constexpr int STRIDE = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][kTile][STRIDE]
+  __nv_bfloat16* sV = sK + 2 * kTile * STRIDE;                     // [2][kTile][STRIDE]
+
+  const int bhk = blockIdx.x, split = blockIdx.y;
+  const int b = bhk / p.Hkv, hk = bhk % p.Hkv;
+  const int L = min(p.lengths[b], p.S);
+  const int lo = split * p.chunk;
+  const int end = min(min(lo + p.chunk, p.S), L);  // past it nothing is visible
+  const ContiguousRows krows{p.k + b * p.k_sb + hk * p.k_sh, p.k_ss};
+  const ContiguousRows vrows{p.v + b * p.v_sb + hk * p.v_sh, p.v_ss};
+  const auto load = [end](int g) { return g < end; };
+  const long long part_idx = static_cast<long long>(bhk) * p.ns + split;
+  decode_split<D>(p.q + static_cast<long long>(bhk) * p.G * D, krows, vrows, load, p.G, L, lo,
+                  end, p.window, p.sink, p.o_parts + part_idx * p.G * D,
+                  p.lse_parts + part_idx * p.G, sK, sV);
+}
+
+template <int D>
+__global__ void __launch_bounds__(D) fa2_decode_paged_kernel(const PagedParams p) {
+  constexpr int STRIDE = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][kTile][STRIDE]
+  __nv_bfloat16* sV = sK + 2 * kTile * STRIDE;                     // [2][kTile][STRIDE]
+  int* s_tbl = reinterpret_cast<int*>(sV + 2 * kTile * STRIDE);    // [pp]
+
+  const int bhk = blockIdx.x, split = blockIdx.y;
+  const int b = bhk / p.Hkv, hk = bhk % p.Hkv;
+  const int S = p.n_pages * p.ps;  // logical capacity: no column past it exists
+  const int L = min(p.lengths[b], S);
+  const int page0 = split * p.pp;
+  const int lo = page0 * p.ps;
+  const int end = min(min(lo + p.pp * p.ps, S), L);  // past it nothing is visible
+  const int n_tbl = min(p.pp, p.n_pages - page0);
+  for (int i = threadIdx.x; i < n_tbl; i += D) {
+    const int page = p.table[static_cast<long long>(b) * p.n_pages + page0 + i];
+    // An id outside the pool reads the null page rather than past the planes.
+    s_tbl[i] = (page >= 0 && page < p.P) ? page : 0;
+  }
+  __syncthreads();
+
+  const long long plane = static_cast<long long>(hk) * p.P * p.ps * D;
+  const PagedRows<D> krows{p.k + plane, s_tbl, page0, p.ps};
+  const PagedRows<D> vrows{p.v + plane, s_tbl, page0, p.ps};
+  const int win_lo = p.window < 0 ? 0 : L - p.window;
+  const int window = p.window, sink = p.sink;
+  // Only visible rows are fetched: below the length, and inside the window
+  // or the sink.
+  const auto load = [=](int g) { return g < end && (window < 0 || g >= win_lo || g < sink); };
+  const long long part_idx = static_cast<long long>(bhk) * p.ns + split;
+  decode_split<D>(p.q + static_cast<long long>(bhk) * p.G * D, krows, vrows, load, p.G, L, lo,
+                  end, p.window, p.sink, p.o_parts + part_idx * p.G * D,
+                  p.lse_parts + part_idx * p.G, sK, sV);
+}
+
+template <class Kernel, class Params>
+cudaError_t launch(Kernel kernel, const Params& p, dim3 grid, int threads, size_t smem,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(bhk, p.ns);
-  fa2_decode_kernel<D><<<grid, D, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -277,5 +384,27 @@ extern "C" int fa2_decode_bf16(const void* q, const void* k, const void* v, cons
   p.Hkv = Hkv; p.G = G; p.S = S; p.chunk = chunk; p.ns = ns;
   p.window = window; p.sink = sink;
   if (G < 1 || G > kMaxGroup || head_dim != 128) return cudaErrorInvalidValue;
-  return launch<128>(p, batch * Hkv, static_cast<cudaStream_t>(stream));
+  return launch(fa2_decode_kernel<128>, p, dim3(batch * Hkv, ns), 128, ring_bytes<128>(),
+                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fa2_decode_paged_bf16(const void* q, const void* k_pages, const void* v_pages,
+                                     const void* lengths, const void* table, void* o_parts,
+                                     void* lse_parts, int batch, int Hkv, int G, int P, int ps,
+                                     int n_pages, int head_dim, int pp, int ns, int window,
+                                     int sink, void* stream) {
+  PagedParams p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k_pages);
+  p.v = static_cast<const __nv_bfloat16*>(v_pages);
+  p.lengths = static_cast<const int*>(lengths);
+  p.table = static_cast<const int*>(table);
+  p.o_parts = static_cast<float*>(o_parts);
+  p.lse_parts = static_cast<float*>(lse_parts);
+  p.Hkv = Hkv; p.G = G; p.P = P; p.ps = ps; p.n_pages = n_pages; p.pp = pp; p.ns = ns;
+  p.window = window; p.sink = sink;
+  if (G < 1 || G > kMaxGroup || head_dim != 128 || ps < 1 || pp < 1) return cudaErrorInvalidValue;
+  const size_t smem = ring_bytes<128>() + static_cast<size_t>(pp) * sizeof(int);
+  return launch(fa2_decode_paged_kernel<128>, p, dim3(batch * Hkv, ns), 128, smem,
+                static_cast<cudaStream_t>(stream));
 }

@@ -1,19 +1,25 @@
-"""Split-KV flash decode: the Hopper CUDA kernel and its plain version.
+"""Split-KV flash decode: the Hopper CUDA kernels and their plain versions.
 
-Replaces the Pallas TPU kernel ``repro/kernels/flash_decode.py:77
-flash_decode_kernel`` (packed-cache segments not yet ported). The kernel
-source is ``csrc/flash_decode.cu``; its header says what bounds it on an
-H100 and how the design answers.
+Two kernels, both in ``csrc/flash_decode.cu`` (its header says what bounds
+them on an H100 and how the design answers):
 
-Layouts: q (B*Hkv, G, D) pre-scaled, the G q heads of each kv head
-together; k/v the contiguous serving cache (B, S, Hkv, D), read in place;
-lengths (B,) int32 valid entries per row. Returns per-split partials in the
-JAX layout, o_parts (B*Hkv, ns, G, D) f32 and lse_parts (B*Hkv, ns, G) f32,
-for ``online_softmax.combine_lse_outputs`` to fold.
+* :func:`flash_decode` replaces the Pallas TPU kernel
+  ``repro/kernels/flash_decode.py:77 flash_decode_kernel`` (packed-cache
+  segments not yet ported). k/v are the contiguous serving cache
+  (B, S, Hkv, D), read in place. Its split geometry is the kernel's
+  (ceil-div, 8-aligned chunks with a masked tail), not ``core/decode.py``'s
+  (which degrades ``num_splits`` until it divides S): :func:`decode_geometry`.
+* :func:`flash_decode_paged` replaces ``flash_decode.py:250
+  flash_decode_paged_kernel``. k/v are the page pool's planes
+  (Hkv, P, page_size, D), read through an int32 block table (B, n_pages) of
+  physical page ids (0 = the null page); each split covers ``pp`` logical
+  pages, the JAX geometry: :func:`paged_geometry`.
 
-The split geometry is the kernel's (ceil-div, 8-aligned chunks with a
-masked tail), not ``core/decode.py``'s (which degrades ``num_splits`` until
-it divides S): :func:`decode_geometry`.
+Common layouts: q (B*Hkv, G, D) pre-scaled, the G q heads of each kv head
+together; lengths (B,) int32 visible entries per row (the JAX kernels take
+them repeated per kv head). Both return per-split partials in the JAX
+layout, o_parts (B*Hkv, ns, G, D) f32 and lse_parts (B*Hkv, ns, G) f32, for
+``online_softmax.combine_lse_outputs`` to fold.
 """
 
 from __future__ import annotations
@@ -83,6 +89,14 @@ flash_decode.launches = 0  # kernel launches (CUDA tensors only)
 
 
 def _check_kernel_inputs(q, k, v, lengths):
+    _check_kernel_common(q, k, v, lengths)
+    for name, t in (("k", k), ("v", v)):
+        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(f"{name} needs a unit last stride and the others multiples "
+                             f"of 8, got strides {t.stride()}")
+
+
+def _check_kernel_common(q, k, v, lengths):
     for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -93,10 +107,6 @@ def _check_kernel_inputs(q, k, v, lengths):
             raise ValueError(f"{name} must be 16-byte aligned")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous (B*Hkv, G, D)")
-    for name, t in (("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]):
-            raise ValueError(f"{name} needs a unit last stride and the others multiples "
-                             f"of 8, got strides {t.stride()}")
     if lengths.dtype != torch.int32 or not lengths.is_contiguous():
         raise TypeError("lengths must be a contiguous int32 tensor")
     if q.shape[2] not in KERNEL_HEAD_DIMS:
@@ -113,6 +123,8 @@ def _lib():
     P, I, L = _build.VOIDP, _build.INT, _build.I64
     lib.fa2_decode_bf16.argtypes = [P] * 6 + [L] * 6 + [I] * 9 + [P]
     lib.fa2_decode_bf16.restype = ctypes.c_int
+    lib.fa2_decode_paged_bf16.argtypes = [P] * 7 + [I] * 11 + [P]
+    lib.fa2_decode_paged_bf16.restype = ctypes.c_int
     return lib
 
 
@@ -156,3 +168,134 @@ def flash_decode_plain(q, k, v, lengths, *, num_splits: int = 8,
 
 
 flash_decode_plain.calls = 0
+
+
+# Table entries a CTA stages in shared memory beside its K/V ring (68 KB):
+# 16,384 of them keep the CTA within the H100's 227 KB.
+KERNEL_MAX_PAGES_PER_SPLIT = 16384
+
+
+def paged_geometry(n_pages: int, num_splits: int):
+    """(ns, pp): ``ns`` splits of ``pp`` logical pages each over a block
+    table of ``n_pages`` columns, as ``flash_decode_paged_kernel`` resolves
+    them (the last split may hold fewer)."""
+    ns = max(1, min(num_splits, n_pages))
+    pp = -(-n_pages // ns)
+    return -(-n_pages // pp), pp
+
+
+def _check_paged_layout(q, k_pages, v_pages, lengths, block_table):
+    if q.ndim != 3 or k_pages.ndim != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"want q (B*Hkv,G,D), k/v pages (Hkv,P,ps,D); got "
+                         f"{tuple(q.shape)}, {tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
+    Hkv, _, _, D = k_pages.shape
+    if block_table.ndim != 2:
+        raise ValueError(f"want block_table (B, n_pages), got {tuple(block_table.shape)}")
+    B = block_table.shape[0]
+    if q.shape[0] != B * Hkv or q.shape[2] != D or lengths.shape != (B,):
+        raise ValueError(f"q {tuple(q.shape)} / lengths {tuple(lengths.shape)} / table "
+                         f"{tuple(block_table.shape)} do not match the pages {tuple(k_pages.shape)}")
+
+
+def flash_decode_paged(q, k_pages, v_pages, lengths, block_table, *, num_splits: int = 8,
+                       window: Optional[int] = None, sink: int = 0):
+    """Per-split decode partials read through a block table. See the module
+    docstring for layouts. The table is trusted (the serving engine builds
+    it): an entry outside the pool reads the null page on the card."""
+    _check_paged_layout(q, k_pages, v_pages, lengths, block_table)
+    if q.device.type == "cpu":
+        return flash_decode_paged_plain(q, k_pages, v_pages, lengths, block_table,
+                                        num_splits=num_splits, window=window, sink=sink)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_paged runs on cuda (kernel) or cpu (plain), "
+                         f"not {q.device}")
+    Hkv, P, ps, D = k_pages.shape
+    B, n_pages = block_table.shape
+    G = q.shape[1]
+    _check_kernel_common(q, k_pages, v_pages, lengths)
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages), ("block_table", block_table)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if block_table.dtype != torch.int32 or block_table.device != q.device:
+        raise TypeError(f"block_table must be int32 on {q.device}")
+    ns, pp = paged_geometry(n_pages, num_splits)
+    if pp > KERNEL_MAX_PAGES_PER_SPLIT:
+        raise ValueError(f"{pp} pages per split exceed the kernel's "
+                         f"{KERNEL_MAX_PAGES_PER_SPLIT}; use more splits")
+    o_parts = torch.empty((B * Hkv, ns, G, D), dtype=torch.float32, device=q.device)
+    lse_parts = torch.empty((B * Hkv, ns, G), dtype=torch.float32, device=q.device)
+    err = _lib().fa2_decode_paged_bf16(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
+        block_table.data_ptr(), o_parts.data_ptr(), lse_parts.data_ptr(),
+        B, Hkv, G, P, ps, n_pages, D, pp, ns,
+        -1 if window is None else int(window), int(sink),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "fa2_decode_paged_bf16")
+    flash_decode_paged.launches += 1
+    return o_parts, lse_parts
+
+
+flash_decode_paged.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def flash_decode_paged_plain(q, k_pages, v_pages, lengths, block_table, *,
+                             num_splits: int = 8, window: Optional[int] = None,
+                             sink: int = 0):
+    """The JAX paged decode kernel's function in plain PyTorch: every
+    (row, split) at once, a loop over the ``pp`` logical pages of a split,
+    each page one online-softmax step as in ``_paged_decode_kernel``: a page
+    with no visible column is skipped, masked columns of an active page take
+    DEFAULT_MASK_VALUE, alpha = 0 while the running max is -inf, P is cast
+    to the cache dtype before P V, and a split that saw nothing gives
+    (0, -inf)."""
+    flash_decode_paged_plain.calls += 1
+    _check_paged_layout(q, k_pages, v_pages, lengths, block_table)
+    Hk, _, ps, D = k_pages.shape
+    B, n_pages = block_table.shape
+    G = q.shape[1]
+    ns, pp = paged_geometry(n_pages, num_splits)
+    dev = q.device
+    qf = q.float().reshape(B, Hk, 1, G, D)
+    L = lengths.to(dev).long().reshape(B, 1, 1)
+    tbl = block_table.to(dev).long()
+    heads = torch.arange(Hk, device=dev).reshape(1, Hk, 1)
+    splits = torch.arange(ns, device=dev)
+    m = torch.full((B, Hk, ns, G, 1), float("-inf"), device=dev)
+    l = torch.zeros((B, Hk, ns, G, 1), device=dev)
+    acc = torch.zeros((B, Hk, ns, G, D), device=dev)
+    for p in range(pp):
+        logical = splits * pp + p  # (ns,) logical page of this step in each split
+        exists = logical < n_pages
+        phys = tbl[:, logical.clamp(max=n_pages - 1)]  # (B, ns)
+        k = k_pages[heads, phys[:, None]].float()  # (B, Hk, ns, ps, D)
+        v = v_pages[heads, phys[:, None]]
+        base = (logical * ps).reshape(1, ns, 1)
+        active = exists.reshape(1, ns, 1) & (base < L)  # (B, ns, 1)
+        cols = base + torch.arange(ps, device=dev)  # (1, ns, ps)
+        valid = cols < L
+        if window is not None:
+            in_win = base + ps > L - window
+            col_win = cols >= L - window
+            if sink:
+                in_win = in_win | (base < sink)
+                col_win = col_win | (cols < sink)
+            active = active & in_win
+            valid = valid & col_win
+        s = torch.einsum("bhngd,bhncd->bhngc", qf.expand(-1, -1, ns, -1, -1), k)
+        s = s.masked_fill(~valid[:, None, :, None, :], DEFAULT_MASK_VALUE)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.where(torch.isneginf(m), torch.zeros_like(m), torch.exp(m - m_new))
+        pexp = torch.exp(s - m_new)
+        pv = torch.einsum("bhngc,bhncd->bhngd", pexp.to(v.dtype).float(), v.float())
+        on = active[:, None, :, None, :]  # (B, 1, ns, 1, 1)
+        l = torch.where(on, l * alpha + pexp.sum(dim=-1, keepdim=True), l)
+        acc = torch.where(on, acc * alpha + pv, acc)
+        m = torch.where(on, m_new, m)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    o = acc / l_safe
+    lse = torch.where(l == 0.0, torch.full_like(l, float("-inf")), m + torch.log(l_safe))
+    return o.reshape(B * Hk, ns, G, D), lse.reshape(B * Hk, ns, G)
+
+
+flash_decode_paged_plain.calls = 0

@@ -116,6 +116,23 @@ def flash_attention(
     )[0]
 
 
+def _split_decode(what, q, k, v, Hk, scale, run):
+    """The common frame of the decode kernels: q pre-scaled and laid out
+    (B*Hkv, G, D), ``run(qh)`` for the per-split partials, the split merge.
+    Returns (o (B,1,Hq,D), lse (B,Hq,1))."""
+    if any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(f"{what} is forward-only, as in the JAX package")
+    B, one, Hq, D = q.shape
+    if one != 1:
+        raise ValueError(f"{what} is a single-token step; q must be (B, 1, Hq, D)")
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qh = _prep(q, scale).reshape(B * Hk, Hq // Hk, D).contiguous()
+    o_parts, lse_parts = run(qh)
+    o, lse = combine_lse_outputs(o_parts.movedim(1, 0), lse_parts.movedim(1, 0))
+    return o.reshape(B, 1, Hq, D).to(q.dtype), lse.reshape(B, Hq, 1)
+
+
 def flash_decode(
     q, k_cache, v_cache, cache_length, *,
     window: Optional[int] = None, sink: int = 0, scale: Optional[float] = None,
@@ -124,19 +141,27 @@ def flash_decode(
     """Split-KV decode. q (B,1,Hq,D); caches (B,S,Hkv,D); cache_length (B,)
     valid entries. Returns (o (B,1,Hq,D), lse (B,Hq,1)), the counterpart of
     ``flash_decode_pallas``."""
-    if any(t.requires_grad for t in (q, k_cache, v_cache)):
-        raise NotImplementedError("split-KV decode is forward-only, as in the JAX package")
-    B, one, Hq, D = q.shape
-    if one != 1:
-        raise ValueError("flash_decode is a single-token step; q must be (B, 1, Hq, D)")
-    Hk = k_cache.shape[2]
-    G = Hq // Hk
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
-    qh = _prep(q, scale).reshape(B * Hk, G, D).contiguous()
     lengths = cache_length.to(device=q.device, dtype=torch.int32).contiguous()
-    o_parts, lse_parts = _dec.flash_decode(
-        qh, k_cache, v_cache, lengths, num_splits=num_splits, window=window, sink=sink
+    return _split_decode(
+        "split-KV decode", q, k_cache, v_cache, k_cache.shape[2], scale,
+        lambda qh: _dec.flash_decode(qh, k_cache, v_cache, lengths, num_splits=num_splits,
+                                     window=window, sink=sink),
     )
-    o, lse = combine_lse_outputs(o_parts.movedim(1, 0), lse_parts.movedim(1, 0))
-    return o.reshape(B, 1, Hq, D).to(q.dtype), lse.reshape(B, Hq, 1)
+
+
+def flash_decode_paged(
+    q, k_pages, v_pages, cache_length, block_table, *,
+    window: Optional[int] = None, sink: int = 0, scale: Optional[float] = None,
+    num_splits: int = DEFAULT_DECODE_SPLITS,
+):
+    """Page-indirect split-KV decode. q (B,1,Hq,D); k/v_pages (Hkv,P,ps,D)
+    pool planes; cache_length (B,) logical lengths; block_table (B, n_pages)
+    int32 physical page ids (0 = the null page). Returns (o (B,1,Hq,D),
+    lse (B,Hq,1)), the counterpart of ``flash_decode_paged_pallas``."""
+    lengths = cache_length.to(device=q.device, dtype=torch.int32).contiguous()
+    table = block_table.to(device=q.device, dtype=torch.int32).contiguous()
+    return _split_decode(
+        "paged decode", q, k_pages, v_pages, k_pages.shape[0], scale,
+        lambda qh: _dec.flash_decode_paged(qh, k_pages, v_pages, lengths, table,
+                                           num_splits=num_splits, window=window, sink=sink),
+    )

@@ -1,9 +1,16 @@
 """Serving driver of the port: build a model with random weights from a seed
-and run the fixed-slot engine over a synthetic stream of requests.
+and run a continuous-batching engine over a synthetic stream of requests.
 
 Usage:
   python -m repro_torch.launch.serve --arch qwen3-8b --reduce --device cpu
+  python -m repro_torch.launch.serve --arch qwen3-8b --reduce --device cpu --engine paged
   python -m repro_torch.launch.serve --arch qwen3-8b --requests 6 --cache 2048
+  python -m repro_torch.launch.serve --arch qwen3-8b --engine paged \
+      --num-pages 150 --page-size 16 --pages-per-seq 128
+
+``--engine fixed`` (default) reserves a worst-case contiguous cache slot
+per request; ``--engine paged`` serves from a shared page pool and decodes
+through a block table (attention-only archs).
 
 ``--device cuda`` (the default) needs a card and raises without one; the
 CUDA kernels take bfloat16 at head_dim 128, so on the card serve a
@@ -23,7 +30,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.core.attention import IMPLS, AttentionConfig
 from repro_torch.models.lm import init_lm
-from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.engine import PagedServingEngine, Request, ServingEngine
 
 
 def main(argv=None):
@@ -37,14 +44,29 @@ def main(argv=None):
     ap.add_argument("--attn", choices=IMPLS, default="flash_cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--engine", choices=("fixed", "paged"), default="fixed")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="paged: pool size; default matches the fixed "
+                         "engine's memory (max_batch * cache / page_size + 1)")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--pages-per-seq", type=int, default=None,
+                    help="paged: block-table width; default cache/page_size")
     args = ap.parse_args(argv)
 
     cfg = registry.get(args.arch)
     if args.reduce:
         cfg = registry.reduce_config(cfg)
     model = init_lm(cfg, args.seed, args.device)
-    engine = ServingEngine(cfg, model, AttentionConfig(impl=args.attn),
-                           max_batch=args.max_batch, cache_size=args.cache)
+    attn_cfg = AttentionConfig(impl=args.attn)
+    if args.engine == "paged":
+        num_pages = args.num_pages or (args.max_batch * args.cache // args.page_size + 1)
+        n_max = args.pages_per_seq or max(1, args.cache // args.page_size)
+        engine = PagedServingEngine(cfg, model, attn_cfg, max_batch=args.max_batch,
+                                    num_pages=num_pages, page_size=args.page_size,
+                                    pages_per_seq_max=n_max)
+    else:
+        engine = ServingEngine(cfg, model, attn_cfg, max_batch=args.max_batch,
+                               cache_size=args.cache)
     rng = np.random.default_rng(args.seed)
     requests = [
         Request(rid=rid,
@@ -61,11 +83,15 @@ def main(argv=None):
         torch.cuda.synchronize(model.device)
     dt = time.perf_counter() - t0
     toks = sum(len(r.generated) for r in finished.values())
-    print(json.dumps({
+    summary = {
         "arch": cfg.name, "device": str(model.device), "attn": args.attn,
-        "requests": len(finished), "ticks": engine.ticks,
+        "engine": args.engine, "requests": len(finished), "ticks": engine.ticks,
         "generated_tokens": toks, "tok_per_s": round(toks / dt, 1),
-    }))
+    }
+    if args.engine == "paged":
+        summary.update(preemptions=engine.preemptions, kv_capacity=engine.kv_capacity(),
+                       pool_used_pages=engine.pool.used_pages)
+    print(json.dumps(summary))
     for rid in sorted(finished)[:4]:
         print(f"  req {rid}: {finished[rid].generated}")
 

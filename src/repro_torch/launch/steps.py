@@ -8,6 +8,10 @@ jit):
   train_step(model, opt_state, batch)         -> (opt_state, metrics)
   prefill_step(model, batch)                  -> (next_token, caches, lens)
   serve_step(model, token, caches, cache_len) -> (next_token, caches)
+  paged_serve_step(model, token, caches, block_table, cache_len)
+                                              -> (next_token, caches)
+  paged_admit_step(model, batch, caches, dest)
+                                              -> (next_token, lens, caches)
 
 The JAX train step returns new parameters; here the model's parameters are
 updated in place (``training/optimizer.apply_updates``). Gradient
@@ -106,3 +110,45 @@ def build_serve_step(cfg, attn_cfg: AttentionConfig):
         return greedy(cfg, logits), caches
 
     return serve_step
+
+
+def build_paged_serve_step(cfg, attn_cfg: AttentionConfig):
+    """Decode step over the paged cache (the counterpart of
+    ``build_paged_serve_step``, JAX ``steps.py:149``): the caches are the
+    pool's page planes, written in place."""
+    @torch.no_grad()
+    def paged_serve_step(model, token, caches, block_table, cache_len):
+        logits, caches = model.decode_step(token, caches, cache_len, attn_cfg,
+                                           block_table=block_table)
+        return greedy(cfg, logits), caches
+
+    return paged_serve_step
+
+
+def build_paged_admit_step(cfg, attn_cfg: AttentionConfig, page_size: int):
+    """Batched admission (the counterpart of ``build_paged_admit_step``, JAX
+    ``steps.py:167``): one lens-masked prefill of a same-bucket group, its
+    contiguous caches scattered into the pool's page planes at the ``dest``
+    physical pages, in place.
+
+    ``batch["inputs"]`` (W, pad_to) right-padded prompts, ``batch["lens"]``
+    (W,) true lengths, ``dest`` (W, ceil(pad_to / page_size)) int32 physical
+    page per logical prefill page. Width-padding rows and pages past a
+    prompt point at the null page 0: those writes land there in no fixed
+    order, and nothing reads the null page."""
+    @torch.no_grad()
+    def paged_admit_step(model, batch, caches, dest):
+        tokens = batch["inputs"]
+        cache_size = -(-tokens.shape[1] // page_size) * page_size
+        h_last, prefill_caches, lens = model.prefill(tokens, attn_cfg, cache_size,
+                                                     lens=batch.get("lens"))
+        next_token = greedy(cfg, model.logits_from_hidden(h_last))
+        for layer, new in zip(caches, prefill_caches):
+            for name, planes in layer["kv"].items():
+                contig = new["kv"][name]  # (W, S, Hk, hd)
+                W, S, Hk, hd = contig.shape
+                pages = contig.reshape(W, S // page_size, page_size, Hk, hd)
+                planes[:, dest] = pages.permute(3, 0, 1, 2, 4).to(planes.dtype)
+        return next_token, lens, caches
+
+    return paged_admit_step

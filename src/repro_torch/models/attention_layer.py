@@ -2,9 +2,9 @@
 full-sequence self-attention for training, prefill with a KV cache, and
 single-token decode.
 
-The counterpart of ``repro/models/attention_layer.py`` for the contiguous
-cache (the paged branch comes with paged serving). The attention math is
-always ``repro_torch.core.attention``.
+The counterpart of ``repro/models/attention_layer.py``, with the
+contiguous cache and the paged one (decode through a block table). The
+attention math is always ``repro_torch.core.attention``.
 """
 
 from __future__ import annotations
@@ -16,7 +16,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.attention import AttentionConfig, attention, decode_attention
+from repro_torch.core.attention import (
+    AttentionConfig,
+    attention,
+    decode_attention,
+    decode_attention_paged,
+)
 from repro_torch.core.masks import MaskSpec
 from repro_torch.models.layers import apply_rope, new_param, normal_, rms_norm_vec
 
@@ -104,14 +109,23 @@ def prefill_attention(
 def decode_attention_step(
     p: Attention, cfg, x_new, cache: dict, cache_len: torch.Tensor,
     attn_cfg: AttentionConfig, *, rope_theta=None, window=None, sink: int = 0,
+    block_table: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, dict]:
-    """One decode step. x_new (B,1,d); cache k/v (B,S,Hkv,hd); cache_len (B,)
-    = valid entries BEFORE this token.
+    """One decode step. x_new (B,1,d); cache_len (B,) = valid entries BEFORE
+    this token. The new K/V row is written into ``cache`` IN PLACE (the JAX
+    version returns an updated copy; here the cache is a mutable buffer the
+    caller owns, and the returned dict is the same one).
 
-    The new K/V row is written into ``cache`` IN PLACE at position
-    ``cache_len`` (the JAX version returns an updated copy; here the cache
-    is a mutable buffer the caller owns, and the returned dict is the same
-    one)."""
+    Contiguous cache (``block_table=None``): k/v (B,S,Hkv,hd), the new row
+    goes to position ``cache_len``.
+
+    Paged cache (``block_table`` (B, n_pages) int32): k/v are the pool's
+    page planes (Hkv,P,ps,hd); the new row goes to page
+    ``block_table[b, cache_len // ps]`` at offset ``cache_len % ps``, and
+    attention reads through the table. A row with cache_len == 0 is an
+    inactive slot (a real sequence always has a prompt): its all-null table
+    row sends its write to the null page 0 and its attention length is 0,
+    so it reads no K/V and its output is 0."""
     q = _project_q(p, cfg, x_new)
     k_new, v_new = _project_kv(p, cfg, x_new)
     if rope_theta is not None:
@@ -119,6 +133,19 @@ def decode_attention_step(
         q = apply_rope(q, pos, rope_theta)
         k_new = apply_rope(k_new, pos, rope_theta)
     rows = torch.arange(x_new.shape[0], device=x_new.device)
+    if block_table is not None:
+        ps = cache["k"].shape[2]
+        page = block_table[rows, cache_len // ps]
+        off = cache_len % ps
+        # Inactive rows all write cell (page 0, offset 0): on the card the
+        # winner of that duplicate write is not fixed, and it does not
+        # matter, because no row ever reads the null page.
+        cache["k"][:, page, off] = k_new[:, 0].transpose(0, 1).to(cache["k"].dtype)
+        cache["v"][:, page, off] = v_new[:, 0].transpose(0, 1).to(cache["v"].dtype)
+        lengths = torch.where(cache_len > 0, cache_len + 1, torch.zeros_like(cache_len))
+        o = decode_attention_paged(q, cache["k"], cache["v"], lengths, block_table, attn_cfg,
+                                   window=window, sink=sink)
+        return _out(p, cfg, o), cache
     cache["k"][rows, cache_len] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][rows, cache_len] = v_new[:, 0].to(cache["v"].dtype)
     o = decode_attention(q, cache["k"], cache["v"], cache_len + 1, attn_cfg,

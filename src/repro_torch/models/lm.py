@@ -175,9 +175,13 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, caches, cache_len: torch.Tensor,
-                    attn_cfg: AttentionConfig):
+                    attn_cfg: AttentionConfig, block_table: Optional[torch.Tensor] = None):
         """token (B,1); cache_len (B,) valid entries per row ->
-        (logits (B,1,V), caches). The caches are updated in place."""
+        (logits (B,1,V), caches). The caches are updated in place.
+
+        ``block_table`` (B, n_pages) int32 switches every attention layer to
+        the paged cache (the pool's page planes, ``registry.paged_cache_specs``,
+        in place of per-slot contiguous caches); all layers share the table."""
         cfg = self.cfg
         h = self._embed(token)
         for layer, cache in zip(self.layers, caches):
@@ -185,6 +189,7 @@ class LM(nn.Module):
             mix, _ = decode_attention_step(
                 layer.mixer, cfg, layer.ln1(h), cache["kv"], cache_len, attn_cfg,
                 rope_theta=theta_for(cfg, layer.kind), window=spec.window, sink=spec.sink,
+                block_table=block_table,
             )
             h = self._mlp_block(layer, h + mix)
         h = self.ln_f(h)

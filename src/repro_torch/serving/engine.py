@@ -1,24 +1,40 @@
-"""Continuous-batching serving engine with fixed cache slots.
+"""Continuous-batching serving engines.
 
-The counterpart of ``repro/serving/engine.py:ServingEngine``: ``max_batch``
-contiguous cache slots of ``cache_size`` positions, the same
-submit -> admit (bucketed B=1 prefill) -> tick (decode every slot) ->
-retire lifecycle, so that the port and the JAX engine generate the same
-tokens for the same requests. Telemetry comes in a later slice.
+The counterparts of ``repro/serving/engine.py``. Both share the
+submit -> admit -> tick (decode every slot) -> retire lifecycle, so that
+the port and the JAX engines generate the same tokens for the same
+requests:
+
+  * :class:`ServingEngine` -- ``max_batch`` contiguous cache slots of
+    ``cache_size`` positions, reserved for a request's worst case.
+  * :class:`PagedServingEngine` -- vLLM-style paged KV: the cache is a pool
+    of fixed-size pages (``serving/kv_pool.py``), a resident sequence holds
+    ``len // page_size + 1`` of them through its row of an int32 block
+    table, and decode reads pages through the table
+    (``kernels/flash_decode.flash_decode_paged``).
+
+Telemetry (the JAX engines' ``_EngineTelemetry``, metrics registry and
+tracer) comes in a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs.registry import cache_specs
+from repro_torch.configs.registry import cache_specs, paged_cache_specs
 from repro_torch.core.attention import AttentionConfig
-from repro_torch.launch.steps import build_prefill_step, build_serve_step
+from repro_torch.launch.steps import (
+    build_paged_admit_step,
+    build_paged_serve_step,
+    build_prefill_step,
+    build_serve_step,
+)
+from repro_torch.serving.kv_pool import KVPagePool
 
 
 @dataclasses.dataclass
@@ -29,6 +45,19 @@ class Request:
     eos_id: Optional[int] = None
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+
+    @property
+    def feed(self) -> List[int]:
+        """Tokens whose KV must be (re)built at admission: the prompt plus
+        anything already generated -- nonempty ``generated`` means the
+        request was preempted and is resuming (greedy decoding makes the
+        continuation the same as if it had never paused)."""
+        return self.prompt + self.generated
+
+
+def _new_caches(specs, device):
+    return [{"kv": {name: torch.zeros(t.shape, dtype=t.dtype, device=device)
+                    for name, t in layer["kv"].items()}} for layer in specs]
 
 
 class ServingEngine:
@@ -53,11 +82,7 @@ class ServingEngine:
         self._bucket = prompt_pad > 1 and cfg.ssm is None
         self._prefill = build_prefill_step(cfg, attn_cfg, cache_size)
         self._step = build_serve_step(cfg, attn_cfg)
-        self.caches = [
-            {"kv": {name: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
-                    for name, s in layer["kv"].items()}}
-            for layer in cache_specs(cfg, max_batch, cache_size)
-        ]
+        self.caches = _new_caches(cache_specs(cfg, max_batch, cache_size), self.device)
         self.cache_len = torch.zeros((max_batch,), dtype=torch.int32, device=self.device)
         self.next_token = torch.zeros((max_batch, 1), dtype=torch.int32, device=self.device)
         self.slots: List[Optional[Request]] = [None] * max_batch
@@ -127,6 +152,240 @@ class ServingEngine:
                 self._retire(slot)
 
     def run(self, max_ticks: int = 1000) -> Dict[int, Request]:
+        while (self.queue or any(s is not None for s in self.slots)) and self.ticks < max_ticks:
+            self.tick()
+        return self.finished
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+class PagedServingEngine:
+    """Continuous batching over a paged KV pool (the counterpart of
+    ``PagedServingEngine``, JAX ``engine.py:360``).
+
+    The device holds ``num_pages`` physical pages of ``page_size`` positions
+    per layer (``registry.paged_cache_specs``); a resident request owns
+    ``len // page_size + 1`` of them (one page of write headroom) through
+    its row of the int32 block table. Admission allocates, growth extends
+    one page at a time, retirement frees, so a request's memory tracks its
+    actual length and the engine admits by free pages, not free worst-case
+    slots.
+
+    The scheduler state (``table``, ``cache_len``, ``next_token``) lives on
+    the host as numpy, as in the JAX engine: ``_grow`` and ``_need_pages``
+    read the lengths every tick. A tick copies the table, the lengths and
+    the tokens to the device once and the new tokens back once.
+
+    Admission is strict FIFO and keeps one growth page in reserve per
+    resident request; all admitted prompts of one bucket go through one
+    lens-masked prefill of W = next_pow2(group) rows (at most
+    ``max_batch``), scattered into their pages. If growth still finds the
+    pool empty, the youngest resident request is preempted: its pages are
+    freed and it is requeued at the front with its generated tokens, so
+    re-admission re-prefills prompt + generated (``Request.feed``) and
+    greedy decoding resumes where it left off.
+    """
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        model,
+        attn_cfg: AttentionConfig,
+        *,
+        max_batch: int = 4,
+        num_pages: int = 64,
+        page_size: int = 16,
+        pages_per_seq_max: int = 16,
+        prompt_pad: int = 64,
+    ):
+        self.cfg = cfg
+        self.model = model
+        self.attn = attn_cfg
+        self.B = max_batch
+        self.ps = page_size
+        self.n_max = pages_per_seq_max
+        self.prompt_pad = prompt_pad
+        self.device = model.device
+        self.pool = KVPagePool(num_pages, page_size)
+        self.caches = _new_caches(paged_cache_specs(cfg, num_pages, page_size), self.device)
+        self._step = build_paged_serve_step(cfg, attn_cfg)
+        self._admit = build_paged_admit_step(cfg, attn_cfg, page_size)
+        self.table = np.zeros((max_batch, pages_per_seq_max), np.int32)
+        self.cache_len = np.zeros((max_batch,), np.int32)
+        self.next_token = np.zeros((max_batch, 1), np.int32)
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        self.queue: List[Request] = []
+        self.finished: Dict[int, Request] = {}
+        self.ticks = 0
+        self.preemptions = 0
+        self._seq = 0  # admission order, for preempt-youngest
+        self._slot_seq = np.zeros((max_batch,), np.int64)
+
+    def resident_tokens(self) -> int:
+        return int(self.cache_len.sum())
+
+    def active_kv_cells(self) -> int:
+        """KV cells a decode step may touch: the live rows' allocated pages
+        only -- the kernel reads nothing else."""
+        return int(sum(-(-int(n) // self.ps) * self.ps for n in self.cache_len if int(n) > 0))
+
+    def kv_capacity(self) -> int:
+        return self.pool.usable_pages * self.ps
+
+    def _need_pages(self, tokens: int) -> int:
+        return tokens // self.ps + 1  # +1: the next decode write has a page
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def submit(self, req: Request):
+        worst = len(req.prompt) + req.max_new_tokens
+        assert worst <= self.n_max * self.ps - 1, (
+            f"request {req.rid}: prompt+max_new ({worst}) exceeds per-seq "
+            f"capacity {self.n_max * self.ps - 1}"
+        )
+        assert self._need_pages(len(req.prompt)) <= self.pool.usable_pages, (
+            f"request {req.rid}: prompt alone overflows the pool"
+        )
+        self.queue.append(req)
+
+    def _bucket(self, L: int) -> int:
+        pad = -(-L // self.prompt_pad) * self.prompt_pad
+        return min(max(pad, self.prompt_pad), self.n_max * self.ps)
+
+    def _admit_tick(self):
+        """Strict-FIFO admission, then one batched prefill per bucket. A
+        request is admitted only if the pool still holds one reserve page
+        per resident request afterwards (those picked this tick included);
+        the first request that does not fit blocks the rest."""
+        free_slots = [i for i, s in enumerate(self.slots) if s is None]
+        reserve = sum(s is not None for s in self.slots)
+        picks: List[Tuple[int, Request, List[int]]] = []
+        while self.queue and free_slots:
+            req = self.queue[0]
+            need = self._need_pages(len(req.feed))
+            if len(req.feed) > self._bucket(len(req.feed)):
+                # A resumed request grew past the largest bucket: it cannot
+                # re-prefill, so it finishes as it is.
+                self.queue.pop(0)
+                req.done = True
+                self.finished[req.rid] = req
+                continue
+            if self.pool.free_pages - need < reserve:
+                break
+            pages = self.pool.alloc(req.rid, need)
+            if pages is None:
+                break
+            self.queue.pop(0)
+            picks.append((free_slots.pop(0), req, pages))
+            reserve += 1
+        by_bucket: Dict[int, List[Tuple[int, Request, List[int]]]] = {}
+        for pick in picks:
+            by_bucket.setdefault(self._bucket(len(pick[1].feed)), []).append(pick)
+        for pad_to, group in sorted(by_bucket.items()):
+            W = min(_next_pow2(len(group)), self.B)
+            npb = -(-pad_to // self.ps)
+            inputs = np.zeros((W, pad_to), np.int64)
+            lens = np.ones((W,), np.int32)  # dummy rows: 1 token, null dest
+            dest = np.zeros((W, npb), np.int64)
+            for i, (_, req, pages) in enumerate(group):
+                feed = req.feed
+                inputs[i, :len(feed)] = feed
+                lens[i] = len(feed)
+                n_dest = min(-(-len(feed) // self.ps), npb)
+                dest[i, :n_dest] = pages[:n_dest]
+            tok, lens_total, self.caches = self._admit(
+                self.model, {"inputs": self._to_device(inputs), "lens": self._to_device(lens)},
+                self.caches, self._to_device(dest),
+            )
+            tok_host = tok.cpu().numpy()
+            lens_host = lens_total.cpu().numpy()
+            for i, (slot, req, pages) in enumerate(group):
+                self.table[slot] = 0
+                self.table[slot, :len(pages)] = pages
+                self.cache_len[slot] = int(lens_host[i])
+                t = int(tok_host[i, 0])
+                req.generated.append(t)
+                self.next_token[slot, 0] = t
+                self.slots[slot] = req
+                self._slot_seq[slot] = self._seq
+                self._seq += 1
+
+    def _clear_slot(self, slot: int):
+        self.slots[slot] = None
+        self.table[slot] = 0
+        self.cache_len[slot] = 0
+        self.next_token[slot, 0] = 0
+
+    def _retire(self, slot: int):
+        req = self.slots[slot]
+        assert req is not None
+        self.pool.free(req.rid)
+        req.done = True
+        self.finished[req.rid] = req
+        self._clear_slot(slot)
+
+    def _preempt_youngest(self) -> bool:
+        """Free the most recently admitted request's pages and requeue it at
+        the queue front (it keeps its place and its generated tokens)."""
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        if len(active) <= 1:
+            return False  # never preempt the last runner: no progress
+        victim = max(active, key=lambda i: self._slot_seq[i])
+        req = self.slots[victim]
+        self.pool.free(req.rid)
+        self.queue.insert(0, req)
+        self._clear_slot(victim)
+        self.preemptions += 1
+        return True
+
+    def _grow(self):
+        """Give every resident request a page for its next write, extending
+        from the pool and preempting the youngest when it is empty;
+        oldest first, so preemption lands on the least progressed."""
+        order = sorted((i for i, s in enumerate(self.slots) if s is not None),
+                       key=lambda i: self._slot_seq[i])
+        for slot in order:
+            req = self.slots[slot]
+            if req is None:  # preempted by an earlier iteration
+                continue
+            while self._need_pages(int(self.cache_len[slot])) > len(self.pool.pages_of(req.rid)):
+                page = self.pool.extend(req.rid)
+                if page is None:
+                    if not self._preempt_youngest():
+                        raise RuntimeError("page pool exhausted with a single resident "
+                                           "request; pool too small for this workload")
+                    if self.slots[slot] is None:
+                        break  # we preempted ourselves
+                    continue
+                self.table[slot, len(self.pool.pages_of(req.rid)) - 1] = page
+
+    def tick(self):
+        self._admit_tick()
+        if not any(s is not None for s in self.slots):
+            return
+        tok, self.caches = self._step(
+            self.model, self._to_device(self.next_token), self.caches,
+            self._to_device(self.table), self._to_device(self.cache_len),
+        )
+        tok_host = tok.cpu().numpy()
+        self.ticks += 1
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            self.cache_len[slot] += 1
+            t = int(tok_host[slot, 0])
+            req.generated.append(t)
+            self.next_token[slot, 0] = t
+            if ((req.eos_id is not None and t == req.eos_id)
+                    or len(req.generated) >= req.max_new_tokens + 1
+                    or int(self.cache_len[slot]) >= self.n_max * self.ps - 1):
+                self._retire(slot)
+        self._grow()
+
+    def run(self, max_ticks: int = 10000) -> Dict[int, Request]:
         while (self.queue or any(s is not None for s in self.slots)) and self.ticks < max_ticks:
             self.tick()
         return self.finished

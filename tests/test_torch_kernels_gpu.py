@@ -25,6 +25,7 @@ from repro_torch.kernels import flash_fwd as fwd_mod
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models.lm import init_lm
+from repro_torch.serving.engine import PagedServingEngine, Request
 from repro_torch.training.optimizer import AdamWConfig, init_opt_state
 
 # bf16 outputs (one bf16 ulp near |o| ~ 1 is 0.008); f32 lse.
@@ -186,3 +187,107 @@ def test_split_backward_raises(cuda):
     q = torch.zeros((1, 64, 4, 128), device=cuda, dtype=torch.bfloat16, requires_grad=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.flash_attention(q, q, q, bwd="split")
+
+
+def _planes(c, table, ps):
+    """Page planes (Hkv, B * n_pages + 1, ps, D) holding the contiguous cache
+    c (B, n_pages * ps, Hkv, D) at the physical pages of table (B, n_pages)."""
+    B, S, Hkv, D = c.shape
+    out = torch.zeros((Hkv, B * (S // ps) + 1, ps, D), dtype=c.dtype, device=c.device)
+    out[:, table.long()] = c.reshape(B, S // ps, ps, Hkv, D).permute(3, 0, 1, 2, 4)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps,G,window,sink", [
+    (16, 4, None, 0),
+    (64, 1, None, 0),
+    (16, 8, 256, 4),
+    (64, 4, 100, 0),
+    (8, 2, None, 0),
+])
+def test_paged_decode_kernel_matches_plain(cuda, ps, G, window, sink):
+    """The paged kernel against its plain version (ragged lengths with 0 and
+    an odd-page length); bitwise the same partials under a second shuffle
+    of the physical pages; (0, -inf) partials for the length-0 row."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    B, S, Hkv = 4, 512, 8
+    q = _randn(gen, (B * Hkv, G, 128), cuda)
+    kc, vc = _randn(gen, (B, S, Hkv, 128), cuda), _randn(gen, (B, S, Hkv, 128), cuda)
+    lens = torch.tensor([0, 1, 333, 512], dtype=torch.int32, device=cuda)
+    parts = []
+    for seed in (0, 1):
+        perm = torch.randperm(B * (S // ps), generator=torch.Generator().manual_seed(seed)) + 1
+        table = perm.reshape(B, S // ps).to(device=cuda, dtype=torch.int32)
+        kp, vp = _planes(kc, table, ps), _planes(vc, table, ps)
+        table[0] = 0  # the length-0 slot's all-null row
+        before = dec_mod.flash_decode_paged.launches
+        parts.append(dec_mod.flash_decode_paged(q, kp, vp, lens, table, num_splits=8,
+                                                window=window, sink=sink))
+        torch.cuda.synchronize()
+        assert dec_mod.flash_decode_paged.launches == before + 1
+    (o, lse), (o2, lse2) = parts
+    o_p, lse_p = dec_mod.flash_decode_paged_plain(q, kp, vp, lens, table, num_splits=8,
+                                                  window=window, sink=sink)
+    assert o.shape == o_p.shape and lse.shape == lse_p.shape
+    assert _err(o, o_p) < O_TOL
+    assert _err(lse, lse_p) < LSE_TOL
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert (o[:Hkv] == 0).all() and torch.isneginf(lse[:Hkv]).all()
+
+
+@pytest.mark.gpu
+def test_paged_decode_kernel_rejects_what_it_does_not_take(cuda):
+    lens = torch.ones((1,), dtype=torch.int32, device=cuda)
+    table = torch.ones((1, 4), dtype=torch.int32, device=cuda)
+
+    def call(G=4, D=128, dtype=torch.bfloat16, tbl=table):
+        q = torch.zeros((2, G, D), dtype=dtype, device=cuda)
+        kp = torch.zeros((2, 5, 16, D), dtype=dtype, device=cuda)
+        return dec_mod.flash_decode_paged(q, kp, kp, lens, tbl)
+
+    with pytest.raises(TypeError, match="bfloat16"):
+        call(dtype=torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        call(D=64)
+    with pytest.raises(ValueError, match="q heads"):
+        call(G=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(tbl=torch.ones((1, 8), dtype=torch.int32, device=cuda)[:, ::2])
+    with pytest.raises(TypeError, match="int32"):
+        call(tbl=table.long())
+
+
+@pytest.mark.gpu
+def test_paged_engine_runs_through_the_kernels(cuda):
+    """2-layer, full-width qwen3-8b through PagedServingEngine on flash_cuda,
+    with a pool that makes admission wait and growth preempt once: every
+    request finishes with max_new + 1 tokens, every prefill goes through the
+    forward kernel and every decode through the paged kernel, and neither
+    the contiguous decode kernel nor a plain version runs."""
+    cfg = dataclasses.replace(registry.get("qwen3-8b"), num_layers=2)
+    model = init_lm(cfg, seed=0, device=cuda)
+    engine = PagedServingEngine(cfg, model, AttentionConfig(impl="flash_cuda"), max_batch=4,
+                                num_pages=150, page_size=16, pages_per_seq_max=128)
+    gen = torch.Generator().manual_seed(0)
+    for rid, n in enumerate((7, 100, 700, 1500, 33, 260)):
+        prompt = torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=16))
+    kernels = (fwd_mod.flash_fwd, dec_mod.flash_decode, dec_mod.flash_decode_paged)
+    plains = (fwd_mod.flash_fwd_plain, dec_mod.flash_decode_plain,
+              dec_mod.flash_decode_paged_plain)
+    for f in kernels:
+        f.launches = 0
+    for f in plains:
+        f.calls = 0
+    with torch.no_grad():
+        finished = engine.run(max_ticks=200)
+    torch.cuda.synchronize()
+    assert sorted(finished) == list(range(6))
+    for req in finished.values():
+        assert len(req.generated) == 17
+        assert all(0 <= t < cfg.vocab_size for t in req.generated)
+    assert engine.preemptions == 1 and engine.pool.used_pages == 0
+    fwd_n, dec_n, paged_n = (f.launches for f in kernels)
+    assert fwd_n > 0 and paged_n == engine.ticks * cfg.num_layers and dec_n == 0
+    assert [f.calls for f in plains] == [0, 0, 0]

@@ -67,8 +67,13 @@ def test_wrappers_take_cpu_or_cuda_only():
     with pytest.raises(ValueError, match="cuda"):
         fwd_mod.flash_fwd(q, q, q, MaskSpec(causal=True), block_q=64, block_kv=64)
     qd = torch.zeros((2, 1, 16), device="meta")
+    lens = torch.zeros((1,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda"):
-        dec_mod.flash_decode(qd, q, q, torch.zeros((1,), dtype=torch.int32, device="meta"))
+        dec_mod.flash_decode(qd, q, q, lens)
+    pages = torch.zeros((2, 5, 8, 16), device="meta")
+    table = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda"):
+        dec_mod.flash_decode_paged(qd, pages, pages, lens, table)
 
 
 @pytest.mark.parametrize("name", ["falcon-mamba-7b", "granite-moe-1b-a400m",
