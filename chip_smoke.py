@@ -15,8 +15,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      the one PyTorch call that computes the same function (a yardstick the
      port never calls) and the roofline bound at the main paths' shapes:
      the forward and decode kernels at the serving path's, the backward
-     kernels (delta pre-pass, fused dK/dV/dQ) and the forward again at the
-     training step's;
+     kernels (delta pre-pass, fused dK/dV/dQ, and the split backward's
+     dK/dV and dQ kernels, whose dK and dV must be bitwise the fused
+     kernel's and whose dQ must be bitwise the same from two launches) and
+     the forward again at the training step's;
   4. the serving slice: qwen3-8b at full width (36 layers, bf16, random
      weights from a seed) serves 6 requests through the port's
      ServingEngine; every prefill and decode must go through the kernels
@@ -33,13 +35,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      profiled (torch.profiler) for the device busy share, the kernels by
      device time and the host operators by host time;
   7. training parity: one step of 2-layer, full-width qwen3-8b through the
-     dense reference and through the kernels, from the same weights and
-     batch, must give the same loss and attention gradients;
+     dense reference and through the kernels (fused and split backward),
+     from the same weights and batch, must give the same loss and
+     attention gradients;
   8. the training slice: qwen3-8b at its published widths, depth cut to 8
      layers (one card's memory), takes 8 AdamW steps on the synthetic
      stream at B = 2, S = 2048; the loss must be finite and fall, and every
      attention forward and backward must go through the kernels (counts
-     exact, plain versions 0).
+     exact, plain versions 0);
+  9. the deterministic training slice: phase 8's model, seed and batches
+     through the split backward (bwd="split"); counts exact (dK/dV and dQ
+     once a layer, the fused kernel never), the loss must fall and step 0's
+     loss equal phase 8's; then attention forward and backward at the
+     training shape, run twice, must give bitwise-equal gradients.
 Phase 3 also holds the paged decode kernel against its plain version
 (page sizes 16 and 64, G in {1, 4, 8}, a window-256/sink-4 spec, shuffled
 pages) and times it beside the contiguous decode kernel.
@@ -421,34 +429,68 @@ def bwd_kernel_phase(torch, dev, flush):
     cases += [(1, 1000, MaskSpec(causal=True, window=256, sink=4)),
               # rows 0-127 see no key: two whole q tiles no CTA visits
               (1, 700, MaskSpec(causal=True, q_offset=-128))]
-    delta_err = grad_err = 0.0
+    delta_err = grad_err = dkv_err = dq_err = 0.0
+    tiles = dict(block_q=bq, block_kv=bk)
+
+    def rel_errs(kernel, names, got, want):
+        """{name: (max |got - want|, max |want|)}; fails on a non-finite
+        gradient."""
+        errs = {}
+        for name, a, b in zip(names, got, want):
+            if not torch.isfinite(a).all():
+                fail(f"{kernel} gave a non-finite {name} at B={B} S={S} {spec}")
+            errs[name] = (max_err(torch, a, b), b.abs().max().item())
+        return errs
+
+    def worst(errs):
+        return max(e / max(top, 1e-6) for e, top in errs.values())
+
     for B, S, spec in cases:
         q, k, v, do, o, lse = inputs(B, S, spec)
         delta = bwd.flash_bwd_delta(o, do)
-        got = bwd.flash_bwd_fused(q, k, v, do, lse, delta, spec, block_q=bq, block_kv=bk)
+        args = (q, k, v, do, lse, delta, spec)
+        got = bwd.flash_bwd_fused(*args, **tiles)
+        dq_f2 = bwd.flash_bwd_fused(*args, **tiles)[0]
+        dk, dv = bwd.flash_bwd_dkv(*args, **tiles)
+        dq = bwd.flash_bwd_dq(*args, **tiles)
+        dq2 = bwd.flash_bwd_dq(*args, **tiles)
         torch.cuda.synchronize()
         ed = max_err(torch, delta, bwd.flash_bwd_delta_plain(o, do))
-        want = bwd.flash_bwd_fused_plain(q, k, v, do, lse, delta, spec,
-                                         block_q=bq, block_kv=bk)
-        errs = {}
-        for name, a, b in zip(("dq", "dk", "dv"), got, want):
-            if not torch.isfinite(a).all():
-                fail(f"flash_bwd_fused gave a non-finite {name} at B={B} S={S} {spec}")
-            errs[name] = (max_err(torch, a, b), b.abs().max().item())
-        rel = max(e / max(top, 1e-6) for e, top in errs.values())
+        errs = rel_errs("flash_bwd_fused", ("dq", "dk", "dv"), got,
+                        bwd.flash_bwd_fused_plain(*args, **tiles))
+        split = rel_errs("the split backward", ("dq", "dk", "dv"), (dq, dk, dv),
+                         (bwd.flash_bwd_dq_plain(*args, **tiles),
+                          *bwd.flash_bwd_dkv_plain(*args, **tiles)))
+        rel, rel_split = worst(errs), worst(split)
         log(f"flash_bwd B={B} S={S} {spec} Hq={HQ} Hkv={HKV} D={HD}: "
-            f"max|delta-plain|={ed:.3e} (tol {DELTA_TOL}); "
+            f"max|delta-plain|={ed:.3e} (tol {DELTA_TOL}); fused: "
             + ", ".join(f"max|{n}-plain|={e:.3e} (max|{n}| {top:.3f})"
                         for n, (e, top) in errs.items())
             + f"; worst relative {rel:.3e} (tol {GRAD_REL_TOL})")
+        log(f"  split (flash_bwd_dkv, flash_bwd_dq): "
+            + ", ".join(f"max|{n}-plain|={e:.3e}" for n, (e, _) in split.items())
+            + f"; worst relative {rel_split:.3e} (tol {GRAD_REL_TOL}); dk, dv bitwise the "
+            f"fused kernel's: {torch.equal(dk, got[1])}, {torch.equal(dv, got[2])}; dq of two "
+            f"split launches bitwise equal: {torch.equal(dq, dq2)}; dq elements that differ "
+            f"between two fused launches: {int((got[0] != dq_f2).sum())} of {dq.numel()}")
         if not ed <= DELTA_TOL:
             fail(f"flash_bwd_delta disagrees with its plain version at B={B} S={S}")
         if not rel <= GRAD_REL_TOL:
             fail(f"flash_bwd_fused disagrees with its plain version at B={B} S={S} {spec}")
-        if spec.q_offset < 0 and not (got[0][:, :-spec.q_offset] == 0).all():
+        if not rel_split <= GRAD_REL_TOL:
+            fail(f"flash_bwd_dkv or flash_bwd_dq disagrees with its plain version at B={B} "
+                 f"S={S} {spec}")
+        if not (torch.equal(dk, got[1]) and torch.equal(dv, got[2])):
+            fail(f"the split dk, dv are not bitwise the fused kernel's at B={B} S={S} {spec}")
+        if not torch.equal(dq, dq2):
+            fail(f"two launches of flash_bwd_dq gave different dq at B={B} S={S} {spec}")
+        if spec.q_offset < 0 and not ((got[0][:, :-spec.q_offset] == 0).all()
+                                      and (dq[:, :-spec.q_offset] == 0).all()):
             fail("rows that see no key must get dq = 0")
         delta_err = max(delta_err, ed)
         grad_err = max(grad_err, max(e for e, _ in errs.values()))
+        dkv_err = max(dkv_err, split["dk"][0], split["dv"][0])
+        dq_err = max(dq_err, split["dq"][0])
 
     # Timing at the training step's shape.
     B, S = TRAIN_B, TRAIN_S
@@ -469,6 +511,27 @@ def bwd_kernel_phase(torch, dev, flush):
     # what the atomics cost.
     no_atomics_ms = time_ms(torch, lambda: bwd._launch_fused(
         q, k, v, do, lse, delta, spec, bq, bk, None), 20, flush)
+    args = (q, k, v, do, lse, delta, spec)
+    dkv_ms = time_ms(torch, lambda: bwd.flash_bwd_dkv(*args, **tiles), 20, flush)
+    dq_ms = time_ms(torch, lambda: bwd.flash_bwd_dq(*args, **tiles), 20, flush)
+    dkv_plain_ms = time_ms(torch, lambda: bwd.flash_bwd_dkv_plain(*args, **tiles), 3, flush)
+    dq_plain_ms = time_ms(torch, lambda: bwd.flash_bwd_dq_plain(*args, **tiles), 3, flush)
+
+    def split_total():
+        d = bwd.flash_bwd_delta(o, do)
+        bwd.flash_bwd_dkv(q, k, v, do, lse, d, spec, **tiles)
+        bwd.flash_bwd_dq(q, k, v, do, lse, d, spec, **tiles)
+
+    def fused_total():
+        d = bwd.flash_bwd_delta(o, do)
+        bwd.flash_bwd_fused(q, k, v, do, lse, d, spec, **tiles)
+
+    # In turns: fused, split, split, fused.
+    totals = {"fused": [], "split": []}
+    for name in ("fused", "split", "split", "fused"):
+        totals[name].append(time_ms(torch, fused_total if name == "fused" else split_total,
+                                    20, flush))
+    fused_total_ms, split_total_ms = (sum(totals[n]) / 2 for n in ("fused", "split"))
     # Library yardstick: SDPA (causal, GQA) forward + backward less its forward.
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
@@ -488,17 +551,18 @@ def bwd_kernel_phase(torch, dev, flush):
     lib_bwd_ms = lib_fb_ms - lib_fwd_ms
     # Bounds: the causal pairs the mask needs (S (S + 1) / 2 per head); the
     # kernels compute the diagonal tiles whole, as the schedule's count says.
+    # Each input read once, each output written once (the gradients in f32).
     pairs = S * (S + 1) // 2
     n_vis = int(build_kv_tile_schedule(spec, -(-S // bq), -(-S // bk), bq, bk, S).row_ptr[-1])
     q_bytes = B * S * HQ * HD * 2
     kv_bytes = B * S * HKV * HD * 2
     row_bytes = B * HQ * S * 4
+    in_bytes = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes  # q, dO, k, v, lse, delta
     fwd_bound, fwd_by = bound(4 * HD * pairs * B * HQ, 2 * q_bytes + 2 * kv_bytes + row_bytes)
     delta_bound, delta_by = bound(2 * B * S * HQ * HD, 2 * q_bytes + row_bytes)
-    fused_bound, fused_by = bound(
-        10 * HD * pairs * B * HQ,
-        2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + 2 * q_bytes + 4 * kv_bytes,
-    )
+    fused_bound, fused_by = bound(10 * HD * pairs * B * HQ, in_bytes + 2 * q_bytes + 4 * kv_bytes)
+    dkv_bound, dkv_by = bound(8 * HD * pairs * B * HQ, in_bytes + 4 * kv_bytes)
+    dq_bound, dq_by = bound(6 * HD * pairs * B * HQ, in_bytes + 2 * q_bytes)
     log(f"training shape B={B} S={S} causal: {pairs} visible (q, k) pairs per head; the "
         f"schedule visits {n_vis} tiles of {bq}x{bk} = {n_vis * bq * bk} pairs "
         f"({n_vis * bq * bk / pairs:.4f}x)")
@@ -513,12 +577,28 @@ def bwd_kernel_phase(torch, dev, flush):
     log(f"flash_bwd_fused without the dQ atomics: {no_atomics_ms:.4f} ms; the atomics (and "
         f"the dq memset) take {fused_ms - no_atomics_ms:.4f} ms, "
         f"{(fused_ms - no_atomics_ms) / fused_ms:.3f} of the kernel's time")
+    log(f"flash_bwd_dkv B={B} S={S}: kernel {dkv_ms:.4f} ms, plain {dkv_plain_ms:.4f} ms, "
+        f"bound {dkv_bound:.4f} ms ({dkv_by}); library none (no one PyTorch call gives dK, dV "
+        f"alone)")
+    log(f"flash_bwd_dq B={B} S={S}: kernel {dq_ms:.4f} ms, plain {dq_plain_ms:.4f} ms, "
+        f"bound {dq_bound:.4f} ms ({dq_by}); library none (no one PyTorch call gives dQ alone)")
+    log(f"backward totals in turns (fused, split, split, fused), B={B} S={S}: delta + fused "
+        f"{fused_total_ms:.4f} ms (runs {totals['fused'][0]:.4f}, {totals['fused'][1]:.4f}), "
+        f"delta + dkv + dq (split) {split_total_ms:.4f} ms (runs {totals['split'][0]:.4f}, "
+        f"{totals['split'][1]:.4f}), split / fused {split_total_ms / fused_total_ms:.4f}; "
+        f"sdpa backward {lib_bwd_ms:.4f} ms")
     return {
         "flash_bwd_delta": dict(max_abs_err=delta_err, ms=delta_ms, plain_ms=delta_plain_ms,
                                 bound_ms=delta_bound, bound_by=delta_by, library_ms=None),
         "flash_bwd_fused": dict(max_abs_err=grad_err, ms=fused_ms, plain_ms=fused_plain_ms,
                                 bound_ms=fused_bound, bound_by=fused_by, library_ms=lib_bwd_ms,
-                                no_dq_atomics_ms=no_atomics_ms),
+                                no_dq_atomics_ms=no_atomics_ms,
+                                with_delta_ms_in_turns=fused_total_ms),
+        "flash_bwd_dkv": dict(max_abs_err=dkv_err, ms=dkv_ms, plain_ms=dkv_plain_ms,
+                              bound_ms=dkv_bound, bound_by=dkv_by, library_ms=None),
+        "flash_bwd_dq": dict(max_abs_err=dq_err, ms=dq_ms, plain_ms=dq_plain_ms,
+                             bound_ms=dq_bound, bound_by=dq_by, library_ms=None,
+                             split_total_ms_in_turns=split_total_ms),
         "flash_fwd_at_training_shape": dict(ms=fwd_ms, plain_ms=fwd_plain_ms,
                                             bound_ms=fwd_bound, bound_by=fwd_by,
                                             library_ms=lib_fwd_ms),
@@ -828,7 +908,8 @@ def train_model_flops(cfg, batch: int, seq: int) -> float:
 
 def train_parity_phase(torch, dev) -> None:
     """One step's loss and attention gradients, 2-layer full-width qwen3-8b,
-    through impl="ref" (dense attention, autograd) and impl="flash_cuda"."""
+    through impl="ref" (dense attention, autograd) and impl="flash_cuda"
+    with the fused and with the split backward."""
     from repro_torch.configs import registry
     from repro_torch.core.attention import AttentionConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -841,44 +922,50 @@ def train_parity_phase(torch, dev) -> None:
                                              vocab_size=cfg.vocab_size, seed=1)).batch(0)
     batch = {"inputs": torch.from_numpy(inputs).to(dev),
              "targets": torch.from_numpy(targets).to(dev)}
+    attn = {"ref": AttentionConfig(impl="ref"),
+            "flash_cuda": AttentionConfig(impl="flash_cuda"),
+            "flash_cuda bwd=split": AttentionConfig(impl="flash_cuda", bwd="split")}
     out = {}
-    for impl in ("ref", "flash_cuda"):
+    for name, attn_cfg in attn.items():
         model.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(cfg, AttentionConfig(impl=impl), model, batch)
+        loss, _ = loss_fn(cfg, attn_cfg, model, batch)
         loss.backward()
-        out[impl] = (loss.item(), {n: p.grad.float().clone() for n, p in model.named_parameters()
+        out[name] = (loss.item(), {n: p.grad.float().clone() for n, p in model.named_parameters()
                                    if ".mixer." in n})
-    (l_ref, g_ref), (l_fl, g_fl) = out["ref"], out["flash_cuda"]
-    del model, out
-    rel_loss = abs(l_fl - l_ref) / abs(l_ref)
-    log(f"training parity, {PARITY_LAYERS}-layer full-width qwen3-8b, B=1 S={PARITY_S}: "
-        f"loss ref {l_ref:.6f}, flash_cuda {l_fl:.6f}, relative difference {rel_loss:.3e} "
-        f"(limit {PARITY_LOSS_REL})")
-    if not (math.isfinite(l_fl) and rel_loss <= PARITY_LOSS_REL):
-        fail("training loss through flash_cuda disagrees with the dense reference")
-    worst_cos, worst_rel = 1.0, 0.0
-    for name, a in g_ref.items():
-        b = g_fl[name]
-        if not torch.isfinite(b).all():
-            fail(f"non-finite gradient of {name} through flash_cuda")
-        cos = torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
-        rel = (a - b).abs().max().item() / max(a.abs().max().item(), 1e-30)
-        worst_cos, worst_rel = min(worst_cos, cos), max(worst_rel, rel)
-        log(f"  grad {name}: cosine {cos:.6f}, max|diff| / max|grad| {rel:.4f}")
-        if cos < PARITY_COS or rel > PARITY_REL:
-            fail(f"gradient of {name} through flash_cuda disagrees with the dense reference "
-                 f"(limits cosine >= {PARITY_COS}, relative max diff <= {PARITY_REL})")
-    log(f"training parity: least cosine {worst_cos:.6f} (limit {PARITY_COS}), largest "
-        f"max|diff| / max|grad| {worst_rel:.4f} (limit {PARITY_REL})")
+    del model
+    l_ref, g_ref = out.pop("ref")
+    for impl, (l_fl, g_fl) in out.items():
+        rel_loss = abs(l_fl - l_ref) / abs(l_ref)
+        log(f"training parity, {PARITY_LAYERS}-layer full-width qwen3-8b, B=1 S={PARITY_S}: "
+            f"loss ref {l_ref:.6f}, {impl} {l_fl:.6f}, relative difference {rel_loss:.3e} "
+            f"(limit {PARITY_LOSS_REL})")
+        if not (math.isfinite(l_fl) and rel_loss <= PARITY_LOSS_REL):
+            fail(f"training loss through {impl} disagrees with the dense reference")
+        worst_cos, worst_rel = 1.0, 0.0
+        for name, a in g_ref.items():
+            b = g_fl[name]
+            if not torch.isfinite(b).all():
+                fail(f"non-finite gradient of {name} through {impl}")
+            cos = torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+            rel = (a - b).abs().max().item() / max(a.abs().max().item(), 1e-30)
+            worst_cos, worst_rel = min(worst_cos, cos), max(worst_rel, rel)
+            log(f"  {impl} grad {name}: cosine {cos:.6f}, max|diff| / max|grad| {rel:.4f}")
+            if cos < PARITY_COS or rel > PARITY_REL:
+                fail(f"gradient of {name} through {impl} disagrees with the dense reference "
+                     f"(limits cosine >= {PARITY_COS}, relative max diff <= {PARITY_REL})")
+        log(f"training parity, {impl}: least cosine {worst_cos:.6f} (limit {PARITY_COS}), "
+            f"largest max|diff| / max|grad| {worst_rel:.4f} (limit {PARITY_REL})")
 
 
-def train_phase(torch, dev):
+def train_phase(torch, dev, bwd: str):
     """The training slice: 8-layer, full-width qwen3-8b, TRAIN_STEPS AdamW
-    steps on the synthetic stream; returns the main path's launch counts."""
+    steps on the synthetic stream through flash_cuda with the ``bwd``
+    backward. Returns the main path's launch counts and a summary (losses,
+    median step, tokens/s, MFU, peak memory, profiled busy share)."""
     from repro_torch.configs import registry
     from repro_torch.core.attention import AttentionConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.kernels import flash_bwd as bwd
+    from repro_torch.kernels import flash_bwd as bwd_mod
     from repro_torch.kernels import flash_fwd as fwd
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models.lm import init_lm
@@ -892,22 +979,25 @@ def train_phase(torch, dev):
     opt_state = init_opt_state(params)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.values())
-    log(f"training qwen3-8b at published widths, {cfg.num_layers} of 36 layers: "
+    log(f"training (bwd={bwd}) qwen3-8b at published widths, {cfg.num_layers} of 36 layers: "
         f"{n_params / 1e9:.4f} B params ({cfg.dtype}, remat {cfg.remat}), f32 master + mu + "
         f"nu; set up in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
     data = SyntheticLM(DataConfig(batch_size=TRAIN_B, seq_len=TRAIN_S,
                                   vocab_size=cfg.vocab_size, seed=0))
-    step_fn = build_train_step(cfg, AttentionConfig(impl="flash_cuda"),
+    step_fn = build_train_step(cfg, AttentionConfig(impl="flash_cuda", bwd=bwd),
                                AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS))
     batches = []
     for step in range(TRAIN_STEPS):
         inputs, targets = data.batch(step)
         batches.append({"inputs": torch.from_numpy(inputs).to(dev),
                         "targets": torch.from_numpy(targets).to(dev)})
-    counters = (fwd.flash_fwd, bwd.flash_bwd_delta, bwd.flash_bwd_fused)
-    plains = (fwd.flash_fwd_plain, bwd.flash_bwd_delta_plain, bwd.flash_bwd_fused_plain)
-    for f in counters:
+    counters = {"flash_fwd": fwd.flash_fwd, "flash_bwd_delta": bwd_mod.flash_bwd_delta,
+                "flash_bwd_fused": bwd_mod.flash_bwd_fused,
+                "flash_bwd_dkv": bwd_mod.flash_bwd_dkv, "flash_bwd_dq": bwd_mod.flash_bwd_dq}
+    plains = (fwd.flash_fwd_plain, bwd_mod.flash_bwd_delta_plain, bwd_mod.flash_bwd_fused_plain,
+              bwd_mod.flash_bwd_dkv_plain, bwd_mod.flash_bwd_dq_plain)
+    for f in counters.values():
         f.launches = 0
     for f in plains:
         f.calls = 0
@@ -919,38 +1009,44 @@ def train_phase(torch, dev):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t_step)
         losses.append(m["loss"])
-        log(f"train step {step}: loss {m['loss']:.5f} gnorm {m['grad_norm']:.4f} "
+        log(f"train (bwd={bwd}) step {step}: loss {m['loss']:.5f} gnorm {m['grad_norm']:.4f} "
             f"lr {m['lr']:.3e} skipped {m['skipped']:.0f}, {times[-1] * 1e3:.1f} ms")
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])) or m["skipped"]:
-            fail(f"training step {step} gave a non-finite loss or gradient norm")
-    counts = {"flash_fwd": fwd.flash_fwd.launches,
-              "flash_bwd_delta": bwd.flash_bwd_delta.launches,
-              "flash_bwd_fused": bwd.flash_bwd_fused.launches,
-              "plain": [f.calls for f in plains]}
+            fail(f"training step {step} (bwd={bwd}) gave a non-finite loss or gradient norm")
+    counts = {k: f.launches for k, f in counters.items()}
+    counts["plain"] = [f.calls for f in plains]
     peak = torch.cuda.max_memory_allocated(dev)
     med = sorted(times)[len(times) // 2]
     tokens = TRAIN_B * TRAIN_S
     mfu = train_model_flops(cfg, TRAIN_B, TRAIN_S) / med / PEAK_BF16_FLOPS
-    log(f"training: losses {[round(x, 5) for x in losses]}; median step {med * 1e3:.1f} ms "
-        f"(first {times[0] * 1e3:.1f} ms), {tokens / med:.1f} tokens/s, model FLOPs "
-        f"{train_model_flops(cfg, TRAIN_B, TRAIN_S) / 1e12:.3f} TFLOP a step, MFU {mfu:.4f} of "
-        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; max_memory_allocated {peak / 2**30:.2f} GiB")
-    log(f"launches on the training path: {counts}")
+    log(f"training (bwd={bwd}): losses {[round(x, 5) for x in losses]}; median step "
+        f"{med * 1e3:.1f} ms (first {times[0] * 1e3:.1f} ms), {tokens / med:.1f} tokens/s, model "
+        f"FLOPs {train_model_flops(cfg, TRAIN_B, TRAIN_S) / 1e12:.3f} TFLOP a step, MFU "
+        f"{mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"launches on the training path (bwd={bwd}): {counts}")
     if not sum(losses[-2:]) / 2 < losses[0]:
-        fail("the training loss did not fall")
+        fail(f"the training loss (bwd={bwd}) did not fall")
     n = TRAIN_STEPS * TRAIN_LAYERS
-    want = {"flash_fwd": 2 * n, "flash_bwd_delta": n, "flash_bwd_fused": n, "plain": [0, 0, 0]}
+    want = {"flash_fwd": 2 * n, "flash_bwd_delta": n,
+            "flash_bwd_fused": n if bwd == "fused" else 0,
+            "flash_bwd_dkv": n if bwd == "split" else 0,
+            "flash_bwd_dq": n if bwd == "split" else 0, "plain": [0] * len(plains)}
     if counts != want:
-        fail(f"training launches {counts}, want {want} (forward twice a layer with remat)")
-    profile_train_step(torch, step_fn, model, opt_state, batches[0], med)
+        fail(f"training launches (bwd={bwd}) {counts}, want {want} (forward twice a layer "
+             f"with remat)")
+    busy = profile_train_step(torch, step_fn, model, opt_state, batches[0], med)
     del model, params, opt_state, batches
-    return counts
+    return counts, dict(losses=losses, median_ms=med * 1e3, tokens_per_s=tokens / med, mfu=mfu,
+                        peak_gib=peak / 2**30, busy_share=busy)
 
 
-def profile_train_step(torch, step_fn, model, opt_state, batch, median_s: float) -> None:
+def profile_train_step(torch, step_fn, model, opt_state, batch, median_s: float):
     """Where one training step's device time goes, from torch.profiler: the
     device busy share and the kernels by device time, the port's own apart.
-    (One more step; it is not part of the counted main-path run.)"""
+    (One more step; it is not part of the counted main-path run.) Returns
+    the busy share against the unprofiled median step, or None where the
+    profiler recorded no device event."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -962,7 +1058,7 @@ def profile_train_step(torch, step_fn, model, opt_state, batch, median_s: float)
     busy_us, by_name, n_events = device_busy(torch, prof)
     if not n_events:
         log("training step device busy share: not measured (no device events recorded)")
-        return
+        return None
     busy_ms = busy_us / 1e3
     log(f"training step under torch.profiler: {n_events} device events, device busy "
         f"{busy_ms:.1f} ms; wall {wall * 1e3:.1f} ms -> busy share {busy_ms / wall / 1e3:.4f}; "
@@ -978,6 +1074,46 @@ def profile_train_step(torch, step_fn, model, opt_state, batch, median_s: float)
         log(f"  group {label}: {us / 1e3:.1f} ms ({us / busy_us:.1%})")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"  device {us / 1e3:8.3f} ms ({us / busy_us:6.1%}): {name[:90]}")
+    return busy_ms / median_s / 1e3
+
+
+def split_train_phase(torch, dev, fused_summary):
+    """The deterministic training slice: phase 8's model, seed and batches
+    through bwd="split". Launch counts exact, the loss falls, step 0's loss
+    equals phase 8's (the same forward); then, at the training shape,
+    ops.flash_attention(bwd="split") forward and backward twice must give
+    bitwise-equal dq, dk and dv. Returns the main path's launch counts."""
+    from repro_torch.core.masks import MaskSpec
+    from repro_torch.kernels import ops
+
+    counts, summary = train_phase(torch, dev, "split")
+    fmt = {"median_ms": "{:.1f} ms", "tokens_per_s": "{:.1f}", "mfu": "{:.4f}",
+           "peak_gib": "{:.2f} GiB", "busy_share": "{:.4f}"}
+    log("training, split against fused backward (phase 8): " + "; ".join(
+        f"{k} {v.format(summary[k]) if summary[k] is not None else 'not measured'} against "
+        f"{v.format(fused_summary[k]) if fused_summary[k] is not None else 'not measured'}"
+        for k, v in fmt.items()))
+    if summary["losses"][0] != fused_summary["losses"][0]:
+        fail(f"step 0's loss through bwd=split ({summary['losses'][0]!r}) differs from phase "
+             f"8's ({fused_summary['losses'][0]!r}); the forward is the same")
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    shapes = ((TRAIN_B, TRAIN_S, HQ, HD), (TRAIN_B, TRAIN_S, HKV, HD), (TRAIN_B, TRAIN_S, HKV, HD))
+    q0, k0, v0 = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16) for s in shapes)
+    do = torch.randn(shapes[0], generator=gen, device=dev).to(torch.bfloat16)
+    grads = []
+    for _ in range(2):
+        q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
+        ops.flash_attention(q, k, v, MaskSpec(causal=True), bwd="split").backward(do)
+        grads.append((q.grad, k.grad, v.grad))
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(*grads)]
+    log(f"ops.flash_attention(bwd=split) forward + backward twice at B={TRAIN_B} S={TRAIN_S} "
+        f"Hq={HQ} Hkv={HKV}: dq, dk, dv bitwise equal {same}")
+    if not all(same) or not all(torch.isfinite(g.float()).all() for g in grads[0]):
+        fail("the split backward is not bitwise reproducible (or not finite) at the training "
+             "shape")
+    return counts
 
 
 def main() -> None:
@@ -1018,21 +1154,28 @@ def main() -> None:
     train_parity_phase(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    train_counts = train_phase(torch, dev)
+    train_counts, fused_summary = train_phase(torch, dev, "fused")
+    gc.collect()
+    torch.cuda.empty_cache()
+    split_counts = split_train_phase(torch, dev, fused_summary)
 
     results["flash_fwd"]["at_training_shape"] = results.pop("flash_fwd_at_training_shape")
     replaces = {"flash_fwd": "src/repro/kernels/flash_fwd.py:354",
                 "flash_decode": "src/repro/kernels/flash_decode.py:77",
                 "flash_decode_paged": "src/repro/kernels/flash_decode.py:250",
                 "flash_bwd_delta": "src/repro/kernels/flash_bwd.py:80",
-                "flash_bwd_fused": "src/repro/kernels/flash_bwd.py:718"}
+                "flash_bwd_fused": "src/repro/kernels/flash_bwd.py:718",
+                "flash_bwd_dkv": "src/repro/kernels/flash_bwd.py:234",
+                "flash_bwd_dq": "src/repro/kernels/flash_bwd.py:459"}
     source = {"flash_fwd": "flash_fwd", "flash_decode": "flash_decode",
-              "flash_decode_paged": "flash_decode",
-              "flash_bwd_delta": "flash_bwd", "flash_bwd_fused": "flash_bwd"}
+              "flash_decode_paged": "flash_decode", "flash_bwd_delta": "flash_bwd",
+              "flash_bwd_fused": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
+              "flash_bwd_dq": "flash_bwd"}
     kernels = []
     for k in replaces:
         by_path = {"serving": serve_counts.get(k, 0), "paged_serving": paged_counts.get(k, 0),
-                   "training": train_counts.get(k, 0)}
+                   "training": train_counts.get(k, 0),
+                   "training_split": split_counts.get(k, 0)}
         kernels.append({
             "name": k, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source[k]}.cu",
             "replaces": replaces[k], "launches": sum(by_path.values()),

@@ -30,10 +30,16 @@ IMPLS = ("ref", "flash_cuda")
 @dataclasses.dataclass(frozen=True)
 class AttentionConfig:
     impl: str = "flash_cuda"
+    # flash_cuda backward: 'fused' (one pass, dq by atomics) | 'split' (the
+    # deterministic dK/dV + dQ kernels). None -> 'fused': the port has no
+    # tuned cache to consult.
+    bwd: Optional[str] = None
 
     def __post_init__(self):
         if self.impl not in IMPLS:
             raise ValueError(f"unknown attention impl {self.impl!r}; have {IMPLS}")
+        if self.bwd is not None and self.bwd not in ops.BWD_MODES:
+            raise ValueError(f"unknown backward mode {self.bwd!r}; have {ops.BWD_MODES}")
 
 
 def attention(q, k, v, spec: MaskSpec, cfg: AttentionConfig = AttentionConfig(), *,
@@ -41,7 +47,7 @@ def attention(q, k, v, spec: MaskSpec, cfg: AttentionConfig = AttentionConfig(),
     """Attention output. q (B,Sq,Hq,D); k/v (B,Skv,Hkv,D) GQA."""
     if cfg.impl == "ref":
         return attention_reference(q, k, v, spec, scale=scale)[0]
-    return ops.flash_attention(q, k, v, spec, scale=scale)
+    return ops.flash_attention(q, k, v, spec, scale=scale, bwd=cfg.bwd or "fused")
 
 
 def decode_attention(q, k_cache, v_cache, cache_length,

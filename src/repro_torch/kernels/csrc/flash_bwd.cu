@@ -1,6 +1,6 @@
 // FlashAttention-2 backward for Hopper (sm_90a), bf16 in, f32 gradients.
 //
-// Two kernels:
+// Four kernels:
 //
 // fa2_bwd_delta_kernel replaces the Pallas TPU kernel
 // src/repro/kernels/flash_bwd.py:80 flash_bwd_delta: delta = rowsum(dO o O)
@@ -42,9 +42,34 @@
 //                fragment, then dK += dS^T Q;              (in parallel)
 //       phase 3  all warps: dQ += dS K from a bf16 dS^T tile in shared
 //                memory, then the atomics.
-// It uses neither wgmma nor TMA yet; those are the next step for speed.
 //
-// Semantics match the JAX kernel: masked scores take the finite
+// The split backward (bwd="split", the deterministic mode) is the other
+// two, with no atomics anywhere:
+//
+// fa2_bwd_dkv_kernel replaces src/repro/kernels/flash_bwd.py:234
+// flash_bwd_dkv (compact body _dkv_kernel_compact :193): the fused
+// kernel's body with phase 3 and the dS^T staging compiled out (a template
+// flag). Same CTA, warp split and loop order, so its dK and dV are bitwise
+// the fused kernel's. Four products per tile: bound by the tensor cores.
+//
+// fa2_bwd_dq_kernel replaces src/repro/kernels/flash_bwd.py:459
+// flash_bwd_dq (compact body _dq_kernel_compact :422). It is Q-stationary:
+// one CTA of 4 warps per (q tile of 64 rows, batch * q head) walks its
+// slice of the forward's q-major table (build_q_tile_schedule) over the
+// visible kv tiles in ascending order, reading kv head h / G. The Q and
+// dO tiles stay in shared memory, lse and delta in registers (one value a
+// row), and K and V tiles stream through a 2-stage cp.async ring. Per
+// tile and warp (16 q rows): S = Q K^T and dP = dO V^T, P = exp(S - lse),
+// dS = P o (dP - delta), then dQ += dS K with dS taken from the registers
+// as bf16 A fragments and K through ldmatrix.trans (the shapes of the
+// forward's S = Q K^T and O += P V). dQ stays in f32 registers (64 a
+// thread) and is written once: a fixed order, so dQ is bitwise
+// reproducible. Three products per tile: bound by the tensor cores.
+// A CTA whose slice is empty still writes its zeros.
+//
+// None of them uses wgmma or TMA yet; those are the next step for speed.
+//
+// Semantics match the JAX kernels: masked scores take the finite
 // DEFAULT_MASK_VALUE, K/V rows past the end read as zeros and are masked,
 // a fully masked row's lse = -inf is replaced by 0 (P stays 0), P is
 // rounded to bf16 before dV += P^T dO, dS before dK += dS^T Q and
@@ -63,6 +88,7 @@ constexpr int kBlockM = 64;  // q rows of a streamed tile
 constexpr int kBlockN = 64;  // kv rows a CTA owns
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kDqThreads = 4 * 32;  // the dq kernel: one warp per 16 q rows
 
 struct DeltaParams {
   const __nv_bfloat16* o;
@@ -80,16 +106,18 @@ struct BwdParams {
   const __nv_bfloat16* dout;
   const float* lse;    // (B, Hq, Sq), raw (-inf on fully masked rows)
   const float* delta;  // (B, Hq, Sq)
-  float* dq;           // (B, Sq, Hq, D), zeroed by the caller; null: skip the
-                       // atomics (a timing variant that isolates their cost)
+  float* dq;           // (B, Sq, Hq, D); fused: zeroed by the caller, null
+                       // skips the atomics (a timing variant that isolates
+                       // their cost); dq kernel: written once
   float* dk;           // (B, Skv, Hkv, D)
   float* dv;           // (B, Skv, Hkv, D)
-  const int* table;    // row_ptr[t_kv + 1], then (q_tile << 1) | masked
+  const int* table;    // kv-major: row_ptr[t_kv + 1], then (q_tile << 1) | masked;
+                       // q-major (dq): row_ptr[t_q + 1], then (kv_tile << 1) | masked
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long d_sb, d_ss, d_sh;
-  int Hq, Hkv, group, Sq, Skv, t_kv;
+  int Hq, Hkv, group, Sq, Skv, t_kv, t_q;
   int causal, window, sink, q_offset;  // window < 0: no window
 };
 
@@ -137,11 +165,11 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 
 // Copy rows [row0, row0 + ROWS) of a (rows, D) slice with row stride
 // `stride` into shared memory; rows at or past `nrows` are zero-filled.
-template <int ROWS, int D, int STRIDE>
+template <int ROWS, int D, int STRIDE, int THREADS = kThreads>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long long stride, int row0, int nrows) {
   constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += THREADS) {
     const int r = idx / CHUNKS, c = idx % CHUNKS;
     const int g = row0 + r;
     const bool valid = g < nrows;
@@ -193,10 +221,12 @@ __global__ void __launch_bounds__(kThreads) fa2_bwd_delta_kernel(const DeltaPara
   }
 }
 
-// ------------------------------------------------------------------ fused
+// ------------------------------------------------------- fused and dkv
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1) fa2_bwd_fused_kernel(const BwdParams p) {
+// The KV-stationary body: with DQ, the fused kernel; without, the dkv
+// kernel (no phase 3 and no dS^T tile; dK and dV bitwise the same).
+template <int D, bool DQ>
+__device__ __forceinline__ void kv_stationary(const BwdParams& p) {
   constexpr int BM = kBlockM;
   constexpr int BN = kBlockN;
   constexpr int STRIDE = D + 8;     // padded row: ldmatrix rows hit distinct banks
@@ -212,7 +242,7 @@ __global__ void __launch_bounds__(kThreads, 1) fa2_bwd_fused_kernel(const BwdPar
   __nv_bfloat16* sQ = sV + BN * STRIDE;                             // [2][BM][STRIDE]
   __nv_bfloat16* sdO = sQ + 2 * BM * STRIDE;                        // [2][BM][STRIDE]
   __nv_bfloat16* sdS = sdO + 2 * BM * STRIDE;                       // [BN][DS_STRIDE], dS^T
-  float4* sP = reinterpret_cast<float4*>(sdS + BN * DS_STRIDE);    // [4][NT_Q][32], P^T
+  float4* sP = reinterpret_cast<float4*>(sdS + (DQ ? BN * DS_STRIDE : 0));  // [4][NT_Q][32], P^T
 
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -327,10 +357,12 @@ __global__ void __launch_bounds__(kThreads, 1) fa2_bwd_fused_kernel(const BwdPar
           s[t][1] = pv.y * (s[t][1] - d1);
           s[t][2] = pv.z * (s[t][2] - d0);
           s[t][3] = pv.w * (s[t][3] - d1);
-          *reinterpret_cast<unsigned*>(sdS + (wr * 16 + g8) * DS_STRIDE + t * 8 + 2 * t4) =
-              pack_bf16(s[t][0], s[t][1]);
-          *reinterpret_cast<unsigned*>(sdS + (wr * 16 + g8 + 8) * DS_STRIDE + t * 8 + 2 * t4) =
-              pack_bf16(s[t][2], s[t][3]);
+          if (DQ) {
+            *reinterpret_cast<unsigned*>(sdS + (wr * 16 + g8) * DS_STRIDE + t * 8 + 2 * t4) =
+                pack_bf16(s[t][0], s[t][1]);
+            *reinterpret_cast<unsigned*>(sdS + (wr * 16 + g8 + 8) * DS_STRIDE + t * 8 + 2 * t4) =
+                pack_bf16(s[t][2], s[t][3]);
+          }
         }
       }
 
@@ -355,12 +387,12 @@ __global__ void __launch_bounds__(kThreads, 1) fa2_bwd_fused_kernel(const BwdPar
           }
         }
       }
-      __syncthreads();  // dS^T is in shared memory
 
-      // Phase 3: dQ_i += dS K_j (line 15), all warps: warp -> 16 q rows
-      // (wr) x half of head_dim (warp / 4); A = dS from the dS^T tile
-      // through ldmatrix.trans, B = K through ldmatrix.trans.
-      {
+      // Phase 3 (DQ only): dQ_i += dS K_j (line 15), all warps: warp -> 16
+      // q rows (wr) x half of head_dim (warp / 4); A = dS from the dS^T
+      // tile through ldmatrix.trans, B = K through ldmatrix.trans.
+      if (DQ) {
+        __syncthreads();  // dS^T is in shared memory
         const int dcol0 = (warp / 4) * (D / 2);
         float dqa[NT_DQ][4];
 #pragma unroll
@@ -414,10 +446,214 @@ __global__ void __launch_bounds__(kThreads, 1) fa2_bwd_fused_kernel(const BwdPar
 }
 
 template <int D>
-size_t fused_smem_bytes() {
+__global__ void __launch_bounds__(kThreads, 1) fa2_bwd_fused_kernel(const BwdParams p) {
+  kv_stationary<D, true>(p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) fa2_bwd_dkv_kernel(const BwdParams p) {
+  kv_stationary<D, false>(p);
+}
+
+template <int D, bool DQ>
+size_t kv_stationary_smem_bytes() {
   return static_cast<size_t>(2 * kBlockN + 4 * kBlockM) * (D + 8) * sizeof(__nv_bfloat16) +
-         static_cast<size_t>(kBlockN) * (kBlockM + 8) * sizeof(__nv_bfloat16) +
+         (DQ ? static_cast<size_t>(kBlockN) * (kBlockM + 8) * sizeof(__nv_bfloat16) : 0) +
          static_cast<size_t>(4 * (kBlockM / 8) * 32) * sizeof(float4);
+}
+
+// --------------------------------------------------------------------- dq
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads) fa2_bwd_dq_kernel(const BwdParams p) {
+  constexpr int BM = kBlockM;
+  constexpr int BN = kBlockN;
+  constexpr int STRIDE = D + 8;   // padded row: ldmatrix rows hit distinct banks
+  constexpr int KSTEPS = D / 16;  // k-steps of S and dP over head_dim
+  constexpr int NT_S = BN / 8;    // n-tiles over a tile's kv columns
+  constexpr int NT_D = D / 8;     // n-tiles over head_dim
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][STRIDE]
+  __nv_bfloat16* sdO = sQ + BM * STRIDE;                             // [BM][STRIDE]
+  __nv_bfloat16* sK = sdO + BM * STRIDE;                             // [2][BN][STRIDE]
+  __nv_bfloat16* sV = sK + 2 * BN * STRIDE;                          // [2][BN][STRIDE]
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;  // this warp's 16 q rows within the tile
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int qt = p.t_q - 1 - blockIdx.x;  // longest causal rows start first
+  const int bh = blockIdx.y;
+  const int b = bh / p.Hq, h = bh % p.Hq, hk = h / p.group;
+  const __nv_bfloat16* kg = p.k + b * p.k_sb + hk * p.k_sh;
+  const __nv_bfloat16* vg = p.v + b * p.v_sb + hk * p.v_sh;
+  const int q0 = qt * BM;
+  const int beg = p.table[qt], end = p.table[qt + 1];
+  const int* steps = p.table + p.t_q + 1;
+  const int row_a = q0 + warp * 16 + g8;  // this thread's two q rows
+  const int row_b = row_a + 8;
+
+  // dQ: rows row_a / row_b, columns t * 8 + 2 * t4.
+  float acc[NT_D][4];
+#pragma unroll
+  for (int t = 0; t < NT_D; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+
+  if (beg < end) {
+    load_tile<BM, D, STRIDE, kDqThreads>(sQ, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq);
+    load_tile<BM, D, STRIDE, kDqThreads>(sdO, p.dout + b * p.d_sb + h * p.d_sh, p.d_ss, q0,
+                                         p.Sq);
+    const int j0 = steps[beg] >> 1;
+    load_tile<BN, D, STRIDE, kDqThreads>(sK, kg, p.k_ss, j0 * BN, p.Skv);
+    load_tile<BN, D, STRIDE, kDqThreads>(sV, vg, p.v_ss, j0 * BN, p.Skv);
+    cp_async_commit();
+
+    // lse (-inf -> 0; +inf past the end) and delta of the two rows.
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? row_b : row_a;
+      const long long at = static_cast<long long>(bh) * p.Sq + row;
+      const float l = row < p.Sq ? p.lse[at] : INFINITY;
+      lse_r[r] = l == -INFINITY ? 0.f : l;
+      delta_r[r] = row < p.Sq ? p.delta[at] : 0.f;
+    }
+
+    for (int it = beg; it < end; ++it) {
+      const int stage = (it - beg) & 1;
+      if (it + 1 < end) {
+        const int jn = steps[it + 1] >> 1;
+        load_tile<BN, D, STRIDE, kDqThreads>(sK + (stage ^ 1) * BN * STRIDE, kg, p.k_ss,
+                                             jn * BN, p.Skv);
+        load_tile<BN, D, STRIDE, kDqThreads>(sV + (stage ^ 1) * BN * STRIDE, vg, p.v_ss,
+                                             jn * BN, p.Skv);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+
+      const int entry = steps[it];
+      const int j = entry >> 1;
+      const bool masked = entry & 1;
+      const __nv_bfloat16* cK = sK + stage * BN * STRIDE;
+      const __nv_bfloat16* cV = sV + stage * BN * STRIDE;
+
+      // S = Q K^T (line 11) and dP = dO V^T (line 13): this warp's 16 q
+      // rows x the tile's 64 kv columns, A fragments from sQ / sdO.
+      float s[NT_S][4], dp[NT_S][4];
+#pragma unroll
+      for (int t = 0; t < NT_S; ++t) {
+        s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+        dp[t][0] = dp[t][1] = dp[t][2] = dp[t][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        unsigned qa[4], da[4];
+        ldmatrix_x4(qa, sQ + (warp * 16 + (lane & 15)) * STRIDE + kk * 16 + (lane >> 4) * 8);
+        ldmatrix_x4(da, sdO + (warp * 16 + (lane & 15)) * STRIDE + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < NT_S / 2; ++np) {
+          const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * STRIDE + kk * 16 +
+                          ((lane >> 3) & 1) * 8;
+          unsigned kb[4], vb[4];
+          ldmatrix_x4(kb, cK + off);
+          mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+          ldmatrix_x4(vb, cV + off);
+          mma_bf16(dp[2 * np], da, vb[0], vb[1]);
+          mma_bf16(dp[2 * np + 1], da, vb[2], vb[3]);
+        }
+      }
+
+      // P = exp(S - lse) (line 11), dS = P o (dP - delta) (line 14), into s.
+      // Element e is q row row_a (e < 2) or row_b, kv column
+      // j * BN + t * 8 + 2 * t4 + (e & 1).
+#pragma unroll
+      for (int t = 0; t < NT_S; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float x = s[t][e];
+          if (masked && !visible(p, (r ? row_b : row_a) + p.q_offset,
+                                 j * BN + t * 8 + 2 * t4 + (e & 1)))
+            x = kMaskValue;
+          s[t][e] = expf(x - lse_r[r]) * (dp[t][e] - delta_r[r]);
+        }
+      }
+
+      // dQ += dS K (line 15): A = bf16 dS from the registers, B = K
+      // (kv rows x head_dim) through ldmatrix.trans.
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const unsigned a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int dpair = 0; dpair < NT_D / 2; ++dpair) {
+          unsigned bfr[4];
+          ldmatrix_x4_trans(bfr, cK + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STRIDE +
+                                     dpair * 16 + (lane >> 4) * 8);
+          mma_bf16(acc[2 * dpair], a, bfr[0], bfr[1]);
+          mma_bf16(acc[2 * dpair + 1], a, bfr[2], bfr[3]);
+        }
+      }
+      __syncthreads();  // this stage is refilled two iterations on
+    }
+  }
+
+  // dQ of the tile, written once (zeros where the slice is empty).
+  const long long rs = static_cast<long long>(p.Hq) * D;
+  float* out = p.dq + static_cast<long long>(b) * p.Sq * rs + h * D + 2 * t4;
+#pragma unroll
+  for (int t = 0; t < NT_D; ++t) {
+    if (row_a < p.Sq)
+      *reinterpret_cast<float2*>(out + row_a * rs + t * 8) = make_float2(acc[t][0], acc[t][1]);
+    if (row_b < p.Sq)
+      *reinterpret_cast<float2*>(out + row_b * rs + t * 8) = make_float2(acc[t][2], acc[t][3]);
+  }
+}
+
+template <int D>
+size_t dq_smem_bytes() {
+  return static_cast<size_t>(2 * kBlockM + 4 * kBlockN) * (D + 8) * sizeof(__nv_bfloat16);
+}
+
+// Fill the fields every backward kernel reads (all but dq, dk, dv, t_q, t_kv).
+BwdParams bwd_params(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, const void* table, long long q_sb,
+                     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+                     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+                     long long d_sb, long long d_ss, long long d_sh, int Hq, int Hkv, int Sq,
+                     int Skv, int causal, int window, int sink, int q_offset) {
+  BwdParams p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = p.dk = p.dv = nullptr;
+  p.table = static_cast<const int*>(table);
+  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
+  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
+  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
+  p.d_sb = d_sb; p.d_ss = d_ss; p.d_sh = d_sh;
+  p.Hq = Hq; p.Hkv = Hkv; p.group = Hq / Hkv; p.Sq = Sq; p.Skv = Skv;
+  p.t_kv = p.t_q = 0;
+  p.causal = causal; p.window = window; p.sink = sink; p.q_offset = q_offset;
+  return p;
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, const BwdParams& p, dim3 grid, int threads, size_t smem,
+                   void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -439,6 +675,9 @@ extern "C" int fa2_bwd_delta_bf16(const void* o, const void* dout, void* delta, 
   return cudaGetLastError();
 }
 
+// The entries below take the one instantiation the training path needs
+// (qwen3: head_dim 128, 64 x 64 tiles).
+
 extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dq, void* dk,
                                   void* dv, const void* table, long long q_sb, long long q_ss,
@@ -448,31 +687,51 @@ extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, c
                                   int Sq, int Skv, int head_dim, int block_q, int block_kv,
                                   int causal, int window, int sink, int q_offset, int t_kv,
                                   void* stream) {
-  BwdParams p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
+  if (head_dim != 128 || block_q != kBlockM || block_kv != kBlockN) return cudaErrorInvalidValue;
+  BwdParams p = bwd_params(q, k, v, dout, lse, delta, table, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                           v_sb, v_ss, v_sh, d_sb, d_ss, d_sh, Hq, Hkv, Sq, Skv, causal, window,
+                           sink, q_offset);
   p.dq = static_cast<float*>(dq);
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
-  p.table = static_cast<const int*>(table);
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
-  p.d_sb = d_sb; p.d_ss = d_ss; p.d_sh = d_sh;
-  p.Hq = Hq; p.Hkv = Hkv; p.group = Hq / Hkv; p.Sq = Sq; p.Skv = Skv; p.t_kv = t_kv;
-  p.causal = causal; p.window = window; p.sink = sink; p.q_offset = q_offset;
-  // The one instantiation the training path needs (qwen3: head_dim 128).
+  p.t_kv = t_kv;
+  return launch(fa2_bwd_fused_kernel<128>, p, dim3(batch * Hkv, t_kv), kThreads,
+                kv_stationary_smem_bytes<128, true>(), stream);
+}
+
+extern "C" int fa2_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                                const void* lse, const void* delta, void* dk, void* dv,
+                                const void* table, long long q_sb, long long q_ss, long long q_sh,
+                                long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+                                long long v_ss, long long v_sh, long long d_sb, long long d_ss,
+                                long long d_sh, int batch, int Hq, int Hkv, int Sq, int Skv,
+                                int head_dim, int block_q, int block_kv, int causal, int window,
+                                int sink, int q_offset, int t_kv, void* stream) {
   if (head_dim != 128 || block_q != kBlockM || block_kv != kBlockN) return cudaErrorInvalidValue;
-  const size_t smem = fused_smem_bytes<128>();
-  cudaError_t err = cudaFuncSetAttribute(fa2_bwd_fused_kernel<128>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(batch * Hkv, t_kv);
-  fa2_bwd_fused_kernel<128><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return cudaGetLastError();
+  BwdParams p = bwd_params(q, k, v, dout, lse, delta, table, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                           v_sb, v_ss, v_sh, d_sb, d_ss, d_sh, Hq, Hkv, Sq, Skv, causal, window,
+                           sink, q_offset);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.t_kv = t_kv;
+  return launch(fa2_bwd_dkv_kernel<128>, p, dim3(batch * Hkv, t_kv), kThreads,
+                kv_stationary_smem_bytes<128, false>(), stream);
+}
+
+extern "C" int fa2_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+                               const void* lse, const void* delta, void* dq, const void* table,
+                               long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                               long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                               long long v_sh, long long d_sb, long long d_ss, long long d_sh,
+                               int batch, int Hq, int Hkv, int Sq, int Skv, int head_dim,
+                               int block_q, int block_kv, int causal, int window, int sink,
+                               int q_offset, int t_q, void* stream) {
+  if (head_dim != 128 || block_q != kBlockM || block_kv != kBlockN) return cudaErrorInvalidValue;
+  BwdParams p = bwd_params(q, k, v, dout, lse, delta, table, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                           v_sb, v_ss, v_sh, d_sb, d_ss, d_sh, Hq, Hkv, Sq, Skv, causal, window,
+                           sink, q_offset);
+  p.dq = static_cast<float*>(dq);
+  p.t_q = t_q;
+  return launch(fa2_bwd_dq_kernel<128>, p, dim3(t_q, batch * Hq), kDqThreads,
+                dq_smem_bytes<128>(), stream);
 }

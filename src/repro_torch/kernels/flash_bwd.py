@@ -1,13 +1,20 @@
 """FlashAttention-2 backward (Algorithm 2): the Hopper CUDA kernels and
 their plain versions.
 
-Replaces two Pallas TPU kernels of ``repro/kernels/flash_bwd.py``:
+Replaces four Pallas TPU kernels of ``repro/kernels/flash_bwd.py``:
 
   * :func:`flash_bwd_delta` <- ``flash_bwd_delta`` (:80): delta =
     rowsum(dO o O), Algorithm 2 line 4, as f32 (B, Hq, Sq).
   * :func:`flash_bwd_fused` <- ``flash_bwd_fused`` (:718, compact body
     ``_fused_kernel_compact`` :672): dK, dV and dQ in one pass over the
     visible tiles, one (S, P) recompute per tile.
+  * :func:`flash_bwd_dkv` <- ``flash_bwd_dkv`` (:234, compact body
+    ``_dkv_kernel_compact`` :193) and :func:`flash_bwd_dq` <-
+    ``flash_bwd_dq`` (:459, compact body ``_dq_kernel_compact`` :422):
+    the split backward. dK/dV KV-stationary (the fused kernel without its
+    dQ phase, so bitwise its dK and dV), dQ Q-stationary over the forward's
+    q-major table, each written once: no atomics, so all three are bitwise
+    reproducible (``bwd="split"``, the deterministic mode).
 
 The TPU kernel runs a sequential kv-major grid and uses each q tile's first
 visit to zero its f32 dq block and compute its delta into VMEM scratch. On
@@ -18,7 +25,9 @@ paper's own choice). dK and dV need no atomics: a CTA owns one kv tile and
 loops over the G q heads that share it and their visible q tiles
 (``schedule.build_kv_tile_schedule``). The sums in dq come in no fixed
 order, so dq is not bitwise reproducible from run to run; it is held to
-``allclose``. The sources are ``csrc/flash_bwd.cu``; its header says what
+``allclose``. The split kernels write every output element exactly once,
+zeros included where a tile sees nothing, so their outputs need no
+zeroing. The sources are ``csrc/flash_bwd.cu``; its header says what
 bounds each kernel on an H100 and how the design answers.
 
 Layouts are the public ones, read in place through strides: q and dO
@@ -34,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +51,8 @@ import torch.nn.functional as F
 from repro_torch.core.masks import DEFAULT_MASK_VALUE, MaskSpec, make_tile_mask
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_fwd import _check_kernel_inputs, _check_layout, _tiles
-from repro_torch.kernels.schedule import build_kv_tile_schedule
+from repro_torch.kernels.flash_fwd import _device_table as _q_major_table
+from repro_torch.kernels.schedule import build_kv_tile_schedule, build_q_tile_schedule
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -89,7 +100,7 @@ def flash_bwd_delta_plain(o, do):
 flash_bwd_delta_plain.calls = 0
 
 
-# ------------------------------------------------------------------ fused
+# ------------------------------------------------- fused, dkv and dq
 
 
 def _check_bwd_inputs(q, k, v, do, lse, delta):
@@ -119,40 +130,98 @@ def flash_bwd_fused(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, bl
     return dq, dk, dv
 
 
+flash_bwd_fused.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int):
+    """dk, dv (f32, summed over the GQA group) of the split backward;
+    arguments as :func:`flash_bwd_fused`."""
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, spec,
+                                   block_q=block_q, block_kv=block_kv)
+    _check_device("flash_bwd_dkv", q)
+    lse, delta = lse.contiguous(), delta.contiguous()  # held until the launch
+    args = _kernel_args("the CUDA dK/dV kernel", q, k, v, do, lse, delta, spec, block_q,
+                        block_kv, q_major=False)
+    dk, dv = _empty_dkv(q, k)
+    err = _lib().fa2_bwd_dkv_bf16(*args[:6], dk.data_ptr(), dv.data_ptr(), *args[6:])
+    _build.check(err, "fa2_bwd_dkv_bf16")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int):
+    """dq (f32, with respect to the scaled q) of the split backward;
+    arguments as :func:`flash_bwd_fused`."""
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, spec,
+                                  block_q=block_q, block_kv=block_kv)
+    _check_device("flash_bwd_dq", q)
+    lse, delta = lse.contiguous(), delta.contiguous()  # held until the launch
+    args = _kernel_args("the CUDA dQ kernel", q, k, v, do, lse, delta, spec, block_q,
+                        block_kv, q_major=True)
+    # Every q row is written once, zeros where it sees no key.
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    err = _lib().fa2_bwd_dq_bf16(*args[:6], dq.data_ptr(), *args[6:])
+    _build.check(err, "fa2_bwd_dq_bf16")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0  # kernel launches (CUDA tensors only)
+
+
 def _launch_fused(q, k, v, do, lse, delta, spec, block_q, block_kv, dq):
     """Launch the fused kernel; returns (dk, dv). ``dq`` None launches the
     timing variant that computes dS K but skips its atomics into dq."""
-    B, Sq, Hq, D = q.shape
-    _, Skv, Hkv, _ = k.shape
-    _check_kernel_inputs("the CUDA fused backward", (block_q, block_kv),
-                         q=q, k=k, v=v, do=do)
-    lse, delta = lse.contiguous(), delta.contiguous()
-    if lse.device != q.device or delta.device != q.device:
-        raise ValueError("lse and delta must lie on q's device")
-    t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
-    if t_kv > 65535:
-        raise ValueError("kv tiles exceed the grid's y limit (65535)")
-    table = _device_table(spec, t_q, t_kv, block_q, block_kv, Skv, str(q.device))
-    dk = torch.empty((B, Skv, Hkv, D), dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
-    err = _lib().fa2_bwd_fused_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(),
-        None if dq is None else dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        table.data_ptr(),
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        do.stride(0), do.stride(1), do.stride(2),
-        B, Hq, Hkv, Sq, Skv, D, block_q, block_kv,
-        int(spec.causal), -1 if spec.window is None else int(spec.window),
-        int(spec.sink), int(spec.q_offset), t_kv, _stream(q),
-    )
+    lse, delta = lse.contiguous(), delta.contiguous()  # held until the launch
+    args = _kernel_args("the CUDA fused backward", q, k, v, do, lse, delta, spec, block_q,
+                        block_kv, q_major=False)
+    dk, dv = _empty_dkv(q, k)
+    err = _lib().fa2_bwd_fused_bf16(*args[:6], None if dq is None else dq.data_ptr(),
+                                    dk.data_ptr(), dv.data_ptr(), *args[6:])
     _build.check(err, "fa2_bwd_fused_bf16")
     return dk, dv
 
 
-flash_bwd_fused.launches = 0  # kernel launches (CUDA tensors only)
+def _empty_dkv(q, k):
+    # Written once by the kernel, zeros where a kv tile sees no q row.
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    return dk, torch.empty_like(dk)
+
+
+def _kernel_args(what, q, k, v, do, lse, delta, spec, block_q, block_kv, *, q_major: bool):
+    """Check what the kernels take and build the arguments of a C entry
+    around its outputs: the six input pointers, then the table, strides,
+    sizes, tiles, mask, owner-tile count and stream. ``lse`` and ``delta``
+    must be contiguous (the caller holds them until the launch)."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    _check_kernel_inputs(what, (block_q, block_kv), q=q, k=k, v=v, do=do)
+    if lse.device != q.device or delta.device != q.device:
+        raise ValueError("lse and delta must lie on q's device")
+    if not (lse.is_contiguous() and delta.is_contiguous()):
+        raise ValueError("lse and delta must be contiguous")
+    t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
+    if q_major:
+        table = _q_major_table(spec, t_q, t_kv, block_q, block_kv, Skv, str(q.device))
+    else:
+        if t_kv > 65535:
+            raise ValueError("kv tiles exceed the grid's y limit (65535)")
+        table = _device_table(spec, t_q, t_kv, block_q, block_kv, Skv, str(q.device))
+    return (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), table.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        B, Hq, Hkv, Sq, Skv, D, block_q, block_kv,
+        int(spec.causal), -1 if spec.window is None else int(spec.window),
+        int(spec.sink), int(spec.q_offset), t_q if q_major else t_kv, _stream(q),
+    )
 
 
 @functools.lru_cache(maxsize=64)
@@ -166,10 +235,92 @@ def _lib():
     lib = _build.load("flash_bwd")
     P, I, L = _build.VOIDP, _build.INT, _build.I64
     lib.fa2_bwd_delta_bf16.argtypes = [P] * 3 + [L] * 6 + [I] * 4 + [P]
-    lib.fa2_bwd_delta_bf16.restype = ctypes.c_int
     lib.fa2_bwd_fused_bf16.argtypes = [P] * 10 + [L] * 12 + [I] * 13 + [P]
-    lib.fa2_bwd_fused_bf16.restype = ctypes.c_int
+    lib.fa2_bwd_dkv_bf16.argtypes = [P] * 9 + [L] * 12 + [I] * 13 + [P]
+    lib.fa2_bwd_dq_bf16.argtypes = [P] * 8 + [L] * 12 + [I] * 13 + [P]
+    for fn in (lib.fa2_bwd_delta_bf16, lib.fa2_bwd_fused_bf16, lib.fa2_bwd_dkv_bf16,
+               lib.fa2_bwd_dq_bf16):
+        fn.restype = ctypes.c_int
     return lib
+
+
+# ------------------------------------------------------------ plain versions
+
+
+class _Padded(NamedTuple):
+    """The f32 operands of the plain versions, padded to whole tiles: rows
+    past the ends read as zeros, as in the kernels; a q row past Sq gets
+    lse = +inf (so P = 0 there) and delta = 0; a fully masked row's
+    lse = -inf becomes 0. q-side tensors are split into (kv head, group)."""
+
+    qh: torch.Tensor   # (B, t_q * bq, Hk, G, D)
+    doh: torch.Tensor  # (B, t_q * bq, Hk, G, D)
+    kp: torch.Tensor   # (B, t_kv * bk, Hk, D)
+    vp: torch.Tensor   # (B, t_kv * bk, Hk, D)
+    lse: torch.Tensor  # (B, Hk, G, t_q * bq)
+    dl: torch.Tensor   # (B, Hk, G, t_q * bq)
+
+
+def _padded(q, k, v, do, lse, delta, block_q, block_kv) -> _Padded:
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hk, _ = k.shape
+    pq = _tiles(Sq, block_q) * block_q - Sq
+    pk = _tiles(Skv, block_kv) * block_kv - Skv
+    lse_s = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
+    return _Padded(
+        qh=F.pad(q, (0, 0, 0, 0, 0, pq)).reshape(B, -1, Hk, Hq // Hk, D).float(),
+        doh=F.pad(do, (0, 0, 0, 0, 0, pq)).reshape(B, -1, Hk, Hq // Hk, D).float(),
+        kp=F.pad(k, (0, 0, 0, 0, 0, pk)).float(),
+        vp=F.pad(v, (0, 0, 0, 0, 0, pk)).float(),
+        lse=F.pad(lse_s, (0, pq), value=float("inf")).reshape(B, Hk, Hq // Hk, -1),
+        dl=F.pad(delta, (0, pq)).reshape(B, Hk, Hq // Hk, -1),
+    )
+
+
+def _tile_terms(x: _Padded, spec, i, j, block_q, block_kv, masked, Skv, dt):
+    """P and the dS rounded to ``dt`` of tile (i, j), in f32 (B, Hk, G, bq,
+    bk): Algorithm 2 lines 11, 13 and 14 (``_recompute_p`` and
+    ``_dkv_tile_math`` of the JAX kernels)."""
+    r0, r1 = i * block_q, (i + 1) * block_q
+    c0, c1 = j * block_kv, (j + 1) * block_kv
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", x.qh[:, r0:r1], x.kp[:, c0:c1])
+    if masked:
+        rows = torch.arange(r0, r1, device=sc.device) + spec.q_offset
+        cols = torch.arange(c0, c1, device=sc.device)
+        vis = (cols < Skv)[None, :]
+        tm = make_tile_mask(spec, rows, cols)
+        vis = vis if tm is None else vis & tm
+        sc = sc.masked_fill(~vis, DEFAULT_MASK_VALUE)
+    p = torch.exp(sc - x.lse[..., r0:r1, None])
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", x.doh[:, r0:r1], x.vp[:, c0:c1])
+    ds = (p * (dp - x.dl[..., r0:r1, None])).to(dt).float()
+    return p, ds
+
+
+def _kv_major_walk(q, k, v, do, lse, delta, spec, block_q, block_kv, with_dq: bool):
+    """The kv-major walk of the fused and dkv kernels in plain PyTorch."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, _, _ = k.shape
+    x = _padded(q, k, v, do, lse, delta, block_q, block_kv)
+    t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
+    sched = build_kv_tile_schedule(spec, t_q, t_kv, block_q, block_kv, Skv)
+    dq = torch.zeros_like(x.qh)
+    dk = torch.zeros_like(x.kp)
+    dv = torch.zeros_like(x.vp)
+    for j in range(t_kv):
+        c0, c1 = j * block_kv, (j + 1) * block_kv
+        for s in range(sched.row_ptr[j], sched.row_ptr[j + 1]):
+            i = int(sched.inner[s])
+            r0, r1 = i * block_q, (i + 1) * block_q
+            p, ds = _tile_terms(x, spec, i, j, block_q, block_kv, sched.masked[s], Skv, q.dtype)
+            dv[:, c0:c1] += torch.einsum("bhgqk,bqhgd->bkhd", p.to(q.dtype).float(),
+                                         x.doh[:, r0:r1])
+            dk[:, c0:c1] += torch.einsum("bhgqk,bqhgd->bkhd", ds, x.qh[:, r0:r1])
+            if with_dq:
+                dq[:, r0:r1] += torch.einsum("bhgqk,bkhd->bqhgd", ds, x.kp[:, c0:c1])
+    dk, dv = dk[:, :Skv].contiguous(), dv[:, :Skv].contiguous()
+    return (dq[:, :Sq].reshape(B, Sq, Hq, D), dk, dv) if with_dq else (dk, dv)
 
 
 def flash_bwd_fused_plain(q, k, v, do, lse, delta, spec: MaskSpec, *,
@@ -182,49 +333,45 @@ def flash_bwd_fused_plain(q, k, v, do, lse, delta, spec: MaskSpec, *,
     dK += dS^T Q and dQ += dS K (``_dkv_tile_math``/``_fused_compute`` of
     the JAX kernel). The G q heads of a kv head are summed together."""
     flash_bwd_fused_plain.calls += 1
-    _check_bwd_inputs(q, k, v, do, lse, delta)
-    B, Sq, Hq, D = q.shape
-    _, Skv, Hk, _ = k.shape
-    G = Hq // Hk
-    dt = q.dtype
-    t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
-    sched = build_kv_tile_schedule(spec, t_q, t_kv, block_q, block_kv, Skv)
-    # Rows past the ends read as zeros, as in the kernel; a q row past Sq
-    # gets lse = +inf (so P = 0 there) and delta = 0.
-    pq, pk = t_q * block_q - Sq, t_kv * block_kv - Skv
-    qh = F.pad(q, (0, 0, 0, 0, 0, pq)).reshape(B, -1, Hk, G, D).float()
-    doh = F.pad(do, (0, 0, 0, 0, 0, pq)).reshape(B, -1, Hk, G, D).float()
-    kp = F.pad(k, (0, 0, 0, 0, 0, pk)).float()
-    vp = F.pad(v, (0, 0, 0, 0, 0, pk)).float()
-    lse_s = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
-    lse_s = F.pad(lse_s, (0, pq), value=float("inf")).reshape(B, Hk, G, -1)
-    dl = F.pad(delta, (0, pq)).reshape(B, Hk, G, -1)
-    dq = torch.zeros_like(qh)
-    dk = torch.zeros_like(kp)
-    dv = torch.zeros_like(vp)
-    for j in range(t_kv):
-        c0, c1 = j * block_kv, (j + 1) * block_kv
-        kj, vj = kp[:, c0:c1], vp[:, c0:c1]
-        cols = torch.arange(c0, c1, device=q.device)
-        for s in range(sched.row_ptr[j], sched.row_ptr[j + 1]):
-            i = int(sched.inner[s])
-            r0, r1 = i * block_q, (i + 1) * block_q
-            qi, doi = qh[:, r0:r1], doh[:, r0:r1]
-            sc = torch.einsum("bqhgd,bkhd->bhgqk", qi, kj)
-            if sched.masked[s]:
-                rows = torch.arange(r0, r1, device=q.device) + spec.q_offset
-                vis = (cols < Skv)[None, :]
-                tm = make_tile_mask(spec, rows, cols)
-                vis = vis if tm is None else vis & tm
-                sc = sc.masked_fill(~vis, DEFAULT_MASK_VALUE)
-            p = torch.exp(sc - lse_s[..., r0:r1, None])
-            dv[:, c0:c1] += torch.einsum("bhgqk,bqhgd->bkhd", p.to(dt).float(), doi)
-            dp = torch.einsum("bqhgd,bkhd->bhgqk", doi, vj)
-            ds = (p * (dp - dl[..., r0:r1, None])).to(dt).float()
-            dk[:, c0:c1] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qi)
-            dq[:, r0:r1] += torch.einsum("bhgqk,bkhd->bqhgd", ds, kj)
-    return (dq[:, :Sq].reshape(B, Sq, Hq, D), dk[:, :Skv].contiguous(),
-            dv[:, :Skv].contiguous())
+    return _kv_major_walk(q, k, v, do, lse, delta, spec, block_q, block_kv, with_dq=True)
 
 
 flash_bwd_fused_plain.calls = 0
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, spec: MaskSpec, *,
+                        block_q: int, block_kv: int):
+    """The dkv kernel's algorithm in plain PyTorch: the fused walk without
+    its dq line, so its dk and dv are bitwise the fused plain version's."""
+    flash_bwd_dkv_plain.calls += 1
+    return _kv_major_walk(q, k, v, do, lse, delta, spec, block_q, block_kv, with_dq=False)
+
+
+flash_bwd_dkv_plain.calls = 0
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, spec: MaskSpec, *,
+                       block_q: int, block_kv: int):
+    """The dq kernel's algorithm in plain PyTorch: the q-major walk over the
+    forward's table, visible kv tiles in ascending order, each tile's terms
+    by the fused walk's einsums. A q tile meets its kv tiles in the same
+    ascending order in both walks, so dq is bitwise the fused plain
+    version's."""
+    flash_bwd_dq_plain.calls += 1
+    B, Sq, Hq, D = q.shape
+    _, Skv, _, _ = k.shape
+    x = _padded(q, k, v, do, lse, delta, block_q, block_kv)
+    t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
+    sched = build_q_tile_schedule(spec, t_q, t_kv, block_q, block_kv, Skv)
+    dq = torch.zeros_like(x.qh)
+    for i in range(t_q):
+        r0, r1 = i * block_q, (i + 1) * block_q
+        for s in range(sched.row_ptr[i], sched.row_ptr[i + 1]):
+            j = int(sched.inner[s])
+            _, ds = _tile_terms(x, spec, i, j, block_q, block_kv, sched.masked[s], Skv, q.dtype)
+            dq[:, r0:r1] += torch.einsum("bhgqk,bkhd->bqhgd", ds,
+                                         x.kp[:, j * block_kv:(j + 1) * block_kv])
+    return dq[:, :Sq].reshape(B, Sq, Hq, D)
+
+
+flash_bwd_dq_plain.calls = 0

@@ -45,49 +45,53 @@ def _prep(q: torch.Tensor, scale: float) -> torch.Tensor:
     return (q.float() * scale).to(q.dtype)
 
 
-# Backward modes: "fused" is the one-pass kernel (the JAX default). The JAX
-# wrapper falls back to "split" when the fused kernel's per-q-tile delta
-# scratch, O(G * Sq) f32, would not fit in VMEM (``ops._resolve_bwd``); here
-# delta is a pre-pass that lives in HBM, so no such budget exists and
-# "fused" serves every shape.
+# Backward modes. "fused" is the one-pass kernel (the JAX default): dq by
+# f32 atomics, so not bitwise reproducible. "split" is the deterministic
+# mode: the delta pre-pass, then the KV-stationary dK/dV kernel, then the
+# Q-stationary dQ kernel, each output written once with no atomics. The JAX
+# wrapper also falls back to "split" when the fused kernel's per-q-tile
+# delta scratch, O(G * Sq) f32, would not fit in VMEM (``ops._resolve_bwd``);
+# here delta is a pre-pass that lives in HBM, so no such budget exists and
+# there is no fallback: each mode serves every shape, and the caller chooses.
 BWD_MODES = ("fused", "split")
 
 
 def _check_bwd(bwd: str) -> None:
     if bwd not in BWD_MODES:
         raise ValueError(f"unknown backward mode {bwd!r}; have {BWD_MODES}")
-    if bwd == "split":
-        raise NotImplementedError(
-            'bwd="split" (the deterministic delta + dkv + dq backward) is not '
-            "ported yet; see ROADMAP.md, kernels to port"
-        )
 
 
 class _FlashCore(torch.autograd.Function):
     """FA2 on pre-scaled q: the counterpart of ``_flash_core`` (JAX
     ``ops.py:457``) and its ``_core_bwd`` (``:424``). Forward: the forward
-    kernel, saving (q, k, v, o, lse). Backward: the delta pre-pass, then the
-    fused kernel; the f32 gradients are cast to the inputs' dtypes. dq is
-    with respect to the scaled q: the scale is applied by autograd through
-    ``_prep``, which stays outside this Function."""
+    kernel, saving (q, k, v, o, lse). Backward: the delta pre-pass, then
+    the fused kernel (``bwd="fused"``) or the dK/dV and dQ kernels
+    (``bwd="split"``); the f32 gradients are cast to the inputs' dtypes. dq
+    is with respect to the scaled q: the scale is applied by autograd
+    through ``_prep``, which stays outside this Function."""
 
     @staticmethod
-    def forward(ctx, qs, k, v, spec, block_q, block_kv):
+    def forward(ctx, qs, k, v, spec, block_q, block_kv, bwd):
         o, lse = _fwd.flash_fwd(qs, k, v, spec, block_q=block_q, block_kv=block_kv)
         ctx.save_for_backward(qs, k, v, o, lse)
-        ctx.meta = (spec, block_q, block_kv)
+        ctx.meta = (spec, block_q, block_kv, bwd)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
         qs, k, v, o, lse = ctx.saved_tensors
-        spec, block_q, block_kv = ctx.meta
+        spec, block_q, block_kv, bwd = ctx.meta
         do = do.to(qs.dtype).contiguous()
         delta = _bwd.flash_bwd_delta(o, do)  # Algorithm 2 line 4
-        dq, dk, dv = _bwd.flash_bwd_fused(qs, k, v, do, lse, delta, spec,
-                                          block_q=block_q, block_kv=block_kv)
-        return dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+        args = (qs, k, v, do, lse, delta, spec)
+        tiles = dict(block_q=block_q, block_kv=block_kv)
+        if bwd == "fused":
+            dq, dk, dv = _bwd.flash_bwd_fused(*args, **tiles)
+        else:
+            dk, dv = _bwd.flash_bwd_dkv(*args, **tiles)
+            dq = _bwd.flash_bwd_dq(*args, **tiles)
+        return dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
 
 
 def flash_attention_with_lse(
@@ -96,12 +100,12 @@ def flash_attention_with_lse(
     block_q: int = BLOCK_Q, block_kv: int = BLOCK_KV, bwd: str = "fused",
 ):
     """Differentiable FA2. q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D) -> (o (B,Sq,Hq,D),
-    lse (B,Hq,Sq) f32; lse carries no gradient). The counterpart of
-    ``flash_attention_pallas_with_lse``."""
+    lse (B,Hq,Sq) f32; lse carries no gradient). ``bwd`` is one of
+    ``BWD_MODES``. The counterpart of ``flash_attention_pallas_with_lse``."""
     _check_bwd(bwd)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _FlashCore.apply(_prep(q, scale), k, v, spec, block_q, block_kv)
+    return _FlashCore.apply(_prep(q, scale), k, v, spec, block_q, block_kv, bwd)
 
 
 def flash_attention(

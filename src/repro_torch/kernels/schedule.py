@@ -14,8 +14,10 @@ sink + window specs exact: their visible tiles are not contiguous.
 
 Two orientations, as in the JAX package:
 
-  * q-major (:func:`build_q_tile_schedule`): a forward CTA owns a q tile
-    and streams its visible kv tiles.
+  * q-major (:func:`build_q_tile_schedule`): a forward CTA, or a dQ CTA of
+    the split backward, owns a q tile and streams its visible kv tiles. A
+    q tile with no visible kv tile (the TPU table's placeholder step)
+    needs no entry: its CTA writes its zeros and stops.
   * kv-major (:func:`build_kv_tile_schedule`): a backward CTA owns a kv
     tile and streams its visible q tiles. The TPU's kv-major table also
     carries QFIRST/QLAST bits and placeholder steps for q tiles no step

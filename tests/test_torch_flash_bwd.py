@@ -1,10 +1,10 @@
 """The port's FA2 backward (repro_torch.kernels) against the JAX package: the
-fused Pallas backward in interpret mode (``jax.vjp`` of
-``flash_attention_pallas(..., bwd="fused")``), its delta kernel, and the
-dense reference backward, on the same numpy inputs. On the CPU the port
-runs the kernels' plain PyTorch versions through its autograd Function
-(tests/test_torch_kernels_gpu.py holds the CUDA kernels against them on the
-card)."""
+fused and split Pallas backwards in interpret mode (``jax.vjp`` of
+``flash_attention_pallas(..., bwd=...)``), the delta, dK/dV and dQ kernels
+called directly, and the dense reference backward, on the same numpy
+inputs. On the CPU the port runs the kernels' plain PyTorch versions
+through its autograd Function (tests/test_torch_kernels_gpu.py holds the
+CUDA kernels against them on the card)."""
 
 import dataclasses
 import functools
@@ -57,7 +57,11 @@ CASES = [
     Case("noncausal_window_g1", 1, 100, 2, 2, dict(causal=False, window=30)),
     # Rows 0-63 see no key and fill whole q tiles, which no CTA visits.
     Case("masked_rows_g2", 1, 100, 4, 2, dict(causal=True, q_offset=-64)),
+    # Rows 0-95 see no key (three whole q tiles with no visible kv tile) and
+    # keys 64-159 no row (three kv tiles with no visible q tile).
+    Case("unvisited_tiles_g4", 1, 160, 8, 2, dict(causal=True, q_offset=-96)),
 ]
+MASKED_CASES = [c for c in CASES if c.spec.get("q_offset", 0) < 0]
 
 
 def _inputs(case: Case, seed=0, dtype=np.float32):
@@ -69,10 +73,10 @@ def _inputs(case: Case, seed=0, dtype=np.float32):
     return tuple(x.astype(dtype) for x in (q, k, v, do))
 
 
-@functools.partial(jax.jit, static_argnums=(4, 5, 6))
-def _pallas_grads(q, k, v, do, spec, bq, bk):
+@functools.partial(jax.jit, static_argnums=(4, 5, 6, 7))
+def _pallas_grads(q, k, v, do, spec, bq, bk, bwd):
     f = functools.partial(flash_attention_pallas, spec=spec, block_q=bq, block_kv=bk,
-                          interpret=True, bwd="fused", use_tuned=False)
+                          interpret=True, bwd=bwd, use_tuned=False)
     o, vjp = jax.vjp(f, q, k, v)
     return (o, *vjp(do))
 
@@ -85,10 +89,10 @@ def _resolved_blocks(jspec, q, k):
     return r["block_q"], r["block_kv"]
 
 
-def _port_grads(q, k, v, do, spec, bq, bk, dtype=torch.float32):
+def _port_grads(q, k, v, do, spec, bq, bk, dtype=torch.float32, bwd="fused"):
     qt, kt, vt = (torch.from_numpy(np.asarray(x, np.float32)).to(dtype).requires_grad_()
                   for x in (q, k, v))
-    o = ops.flash_attention(qt, kt, vt, spec, block_q=bq, block_kv=bk)
+    o = ops.flash_attention(qt, kt, vt, spec, block_q=bq, block_kv=bk, bwd=bwd)
     o.backward(torch.from_numpy(np.asarray(do, np.float32)).to(dtype))
     return o, qt.grad, kt.grad, vt.grad
 
@@ -103,7 +107,7 @@ def test_backward_matches_pallas_fused_and_reference(case):
     jspec = JaxMaskSpec(**case.spec)
     bq, bk = _resolved_blocks(jspec, q, k)
     ours = _port_grads(q, k, v, do, MaskSpec(**case.spec), bq, bk)
-    theirs = _pallas_grads(q, k, v, do, jspec, bq, bk)
+    theirs = _pallas_grads(q, k, v, do, jspec, bq, bk, "fused")
     for name, a, b in zip(("o", "dq", "dk", "dv"), ours, theirs):
         assert a.dtype == torch.float32 and np.isfinite(_f32(a)).all(), name
         np.testing.assert_allclose(_f32(a), _f32(b), err_msg=name, **TOL_F32)
@@ -120,26 +124,115 @@ def test_backward_bf16_matches_pallas_fused(case):
     qb, kb, vb, dob = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
     bq, bk = _resolved_blocks(jspec, qb, kb)
     ours = _port_grads(qb, kb, vb, dob, MaskSpec(**case.spec), bq, bk, torch.bfloat16)
-    theirs = _pallas_grads(qb, kb, vb, dob, jspec, bq, bk)
+    theirs = _pallas_grads(qb, kb, vb, dob, jspec, bq, bk, "fused")
     for name, a, b in zip(("o", "dq", "dk", "dv"), ours, theirs):
         assert a.dtype == torch.bfloat16, name
         np.testing.assert_allclose(_f32(a), _f32(b), err_msg=name, **TOL_BF16)
 
 
-def test_fully_masked_rows_get_zero_gradients():
-    """Rows that see no key (causal, q_offset = -64: rows 0-63) carry
-    lse = -inf; the backward replaces it by 0, so their P is 0 -- no NaN,
-    dq exactly zero there. (A row that sees no key inside a tile that other
-    rows do see gets lse = mask value + log(tile width) from the forward,
-    in the JAX kernels as here, not -inf: such rows are left out.)"""
-    case = CASES[-1]
+@pytest.mark.parametrize("case", CASES, ids=lambda c: c.name)
+def test_split_backward_matches_pallas_split(case):
+    """bwd="split" (delta, then dK/dV, then dQ) against the Pallas split
+    backward, which recomputes P in each of its two kernels as the port's do."""
+    q, k, v, do = _inputs(case)
+    jspec = JaxMaskSpec(**case.spec)
+    bq, bk = _resolved_blocks(jspec, q, k)
+    ours = _port_grads(q, k, v, do, MaskSpec(**case.spec), bq, bk, bwd="split")
+    theirs = _pallas_grads(q, k, v, do, jspec, bq, bk, "split")
+    for name, a, b in zip(("o", "dq", "dk", "dv"), ours, theirs):
+        assert a.dtype == torch.float32 and np.isfinite(_f32(a)).all(), name
+        np.testing.assert_allclose(_f32(a), _f32(b), err_msg=name, **TOL_F32)
+
+
+@pytest.mark.parametrize("case", [CASES[3], CASES[5]], ids=lambda c: c.name)
+def test_split_backward_bf16_matches_pallas_split(case):
+    q, k, v, do = _inputs(case, seed=1)
+    jspec = JaxMaskSpec(**case.spec)
+    qb, kb, vb, dob = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    bq, bk = _resolved_blocks(jspec, qb, kb)
+    ours = _port_grads(qb, kb, vb, dob, MaskSpec(**case.spec), bq, bk, torch.bfloat16, "split")
+    theirs = _pallas_grads(qb, kb, vb, dob, jspec, bq, bk, "split")
+    for name, a, b in zip(("o", "dq", "dk", "dv"), ours, theirs):
+        assert a.dtype == torch.bfloat16, name
+        np.testing.assert_allclose(_f32(a), _f32(b), err_msg=name, **TOL_BF16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", CASES, ids=lambda c: c.name)
+def test_split_equals_fused_bitwise(case, dtype):
+    """On the CPU both modes run the plain versions: the dkv walk is the
+    fused walk without its dq line, and the dq walk meets each q tile's kv
+    tiles in the fused walk's order, so all three gradients agree to the
+    bit (the JAX package pins the same for its kernels,
+    tests/test_fused_bwd.py)."""
+    q, k, v, do = _inputs(case, seed=4)
+    spec = MaskSpec(**case.spec)
+    fused = _port_grads(q, k, v, do, spec, BLOCK, BLOCK, dtype, "fused")
+    split = _port_grads(q, k, v, do, spec, BLOCK, BLOCK, dtype, "split")
+    for name, a, b in zip(("o", "dq", "dk", "dv"), fused, split):
+        assert a.dtype == b.dtype == dtype and torch.equal(a, b), name
+
+
+def _heads(x, rows):
+    """(B, S, H, D) numpy -> the JAX kernels' (B*H, rows, D), zero-padded."""
+    B, S, H, D = x.shape
+    return np.pad(x.transpose(0, 2, 1, 3).reshape(B * H, S, D), ((0, 0), (0, rows - S), (0, 0)))
+
+
+@pytest.mark.parametrize("case", [CASES[2], CASES[4], CASES[5], CASES[6], CASES[-1]],
+                         ids=lambda c: c.name)
+def test_dkv_and_dq_match_pallas_kernels(case):
+    """The port's flash_bwd_dkv and flash_bwd_dq on CPU tensors (their plain
+    versions) against the Pallas flash_bwd_dkv and flash_bwd_dq in interpret
+    mode on the heads layout, from the same pre-scaled q, lse and delta."""
+    q, k, v, do = _inputs(case, seed=5)
+    q = q / np.sqrt(D, dtype=np.float32)
+    spec, jspec = MaskSpec(**case.spec), JaxMaskSpec(**case.spec)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = ops._fwd.flash_fwd(tq, tk, tv, spec, block_q=BLOCK, block_kv=BLOCK)
+    delta = bwd_mod.flash_bwd_delta(o, tdo)
+    args = (tq, tk, tv, tdo, lse, delta, spec)
+    dk, dv = bwd_mod.flash_bwd_dkv(*args, block_q=BLOCK, block_kv=BLOCK)
+    dq = bwd_mod.flash_bwd_dq(*args, block_q=BLOCK, block_kv=BLOCK)
+    # The JAX wrapper pads to whole tiles and zeroes lse on fully masked rows
+    # (ops._core_bwd); its padded rows carry dO = 0, so they add nothing.
+    B, S, Hq, Hk = case.B, case.S, case.Hq, case.Hkv
+    Sp = -(-S // BLOCK) * BLOCK
+    lse_s = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
+    lanes = lambda x: np.pad(x.reshape(B * Hq, S).numpy(), ((0, 0), (0, Sp - S)))
+    jargs = (_heads(q, Sp), _heads(k, Sp), _heads(v, Sp), _heads(do, Sp), lanes(lse_s),
+             lanes(delta))
+    kw = dict(group=Hq // Hk, block_q=BLOCK, block_kv=BLOCK, kv_valid=S, interpret=True)
+    jdk, jdv = jax_bwd.flash_bwd_dkv(*jargs, jspec, **kw)
+    jdq = jax_bwd.flash_bwd_dq(*jargs, jspec, **kw)
+    unheads = lambda x, H: np.asarray(x)[:, :S].reshape(B, H, S, D).transpose(0, 2, 1, 3)
+    for name, a, b in (("dq", dq, unheads(jdq, Hq)), ("dk", dk, unheads(jdk, Hk)),
+                       ("dv", dv, unheads(jdv, Hk))):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), b, err_msg=name, **TOL_F32)
+
+
+@pytest.mark.parametrize("bwd", ops.BWD_MODES)
+@pytest.mark.parametrize("case", MASKED_CASES, ids=lambda c: c.name)
+def test_fully_masked_rows_get_zero_gradients(case, bwd):
+    """Rows that see no key (causal, negative q_offset: rows before
+    -q_offset, whole q tiles that no kv tile is visible to) carry lse = -inf;
+    the backward replaces it by 0, so their P is 0 -- no NaN, dq exactly
+    zero there. Keys past the last row's position fill kv tiles that no q
+    tile is visible to: dk and dv exactly zero. (A row that sees no key
+    inside a tile that other rows do see gets lse = mask value + log(tile
+    width) from the forward, in the JAX kernels as here, not -inf: such rows
+    are left out.)"""
     q, k, v, do = _inputs(case, seed=2)
-    _, dq, dk, dv = _port_grads(q, k, v, do, MaskSpec(**case.spec), BLOCK, BLOCK)
+    off = -case.spec["q_offset"]
+    _, dq, dk, dv = _port_grads(q, k, v, do, MaskSpec(**case.spec), BLOCK, BLOCK, bwd=bwd)
     for g in (dq, dk, dv):
         assert torch.isfinite(g).all()
-    assert (dq[:, :64] == 0).all() and (dq[:, 64:] != 0).any()
-    # Keys past the last row's position (99 - 64 = 35) get no gradient.
-    assert (dk[:, 36:] == 0).all() and (dv[:, 36:] == 0).all()
+    assert (dq[:, :off] == 0).all() and (dq[:, off:] != 0).any()
+    # Keys past the last row's position (S - 1 - off) get no gradient.
+    last = case.S - off
+    assert (dk[:, last:] == 0).all() and (dv[:, last:] == 0).all()
+    assert (dk[:, :last] != 0).any() and (dv[:, :last] != 0).any()
 
 
 @pytest.mark.parametrize("S,bq", [(128, 32), (100, 32), (64, 64)])
@@ -159,7 +252,7 @@ def test_delta_matches_pallas_delta(S, bq):
                                np.asarray(theirs)[:, :S].reshape(B, Hq, S), **TOL_F32)
 
 
-@pytest.mark.parametrize("case", [CASES[0], CASES[4], CASES[5], CASES[-1]],
+@pytest.mark.parametrize("case", [CASES[0], CASES[4], CASES[5], CASES[7]],
                          ids=lambda c: c.name)
 def test_reference_backward_matches_jax_and_autograd(case):
     q, k, v, do = _inputs(case, seed=3)
@@ -206,9 +299,7 @@ def test_kv_tile_schedule_is_the_kv_major_schedule(spec, geom):
     assert len(ours.row_ptr) == t_kv + 1
 
 
-def test_split_backward_is_not_ported():
+def test_unknown_backward_mode_raises():
     q = torch.zeros((1, 4, 2, D))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.flash_attention(q, q, q, bwd="split")
     with pytest.raises(ValueError, match="backward mode"):
         ops.flash_attention(q, q, q, bwd="bogus")

@@ -34,8 +34,8 @@ O_TOL, LSE_TOL = 2e-2, 1e-3
 DELTA_TOL = 1e-4
 # f32 gradients, relative to the largest |gradient| of the tensor: the kernel
 # and its plain version round P and dS to bf16 at the same places, so the
-# differences are summation order, the atomics' order in dq, and a value
-# that lands one bf16 ulp apart.
+# differences are summation order, the atomics' order in the fused dq, and
+# a value that lands one bf16 ulp apart.
 GRAD_REL_TOL = 1e-2
 
 
@@ -127,28 +127,37 @@ def test_delta_kernel_matches_plain(cuda, B, S):
     assert _err(delta, bwd_mod.flash_bwd_delta_plain(o, do)) < DELTA_TOL
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,S,Hq,Hkv,spec", [
+# The backward kernels' cases: GQA and MHA, ragged lengths, a window with
+# sinks, non-causal, and rows that see no key.
+BWD_CASES = [
     (1, 64, 32, 8, dict(causal=True)),
     (2, 700, 32, 8, dict(causal=True)),
     (1, 256, 8, 8, dict(causal=True)),
     (1, 333, 32, 8, dict(causal=True, window=100, sink=4)),
     (2, 200, 16, 4, dict(causal=False)),
     (1, 300, 32, 8, dict(causal=True, q_offset=-128)),  # rows 0-127 see nothing
-])
-def test_fused_backward_kernel_matches_plain(cuda, B, S, Hq, Hkv, spec):
+]
+
+
+def _bwd_inputs(cuda, B, S, Hq, Hkv, spec):
     gen = torch.Generator(device=cuda).manual_seed(3)
-    spec = MaskSpec(**spec)
     q = ops._prep(_randn(gen, (B, S, Hq, 128), cuda), 1 / math.sqrt(128))
     k, v = _randn(gen, (B, S, Hkv, 128), cuda), _randn(gen, (B, S, Hkv, 128), cuda)
     do = _randn(gen, (B, S, Hq, 128), cuda)
     o, lse = fwd_mod.flash_fwd(q, k, v, spec, block_q=64, block_kv=64)
-    delta = bwd_mod.flash_bwd_delta(o, do)
+    return q, k, v, do, lse, bwd_mod.flash_bwd_delta(o, do)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Hq,Hkv,spec", BWD_CASES)
+def test_fused_backward_kernel_matches_plain(cuda, B, S, Hq, Hkv, spec):
+    spec = MaskSpec(**spec)
+    args = (*_bwd_inputs(cuda, B, S, Hq, Hkv, spec), spec)
     before = bwd_mod.flash_bwd_fused.launches
-    got = bwd_mod.flash_bwd_fused(q, k, v, do, lse, delta, spec, block_q=64, block_kv=64)
+    got = bwd_mod.flash_bwd_fused(*args, block_q=64, block_kv=64)
     torch.cuda.synchronize()
     assert bwd_mod.flash_bwd_fused.launches == before + 1
-    want = bwd_mod.flash_bwd_fused_plain(q, k, v, do, lse, delta, spec, block_q=64, block_kv=64)
+    want = bwd_mod.flash_bwd_fused_plain(*args, block_q=64, block_kv=64)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == torch.float32 and a.shape == b.shape, name
         assert _rel_err(a, b) < GRAD_REL_TOL, name
@@ -157,36 +166,79 @@ def test_fused_backward_kernel_matches_plain(cuda, B, S, Hq, Hkv, spec):
 
 
 @pytest.mark.gpu
-def test_training_step_runs_through_the_kernels(cuda):
+@pytest.mark.parametrize("B,S,Hq,Hkv,spec", BWD_CASES)
+def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec):
+    """dkv and dq against their plain versions; dk and dv bitwise the fused
+    kernel's (the same body without its dQ phase); dq bitwise the same from
+    a second launch (no atomics); zeros where a row sees no key."""
+    spec = MaskSpec(**spec)
+    args = (*_bwd_inputs(cuda, B, S, Hq, Hkv, spec), spec)
+    tiles = dict(block_q=64, block_kv=64)
+    before = (bwd_mod.flash_bwd_dkv.launches, bwd_mod.flash_bwd_dq.launches)
+    dk, dv = bwd_mod.flash_bwd_dkv(*args, **tiles)
+    dq = bwd_mod.flash_bwd_dq(*args, **tiles)
+    dq2 = bwd_mod.flash_bwd_dq(*args, **tiles)
+    _, dk_f, dv_f = bwd_mod.flash_bwd_fused(*args, **tiles)
+    torch.cuda.synchronize()
+    assert (bwd_mod.flash_bwd_dkv.launches, bwd_mod.flash_bwd_dq.launches) == (
+        before[0] + 1, before[1] + 2)
+    dk_p, dv_p = bwd_mod.flash_bwd_dkv_plain(*args, **tiles)
+    dq_p = bwd_mod.flash_bwd_dq_plain(*args, **tiles)
+    for name, a, b in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert _rel_err(a, b) < GRAD_REL_TOL, name
+    assert torch.equal(dk, dk_f) and torch.equal(dv, dv_f)
+    assert torch.equal(dq, dq2)
+    if spec.q_offset < 0:
+        assert (dq[:, :-spec.q_offset] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bwd", ["fused", "split"])
+def test_training_step_runs_through_the_kernels(cuda, bwd):
     """A 2-layer, full-width qwen3-8b step through flash_cuda launches the
-    forward twice a layer (remat), the delta and fused kernels once a layer,
-    and no plain version."""
+    forward twice a layer (remat), the delta kernel once a layer, then the
+    fused kernel or the dkv and dq kernels once a layer, and no plain
+    version."""
     cfg = dataclasses.replace(registry.get("qwen3-8b"), num_layers=2)
     model = init_lm(cfg, seed=0, device=cuda)
     state = init_opt_state(dict(model.named_parameters()))
-    step = build_train_step(cfg, AttentionConfig(impl="flash_cuda"), AdamWConfig())
+    step = build_train_step(cfg, AttentionConfig(impl="flash_cuda", bwd=bwd), AdamWConfig())
     tokens = torch.randint(0, cfg.vocab_size, (1, 257), generator=torch.Generator().manual_seed(0))
     batch = {"inputs": tokens[:, :-1].to(cuda), "targets": tokens[:, 1:].to(cuda)}
-    counters = (fwd_mod.flash_fwd, bwd_mod.flash_bwd_delta, bwd_mod.flash_bwd_fused)
+    counters = (fwd_mod.flash_fwd, bwd_mod.flash_bwd_delta, bwd_mod.flash_bwd_fused,
+                bwd_mod.flash_bwd_dkv, bwd_mod.flash_bwd_dq)
     plains = (fwd_mod.flash_fwd_plain, bwd_mod.flash_bwd_delta_plain,
-              bwd_mod.flash_bwd_fused_plain)
+              bwd_mod.flash_bwd_fused_plain, bwd_mod.flash_bwd_dkv_plain,
+              bwd_mod.flash_bwd_dq_plain)
     for f in counters:
         f.launches = 0
     for f in plains:
         f.calls = 0
     state, metrics = step(model, state, batch)
     torch.cuda.synchronize()
-    assert [f.launches for f in counters] == [4, 2, 2]
-    assert [f.calls for f in plains] == [0, 0, 0]
+    want = [4, 2, 2, 0, 0] if bwd == "fused" else [4, 2, 0, 2, 2]
+    assert [f.launches for f in counters] == want
+    assert [f.calls for f in plains] == [0] * 5
     assert math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])
     assert metrics["skipped"] == 0.0
 
 
 @pytest.mark.gpu
-def test_split_backward_raises(cuda):
-    q = torch.zeros((1, 64, 4, 128), device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.flash_attention(q, q, q, bwd="split")
+def test_split_backward_is_bitwise_reproducible(cuda):
+    """ops.flash_attention(bwd="split") forward and backward twice: the same
+    dq, dk and dv to the bit."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q0, k0, v0 = (_randn(gen, (2, 1000, h, 128), cuda) for h in (32, 8, 8))
+    do = _randn(gen, (2, 1000, 32, 128), cuda)
+    grads = []
+    for _ in range(2):
+        q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
+        ops.flash_attention(q, k, v, bwd="split").backward(do)
+        grads.append((q.grad, k.grad, v.grad))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    assert all(torch.isfinite(g.float()).all() for g in grads[0])
 
 
 def _planes(c, table, ps):

@@ -1,8 +1,9 @@
 """The training slice as a whole: the port's loss, gradients and train steps
 against the JAX package's, on the same weights (``init_lm`` -> numpy ->
 ``params_from_jax``) and the same synthetic batches, with the JAX side on
-its Pallas kernels in interpret mode (``flash_pallas``, fused backward) and
-the port on its kernels' plain versions (``flash_cuda`` on CPU tensors).
+its Pallas kernels in interpret mode (``flash_pallas``, fused or split
+backward) and the port on its kernels' plain versions (``flash_cuda`` on CPU
+tensors).
 Reduced qwen3-8b in f32 as the registry shrinks it (G = 1) and with two kv
 heads (G = 2), remat on as in the published config. Also the pieces around
 the step: data, loss chunking, learning rate, weight-decay selection, CLI."""
@@ -79,17 +80,21 @@ def _batch(cfg, step, seed=0):
     return inputs, targets
 
 
-def test_loss_and_gradients_match_jax(models, jax_trace_state):
+@pytest.mark.parametrize("bwd", ["fused", "split"])
+def test_loss_and_gradients_match_jax(models, jax_trace_state, bwd):
+    """One loss and its gradients, the JAX side through the Pallas backward
+    of the same mode as the port's."""
     jcfg, jparams, cfg = models
     inputs, targets = _batch(cfg, 0)
     jbatch = {"inputs": jnp.asarray(inputs), "targets": jnp.asarray(targets)}
+    jattn = dataclasses.replace(JAX_ATTN, bwd=bwd)
     grad_fn = jax.jit(jax.value_and_grad(
-        lambda p, b: jax_steps.loss_fn(jcfg, JAX_ATTN, p, b), has_aux=True))
+        lambda p, b: jax_steps.loss_fn(jcfg, jattn, p, b), has_aux=True))
     (jloss, jm), jgrads = grad_fn(jparams, jbatch)
 
     model = _port_model(cfg, jparams)
     batch = {"inputs": torch.from_numpy(inputs).long(), "targets": torch.from_numpy(targets)}
-    loss, metrics = steps.loss_fn(cfg, ATTN, model, batch)
+    loss, metrics = steps.loss_fn(cfg, dataclasses.replace(ATTN, bwd=bwd), model, batch)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), **LOSS_TOL)
     for key in ("ce_loss", "nll_sum", "tokens", "accuracy"):
@@ -99,6 +104,13 @@ def test_loss_and_gradients_match_jax(models, jax_trace_state):
     assert sorted(got) == sorted(want)
     for name, g in got.items():
         np.testing.assert_allclose(g.numpy(), want[name].numpy(), err_msg=name, **GRAD_TOL)
+
+
+def test_attention_config_checks_the_backward_mode():
+    assert AttentionConfig().bwd is None  # the fused backward
+    assert AttentionConfig(bwd="split").bwd == "split"
+    with pytest.raises(ValueError, match="backward mode"):
+        AttentionConfig(bwd="bogus")
 
 
 def test_three_train_steps_match_jax(models, jax_trace_state):
