@@ -47,10 +47,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      through the split backward (bwd="split"); counts exact (dK/dV and dQ
      once a layer, the fused kernel never), the loss must fall and step 0's
      loss equal phase 8's; then attention forward and backward at the
-     training shape, run twice, must give bitwise-equal gradients.
+     training shape, run twice, must give bitwise-equal gradients;
+ 10. packed training parity: phase 7 on a packed batch of the varlen
+     source (B = 2, S = 1024): the dense reference with the segment mask
+     against the segment kernels, fused and split backward;
+ 11. the packed training slice: phase 8's model, seed, AdamW and steps fed
+     from the packed (varlen) source through launch/train.py's ``train``
+     with ``packed=True``; the loss must fall, every attention forward and
+     backward must go through the segment kernels (counts exact, the
+     unsegmented kernels and the plain versions 0); its step is reported
+     beside phase 8's.
 Phase 3 also holds the paged decode kernel against its plain version
 (page sizes 16 and 64, G in {1, 4, 8}, a window-256/sink-4 spec, shuffled
-pages) and times it beside the contiguous decode kernel.
+pages) and times it beside the contiguous decode kernel, and holds the
+segment (varlen) variants of the forward, fused, dK/dV and dQ kernels
+against their plain versions (the packed source's ids at the training
+shape, G = 1 and 4 at S = 700, distinct q and kv ids), checks that
+all-ones ids give the unsegmented kernels' outputs bitwise, and times them
+beside the unsegmented kernels, with bounds over the same-segment pairs.
 The last two lines are the kernels' JSON record and the result line.
 """
 
@@ -605,6 +619,285 @@ def bwd_kernel_phase(torch, dev, flush):
     }
 
 
+def segment_pairs(ids) -> int:
+    """Same-segment causal (q, k) pairs of a (B, S) id array: the sum over
+    the runs of equal ids of L (L + 1) / 2 (padding is a run too: it attends
+    itself)."""
+    import numpy as np
+
+    total = 0
+    for row in np.asarray(ids):
+        cuts = np.flatnonzero(np.diff(row)) + 1
+        L = np.diff(np.concatenate([[0], cuts, [len(row)]]))
+        total += int((L * (L + 1) // 2).sum())
+    return total
+
+
+def packed_ids(B: int, S: int, step: int = 0):
+    """The packed source's segment ids (numpy, (B, S) int32) at a step:
+    SyntheticVarlenLM with seed 0 at qwen3-8b's vocabulary."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticVarlenLM
+
+    src = SyntheticVarlenLM(DataConfig(B, S, 151_936, seed=0, source="packed"))
+    return src.batch(step)["segment_ids"]
+
+
+def step_shares(torch, ids, S: int):
+    """(active share, uniform share of the active steps) of the causal
+    q-major schedule's visible steps for (B, S) segment ids."""
+    from repro_torch.core.masks import MaskSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.schedule import build_q_tile_schedule, segment_step_bits
+
+    bq, bk = ops.BLOCK_Q, ops.BLOCK_KV
+    sched = build_q_tile_schedule(MaskSpec(causal=True), -(-S // bq), -(-S // bk), bq, bk, S)
+    ids = torch.as_tensor(ids)
+    bits = segment_step_bits(ids, ids, sched, bq, bk, kv_major=False)
+    active = (bits & 1).bool()
+    return active.float().mean().item(), ((bits & 2).bool() & active).sum().item() / max(
+        active.sum().item(), 1)
+
+
+def varlen_kernel_phase(torch, dev, flush):
+    """The segment (SEG) variants of the forward, fused, dK/dV and dQ
+    kernels against their plain versions at the training shape (B = 2,
+    S = 2048, causal) with the packed source's step-0 ids, at S = 700 with
+    G = 1 and G = 4, and with distinct q and kv ids where a q tile sees
+    nothing; the invariants (all-ones ids bitwise the unsegmented kernels,
+    split dK/dV bitwise the fused kernel's, split dQ bitwise over two
+    launches); then times beside the unsegmented kernels in this call, the
+    plain versions, the bounds over the same-segment causal pairs and SDPA
+    with the block-diagonal causal mask (forward, forward + backward)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.masks import MaskSpec
+    from repro_torch.kernels import flash_bwd as bwd
+    from repro_torch.kernels import flash_fwd as fwd
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.schedule import device_schedule, segment_step_bits
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    bq, bk = ops.BLOCK_Q, ops.BLOCK_KV
+    tiles = dict(block_q=bq, block_kv=bk)
+    scale = 1.0 / math.sqrt(HD)
+    spec = MaskSpec(causal=True)
+
+    def inputs(B, S, Hq, Hkv):
+        q = ops._prep(randn(B, S, Hq, HD), scale)
+        return q, randn(B, S, Hkv, HD), randn(B, S, Hkv, HD), randn(B, S, Hq, HD)
+
+    def run(q, k, v, do, q_seg, kv_seg):
+        o, lse = fwd.flash_fwd_varlen(q, k, v, spec, q_seg, kv_seg, **tiles)
+        delta = bwd.flash_bwd_delta(o, do)
+        args = (q, k, v, do, lse, delta, spec, q_seg, kv_seg)
+        fused = bwd.flash_bwd_fused_varlen(*args, **tiles)
+        dkv = bwd.flash_bwd_dkv_varlen(*args, **tiles)
+        dq = bwd.flash_bwd_dq_varlen(*args, **tiles)
+        dq2 = bwd.flash_bwd_dq_varlen(*args, **tiles)
+        torch.cuda.synchronize()
+        return o, lse, delta, fused, dkv, dq, dq2
+
+    def distinct_ids(B, S):
+        q_seg = torch.ones((B, S), dtype=torch.int32)
+        q_seg[:, S // 2:] = 2
+        kv_seg = q_seg.clone()
+        q_seg[:, :64] = 7   # q tile 0: an id no key has
+        kv_seg[:, -64:] = 9  # the last keys: an id no query has
+        return q_seg.to(dev), kv_seg.to(dev)
+
+    B, S = TRAIN_B, TRAIN_S
+    ids = torch.from_numpy(packed_ids(B, S)).to(dev)
+    ids700 = torch.from_numpy(packed_ids(2, 700)).to(dev)
+    cases = [(B, S, HQ, HKV, ids, ids, "packed step 0"),
+             (2, 700, HKV, HKV, ids700, ids700, "packed, G=1"),
+             (2, 700, HQ, HKV, ids700, ids700, "packed, G=4"),
+             (2, 700, HQ, HKV, *distinct_ids(2, 700), "distinct q/kv ids")]
+    err = dict(fwd=0.0, fused=0.0, dkv=0.0, dq=0.0)
+    for Bc, Sc, Hq, Hkv, q_seg, kv_seg, what in cases:
+        q, k, v, do = inputs(Bc, Sc, Hq, Hkv)
+        o, lse, delta, fused, (dk, dv), dq, dq2 = run(q, k, v, do, q_seg, kv_seg)
+        plain = dict(q_seg=q_seg, kv_seg=kv_seg, **tiles)
+        args = (q, k, v, do, lse, delta, spec)
+        o_p, lse_p = fwd.flash_fwd_plain(q, k, v, spec, **plain)
+        eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
+        want = bwd.flash_bwd_fused_plain(*args, **plain)
+        want_dkv = bwd.flash_bwd_dkv_plain(*args, **plain)
+        want_dq = bwd.flash_bwd_dq_plain(*args, **plain)
+        rel = {}
+        for name, got_t, want_t in (("fused dq", fused[0], want[0]), ("fused dk", fused[1], want[1]),
+                                    ("fused dv", fused[2], want[2]), ("dkv dk", dk, want_dkv[0]),
+                                    ("dkv dv", dv, want_dkv[1]), ("dq", dq, want_dq)):
+            if not torch.isfinite(got_t).all():
+                fail(f"a varlen kernel gave a non-finite {name} ({what})")
+            rel[name] = max_err(torch, got_t, want_t) / max(want_t.abs().max().item(), 1e-6)
+        bit_dkv = torch.equal(dk, fused[1]) and torch.equal(dv, fused[2])
+        bit_dq = torch.equal(dq, dq2)
+        log(f"varlen kernels B={Bc} S={Sc} causal Hq={Hq} Hkv={Hkv} ({what}): flash_fwd_varlen "
+            f"max|o-plain|={eo:.3e} (tol {FWD_TOL['o']}), max|lse-plain|={el:.3e} (tol "
+            f"{FWD_TOL['lse']}); relative to max|grad|: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
+            + f" (tol {GRAD_REL_TOL}); split dk, dv bitwise the fused kernel's: {bit_dkv}; "
+            f"split dq bitwise over two launches: {bit_dq}")
+        if not (eo <= FWD_TOL["o"] and el <= FWD_TOL["lse"]):
+            fail(f"flash_fwd_varlen disagrees with its plain version ({what})")
+        if max(rel.values()) > GRAD_REL_TOL:
+            fail(f"a varlen backward kernel disagrees with its plain version ({what})")
+        if not (bit_dkv and bit_dq):
+            fail(f"the varlen split backward lost a bitwise invariant ({what})")
+        if what.startswith("distinct"):
+            zeros = ((o[:, :64] == 0).all() and torch.isneginf(lse[..., :64]).all()
+                     and (fused[0][:, :64] == 0).all() and (dq[:, :64] == 0).all()
+                     and (dk[:, -64:] == 0).all() and (dv[:, -64:] == 0).all())
+            log(f"  distinct ids: q tile 0 gives o = 0, lse = -inf, dq = 0 and the last kv "
+                f"tile dk = dv = 0: {bool(zeros)}")
+            if not zeros:
+                fail("a tile that sees nothing must give o = 0, lse = -inf and zero gradients")
+        err["fwd"] = max(err["fwd"], eo)
+        err["fused"] = max(err["fused"], *(max_err(torch, a, b) for a, b in zip(fused, want)))
+        err["dkv"] = max(err["dkv"], max_err(torch, dk, want_dkv[0]),
+                         max_err(torch, dv, want_dkv[1]))
+        err["dq"] = max(err["dq"], max_err(torch, dq, want_dq))
+
+    # All-ones ids at the training shape: bitwise the unsegmented kernels.
+    q, k, v, do = inputs(B, S, HQ, HKV)
+    ones = torch.ones((B, S), dtype=torch.int32, device=dev)
+    o, lse = fwd.flash_fwd(q, k, v, spec, **tiles)
+    o1, lse1, delta, fused1, (dk1, dv1), dq1, _ = run(q, k, v, do, ones, ones)
+    args = (q, k, v, do, lse, delta, spec)
+    _, dk_f, dv_f = bwd.flash_bwd_fused(*args, **tiles)
+    dk, dv = bwd.flash_bwd_dkv(*args, **tiles)
+    dq = bwd.flash_bwd_dq(*args, **tiles)
+    torch.cuda.synchronize()
+    same = {"o": torch.equal(o, o1), "lse": torch.equal(lse, lse1),
+            "fused dk": torch.equal(dk_f, fused1[1]), "fused dv": torch.equal(dv_f, fused1[2]),
+            "dkv dk": torch.equal(dk, dk1), "dkv dv": torch.equal(dv, dv1),
+            "dq": torch.equal(dq, dq1)}
+    log(f"all-ones ids at B={B} S={S}, bitwise the unsegmented kernels (the fused dq's "
+        f"atomics reorder from launch to launch; dq is the split kernel's): {same}")
+    if not all(same.values()):
+        fail("all-ones segment ids do not give the unsegmented kernels' outputs bitwise")
+
+    # Times at the training shape with the packed source's step-0 ids.
+    q, k, v, do = inputs(B, S, HQ, HKV)
+    o, lse = fwd.flash_fwd_varlen(q, k, v, spec, ids, ids, **tiles)
+    delta = bwd.flash_bwd_delta(o, do)
+    seg_args = (q, k, v, do, lse, delta, spec, ids, ids)
+    full_args = seg_args[:7]
+    kernels = {
+        "flash_fwd": (lambda: fwd.flash_fwd_varlen(q, k, v, spec, ids, ids, **tiles),
+                      lambda: fwd.flash_fwd(q, k, v, spec, **tiles)),
+        "flash_bwd_fused": (lambda: bwd.flash_bwd_fused_varlen(*seg_args, **tiles),
+                            lambda: bwd.flash_bwd_fused(*full_args, **tiles)),
+        "flash_bwd_dkv": (lambda: bwd.flash_bwd_dkv_varlen(*seg_args, **tiles),
+                          lambda: bwd.flash_bwd_dkv(*full_args, **tiles)),
+        "flash_bwd_dq": (lambda: bwd.flash_bwd_dq_varlen(*seg_args, **tiles),
+                         lambda: bwd.flash_bwd_dq(*full_args, **tiles)),
+    }
+    times = {}
+    for name, (seg_fn, full_fn) in kernels.items():  # in turns: seg, full, full, seg
+        runs = [time_ms(torch, f, 20, flush) for f in (seg_fn, full_fn, full_fn, seg_fn)]
+        times[name] = ((runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2)
+    # What the segment path adds per step: all-ones ids (every step active,
+    # the element mask only where the unsegmented kernel applies it) in
+    # turns with the unsegmented kernel; and the step bits' own device time
+    # (the wrappers remember them per ids, so a training step pays them once
+    # per orientation, not at every launch).
+    ones = torch.ones((B, S), dtype=torch.int32, device=dev)
+    ones_args = (*full_args, ones, ones)
+    same_work = {}
+    for name, seg_fn, full_fn in (
+            ("flash_fwd", lambda: fwd.flash_fwd_varlen(q, k, v, spec, ones, ones, **tiles),
+             kernels["flash_fwd"][1]),
+            ("flash_bwd_fused", lambda: bwd.flash_bwd_fused_varlen(*ones_args, **tiles),
+             kernels["flash_bwd_fused"][1])):
+        runs = [time_ms(torch, f, 20, flush) for f in (seg_fn, full_fn, full_fn, seg_fn)]
+        same_work[name] = ((runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2)
+        log(f"{name}_varlen with all-ones ids (every step active) at B={B} S={S}: "
+            f"{same_work[name][0]:.4f} ms against the unsegmented kernel's "
+            f"{same_work[name][1]:.4f} ms in turns (ratio "
+            f"{same_work[name][0] / same_work[name][1]:.4f})")
+    sched_q = device_schedule(spec, S // bq, S // bk, bq, bk, S, False, str(dev))
+    sched_kv = device_schedule(spec, S // bq, S // bk, bq, bk, S, True, str(dev))
+    bits_ms = [time_ms(torch, lambda: segment_step_bits(ids, ids, sc, bq, bk, kv_major), 50,
+                       flush) for sc, kv_major in ((sched_q, False), (sched_kv, True))]
+    log(f"segment_step_bits alone at B={B} S={S} (a few torch ops on the device): q-major "
+        f"{bits_ms[0]:.4f} ms, kv-major {bits_ms[1]:.4f} ms")
+    plain = dict(q_seg=ids, kv_seg=ids, **tiles)
+    plain_ms = {
+        "flash_fwd": time_ms(torch, lambda: fwd.flash_fwd_plain(q, k, v, spec, **plain), 3, flush),
+        "flash_bwd_fused": time_ms(torch, lambda: bwd.flash_bwd_fused_plain(
+            *full_args, **plain), 3, flush),
+        "flash_bwd_dkv": time_ms(torch, lambda: bwd.flash_bwd_dkv_plain(*full_args, **plain), 3,
+                                 flush),
+        "flash_bwd_dq": time_ms(torch, lambda: bwd.flash_bwd_dq_plain(*full_args, **plain), 3,
+                                flush),
+    }
+    # Yardstick: SDPA with the block-diagonal causal boolean mask (B, 1, S, S).
+    causal = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+    mask = ((ids[:, :, None] == ids[:, None, :]) & causal)[:, None]
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True,
+                                                  scale=1.0)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True,
+                                             scale=1.0)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    lib_fwd_ms = time_ms(torch, sdpa_fwd, 20, flush)
+    lib_fb_ms = time_ms(torch, sdpa_fwd_bwd, 20, flush)
+    # Bounds over the same-segment causal pairs this batch needs.
+    pairs = segment_pairs(ids.cpu().numpy())
+    full_pairs = B * S * (S + 1) // 2
+    q_bytes = B * S * HQ * HD * 2
+    kv_bytes = B * S * HKV * HD * 2
+    row_bytes = B * HQ * S * 4
+    id_bytes = 2 * B * S * 4
+    in_bytes = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + id_bytes
+    bounds = {
+        "flash_fwd": bound(4 * HD * pairs * HQ, 2 * q_bytes + 2 * kv_bytes + row_bytes + id_bytes),
+        "flash_bwd_fused": bound(10 * HD * pairs * HQ, in_bytes + 2 * q_bytes + 4 * kv_bytes),
+        "flash_bwd_dkv": bound(8 * HD * pairs * HQ, in_bytes + 4 * kv_bytes),
+        "flash_bwd_dq": bound(6 * HD * pairs * HQ, in_bytes + 2 * q_bytes),
+    }
+    active, uniform = step_shares(torch, ids.cpu(), S)
+    log(f"packed step 0 at B={B} S={S}: documents per row {[int(r.max()) for r in ids]}, "
+        f"padding {int((ids == 0).sum())} positions; same-segment causal pairs {pairs} of "
+        f"{full_pairs} causal pairs ({pairs / full_pairs:.4f}); active steps {active:.4f} of the "
+        f"causal schedule's visible steps, uniform {uniform:.4f} of the active ones")
+    library = {"flash_fwd": lib_fwd_ms, "flash_bwd_fused": lib_fb_ms - lib_fwd_ms,
+               "flash_bwd_dkv": None, "flash_bwd_dq": None}
+    out = {}
+    for name in kernels:
+        seg_ms, full_ms = times[name]
+        b_ms, b_by = bounds[name]
+        log(f"{name}_varlen B={B} S={S} (packed step 0): kernel {seg_ms:.4f} ms, the "
+            f"unsegmented kernel in turns {full_ms:.4f} ms (ratio {seg_ms / full_ms:.4f}), "
+            f"plain {plain_ms[name]:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
+            + (f"{library[name]:.4f} ms" if library[name] is not None else "none"))
+        key = {"flash_fwd": "fwd", "flash_bwd_fused": "fused", "flash_bwd_dkv": "dkv",
+               "flash_bwd_dq": "dq"}[name]
+        out[f"{name}_varlen"] = dict(
+            max_abs_err=err[key], ms=seg_ms, plain_ms=plain_ms[name], bound_ms=b_ms,
+            bound_by=b_by, library_ms=library[name], unsegmented_ms_same_call=full_ms,
+            active_share=active, uniform_share=uniform)
+    for name, (seg_ms, full_ms) in same_work.items():
+        out[f"{name}_varlen"].update(all_ones_ms=seg_ms, all_ones_unsegmented_ms=full_ms)
+    out["flash_fwd_varlen"]["step_bits_ms"] = bits_ms[0]
+    out["flash_bwd_fused_varlen"]["step_bits_ms"] = bits_ms[1]
+    log(f"sdpa with the block-diagonal causal mask: forward {lib_fwd_ms:.4f} ms, forward + "
+        f"backward {lib_fb_ms:.4f} ms")
+    return out
+
+
 def serving_prompts(cfg):
     import numpy as np
 
@@ -906,25 +1199,65 @@ def train_model_flops(cfg, batch: int, seq: int) -> float:
     return flops
 
 
-def train_parity_phase(torch, dev) -> None:
+def kernel_counters():
+    """{name: wrapper} of every kernel the training paths launch, and the
+    plain versions (each counts its calls)."""
+    from repro_torch.kernels import flash_bwd as bwd
+    from repro_torch.kernels import flash_fwd as fwd
+
+    counters = {f.__name__: f for f in (
+        fwd.flash_fwd, bwd.flash_bwd_delta, bwd.flash_bwd_fused, bwd.flash_bwd_dkv,
+        bwd.flash_bwd_dq, fwd.flash_fwd_varlen, bwd.flash_bwd_fused_varlen,
+        bwd.flash_bwd_dkv_varlen, bwd.flash_bwd_dq_varlen)}
+    plains = (fwd.flash_fwd_plain, bwd.flash_bwd_delta_plain, bwd.flash_bwd_fused_plain,
+              bwd.flash_bwd_dkv_plain, bwd.flash_bwd_dq_plain)
+    return counters, plains
+
+
+def zero_counts(counters, plains) -> None:
+    for f in counters.values():
+        f.launches = 0
+    for f in plains:
+        f.calls = 0
+
+
+def read_counts(counters, plains) -> dict:
+    counts = {k: f.launches for k, f in counters.items()}
+    counts["plain"] = [f.calls for f in plains]
+    return counts
+
+
+def train_parity_phase(torch, dev, packed: bool = False):
     """One step's loss and attention gradients, 2-layer full-width qwen3-8b,
     through impl="ref" (dense attention, autograd) and impl="flash_cuda"
-    with the fused and with the split backward."""
+    with the fused and with the split backward. ``packed``: a packed batch
+    of the varlen source (B = 2; the reference masks by segment, the kernels
+    are the segment variants); returns the launch counts of the three runs."""
     from repro_torch.configs import registry
     from repro_torch.core.attention import AttentionConfig
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, SyntheticVarlenLM
     from repro_torch.launch.steps import loss_fn
     from repro_torch.models.lm import init_lm
 
     cfg = dataclasses.replace(registry.get("qwen3-8b"), num_layers=PARITY_LAYERS)
     model = init_lm(cfg, seed=0, device=dev)
-    inputs, targets = SyntheticLM(DataConfig(batch_size=1, seq_len=PARITY_S,
-                                             vocab_size=cfg.vocab_size, seed=1)).batch(0)
-    batch = {"inputs": torch.from_numpy(inputs).to(dev),
-             "targets": torch.from_numpy(targets).to(dev)}
+    if packed:
+        data = SyntheticVarlenLM(DataConfig(batch_size=TRAIN_B, seq_len=PARITY_S,
+                                            vocab_size=cfg.vocab_size, seed=0, source="packed"))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
+    else:
+        inputs, targets = SyntheticLM(DataConfig(batch_size=1, seq_len=PARITY_S,
+                                                 vocab_size=cfg.vocab_size, seed=1)).batch(0)
+        batch = {"inputs": torch.from_numpy(inputs).to(dev),
+                 "targets": torch.from_numpy(targets).to(dev)}
+    what = (f"packed training parity, B={TRAIN_B} S={PARITY_S} (documents per row "
+            f"{batch['segment_ids'].amax(dim=1).tolist()})" if packed
+            else f"training parity, B=1 S={PARITY_S}")
     attn = {"ref": AttentionConfig(impl="ref"),
             "flash_cuda": AttentionConfig(impl="flash_cuda"),
             "flash_cuda bwd=split": AttentionConfig(impl="flash_cuda", bwd="split")}
+    counters, plains = kernel_counters()
+    zero_counts(counters, plains)
     out = {}
     for name, attn_cfg in attn.items():
         model.zero_grad(set_to_none=True)
@@ -932,13 +1265,14 @@ def train_parity_phase(torch, dev) -> None:
         loss.backward()
         out[name] = (loss.item(), {n: p.grad.float().clone() for n, p in model.named_parameters()
                                    if ".mixer." in n})
+    torch.cuda.synchronize()
+    counts = read_counts(counters, plains)
     del model
     l_ref, g_ref = out.pop("ref")
     for impl, (l_fl, g_fl) in out.items():
         rel_loss = abs(l_fl - l_ref) / abs(l_ref)
-        log(f"training parity, {PARITY_LAYERS}-layer full-width qwen3-8b, B=1 S={PARITY_S}: "
-            f"loss ref {l_ref:.6f}, {impl} {l_fl:.6f}, relative difference {rel_loss:.3e} "
-            f"(limit {PARITY_LOSS_REL})")
+        log(f"{what}, {PARITY_LAYERS}-layer full-width qwen3-8b: loss ref {l_ref:.6f}, {impl} "
+            f"{l_fl:.6f}, relative difference {rel_loss:.3e} (limit {PARITY_LOSS_REL})")
         if not (math.isfinite(l_fl) and rel_loss <= PARITY_LOSS_REL):
             fail(f"training loss through {impl} disagrees with the dense reference")
         worst_cos, worst_rel = 1.0, 0.0
@@ -953,8 +1287,18 @@ def train_parity_phase(torch, dev) -> None:
             if cos < PARITY_COS or rel > PARITY_REL:
                 fail(f"gradient of {name} through {impl} disagrees with the dense reference "
                      f"(limits cosine >= {PARITY_COS}, relative max diff <= {PARITY_REL})")
-        log(f"training parity, {impl}: least cosine {worst_cos:.6f} (limit {PARITY_COS}), "
+        log(f"{what}, {impl}: least cosine {worst_cos:.6f} (limit {PARITY_COS}), "
             f"largest max|diff| / max|grad| {worst_rel:.4f} (limit {PARITY_REL})")
+    log(f"launches in the {what} runs: {counts}")
+    if packed:
+        n = PARITY_LAYERS
+        want = {k: 0 for k in counters}
+        want.update(flash_fwd_varlen=2 * 2 * n, flash_bwd_delta=2 * n,
+                    flash_bwd_fused_varlen=n, flash_bwd_dkv_varlen=n, flash_bwd_dq_varlen=n)
+        want["plain"] = [0] * len(plains)
+        if counts != want:
+            fail(f"packed parity launches {counts}, want {want}")
+    return counts
 
 
 def train_phase(torch, dev, bwd: str):
@@ -965,8 +1309,6 @@ def train_phase(torch, dev, bwd: str):
     from repro_torch.configs import registry
     from repro_torch.core.attention import AttentionConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.kernels import flash_bwd as bwd_mod
-    from repro_torch.kernels import flash_fwd as fwd
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models.lm import init_lm
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
@@ -992,15 +1334,8 @@ def train_phase(torch, dev, bwd: str):
         inputs, targets = data.batch(step)
         batches.append({"inputs": torch.from_numpy(inputs).to(dev),
                         "targets": torch.from_numpy(targets).to(dev)})
-    counters = {"flash_fwd": fwd.flash_fwd, "flash_bwd_delta": bwd_mod.flash_bwd_delta,
-                "flash_bwd_fused": bwd_mod.flash_bwd_fused,
-                "flash_bwd_dkv": bwd_mod.flash_bwd_dkv, "flash_bwd_dq": bwd_mod.flash_bwd_dq}
-    plains = (fwd.flash_fwd_plain, bwd_mod.flash_bwd_delta_plain, bwd_mod.flash_bwd_fused_plain,
-              bwd_mod.flash_bwd_dkv_plain, bwd_mod.flash_bwd_dq_plain)
-    for f in counters.values():
-        f.launches = 0
-    for f in plains:
-        f.calls = 0
+    counters, plains = kernel_counters()
+    zero_counts(counters, plains)
     torch.cuda.synchronize()
     losses, times = [], []
     for step, batch in enumerate(batches):
@@ -1013,8 +1348,7 @@ def train_phase(torch, dev, bwd: str):
             f"lr {m['lr']:.3e} skipped {m['skipped']:.0f}, {times[-1] * 1e3:.1f} ms")
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])) or m["skipped"]:
             fail(f"training step {step} (bwd={bwd}) gave a non-finite loss or gradient norm")
-    counts = {k: f.launches for k, f in counters.items()}
-    counts["plain"] = [f.calls for f in plains]
+    counts = read_counts(counters, plains)
     peak = torch.cuda.max_memory_allocated(dev)
     med = sorted(times)[len(times) // 2]
     tokens = TRAIN_B * TRAIN_S
@@ -1028,25 +1362,25 @@ def train_phase(torch, dev, bwd: str):
     if not sum(losses[-2:]) / 2 < losses[0]:
         fail(f"the training loss (bwd={bwd}) did not fall")
     n = TRAIN_STEPS * TRAIN_LAYERS
-    want = {"flash_fwd": 2 * n, "flash_bwd_delta": n,
-            "flash_bwd_fused": n if bwd == "fused" else 0,
-            "flash_bwd_dkv": n if bwd == "split" else 0,
-            "flash_bwd_dq": n if bwd == "split" else 0, "plain": [0] * len(plains)}
+    want = {k: 0 for k in counters}
+    want.update(flash_fwd=2 * n, flash_bwd_delta=n, flash_bwd_fused=n if bwd == "fused" else 0,
+                flash_bwd_dkv=n if bwd == "split" else 0, flash_bwd_dq=n if bwd == "split" else 0,
+                plain=[0] * len(plains))
     if counts != want:
         fail(f"training launches (bwd={bwd}) {counts}, want {want} (forward twice a layer "
              f"with remat)")
-    busy = profile_train_step(torch, step_fn, model, opt_state, batches[0], med)
+    busy, attn_ms = profile_train_step(torch, step_fn, model, opt_state, batches[0], med)
     del model, params, opt_state, batches
     return counts, dict(losses=losses, median_ms=med * 1e3, tokens_per_s=tokens / med, mfu=mfu,
-                        peak_gib=peak / 2**30, busy_share=busy)
+                        peak_gib=peak / 2**30, busy_share=busy, attention_ms=attn_ms)
 
 
 def profile_train_step(torch, step_fn, model, opt_state, batch, median_s: float):
     """Where one training step's device time goes, from torch.profiler: the
     device busy share and the kernels by device time, the port's own apart.
     (One more step; it is not part of the counted main-path run.) Returns
-    the busy share against the unprofiled median step, or None where the
-    profiler recorded no device event."""
+    (busy share against the unprofiled median step, attention kernels' device
+    ms), or (None, None) where the profiler recorded no device event."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1058,7 +1392,7 @@ def profile_train_step(torch, step_fn, model, opt_state, batch, median_s: float)
     busy_us, by_name, n_events = device_busy(torch, prof)
     if not n_events:
         log("training step device busy share: not measured (no device events recorded)")
-        return None
+        return None, None
     busy_ms = busy_us / 1e3
     log(f"training step under torch.profiler: {n_events} device events, device busy "
         f"{busy_ms:.1f} ms; wall {wall * 1e3:.1f} ms -> busy share {busy_ms / wall / 1e3:.4f}; "
@@ -1074,7 +1408,7 @@ def profile_train_step(torch, step_fn, model, opt_state, batch, median_s: float)
         log(f"  group {label}: {us / 1e3:.1f} ms ({us / busy_us:.1%})")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"  device {us / 1e3:8.3f} ms ({us / busy_us:6.1%}): {name[:90]}")
-    return busy_ms / median_s / 1e3
+    return busy_ms / median_s / 1e3, sum(ours.values()) / 1e3
 
 
 def split_train_phase(torch, dev, fused_summary):
@@ -1116,6 +1450,77 @@ def split_train_phase(torch, dev, fused_summary):
     return counts
 
 
+def packed_train_phase(torch, dev, fused_summary):
+    """The packed training slice: phase 8's model, seed, AdamW and steps at
+    B = 2, S = 2048, fed from the packed source through launch/train.py's
+    ``train`` with ``packed=True``. Every attention forward and backward must
+    go through the segment kernels (counts exact, the unsegmented kernels
+    and the plain versions 0) and the loss must fall. Returns the launch
+    counts."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.core.attention import AttentionConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticVarlenLM
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import TrainLoopConfig, train
+    from repro_torch.training.optimizer import AdamWConfig
+
+    cfg = dataclasses.replace(registry.get("qwen3-8b"), num_layers=TRAIN_LAYERS)
+    opt_cfg = AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    loop = TrainLoopConfig(steps=TRAIN_STEPS, seq_len=TRAIN_S, batch_size=TRAIN_B, log_every=1,
+                           seed=0, device=str(dev), packed=True)
+    source = SyntheticVarlenLM(DataConfig(TRAIN_B, TRAIN_S, cfg.vocab_size, seed=0,
+                                          source="packed"))
+    batches = [source.batch(step) for step in range(TRAIN_STEPS)]
+    shares = [step_shares(torch, b["segment_ids"], TRAIN_S) for b in batches]
+    real = float(np.mean([b["loss_mask"].mean() for b in batches]))
+    counters, plains = kernel_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(counters, plains)
+    model, opt_state, history = train(cfg, loop, opt_cfg)
+    torch.cuda.synchronize()
+    counts = read_counts(counters, plains)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses, times = history["loss"], history["step_time"]
+    med = sorted(times)[len(times) // 2]
+    tokens = TRAIN_B * TRAIN_S
+    mfu = train_model_flops(cfg, TRAIN_B, TRAIN_S) / med / PEAK_BF16_FLOPS
+    log(f"packed training: losses {[round(x, 5) for x in losses]}; median step {med * 1e3:.1f} "
+        f"ms (first {times[0] * 1e3:.1f} ms), {tokens / med:.1f} tokens/s (B x S; non-padding "
+        f"share {real:.4f}: {real * tokens / med:.1f} real tokens/s), MFU {mfu:.4f} by phase 8's "
+        f"formula (it still counts full causal attention, not the same-segment pairs); "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    log("packed training: active share of the causal schedule's visible steps by step "
+        + ", ".join(f"{a:.4f}" for a, _ in shares) + "; uniform share of the active ones "
+        + ", ".join(f"{u:.4f}" for _, u in shares))
+    log(f"launches on the packed training path: {counts}")
+    if not all(math.isfinite(x) for x in losses + history["grad_norm"]):
+        fail("packed training gave a non-finite loss or gradient norm")
+    if not sum(losses[-2:]) / 2 < losses[0]:
+        fail("the packed training loss did not fall")
+    n = TRAIN_STEPS * TRAIN_LAYERS
+    want = {k: 0 for k in counters}
+    want.update(flash_fwd_varlen=2 * n, flash_bwd_delta=n, flash_bwd_fused_varlen=n,
+                plain=[0] * len(plains))
+    if counts != want:
+        fail(f"packed training launches {counts}, want {want} (the segment forward twice a "
+             f"layer with remat; no unsegmented kernel, no plain version)")
+    step_fn = build_train_step(cfg, AttentionConfig(impl="flash_cuda"), opt_cfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+    busy, attn_ms = profile_train_step(torch, step_fn, model, opt_state, batch, med)
+    summary = dict(median_ms=med * 1e3, tokens_per_s=tokens / med, mfu=mfu,
+                   peak_gib=peak / 2**30, busy_share=busy, attention_ms=attn_ms)
+    fmt = {"median_ms": "{:.1f} ms", "tokens_per_s": "{:.1f}", "mfu": "{:.4f}",
+           "peak_gib": "{:.2f} GiB", "busy_share": "{:.4f}", "attention_ms": "{:.3f} ms"}
+    log("packed against synthetic training (phase 8, this call): " + "; ".join(
+        f"{k} {v.format(summary[k]) if summary[k] is not None else 'not measured'} against "
+        f"{v.format(fused_summary[k]) if fused_summary[k] is not None else 'not measured'}"
+        for k, v in fmt.items()) + f"; step ratio {summary['median_ms'] / fused_summary['median_ms']:.4f}")
+    del model, opt_state
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -1143,6 +1548,7 @@ def main() -> None:
     results = kernel_phase(torch, dev, scratch.zero_)
     results.update(paged_kernel_phase(torch, dev, scratch.zero_))
     results.update(bwd_kernel_phase(torch, dev, scratch.zero_))
+    results.update(varlen_kernel_phase(torch, dev, scratch.zero_))
     del scratch
     serve_counts, cfg, model = slice_phase(torch, dev)
     with torch.no_grad():
@@ -1158,6 +1564,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     split_counts = split_train_phase(torch, dev, fused_summary)
+    gc.collect()
+    torch.cuda.empty_cache()
+    packed_parity_counts = train_parity_phase(torch, dev, packed=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    packed_counts = packed_train_phase(torch, dev, fused_summary)
 
     results["flash_fwd"]["at_training_shape"] = results.pop("flash_fwd_at_training_shape")
     replaces = {"flash_fwd": "src/repro/kernels/flash_fwd.py:354",
@@ -1166,16 +1578,25 @@ def main() -> None:
                 "flash_bwd_delta": "src/repro/kernels/flash_bwd.py:80",
                 "flash_bwd_fused": "src/repro/kernels/flash_bwd.py:718",
                 "flash_bwd_dkv": "src/repro/kernels/flash_bwd.py:234",
-                "flash_bwd_dq": "src/repro/kernels/flash_bwd.py:459"}
+                "flash_bwd_dq": "src/repro/kernels/flash_bwd.py:459",
+                # The segment branches of the same Pallas kernels.
+                "flash_fwd_varlen": "src/repro/kernels/flash_fwd.py:354",
+                "flash_bwd_fused_varlen": "src/repro/kernels/flash_bwd.py:718",
+                "flash_bwd_dkv_varlen": "src/repro/kernels/flash_bwd.py:234",
+                "flash_bwd_dq_varlen": "src/repro/kernels/flash_bwd.py:459"}
     source = {"flash_fwd": "flash_fwd", "flash_decode": "flash_decode",
               "flash_decode_paged": "flash_decode", "flash_bwd_delta": "flash_bwd",
               "flash_bwd_fused": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
-              "flash_bwd_dq": "flash_bwd"}
+              "flash_bwd_dq": "flash_bwd", "flash_fwd_varlen": "flash_fwd",
+              "flash_bwd_fused_varlen": "flash_bwd", "flash_bwd_dkv_varlen": "flash_bwd",
+              "flash_bwd_dq_varlen": "flash_bwd"}
     kernels = []
     for k in replaces:
         by_path = {"serving": serve_counts.get(k, 0), "paged_serving": paged_counts.get(k, 0),
                    "training": train_counts.get(k, 0),
-                   "training_split": split_counts.get(k, 0)}
+                   "training_split": split_counts.get(k, 0),
+                   "training_packed": packed_counts.get(k, 0),
+                   "training_packed_parity": packed_parity_counts.get(k, 0)}
         kernels.append({
             "name": k, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source[k]}.cu",
             "replaces": replaces[k], "launches": sum(by_path.values()),

@@ -43,10 +43,18 @@ class AttentionConfig:
 
 
 def attention(q, k, v, spec: MaskSpec, cfg: AttentionConfig = AttentionConfig(), *,
-              scale: Optional[float] = None) -> torch.Tensor:
-    """Attention output. q (B,Sq,Hq,D); k/v (B,Skv,Hkv,D) GQA."""
+              scale: Optional[float] = None,
+              segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention output. q (B,Sq,Hq,D); k/v (B,Skv,Hkv,D) GQA.
+
+    ``segment_ids`` (B, S) int turns on packed (varlen) semantics on both
+    backends: self-attention over one packed layout, q and kv share the ids
+    (JAX ``attention.py:64``)."""
     if cfg.impl == "ref":
-        return attention_reference(q, k, v, spec, scale=scale)[0]
+        return attention_reference(q, k, v, spec, scale=scale, segment_ids=segment_ids)[0]
+    if segment_ids is not None:
+        return ops.flash_attention_varlen(q, k, v, segment_ids, spec, scale=scale,
+                                          bwd=cfg.bwd or "fused")
     return ops.flash_attention(q, k, v, spec, scale=scale, bwd=cfg.bwd or "fused")
 
 

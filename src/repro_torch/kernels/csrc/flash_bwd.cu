@@ -67,6 +67,30 @@
 // reproducible. Three products per tile: bound by the tensor cores.
 // A CTA whose slice is empty still writes its zeros.
 //
+// Packed (varlen) batches take the SEG instantiation of the fused, dkv and
+// dq kernels, which replaces the segment branches of the same Pallas
+// kernels (flash_bwd.py:833, :330 and :539). Beside the table each reads
+// int32 segment ids of q and kv and a (B, n_visible) table of per-step bits
+// computed before the launch (kernels/schedule.py segment_step_bits, in
+// the kernel's orientation), indexed by b = blockIdx.x / Hkv in the
+// KV-stationary kernels and by b = bh / Hq in the dq kernel:
+//   * a step without SEG_ACTIVE is skipped before its tiles are prefetched,
+//     so it costs neither a copy nor a product. The KV-stationary walk over
+//     (q head of the group, visible q tile) reads the bit of the tile only,
+//     and `it / nvis` still names the head; the stage alternates with the
+//     count of computed tiles. The bits are uniform across a CTA, so the
+//     barriers stay uniform;
+//   * a step applies the element mask when it is flagged masked or lacks
+//     SEG_UNIFORM, and the mask then also needs q_id == kv_id. The owner
+//     tile's ids sit in registers (two rows a thread); the streamed tile's
+//     64 ids travel with it through the same cp.async group (256 bytes a
+//     stage). Rows past the end read as the masks.py sentinels;
+//   * a kv tile with no active step writes zero dK and dV, a q tile zero
+//     dQ, as every CTA writes its whole tile anyway.
+// The SEG code of the fused and dkv kernels is one source, so split dK and
+// dV stay bitwise the fused kernel's. With SEG false the kernels are the
+// ones described above.
+//
 // None of them uses wgmma or TMA yet; those are the next step for speed.
 //
 // Semantics match the JAX kernels: masked scores take the finite
@@ -89,6 +113,10 @@ constexpr int kBlockN = 64;  // kv rows a CTA owns
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kDqThreads = 4 * 32;  // the dq kernel: one warp per 16 q rows
+constexpr int kSegActive = 1;       // schedule.SEG_ACTIVE
+constexpr int kSegUniform = 2;      // schedule.SEG_UNIFORM
+constexpr int kQPadSegment = -2;    // masks.Q_PAD_SEGMENT
+constexpr int kKvPadSegment = -1;   // masks.KV_PAD_SEGMENT
 
 struct DeltaParams {
   const __nv_bfloat16* o;
@@ -119,12 +147,24 @@ struct BwdParams {
   long long d_sb, d_ss, d_sh;
   int Hq, Hkv, group, Sq, Skv, t_kv, t_q;
   int causal, window, sink, q_offset;  // window < 0: no window
+  // SEG only: segment ids (batch strides q_seg_sb / kv_seg_sb) and the
+  // (B, n_vis) SEG_* bits of the table's steps.
+  const int* q_seg;
+  const int* kv_seg;
+  const int* bits;
+  long long q_seg_sb, kv_seg_sb;
+  int n_vis;
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -178,6 +218,19 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
+// Copy the N segment ids of rows [row0, row0 + N) into shared memory in the
+// current cp.async group; ids at or past `nrows` read as `pad`.
+template <int N, int THREADS>
+__device__ __forceinline__ void load_ids(int* dst, const int* src, int row0, int nrows,
+                                         int pad) {
+  for (int r = threadIdx.x; r < N; r += THREADS) {
+    if (row0 + r < nrows)
+      cp_async4(dst + r, src + row0 + r);
+    else
+      dst[r] = pad;
+  }
+}
+
 __device__ __forceinline__ bool visible(const BwdParams& p, int qpos, int col) {
   if (col >= p.Skv) return false;
   if (p.causal) {
@@ -224,8 +277,9 @@ __global__ void __launch_bounds__(kThreads) fa2_bwd_delta_kernel(const DeltaPara
 // ------------------------------------------------------- fused and dkv
 
 // The KV-stationary body: with DQ, the fused kernel; without, the dkv
-// kernel (no phase 3 and no dS^T tile; dK and dV bitwise the same).
-template <int D, bool DQ>
+// kernel (no phase 3 and no dS^T tile; dK and dV bitwise the same). SEG:
+// the segment variant of either.
+template <int D, bool DQ, bool SEG>
 __device__ __forceinline__ void kv_stationary(const BwdParams& p) {
   constexpr int BM = kBlockM;
   constexpr int BN = kBlockN;
@@ -243,6 +297,7 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p) {
   __nv_bfloat16* sdO = sQ + 2 * BM * STRIDE;                        // [2][BM][STRIDE]
   __nv_bfloat16* sdS = sdO + 2 * BM * STRIDE;                       // [BN][DS_STRIDE], dS^T
   float4* sP = reinterpret_cast<float4*>(sdS + (DQ ? BN * DS_STRIDE : 0));  // [4][NT_Q][32], P^T
+  int* sQid = reinterpret_cast<int*>(sP + 4 * NT_Q * 32);  // SEG: [2][BM] q ids
 
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -257,6 +312,23 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p) {
   const int n_steps = nvis * p.group;  // (q head of the group, visible q tile)
   const int kv_a = k0 + wr * 16 + g8;  // this thread's two kv rows
   const int kv_b = kv_a + 8;
+  // SEG: the bits of this tile's slice, the q ids, the ids of the two kv rows.
+  const int* bits = SEG ? p.bits + static_cast<long long>(b) * p.n_vis + beg : nullptr;
+  const int* qid_g = SEG ? p.q_seg + b * p.q_seg_sb : nullptr;
+  int kvid[2] = {0, 0};
+  if (SEG) {
+    const int* kvid_g = p.kv_seg + b * p.kv_seg_sb;
+    kvid[0] = kv_a < p.Skv ? kvid_g[kv_a] : kKvPadSegment;
+    kvid[1] = kv_b < p.Skv ? kvid_g[kv_b] : kKvPadSegment;
+  }
+  // The first active step at or after `it` (every step without SEG); a
+  // step's bit is its q tile's, the same for every head of the group.
+  auto next_active = [&](int it) {
+    if (SEG)
+      while (it < n_steps && !(bits[it % nvis] & kSegActive)) ++it;
+    return it;
+  };
+  const int first = next_active(0);
 
   // dV (warps 0-3) or dK (warps 4-7): rows kv_a / kv_b, columns t * 8 + 2 * t4.
   float acc[NT_D][4];
@@ -270,18 +342,22 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p) {
                              q0, p.Sq);
     load_tile<BM, D, STRIDE>(sdO + stage * BM * STRIDE, p.dout + b * p.d_sb + h * p.d_sh,
                              p.d_ss, q0, p.Sq);
+    if (SEG) load_ids<BM, kThreads>(sQid + stage * BM, qid_g, q0, p.Sq, kQPadSegment);
   };
 
-  if (n_steps > 0) {
+  if (first < n_steps) {
     load_tile<BN, D, STRIDE>(sK, p.k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv);
     load_tile<BN, D, STRIDE>(sV, p.v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv);
-    load_q_stage(0, 0);
+    load_q_stage(first, 0);
     cp_async_commit();
 
-    for (int it = 0; it < n_steps; ++it) {
-      const int stage = it & 1;
-      if (it + 1 < n_steps) {
-        load_q_stage(it + 1, stage ^ 1);
+    // With SEG, `nxt` skips inactive steps before their tiles are fetched,
+    // and `n` counts the tiles computed (the stage alternates with it).
+    for (int it = first, n = 0; it < n_steps; ++n) {
+      const int nxt = SEG ? next_active(it + 1) : it + 1;
+      const int stage = SEG ? (n & 1) : (it & 1);
+      if (nxt < n_steps) {
+        load_q_stage(nxt, stage ^ 1);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -292,10 +368,11 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p) {
       const int h = hk * p.group + it / nvis;
       const int entry = steps[it % nvis];
       const int q0 = (entry >> 1) * BM;
-      const bool masked = entry & 1;
+      const bool masked = (entry & 1) || (SEG && !(bits[it % nvis] & kSegUniform));
       const long long bh = static_cast<long long>(b) * p.Hq + h;
       const __nv_bfloat16* cQ = sQ + stage * BM * STRIDE;
       const __nv_bfloat16* cdO = sdO + stage * BM * STRIDE;
+      const int* cQid = sQid + stage * BM;
 
       // Phase 1: S^T = K Q^T (warps 0-3) or dP^T = V dO^T (warps 4-7), this
       // warp's 16 kv rows x the tile's 64 q columns.
@@ -333,8 +410,15 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p) {
             l = l == -INFINITY ? 0.f : l;
             float sa = s[t][e], sb = s[t][e + 2];
             if (masked) {
-              if (!visible(p, qc + p.q_offset, kv_a)) sa = kMaskValue;
-              if (!visible(p, qc + p.q_offset, kv_b)) sb = kMaskValue;
+              bool va = visible(p, qc + p.q_offset, kv_a);
+              bool vb = visible(p, qc + p.q_offset, kv_b);
+              if (SEG) {
+                const int qid = cQid[t * 8 + 2 * t4 + e];
+                va = va && qid == kvid[0];
+                vb = vb && qid == kvid[1];
+              }
+              if (!va) sa = kMaskValue;
+              if (!vb) sb = kMaskValue;
             }
             s[t][e] = expf(sa - l);
             s[t][e + 2] = expf(sb - l);
@@ -429,6 +513,7 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p) {
         }
       }
       __syncthreads();  // this stage, P^T and dS^T are refilled next
+      it = nxt;
     }
   }
 
@@ -445,26 +530,27 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p) {
   }
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads, 1) fa2_bwd_fused_kernel(const BwdParams p) {
-  kv_stationary<D, true>(p);
+  kv_stationary<D, true, SEG>(p);
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads, 1) fa2_bwd_dkv_kernel(const BwdParams p) {
-  kv_stationary<D, false>(p);
+  kv_stationary<D, false, SEG>(p);
 }
 
-template <int D, bool DQ>
+template <int D, bool DQ, bool SEG>
 size_t kv_stationary_smem_bytes() {
   return static_cast<size_t>(2 * kBlockN + 4 * kBlockM) * (D + 8) * sizeof(__nv_bfloat16) +
          (DQ ? static_cast<size_t>(kBlockN) * (kBlockM + 8) * sizeof(__nv_bfloat16) : 0) +
-         static_cast<size_t>(4 * (kBlockM / 8) * 32) * sizeof(float4);
+         static_cast<size_t>(4 * (kBlockM / 8) * 32) * sizeof(float4) +
+         (SEG ? 2 * kBlockM * sizeof(int) : 0);
 }
 
 // --------------------------------------------------------------------- dq
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kDqThreads) fa2_bwd_dq_kernel(const BwdParams p) {
   constexpr int BM = kBlockM;
   constexpr int BN = kBlockN;
@@ -478,6 +564,7 @@ __global__ void __launch_bounds__(kDqThreads) fa2_bwd_dq_kernel(const BwdParams 
   __nv_bfloat16* sdO = sQ + BM * STRIDE;                             // [BM][STRIDE]
   __nv_bfloat16* sK = sdO + BM * STRIDE;                             // [2][BN][STRIDE]
   __nv_bfloat16* sV = sK + 2 * BN * STRIDE;                          // [2][BN][STRIDE]
+  int* sKid = reinterpret_cast<int*>(sV + 2 * BN * STRIDE);          // SEG: [2][BN] kv ids
 
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;  // this warp's 16 q rows within the tile
@@ -492,19 +579,36 @@ __global__ void __launch_bounds__(kDqThreads) fa2_bwd_dq_kernel(const BwdParams 
   const int* steps = p.table + p.t_q + 1;
   const int row_a = q0 + warp * 16 + g8;  // this thread's two q rows
   const int row_b = row_a + 8;
+  // SEG: this batch row's step bits, and the ids of the thread's two rows.
+  const int* bits = SEG ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
+  const int* kid_g = SEG ? p.kv_seg + b * p.kv_seg_sb : nullptr;
+  int qid[2] = {0, 0};
+  if (SEG) {
+    const int* qid_g = p.q_seg + b * p.q_seg_sb;
+    qid[0] = row_a < p.Sq ? qid_g[row_a] : kQPadSegment;
+    qid[1] = row_b < p.Sq ? qid_g[row_b] : kQPadSegment;
+  }
+  // The first active step at or after `it` (every step without SEG).
+  auto next_active = [&](int it) {
+    if (SEG)
+      while (it < end && !(bits[it] & kSegActive)) ++it;
+    return it;
+  };
+  const int first = next_active(beg);
 
   // dQ: rows row_a / row_b, columns t * 8 + 2 * t4.
   float acc[NT_D][4];
 #pragma unroll
   for (int t = 0; t < NT_D; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
 
-  if (beg < end) {
+  if (first < end) {
     load_tile<BM, D, STRIDE, kDqThreads>(sQ, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq);
     load_tile<BM, D, STRIDE, kDqThreads>(sdO, p.dout + b * p.d_sb + h * p.d_sh, p.d_ss, q0,
                                          p.Sq);
-    const int j0 = steps[beg] >> 1;
+    const int j0 = steps[first] >> 1;
     load_tile<BN, D, STRIDE, kDqThreads>(sK, kg, p.k_ss, j0 * BN, p.Skv);
     load_tile<BN, D, STRIDE, kDqThreads>(sV, vg, p.v_ss, j0 * BN, p.Skv);
+    if (SEG) load_ids<BN, kDqThreads>(sKid, kid_g, j0 * BN, p.Skv, kKvPadSegment);
     cp_async_commit();
 
     // lse (-inf -> 0; +inf past the end) and delta of the two rows.
@@ -518,14 +622,19 @@ __global__ void __launch_bounds__(kDqThreads) fa2_bwd_dq_kernel(const BwdParams 
       delta_r[r] = row < p.Sq ? p.delta[at] : 0.f;
     }
 
-    for (int it = beg; it < end; ++it) {
-      const int stage = (it - beg) & 1;
-      if (it + 1 < end) {
-        const int jn = steps[it + 1] >> 1;
+    // With SEG, `nxt` skips inactive steps before their tiles are fetched,
+    // and `n` counts the tiles computed (the stage alternates with it).
+    for (int it = first, n = 0; it < end; ++n) {
+      const int nxt = SEG ? next_active(it + 1) : it + 1;
+      const int stage = SEG ? (n & 1) : ((it - beg) & 1);
+      if (nxt < end) {
+        const int jn = steps[nxt] >> 1;
         load_tile<BN, D, STRIDE, kDqThreads>(sK + (stage ^ 1) * BN * STRIDE, kg, p.k_ss,
                                              jn * BN, p.Skv);
         load_tile<BN, D, STRIDE, kDqThreads>(sV + (stage ^ 1) * BN * STRIDE, vg, p.v_ss,
                                              jn * BN, p.Skv);
+        if (SEG) load_ids<BN, kDqThreads>(sKid + (stage ^ 1) * BN, kid_g, jn * BN, p.Skv,
+                                          kKvPadSegment);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -535,9 +644,10 @@ __global__ void __launch_bounds__(kDqThreads) fa2_bwd_dq_kernel(const BwdParams 
 
       const int entry = steps[it];
       const int j = entry >> 1;
-      const bool masked = entry & 1;
+      const bool masked = (entry & 1) || (SEG && !(bits[it] & kSegUniform));
       const __nv_bfloat16* cK = sK + stage * BN * STRIDE;
       const __nv_bfloat16* cV = sV + stage * BN * STRIDE;
+      const int* cKid = sKid + stage * BN;
 
       // S = Q K^T (line 11) and dP = dO V^T (line 13): this warp's 16 q
       // rows x the tile's 64 kv columns, A fragments from sQ / sdO.
@@ -575,9 +685,12 @@ __global__ void __launch_bounds__(kDqThreads) fa2_bwd_dq_kernel(const BwdParams 
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1;
           float x = s[t][e];
-          if (masked && !visible(p, (r ? row_b : row_a) + p.q_offset,
-                                 j * BN + t * 8 + 2 * t4 + (e & 1)))
-            x = kMaskValue;
+          if (masked) {
+            bool vis = visible(p, (r ? row_b : row_a) + p.q_offset,
+                               j * BN + t * 8 + 2 * t4 + (e & 1));
+            if (SEG) vis = vis && qid[r] == cKid[t * 8 + 2 * t4 + (e & 1)];
+            if (!vis) x = kMaskValue;
+          }
           s[t][e] = expf(x - lse_r[r]) * (dp[t][e] - delta_r[r]);
         }
       }
@@ -600,6 +713,7 @@ __global__ void __launch_bounds__(kDqThreads) fa2_bwd_dq_kernel(const BwdParams 
         }
       }
       __syncthreads();  // this stage is refilled two iterations on
+      it = nxt;
     }
   }
 
@@ -615,9 +729,10 @@ __global__ void __launch_bounds__(kDqThreads) fa2_bwd_dq_kernel(const BwdParams 
   }
 }
 
-template <int D>
+template <int D, bool SEG>
 size_t dq_smem_bytes() {
-  return static_cast<size_t>(2 * kBlockM + 4 * kBlockN) * (D + 8) * sizeof(__nv_bfloat16);
+  return static_cast<size_t>(2 * kBlockM + 4 * kBlockN) * (D + 8) * sizeof(__nv_bfloat16) +
+         (SEG ? 2 * kBlockN * sizeof(int) : 0);
 }
 
 // Fill the fields every backward kernel reads (all but dq, dk, dv, t_q, t_kv).
@@ -626,7 +741,9 @@ BwdParams bwd_params(const void* q, const void* k, const void* v, const void* do
                      long long q_ss, long long q_sh, long long k_sb, long long k_ss,
                      long long k_sh, long long v_sb, long long v_ss, long long v_sh,
                      long long d_sb, long long d_ss, long long d_sh, int Hq, int Hkv, int Sq,
-                     int Skv, int causal, int window, int sink, int q_offset) {
+                     int Skv, int causal, int window, int sink, int q_offset, const void* q_seg,
+                     const void* kv_seg, long long q_seg_sb, long long kv_seg_sb,
+                     const void* bits, int n_vis) {
   BwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -643,6 +760,10 @@ BwdParams bwd_params(const void* q, const void* k, const void* v, const void* do
   p.Hq = Hq; p.Hkv = Hkv; p.group = Hq / Hkv; p.Sq = Sq; p.Skv = Skv;
   p.t_kv = p.t_q = 0;
   p.causal = causal; p.window = window; p.sink = sink; p.q_offset = q_offset;
+  p.q_seg = static_cast<const int*>(q_seg);
+  p.kv_seg = static_cast<const int*>(kv_seg);
+  p.bits = static_cast<const int*>(bits);
+  p.q_seg_sb = q_seg_sb; p.kv_seg_sb = kv_seg_sb; p.n_vis = n_vis;
   return p;
 }
 
@@ -675,8 +796,9 @@ extern "C" int fa2_bwd_delta_bf16(const void* o, const void* dout, void* delta, 
   return cudaGetLastError();
 }
 
-// The entries below take the one instantiation the training path needs
-// (qwen3: head_dim 128, 64 x 64 tiles).
+// The entries below take the instantiations the training path needs
+// (qwen3: head_dim 128, 64 x 64 tiles), without and with segments (null
+// bits: none).
 
 extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dq, void* dk,
@@ -686,17 +808,23 @@ extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, c
                                   long long d_ss, long long d_sh, int batch, int Hq, int Hkv,
                                   int Sq, int Skv, int head_dim, int block_q, int block_kv,
                                   int causal, int window, int sink, int q_offset, int t_kv,
+                                  const void* q_seg, const void* kv_seg, long long q_seg_sb,
+                                  long long kv_seg_sb, const void* bits, int n_vis,
                                   void* stream) {
   if (head_dim != 128 || block_q != kBlockM || block_kv != kBlockN) return cudaErrorInvalidValue;
   BwdParams p = bwd_params(q, k, v, dout, lse, delta, table, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh, d_sb, d_ss, d_sh, Hq, Hkv, Sq, Skv, causal, window,
-                           sink, q_offset);
+                           sink, q_offset, q_seg, kv_seg, q_seg_sb, kv_seg_sb, bits,
+                           n_vis);
   p.dq = static_cast<float*>(dq);
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
   p.t_kv = t_kv;
-  return launch(fa2_bwd_fused_kernel<128>, p, dim3(batch * Hkv, t_kv), kThreads,
-                kv_stationary_smem_bytes<128, true>(), stream);
+  if (bits != nullptr)
+    return launch(fa2_bwd_fused_kernel<128, true>, p, dim3(batch * Hkv, t_kv), kThreads,
+                  kv_stationary_smem_bytes<128, true, true>(), stream);
+  return launch(fa2_bwd_fused_kernel<128, false>, p, dim3(batch * Hkv, t_kv), kThreads,
+                kv_stationary_smem_bytes<128, true, false>(), stream);
 }
 
 extern "C" int fa2_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
@@ -706,16 +834,22 @@ extern "C" int fa2_bwd_dkv_bf16(const void* q, const void* k, const void* v, con
                                 long long v_ss, long long v_sh, long long d_sb, long long d_ss,
                                 long long d_sh, int batch, int Hq, int Hkv, int Sq, int Skv,
                                 int head_dim, int block_q, int block_kv, int causal, int window,
-                                int sink, int q_offset, int t_kv, void* stream) {
+                                int sink, int q_offset, int t_kv, const void* q_seg,
+                                const void* kv_seg, long long q_seg_sb, long long kv_seg_sb,
+                                const void* bits, int n_vis, void* stream) {
   if (head_dim != 128 || block_q != kBlockM || block_kv != kBlockN) return cudaErrorInvalidValue;
   BwdParams p = bwd_params(q, k, v, dout, lse, delta, table, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh, d_sb, d_ss, d_sh, Hq, Hkv, Sq, Skv, causal, window,
-                           sink, q_offset);
+                           sink, q_offset, q_seg, kv_seg, q_seg_sb, kv_seg_sb, bits,
+                           n_vis);
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
   p.t_kv = t_kv;
-  return launch(fa2_bwd_dkv_kernel<128>, p, dim3(batch * Hkv, t_kv), kThreads,
-                kv_stationary_smem_bytes<128, false>(), stream);
+  if (bits != nullptr)
+    return launch(fa2_bwd_dkv_kernel<128, true>, p, dim3(batch * Hkv, t_kv), kThreads,
+                  kv_stationary_smem_bytes<128, false, true>(), stream);
+  return launch(fa2_bwd_dkv_kernel<128, false>, p, dim3(batch * Hkv, t_kv), kThreads,
+                kv_stationary_smem_bytes<128, false, false>(), stream);
 }
 
 extern "C" int fa2_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
@@ -725,13 +859,19 @@ extern "C" int fa2_bwd_dq_bf16(const void* q, const void* k, const void* v, cons
                                long long v_sh, long long d_sb, long long d_ss, long long d_sh,
                                int batch, int Hq, int Hkv, int Sq, int Skv, int head_dim,
                                int block_q, int block_kv, int causal, int window, int sink,
-                               int q_offset, int t_q, void* stream) {
+                               int q_offset, int t_q, const void* q_seg, const void* kv_seg,
+                               long long q_seg_sb, long long kv_seg_sb, const void* bits,
+                               int n_vis, void* stream) {
   if (head_dim != 128 || block_q != kBlockM || block_kv != kBlockN) return cudaErrorInvalidValue;
   BwdParams p = bwd_params(q, k, v, dout, lse, delta, table, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh, d_sb, d_ss, d_sh, Hq, Hkv, Sq, Skv, causal, window,
-                           sink, q_offset);
+                           sink, q_offset, q_seg, kv_seg, q_seg_sb, kv_seg_sb, bits,
+                           n_vis);
   p.dq = static_cast<float*>(dq);
   p.t_q = t_q;
-  return launch(fa2_bwd_dq_kernel<128>, p, dim3(t_q, batch * Hq), kDqThreads,
-                dq_smem_bytes<128>(), stream);
+  if (bits != nullptr)
+    return launch(fa2_bwd_dq_kernel<128, true>, p, dim3(t_q, batch * Hq), kDqThreads,
+                  dq_smem_bytes<128, true>(), stream);
+  return launch(fa2_bwd_dq_kernel<128, false>, p, dim3(t_q, batch * Hq), kDqThreads,
+                dq_smem_bytes<128, false>(), stream);
 }

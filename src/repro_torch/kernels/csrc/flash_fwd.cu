@@ -29,6 +29,19 @@
 // Semantics match the JAX kernel: masked scores take the finite
 // DEFAULT_MASK_VALUE, K/V rows past the end read as zeros, the kv head of
 // q head h is h / group, rows that visit no tile give O = 0, lse = -inf.
+//
+// Packed (varlen) batches take the SEG instantiation, which replaces the
+// segment branch of the same Pallas kernel (flash_fwd.py:388/:478,
+// fa2_fwd_compact_varlen). Beside the table it reads int32 segment ids of
+// q and kv and a (B, n_visible) table of per-step bits computed before the
+// launch (kernels/schedule.py segment_step_bits): a step without
+// SEG_ACTIVE is skipped before its tiles are prefetched, so it costs
+// neither a copy nor a product; a step applies the element mask when it is
+// flagged masked or lacks SEG_UNIFORM, and the mask then also needs
+// q_id == kv_id. The CTA's q ids sit in registers (two rows a thread), the
+// kv tile's 64 ids travel with its K/V tile through the same cp.async
+// group (256 bytes a stage). The bits are the same for the whole CTA, so
+// the barriers stay uniform. With SEG false the kernel is the one above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,6 +52,10 @@ namespace {
 
 constexpr float kMaskValue = -0.7f * 3.402823466e38f;  // DEFAULT_MASK_VALUE
 constexpr int kBlockN = 64;
+constexpr int kSegActive = 1;   // schedule.SEG_ACTIVE
+constexpr int kSegUniform = 2;  // schedule.SEG_UNIFORM
+constexpr int kQPadSegment = -2;   // masks.Q_PAD_SEGMENT
+constexpr int kKvPadSegment = -1;  // masks.KV_PAD_SEGMENT
 
 struct FwdParams {
   const __nv_bfloat16* q;
@@ -53,12 +70,24 @@ struct FwdParams {
   long long o_sb, o_ss, o_sh;
   int Hq, group, Sq, Skv, t_q;
   int causal, window, sink, q_offset;  // window < 0: no window
+  // SEG only: segment ids (batch strides q_seg_sb / kv_seg_sb) and the
+  // (B, n_vis) SEG_* bits of the table's steps.
+  const int* q_seg;
+  const int* kv_seg;
+  const int* bits;
+  long long q_seg_sb, kv_seg_sb;
+  int n_vis;
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -112,6 +141,19 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
+// Copy the N segment ids of rows [row0, row0 + N) into shared memory in the
+// current cp.async group; ids at or past `nrows` read as `pad`.
+template <int N, int THREADS>
+__device__ __forceinline__ void load_ids(int* dst, const int* src, int row0, int nrows,
+                                         int pad) {
+  for (int r = threadIdx.x; r < N; r += THREADS) {
+    if (row0 + r < nrows)
+      cp_async4(dst + r, src + row0 + r);
+    else
+      dst[r] = pad;
+  }
+}
+
 __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
   if (col >= p.Skv) return false;
   if (p.causal) {
@@ -123,7 +165,7 @@ __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
   return d < p.window || col < p.sink;
 }
 
-template <int D, int NWARPS>
+template <int D, int NWARPS, bool SEG>
 __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p) {
   constexpr int BM = 16 * NWARPS;
   constexpr int BN = kBlockN;
@@ -137,6 +179,7 @@ __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p)
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sK = sQ + BM * STRIDE;      // [2][BN][STRIDE]
   __nv_bfloat16* sV = sK + 2 * BN * STRIDE;  // [2][BN][STRIDE]
+  int* sKid = reinterpret_cast<int*>(sV + 2 * BN * STRIDE);  // SEG: [2][BN] kv ids
 
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -151,6 +194,22 @@ __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p)
   const int* steps = p.table + p.t_q + 1;
   const int row_a = q0 + warp * 16 + lane / 4;  // this thread's two rows
   const int row_b = row_a + 8;
+  // SEG: this batch row's step bits, and the ids of the thread's two rows.
+  const int* bits = SEG ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
+  const int* kid_g = SEG ? p.kv_seg + b * p.kv_seg_sb : nullptr;
+  int qid[2] = {0, 0};
+  if (SEG) {
+    const int* qid_g = p.q_seg + b * p.q_seg_sb;
+    qid[0] = row_a < p.Sq ? qid_g[row_a] : kQPadSegment;
+    qid[1] = row_b < p.Sq ? qid_g[row_b] : kQPadSegment;
+  }
+  // The first active step at or after `it` (every step without SEG).
+  auto next_active = [&](int it) {
+    if (SEG)
+      while (it < end && !(bits[it] & kSegActive)) ++it;
+    return it;
+  };
+  const int first = next_active(beg);
 
   float m_r[2] = {-INFINITY, -INFINITY};
   float l_r[2] = {0.f, 0.f};
@@ -158,12 +217,13 @@ __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p)
 #pragma unroll
   for (int t = 0; t < NT_O; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
 
-  if (beg < end) {
+  if (first < end) {
     load_tile<BM, D, THREADS, STRIDE>(sQ, qg, p.q_ss, q0, p.Sq);
     cp_async_commit();
-    const int j0 = steps[beg] >> 1;
+    const int j0 = steps[first] >> 1;
     load_tile<BN, D, THREADS, STRIDE>(sK, kg, p.k_ss, j0 * BN, p.Skv);
     load_tile<BN, D, THREADS, STRIDE>(sV, vg, p.v_ss, j0 * BN, p.Skv);
+    if (SEG) load_ids<BN, THREADS>(sKid, kid_g, j0 * BN, p.Skv, kKvPadSegment);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -173,14 +233,19 @@ __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p)
     for (int kk = 0; kk < KSTEPS; ++kk)
       ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * STRIDE + kk * 16 + (lane >> 4) * 8);
 
-    for (int it = beg; it < end; ++it) {
-      const int stage = (it - beg) & 1;
-      if (it + 1 < end) {
-        const int jn = steps[it + 1] >> 1;
+    // With SEG, `nxt` skips inactive steps before their tiles are fetched,
+    // and `n` counts the tiles computed (the stage alternates with it).
+    for (int it = first, n = 0; it < end; ++n) {
+      const int nxt = SEG ? next_active(it + 1) : it + 1;
+      const int stage = SEG ? (n & 1) : ((it - beg) & 1);
+      if (nxt < end) {
+        const int jn = steps[nxt] >> 1;
         load_tile<BN, D, THREADS, STRIDE>(sK + (stage ^ 1) * BN * STRIDE, kg, p.k_ss, jn * BN,
                                           p.Skv);
         load_tile<BN, D, THREADS, STRIDE>(sV + (stage ^ 1) * BN * STRIDE, vg, p.v_ss, jn * BN,
                                           p.Skv);
+        if (SEG) load_ids<BN, THREADS>(sKid + (stage ^ 1) * BN, kid_g, jn * BN, p.Skv,
+                                       kKvPadSegment);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -190,9 +255,10 @@ __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p)
 
       const int entry = steps[it];
       const int j = entry >> 1;
-      const bool masked = entry & 1;
+      const bool masked = (entry & 1) || (SEG && !(bits[it] & kSegUniform));
       const __nv_bfloat16* cK = sK + stage * BN * STRIDE;
       const __nv_bfloat16* cV = sV + stage * BN * STRIDE;
+      const int* cKid = sKid + stage * BN;
 
       // S = Q K^T for this warp's 16 rows x BN columns.
       float s[NT_S][4];
@@ -214,10 +280,17 @@ __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p)
 #pragma unroll
         for (int t = 0; t < NT_S; ++t) {
           const int col = j * BN + t * 8 + (lane & 3) * 2;
+          int kid[2] = {0, 0};
+          if (SEG) {
+            kid[0] = cKid[t * 8 + (lane & 3) * 2];
+            kid[1] = cKid[t * 8 + (lane & 3) * 2 + 1];
+          }
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int row = (e < 2 ? row_a : row_b) + p.q_offset;
-            if (!visible(p, row, col + (e & 1))) s[t][e] = kMaskValue;
+            bool vis = visible(p, row, col + (e & 1));
+            if (SEG) vis = vis && qid[e >> 1] == kid[e & 1];
+            if (!vis) s[t][e] = kMaskValue;
           }
         }
       }
@@ -278,6 +351,7 @@ __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p)
         }
       }
       __syncthreads();  // this stage is refilled two iterations on
+      it = nxt;
     }
   }
 
@@ -302,16 +376,17 @@ __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p)
   }
 }
 
-template <int D, int NWARPS>
+template <int D, int NWARPS, bool SEG>
 cudaError_t launch(const FwdParams& p, int batch, cudaStream_t stream) {
   constexpr int BM = 16 * NWARPS;
-  const size_t smem = static_cast<size_t>(BM + 4 * kBlockN) * (D + 8) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(fa2_fwd_kernel<D, NWARPS>,
+  const size_t smem = static_cast<size_t>(BM + 4 * kBlockN) * (D + 8) * sizeof(__nv_bfloat16) +
+                      (SEG ? 2 * kBlockN * sizeof(int) : 0);
+  cudaError_t err = cudaFuncSetAttribute(fa2_fwd_kernel<D, NWARPS, SEG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(p.t_q, batch * p.Hq);
-  fa2_fwd_kernel<D, NWARPS><<<grid, NWARPS * 32, smem, stream>>>(p);
+  fa2_fwd_kernel<D, NWARPS, SEG><<<grid, NWARPS * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -323,7 +398,9 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
                             long long v_ss, long long v_sh, long long o_sb, long long o_ss,
                             long long o_sh, int batch, int Hq, int Hkv, int Sq, int Skv,
                             int head_dim, int block_q, int block_kv, int causal, int window,
-                            int sink, int q_offset, int t_q, void* stream) {
+                            int sink, int q_offset, int t_q, const void* q_seg,
+                            const void* kv_seg, long long q_seg_sb, long long kv_seg_sb,
+                            const void* bits, int n_vis, void* stream) {
   FwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -337,8 +414,14 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.Hq = Hq; p.group = Hq / Hkv; p.Sq = Sq; p.Skv = Skv; p.t_q = t_q;
   p.causal = causal; p.window = window; p.sink = sink; p.q_offset = q_offset;
+  p.q_seg = static_cast<const int*>(q_seg);
+  p.kv_seg = static_cast<const int*>(kv_seg);
+  p.bits = static_cast<const int*>(bits);
+  p.q_seg_sb = q_seg_sb; p.kv_seg_sb = kv_seg_sb; p.n_vis = n_vis;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // The one instantiation the serving path needs (qwen3: head_dim 128).
+  // The instantiations the serving and training paths need (qwen3: head_dim
+  // 128), without and with segments (null bits: none).
   if (head_dim != 128 || block_q != 64 || block_kv != kBlockN) return cudaErrorInvalidValue;
-  return launch<128, 4>(p, batch, s);
+  if (bits != nullptr) return launch<128, 4, true>(p, batch, s);
+  return launch<128, 4, false>(p, batch, s);
 }

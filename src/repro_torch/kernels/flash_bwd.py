@@ -35,6 +35,16 @@ Layouts are the public ones, read in place through strides: q and dO
 o (B, Sq, Hq, D); lse and delta (B, Hq, Sq) f32. Outputs are f32: dq
 (B, Sq, Hq, D) with respect to the *scaled* q, dk and dv (B, Skv, Hkv, D).
 
+The ``_varlen`` wrappers are the segment variants of the fused, dK/dV and
+dQ kernels (the ``has_segments`` branches of the three JAX kernels,
+:330, :539 and :833): int32 segment ids q_seg (B, Sq) and kv_seg (B, Skv),
+step bits from :func:`~repro_torch.kernels.schedule.segment_step_bits` in
+the kernel's orientation (kv-major for fused and dK/dV, q-major for dQ).
+Inactive steps are skipped; a kv tile with no active step gets zero dK and
+dV, a q tile with none zero dQ. The delta pre-pass is row-wise and serves
+both. Each is the same kernel source instantiated with ``SEG``, so the
+split dK/dV stay bitwise the fused kernel's with segments too.
+
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
 """
@@ -48,11 +58,12 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.masks import DEFAULT_MASK_VALUE, MaskSpec, make_tile_mask
+from repro_torch.core.masks import MaskSpec, apply_mask, make_tile_mask
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_fwd import _check_kernel_inputs, _check_layout, _tiles
-from repro_torch.kernels.flash_fwd import _device_table as _q_major_table
-from repro_torch.kernels.schedule import build_kv_tile_schedule, build_q_tile_schedule
+from repro_torch.kernels.flash_fwd import (_check_kernel_inputs, _check_layout, _PlainSegments,
+                                           _tiles, check_segments, segment_args)
+from repro_torch.kernels.schedule import (build_kv_tile_schedule, build_q_tile_schedule,
+                                          device_schedule)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -103,8 +114,10 @@ flash_bwd_delta_plain.calls = 0
 # ------------------------------------------------- fused, dkv and dq
 
 
-def _check_bwd_inputs(q, k, v, do, lse, delta):
+def _check_bwd_inputs(q, k, v, do, lse, delta, segments=None):
     _check_layout(q, k, v)
+    if segments is not None:
+        check_segments(q, k, *segments)
     B, Sq, Hq, _ = q.shape
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} must match q {tuple(q.shape)}")
@@ -117,71 +130,121 @@ def _check_bwd_inputs(q, k, v, do, lse, delta):
 def flash_bwd_fused(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int):
     """dq, dk, dv (f32) of FA2 on pre-scaled q. ``lse`` is the forward's raw
     logsumexp (-inf on fully masked rows); ``delta`` is the pre-pass's."""
-    _check_bwd_inputs(q, k, v, do, lse, delta)
-    if q.device.type == "cpu":
-        return flash_bwd_fused_plain(q, k, v, do, lse, delta, spec,
-                                     block_q=block_q, block_kv=block_kv)
-    _check_device("flash_bwd_fused", q)
-    B, Sq, Hq, D = q.shape
-    # dq is summed into by every kv tile's CTA; dk and dv are written once.
-    dq = torch.zeros((B, Sq, Hq, D), dtype=torch.float32, device=q.device)
-    dk, dv = _launch_fused(q, k, v, do, lse, delta, spec, block_q, block_kv, dq)
-    flash_bwd_fused.launches += 1
-    return dq, dk, dv
+    return _fused(flash_bwd_fused, q, k, v, do, lse, delta, spec, None, block_q, block_kv)
 
 
 flash_bwd_fused.launches = 0  # kernel launches (CUDA tensors only)
 
 
+def flash_bwd_fused_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, *,
+                           block_q: int, block_kv: int):
+    """The segment variant of :func:`flash_bwd_fused`."""
+    return _fused(flash_bwd_fused_varlen, q, k, v, do, lse, delta, spec, (q_seg, kv_seg),
+                  block_q, block_kv)
+
+
+flash_bwd_fused_varlen.launches = 0  # kernel launches (CUDA tensors only)
+
+
 def flash_bwd_dkv(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int):
     """dk, dv (f32, summed over the GQA group) of the split backward;
     arguments as :func:`flash_bwd_fused`."""
-    _check_bwd_inputs(q, k, v, do, lse, delta)
-    if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, spec,
-                                   block_q=block_q, block_kv=block_kv)
-    _check_device("flash_bwd_dkv", q)
-    lse, delta = lse.contiguous(), delta.contiguous()  # held until the launch
-    args = _kernel_args("the CUDA dK/dV kernel", q, k, v, do, lse, delta, spec, block_q,
-                        block_kv, q_major=False)
-    dk, dv = _empty_dkv(q, k)
-    err = _lib().fa2_bwd_dkv_bf16(*args[:6], dk.data_ptr(), dv.data_ptr(), *args[6:])
-    _build.check(err, "fa2_bwd_dkv_bf16")
-    flash_bwd_dkv.launches += 1
-    return dk, dv
+    return _dkv(flash_bwd_dkv, q, k, v, do, lse, delta, spec, None, block_q, block_kv)
 
 
 flash_bwd_dkv.launches = 0  # kernel launches (CUDA tensors only)
 
 
+def flash_bwd_dkv_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, *,
+                         block_q: int, block_kv: int):
+    """The segment variant of :func:`flash_bwd_dkv`."""
+    return _dkv(flash_bwd_dkv_varlen, q, k, v, do, lse, delta, spec, (q_seg, kv_seg),
+                block_q, block_kv)
+
+
+flash_bwd_dkv_varlen.launches = 0  # kernel launches (CUDA tensors only)
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int):
     """dq (f32, with respect to the scaled q) of the split backward;
     arguments as :func:`flash_bwd_fused`."""
-    _check_bwd_inputs(q, k, v, do, lse, delta)
-    if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta, spec,
-                                  block_q=block_q, block_kv=block_kv)
-    _check_device("flash_bwd_dq", q)
-    lse, delta = lse.contiguous(), delta.contiguous()  # held until the launch
-    args = _kernel_args("the CUDA dQ kernel", q, k, v, do, lse, delta, spec, block_q,
-                        block_kv, q_major=True)
-    # Every q row is written once, zeros where it sees no key.
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    err = _lib().fa2_bwd_dq_bf16(*args[:6], dq.data_ptr(), *args[6:])
-    _build.check(err, "fa2_bwd_dq_bf16")
-    flash_bwd_dq.launches += 1
-    return dq
+    return _dq(flash_bwd_dq, q, k, v, do, lse, delta, spec, None, block_q, block_kv)
 
 
 flash_bwd_dq.launches = 0  # kernel launches (CUDA tensors only)
 
 
-def _launch_fused(q, k, v, do, lse, delta, spec, block_q, block_kv, dq):
+def flash_bwd_dq_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, *,
+                        block_q: int, block_kv: int):
+    """The segment variant of :func:`flash_bwd_dq`."""
+    return _dq(flash_bwd_dq_varlen, q, k, v, do, lse, delta, spec, (q_seg, kv_seg),
+               block_q, block_kv)
+
+
+flash_bwd_dq_varlen.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def _plain_kw(segments, block_q, block_kv):
+    q_seg, kv_seg = segments if segments is not None else (None, None)
+    return dict(block_q=block_q, block_kv=block_kv, q_seg=q_seg, kv_seg=kv_seg)
+
+
+def _fused(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv):
+    _check_bwd_inputs(q, k, v, do, lse, delta, segments)
+    if q.device.type == "cpu":
+        return flash_bwd_fused_plain(q, k, v, do, lse, delta, spec,
+                                     **_plain_kw(segments, block_q, block_kv))
+    _check_device(wrapper.__name__, q)
+    B, Sq, Hq, D = q.shape
+    # dq is summed into by every kv tile's CTA; dk and dv are written once.
+    dq = torch.zeros((B, Sq, Hq, D), dtype=torch.float32, device=q.device)
+    dk, dv = _launch_fused(q, k, v, do, lse, delta, spec, block_q, block_kv, dq, segments)
+    wrapper.launches += 1
+    return dq, dk, dv
+
+
+def _dkv(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv):
+    _check_bwd_inputs(q, k, v, do, lse, delta, segments)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, spec,
+                                   **_plain_kw(segments, block_q, block_kv))
+    _check_device(wrapper.__name__, q)
+    # lse, delta and ``held`` (segment ids, step bits) stay alive until the launch.
+    lse, delta = lse.contiguous(), delta.contiguous()
+    args, held = _kernel_args("the CUDA dK/dV kernel", q, k, v, do, lse, delta, spec, block_q,
+                              block_kv, segments, q_major=False)
+    dk, dv = _empty_dkv(q, k)
+    err = _lib().fa2_bwd_dkv_bf16(*args[:6], dk.data_ptr(), dv.data_ptr(), *args[6:])
+    _build.check(err, "fa2_bwd_dkv_bf16")
+    wrapper.launches += 1
+    return dk, dv
+
+
+def _dq(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv):
+    _check_bwd_inputs(q, k, v, do, lse, delta, segments)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, spec,
+                                  **_plain_kw(segments, block_q, block_kv))
+    _check_device(wrapper.__name__, q)
+    # lse, delta and ``held`` (segment ids, step bits) stay alive until the launch.
+    lse, delta = lse.contiguous(), delta.contiguous()
+    args, held = _kernel_args("the CUDA dQ kernel", q, k, v, do, lse, delta, spec, block_q,
+                              block_kv, segments, q_major=True)
+    # Every q row is written once, zeros where it sees no key.
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    err = _lib().fa2_bwd_dq_bf16(*args[:6], dq.data_ptr(), *args[6:])
+    _build.check(err, "fa2_bwd_dq_bf16")
+    wrapper.launches += 1
+    return dq
+
+
+def _launch_fused(q, k, v, do, lse, delta, spec, block_q, block_kv, dq, segments=None):
     """Launch the fused kernel; returns (dk, dv). ``dq`` None launches the
     timing variant that computes dS K but skips its atomics into dq."""
-    lse, delta = lse.contiguous(), delta.contiguous()  # held until the launch
-    args = _kernel_args("the CUDA fused backward", q, k, v, do, lse, delta, spec, block_q,
-                        block_kv, q_major=False)
+    # lse, delta and ``held`` (segment ids, step bits) stay alive until the launch.
+    lse, delta = lse.contiguous(), delta.contiguous()
+    args, held = _kernel_args("the CUDA fused backward", q, k, v, do, lse, delta, spec,
+                              block_q, block_kv, segments, q_major=False)
     dk, dv = _empty_dkv(q, k)
     err = _lib().fa2_bwd_fused_bf16(*args[:6], None if dq is None else dq.data_ptr(),
                                     dk.data_ptr(), dv.data_ptr(), *args[6:])
@@ -195,11 +258,13 @@ def _empty_dkv(q, k):
     return dk, torch.empty_like(dk)
 
 
-def _kernel_args(what, q, k, v, do, lse, delta, spec, block_q, block_kv, *, q_major: bool):
+def _kernel_args(what, q, k, v, do, lse, delta, spec, block_q, block_kv, segments, *,
+                 q_major: bool):
     """Check what the kernels take and build the arguments of a C entry
     around its outputs: the six input pointers, then the table, strides,
-    sizes, tiles, mask, owner-tile count and stream. ``lse`` and ``delta``
-    must be contiguous (the caller holds them until the launch)."""
+    sizes, tiles, mask, owner-tile count, segment arguments and stream.
+    ``lse`` and ``delta`` must be contiguous (the caller holds them until
+    the launch). Returns (arguments, tensors to hold until the launch)."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     _check_kernel_inputs(what, (block_q, block_kv), q=q, k=k, v=v, do=do)
@@ -208,26 +273,18 @@ def _kernel_args(what, q, k, v, do, lse, delta, spec, block_q, block_kv, *, q_ma
     if not (lse.is_contiguous() and delta.is_contiguous()):
         raise ValueError("lse and delta must be contiguous")
     t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
-    if q_major:
-        table = _q_major_table(spec, t_q, t_kv, block_q, block_kv, Skv, str(q.device))
-    else:
-        if t_kv > 65535:
-            raise ValueError("kv tiles exceed the grid's y limit (65535)")
-        table = _device_table(spec, t_q, t_kv, block_q, block_kv, Skv, str(q.device))
+    if not q_major and t_kv > 65535:
+        raise ValueError("kv tiles exceed the grid's y limit (65535)")
+    sched = device_schedule(spec, t_q, t_kv, block_q, block_kv, Skv, not q_major, str(q.device))
+    seg = segment_args(segments, sched, block_q, block_kv, kv_major=not q_major)
     return (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), table.data_ptr(),
+        delta.data_ptr(), sched.table.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         B, Hq, Hkv, Sq, Skv, D, block_q, block_kv,
         int(spec.causal), -1 if spec.window is None else int(spec.window),
-        int(spec.sink), int(spec.q_offset), t_q if q_major else t_kv, _stream(q),
-    )
-
-
-@functools.lru_cache(maxsize=64)
-def _device_table(spec, t_q, t_kv, bq, bk, kv_valid, device: str) -> torch.Tensor:
-    sched = build_kv_tile_schedule(spec, t_q, t_kv, bq, bk, kv_valid)
-    return torch.from_numpy(sched.device_table()).to(device)
+        int(spec.sink), int(spec.q_offset), t_q if q_major else t_kv, *seg.args, _stream(q),
+    ), seg.keep
 
 
 @functools.lru_cache(maxsize=1)
@@ -235,9 +292,10 @@ def _lib():
     lib = _build.load("flash_bwd")
     P, I, L = _build.VOIDP, _build.INT, _build.I64
     lib.fa2_bwd_delta_bf16.argtypes = [P] * 3 + [L] * 6 + [I] * 4 + [P]
-    lib.fa2_bwd_fused_bf16.argtypes = [P] * 10 + [L] * 12 + [I] * 13 + [P]
-    lib.fa2_bwd_dkv_bf16.argtypes = [P] * 9 + [L] * 12 + [I] * 13 + [P]
-    lib.fa2_bwd_dq_bf16.argtypes = [P] * 8 + [L] * 12 + [I] * 13 + [P]
+    seg = [P, P, L, L, P, I]  # q ids, kv ids, their batch strides, step bits, steps
+    lib.fa2_bwd_fused_bf16.argtypes = [P] * 10 + [L] * 12 + [I] * 13 + seg + [P]
+    lib.fa2_bwd_dkv_bf16.argtypes = [P] * 9 + [L] * 12 + [I] * 13 + seg + [P]
+    lib.fa2_bwd_dq_bf16.argtypes = [P] * 8 + [L] * 12 + [I] * 13 + seg + [P]
     for fn in (lib.fa2_bwd_delta_bf16, lib.fa2_bwd_fused_bf16, lib.fa2_bwd_dkv_bf16,
                lib.fa2_bwd_dq_bf16):
         fn.restype = ctypes.c_int
@@ -278,42 +336,55 @@ def _padded(q, k, v, do, lse, delta, block_q, block_kv) -> _Padded:
     )
 
 
-def _tile_terms(x: _Padded, spec, i, j, block_q, block_kv, masked, Skv, dt):
+def _tile_terms(x: _Padded, spec, i, j, block_q, block_kv, step, Skv, dt, seg):
     """P and the dS rounded to ``dt`` of tile (i, j), in f32 (B, Hk, G, bq,
     bk): Algorithm 2 lines 11, 13 and 14 (``_recompute_p`` and
-    ``_dkv_tile_math`` of the JAX kernels)."""
+    ``_dkv_tile_math`` of the JAX kernels). ``step`` is ``seg.step``'s
+    (active rows, needs mask); the rows where the step is inactive get
+    P = dS = 0, so they add nothing."""
+    active, needs_mask = step
     r0, r1 = i * block_q, (i + 1) * block_q
     c0, c1 = j * block_kv, (j + 1) * block_kv
     sc = torch.einsum("bqhgd,bkhd->bhgqk", x.qh[:, r0:r1], x.kp[:, c0:c1])
-    if masked:
+    if needs_mask:
         rows = torch.arange(r0, r1, device=sc.device) + spec.q_offset
         cols = torch.arange(c0, c1, device=sc.device)
         vis = (cols < Skv)[None, :]
         tm = make_tile_mask(spec, rows, cols)
         vis = vis if tm is None else vis & tm
-        sc = sc.masked_fill(~vis, DEFAULT_MASK_VALUE)
+        sc = apply_mask(sc, seg.mask(vis, r0, r1, c0, c1))
     p = torch.exp(sc - x.lse[..., r0:r1, None])
     dp = torch.einsum("bqhgd,bkhd->bhgqk", x.doh[:, r0:r1], x.vp[:, c0:c1])
     ds = (p * (dp - x.dl[..., r0:r1, None])).to(dt).float()
+    if active is not True:
+        zero = torch.zeros_like(p)
+        p, ds = seg.select(active, p, zero), seg.select(active, ds, zero)
     return p, ds
 
 
-def _kv_major_walk(q, k, v, do, lse, delta, spec, block_q, block_kv, with_dq: bool):
-    """The kv-major walk of the fused and dkv kernels in plain PyTorch."""
+def _kv_major_walk(q, k, v, do, lse, delta, spec, block_q, block_kv, q_seg, kv_seg,
+                   with_dq: bool):
+    """The kv-major walk of the fused and dkv kernels in plain PyTorch
+    (with segment ids: their varlen variants, steps skipped per batch row
+    as ``flash_fwd_plain`` skips them)."""
     B, Sq, Hq, D = q.shape
     _, Skv, _, _ = k.shape
     x = _padded(q, k, v, do, lse, delta, block_q, block_kv)
     t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
     sched = build_kv_tile_schedule(spec, t_q, t_kv, block_q, block_kv, Skv)
+    seg = _PlainSegments.of(q_seg, kv_seg, sched, block_q, block_kv, kv_major=True)
     dq = torch.zeros_like(x.qh)
     dk = torch.zeros_like(x.kp)
     dv = torch.zeros_like(x.vp)
     for j in range(t_kv):
         c0, c1 = j * block_kv, (j + 1) * block_kv
         for s in range(sched.row_ptr[j], sched.row_ptr[j + 1]):
+            step = seg.step(s, sched.masked[s])
+            if step[0] is None:
+                continue
             i = int(sched.inner[s])
             r0, r1 = i * block_q, (i + 1) * block_q
-            p, ds = _tile_terms(x, spec, i, j, block_q, block_kv, sched.masked[s], Skv, q.dtype)
+            p, ds = _tile_terms(x, spec, i, j, block_q, block_kv, step, Skv, q.dtype, seg)
             dv[:, c0:c1] += torch.einsum("bhgqk,bqhgd->bkhd", p.to(q.dtype).float(),
                                          x.doh[:, r0:r1])
             dk[:, c0:c1] += torch.einsum("bhgqk,bqhgd->bkhd", ds, x.qh[:, r0:r1])
@@ -324,51 +395,58 @@ def _kv_major_walk(q, k, v, do, lse, delta, spec, block_q, block_kv, with_dq: bo
 
 
 def flash_bwd_fused_plain(q, k, v, do, lse, delta, spec: MaskSpec, *,
-                          block_q: int, block_kv: int):
+                          block_q: int, block_kv: int, q_seg=None, kv_seg=None):
     """The fused kernel's algorithm in plain PyTorch (f32 math, any device).
 
     The same kv-major walk over the same visible tiles, the same mask value,
     the lse = -inf -> 0 substitution of fully masked rows, and the same
     roundings to the input dtype: P before dV += P^T dO, dS before
     dK += dS^T Q and dQ += dS K (``_dkv_tile_math``/``_fused_compute`` of
-    the JAX kernel). The G q heads of a kv head are summed together."""
+    the JAX kernel). The G q heads of a kv head are summed together. With
+    segment ids (both or neither) it is the varlen kernel's algorithm."""
     flash_bwd_fused_plain.calls += 1
-    return _kv_major_walk(q, k, v, do, lse, delta, spec, block_q, block_kv, with_dq=True)
+    return _kv_major_walk(q, k, v, do, lse, delta, spec, block_q, block_kv, q_seg, kv_seg,
+                          with_dq=True)
 
 
 flash_bwd_fused_plain.calls = 0
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, spec: MaskSpec, *,
-                        block_q: int, block_kv: int):
+                        block_q: int, block_kv: int, q_seg=None, kv_seg=None):
     """The dkv kernel's algorithm in plain PyTorch: the fused walk without
     its dq line, so its dk and dv are bitwise the fused plain version's."""
     flash_bwd_dkv_plain.calls += 1
-    return _kv_major_walk(q, k, v, do, lse, delta, spec, block_q, block_kv, with_dq=False)
+    return _kv_major_walk(q, k, v, do, lse, delta, spec, block_q, block_kv, q_seg, kv_seg,
+                          with_dq=False)
 
 
 flash_bwd_dkv_plain.calls = 0
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, spec: MaskSpec, *,
-                       block_q: int, block_kv: int):
+                       block_q: int, block_kv: int, q_seg=None, kv_seg=None):
     """The dq kernel's algorithm in plain PyTorch: the q-major walk over the
     forward's table, visible kv tiles in ascending order, each tile's terms
     by the fused walk's einsums. A q tile meets its kv tiles in the same
-    ascending order in both walks, so dq is bitwise the fused plain
-    version's."""
+    ascending order in both walks, and skips the same steps of the same
+    batch rows, so dq is bitwise the fused plain version's."""
     flash_bwd_dq_plain.calls += 1
     B, Sq, Hq, D = q.shape
     _, Skv, _, _ = k.shape
     x = _padded(q, k, v, do, lse, delta, block_q, block_kv)
     t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
     sched = build_q_tile_schedule(spec, t_q, t_kv, block_q, block_kv, Skv)
+    seg = _PlainSegments.of(q_seg, kv_seg, sched, block_q, block_kv, kv_major=False)
     dq = torch.zeros_like(x.qh)
     for i in range(t_q):
         r0, r1 = i * block_q, (i + 1) * block_q
         for s in range(sched.row_ptr[i], sched.row_ptr[i + 1]):
+            step = seg.step(s, sched.masked[s])
+            if step[0] is None:
+                continue
             j = int(sched.inner[s])
-            _, ds = _tile_terms(x, spec, i, j, block_q, block_kv, sched.masked[s], Skv, q.dtype)
+            _, ds = _tile_terms(x, spec, i, j, block_q, block_kv, step, Skv, q.dtype, seg)
             dq[:, r0:r1] += torch.einsum("bhgqk,bkhd->bqhgd", ds,
                                          x.kp[:, j * block_kv:(j + 1) * block_kv])
     return dq[:, :Sq].reshape(B, Sq, Hq, D)

@@ -10,7 +10,16 @@ transpose and no padding copy): q (B, Sq, Hq, D) already multiplied by the
 softmax scale, k/v (B, Skv, Hkv, D); q head ``h`` reads kv head ``h // G``.
 Returns o (B, Sq, Hq, D) in q's dtype and lse (B, Hq, Sq) f32.
 
-:func:`flash_fwd` takes the plain version :func:`flash_fwd_plain` only for
+:func:`flash_fwd_varlen` is the segment variant (JAX ``flash_fwd`` with
+``q_seg``/``kv_seg``, ``fa2_fwd_compact_varlen``): int32 segment ids q_seg
+(B, Sq) and kv_seg (B, Skv); a query sees a key only inside its segment.
+Its steps carry the per-batch-row bits of
+:func:`~repro_torch.kernels.schedule.segment_step_bits`: steps whose tiles
+share no segment are skipped, and only a step flagged masked or not
+uniform applies the element mask. The same kernel source, instantiated
+with ``SEG``.
+
+Each wrapper takes the plain version :func:`flash_fwd_plain` only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 """
 
@@ -18,13 +27,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.masks import DEFAULT_MASK_VALUE, MaskSpec, make_tile_mask
+from repro_torch.core.masks import (MaskSpec, apply_mask, make_segment_mask, make_tile_mask,
+                                    pad_segments)
 from repro_torch.kernels import _build
-from repro_torch.kernels.schedule import build_q_tile_schedule
+from repro_torch.kernels.schedule import (build_q_tile_schedule, decode_step_bits,
+                                          device_schedule, device_step_bits, segment_step_bits)
 
 # (block_q, block_kv) and head dims the CUDA kernel is instantiated for.
 KERNEL_BLOCKS = ((64, 64),)
@@ -49,34 +61,92 @@ def flash_fwd(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int):
     _check_layout(q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, spec, block_q=block_q, block_kv=block_kv)
+    out = _launch(q, k, v, spec, block_q, block_kv, None)
+    flash_fwd.launches += 1
+    return out
+
+
+flash_fwd.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def flash_fwd_varlen(q, k, v, spec: MaskSpec, q_seg, kv_seg, *, block_q: int, block_kv: int):
+    """The segment variant of :func:`flash_fwd`: int32 q_seg (B, Sq) and
+    kv_seg (B, Skv). Rows that share a segment with no key of any visited
+    tile give o = 0, lse = -inf."""
+    _check_layout(q, k, v)
+    check_segments(q, k, q_seg, kv_seg)
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, spec, block_q=block_q, block_kv=block_kv,
+                               q_seg=q_seg, kv_seg=kv_seg)
+    out = _launch(q, k, v, spec, block_q, block_kv, (q_seg, kv_seg))
+    flash_fwd_varlen.launches += 1
+    return out
+
+
+flash_fwd_varlen.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def _launch(q, k, v, spec, block_q, block_kv, segments):
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on cuda (kernel) or cpu (plain), not {q.device}")
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     _check_kernel_inputs("the CUDA forward", (block_q, block_kv), q=q, k=k, v=v)
     t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
-    table = _device_table(spec, t_q, t_kv, block_q, block_kv, Skv, str(q.device))
+    sched = device_schedule(spec, t_q, t_kv, block_q, block_kv, Skv, False, str(q.device))
+    seg = segment_args(segments, sched, block_q, block_kv, kv_major=False)
     o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     lib = _lib()
     err = lib.fa2_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        table.data_ptr(),
+        sched.table.data_ptr(),
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         o.stride(0), o.stride(1), o.stride(2),
         B, Hq, Hkv, Sq, Skv, D, block_q, block_kv,
         int(spec.causal), -1 if spec.window is None else int(spec.window),
-        int(spec.sink), int(spec.q_offset), t_q,
+        int(spec.sink), int(spec.q_offset), t_q, *seg.args,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "fa2_fwd_bf16")
-    flash_fwd.launches += 1
     return o, lse
 
 
-flash_fwd.launches = 0  # kernel launches (CUDA tensors only)
+def check_segments(q, k, q_seg, kv_seg) -> None:
+    """Raise unless q_seg (B, Sq) and kv_seg (B, Skv) are int32 on q's device."""
+    for name, ids, x in (("q_seg", q_seg, q), ("kv_seg", kv_seg, k)):
+        if tuple(ids.shape) != tuple(x.shape[:2]):
+            raise ValueError(f"{name} must be {tuple(x.shape[:2])}, got {tuple(ids.shape)}")
+        if ids.dtype != torch.int32 or ids.device != q.device:
+            raise ValueError(f"{name} must be int32 on {q.device}, got {ids.dtype} on "
+                             f"{ids.device}")
+
+
+class _SegmentArgs(NamedTuple):
+    """The segment arguments of a C entry (null pointers without segments);
+    ``keep`` holds the tensors alive until the launch."""
+
+    args: tuple
+    keep: tuple
+
+
+def segment_args(segments, sched, block_q, block_kv, *, kv_major: bool) -> _SegmentArgs:
+    """(q ids, kv ids, their batch strides, the step bits, the visible-step
+    count) for a C entry; the bits come from ``sched``'s steps, computed on
+    the device (or remembered from an earlier launch on the same ids)."""
+    if segments is None:
+        return _SegmentArgs((None, None, 0, 0, None, 0), ())
+    q_seg, kv_seg = segments
+    if q_seg.stride(1) != 1 or kv_seg.stride(1) != 1:
+        raise ValueError("segment ids need a unit stride along the sequence")
+    bits = device_step_bits(q_seg, kv_seg, sched, block_q, block_kv, kv_major)
+    return _SegmentArgs(
+        (q_seg.data_ptr(), kv_seg.data_ptr(), q_seg.stride(0), kv_seg.stride(0),
+         bits.data_ptr(), bits.shape[1]),
+        (q_seg, kv_seg, bits),
+    )
 
 
 def _check_kernel_inputs(what: str, blocks, **tensors):
@@ -105,27 +175,26 @@ def _check_kernel_inputs(what: str, blocks, **tensors):
         raise ValueError("batch * heads exceeds the grid's y limit (65535)")
 
 
-@functools.lru_cache(maxsize=64)
-def _device_table(spec, t_q, t_kv, bq, bk, kv_valid, device: str) -> torch.Tensor:
-    sched = build_q_tile_schedule(spec, t_q, t_kv, bq, bk, kv_valid)
-    return torch.from_numpy(sched.device_table()).to(device)
-
-
 @functools.lru_cache(maxsize=1)
 def _lib():
     lib = _build.load("flash_fwd")
     P, I, L = _build.VOIDP, _build.INT, _build.I64
-    lib.fa2_fwd_bf16.argtypes = [P] * 6 + [L] * 12 + [I] * 13 + [P]
+    lib.fa2_fwd_bf16.argtypes = [P] * 6 + [L] * 12 + [I] * 13 + [P, P, L, L, P, I, P]
     lib.fa2_fwd_bf16.restype = ctypes.c_int
     return lib
 
 
-def flash_fwd_plain(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int):
+def flash_fwd_plain(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int,
+                    q_seg=None, kv_seg=None):
     """The kernel's algorithm in plain PyTorch (f32 math, any device).
 
     Same tiles, same visit order (the per-q-tile schedule), same mask value
     and the same bf16 rounding of P before P V, so it matches the kernel up
-    to summation order and the JAX kernel up to the same."""
+    to summation order and the JAX kernel up to the same. With segment ids
+    (both or neither) it is the varlen kernel's: a batch row skips the
+    steps whose bits lack ``SEG_ACTIVE`` (its state stays as it was), and
+    the element mask, ANDed with ``q_seg == kv_seg`` on the sentinel-padded
+    ids, applies where the rule of ``schedule.decode_step_bits`` says."""
     flash_fwd_plain.calls += 1
     _check_layout(q, k, v)
     B, Sq, Hq, D = q.shape
@@ -133,6 +202,7 @@ def flash_fwd_plain(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int):
     G = Hq // Hk
     t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
     sched = build_q_tile_schedule(spec, t_q, t_kv, block_q, block_kv, Skv)
+    seg = _PlainSegments.of(q_seg, kv_seg, sched, block_q, block_kv, kv_major=False)
     # K/V rows past the end read as zeros and are masked, as in the kernel.
     pad = t_kv * block_kv - Skv
     kp = F.pad(k, (0, 0, 0, 0, 0, pad)).float()
@@ -148,23 +218,27 @@ def flash_fwd_plain(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int):
         l = torch.zeros_like(m)
         acc = torch.zeros((B, Hk, G, r1 - r0, D), device=q.device)
         for s in range(sched.row_ptr[i], sched.row_ptr[i + 1]):
+            active, needs_mask = seg.step(s, sched.masked[s])
+            if active is None:
+                continue
             j = int(sched.inner[s])
             c0, c1 = j * block_kv, (j + 1) * block_kv
             sc = torch.einsum("bqhgd,bkhd->bhgqk", qi, kp[:, c0:c1])
-            if sched.masked[s]:
+            if needs_mask:
                 cols = torch.arange(c0, c1, device=q.device)
                 vis = (cols < Skv)[None, :]
                 tm = make_tile_mask(spec, rows, cols)
                 vis = vis if tm is None else vis & tm
-                sc = sc.masked_fill(~vis, DEFAULT_MASK_VALUE)
+                sc = apply_mask(sc, seg.mask(vis, r0, r1, c0, c1))
             m_new = torch.maximum(m, sc.amax(dim=-1))
             alpha = torch.where(torch.isneginf(m), torch.zeros_like(m), torch.exp(m - m_new))
             p = torch.exp(sc - m_new[..., None])
-            l = l * alpha + p.sum(dim=-1)
+            l_new = l * alpha + p.sum(dim=-1)
             pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(),
                               vp[:, c0:c1].float())
-            acc = acc * alpha[..., None] + pv
-            m = m_new
+            acc = seg.select(active, acc * alpha[..., None] + pv, acc)
+            l = seg.select(active, l_new, l)
+            m = seg.select(active, m_new, m)
         l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
         o[:, r0:r1] = (acc / l_safe[..., None]).permute(0, 3, 1, 2, 4)
         lse[..., r0:r1] = torch.where(
@@ -174,3 +248,51 @@ def flash_fwd_plain(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int):
 
 
 flash_fwd_plain.calls = 0
+
+
+class _PlainSegments:
+    """The segment side of a plain version's walk. Without ids every step is
+    active for every row and needs the mask iff flagged. With ids, per step:
+    the batch rows where it is active (None when none is, so the step is
+    skipped; True when all are), whether any row needs the element mask,
+    and that mask ANDed with the rows' segment equality."""
+
+    def __init__(self, bits=None, qs=None, ks=None):
+        self.bits, self.qs, self.ks = bits, qs, ks
+
+    @classmethod
+    def of(cls, q_seg, kv_seg, csr, bq, bk, *, kv_major: bool) -> "_PlainSegments":
+        if (q_seg is None) != (kv_seg is None):
+            raise ValueError("give both q_seg and kv_seg, or neither")
+        if q_seg is None:
+            return cls()
+        bits = segment_step_bits(q_seg, kv_seg, csr, bq, bk, kv_major).cpu()
+        qs, ks = pad_segments(q_seg, kv_seg, _tiles(q_seg.shape[1], bq) * bq,
+                              _tiles(kv_seg.shape[1], bk) * bk)
+        return cls(bits, qs, ks)
+
+    def step(self, s: int, masked: bool):
+        if self.bits is None:
+            return True, bool(masked)
+        rules = [decode_step_bits(masked, int(b)) for b in self.bits[:, s]]
+        active = torch.tensor([a for a, _ in rules])
+        if not active.any():
+            return None, False
+        needs = any(n for a, n in rules if a)
+        if active.all():
+            return True, needs
+        return active.to(self.qs.device), needs
+
+    def mask(self, vis, r0, r1, c0, c1):
+        """``vis`` (rows, cols) ANDed with the (B, 1, 1, rows, cols) segment
+        equality, broadcast over (kv head, group)."""
+        if self.qs is None:
+            return vis
+        return vis & make_segment_mask(self.qs[:, r0:r1], self.ks[:, c0:c1])[:, None, None]
+
+    @staticmethod
+    def select(active, new, old):
+        """``new`` for the active batch rows, ``old`` for the others."""
+        if active is True:
+            return new
+        return torch.where(active.view(-1, *([1] * (new.ndim - 1))), new, old)

@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.masks import MaskSpec
+from repro_torch.core.masks import MaskSpec, SegmentInfo
 from repro_torch.core.online_softmax import combine_lse_outputs
 from repro_torch.kernels import flash_bwd as _bwd
 from repro_torch.kernels import flash_decode as _dec
@@ -63,35 +63,49 @@ def _check_bwd(bwd: str) -> None:
 
 class _FlashCore(torch.autograd.Function):
     """FA2 on pre-scaled q: the counterpart of ``_flash_core`` (JAX
-    ``ops.py:457``) and its ``_core_bwd`` (``:424``). Forward: the forward
-    kernel, saving (q, k, v, o, lse). Backward: the delta pre-pass, then
-    the fused kernel (``bwd="fused"``) or the dK/dV and dQ kernels
-    (``bwd="split"``); the f32 gradients are cast to the inputs' dtypes. dq
-    is with respect to the scaled q: the scale is applied by autograd
-    through ``_prep``, which stays outside this Function."""
+    ``ops.py:457``), ``_flash_core_varlen`` (``:476``) and their
+    ``_core_bwd`` (``:424``). Forward: the forward kernel, saving (q, k, v,
+    o, lse). Backward: the delta pre-pass, then the fused kernel
+    (``bwd="fused"``) or the dK/dV and dQ kernels (``bwd="split"``); the f32
+    gradients are cast to the inputs' dtypes. dq is with respect to the
+    scaled q: the scale is applied by autograd through ``_prep``, which
+    stays outside this Function. With int32 segment ids q_seg (B, Sq) and
+    kv_seg (B, Skv) every kernel is its segment variant; the ids carry no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, qs, k, v, spec, block_q, block_kv, bwd):
-        o, lse = _fwd.flash_fwd(qs, k, v, spec, block_q=block_q, block_kv=block_kv)
-        ctx.save_for_backward(qs, k, v, o, lse)
+    def forward(ctx, qs, k, v, q_seg, kv_seg, spec, block_q, block_kv, bwd):
+        tiles = dict(block_q=block_q, block_kv=block_kv)
+        if q_seg is None:
+            o, lse = _fwd.flash_fwd(qs, k, v, spec, **tiles)
+        else:
+            o, lse = _fwd.flash_fwd_varlen(qs, k, v, spec, q_seg, kv_seg, **tiles)
+        ctx.save_for_backward(qs, k, v, o, lse, q_seg, kv_seg)
         ctx.meta = (spec, block_q, block_kv, bwd)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        qs, k, v, o, lse = ctx.saved_tensors
+        qs, k, v, o, lse, q_seg, kv_seg = ctx.saved_tensors
         spec, block_q, block_kv, bwd = ctx.meta
         do = do.to(qs.dtype).contiguous()
         delta = _bwd.flash_bwd_delta(o, do)  # Algorithm 2 line 4
         args = (qs, k, v, do, lse, delta, spec)
         tiles = dict(block_q=block_q, block_kv=block_kv)
-        if bwd == "fused":
-            dq, dk, dv = _bwd.flash_bwd_fused(*args, **tiles)
+        if q_seg is not None:
+            args += (q_seg, kv_seg)
+            fused, dkv, dq_fn = (_bwd.flash_bwd_fused_varlen, _bwd.flash_bwd_dkv_varlen,
+                                 _bwd.flash_bwd_dq_varlen)
         else:
-            dk, dv = _bwd.flash_bwd_dkv(*args, **tiles)
-            dq = _bwd.flash_bwd_dq(*args, **tiles)
-        return dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
+            fused, dkv, dq_fn = _bwd.flash_bwd_fused, _bwd.flash_bwd_dkv, _bwd.flash_bwd_dq
+        if bwd == "fused":
+            dq, dk, dv = fused(*args, **tiles)
+        else:
+            dk, dv = dkv(*args, **tiles)
+            dq = dq_fn(*args, **tiles)
+        return (dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None,
+                None)
 
 
 def flash_attention_with_lse(
@@ -105,7 +119,7 @@ def flash_attention_with_lse(
     _check_bwd(bwd)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _FlashCore.apply(_prep(q, scale), k, v, spec, block_q, block_kv, bwd)
+    return _FlashCore.apply(_prep(q, scale), k, v, None, None, spec, block_q, block_kv, bwd)
 
 
 def flash_attention(
@@ -118,6 +132,62 @@ def flash_attention(
     return flash_attention_with_lse(
         q, k, v, spec, scale=scale, block_q=block_q, block_kv=block_kv, bwd=bwd
     )[0]
+
+
+def _segment_ids(q, k, segment_ids, kv_segment_ids):
+    """(q ids, kv ids) as contiguous int32 on q's device, from raw ids or a
+    ``SegmentInfo``; kv ids default to q's. Shapes checked as the JAX
+    wrapper asserts them (``ops.py:558``)."""
+    if isinstance(segment_ids, SegmentInfo):
+        segment_ids, kv_segment_ids = segment_ids.q, segment_ids.kv
+    if kv_segment_ids is None:
+        kv_segment_ids = segment_ids
+    if tuple(segment_ids.shape) != tuple(q.shape[:2]):
+        raise ValueError(f"segment_ids {tuple(segment_ids.shape)} must be q's (B, Sq) "
+                         f"{tuple(q.shape[:2])}")
+    if tuple(kv_segment_ids.shape) != tuple(k.shape[:2]):
+        raise ValueError(f"kv_segment_ids {tuple(kv_segment_ids.shape)} must be k's (B, Skv) "
+                         f"{tuple(k.shape[:2])}")
+    return tuple(x.to(device=q.device, dtype=torch.int32).contiguous()
+                 for x in (segment_ids, kv_segment_ids))
+
+
+def flash_attention_varlen(
+    q, k, v, segment_ids, spec: MaskSpec = MaskSpec(causal=True), *,
+    kv_segment_ids=None, scale: Optional[float] = None,
+    block_q: int = BLOCK_Q, block_kv: int = BLOCK_KV, bwd: str = "fused",
+):
+    """Differentiable segment-packed (varlen) FA2, the counterpart of
+    ``flash_attention_pallas_varlen`` (JAX ``ops.py:526``). Each batch row
+    packs back-to-back sequences; ``segment_ids`` (B, Sq) int marks which
+    tokens belong together (or a ``SegmentInfo``), ``kv_segment_ids``
+    (B, Skv) defaults to it. Query i attends key j iff their ids match and
+    the MaskSpec admits the global positions. Tiles that share no segment
+    are skipped in every kernel. Returns o (B, Sq, Hq, D)."""
+    _check_bwd(bwd)
+    q_seg, kv_seg = _segment_ids(q, k, segment_ids, kv_segment_ids)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashCore.apply(_prep(q, scale), k, v, q_seg, kv_seg, spec, block_q, block_kv,
+                            bwd)[0]
+
+
+def flash_attention_varlen_with_lse(
+    q, k, v, segment_ids, spec: MaskSpec = MaskSpec(causal=True), *,
+    kv_segment_ids=None, scale: Optional[float] = None,
+    block_q: int = BLOCK_Q, block_kv: int = BLOCK_KV,
+):
+    """Forward-only varlen FA2, as the JAX one is (``ops.py:578``): returns
+    (o (B, Sq, Hq, D), lse (B, Hq, Sq) f32) and raises on inputs that
+    require a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError("flash_attention_varlen_with_lse is forward-only, as in "
+                                  "the JAX package; use flash_attention_varlen to train")
+    q_seg, kv_seg = _segment_ids(q, k, segment_ids, kv_segment_ids)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _fwd.flash_fwd_varlen(_prep(q, scale), k, v, spec, q_seg, kv_seg,
+                                 block_q=block_q, block_kv=block_kv)
 
 
 def _split_decode(what, q, k, v, Hk, scale, run):

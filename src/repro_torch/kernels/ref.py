@@ -16,7 +16,20 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.masks import MaskSpec, make_tile_mask
+from repro_torch.core.masks import MaskSpec, make_segment_mask, make_tile_mask
+
+
+def _mask(spec, Sq, Sk, device, segment_ids, kv_segment_ids):
+    """The (Sq, Sk) spec mask ANDed with the (B, 1, 1, Sq, Sk) segment mask
+    (broadcast over the kv heads and the group), or None."""
+    mask = make_tile_mask(spec, torch.arange(Sq, device=device) + spec.q_offset,
+                          torch.arange(Sk, device=device))
+    if segment_ids is None:
+        return mask
+    if kv_segment_ids is None:
+        kv_segment_ids = segment_ids
+    seg = make_segment_mask(segment_ids.to(device), kv_segment_ids.to(device))[:, None, None]
+    return seg if mask is None else mask & seg
 
 
 def attention_reference(
@@ -25,8 +38,13 @@ def attention_reference(
     v: torch.Tensor,
     spec: MaskSpec = MaskSpec(),
     scale: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Naive exact attention in f32. Returns (o, lse)."""
+    """Naive exact attention in f32. Returns (o, lse).
+
+    ``segment_ids`` / ``kv_segment_ids`` (B, Sq) / (B, Skv): packed varlen
+    ids (kv defaults to q); visibility also needs equal ids."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hk, _ = k.shape
     if Hq % Hk:
@@ -38,9 +56,7 @@ def attention_reference(
     qf = (q.float() * scale).reshape(B, Sq, Hk, G, D)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())  # (B, Hk, G, Sq, Sk)
 
-    q_ids = torch.arange(Sq, device=q.device) + spec.q_offset
-    kv_ids = torch.arange(Sk, device=q.device)
-    mask = make_tile_mask(spec, q_ids, kv_ids)  # (Sq, Sk) or None
+    mask = _mask(spec, Sq, Sk, q.device, segment_ids, kv_segment_ids)
     if mask is not None:
         s = s.masked_fill(~mask, float("-inf"))
 
@@ -64,6 +80,8 @@ def attention_reference_bwd(
     lse: torch.Tensor,
     spec: MaskSpec = MaskSpec(),
     scale: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dense backward in f32, recomputing P from (q, k, lse) as Algorithm 2
     does (the counterpart of ``attention_reference_bwd``, ``ref.py:83``).
@@ -82,9 +100,7 @@ def attention_reference_bwd(
     lsef = lse.float().reshape(B, Hk, G, Sq)
 
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf * scale, kf)
-    q_ids = torch.arange(Sq, device=q.device) + spec.q_offset
-    kv_ids = torch.arange(Sk, device=q.device)
-    mask = make_tile_mask(spec, q_ids, kv_ids)
+    mask = _mask(spec, Sq, Sk, q.device, segment_ids, kv_segment_ids)
     if mask is not None:
         s = s.masked_fill(~mask, float("-inf"))
     # P = exp(S - L): Algorithm 2 line 11, from the logsumexp only.

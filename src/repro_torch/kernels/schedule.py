@@ -24,16 +24,31 @@ Two orientations, as in the JAX package:
     visits, which its fused kernel needs to zero dq and compute delta at a
     first visit; on Hopper the wrapper zeroes dq and delta is a pre-pass,
     so the CSR holds the visible pairs only.
+
+Packed (varlen) batches add data-dependent skipping on top of the static
+table (:func:`segment_step_bits`, the counterpart of
+``segment_step_tables`` :388): per batch row and visible step, whether the
+two tiles' segment-id ranges overlap (``SEG_ACTIVE``; a step without it is
+skipped, its tiles not even loaded) and whether both tiles hold one and the
+same id (``SEG_UNIFORM``; such a step needs no element mask). As in the
+JAX package, the bits are computed outside the kernel, before its launch,
+and the kernel reads them beside its table.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from collections import OrderedDict
+from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
-from repro_torch.core.masks import MaskSpec, tile_visibility
+from repro_torch.core.masks import MaskSpec, pad_segments, tile_visibility
+
+# Per-(batch row, visible step) segment bits (JAX ``schedule.py:64``).
+SEG_ACTIVE = 1   # the tiles' id ranges overlap
+SEG_UNIFORM = 2  # both tiles hold one and the same id: no element mask
 
 
 class TileCSR(NamedTuple):
@@ -51,6 +66,12 @@ class TileCSR(NamedTuple):
             for a in range(len(self.row_ptr) - 1)
             for s in range(self.row_ptr[a], self.row_ptr[a + 1])
         ]
+
+    @property
+    def owner(self) -> np.ndarray:
+        """(n_visible,) int32: the owning tile of every visible step."""
+        return np.repeat(np.arange(len(self.row_ptr) - 1, dtype=np.int32),
+                         np.diff(self.row_ptr))
 
     def device_table(self) -> np.ndarray:
         """The int32 table the CUDA kernels read: ``row_ptr`` followed by
@@ -108,3 +129,94 @@ def build_kv_tile_schedule(
     ``build_tile_schedule(..., kv_major=True)``'s active steps, in its
     order."""
     return _build(spec, t_q, t_kv, bq, bk, kv_valid, kv_major=True)
+
+
+class DeviceCSR(NamedTuple):
+    """A :class:`TileCSR` on the device: the table the kernels read and the
+    per-step owner and partner indices that :func:`segment_step_bits`
+    gathers with."""
+
+    table: torch.Tensor  # int32, TileCSR.device_table()
+    owner: torch.Tensor  # (n_visible,) int64
+    inner: torch.Tensor  # (n_visible,) int64
+
+
+@functools.lru_cache(maxsize=128)
+def device_schedule(spec: MaskSpec, t_q: int, t_kv: int, bq: int, bk: int, kv_valid: int,
+                    kv_major: bool, device: str) -> DeviceCSR:
+    """The q-major or kv-major schedule on ``device``, built and copied once
+    per shape."""
+    build = build_kv_tile_schedule if kv_major else build_q_tile_schedule
+    sched = build(spec, t_q, t_kv, bq, bk, kv_valid)
+    return DeviceCSR(
+        table=torch.from_numpy(sched.device_table()).to(device),
+        owner=torch.from_numpy(sched.owner.astype(np.int64)).to(device),
+        inner=torch.from_numpy(sched.inner.astype(np.int64)).to(device),
+    )
+
+
+def segment_step_bits(q_seg: torch.Tensor, kv_seg: torch.Tensor, csr, bq: int, bk: int,
+                      kv_major: bool) -> torch.Tensor:
+    """(B, n_visible) int32 segment bits of every visible step of ``csr``
+    (a :class:`TileCSR` or :class:`DeviceCSR` of that orientation).
+
+    The ids (B, Sq) / (B, Skv) are padded with the sentinels to whole tiles,
+    reduced to per-tile min and max, and gathered at each step's q and kv
+    tile: ``SEG_ACTIVE`` where the ranges overlap (sound for any layout,
+    exact for contiguous packing), ``SEG_UNIFORM`` where both tiles are
+    constant and equal. A few torch ops on the ids' device, no host sync.
+    The bits of a step equal ``segment_step_tables``'s at the same pair."""
+    B = q_seg.shape[0]
+    t_q, t_kv = -(-q_seg.shape[-1] // bq), -(-kv_seg.shape[-1] // bk)
+    qs, ks = pad_segments(q_seg, kv_seg, t_q * bq, t_kv * bk)
+    qt, kt = qs.reshape(B, t_q, bq), ks.reshape(B, t_kv, bk)
+    q_lo, q_hi = qt.amin(dim=-1), qt.amax(dim=-1)  # (B, t_q)
+    k_lo, k_hi = kt.amin(dim=-1), kt.amax(dim=-1)  # (B, t_kv)
+    dev = q_seg.device
+    owner = torch.as_tensor(csr.owner, dtype=torch.long, device=dev)
+    inner = torch.as_tensor(csr.inner, dtype=torch.long, device=dev)
+    ii, jj = (inner, owner) if kv_major else (owner, inner)
+    qlo, qhi = q_lo[:, ii], q_hi[:, ii]  # (B, n_visible)
+    klo, khi = k_lo[:, jj], k_hi[:, jj]
+    overlap = ~((qhi < klo) | (qlo > khi))
+    uniform = (qlo == qhi) & (klo == khi) & (qlo == klo)
+    return (overlap.to(torch.int32) | (uniform.to(torch.int32) << 1)).contiguous()
+
+
+# Recent results of :func:`device_step_bits`: (q ids, kv ids, schedule,
+# kv_major) -> (the ids' version counters, bits). The entries hold the ids
+# and the schedule, so their identities stay unique while cached.
+_STEP_BITS_MEMO: "OrderedDict[tuple, tuple]" = OrderedDict()
+_STEP_BITS_MEMO_SIZE = 8
+
+
+def device_step_bits(q_seg: torch.Tensor, kv_seg: torch.Tensor, sched: DeviceCSR, bq: int,
+                     bk: int, kv_major: bool) -> torch.Tensor:
+    """:func:`segment_step_bits` for the kernels, remembered for the same id
+    tensors (unchanged since: their version counters match) and schedule.
+    A packed training step hands every layer, its recompute and its
+    backward the same ids, so the bits are computed once per orientation
+    and step instead of at every launch."""
+    key = (id(q_seg), id(kv_seg), id(sched), kv_major)
+    versions = (q_seg._version, kv_seg._version)
+    hit = _STEP_BITS_MEMO.get(key)
+    if hit is not None and hit[0] is q_seg and hit[1] is kv_seg and hit[2] is sched \
+            and hit[3] == versions:
+        _STEP_BITS_MEMO.move_to_end(key)
+        return hit[4]
+    bits = segment_step_bits(q_seg, kv_seg, sched, bq, bk, kv_major)
+    _STEP_BITS_MEMO[key] = (q_seg, kv_seg, sched, versions, bits)
+    while len(_STEP_BITS_MEMO) > _STEP_BITS_MEMO_SIZE:
+        _STEP_BITS_MEMO.popitem(last=False)
+    return bits
+
+
+def decode_step_bits(masked: bool, seg_bits: Optional[int] = None):
+    """(active, needs_mask) of a visible step: the rule of the JAX package's
+    ``decode_step_bits`` (:373) on the port's tables, where every step in a
+    CSR is visible. With segments a step is active iff ``SEG_ACTIVE`` is
+    set, and needs the element mask iff it is flagged masked or
+    ``SEG_UNIFORM`` is clear."""
+    if seg_bits is None:
+        return True, bool(masked)
+    return bool(seg_bits & SEG_ACTIVE), bool(masked) or not seg_bits & SEG_UNIFORM

@@ -35,9 +35,11 @@ METRIC_KEYS = ("ce_loss", "aux_loss", "nll_sum", "tokens", "accuracy")
 
 def loss_fn(cfg, attn_cfg: AttentionConfig, model, batch: Dict[str, torch.Tensor],
             ce_chunk: int = 512):
-    """(loss, metrics) of one batch {"inputs", "targets"[, "loss_mask"]}
-    (the counterpart of ``loss_fn``, JAX ``steps.py:35``)."""
-    hidden, aux, nprefix = model(batch["inputs"], attn_cfg)
+    """(loss, metrics) of one batch {"inputs", "targets"[, "loss_mask",
+    "segment_ids"]} (the counterpart of ``loss_fn``, JAX ``steps.py:35``);
+    segment ids make it a packed (varlen) batch."""
+    hidden, aux, nprefix = model(batch["inputs"], attn_cfg,
+                                 segment_ids=batch.get("segment_ids"))
     if nprefix:
         hidden = hidden[:, nprefix:]
     loss, metrics = chunked_cross_entropy(

@@ -2,12 +2,15 @@
 
 The counterpart of ``repro/launch/train.py`` without what waits for later
 slices (ROADMAP.md, modules to port): checkpointing and restarts, fault
-injection, a mesh, packed data and telemetry. ``--device`` is the one flag
-the JAX CLI lacks, as in the serving CLI.
+injection, a mesh and telemetry. ``--device`` is the one flag the JAX CLI
+lacks, as in the serving CLI. ``--packed`` trains on packed (varlen) rows:
+ragged documents back to back, attention kept inside each, RoPE positions
+restarting at each document.
 
 Usage:
   python -m repro_torch.launch.train --arch qwen3-8b --reduce --device cpu --steps 4
   python -m repro_torch.launch.train --preset gpt-20m --device cpu --steps 2
+  python -m repro_torch.launch.train --arch qwen3-8b --reduce --device cpu --packed --steps 2
 
 ``--device cuda`` (the default) needs a card and raises without one; the
 CUDA kernels take bfloat16 at head_dim 128, so on the card train a
@@ -59,6 +62,7 @@ class TrainLoopConfig:
     log_every: int = 10
     seed: int = 0
     device: str = "cuda"
+    packed: bool = False  # varlen packing: segment-masked attention
 
 
 def resolve_model(arch: Optional[str], preset: Optional[str], reduce: bool) -> ModelConfig:
@@ -82,7 +86,8 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, opt_cfg: Optional[AdamWConfig
     opt_cfg = opt_cfg or AdamWConfig(total_steps=loop.steps)
     attn_cfg = AttentionConfig(impl=loop.attn_impl)
     data = make_source(DataConfig(batch_size=loop.batch_size, seq_len=loop.seq_len,
-                                  vocab_size=cfg.vocab_size, seed=loop.seed))
+                                  vocab_size=cfg.vocab_size, seed=loop.seed,
+                                  source="packed" if loop.packed else "synthetic"))
     model = init_lm(cfg, loop.seed, loop.device)
     params = dict(model.named_parameters())
     opt_state = init_opt_state(params)
@@ -90,13 +95,14 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, opt_cfg: Optional[AdamWConfig
     n_params = sum(p.numel() for p in params.values())
     print(f"[train] {cfg.name}: {n_params / 1e6:.1f}M params on {model.device}, "
           f"{loop.steps} steps x {loop.batch_size}x{loop.seq_len} tokens, "
-          f"attn={loop.attn_impl}", flush=True)
+          f"attn={loop.attn_impl}{' packed' if loop.packed else ''}", flush=True)
     history = {"loss": [], "grad_norm": [], "lr": [], "step_time": []}
     tokens = loop.batch_size * loop.seq_len
     for step in range(loop.steps):
-        inputs, targets = data.batch(step)
-        batch = {"inputs": torch.from_numpy(inputs).to(model.device),
-                 "targets": torch.from_numpy(targets).to(model.device)}
+        out = data.batch(step)
+        if not isinstance(out, dict):
+            out = {"inputs": out[0], "targets": out[1]}
+        batch = {k: torch.from_numpy(v).to(model.device) for k, v in out.items()}
         _sync(model.device)
         t0 = time.perf_counter()
         opt_state, metrics = step_fn(model, opt_state, batch)
@@ -125,13 +131,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--packed", action="store_true",
+                    help="varlen sequence packing (segment-masked attention)")
     args = ap.parse_args(argv)
 
     cfg = resolve_model(args.arch, args.preset, args.reduce)
     loop = TrainLoopConfig(
         steps=args.steps, seq_len=args.seq, batch_size=args.batch,
         microbatches=args.microbatches, attn_impl=args.attn, log_every=args.log_every,
-        seed=args.seed, device=args.device,
+        seed=args.seed, device=args.device, packed=args.packed,
     )
     _, _, history = train(cfg, loop)
     loss = history["loss"]

@@ -72,24 +72,27 @@ def _out(p: Attention, cfg, o):
     return o.reshape(B, S, cfg.q_dim) @ p.wo
 
 
-def _self_attention(p: Attention, cfg, x, positions, spec, attn_cfg, rope_theta):
+def _self_attention(p: Attention, cfg, x, positions, spec, attn_cfg, rope_theta,
+                    segment_ids=None):
     q = _project_q(p, cfg, x)
     k, v = _project_kv(p, cfg, x)
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    o = attention(q, k, v, spec, attn_cfg)
+    o = attention(q, k, v, spec, attn_cfg, segment_ids=segment_ids)
     return _out(p, cfg, o), k, v
 
 
 def apply_attention(
     p: Attention, cfg, x, positions, spec: MaskSpec, attn_cfg: AttentionConfig, *,
-    rope_theta: Optional[float] = None,
+    rope_theta: Optional[float] = None, segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Full-sequence self-attention (training). x (B,S,d). The counterpart
-    of ``apply_attention`` (JAX ``attention_layer.py:116``) without packed
-    segments or cross-attention."""
-    return _self_attention(p, cfg, x, positions, spec, attn_cfg, rope_theta)[0]
+    of ``apply_attention`` (JAX ``attention_layer.py:116``) without
+    cross-attention. ``segment_ids`` (B, S) enables packed varlen training:
+    attention never crosses a segment boundary (the caller supplies the
+    within-segment RoPE positions)."""
+    return _self_attention(p, cfg, x, positions, spec, attn_cfg, rope_theta, segment_ids)[0]
 
 
 def prefill_attention(

@@ -25,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.registry import torch_dtype
 from repro_torch.core.attention import AttentionConfig
-from repro_torch.core.masks import MaskSpec
+from repro_torch.core.masks import MaskSpec, segment_positions
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.attention_layer import (
     Attention,
@@ -111,36 +111,49 @@ class LM(nn.Module):
     def _mlp_block(self, layer: Layer, x):
         return x + layer.mlp(layer.ln2(x))
 
-    def _apply_group(self, layers, x, positions, attn_cfg: AttentionConfig):
+    def _apply_group(self, layers, x, positions, attn_cfg: AttentionConfig, segment_ids=None):
         cfg = self.cfg
         for layer in layers:
             mix = apply_attention(
                 layer.mixer, cfg, layer.ln1(x), positions, spec_for(cfg, layer.kind),
-                attn_cfg, rope_theta=theta_for(cfg, layer.kind),
+                attn_cfg, rope_theta=theta_for(cfg, layer.kind), segment_ids=segment_ids,
             )
             x = self._mlp_block(layer, x + mix)
         return x
 
-    def forward(self, tokens: torch.Tensor, attn_cfg: AttentionConfig):
+    def forward(self, tokens: torch.Tensor, attn_cfg: AttentionConfig,
+                segment_ids: Optional[torch.Tensor] = None):
         """tokens (B, S) -> (hidden (B, S, d), aux_loss, n_prefix), the
         counterpart of ``lm.forward`` (JAX ``lm.py:269``); the caller
         unembeds. With ``cfg.remat`` each group of ``cfg.group_size`` layers
         is recomputed in the backward (``torch.utils.checkpoint``), as the
         JAX package checkpoints each scan group (``lm.py:255``); the tail
-        layers are not checkpointed there either."""
+        layers are not checkpointed there either.
+
+        ``segment_ids`` (B, S) int turns on packed (varlen) training:
+        attention stays within segments (through every layer, the recomputed
+        groups included) and RoPE positions restart at each segment start."""
         cfg = self.cfg
         h = self._embed(tokens)
-        positions = torch.arange(h.shape[1], device=h.device)
+        if segment_ids is not None:
+            # The JAX asserts (lm.py:280): no prefix tokens, RoPE positions.
+            assert not (cfg.meta_tokens or cfg.num_patches), \
+                "packed mode does not support prefix tokens"
+            assert not cfg.learned_pos_embed, "packed mode needs RoPE positions"
+            segment_ids = segment_ids.to(device=h.device, dtype=torch.int32)
+            positions = segment_positions(segment_ids)
+        else:
+            positions = torch.arange(h.shape[1], device=h.device)
         U = cfg.group_size
         n_grouped = cfg.num_groups * U
         for g0 in range(0, n_grouped, U):
             group = self.layers[g0:g0 + U]
             if cfg.remat:
-                h = checkpoint(self._apply_group, group, h, positions, attn_cfg,
+                h = checkpoint(self._apply_group, group, h, positions, attn_cfg, segment_ids,
                                use_reentrant=False)
             else:
-                h = self._apply_group(group, h, positions, attn_cfg)
-        h = self._apply_group(self.layers[n_grouped:], h, positions, attn_cfg)
+                h = self._apply_group(group, h, positions, attn_cfg, segment_ids)
+        h = self._apply_group(self.layers[n_grouped:], h, positions, attn_cfg, segment_ids)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return self.ln_f(h), aux, 0
 

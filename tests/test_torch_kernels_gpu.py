@@ -343,3 +343,150 @@ def test_paged_engine_runs_through_the_kernels(cuda):
     fwd_n, dec_n, paged_n = (f.launches for f in kernels)
     assert fwd_n > 0 and paged_n == engine.ticks * cfg.num_layers and dec_n == 0
     assert [f.calls for f in plains] == [0, 0, 0]
+
+
+# ----------------------------------------------------------- packed (varlen)
+
+
+def _packed_ids(B, S, seed=0):
+    """Step 0's segment ids of the packed synthetic source, int32 on the CPU."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticVarlenLM
+
+    ids = SyntheticVarlenLM(DataConfig(B, S, 512, seed=seed, source="packed")).batch(0)
+    return torch.from_numpy(ids["segment_ids"])
+
+
+def _distinct_ids(B, S):
+    """q and kv ids that differ: q rows 0-63 (a whole q tile) carry an id no
+    key has, so that tile sees nothing; the last 64 keys an id no query has,
+    so their kv tile gets zero dK and dV."""
+    q = torch.ones((B, S), dtype=torch.int32)
+    q[:, S // 2:] = 2
+    kv = q.clone()
+    q[:, :64] = 7
+    kv[:, -64:] = 9
+    return q, kv
+
+
+# (B, S, Hq, Hkv, spec, ids): the training shape with the packed source's
+# ids, GQA G in {1, 4} at a ragged length, a window with sinks, non-causal,
+# and distinct q and kv ids.
+VARLEN_CASES = [
+    (2, 2048, 32, 8, dict(causal=True), "packed"),
+    (1, 700, 32, 8, dict(causal=True), "packed"),
+    (1, 700, 8, 8, dict(causal=True), "packed"),
+    (1, 500, 32, 8, dict(causal=True, window=100, sink=4), "packed"),
+    (2, 300, 16, 4, dict(causal=False), "packed"),
+    (2, 700, 32, 8, dict(causal=True), "distinct"),
+]
+
+
+def _varlen_inputs(cuda, B, S, Hq, Hkv, spec, ids):
+    if ids == "packed":
+        q_seg = kv_seg = _packed_ids(B, S).to(cuda)
+    else:
+        q_seg, kv_seg = (x.to(cuda) for x in _distinct_ids(B, S))
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q = ops._prep(_randn(gen, (B, S, Hq, 128), cuda), 1 / math.sqrt(128))
+    k, v = _randn(gen, (B, S, Hkv, 128), cuda), _randn(gen, (B, S, Hkv, 128), cuda)
+    do = _randn(gen, (B, S, Hq, 128), cuda)
+    return q, k, v, do, q_seg, kv_seg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Hq,Hkv,spec,ids", VARLEN_CASES)
+def test_varlen_kernels_match_plain(cuda, B, S, Hq, Hkv, spec, ids):
+    """The SEG forward, fused, dK/dV and dQ kernels against their plain
+    versions; split dK/dV bitwise the fused kernel's, split dQ bitwise over
+    two launches; with distinct ids, (0, -inf) and zero gradients where a
+    tile sees nothing."""
+    spec = MaskSpec(**spec)
+    q, k, v, do, q_seg, kv_seg = _varlen_inputs(cuda, B, S, Hq, Hkv, spec, ids)
+    tiles = dict(block_q=64, block_kv=64)
+    counters = (fwd_mod.flash_fwd_varlen, bwd_mod.flash_bwd_fused_varlen,
+                bwd_mod.flash_bwd_dkv_varlen, bwd_mod.flash_bwd_dq_varlen)
+    before = [f.launches for f in counters]
+    o, lse = fwd_mod.flash_fwd_varlen(q, k, v, spec, q_seg, kv_seg, **tiles)
+    delta = bwd_mod.flash_bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, spec, q_seg, kv_seg)
+    fused = bwd_mod.flash_bwd_fused_varlen(*args, **tiles)
+    dk, dv = bwd_mod.flash_bwd_dkv_varlen(*args, **tiles)
+    dq = bwd_mod.flash_bwd_dq_varlen(*args, **tiles)
+    dq2 = bwd_mod.flash_bwd_dq_varlen(*args, **tiles)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 2]
+    plain = dict(q_seg=q_seg, kv_seg=kv_seg, **tiles)
+    o_p, lse_p = fwd_mod.flash_fwd_plain(q, k, v, spec, **plain)
+    assert _err(o, o_p) < O_TOL
+    assert _err(lse, lse_p) < LSE_TOL
+    want = bwd_mod.flash_bwd_fused_plain(*args[:7], **plain)
+    for name, a, b in zip(("dq", "dk", "dv"), fused, want):
+        assert _rel_err(a, b) < GRAD_REL_TOL, name
+    assert _rel_err(dq, bwd_mod.flash_bwd_dq_plain(*args[:7], **plain)) < GRAD_REL_TOL
+    for a, b in zip((dk, dv), bwd_mod.flash_bwd_dkv_plain(*args[:7], **plain)):
+        assert _rel_err(a, b) < GRAD_REL_TOL
+    assert torch.equal(dk, fused[1]) and torch.equal(dv, fused[2])
+    assert torch.equal(dq, dq2)
+    if ids == "distinct":
+        assert (o[:, :64] == 0).all() and torch.isneginf(lse[..., :64]).all()
+        assert (dq[:, :64] == 0).all() and (fused[0][:, :64] == 0).all()
+        assert (dk[:, -64:] == 0).all() and (dv[:, -64:] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [700, 2048])
+def test_all_ones_ids_are_bitwise_the_unsegmented_kernels(cuda, S):
+    """One segment per row: every SEG kernel gives the unsegmented kernel's
+    outputs to the bit (the fused dq excepted: its atomics' order changes
+    from launch to launch, so dq is held through the split dQ kernel)."""
+    spec = MaskSpec(causal=True)
+    q, k, v, do, _, _ = _varlen_inputs(cuda, 2, S, 32, 8, spec, "packed")
+    ones = torch.ones((2, S), dtype=torch.int32, device=cuda)
+    tiles = dict(block_q=64, block_kv=64)
+    o, lse = fwd_mod.flash_fwd(q, k, v, spec, **tiles)
+    o_s, lse_s = fwd_mod.flash_fwd_varlen(q, k, v, spec, ones, ones, **tiles)
+    delta = bwd_mod.flash_bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, spec)
+    _, dk_f, dv_f = bwd_mod.flash_bwd_fused(*args, **tiles)
+    _, dk_fs, dv_fs = bwd_mod.flash_bwd_fused_varlen(*args, ones, ones, **tiles)
+    dk, dv = bwd_mod.flash_bwd_dkv(*args, **tiles)
+    dk_s, dv_s = bwd_mod.flash_bwd_dkv_varlen(*args, ones, ones, **tiles)
+    dq = bwd_mod.flash_bwd_dq(*args, **tiles)
+    dq_s = bwd_mod.flash_bwd_dq_varlen(*args, ones, ones, **tiles)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_s) and torch.equal(lse, lse_s)
+    assert torch.equal(dk_f, dk_fs) and torch.equal(dv_f, dv_fs)
+    assert torch.equal(dk, dk_s) and torch.equal(dv, dv_s) and torch.equal(dq, dq_s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bwd", ["fused", "split"])
+def test_packed_training_step_runs_through_the_varlen_kernels(cuda, bwd):
+    """A packed 2-layer, full-width qwen3-8b step launches only the segment
+    variants (forward twice a layer, then fused or dK/dV + dQ once), the
+    delta kernel once a layer, no unsegmented kernel and no plain version."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticVarlenLM
+
+    cfg = dataclasses.replace(registry.get("qwen3-8b"), num_layers=2)
+    model = init_lm(cfg, seed=0, device=cuda)
+    state = init_opt_state(dict(model.named_parameters()))
+    step = build_train_step(cfg, AttentionConfig(impl="flash_cuda", bwd=bwd), AdamWConfig())
+    data = SyntheticVarlenLM(DataConfig(1, 512, cfg.vocab_size, seed=0, source="packed"))
+    batch = {k: torch.from_numpy(x).to(cuda) for k, x in data.batch(0).items()}
+    counters = (fwd_mod.flash_fwd_varlen, bwd_mod.flash_bwd_delta,
+                bwd_mod.flash_bwd_fused_varlen, bwd_mod.flash_bwd_dkv_varlen,
+                bwd_mod.flash_bwd_dq_varlen, fwd_mod.flash_fwd, bwd_mod.flash_bwd_fused,
+                bwd_mod.flash_bwd_dkv, bwd_mod.flash_bwd_dq)
+    plains = (fwd_mod.flash_fwd_plain, bwd_mod.flash_bwd_delta_plain,
+              bwd_mod.flash_bwd_fused_plain, bwd_mod.flash_bwd_dkv_plain,
+              bwd_mod.flash_bwd_dq_plain)
+    for f in counters:
+        f.launches = 0
+    for f in plains:
+        f.calls = 0
+    state, metrics = step(model, state, batch)
+    torch.cuda.synchronize()
+    want = [4, 2, 2, 0, 0] if bwd == "fused" else [4, 2, 0, 2, 2]
+    assert [f.launches for f in counters] == want + [0, 0, 0, 0]
+    assert [f.calls for f in plains] == [0] * 5
+    assert math.isfinite(metrics["loss"]) and metrics["skipped"] == 0.0
