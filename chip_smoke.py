@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
      for sm_90a, one nvcc per source, all started together, and print
-     nvcc's -Xptxas -v reports;
+     nvcc's -Xptxas -v reports (and each instantiation's registers and
+     spills);
   3. kernels: hold each kernel against its plain PyTorch version on the
      card in bf16 at qwen3-8b widths, then time kernel, plain version,
      the one PyTorch call that computes the same function (a yardstick the
@@ -57,6 +58,20 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      backward must go through the segment kernels (counts exact, the
      unsegmented kernels and the plain versions 0); its step is reported
      beside phase 8's.
+Phase 3 also holds this slice's kernels against their plain versions and
+times them: the split-KV forward at whisper's cross-attention (B = 1 and 4,
+4 prompt rows against 1500 frames, head_dim 64; the auto split count and a
+sweep, in turns with the single-pass kernel, its one-pass fold included),
+at qwen3 widths and with segments; the head_dim-64 forward at the encoder's
+shape; the head_dim-64 decode at the cross and self shapes; the SEG
+(packed) decode at the qwen3 decode shape, bitwise the unsegmented kernel
+on equal ids. Then the whisper serving slice: whisper-base at its published
+widths and depth, B = 4 utterances of 1500 frames and Whisper's 4-token
+prompt, prefill and 32 greedy ticks through the step builders, with exact
+launch counts (forward 12, split-KV 6, decode 384, every other kernel and
+every plain version 0), the prefill and one tick against the dense
+reference, the prefill timed in turns through the auto split count and
+through kv_splits=1, and a profile of its ticks.
 Phase 3 also holds the paged decode kernel against its plain version
 (page sizes 16 and 64, G in {1, 4, 8}, a window-256/sink-4 spec, shuffled
 pages) and times it beside the contiguous decode kernel, and holds the
@@ -170,6 +185,32 @@ def time_ms(torch, fn, iters: int, flush) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def ptxas_summary(_build, sources) -> str:
+    """One line per compiled kernel instantiation: its mangled name's
+    template arguments, registers and spill bytes, from nvcc's -Xptxas -v."""
+    import re
+
+    lines = []
+    for src in sources:
+        name = None
+        for line in _build.report_path(src).read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:  # ...fa2_fwd_kernelILi64ELi4ELb0ELb1EEEv... -> fa2_fwd_kernel<64,4,0,1>
+                k = re.search(r"(fa2_\w+?kernel)I(.*?)EEv", m.group(1))
+                name = (f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)', k.group(2)))}>"
+                        if k else m.group(1))
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and name:
+                spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                lines.append(f"  {src}.cu {name}: {m.group(1)} registers, {spills}")
+                name = None
+    return "\n".join(lines)
 
 
 def max_err(torch, a, b) -> float:
@@ -1184,6 +1225,456 @@ def tick_phase(torch, cfg, model) -> None:
                 f"{e.count / PROFILED_TICKS:6.0f} calls/tick: {e.key[:80]}")
 
 
+
+# whisper-base attention widths and its serving shapes (src/repro_torch/configs/archs.py).
+WH_H, WH_D = 8, 64
+WH_FRAMES, WH_PROMPT, WH_CACHE, WH_TICKS, WH_B = 1500, 4, 448, 32, 4
+# Whisper's start-of-transcript sequence: <|startoftranscript|> <|en|>
+# <|transcribe|> <|notimestamps|>.
+WH_SOT = (50258, 50259, 50359, 50363)
+SPLIT_SWEEP = (2, 3, 4, 6, 8, 12, 13, 16, 24)
+PREFILL_ROUNDS = 16  # whisper prefills in turns, auto splits against one
+
+
+def packed_cache_ids(torch, B: int, S: int, seed: int = 0):
+    """kv ids (B, S) with two to four segments a row and each row's query in
+    its last segment (one row in its first)."""
+    g = torch.Generator().manual_seed(seed)
+    kv = torch.zeros((B, S), dtype=torch.int32)
+    q = torch.zeros((B,), dtype=torch.int32)
+    for b in range(B):
+        n = 2 + b % 3
+        cuts = torch.sort(torch.randperm(S - 2, generator=g)[:n - 1] + 1).values.tolist()
+        edges = [0, *cuts, S]
+        for i in range(n):
+            kv[b, edges[i]:edges[i + 1]] = i + 1
+        q[b] = 1 if b == 1 else n
+    return kv, q
+
+
+def whisper_kernel_phase(torch, dev, flush):
+    """The kernels of the whisper path and the packed decode, each against
+    its plain version on the card in bf16, then timed at the main paths'
+    shapes: the split-KV forward at whisper's cross-attention (auto splits
+    and a sweep, in turns with the single-pass kernel; also held at qwen3
+    widths and with segments), the head_dim-64 forward at the encoder's
+    shape, the head_dim-64 decode at the cross and self shapes, and the
+    SEG decode at the qwen3 decode shape in turns with the unsegmented
+    kernel."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.attention import _decode_reference
+    from repro_torch.core.masks import MaskSpec
+    from repro_torch.kernels import flash_decode as dec
+    from repro_torch.kernels import flash_fwd as fwd
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    full = MaskSpec()
+    tiles = dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
+    out = {}
+
+    def qkv(B, Sq, Skv, Hq, Hkv, D):
+        return (ops._prep(randn(B, Sq, Hq, D), 1 / math.sqrt(D)), randn(B, Skv, Hkv, D),
+                randn(B, Skv, Hkv, D))
+
+    def sdpa(q, k, v, **kw):  # (B, S, H, D) layouts; q already scaled
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0, enable_gqa=True,
+                                                      **kw)
+
+    # --- the split-KV forward (and its fold) at whisper's cross-attention
+    # prefill
+    Sq, Skv = WH_PROMPT, WH_FRAMES
+    split = {}
+    for B in (4, 1):
+        q, k, v = qkv(B, Sq, Skv, WH_H, WH_H, WH_D)
+        ks = ops.resolve_kv_splits(None, q.shape, k.shape)
+        got = fwd.flash_fwd_splitkv(q, k, v, full, kv_splits=ks, **tiles)
+        torch.cuda.synchronize()
+        ref = fwd.flash_fwd_splitkv_plain(q, k, v, full, kv_splits=ks, **tiles)
+        eo, el = max_err(torch, got.o_parts, ref.o_parts), max_err(torch, got.lse_parts,
+                                                                    ref.lse_parts)
+        efo, efl = max_err(torch, got.o, ref.o), max_err(torch, got.lse, ref.lse)
+        o_1, lse_1 = fwd.flash_fwd(q, k, v, full, **tiles)
+        ef, elf = max_err(torch, got.o, o_1), max_err(torch, got.lse, lse_1)
+        log(f"flash_fwd_splitkv B={B} Sq={Sq} Skv={Skv} H={WH_H} D={WH_D} FULL, auto splits "
+            f"{ks}: partials max|o-plain|={eo:.3e}, max|lse-plain|={el:.3e}; fold "
+            f"max|o-plain|={efo:.3e}, max|lse-plain|={efl:.3e}; fold against the single-pass "
+            f"kernel max|o|={ef:.3e} (tol {FWD_TOL['o']}), max|lse|={elf:.3e} "
+            f"(tol {FWD_TOL['lse']})")
+        if not (max(eo, efo, ef) <= FWD_TOL["o"] and max(el, efl, elf) <= FWD_TOL["lse"]):
+            fail(f"flash_fwd_splitkv disagrees at B={B}")
+
+        def kernel(n):
+            return lambda: fwd.flash_fwd_splitkv(q, k, v, full, kv_splits=n, **tiles)
+
+        single = lambda: fwd.flash_fwd(q, k, v, full, **tiles)  # noqa: E731
+        runs = [time_ms(torch, f, 30, flush) for f in (single, kernel(ks), kernel(ks), single)]
+        single_ms, split_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+        sweep = {n: time_ms(torch, kernel(n), 30, flush) for n in SPLIT_SWEEP}
+        log(f"flash_fwd_splitkv B={B}: auto ({ks} splits, split walk + fold) {split_ms:.4f} ms "
+            f"against the single-pass kernel's {single_ms:.4f} ms in turns (ratio "
+            f"{split_ms / single_ms:.4f}); sweep (splits: ms): "
+            + ", ".join(f"{n}: {t:.4f}" for n, t in sweep.items()))
+        plain_ms = time_ms(torch, lambda: fwd.flash_fwd_splitkv_plain(
+            q, k, v, full, kv_splits=ks, **tiles), 3, flush)
+        lib_ms = time_ms(torch, sdpa(q, k, v), 30, flush)
+        # The function's own bytes: q, K, V read, o and lse written (the
+        # partials are the kernel's scratch, not the function's output).
+        b_ms, b_by = bound(4 * Sq * Skv * WH_D * B * WH_H,
+                           2 * 2 * B * Sq * WH_H * WH_D + 2 * 2 * B * Skv * WH_H * WH_D
+                           + B * WH_H * Sq * 4)
+        log(f"flash_fwd_splitkv B={B}: plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        split[B] = dict(max_abs_err=max(eo, efo, ef), ms=split_ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, splits=ks,
+                        single_pass_ms=single_ms, sweep={str(n): t for n, t in sweep.items()})
+    out["flash_fwd_splitkv"] = dict(split[4], at_batch_1=split[1])
+
+    # Held at qwen3 widths (head_dim 128, G = 4), and causal with q tiles.
+    for B, Sq_, Skv_, spec in ((1, 64, 2048, full), (2, 300, 300, MaskSpec(causal=True))):
+        q, k, v = qkv(B, Sq_, Skv_, HQ, HKV, HD)
+        ks = max(ops.resolve_kv_splits(None, q.shape, k.shape), 3)
+        got = fwd.flash_fwd_splitkv(q, k, v, spec, kv_splits=ks, **tiles)
+        torch.cuda.synchronize()
+        ref = fwd.flash_fwd_splitkv_plain(q, k, v, spec, kv_splits=ks, **tiles)
+        eo = max(max_err(torch, got.o_parts, ref.o_parts), max_err(torch, got.o, ref.o))
+        el = max(max_err(torch, got.lse_parts, ref.lse_parts), max_err(torch, got.lse, ref.lse))
+        log(f"flash_fwd_splitkv B={B} Sq={Sq_} Skv={Skv_} Hq={HQ} Hkv={HKV} D={HD} "
+            f"{'causal' if spec.causal else 'FULL'} splits {ks}: max|o-plain|={eo:.3e}, "
+            f"max|lse-plain|={el:.3e} (partials and fold)")
+        if not (eo <= FWD_TOL["o"] and el <= FWD_TOL["lse"]):
+            fail("flash_fwd_splitkv disagrees at qwen3 widths")
+
+    # The segment branch: packed ids at the qwen3 width, 3 splits, timed
+    # beside the unsegmented split kernel.
+    B, S = 2, 700
+    q, k, v = qkv(B, S, S, HQ, HKV, HD)
+    ids = torch.from_numpy(packed_ids(B, S)).to(dev)
+    causal = MaskSpec(causal=True)
+    got = fwd.flash_fwd_splitkv_varlen(q, k, v, causal, ids, ids, kv_splits=3, **tiles)
+    ones = torch.ones_like(ids)
+    got1 = fwd.flash_fwd_splitkv_varlen(q, k, v, causal, ones, ones, kv_splits=3, **tiles)
+    got0 = fwd.flash_fwd_splitkv(q, k, v, causal, kv_splits=3, **tiles)
+    torch.cuda.synchronize()
+    ref = fwd.flash_fwd_splitkv_plain(q, k, v, causal, kv_splits=3, q_seg=ids, kv_seg=ids,
+                                      **tiles)
+    eo = max(max_err(torch, got.o_parts, ref.o_parts), max_err(torch, got.o, ref.o))
+    el = max(max_err(torch, got.lse_parts, ref.lse_parts), max_err(torch, got.lse, ref.lse))
+    same = all(torch.equal(a, b) for a, b in zip(got1, got0))
+    log(f"flash_fwd_splitkv_varlen B={B} S={S} causal packed, 3 splits: max|o-plain|={eo:.3e}, "
+        f"max|lse-plain|={el:.3e}; all-ones ids bitwise the unsegmented split kernel: {same}")
+    if not (eo <= FWD_TOL["o"] and el <= FWD_TOL["lse"] and same):
+        fail("flash_fwd_splitkv_varlen disagrees with its plain version or the unsegmented kernel")
+    seg_fn = lambda: fwd.flash_fwd_splitkv_varlen(q, k, v, causal, ids, ids, kv_splits=3,  # noqa
+                                                  **tiles)
+    full_fn = lambda: fwd.flash_fwd_splitkv(q, k, v, causal, kv_splits=3, **tiles)  # noqa
+    runs = [time_ms(torch, f, 20, flush) for f in (seg_fn, full_fn, full_fn, seg_fn)]
+    seg_ms, unseg_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+    plain_ms = time_ms(torch, lambda: fwd.flash_fwd_splitkv_plain(
+        q, k, v, causal, kv_splits=3, q_seg=ids, kv_seg=ids, **tiles), 3, flush)
+    mask = ((ids[:, :, None] == ids[:, None, :])
+            & torch.ones((S, S), dtype=torch.bool, device=dev).tril())[:, None]
+    lib_ms = time_ms(torch, sdpa(q, k, v, attn_mask=mask), 20, flush)
+    pairs = segment_pairs(ids.cpu().numpy())
+    b_ms, b_by = bound(4 * HD * pairs * HQ, 2 * 2 * B * S * HQ * HD + 2 * 2 * B * S * HKV * HD
+                       + B * HQ * S * 4 + 2 * B * S * 4)
+    log(f"flash_fwd_splitkv_varlen B={B} S={S}: kernel {seg_ms:.4f} ms, the unsegmented split "
+        f"kernel in turns {unseg_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (block-diagonal "
+        f"causal mask) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    out["flash_fwd_splitkv_varlen"] = dict(max_abs_err=eo, ms=seg_ms, plain_ms=plain_ms,
+                                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                                           unsegmented_ms_same_call=unseg_ms)
+
+    # --- the head_dim-64 forward at the encoder's shape (and a causal check)
+    B, S = WH_B, WH_FRAMES
+    q, k, v = qkv(B, S, S, WH_H, WH_H, WH_D)
+    err = 0.0
+    for spec in (full, MaskSpec(causal=True)):
+        o, lse = fwd.flash_fwd(q, k, v, spec, **tiles)
+        torch.cuda.synchronize()
+        o_p, lse_p = fwd.flash_fwd_plain(q, k, v, spec, **tiles)
+        eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
+        log(f"flash_fwd B={B} S={S} H={WH_H} D={WH_D} {'causal' if spec.causal else 'FULL'}: "
+            f"max|o-plain|={eo:.3e}, max|lse-plain|={el:.3e}")
+        if not (eo <= FWD_TOL["o"] and el <= FWD_TOL["lse"]):
+            fail("flash_fwd at head_dim 64 disagrees with its plain version")
+        err = max(err, eo)
+    fwd_ms = time_ms(torch, lambda: fwd.flash_fwd(q, k, v, full, **tiles), 20, flush)
+    plain_ms = time_ms(torch, lambda: fwd.flash_fwd_plain(q, k, v, full, **tiles), 2, flush)
+    lib_ms = time_ms(torch, sdpa(q, k, v), 20, flush)
+    b_ms, b_by = bound(4 * S * S * WH_D * B * WH_H,
+                       4 * B * S * WH_H * WH_D * 2 + B * WH_H * S * 4)
+    log(f"flash_fwd (head_dim 64) B={B} S={S} FULL: kernel {fwd_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    out["flash_fwd_hd64"] = dict(max_abs_err=err, ms=fwd_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lib_ms)
+
+    # --- the head_dim-64 decode: cross-attention (1500 frames, all visible)
+    # and self-attention (a 448 cache, the lengths of the serving run)
+    res = {}
+    for what, S, lengths in (("cross", WH_FRAMES, [WH_FRAMES] * WH_B),
+                             ("self", WH_CACHE, [5, 12, 21, 36])):
+        qd = ops._prep(randn(WH_B, 1, WH_H, WH_D), 1 / math.sqrt(WH_D))
+        kc, vc = randn(WH_B, S, WH_H, WH_D), randn(WH_B, S, WH_H, WH_D)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        qh = qd.reshape(WH_B * WH_H, 1, WH_D).contiguous()
+        o, lse = dec.flash_decode(qh, kc, vc, lens, num_splits=8)
+        torch.cuda.synchronize()
+        o_p, lse_p = dec.flash_decode_plain(qh, kc, vc, lens, num_splits=8)
+        eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
+        if not (eo <= DEC_TOL["o"] and el <= DEC_TOL["lse"]):
+            fail(f"flash_decode at head_dim 64 disagrees with its plain version ({what})")
+        k_ms = time_ms(torch, lambda: dec.flash_decode(qh, kc, vc, lens, num_splits=8), 50, flush)
+        p_ms = time_ms(torch, lambda: dec.flash_decode_plain(qh, kc, vc, lens, num_splits=8), 5,
+                       flush)
+        mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        l_ms = time_ms(torch, sdpa(qd, kc, vc, attn_mask=mask), 50, flush)
+        n_pos = int(lens.sum())
+        ns, _ = dec.decode_geometry(S, 8)
+        b_ms, b_by = bound(4 * WH_D * n_pos * WH_H,
+                           n_pos * WH_H * WH_D * 2 * 2 + WH_B * WH_H * WH_D * 2
+                           + WH_B * WH_H * ns * (WH_D + 1) * 4 + WH_B * 4)
+        log(f"flash_decode (head_dim 64, {what}) B={WH_B} S={S} lengths={lengths}: "
+            f"max|o-plain|={eo:.3e}, max|lse-plain|={el:.3e}; kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, sdpa {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        res[what] = dict(max_abs_err=eo, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=l_ms)
+    out["flash_decode_hd64"] = dict(res["cross"], at_self_shape=res["self"])
+
+    # --- the SEG decode at the qwen3 decode shape, packed cache
+    B, S, G = 4, CACHE, HQ // HKV
+    qd = ops._prep(randn(B, 1, HQ, HD), 1 / math.sqrt(HD))
+    qh = qd.reshape(B * HKV, G, HD).contiguous()
+    kc, vc = randn(B, S, HKV, HD), randn(B, S, HKV, HD)
+    lens = torch.tensor([n + 8 for n in PROMPT_LENS[:4]], dtype=torch.int32, device=dev)
+    kv_seg, q_seg = (x.to(dev) for x in packed_cache_ids(torch, B, S))
+    o, lse = dec.flash_decode_varlen(qh, kc, vc, lens, kv_seg, q_seg, num_splits=8)
+    torch.cuda.synchronize()
+    o_p, lse_p = dec.flash_decode_plain(qh, kc, vc, lens, num_splits=8, segments=(kv_seg, q_seg))
+    eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
+    o_m, _ = ops.flash_decode(qd, kc, vc, lens, scale=1.0, kv_segment_ids=kv_seg, q_segment=q_seg)
+    o_r = _decode_reference(qd, kc, vc, lens, window=None, sink=0, scale=1.0,
+                            kv_segment_ids=kv_seg, q_segment=q_seg)
+    em = max_err(torch, o_m, o_r)
+    eq_ids = (torch.full_like(kv_seg, 3), torch.full_like(q_seg, 3))
+    lens0 = torch.tensor([1, 0, 1337, 2048], dtype=torch.int32, device=dev)
+    a = dec.flash_decode(qh, kc, vc, lens0, num_splits=8, window=500, sink=4)
+    b = dec.flash_decode_varlen(qh, kc, vc, lens0, *eq_ids, num_splits=8, window=500, sink=4)
+    c = dec.flash_decode(qh, kc, vc, lens, num_splits=8)
+    d = dec.flash_decode_varlen(qh, kc, vc, lens, *eq_ids, num_splits=8)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(x, y) for x, y in zip((*a, *c), (*b, *d)))
+    log(f"flash_decode_varlen B={B} S={S} G={G} D={HD}, 2-4 segments a row, lengths "
+        f"{lens.tolist()}: partials max|o-plain|={eo:.3e}, max|lse-plain|={el:.3e}; merged "
+        f"against the dense reference with the segment mask max|o|={em:.3e}; equal ids bitwise "
+        f"the unsegmented kernel: {bitwise}")
+    if not (eo <= DEC_TOL["o"] and el <= DEC_TOL["lse"] and em <= DEC_TOL["o"] and bitwise):
+        fail("flash_decode_varlen disagrees with its plain version, the reference or the "
+             "unsegmented kernel")
+    seg_fn = lambda: dec.flash_decode_varlen(qh, kc, vc, lens, kv_seg, q_seg, num_splits=8)  # noqa
+    full_fn = lambda: dec.flash_decode(qh, kc, vc, lens, num_splits=8)  # noqa: E731
+    runs = [time_ms(torch, f, 50, flush) for f in (seg_fn, full_fn, full_fn, seg_fn)]
+    seg_ms, unseg_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+    p_ms = time_ms(torch, lambda: dec.flash_decode_plain(qh, kc, vc, lens, num_splits=8,
+                                                         segments=(kv_seg, q_seg)), 5, flush)
+    cols = torch.arange(S, device=dev)[None, :]
+    visible = (cols < lens[:, None]) & (kv_seg == q_seg[:, None])
+    l_ms = time_ms(torch, sdpa(qd, kc, vc, attn_mask=visible[:, None, None, :]), 50, flush)
+    n_pos = int(visible.sum())
+    ns, _ = dec.decode_geometry(S, 8)
+    b_ms, b_by = bound(4 * G * HD * n_pos * HKV,
+                       n_pos * HKV * HD * 2 * 2 + B * HQ * HD * 2 + B * HKV * ns * G * (HD + 1) * 4
+                       + B * 4 + n_pos * 4 + B * 4)
+    log(f"flash_decode_varlen: kernel {seg_ms:.4f} ms, the unsegmented kernel in turns "
+        f"{unseg_ms:.4f} ms (ratio {seg_ms / unseg_ms:.4f}), plain {p_ms:.4f} ms, sdpa (length "
+        f"and segment mask) {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {n_pos} same-segment "
+        f"positions of {int(lens.sum())})")
+    out["flash_decode_varlen"] = dict(max_abs_err=max(eo, em), ms=seg_ms, plain_ms=p_ms,
+                                      bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                                      unsegmented_ms_same_call=unseg_ms)
+    return out
+
+
+def all_counters():
+    """{name: wrapper} of every kernel of the port, and {name: plain version}."""
+    from repro_torch.kernels import flash_bwd as bwd
+    from repro_torch.kernels import flash_decode as dec
+    from repro_torch.kernels import flash_fwd as fwd
+
+    counters = {f.__name__: f for f in (
+        fwd.flash_fwd, fwd.flash_fwd_varlen, fwd.flash_fwd_splitkv, fwd.flash_fwd_splitkv_varlen,
+        dec.flash_decode, dec.flash_decode_varlen, dec.flash_decode_paged, bwd.flash_bwd_delta,
+        bwd.flash_bwd_fused, bwd.flash_bwd_dkv, bwd.flash_bwd_dq, bwd.flash_bwd_fused_varlen,
+        bwd.flash_bwd_dkv_varlen, bwd.flash_bwd_dq_varlen)}
+    plains = {f.__name__: f for f in (
+        fwd.flash_fwd_plain, fwd.flash_fwd_splitkv_plain, dec.flash_decode_plain,
+        dec.flash_decode_paged_plain, bwd.flash_bwd_delta_plain, bwd.flash_bwd_fused_plain,
+        bwd.flash_bwd_dkv_plain, bwd.flash_bwd_dq_plain)}
+    return counters, plains
+
+
+def whisper_phase(torch, dev):
+    """The whisper serving slice: whisper-base at its published widths and
+    depth (6 encoder and 6 decoder layers, d_model 512, 8 heads of 64, d_ff
+    2048, vocab 51,865, bf16, random weights from seed 0) serves B = 4
+    utterances of 1500 frame embeddings (seeded; the frontend is a stub)
+    with Whisper's 4-token start-of-transcript prompt: the prefill, then
+    WH_TICKS greedy decode ticks, through the port's step builders. Every
+    attention call must go through the kernels, counted exactly. Then the
+    prefill's logits and one decode tick through the dense reference, and a
+    profile of decode ticks."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.core.attention import AttentionConfig
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models.whisper import init_whisper
+
+    cfg = registry.get("whisper-base")
+    t0 = time.perf_counter()
+    model = init_whisper(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"whisper-base: {cfg.encoder.num_layers} encoder + {cfg.num_layers} decoder layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e6:.1f} M params ({cfg.dtype}), initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn((WH_B, WH_FRAMES, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    prompt = torch.tensor([WH_SOT] * WH_B, device=dev)
+    fl_cfg, ref_cfg = AttentionConfig(impl="flash_cuda"), AttentionConfig(impl="ref")
+    prefill = build_prefill_step(cfg, fl_cfg, WH_CACHE)
+    serve = build_serve_step(cfg, fl_cfg)
+
+    # Warm-up outside the counted run (first-call allocations), then the run.
+    warm = prefill(model, {"frames": frames, "inputs": prompt})
+    serve(model, warm[0], warm[1], warm[2])
+    del warm
+    counters, plains = all_counters()
+    zero_counts(counters, plains.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tok, caches, lens = prefill(model, {"frames": frames, "inputs": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tokens, ticks = [tok], []
+    for _ in range(WH_TICKS):
+        t1 = time.perf_counter()
+        tok, caches = serve(model, tok, caches, lens)
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter() - t1)
+        lens = lens + 1
+        tokens.append(tok)
+    total_s = time.perf_counter() - t0
+    counts = read_counts(counters, plains.values())
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    gen_tokens = torch.cat(tokens, dim=1)
+    median_tick = float(np.median(ticks))
+    log(f"whisper serving B={WH_B}, {WH_FRAMES} frames, prompt {list(WH_SOT)}, {WH_TICKS} "
+        f"ticks, cache {WH_CACHE}: prefill {prefill_s * 1e3:.2f} ms, decode tick median "
+        f"{median_tick * 1e3:.2f} ms (min {min(ticks) * 1e3:.2f}), "
+        f"{gen_tokens.numel()} tokens in {total_s:.3f} s = {gen_tokens.numel() / total_s:.1f} "
+        f"tokens/s ({WH_B * WH_TICKS / sum(ticks):.1f} tokens/s over the ticks alone); "
+        f"max_memory_allocated {peak:.3f} GiB")
+    log(f"whisper greedy tokens of row 0: {gen_tokens[0].tolist()}")
+    log(f"launches on the whisper serving path: {counts}")
+    want = {name: 0 for name in counters}
+    want.update(flash_fwd=2 * cfg.num_layers, flash_fwd_splitkv=cfg.num_layers,
+                flash_decode=2 * cfg.num_layers * WH_TICKS)
+    if {k: counts[k] for k in counters} != want or any(counts["plain"]):
+        fail(f"the whisper serving path's launches are not exact: want {want}, plain 0")
+    if not ((0 <= gen_tokens) & (gen_tokens < cfg.vocab_size)).all():
+        fail("whisper generated a token outside the vocabulary")
+
+    # The dense reference: the prefill's logits, and one tick from one cache.
+    h_ref, _, _ = model.prefill(frames, prompt, ref_cfg, WH_CACHE)
+    h_fl, cache_fl, n = model.prefill(frames, prompt, fl_cfg, WH_CACHE)
+    compare_logits(torch, f"whisper prefill of {WH_FRAMES} frames and {n} tokens",
+                   model.logits_from_hidden(h_ref), model.logits_from_hidden(h_fl))
+    cache_ref = [{part: {name: t.clone() for name, t in c[part].items()} for part in c}
+                 for c in cache_fl]
+    first = model.logits_from_hidden(h_fl)[..., :cfg.vocab_size].argmax(-1).to(torch.int32)
+    step_len = torch.full((WH_B,), n, dtype=torch.int32, device=dev)
+    d_ref, _ = model.decode_step(first, cache_ref, step_len, ref_cfg)
+    d_fl, _ = model.decode_step(first, cache_fl, step_len, fl_cfg)
+    compare_logits(torch, "whisper decode tick", d_ref, d_fl)
+    del cache_ref, cache_fl
+
+    # The prefill end to end through the auto policy's splits and through
+    # kv_splits=1 (the single-pass kernel), in turns: auto, one, one, auto.
+    one = build_prefill_step(cfg, AttentionConfig(impl="flash_cuda", kv_splits=1), WH_CACHE)
+    batch = {"frames": frames, "inputs": prompt}
+    one(model, batch)
+    prefill_ms = {"auto": [], "one": []}
+    for r in range(PREFILL_ROUNDS):
+        for name in ("auto", "one") if r % 2 == 0 else ("one", "auto"):
+            fn = prefill if name == "auto" else one
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn(model, batch)
+            torch.cuda.synchronize()
+            prefill_ms[name].append((time.perf_counter() - t1) * 1e3)
+    auto_med, one_med = (float(np.median(prefill_ms[n])) for n in ("auto", "one"))
+    log(f"whisper prefill in turns ({PREFILL_ROUNDS} each): auto splits median {auto_med:.3f} ms "
+        f"(min {min(prefill_ms['auto']):.3f}), kv_splits=1 median {one_med:.3f} ms (min "
+        f"{min(prefill_ms['one']):.3f}); ratio {auto_med / one_med:.4f}")
+    # The same two prefills under torch.profiler: device busy time apiece,
+    # and the cross-attention's share (the split kernel and its fold, or
+    # the single-pass kernel at the cross shape).
+    prefill_busy = {}
+    for name, fn in (("auto", prefill), ("one", one)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                fn(model, batch)
+            torch.cuda.synchronize()
+        busy_us, by_name, n_events = device_busy(torch, prof)
+        fa2 = {k.replace("void (anonymous namespace)::", "").split("(")[0]: us / 2e3
+               for k, us in by_name.items() if "fa2_fwd" in k}
+        prefill_busy[name] = busy_us / 2e3 if n_events else None
+        log(f"whisper prefill ({name}) under torch.profiler: device busy "
+            + (f"{busy_us / 2e3:.3f} ms a prefill; forward kernels (ms a prefill): "
+               + ", ".join(f"{k} {v:.4f}" for k, v in fa2.items())
+               if n_events else "not measured (no device events)"))
+
+    # Decode ticks under torch.profiler: device busy share and kernels.
+    walls = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_TICKS):
+            t1 = time.perf_counter()
+            tok, caches = serve(model, tok, caches, lens)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            lens = lens + 1
+    busy_us, by_name, n_events = device_busy(torch, prof)
+    summary = dict(prefill_ms=prefill_s * 1e3, tick_median_ms=median_tick * 1e3,
+                   tokens_per_s=gen_tokens.numel() / total_s, peak_gib=peak,
+                   prefill_auto_median_ms=auto_med, prefill_one_split_median_ms=one_med,
+                   prefill_auto_busy_ms=prefill_busy["auto"],
+                   prefill_one_split_busy_ms=prefill_busy["one"])
+    if n_events:
+        busy_ms = busy_us / 1e3 / PROFILED_TICKS
+        wall_ms = sum(walls) / PROFILED_TICKS * 1e3
+        log(f"whisper decode tick under torch.profiler ({PROFILED_TICKS} ticks): "
+            f"{n_events / PROFILED_TICKS:.0f} device events per tick, device busy {busy_ms:.3f} "
+            f"ms per tick; busy share {busy_ms / wall_ms:.4f} of the profiled tick, "
+            f"{busy_ms / (median_tick * 1e3):.4f} of the unprofiled median tick")
+        for kernel, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"  device {us / 1e3 / PROFILED_TICKS:8.3f} ms/tick "
+                f"({us / 1e3 / PROFILED_TICKS / busy_ms:6.1%}): {kernel[:90]}")
+        summary["busy_share"] = busy_ms / (median_tick * 1e3)
+    else:
+        log("whisper decode tick device busy share: not measured (no device events)")
+    return counts, summary
+
 def train_model_flops(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one training step: 6 x parameters x tokens plus
     12 x q_dim x S^2 per attention layer and sequence (no causal halving),
@@ -1543,13 +2034,18 @@ def main() -> None:
         f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
     for src in sources:
         log(f"ptxas report of csrc/{src}.cu:\n{_build.report_path(src).read_text()}")
+    log("ptxas, registers and spills by kernel instantiation:\n" + ptxas_summary(_build, sources))
 
     scratch = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     results = kernel_phase(torch, dev, scratch.zero_)
     results.update(paged_kernel_phase(torch, dev, scratch.zero_))
     results.update(bwd_kernel_phase(torch, dev, scratch.zero_))
     results.update(varlen_kernel_phase(torch, dev, scratch.zero_))
+    results.update(whisper_kernel_phase(torch, dev, scratch.zero_))
     del scratch
+    whisper_counts, whisper_summary = whisper_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     serve_counts, cfg, model = slice_phase(torch, dev)
     with torch.no_grad():
         paged_counts = paged_slice_phase(torch, dev, cfg, model)
@@ -1583,25 +2079,45 @@ def main() -> None:
                 "flash_fwd_varlen": "src/repro/kernels/flash_fwd.py:354",
                 "flash_bwd_fused_varlen": "src/repro/kernels/flash_bwd.py:718",
                 "flash_bwd_dkv_varlen": "src/repro/kernels/flash_bwd.py:234",
-                "flash_bwd_dq_varlen": "src/repro/kernels/flash_bwd.py:459"}
+                "flash_bwd_dq_varlen": "src/repro/kernels/flash_bwd.py:459",
+                # This slice: the split-KV mode and its segment branch, the
+                # head_dim-64 instantiations, the decode kernel's segments.
+                "flash_fwd_splitkv": "src/repro/kernels/flash_fwd.py:510",
+                "flash_fwd_splitkv_varlen": "src/repro/kernels/flash_fwd.py:510",
+                "flash_fwd_hd64": "src/repro/kernels/flash_fwd.py:354",
+                "flash_decode_hd64": "src/repro/kernels/flash_decode.py:77",
+                "flash_decode_varlen": "src/repro/kernels/flash_decode.py:77"}
     source = {"flash_fwd": "flash_fwd", "flash_decode": "flash_decode",
               "flash_decode_paged": "flash_decode", "flash_bwd_delta": "flash_bwd",
               "flash_bwd_fused": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
               "flash_bwd_dq": "flash_bwd", "flash_fwd_varlen": "flash_fwd",
               "flash_bwd_fused_varlen": "flash_bwd", "flash_bwd_dkv_varlen": "flash_bwd",
-              "flash_bwd_dq_varlen": "flash_bwd"}
+              "flash_bwd_dq_varlen": "flash_bwd", "flash_fwd_splitkv": "flash_fwd",
+              "flash_fwd_splitkv_varlen": "flash_fwd", "flash_fwd_hd64": "flash_fwd",
+              "flash_decode_hd64": "flash_decode", "flash_decode_varlen": "flash_decode"}
+    # The head_dim-64 entries are instantiations behind the flash_fwd and
+    # flash_decode wrappers: their launches are the whisper path's (every
+    # call there is at head_dim 64), which the qwen3 paths never make, so
+    # the head_dim-128 entries of those wrappers leave the whisper path out.
+    counted = {"flash_fwd_hd64": "flash_fwd", "flash_decode_hd64": "flash_decode"}
     kernels = []
     for k in replaces:
-        by_path = {"serving": serve_counts.get(k, 0), "paged_serving": paged_counts.get(k, 0),
-                   "training": train_counts.get(k, 0),
-                   "training_split": split_counts.get(k, 0),
-                   "training_packed": packed_counts.get(k, 0),
-                   "training_packed_parity": packed_parity_counts.get(k, 0)}
+        if k in counted:
+            by_path = {"whisper_serving": whisper_counts[counted[k]]}
+        else:
+            by_path = {"serving": serve_counts.get(k, 0), "paged_serving": paged_counts.get(k, 0),
+                       "training": train_counts.get(k, 0),
+                       "training_split": split_counts.get(k, 0),
+                       "training_packed": packed_counts.get(k, 0),
+                       "training_packed_parity": packed_parity_counts.get(k, 0)}
+            if k not in counted.values():
+                by_path["whisper_serving"] = whisper_counts.get(k, 0)
         kernels.append({
             "name": k, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source[k]}.cu",
             "replaces": replaces[k], "launches": sum(by_path.values()),
             "launches_by_path": by_path, **results[k],
         })
+    log(f"whisper serving: {json.dumps(whisper_summary)}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

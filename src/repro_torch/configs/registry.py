@@ -44,14 +44,23 @@ class TensorSpec(NamedTuple):
     dtype: torch.dtype
 
 
-def cache_specs(cfg: ModelConfig, B: int, cache: int) -> List[Dict[str, Any]]:
+def cache_specs(cfg: ModelConfig, B: int, cache: int,
+                enc_frames: int = 1500) -> List[Dict[str, Any]]:
     """Decode-cache spec of every layer, in layer order: ``{"kv": {"k", "v"}}``
-    of shape (B, cache, Hkv, head_dim). Attention-only decoders so far (SSM
-    state and encoder caches come with those families)."""
+    of shape (B, cache, Hkv, head_dim). An encoder-decoder config (whisper)
+    adds per decoder layer the cross-attention K/V over the encoder output,
+    ``"cross": {"k", "v"}`` of shape (B, enc_frames, Hkv, head_dim) (JAX
+    ``registry.py:137``, which stacks the layers where this keeps a list).
+    SSM state comes with that family."""
     kinds = cfg.layer_kinds()
-    if cfg.family == "encdec" or any(k not in ("attn", "attn_local") for k in kinds):
-        raise NotImplementedError(f"{cfg.name}: only attention-layer caches are ported")
+    if any(k not in ("attn", "attn_local") for k in kinds):
+        raise NotImplementedError(f"{cfg.name}: only attention-layer caches are ported "
+                                  f"(layer kinds {sorted(set(kinds))})")
     spec = TensorSpec((B, cache, cfg.num_kv_heads, cfg.head_dim), torch_dtype(cfg))
+    if cfg.family == "encdec":
+        cross = TensorSpec((B, enc_frames, cfg.num_kv_heads, cfg.head_dim), torch_dtype(cfg))
+        return [{"kv": {"k": spec, "v": spec}, "cross": {"k": cross, "v": cross}}
+                for _ in kinds]
     return [{"kv": {"k": spec, "v": spec}} for _ in kinds]
 
 

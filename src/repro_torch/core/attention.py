@@ -34,12 +34,18 @@ class AttentionConfig:
     # deterministic dK/dV + dQ kernels). None -> 'fused': the port has no
     # tuned cache to consult.
     bwd: Optional[str] = None
+    # Forward kv splits (flash_cuda; paper Section 3.2): None -> the auto
+    # policy (kernels/ops.default_kv_splits); an int overrides (1 disables).
+    # Splits run the split-KV kernel, exact up to the fold's rounding. The
+    # JAX config's q bands have no counterpart: every q tile is its own CTA.
+    kv_splits: Optional[int] = None
 
     def __post_init__(self):
         if self.impl not in IMPLS:
             raise ValueError(f"unknown attention impl {self.impl!r}; have {IMPLS}")
         if self.bwd is not None and self.bwd not in ops.BWD_MODES:
             raise ValueError(f"unknown backward mode {self.bwd!r}; have {ops.BWD_MODES}")
+        ops.check_kv_splits(self.kv_splits)
 
 
 def attention(q, k, v, spec: MaskSpec, cfg: AttentionConfig = AttentionConfig(), *,
@@ -52,26 +58,32 @@ def attention(q, k, v, spec: MaskSpec, cfg: AttentionConfig = AttentionConfig(),
     (JAX ``attention.py:64``)."""
     if cfg.impl == "ref":
         return attention_reference(q, k, v, spec, scale=scale, segment_ids=segment_ids)[0]
+    knobs = dict(scale=scale, bwd=cfg.bwd or "fused", kv_splits=cfg.kv_splits)
     if segment_ids is not None:
-        return ops.flash_attention_varlen(q, k, v, segment_ids, spec, scale=scale,
-                                          bwd=cfg.bwd or "fused")
-    return ops.flash_attention(q, k, v, spec, scale=scale, bwd=cfg.bwd or "fused")
+        return ops.flash_attention_varlen(q, k, v, segment_ids, spec, **knobs)
+    return ops.flash_attention(q, k, v, spec, **knobs)
 
 
 def decode_attention(q, k_cache, v_cache, cache_length,
                      cfg: AttentionConfig = AttentionConfig(), *,
                      window: Optional[int] = None, sink: int = 0,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     kv_segment_ids: Optional[torch.Tensor] = None,
+                     q_segment: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-token decode against a padded cache. q (B,1,Hq,D); caches
     (B,S,Hkv,D); cache_length (B,) valid entries. Returns (B,1,Hq,D).
 
     The query sits at position ``cache_length - 1`` and attends to
-    [max(0, L - window), L) plus the first ``sink`` positions."""
+    [max(0, L - window), L) plus the first ``sink`` positions.
+    ``kv_segment_ids`` (B, S) and ``q_segment`` (B,) restrict it to its
+    own segment of a packed cache (JAX ``attention.py:131``)."""
     if cfg.impl == "ref":
-        return _decode_reference(q, k_cache, v_cache, cache_length,
-                                 window=window, sink=sink, scale=scale)
+        return _decode_reference(q, k_cache, v_cache, cache_length, window=window, sink=sink,
+                                 scale=scale, kv_segment_ids=kv_segment_ids,
+                                 q_segment=q_segment)
     return ops.flash_decode(q, k_cache, v_cache, cache_length, window=window,
-                            sink=sink, scale=scale)[0]
+                            sink=sink, scale=scale, kv_segment_ids=kv_segment_ids,
+                            q_segment=q_segment)[0]
 
 
 def decode_attention_paged(q, k_pages, v_pages, cache_length, block_table,
@@ -103,14 +115,20 @@ def decode_attention_paged(q, k_pages, v_pages, cache_length, block_table,
                                   num_splits=ops.DEFAULT_DECODE_SPLITS)[0]
 
 
-def _decode_reference(q, k_cache, v_cache, cache_length, *, window, sink, scale):
-    """Row by row through the dense oracle, the query at position L - 1."""
+def _decode_reference(q, k_cache, v_cache, cache_length, *, window, sink, scale,
+                      kv_segment_ids=None, q_segment=None):
+    """Row by row through the dense oracle, the query at position L - 1
+    (with segments, seeing only the cache positions of its own segment)."""
     out = torch.zeros_like(q)
     for b, L in enumerate(cache_length.tolist()):
         if L <= 0:
             continue
         spec = MaskSpec(causal=True, window=window, sink=sink, q_offset=L - 1)
+        seg = {}
+        if kv_segment_ids is not None:
+            seg = dict(segment_ids=q_segment[b:b + 1, None],
+                       kv_segment_ids=kv_segment_ids[b:b + 1, :L])
         out[b:b + 1] = attention_reference(
-            q[b:b + 1], k_cache[b:b + 1, :L], v_cache[b:b + 1, :L], spec, scale=scale
+            q[b:b + 1], k_cache[b:b + 1, :L], v_cache[b:b + 1, :L], spec, scale=scale, **seg
         )[0]
     return out

@@ -5,9 +5,16 @@
 // row's address is found:
 //   * fa2_decode_bf16 replaces the Pallas TPU kernel
 //     src/repro/kernels/flash_decode.py:77 flash_decode_kernel (body
-//     _decode_kernel :34), without packed-cache segments. It reads the
-//     (B, S, Hkv, D) serving cache in place: row g of (b, h) sits at
-//     base + g * stride. Splits are ceil-div, 8-aligned chunks of S.
+//     _decode_kernel :34). It reads the (B, S, Hkv, D) serving cache in
+//     place: row g of (b, h) sits at base + g * stride. Splits are
+//     ceil-div, 8-aligned chunks of S. Its SEG instantiation is the packed
+//     cache of the same kernel (segment branch, mask at :52-55): with int32
+//     ids kv_seg (B, S) and q_seg (B,), a position is visible only where
+//     kv_seg[b, g] == q_seg[b], ANDed into the length and window mask. The
+//     tile's 64 ids travel with its K/V tile in the same cp.async group
+//     (256 bytes a stage); ids at or past the split's end read as -1. A
+//     split that sees nothing writes (0, -inf), and with all ids equal the
+//     arithmetic is the unsegmented kernel's, bit for bit.
 //   * fa2_decode_paged_bf16 replaces src/repro/kernels/flash_decode.py:250
 //     flash_decode_paged_kernel (body _paged_decode_kernel :161). K/V live
 //     in the pool's page planes (Hkv, P, ps, D); logical row g of sequence
@@ -37,6 +44,10 @@
 //     source comes from its row's page), in a two-stage ring so the next
 //     tile's copy overlaps this tile's math; scores and P V then read
 //     shared memory only.
+// Head dims: the contiguous kernel is instantiated at 128 (qwen3) and 64
+// (whisper; one thread per output column, so 64 threads and one thread per
+// cache row in the scores), the paged one at 128.
+//
 // Scores are f32 dot products of bf16 values; P is rounded to bf16 before
 // P V, as the JAX kernels do. Splits with no visible position give
 // (o = 0, lse = -inf). The arithmetic depends on logical positions only, so
@@ -64,6 +75,9 @@ struct DecodeParams {
   long long v_sb, v_ss, v_sh;
   int Hkv, G, S, chunk, ns;
   int window, sink;  // window < 0: no window
+  const int* kv_seg;  // SEG: (B, S) with batch stride kv_seg_sb
+  long long kv_seg_sb;
+  const int* q_seg;   // SEG: (B,)
 };
 
 struct PagedParams {
@@ -108,6 +122,11 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
 }
 
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>
@@ -130,6 +149,28 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const Rows& rows, 
   }
 }
 
+// Segment ids of a packed cache (SEG), or none: ``load`` stages the ids of
+// rows [row0, row0 + kTile) in the current cp.async group (rows at or past
+// `end` read as -1), ``match`` says whether staged row r is in the query's
+// segment.
+template <bool SEG>
+struct Segments {
+  const int* kv;  // this batch row's kv ids
+  int q;          // this batch row's query id
+  __device__ __forceinline__ void load(int* dst, int row0, int end) const {
+    if (!SEG) return;
+    for (int r = threadIdx.x; r < kTile; r += static_cast<int>(blockDim.x)) {
+      if (row0 + r < end)
+        cp_async4(dst + r, kv + row0 + r);
+      else
+        dst[r] = -1;
+    }
+  }
+  __device__ __forceinline__ bool match(const int* ids, int r) const {
+    return !SEG || ids[r] == q;
+  }
+};
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -146,10 +187,11 @@ __device__ __forceinline__ float warp_max(float x) {
 // past `end` is visible), with the window counted back from L. blockDim.x ==
 // D: one thread per output column in P V, and D / 64 threads per cache row
 // (64 elements each) for the scores. Writes o_out (G, D) and lse_out (G).
-template <int D, class Rows, class Load>
+template <int D, bool SEG, class Rows, class Load>
 __device__ __forceinline__ void decode_split(const __nv_bfloat16* qg, const Rows& krows,
-                                             const Rows& vrows, const Load& load, int G, int L,
-                                             int lo, int end, int window, int sink, float* o_out,
+                                             const Rows& vrows, const Load& load,
+                                             const Segments<SEG>& seg, int G, int L, int lo,
+                                             int end, int window, int sink, float* o_out,
                                              float* lse_out, __nv_bfloat16* sK,
                                              __nv_bfloat16* sV) {
   constexpr int NWARPS = D / 32;
@@ -161,6 +203,7 @@ __device__ __forceinline__ void decode_split(const __nv_bfloat16* qg, const Rows
   __shared__ float s_alpha[kMaxGroup];
   __shared__ float s_m[kMaxGroup];
   __shared__ float s_l[kMaxGroup];
+  __shared__ int s_kid[2][kTile];  // SEG: the staged tiles' kv ids
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int win_lo = window < 0 ? 0 : L - window;  // first in-window position
@@ -179,6 +222,7 @@ __device__ __forceinline__ void decode_split(const __nv_bfloat16* qg, const Rows
   if (t < ntiles) {
     load_tile<D, STRIDE>(sK, krows, lo + t * kTile, load);
     load_tile<D, STRIDE>(sV, vrows, lo + t * kTile, load);
+    seg.load(s_kid[0], lo + t * kTile, end);
     cp_async_commit();
   }
   for (int i = tid; i < G * D; i += D) sq[i / D][i % D] = __bfloat162float(qg[i]);
@@ -198,6 +242,7 @@ __device__ __forceinline__ void decode_split(const __nv_bfloat16* qg, const Rows
     if (tn < ntiles) {
       load_tile<D, STRIDE>(sK + (stage ^ 1) * kTile * STRIDE, krows, lo + tn * kTile, load);
       load_tile<D, STRIDE>(sV + (stage ^ 1) * kTile * STRIDE, vrows, lo + tn * kTile, load);
+      seg.load(s_kid[stage ^ 1], lo + tn * kTile, end);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -238,7 +283,8 @@ __device__ __forceinline__ void decode_split(const __nv_bfloat16* qg, const Rows
     }
     const int c = c0 + r;
     const bool in_tile = c < c1;
-    const bool vis = in_tile && (window < 0 || c >= win_lo || c < sink);
+    const bool vis =
+        in_tile && (window < 0 || c >= win_lo || c < sink) && seg.match(s_kid[stage], r);
     if (part == 0) {
 #pragma unroll
       for (int g = 0; g < kMaxGroup; ++g)
@@ -297,7 +343,7 @@ constexpr size_t ring_bytes() {  // two stages of K and V tiles
   return static_cast<size_t>(4) * kTile * (D + 8) * sizeof(__nv_bfloat16);
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(D) fa2_decode_kernel(const DecodeParams p) {
   constexpr int STRIDE = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -312,10 +358,12 @@ __global__ void __launch_bounds__(D) fa2_decode_kernel(const DecodeParams p) {
   const ContiguousRows krows{p.k + b * p.k_sb + hk * p.k_sh, p.k_ss};
   const ContiguousRows vrows{p.v + b * p.v_sb + hk * p.v_sh, p.v_ss};
   const auto load = [end](int g) { return g < end; };
+  Segments<SEG> seg{nullptr, 0};
+  if (SEG) seg = Segments<SEG>{p.kv_seg + b * p.kv_seg_sb, p.q_seg[b]};
   const long long part_idx = static_cast<long long>(bhk) * p.ns + split;
-  decode_split<D>(p.q + static_cast<long long>(bhk) * p.G * D, krows, vrows, load, p.G, L, lo,
-                  end, p.window, p.sink, p.o_parts + part_idx * p.G * D,
-                  p.lse_parts + part_idx * p.G, sK, sV);
+  decode_split<D, SEG>(p.q + static_cast<long long>(bhk) * p.G * D, krows, vrows, load, seg,
+                       p.G, L, lo, end, p.window, p.sink, p.o_parts + part_idx * p.G * D,
+                       p.lse_parts + part_idx * p.G, sK, sV);
 }
 
 template <int D>
@@ -350,9 +398,9 @@ __global__ void __launch_bounds__(D) fa2_decode_paged_kernel(const PagedParams p
   // or the sink.
   const auto load = [=](int g) { return g < end && (window < 0 || g >= win_lo || g < sink); };
   const long long part_idx = static_cast<long long>(bhk) * p.ns + split;
-  decode_split<D>(p.q + static_cast<long long>(bhk) * p.G * D, krows, vrows, load, p.G, L, lo,
-                  end, p.window, p.sink, p.o_parts + part_idx * p.G * D,
-                  p.lse_parts + part_idx * p.G, sK, sV);
+  decode_split<D, false>(p.q + static_cast<long long>(bhk) * p.G * D, krows, vrows, load,
+                         Segments<false>{nullptr, 0}, p.G, L, lo, end, p.window, p.sink,
+                         p.o_parts + part_idx * p.G * D, p.lse_parts + part_idx * p.G, sK, sV);
 }
 
 template <class Kernel, class Params>
@@ -371,7 +419,8 @@ extern "C" int fa2_decode_bf16(const void* q, const void* k, const void* v, cons
                                void* o_parts, void* lse_parts, long long k_sb, long long k_ss,
                                long long k_sh, long long v_sb, long long v_ss, long long v_sh,
                                int batch, int Hkv, int G, int S, int head_dim, int chunk, int ns,
-                               int window, int sink, void* stream) {
+                               int window, int sink, const void* kv_seg, long long kv_seg_sb,
+                               const void* q_seg, void* stream) {
   DecodeParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -383,9 +432,20 @@ extern "C" int fa2_decode_bf16(const void* q, const void* k, const void* v, cons
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.Hkv = Hkv; p.G = G; p.S = S; p.chunk = chunk; p.ns = ns;
   p.window = window; p.sink = sink;
-  if (G < 1 || G > kMaxGroup || head_dim != 128) return cudaErrorInvalidValue;
-  return launch(fa2_decode_kernel<128>, p, dim3(batch * Hkv, ns), 128, ring_bytes<128>(),
-                static_cast<cudaStream_t>(stream));
+  p.kv_seg = static_cast<const int*>(kv_seg);
+  p.kv_seg_sb = kv_seg_sb;
+  p.q_seg = static_cast<const int*>(q_seg);
+  if (G < 1 || G > kMaxGroup) return cudaErrorInvalidValue;
+  const bool seg = kv_seg != nullptr;  // null ids: the unsegmented kernel
+  const dim3 grid(batch * Hkv, ns);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 128)
+    return seg ? launch(fa2_decode_kernel<128, true>, p, grid, 128, ring_bytes<128>(), s)
+               : launch(fa2_decode_kernel<128, false>, p, grid, 128, ring_bytes<128>(), s);
+  if (head_dim == 64)
+    return seg ? launch(fa2_decode_kernel<64, true>, p, grid, 64, ring_bytes<64>(), s)
+               : launch(fa2_decode_kernel<64, false>, p, grid, 64, ring_bytes<64>(), s);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int fa2_decode_paged_bf16(const void* q, const void* k_pages, const void* v_pages,

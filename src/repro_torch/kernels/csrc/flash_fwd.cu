@@ -42,6 +42,28 @@
 // kv tile's 64 ids travel with its K/V tile through the same cp.async
 // group (256 bytes a stage). The bits are the same for the whole CTA, so
 // the barriers stay uniform. With SEG false the kernel is the one above.
+//
+// The SPLIT instantiation replaces the kv_splits > 1 mode of
+// src/repro/kernels/flash_fwd.py:510 _flash_fwd_partitioned (body
+// _fwd_kernel_partitioned :290). Its grid gains a third axis, the kv split:
+// the CTA of (q tile i, split s) reads owner i * ks + s of the split table
+// (kernels/schedule.py build_split_schedule), which holds q tile i's visible
+// kv tiles inside split s, and writes its locally normalised o and lse as
+// f32 partials (B, Hq, ks, Sq, D) / (B, Hq, ks, Sq); an owner with no step
+// writes (0, -inf), the merge identity. A second launch on the same stream,
+// fa2_fwd_fold_kernel, folds the splits in one pass (one CTA of D threads
+// per (q row, batch * q head), the logsumexp of the split lse, then
+// o = sum_s exp(lse_s - m) o_s / l) into the single-pass kernel's outputs,
+// bf16 o (B, Sq, Hq, D) and f32 lse (B, Hq, Sq). What it is for: a short query against a long
+// key set (whisper's cross-attention, 4 prompt rows against 1500 frames) is
+// one q tile, so the single-pass grid has only batch * heads CTAs (32 at
+// B = 4) on 132 SMs, each walking every kv tile in series; the work is
+// bound by the bytes of K and V (12.3 MB, 3.7 us at 3.35 TB/s), and those
+// bytes are read at the card's rate only when enough CTAs are in flight.
+// Splits multiply the CTAs by ks and cut each CTA's walk to 1/ks.
+//
+// Head dims: every variant is instantiated at 128 (qwen3) and 64
+// (whisper). At 64 a CTA holds 46 KB of shared memory instead of 87 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,14 +83,14 @@ struct FwdParams {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
-  __nv_bfloat16* o;
-  float* lse;          // (B, Hq, Sq)
-  const int* table;    // row_ptr[t_q + 1], then (kv_tile << 1) | masked
+  void* o;             // bf16 (B, Sq, Hq, D); SPLIT: f32 (B, Hq, ks, Sq, D)
+  float* lse;          // (B, Hq, ks, Sq); ks == 1 without SPLIT
+  const int* table;    // row_ptr[t_q * ks + 1], then (kv_tile << 1) | masked
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;
-  int Hq, group, Sq, Skv, t_q;
+  long long o_sb, o_ss, o_sh, o_split;
+  int Hq, group, Sq, Skv, t_q, ks;
   int causal, window, sink, q_offset;  // window < 0: no window
   // SEG only: segment ids (batch strides q_seg_sb / kv_seg_sb) and the
   // (B, n_vis) SEG_* bits of the table's steps.
@@ -165,7 +187,7 @@ __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
   return d < p.window || col < p.sink;
 }
 
-template <int D, int NWARPS, bool SEG>
+template <int D, int NWARPS, bool SEG, bool SPLIT>
 __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p) {
   constexpr int BM = 16 * NWARPS;
   constexpr int BN = kBlockN;
@@ -185,13 +207,15 @@ __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p)
   const int warp = threadIdx.x / 32;
   const int qt = p.t_q - 1 - blockIdx.x;  // longest causal rows start first
   const int bh = blockIdx.y;
+  const int split = SPLIT ? blockIdx.z : 0;
+  const int owner = SPLIT ? qt * p.ks + split : qt;
   const int b = bh / p.Hq, h = bh % p.Hq, hk = h / p.group;
   const __nv_bfloat16* qg = p.q + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* kg = p.k + b * p.k_sb + hk * p.k_sh;
   const __nv_bfloat16* vg = p.v + b * p.v_sb + hk * p.v_sh;
   const int q0 = qt * BM;
-  const int beg = p.table[qt], end = p.table[qt + 1];
-  const int* steps = p.table + p.t_q + 1;
+  const int beg = p.table[owner], end = p.table[owner + 1];
+  const int* steps = p.table + p.t_q * p.ks + 1;
   const int row_a = q0 + warp * 16 + lane / 4;  // this thread's two rows
   const int row_b = row_a + 8;
   // SEG: this batch row's step bits, and the ids of the thread's two rows.
@@ -355,39 +379,104 @@ __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p)
     }
   }
 
-  // Finalize: one 1/l per row (C1), then the f32 logsumexp.
+  // Finalize: one 1/l per row (C1), then the f32 logsumexp. SPLIT writes
+  // the f32 partial of its split; a row that saw nothing has acc = 0, l = 0.
   const float l_a = l_r[0] == 0.f ? 1.f : l_r[0];
   const float l_b = l_r[1] == 0.f ? 1.f : l_r[1];
-  __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh;
   const int col0 = (lane & 3) * 2;
+  if (SPLIT) {
+    float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + split * p.o_split;
 #pragma unroll
-  for (int t = 0; t < NT_O; ++t) {
-    if (row_a < p.Sq)
-      *reinterpret_cast<unsigned*>(og + row_a * p.o_ss + t * 8 + col0) =
-          pack_bf16(acc[t][0] / l_a, acc[t][1] / l_a);
-    if (row_b < p.Sq)
-      *reinterpret_cast<unsigned*>(og + row_b * p.o_ss + t * 8 + col0) =
-          pack_bf16(acc[t][2] / l_b, acc[t][3] / l_b);
+    for (int t = 0; t < NT_O; ++t) {
+      if (row_a < p.Sq)
+        *reinterpret_cast<float2*>(og + row_a * p.o_ss + t * 8 + col0) =
+            make_float2(acc[t][0] / l_a, acc[t][1] / l_a);
+      if (row_b < p.Sq)
+        *reinterpret_cast<float2*>(og + row_b * p.o_ss + t * 8 + col0) =
+            make_float2(acc[t][2] / l_b, acc[t][3] / l_b);
+    }
+  } else {
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int t = 0; t < NT_O; ++t) {
+      if (row_a < p.Sq)
+        *reinterpret_cast<unsigned*>(og + row_a * p.o_ss + t * 8 + col0) =
+            pack_bf16(acc[t][0] / l_a, acc[t][1] / l_a);
+      if (row_b < p.Sq)
+        *reinterpret_cast<unsigned*>(og + row_b * p.o_ss + t * 8 + col0) =
+            pack_bf16(acc[t][2] / l_b, acc[t][3] / l_b);
+    }
   }
   if ((lane & 3) == 0) {
-    float* lg = p.lse + static_cast<long long>(bh) * p.Sq;
+    float* lg = p.lse + (static_cast<long long>(bh) * p.ks + split) * p.Sq;
     if (row_a < p.Sq) lg[row_a] = l_r[0] == 0.f ? -INFINITY : m_r[0] + logf(l_a);
     if (row_b < p.Sq) lg[row_b] = l_r[1] == 0.f ? -INFINITY : m_r[1] + logf(l_b);
   }
 }
 
-template <int D, int NWARPS, bool SEG>
-cudaError_t launch(const FwdParams& p, int batch, cudaStream_t stream) {
-  constexpr int BM = 16 * NWARPS;
-  const size_t smem = static_cast<size_t>(BM + 4 * kBlockN) * (D + 8) * sizeof(__nv_bfloat16) +
-                      (SEG ? 2 * kBlockN * sizeof(int) : 0);
-  cudaError_t err = cudaFuncSetAttribute(fa2_fwd_kernel<D, NWARPS, SEG>,
+// The fold of SPLIT's partials: CTA (row, bh) of D threads, thread d folds
+// column d of q row `row` of batch * q head `bh` over the ks splits. The
+// partials are contiguous (B, Hq, ks, Sq, D) / (B, Hq, ks, Sq), the outputs
+// contiguous (B, Sq, Hq, D) bf16 / (B, Hq, Sq) f32. A row that no split saw
+// (every lse -inf) gives o = 0, lse = -inf.
+template <int D>
+__global__ void __launch_bounds__(D) fa2_fwd_fold_kernel(const FwdParams p,
+                                                         __nv_bfloat16* o, float* lse) {
+  const int row = blockIdx.x, bh = blockIdx.y, d = threadIdx.x;
+  const long long base = static_cast<long long>(bh) * p.ks * p.Sq + row;
+  const float* lp = p.lse + base;
+  const float* op = static_cast<const float*>(p.o) + base * D + d;
+  float m = -INFINITY;
+  for (int s = 0; s < p.ks; ++s) m = fmaxf(m, lp[static_cast<long long>(s) * p.Sq]);
+  const float m_safe = m == -INFINITY ? 0.f : m;
+  float l = 0.f, acc = 0.f;
+  for (int s = 0; s < p.ks; ++s) {
+    const float w = expf(lp[static_cast<long long>(s) * p.Sq] - m_safe);
+    l += w;
+    acc += w * op[static_cast<long long>(s) * p.Sq * D];
+  }
+  const float l_safe = l == 0.f ? 1.f : l;
+  const int b = bh / p.Hq, h = bh % p.Hq;
+  o[((static_cast<long long>(b) * p.Sq + row) * p.Hq + h) * D + d] =
+      __float2bfloat16(acc / l_safe);
+  if (d == 0)
+    lse[static_cast<long long>(bh) * p.Sq + row] = l == 0.f ? -INFINITY : m_safe + logf(l_safe);
+}
+
+constexpr int kWarps = 4;  // 64 q rows per CTA (block_q)
+
+template <int D, bool SEG>
+constexpr size_t smem_bytes() {
+  return static_cast<size_t>(16 * kWarps + 4 * kBlockN) * (D + 8) * sizeof(__nv_bfloat16) +
+         (SEG ? 2 * kBlockN * sizeof(int) : 0);
+}
+
+template <int D, bool SEG, bool SPLIT>
+cudaError_t launch(const FwdParams& p, int batch, cudaStream_t stream, __nv_bfloat16* o_fold,
+                   float* lse_fold) {
+  constexpr size_t smem = smem_bytes<D, SEG>();
+  cudaError_t err = cudaFuncSetAttribute(fa2_fwd_kernel<D, kWarps, SEG, SPLIT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.t_q, batch * p.Hq);
-  fa2_fwd_kernel<D, NWARPS, SEG><<<grid, NWARPS * 32, smem, stream>>>(p);
+  const dim3 grid(p.t_q, batch * p.Hq, p.ks);
+  fa2_fwd_kernel<D, kWarps, SEG, SPLIT><<<grid, kWarps * 32, smem, stream>>>(p);
+  if (SPLIT) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    fa2_fwd_fold_kernel<D><<<dim3(p.Sq, batch * p.Hq), D, 0, stream>>>(p, o_fold, lse_fold);
+  }
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch(const FwdParams& p, int batch, bool seg, bool split, cudaStream_t s,
+                     __nv_bfloat16* of, float* lf) {
+  if (seg)
+    return split ? launch<D, true, true>(p, batch, s, of, lf)
+                 : launch<D, true, false>(p, batch, s, of, lf);
+  return split ? launch<D, false, true>(p, batch, s, of, lf)
+               : launch<D, false, false>(p, batch, s, of, lf);
 }
 
 }  // namespace
@@ -396,32 +485,42 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
                             const void* table, long long q_sb, long long q_ss, long long q_sh,
                             long long k_sb, long long k_ss, long long k_sh, long long v_sb,
                             long long v_ss, long long v_sh, long long o_sb, long long o_ss,
-                            long long o_sh, int batch, int Hq, int Hkv, int Sq, int Skv,
-                            int head_dim, int block_q, int block_kv, int causal, int window,
-                            int sink, int q_offset, int t_q, const void* q_seg,
+                            long long o_sh, long long o_split, int batch, int Hq, int Hkv,
+                            int Sq, int Skv, int head_dim, int block_q, int block_kv, int causal,
+                            int window, int sink, int q_offset, int t_q, int split, int ks,
+                            const void* q_seg,
                             const void* kv_seg, long long q_seg_sb, long long kv_seg_sb,
-                            const void* bits, int n_vis, void* stream) {
+                            const void* bits, int n_vis, void* o_fold, void* lse_fold,
+                            void* stream) {
   FwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<__nv_bfloat16*>(o);
+  p.o = o;
   p.lse = static_cast<float*>(lse);
   p.table = static_cast<const int*>(table);
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
-  p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
+  p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh; p.o_split = o_split;
   p.Hq = Hq; p.group = Hq / Hkv; p.Sq = Sq; p.Skv = Skv; p.t_q = t_q;
+  p.ks = split ? ks : 1;
   p.causal = causal; p.window = window; p.sink = sink; p.q_offset = q_offset;
   p.q_seg = static_cast<const int*>(q_seg);
   p.kv_seg = static_cast<const int*>(kv_seg);
   p.bits = static_cast<const int*>(bits);
   p.q_seg_sb = q_seg_sb; p.kv_seg_sb = kv_seg_sb; p.n_vis = n_vis;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // The instantiations the serving and training paths need (qwen3: head_dim
-  // 128), without and with segments (null bits: none).
-  if (head_dim != 128 || block_q != 64 || block_kv != kBlockN) return cudaErrorInvalidValue;
-  if (bits != nullptr) return launch<128, 4, true>(p, batch, s);
-  return launch<128, 4, false>(p, batch, s);
+  // Head dims 128 (qwen3) and 64 (whisper); without and with segments (null
+  // bits: none); single-pass, or split-KV partials (o, lse) folded into
+  // (o_fold, lse_fold).
+  if (block_q != 16 * kWarps || block_kv != kBlockN || ks < 1) return cudaErrorInvalidValue;
+  if (split && (o_fold == nullptr || lse_fold == nullptr))
+    return cudaErrorInvalidValue;
+  const bool seg = bits != nullptr;
+  auto* of = static_cast<__nv_bfloat16*>(o_fold);
+  auto* lf = static_cast<float*>(lse_fold);
+  if (head_dim == 128) return dispatch<128>(p, batch, seg, split != 0, s, of, lf);
+  if (head_dim == 64) return dispatch<64>(p, batch, seg, split != 0, s, of, lf);
+  return cudaErrorInvalidValue;
 }

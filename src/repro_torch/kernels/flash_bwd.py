@@ -65,6 +65,10 @@ from repro_torch.kernels.flash_fwd import (_check_kernel_inputs, _check_layout, 
 from repro_torch.kernels.schedule import (build_kv_tile_schedule, build_q_tile_schedule,
                                           device_schedule)
 
+# Head dims the backward kernels are instantiated for: 128 (qwen3). Head dim
+# 64 (whisper training) comes with the backward's next instantiation.
+KERNEL_HEAD_DIMS = (128,)
+
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
@@ -86,7 +90,7 @@ def flash_bwd_delta(o, do):
         return flash_bwd_delta_plain(o, do)
     _check_device("flash_bwd_delta", o)
     B, Sq, Hq, D = o.shape
-    _check_kernel_inputs("the CUDA delta pre-pass", None, o=o, do=do)
+    _check_kernel_inputs("the CUDA delta pre-pass", None, KERNEL_HEAD_DIMS, o=o, do=do)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=o.device)
     err = _lib().fa2_bwd_delta_bf16(
         o.data_ptr(), do.data_ptr(), delta.data_ptr(),
@@ -267,7 +271,7 @@ def _kernel_args(what, q, k, v, do, lse, delta, spec, block_q, block_kv, segment
     the launch). Returns (arguments, tensors to hold until the launch)."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
-    _check_kernel_inputs(what, (block_q, block_kv), q=q, k=k, v=v, do=do)
+    _check_kernel_inputs(what, (block_q, block_kv), KERNEL_HEAD_DIMS, q=q, k=k, v=v, do=do)
     if lse.device != q.device or delta.device != q.device:
         raise ValueError("lse and delta must lie on q's device")
     if not (lse.is_contiguous() and delta.is_contiguous()):

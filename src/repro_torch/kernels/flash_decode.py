@@ -4,8 +4,9 @@ Two kernels, both in ``csrc/flash_decode.cu`` (its header says what bounds
 them on an H100 and how the design answers):
 
 * :func:`flash_decode` replaces the Pallas TPU kernel
-  ``repro/kernels/flash_decode.py:77 flash_decode_kernel`` (packed-cache
-  segments not yet ported). k/v are the contiguous serving cache
+  ``repro/kernels/flash_decode.py:77 flash_decode_kernel``, and
+  :func:`flash_decode_varlen` its packed-cache segment branch (the same
+  kernel source instantiated with ``SEG``). k/v are the contiguous serving cache
   (B, S, Hkv, D), read in place. Its split geometry is the kernel's
   (ceil-div, 8-aligned chunks with a masked tail), not ``core/decode.py``'s
   (which degrades ``num_splits`` until it divides S): :func:`decode_geometry`.
@@ -34,7 +35,10 @@ import torch.nn.functional as F
 from repro_torch.core.masks import DEFAULT_MASK_VALUE
 from repro_torch.kernels import _build
 
-KERNEL_HEAD_DIMS = (128,)
+# Head dims the kernels are instantiated for: the contiguous decode at 128
+# (qwen3) and 64 (whisper), the paged decode at 128.
+KERNEL_HEAD_DIMS = (64, 128)
+PAGED_HEAD_DIMS = (128,)
 KERNEL_MAX_GROUP = 8
 
 
@@ -46,14 +50,18 @@ def decode_geometry(S: int, num_splits: int):
     return -(-S // chunk), chunk
 
 
-def _check_layout(q, k, v, lengths):
+def _check_layout(q, k, v, lengths, segments=None):
     if q.ndim != 3 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B*Hkv,G,D), k/v (B,S,Hkv,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    B, _, Hkv, D = k.shape
+    B, S, Hkv, D = k.shape
     if q.shape[0] != B * Hkv or q.shape[2] != D or lengths.shape != (B,):
         raise ValueError(f"q {tuple(q.shape)} / lengths {tuple(lengths.shape)} "
                          f"do not match the cache {tuple(k.shape)}")
+    if segments is not None and (tuple(segments[0].shape) != (B, S)
+                                 or tuple(segments[1].shape) != (B,)):
+        raise ValueError(f"segments must be kv_seg {(B, S)} and q_seg {(B,)}, got "
+                         f"{tuple(segments[0].shape)} and {tuple(segments[1].shape)}")
 
 
 def flash_decode(q, k, v, lengths, *, num_splits: int = 8,
@@ -63,11 +71,45 @@ def flash_decode(q, k, v, lengths, *, num_splits: int = 8,
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths, num_splits=num_splits,
                                   window=window, sink=sink)
+    out = _launch(q, k, v, lengths, num_splits, window, sink, None)
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def flash_decode_varlen(q, k, v, lengths, kv_seg, q_seg, *, num_splits: int = 8,
+                        window: Optional[int] = None, sink: int = 0):
+    """Packed decode: :func:`flash_decode` over a packed cache, int32 ids
+    kv_seg (B, S) and q_seg (B,) on q's device; a position is visible only
+    where ``kv_seg[b] == q_seg[b]``. The kernel's ``SEG`` instantiation."""
+    segments = (kv_seg, q_seg)
+    _check_layout(q, k, v, lengths, segments)
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, lengths, num_splits=num_splits, window=window,
+                                  sink=sink, segments=segments)
+    for name, t in (("kv_seg", kv_seg), ("q_seg", q_seg)):
+        if t.dtype != torch.int32 or t.device != q.device or t.stride(-1) != 1:
+            raise ValueError(f"{name} must be int32 on {q.device} with a unit last stride")
+    out = _launch(q, k, v, lengths, num_splits, window, sink, segments)
+    flash_decode_varlen.launches += 1
+    return out
+
+
+flash_decode_varlen.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def _launch(q, k, v, lengths, num_splits, window, sink, segments):
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cuda (kernel) or cpu (plain), not {q.device}")
     B, S, Hkv, D = k.shape
     G = q.shape[1]
     _check_kernel_inputs(q, k, v, lengths)
+    seg_args = (None, 0, None)
+    if segments is not None:
+        kv_seg, q_seg = segments
+        seg_args = (kv_seg.data_ptr(), kv_seg.stride(0), q_seg.data_ptr())
     ns, chunk = decode_geometry(S, num_splits)
     o_parts = torch.empty((B * Hkv, ns, G, D), dtype=torch.float32, device=q.device)
     lse_parts = torch.empty((B * Hkv, ns, G), dtype=torch.float32, device=q.device)
@@ -77,26 +119,23 @@ def flash_decode(q, k, v, lengths, *, num_splits: int = 8,
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         B, Hkv, G, S, D, chunk, ns,
-        -1 if window is None else int(window), int(sink),
+        -1 if window is None else int(window), int(sink), *seg_args,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "fa2_decode_bf16")
-    flash_decode.launches += 1
     return o_parts, lse_parts
 
 
-flash_decode.launches = 0  # kernel launches (CUDA tensors only)
-
 
 def _check_kernel_inputs(q, k, v, lengths):
-    _check_kernel_common(q, k, v, lengths)
+    _check_kernel_common(q, k, v, lengths, KERNEL_HEAD_DIMS)
     for name, t in (("k", k), ("v", v)):
         if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(f"{name} needs a unit last stride and the others multiples "
                              f"of 8, got strides {t.stride()}")
 
 
-def _check_kernel_common(q, k, v, lengths):
+def _check_kernel_common(q, k, v, lengths, head_dims):
     for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -109,9 +148,8 @@ def _check_kernel_common(q, k, v, lengths):
         raise ValueError("q must be contiguous (B*Hkv, G, D)")
     if lengths.dtype != torch.int32 or not lengths.is_contiguous():
         raise TypeError("lengths must be a contiguous int32 tensor")
-    if q.shape[2] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA decode supports head_dim in {KERNEL_HEAD_DIMS}, "
-                         f"got {q.shape[2]}")
+    if q.shape[2] not in head_dims:
+        raise ValueError(f"the CUDA decode supports head_dim in {head_dims}, got {q.shape[2]}")
     if q.shape[1] > KERNEL_MAX_GROUP:
         raise ValueError(f"the CUDA decode supports up to {KERNEL_MAX_GROUP} q heads "
                          f"per kv head, got {q.shape[1]}")
@@ -121,7 +159,7 @@ def _check_kernel_common(q, k, v, lengths):
 def _lib():
     lib = _build.load("flash_decode")
     P, I, L = _build.VOIDP, _build.INT, _build.I64
-    lib.fa2_decode_bf16.argtypes = [P] * 6 + [L] * 6 + [I] * 9 + [P]
+    lib.fa2_decode_bf16.argtypes = [P] * 6 + [L] * 6 + [I] * 9 + [P, L, P, P]
     lib.fa2_decode_bf16.restype = ctypes.c_int
     lib.fa2_decode_paged_bf16.argtypes = [P] * 7 + [I] * 11 + [P]
     lib.fa2_decode_paged_bf16.restype = ctypes.c_int
@@ -129,13 +167,15 @@ def _lib():
 
 
 def flash_decode_plain(q, k, v, lengths, *, num_splits: int = 8,
-                       window: Optional[int] = None, sink: int = 0):
+                       window: Optional[int] = None, sink: int = 0, segments=None):
     """The JAX decode kernel's function in plain PyTorch, all splits at
     once: per split, the max over the whole chunk (masked positions take
     DEFAULT_MASK_VALUE), P rounded to the cache dtype before P V, and
-    (0, -inf) for a split with no visible position."""
+    (0, -inf) for a split with no visible position. ``segments`` (kv_seg
+    (B, S), q_seg (B,)): only positions with ``kv_seg == q_seg`` are
+    visible; ids past S read as -1."""
     flash_decode_plain.calls += 1
-    _check_layout(q, k, v, lengths)
+    _check_layout(q, k, v, lengths, segments)
     B, S, Hk, D = k.shape
     G = q.shape[1]
     ns, chunk = decode_geometry(S, num_splits)
@@ -154,6 +194,10 @@ def flash_decode_plain(q, k, v, lengths, *, num_splits: int = 8,
         if sink:
             in_win = in_win | (cols[None] < sink)
         valid = valid & in_win
+    if segments is not None:
+        kv_seg, q_seg = (x.to(q.device).long() for x in segments)
+        ids = F.pad(kv_seg, (0, pad), value=-1).reshape(B, ns, chunk)
+        valid = valid & (ids == q_seg[:, None, None])
     valid = valid[:, None, :, None, :]  # (B, 1, ns, 1, chunk)
     s = s.masked_fill(~valid, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True)
@@ -212,7 +256,7 @@ def flash_decode_paged(q, k_pages, v_pages, lengths, block_table, *, num_splits:
     Hkv, P, ps, D = k_pages.shape
     B, n_pages = block_table.shape
     G = q.shape[1]
-    _check_kernel_common(q, k_pages, v_pages, lengths)
+    _check_kernel_common(q, k_pages, v_pages, lengths, PAGED_HEAD_DIMS)
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages), ("block_table", block_table)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

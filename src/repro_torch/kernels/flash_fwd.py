@@ -19,8 +19,26 @@ share no segment are skipped, and only a step flagged masked or not
 uniform applies the element mask. The same kernel source, instantiated
 with ``SEG``.
 
-Each wrapper takes the plain version :func:`flash_fwd_plain` only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+The split-KV forward :func:`flash_fwd_splitkv` replaces the ``kv_splits >
+1`` mode of ``flash_fwd.py:510 _flash_fwd_partitioned`` (body
+``_fwd_kernel_partitioned`` :290): the kv tiles are cut into ``ks``
+contiguous ranges (:func:`~repro_torch.kernels.schedule.kv_split_edges`),
+one CTA per (q tile, batch * q head, split) walks its range's visible
+tiles, and each writes its locally normalised f32 partial, o_parts
+(B, Hq, ks, Sq, D) and lse_parts (B, Hq, ks, Sq) -- the JAX layout
+(BH, ks, Sq, D) / (BH, ks, Sq). A (q tile, split) with no visible tile
+writes (0, -inf). A second kernel on the same stream folds the partials
+in one pass into the single-pass kernel's (o, lse)
+(:func:`~repro_torch.core.online_softmax.fold_partials` is its plain
+version); the wrapper returns both as a :class:`SplitForward`.
+:func:`flash_fwd_splitkv_varlen` is its segment variant. Both are the same
+kernel source instantiated with ``SPLIT``.
+
+The kernels are instantiated at head_dim 64 and 128 (``KERNEL_HEAD_DIMS``).
+
+Each wrapper takes its plain version (:func:`flash_fwd_plain`,
+:func:`flash_fwd_splitkv_plain`) only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -34,13 +52,16 @@ import torch.nn.functional as F
 
 from repro_torch.core.masks import (MaskSpec, apply_mask, make_segment_mask, make_tile_mask,
                                     pad_segments)
+from repro_torch.core.online_softmax import fold_partials
 from repro_torch.kernels import _build
-from repro_torch.kernels.schedule import (build_q_tile_schedule, decode_step_bits,
-                                          device_schedule, device_step_bits, segment_step_bits)
+from repro_torch.kernels.schedule import (build_q_tile_schedule, build_split_schedule,
+                                          decode_step_bits, device_schedule, device_step_bits,
+                                          segment_step_bits)
 
-# (block_q, block_kv) and head dims the CUDA kernel is instantiated for.
+# (block_q, block_kv) and head dims the CUDA kernels are instantiated for:
+# 128 (qwen3) and 64 (whisper), every variant (segments, split-KV).
 KERNEL_BLOCKS = ((64, 64),)
-KERNEL_HEAD_DIMS = (128,)
+KERNEL_HEAD_DIMS = (64, 128)
 
 
 def _tiles(n: int, block: int) -> int:
@@ -86,17 +107,83 @@ def flash_fwd_varlen(q, k, v, spec: MaskSpec, q_seg, kv_seg, *, block_q: int, bl
 flash_fwd_varlen.launches = 0  # kernel launches (CUDA tensors only)
 
 
-def _launch(q, k, v, spec, block_q, block_kv, segments):
+def split_count(Skv: int, block_kv: int, kv_splits: int) -> int:
+    """The number of kv splits a split-KV launch makes: ``kv_splits``
+    clamped to [1, t_kv], as the JAX ``_resolve_partitions`` clamps it."""
+    return max(1, min(kv_splits, _tiles(Skv, block_kv)))
+
+
+class SplitForward(NamedTuple):
+    """What a split-KV forward returns: the folded outputs, as the
+    single-pass kernel gives them, and the per-split partials they were
+    folded from (``ks = split_count(Skv, block_kv, kv_splits)``)."""
+
+    o: torch.Tensor          # (B, Sq, Hq, D), q's dtype
+    lse: torch.Tensor        # (B, Hq, Sq) f32
+    o_parts: torch.Tensor    # (B, Hq, ks, Sq, D) f32
+    lse_parts: torch.Tensor  # (B, Hq, ks, Sq) f32
+
+
+def flash_fwd_splitkv(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int,
+                      kv_splits: int) -> SplitForward:
+    """Split-KV forward on pre-scaled q, partials and their fold. See the
+    module docstring."""
+    _check_layout(q, k, v)
+    if q.device.type == "cpu":
+        return flash_fwd_splitkv_plain(q, k, v, spec, block_q=block_q, block_kv=block_kv,
+                                       kv_splits=kv_splits)
+    out = _launch(q, k, v, spec, block_q, block_kv, None, kv_splits)
+    flash_fwd_splitkv.launches += 1
+    return out
+
+
+flash_fwd_splitkv.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def flash_fwd_splitkv_varlen(q, k, v, spec: MaskSpec, q_seg, kv_seg, *, block_q: int,
+                             block_kv: int, kv_splits: int):
+    """The segment variant of :func:`flash_fwd_splitkv` (int32 q_seg (B, Sq),
+    kv_seg (B, Skv))."""
+    _check_layout(q, k, v)
+    check_segments(q, k, q_seg, kv_seg)
+    if q.device.type == "cpu":
+        return flash_fwd_splitkv_plain(q, k, v, spec, block_q=block_q, block_kv=block_kv,
+                                       kv_splits=kv_splits, q_seg=q_seg, kv_seg=kv_seg)
+    out = _launch(q, k, v, spec, block_q, block_kv, (q_seg, kv_seg), kv_splits)
+    flash_fwd_splitkv_varlen.launches += 1
+    return out
+
+
+flash_fwd_splitkv_varlen.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def _launch(q, k, v, spec, block_q, block_kv, segments, kv_splits=None):
+    """One launch of the forward kernel; ``kv_splits`` None is the
+    single-pass kernel, (o in q's dtype, lse), an int the split-KV one and
+    its fold, a :class:`SplitForward`."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on cuda (kernel) or cpu (plain), not {q.device}")
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     _check_kernel_inputs("the CUDA forward", (block_q, block_kv), q=q, k=k, v=v)
     t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
-    sched = device_schedule(spec, t_q, t_kv, block_q, block_kv, Skv, False, str(q.device))
+    split = kv_splits is not None
+    ks = split_count(Skv, block_kv, kv_splits) if split else 1
+    if ks > 65535:
+        raise ValueError(f"{ks} kv splits exceed the grid's z limit (65535)")
+    sched = device_schedule(spec, t_q, t_kv, block_q, block_kv, Skv, False, str(q.device), ks)
     seg = segment_args(segments, sched, block_q, block_kv, kv_major=False)
-    o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    # The single-pass outputs, or the fold's (the fold kernel takes all four
+    # tensors contiguous).
+    o_fold = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    lse_fold = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    if split:
+        o = torch.empty((B, Hq, ks, Sq, D), dtype=torch.float32, device=q.device)
+        lse = torch.empty((B, Hq, ks, Sq), dtype=torch.float32, device=q.device)
+        o_strides = (o.stride(0), o.stride(3), o.stride(1), o.stride(2))
+    else:
+        o, lse = o_fold, lse_fold
+        o_strides = (o.stride(0), o.stride(1), o.stride(2), 0)
     lib = _lib()
     err = lib.fa2_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -104,14 +191,15 @@ def _launch(q, k, v, spec, block_q, block_kv, segments):
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        o.stride(0), o.stride(1), o.stride(2),
+        *o_strides,
         B, Hq, Hkv, Sq, Skv, D, block_q, block_kv,
         int(spec.causal), -1 if spec.window is None else int(spec.window),
-        int(spec.sink), int(spec.q_offset), t_q, *seg.args,
+        int(spec.sink), int(spec.q_offset), t_q, int(split), ks, *seg.args,
+        o_fold.data_ptr() if split else None, lse_fold.data_ptr() if split else None,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "fa2_fwd_bf16")
-    return o, lse
+    return SplitForward(o_fold, lse_fold, o, lse) if split else (o, lse)
 
 
 def check_segments(q, k, q_seg, kv_seg) -> None:
@@ -149,11 +237,11 @@ def segment_args(segments, sched, block_q, block_kv, *, kv_major: bool) -> _Segm
     )
 
 
-def _check_kernel_inputs(what: str, blocks, **tensors):
+def _check_kernel_inputs(what: str, blocks, head_dims=KERNEL_HEAD_DIMS, **tensors):
     """Raise on what the CUDA kernels do not take: bf16 tensors on the first
-    one's device, unit last stride, 16-byte aligned rows, the head_dim and
-    (block_q, block_kv) they are instantiated for (``blocks`` None: no
-    tiles to check)."""
+    one's device, unit last stride, 16-byte aligned rows, the head dims
+    (``head_dims``) and (block_q, block_kv) they are instantiated for
+    (``blocks`` None: no tiles to check)."""
     first = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.device != first.device:
@@ -165,9 +253,8 @@ def _check_kernel_inputs(what: str, blocks, **tensors):
                              f"of 8, got strides {t.stride()}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if first.shape[3] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what} supports head_dim in {KERNEL_HEAD_DIMS}, "
-                         f"got {first.shape[3]}")
+    if first.shape[3] not in head_dims:
+        raise ValueError(f"{what} supports head_dim in {head_dims}, got {first.shape[3]}")
     if blocks is not None and tuple(blocks) not in KERNEL_BLOCKS:
         raise ValueError(f"{what} supports (block_q, block_kv) in "
                          f"{KERNEL_BLOCKS}, got {tuple(blocks)}")
@@ -179,7 +266,7 @@ def _check_kernel_inputs(what: str, blocks, **tensors):
 def _lib():
     lib = _build.load("flash_fwd")
     P, I, L = _build.VOIDP, _build.INT, _build.I64
-    lib.fa2_fwd_bf16.argtypes = [P] * 6 + [L] * 12 + [I] * 13 + [P, P, L, L, P, I, P]
+    lib.fa2_fwd_bf16.argtypes = [P] * 6 + [L] * 13 + [I] * 15 + [P, P, L, L, P, I, P, P, P]
     lib.fa2_fwd_bf16.restype = ctypes.c_int
     return lib
 
@@ -198,26 +285,65 @@ def flash_fwd_plain(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int,
     flash_fwd_plain.calls += 1
     _check_layout(q, k, v)
     B, Sq, Hq, D = q.shape
+    t_q, t_kv = _tiles(Sq, block_q), _tiles(k.shape[1], block_kv)
+    sched = build_q_tile_schedule(spec, t_q, t_kv, block_q, block_kv, k.shape[1])
+    o, lse = _plain_walk(q, k, v, spec, block_q, block_kv, sched, q_seg, kv_seg)
+    return o[0].reshape(B, Sq, Hq, D).to(q.dtype), lse[0].reshape(B, Hq, Sq)
+
+
+flash_fwd_plain.calls = 0
+
+
+def flash_fwd_splitkv_plain(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int,
+                            kv_splits: int, q_seg=None, kv_seg=None) -> SplitForward:
+    """The split-KV kernels' algorithm in plain PyTorch: the walk of
+    :func:`flash_fwd_plain` over :func:`build_split_schedule`'s owners, each
+    (q tile, split) finalised on its own into f32 partials o_parts
+    (B, Hq, ks, Sq, D) and lse_parts (B, Hq, ks, Sq), then
+    :func:`fold_partials`."""
+    flash_fwd_splitkv_plain.calls += 1
+    _check_layout(q, k, v)
+    B, Sq, Hq, D = q.shape
+    t_q, t_kv = _tiles(Sq, block_q), _tiles(k.shape[1], block_kv)
+    sched = build_split_schedule(spec, t_q, t_kv, block_q, block_kv, k.shape[1], kv_splits)
+    o, lse = _plain_walk(q, k, v, spec, block_q, block_kv, sched, q_seg, kv_seg)
+    ks = sched.splits  # o (ks, B, Sq, Hk, G, D), lse (ks, B, Hk, G, Sq)
+    o_parts = o.permute(1, 3, 4, 0, 2, 5).reshape(B, Hq, ks, Sq, D)
+    lse_parts = lse.permute(1, 2, 3, 0, 4).reshape(B, Hq, ks, Sq)
+    o_f, lse_f = fold_partials(o_parts, lse_parts, dim=2)
+    return SplitForward(o_f.transpose(1, 2).to(q.dtype).contiguous(), lse_f, o_parts, lse_parts)
+
+
+flash_fwd_splitkv_plain.calls = 0
+
+
+def _plain_walk(q, k, v, spec, block_q, block_kv, sched, q_seg, kv_seg):
+    """Every owner of ``sched`` (q tile ``a // splits``, split ``a %
+    splits``) walked and finalised as the kernel does: o (ks, B, Sq, Hk, G,
+    D) f32 and lse (ks, B, Hk, G, Sq); an owner with no step gives (0,
+    -inf)."""
+    B, Sq, Hq, D = q.shape
     _, Skv, Hk, _ = k.shape
     G = Hq // Hk
+    ks = sched.splits
     t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
-    sched = build_q_tile_schedule(spec, t_q, t_kv, block_q, block_kv, Skv)
     seg = _PlainSegments.of(q_seg, kv_seg, sched, block_q, block_kv, kv_major=False)
     # K/V rows past the end read as zeros and are masked, as in the kernel.
     pad = t_kv * block_kv - Skv
     kp = F.pad(k, (0, 0, 0, 0, 0, pad)).float()
     vp = F.pad(v, (0, 0, 0, 0, 0, pad))
     qh = q.reshape(B, Sq, Hk, G, D).float()
-    o = torch.zeros((B, Sq, Hk, G, D), dtype=torch.float32, device=q.device)
-    lse = torch.full((B, Hk, G, Sq), float("-inf"), device=q.device)
-    for i in range(t_q):
+    o = torch.zeros((ks, B, Sq, Hk, G, D), dtype=torch.float32, device=q.device)
+    lse = torch.full((ks, B, Hk, G, Sq), float("-inf"), device=q.device)
+    for a in range(t_q * ks):
+        i, split = divmod(a, ks)
         r0, r1 = i * block_q, min((i + 1) * block_q, Sq)
         qi = qh[:, r0:r1]
         rows = torch.arange(r0, r1, device=q.device) + spec.q_offset
         m = torch.full((B, Hk, G, r1 - r0), float("-inf"), device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros((B, Hk, G, r1 - r0, D), device=q.device)
-        for s in range(sched.row_ptr[i], sched.row_ptr[i + 1]):
+        for s in range(sched.row_ptr[a], sched.row_ptr[a + 1]):
             active, needs_mask = seg.step(s, sched.masked[s])
             if active is None:
                 continue
@@ -240,14 +366,12 @@ def flash_fwd_plain(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int,
             l = seg.select(active, l_new, l)
             m = seg.select(active, m_new, m)
         l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-        o[:, r0:r1] = (acc / l_safe[..., None]).permute(0, 3, 1, 2, 4)
-        lse[..., r0:r1] = torch.where(
+        o[split, :, r0:r1] = (acc / l_safe[..., None]).permute(0, 3, 1, 2, 4)
+        lse[split, ..., r0:r1] = torch.where(
             l == 0.0, torch.full_like(l, float("-inf")), m + torch.log(l_safe)
         )
-    return o.reshape(B, Sq, Hq, D).to(q.dtype), lse.reshape(B, Hq, Sq)
+    return o, lse
 
-
-flash_fwd_plain.calls = 0
 
 
 class _PlainSegments:

@@ -39,6 +39,59 @@ DEFAULT_DECODE_SPLITS = 8
 BLOCK_Q = BLOCK_KV = 64
 
 
+# Forward partitions (paper Section 3.2), the JAX ``default_forward_partitions``
+# (``ops.py:170``) restated for the H100. The TPU deals q tiles into bands
+# to fill its cores; here every q tile is its own CTA on the grid's first
+# axis, which does the banding, so only the kv split is left to choose. Its
+# rule keeps the JAX form: split the kv axis only when all q rows fit one q
+# tile (Sq <= 64 here), there are at least 4 kv tiles, and batch * q heads
+# is below the target. The TPU target (64 cells, ``ops.py:167``) becomes the
+# number of forward CTAs that fill the card once: 132 SMs times the CTAs one
+# SM holds at once. At head_dim 64 a CTA of 128 threads takes 46 KB of
+# shared memory and 132-138 registers a thread (ptxas for sm_90a), about
+# 17.4 K of the SM's 64 K registers, so 3 fit; at head_dim 128, 87 KB and
+# 168-183 registers, so 2 fit. Other head dims (the CPU tests' 16) take the
+# figure of the next kernel head dim up.
+H100_SMS = 132
+FWD_CTAS_PER_SM = {64: 3, 128: 2}
+MIN_SPLIT_KV_TILES = 4
+
+
+def forward_target_ctas(head_dim: int) -> int:
+    """Forward CTAs that fill the H100 once at ``head_dim``."""
+    fit = min((d for d in FWD_CTAS_PER_SM if d >= head_dim), default=max(FWD_CTAS_PER_SM))
+    return H100_SMS * FWD_CTAS_PER_SM[fit]
+
+
+def default_kv_splits(bh: int, t_q: int, t_kv: int, head_dim: int) -> int:
+    """The kv splits when none is given: ``min(t_kv, ceil(target / bh))``
+    in the short-q, long-kv corner (``t_q == 1``, ``t_kv >= 4``, ``bh``
+    below the target), else 1. Splits change the summation order (exact up
+    to rounding), so other shapes split only when asked."""
+    target = forward_target_ctas(head_dim)
+    if t_q == 1 and t_kv >= MIN_SPLIT_KV_TILES and bh < target:
+        return min(t_kv, -(-target // bh))
+    return 1
+
+
+def check_kv_splits(kv_splits) -> None:
+    if kv_splits is not None and (isinstance(kv_splits, bool) or not isinstance(kv_splits, int)
+                                  or kv_splits < 1):
+        raise ValueError(f"kv_splits must be an int >= 1 (or None for auto), got {kv_splits!r}")
+
+
+def resolve_kv_splits(kv_splits, q_shape, k_shape, block_q=None, block_kv=None) -> int:
+    """The knob (explicit > auto) -> the concrete kv split count, clamped to
+    the kv tile count as the JAX ``_resolve_partitions`` (``ops.py:193``)
+    clamps it. Public layouts: q (B, Sq, Hq, D), k (B, Skv, Hkv, D)."""
+    check_kv_splits(kv_splits)
+    B, Sq, Hq, D = q_shape
+    t_q = -(-Sq // (block_q or BLOCK_Q))
+    t_kv = -(-k_shape[1] // (block_kv or BLOCK_KV))
+    ks = default_kv_splits(B * Hq, t_q, t_kv, D) if kv_splits is None else kv_splits
+    return max(1, min(ks, t_kv))
+
+
 def _prep(q: torch.Tensor, scale: float) -> torch.Tensor:
     """q pre-scaled in f32 and cast back to its dtype, exactly as the JAX
     wrapper does, so both round the same way."""
@@ -71,15 +124,13 @@ class _FlashCore(torch.autograd.Function):
     scaled q: the scale is applied by autograd through ``_prep``, which
     stays outside this Function. With int32 segment ids q_seg (B, Sq) and
     kv_seg (B, Skv) every kernel is its segment variant; the ids carry no
-    gradient."""
+    gradient. With ``kv_splits > 1`` the forward is the split-KV kernel and
+    its fold, as the JAX ``_core_fwd`` (``ops.py:399``) folds the partials;
+    the backward reads the folded (o, lse) and is unchanged."""
 
     @staticmethod
-    def forward(ctx, qs, k, v, q_seg, kv_seg, spec, block_q, block_kv, bwd):
-        tiles = dict(block_q=block_q, block_kv=block_kv)
-        if q_seg is None:
-            o, lse = _fwd.flash_fwd(qs, k, v, spec, **tiles)
-        else:
-            o, lse = _fwd.flash_fwd_varlen(qs, k, v, spec, q_seg, kv_seg, **tiles)
+    def forward(ctx, qs, k, v, q_seg, kv_seg, spec, block_q, block_kv, bwd, kv_splits=1):
+        o, lse = _forward(qs, k, v, q_seg, kv_seg, spec, block_q, block_kv, kv_splits)
         ctx.save_for_backward(qs, k, v, o, lse, q_seg, kv_seg)
         ctx.meta = (spec, block_q, block_kv, bwd)
         ctx.mark_non_differentiable(lse)
@@ -105,32 +156,55 @@ class _FlashCore(torch.autograd.Function):
             dk, dv = dkv(*args, **tiles)
             dq = dq_fn(*args, **tiles)
         return (dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None,
-                None)
+                None, None)
+
+
+def _forward(qs, k, v, q_seg, kv_seg, spec, block_q, block_kv, kv_splits):
+    """(o (B, Sq, Hq, D) in q's dtype, lse (B, Hq, Sq) f32): the forward
+    kernel, or with ``kv_splits > 1`` the split-KV kernel and its fold."""
+    tiles = dict(block_q=block_q, block_kv=block_kv)
+    if kv_splits == 1:
+        if q_seg is None:
+            return _fwd.flash_fwd(qs, k, v, spec, **tiles)
+        return _fwd.flash_fwd_varlen(qs, k, v, spec, q_seg, kv_seg, **tiles)
+    if q_seg is None:
+        out = _fwd.flash_fwd_splitkv(qs, k, v, spec, kv_splits=kv_splits, **tiles)
+    else:
+        out = _fwd.flash_fwd_splitkv_varlen(qs, k, v, spec, q_seg, kv_seg, kv_splits=kv_splits,
+                                            **tiles)
+    return out.o, out.lse
 
 
 def flash_attention_with_lse(
     q, k, v, spec: MaskSpec = MaskSpec(causal=True), *,
     scale: Optional[float] = None,
     block_q: int = BLOCK_Q, block_kv: int = BLOCK_KV, bwd: str = "fused",
+    kv_splits: Optional[int] = None,
 ):
     """Differentiable FA2. q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D) -> (o (B,Sq,Hq,D),
     lse (B,Hq,Sq) f32; lse carries no gradient). ``bwd`` is one of
-    ``BWD_MODES``. The counterpart of ``flash_attention_pallas_with_lse``."""
+    ``BWD_MODES``; ``kv_splits`` (None: the auto policy of
+    :func:`default_kv_splits`) as :func:`resolve_kv_splits` resolves it.
+    The counterpart of ``flash_attention_pallas_with_lse``; its
+    ``num_q_bands`` has none, since the q tile is already a grid axis."""
     _check_bwd(bwd)
+    ks = resolve_kv_splits(kv_splits, q.shape, k.shape, block_q, block_kv)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _FlashCore.apply(_prep(q, scale), k, v, None, None, spec, block_q, block_kv, bwd)
+    return _FlashCore.apply(_prep(q, scale), k, v, None, None, spec, block_q, block_kv, bwd, ks)
 
 
 def flash_attention(
     q, k, v, spec: MaskSpec = MaskSpec(causal=True), *,
     scale: Optional[float] = None,
     block_q: int = BLOCK_Q, block_kv: int = BLOCK_KV, bwd: str = "fused",
+    kv_splits: Optional[int] = None,
 ):
     """Differentiable FA2, output only (the counterpart of
     ``flash_attention_pallas``)."""
     return flash_attention_with_lse(
-        q, k, v, spec, scale=scale, block_q=block_q, block_kv=block_kv, bwd=bwd
+        q, k, v, spec, scale=scale, block_q=block_q, block_kv=block_kv, bwd=bwd,
+        kv_splits=kv_splits,
     )[0]
 
 
@@ -156,6 +230,7 @@ def flash_attention_varlen(
     q, k, v, segment_ids, spec: MaskSpec = MaskSpec(causal=True), *,
     kv_segment_ids=None, scale: Optional[float] = None,
     block_q: int = BLOCK_Q, block_kv: int = BLOCK_KV, bwd: str = "fused",
+    kv_splits: Optional[int] = None,
 ):
     """Differentiable segment-packed (varlen) FA2, the counterpart of
     ``flash_attention_pallas_varlen`` (JAX ``ops.py:526``). Each batch row
@@ -165,17 +240,19 @@ def flash_attention_varlen(
     the MaskSpec admits the global positions. Tiles that share no segment
     are skipped in every kernel. Returns o (B, Sq, Hq, D)."""
     _check_bwd(bwd)
+    ks = resolve_kv_splits(kv_splits, q.shape, k.shape, block_q, block_kv)
     q_seg, kv_seg = _segment_ids(q, k, segment_ids, kv_segment_ids)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _FlashCore.apply(_prep(q, scale), k, v, q_seg, kv_seg, spec, block_q, block_kv,
-                            bwd)[0]
+                            bwd, ks)[0]
 
 
 def flash_attention_varlen_with_lse(
     q, k, v, segment_ids, spec: MaskSpec = MaskSpec(causal=True), *,
     kv_segment_ids=None, scale: Optional[float] = None,
     block_q: int = BLOCK_Q, block_kv: int = BLOCK_KV,
+    kv_splits: Optional[int] = None,
 ):
     """Forward-only varlen FA2, as the JAX one is (``ops.py:578``): returns
     (o (B, Sq, Hq, D), lse (B, Hq, Sq) f32) and raises on inputs that
@@ -183,11 +260,11 @@ def flash_attention_varlen_with_lse(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError("flash_attention_varlen_with_lse is forward-only, as in "
                                   "the JAX package; use flash_attention_varlen to train")
+    ks = resolve_kv_splits(kv_splits, q.shape, k.shape, block_q, block_kv)
     q_seg, kv_seg = _segment_ids(q, k, segment_ids, kv_segment_ids)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _fwd.flash_fwd_varlen(_prep(q, scale), k, v, spec, q_seg, kv_seg,
-                                 block_q=block_q, block_kv=block_kv)
+    return _forward(_prep(q, scale), k, v, q_seg, kv_seg, spec, block_q, block_kv, ks)
 
 
 def _split_decode(what, q, k, v, Hk, scale, run):
@@ -210,17 +287,34 @@ def _split_decode(what, q, k, v, Hk, scale, run):
 def flash_decode(
     q, k_cache, v_cache, cache_length, *,
     window: Optional[int] = None, sink: int = 0, scale: Optional[float] = None,
-    num_splits: int = DEFAULT_DECODE_SPLITS,
+    num_splits: int = DEFAULT_DECODE_SPLITS, kv_segment_ids=None, q_segment=None,
 ):
     """Split-KV decode. q (B,1,Hq,D); caches (B,S,Hkv,D); cache_length (B,)
     valid entries. Returns (o (B,1,Hq,D), lse (B,Hq,1)), the counterpart of
-    ``flash_decode_pallas``."""
+    ``flash_decode_pallas``.
+
+    ``kv_segment_ids`` (B, S) and ``q_segment`` (B,) make it packed decode
+    (JAX ``ops.py:672``): each query sees only the cache positions of its
+    own segment. The JAX wrapper repeats the ids per kv head (``:695``);
+    the kernel reads row b's ids for every kv head of b, which is the same."""
     lengths = cache_length.to(device=q.device, dtype=torch.int32).contiguous()
+    if (kv_segment_ids is None) != (q_segment is None):
+        raise ValueError("packed decode needs both kv_segment_ids (B, S) and q_segment (B,)")
+    knobs = dict(num_splits=num_splits, window=window, sink=sink)
+    if kv_segment_ids is None:
+        return _split_decode(
+            "split-KV decode", q, k_cache, v_cache, k_cache.shape[2], scale,
+            lambda qh: _dec.flash_decode(qh, k_cache, v_cache, lengths, **knobs))
+    B, S = k_cache.shape[:2]
+    if tuple(kv_segment_ids.shape) != (B, S) or tuple(q_segment.shape) != (B,):
+        raise ValueError(f"kv_segment_ids must be {(B, S)} and q_segment {(B,)}, got "
+                         f"{tuple(kv_segment_ids.shape)} and {tuple(q_segment.shape)}")
+    kv_seg, q_seg = (x.to(device=q.device, dtype=torch.int32).contiguous()
+                     for x in (kv_segment_ids, q_segment))
     return _split_decode(
-        "split-KV decode", q, k_cache, v_cache, k_cache.shape[2], scale,
-        lambda qh: _dec.flash_decode(qh, k_cache, v_cache, lengths, num_splits=num_splits,
-                                     window=window, sink=sink),
-    )
+        "packed decode", q, k_cache, v_cache, k_cache.shape[2], scale,
+        lambda qh: _dec.flash_decode_varlen(qh, k_cache, v_cache, lengths, kv_seg, q_seg,
+                                            **knobs))
 
 
 def flash_decode_paged(

@@ -25,6 +25,14 @@ Two orientations, as in the JAX package:
     first visit; on Hopper the wrapper zeroes dq and delta is a pre-pass,
     so the CSR holds the visible pairs only.
 
+The split-KV forward (``kv_splits > 1``, the counterpart of
+``build_partitioned_schedule`` :283 with one band) cuts each q tile's list
+at the contiguous kv ranges of :func:`kv_split_edges`: owner ``i * ks + s``
+of :func:`build_split_schedule` holds the visible kv tiles of q tile ``i``
+inside split ``s``, exactly the ACTIVE steps of that q tile in the TPU's
+partition of split ``s``. The TPU's q bands have no table here: every q
+tile is already its own CTA.
+
 Packed (varlen) batches add data-dependent skipping on top of the static
 table (:func:`segment_step_bits`, the counterpart of
 ``segment_step_tables`` :388): per batch row and visible step, whether the
@@ -58,6 +66,7 @@ class TileCSR(NamedTuple):
     row_ptr: np.ndarray  # (n_outer + 1,) int32 -- owner a holds [row_ptr[a], row_ptr[a+1])
     inner: np.ndarray    # (n_visible,) int32 -- partner tile index, ascending per owner
     masked: np.ndarray   # (n_visible,) bool -- apply the element mask
+    splits: int = 1      # kv splits: owner a is (tile a // splits, split a % splits)
 
     def pairs(self):
         """The visible (owner, partner) tile pairs, owner-major."""
@@ -69,8 +78,9 @@ class TileCSR(NamedTuple):
 
     @property
     def owner(self) -> np.ndarray:
-        """(n_visible,) int32: the owning tile of every visible step."""
-        return np.repeat(np.arange(len(self.row_ptr) - 1, dtype=np.int32),
+        """(n_visible,) int32: the owning tile of every visible step (the q
+        tile, not the owner index, of a split schedule)."""
+        return np.repeat(np.arange(len(self.row_ptr) - 1, dtype=np.int32) // self.splits,
                          np.diff(self.row_ptr))
 
     def device_table(self) -> np.ndarray:
@@ -131,6 +141,48 @@ def build_kv_tile_schedule(
     return _build(spec, t_q, t_kv, bq, bk, kv_valid, kv_major=True)
 
 
+def kv_split_edges(t_kv: int, kv_splits: int):
+    """Ceil-div contiguous kv-tile ranges [(j0, j1), ...] covering 0..t_kv:
+    the first ``t_kv % kv_splits`` splits carry one extra tile (the JAX
+    ``kv_split_edges``, ``schedule.py:266``)."""
+    base, extra = divmod(t_kv, kv_splits)
+    edges, j0 = [], 0
+    for s in range(kv_splits):
+        j1 = j0 + base + (1 if s < extra else 0)
+        edges.append((j0, j1))
+        j0 = j1
+    return edges
+
+
+@functools.lru_cache(maxsize=256)
+def build_split_schedule(
+    spec: MaskSpec, t_q: int, t_kv: int, bq: int, bk: int, kv_valid: int, kv_splits: int
+) -> TileCSR:
+    """The split-KV forward's walk: owner ``i * ks + s`` holds q tile i's
+    visible kv tiles inside split s of :func:`kv_split_edges` (``ks`` is
+    ``kv_splits`` clamped to [1, t_kv]), ascending, each with its masked
+    flag. An owner with none has an empty slice: its CTA writes the merge
+    identity (o = 0, lse = -inf)."""
+    ks = max(1, min(kv_splits, t_kv))
+    q_major = build_q_tile_schedule(spec, t_q, t_kv, bq, bk, kv_valid)
+    edges = kv_split_edges(t_kv, ks)
+    row_ptr, inner, masked = [0], [], []
+    for i in range(t_q):
+        lo, hi = q_major.row_ptr[i], q_major.row_ptr[i + 1]
+        for j0, j1 in edges:
+            for s in range(lo, hi):
+                if j0 <= q_major.inner[s] < j1:
+                    inner.append(int(q_major.inner[s]))
+                    masked.append(bool(q_major.masked[s]))
+            row_ptr.append(len(inner))
+    return TileCSR(
+        row_ptr=np.asarray(row_ptr, np.int32),
+        inner=np.asarray(inner, np.int32),
+        masked=np.asarray(masked, bool),
+        splits=ks,
+    )
+
+
 class DeviceCSR(NamedTuple):
     """A :class:`TileCSR` on the device: the table the kernels read and the
     per-step owner and partner indices that :func:`segment_step_bits`
@@ -143,11 +195,14 @@ class DeviceCSR(NamedTuple):
 
 @functools.lru_cache(maxsize=128)
 def device_schedule(spec: MaskSpec, t_q: int, t_kv: int, bq: int, bk: int, kv_valid: int,
-                    kv_major: bool, device: str) -> DeviceCSR:
-    """The q-major or kv-major schedule on ``device``, built and copied once
-    per shape."""
-    build = build_kv_tile_schedule if kv_major else build_q_tile_schedule
-    sched = build(spec, t_q, t_kv, bq, bk, kv_valid)
+                    kv_major: bool, device: str, kv_splits: int = 1) -> DeviceCSR:
+    """The q-major, kv-major or (``kv_splits > 1``) split schedule on
+    ``device``, built and copied once per shape."""
+    if kv_splits > 1:
+        sched = build_split_schedule(spec, t_q, t_kv, bq, bk, kv_valid, kv_splits)
+    else:
+        build = build_kv_tile_schedule if kv_major else build_q_tile_schedule
+        sched = build(spec, t_q, t_kv, bq, bk, kv_valid)
     return DeviceCSR(
         table=torch.from_numpy(sched.device_table()).to(device),
         owner=torch.from_numpy(sched.owner.astype(np.int64)).to(device),

@@ -94,18 +94,30 @@ def greedy(cfg, logits: torch.Tensor) -> torch.Tensor:
 
 
 def build_prefill_step(cfg, attn_cfg: AttentionConfig, cache_size: int):
+    """Prefill and the first greedy token. An encoder-decoder config
+    (whisper) reads ``batch["frames"]`` (B, T, d_model) beside the prompt
+    ``batch["inputs"]`` (B, S); every row's prompt has S tokens."""
     @torch.no_grad()
     def prefill_step(model, batch):
-        # batch['lens'] (B,) marks true token counts of bucket-padded prompts.
-        h_last, caches, lens = model.prefill(
-            batch["inputs"], attn_cfg, cache_size, lens=batch.get("lens")
-        )
+        if cfg.family == "encdec":
+            h_last, caches, tlen = model.prefill(batch["frames"], batch["inputs"], attn_cfg,
+                                                 cache_size)
+            lens = torch.full((h_last.shape[0],), tlen, dtype=torch.int32,
+                              device=h_last.device)
+        else:
+            # batch['lens'] (B,) marks true token counts of bucket-padded prompts.
+            h_last, caches, lens = model.prefill(
+                batch["inputs"], attn_cfg, cache_size, lens=batch.get("lens")
+            )
         return greedy(cfg, model.logits_from_hidden(h_last)), caches, lens
 
     return prefill_step
 
 
 def build_serve_step(cfg, attn_cfg: AttentionConfig):
+    """One decode tick and its greedy tokens. ``LM.decode_step`` and
+    ``Whisper.decode_step`` share a signature, so the JAX encoder-decoder
+    branch (``steps.py:135``) is the model's own method here."""
     @torch.no_grad()
     def serve_step(model, token, caches, cache_len):
         logits, caches = model.decode_step(token, caches, cache_len, attn_cfg)

@@ -1,6 +1,7 @@
-"""GQA attention layer on the FA2 kernels: projections with qk-norm, RoPE,
-full-sequence self-attention for training, prefill with a KV cache, and
-single-token decode.
+"""GQA attention layer on the FA2 kernels: projections with qk-norm and
+biases, RoPE, full-sequence self- and cross-attention, prefill with a KV
+cache, single-token decode, and decode-time cross-attention against cached
+encoder K/V.
 
 The counterpart of ``repro/models/attention_layer.py``, with the
 contiguous cache and the paged one (decode through a block table). The
@@ -27,15 +28,26 @@ from repro_torch.models.layers import apply_rope, new_param, normal_, rms_norm_v
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg, device, dtype):
+    """Projection weights (the JAX ``init_attention``, ``attention_layer.py:
+    61``): wq/wk/wv/wo, biases bq/bk/bv/bo with ``cfg.attn_bias``, and the
+    qk-norm scales with ``cfg.qk_norm`` on a self-attention layer (a
+    ``cross`` layer has none)."""
+
+    def __init__(self, cfg, device, dtype, cross: bool = False):
         super().__init__()
         d, qd, kd = cfg.d_model, cfg.q_dim, cfg.kv_dim
         self.cfg = cfg
+        self.qk_norm = cfg.qk_norm and not cross
         self.wq = new_param((d, qd), device, dtype)
         self.wk = new_param((d, kd), device, dtype)
         self.wv = new_param((d, kd), device, dtype)
         self.wo = new_param((qd, d), device, dtype)
-        if cfg.qk_norm:
+        if cfg.attn_bias:
+            self.bq = new_param((qd,), device, dtype)
+            self.bk = new_param((kd,), device, dtype)
+            self.bv = new_param((kd,), device, dtype)
+            self.bo = new_param((d,), device, dtype)
+        if self.qk_norm:
             self.q_norm = new_param((cfg.head_dim,), device, dtype)
             self.k_norm = new_param((cfg.head_dim,), device, dtype)
 
@@ -45,31 +57,41 @@ class Attention(nn.Module):
         normal_(self.wk, std, gen)
         normal_(self.wv, std, gen)
         normal_(self.wo, 1.0 / math.sqrt(self.cfg.q_dim), gen)
-        if self.cfg.qk_norm:
+        if self.cfg.attn_bias:
+            for b in (self.bq, self.bk, self.bv, self.bo):
+                b.zero_()
+        if self.qk_norm:
             self.q_norm.fill_(1.0)
             self.k_norm.fill_(1.0)
 
 
 def _project_q(p: Attention, cfg, x):
     B, S, _ = x.shape
-    q = (x @ p.wq).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    if cfg.qk_norm:
+    q = x @ p.wq
+    if cfg.attn_bias:
+        q = q + p.bq
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    if p.qk_norm:
         q = rms_norm_vec(q, p.q_norm, cfg.norm_eps)
     return q
 
 
 def _project_kv(p: Attention, cfg, x):
     B, S, _ = x.shape
-    k = (x @ p.wk).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p.wv).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.qk_norm:
+    k, v = x @ p.wk, x @ p.wv
+    if cfg.attn_bias:
+        k, v = k + p.bk, v + p.bv
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if p.qk_norm:
         k = rms_norm_vec(k, p.k_norm, cfg.norm_eps)
     return k, v
 
 
 def _out(p: Attention, cfg, o):
     B, S = o.shape[:2]
-    return o.reshape(B, S, cfg.q_dim) @ p.wo
+    y = o.reshape(B, S, cfg.q_dim) @ p.wo
+    return y + p.bo if cfg.attn_bias else y
 
 
 def _self_attention(p: Attention, cfg, x, positions, spec, attn_cfg, rope_theta,
@@ -85,14 +107,28 @@ def _self_attention(p: Attention, cfg, x, positions, spec, attn_cfg, rope_theta,
 
 def apply_attention(
     p: Attention, cfg, x, positions, spec: MaskSpec, attn_cfg: AttentionConfig, *,
-    rope_theta: Optional[float] = None, segment_ids: Optional[torch.Tensor] = None,
+    rope_theta: Optional[float] = None, x_kv: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Full-sequence self-attention (training). x (B,S,d). The counterpart
-    of ``apply_attention`` (JAX ``attention_layer.py:116``) without
-    cross-attention. ``segment_ids`` (B, S) enables packed varlen training:
-    attention never crosses a segment boundary (the caller supplies the
-    within-segment RoPE positions)."""
+    """Full-sequence attention (training, encoder, cross). x (B,S,d). The
+    counterpart of ``apply_attention`` (JAX ``attention_layer.py:116``).
+    With ``x_kv`` (B, Skv, d) it is cross-attention: K/V are projected from
+    ``x_kv`` and no RoPE is applied. ``segment_ids`` (B, S) enables packed
+    varlen training: attention never crosses a segment boundary (the caller
+    supplies the within-segment RoPE positions)."""
+    if x_kv is not None:
+        k, v = _project_kv(p, cfg, x_kv)
+        return cross_attention(p, cfg, x, {"k": k, "v": v}, spec, attn_cfg)
     return _self_attention(p, cfg, x, positions, spec, attn_cfg, rope_theta, segment_ids)[0]
+
+
+def cross_attention(p: Attention, cfg, x, kv: dict, spec: MaskSpec,
+                    attn_cfg: AttentionConfig) -> torch.Tensor:
+    """Full-sequence cross-attention of x (B, S, d) against K/V already
+    projected from the encoder output, ``kv = {"k", "v"}`` (B, Skv, Hkv,
+    hd): whisper's prefill projects them once and keeps them as the cache."""
+    o = attention(_project_q(p, cfg, x), kv["k"], kv["v"], spec, attn_cfg)
+    return _out(p, cfg, o)
 
 
 def prefill_attention(
@@ -154,3 +190,13 @@ def decode_attention_step(
     o = decode_attention(q, cache["k"], cache["v"], cache_len + 1, attn_cfg,
                          window=window, sink=sink)
     return _out(p, cfg, o), cache
+
+
+def cross_attention_step(p: Attention, cfg, x_new, enc_cache: dict, enc_len: torch.Tensor,
+                         attn_cfg: AttentionConfig) -> torch.Tensor:
+    """Decode-time cross-attention (JAX ``attention_layer.py:234``): q from
+    x_new (B, 1, d) against the cached encoder K/V ``enc_cache = {"k",
+    "v"}`` (B, T, Hkv, hd), the first ``enc_len`` (B,) positions visible."""
+    q = _project_q(p, cfg, x_new)
+    o = decode_attention(q, enc_cache["k"], enc_cache["v"], enc_len, attn_cfg)
+    return _out(p, cfg, o)

@@ -5,8 +5,8 @@ The counterpart of ``repro/models/lm.py``: embed -> layers (``attn`` /
 ``forward`` (training), ``prefill``, ``decode_step`` and
 ``logits_from_hidden``. Layers run in a Python loop (the JAX package scans
 over layer groups). The serving entry points run under ``torch.no_grad``.
-MoE, SSM, hybrid, encoder-decoder and VLM configs are not ported yet and
-raise.
+MoE, SSM, hybrid and VLM configs are not ported yet and raise; the
+encoder-decoder family is ``models/whisper.py``.
 
 Weights: :func:`init_lm` draws them on the target device from a seeded
 ``torch.Generator`` with the same std rules as the JAX ``init_lm``;
@@ -39,19 +39,26 @@ SUPPORTED_KINDS = ("attn", "attn_local")
 
 
 def check_supported(cfg) -> None:
-    """Raise for what the port cannot build yet. Every dense arch of the
-    registry (qwen3, deepseek-coder, stablelm, gemma3) passes."""
+    """Raise for what this decoder-only LM cannot build. Every dense arch of
+    the registry (qwen3, deepseek-coder, stablelm, gemma3) passes; the
+    encoder-decoder family is :class:`repro_torch.models.whisper.Whisper`."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder model: build it with "
+            "repro_torch.models.whisper.Whisper (init_whisper), not the decoder-only LM")
     unsupported = [k for k in cfg.layer_kinds() if k not in SUPPORTED_KINDS]
     if cfg.family != "dense" or unsupported:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense attention-only decoders so far "
+            f"{cfg.name}: the port builds dense attention-only decoders and whisper so far "
             f"(family {cfg.family!r}, layer kinds {sorted(set(cfg.layer_kinds()))}); "
-            "MoE, SSM, hybrid, encoder-decoder and VLM models come in later slices"
+            "MoE, SSM, hybrid and VLM models come in later slices"
         )
     if (cfg.meta_tokens or cfg.learned_pos_embed or cfg.num_patches or cfg.attn_bias
             or cfg.mlp != "swiglu" or cfg.norm != "rmsnorm"):
-        raise NotImplementedError(f"{cfg.name}: prefix tokens, learned positions, "
-                                  "attention biases, GELU and LayerNorm are not ported yet")
+        raise NotImplementedError(
+            f"{cfg.name}: the decoder-only LM does not take prefix tokens, learned positions, "
+            "attention biases, GELU or LayerNorm yet (whisper's layers in "
+            "models/whisper.py have the last four)")
 
 
 def spec_for(cfg, kind: str) -> MaskSpec:

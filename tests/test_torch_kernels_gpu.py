@@ -490,3 +490,187 @@ def test_packed_training_step_runs_through_the_varlen_kernels(cuda, bwd):
     assert [f.launches for f in counters] == want + [0, 0, 0, 0]
     assert [f.calls for f in plains] == [0] * 5
     assert math.isfinite(metrics["loss"]) and metrics["skipped"] == 0.0
+
+
+# ------------------------------------------------- head dim 64, split-KV, SEG decode
+
+
+def _qkv(cuda, seed, B, Sq, Skv, Hq, Hkv, D):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = ops._prep(_randn(gen, (B, Sq, Hq, D), cuda), 1 / math.sqrt(D))
+    return q, _randn(gen, (B, Skv, Hkv, D), cuda), _randn(gen, (B, Skv, Hkv, D), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,spec", [
+    (1, 700, dict(causal=False)),
+    (2, 1500, dict(causal=False)),
+    (4, 4, dict(causal=True)),
+    (1, 333, dict(causal=True, window=100, sink=4)),
+])
+def test_forward_kernel_at_head_dim_64_matches_plain(cuda, B, S, spec):
+    """The forward at whisper's widths (8 heads of 64): the encoder's FULL
+    self-attention and the decoder prefill's causal one."""
+    q, k, v = _qkv(cuda, 7, B, S, S, 8, 8, 64)
+    spec = MaskSpec(**spec)
+    o, lse = fwd_mod.flash_fwd(q, k, v, spec, block_q=64, block_kv=64)
+    torch.cuda.synchronize()
+    o_p, lse_p = fwd_mod.flash_fwd_plain(q, k, v, spec, block_q=64, block_kv=64)
+    assert _err(o, o_p) < O_TOL
+    assert _err(lse, lse_p) < LSE_TOL
+
+
+SPLIT_CASES = [
+    # B, Sq, Skv, Hq, Hkv, D, spec, kv_splits
+    (4, 4, 1500, 8, 8, 64, dict(causal=False), 13),   # whisper cross-attention, auto
+    (1, 4, 1500, 8, 8, 64, dict(causal=False), 24),
+    (2, 4, 1500, 8, 8, 64, dict(causal=False), 5),
+    (1, 64, 2048, 32, 8, 128, dict(causal=False), 9),  # qwen3 widths, G = 4
+    (2, 300, 300, 32, 8, 128, dict(causal=True), 3),  # q tiles x splits, causal
+    (1, 50, 900, 8, 8, 64, dict(causal=True, q_offset=850), 6),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,spec,ks", SPLIT_CASES)
+def test_split_forward_kernel_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, spec, ks):
+    """The split-KV kernel's partials and fold against its plain version,
+    and the folded output against the single-pass kernel."""
+    q, k, v = _qkv(cuda, 8, B, Sq, Skv, Hq, Hkv, D)
+    spec = MaskSpec(**spec)
+    before = fwd_mod.flash_fwd_splitkv.launches
+    out = fwd_mod.flash_fwd_splitkv(q, k, v, spec, block_q=64, block_kv=64, kv_splits=ks)
+    torch.cuda.synchronize()
+    assert fwd_mod.flash_fwd_splitkv.launches == before + 1
+    ref = fwd_mod.flash_fwd_splitkv_plain(q, k, v, spec, block_q=64, block_kv=64, kv_splits=ks)
+    assert out.o_parts.shape == ref.o_parts.shape == (B, Hq, fwd_mod.split_count(Skv, 64, ks),
+                                                      Sq, D)
+    # f32 partials; P rounds to bf16 (a flip moves o ~1e-2)
+    assert _err(out.o_parts, ref.o_parts) < O_TOL
+    assert _err(out.lse_parts, ref.lse_parts) < LSE_TOL
+    assert out.o.shape == (B, Sq, Hq, D) and out.o.dtype == torch.bfloat16
+    assert _err(out.o, ref.o) < O_TOL and _err(out.lse, ref.lse) < LSE_TOL
+    o_1, lse_1 = fwd_mod.flash_fwd(q, k, v, spec, block_q=64, block_kv=64)
+    assert _err(out.o, o_1) < O_TOL and _err(out.lse, lse_1) < LSE_TOL
+
+
+@pytest.mark.gpu
+def test_split_forward_segment_kernel_matches_plain(cuda):
+    q, k, v = _qkv(cuda, 9, 2, 700, 700, 32, 8, 128)
+    ids = _packed_ids(2, 700).to(cuda)
+    spec = MaskSpec(causal=True)
+    out = fwd_mod.flash_fwd_splitkv_varlen(q, k, v, spec, ids, ids, block_q=64, block_kv=64,
+                                           kv_splits=3)
+    torch.cuda.synchronize()
+    ref = fwd_mod.flash_fwd_splitkv_plain(q, k, v, spec, block_q=64, block_kv=64, kv_splits=3,
+                                          q_seg=ids, kv_seg=ids)
+    for got, want, tol in zip(out, ref, (O_TOL, LSE_TOL, O_TOL, LSE_TOL)):
+        assert _err(got, want) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,lengths", [(1500, [1500] * 4), (448, [5, 36, 448, 1])])
+def test_decode_kernel_at_head_dim_64_matches_plain(cuda, S, lengths):
+    """Whisper's decode: cross-attention over 1500 frames, self-attention
+    over a 448-position cache."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    B, Hkv, G, D = 4, 8, 1, 64
+    q = _randn(gen, (B * Hkv, G, D), cuda)
+    k, v = _randn(gen, (B, S, Hkv, D), cuda), _randn(gen, (B, S, Hkv, D), cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    o, lse = dec_mod.flash_decode(q, k, v, lens, num_splits=8)
+    torch.cuda.synchronize()
+    o_p, lse_p = dec_mod.flash_decode_plain(q, k, v, lens, num_splits=8)
+    assert _err(o, o_p) < O_TOL
+    assert _err(lse, lse_p) < LSE_TOL
+
+
+def _packed_cache_ids(B, S, seed=11):
+    """Two to four segments a row, ids 1..4, and the query in each row's
+    last segment but one row whose query is in its first."""
+    g = torch.Generator().manual_seed(seed)
+    kv = torch.zeros((B, S), dtype=torch.int32)
+    q = torch.zeros((B,), dtype=torch.int32)
+    for b in range(B):
+        n = 2 + b % 3
+        cuts = torch.sort(torch.randperm(S - 2, generator=g)[:n - 1] + 1).values.tolist()
+        edges = [0, *cuts, S]
+        for i in range(n):
+            kv[b, edges[i]:edges[i + 1]] = i + 1
+        q[b] = 1 if b == 1 else n
+    return kv, q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,G,window", [(128, 4, None), (64, 1, None), (128, 4, 300)])
+def test_segment_decode_kernel_matches_plain(cuda, D, G, window):
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    B, S, Hkv = 4, 2048, 8
+    q = _randn(gen, (B * Hkv, G, D), cuda)
+    k, v = _randn(gen, (B, S, Hkv, D), cuda), _randn(gen, (B, S, Hkv, D), cuda)
+    lens = torch.tensor([2048, 700, 1500, 64], dtype=torch.int32, device=cuda)
+    kv_seg, q_seg = (x.to(cuda) for x in _packed_cache_ids(B, S))
+    before = dec_mod.flash_decode_varlen.launches
+    o, lse = dec_mod.flash_decode_varlen(q, k, v, lens, kv_seg, q_seg, num_splits=8,
+                                         window=window)
+    torch.cuda.synchronize()
+    assert dec_mod.flash_decode_varlen.launches == before + 1
+    o_p, lse_p = dec_mod.flash_decode_plain(q, k, v, lens, num_splits=8, window=window,
+                                            segments=(kv_seg, q_seg))
+    assert _err(o, o_p) < O_TOL
+    assert _err(lse, lse_p) < LSE_TOL
+    assert torch.isneginf(lse).any()  # splits outside the query's segment
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,G", [(128, 4), (64, 1)])
+def test_segment_decode_with_equal_ids_is_bitwise_the_unsegmented_kernel(cuda, D, G):
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    B, S, Hkv = 4, 2048, 8
+    q = _randn(gen, (B * Hkv, G, D), cuda)
+    k, v = _randn(gen, (B, S, Hkv, D), cuda), _randn(gen, (B, S, Hkv, D), cuda)
+    lens = torch.tensor([1, 0, 1337, 2048], dtype=torch.int32, device=cuda)
+    same = (torch.full((B, S), 3, dtype=torch.int32, device=cuda),
+            torch.full((B,), 3, dtype=torch.int32, device=cuda))
+    o, lse = dec_mod.flash_decode(q, k, v, lens, num_splits=8, window=500, sink=4)
+    o_s, lse_s = dec_mod.flash_decode_varlen(q, k, v, lens, *same, num_splits=8, window=500,
+                                             sink=4)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_s) and torch.equal(lse, lse_s)
+
+
+@pytest.mark.gpu
+def test_whisper_serving_runs_through_the_kernels(cuda):
+    """A 2-layer whisper-base at full width (d_model 512, 8 heads of 64):
+    prefill then 3 ticks launch the forward at D = 64 for the encoder and
+    the causal prefill, the split-KV forward for the cross-attention, and
+    the decode kernel for every tick's self- and cross-attention; no plain
+    version runs."""
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models.whisper import init_whisper
+
+    base = registry.get("whisper-base")
+    cfg = dataclasses.replace(base, num_layers=2, learned_pos_embed=448,
+                              encoder=dataclasses.replace(base.encoder, num_layers=2))
+    model = init_whisper(cfg, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    frames = torch.randn((2, 1500, cfg.d_model), generator=gen, device=cuda).to(torch.bfloat16)
+    tokens = torch.tensor([[50258, 50259, 50359, 50363]] * 2, device=cuda)
+    attn = AttentionConfig(impl="flash_cuda")
+    counters = (fwd_mod.flash_fwd, fwd_mod.flash_fwd_splitkv, dec_mod.flash_decode)
+    plains = (fwd_mod.flash_fwd_plain, fwd_mod.flash_fwd_splitkv_plain,
+              dec_mod.flash_decode_plain)
+    for f in counters:
+        f.launches = 0
+    for f in plains:
+        f.calls = 0
+    tok, caches, lens = build_prefill_step(cfg, attn, 448)(model, {"frames": frames,
+                                                                   "inputs": tokens})
+    serve = build_serve_step(cfg, attn)
+    for _ in range(3):
+        tok, caches = serve(model, tok, caches, lens)
+        lens = lens + 1
+    torch.cuda.synchronize()
+    assert [f.launches for f in counters] == [4, 2, 3 * 2 * 2]
+    assert [f.calls for f in plains] == [0, 0, 0]
+    assert ((0 <= tok) & (tok < cfg.vocab_size)).all()
