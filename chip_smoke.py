@@ -57,7 +57,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      with ``packed=True``; the loss must fall, every attention forward and
      backward must go through the segment kernels (counts exact, the
      unsegmented kernels and the plain versions 0); its step is reported
-     beside phase 8's.
+     beside phase 8's;
+ 12. dense training parity: phases 7 and 10 with schedule="dense" (the
+     dense-schedule kernels, unpacked and packed, fused and split): against
+     the dense reference at phase 7's limits and against the compact run
+     of each configuration (split: loss and gradients to the bit; fused:
+     the loss within PARITY_LOSS_REL); launch counts exact;
+ 13. the dense training slice: phase 9 (split backward) with
+     schedule="dense"; counts exact (the dense forward, dK/dV and dQ, the
+     delta pre-pass; every compact kernel and plain version 0), every
+     step's loss bitwise phase 9's, the step reported beside phase 9's.
 Phase 3 also holds this slice's kernels against their plain versions and
 times them: the split-KV forward at whisper's cross-attention (B = 1 and 4,
 4 prompt rows against 1500 frames, head_dim 64; the auto split count and a
@@ -80,6 +89,12 @@ against their plain versions (the packed source's ids at the training
 shape, G = 1 and 4 at S = 700, distinct q and kv ids), checks that
 all-ones ids give the unsegmented kernels' outputs bitwise, and times them
 beside the unsegmented kernels, with bounds over the same-segment pairs.
+Phase 3 also holds the dense-schedule kernels (forward, fused, dK/dV and
+dQ, each with and without segments) against their plain versions at the
+training shape and against the compact kernels to the bit (the fused dQ,
+whose atomics have no order, within GRAD_REL_TOL), there and on a grid of
+specs at S = 700 with G = 1 and 4, and times dense and compact in turns,
+with the FULL spec (no tile hidden) as the control.
 The last two lines are the kernels' JSON record and the result line.
 """
 
@@ -218,6 +233,44 @@ def max_err(torch, a, b) -> float:
     if not torch.equal(torch.isfinite(a), fin):
         return float("inf")
     return (a.float()[fin] - b.float()[fin]).abs().max().item() if fin.any() else 0.0
+
+
+def sdpa_times(torch, q, k, v, do, flush, mask=None):
+    """The library yardstick on the kernels' inputs (q pre-scaled, so scale
+    1; GQA): SDPA's forward and its forward + backward, in ms. Causal, or
+    with the boolean ``mask`` (B, 1, Sq, Skv)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+
+    def fwd_only():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, scale=1.0, **kw)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, scale=1.0, **kw)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    return time_ms(torch, fwd_only, 20, flush), time_ms(torch, fwd_bwd, 20, flush)
+
+
+def attention_bounds(pairs: int, B: int, S: int, id_bytes: int = 0) -> dict:
+    """Roofline bounds (ms, what bounds) of the forward, fused, dK/dV and dQ
+    kernels at qwen3 widths, B x S: ``pairs`` (q, k) pairs the mask needs
+    per q head, summed over the batch; each input read once, each output
+    written once (the gradients in f32), the segment ids' ``id_bytes``."""
+    q_bytes = B * S * HQ * HD * 2
+    kv_bytes = B * S * HKV * HD * 2
+    row_bytes = B * HQ * S * 4
+    in_bytes = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + id_bytes  # q, dO, k, v, lse, delta
+    return {
+        "flash_fwd": bound(4 * HD * pairs * HQ, 2 * q_bytes + 2 * kv_bytes + row_bytes + id_bytes),
+        "flash_bwd_fused": bound(10 * HD * pairs * HQ, in_bytes + 2 * q_bytes + 4 * kv_bytes),
+        "flash_bwd_dkv": bound(8 * HD * pairs * HQ, in_bytes + 4 * kv_bytes),
+        "flash_bwd_dq": bound(6 * HD * pairs * HQ, in_bytes + 2 * q_bytes),
+    }
 
 
 def kernel_phase(torch, dev, flush):
@@ -458,8 +511,6 @@ def bwd_kernel_phase(torch, dev, flush):
     """The backward kernels against their plain versions (bf16 inputs, f32
     gradients), then their times, bounds and yardsticks at the training
     step's shape (B = 2, S = 2048, causal), with the forward's beside them."""
-    import torch.nn.functional as F
-
     from repro_torch.core.masks import MaskSpec
     from repro_torch.kernels import flash_bwd as bwd
     from repro_torch.kernels import flash_fwd as fwd
@@ -588,36 +639,17 @@ def bwd_kernel_phase(torch, dev, flush):
                                     20, flush))
     fused_total_ms, split_total_ms = (sum(totals[n]) / 2 for n in ("fused", "split"))
     # Library yardstick: SDPA (causal, GQA) forward + backward less its forward.
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-
-    def sdpa_fwd():
-        with torch.no_grad():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True,
-                                                  scale=1.0)
-
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True,
-                                             scale=1.0)
-        return torch.autograd.grad(out, (qt, kt, vt), dot)
-
-    lib_fwd_ms = time_ms(torch, sdpa_fwd, 20, flush)
-    lib_fb_ms = time_ms(torch, sdpa_fwd_bwd, 20, flush)
+    lib_fwd_ms, lib_fb_ms = sdpa_times(torch, q, k, v, do, flush)
     lib_bwd_ms = lib_fb_ms - lib_fwd_ms
     # Bounds: the causal pairs the mask needs (S (S + 1) / 2 per head); the
     # kernels compute the diagonal tiles whole, as the schedule's count says.
-    # Each input read once, each output written once (the gradients in f32).
     pairs = S * (S + 1) // 2
     n_vis = int(build_kv_tile_schedule(spec, -(-S // bq), -(-S // bk), bq, bk, S).row_ptr[-1])
-    q_bytes = B * S * HQ * HD * 2
-    kv_bytes = B * S * HKV * HD * 2
-    row_bytes = B * HQ * S * 4
-    in_bytes = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes  # q, dO, k, v, lse, delta
-    fwd_bound, fwd_by = bound(4 * HD * pairs * B * HQ, 2 * q_bytes + 2 * kv_bytes + row_bytes)
-    delta_bound, delta_by = bound(2 * B * S * HQ * HD, 2 * q_bytes + row_bytes)
-    fused_bound, fused_by = bound(10 * HD * pairs * B * HQ, in_bytes + 2 * q_bytes + 4 * kv_bytes)
-    dkv_bound, dkv_by = bound(8 * HD * pairs * B * HQ, in_bytes + 4 * kv_bytes)
-    dq_bound, dq_by = bound(6 * HD * pairs * B * HQ, in_bytes + 2 * q_bytes)
+    bounds = attention_bounds(pairs * B, B, S)
+    (fwd_bound, fwd_by), (fused_bound, fused_by) = bounds["flash_fwd"], bounds["flash_bwd_fused"]
+    (dkv_bound, dkv_by), (dq_bound, dq_by) = bounds["flash_bwd_dkv"], bounds["flash_bwd_dq"]
+    # delta reads O and dO and writes a row's f32.
+    delta_bound, delta_by = bound(2 * B * S * HQ * HD, 2 * B * S * HQ * HD * 2 + B * HQ * S * 4)
     log(f"training shape B={B} S={S} causal: {pairs} visible (q, k) pairs per head; the "
         f"schedule visits {n_vis} tiles of {bq}x{bk} = {n_vis * bq * bk} pairs "
         f"({n_vis * bq * bk / pairs:.4f}x)")
@@ -683,6 +715,13 @@ def packed_ids(B: int, S: int, step: int = 0):
     return src.batch(step)["segment_ids"]
 
 
+def segment_mask(torch, ids):
+    """The block-diagonal causal boolean mask (B, 1, S, S) of (B, S) ids."""
+    S = ids.shape[1]
+    causal = torch.ones((S, S), dtype=torch.bool, device=ids.device).tril()
+    return ((ids[:, :, None] == ids[:, None, :]) & causal)[:, None]
+
+
 def step_shares(torch, ids, S: int):
     """(active share, uniform share of the active steps) of the causal
     q-major schedule's visible steps for (B, S) segment ids."""
@@ -709,8 +748,6 @@ def varlen_kernel_phase(torch, dev, flush):
     launches); then times beside the unsegmented kernels in this call, the
     plain versions, the bounds over the same-segment causal pairs and SDPA
     with the block-diagonal causal mask (forward, forward + backward)."""
-    import torch.nn.functional as F
-
     from repro_torch.core.masks import MaskSpec
     from repro_torch.kernels import flash_bwd as bwd
     from repro_torch.kernels import flash_fwd as fwd
@@ -878,37 +915,11 @@ def varlen_kernel_phase(torch, dev, flush):
                                 flush),
     }
     # Yardstick: SDPA with the block-diagonal causal boolean mask (B, 1, S, S).
-    causal = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
-    mask = ((ids[:, :, None] == ids[:, None, :]) & causal)[:, None]
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-
-    def sdpa_fwd():
-        with torch.no_grad():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True,
-                                                  scale=1.0)
-
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True,
-                                             scale=1.0)
-        return torch.autograd.grad(out, (qt, kt, vt), dot)
-
-    lib_fwd_ms = time_ms(torch, sdpa_fwd, 20, flush)
-    lib_fb_ms = time_ms(torch, sdpa_fwd_bwd, 20, flush)
+    lib_fwd_ms, lib_fb_ms = sdpa_times(torch, q, k, v, do, flush, segment_mask(torch, ids))
     # Bounds over the same-segment causal pairs this batch needs.
     pairs = segment_pairs(ids.cpu().numpy())
     full_pairs = B * S * (S + 1) // 2
-    q_bytes = B * S * HQ * HD * 2
-    kv_bytes = B * S * HKV * HD * 2
-    row_bytes = B * HQ * S * 4
-    id_bytes = 2 * B * S * 4
-    in_bytes = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + id_bytes
-    bounds = {
-        "flash_fwd": bound(4 * HD * pairs * HQ, 2 * q_bytes + 2 * kv_bytes + row_bytes + id_bytes),
-        "flash_bwd_fused": bound(10 * HD * pairs * HQ, in_bytes + 2 * q_bytes + 4 * kv_bytes),
-        "flash_bwd_dkv": bound(8 * HD * pairs * HQ, in_bytes + 4 * kv_bytes),
-        "flash_bwd_dq": bound(6 * HD * pairs * HQ, in_bytes + 2 * q_bytes),
-    }
+    bounds = attention_bounds(pairs, B, S, id_bytes=2 * B * S * 4)
     active, uniform = step_shares(torch, ids.cpu(), S)
     log(f"packed step 0 at B={B} S={S}: documents per row {[int(r.max()) for r in ids]}, "
         f"padding {int((ids == 0).sum())} positions; same-segment causal pairs {pairs} of "
@@ -937,6 +948,181 @@ def varlen_kernel_phase(torch, dev, flush):
     log(f"sdpa with the block-diagonal causal mask: forward {lib_fwd_ms:.4f} ms, forward + "
         f"backward {lib_fb_ms:.4f} ms")
     return out
+
+
+# The dense phase's spec grid (S = 700, G = 1 and 4): causal, a window, a
+# window with sinks, a non-causal window, no mask, a positive q offset.
+DENSE_SPECS = (dict(causal=True), dict(causal=True, window=256),
+               dict(causal=True, window=256, sink=4), dict(causal=False, window=256), dict(),
+               dict(causal=True, q_offset=100))
+DENSE_NAMES = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def dense_kernel_phase(torch, dev, flush):
+    """The dense-schedule kernels (forward, fused, dK/dV, dQ; each with and
+    without SEG) against their plain versions at the training shape (B = 2,
+    S = 2048, causal; segments from the packed source's step-0 ids), and
+    against the compact kernels on the same inputs: the forward (o, lse),
+    dK/dV, dQ and the fused dK/dV to the bit, the fused dQ (atomics) within
+    GRAD_REL_TOL; there, and again on DENSE_SPECS at S = 700 with G = 1 and
+    4, without and with segments. Then dense and compact timed in turns
+    (dense, compact, compact, dense) after an L2 flush, the FULL spec (no
+    tile hidden) as the control; bounds are compact's (the same work) and
+    the library times SDPA's as for the compact rows. Returns the kernels'
+    records, keyed ``flash_fwd_dense``, ``flash_fwd_varlen_dense``, ..."""
+    from repro_torch.core.masks import MaskSpec
+    from repro_torch.kernels import flash_bwd as bwd
+    from repro_torch.kernels import flash_fwd as fwd
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    tiles = dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
+    scale = 1.0 / math.sqrt(HD)
+
+    def inputs(B, S, Hq, Hkv):
+        q = ops._prep(randn(B, S, Hq, HD), scale)
+        return q, randn(B, S, Hkv, HD), randn(B, S, Hkv, HD), randn(B, S, Hq, HD)
+
+    def wrappers(seg):
+        sfx = "_varlen" if seg else ""
+        return {n: getattr(fwd if n == "flash_fwd" else bwd, n + sfx) for n in DENSE_NAMES}
+
+    def both(q, k, v, do, spec, seg):
+        """{name: (dense output, compact output)} on the same inputs; the
+        backward reads the dense forward's lse and the delta of its o."""
+        f = wrappers(seg)
+        out = {"flash_fwd": [f["flash_fwd"](q, k, v, spec, *seg, schedule=sch, **tiles)
+                             for sch in ("dense", "compact")]}
+        o, lse = out["flash_fwd"][0]
+        args = (q, k, v, do, lse, bwd.flash_bwd_delta(o, do), spec, *seg)
+        for n in DENSE_NAMES[1:]:
+            out[n] = [f[n](*args, schedule=sch, **tiles) for sch in ("dense", "compact")]
+        torch.cuda.synchronize()
+        return out, args
+
+    def against_compact(out):
+        """({equality: dense bitwise compact}, fused dq's relative diff)."""
+        (o_d, l_d), (o_c, l_c) = out["flash_fwd"]
+        (fd, fc), (kd, kc) = out["flash_bwd_fused"], out["flash_bwd_dkv"]
+        dq_d, dq_c = out["flash_bwd_dq"]
+        same = {"o": torch.equal(o_d, o_c), "lse": torch.equal(l_d, l_c),
+                "fused dk": torch.equal(fd[1], fc[1]), "fused dv": torch.equal(fd[2], fc[2]),
+                "dkv dk": torch.equal(kd[0], kc[0]), "dkv dv": torch.equal(kd[1], kc[1]),
+                "dq": torch.equal(dq_d, dq_c)}
+        return same, max_err(torch, fd[0], fc[0]) / max(fc[0].abs().max().item(), 1e-6)
+
+    B, S = TRAIN_B, TRAIN_S
+    causal = MaskSpec(causal=True)
+    ids = torch.from_numpy(packed_ids(B, S)).to(dev)
+    err, data = {}, {}
+    for seg in ((), (ids, ids)):
+        sfx = "_varlen" if seg else ""
+        q, k, v, do = inputs(B, S, HQ, HKV)
+        out, args = both(q, k, v, do, causal, seg)
+        data[sfx] = (q, k, v, do, args)
+        same, rel_dq = against_compact(out)
+        plain = dict(schedule="dense", **tiles)
+        if seg:
+            plain.update(q_seg=ids, kv_seg=ids)
+        o, lse = out["flash_fwd"][0]
+        o_p, lse_p = fwd.flash_fwd_plain(q, k, v, causal, **plain)
+        eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
+        pargs = args[:7]
+        got = {"flash_bwd_fused": out["flash_bwd_fused"][0],
+               "flash_bwd_dkv": out["flash_bwd_dkv"][0], "flash_bwd_dq": (out["flash_bwd_dq"][0],)}
+        want = {"flash_bwd_fused": bwd.flash_bwd_fused_plain(*pargs, **plain),
+                "flash_bwd_dkv": bwd.flash_bwd_dkv_plain(*pargs, **plain),
+                "flash_bwd_dq": (bwd.flash_bwd_dq_plain(*pargs, **plain),)}
+        rel = {}
+        err[f"flash_fwd{sfx}_dense"] = eo
+        for n in DENSE_NAMES[1:]:
+            for a, b in zip(got[n], want[n]):
+                if not torch.isfinite(a).all():
+                    fail(f"{n}{sfx} (dense) gave a non-finite gradient")
+            rel[n] = max(max_err(torch, a, b) / max(b.abs().max().item(), 1e-6)
+                         for a, b in zip(got[n], want[n]))
+            err[f"{n}{sfx}_dense"] = max(max_err(torch, a, b) for a, b in zip(got[n], want[n]))
+        what = "packed step 0" if seg else "no segments"
+        log(f"dense kernels B={B} S={S} causal Hq={HQ} Hkv={HKV} ({what}): flash_fwd{sfx} "
+            f"max|o-plain|={eo:.3e} (tol {FWD_TOL['o']}), max|lse-plain|={el:.3e} (tol "
+            f"{FWD_TOL['lse']}); relative to max|grad|: "
+            + ", ".join(f"{n}{sfx} {e:.3e}" for n, e in rel.items())
+            + f" (tol {GRAD_REL_TOL}); bitwise the compact kernels: {same}; fused dq against "
+            f"the compact fused dq {rel_dq:.3e} (tol {GRAD_REL_TOL})")
+        if not (eo <= FWD_TOL["o"] and el <= FWD_TOL["lse"]):
+            fail(f"flash_fwd{sfx} (dense) disagrees with its plain version")
+        if max(rel.values()) > GRAD_REL_TOL:
+            fail(f"a dense backward kernel{sfx} disagrees with its plain version")
+        if not all(same.values()) or rel_dq > GRAD_REL_TOL:
+            fail(f"the dense kernels{sfx} are not the compact ones at the training shape")
+
+    # The spec grid: dense against compact only.
+    ids700 = torch.from_numpy(packed_ids(2, 700)).to(dev)
+    for G in (1, 4):
+        for spec_kw in DENSE_SPECS:
+            for seg in ((), (ids700, ids700)):
+                spec = MaskSpec(**spec_kw)
+                out, _ = both(*inputs(2, 700, HKV * G, HKV), spec, seg)
+                same, rel_dq = against_compact(out)
+                log(f"  dense against compact, B=2 S=700 G={G} {spec}"
+                    f"{' packed' if seg else ''}: bitwise {all(same.values())}, fused dq "
+                    f"{rel_dq:.3e}")
+                if not all(same.values()) or rel_dq > GRAD_REL_TOL:
+                    fail(f"the dense kernels are not the compact ones at G={G} {spec} "
+                         f"{'packed ' if seg else ''}({same}, fused dq {rel_dq:.3e})")
+
+    # Times in turns, at the training shape: causal without and with
+    # segments, and FULL (no tile hidden) as the control.
+    pairs = {"": B * S * (S + 1) // 2, "_varlen": segment_pairs(ids.cpu().numpy())}
+    full = MaskSpec()
+    records = {}
+    for sfx, (q, k, v, do, args) in data.items():
+        seg = args[7:]
+        lib_fwd, lib_fb = sdpa_times(torch, q, k, v, do, flush,
+                                     segment_mask(torch, ids) if seg else None)
+        library = {"flash_fwd": lib_fwd, "flash_bwd_fused": lib_fb - lib_fwd,
+                   "flash_bwd_dkv": None, "flash_bwd_dq": None}
+        bounds = attention_bounds(pairs[sfx], B, S, id_bytes=2 * B * S * 4 if seg else 0)
+        f = wrappers(seg)
+        for n in DENSE_NAMES:
+            def call(schedule, spec=causal, n=n):
+                if n == "flash_fwd":
+                    return f[n](q, k, v, spec, *seg, schedule=schedule, **tiles)
+                return f[n](*args[:6], spec, *seg, schedule=schedule, **tiles)
+
+            runs = [time_ms(torch, lambda sch=sch: call(sch), 20, flush)
+                    for sch in ("dense", "compact", "compact", "dense")]
+            dense_ms, compact_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+            plain = dict(schedule="dense", **tiles)
+            if seg:
+                plain.update(q_seg=ids, kv_seg=ids)
+            pfn = getattr(fwd if n == "flash_fwd" else bwd, n + "_plain")
+            pargs = (q, k, v, causal) if n == "flash_fwd" else args[:7]
+            plain_ms = time_ms(torch, lambda: pfn(*pargs, **plain), 2, flush)
+            b_ms, b_by = bounds[n]
+            rec = dict(max_abs_err=err[f"{n}{sfx}_dense"], ms=dense_ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=library[n],
+                       compact_ms_in_turns=compact_ms, dense_over_compact=dense_ms / compact_ms)
+            line = (f"{n}{sfx} dense B={B} S={S} causal{' (packed step 0)' if seg else ''}: "
+                    f"kernel {dense_ms:.4f} ms, compact in turns {compact_ms:.4f} ms (ratio "
+                    f"{dense_ms / compact_ms:.4f}), plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
+                    f"ms ({b_by}), library "
+                    + (f"{library[n]:.4f} ms" if library[n] is not None else "none"))
+            if not seg:
+                runs = [time_ms(torch, lambda sch=sch: call(sch, full), 20, flush)
+                        for sch in ("dense", "compact", "compact", "dense")]
+                rec.update(full_spec_ms=(runs[0] + runs[3]) / 2,
+                           full_spec_compact_ms=(runs[1] + runs[2]) / 2)
+                line += (f"; FULL control: dense {rec['full_spec_ms']:.4f} ms, compact "
+                         f"{rec['full_spec_compact_ms']:.4f} ms (ratio "
+                         f"{rec['full_spec_ms'] / rec['full_spec_compact_ms']:.4f})")
+            log(line)
+            records[f"{n}{sfx}_dense"] = rec
+    return records
 
 
 def serving_prompts(cfg):
@@ -1501,17 +1687,42 @@ def whisper_kernel_phase(torch, dev, flush):
     return out
 
 
+class DenseCount:
+    """A wrapper's dense-schedule launch count, read and zeroed through
+    ``launches`` like the wrappers' own (compact) counts."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+
+    @property
+    def launches(self) -> int:
+        return self.wrapper.dense_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.wrapper.dense_launches = n
+
+
+def with_dense(wrappers) -> dict:
+    """{name: counter} of ``wrappers``, and ``<name>_dense`` for each that
+    also counts dense-schedule launches."""
+    counters = {f.__name__: f for f in wrappers}
+    counters.update({f"{f.__name__}_dense": DenseCount(f) for f in wrappers
+                     if hasattr(f, "dense_launches")})
+    return counters
+
+
 def all_counters():
-    """{name: wrapper} of every kernel of the port, and {name: plain version}."""
+    """{name: counter} of every kernel of the port, and {name: plain version}."""
     from repro_torch.kernels import flash_bwd as bwd
     from repro_torch.kernels import flash_decode as dec
     from repro_torch.kernels import flash_fwd as fwd
 
-    counters = {f.__name__: f for f in (
+    counters = with_dense((
         fwd.flash_fwd, fwd.flash_fwd_varlen, fwd.flash_fwd_splitkv, fwd.flash_fwd_splitkv_varlen,
         dec.flash_decode, dec.flash_decode_varlen, dec.flash_decode_paged, bwd.flash_bwd_delta,
         bwd.flash_bwd_fused, bwd.flash_bwd_dkv, bwd.flash_bwd_dq, bwd.flash_bwd_fused_varlen,
-        bwd.flash_bwd_dkv_varlen, bwd.flash_bwd_dq_varlen)}
+        bwd.flash_bwd_dkv_varlen, bwd.flash_bwd_dq_varlen))
     plains = {f.__name__: f for f in (
         fwd.flash_fwd_plain, fwd.flash_fwd_splitkv_plain, dec.flash_decode_plain,
         dec.flash_decode_paged_plain, bwd.flash_bwd_delta_plain, bwd.flash_bwd_fused_plain,
@@ -1691,15 +1902,16 @@ def train_model_flops(cfg, batch: int, seq: int) -> float:
 
 
 def kernel_counters():
-    """{name: wrapper} of every kernel the training paths launch, and the
-    plain versions (each counts its calls)."""
+    """{name: counter} of every kernel the training paths launch, compact
+    and (``<name>_dense``) dense, and the plain versions (each counts its
+    calls)."""
     from repro_torch.kernels import flash_bwd as bwd
     from repro_torch.kernels import flash_fwd as fwd
 
-    counters = {f.__name__: f for f in (
+    counters = with_dense((
         fwd.flash_fwd, bwd.flash_bwd_delta, bwd.flash_bwd_fused, bwd.flash_bwd_dkv,
         bwd.flash_bwd_dq, fwd.flash_fwd_varlen, bwd.flash_bwd_fused_varlen,
-        bwd.flash_bwd_dkv_varlen, bwd.flash_bwd_dq_varlen)}
+        bwd.flash_bwd_dkv_varlen, bwd.flash_bwd_dq_varlen))
     plains = (fwd.flash_fwd_plain, bwd.flash_bwd_delta_plain, bwd.flash_bwd_fused_plain,
               bwd.flash_bwd_dkv_plain, bwd.flash_bwd_dq_plain)
     return counters, plains
@@ -1718,12 +1930,42 @@ def read_counts(counters, plains) -> dict:
     return counts
 
 
-def train_parity_phase(torch, dev, packed: bool = False):
+def training_want(counters, plains, n: int, bwds, suffix: str = "") -> dict:
+    """Exact launch counts of ``n`` layer-steps under each backward mode of
+    ``bwds``, through the kernels named with ``suffix`` (``_varlen``,
+    ``_dense``, both or none): the forward twice (remat), delta once, then
+    the fused kernel or dK/dV and dQ once; every other kernel and every
+    plain version 0."""
+    want = {k: 0 for k in counters}
+    for bwd in bwds:
+        want[f"flash_fwd{suffix}"] += 2 * n
+        want["flash_bwd_delta"] += n
+        for name in ("flash_bwd_fused",) if bwd == "fused" else ("flash_bwd_dkv", "flash_bwd_dq"):
+            want[name + suffix] += n
+    want["plain"] = [0] * len(plains)
+    return want
+
+
+def summary_line(what: str, summary: dict, other: dict) -> str:
+    """``what``: each step metric of ``summary`` beside ``other``'s."""
+    fmt = {"median_ms": "{:.1f} ms", "tokens_per_s": "{:.1f}", "mfu": "{:.4f}",
+           "peak_gib": "{:.2f} GiB", "busy_share": "{:.4f}", "attention_ms": "{:.3f} ms"}
+    return f"{what}: " + "; ".join(
+        f"{k} {v.format(summary[k]) if summary[k] is not None else 'not measured'} against "
+        f"{v.format(other[k]) if other[k] is not None else 'not measured'}"
+        for k, v in fmt.items()) + f"; step ratio {summary['median_ms'] / other['median_ms']:.4f}"
+
+
+def train_parity_phase(torch, dev, packed: bool = False, schedule: str = "compact"):
     """One step's loss and attention gradients, 2-layer full-width qwen3-8b,
     through impl="ref" (dense attention, autograd) and impl="flash_cuda"
     with the fused and with the split backward. ``packed``: a packed batch
     of the varlen source (B = 2; the reference masks by segment, the kernels
-    are the segment variants); returns the launch counts of the three runs."""
+    are the segment variants). ``schedule="dense"``: the two kernel runs
+    through the dense-schedule kernels, each also held against the compact
+    run of its configuration (split: loss and gradients to the bit; fused:
+    the loss within PARITY_LOSS_REL). Returns the launch counts of the
+    schedule's two kernel runs, which must be exact."""
     from repro_torch.configs import registry
     from repro_torch.core.attention import AttentionConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, SyntheticVarlenLM
@@ -1744,13 +1986,22 @@ def train_parity_phase(torch, dev, packed: bool = False):
     what = (f"packed training parity, B={TRAIN_B} S={PARITY_S} (documents per row "
             f"{batch['segment_ids'].amax(dim=1).tolist()})" if packed
             else f"training parity, B=1 S={PARITY_S}")
-    attn = {"ref": AttentionConfig(impl="ref"),
-            "flash_cuda": AttentionConfig(impl="flash_cuda"),
-            "flash_cuda bwd=split": AttentionConfig(impl="flash_cuda", bwd="split")}
+    dense = schedule == "dense"
+    modes = {"flash_cuda": "fused", "flash_cuda bwd=split": "split"}
+    attn = {"ref": AttentionConfig(impl="ref")}
+    attn.update({name: AttentionConfig(impl="flash_cuda", bwd=bwd) for name, bwd in modes.items()})
+    if dense:
+        attn.update({f"{name} schedule=dense": AttentionConfig(impl="flash_cuda", bwd=bwd,
+                                                                schedule="dense")
+                     for name, bwd in modes.items()})
+        what = f"dense {what}"
+    counted = list(attn)[-2:]  # the schedule's two kernel runs, counted from the first
     counters, plains = kernel_counters()
-    zero_counts(counters, plains)
     out = {}
     for name, attn_cfg in attn.items():
+        if name == counted[0]:
+            torch.cuda.synchronize()
+            zero_counts(counters, plains)
         model.zero_grad(set_to_none=True)
         loss, _ = loss_fn(cfg, attn_cfg, model, batch)
         loss.backward()
@@ -1759,8 +2010,9 @@ def train_parity_phase(torch, dev, packed: bool = False):
     torch.cuda.synchronize()
     counts = read_counts(counters, plains)
     del model
-    l_ref, g_ref = out.pop("ref")
-    for impl, (l_fl, g_fl) in out.items():
+    l_ref, g_ref = out["ref"]
+    for impl in counted:
+        l_fl, g_fl = out[impl]
         rel_loss = abs(l_fl - l_ref) / abs(l_ref)
         log(f"{what}, {PARITY_LAYERS}-layer full-width qwen3-8b: loss ref {l_ref:.6f}, {impl} "
             f"{l_fl:.6f}, relative difference {rel_loss:.3e} (limit {PARITY_LOSS_REL})")
@@ -1780,23 +2032,34 @@ def train_parity_phase(torch, dev, packed: bool = False):
                      f"(limits cosine >= {PARITY_COS}, relative max diff <= {PARITY_REL})")
         log(f"{what}, {impl}: least cosine {worst_cos:.6f} (limit {PARITY_COS}), "
             f"largest max|diff| / max|grad| {worst_rel:.4f} (limit {PARITY_REL})")
+    if dense:
+        for impl, compact in zip(counted, modes):
+            (l_d, g_d), (l_c, g_c) = out[impl], out[compact]
+            rel_loss = abs(l_d - l_c) / abs(l_c)
+            worst = max((g_d[n] - g_c[n]).abs().max().item() / max(g_c[n].abs().max().item(),
+                                                                   1e-30) for n in g_c)
+            bitwise = l_d == l_c and all(torch.equal(g_d[n], g_c[n]) for n in g_c)
+            log(f"{what}, {impl} against {compact}: loss {l_d:.6f} against {l_c:.6f} "
+                f"(relative {rel_loss:.3e}), largest max|diff| / max|grad| {worst:.3e}, loss "
+                f"and gradients bitwise equal: {bitwise}")
+            if modes[compact] == "split" and not bitwise:
+                fail(f"{impl} is not the compact split run to the bit ({what})")
+            if not rel_loss <= PARITY_LOSS_REL:
+                fail(f"{impl}'s loss is not the compact run's ({what})")
     log(f"launches in the {what} runs: {counts}")
-    if packed:
-        n = PARITY_LAYERS
-        want = {k: 0 for k in counters}
-        want.update(flash_fwd_varlen=2 * 2 * n, flash_bwd_delta=2 * n,
-                    flash_bwd_fused_varlen=n, flash_bwd_dkv_varlen=n, flash_bwd_dq_varlen=n)
-        want["plain"] = [0] * len(plains)
-        if counts != want:
-            fail(f"packed parity launches {counts}, want {want}")
+    want = training_want(counters, plains, PARITY_LAYERS, modes.values(),
+                         ("_varlen" if packed else "") + ("_dense" if dense else ""))
+    if counts != want:
+        fail(f"{what} launches {counts}, want {want}")
     return counts
 
 
-def train_phase(torch, dev, bwd: str):
+def train_phase(torch, dev, bwd: str, schedule: str = "compact"):
     """The training slice: 8-layer, full-width qwen3-8b, TRAIN_STEPS AdamW
     steps on the synthetic stream through flash_cuda with the ``bwd``
-    backward. Returns the main path's launch counts and a summary (losses,
-    median step, tokens/s, MFU, peak memory, profiled busy share)."""
+    backward on the ``schedule`` kernels. Returns the main path's launch
+    counts and a summary (losses, median step, tokens/s, MFU, peak memory,
+    profiled busy share, attention's device ms)."""
     from repro_torch.configs import registry
     from repro_torch.core.attention import AttentionConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -1812,13 +2075,14 @@ def train_phase(torch, dev, bwd: str):
     opt_state = init_opt_state(params)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.values())
-    log(f"training (bwd={bwd}) qwen3-8b at published widths, {cfg.num_layers} of 36 layers: "
+    label = f"bwd={bwd}" + (f", schedule={schedule}" if schedule != "compact" else "")
+    log(f"training ({label}) qwen3-8b at published widths, {cfg.num_layers} of 36 layers: "
         f"{n_params / 1e9:.4f} B params ({cfg.dtype}, remat {cfg.remat}), f32 master + mu + "
         f"nu; set up in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
     data = SyntheticLM(DataConfig(batch_size=TRAIN_B, seq_len=TRAIN_S,
                                   vocab_size=cfg.vocab_size, seed=0))
-    step_fn = build_train_step(cfg, AttentionConfig(impl="flash_cuda", bwd=bwd),
+    step_fn = build_train_step(cfg, AttentionConfig(impl="flash_cuda", bwd=bwd, schedule=schedule),
                                AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS))
     batches = []
     for step in range(TRAIN_STEPS):
@@ -1835,30 +2099,27 @@ def train_phase(torch, dev, bwd: str):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t_step)
         losses.append(m["loss"])
-        log(f"train (bwd={bwd}) step {step}: loss {m['loss']:.5f} gnorm {m['grad_norm']:.4f} "
+        log(f"train ({label}) step {step}: loss {m['loss']:.5f} gnorm {m['grad_norm']:.4f} "
             f"lr {m['lr']:.3e} skipped {m['skipped']:.0f}, {times[-1] * 1e3:.1f} ms")
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])) or m["skipped"]:
-            fail(f"training step {step} (bwd={bwd}) gave a non-finite loss or gradient norm")
+            fail(f"training step {step} ({label}) gave a non-finite loss or gradient norm")
     counts = read_counts(counters, plains)
     peak = torch.cuda.max_memory_allocated(dev)
     med = sorted(times)[len(times) // 2]
     tokens = TRAIN_B * TRAIN_S
     mfu = train_model_flops(cfg, TRAIN_B, TRAIN_S) / med / PEAK_BF16_FLOPS
-    log(f"training (bwd={bwd}): losses {[round(x, 5) for x in losses]}; median step "
+    log(f"training ({label}): losses {[round(x, 5) for x in losses]}; median step "
         f"{med * 1e3:.1f} ms (first {times[0] * 1e3:.1f} ms), {tokens / med:.1f} tokens/s, model "
         f"FLOPs {train_model_flops(cfg, TRAIN_B, TRAIN_S) / 1e12:.3f} TFLOP a step, MFU "
         f"{mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; max_memory_allocated "
         f"{peak / 2**30:.2f} GiB")
-    log(f"launches on the training path (bwd={bwd}): {counts}")
+    log(f"launches on the training path ({label}): {counts}")
     if not sum(losses[-2:]) / 2 < losses[0]:
-        fail(f"the training loss (bwd={bwd}) did not fall")
-    n = TRAIN_STEPS * TRAIN_LAYERS
-    want = {k: 0 for k in counters}
-    want.update(flash_fwd=2 * n, flash_bwd_delta=n, flash_bwd_fused=n if bwd == "fused" else 0,
-                flash_bwd_dkv=n if bwd == "split" else 0, flash_bwd_dq=n if bwd == "split" else 0,
-                plain=[0] * len(plains))
+        fail(f"the training loss ({label}) did not fall")
+    want = training_want(counters, plains, TRAIN_STEPS * TRAIN_LAYERS, (bwd,),
+                         "_dense" if schedule == "dense" else "")
     if counts != want:
-        fail(f"training launches (bwd={bwd}) {counts}, want {want} (forward twice a layer "
+        fail(f"training launches ({label}) {counts}, want {want} (forward twice a layer "
              f"with remat)")
     busy, attn_ms = profile_train_step(torch, step_fn, model, opt_state, batches[0], med)
     del model, params, opt_state, batches
@@ -1907,17 +2168,14 @@ def split_train_phase(torch, dev, fused_summary):
     through bwd="split". Launch counts exact, the loss falls, step 0's loss
     equals phase 8's (the same forward); then, at the training shape,
     ops.flash_attention(bwd="split") forward and backward twice must give
-    bitwise-equal dq, dk and dv. Returns the main path's launch counts."""
+    bitwise-equal dq, dk and dv. Returns the main path's launch counts and
+    the run's summary."""
     from repro_torch.core.masks import MaskSpec
     from repro_torch.kernels import ops
 
     counts, summary = train_phase(torch, dev, "split")
-    fmt = {"median_ms": "{:.1f} ms", "tokens_per_s": "{:.1f}", "mfu": "{:.4f}",
-           "peak_gib": "{:.2f} GiB", "busy_share": "{:.4f}"}
-    log("training, split against fused backward (phase 8): " + "; ".join(
-        f"{k} {v.format(summary[k]) if summary[k] is not None else 'not measured'} against "
-        f"{v.format(fused_summary[k]) if fused_summary[k] is not None else 'not measured'}"
-        for k, v in fmt.items()))
+    log(summary_line("training, split against fused backward (phase 8)", summary,
+                     fused_summary))
     if summary["losses"][0] != fused_summary["losses"][0]:
         fail(f"step 0's loss through bwd=split ({summary['losses'][0]!r}) differs from phase "
              f"8's ({fused_summary['losses'][0]!r}); the forward is the same")
@@ -1938,6 +2196,23 @@ def split_train_phase(torch, dev, fused_summary):
     if not all(same) or not all(torch.isfinite(g.float()).all() for g in grads[0]):
         fail("the split backward is not bitwise reproducible (or not finite) at the training "
              "shape")
+    return counts, summary
+
+
+def dense_train_phase(torch, dev, split_summary):
+    """The dense-schedule training slice: phase 9's model, seed and batches
+    with AttentionConfig(schedule="dense", bwd="split"). Launch counts exact
+    (the dense forward twice a layer, delta, dense dK/dV and dQ once; every
+    compact kernel and plain version 0), and every step's loss bitwise
+    phase 9's: the dense kernels compute what the compact ones do. Returns
+    the launch counts."""
+    counts, summary = train_phase(torch, dev, "split", "dense")
+    log(summary_line("training, dense against compact schedule (phase 9, split backward)",
+                     summary, split_summary))
+    same = [a == b for a, b in zip(summary["losses"], split_summary["losses"])]
+    log(f"dense training: every step's loss bitwise phase 9's: {same}")
+    if not all(same):
+        fail("the dense schedule's losses are not phase 9's to the bit")
     return counts
 
 
@@ -1990,10 +2265,7 @@ def packed_train_phase(torch, dev, fused_summary):
         fail("packed training gave a non-finite loss or gradient norm")
     if not sum(losses[-2:]) / 2 < losses[0]:
         fail("the packed training loss did not fall")
-    n = TRAIN_STEPS * TRAIN_LAYERS
-    want = {k: 0 for k in counters}
-    want.update(flash_fwd_varlen=2 * n, flash_bwd_delta=n, flash_bwd_fused_varlen=n,
-                plain=[0] * len(plains))
+    want = training_want(counters, plains, TRAIN_STEPS * TRAIN_LAYERS, ("fused",), "_varlen")
     if counts != want:
         fail(f"packed training launches {counts}, want {want} (the segment forward twice a "
              f"layer with remat; no unsegmented kernel, no plain version)")
@@ -2002,12 +2274,8 @@ def packed_train_phase(torch, dev, fused_summary):
     busy, attn_ms = profile_train_step(torch, step_fn, model, opt_state, batch, med)
     summary = dict(median_ms=med * 1e3, tokens_per_s=tokens / med, mfu=mfu,
                    peak_gib=peak / 2**30, busy_share=busy, attention_ms=attn_ms)
-    fmt = {"median_ms": "{:.1f} ms", "tokens_per_s": "{:.1f}", "mfu": "{:.4f}",
-           "peak_gib": "{:.2f} GiB", "busy_share": "{:.4f}", "attention_ms": "{:.3f} ms"}
-    log("packed against synthetic training (phase 8, this call): " + "; ".join(
-        f"{k} {v.format(summary[k]) if summary[k] is not None else 'not measured'} against "
-        f"{v.format(fused_summary[k]) if fused_summary[k] is not None else 'not measured'}"
-        for k, v in fmt.items()) + f"; step ratio {summary['median_ms'] / fused_summary['median_ms']:.4f}")
+    log(summary_line("packed against synthetic training (phase 8, this call)", summary,
+                     fused_summary))
     del model, opt_state
     return counts
 
@@ -2041,6 +2309,7 @@ def main() -> None:
     results.update(paged_kernel_phase(torch, dev, scratch.zero_))
     results.update(bwd_kernel_phase(torch, dev, scratch.zero_))
     results.update(varlen_kernel_phase(torch, dev, scratch.zero_))
+    results.update(dense_kernel_phase(torch, dev, scratch.zero_))
     results.update(whisper_kernel_phase(torch, dev, scratch.zero_))
     del scratch
     whisper_counts, whisper_summary = whisper_phase(torch, dev)
@@ -2059,13 +2328,22 @@ def main() -> None:
     train_counts, fused_summary = train_phase(torch, dev, "fused")
     gc.collect()
     torch.cuda.empty_cache()
-    split_counts = split_train_phase(torch, dev, fused_summary)
+    split_counts, split_summary = split_train_phase(torch, dev, fused_summary)
     gc.collect()
     torch.cuda.empty_cache()
     packed_parity_counts = train_parity_phase(torch, dev, packed=True)
     gc.collect()
     torch.cuda.empty_cache()
     packed_counts = packed_train_phase(torch, dev, fused_summary)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_parity_counts = train_parity_phase(torch, dev, schedule="dense")
+    gc.collect()
+    torch.cuda.empty_cache()
+    packed_dense_parity_counts = train_parity_phase(torch, dev, packed=True, schedule="dense")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_counts = dense_train_phase(torch, dev, split_summary)
 
     results["flash_fwd"]["at_training_shape"] = results.pop("flash_fwd_at_training_shape")
     replaces = {"flash_fwd": "src/repro/kernels/flash_fwd.py:354",
@@ -2086,7 +2364,16 @@ def main() -> None:
                 "flash_fwd_splitkv_varlen": "src/repro/kernels/flash_fwd.py:510",
                 "flash_fwd_hd64": "src/repro/kernels/flash_fwd.py:354",
                 "flash_decode_hd64": "src/repro/kernels/flash_decode.py:77",
-                "flash_decode_varlen": "src/repro/kernels/flash_decode.py:77"}
+                "flash_decode_varlen": "src/repro/kernels/flash_decode.py:77",
+                # The dense bodies (and their segment branches).
+                "flash_fwd_dense": "src/repro/kernels/flash_fwd.py:206",
+                "flash_fwd_varlen_dense": "src/repro/kernels/flash_fwd.py:206",
+                "flash_bwd_fused_dense": "src/repro/kernels/flash_bwd.py:633",
+                "flash_bwd_dkv_dense": "src/repro/kernels/flash_bwd.py:157",
+                "flash_bwd_dq_dense": "src/repro/kernels/flash_bwd.py:390",
+                "flash_bwd_fused_varlen_dense": "src/repro/kernels/flash_bwd.py:633",
+                "flash_bwd_dkv_varlen_dense": "src/repro/kernels/flash_bwd.py:157",
+                "flash_bwd_dq_varlen_dense": "src/repro/kernels/flash_bwd.py:390"}
     source = {"flash_fwd": "flash_fwd", "flash_decode": "flash_decode",
               "flash_decode_paged": "flash_decode", "flash_bwd_delta": "flash_bwd",
               "flash_bwd_fused": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
@@ -2095,6 +2382,8 @@ def main() -> None:
               "flash_bwd_dq_varlen": "flash_bwd", "flash_fwd_splitkv": "flash_fwd",
               "flash_fwd_splitkv_varlen": "flash_fwd", "flash_fwd_hd64": "flash_fwd",
               "flash_decode_hd64": "flash_decode", "flash_decode_varlen": "flash_decode"}
+    source.update({k: "flash_fwd" if k.startswith("flash_fwd") else "flash_bwd"
+                   for k in replaces if k.endswith("_dense")})
     # The head_dim-64 entries are instantiations behind the flash_fwd and
     # flash_decode wrappers: their launches are the whisper path's (every
     # call there is at head_dim 64), which the qwen3 paths never make, so
@@ -2109,7 +2398,10 @@ def main() -> None:
                        "training": train_counts.get(k, 0),
                        "training_split": split_counts.get(k, 0),
                        "training_packed": packed_counts.get(k, 0),
-                       "training_packed_parity": packed_parity_counts.get(k, 0)}
+                       "training_packed_parity": packed_parity_counts.get(k, 0),
+                       "training_dense": dense_counts.get(k, 0),
+                       "training_dense_parity": dense_parity_counts.get(k, 0),
+                       "training_packed_dense_parity": packed_dense_parity_counts.get(k, 0)}
             if k not in counted.values():
                 by_path["whisper_serving"] = whisper_counts.get(k, 0)
         kernels.append({

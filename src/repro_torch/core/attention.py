@@ -39,6 +39,10 @@ class AttentionConfig:
     # Splits run the split-KV kernel, exact up to the fold's rounding. The
     # JAX config's q bands have no counterpart: every q tile is its own CTA.
     kv_splits: Optional[int] = None
+    # flash_cuda tile schedule: 'compact' (the CSR of visible tiles) |
+    # 'dense' (every tile visited, empty ones skipped in the kernel; no kv
+    # splits). None -> 'compact': the port has no tuned cache to consult.
+    schedule: Optional[str] = None
 
     def __post_init__(self):
         if self.impl not in IMPLS:
@@ -46,6 +50,8 @@ class AttentionConfig:
         if self.bwd is not None and self.bwd not in ops.BWD_MODES:
             raise ValueError(f"unknown backward mode {self.bwd!r}; have {ops.BWD_MODES}")
         ops.check_kv_splits(self.kv_splits)
+        if self.schedule is not None:
+            ops.check_schedule(self.schedule)
 
 
 def attention(q, k, v, spec: MaskSpec, cfg: AttentionConfig = AttentionConfig(), *,
@@ -58,7 +64,8 @@ def attention(q, k, v, spec: MaskSpec, cfg: AttentionConfig = AttentionConfig(),
     (JAX ``attention.py:64``)."""
     if cfg.impl == "ref":
         return attention_reference(q, k, v, spec, scale=scale, segment_ids=segment_ids)[0]
-    knobs = dict(scale=scale, bwd=cfg.bwd or "fused", kv_splits=cfg.kv_splits)
+    knobs = dict(scale=scale, bwd=cfg.bwd or "fused", kv_splits=cfg.kv_splits,
+                 schedule=cfg.schedule or "compact")
     if segment_ids is not None:
         return ops.flash_attention_varlen(q, k, v, segment_ids, spec, **knobs)
     return ops.flash_attention(q, k, v, spec, **knobs)

@@ -91,6 +91,24 @@
 // dV stay bitwise the fused kernel's. With SEG false the kernels are the
 // ones described above.
 //
+// The DENSE instantiations of the fused, dkv and dq kernels (each with and
+// without SEG) replace the dense bodies of the same Pallas kernels:
+// _fused_kernel_dense (flash_bwd.py:633), _dkv_kernel_dense (:157) and
+// _dq_kernel_dense (:390), segment branches included. They read no table
+// and no step bits: a KV-stationary CTA walks, for each q head g of the
+// group, every q tile i = 0 .. t_q - 1 (the (g, i) order of the JAX dense
+// grid (BHk, t_kv, G, t_q), flash_bwd.py:291), a dq CTA every kv tile in
+// ascending order. Each step fetches its tiles (Q and dO, or K and V, with
+// SEG their ids) through the same ring, then classifies the tile in the
+// kernel (classify_tile: the spec, q_offset and the ragged kv edge; with
+// SEG the min and max of the owner's ids, reduced once, and of the staged
+// ids, read by every thread from shared memory) and skips the products of
+// an empty one. The cost of the hidden tiles' copies is the point: this is
+// the baseline the compact schedule is measured against. Visible tiles
+// come in the compact order with the compact mask decisions, so dense dK,
+// dV and split dQ are the compact kernels' to the bit; the dense fused dQ
+// goes through the same atomics and agrees up to their order.
+//
 // None of them uses wgmma or TMA yet; those are the next step for speed.
 //
 // Semantics match the JAX kernels: masked scores take the finite
@@ -231,6 +249,67 @@ __device__ __forceinline__ void load_ids(int* dst, const int* src, int row0, int
   }
 }
 
+// (empty, needs the element mask) of the tile of BM q positions from q_lo
+// and BN kv rows from kv_lo: the dense schedule's in-kernel test, the JAX
+// _visibility (flash_fwd.py:71) on inclusive corners (the forward's
+// classify_tile, csrc/flash_fwd.cu). A tile that reaches past Skv needs the
+// mask; one that starts past it is never walked.
+struct TileClass {
+  bool empty, mask;
+};
+
+__device__ __forceinline__ TileClass classify_tile(const BwdParams& p, int q_lo, int kv_lo) {
+  const int q_hi = q_lo + kBlockM - 1, kv_hi = kv_lo + kBlockN - 1;
+  bool empty = false, full = true;
+  if (p.causal) {
+    empty = q_hi < kv_lo;
+    full = q_lo >= kv_hi;
+    if (p.window >= 0) {
+      empty = empty || (q_lo - kv_hi >= p.window && kv_lo >= p.sink);
+      full = full && (q_hi - kv_lo < p.window || kv_hi < p.sink);
+    }
+  } else if (p.window >= 0) {
+    empty = (q_lo - kv_hi >= p.window || kv_lo - q_hi >= p.window) && kv_lo >= p.sink;
+    full = (abs(q_lo - kv_hi) < p.window && abs(q_hi - kv_lo) < p.window) || kv_hi < p.sink;
+  }
+  if (kv_lo + kBlockN > p.Skv) full = false;
+  return {empty, !full};
+}
+
+// The id-range test on top: disjoint id ranges share no segment (empty); a
+// tile is mask-free only if both tiles hold one and the same id.
+__device__ __forceinline__ TileClass with_ids(TileClass c, int q_lo, int q_hi, int kv_lo,
+                                              int kv_hi) {
+  c.empty = c.empty || q_hi < kv_lo || q_lo > kv_hi;
+  c.mask = c.mask || !(q_lo == q_hi && kv_lo == kv_hi && q_lo == kv_lo);
+  return c;
+}
+
+// min and max of the N ids of rows [row0, row0 + N), rows at or past
+// `nrows` counting as `pad` (from global memory: an owner tile's ids, read
+// once by every thread).
+template <int N>
+__device__ __forceinline__ void id_range(const int* g, int row0, int nrows, int pad, int& lo,
+                                         int& hi) {
+  lo = hi = row0 < nrows ? g[row0] : pad;
+  for (int r = 1; r < N; ++r) {
+    const int id = row0 + r < nrows ? g[row0 + r] : pad;
+    lo = min(lo, id);
+    hi = max(hi, id);
+  }
+}
+
+// min and max of N staged ids in shared memory (broadcast reads).
+template <int N>
+__device__ __forceinline__ void id_range(const int* s, int& lo, int& hi) {
+  lo = hi = s[0];
+#pragma unroll 8
+  for (int r = 1; r < N; ++r) {
+    lo = min(lo, s[r]);
+    hi = max(hi, s[r]);
+  }
+}
+
 __device__ __forceinline__ bool visible(const BwdParams& p, int qpos, int col) {
   if (col >= p.Skv) return false;
   if (p.causal) {
@@ -278,8 +357,8 @@ __global__ void __launch_bounds__(kThreads) fa2_bwd_delta_kernel(const DeltaPara
 
 // The KV-stationary body: with DQ, the fused kernel; without, the dkv
 // kernel (no phase 3 and no dS^T tile; dK and dV bitwise the same). SEG:
-// the segment variant of either.
-template <int D, bool DQ, bool SEG>
+// the segment variant of either. DENSE: every q tile, no table.
+template <int D, bool DQ, bool SEG, bool DENSE>
 __device__ __forceinline__ void kv_stationary(const BwdParams& p) {
   constexpr int BM = kBlockM;
   constexpr int BN = kBlockN;
@@ -307,27 +386,35 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p) {
   const int j = blockIdx.y;       // low kv tiles (the longest causal runs) first
   const int b = blockIdx.x / p.Hkv, hk = blockIdx.x % p.Hkv;
   const int k0 = j * BN;
-  const int beg = p.table[j], nvis = p.table[j + 1] - beg;
-  const int* steps = p.table + p.t_kv + 1 + beg;
-  const int n_steps = nvis * p.group;  // (q head of the group, visible q tile)
+  // Per q head, the table's visible q tiles of this kv tile, or under DENSE
+  // every q tile: step it is (head it / nvis, q tile of entry it % nvis).
+  const int beg = DENSE ? 0 : p.table[j];
+  const int nvis = DENSE ? (p.Sq + BM - 1) / BM : p.table[j + 1] - beg;
+  const int* steps = DENSE ? nullptr : p.table + p.t_kv + 1 + beg;
+  const int n_steps = nvis * p.group;  // (q head of the group, q tile)
   const int kv_a = k0 + wr * 16 + g8;  // this thread's two kv rows
   const int kv_b = kv_a + 8;
-  // SEG: the bits of this tile's slice, the q ids, the ids of the two kv rows.
-  const int* bits = SEG ? p.bits + static_cast<long long>(b) * p.n_vis + beg : nullptr;
+  // SEG: the bits of this tile's slice (compact), the q ids, the ids of the
+  // two kv rows; DENSE with SEG: the range of the kv tile's ids.
+  constexpr bool SKIP = SEG && !DENSE;  // inactive steps are skipped before their fetch
+  const int* bits = SKIP ? p.bits + static_cast<long long>(b) * p.n_vis + beg : nullptr;
   const int* qid_g = SEG ? p.q_seg + b * p.q_seg_sb : nullptr;
   int kvid[2] = {0, 0};
+  int kvid_lo = 0, kvid_hi = 0;
   if (SEG) {
     const int* kvid_g = p.kv_seg + b * p.kv_seg_sb;
     kvid[0] = kv_a < p.Skv ? kvid_g[kv_a] : kKvPadSegment;
     kvid[1] = kv_b < p.Skv ? kvid_g[kv_b] : kKvPadSegment;
+    if (DENSE) id_range<BN>(kvid_g, k0, p.Skv, kKvPadSegment, kvid_lo, kvid_hi);
   }
-  // The first active step at or after `it` (every step without SEG); a
+  // The first active step at or after `it` (every step without SKIP); a
   // step's bit is its q tile's, the same for every head of the group.
   auto next_active = [&](int it) {
-    if (SEG)
+    if (SKIP)
       while (it < n_steps && !(bits[it % nvis] & kSegActive)) ++it;
     return it;
   };
+  auto q_tile_of = [&](int it) { return DENSE ? it % nvis : steps[it % nvis] >> 1; };
   const int first = next_active(0);
 
   // dV (warps 0-3) or dK (warps 4-7): rows kv_a / kv_b, columns t * 8 + 2 * t4.
@@ -337,7 +424,7 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p) {
 
   auto load_q_stage = [&](int it, int stage) {
     const int h = hk * p.group + it / nvis;
-    const int q0 = (steps[it % nvis] >> 1) * BM;
+    const int q0 = q_tile_of(it) * BM;
     load_tile<BM, D, STRIDE>(sQ + stage * BM * STRIDE, p.q + b * p.q_sb + h * p.q_sh, p.q_ss,
                              q0, p.Sq);
     load_tile<BM, D, STRIDE>(sdO + stage * BM * STRIDE, p.dout + b * p.d_sb + h * p.d_sh,
@@ -351,11 +438,11 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p) {
     load_q_stage(first, 0);
     cp_async_commit();
 
-    // With SEG, `nxt` skips inactive steps before their tiles are fetched,
+    // With SKIP, `nxt` skips inactive steps before their tiles are fetched,
     // and `n` counts the tiles computed (the stage alternates with it).
     for (int it = first, n = 0; it < n_steps; ++n) {
-      const int nxt = SEG ? next_active(it + 1) : it + 1;
-      const int stage = SEG ? (n & 1) : (it & 1);
+      const int nxt = SKIP ? next_active(it + 1) : it + 1;
+      const int stage = SKIP ? (n & 1) : (it & 1);
       if (nxt < n_steps) {
         load_q_stage(nxt, stage ^ 1);
         cp_async_commit();
@@ -366,13 +453,29 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p) {
       __syncthreads();
 
       const int h = hk * p.group + it / nvis;
-      const int entry = steps[it % nvis];
-      const int q0 = (entry >> 1) * BM;
-      const bool masked = (entry & 1) || (SEG && !(bits[it % nvis] & kSegUniform));
+      const int q0 = q_tile_of(it) * BM;
       const long long bh = static_cast<long long>(b) * p.Hq + h;
       const __nv_bfloat16* cQ = sQ + stage * BM * STRIDE;
       const __nv_bfloat16* cdO = sdO + stage * BM * STRIDE;
       const int* cQid = sQid + stage * BM;
+      bool masked, empty = false;
+      if (DENSE) {
+        TileClass c = classify_tile(p, q0 + p.q_offset, k0);
+        if (SEG) {
+          int lo, hi;
+          id_range<BM>(cQid, lo, hi);
+          c = with_ids(c, lo, hi, kvid_lo, kvid_hi);
+        }
+        empty = c.empty;
+        masked = c.mask;
+      } else {
+        masked = (steps[it % nvis] & 1) || (SEG && !(bits[it % nvis] & kSegUniform));
+      }
+      if (empty) {  // DENSE: fetched, nothing to compute
+        __syncthreads();  // this stage (its ids were read) is refilled next
+        it = nxt;
+        continue;
+      }
 
       // Phase 1: S^T = K Q^T (warps 0-3) or dP^T = V dO^T (warps 4-7), this
       // warp's 16 kv rows x the tile's 64 q columns.
@@ -530,14 +633,14 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p) {
   }
 }
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool DENSE>
 __global__ void __launch_bounds__(kThreads, 1) fa2_bwd_fused_kernel(const BwdParams p) {
-  kv_stationary<D, true, SEG>(p);
+  kv_stationary<D, true, SEG, DENSE>(p);
 }
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool DENSE>
 __global__ void __launch_bounds__(kThreads, 1) fa2_bwd_dkv_kernel(const BwdParams p) {
-  kv_stationary<D, false, SEG>(p);
+  kv_stationary<D, false, SEG, DENSE>(p);
 }
 
 template <int D, bool DQ, bool SEG>
@@ -550,7 +653,7 @@ size_t kv_stationary_smem_bytes() {
 
 // --------------------------------------------------------------------- dq
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool DENSE>
 __global__ void __launch_bounds__(kDqThreads) fa2_bwd_dq_kernel(const BwdParams p) {
   constexpr int BM = kBlockM;
   constexpr int BN = kBlockN;
@@ -575,25 +678,33 @@ __global__ void __launch_bounds__(kDqThreads) fa2_bwd_dq_kernel(const BwdParams 
   const __nv_bfloat16* kg = p.k + b * p.k_sb + hk * p.k_sh;
   const __nv_bfloat16* vg = p.v + b * p.v_sb + hk * p.v_sh;
   const int q0 = qt * BM;
-  const int beg = p.table[qt], end = p.table[qt + 1];
-  const int* steps = p.table + p.t_q + 1;
+  // The walk: the table's steps [beg, end) of this q tile, or under DENSE
+  // every kv tile (step = kv tile).
+  const int beg = DENSE ? 0 : p.table[qt];
+  const int end = DENSE ? (p.Skv + BN - 1) / BN : p.table[qt + 1];
+  const int* steps = DENSE ? nullptr : p.table + p.t_q + 1;
   const int row_a = q0 + warp * 16 + g8;  // this thread's two q rows
   const int row_b = row_a + 8;
-  // SEG: this batch row's step bits, and the ids of the thread's two rows.
-  const int* bits = SEG ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
+  // SEG: this batch row's step bits (compact), and the ids of the thread's
+  // two rows; DENSE with SEG: the range of the q tile's ids.
+  constexpr bool SKIP = SEG && !DENSE;  // inactive steps are skipped before their fetch
+  const int* bits = SKIP ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
   const int* kid_g = SEG ? p.kv_seg + b * p.kv_seg_sb : nullptr;
   int qid[2] = {0, 0};
+  int qid_lo = 0, qid_hi = 0;
   if (SEG) {
     const int* qid_g = p.q_seg + b * p.q_seg_sb;
     qid[0] = row_a < p.Sq ? qid_g[row_a] : kQPadSegment;
     qid[1] = row_b < p.Sq ? qid_g[row_b] : kQPadSegment;
+    if (DENSE) id_range<BM>(qid_g, q0, p.Sq, kQPadSegment, qid_lo, qid_hi);
   }
-  // The first active step at or after `it` (every step without SEG).
+  // The first active step at or after `it` (every step without SKIP).
   auto next_active = [&](int it) {
-    if (SEG)
+    if (SKIP)
       while (it < end && !(bits[it] & kSegActive)) ++it;
     return it;
   };
+  auto tile_of = [&](int it) { return DENSE ? it : steps[it] >> 1; };
   const int first = next_active(beg);
 
   // dQ: rows row_a / row_b, columns t * 8 + 2 * t4.
@@ -605,7 +716,7 @@ __global__ void __launch_bounds__(kDqThreads) fa2_bwd_dq_kernel(const BwdParams 
     load_tile<BM, D, STRIDE, kDqThreads>(sQ, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq);
     load_tile<BM, D, STRIDE, kDqThreads>(sdO, p.dout + b * p.d_sb + h * p.d_sh, p.d_ss, q0,
                                          p.Sq);
-    const int j0 = steps[first] >> 1;
+    const int j0 = tile_of(first);
     load_tile<BN, D, STRIDE, kDqThreads>(sK, kg, p.k_ss, j0 * BN, p.Skv);
     load_tile<BN, D, STRIDE, kDqThreads>(sV, vg, p.v_ss, j0 * BN, p.Skv);
     if (SEG) load_ids<BN, kDqThreads>(sKid, kid_g, j0 * BN, p.Skv, kKvPadSegment);
@@ -622,13 +733,13 @@ __global__ void __launch_bounds__(kDqThreads) fa2_bwd_dq_kernel(const BwdParams 
       delta_r[r] = row < p.Sq ? p.delta[at] : 0.f;
     }
 
-    // With SEG, `nxt` skips inactive steps before their tiles are fetched,
+    // With SKIP, `nxt` skips inactive steps before their tiles are fetched,
     // and `n` counts the tiles computed (the stage alternates with it).
     for (int it = first, n = 0; it < end; ++n) {
-      const int nxt = SEG ? next_active(it + 1) : it + 1;
-      const int stage = SEG ? (n & 1) : ((it - beg) & 1);
+      const int nxt = SKIP ? next_active(it + 1) : it + 1;
+      const int stage = SKIP ? (n & 1) : ((it - beg) & 1);
       if (nxt < end) {
-        const int jn = steps[nxt] >> 1;
+        const int jn = tile_of(nxt);
         load_tile<BN, D, STRIDE, kDqThreads>(sK + (stage ^ 1) * BN * STRIDE, kg, p.k_ss,
                                              jn * BN, p.Skv);
         load_tile<BN, D, STRIDE, kDqThreads>(sV + (stage ^ 1) * BN * STRIDE, vg, p.v_ss,
@@ -642,12 +753,28 @@ __global__ void __launch_bounds__(kDqThreads) fa2_bwd_dq_kernel(const BwdParams 
       }
       __syncthreads();
 
-      const int entry = steps[it];
-      const int j = entry >> 1;
-      const bool masked = (entry & 1) || (SEG && !(bits[it] & kSegUniform));
+      const int j = tile_of(it);
       const __nv_bfloat16* cK = sK + stage * BN * STRIDE;
       const __nv_bfloat16* cV = sV + stage * BN * STRIDE;
       const int* cKid = sKid + stage * BN;
+      bool masked, empty = false;
+      if (DENSE) {
+        TileClass c = classify_tile(p, q0 + p.q_offset, j * BN);
+        if (SEG) {
+          int lo, hi;
+          id_range<BN>(cKid, lo, hi);
+          c = with_ids(c, qid_lo, qid_hi, lo, hi);
+        }
+        empty = c.empty;
+        masked = c.mask;
+      } else {
+        masked = (steps[it] & 1) || (SEG && !(bits[it] & kSegUniform));
+      }
+      if (empty) {  // DENSE: fetched, nothing to compute
+        __syncthreads();  // this stage (its ids were read) is refilled next
+        it = nxt;
+        continue;
+      }
 
       // S = Q K^T (line 11) and dP = dO V^T (line 13): this warp's 16 q
       // rows x the tile's 64 kv columns, A fragments from sQ / sdO.
@@ -777,6 +904,32 @@ cudaError_t launch(Kernel kernel, const BwdParams& p, dim3 grid, int threads, si
   return cudaGetLastError();
 }
 
+// Whether an entry's arguments are consistent: segments are on with q ids;
+// the compact schedule reads a table (with segments, step bits too), the
+// dense one neither.
+bool schedule_args_ok(const BwdParams& p, int dense) {
+  if (dense) return p.table == nullptr && p.bits == nullptr;
+  return p.table != nullptr && (p.q_seg == nullptr || p.bits != nullptr);
+}
+
+// The KV-stationary kernels (fused: DQ) of one (SEG, DENSE) pair.
+template <bool DQ, bool SEG, bool DENSE>
+cudaError_t launch_kv(const BwdParams& p, int batch, int t_kv, void* stream) {
+  auto kernel = DQ ? fa2_bwd_fused_kernel<128, SEG, DENSE> : fa2_bwd_dkv_kernel<128, SEG, DENSE>;
+  return launch(kernel, p, dim3(batch * p.Hkv, t_kv), kThreads,
+                kv_stationary_smem_bytes<128, DQ, SEG>(), stream);
+}
+
+template <bool DQ>
+cudaError_t dispatch_kv(const BwdParams& p, int batch, int t_kv, bool seg, bool dense,
+                        void* stream) {
+  if (dense)
+    return seg ? launch_kv<DQ, true, true>(p, batch, t_kv, stream)
+               : launch_kv<DQ, false, true>(p, batch, t_kv, stream);
+  return seg ? launch_kv<DQ, true, false>(p, batch, t_kv, stream)
+             : launch_kv<DQ, false, false>(p, batch, t_kv, stream);
+}
+
 }  // namespace
 
 extern "C" int fa2_bwd_delta_bf16(const void* o, const void* dout, void* delta, long long o_sb,
@@ -798,7 +951,8 @@ extern "C" int fa2_bwd_delta_bf16(const void* o, const void* dout, void* delta, 
 
 // The entries below take the instantiations the training path needs
 // (qwen3: head_dim 128, 64 x 64 tiles), without and with segments (null
-// bits: none).
+// q ids: none), on the compact schedule (table, step bits) or the dense
+// one (dense != 0: neither).
 
 extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dq, void* dk,
@@ -808,9 +962,9 @@ extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, c
                                   long long d_ss, long long d_sh, int batch, int Hq, int Hkv,
                                   int Sq, int Skv, int head_dim, int block_q, int block_kv,
                                   int causal, int window, int sink, int q_offset, int t_kv,
-                                  const void* q_seg, const void* kv_seg, long long q_seg_sb,
-                                  long long kv_seg_sb, const void* bits, int n_vis,
-                                  void* stream) {
+                                  int dense, const void* q_seg, const void* kv_seg,
+                                  long long q_seg_sb, long long kv_seg_sb, const void* bits,
+                                  int n_vis, void* stream) {
   if (head_dim != 128 || block_q != kBlockM || block_kv != kBlockN) return cudaErrorInvalidValue;
   BwdParams p = bwd_params(q, k, v, dout, lse, delta, table, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh, d_sb, d_ss, d_sh, Hq, Hkv, Sq, Skv, causal, window,
@@ -820,11 +974,8 @@ extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, c
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
   p.t_kv = t_kv;
-  if (bits != nullptr)
-    return launch(fa2_bwd_fused_kernel<128, true>, p, dim3(batch * Hkv, t_kv), kThreads,
-                  kv_stationary_smem_bytes<128, true, true>(), stream);
-  return launch(fa2_bwd_fused_kernel<128, false>, p, dim3(batch * Hkv, t_kv), kThreads,
-                kv_stationary_smem_bytes<128, true, false>(), stream);
+  if (!schedule_args_ok(p, dense)) return cudaErrorInvalidValue;
+  return dispatch_kv<true>(p, batch, t_kv, q_seg != nullptr, dense != 0, stream);
 }
 
 extern "C" int fa2_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
@@ -834,7 +985,7 @@ extern "C" int fa2_bwd_dkv_bf16(const void* q, const void* k, const void* v, con
                                 long long v_ss, long long v_sh, long long d_sb, long long d_ss,
                                 long long d_sh, int batch, int Hq, int Hkv, int Sq, int Skv,
                                 int head_dim, int block_q, int block_kv, int causal, int window,
-                                int sink, int q_offset, int t_kv, const void* q_seg,
+                                int sink, int q_offset, int t_kv, int dense, const void* q_seg,
                                 const void* kv_seg, long long q_seg_sb, long long kv_seg_sb,
                                 const void* bits, int n_vis, void* stream) {
   if (head_dim != 128 || block_q != kBlockM || block_kv != kBlockN) return cudaErrorInvalidValue;
@@ -845,11 +996,8 @@ extern "C" int fa2_bwd_dkv_bf16(const void* q, const void* k, const void* v, con
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
   p.t_kv = t_kv;
-  if (bits != nullptr)
-    return launch(fa2_bwd_dkv_kernel<128, true>, p, dim3(batch * Hkv, t_kv), kThreads,
-                  kv_stationary_smem_bytes<128, false, true>(), stream);
-  return launch(fa2_bwd_dkv_kernel<128, false>, p, dim3(batch * Hkv, t_kv), kThreads,
-                kv_stationary_smem_bytes<128, false, false>(), stream);
+  if (!schedule_args_ok(p, dense)) return cudaErrorInvalidValue;
+  return dispatch_kv<false>(p, batch, t_kv, q_seg != nullptr, dense != 0, stream);
 }
 
 extern "C" int fa2_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
@@ -859,9 +1007,9 @@ extern "C" int fa2_bwd_dq_bf16(const void* q, const void* k, const void* v, cons
                                long long v_sh, long long d_sb, long long d_ss, long long d_sh,
                                int batch, int Hq, int Hkv, int Sq, int Skv, int head_dim,
                                int block_q, int block_kv, int causal, int window, int sink,
-                               int q_offset, int t_q, const void* q_seg, const void* kv_seg,
-                               long long q_seg_sb, long long kv_seg_sb, const void* bits,
-                               int n_vis, void* stream) {
+                               int q_offset, int t_q, int dense, const void* q_seg,
+                               const void* kv_seg, long long q_seg_sb, long long kv_seg_sb,
+                               const void* bits, int n_vis, void* stream) {
   if (head_dim != 128 || block_q != kBlockM || block_kv != kBlockN) return cudaErrorInvalidValue;
   BwdParams p = bwd_params(q, k, v, dout, lse, delta, table, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh, d_sb, d_ss, d_sh, Hq, Hkv, Sq, Skv, causal, window,
@@ -869,9 +1017,16 @@ extern "C" int fa2_bwd_dq_bf16(const void* q, const void* k, const void* v, cons
                            n_vis);
   p.dq = static_cast<float*>(dq);
   p.t_q = t_q;
-  if (bits != nullptr)
-    return launch(fa2_bwd_dq_kernel<128, true>, p, dim3(t_q, batch * Hq), kDqThreads,
-                  dq_smem_bytes<128, true>(), stream);
-  return launch(fa2_bwd_dq_kernel<128, false>, p, dim3(t_q, batch * Hq), kDqThreads,
-                dq_smem_bytes<128, false>(), stream);
+  if (!schedule_args_ok(p, dense)) return cudaErrorInvalidValue;
+  const dim3 grid(t_q, batch * Hq);
+  const bool seg = q_seg != nullptr;
+  if (dense)
+    return seg ? launch(fa2_bwd_dq_kernel<128, true, true>, p, grid, kDqThreads,
+                        dq_smem_bytes<128, true>(), stream)
+               : launch(fa2_bwd_dq_kernel<128, false, true>, p, grid, kDqThreads,
+                        dq_smem_bytes<128, false>(), stream);
+  return seg ? launch(fa2_bwd_dq_kernel<128, true, false>, p, grid, kDqThreads,
+                      dq_smem_bytes<128, true>(), stream)
+             : launch(fa2_bwd_dq_kernel<128, false, false>, p, grid, kDqThreads,
+                      dq_smem_bytes<128, false>(), stream);
 }

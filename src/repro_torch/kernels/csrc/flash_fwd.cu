@@ -62,6 +62,26 @@
 // bytes are read at the card's rate only when enough CTAs are in flight.
 // Splits multiply the CTAs by ks and cut each CTA's walk to 1/ks.
 //
+// The DENSE instantiation (with and without SEG; never with SPLIT, which
+// the JAX package refuses under the dense schedule, flash_fwd.py:391)
+// replaces the dense body _fwd_kernel_dense (src/repro/kernels/flash_fwd.py
+// :206, segment branch included). It reads no table: the same CTA walks
+// every kv tile j = 0 .. t_kv - 1 in ascending order, copies each tile (and
+// with SEG its ids) through the same 2-stage cp.async ring, and only after
+// the wait classifies it in the kernel, from the mask spec, q_offset and
+// the ragged kv edge (classify_tile below, the JAX _visibility :71 and
+// kernels/flash_fwd.py visibility) and with SEG from the min and max of
+// the CTA's q ids (reduced once) and of the staged kv ids (every thread
+// reads the 64 ids from shared memory, so the decision is the same in
+// every thread and the barriers stay uniform). An empty tile skips both
+// products and the softmax update; a tile that is not full applies the
+// element mask of the compact kernel. Hidden tiles are fetched on purpose:
+// the TPU dense grid DMAs every block (flash_fwd.py:27-30), and that cost
+// is what the compact schedule saves, so this instantiation is its
+// measurable baseline. The visible tiles come in the compact order with
+// the compact mask decisions, so o and lse are the compact kernel's to the
+// bit, with and without segments.
+//
 // Head dims: every variant is instantiated at 128 (qwen3) and 64
 // (whisper). At 64 a CTA holds 46 KB of shared memory instead of 87 KB.
 
@@ -176,6 +196,69 @@ __device__ __forceinline__ void load_ids(int* dst, const int* src, int row0, int
   }
 }
 
+// (empty, needs the element mask) of the tile of q positions [q_lo, q_lo +
+// BM) and kv rows [kv_lo, kv_lo + BN): the dense schedule's in-kernel test,
+// the JAX _visibility (flash_fwd.py:71) on inclusive corners. A tile that
+// reaches past Skv needs the mask; one that starts past it is never walked.
+struct TileClass {
+  bool empty, mask;
+};
+
+template <int BM, int BN>
+__device__ __forceinline__ TileClass classify_tile(int causal, int window, int sink, int Skv,
+                                                   int q_lo, int kv_lo) {
+  const int q_hi = q_lo + BM - 1, kv_hi = kv_lo + BN - 1;
+  bool empty = false, full = true;
+  if (causal) {
+    empty = q_hi < kv_lo;
+    full = q_lo >= kv_hi;
+    if (window >= 0) {
+      empty = empty || (q_lo - kv_hi >= window && kv_lo >= sink);
+      full = full && (q_hi - kv_lo < window || kv_hi < sink);
+    }
+  } else if (window >= 0) {
+    empty = (q_lo - kv_hi >= window || kv_lo - q_hi >= window) && kv_lo >= sink;
+    full = (abs(q_lo - kv_hi) < window && abs(q_hi - kv_lo) < window) || kv_hi < sink;
+  }
+  if (kv_lo + BN > Skv) full = false;
+  return {empty, !full};
+}
+
+// The id-range test on top: tiles whose id ranges [lo, hi] do not overlap
+// share no segment (empty); a tile is mask-free only if both hold one and
+// the same id. On a spec-visible tile: SEG_ACTIVE and SEG_UNIFORM.
+__device__ __forceinline__ TileClass with_ids(TileClass c, int q_lo, int q_hi, int kv_lo,
+                                              int kv_hi) {
+  c.empty = c.empty || q_hi < kv_lo || q_lo > kv_hi;
+  c.mask = c.mask || !(q_lo == q_hi && kv_lo == kv_hi && q_lo == kv_lo);
+  return c;
+}
+
+// min and max of the N ids of rows [row0, row0 + N), rows at or past
+// `nrows` counting as `pad` (from global memory: an owner tile's ids, read
+// once by every thread).
+template <int N>
+__device__ __forceinline__ void id_range(const int* g, int row0, int nrows, int pad, int& lo,
+                                         int& hi) {
+  lo = hi = row0 < nrows ? g[row0] : pad;
+  for (int r = 1; r < N; ++r) {
+    const int id = row0 + r < nrows ? g[row0 + r] : pad;
+    lo = min(lo, id);
+    hi = max(hi, id);
+  }
+}
+
+// min and max of N staged ids in shared memory (broadcast reads).
+template <int N>
+__device__ __forceinline__ void id_range(const int* s, int& lo, int& hi) {
+  lo = hi = s[0];
+#pragma unroll 8
+  for (int r = 1; r < N; ++r) {
+    lo = min(lo, s[r]);
+    hi = max(hi, s[r]);
+  }
+}
+
 __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
   if (col >= p.Skv) return false;
   if (p.causal) {
@@ -187,7 +270,7 @@ __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
   return d < p.window || col < p.sink;
 }
 
-template <int D, int NWARPS, bool SEG, bool SPLIT>
+template <int D, int NWARPS, bool SEG, bool SPLIT, bool DENSE>
 __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p) {
   constexpr int BM = 16 * NWARPS;
   constexpr int BN = kBlockN;
@@ -214,25 +297,33 @@ __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p)
   const __nv_bfloat16* kg = p.k + b * p.k_sb + hk * p.k_sh;
   const __nv_bfloat16* vg = p.v + b * p.v_sb + hk * p.v_sh;
   const int q0 = qt * BM;
-  const int beg = p.table[owner], end = p.table[owner + 1];
-  const int* steps = p.table + p.t_q * p.ks + 1;
+  // The walk: the table's steps [beg, end) of this owner, or under DENSE
+  // every kv tile (step = kv tile).
+  const int beg = DENSE ? 0 : p.table[owner];
+  const int end = DENSE ? (p.Skv + BN - 1) / BN : p.table[owner + 1];
+  const int* steps = DENSE ? nullptr : p.table + p.t_q * p.ks + 1;
   const int row_a = q0 + warp * 16 + lane / 4;  // this thread's two rows
   const int row_b = row_a + 8;
-  // SEG: this batch row's step bits, and the ids of the thread's two rows.
-  const int* bits = SEG ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
+  // SEG: this batch row's step bits (compact), and the ids of the thread's
+  // two rows; DENSE with SEG: the range of the CTA's q ids.
+  constexpr bool SKIP = SEG && !DENSE;  // inactive steps are skipped before their fetch
+  const int* bits = SKIP ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
   const int* kid_g = SEG ? p.kv_seg + b * p.kv_seg_sb : nullptr;
   int qid[2] = {0, 0};
+  int qid_lo = 0, qid_hi = 0;
   if (SEG) {
     const int* qid_g = p.q_seg + b * p.q_seg_sb;
     qid[0] = row_a < p.Sq ? qid_g[row_a] : kQPadSegment;
     qid[1] = row_b < p.Sq ? qid_g[row_b] : kQPadSegment;
+    if (DENSE) id_range<BM>(qid_g, q0, p.Sq, kQPadSegment, qid_lo, qid_hi);
   }
-  // The first active step at or after `it` (every step without SEG).
+  // The first active step at or after `it` (every step without SKIP).
   auto next_active = [&](int it) {
-    if (SEG)
+    if (SKIP)
       while (it < end && !(bits[it] & kSegActive)) ++it;
     return it;
   };
+  auto tile_of = [&](int it) { return DENSE ? it : steps[it] >> 1; };
   const int first = next_active(beg);
 
   float m_r[2] = {-INFINITY, -INFINITY};
@@ -244,7 +335,7 @@ __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p)
   if (first < end) {
     load_tile<BM, D, THREADS, STRIDE>(sQ, qg, p.q_ss, q0, p.Sq);
     cp_async_commit();
-    const int j0 = steps[first] >> 1;
+    const int j0 = tile_of(first);
     load_tile<BN, D, THREADS, STRIDE>(sK, kg, p.k_ss, j0 * BN, p.Skv);
     load_tile<BN, D, THREADS, STRIDE>(sV, vg, p.v_ss, j0 * BN, p.Skv);
     if (SEG) load_ids<BN, THREADS>(sKid, kid_g, j0 * BN, p.Skv, kKvPadSegment);
@@ -257,13 +348,13 @@ __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p)
     for (int kk = 0; kk < KSTEPS; ++kk)
       ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * STRIDE + kk * 16 + (lane >> 4) * 8);
 
-    // With SEG, `nxt` skips inactive steps before their tiles are fetched,
+    // With SKIP, `nxt` skips inactive steps before their tiles are fetched,
     // and `n` counts the tiles computed (the stage alternates with it).
     for (int it = first, n = 0; it < end; ++n) {
-      const int nxt = SEG ? next_active(it + 1) : it + 1;
-      const int stage = SEG ? (n & 1) : ((it - beg) & 1);
+      const int nxt = SKIP ? next_active(it + 1) : it + 1;
+      const int stage = SKIP ? (n & 1) : ((it - beg) & 1);
       if (nxt < end) {
-        const int jn = steps[nxt] >> 1;
+        const int jn = tile_of(nxt);
         load_tile<BN, D, THREADS, STRIDE>(sK + (stage ^ 1) * BN * STRIDE, kg, p.k_ss, jn * BN,
                                           p.Skv);
         load_tile<BN, D, THREADS, STRIDE>(sV + (stage ^ 1) * BN * STRIDE, vg, p.v_ss, jn * BN,
@@ -277,12 +368,29 @@ __global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p)
       }
       __syncthreads();
 
-      const int entry = steps[it];
-      const int j = entry >> 1;
-      const bool masked = (entry & 1) || (SEG && !(bits[it] & kSegUniform));
+      const int j = tile_of(it);
       const __nv_bfloat16* cK = sK + stage * BN * STRIDE;
       const __nv_bfloat16* cV = sV + stage * BN * STRIDE;
       const int* cKid = sKid + stage * BN;
+      bool masked, empty = false;
+      if (DENSE) {
+        TileClass c = classify_tile<BM, BN>(p.causal, p.window, p.sink, p.Skv, q0 + p.q_offset,
+                                            j * BN);
+        if (SEG) {
+          int lo, hi;
+          id_range<BN>(cKid, lo, hi);
+          c = with_ids(c, qid_lo, qid_hi, lo, hi);
+        }
+        empty = c.empty;
+        masked = c.mask;
+      } else {
+        masked = (steps[it] & 1) || (SEG && !(bits[it] & kSegUniform));
+      }
+      if (empty) {  // DENSE: fetched, nothing to compute
+        __syncthreads();  // this stage (its ids were read) is refilled next
+        it = nxt;
+        continue;
+      }
 
       // S = Q K^T for this warp's 16 rows x BN columns.
       float s[NT_S][4];
@@ -451,16 +559,16 @@ constexpr size_t smem_bytes() {
          (SEG ? 2 * kBlockN * sizeof(int) : 0);
 }
 
-template <int D, bool SEG, bool SPLIT>
+template <int D, bool SEG, bool SPLIT, bool DENSE = false>
 cudaError_t launch(const FwdParams& p, int batch, cudaStream_t stream, __nv_bfloat16* o_fold,
                    float* lse_fold) {
   constexpr size_t smem = smem_bytes<D, SEG>();
-  cudaError_t err = cudaFuncSetAttribute(fa2_fwd_kernel<D, kWarps, SEG, SPLIT>,
+  cudaError_t err = cudaFuncSetAttribute(fa2_fwd_kernel<D, kWarps, SEG, SPLIT, DENSE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(p.t_q, batch * p.Hq, p.ks);
-  fa2_fwd_kernel<D, kWarps, SEG, SPLIT><<<grid, kWarps * 32, smem, stream>>>(p);
+  fa2_fwd_kernel<D, kWarps, SEG, SPLIT, DENSE><<<grid, kWarps * 32, smem, stream>>>(p);
   if (SPLIT) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -470,8 +578,11 @@ cudaError_t launch(const FwdParams& p, int batch, cudaStream_t stream, __nv_bflo
 }
 
 template <int D>
-cudaError_t dispatch(const FwdParams& p, int batch, bool seg, bool split, cudaStream_t s,
-                     __nv_bfloat16* of, float* lf) {
+cudaError_t dispatch(const FwdParams& p, int batch, bool seg, bool split, bool dense,
+                     cudaStream_t s, __nv_bfloat16* of, float* lf) {
+  if (dense)
+    return seg ? launch<D, true, false, true>(p, batch, s, of, lf)
+               : launch<D, false, false, true>(p, batch, s, of, lf);
   if (seg)
     return split ? launch<D, true, true>(p, batch, s, of, lf)
                  : launch<D, true, false>(p, batch, s, of, lf);
@@ -488,7 +599,7 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
                             long long o_sh, long long o_split, int batch, int Hq, int Hkv,
                             int Sq, int Skv, int head_dim, int block_q, int block_kv, int causal,
                             int window, int sink, int q_offset, int t_q, int split, int ks,
-                            const void* q_seg,
+                            int dense, const void* q_seg,
                             const void* kv_seg, long long q_seg_sb, long long kv_seg_sb,
                             const void* bits, int n_vis, void* o_fold, void* lse_fold,
                             void* stream) {
@@ -512,15 +623,18 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
   p.q_seg_sb = q_seg_sb; p.kv_seg_sb = kv_seg_sb; p.n_vis = n_vis;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // Head dims 128 (qwen3) and 64 (whisper); without and with segments (null
-  // bits: none); single-pass, or split-KV partials (o, lse) folded into
-  // (o_fold, lse_fold).
+  // ids: none); the compact schedule (table; with segments, step bits) or
+  // the dense one (no table, no bits); single-pass, or (compact only)
+  // split-KV partials (o, lse) folded into (o_fold, lse_fold).
   if (block_q != 16 * kWarps || block_kv != kBlockN || ks < 1) return cudaErrorInvalidValue;
-  if (split && (o_fold == nullptr || lse_fold == nullptr))
+  if (split && (dense || o_fold == nullptr || lse_fold == nullptr))
     return cudaErrorInvalidValue;
-  const bool seg = bits != nullptr;
+  const bool seg = q_seg != nullptr;
+  if (dense ? table != nullptr : table == nullptr || (seg && bits == nullptr))
+    return cudaErrorInvalidValue;
   auto* of = static_cast<__nv_bfloat16*>(o_fold);
   auto* lf = static_cast<float*>(lse_fold);
-  if (head_dim == 128) return dispatch<128>(p, batch, seg, split != 0, s, of, lf);
-  if (head_dim == 64) return dispatch<64>(p, batch, seg, split != 0, s, of, lf);
+  if (head_dim == 128) return dispatch<128>(p, batch, seg, split != 0, dense != 0, s, of, lf);
+  if (head_dim == 64) return dispatch<64>(p, batch, seg, split != 0, dense != 0, s, of, lf);
   return cudaErrorInvalidValue;
 }

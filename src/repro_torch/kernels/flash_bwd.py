@@ -45,6 +45,18 @@ dV, a q tile with none zero dQ. The delta pre-pass is row-wise and serves
 both. Each is the same kernel source instantiated with ``SEG``, so the
 split dK/dV stay bitwise the fused kernel's with segments too.
 
+Every wrapper takes ``schedule="compact" | "dense"``. The dense one
+replaces the dense bodies of the same three JAX kernels
+(``_fused_kernel_dense`` :633, ``_dkv_kernel_dense`` :157,
+``_dq_kernel_dense`` :390, each with its segment branch): the same CTAs,
+with no table, walk every partner tile (the KV-stationary kernels every q
+tile of every q head of the group, in JAX's ``(g, i)`` grid order; the dQ
+kernel every kv tile, ascending), fetch it, classify it in the kernel
+(``flash_fwd.visibility``) and skip the products of an empty one. The
+visible tiles come in the compact order with the compact mask decisions,
+so dense dK/dV and split dQ are the compact kernels' to the bit; the dense
+fused dQ, summed by atomics, agrees up to their order.
+
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
 """
@@ -60,10 +72,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.masks import MaskSpec, apply_mask, make_tile_mask
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_fwd import (_check_kernel_inputs, _check_layout, _PlainSegments,
-                                           _tiles, check_segments, segment_args)
-from repro_torch.kernels.schedule import (build_kv_tile_schedule, build_q_tile_schedule,
-                                          device_schedule)
+from repro_torch.kernels.flash_fwd import (_check_kernel_inputs, _check_layout, _tiles, _Walk,
+                                           check_segments, count_launch, segment_args)
+from repro_torch.kernels.schedule import check_schedule, device_schedule
 
 # Head dims the backward kernels are instantiated for: 128 (qwen3). Head dim
 # 64 (whisper training) comes with the backward's next instantiation.
@@ -131,124 +142,142 @@ def _check_bwd_inputs(q, k, v, do, lse, delta, segments=None):
                              f"{t.dtype} {tuple(t.shape)}")
 
 
-def flash_bwd_fused(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int):
+def flash_bwd_fused(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int,
+                    schedule: str = "compact"):
     """dq, dk, dv (f32) of FA2 on pre-scaled q. ``lse`` is the forward's raw
-    logsumexp (-inf on fully masked rows); ``delta`` is the pre-pass's."""
-    return _fused(flash_bwd_fused, q, k, v, do, lse, delta, spec, None, block_q, block_kv)
+    logsumexp (-inf on fully masked rows); ``delta`` is the pre-pass's.
+    ``schedule`` is one of ``schedule.SCHEDULES``."""
+    return _fused(flash_bwd_fused, q, k, v, do, lse, delta, spec, None, block_q, block_kv,
+                  schedule)
 
 
-flash_bwd_fused.launches = 0  # kernel launches (CUDA tensors only)
+flash_bwd_fused.launches = 0  # compact kernel launches (CUDA tensors only)
+flash_bwd_fused.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 
 
 def flash_bwd_fused_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, *,
-                           block_q: int, block_kv: int):
+                           block_q: int, block_kv: int, schedule: str = "compact"):
     """The segment variant of :func:`flash_bwd_fused`."""
     return _fused(flash_bwd_fused_varlen, q, k, v, do, lse, delta, spec, (q_seg, kv_seg),
-                  block_q, block_kv)
+                  block_q, block_kv, schedule)
 
 
-flash_bwd_fused_varlen.launches = 0  # kernel launches (CUDA tensors only)
+flash_bwd_fused_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
+flash_bwd_fused_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int):
+def flash_bwd_dkv(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int,
+                  schedule: str = "compact"):
     """dk, dv (f32, summed over the GQA group) of the split backward;
     arguments as :func:`flash_bwd_fused`."""
-    return _dkv(flash_bwd_dkv, q, k, v, do, lse, delta, spec, None, block_q, block_kv)
+    return _dkv(flash_bwd_dkv, q, k, v, do, lse, delta, spec, None, block_q, block_kv,
+                schedule)
 
 
-flash_bwd_dkv.launches = 0  # kernel launches (CUDA tensors only)
+flash_bwd_dkv.launches = 0  # compact kernel launches (CUDA tensors only)
+flash_bwd_dkv.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 
 
 def flash_bwd_dkv_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, *,
-                         block_q: int, block_kv: int):
+                         block_q: int, block_kv: int, schedule: str = "compact"):
     """The segment variant of :func:`flash_bwd_dkv`."""
     return _dkv(flash_bwd_dkv_varlen, q, k, v, do, lse, delta, spec, (q_seg, kv_seg),
-                block_q, block_kv)
+                block_q, block_kv, schedule)
 
 
-flash_bwd_dkv_varlen.launches = 0  # kernel launches (CUDA tensors only)
+flash_bwd_dkv_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
+flash_bwd_dkv_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int):
+def flash_bwd_dq(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int,
+                 schedule: str = "compact"):
     """dq (f32, with respect to the scaled q) of the split backward;
     arguments as :func:`flash_bwd_fused`."""
-    return _dq(flash_bwd_dq, q, k, v, do, lse, delta, spec, None, block_q, block_kv)
+    return _dq(flash_bwd_dq, q, k, v, do, lse, delta, spec, None, block_q, block_kv, schedule)
 
 
-flash_bwd_dq.launches = 0  # kernel launches (CUDA tensors only)
+flash_bwd_dq.launches = 0  # compact kernel launches (CUDA tensors only)
+flash_bwd_dq.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 
 
 def flash_bwd_dq_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, *,
-                        block_q: int, block_kv: int):
+                        block_q: int, block_kv: int, schedule: str = "compact"):
     """The segment variant of :func:`flash_bwd_dq`."""
     return _dq(flash_bwd_dq_varlen, q, k, v, do, lse, delta, spec, (q_seg, kv_seg),
-               block_q, block_kv)
+               block_q, block_kv, schedule)
 
 
-flash_bwd_dq_varlen.launches = 0  # kernel launches (CUDA tensors only)
+flash_bwd_dq_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
+flash_bwd_dq_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 
 
-def _plain_kw(segments, block_q, block_kv):
+def _plain_kw(segments, block_q, block_kv, schedule):
     q_seg, kv_seg = segments if segments is not None else (None, None)
-    return dict(block_q=block_q, block_kv=block_kv, q_seg=q_seg, kv_seg=kv_seg)
+    return dict(block_q=block_q, block_kv=block_kv, q_seg=q_seg, kv_seg=kv_seg,
+                schedule=schedule)
 
 
-def _fused(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv):
+def _fused(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv, schedule):
     _check_bwd_inputs(q, k, v, do, lse, delta, segments)
+    check_schedule(schedule)
     if q.device.type == "cpu":
         return flash_bwd_fused_plain(q, k, v, do, lse, delta, spec,
-                                     **_plain_kw(segments, block_q, block_kv))
+                                     **_plain_kw(segments, block_q, block_kv, schedule))
     _check_device(wrapper.__name__, q)
     B, Sq, Hq, D = q.shape
     # dq is summed into by every kv tile's CTA; dk and dv are written once.
     dq = torch.zeros((B, Sq, Hq, D), dtype=torch.float32, device=q.device)
-    dk, dv = _launch_fused(q, k, v, do, lse, delta, spec, block_q, block_kv, dq, segments)
-    wrapper.launches += 1
+    dk, dv = _launch_fused(q, k, v, do, lse, delta, spec, block_q, block_kv, dq, segments,
+                           schedule)
+    count_launch(wrapper, schedule)
     return dq, dk, dv
 
 
-def _dkv(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv):
+def _dkv(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv, schedule):
     _check_bwd_inputs(q, k, v, do, lse, delta, segments)
+    check_schedule(schedule)
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, spec,
-                                   **_plain_kw(segments, block_q, block_kv))
+                                   **_plain_kw(segments, block_q, block_kv, schedule))
     _check_device(wrapper.__name__, q)
     # lse, delta and ``held`` (segment ids, step bits) stay alive until the launch.
     lse, delta = lse.contiguous(), delta.contiguous()
     args, held = _kernel_args("the CUDA dK/dV kernel", q, k, v, do, lse, delta, spec, block_q,
-                              block_kv, segments, q_major=False)
+                              block_kv, segments, q_major=False, schedule=schedule)
     dk, dv = _empty_dkv(q, k)
     err = _lib().fa2_bwd_dkv_bf16(*args[:6], dk.data_ptr(), dv.data_ptr(), *args[6:])
     _build.check(err, "fa2_bwd_dkv_bf16")
-    wrapper.launches += 1
+    count_launch(wrapper, schedule)
     return dk, dv
 
 
-def _dq(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv):
+def _dq(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv, schedule):
     _check_bwd_inputs(q, k, v, do, lse, delta, segments)
+    check_schedule(schedule)
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, spec,
-                                  **_plain_kw(segments, block_q, block_kv))
+                                  **_plain_kw(segments, block_q, block_kv, schedule))
     _check_device(wrapper.__name__, q)
     # lse, delta and ``held`` (segment ids, step bits) stay alive until the launch.
     lse, delta = lse.contiguous(), delta.contiguous()
     args, held = _kernel_args("the CUDA dQ kernel", q, k, v, do, lse, delta, spec, block_q,
-                              block_kv, segments, q_major=True)
+                              block_kv, segments, q_major=True, schedule=schedule)
     # Every q row is written once, zeros where it sees no key.
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     err = _lib().fa2_bwd_dq_bf16(*args[:6], dq.data_ptr(), *args[6:])
     _build.check(err, "fa2_bwd_dq_bf16")
-    wrapper.launches += 1
+    count_launch(wrapper, schedule)
     return dq
 
 
-def _launch_fused(q, k, v, do, lse, delta, spec, block_q, block_kv, dq, segments=None):
+def _launch_fused(q, k, v, do, lse, delta, spec, block_q, block_kv, dq, segments=None,
+                  schedule="compact"):
     """Launch the fused kernel; returns (dk, dv). ``dq`` None launches the
     timing variant that computes dS K but skips its atomics into dq."""
     # lse, delta and ``held`` (segment ids, step bits) stay alive until the launch.
     lse, delta = lse.contiguous(), delta.contiguous()
     args, held = _kernel_args("the CUDA fused backward", q, k, v, do, lse, delta, spec,
-                              block_q, block_kv, segments, q_major=False)
+                              block_q, block_kv, segments, q_major=False, schedule=schedule)
     dk, dv = _empty_dkv(q, k)
     err = _lib().fa2_bwd_fused_bf16(*args[:6], None if dq is None else dq.data_ptr(),
                                     dk.data_ptr(), dv.data_ptr(), *args[6:])
@@ -263,12 +292,13 @@ def _empty_dkv(q, k):
 
 
 def _kernel_args(what, q, k, v, do, lse, delta, spec, block_q, block_kv, segments, *,
-                 q_major: bool):
+                 q_major: bool, schedule: str):
     """Check what the kernels take and build the arguments of a C entry
-    around its outputs: the six input pointers, then the table, strides,
-    sizes, tiles, mask, owner-tile count, segment arguments and stream.
-    ``lse`` and ``delta`` must be contiguous (the caller holds them until
-    the launch). Returns (arguments, tensors to hold until the launch)."""
+    around its outputs: the six input pointers, then the table (none for
+    the dense schedule), strides, sizes, tiles, mask, owner-tile count,
+    dense flag, segment arguments and stream. ``lse`` and ``delta`` must
+    be contiguous (the caller holds them until the launch). Returns
+    (arguments, tensors to hold until the launch)."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     _check_kernel_inputs(what, (block_q, block_kv), KERNEL_HEAD_DIMS, q=q, k=k, v=v, do=do)
@@ -279,15 +309,18 @@ def _kernel_args(what, q, k, v, do, lse, delta, spec, block_q, block_kv, segment
     t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
     if not q_major and t_kv > 65535:
         raise ValueError("kv tiles exceed the grid's y limit (65535)")
-    sched = device_schedule(spec, t_q, t_kv, block_q, block_kv, Skv, not q_major, str(q.device))
+    dense = schedule == "dense"
+    sched = None if dense else device_schedule(spec, t_q, t_kv, block_q, block_kv, Skv,
+                                               not q_major, str(q.device))
     seg = segment_args(segments, sched, block_q, block_kv, kv_major=not q_major)
     return (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), sched.table.data_ptr(),
+        delta.data_ptr(), None if dense else sched.table.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         B, Hq, Hkv, Sq, Skv, D, block_q, block_kv,
         int(spec.causal), -1 if spec.window is None else int(spec.window),
-        int(spec.sink), int(spec.q_offset), t_q if q_major else t_kv, *seg.args, _stream(q),
+        int(spec.sink), int(spec.q_offset), t_q if q_major else t_kv, int(dense), *seg.args,
+        _stream(q),
     ), seg.keep
 
 
@@ -297,9 +330,9 @@ def _lib():
     P, I, L = _build.VOIDP, _build.INT, _build.I64
     lib.fa2_bwd_delta_bf16.argtypes = [P] * 3 + [L] * 6 + [I] * 4 + [P]
     seg = [P, P, L, L, P, I]  # q ids, kv ids, their batch strides, step bits, steps
-    lib.fa2_bwd_fused_bf16.argtypes = [P] * 10 + [L] * 12 + [I] * 13 + seg + [P]
-    lib.fa2_bwd_dkv_bf16.argtypes = [P] * 9 + [L] * 12 + [I] * 13 + seg + [P]
-    lib.fa2_bwd_dq_bf16.argtypes = [P] * 8 + [L] * 12 + [I] * 13 + seg + [P]
+    lib.fa2_bwd_fused_bf16.argtypes = [P] * 10 + [L] * 12 + [I] * 14 + seg + [P]
+    lib.fa2_bwd_dkv_bf16.argtypes = [P] * 9 + [L] * 12 + [I] * 14 + seg + [P]
+    lib.fa2_bwd_dq_bf16.argtypes = [P] * 8 + [L] * 12 + [I] * 14 + seg + [P]
     for fn in (lib.fa2_bwd_delta_bf16, lib.fa2_bwd_fused_bf16, lib.fa2_bwd_dkv_bf16,
                lib.fa2_bwd_dq_bf16):
         fn.restype = ctypes.c_int
@@ -367,28 +400,25 @@ def _tile_terms(x: _Padded, spec, i, j, block_q, block_kv, step, Skv, dt, seg):
 
 
 def _kv_major_walk(q, k, v, do, lse, delta, spec, block_q, block_kv, q_seg, kv_seg,
-                   with_dq: bool):
+                   with_dq: bool, schedule: str):
     """The kv-major walk of the fused and dkv kernels in plain PyTorch
     (with segment ids: their varlen variants, steps skipped per batch row
-    as ``flash_fwd_plain`` skips them)."""
+    as ``flash_fwd_plain`` skips them; ``schedule="dense"``: every q tile,
+    classified by ``flash_fwd.visibility``)."""
     B, Sq, Hq, D = q.shape
     _, Skv, _, _ = k.shape
     x = _padded(q, k, v, do, lse, delta, block_q, block_kv)
     t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
-    sched = build_kv_tile_schedule(spec, t_q, t_kv, block_q, block_kv, Skv)
-    seg = _PlainSegments.of(q_seg, kv_seg, sched, block_q, block_kv, kv_major=True)
+    walk = _Walk.of(schedule, spec, t_q, t_kv, block_q, block_kv, Skv, q_seg, kv_seg,
+                    kv_major=True)
     dq = torch.zeros_like(x.qh)
     dk = torch.zeros_like(x.kp)
     dv = torch.zeros_like(x.vp)
     for j in range(t_kv):
         c0, c1 = j * block_kv, (j + 1) * block_kv
-        for s in range(sched.row_ptr[j], sched.row_ptr[j + 1]):
-            step = seg.step(s, sched.masked[s])
-            if step[0] is None:
-                continue
-            i = int(sched.inner[s])
+        for i, *step in walk.steps(j):
             r0, r1 = i * block_q, (i + 1) * block_q
-            p, ds = _tile_terms(x, spec, i, j, block_q, block_kv, step, Skv, q.dtype, seg)
+            p, ds = _tile_terms(x, spec, i, j, block_q, block_kv, step, Skv, q.dtype, walk.seg)
             dv[:, c0:c1] += torch.einsum("bhgqk,bqhgd->bkhd", p.to(q.dtype).float(),
                                          x.doh[:, r0:r1])
             dk[:, c0:c1] += torch.einsum("bhgqk,bqhgd->bkhd", ds, x.qh[:, r0:r1])
@@ -399,7 +429,8 @@ def _kv_major_walk(q, k, v, do, lse, delta, spec, block_q, block_kv, q_seg, kv_s
 
 
 def flash_bwd_fused_plain(q, k, v, do, lse, delta, spec: MaskSpec, *,
-                          block_q: int, block_kv: int, q_seg=None, kv_seg=None):
+                          block_q: int, block_kv: int, q_seg=None, kv_seg=None,
+                          schedule: str = "compact"):
     """The fused kernel's algorithm in plain PyTorch (f32 math, any device).
 
     The same kv-major walk over the same visible tiles, the same mask value,
@@ -407,29 +438,33 @@ def flash_bwd_fused_plain(q, k, v, do, lse, delta, spec: MaskSpec, *,
     roundings to the input dtype: P before dV += P^T dO, dS before
     dK += dS^T Q and dQ += dS K (``_dkv_tile_math``/``_fused_compute`` of
     the JAX kernel). The G q heads of a kv head are summed together. With
-    segment ids (both or neither) it is the varlen kernel's algorithm."""
+    segment ids (both or neither) it is the varlen kernel's algorithm; with
+    ``schedule="dense"``, the dense kernel's (the same steps, found by
+    classifying every tile, so the same result to the bit)."""
     flash_bwd_fused_plain.calls += 1
     return _kv_major_walk(q, k, v, do, lse, delta, spec, block_q, block_kv, q_seg, kv_seg,
-                          with_dq=True)
+                          with_dq=True, schedule=schedule)
 
 
 flash_bwd_fused_plain.calls = 0
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, spec: MaskSpec, *,
-                        block_q: int, block_kv: int, q_seg=None, kv_seg=None):
+                        block_q: int, block_kv: int, q_seg=None, kv_seg=None,
+                        schedule: str = "compact"):
     """The dkv kernel's algorithm in plain PyTorch: the fused walk without
     its dq line, so its dk and dv are bitwise the fused plain version's."""
     flash_bwd_dkv_plain.calls += 1
     return _kv_major_walk(q, k, v, do, lse, delta, spec, block_q, block_kv, q_seg, kv_seg,
-                          with_dq=False)
+                          with_dq=False, schedule=schedule)
 
 
 flash_bwd_dkv_plain.calls = 0
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, spec: MaskSpec, *,
-                       block_q: int, block_kv: int, q_seg=None, kv_seg=None):
+                       block_q: int, block_kv: int, q_seg=None, kv_seg=None,
+                       schedule: str = "compact"):
     """The dq kernel's algorithm in plain PyTorch: the q-major walk over the
     forward's table, visible kv tiles in ascending order, each tile's terms
     by the fused walk's einsums. A q tile meets its kv tiles in the same
@@ -440,17 +475,13 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, spec: MaskSpec, *,
     _, Skv, _, _ = k.shape
     x = _padded(q, k, v, do, lse, delta, block_q, block_kv)
     t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
-    sched = build_q_tile_schedule(spec, t_q, t_kv, block_q, block_kv, Skv)
-    seg = _PlainSegments.of(q_seg, kv_seg, sched, block_q, block_kv, kv_major=False)
+    walk = _Walk.of(schedule, spec, t_q, t_kv, block_q, block_kv, Skv, q_seg, kv_seg,
+                    kv_major=False)
     dq = torch.zeros_like(x.qh)
     for i in range(t_q):
         r0, r1 = i * block_q, (i + 1) * block_q
-        for s in range(sched.row_ptr[i], sched.row_ptr[i + 1]):
-            step = seg.step(s, sched.masked[s])
-            if step[0] is None:
-                continue
-            j = int(sched.inner[s])
-            _, ds = _tile_terms(x, spec, i, j, block_q, block_kv, step, Skv, q.dtype, seg)
+        for j, *step in walk.steps(i):
+            _, ds = _tile_terms(x, spec, i, j, block_q, block_kv, step, Skv, q.dtype, walk.seg)
             dq[:, r0:r1] += torch.einsum("bhgqk,bkhd->bqhgd", ds,
                                          x.kp[:, j * block_kv:(j + 1) * block_kv])
     return dq[:, :Sq].reshape(B, Sq, Hq, D)

@@ -22,6 +22,7 @@ from repro_torch.core.online_softmax import combine_lse_outputs
 from repro_torch.kernels import flash_bwd as _bwd
 from repro_torch.kernels import flash_decode as _dec
 from repro_torch.kernels import flash_fwd as _fwd
+from repro_torch.kernels.schedule import SCHEDULES, check_schedule  # noqa: F401 (re-export)
 
 # Split-KV decode fan-out when none is given (the JAX package's fallback
 # when its tuned cache has no entry).
@@ -80,11 +81,19 @@ def check_kv_splits(kv_splits) -> None:
         raise ValueError(f"kv_splits must be an int >= 1 (or None for auto), got {kv_splits!r}")
 
 
-def resolve_kv_splits(kv_splits, q_shape, k_shape, block_q=None, block_kv=None) -> int:
+def resolve_kv_splits(kv_splits, q_shape, k_shape, block_q=None, block_kv=None,
+                      schedule: str = "compact") -> int:
     """The knob (explicit > auto) -> the concrete kv split count, clamped to
     the kv tile count as the JAX ``_resolve_partitions`` (``ops.py:193``)
-    clamps it. Public layouts: q (B, Sq, Hq, D), k (B, Skv, Hkv, D)."""
+    clamps it. Public layouts: q (B, Sq, Hq, D), k (B, Skv, Hkv, D). Under
+    the dense schedule, which has no split-KV kernel, an explicit count
+    above 1 raises and None resolves to 1, as in the JAX package."""
     check_kv_splits(kv_splits)
+    check_schedule(schedule)
+    if schedule == "dense":
+        if (kv_splits or 1) > 1:
+            raise ValueError("kv_splits > 1 requires schedule='compact'")
+        return 1
     B, Sq, Hq, D = q_shape
     t_q = -(-Sq // (block_q or BLOCK_Q))
     t_kv = -(-k_shape[1] // (block_kv or BLOCK_KV))
@@ -126,24 +135,27 @@ class _FlashCore(torch.autograd.Function):
     kv_seg (B, Skv) every kernel is its segment variant; the ids carry no
     gradient. With ``kv_splits > 1`` the forward is the split-KV kernel and
     its fold, as the JAX ``_core_fwd`` (``ops.py:399``) folds the partials;
-    the backward reads the folded (o, lse) and is unchanged."""
+    the backward reads the folded (o, lse) and is unchanged. ``schedule``
+    picks the compact or dense form of every kernel but the delta
+    pre-pass, forward and backward alike."""
 
     @staticmethod
-    def forward(ctx, qs, k, v, q_seg, kv_seg, spec, block_q, block_kv, bwd, kv_splits=1):
-        o, lse = _forward(qs, k, v, q_seg, kv_seg, spec, block_q, block_kv, kv_splits)
+    def forward(ctx, qs, k, v, q_seg, kv_seg, spec, block_q, block_kv, bwd, kv_splits=1,
+                schedule="compact"):
+        o, lse = _forward(qs, k, v, q_seg, kv_seg, spec, block_q, block_kv, kv_splits, schedule)
         ctx.save_for_backward(qs, k, v, o, lse, q_seg, kv_seg)
-        ctx.meta = (spec, block_q, block_kv, bwd)
+        ctx.meta = (spec, block_q, block_kv, bwd, schedule)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
         qs, k, v, o, lse, q_seg, kv_seg = ctx.saved_tensors
-        spec, block_q, block_kv, bwd = ctx.meta
+        spec, block_q, block_kv, bwd, schedule = ctx.meta
         do = do.to(qs.dtype).contiguous()
         delta = _bwd.flash_bwd_delta(o, do)  # Algorithm 2 line 4
         args = (qs, k, v, do, lse, delta, spec)
-        tiles = dict(block_q=block_q, block_kv=block_kv)
+        tiles = dict(block_q=block_q, block_kv=block_kv, schedule=schedule)
         if q_seg is not None:
             args += (q_seg, kv_seg)
             fused, dkv, dq_fn = (_bwd.flash_bwd_fused_varlen, _bwd.flash_bwd_dkv_varlen,
@@ -156,17 +168,18 @@ class _FlashCore(torch.autograd.Function):
             dk, dv = dkv(*args, **tiles)
             dq = dq_fn(*args, **tiles)
         return (dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None,
-                None, None)
+                None, None, None)
 
 
-def _forward(qs, k, v, q_seg, kv_seg, spec, block_q, block_kv, kv_splits):
+def _forward(qs, k, v, q_seg, kv_seg, spec, block_q, block_kv, kv_splits, schedule="compact"):
     """(o (B, Sq, Hq, D) in q's dtype, lse (B, Hq, Sq) f32): the forward
-    kernel, or with ``kv_splits > 1`` the split-KV kernel and its fold."""
+    kernel of ``schedule``, or with ``kv_splits > 1`` (compact only) the
+    split-KV kernel and its fold."""
     tiles = dict(block_q=block_q, block_kv=block_kv)
     if kv_splits == 1:
         if q_seg is None:
-            return _fwd.flash_fwd(qs, k, v, spec, **tiles)
-        return _fwd.flash_fwd_varlen(qs, k, v, spec, q_seg, kv_seg, **tiles)
+            return _fwd.flash_fwd(qs, k, v, spec, schedule=schedule, **tiles)
+        return _fwd.flash_fwd_varlen(qs, k, v, spec, q_seg, kv_seg, schedule=schedule, **tiles)
     if q_seg is None:
         out = _fwd.flash_fwd_splitkv(qs, k, v, spec, kv_splits=kv_splits, **tiles)
     else:
@@ -179,32 +192,34 @@ def flash_attention_with_lse(
     q, k, v, spec: MaskSpec = MaskSpec(causal=True), *,
     scale: Optional[float] = None,
     block_q: int = BLOCK_Q, block_kv: int = BLOCK_KV, bwd: str = "fused",
-    kv_splits: Optional[int] = None,
+    kv_splits: Optional[int] = None, schedule: str = "compact",
 ):
     """Differentiable FA2. q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D) -> (o (B,Sq,Hq,D),
     lse (B,Hq,Sq) f32; lse carries no gradient). ``bwd`` is one of
-    ``BWD_MODES``; ``kv_splits`` (None: the auto policy of
-    :func:`default_kv_splits`) as :func:`resolve_kv_splits` resolves it.
-    The counterpart of ``flash_attention_pallas_with_lse``; its
-    ``num_q_bands`` has none, since the q tile is already a grid axis."""
+    ``BWD_MODES``, ``schedule`` one of ``SCHEDULES``; ``kv_splits`` (None:
+    the auto policy of :func:`default_kv_splits`) as
+    :func:`resolve_kv_splits` resolves it. The counterpart of
+    ``flash_attention_pallas_with_lse``; its ``num_q_bands`` has none,
+    since the q tile is already a grid axis."""
     _check_bwd(bwd)
-    ks = resolve_kv_splits(kv_splits, q.shape, k.shape, block_q, block_kv)
+    ks = resolve_kv_splits(kv_splits, q.shape, k.shape, block_q, block_kv, schedule)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _FlashCore.apply(_prep(q, scale), k, v, None, None, spec, block_q, block_kv, bwd, ks)
+    return _FlashCore.apply(_prep(q, scale), k, v, None, None, spec, block_q, block_kv, bwd, ks,
+                            schedule)
 
 
 def flash_attention(
     q, k, v, spec: MaskSpec = MaskSpec(causal=True), *,
     scale: Optional[float] = None,
     block_q: int = BLOCK_Q, block_kv: int = BLOCK_KV, bwd: str = "fused",
-    kv_splits: Optional[int] = None,
+    kv_splits: Optional[int] = None, schedule: str = "compact",
 ):
     """Differentiable FA2, output only (the counterpart of
     ``flash_attention_pallas``)."""
     return flash_attention_with_lse(
         q, k, v, spec, scale=scale, block_q=block_q, block_kv=block_kv, bwd=bwd,
-        kv_splits=kv_splits,
+        kv_splits=kv_splits, schedule=schedule,
     )[0]
 
 
@@ -230,7 +245,7 @@ def flash_attention_varlen(
     q, k, v, segment_ids, spec: MaskSpec = MaskSpec(causal=True), *,
     kv_segment_ids=None, scale: Optional[float] = None,
     block_q: int = BLOCK_Q, block_kv: int = BLOCK_KV, bwd: str = "fused",
-    kv_splits: Optional[int] = None,
+    kv_splits: Optional[int] = None, schedule: str = "compact",
 ):
     """Differentiable segment-packed (varlen) FA2, the counterpart of
     ``flash_attention_pallas_varlen`` (JAX ``ops.py:526``). Each batch row
@@ -238,21 +253,23 @@ def flash_attention_varlen(
     tokens belong together (or a ``SegmentInfo``), ``kv_segment_ids``
     (B, Skv) defaults to it. Query i attends key j iff their ids match and
     the MaskSpec admits the global positions. Tiles that share no segment
-    are skipped in every kernel. Returns o (B, Sq, Hq, D)."""
+    are skipped in every kernel: under the compact schedule by the step
+    bits computed before the launch, under the dense one by the kernel's
+    own test of the tiles' id ranges. Returns o (B, Sq, Hq, D)."""
     _check_bwd(bwd)
-    ks = resolve_kv_splits(kv_splits, q.shape, k.shape, block_q, block_kv)
+    ks = resolve_kv_splits(kv_splits, q.shape, k.shape, block_q, block_kv, schedule)
     q_seg, kv_seg = _segment_ids(q, k, segment_ids, kv_segment_ids)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _FlashCore.apply(_prep(q, scale), k, v, q_seg, kv_seg, spec, block_q, block_kv,
-                            bwd, ks)[0]
+                            bwd, ks, schedule)[0]
 
 
 def flash_attention_varlen_with_lse(
     q, k, v, segment_ids, spec: MaskSpec = MaskSpec(causal=True), *,
     kv_segment_ids=None, scale: Optional[float] = None,
     block_q: int = BLOCK_Q, block_kv: int = BLOCK_KV,
-    kv_splits: Optional[int] = None,
+    kv_splits: Optional[int] = None, schedule: str = "compact",
 ):
     """Forward-only varlen FA2, as the JAX one is (``ops.py:578``): returns
     (o (B, Sq, Hq, D), lse (B, Hq, Sq) f32) and raises on inputs that
@@ -260,11 +277,12 @@ def flash_attention_varlen_with_lse(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError("flash_attention_varlen_with_lse is forward-only, as in "
                                   "the JAX package; use flash_attention_varlen to train")
-    ks = resolve_kv_splits(kv_splits, q.shape, k.shape, block_q, block_kv)
+    ks = resolve_kv_splits(kv_splits, q.shape, k.shape, block_q, block_kv, schedule)
     q_seg, kv_seg = _segment_ids(q, k, segment_ids, kv_segment_ids)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _forward(_prep(q, scale), k, v, q_seg, kv_seg, spec, block_q, block_kv, ks)
+    return _forward(_prep(q, scale), k, v, q_seg, kv_seg, spec, block_q, block_kv, ks,
+                    schedule)
 
 
 def _split_decode(what, q, k, v, Hk, scale, run):

@@ -41,6 +41,13 @@ skipped, its tiles not even loaded) and whether both tiles hold one and the
 same id (``SEG_UNIFORM``; such a step needs no element mask). As in the
 JAX package, the bits are computed outside the kernel, before its launch,
 and the kernel reads them beside its table.
+
+The dense schedule (``schedule="dense"``, JAX ``flash_fwd.py:27``) has no
+table: its CTAs walk every partner tile and classify each one in the
+kernel (``flash_fwd.visibility`` is the plain form of that test). The
+TPU's flattened step table and its ``STEP_*`` flags have no counterpart
+in either schedule: the CSR replaces them for compact, the in-kernel
+classifier for dense.
 """
 
 from __future__ import annotations
@@ -57,6 +64,15 @@ from repro_torch.core.masks import MaskSpec, pad_segments, tile_visibility
 # Per-(batch row, visible step) segment bits (JAX ``schedule.py:64``).
 SEG_ACTIVE = 1   # the tiles' id ranges overlap
 SEG_UNIFORM = 2  # both tiles hold one and the same id: no element mask
+
+# Tile schedules: "compact" walks the CSR's visible tiles only; "dense"
+# visits (and fetches) every tile and skips the products of the empty ones.
+SCHEDULES = ("compact", "dense")
+
+
+def check_schedule(schedule: str) -> None:
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown tile schedule {schedule!r}; have {SCHEDULES}")
 
 
 class TileCSR(NamedTuple):

@@ -674,3 +674,144 @@ def test_whisper_serving_runs_through_the_kernels(cuda):
     assert [f.launches for f in counters] == [4, 2, 3 * 2 * 2]
     assert [f.calls for f in plains] == [0, 0, 0]
     assert ((0 <= tok) & (tok < cfg.vocab_size)).all()
+
+
+# ------------------------------------------------------- the dense schedule
+
+
+# (B, S, Hq, Hkv, spec, ids): the training shape, G in {1, 4} at a ragged
+# length, a window, a window with sinks, a non-causal window, no mask (no
+# tile hidden), q_offset of either sign, then the segment variants on the
+# packed source's ids and on distinct q and kv ids.
+DENSE_CASES = [
+    (2, 2048, 32, 8, dict(causal=True), None),
+    (1, 700, 32, 8, dict(causal=True), None),
+    (1, 700, 8, 8, dict(causal=True, window=256), None),
+    (1, 700, 32, 8, dict(causal=True, window=256, sink=4), None),
+    (1, 700, 32, 8, dict(causal=False, window=256), None),
+    (2, 300, 16, 4, dict(causal=False), None),
+    (1, 300, 32, 8, dict(causal=True, q_offset=100), None),
+    (1, 300, 32, 8, dict(causal=True, q_offset=-128), None),
+    (2, 2048, 32, 8, dict(causal=True), "packed"),
+    (1, 700, 8, 8, dict(causal=True, window=256, sink=4), "packed"),
+    (2, 700, 32, 8, dict(causal=True), "distinct"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Hq,Hkv,spec,ids", DENSE_CASES)
+def test_dense_kernels_match_plain_and_compact(cuda, B, S, Hq, Hkv, spec, ids):
+    """Each dense kernel against its plain version, and against the compact
+    kernel: the forward (o, lse), dK/dV, dQ and the fused dK/dV to the bit;
+    the fused dQ (atomics in no fixed order) within the tolerance. Dense
+    launches count apart from compact ones."""
+    spec = MaskSpec(**spec)
+    if ids is None:
+        gen = torch.Generator(device=cuda).manual_seed(15)
+        q = ops._prep(_randn(gen, (B, S, Hq, 128), cuda), 1 / math.sqrt(128))
+        k, v = _randn(gen, (B, S, Hkv, 128), cuda), _randn(gen, (B, S, Hkv, 128), cuda)
+        do = _randn(gen, (B, S, Hq, 128), cuda)
+        seg, fwd, names = (), fwd_mod.flash_fwd, ("fused", "dkv", "dq")
+    else:
+        q, k, v, do, q_seg, kv_seg = _varlen_inputs(cuda, B, S, Hq, Hkv, spec, ids)
+        seg, fwd = (q_seg, kv_seg), fwd_mod.flash_fwd_varlen
+        names = ("fused_varlen", "dkv_varlen", "dq_varlen")
+    fused, dkv, dq_fn = (getattr(bwd_mod, f"flash_bwd_{n}") for n in names)
+    tiles = dict(block_q=64, block_kv=64)
+    dense = dict(schedule="dense", **tiles)
+    plain = dict(q_seg=seg[0], kv_seg=seg[1], **dense) if seg else dense
+    counters = (fwd, fused, dkv, dq_fn)
+    before = [(f.launches, f.dense_launches) for f in counters]
+    o, lse = fwd(q, k, v, spec, *seg, **dense)
+    o_c, lse_c = fwd(q, k, v, spec, *seg, **tiles)
+    delta = bwd_mod.flash_bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, spec, *seg)
+    got = fused(*args, **dense)
+    got_c = fused(*args, **tiles)
+    dk, dv = dkv(*args, **dense)
+    dk_c, dv_c = dkv(*args, **tiles)
+    dq = dq_fn(*args, **dense)
+    dq_c = dq_fn(*args, **tiles)
+    torch.cuda.synchronize()
+    assert [(f.launches - a, f.dense_launches - b) for f, (a, b) in zip(counters, before)] == [
+        (1, 1)] * 4
+    o_p, lse_p = fwd_mod.flash_fwd_plain(q, k, v, spec, **plain)
+    assert _err(o, o_p) < O_TOL and _err(lse, lse_p) < LSE_TOL
+    pargs = args[:7]
+    for name, a, b in zip(("dq", "dk", "dv"), got,
+                          bwd_mod.flash_bwd_fused_plain(*pargs, **plain)):
+        assert _rel_err(a, b) < GRAD_REL_TOL, name
+    for name, a, b in zip(("dk", "dv"), (dk, dv), bwd_mod.flash_bwd_dkv_plain(*pargs, **plain)):
+        assert _rel_err(a, b) < GRAD_REL_TOL, name
+    assert _rel_err(dq, bwd_mod.flash_bwd_dq_plain(*pargs, **plain)) < GRAD_REL_TOL
+    assert torch.equal(o, o_c) and torch.equal(lse, lse_c)
+    assert torch.equal(dk, dk_c) and torch.equal(dv, dv_c) and torch.equal(dq, dq_c)
+    assert torch.equal(got[1], got_c[1]) and torch.equal(got[2], got_c[2])
+    assert _rel_err(got[0], got_c[0]) < GRAD_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg", [False, True])
+def test_dense_forward_at_head_dim_64_is_the_compact_kernel(cuda, seg):
+    """The head_dim-64 dense forward (whisper's width) against its plain
+    version and, to the bit, the compact kernel."""
+    q, k, v = _qkv(cuda, 16, 2, 700, 700, 8, 8, 64)
+    spec = MaskSpec(causal=True)
+    ids = (_packed_ids(2, 700).to(cuda),) * 2 if seg else ()
+    fwd = fwd_mod.flash_fwd_varlen if seg else fwd_mod.flash_fwd
+    o, lse = fwd(q, k, v, spec, *ids, block_q=64, block_kv=64, schedule="dense")
+    o_c, lse_c = fwd(q, k, v, spec, *ids, block_q=64, block_kv=64)
+    torch.cuda.synchronize()
+    plain = dict(q_seg=ids[0], kv_seg=ids[1]) if seg else {}
+    o_p, lse_p = fwd_mod.flash_fwd_plain(q, k, v, spec, block_q=64, block_kv=64,
+                                         schedule="dense", **plain)
+    assert _err(o, o_p) < O_TOL and _err(lse, lse_p) < LSE_TOL
+    assert torch.equal(o, o_c) and torch.equal(lse, lse_c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("bwd", ["fused", "split"])
+def test_dense_training_step_runs_through_the_dense_kernels(cuda, bwd, packed):
+    """A 2-layer, full-width qwen3-8b step with schedule="dense" launches the
+    dense kernels only (forward twice a layer, the delta kernel once, then
+    fused or dK/dV + dQ once), no compact kernel and no plain version; its
+    loss is the compact step's to the bit."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticVarlenLM
+
+    cfg = dataclasses.replace(registry.get("qwen3-8b"), num_layers=2)
+    if packed:
+        data = SyntheticVarlenLM(DataConfig(1, 512, cfg.vocab_size, seed=0, source="packed"))
+        batch = {k: torch.from_numpy(x).to(cuda) for k, x in data.batch(0).items()}
+    else:
+        tokens = torch.randint(0, cfg.vocab_size, (1, 513),
+                               generator=torch.Generator().manual_seed(0))
+        batch = {"inputs": tokens[:, :-1].to(cuda), "targets": tokens[:, 1:].to(cuda)}
+    suffix = "_varlen" if packed else ""
+    kernels = [getattr(fwd_mod, "flash_fwd" + suffix)] + [
+        getattr(bwd_mod, f"flash_bwd_{n}{suffix}") for n in ("fused", "dkv", "dq")]
+    plains = (fwd_mod.flash_fwd_plain, bwd_mod.flash_bwd_delta_plain,
+              bwd_mod.flash_bwd_fused_plain, bwd_mod.flash_bwd_dkv_plain,
+              bwd_mod.flash_bwd_dq_plain)
+    losses = []
+    for schedule in ("compact", "dense"):
+        model = init_lm(cfg, seed=0, device=cuda)
+        state = init_opt_state(dict(model.named_parameters()))
+        attn = AttentionConfig(impl="flash_cuda", bwd=bwd, schedule=schedule)
+        step = build_train_step(cfg, attn, AdamWConfig())
+        for f in kernels:
+            f.launches = f.dense_launches = 0
+        bwd_mod.flash_bwd_delta.launches = 0
+        for f in plains:
+            f.calls = 0
+        state, metrics = step(model, state, batch)
+        torch.cuda.synchronize()
+        losses.append(metrics["loss"])
+    # The delta pre-pass has one form for both schedules.
+    assert bwd_mod.flash_bwd_delta.launches == 2
+    assert [f.dense_launches for f in kernels] == ([4, 2, 0, 0] if bwd == "fused" else
+                                                   [4, 0, 2, 2])
+    assert [f.launches for f in kernels] == [0, 0, 0, 0]
+    assert [f.calls for f in plains] == [0] * 5
+    assert math.isfinite(losses[1]) and metrics["skipped"] == 0.0
+    assert losses[0] == losses[1]
