@@ -19,7 +19,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      kernels (delta pre-pass, fused dK/dV/dQ, and the split backward's
      dK/dV and dQ kernels, whose dK and dV must be bitwise the fused
      kernel's and whose dQ must be bitwise the same from two launches) and
-     the forward again at the training step's;
+     the forward again at the training step's; the fused kernel is timed in
+     turns with SDPA's backward (fused, SDPA, SDPA, fused), the dK/dV
+     kernel beside them, and once more without its dQ bulk reduction;
   4. the serving slice: qwen3-8b at full width (36 layers, bf16, random
      weights from a seed) serves 6 requests through the port's
      ServingEngine; every prefill and decode must go through the kernels
@@ -92,7 +94,7 @@ beside the unsegmented kernels, with bounds over the same-segment pairs.
 Phase 3 also holds the dense-schedule kernels (forward, fused, dK/dV and
 dQ, each with and without segments) against their plain versions at the
 training shape and against the compact kernels to the bit (the fused dQ,
-whose atomics have no order, within GRAD_REL_TOL), there and on a grid of
+whose bulk reductions have no order, within GRAD_REL_TOL), there and on a grid of
 specs at S = 700 with G = 1 and 4, and times dense and compact in turns,
 with the FULL spec (no tile hidden) as the control.
 The last two lines are the kernels' JSON record and the result line.
@@ -142,7 +144,7 @@ TICK_ROUNDS = 8  # rounds of fixed, paged, paged, fixed decode ticks
 DELTA_TOL = 2e-5
 # f32 gradients of the fused kernel against its plain version, relative to
 # the largest |gradient|: both round P and dS to bf16 at the same places;
-# what differs is summation order, the order of dq's atomics, and values
+# what differs is summation order, the order of dq's reductions, and values
 # that land one bf16 ulp apart. The first chip run read at most 7.3e-4.
 GRAD_REL_TOL = 3e-3
 TRAIN_B, TRAIN_S = 2, 2048  # the training step's batch
@@ -235,10 +237,10 @@ def max_err(torch, a, b) -> float:
     return (a.float()[fin] - b.float()[fin]).abs().max().item() if fin.any() else 0.0
 
 
-def sdpa_times(torch, q, k, v, do, flush, mask=None):
+def sdpa_calls(torch, q, k, v, do, mask=None):
     """The library yardstick on the kernels' inputs (q pre-scaled, so scale
-    1; GQA): SDPA's forward and its forward + backward, in ms. Causal, or
-    with the boolean ``mask`` (B, 1, Sq, Skv)."""
+    1; GQA): SDPA's forward and its forward + backward as two calls.
+    Causal, or with the boolean ``mask`` (B, 1, Sq, Skv)."""
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
@@ -253,6 +255,12 @@ def sdpa_times(torch, q, k, v, do, flush, mask=None):
         out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, scale=1.0, **kw)
         return torch.autograd.grad(out, (qt, kt, vt), dot)
 
+    return fwd_only, fwd_bwd
+
+
+def sdpa_times(torch, q, k, v, do, flush, mask=None):
+    """SDPA's forward and its forward + backward (``sdpa_calls``), in ms."""
+    fwd_only, fwd_bwd = sdpa_calls(torch, q, k, v, do, mask)
     return time_ms(torch, fwd_only, 20, flush), time_ms(torch, fwd_bwd, 20, flush)
 
 
@@ -534,7 +542,11 @@ def bwd_kernel_phase(torch, dev, flush):
     cases = [(B, S, MaskSpec(causal=True)) for B in (1, 2) for S in (64, 700, 2048)]
     cases += [(1, 1000, MaskSpec(causal=True, window=256, sink=4)),
               # rows 0-127 see no key: two whole q tiles no CTA visits
-              (1, 700, MaskSpec(causal=True, q_offset=-128))]
+              (1, 700, MaskSpec(causal=True, q_offset=-128)),
+              # rows 0-99 see no key, 64-99 in a q tile the CTAs visit: their
+              # lse is the finite mask value and their P is 1, as in the plain
+              # version
+              (1, 700, MaskSpec(causal=True, q_offset=-100))]
     delta_err = grad_err = dkv_err = dq_err = 0.0
     tiles = dict(block_q=bq, block_kv=bk)
 
@@ -590,9 +602,9 @@ def bwd_kernel_phase(torch, dev, flush):
             fail(f"the split dk, dv are not bitwise the fused kernel's at B={B} S={S} {spec}")
         if not torch.equal(dq, dq2):
             fail(f"two launches of flash_bwd_dq gave different dq at B={B} S={S} {spec}")
-        if spec.q_offset < 0 and not ((got[0][:, :-spec.q_offset] == 0).all()
-                                      and (dq[:, :-spec.q_offset] == 0).all()):
-            fail("rows that see no key must get dq = 0")
+        unseen = max(-spec.q_offset, 0) // bq * bq  # rows of whole q tiles that see nothing
+        if not ((got[0][:, :unseen] == 0).all() and (dq[:, :unseen] == 0).all()):
+            fail("q tiles that see no key must get dq = 0")
         delta_err = max(delta_err, ed)
         grad_err = max(grad_err, max(e for e, _ in errs.values()))
         dkv_err = max(dkv_err, split["dk"][0], split["dv"][0])
@@ -609,15 +621,23 @@ def bwd_kernel_phase(torch, dev, flush):
         torch, lambda: fwd.flash_fwd_plain(q, k, v, spec, block_q=bq, block_kv=bk), 3, flush)
     delta_ms = time_ms(torch, lambda: bwd.flash_bwd_delta(o, do), 50, flush)
     delta_plain_ms = time_ms(torch, lambda: bwd.flash_bwd_delta_plain(o, do), 20, flush)
-    fused_ms = time_ms(torch, lambda: bwd.flash_bwd_fused(
-        q, k, v, do, lse, delta, spec, block_q=bq, block_kv=bk), 20, flush)
-    fused_plain_ms = time_ms(torch, lambda: bwd.flash_bwd_fused_plain(
-        q, k, v, do, lse, delta, spec, block_q=bq, block_kv=bk), 3, flush)
-    # The same launch with the dQ atomics left out (dS K is still computed):
-    # what the atomics cost.
-    no_atomics_ms = time_ms(torch, lambda: bwd._launch_fused(
-        q, k, v, do, lse, delta, spec, bq, bk, None), 20, flush)
     args = (q, k, v, do, lse, delta, spec)
+    # The fused kernel and the library's backward (SDPA forward + backward
+    # less its forward) in turns: fused, SDPA fwd+bwd, SDPA fwd, SDPA fwd,
+    # SDPA fwd+bwd, fused; dK/dV beside them.
+    sdpa_fwd, sdpa_fwd_bwd = sdpa_calls(torch, q, k, v, do)
+    calls = {"fused": lambda: bwd.flash_bwd_fused(*args, **tiles), "sdpa": sdpa_fwd_bwd,
+             "sdpa_fwd": sdpa_fwd}
+    turns = {name: [] for name in calls}
+    for name in ("fused", "sdpa", "sdpa_fwd", "sdpa_fwd", "sdpa", "fused"):
+        turns[name].append(time_ms(torch, calls[name], 20, flush))
+    fused_ms, lib_fb_ms, lib_fwd_ms = (sum(turns[n]) / 2 for n in ("fused", "sdpa", "sdpa_fwd"))
+    lib_bwd_ms = lib_fb_ms - lib_fwd_ms
+    fused_plain_ms = time_ms(torch, lambda: bwd.flash_bwd_fused_plain(*args, **tiles), 3, flush)
+    # The same launch with dQ's staging and bulk reduction left out (dS K is
+    # still computed): what adding dQ into the f32 buffer costs.
+    no_reduce_ms = time_ms(torch, lambda: bwd._launch_fused(
+        q, k, v, do, lse, delta, spec, bq, bk, None), 20, flush)
     dkv_ms = time_ms(torch, lambda: bwd.flash_bwd_dkv(*args, **tiles), 20, flush)
     dq_ms = time_ms(torch, lambda: bwd.flash_bwd_dq(*args, **tiles), 20, flush)
     dkv_plain_ms = time_ms(torch, lambda: bwd.flash_bwd_dkv_plain(*args, **tiles), 3, flush)
@@ -638,9 +658,6 @@ def bwd_kernel_phase(torch, dev, flush):
         totals[name].append(time_ms(torch, fused_total if name == "fused" else split_total,
                                     20, flush))
     fused_total_ms, split_total_ms = (sum(totals[n]) / 2 for n in ("fused", "split"))
-    # Library yardstick: SDPA (causal, GQA) forward + backward less its forward.
-    lib_fwd_ms, lib_fb_ms = sdpa_times(torch, q, k, v, do, flush)
-    lib_bwd_ms = lib_fb_ms - lib_fwd_ms
     # Bounds: the causal pairs the mask needs (S (S + 1) / 2 per head); the
     # kernels compute the diagonal tiles whole, as the schedule's count says.
     pairs = S * (S + 1) // 2
@@ -661,9 +678,15 @@ def bwd_kernel_phase(torch, dev, flush):
         f"{fused_plain_ms:.4f} ms, sdpa backward {lib_bwd_ms:.4f} ms (fwd+bwd "
         f"{lib_fb_ms:.4f} less fwd {lib_fwd_ms:.4f}), bound {fused_bound:.4f} ms ({fused_by}); "
         f"delta + fused {delta_ms + fused_ms:.4f} ms")
-    log(f"flash_bwd_fused without the dQ atomics: {no_atomics_ms:.4f} ms; the atomics (and "
-        f"the dq memset) take {fused_ms - no_atomics_ms:.4f} ms, "
-        f"{(fused_ms - no_atomics_ms) / fused_ms:.3f} of the kernel's time")
+    log(f"in turns (fused, sdpa, sdpa fwd, sdpa fwd, sdpa, fused), B={B} S={S}: fused "
+        f"{turns['fused'][0]:.4f}, {turns['fused'][1]:.4f} ms; sdpa fwd+bwd "
+        f"{turns['sdpa'][0]:.4f}, {turns['sdpa'][1]:.4f} ms; sdpa fwd "
+        f"{turns['sdpa_fwd'][0]:.4f}, {turns['sdpa_fwd'][1]:.4f} ms; fused / sdpa backward "
+        f"{fused_ms / lib_bwd_ms:.4f}; flash_bwd_dkv beside them {dkv_ms:.4f} ms "
+        f"({dkv_ms / lib_bwd_ms:.4f} of sdpa's backward)")
+    log(f"flash_bwd_fused without dQ's staging and bulk reduction: {no_reduce_ms:.4f} ms; "
+        f"adding dQ into dq (and the dq memset) takes {fused_ms - no_reduce_ms:.4f} ms, "
+        f"{(fused_ms - no_reduce_ms) / fused_ms:.3f} of the kernel's time")
     log(f"flash_bwd_dkv B={B} S={S}: kernel {dkv_ms:.4f} ms, plain {dkv_plain_ms:.4f} ms, "
         f"bound {dkv_bound:.4f} ms ({dkv_by}); library none (no one PyTorch call gives dK, dV "
         f"alone)")
@@ -679,7 +702,8 @@ def bwd_kernel_phase(torch, dev, flush):
                                 bound_ms=delta_bound, bound_by=delta_by, library_ms=None),
         "flash_bwd_fused": dict(max_abs_err=grad_err, ms=fused_ms, plain_ms=fused_plain_ms,
                                 bound_ms=fused_bound, bound_by=fused_by, library_ms=lib_bwd_ms,
-                                no_dq_atomics_ms=no_atomics_ms,
+                                no_dq_reduce_ms=no_reduce_ms,
+                                sdpa_ratio_in_turns=fused_ms / lib_bwd_ms,
                                 with_delta_ms_in_turns=fused_total_ms),
         "flash_bwd_dkv": dict(max_abs_err=dkv_err, ms=dkv_ms, plain_ms=dkv_plain_ms,
                               bound_ms=dkv_bound, bound_by=dkv_by, library_ms=None),
@@ -779,11 +803,11 @@ def varlen_kernel_phase(torch, dev, flush):
         torch.cuda.synchronize()
         return o, lse, delta, fused, dkv, dq, dq2
 
-    def distinct_ids(B, S):
+    def distinct_ids(B, S, hidden=64):
         q_seg = torch.ones((B, S), dtype=torch.int32)
         q_seg[:, S // 2:] = 2
         kv_seg = q_seg.clone()
-        q_seg[:, :64] = 7   # q tile 0: an id no key has
+        q_seg[:, :hidden] = 7   # q rows 0 .. hidden - 1: an id no key has
         kv_seg[:, -64:] = 9  # the last keys: an id no query has
         return q_seg.to(dev), kv_seg.to(dev)
 
@@ -793,7 +817,10 @@ def varlen_kernel_phase(torch, dev, flush):
     cases = [(B, S, HQ, HKV, ids, ids, "packed step 0"),
              (2, 700, HKV, HKV, ids700, ids700, "packed, G=1"),
              (2, 700, HQ, HKV, ids700, ids700, "packed, G=4"),
-             (2, 700, HQ, HKV, *distinct_ids(2, 700), "distinct q/kv ids")]
+             (2, 700, HQ, HKV, *distinct_ids(2, 700), "distinct q/kv ids"),
+             # q rows 0-31 see no key in a tile the CTAs visit (lse = the
+             # finite mask value)
+             (2, 700, HQ, HKV, *distinct_ids(2, 700, 32), "half a q tile hidden")]
     err = dict(fwd=0.0, fused=0.0, dkv=0.0, dq=0.0)
     for Bc, Sc, Hq, Hkv, q_seg, kv_seg, what in cases:
         q, k, v, do = inputs(Bc, Sc, Hq, Hkv)
@@ -855,7 +882,7 @@ def varlen_kernel_phase(torch, dev, flush):
             "dkv dk": torch.equal(dk, dk1), "dkv dv": torch.equal(dv, dv1),
             "dq": torch.equal(dq, dq1)}
     log(f"all-ones ids at B={B} S={S}, bitwise the unsegmented kernels (the fused dq's "
-        f"atomics reorder from launch to launch; dq is the split kernel's): {same}")
+        f"reductions reorder from launch to launch; dq is the split kernel's): {same}")
     if not all(same.values()):
         fail("all-ones segment ids do not give the unsegmented kernels' outputs bitwise")
 
@@ -951,10 +978,11 @@ def varlen_kernel_phase(torch, dev, flush):
 
 
 # The dense phase's spec grid (S = 700, G = 1 and 4): causal, a window, a
-# window with sinks, a non-causal window, no mask, a positive q offset.
+# window with sinks, a non-causal window, no mask, a positive q offset, a
+# negative one off the tile grid (rows that see no key in a visited tile).
 DENSE_SPECS = (dict(causal=True), dict(causal=True, window=256),
                dict(causal=True, window=256, sink=4), dict(causal=False, window=256), dict(),
-               dict(causal=True, q_offset=100))
+               dict(causal=True, q_offset=100), dict(causal=True, q_offset=-100))
 DENSE_NAMES = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq")
 
 
@@ -963,7 +991,7 @@ def dense_kernel_phase(torch, dev, flush):
     without SEG) against their plain versions at the training shape (B = 2,
     S = 2048, causal; segments from the packed source's step-0 ids), and
     against the compact kernels on the same inputs: the forward (o, lse),
-    dK/dV, dQ and the fused dK/dV to the bit, the fused dQ (atomics) within
+    dK/dV, dQ and the fused dK/dV to the bit, the fused dQ (unordered adds) within
     GRAD_REL_TOL; there, and again on DENSE_SPECS at S = 700 with G = 1 and
     4, without and with segments. Then dense and compact timed in turns
     (dense, compact, compact, dense) after an L2 flush, the FULL spec (no
@@ -2122,6 +2150,8 @@ def train_phase(torch, dev, bwd: str, schedule: str = "compact"):
         fail(f"training launches ({label}) {counts}, want {want} (forward twice a layer "
              f"with remat)")
     busy, attn_ms = profile_train_step(torch, step_fn, model, opt_state, batches[0], med)
+    log(f"attention device time per step ({label}): " + (
+        "not measured" if attn_ms is None else f"{attn_ms:.3f} ms of the profiled step"))
     del model, params, opt_state, batches
     return counts, dict(losses=losses, median_ms=med * 1e3, tokens_per_s=tokens / med, mfu=mfu,
                         peak_gib=peak / 2**30, busy_share=busy, attention_ms=attn_ms)
@@ -2272,6 +2302,8 @@ def packed_train_phase(torch, dev, fused_summary):
     step_fn = build_train_step(cfg, AttentionConfig(impl="flash_cuda"), opt_cfg)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
     busy, attn_ms = profile_train_step(torch, step_fn, model, opt_state, batch, med)
+    log("attention device time per step (packed): " + (
+        "not measured" if attn_ms is None else f"{attn_ms:.3f} ms of the profiled step"))
     summary = dict(median_ms=med * 1e3, tokens_per_s=tokens / med, mfu=mfu,
                    peak_gib=peak / 2**30, busy_share=busy, attention_ms=attn_ms)
     log(summary_line("packed against synthetic training (phase 8, this call)", summary,
@@ -2302,7 +2334,9 @@ def main() -> None:
         f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
     for src in sources:
         log(f"ptxas report of csrc/{src}.cu:\n{_build.report_path(src).read_text()}")
-    log("ptxas, registers and spills by kernel instantiation:\n" + ptxas_summary(_build, sources))
+    log("ptxas, registers and spills by kernel instantiation (registers at entry; the "
+        "KV-stationary backward's warpgroups then run at 24 (producer) and 240 (consumers) by "
+        "setmaxnreg):\n" + ptxas_summary(_build, sources))
 
     scratch = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     results = kernel_phase(torch, dev, scratch.zero_)

@@ -30,7 +30,7 @@ IMPLS = ("ref", "flash_cuda")
 @dataclasses.dataclass(frozen=True)
 class AttentionConfig:
     impl: str = "flash_cuda"
-    # flash_cuda backward: 'fused' (one pass, dq by atomics) | 'split' (the
+    # flash_cuda backward: 'fused' (one pass, dq by bulk reductions) | 'split' (the
     # deterministic dK/dV + dQ kernels). None -> 'fused': the port has no
     # tuned cache to consult.
     bwd: Optional[str] = None

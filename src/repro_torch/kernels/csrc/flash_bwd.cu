@@ -16,41 +16,72 @@
 // training lengths it is bound by the tensor cores (989 TFLOP/s bf16), not
 // by HBM. The TPU kernel is a sequential kv-major grid that zeroes each dq
 // block at its first visit and adds to it on later visits; on Hopper CTAs
-// run in parallel and in no order, so:
-//   * one CTA per (kv tile of 64 rows, batch * kv head); K and V stay in
-//     shared memory for its lifetime, and it loops over the G q heads that
-//     share the kv head and, for each, over the visible q tiles of its own
-//     CSR slice (kernels/schedule.py build_kv_tile_schedule). dK and dV are
-//     summed over the group in registers and written once, in f32: no
-//     atomics for them;
-//   * delta is the pre-pass above (it lives in HBM, so the TPU wrapper's
-//     VMEM budget for a per-q-tile delta scratch has no counterpart here);
-//   * dQ is an f32 buffer the wrapper zeroes; each CTA atomicAdds its
-//     dS K contribution into it (the paper's choice). The order of those
-//     sums changes from run to run, so dQ is not bitwise reproducible;
-//   * Q and dO tiles stream through a 2-stage cp.async ring (padded rows,
-//     conflict-free ldmatrix); all products run on mma.sync m16n8k16
-//     (bf16 in, f32 accumulate);
-//   * 8 warps. Register pressure is the constraint: dK and dV are two
-//     64 x 128 f32 tiles, 128 registers a thread if 4 warps held both. So
-//     warps 0-3 own dV and warps 4-7 own dK, each warp 16 kv rows x 128:
-//       phase 1  warps 0-3: S^T = K Q^T, P^T = exp(S^T - lse);
-//                warps 4-7: dP^T = V dO^T;                  (in parallel)
-//       phase 2  warps 0-3: dV += P^T dO (P^T from registers);
-//                warps 4-7: dS^T = P^T o (dP^T - delta), taking the f32
-//                P^T of their twin warp from shared memory fragment by
-//                fragment, then dK += dS^T Q;              (in parallel)
-//       phase 3  all warps: dQ += dS K from a bf16 dS^T tile in shared
-//                memory, then the atomics.
+// run in parallel and in no order, so delta is the pre-pass above (it
+// lives in HBM), dq is an f32 buffer the wrapper zeroes and every CTA adds
+// into, and dK and dV are owned by one CTA each. Only the Hopper paths reach
+// the tensor cores' rate: wgmma (mma.sync tops out well below it), TMA
+// copies that cost the SMs no instructions, and warps that wait on
+// mbarriers instead of CTA-wide barriers. The design, FlashAttention-3's
+// backward at head_dim 128:
+//   * one CTA per (pair of 64-row kv tiles j0 = 2m, j0 + 1, batch * kv
+//     head): 384 threads, a producer warpgroup (one warp works; setmaxnreg
+//     lowers it to 24 registers) and two consumer warpgroups (raised to
+//     240), one per kv tile, each holding its tile's dK and dV as f32 wgmma
+//     accumulators (64 + 64 registers a thread). Low pairs (the longest
+//     causal walks) start first. An odd t_kv leaves the last CTA one tile;
+//     its second warpgroup computes and writes nothing;
+//   * the producer loads K and V (128 rows, 64 KB) once by TMA, then streams
+//     Q_i and dO_i through a 2-stage ring: TMA boxes of 64 rows x 64
+//     columns over 4-d (D, H, S, B) maps of the strided tensors, 128-byte
+//     swizzled, rows past the end zero-filled, completion counted in bytes
+//     on the stage's mbarrier; its lanes add the stage's lse (times log2 e,
+//     +inf past Sq, 0 for -inf), delta and q ids, bound-checked, and a step
+//     record (q head, q tile, which tiles take the step and which need the
+//     element mask). Consumers release a stage on a second mbarrier;
+//   * the producer walks the ascending union of the two tiles' CSR slices
+//     per q head of the group (PairWalk; kernels/schedule.py pair_walk), or
+//     under DENSE every q tile, classifying both tiles. A step is fetched if
+//     either tile takes it; a warpgroup whose tile does not skips its
+//     products (a decision uniform in the warpgroup). The consumers read no
+//     table: they read the step record;
+//   * per step and warpgroup (m64 = its 64 kv rows): S^T = K Q^T and
+//     dP^T = V dO^T (wgmma m64n64k16, both operands from shared memory);
+//     P^T = exp2(S^T log2 e - lse log2 e) with the element mask where the
+//     step needs it (kHidden below keeps the finite mask value's P in the
+//     log2 domain); dS^T = P^T o (dP^T - delta); dV += P^T dO and
+//     dK += dS^T Q (m64n128k16, P^T and dS^T as bf16 A fragments from the
+//     registers, dO and Q read MN-major). The accumulator fragment is the
+//     mma.sync C layout, row 16 (warp % 4) + lane / 4 (+8), column
+//     8 t + 2 (lane % 4) (+1), so the mask and the bf16 A fragments carry
+//     over from the mma.sync design;
+//   * dQ: both warpgroups write bf16 dS^T into a double-buffered 128 x 64
+//     tile (swizzled like TMA's; a tile that does not take the step writes
+//     zeros), meet at a named barrier, and each computes dQ_i = dS K for
+//     half of head_dim over the pair's 128 kv rows (m64n64k16, both
+//     operands MN-major). The 64 x 64 f32 half goes to padded shared
+//     memory, and a writer warp of the producer warpgroup (one a consumer
+//     warpgroup) adds it into dq with cp.reduce.async.bulk .add.f32, 256
+//     bytes a row: 128 bulk reductions a step where the mma.sync kernel
+//     issued 16,384 scalar atomics. An mbarrier pair hands the staging back
+//     and forth, so no consumer waits on a bulk read it did not need. The
+//     adds' order varies, so dQ is allclose-only; bwd="split" is the
+//     deterministic mode.
+// What bounds it now: the steps are serial within a warpgroup (S and dP,
+// then P, dV, dS, dK, then the barrier and dQ) and the two warpgroups meet
+// every step, so exp2 and the elementwise work sit between products; the
+// dq reductions (a 64 MB f32 buffer at the training shape, more than the
+// 50 MB L2) share the TMA engine and L2 with the Q/dO stream. One CTA an
+// SM (about 200 KB of shared memory).
 //
 // The split backward (bwd="split", the deterministic mode) is the other
 // two, with no atomics anywhere:
 //
 // fa2_bwd_dkv_kernel replaces src/repro/kernels/flash_bwd.py:234
 // flash_bwd_dkv (compact body _dkv_kernel_compact :193): the fused
-// kernel's body with phase 3 and the dS^T staging compiled out (a template
-// flag). Same CTA, warp split and loop order, so its dK and dV are bitwise
-// the fused kernel's. Four products per tile: bound by the tensor cores.
+// kernel's body with the dS buffer, the dQ product and its staging compiled
+// out (a template flag). Same CTA, walk, products and k-step order, so its
+// dK and dV are bitwise the fused kernel's. Four products per tile: bound
+// by the tensor cores.
 //
 // fa2_bwd_dq_kernel replaces src/repro/kernels/flash_bwd.py:459
 // flash_bwd_dq (compact body _dq_kernel_compact :422). It is Q-stationary:
@@ -75,16 +106,17 @@
 // the kernel's orientation), indexed by b = blockIdx.x / Hkv in the
 // KV-stationary kernels and by b = bh / Hq in the dq kernel:
 //   * a step without SEG_ACTIVE is skipped before its tiles are prefetched,
-//     so it costs neither a copy nor a product. The KV-stationary walk over
-//     (q head of the group, visible q tile) reads the bit of the tile only,
-//     and `it / nvis` still names the head; the stage alternates with the
-//     count of computed tiles. The bits are uniform across a CTA, so the
-//     barriers stay uniform;
+//     so it costs neither a copy nor a product. In the KV-stationary walk a
+//     tile's entry without the bit is dropped from the union, and a step
+//     that neither tile keeps is never fetched; the ring's stage alternates
+//     with the count of fetched steps. The bits are read by every thread,
+//     so the barriers stay uniform;
 //   * a step applies the element mask when it is flagged masked or lacks
 //     SEG_UNIFORM, and the mask then also needs q_id == kv_id. The owner
 //     tile's ids sit in registers (two rows a thread); the streamed tile's
-//     64 ids travel with it through the same cp.async group (256 bytes a
-//     stage). Rows past the end read as the masks.py sentinels;
+//     64 ids travel with it in the same stage (the KV-stationary
+//     producer's lanes copy them, the dq kernel's cp.async group). Rows past
+//     the end read as the masks.py sentinels;
 //   * a kv tile with no active step writes zero dK and dV, a q tile zero
 //     dQ, as every CTA writes its whole tile anyway.
 // The SEG code of the fused and dkv kernels is one source, so split dK and
@@ -102,14 +134,17 @@
 // SEG their ids) through the same ring, then classifies the tile in the
 // kernel (classify_tile: the spec, q_offset and the ragged kv edge; with
 // SEG the min and max of the owner's ids, reduced once, and of the staged
-// ids, read by every thread from shared memory) and skips the products of
-// an empty one. The cost of the hidden tiles' copies is the point: this is
+// ids: the KV-stationary producer reduces them with shuffles, every dq
+// thread reads them from shared memory) and skips the products of an empty
+// one; a KV-stationary warpgroup classifies both tiles of its pair, so the
+// two agree on whether the step has a dQ product. The cost of the hidden tiles' copies is the point: this is
 // the baseline the compact schedule is measured against. Visible tiles
 // come in the compact order with the compact mask decisions, so dense dK,
 // dV and split dQ are the compact kernels' to the bit; the dense fused dQ
-// goes through the same atomics and agrees up to their order.
+// goes through the same bulk reductions and agrees up to their order.
 //
-// None of them uses wgmma or TMA yet; those are the next step for speed.
+// The delta and dq kernels still run on mma.sync and cp.async; the dq
+// kernel's redesign comes after the forward's.
 //
 // Semantics match the JAX kernels: masked scores take the finite
 // DEFAULT_MASK_VALUE, K/V rows past the end read as zeros and are masked,
@@ -118,6 +153,7 @@
 // dQ += dS K. q is the pre-scaled q, so dQ is with respect to it. q rows
 // past the end take lse = +inf, so their P is 0.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -153,8 +189,9 @@ struct BwdParams {
   const float* lse;    // (B, Hq, Sq), raw (-inf on fully masked rows)
   const float* delta;  // (B, Hq, Sq)
   float* dq;           // (B, Sq, Hq, D); fused: zeroed by the caller, null
-                       // skips the atomics (a timing variant that isolates
-                       // their cost); dq kernel: written once
+                       // skips dQ's staging and bulk reduction (a timing
+                       // variant that isolates their cost); dq kernel:
+                       // written once
   float* dk;           // (B, Skv, Hkv, D)
   float* dv;           // (B, Skv, Hkv, D)
   const int* table;    // kv-major: row_ptr[t_kv + 1], then (q_tile << 1) | masked;
@@ -355,301 +392,647 @@ __global__ void __launch_bounds__(kThreads) fa2_bwd_delta_kernel(const DeltaPara
 
 // ------------------------------------------------------- fused and dkv
 
-// The KV-stationary body: with DQ, the fused kernel; without, the dkv
-// kernel (no phase 3 and no dS^T tile; dK and dV bitwise the same). SEG:
-// the segment variant of either. DENSE: every q tile, no table.
-template <int D, bool DQ, bool SEG, bool DENSE>
-__device__ __forceinline__ void kv_stationary(const BwdParams& p) {
-  constexpr int BM = kBlockM;
-  constexpr int BN = kBlockN;
-  constexpr int STRIDE = D + 8;     // padded row: ldmatrix rows hit distinct banks
-  constexpr int DS_STRIDE = BM + 8;
-  constexpr int KSTEPS = D / 16;    // k-steps of the products over head_dim
-  constexpr int NT_Q = BM / 8;      // n-tiles over a tile's q columns
-  constexpr int NT_D = D / 8;       // n-tiles over head_dim
-  constexpr int NT_DQ = NT_D / 2;   // dQ: each warp takes half of head_dim
+// Hopper primitives of the KV-stationary kernels: mbarriers, TMA, bulk
+// reductions, named barriers, wgmma and its shared-memory descriptors.
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BN][STRIDE]
-  __nv_bfloat16* sV = sK + BN * STRIDE;                             // [BN][STRIDE]
-  __nv_bfloat16* sQ = sV + BN * STRIDE;                             // [2][BM][STRIDE]
-  __nv_bfloat16* sdO = sQ + 2 * BM * STRIDE;                        // [2][BM][STRIDE]
-  __nv_bfloat16* sdS = sdO + 2 * BM * STRIDE;                       // [BN][DS_STRIDE], dS^T
-  float4* sP = reinterpret_cast<float4*>(sdS + (DQ ? BN * DS_STRIDE : 0));  // [4][NT_Q][32], P^T
-  int* sQid = reinterpret_cast<int*>(sP + 4 * NT_Q * 32);  // SEG: [2][BM] q ids
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
 
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const bool owns_dv = warp < 4;  // warps 0-3: S, P, dV; warps 4-7: dP, dS, dK
-  const int wr = warp % 4;        // this warp's 16 kv rows within the tile
-  const int g8 = lane / 4, t4 = lane % 4;
-  const int j = blockIdx.y;       // low kv tiles (the longest causal runs) first
-  const int b = blockIdx.x / p.Hkv, hk = blockIdx.x % p.Hkv;
-  const int k0 = j * BN;
-  // Per q head, the table's visible q tiles of this kv tile, or under DENSE
-  // every q tile: step it is (head it / nvis, q tile of entry it % nvis).
-  const int beg = DENSE ? 0 : p.table[j];
-  const int nvis = DENSE ? (p.Sq + BM - 1) / BM : p.table[j + 1] - beg;
-  const int* steps = DENSE ? nullptr : p.table + p.t_kv + 1 + beg;
-  const int n_steps = nvis * p.group;  // (q head of the group, q tile)
-  const int kv_a = k0 + wr * 16 + g8;  // this thread's two kv rows
-  const int kv_b = kv_a + 8;
-  // SEG: the bits of this tile's slice (compact), the q ids, the ids of the
-  // two kv rows; DENSE with SEG: the range of the kv tile's ids.
-  constexpr bool SKIP = SEG && !DENSE;  // inactive steps are skipped before their fetch
-  const int* bits = SKIP ? p.bits + static_cast<long long>(b) * p.n_vis + beg : nullptr;
-  const int* qid_g = SEG ? p.q_seg + b * p.q_seg_sb : nullptr;
-  int kvid[2] = {0, 0};
-  int kvid_lo = 0, kvid_hi = 0;
-  if (SEG) {
-    const int* kvid_g = p.kv_seg + b * p.kv_seg_sb;
-    kvid[0] = kv_a < p.Skv ? kvid_g[kv_a] : kKvPadSegment;
-    kvid[1] = kv_b < p.Skv ? kvid_g[kv_b] : kKvPadSegment;
-    if (DENSE) id_range<BN>(kvid_g, k0, p.Skv, kKvPadSegment, kvid_lo, kvid_hi);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
   }
-  // The first active step at or after `it` (every step without SKIP); a
-  // step's bit is its q tile's, the same for every head of the group.
-  auto next_active = [&](int it) {
-    if (SKIP)
-      while (it < n_steps && !(bits[it % nvis] & kSegActive)) ++it;
-    return it;
-  };
-  auto q_tile_of = [&](int it) { return DENSE ? it % nvis : steps[it % nvis] >> 1; };
-  const int first = next_active(0);
+}
 
-  // dV (warps 0-3) or dK (warps 4-7): rows kv_a / kv_b, columns t * 8 + 2 * t4.
-  float acc[NT_D][4];
+// A box of the 4-d tensor map (D, H, S, B) at (d0, h, s0, b) into shared
+// memory; completion counts its bytes on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& map, uint64_t* bar, int d0,
+                                         int h, int s0, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_u32(bar)), "r"(d0), "r"(h), "r"(s0), "r"(b)
+      : "memory");
+}
+
+// dst[0 .. bytes) += the f32 values at shared address src, by the async proxy.
+__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
+                   dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// Generic-proxy stores to shared memory become visible to wgmma and TMA.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the fence (CUTLASS's warpgroup_fence_operand).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int t = 0; t < NT_D; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
 
-  auto load_q_stage = [&](int it, int stage) {
-    const int h = hk * p.group + it / nvis;
-    const int q0 = q_tile_of(it) * BM;
-    load_tile<BM, D, STRIDE>(sQ + stage * BM * STRIDE, p.q + b * p.q_sb + h * p.q_sh, p.q_ss,
-                             q0, p.Sq);
-    load_tile<BM, D, STRIDE>(sdO + stage * BM * STRIDE, p.dout + b * p.d_sb + h * p.d_sh,
-                             p.d_ss, q0, p.Sq);
-    if (SEG) load_ids<BM, kThreads>(sQid + stage * BM, qid_g, q0, p.Sq, kQPadSegment);
-  };
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
-  if (first < n_steps) {
-    load_tile<BN, D, STRIDE>(sK, p.k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv);
-    load_tile<BN, D, STRIDE>(sV, p.v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv);
-    load_q_stage(first, 0);
-    cp_async_commit();
+// A wgmma shared-memory descriptor of a 128-byte-swizzled operand: rows of
+// 128 bytes in atoms of 8 rows (1024 bytes, 1024-aligned). K-major: `addr`
+// steps 32 bytes a k-step inside an atom, SBO = 1024 (the next 8 rows).
+// MN-major: LBO = the stride of the next 64 MN elements, SBO = 1024 (the
+// next 8 k rows).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
 
-    // With SKIP, `nxt` skips inactive steps before their tiles are fetched,
-    // and `n` counts the tiles computed (the stage alternates with it).
-    for (int it = first, n = 0; it < n_steps; ++n) {
-      const int nxt = SKIP ? next_active(it + 1) : it + 1;
-      const int stage = SKIP ? (n & 1) : (it & 1);
-      if (nxt < n_steps) {
-        load_q_stage(nxt, stage ^ 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
+
+// d (64 x 64 f32) (+)= A (64 x 16, shared) * B (16 x 64, shared); TA/TB: MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 128 f32) += A (64 x 16 bf16, registers) * B (16 x 128, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+constexpr int kPairRows = 2 * kBlockN;  // kv rows of a KV-stationary CTA: two tiles
+constexpr int kKvThreads = 3 * 128;     // producer warpgroup, two consumer warpgroups
+constexpr int kConsumers = 2 * 128;
+constexpr int kStages = 2;              // the Q/dO ring
+constexpr int kDqRow = 72;              // f32 dQ staging row: 64 values + 32 bytes of padding
+constexpr float kLog2e = 1.4426950408889634f;
+// The score a hidden element takes in the exp2 domain. The finite mask
+// value's log2(e) multiple overflows f32, and a row that sees no key has
+// lse = kMaskValue + log n, so P = exp(kMaskValue - lse) = 1 there. A power
+// of two has an exact log2(e) multiple, so the producer stages such a row's
+// lse as (kHidden + lse - kMaskValue) log2(e), the two terms scaled apart,
+// and a hidden element's exp2(kHidden log2(e) - lse') is exp(kMaskValue -
+// lse) on every row: 1 there, 0 elsewhere.
+constexpr float kHidden = -0x1p126f;
+// Step flags: tile 0 / 1 of the pair takes the step, and needs the element mask.
+constexpr int kTake0 = 1, kTake1 = 2, kMask0 = 4, kMask1 = 8;
+
+// The TMA maps of one launch: q, dO (64-row boxes) and k, v (128-row boxes),
+// each a 4-d (D, H, S, B) view of the strided tensor, 64 columns a box,
+// 128-byte swizzled.
+struct KvMaps {
+  CUtensorMap q, dout, k, v;
+};
+
+// Shared memory of the KV-stationary kernels, in bytes from a 1024-aligned
+// base: K and V (two 64-column halves of 128 rows), the Q/dO ring (halves of
+// 64 rows), with DQ two bf16 dS^T buffers (128 kv rows x 64 q) and the f32
+// dQ staging of each consumer warpgroup, then each stage's lse, delta, q
+// ids and step record, then the mbarriers and the staged dQ's (q0, head).
+template <bool DQ>
+struct KvSmem {
+  static constexpr uint32_t K = 0, V = 32768, Q = 65536, DO = 98304, DS = 131072;
+  static constexpr uint32_t DQS = DS + (DQ ? 2 * 16384 : 0);
+  static constexpr uint32_t LSE = DQS + (DQ ? 2 * kBlockM * kDqRow * 4 : 0);
+  static constexpr uint32_t DELTA = LSE + kStages * kBlockM * 4;
+  static constexpr uint32_t QID = DELTA + kStages * kBlockM * 4;
+  static constexpr uint32_t STEP = QID + kStages * kBlockM * 4;  // per stage: the step's record
+  static constexpr uint32_t BARS = STEP + kStages * 16;  // full, empty, kv, dq_full, dq_empty
+  static constexpr uint32_t DQ_META = BARS + (2 * kStages + 5) * 8;  // per warpgroup: (q0, h)
+  static constexpr uint32_t BYTES = DQ_META + 2 * 8;
+};
+
+// The walk of a pair of kv tiles (j0, j0 + 1): per q head g of the group,
+// the ascending union of the two tiles' CSR slices (kernels/schedule.py
+// pair_walk states it in Python). A step names its q tile and, per tile,
+// the table entry that put it there (-1: not in that tile's slice, or with
+// SKIP inactive there); with SKIP a step that neither tile needs is never
+// produced. DENSE: every q tile of every head, which the producer classifies.
+template <bool SKIP, bool DENSE>
+struct PairWalk {
+  const int* steps;  // the table's entries
+  const int* bits;   // SKIP: this batch row's step bits
+  int a0, a1, b0, b1, group, t_q;
+  int g, ia, ib;
+
+  __device__ __forceinline__ bool next(int& g_out, int& q_tile, int& ea, int& eb) {
+    if (DENSE) {
+      if (g >= group) return false;
+      g_out = g;
+      q_tile = ia;
+      ea = eb = -1;
+      if (++ia == t_q) {
+        ia = 0;
+        ++g;
       }
-      __syncthreads();
-
-      const int h = hk * p.group + it / nvis;
-      const int q0 = q_tile_of(it) * BM;
-      const long long bh = static_cast<long long>(b) * p.Hq + h;
-      const __nv_bfloat16* cQ = sQ + stage * BM * STRIDE;
-      const __nv_bfloat16* cdO = sdO + stage * BM * STRIDE;
-      const int* cQid = sQid + stage * BM;
-      bool masked, empty = false;
-      if (DENSE) {
-        TileClass c = classify_tile(p, q0 + p.q_offset, k0);
-        if (SEG) {
-          int lo, hi;
-          id_range<BM>(cQid, lo, hi);
-          c = with_ids(c, lo, hi, kvid_lo, kvid_hi);
-        }
-        empty = c.empty;
-        masked = c.mask;
-      } else {
-        masked = (steps[it % nvis] & 1) || (SEG && !(bits[it % nvis] & kSegUniform));
-      }
-      if (empty) {  // DENSE: fetched, nothing to compute
-        __syncthreads();  // this stage (its ids were read) is refilled next
-        it = nxt;
+      return true;
+    }
+    constexpr int kNone = 0x7fffffff;
+    while (g < group) {
+      const int qa = ia < a1 ? steps[ia] >> 1 : kNone;
+      const int qb = ib < b1 ? steps[ib] >> 1 : kNone;
+      if (qa == kNone && qb == kNone) {
+        ++g;
+        ia = a0;
+        ib = b0;
         continue;
       }
+      const int q = min(qa, qb);
+      ea = qa == q ? ia++ : -1;
+      eb = qb == q ? ib++ : -1;
+      if (SKIP) {
+        if (ea >= 0 && !(bits[ea] & kSegActive)) ea = -1;
+        if (eb >= 0 && !(bits[eb] & kSegActive)) eb = -1;
+        if (ea < 0 && eb < 0) continue;
+      }
+      g_out = g;
+      q_tile = q;
+      return true;
+    }
+    return false;
+  }
+};
 
-      // Phase 1: S^T = K Q^T (warps 0-3) or dP^T = V dO^T (warps 4-7), this
-      // warp's 16 kv rows x the tile's 64 q columns.
-      float s[NT_Q][4];
-#pragma unroll
-      for (int t = 0; t < NT_Q; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-      {
-        const __nv_bfloat16* a_src = owns_dv ? sK : sV;
-        const __nv_bfloat16* b_src = owns_dv ? cQ : cdO;
-#pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk) {
-          unsigned af[4];
-          ldmatrix_x4(af, a_src + (wr * 16 + (lane & 15)) * STRIDE + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-          for (int np = 0; np < NT_Q / 2; ++np) {
-            unsigned bfr[4];
-            ldmatrix_x4(bfr, b_src + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * STRIDE +
-                                 kk * 16 + ((lane >> 3) & 1) * 8);
-            mma_bf16(s[2 * np], af, bfr[0], bfr[1]);
-            mma_bf16(s[2 * np + 1], af, bfr[2], bfr[3]);
-          }
+// The KV-stationary body: with DQ, the fused kernel; without, the dkv
+// kernel (no dS buffer, no dQ product, no staging; dK and dV bitwise the
+// same). SEG: the segment variant of either. DENSE: every q tile, no table.
+template <bool DQ, bool SEG, bool DENSE>
+__device__ __forceinline__ void kv_stationary(const BwdParams& p, const KvMaps& maps) {
+  using L = KvSmem<DQ>;
+  constexpr bool SKIP = SEG && !DENSE;  // inactive steps are skipped before their fetch
+  constexpr int BM = kBlockM;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_bar = empty + kStages;
+  uint64_t* dq_full = kv_bar + 1;   // per consumer warpgroup: its dQ half is staged
+  uint64_t* dq_empty = dq_full + 2;  // the staging is read: it may be refilled
+  int2* dq_meta = reinterpret_cast<int2*>(sm + L::DQ_META);
+  float* sLse = reinterpret_cast<float*>(sm + L::LSE);  // lse * log2(e), +inf past Sq
+  float* sDelta = reinterpret_cast<float*>(sm + L::DELTA);
+  int* sQid = reinterpret_cast<int*>(sm + L::QID);
+  // Per stage: (q head of the group, q tile, step flags); a negative head ends
+  // the walk. The producer walks and classifies; the consumers read this.
+  int4* sStep = reinterpret_cast<int4*>(sm + L::STEP);
+
+  const int b = blockIdx.x / p.Hkv, hk = blockIdx.x % p.Hkv;
+  const int j0 = 2 * blockIdx.y;  // low kv tiles (the longest causal runs) first
+  const int k0 = j0 * kBlockN;
+  const bool has1 = j0 + 1 < p.t_kv;  // an odd t_kv leaves the last pair one tile
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes; TMA bytes on top
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(kv_bar, 1);
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(&dq_full[w], 128);
+      mbar_init(&dq_empty[w], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one warp. K and V once; then, per step of the walk, Q_i and
+    // dO_i by TMA (rows past Sq zero-filled), the stage's lse, delta and q
+    // ids by the lanes, bound-checked, and the step's record.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      PairWalk<SKIP, DENSE> walk;
+      walk.group = p.group;
+      walk.t_q = (p.Sq + BM - 1) / BM;
+      walk.g = 0;
+      if (DENSE) {
+        walk.steps = walk.bits = nullptr;
+        walk.a0 = walk.a1 = walk.b0 = walk.b1 = 0;
+      } else {
+        walk.steps = p.table + p.t_kv + 1;
+        walk.bits = SKIP ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
+        walk.a0 = p.table[j0];
+        walk.a1 = p.table[j0 + 1];
+        walk.b0 = has1 ? p.table[j0 + 1] : 0;
+        walk.b1 = has1 ? p.table[j0 + 2] : 0;
+      }
+      walk.ia = walk.a0;
+      walk.ib = walk.b0;
+      if (lane == 0) {
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                         smem_u32(kv_bar)),
+                     "r"(4 * 16384)
+                     : "memory");
+        for (int half = 0; half < 2; ++half) {
+          tma_load(sm + L::K + half * 16384, maps.k, kv_bar, half * 64, hk, k0, b);
+          tma_load(sm + L::V + half * 16384, maps.v, kv_bar, half * 64, hk, k0, b);
         }
       }
+      const int* qid_g = SEG ? p.q_seg + b * p.q_seg_sb : nullptr;
+      int kv_lo[2] = {0, 0}, kv_hi[2] = {0, 0};  // DENSE with SEG: each tile's id range
+      if (DENSE && SEG) {
+        const int* kvid_g = p.kv_seg + b * p.kv_seg_sb;
+        for (int x = 0; x < 2; ++x)
+          id_range<kBlockN>(kvid_g, k0 + x * kBlockN, p.Skv, kKvPadSegment, kv_lo[x], kv_hi[x]);
+      }
+      int g, qt, ea, eb;
+      // (A `break` out of this loop crashes ptxas 12.9; the loop ends on `more`.)
+      bool more = true;
+      for (int n = 0; more; ++n) {
+        more = walk.next(g, qt, ea, eb);
+        const int stage = n & 1;
+        mbar_wait(&empty[stage], ((n >> 1) & 1) ^ 1);
+        if (!more) {  // the walk's end: a record with a negative head, no copies
+          if (lane == 0) sStep[stage] = make_int4(-1, 0, 0, 0);
+          mbar_arrive(&full[stage]);
+          continue;
+        }
+        const int h = hk * p.group + g, q0 = qt * BM;
+        if (lane == 0) {
+          mbar_expect_tx(&full[stage], 4 * 8192);
+          for (int half = 0; half < 2; ++half) {
+            tma_load(sm + L::Q + stage * 16384 + half * 8192, maps.q, &full[stage], half * 64, h,
+                     q0, b);
+            tma_load(sm + L::DO + stage * 16384 + half * 8192, maps.dout, &full[stage],
+                     half * 64, h, q0, b);
+          }
+        }
+        const long long row0 = (static_cast<long long>(b) * p.Hq + h) * p.Sq;
+        int lo = 0x7fffffff, hi = -0x7fffffff;
+        for (int r = lane; r < BM; r += 32) {
+          const int qr = q0 + r;
+          float l = INFINITY, d = 0.f;
+          if (qr < p.Sq) {
+            l = p.lse[row0 + qr];
+            l = l == -INFINITY        ? 0.f
+                : l < 0.5f * kMaskValue ? kHidden * kLog2e + (l - kMaskValue) * kLog2e
+                                        : l * kLog2e;  // kHidden: a row that sees no key
+            d = p.delta[row0 + qr];
+          }
+          sLse[stage * BM + r] = l;
+          sDelta[stage * BM + r] = d;
+          if (SEG) {
+            const int id = qr < p.Sq ? qid_g[qr] : kQPadSegment;
+            sQid[stage * BM + r] = id;
+            lo = min(lo, id);
+            hi = max(hi, id);
+          }
+        }
+        // Which tiles take the step, and which need the element mask: the
+        // table's flags and step bits, or under DENSE the classifier (with
+        // SEG on both tiles' id ranges).
+        int flags = 0;
+        if (DENSE) {
+          TileClass c0 = classify_tile(p, q0 + p.q_offset, k0);
+          TileClass c1 = classify_tile(p, q0 + p.q_offset, k0 + kBlockN);
+          if (SEG) {
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) {
+              lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+              hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+            }
+            c0 = with_ids(c0, lo, hi, kv_lo[0], kv_hi[0]);
+            c1 = with_ids(c1, lo, hi, kv_lo[1], kv_hi[1]);
+          }
+          if (!c0.empty) flags |= kTake0 | (c0.mask ? kMask0 : 0);
+          if (has1 && !c1.empty) flags |= kTake1 | (c1.mask ? kMask1 : 0);
+        } else {
+          if (ea >= 0)
+            flags |= kTake0 | ((walk.steps[ea] & 1) || (SEG && !(walk.bits[ea] & kSegUniform))
+                                   ? kMask0 : 0);
+          if (eb >= 0)
+            flags |= kTake1 | ((walk.steps[eb] & 1) || (SEG && !(walk.bits[eb] & kSegUniform))
+                                   ? kMask1 : 0);
+        }
+        if (lane == 0) sStep[stage] = make_int4(g, qt, flags, 0);
+        mbar_arrive(&full[stage]);
+      }
+    } else if (DQ && threadIdx.x < 96 && p.dq != nullptr) {
+      // dQ writers: warp 1 + w adds consumer warpgroup w's staged 64 x 64
+      // f32 half into dq by bulk reduction, 256 bytes a row, then frees the
+      // staging; (q0, head) = (-1, -1) ends the walk.
+      const int w = threadIdx.x / 32 - 1, lane = threadIdx.x % 32;
+      const uint32_t stg = smem_u32(sm + L::DQS) + w * BM * kDqRow * 4;
+      for (int u = 0;; ++u) {
+        mbar_wait(&dq_full[w], u & 1);
+        const int2 m = dq_meta[w];
+        if (m.x < 0) break;
+        for (int r = lane; r < BM; r += 32)
+          if (m.x + r < p.Sq)
+            bulk_reduce_add(
+                p.dq + ((static_cast<long long>(b) * p.Sq + m.x + r) * p.Hq + m.y) * 128 + w * 64,
+                stg + r * kDqRow * 4, 256);
+        bulk_commit();
+        bulk_wait_read();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&dq_empty[w]);
+      }
+      bulk_wait();
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    // Consumer warpgroup w owns kv tile j0 + w: rows kw0 .. kw0 + 63.
+    const int w = wg - 1;
+    const int t = threadIdx.x - 128 * wg;
+    const int wq = t / 32, lane = t % 32, g8 = lane / 4, t4 = lane % 4;
+    const int kw0 = k0 + w * kBlockN;
+    const int kv_a = kw0 + wq * 16 + g8, kv_b = kv_a + 8;  // this thread's two kv rows
+    int kvid[2] = {0, 0};
+    if (SEG) {
+      const int* kvid_g = p.kv_seg + b * p.kv_seg_sb;
+      kvid[0] = kv_a < p.Skv ? kvid_g[kv_a] : kKvPadSegment;
+      kvid[1] = kv_b < p.Skv ? kvid_g[kv_b] : kKvPadSegment;
+    }
+    const uint32_t sK = smem_u32(sm + L::K), sV = smem_u32(sm + L::V);
+    const uint32_t sQ = smem_u32(sm + L::Q), sdO = smem_u32(sm + L::DO);
+    const uint32_t sdS = smem_u32(sm + L::DS);
+    const uint32_t stg = smem_u32(sm + L::DQS) + w * BM * kDqRow * 4;  // f32 dQ staging
 
-      if (owns_dv) {
-        // P^T = exp(S^T - lse) (Algorithm 2 line 11); element (e) is kv row
-        // kv_a (e < 2) or kv_b, q column q0 + t * 8 + 2 * t4 + (e & 1).
-        const float* lse_row = p.lse + bh * p.Sq;
+    // dV and dK of the tile: rows kv_a / kv_b, columns 8 tt + 2 t4 (+1).
+    float dv[64], dk[64];
 #pragma unroll
-        for (int t = 0; t < NT_Q; ++t) {
+    for (int i = 0; i < 64; ++i) dv[i] = dk[i] = 0.f;
+
+    mbar_wait(kv_bar, 0);
+    int n_dq = 0;  // steps with a dQ product: the dS buffer alternates with it
+    for (int n = 0;; ++n) {
+      const int stage = n & 1;
+      mbar_wait(&full[stage], (n >> 1) & 1);
+      const int4 step = sStep[stage];
+      if (step.x < 0) break;
+      const int h = hk * p.group + step.x, q0 = step.y * BM;
+      const bool vis0 = step.z & kTake0, vis1 = step.z & kTake1;
+      const bool masked = step.z & (w ? kMask1 : kMask0);
+      const bool mine = w ? vis1 : vis0;  // uniform in the warpgroup
+      const uint32_t cQ = sQ + stage * 16384, cdO = sdO + stage * 16384;
+      const uint32_t cdS = sdS + (n_dq & 1) * 16384;
+      // This thread's dS^T pair (row R, columns 8 tt + 2 t4, +1) of n-block
+      // tt sits at ds_at ^ (tt << 4) in the 128-byte swizzle (R & 7 == g8);
+      // row R + 8 is 1024 bytes on.
+      const uint32_t ds_at = cdS + (w * 64 + wq * 16 + g8) * 128 + (g8 << 4) + t4 * 4;
+      if (mine) {
+        float s[32], dp[32];
+        uint32_t pP[4][4], pS[4][4];  // bf16 P^T and dS^T: the A operands of dV and dK
+        // S^T = K Q^T (line 11) and dP^T = V dO^T (line 13): 64 kv rows x 64
+        // q columns, k over head_dim in two swizzled halves.
+        wgmma_fence();
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int qc = q0 + t * 8 + 2 * t4 + e;
-            float l = qc < p.Sq ? lse_row[qc] : INFINITY;
-            l = l == -INFINITY ? 0.f : l;
-            float sa = s[t][e], sb = s[t][e + 2];
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_ss_n64<0, 0>(s, sw128_desc(sK + (kk >> 2) * 16384 + w * 8192 + (kk & 3) * 32, 16),
+                             sw128_desc(cQ + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_ss_n64<0, 0>(dp, sw128_desc(sV + (kk >> 2) * 16384 + w * 8192 + (kk & 3) * 32, 16),
+                             sw128_desc(cdO + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+
+        // P^T = exp2(S^T log2(e) - lse log2(e)); element i of n-block tt is
+        // kv row kv_a (i < 2) or kv_b, q column q0 + 8 tt + 2 t4 + (i & 1).
+        // A hidden element scores kHidden: P^T is exp(mask - lse), 1 on a row
+        // that sees no key.
+        const float* cl = sLse + stage * BM;
+        const float* cd = sDelta + stage * BM;
+        const int* cq = sQid + stage * BM;
+#pragma unroll
+        for (int tt = 0; tt < 8; ++tt) {
+          const int cc = tt * 8 + 2 * t4;
+          const float2 l2 = *reinterpret_cast<const float2*>(cl + cc);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float x = s[4 * tt + i];
             if (masked) {
-              bool va = visible(p, qc + p.q_offset, kv_a);
-              bool vb = visible(p, qc + p.q_offset, kv_b);
-              if (SEG) {
-                const int qid = cQid[t * 8 + 2 * t4 + e];
-                va = va && qid == kvid[0];
-                vb = vb && qid == kvid[1];
-              }
-              if (!va) sa = kMaskValue;
-              if (!vb) sb = kMaskValue;
+              bool v = visible(p, q0 + cc + (i & 1) + p.q_offset, i < 2 ? kv_a : kv_b);
+              if (SEG) v = v && cq[cc + (i & 1)] == kvid[i >> 1];
+              if (!v) x = kHidden;
             }
-            s[t][e] = expf(sa - l);
-            s[t][e + 2] = expf(sb - l);
+            s[4 * tt + i] = exp2f(fmaf(x, kLog2e, -((i & 1) ? l2.y : l2.x)));
           }
-          sP[(wr * NT_Q + t) * 32 + lane] = make_float4(s[t][0], s[t][1], s[t][2], s[t][3]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          pP[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+          pP[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+          pP[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+          pP[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+        // dV += P^T dO (line 12): k over the tile's 64 q rows.
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128(dv, pP[kk], sw128_desc(cdO + kk * 2048, 8192));
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(dp);
+
+        // dS^T = P^T o (dP^T - delta) (line 14), rounded to bf16.
+#pragma unroll
+        for (int tt = 0; tt < 8; ++tt) {
+          const float2 d2 = *reinterpret_cast<const float2*>(cd + tt * 8 + 2 * t4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dp[4 * tt + i] = s[4 * tt + i] * (dp[4 * tt + i] - ((i & 1) ? d2.y : d2.x));
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          pS[kk][0] = pack_bf16(dp[8 * kk], dp[8 * kk + 1]);
+          pS[kk][1] = pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
+          pS[kk][2] = pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
+          pS[kk][3] = pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
+        }
+        // dK += dS^T Q (line 16).
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128(dk, pS[kk], sw128_desc(cQ + kk * 2048, 8192));
+        wgmma_commit();
+        if (DQ) {
+#pragma unroll
+          for (int tt = 0; tt < 8; ++tt) {
+            st_shared(ds_at ^ (tt << 4), pS[tt >> 1][(tt & 1) * 2]);
+            st_shared((ds_at ^ (tt << 4)) + 1024, pS[tt >> 1][(tt & 1) * 2 + 1]);
+          }
+        }
+        wgmma_wait<0>();  // dV and dK: P^T and dS^T are free
+        fence_regs(dv);
+        fence_regs(dk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          fence_regs(pP[kk]);
+          fence_regs(pS[kk]);
         }
       }
-      __syncthreads();  // P^T is in shared memory
-
-      if (!owns_dv) {
-        // dS^T = P^T o (dP^T - delta) (line 14), then bf16 dS^T for dQ.
-        const float* delta_row = p.delta + bh * p.Sq;
+      mbar_arrive(&empty[stage]);  // this stage's Q, dO, lse, delta and ids are read
+      if (DQ && (vis0 || vis1)) {
+        // dQ_i += dS K_j (line 15) over the pair's 128 kv rows, both
+        // warpgroups, each a half of head_dim; a hidden tile's dS rows are
+        // zeros.
+        if (!mine) {
 #pragma unroll
-        for (int t = 0; t < NT_Q; ++t) {
-          const float4 pv = sP[(wr * NT_Q + t) * 32 + lane];
-          const int qc = q0 + t * 8 + 2 * t4;
-          const float d0 = qc < p.Sq ? delta_row[qc] : 0.f;
-          const float d1 = qc + 1 < p.Sq ? delta_row[qc + 1] : 0.f;
-          s[t][0] = pv.x * (s[t][0] - d0);
-          s[t][1] = pv.y * (s[t][1] - d1);
-          s[t][2] = pv.z * (s[t][2] - d0);
-          s[t][3] = pv.w * (s[t][3] - d1);
-          if (DQ) {
-            *reinterpret_cast<unsigned*>(sdS + (wr * 16 + g8) * DS_STRIDE + t * 8 + 2 * t4) =
-                pack_bf16(s[t][0], s[t][1]);
-            *reinterpret_cast<unsigned*>(sdS + (wr * 16 + g8 + 8) * DS_STRIDE + t * 8 + 2 * t4) =
-                pack_bf16(s[t][2], s[t][3]);
+          for (int tt = 0; tt < 8; ++tt) {
+            st_shared(ds_at ^ (tt << 4), 0u);
+            st_shared((ds_at ^ (tt << 4)) + 1024, 0u);
           }
         }
-      }
-
-      // Phase 2: dV += P^T dO (line 12) or dK += dS^T Q (line 16); the A
-      // operand comes from the registers as bf16 fragments, the B operand
-      // (q rows x head_dim) from shared memory through ldmatrix.trans.
-      {
-        const __nv_bfloat16* b_src = owns_dv ? cdO : cQ;
+        fence_async_smem();
+        named_sync(1, kConsumers);  // both tiles' dS are in the buffer
+        float dq[32];
+        wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BM / 16; ++kk) {
-          const unsigned a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                 pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                 pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                 pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-          for (int dp = 0; dp < NT_D / 2; ++dp) {
-            unsigned bfr[4];
-            ldmatrix_x4_trans(bfr, b_src + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STRIDE +
-                                       dp * 16 + (lane >> 4) * 8);
-            mma_bf16(acc[2 * dp], a, bfr[0], bfr[1]);
-            mma_bf16(acc[2 * dp + 1], a, bfr[2], bfr[3]);
-          }
-        }
-      }
-
-      // Phase 3 (DQ only): dQ_i += dS K_j (line 15), all warps: warp -> 16
-      // q rows (wr) x half of head_dim (warp / 4); A = dS from the dS^T
-      // tile through ldmatrix.trans, B = K through ldmatrix.trans.
-      if (DQ) {
-        __syncthreads();  // dS^T is in shared memory
-        const int dcol0 = (warp / 4) * (D / 2);
-        float dqa[NT_DQ][4];
-#pragma unroll
-        for (int t = 0; t < NT_DQ; ++t) dqa[t][0] = dqa[t][1] = dqa[t][2] = dqa[t][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) {
-          unsigned a[4];
-          ldmatrix_x4_trans(a, sdS + (kk * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * DS_STRIDE +
-                                   wr * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-          for (int dp = 0; dp < NT_DQ / 2; ++dp) {
-            unsigned bfr[4];
-            ldmatrix_x4_trans(bfr, sK + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STRIDE +
-                                       dcol0 + dp * 16 + (lane >> 4) * 8);
-            mma_bf16(dqa[2 * dp], a, bfr[0], bfr[1]);
-            mma_bf16(dqa[2 * dp + 1], a, bfr[2], bfr[3]);
-          }
-        }
-        const long long rs = static_cast<long long>(p.Hq) * D;
-        float* dqg = p.dq + static_cast<long long>(b) * p.Sq * rs + h * D + dcol0 + 2 * t4;
-        const int qa = q0 + wr * 16 + g8, qb = qa + 8;
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_ss_n64<1, 1>(dq, sw128_desc(cdS + kk * 2048, 8192),
+                             sw128_desc(sK + w * 16384 + kk * 2048, 8192), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
         if (p.dq != nullptr) {
+          // Stage this warpgroup's 64 x 64 f32 half for its writer warp.
+          mbar_wait(&dq_empty[w], (n_dq & 1) ^ 1);
+          const uint32_t at = stg + ((wq * 16 + g8) * kDqRow + 2 * t4) * 4;
 #pragma unroll
-          for (int t = 0; t < NT_DQ; ++t) {
-            if (qa < p.Sq) {
-              atomicAdd(dqg + qa * rs + t * 8, dqa[t][0]);
-              atomicAdd(dqg + qa * rs + t * 8 + 1, dqa[t][1]);
-            }
-            if (qb < p.Sq) {
-              atomicAdd(dqg + qb * rs + t * 8, dqa[t][2]);
-              atomicAdd(dqg + qb * rs + t * 8 + 1, dqa[t][3]);
-            }
+          for (int tt = 0; tt < 8; ++tt) {
+            st_shared(at + tt * 32, dq[4 * tt], dq[4 * tt + 1]);
+            st_shared(at + 8 * kDqRow * 4 + tt * 32, dq[4 * tt + 2], dq[4 * tt + 3]);
           }
+          if (t == 0) dq_meta[w] = make_int2(q0, h);
+          fence_async_smem();
+          mbar_arrive(&dq_full[w]);
+        }
+        ++n_dq;
+      }
+    }
+    if (DQ && p.dq != nullptr) {  // end the writer's walk
+      mbar_wait(&dq_empty[w], (n_dq & 1) ^ 1);
+      if (t == 0) dq_meta[w] = make_int2(-1, -1);
+      mbar_arrive(&dq_full[w]);
+    }
+
+    // dK and dV of the tile, summed over the group's q heads: written once.
+    if (w == 0 || has1) {
+      const long long rs = static_cast<long long>(p.Hkv) * 128;
+      const long long base = static_cast<long long>(b) * p.Skv * rs + hk * 128 + 2 * t4;
+#pragma unroll
+      for (int tt = 0; tt < 16; ++tt) {
+        if (kv_a < p.Skv) {
+          *reinterpret_cast<float2*>(p.dv + base + kv_a * rs + tt * 8) = make_float2(dv[4 * tt], dv[4 * tt + 1]);
+          *reinterpret_cast<float2*>(p.dk + base + kv_a * rs + tt * 8) = make_float2(dk[4 * tt], dk[4 * tt + 1]);
+        }
+        if (kv_b < p.Skv) {
+          *reinterpret_cast<float2*>(p.dv + base + kv_b * rs + tt * 8) = make_float2(dv[4 * tt + 2], dv[4 * tt + 3]);
+          *reinterpret_cast<float2*>(p.dk + base + kv_b * rs + tt * 8) = make_float2(dk[4 * tt + 2], dk[4 * tt + 3]);
         }
       }
-      __syncthreads();  // this stage, P^T and dS^T are refilled next
-      it = nxt;
     }
   }
-
-  // dK and dV of the tile, summed over the group's q heads: written once.
-  const long long rs = static_cast<long long>(p.Hkv) * D;
-  float* out = (owns_dv ? p.dv : p.dk) + static_cast<long long>(b) * p.Skv * rs + hk * D +
-               2 * t4;
-#pragma unroll
-  for (int t = 0; t < NT_D; ++t) {
-    if (kv_a < p.Skv)
-      *reinterpret_cast<float2*>(out + kv_a * rs + t * 8) = make_float2(acc[t][0], acc[t][1]);
-    if (kv_b < p.Skv)
-      *reinterpret_cast<float2*>(out + kv_b * rs + t * 8) = make_float2(acc[t][2], acc[t][3]);
-  }
 }
 
 template <int D, bool SEG, bool DENSE>
-__global__ void __launch_bounds__(kThreads, 1) fa2_bwd_fused_kernel(const BwdParams p) {
-  kv_stationary<D, true, SEG, DENSE>(p);
+__global__ void __launch_bounds__(kKvThreads, 1)
+    fa2_bwd_fused_kernel(const BwdParams p, const __grid_constant__ KvMaps maps) {
+  static_assert(D == 128, "the KV-stationary kernels take head_dim 128");
+  kv_stationary<true, SEG, DENSE>(p, maps);
 }
 
 template <int D, bool SEG, bool DENSE>
-__global__ void __launch_bounds__(kThreads, 1) fa2_bwd_dkv_kernel(const BwdParams p) {
-  kv_stationary<D, false, SEG, DENSE>(p);
+__global__ void __launch_bounds__(kKvThreads, 1)
+    fa2_bwd_dkv_kernel(const BwdParams p, const __grid_constant__ KvMaps maps) {
+  static_assert(D == 128, "the KV-stationary kernels take head_dim 128");
+  kv_stationary<false, SEG, DENSE>(p, maps);
 }
 
-template <int D, bool DQ, bool SEG>
-size_t kv_stationary_smem_bytes() {
-  return static_cast<size_t>(2 * kBlockN + 4 * kBlockM) * (D + 8) * sizeof(__nv_bfloat16) +
-         (DQ ? static_cast<size_t>(kBlockN) * (kBlockM + 8) * sizeof(__nv_bfloat16) : 0) +
-         static_cast<size_t>(4 * (kBlockM / 8) * 32) * sizeof(float4) +
-         (SEG ? 2 * kBlockM * sizeof(int) : 0);
-}
 
 // --------------------------------------------------------------------- dq
 
@@ -912,13 +1295,73 @@ bool schedule_args_ok(const BwdParams& p, int dense) {
   return p.table != nullptr && (p.q_seg == nullptr || p.bits != nullptr);
 }
 
-// The KV-stationary kernels (fused: DQ) of one (SEG, DENSE) pair.
+// cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The (D, H, S, B) map of a strided bf16 tensor (B, S, H, D) with unit last
+// stride: boxes of 64 columns x `rows` rows of one head, 128-byte swizzled,
+// rows past S read as zeros. The strides (elements) are multiples of 8 and
+// the base 16-byte aligned (the wrapper checks both), as TMA needs.
+bool make_map(CUtensorMap* map, const void* base, int B, int S, int H, long long sb, long long ss,
+              long long sh, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool make_kv_maps(KvMaps* maps, const BwdParams& p, int batch) {
+  return make_map(&maps->q, p.q, batch, p.Sq, p.Hq, p.q_sb, p.q_ss, p.q_sh, kBlockM) &&
+         make_map(&maps->dout, p.dout, batch, p.Sq, p.Hq, p.d_sb, p.d_ss, p.d_sh, kBlockM) &&
+         make_map(&maps->k, p.k, batch, p.Skv, p.Hkv, p.k_sb, p.k_ss, p.k_sh, kPairRows) &&
+         make_map(&maps->v, p.v, batch, p.Skv, p.Hkv, p.v_sb, p.v_ss, p.v_sh, kPairRows);
+}
+
+// The KV-stationary kernels (fused: DQ) of one (SEG, DENSE) pair: one CTA
+// per (pair of kv tiles, batch * kv head).
 template <bool DQ, bool SEG, bool DENSE>
 cudaError_t launch_kv(const BwdParams& p, int batch, int t_kv, void* stream) {
+  KvMaps maps;
+  if (!make_kv_maps(&maps, p, batch)) return cudaErrorInvalidValue;
   auto kernel = DQ ? fa2_bwd_fused_kernel<128, SEG, DENSE> : fa2_bwd_dkv_kernel<128, SEG, DENSE>;
-  return launch(kernel, p, dim3(batch * p.Hkv, t_kv), kThreads,
-                kv_stationary_smem_bytes<128, DQ, SEG>(), stream);
+  const size_t smem = KvSmem<DQ>::BYTES + 1024;  // + the 1024-byte alignment of the base
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(batch * p.Hkv, (t_kv + 1) / 2), kKvThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(p, maps);
+  return cudaGetLastError();
 }
+
 
 template <bool DQ>
 cudaError_t dispatch_kv(const BwdParams& p, int batch, int t_kv, bool seg, bool dense,

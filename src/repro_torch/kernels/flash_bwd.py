@@ -20,12 +20,13 @@ The TPU kernel runs a sequential kv-major grid and uses each q tile's first
 visit to zero its f32 dq block and compute its delta into VMEM scratch. On
 Hopper the kv-tile CTAs run in parallel and in no order, so nothing marks a
 first visit: delta is this pre-pass, and dq is an f32 buffer that the
-wrapper zeroes and every CTA ``atomicAdd``s its dS K contribution into (the
-paper's own choice). dK and dV need no atomics: a CTA owns one kv tile and
-loops over the G q heads that share it and their visible q tiles
-(``schedule.build_kv_tile_schedule``). The sums in dq come in no fixed
-order, so dq is not bitwise reproducible from run to run; it is held to
-``allclose``. The split kernels write every output element exactly once,
+wrapper zeroes and every CTA adds its dS K contribution into, a 64-row tile
+at a time by bulk reduction (``cp.reduce.async.bulk``). dK and dV need no
+atomics: a CTA owns a pair of kv tiles and walks the G q heads that share
+them and, per head, the union of the two tiles' visible q tiles
+(``schedule.build_kv_tile_schedule``, ``schedule.pair_walk``), on wgmma with
+TMA loads. The sums in dq come in no fixed order, so dq is not bitwise
+reproducible from run to run; it is held to ``allclose``. The split kernels write every output element exactly once,
 zeros included where a tile sees nothing, so their outputs need no
 zeroing. The sources are ``csrc/flash_bwd.cu``; its header says what
 bounds each kernel on an H100 and how the design answers.
@@ -55,7 +56,8 @@ kernel every kv tile, ascending), fetch it, classify it in the kernel
 (``flash_fwd.visibility``) and skip the products of an empty one. The
 visible tiles come in the compact order with the compact mask decisions,
 so dense dK/dV and split dQ are the compact kernels' to the bit; the dense
-fused dQ, summed by atomics, agrees up to their order.
+fused dQ, summed by bulk reductions in no fixed order, agrees up to that
+order.
 
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
@@ -225,7 +227,7 @@ def _fused(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv, 
                                      **_plain_kw(segments, block_q, block_kv, schedule))
     _check_device(wrapper.__name__, q)
     B, Sq, Hq, D = q.shape
-    # dq is summed into by every kv tile's CTA; dk and dv are written once.
+    # dq is summed into by every kv-tile pair's CTA; dk and dv are written once.
     dq = torch.zeros((B, Sq, Hq, D), dtype=torch.float32, device=q.device)
     dk, dv = _launch_fused(q, k, v, do, lse, delta, spec, block_q, block_kv, dq, segments,
                            schedule)
@@ -273,7 +275,8 @@ def _dq(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv, sch
 def _launch_fused(q, k, v, do, lse, delta, spec, block_q, block_kv, dq, segments=None,
                   schedule="compact"):
     """Launch the fused kernel; returns (dk, dv). ``dq`` None launches the
-    timing variant that computes dS K but skips its atomics into dq."""
+    timing variant that computes dS K but skips its staging and bulk
+    reduction into dq."""
     # lse, delta and ``held`` (segment ids, step bits) stay alive until the launch.
     lse, delta = lse.contiguous(), delta.contiguous()
     args, held = _kernel_args("the CUDA fused backward", q, k, v, do, lse, delta, spec,

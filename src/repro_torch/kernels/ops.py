@@ -108,7 +108,7 @@ def _prep(q: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 # Backward modes. "fused" is the one-pass kernel (the JAX default): dq by
-# f32 atomics, so not bitwise reproducible. "split" is the deterministic
+# f32 bulk reductions in no fixed order, so not bitwise reproducible. "split" is the deterministic
 # mode: the delta pre-pass, then the KV-stationary dK/dV kernel, then the
 # Q-stationary dQ kernel, each output written once with no atomics. The JAX
 # wrapper also falls back to "split" when the fused kernel's per-q-tile

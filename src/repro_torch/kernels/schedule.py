@@ -18,12 +18,13 @@ Two orientations, as in the JAX package:
     the split backward, owns a q tile and streams its visible kv tiles. A
     q tile with no visible kv tile (the TPU table's placeholder step)
     needs no entry: its CTA writes its zeros and stops.
-  * kv-major (:func:`build_kv_tile_schedule`): a backward CTA owns a kv
-    tile and streams its visible q tiles. The TPU's kv-major table also
-    carries QFIRST/QLAST bits and placeholder steps for q tiles no step
-    visits, which its fused kernel needs to zero dq and compute delta at a
-    first visit; on Hopper the wrapper zeroes dq and delta is a pre-pass,
-    so the CSR holds the visible pairs only.
+  * kv-major (:func:`build_kv_tile_schedule`): a backward CTA owns a pair
+    of kv tiles and streams the union of their visible q tiles
+    (:func:`pair_walk`). The TPU's kv-major table also carries
+    QFIRST/QLAST bits and placeholder steps for q tiles no step visits,
+    which its fused kernel needs to zero dq and compute delta at a first
+    visit; on Hopper the wrapper zeroes dq and delta is a pre-pass, so the
+    CSR holds the visible pairs only.
 
 The split-KV forward (``kv_splits > 1``, the counterpart of
 ``build_partitioned_schedule`` :283 with one band) cuts each q tile's list
@@ -197,6 +198,42 @@ def build_split_schedule(
         masked=np.asarray(masked, bool),
         splits=ks,
     )
+
+
+class PairStep(NamedTuple):
+    """One step of :func:`pair_walk`: q head ``head`` of the group, q tile
+    ``q_tile``, and per tile of the pair the CSR entry that names this step
+    (-1 where the tile does not take it)."""
+
+    head: int
+    q_tile: int
+    entries: tuple  # (entry of tile 2 * pair, entry of tile 2 * pair + 1)
+
+
+def pair_walk(csr: TileCSR, pair: int, group: int, bits=None) -> list:
+    """The walk of the KV-stationary backward CTA that owns kv tiles
+    ``2 * pair`` and ``2 * pair + 1`` of the kv-major ``csr``, as
+    ``PairWalk`` in ``csrc/flash_bwd.cu`` builds it on the device: for each
+    of the ``group`` q heads in order, the ascending union of the two
+    tiles' slices. ``bits`` (one batch row of :func:`segment_step_bits`,
+    indexed by entry) drops an entry without ``SEG_ACTIVE``, and a step
+    that neither tile takes. A missing second tile (odd ``t_kv``) has an
+    empty slice."""
+    t_kv = len(csr.row_ptr) - 1
+    slices = [range(csr.row_ptr[j], csr.row_ptr[j + 1]) if j < t_kv else range(0)
+              for j in (2 * pair, 2 * pair + 1)]
+    steps = []
+    for g in range(group):
+        by_q: dict = {}
+        for x, entries in enumerate(slices):
+            for e in entries:
+                by_q.setdefault(int(csr.inner[e]), [-1, -1])[x] = e
+        for q_tile in sorted(by_q):
+            taken = tuple(e if e >= 0 and (bits is None or bits[e] & SEG_ACTIVE) else -1
+                          for e in by_q[q_tile])
+            if taken != (-1, -1):
+                steps.append(PairStep(g, q_tile, taken))
+    return steps
 
 
 class DeviceCSR(NamedTuple):

@@ -34,7 +34,7 @@ O_TOL, LSE_TOL = 2e-2, 1e-3
 DELTA_TOL = 1e-4
 # f32 gradients, relative to the largest |gradient| of the tensor: the kernel
 # and its plain version round P and dS to bf16 at the same places, so the
-# differences are summation order, the atomics' order in the fused dq, and
+# differences are summation order, the order of the fused dq's adds, and
 # a value that lands one bf16 ulp apart.
 GRAD_REL_TOL = 1e-2
 
@@ -128,31 +128,61 @@ def test_delta_kernel_matches_plain(cuda, B, S):
 
 
 # The backward kernels' cases: GQA and MHA, ragged lengths, a window with
-# sinks, non-causal, and rows that see no key.
+# sinks, non-causal, and rows that see no key: whole q tiles (q_offset
+# -128) and, off the tile grid (q_offset -100), rows 64-99 of a tile the
+# kernels visit, whose lse is the finite mask value. The KV-stationary kernels run
+# one CTA per pair of kv tiles, so also: an odd number of kv tiles (the last
+# CTA holds one tile: S = 700 and 333 at G = 1 and 4; 64 < S <= 128 is one
+# whole pair), and in every causal case the pair's second tile is hidden at
+# the pair's first q tile. "strided": q, k, v and dO are views through
+# strides (a head slice, a packed kv tensor, a transposed dO), as TMA reads
+# them.
 BWD_CASES = [
-    (1, 64, 32, 8, dict(causal=True)),
-    (2, 700, 32, 8, dict(causal=True)),
-    (1, 256, 8, 8, dict(causal=True)),
-    (1, 333, 32, 8, dict(causal=True, window=100, sink=4)),
-    (2, 200, 16, 4, dict(causal=False)),
-    (1, 300, 32, 8, dict(causal=True, q_offset=-128)),  # rows 0-127 see nothing
+    (1, 64, 32, 8, dict(causal=True), "contiguous"),
+    (2, 700, 32, 8, dict(causal=True), "contiguous"),
+    (1, 256, 8, 8, dict(causal=True), "contiguous"),
+    (1, 333, 32, 8, dict(causal=True, window=100, sink=4), "contiguous"),
+    (2, 200, 16, 4, dict(causal=False), "contiguous"),
+    (1, 300, 32, 8, dict(causal=True, q_offset=-128), "contiguous"),  # rows 0-127 see nothing
+    (1, 300, 32, 8, dict(causal=True, q_offset=-100), "contiguous"),  # rows 0-99 see nothing
+    (1, 700, 8, 8, dict(causal=True), "contiguous"),
+    (2, 333, 32, 8, dict(causal=True), "contiguous"),
+    (1, 128, 32, 8, dict(causal=True), "contiguous"),
+    (1, 700, 32, 8, dict(causal=True, window=256), "contiguous"),
+    (2, 700, 32, 8, dict(causal=True), "strided"),
+    (1, 333, 8, 8, dict(causal=True, window=100, sink=4), "strided"),
 ]
 
 
-def _bwd_inputs(cuda, B, S, Hq, Hkv, spec):
+def _bwd_inputs(cuda, B, S, Hq, Hkv, spec, view="contiguous"):
     gen = torch.Generator(device=cuda).manual_seed(3)
     q = ops._prep(_randn(gen, (B, S, Hq, 128), cuda), 1 / math.sqrt(128))
     k, v = _randn(gen, (B, S, Hkv, 128), cuda), _randn(gen, (B, S, Hkv, 128), cuda)
     do = _randn(gen, (B, S, Hq, 128), cuda)
+    if view == "strided":
+        wide = torch.zeros((B, S, 2 * Hq, 128), dtype=q.dtype, device=cuda)
+        wide[:, :, Hq:] = q
+        kv = torch.stack((k, v), dim=2)  # (B, S, 2, Hkv, 128)
+        q, k, v = wide[:, :, Hq:], kv[:, :, 0], kv[:, :, 1]
+        do = do.transpose(1, 2).contiguous().transpose(1, 2)  # head stride > row stride
+        assert not any(x.is_contiguous() for x in (q, k, v, do))
     o, lse = fwd_mod.flash_fwd(q, k, v, spec, block_q=64, block_kv=64)
     return q, k, v, do, lse, bwd_mod.flash_bwd_delta(o, do)
 
 
+def _unseen_rows(spec):
+    """The q rows of whole tiles that see no key (q_offset < 0): no CTA
+    visits them, so their dq is 0. A row that sees no key inside a visited
+    tile is not among them: its P is 1 (the finite mask value), as in the
+    plain version, and its dq need not be 0."""
+    return max(-spec.q_offset, 0) // 64 * 64
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,Hq,Hkv,spec", BWD_CASES)
-def test_fused_backward_kernel_matches_plain(cuda, B, S, Hq, Hkv, spec):
+@pytest.mark.parametrize("B,S,Hq,Hkv,spec,view", BWD_CASES)
+def test_fused_backward_kernel_matches_plain(cuda, B, S, Hq, Hkv, spec, view):
     spec = MaskSpec(**spec)
-    args = (*_bwd_inputs(cuda, B, S, Hq, Hkv, spec), spec)
+    args = (*_bwd_inputs(cuda, B, S, Hq, Hkv, spec, view), spec)
     before = bwd_mod.flash_bwd_fused.launches
     got = bwd_mod.flash_bwd_fused(*args, block_q=64, block_kv=64)
     torch.cuda.synchronize()
@@ -160,19 +190,21 @@ def test_fused_backward_kernel_matches_plain(cuda, B, S, Hq, Hkv, spec):
     want = bwd_mod.flash_bwd_fused_plain(*args, block_q=64, block_kv=64)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
         assert _rel_err(a, b) < GRAD_REL_TOL, name
-    if spec.q_offset < 0:
-        assert (got[0][:, :-spec.q_offset] == 0).all()
+    assert (got[0][:, :_unseen_rows(spec)] == 0).all()
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,Hq,Hkv,spec", BWD_CASES)
-def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec):
+@pytest.mark.parametrize("B,S,Hq,Hkv,spec,view", BWD_CASES)
+def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec, view):
     """dkv and dq against their plain versions; dk and dv bitwise the fused
-    kernel's (the same body without its dQ phase); dq bitwise the same from
-    a second launch (no atomics); zeros where a row sees no key."""
+    kernel's (the same body without its dQ phase), the dense schedule's and,
+    through the SEG kernels, all-ones ids' (the same walk, products and
+    order); dq bitwise the same from a second launch (no atomics); zeros
+    where a row sees no key."""
     spec = MaskSpec(**spec)
-    args = (*_bwd_inputs(cuda, B, S, Hq, Hkv, spec), spec)
+    args = (*_bwd_inputs(cuda, B, S, Hq, Hkv, spec, view), spec)
     tiles = dict(block_q=64, block_kv=64)
     before = (bwd_mod.flash_bwd_dkv.launches, bwd_mod.flash_bwd_dq.launches)
     dk, dv = bwd_mod.flash_bwd_dkv(*args, **tiles)
@@ -182,15 +214,22 @@ def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec)
     torch.cuda.synchronize()
     assert (bwd_mod.flash_bwd_dkv.launches, bwd_mod.flash_bwd_dq.launches) == (
         before[0] + 1, before[1] + 2)
+    ones = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    _, dk_fd, dv_fd = bwd_mod.flash_bwd_fused(*args, schedule="dense", **tiles)
+    dk_d, dv_d = bwd_mod.flash_bwd_dkv(*args, schedule="dense", **tiles)
+    _, dk_fs, dv_fs = bwd_mod.flash_bwd_fused_varlen(*args, ones, ones, **tiles)
+    dk_s, dv_s = bwd_mod.flash_bwd_dkv_varlen(*args, ones, ones, **tiles)
+    torch.cuda.synchronize()
     dk_p, dv_p = bwd_mod.flash_bwd_dkv_plain(*args, **tiles)
     dq_p = bwd_mod.flash_bwd_dq_plain(*args, **tiles)
     for name, a, b in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
         assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
         assert _rel_err(a, b) < GRAD_REL_TOL, name
-    assert torch.equal(dk, dk_f) and torch.equal(dv, dv_f)
+    for dk_x, dv_x in ((dk_f, dv_f), (dk_fd, dv_fd), (dk_d, dv_d), (dk_fs, dv_fs), (dk_s, dv_s)):
+        assert torch.equal(dk, dk_x) and torch.equal(dv, dv_x)
     assert torch.equal(dq, dq2)
-    if spec.q_offset < 0:
-        assert (dq[:, :-spec.q_offset] == 0).all()
+    assert (dq[:, :_unseen_rows(spec)] == 0).all()
 
 
 @pytest.mark.gpu
@@ -356,21 +395,23 @@ def _packed_ids(B, S, seed=0):
     return torch.from_numpy(ids["segment_ids"])
 
 
-def _distinct_ids(B, S):
-    """q and kv ids that differ: q rows 0-63 (a whole q tile) carry an id no
-    key has, so that tile sees nothing; the last 64 keys an id no query has,
-    so their kv tile gets zero dK and dV."""
+def _distinct_ids(B, S, hidden=64):
+    """q and kv ids that differ: q rows 0 .. hidden - 1 carry an id no key
+    has (hidden = 64: a whole q tile that sees nothing; 32: half of a tile
+    the kernels visit, rows whose lse is the finite mask value); the last 64
+    keys an id no query has, so their kv tile gets zero dK and dV."""
     q = torch.ones((B, S), dtype=torch.int32)
     q[:, S // 2:] = 2
     kv = q.clone()
-    q[:, :64] = 7
+    q[:, :hidden] = 7
     kv[:, -64:] = 9
     return q, kv
 
 
 # (B, S, Hq, Hkv, spec, ids): the training shape with the packed source's
 # ids, GQA G in {1, 4} at a ragged length, a window with sinks, non-causal,
-# and distinct q and kv ids.
+# and distinct q and kv ids ("distinct" hides a whole q tile, "half" half of
+# one).
 VARLEN_CASES = [
     (2, 2048, 32, 8, dict(causal=True), "packed"),
     (1, 700, 32, 8, dict(causal=True), "packed"),
@@ -378,6 +419,7 @@ VARLEN_CASES = [
     (1, 500, 32, 8, dict(causal=True, window=100, sink=4), "packed"),
     (2, 300, 16, 4, dict(causal=False), "packed"),
     (2, 700, 32, 8, dict(causal=True), "distinct"),
+    (2, 700, 32, 8, dict(causal=True), "half"),
 ]
 
 
@@ -385,7 +427,8 @@ def _varlen_inputs(cuda, B, S, Hq, Hkv, spec, ids):
     if ids == "packed":
         q_seg = kv_seg = _packed_ids(B, S).to(cuda)
     else:
-        q_seg, kv_seg = (x.to(cuda) for x in _distinct_ids(B, S))
+        hidden = 64 if ids == "distinct" else 32
+        q_seg, kv_seg = (x.to(cuda) for x in _distinct_ids(B, S, hidden))
     gen = torch.Generator(device=cuda).manual_seed(6)
     q = ops._prep(_randn(gen, (B, S, Hq, 128), cuda), 1 / math.sqrt(128))
     k, v = _randn(gen, (B, S, Hkv, 128), cuda), _randn(gen, (B, S, Hkv, 128), cuda)
@@ -421,6 +464,7 @@ def test_varlen_kernels_match_plain(cuda, B, S, Hq, Hkv, spec, ids):
     assert _err(lse, lse_p) < LSE_TOL
     want = bwd_mod.flash_bwd_fused_plain(*args[:7], **plain)
     for name, a, b in zip(("dq", "dk", "dv"), fused, want):
+        assert torch.isfinite(a).all(), name
         assert _rel_err(a, b) < GRAD_REL_TOL, name
     assert _rel_err(dq, bwd_mod.flash_bwd_dq_plain(*args[:7], **plain)) < GRAD_REL_TOL
     for a, b in zip((dk, dv), bwd_mod.flash_bwd_dkv_plain(*args[:7], **plain)):
@@ -437,7 +481,7 @@ def test_varlen_kernels_match_plain(cuda, B, S, Hq, Hkv, spec, ids):
 @pytest.mark.parametrize("S", [700, 2048])
 def test_all_ones_ids_are_bitwise_the_unsegmented_kernels(cuda, S):
     """One segment per row: every SEG kernel gives the unsegmented kernel's
-    outputs to the bit (the fused dq excepted: its atomics' order changes
+    outputs to the bit (the fused dq excepted: the order of its adds changes
     from launch to launch, so dq is held through the split dQ kernel)."""
     spec = MaskSpec(causal=True)
     q, k, v, do, _, _ = _varlen_inputs(cuda, 2, S, 32, 8, spec, "packed")
@@ -681,8 +725,9 @@ def test_whisper_serving_runs_through_the_kernels(cuda):
 
 # (B, S, Hq, Hkv, spec, ids): the training shape, G in {1, 4} at a ragged
 # length, a window, a window with sinks, a non-causal window, no mask (no
-# tile hidden), q_offset of either sign, then the segment variants on the
-# packed source's ids and on distinct q and kv ids.
+# tile hidden), q_offset of either sign (-100: rows that see no key in a
+# visited tile), then the segment variants on the packed source's ids and
+# on distinct q and kv ids (a whole q tile or half of one hidden).
 DENSE_CASES = [
     (2, 2048, 32, 8, dict(causal=True), None),
     (1, 700, 32, 8, dict(causal=True), None),
@@ -692,9 +737,11 @@ DENSE_CASES = [
     (2, 300, 16, 4, dict(causal=False), None),
     (1, 300, 32, 8, dict(causal=True, q_offset=100), None),
     (1, 300, 32, 8, dict(causal=True, q_offset=-128), None),
+    (1, 300, 32, 8, dict(causal=True, q_offset=-100), None),
     (2, 2048, 32, 8, dict(causal=True), "packed"),
     (1, 700, 8, 8, dict(causal=True, window=256, sink=4), "packed"),
     (2, 700, 32, 8, dict(causal=True), "distinct"),
+    (2, 700, 32, 8, dict(causal=True), "half"),
 ]
 
 
@@ -703,7 +750,7 @@ DENSE_CASES = [
 def test_dense_kernels_match_plain_and_compact(cuda, B, S, Hq, Hkv, spec, ids):
     """Each dense kernel against its plain version, and against the compact
     kernel: the forward (o, lse), dK/dV, dQ and the fused dK/dV to the bit;
-    the fused dQ (atomics in no fixed order) within the tolerance. Dense
+    the fused dQ (adds in no fixed order) within the tolerance. Dense
     launches count apart from compact ones."""
     spec = MaskSpec(**spec)
     if ids is None:
@@ -740,6 +787,7 @@ def test_dense_kernels_match_plain_and_compact(cuda, B, S, Hq, Hkv, spec, ids):
     pargs = args[:7]
     for name, a, b in zip(("dq", "dk", "dv"), got,
                           bwd_mod.flash_bwd_fused_plain(*pargs, **plain)):
+        assert torch.isfinite(a).all(), name
         assert _rel_err(a, b) < GRAD_REL_TOL, name
     for name, a, b in zip(("dk", "dv"), (dk, dv), bwd_mod.flash_bwd_dkv_plain(*pargs, **plain)):
         assert _rel_err(a, b) < GRAD_REL_TOL, name
