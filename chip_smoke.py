@@ -12,9 +12,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      nvcc's -Xptxas -v reports (and each instantiation's registers and
      spills);
   3. kernels: hold each kernel against its plain PyTorch version on the
-     card in bf16 at qwen3-8b widths, then time kernel, plain version,
+     card in bf16 at qwen3-8b widths (the forward also at odd numbers of
+     q tiles, q_offset -100, segment ids that hide half of every q tile,
+     and strided views of a fused qkv tensor, its outputs finite where the
+     plain version's are), then time kernel, plain version,
      the one PyTorch call that computes the same function (a yardstick the
-     port never calls) and the roofline bound at the main paths' shapes:
+     port never calls) and the roofline bound at the main paths' shapes
+     (the forward in turns with SDPA's forward: fwd, SDPA, SDPA, fwd):
      the forward and decode kernels at the serving path's, the backward
      kernels (delta pre-pass, fused dK/dV/dQ, and the split backward's
      dK/dV and dQ kernels, whose dK and dV must be bitwise the fused
@@ -74,7 +78,8 @@ times them: the split-KV forward at whisper's cross-attention (B = 1 and 4,
 4 prompt rows against 1500 frames, head_dim 64; the auto split count and a
 sweep, in turns with the single-pass kernel, its one-pass fold included),
 at qwen3 widths and with segments; the head_dim-64 forward at the encoder's
-shape; the head_dim-64 decode at the cross and self shapes; the SEG
+shape (dense bitwise compact, with and without segments; in turns with
+SDPA); the head_dim-64 decode at the cross and self shapes; the SEG
 (packed) decode at the qwen3 decode shape, bitwise the unsegmented kernel
 on equal ids. Then the whisper serving slice: whisper-base at its published
 widths and depth, B = 4 utterances of 1500 frames and Whisper's 4-token
@@ -264,6 +269,13 @@ def sdpa_times(torch, q, k, v, do, flush, mask=None):
     return time_ms(torch, fwd_only, 20, flush), time_ms(torch, fwd_bwd, 20, flush)
 
 
+def in_turns(torch, kernel, library, iters: int, flush):
+    """``kernel`` and ``library`` timed in turns (kernel, library, library,
+    kernel) on one card: (kernel ms, library ms, the four times rounded)."""
+    runs = [time_ms(torch, fn, iters, flush) for fn in (kernel, library, library, kernel)]
+    return (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2, [round(t, 4) for t in runs]
+
+
 def attention_bounds(pairs: int, B: int, S: int, id_bytes: int = 0) -> dict:
     """Roofline bounds (ms, what bounds) of the forward, fused, dK/dV and dQ
     kernels at qwen3 widths, B x S: ``pairs`` (q, k) pairs the mask needs
@@ -302,20 +314,61 @@ def kernel_phase(torch, dev, flush):
     def fwd_inputs(B, S):
         return ops._prep(randn(B, S, HQ, HD), scale), randn(B, S, HKV, HD), randn(B, S, HKV, HD)
 
+    def check_fwd(what, got, want):
+        """max |o - plain|, failing on a disagreement or on a non-finite
+        output where the plain version is finite."""
+        (o, lse), (o_p, lse_p) = got, want
+        eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
+        log(f"{what}: max|o-plain|={eo:.3e} (tol {FWD_TOL['o']}), "
+            f"max|lse-plain|={el:.3e} (tol {FWD_TOL['lse']})")
+        if not (eo <= FWD_TOL["o"] and el <= FWD_TOL["lse"]):
+            fail(f"{what} disagrees with its plain version")
+        if not (torch.isfinite(o).all() and torch.equal(torch.isfinite(lse),
+                                                        torch.isfinite(lse_p))):
+            fail(f"{what}: a non-finite output where the plain version is finite")
+        return eo
+
     fwd_err = 0.0
+    # S 700 and S 64 give an odd number of q tiles (the last CTA holds one),
+    # S 333 a ragged last tile of an even number.
     for B in (1, 4):
-        for S in (64, 700, 2048):
+        for S in (64, 333, 700, 2048):
             q, k, v = fwd_inputs(B, S)
-            o, lse = fwd.flash_fwd(q, k, v, spec, block_q=bq, block_kv=bk)
-            torch.cuda.synchronize()
-            o_p, lse_p = fwd.flash_fwd_plain(q, k, v, spec, block_q=bq, block_kv=bk)
-            eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
-            log(f"flash_fwd B={B} S={S} causal Hq={HQ} Hkv={HKV} D={HD}: "
-                f"max|o-plain|={eo:.3e} (tol {FWD_TOL['o']}), "
-                f"max|lse-plain|={el:.3e} (tol {FWD_TOL['lse']})")
-            if not (eo <= FWD_TOL["o"] and el <= FWD_TOL["lse"]):
-                fail(f"flash_fwd disagrees with its plain version at B={B} S={S}")
-            fwd_err = max(fwd_err, eo)
+            fwd_err = max(fwd_err, check_fwd(
+                f"flash_fwd B={B} S={S} causal Hq={HQ} Hkv={HKV} D={HD}",
+                fwd.flash_fwd(q, k, v, spec, block_q=bq, block_kv=bk),
+                fwd.flash_fwd_plain(q, k, v, spec, block_q=bq, block_kv=bk)))
+    # Rows 0-99 see no key; 64-99 sit in a q tile the CTAs visit, where the
+    # kernel gives a uniform P over the tile and lse = mask + log(64), as the
+    # plain version does.
+    q, k, v = fwd_inputs(1, 700)
+    off = MaskSpec(causal=True, q_offset=-100)
+    fwd_err = max(fwd_err, check_fwd(
+        "flash_fwd B=1 S=700 causal q_offset=-100",
+        fwd.flash_fwd(q, k, v, off, block_q=bq, block_kv=bk),
+        fwd.flash_fwd_plain(q, k, v, off, block_q=bq, block_kv=bk)))
+    # Segment ids that hide half a q tile: q rows 32-63 of each tile carry an
+    # id no key has, so they see no key inside the tiles they visit.
+    B, S = 2, 700
+    q, k, v = fwd_inputs(B, S)
+    kv_ids = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    q_ids = kv_ids.clone()
+    q_ids[:, (torch.arange(S, device=dev) % bq) >= bq // 2] = 7
+    fwd_err = max(fwd_err, check_fwd(
+        f"flash_fwd_varlen B={B} S={S} causal, ids hiding half of every q tile",
+        fwd.flash_fwd_varlen(q, k, v, spec, q_ids, kv_ids, block_q=bq, block_kv=bk),
+        fwd.flash_fwd_plain(q, k, v, spec, block_q=bq, block_kv=bk, q_seg=q_ids,
+                            kv_seg=kv_ids)))
+    # Strided views: q, k and v as head slices of one fused (B, S, Hq + 2 Hkv,
+    # D) projection, read in place through their strides by the TMA maps.
+    qkv = torch.cat([q, *fwd_inputs(B, S)[1:]], dim=2)
+    qv, kv_, vv = qkv[:, :, :HQ], qkv[:, :, HQ:HQ + HKV], qkv[:, :, HQ + HKV:]
+    if qv.is_contiguous():
+        fail("the fused qkv slices should be strided views")
+    fwd_err = max(fwd_err, check_fwd(
+        f"flash_fwd B={B} S={S} causal on strided views of a fused qkv tensor",
+        fwd.flash_fwd(qv, kv_, vv, spec, block_q=bq, block_kv=bk),
+        fwd.flash_fwd_plain(qv, kv_, vv, spec, block_q=bq, block_kv=bk)))
 
     # Decode: B=4 slots of a 2048 cache, ragged lengths including 1 and 0.
     B, S = 4, CACHE
@@ -355,13 +408,13 @@ def kernel_phase(torch, dev, flush):
     # decode tick with the slots' lengths mid-run.
     Bf, Sf = 1, 1536
     q, k, v = fwd_inputs(Bf, Sf)
-    fwd_ms = time_ms(torch, lambda: fwd.flash_fwd(q, k, v, spec, block_q=bq, block_kv=bk),
-                     20, flush)
     fwd_plain_ms = time_ms(
         torch, lambda: fwd.flash_fwd_plain(q, k, v, spec, block_q=bq, block_kv=bk), 3, flush)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    fwd_lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush)
+    fwd_ms, fwd_lib_ms, fwd_turns = in_turns(
+        torch, lambda: fwd.flash_fwd(q, k, v, spec, block_q=bq, block_kv=bk),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True,
+                                               scale=1.0), 20, flush)
     pairs = Sf * (Sf + 1) // 2
     fwd_bound, fwd_by = bound(
         4 * HD * pairs * Bf * HQ,
@@ -386,13 +439,15 @@ def kernel_phase(torch, dev, flush):
         n_pos * HKV * HD * 2 * 2 + B * HQ * HD * 2 + B * HKV * ns * G * (HD + 1) * 4 + B * 4,
     )
     log(f"flash_fwd  B={Bf} S={Sf}: kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms, "
-        f"sdpa {fwd_lib_ms:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by})")
+        f"sdpa {fwd_lib_ms:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by}); in turns (fwd, sdpa, "
+        f"sdpa, fwd) {fwd_turns}: fwd / sdpa {fwd_ms / fwd_lib_ms:.4f}")
     log(f"flash_decode B={B} S={S} lengths={lens_run.tolist()}: kernel {dec_ms:.4f} ms, "
         f"plain {dec_plain_ms:.4f} ms, sdpa {dec_lib_ms:.4f} ms, "
         f"bound {dec_bound:.4f} ms ({dec_by})")
     return {
         "flash_fwd": dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain_ms,
-                          bound_ms=fwd_bound, bound_by=fwd_by, library_ms=fwd_lib_ms),
+                          bound_ms=fwd_bound, bound_by=fwd_by, library_ms=fwd_lib_ms,
+                          sdpa_ratio_in_turns=fwd_ms / fwd_lib_ms),
         "flash_decode": dict(max_abs_err=dec_err, ms=dec_ms, plain_ms=dec_plain_ms,
                              bound_ms=dec_bound, bound_by=dec_by, library_ms=dec_lib_ms),
     }
@@ -615,10 +670,12 @@ def bwd_kernel_phase(torch, dev, flush):
     spec = MaskSpec(causal=True)
     q, k, v, do, o, lse = inputs(B, S, spec)
     delta = bwd.flash_bwd_delta(o, do)
-    fwd_ms = time_ms(torch, lambda: fwd.flash_fwd(q, k, v, spec, block_q=bq, block_kv=bk),
-                     20, flush)
     fwd_plain_ms = time_ms(
         torch, lambda: fwd.flash_fwd_plain(q, k, v, spec, block_q=bq, block_kv=bk), 3, flush)
+    # The forward and SDPA's forward in turns (fwd, sdpa, sdpa, fwd).
+    fwd_ms, fwd_lib_ms, fwd_turns = in_turns(
+        torch, lambda: fwd.flash_fwd(q, k, v, spec, block_q=bq, block_kv=bk),
+        sdpa_calls(torch, q, k, v, do)[0], 20, flush)
     delta_ms = time_ms(torch, lambda: bwd.flash_bwd_delta(o, do), 50, flush)
     delta_plain_ms = time_ms(torch, lambda: bwd.flash_bwd_delta_plain(o, do), 20, flush)
     args = (q, k, v, do, lse, delta, spec)
@@ -671,7 +728,8 @@ def bwd_kernel_phase(torch, dev, flush):
         f"schedule visits {n_vis} tiles of {bq}x{bk} = {n_vis * bq * bk} pairs "
         f"({n_vis * bq * bk / pairs:.4f}x)")
     log(f"flash_fwd  B={B} S={S}: kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms, "
-        f"sdpa {lib_fwd_ms:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by})")
+        f"sdpa fwd {fwd_lib_ms:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by}); in turns (fwd, "
+        f"sdpa fwd, sdpa fwd, fwd) {fwd_turns}: fwd / sdpa fwd {fwd_ms / fwd_lib_ms:.4f}")
     log(f"flash_bwd_delta B={B} S={S}: kernel {delta_ms:.4f} ms, plain "
         f"{delta_plain_ms:.4f} ms, bound {delta_bound:.4f} ms ({delta_by})")
     log(f"flash_bwd_fused B={B} S={S}: kernel {fused_ms:.4f} ms, plain "
@@ -712,7 +770,8 @@ def bwd_kernel_phase(torch, dev, flush):
                              split_total_ms_in_turns=split_total_ms),
         "flash_fwd_at_training_shape": dict(ms=fwd_ms, plain_ms=fwd_plain_ms,
                                             bound_ms=fwd_bound, bound_by=fwd_by,
-                                            library_ms=lib_fwd_ms),
+                                            library_ms=fwd_lib_ms,
+                                            sdpa_ratio_in_turns=fwd_ms / fwd_lib_ms),
     }
 
 
@@ -1446,7 +1505,7 @@ WH_FRAMES, WH_PROMPT, WH_CACHE, WH_TICKS, WH_B = 1500, 4, 448, 32, 4
 # Whisper's start-of-transcript sequence: <|startoftranscript|> <|en|>
 # <|transcribe|> <|notimestamps|>.
 WH_SOT = (50258, 50259, 50359, 50363)
-SPLIT_SWEEP = (2, 3, 4, 6, 8, 12, 13, 16, 24)
+SPLIT_SWEEP = (2, 3, 4, 5, 6, 8, 12, 13, 16, 17, 24)
 PREFILL_ROUNDS = 16  # whisper prefills in turns, auto splits against one
 
 
@@ -1550,8 +1609,10 @@ def whisper_kernel_phase(torch, dev, flush):
                         single_pass_ms=single_ms, sweep={str(n): t for n, t in sweep.items()})
     out["flash_fwd_splitkv"] = dict(split[4], at_batch_1=split[1])
 
-    # Held at qwen3 widths (head_dim 128, G = 4), and causal with q tiles.
-    for B, Sq_, Skv_, spec in ((1, 64, 2048, full), (2, 300, 300, MaskSpec(causal=True))):
+    # Held at qwen3 widths (head_dim 128, G = 4), and causal with q tiles
+    # (t_q = 3: the second pair of q tiles holds one).
+    for B, Sq_, Skv_, spec in ((1, 64, 2048, full), (2, 300, 300, MaskSpec(causal=True)),
+                               (1, 150, 1000, MaskSpec(causal=True, q_offset=850))):
         q, k, v = qkv(B, Sq_, Skv_, HQ, HKV, HD)
         ks = max(ops.resolve_kv_splits(None, q.shape, k.shape), 3)
         got = fwd.flash_fwd_splitkv(q, k, v, spec, kv_splits=ks, **tiles)
@@ -1619,15 +1680,30 @@ def whisper_kernel_phase(torch, dev, flush):
         if not (eo <= FWD_TOL["o"] and el <= FWD_TOL["lse"]):
             fail("flash_fwd at head_dim 64 disagrees with its plain version")
         err = max(err, eo)
-    fwd_ms = time_ms(torch, lambda: fwd.flash_fwd(q, k, v, full, **tiles), 20, flush)
+    # The dense schedule at head_dim 64: the compact kernel's o and lse to the
+    # bit, without and with segments (the packed source's ids).
+    wh_ids = torch.from_numpy(packed_ids(B, S)).to(dev)
+    for spec in (full, MaskSpec(causal=True)):
+        for seg in ((), (wh_ids, wh_ids)):
+            f = fwd.flash_fwd_varlen if seg else fwd.flash_fwd
+            (o_d, l_d), (o_c, l_c) = (f(q, k, v, spec, *seg, schedule=sch, **tiles)
+                                      for sch in ("dense", "compact"))
+            same = torch.equal(o_d, o_c) and torch.equal(l_d, l_c)
+            log(f"flash_fwd{'_varlen' if seg else ''} (head_dim 64) B={B} S={S} "
+                f"{'causal' if spec.causal else 'FULL'}: dense bitwise the compact kernel: {same}")
+            if not same:
+                fail("the dense forward at head_dim 64 is not the compact one")
+    fwd_ms, lib_ms, turns = in_turns(torch, lambda: fwd.flash_fwd(q, k, v, full, **tiles),
+                                     sdpa(q, k, v), 20, flush)
     plain_ms = time_ms(torch, lambda: fwd.flash_fwd_plain(q, k, v, full, **tiles), 2, flush)
-    lib_ms = time_ms(torch, sdpa(q, k, v), 20, flush)
     b_ms, b_by = bound(4 * S * S * WH_D * B * WH_H,
                        4 * B * S * WH_H * WH_D * 2 + B * WH_H * S * 4)
     log(f"flash_fwd (head_dim 64) B={B} S={S} FULL: kernel {fwd_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); in turns "
+        f"(fwd, sdpa, sdpa, fwd) {turns}: fwd / sdpa {fwd_ms / lib_ms:.4f}")
     out["flash_fwd_hd64"] = dict(max_abs_err=err, ms=fwd_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=lib_ms)
+                                 bound_by=b_by, library_ms=lib_ms,
+                                 sdpa_ratio_in_turns=fwd_ms / lib_ms)
 
     # --- the head_dim-64 decode: cross-attention (1500 frames, all visible)
     # and self-attention (a 448 cache, the lengths of the serving run)
@@ -2335,8 +2411,8 @@ def main() -> None:
     for src in sources:
         log(f"ptxas report of csrc/{src}.cu:\n{_build.report_path(src).read_text()}")
     log("ptxas, registers and spills by kernel instantiation (registers at entry; the "
-        "KV-stationary backward's warpgroups then run at 24 (producer) and 240 (consumers) by "
-        "setmaxnreg):\n" + ptxas_summary(_build, sources))
+        "forward's and the KV-stationary backward's warpgroups then run at 24 (producer) and "
+        "240 (consumers) by setmaxnreg):\n" + ptxas_summary(_build, sources))
 
     scratch = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     results = kernel_phase(torch, dev, scratch.zero_)

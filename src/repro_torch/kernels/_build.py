@@ -1,8 +1,9 @@
 """Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles alone into
-``build/lib<name>-<hash>.so`` (the hash is of the source, so an edited
-source rebuilds). The build happens at first use, never at import, and
+``build/lib<name>-<hash>.so``. The hash is of the source and of every
+``csrc/*.cuh`` header (the Hopper helpers of ``sm90.cuh``), so an edit to
+either rebuilds. The build happens at first use, never at import, and
 needs ``nvcc``; the build directory is git-ignored. A plain C interface
 keeps PyTorch's headers out of the compile, which keeps a build to seconds.
 
@@ -45,9 +46,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def report_path(name: str) -> Path:

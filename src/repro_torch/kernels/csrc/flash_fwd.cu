@@ -1,103 +1,145 @@
 // FlashAttention-2 forward for Hopper (sm_90a), bf16 in, f32 softmax.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_fwd.py:354
-// flash_fwd: its compact body _fwd_kernel_compact (:248) and the banded
-// launch _flash_fwd_partitioned (:510) with kv_splits == 1. On the TPU the
-// q tiles are dealt into bands to fill the cores; here the q tile is an
-// ordinary parallel grid axis, so one launch covers both.
+// flash_fwd: its compact body _fwd_kernel_compact (:248), its dense body
+// _fwd_kernel_dense (:206), their segment branches (:388/:478), and the
+// banded and kv-split launch _flash_fwd_partitioned (:510, body
+// _fwd_kernel_partitioned :290). On the TPU the q tiles are dealt into
+// bands to fill the cores; here the q tile is an ordinary parallel grid
+// axis, so one launch covers the bands.
 //
 // What bounds it on an H100: a causal prefill at head_dim 128 does about
 // 4 * S^2/2 * D flops per head against 2 * S * D * 2 bytes of K/V, so for
 // S in the hundreds and up it is bound by the tensor cores (989 TFLOP/s
-// bf16), not by HBM (3.35 TB/s). The design follows from that:
-//   * one CTA per (q tile of 16 * NWARPS rows, batch * q head); each warp
-//     owns 16 q rows and keeps them in registers as mma.sync A fragments;
-//   * K and V tiles of 64 rows stream through a 2-stage cp.async ring in
-//     shared memory (padded rows, conflict-free ldmatrix), so the next
-//     tile's copy overlaps this tile's two products;
-//   * S = Q K^T and O += P V run on mma.sync m16n8k16 (bf16 in, f32
-//     accumulate); P goes from the S accumulators to A fragments in
-//     registers and never touches shared memory;
-//   * the CTA reads its own list of visible kv tiles (kernels/schedule.py),
-//     so fully hidden tiles are never loaded, and only tiles flagged masked
-//     (partial under the mask, or on the ragged kv edge) apply the element
-//     mask;
-//   * online softmax in f32 with the un-rescaled accumulator (paper C1): the
-//     running max is corrected per tile and 1/l is applied once at the end.
-// It uses neither wgmma nor TMA yet; those are the next step for speed.
+// bf16), not by HBM (3.35 TB/s). Only wgmma reaches that rate, fed by TMA
+// copies that cost the SMs no instructions, with warps that wait on
+// mbarriers instead of CTA-wide barriers. The design is FlashAttention-3's
+// forward (Shah et al., 2024), built from the primitives of sm90.cuh that
+// the backward uses:
+//   * one CTA per (pair of 64-row q tiles 2m, 2m + 1, batch * q head, kv
+//     split): 384 threads, a producer warpgroup (one warp works;
+//     setmaxnreg lowers it to 24 registers) and two consumer warpgroups
+//     (raised to 240), one per q tile, each holding its 64 rows' O as an
+//     f32 wgmma accumulator in registers. High pairs (the longest causal
+//     walks) start first. An odd t_q leaves the last CTA one tile; its
+//     second warpgroup computes and writes nothing;
+//   * the producer walks the ascending union of the two q tiles' slices of
+//     the q-major CSR (with kv splits, of owners 2m ks + s and (2m + 1) ks
+//     + s; PairWalk with group 1, kernels/schedule.py pair_walk), reading
+//     each slice once, or under DENSE every kv tile, which it classifies
+//     for both q tiles. It loads the pair's Q once, then K_j and V_j of
+//     every step by TMA (boxes of 64 rows x 64 columns over 4-d (D, H, S,
+//     B) maps of the strided tensors, 128-byte swizzled, rows past the end
+//     zero-filled) into a 4-stage ring with full and empty mbarriers, and
+//     hands each step over as a record (kv tile; per q tile: takes it,
+//     needs the element mask). Under SEG, when a tile needs the element
+//     mask, its lanes copy the kv tile's 64 segment ids into the stage by
+//     cp.async, which the stage's full barrier also waits for (the id loads
+//     stay off the producer's path); a step that neither tile takes
+//     actively is never produced. The consumers read no table;
+//   * per step and consumer warpgroup: S = Q K^T (wgmma m64n64k16, Q as
+//     bf16 A fragments in registers, read once with ldmatrix, K K-major
+//     from shared memory); the element mask where the record asks for it,
+//     on the accumulator fragment (row 16 (warp % 4) + lane / 4 (+8),
+//     column 8 t + 2 (lane % 4) (+1)); the online softmax in the exp2
+//     domain, p = exp2(s log2 e - m log2 e) with one FFMA and one MUFU.EX2
+//     a score, the row sums kept per thread and reduced once at the end; P
+//     rounded to bf16 in registers as the A operand of O += P V (m64nDk16,
+//     V read MN-major). A warpgroup whose tile does not take a step only
+//     releases the stage (a decision uniform in the warpgroup);
+//   * the warpgroup overlaps its own steps (FlashAttention-3's
+//     intra-warpgroup pipelining): it issues step j's S = Q K^T and step
+//     j - 1's O += P V together, then runs step j's mask and softmax while
+//     the P V product runs, and only then rescales O and releases step
+//     j - 1's stage. When its tile skips a step it first finishes the
+//     pending product, so it never holds a stage the producer waits for;
+//   * ptxas serialises every wgmma of a kernel whose products it cannot
+//     prove warp-uniform and whose accumulators it sees defined between a
+//     product's issue and its wait. So the step record and the warpgroup
+//     index are broadcast from lane 0 (uniform branches), and every taken
+//     step issues both products, the first of a run with P = 0 (O += 0);
+//     with both in place ptxas reports no serialisation;
+//   * the epilogue applies 1/l once (paper C1), writes bf16 O through the
+//     warpgroup's own Q tile in shared memory (free by then) with 16-byte
+//     coalesced stores, and lse in natural log. No atomics: the forward is
+//     bitwise the same from run to run.
+// FlashAttention-3's ping-pong (the warpgroups taking turns at the tensor
+// cores by named barriers) was measured and not kept: it lost at head_dim
+// 128 and won a little at 64 (PERF.md).
+// What bounds it now: one CTA an SM (384 threads at 168 registers; 162 KB
+// of shared memory at head_dim 128, 82 KB at 64), so a CTA's prologue (Q's
+// and the first tiles' loads) and epilogue are not hidden behind another
+// CTA; 64-column steps (the tables' granularity), so the O rescale, the
+// waits and the record hand-over come every 64 keys; 32 KB of K and V a
+// step from L2 for 128 q rows at head_dim 128; causal pairs finish
+// unevenly in the last wave. Under SEG the producer reads each step's bits
+// from memory before it can hand the step over, which shows at head_dim 64
+// (shorter steps); a register window over the slices spilled or lost.
 //
 // Semantics match the JAX kernel: masked scores take the finite
 // DEFAULT_MASK_VALUE, K/V rows past the end read as zeros, the kv head of
 // q head h is h / group, rows that visit no tile give O = 0, lse = -inf.
+// In the exp2 domain a hidden score is kHidden (sm90.cuh), so a row that
+// sees no key inside a visited tile gets P = 1 on its 64 columns and lse =
+// DEFAULT_MASK_VALUE + log(l), and a later tile with keys rescales that by
+// exp2(kHidden log2 e - m) = 0, as the natural-log kernel does.
 //
 // Packed (varlen) batches take the SEG instantiation, which replaces the
-// segment branch of the same Pallas kernel (flash_fwd.py:388/:478,
-// fa2_fwd_compact_varlen). Beside the table it reads int32 segment ids of
-// q and kv and a (B, n_visible) table of per-step bits computed before the
-// launch (kernels/schedule.py segment_step_bits): a step without
-// SEG_ACTIVE is skipped before its tiles are prefetched, so it costs
-// neither a copy nor a product; a step applies the element mask when it is
-// flagged masked or lacks SEG_UNIFORM, and the mask then also needs
-// q_id == kv_id. The CTA's q ids sit in registers (two rows a thread), the
-// kv tile's 64 ids travel with its K/V tile through the same cp.async
-// group (256 bytes a stage). The bits are the same for the whole CTA, so
-// the barriers stay uniform. With SEG false the kernel is the one above.
+// segment branch of the same Pallas kernel (fa2_fwd_compact_varlen). Beside
+// the table it reads int32 segment ids of q and kv and a (B, n_visible)
+// table of per-step bits computed before the launch (kernels/schedule.py
+// segment_step_bits): a step without SEG_ACTIVE is dropped from its tile's
+// slice, so a step that neither tile needs costs neither a copy nor a
+// product; a step applies the element mask when it is flagged masked or
+// lacks SEG_UNIFORM, and the mask then also needs q_id == kv_id. A
+// consumer's q ids sit in registers (two rows a thread), the kv tile's ids
+// travel with its stage (256 bytes) when the step needs the mask.
 //
 // The SPLIT instantiation replaces the kv_splits > 1 mode of
-// src/repro/kernels/flash_fwd.py:510 _flash_fwd_partitioned (body
-// _fwd_kernel_partitioned :290). Its grid gains a third axis, the kv split:
-// the CTA of (q tile i, split s) reads owner i * ks + s of the split table
-// (kernels/schedule.py build_split_schedule), which holds q tile i's visible
-// kv tiles inside split s, and writes its locally normalised o and lse as
-// f32 partials (B, Hq, ks, Sq, D) / (B, Hq, ks, Sq); an owner with no step
-// writes (0, -inf), the merge identity. A second launch on the same stream,
-// fa2_fwd_fold_kernel, folds the splits in one pass (one CTA of D threads
-// per (q row, batch * q head), the logsumexp of the split lse, then
-// o = sum_s exp(lse_s - m) o_s / l) into the single-pass kernel's outputs,
-// bf16 o (B, Sq, Hq, D) and f32 lse (B, Hq, Sq). What it is for: a short query against a long
-// key set (whisper's cross-attention, 4 prompt rows against 1500 frames) is
-// one q tile, so the single-pass grid has only batch * heads CTAs (32 at
-// B = 4) on 132 SMs, each walking every kv tile in series; the work is
-// bound by the bytes of K and V (12.3 MB, 3.7 us at 3.35 TB/s), and those
-// bytes are read at the card's rate only when enough CTAs are in flight.
-// Splits multiply the CTAs by ks and cut each CTA's walk to 1/ks.
+// _flash_fwd_partitioned. Its grid gains a third axis, the kv split: the
+// CTA of (pair m, split s) walks owners 2m ks + s and (2m + 1) ks + s of
+// the split table (kernels/schedule.py build_split_schedule), and writes
+// each tile's locally normalised o and lse as f32 partials (B, Hq, ks, Sq,
+// D) / (B, Hq, ks, Sq); an owner with no step writes (0, -inf), the merge
+// identity. A second launch on the same stream, fa2_fwd_fold_kernel, folds
+// the splits in one pass (one CTA of D threads per (q row, batch * q
+// head), the logsumexp of the split lse, then o = sum_s exp(lse_s - m) o_s
+// / l) into the single-pass kernel's outputs, bf16 o (B, Sq, Hq, D) and
+// f32 lse (B, Hq, Sq). What it is for: a short query against a long key
+// set (whisper's cross-attention, 4 prompt rows against 1500 frames) is one
+// q tile, so the single-pass grid has only batch * heads CTAs (32 at B =
+// 4) on 132 SMs, each walking every kv tile in series; the work is bound by
+// the bytes of K and V, read at the card's rate only when enough CTAs are
+// in flight. Splits multiply the CTAs by ks and cut each walk to 1/ks. At
+// Sq <= 64 the pair has one tile, so half of each such CTA idles.
 //
 // The DENSE instantiation (with and without SEG; never with SPLIT, which
-// the JAX package refuses under the dense schedule, flash_fwd.py:391)
-// replaces the dense body _fwd_kernel_dense (src/repro/kernels/flash_fwd.py
-// :206, segment branch included). It reads no table: the same CTA walks
-// every kv tile j = 0 .. t_kv - 1 in ascending order, copies each tile (and
-// with SEG its ids) through the same 2-stage cp.async ring, and only after
-// the wait classifies it in the kernel, from the mask spec, q_offset and
-// the ragged kv edge (classify_tile below, the JAX _visibility :71 and
-// kernels/flash_fwd.py visibility) and with SEG from the min and max of
-// the CTA's q ids (reduced once) and of the staged kv ids (every thread
-// reads the 64 ids from shared memory, so the decision is the same in
-// every thread and the barriers stay uniform). An empty tile skips both
-// products and the softmax update; a tile that is not full applies the
-// element mask of the compact kernel. Hidden tiles are fetched on purpose:
-// the TPU dense grid DMAs every block (flash_fwd.py:27-30), and that cost
-// is what the compact schedule saves, so this instantiation is its
-// measurable baseline. The visible tiles come in the compact order with
-// the compact mask decisions, so o and lse are the compact kernel's to the
-// bit, with and without segments.
+// the JAX package refuses under the dense schedule, flash_fwd.py:391) reads
+// no table: the producer walks every kv tile j = 0 .. t_kv - 1, fetches it
+// (and with SEG its ids), and classifies it for both q tiles (classify_tile
+// below, the JAX _visibility :71 and kernels/flash_fwd.py visibility; with
+// SEG on the min and max of each q tile's ids, reduced once, and of the
+// staged kv ids). Hidden tiles are fetched on purpose: the TPU dense grid
+// DMAs every block (flash_fwd.py:27-30), and that cost is what the compact
+// schedule saves, so this instantiation is its measurable baseline. A q
+// tile takes exactly the compact walk's steps, in the same order with the
+// same mask decisions and the same products, so o and lse are the compact
+// kernel's to the bit, with and without segments.
 //
 // Head dims: every variant is instantiated at 128 (qwen3) and 64
-// (whisper). At 64 a CTA holds 46 KB of shared memory instead of 87 KB.
+// (whisper); a 64-row tile is D / 64 TMA boxes of 64 rows x 128 bytes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
-constexpr float kMaskValue = -0.7f * 3.402823466e38f;  // DEFAULT_MASK_VALUE
-constexpr int kBlockN = 64;
-constexpr int kSegActive = 1;   // schedule.SEG_ACTIVE
-constexpr int kSegUniform = 2;  // schedule.SEG_UNIFORM
-constexpr int kQPadSegment = -2;   // masks.Q_PAD_SEGMENT
-constexpr int kKvPadSegment = -1;  // masks.KV_PAD_SEGMENT
+constexpr int kBlockM = 64;             // q rows of a tile: one consumer warpgroup's
+constexpr int kBlockN = 64;             // kv rows of a step
+constexpr int kThreads = 3 * 128;       // producer warpgroup, two consumer warpgroups
+constexpr int kConsumers = 2 * 128;
+constexpr int kStages = 4;              // the K/V ring
 
 struct FwdParams {
   const __nv_bfloat16* q;
@@ -121,79 +163,37 @@ struct FwdParams {
   int n_vis;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
+// The TMA maps of one launch: q, k and v, each a 4-d (D, H, S, B) view of
+// the strided tensor, boxes of 64 rows x 64 columns, 128-byte swizzled.
+struct FwdMaps {
+  CUtensorMap q, k, v;
+};
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
-}
+// Shared memory, in bytes from a 1024-aligned base: the pair's two Q tiles,
+// the K and V stages, each stage's kv ids (SEG) and step record, then the
+// mbarriers. A 64-row tile is D / 64 boxes of 64 rows x 128 bytes (8 KB).
+template <int D>
+struct FwdSmem {
+  static constexpr uint32_t TILE = D * kBlockM * 2;
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t K = 2 * TILE;
+  static constexpr uint32_t V = K + kStages * TILE;
+  static constexpr uint32_t KID = V + kStages * TILE;
+  static constexpr uint32_t STEP = KID + kStages * kBlockN * 4;
+  static constexpr uint32_t BARS = STEP + kStages * 8;  // full, empty, q
+  static constexpr uint32_t BYTES = BARS + (2 * kStages + 1) * 8;
+};
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* smem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x, flushing results below the normal range to 0 (one MUFU.EX2).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
-}
-
-// Copy rows [row0, row0 + ROWS) of a (rows, D) slice with row stride
-// `stride` into shared memory; rows at or past `nrows` are zero-filled.
-template <int ROWS, int D, int THREADS, int STRIDE>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long stride, int row0, int nrows) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += THREADS) {
-    const int r = idx / CHUNKS, c = idx % CHUNKS;
-    const int g = row0 + r;
-    const bool valid = g < nrows;
-    const __nv_bfloat16* from = valid ? src + g * stride + c * 8 : src;
-    cp_async16(dst + r * STRIDE + c * 8, from, valid);
-  }
-}
-
-// Copy the N segment ids of rows [row0, row0 + N) into shared memory in the
-// current cp.async group; ids at or past `nrows` read as `pad`.
-template <int N, int THREADS>
-__device__ __forceinline__ void load_ids(int* dst, const int* src, int row0, int nrows,
-                                         int pad) {
-  for (int r = threadIdx.x; r < N; r += THREADS) {
-    if (row0 + r < nrows)
-      cp_async4(dst + r, src + row0 + r);
-    else
-      dst[r] = pad;
-  }
 }
 
 // (empty, needs the element mask) of the tile of q positions [q_lo, q_lo +
@@ -234,28 +234,11 @@ __device__ __forceinline__ TileClass with_ids(TileClass c, int q_lo, int q_hi, i
   return c;
 }
 
-// min and max of the N ids of rows [row0, row0 + N), rows at or past
-// `nrows` counting as `pad` (from global memory: an owner tile's ids, read
-// once by every thread).
-template <int N>
-__device__ __forceinline__ void id_range(const int* g, int row0, int nrows, int pad, int& lo,
-                                         int& hi) {
-  lo = hi = row0 < nrows ? g[row0] : pad;
-  for (int r = 1; r < N; ++r) {
-    const int id = row0 + r < nrows ? g[row0 + r] : pad;
-    lo = min(lo, id);
-    hi = max(hi, id);
-  }
-}
-
-// min and max of N staged ids in shared memory (broadcast reads).
-template <int N>
-__device__ __forceinline__ void id_range(const int* s, int& lo, int& hi) {
-  lo = hi = s[0];
-#pragma unroll 8
-  for (int r = 1; r < N; ++r) {
-    lo = min(lo, s[r]);
-    hi = max(hi, s[r]);
+__device__ __forceinline__ void warp_range(int& lo, int& hi) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
   }
 }
 
@@ -270,255 +253,407 @@ __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
   return d < p.window || col < p.sink;
 }
 
-template <int D, int NWARPS, bool SEG, bool SPLIT, bool DENSE>
-__global__ void __launch_bounds__(NWARPS * 32) fa2_fwd_kernel(const FwdParams p) {
-  constexpr int BM = 16 * NWARPS;
-  constexpr int BN = kBlockN;
-  constexpr int THREADS = NWARPS * 32;
-  constexpr int STRIDE = D + 8;  // padded row: ldmatrix rows hit distinct banks
-  constexpr int KSTEPS = D / 16;
-  constexpr int NT_S = BN / 8;
-  constexpr int NT_O = D / 8;
+// O (64 x D f32) += P (64 x 64 bf16, registers) V (64 x D, a stage, MN-major).
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&pc)[4][4],
+                                           uint32_t v) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (D == 128)
+      wgmma_rs_n128(o, pc[kk], sw128_desc(v + kk * 2048, 8192));
+    else
+      wgmma_rs_n64<1>(o, pc[kk], sw128_desc(v + kk * 2048, 8192), 1);
+  }
+}
 
+template <int D, bool SEG, bool SPLIT, bool DENSE>
+__global__ void __launch_bounds__(kThreads, 1)
+    fa2_fwd_kernel(const FwdParams p, const __grid_constant__ FwdMaps maps) {
+  static_assert(D == 64 || D == 128, "the forward takes head_dim 64 or 128");
+  using L = FwdSmem<D>;
+  constexpr bool SKIP = SEG && !DENSE;  // inactive steps are dropped before their fetch
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BM * STRIDE;      // [2][BN][STRIDE]
-  __nv_bfloat16* sV = sK + 2 * BN * STRIDE;  // [2][BN][STRIDE]
-  int* sKid = reinterpret_cast<int*>(sV + 2 * BN * STRIDE);  // SEG: [2][BN] kv ids
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_bar = empty + kStages;
+  int* sKid = reinterpret_cast<int*>(sm + L::KID);
+  // Per stage: (kv tile, step flags); a negative tile ends the walk. The
+  // producer walks and classifies; the consumers read this.
+  int2* sStep = reinterpret_cast<int2*>(sm + L::STEP);
 
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int qt = p.t_q - 1 - blockIdx.x;  // longest causal rows start first
+  const int i0 = 2 * ((p.t_q + 1) / 2 - 1 - static_cast<int>(blockIdx.x));  // longest walks first
+  const bool has1 = i0 + 1 < p.t_q;  // an odd t_q leaves the last pair one tile
   const int bh = blockIdx.y;
   const int split = SPLIT ? blockIdx.z : 0;
-  const int owner = SPLIT ? qt * p.ks + split : qt;
   const int b = bh / p.Hq, h = bh % p.Hq, hk = h / p.group;
-  const __nv_bfloat16* qg = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg = p.k + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* vg = p.v + b * p.v_sb + hk * p.v_sh;
-  const int q0 = qt * BM;
-  // The walk: the table's steps [beg, end) of this owner, or under DENSE
-  // every kv tile (step = kv tile).
-  const int beg = DENSE ? 0 : p.table[owner];
-  const int end = DENSE ? (p.Skv + BN - 1) / BN : p.table[owner + 1];
-  const int* steps = DENSE ? nullptr : p.table + p.t_q * p.ks + 1;
-  const int row_a = q0 + warp * 16 + lane / 4;  // this thread's two rows
-  const int row_b = row_a + 8;
-  // SEG: this batch row's step bits (compact), and the ids of the thread's
-  // two rows; DENSE with SEG: the range of the CTA's q ids.
-  constexpr bool SKIP = SEG && !DENSE;  // inactive steps are skipped before their fetch
-  const int* bits = SKIP ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
-  const int* kid_g = SEG ? p.kv_seg + b * p.kv_seg_sb : nullptr;
-  int qid[2] = {0, 0};
-  int qid_lo = 0, qid_hi = 0;
-  if (SEG) {
-    const int* qid_g = p.q_seg + b * p.q_seg_sb;
-    qid[0] = row_a < p.Sq ? qid_g[row_a] : kQPadSegment;
-    qid[1] = row_b < p.Sq ? qid_g[row_b] : kQPadSegment;
-    if (DENSE) id_range<BM>(qid_g, q0, p.Sq, kQPadSegment, qid_lo, qid_hi);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes; TMA bytes on top
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // The first active step at or after `it` (every step without SKIP).
-  auto next_active = [&](int it) {
-    if (SKIP)
-      while (it < end && !(bits[it] & kSegActive)) ++it;
-    return it;
-  };
-  auto tile_of = [&](int it) { return DENSE ? it : steps[it] >> 1; };
-  const int first = next_active(beg);
+  __syncthreads();
 
-  float m_r[2] = {-INFINITY, -INFINITY};
-  float l_r[2] = {0.f, 0.f};
-  float acc[NT_O][4];
-#pragma unroll
-  for (int t = 0; t < NT_O; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-
-  if (first < end) {
-    load_tile<BM, D, THREADS, STRIDE>(sQ, qg, p.q_ss, q0, p.Sq);
-    cp_async_commit();
-    const int j0 = tile_of(first);
-    load_tile<BN, D, THREADS, STRIDE>(sK, kg, p.k_ss, j0 * BN, p.Skv);
-    load_tile<BN, D, THREADS, STRIDE>(sV, vg, p.v_ss, j0 * BN, p.Skv);
-    if (SEG) load_ids<BN, THREADS>(sKid, kid_g, j0 * BN, p.Skv, kKvPadSegment);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    unsigned qf[KSTEPS][4];
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk)
-      ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * STRIDE + kk * 16 + (lane >> 4) * 8);
-
-    // With SKIP, `nxt` skips inactive steps before their tiles are fetched,
-    // and `n` counts the tiles computed (the stage alternates with it).
-    for (int it = first, n = 0; it < end; ++n) {
-      const int nxt = SKIP ? next_active(it + 1) : it + 1;
-      const int stage = SKIP ? (n & 1) : ((it - beg) & 1);
-      if (nxt < end) {
-        const int jn = tile_of(nxt);
-        load_tile<BN, D, THREADS, STRIDE>(sK + (stage ^ 1) * BN * STRIDE, kg, p.k_ss, jn * BN,
-                                          p.Skv);
-        load_tile<BN, D, THREADS, STRIDE>(sV + (stage ^ 1) * BN * STRIDE, vg, p.v_ss, jn * BN,
-                                          p.Skv);
-        if (SEG) load_ids<BN, THREADS>(sKid + (stage ^ 1) * BN, kid_g, jn * BN, p.Skv,
-                                       kKvPadSegment);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform (see rec)
+  if (wg == 0) {
+    // Producer: one warp. Q once; then, per step of the walk, K_j and V_j
+    // by TMA, the kv tile's ids by the lanes (SEG), and the step's record.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                         smem_u32(q_bar)),
+                     "r"((has1 ? 2 : 1) * L::TILE)
+                     : "memory");
+        for (int x = 0; x < (has1 ? 2 : 1); ++x)
+          for (int half = 0; half < D / 64; ++half)
+            tma_load(sm + L::Q + x * L::TILE + half * 8192, maps.q, q_bar, half * 64, h,
+                     (i0 + x) * kBlockM, b);
       }
-      __syncthreads();
-
-      const int j = tile_of(it);
-      const __nv_bfloat16* cK = sK + stage * BN * STRIDE;
-      const __nv_bfloat16* cV = sV + stage * BN * STRIDE;
-      const int* cKid = sKid + stage * BN;
-      bool masked, empty = false;
+      PairWalk<SKIP, DENSE> walk;
+      walk.group = 1;
+      walk.n_tiles = (p.Skv + kBlockN - 1) / kBlockN;
+      walk.g = 0;
       if (DENSE) {
-        TileClass c = classify_tile<BM, BN>(p.causal, p.window, p.sink, p.Skv, q0 + p.q_offset,
-                                            j * BN);
-        if (SEG) {
-          int lo, hi;
-          id_range<BN>(cKid, lo, hi);
-          c = with_ids(c, qid_lo, qid_hi, lo, hi);
-        }
-        empty = c.empty;
-        masked = c.mask;
+        walk.steps = walk.bits = nullptr;
+        walk.a0 = walk.a1 = walk.b0 = walk.b1 = 0;
       } else {
-        masked = (steps[it] & 1) || (SEG && !(bits[it] & kSegUniform));
+        const int own = i0 * p.ks + split;  // tile i0's owner; tile i0 + 1's is ks on
+        walk.steps = p.table + p.t_q * p.ks + 1;
+        walk.bits = SKIP ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
+        walk.a0 = p.table[own];
+        walk.a1 = p.table[own + 1];
+        walk.b0 = has1 ? p.table[own + p.ks] : 0;
+        walk.b1 = has1 ? p.table[own + p.ks + 1] : 0;
       }
-      if (empty) {  // DENSE: fetched, nothing to compute
-        __syncthreads();  // this stage (its ids were read) is refilled next
-        it = nxt;
+      walk.ia = walk.a0;
+      walk.ib = walk.b0;
+      const int* kid_g = SEG ? p.kv_seg + b * p.kv_seg_sb : nullptr;
+      int q_lo[2] = {0, 0}, q_hi[2] = {0, 0};  // DENSE with SEG: each q tile's id range
+      if (DENSE && SEG) {
+        const int* qid_g = p.q_seg + b * p.q_seg_sb;
+        for (int x = 0; x < 2; ++x) {
+          int lo = 0x7fffffff, hi = -0x7fffffff;
+          for (int r = (i0 + x) * kBlockM + lane; r < (i0 + x + 1) * kBlockM; r += 32) {
+            const int id = r < p.Sq ? qid_g[r] : kQPadSegment;
+            lo = min(lo, id);
+            hi = max(hi, id);
+          }
+          warp_range(lo, hi);
+          q_lo[x] = lo;
+          q_hi[x] = hi;
+        }
+      }
+      int g, j, ea, eb;
+      // (A `break` out of this loop crashes ptxas 12.9; the loop ends on `more`.)
+      bool more = true;
+      for (int n = 0; more; ++n) {
+        more = walk.next(g, j, ea, eb);
+        const int stage = n % kStages;
+        mbar_wait(&empty[stage], ((n / kStages) & 1) ^ 1);
+        if (!more) {  // the walk's end: a record with a negative tile, no copies
+          if (lane == 0) sStep[stage] = make_int2(-1, 0);
+          mbar_arrive(&full[stage]);
+          continue;
+        }
+        const int k0 = j * kBlockN;
+        if (lane == 0) {
+          mbar_expect_tx(&full[stage], 2 * L::TILE);
+          for (int half = 0; half < D / 64; ++half) {
+            tma_load(sm + L::K + stage * L::TILE + half * 8192, maps.k, &full[stage], half * 64,
+                     hk, k0, b);
+            tma_load(sm + L::V + stage * L::TILE + half * 8192, maps.v, &full[stage], half * 64,
+                     hk, k0, b);
+          }
+        }
+        // Which tiles take the step, and which need the element mask: the
+        // table's flags and step bits, or under DENSE the classifier (with
+        // SEG on both tiles' id ranges, so it reads the kv ids first).
+        int flags = 0;
+        if (DENSE) {
+          int lo = 0x7fffffff, hi = -0x7fffffff;
+          if (SEG) {
+            for (int r = lane; r < kBlockN; r += 32) {
+              const int id = k0 + r < p.Skv ? kid_g[k0 + r] : kKvPadSegment;
+              sKid[stage * kBlockN + r] = id;
+              lo = min(lo, id);
+              hi = max(hi, id);
+            }
+            warp_range(lo, hi);
+          }
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            TileClass c = classify_tile<kBlockM, kBlockN>(p.causal, p.window, p.sink, p.Skv,
+                                                          (i0 + x) * kBlockM + p.q_offset, k0);
+            if (SEG) c = with_ids(c, q_lo[x], q_hi[x], lo, hi);
+            if ((x == 0 || has1) && !c.empty)
+              flags |= (x ? kTake1 : kTake0) | (c.mask ? (x ? kMask1 : kMask0) : 0);
+          }
+        } else {
+          if (ea >= 0)
+            flags |= kTake0 | ((walk.steps[ea] & 1) || (SEG && !(walk.bits[ea] & kSegUniform))
+                                   ? kMask0 : 0);
+          if (eb >= 0)
+            flags |= kTake1 | ((walk.steps[eb] & 1) || (SEG && !(walk.bits[eb] & kSegUniform))
+                                   ? kMask1 : 0);
+          // Only the element mask reads the kv ids: copy them when a tile
+          // needs it, by cp.async, whose completion the stage's full barrier
+          // also waits for. A row past Skv reads 0; the mask hides its
+          // column anyway (visible() is false past Skv).
+          if (SEG && (flags & (kMask0 | kMask1))) {
+            for (int r = lane; r < kBlockN; r += 32) {
+              const bool in = k0 + r < p.Skv;
+              asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                               smem_u32(sKid + stage * kBlockN + r)),
+                           "l"(kid_g + (in ? k0 + r : 0)), "r"(in ? 4 : 0)
+                           : "memory");
+            }
+            asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                             smem_u32(&full[stage]))
+                         : "memory");
+          }
+        }
+        if (lane == 0) sStep[stage] = make_int2(j, flags);
+        mbar_arrive(&full[stage]);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    // Consumer warpgroup w owns q tile i0 + w: rows q0 .. q0 + 63.
+    const int w = wg - 1;
+    const int t = threadIdx.x - 128 * wg;
+    const int wq = t / 32, lane = t % 32, g8 = lane / 4, t4 = lane % 4;
+    const int q0 = (i0 + w) * kBlockM;
+    const int r_a = wq * 16 + g8;  // this thread's rows of the tile: r_a, r_a + 8
+    const int row_a = q0 + r_a, row_b = row_a + 8;
+    int qid[2] = {0, 0};
+    if (SEG) {
+      const int* qid_g = p.q_seg + b * p.q_seg_sb;
+      qid[0] = row_a < p.Sq ? qid_g[row_a] : kQPadSegment;
+      qid[1] = row_b < p.Sq ? qid_g[row_b] : kQPadSegment;
+    }
+    const int take = w ? kTake1 : kTake0, needs_mask = w ? kMask1 : kMask0;
+    const uint32_t sQ = smem_u32(sm + L::Q) + w * L::TILE;
+    const uint32_t sK = smem_u32(sm + L::K), sV = smem_u32(sm + L::V);
+
+    // O of the tile: rows r_a / r_a + 8, columns 8 tt + 2 t4 (+1).
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_r[2] = {-INFINITY, -INFINITY};  // the rows' running max
+    float m_s[2] = {-INFINITY, -INFINITY};  // the same times log2(e)
+    float l_r[2] = {0.f, 0.f};              // this thread's share of the row sums
+    uint32_t pc[4][4];  // P of the pending step: bf16 A fragments of O += P V
+    int pend = -1;      // the stage whose O += P V is not issued yet
+
+    mbar_wait(q_bar, 0);
+    // Q as bf16 A fragments in registers, read once from its swizzled tile.
+    uint32_t qf[D / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int row = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      const int col = kk * 16 + (lane >> 4) * 8;
+      const uint32_t at = sQ + (col >> 6) * 8192 + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4);
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                   : "=r"(qf[kk][0]), "=r"(qf[kk][1]), "=r"(qf[kk][2]), "=r"(qf[kk][3])
+                   : "r"(at));
+    }
+    for (int n = 0;; ++n) {
+      const int stage = n % kStages;
+      mbar_wait(&full[stage], (n / kStages) & 1);
+      // The record, broadcast from lane 0: ptxas then sees the branches
+      // around the wgmmas as warp-uniform and does not serialise them.
+      int2 rec = sStep[stage];
+      rec.x = __shfl_sync(0xffffffffu, rec.x, 0);
+      rec.y = __shfl_sync(0xffffffffu, rec.y, 0);
+      if (rec.x < 0) break;
+      if (!(rec.y & take)) {
+        // Not this tile's step: finish the pending product, so that no stage
+        // stays held while the producer waits for it, and release both.
+        if (pend >= 0) {
+          wgmma_fence();
+          pv_product<D>(o, pc, sV + pend * L::TILE);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(o);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) fence_regs(pc[kk]);
+          mbar_arrive(&empty[pend]);
+          pend = -1;
+        }
+        mbar_arrive(&empty[stage]);
         continue;
       }
+      const int j = rec.x;
+      const uint32_t cK = sK + stage * L::TILE;
 
-      // S = Q K^T for this warp's 16 rows x BN columns.
-      float s[NT_S][4];
+      // S = Q K^T (64 x 64, Q from registers, K over head_dim in D / 64
+      // swizzled boxes), issued together with the pending step's O += P V.
+      // The first step of a run has none pending: it issues one with P = 0
+      // (O += 0 exactly), so the products and their waits are the same on
+      // every taken step; with them conditional, ptxas serialises every
+      // wgmma of the kernel.
+      const bool first = pend < 0;
+      if (first)
 #pragma unroll
-      for (int t = 0; t < NT_S; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+        for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
+          for (int e = 0; e < 4; ++e) pc[kk][e] = 0u;
+      float s[32];
+      wgmma_fence();
 #pragma unroll
-        for (int np = 0; np < NT_S / 2; ++np) {
-          unsigned bfr[4];
-          ldmatrix_x4(bfr, cK + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * STRIDE + kk * 16 +
-                               ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qf[kk], bfr[0], bfr[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], bfr[2], bfr[3]);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_rs_n64<0>(s, qf[kk], sw128_desc(cK + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
+      wgmma_commit();
+      pv_product<D>(o, pc, sV + (first ? stage : pend) * L::TILE);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+
+      // The element mask: element i of n-block tt is row row_a (i < 2) or
+      // row_b, kv column j * 64 + 8 tt + 2 t4 + (i & 1); hidden: kHidden.
+      if (rec.y & needs_mask) {
+        const int* cKid = sKid + stage * kBlockN;
+#pragma unroll
+        for (int tt = 0; tt < 8; ++tt) {
+          const int cc = tt * 8 + 2 * t4;
+          int2 kid = make_int2(0, 0);
+          if (SEG) kid = *reinterpret_cast<const int2*>(cKid + cc);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            bool vis = visible(p, (i < 2 ? row_a : row_b) + p.q_offset, j * kBlockN + cc + (i & 1));
+            if (SEG) vis = vis && qid[i >> 1] == ((i & 1) ? kid.y : kid.x);
+            if (!vis) s[4 * tt + i] = kHidden;
+          }
         }
       }
 
-      if (masked) {
-#pragma unroll
-        for (int t = 0; t < NT_S; ++t) {
-          const int col = j * BN + t * 8 + (lane & 3) * 2;
-          int kid[2] = {0, 0};
-          if (SEG) {
-            kid[0] = cKid[t * 8 + (lane & 3) * 2];
-            kid[1] = cKid[t * 8 + (lane & 3) * 2 + 1];
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = (e < 2 ? row_a : row_b) + p.q_offset;
-            bool vis = visible(p, row, col + (e & 1));
-            if (SEG) vis = vis && qid[e >> 1] == kid[e & 1];
-            if (!vis) s[t][e] = kMaskValue;
-          }
-        }
-      }
-
-      // Online softmax (FA2 Algorithm 1 lines 8-10, un-rescaled accumulator).
+      // Online softmax (FA2 Algorithm 1 lines 8-10, un-rescaled accumulator)
+      // in the exp2 domain.
       float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
-      for (int t = 0; t < NT_S; ++t) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[t][0], s[t][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[t][2], s[t][3]));
+      for (int tt = 0; tt < 8; ++tt) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * tt], s[4 * tt + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * tt + 2], s[4 * tt + 3]));
       }
+      float ms[2], alpha[2], rs[2] = {0.f, 0.f};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        ms[r] = mx[r] * kLog2e;
+        alpha[r] = exp2_ftz(m_s[r] - ms[r]);  // 0 on the first visit (m_s = -inf)
       }
-      float alpha[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-      for (int r = 0; r < 2; ++r) alpha[r] = m_r[r] == -INFINITY ? 0.f : expf(m_r[r] - mx[r]);
+      for (int tt = 0; tt < 8; ++tt) {
 #pragma unroll
-      for (int t = 0; t < NT_S; ++t) {
-        s[t][0] = expf(s[t][0] - mx[0]);
-        s[t][1] = expf(s[t][1] - mx[0]);
-        s[t][2] = expf(s[t][2] - mx[1]);
-        s[t][3] = expf(s[t][3] - mx[1]);
-        rs[0] += s[t][0] + s[t][1];
-        rs[1] += s[t][2] + s[t][3];
+        for (int i = 0; i < 4; ++i) {
+          s[4 * tt + i] = exp2_ftz(fmaf(s[4 * tt + i], kLog2e, -ms[i >> 1]));
+          rs[i >> 1] += s[4 * tt + i];
+        }
+      }
+      uint32_t pn[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pn[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pn[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pn[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pn[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+      wgmma_wait<0>();  // the pending O += P V is done: its stage is free
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(pc[kk]);
+      if (!first) mbar_arrive(&empty[pend]);
+#pragma unroll
+      for (int tt = 0; tt < D / 8; ++tt) {
+        o[4 * tt] *= alpha[0];
+        o[4 * tt + 1] *= alpha[0];
+        o[4 * tt + 2] *= alpha[1];
+        o[4 * tt + 3] *= alpha[1];
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
         l_r[r] = l_r[r] * alpha[r] + rs[r];
         m_r[r] = mx[r];
+        m_s[r] = ms[r];
       }
 #pragma unroll
-      for (int t = 0; t < NT_O; ++t) {
-        acc[t][0] *= alpha[0];
-        acc[t][1] *= alpha[0];
-        acc[t][2] *= alpha[1];
-        acc[t][3] *= alpha[1];
-      }
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pc[kk][e] = pn[kk][e];
+      pend = stage;
+    }
+    if (pend >= 0) {  // the last step's O += P V
+      wgmma_fence();
+      pv_product<D>(o, pc, sV + pend * L::TILE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(pc[kk]);
+      mbar_arrive(&empty[pend]);
+    }
 
-      // O += P V, P taken from the S accumulators as bf16 A fragments.
+    // Finalize: the row sums over the row's four threads, one 1/l per row
+    // (C1), the natural-log lse. A row that saw nothing has o = 0, l = 0.
+    float inv[2];
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        const unsigned a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+      inv[r] = l_r[r] == 0.f ? 1.f : 1.f / l_r[r];
+    }
+    if (t4 == 0) {
+      float* lg = p.lse + (static_cast<long long>(bh) * p.ks + split) * p.Sq;
 #pragma unroll
-        for (int dp = 0; dp < NT_O / 2; ++dp) {
-          unsigned bfr[4];
-          ldmatrix_x4_trans(bfr, cV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STRIDE +
-                                     dp * 16 + (lane >> 4) * 8);
-          mma_bf16(acc[2 * dp], a, bfr[0], bfr[1]);
-          mma_bf16(acc[2 * dp + 1], a, bfr[2], bfr[3]);
-        }
+      for (int r = 0; r < 2; ++r) {
+        const int row = r ? row_b : row_a;
+        if (row < p.Sq)
+          lg[row] = l_r[r] == 0.f ? -INFINITY
+                                  : (m_r[r] == kHidden ? kMaskValue : m_r[r]) + logf(l_r[r]);
       }
-      __syncthreads();  // this stage is refilled two iterations on
-      it = nxt;
     }
-  }
-
-  // Finalize: one 1/l per row (C1), then the f32 logsumexp. SPLIT writes
-  // the f32 partial of its split; a row that saw nothing has acc = 0, l = 0.
-  const float l_a = l_r[0] == 0.f ? 1.f : l_r[0];
-  const float l_b = l_r[1] == 0.f ? 1.f : l_r[1];
-  const int col0 = (lane & 3) * 2;
-  if (SPLIT) {
-    float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + split * p.o_split;
+    if (SPLIT) {
+      float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + split * p.o_split;
 #pragma unroll
-    for (int t = 0; t < NT_O; ++t) {
-      if (row_a < p.Sq)
-        *reinterpret_cast<float2*>(og + row_a * p.o_ss + t * 8 + col0) =
-            make_float2(acc[t][0] / l_a, acc[t][1] / l_a);
-      if (row_b < p.Sq)
-        *reinterpret_cast<float2*>(og + row_b * p.o_ss + t * 8 + col0) =
-            make_float2(acc[t][2] / l_b, acc[t][3] / l_b);
-    }
-  } else {
-    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+      for (int tt = 0; tt < D / 8; ++tt) {
+        const int col = tt * 8 + 2 * t4;
+        if (row_a < p.Sq)
+          *reinterpret_cast<float2*>(og + row_a * p.o_ss + col) =
+              make_float2(o[4 * tt] * inv[0], o[4 * tt + 1] * inv[0]);
+        if (row_b < p.Sq)
+          *reinterpret_cast<float2*>(og + row_b * p.o_ss + col) =
+              make_float2(o[4 * tt + 2] * inv[1], o[4 * tt + 3] * inv[1]);
+      }
+    } else {
+      // bf16 O through this warpgroup's Q tile (its values are in registers
+      // since the start), in TMA's 128-byte swizzle (conflict-free pair
+      // stores), then 16-byte chunks of rows to memory.
+      unsigned char* stg = sm + L::Q + w * L::TILE;
+      named_sync(1 + w, 128);  // every warp has read its Q fragments
 #pragma unroll
-    for (int t = 0; t < NT_O; ++t) {
-      if (row_a < p.Sq)
-        *reinterpret_cast<unsigned*>(og + row_a * p.o_ss + t * 8 + col0) =
-            pack_bf16(acc[t][0] / l_a, acc[t][1] / l_a);
-      if (row_b < p.Sq)
-        *reinterpret_cast<unsigned*>(og + row_b * p.o_ss + t * 8 + col0) =
-            pack_bf16(acc[t][2] / l_b, acc[t][3] / l_b);
+      for (int tt = 0; tt < D / 8; ++tt) {
+        unsigned char* at = stg + (tt >> 3) * 8192 + r_a * 128 + (((tt & 7) ^ g8) << 4) + t4 * 4;
+        *reinterpret_cast<uint32_t*>(at) = pack_bf16(o[4 * tt] * inv[0], o[4 * tt + 1] * inv[0]);
+        *reinterpret_cast<uint32_t*>(at + 1024) =
+            pack_bf16(o[4 * tt + 2] * inv[1], o[4 * tt + 3] * inv[1]);
+      }
+      named_sync(1 + w, 128);
+      __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+      constexpr int CH = D / 8;  // 16-byte chunks a row
+      for (int idx = t; idx < kBlockM * CH; idx += 128) {
+        const int r = idx / CH, c = idx % CH;
+        if (q0 + r < p.Sq)
+          *reinterpret_cast<uint4*>(og + (q0 + r) * p.o_ss + c * 8) =
+              *reinterpret_cast<const uint4*>(stg + (c >> 3) * 8192 + r * 128 +
+                                              (((c & 7) ^ (r & 7)) << 4));
+      }
     }
-  }
-  if ((lane & 3) == 0) {
-    float* lg = p.lse + (static_cast<long long>(bh) * p.ks + split) * p.Sq;
-    if (row_a < p.Sq) lg[row_a] = l_r[0] == 0.f ? -INFINITY : m_r[0] + logf(l_a);
-    if (row_b < p.Sq) lg[row_b] = l_r[1] == 0.f ? -INFINITY : m_r[1] + logf(l_b);
   }
 }
 
@@ -551,24 +686,21 @@ __global__ void __launch_bounds__(D) fa2_fwd_fold_kernel(const FwdParams p,
     lse[static_cast<long long>(bh) * p.Sq + row] = l == 0.f ? -INFINITY : m_safe + logf(l_safe);
 }
 
-constexpr int kWarps = 4;  // 64 q rows per CTA (block_q)
-
-template <int D, bool SEG>
-constexpr size_t smem_bytes() {
-  return static_cast<size_t>(16 * kWarps + 4 * kBlockN) * (D + 8) * sizeof(__nv_bfloat16) +
-         (SEG ? 2 * kBlockN * sizeof(int) : 0);
-}
-
 template <int D, bool SEG, bool SPLIT, bool DENSE = false>
-cudaError_t launch(const FwdParams& p, int batch, cudaStream_t stream, __nv_bfloat16* o_fold,
-                   float* lse_fold) {
-  constexpr size_t smem = smem_bytes<D, SEG>();
-  cudaError_t err = cudaFuncSetAttribute(fa2_fwd_kernel<D, kWarps, SEG, SPLIT, DENSE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+cudaError_t launch(const FwdParams& p, int batch, int Hkv, cudaStream_t stream,
+                   __nv_bfloat16* o_fold, float* lse_fold) {
+  FwdMaps maps;
+  if (!make_map(&maps.q, p.q, batch, p.Sq, p.Hq, D, p.q_sb, p.q_ss, p.q_sh, kBlockM) ||
+      !make_map(&maps.k, p.k, batch, p.Skv, Hkv, D, p.k_sb, p.k_ss, p.k_sh, kBlockN) ||
+      !make_map(&maps.v, p.v, batch, p.Skv, Hkv, D, p.v_sb, p.v_ss, p.v_sh, kBlockN))
+    return cudaErrorInvalidValue;
+  auto kernel = fa2_fwd_kernel<D, SEG, SPLIT, DENSE>;
+  const size_t smem = FwdSmem<D>::BYTES + 1024;  // + the 1024-byte alignment of the base
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.t_q, batch * p.Hq, p.ks);
-  fa2_fwd_kernel<D, kWarps, SEG, SPLIT, DENSE><<<grid, kWarps * 32, smem, stream>>>(p);
+  const dim3 grid((p.t_q + 1) / 2, batch * p.Hq, p.ks);
+  kernel<<<grid, kThreads, smem, stream>>>(p, maps);
   if (SPLIT) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -578,16 +710,16 @@ cudaError_t launch(const FwdParams& p, int batch, cudaStream_t stream, __nv_bflo
 }
 
 template <int D>
-cudaError_t dispatch(const FwdParams& p, int batch, bool seg, bool split, bool dense,
+cudaError_t dispatch(const FwdParams& p, int batch, int Hkv, bool seg, bool split, bool dense,
                      cudaStream_t s, __nv_bfloat16* of, float* lf) {
   if (dense)
-    return seg ? launch<D, true, false, true>(p, batch, s, of, lf)
-               : launch<D, false, false, true>(p, batch, s, of, lf);
+    return seg ? launch<D, true, false, true>(p, batch, Hkv, s, of, lf)
+               : launch<D, false, false, true>(p, batch, Hkv, s, of, lf);
   if (seg)
-    return split ? launch<D, true, true>(p, batch, s, of, lf)
-                 : launch<D, true, false>(p, batch, s, of, lf);
-  return split ? launch<D, false, true>(p, batch, s, of, lf)
-               : launch<D, false, false>(p, batch, s, of, lf);
+    return split ? launch<D, true, true>(p, batch, Hkv, s, of, lf)
+                 : launch<D, true, false>(p, batch, Hkv, s, of, lf);
+  return split ? launch<D, false, true>(p, batch, Hkv, s, of, lf)
+               : launch<D, false, false>(p, batch, Hkv, s, of, lf);
 }
 
 }  // namespace
@@ -626,7 +758,7 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
   // ids: none); the compact schedule (table; with segments, step bits) or
   // the dense one (no table, no bits); single-pass, or (compact only)
   // split-KV partials (o, lse) folded into (o_fold, lse_fold).
-  if (block_q != 16 * kWarps || block_kv != kBlockN || ks < 1) return cudaErrorInvalidValue;
+  if (block_q != kBlockM || block_kv != kBlockN || ks < 1 || t_q < 1) return cudaErrorInvalidValue;
   if (split && (dense || o_fold == nullptr || lse_fold == nullptr))
     return cudaErrorInvalidValue;
   const bool seg = q_seg != nullptr;
@@ -634,7 +766,8 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
     return cudaErrorInvalidValue;
   auto* of = static_cast<__nv_bfloat16*>(o_fold);
   auto* lf = static_cast<float*>(lse_fold);
-  if (head_dim == 128) return dispatch<128>(p, batch, seg, split != 0, dense != 0, s, of, lf);
-  if (head_dim == 64) return dispatch<64>(p, batch, seg, split != 0, dense != 0, s, of, lf);
+  if (head_dim == 128)
+    return dispatch<128>(p, batch, Hkv, seg, split != 0, dense != 0, s, of, lf);
+  if (head_dim == 64) return dispatch<64>(p, batch, Hkv, seg, split != 0, dense != 0, s, of, lf);
   return cudaErrorInvalidValue;
 }

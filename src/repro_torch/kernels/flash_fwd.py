@@ -2,8 +2,11 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_fwd.py:354 flash_fwd``
 (compact schedule; banded launches included, since on Hopper the q tile is
-a parallel grid axis anyway). The kernel source is ``csrc/flash_fwd.cu``;
-its header says what bounds it on an H100 and how the design answers.
+a parallel grid axis anyway). The kernel source is ``csrc/flash_fwd.cu``
+(FlashAttention-3's forward: a CTA per pair of q tiles, a TMA producer
+warp, two consumer warpgroups on wgmma; its Hopper helpers are
+``csrc/sm90.cuh``); its header says what bounds it on an H100 and how the
+design answers.
 
 Layout (the public one, read in place through strides -- no head-major
 transpose and no padding copy): q (B, Sq, Hq, D) already multiplied by the
@@ -23,8 +26,9 @@ The split-KV forward :func:`flash_fwd_splitkv` replaces the ``kv_splits >
 1`` mode of ``flash_fwd.py:510 _flash_fwd_partitioned`` (body
 ``_fwd_kernel_partitioned`` :290): the kv tiles are cut into ``ks``
 contiguous ranges (:func:`~repro_torch.kernels.schedule.kv_split_edges`),
-one CTA per (q tile, batch * q head, split) walks its range's visible
-tiles, and each writes its locally normalised f32 partial, o_parts
+one CTA per (pair of q tiles, batch * q head, split) walks the union of
+the two tiles' visible tiles in its range, and each tile writes its
+locally normalised f32 partial, o_parts
 (B, Hq, ks, Sq, D) and lse_parts (B, Hq, ks, Sq) -- the JAX layout
 (BH, ks, Sq, D) / (BH, ks, Sq). A (q tile, split) with no visible tile
 writes (0, -inf). A second kernel on the same stream folds the partials

@@ -30,48 +30,44 @@ DEFAULT_DECODE_SPLITS = 8
 
 
 # H100 forward tiles (block_q, block_kv), sized for a CTA's 227 KB of shared
-# memory (the TPU table sized tiles for 16 MB of VMEM): the kernel holds a
-# block_q x D Q tile plus two stages of block_kv x D K and V tiles, rows
-# padded by 8. At D = 128, (64, 64) takes 87 KB, so two CTAs share an SM, and
-# 64 q rows per CTA keep enough CTAs in flight for a B = 1 prefill
-# (32 heads x S / 64). The sequence lengths do not enter: the kernel masks the
-# ragged edge itself. The CPU path takes any block sizes (the parity tests
-# match the JAX kernel's); the CUDA kernel checks ``flash_fwd.KERNEL_BLOCKS``.
+# memory (the TPU table sized tiles for 16 MB of VMEM): a forward CTA holds
+# two block_q x D Q tiles (one per consumer warpgroup) and four stages of
+# block_kv x D K and V tiles, 162 KB at D = 128. 64 q rows per warpgroup (the
+# wgmma M) and CTAs of two q tiles keep enough CTAs in flight for a B = 1
+# prefill (32 heads x S / 128). The sequence lengths do not enter: the kernel
+# masks the ragged edge itself. The CPU path takes any block sizes (the
+# parity tests match the JAX kernel's); the CUDA kernel checks
+# ``flash_fwd.KERNEL_BLOCKS``, the granularity of its tables.
 BLOCK_Q = BLOCK_KV = 64
 
 
 # Forward partitions (paper Section 3.2), the JAX ``default_forward_partitions``
 # (``ops.py:170``) restated for the H100. The TPU deals q tiles into bands
-# to fill its cores; here every q tile is its own CTA on the grid's first
-# axis, which does the banding, so only the kv split is left to choose. Its
-# rule keeps the JAX form: split the kv axis only when all q rows fit one q
-# tile (Sq <= 64 here), there are at least 4 kv tiles, and batch * q heads
-# is below the target. The TPU target (64 cells, ``ops.py:167``) becomes the
-# number of forward CTAs that fill the card once: 132 SMs times the CTAs one
-# SM holds at once. At head_dim 64 a CTA of 128 threads takes 46 KB of
-# shared memory and 132-138 registers a thread (ptxas for sm_90a), about
-# 17.4 K of the SM's 64 K registers, so 3 fit; at head_dim 128, 87 KB and
-# 168-183 registers, so 2 fit. Other head dims (the CPU tests' 16) take the
-# figure of the next kernel head dim up.
+# to fill its cores; here every pair of q tiles is its own CTA on the grid's
+# first axis, which does the banding, so only the kv split is left to
+# choose. Its rule keeps the JAX form: split the kv axis only when all q
+# rows fit one q tile (Sq <= 64 here), there are at least 4 kv tiles, and
+# batch * q heads is below the target. The TPU target (64 cells,
+# ``ops.py:167``) becomes the number of forward CTAs that fill the card
+# once: 132 SMs times the CTAs one SM holds at once. A forward CTA has 384
+# threads (a producer and two consumer warpgroups) launched at 168
+# registers each (ptxas for sm_90a, ``__launch_bounds__(384, 1)``;
+# ``setmaxnreg`` moves them to 24 / 240), 64,512 of the SM's 65,536, so
+# one fits at either head dim (shared memory: 82 KB at 64, 162 KB at 128)
+# and the target is the same at every head dim.
 H100_SMS = 132
-FWD_CTAS_PER_SM = {64: 3, 128: 2}
+FWD_CTAS_PER_SM = 1
+FWD_TARGET_CTAS = H100_SMS * FWD_CTAS_PER_SM
 MIN_SPLIT_KV_TILES = 4
 
 
-def forward_target_ctas(head_dim: int) -> int:
-    """Forward CTAs that fill the H100 once at ``head_dim``."""
-    fit = min((d for d in FWD_CTAS_PER_SM if d >= head_dim), default=max(FWD_CTAS_PER_SM))
-    return H100_SMS * FWD_CTAS_PER_SM[fit]
-
-
-def default_kv_splits(bh: int, t_q: int, t_kv: int, head_dim: int) -> int:
-    """The kv splits when none is given: ``min(t_kv, ceil(target / bh))``
-    in the short-q, long-kv corner (``t_q == 1``, ``t_kv >= 4``, ``bh``
-    below the target), else 1. Splits change the summation order (exact up
-    to rounding), so other shapes split only when asked."""
-    target = forward_target_ctas(head_dim)
-    if t_q == 1 and t_kv >= MIN_SPLIT_KV_TILES and bh < target:
-        return min(t_kv, -(-target // bh))
+def default_kv_splits(bh: int, t_q: int, t_kv: int) -> int:
+    """The kv splits when none is given: ``min(t_kv, ceil(FWD_TARGET_CTAS /
+    bh))`` in the short-q, long-kv corner (``t_q == 1``, ``t_kv >= 4``,
+    ``bh`` below the target), else 1. Splits change the summation order
+    (exact up to rounding), so other shapes split only when asked."""
+    if t_q == 1 and t_kv >= MIN_SPLIT_KV_TILES and bh < FWD_TARGET_CTAS:
+        return min(t_kv, -(-FWD_TARGET_CTAS // bh))
     return 1
 
 
@@ -97,7 +93,7 @@ def resolve_kv_splits(kv_splits, q_shape, k_shape, block_q=None, block_kv=None,
     B, Sq, Hq, D = q_shape
     t_q = -(-Sq // (block_q or BLOCK_Q))
     t_kv = -(-k_shape[1] // (block_kv or BLOCK_KV))
-    ks = default_kv_splits(B * Hq, t_q, t_kv, D) if kv_splits is None else kv_splits
+    ks = default_kv_splits(B * Hq, t_q, t_kv) if kv_splits is None else kv_splits
     return max(1, min(ks, t_kv))
 
 

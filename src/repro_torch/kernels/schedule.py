@@ -14,10 +14,11 @@ sink + window specs exact: their visible tiles are not contiguous.
 
 Two orientations, as in the JAX package:
 
-  * q-major (:func:`build_q_tile_schedule`): a forward CTA, or a dQ CTA of
-    the split backward, owns a q tile and streams its visible kv tiles. A
-    q tile with no visible kv tile (the TPU table's placeholder step)
-    needs no entry: its CTA writes its zeros and stops.
+  * q-major (:func:`build_q_tile_schedule`): a forward CTA owns a pair of
+    q tiles and streams the union of their visible kv tiles
+    (:func:`pair_walk` with group 1); a dQ CTA of the split backward owns
+    one q tile and streams its slice. A q tile with no visible kv tile (the
+    TPU table's placeholder step) needs no entry: it writes its zeros.
   * kv-major (:func:`build_kv_tile_schedule`): a backward CTA owns a pair
     of kv tiles and streams the union of their visible q tiles
     (:func:`pair_walk`). The TPU's kv-major table also carries
@@ -201,38 +202,44 @@ def build_split_schedule(
 
 
 class PairStep(NamedTuple):
-    """One step of :func:`pair_walk`: q head ``head`` of the group, q tile
-    ``q_tile``, and per tile of the pair the CSR entry that names this step
-    (-1 where the tile does not take it)."""
+    """One step of :func:`pair_walk`: head ``head`` of the group, partner
+    tile ``tile`` (a q tile kv-major, a kv tile q-major), and per owner tile
+    of the pair the CSR entry that names this step (-1 where that owner
+    does not take it)."""
 
     head: int
-    q_tile: int
-    entries: tuple  # (entry of tile 2 * pair, entry of tile 2 * pair + 1)
+    tile: int
+    entries: tuple  # (entry of owner 2 * pair, entry of owner 2 * pair + 1)
 
 
-def pair_walk(csr: TileCSR, pair: int, group: int, bits=None) -> list:
-    """The walk of the KV-stationary backward CTA that owns kv tiles
-    ``2 * pair`` and ``2 * pair + 1`` of the kv-major ``csr``, as
-    ``PairWalk`` in ``csrc/flash_bwd.cu`` builds it on the device: for each
-    of the ``group`` q heads in order, the ascending union of the two
-    tiles' slices. ``bits`` (one batch row of :func:`segment_step_bits`,
-    indexed by entry) drops an entry without ``SEG_ACTIVE``, and a step
-    that neither tile takes. A missing second tile (odd ``t_kv``) has an
-    empty slice."""
-    t_kv = len(csr.row_ptr) - 1
-    slices = [range(csr.row_ptr[j], csr.row_ptr[j + 1]) if j < t_kv else range(0)
-              for j in (2 * pair, 2 * pair + 1)]
+def pair_walk(csr: TileCSR, pair: int, group: int = 1, bits=None, split: int = 0) -> list:
+    """The walk of a CTA that owns tiles ``2 * pair`` and ``2 * pair + 1``
+    of ``csr``, as ``PairWalk`` in ``csrc/sm90.cuh`` builds it on the
+    device: for each of the ``group`` heads in order, the ascending union
+    of the two owners' slices. Kv-major (the KV-stationary backward): the
+    owners are kv tiles and ``group`` the q heads of a kv head. Q-major (the
+    forward, ``group`` 1): the owners are q tiles; of a split schedule, the
+    owners of kv split ``split``. ``bits`` (one batch row of
+    :func:`segment_step_bits`, indexed by entry) drops an entry without
+    ``SEG_ACTIVE``, and a step that neither owner takes. A missing second
+    owner (an odd tile count) has an empty slice."""
+    ks = csr.splits
+    n_tiles = (len(csr.row_ptr) - 1) // ks
+    slices = []
+    for t in (2 * pair, 2 * pair + 1):
+        a = t * ks + split
+        slices.append(range(csr.row_ptr[a], csr.row_ptr[a + 1]) if t < n_tiles else range(0))
     steps = []
     for g in range(group):
-        by_q: dict = {}
+        by_tile: dict = {}
         for x, entries in enumerate(slices):
             for e in entries:
-                by_q.setdefault(int(csr.inner[e]), [-1, -1])[x] = e
-        for q_tile in sorted(by_q):
+                by_tile.setdefault(int(csr.inner[e]), [-1, -1])[x] = e
+        for tile in sorted(by_tile):
             taken = tuple(e if e >= 0 and (bits is None or bits[e] & SEG_ACTIVE) else -1
-                          for e in by_q[q_tile])
+                          for e in by_tile[tile])
             if taken != (-1, -1):
-                steps.append(PairStep(g, q_tile, taken))
+                steps.append(PairStep(g, tile, taken))
     return steps
 
 

@@ -56,19 +56,38 @@ def _err(a, b):
     return (a.float()[fin] - b.float()[fin]).abs().max().item()
 
 
+# (B, S, Hkv, spec, view) at 32 q heads: an odd number of q tiles (S 64, 300,
+# 700: the last CTA of q-tile pairs holds one), an even one (S 333, 2048,
+# 200), GQA G 4 and G 1, q_offset -100 (rows 64-99 see no key inside a
+# visited tile), and strided views (q a head slice, k and v from one packed
+# tensor) that the TMA maps read in place.
+FWD_CASES = [
+    (1, 64, 8, dict(causal=True), "contiguous"),
+    (1, 700, 8, dict(causal=True), "contiguous"),
+    (4, 2048, 8, dict(causal=True), "contiguous"),
+    (2, 300, 8, dict(causal=True), "contiguous"),
+    (1, 333, 8, dict(causal=True, window=100, sink=4), "contiguous"),
+    (2, 200, 8, dict(causal=False), "contiguous"),
+    (1, 700, 8, dict(causal=True, q_offset=-100), "contiguous"),
+    (1, 700, 32, dict(causal=True), "contiguous"),
+    (2, 700, 8, dict(causal=True), "strided"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,spec", [
-    (1, 64, dict(causal=True)),
-    (1, 700, dict(causal=True)),
-    (4, 2048, dict(causal=True)),
-    (2, 300, dict(causal=True)),
-    (1, 333, dict(causal=True, window=100, sink=4)),
-    (2, 200, dict(causal=False)),
-])
-def test_forward_kernel_matches_plain(cuda, B, S, spec):
+@pytest.mark.parametrize("B,S,Hkv,spec,view", FWD_CASES)
+def test_forward_kernel_matches_plain(cuda, B, S, Hkv, spec, view):
+    """The forward against its plain version; ``_err`` also asserts that the
+    kernel's outputs are finite exactly where the plain version's are."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = ops._prep(_randn(gen, (B, S, 32, 128), cuda), 1 / math.sqrt(128))
-    k, v = _randn(gen, (B, S, 8, 128), cuda), _randn(gen, (B, S, 8, 128), cuda)
+    k, v = _randn(gen, (B, S, Hkv, 128), cuda), _randn(gen, (B, S, Hkv, 128), cuda)
+    if view == "strided":
+        wide = torch.zeros((B, S, 64, 128), dtype=q.dtype, device=cuda)
+        wide[:, :, 32:] = q
+        kv = torch.stack((k, v), dim=2)  # (B, S, 2, Hkv, 128)
+        q, k, v = wide[:, :, 32:], kv[:, :, 0], kv[:, :, 1]
+        assert not any(x.is_contiguous() for x in (q, k, v))
     spec = MaskSpec(**spec)
     before = fwd_mod.flash_fwd.launches
     o, lse = fwd_mod.flash_fwd(q, k, v, spec, block_q=64, block_kv=64)
@@ -551,10 +570,13 @@ def _qkv(cuda, seed, B, Sq, Skv, Hq, Hkv, D):
     (2, 1500, dict(causal=False)),
     (4, 4, dict(causal=True)),
     (1, 333, dict(causal=True, window=100, sink=4)),
+    (2, 300, dict(causal=True)),
+    (1, 700, dict(causal=True, q_offset=-100)),
 ])
 def test_forward_kernel_at_head_dim_64_matches_plain(cuda, B, S, spec):
     """The forward at whisper's widths (8 heads of 64): the encoder's FULL
-    self-attention and the decoder prefill's causal one."""
+    self-attention and the decoder prefill's causal one; odd numbers of q
+    tiles (S 4, 300, 700: the last CTA of q-tile pairs holds one)."""
     q, k, v = _qkv(cuda, 7, B, S, S, 8, 8, 64)
     spec = MaskSpec(**spec)
     o, lse = fwd_mod.flash_fwd(q, k, v, spec, block_q=64, block_kv=64)
@@ -566,12 +588,13 @@ def test_forward_kernel_at_head_dim_64_matches_plain(cuda, B, S, spec):
 
 SPLIT_CASES = [
     # B, Sq, Skv, Hq, Hkv, D, spec, kv_splits
-    (4, 4, 1500, 8, 8, 64, dict(causal=False), 13),   # whisper cross-attention, auto
+    (4, 4, 1500, 8, 8, 64, dict(causal=False), 13),   # whisper cross-attention
     (1, 4, 1500, 8, 8, 64, dict(causal=False), 24),
     (2, 4, 1500, 8, 8, 64, dict(causal=False), 5),
     (1, 64, 2048, 32, 8, 128, dict(causal=False), 9),  # qwen3 widths, G = 4
     (2, 300, 300, 32, 8, 128, dict(causal=True), 3),  # q tiles x splits, causal
     (1, 50, 900, 8, 8, 64, dict(causal=True, q_offset=850), 6),
+    (1, 150, 1000, 32, 8, 128, dict(causal=True, q_offset=850), 4),  # t_q = 3
 ]
 
 
@@ -799,13 +822,17 @@ def test_dense_kernels_match_plain_and_compact(cuda, B, S, Hq, Hkv, spec, ids):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("seg", [False, True])
+@pytest.mark.parametrize("seg", [False, True, "half"])
 def test_dense_forward_at_head_dim_64_is_the_compact_kernel(cuda, seg):
     """The head_dim-64 dense forward (whisper's width) against its plain
-    version and, to the bit, the compact kernel."""
+    version and, to the bit, the compact kernel; without segments, with the
+    packed source's ids, and with ids that hide half of the first q tile."""
     q, k, v = _qkv(cuda, 16, 2, 700, 700, 8, 8, 64)
     spec = MaskSpec(causal=True)
-    ids = (_packed_ids(2, 700).to(cuda),) * 2 if seg else ()
+    if seg == "half":
+        ids = tuple(x.to(cuda) for x in _distinct_ids(2, 700, hidden=32))
+    else:
+        ids = (_packed_ids(2, 700).to(cuda),) * 2 if seg else ()
     fwd = fwd_mod.flash_fwd_varlen if seg else fwd_mod.flash_fwd
     o, lse = fwd(q, k, v, spec, *ids, block_q=64, block_kv=64, schedule="dense")
     o_c, lse_c = fwd(q, k, v, spec, *ids, block_q=64, block_kv=64)

@@ -91,3 +91,24 @@ def test_registry_mirrors_the_jax_one():
         ours = registry.reduce_config(registry.get(name))
         theirs = jax_registry.reduce_config(jax_registry.get(name))
         assert repr(ours) == repr(theirs)
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd"])
+def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch, name):
+    """A kernel library's cache key covers the Hopper header both sources
+    include: changing its bytes (in a copy of csrc) names another library,
+    so an edited header never reuses a stale build. Needs no nvcc."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path(name)
+    assert before == _build.library_path(name)
+    header = csrc / "sm90.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = _build.library_path(name)
+    assert after != before and after.parent == before.parent
+    assert after.name.startswith(f"lib{name}-")

@@ -283,19 +283,20 @@ def test_fold_partials_matches_the_merge_tree(P):
     assert torch.isfinite(got_lse[..., 1:]).all()
 
 
-# (B * Hq, t_q, t_kv, head_dim) -> splits. Targets: 132 SMs x 3 CTAs = 396
-# at head_dim <= 64, 132 x 2 = 264 at 128.
+# (B * Hq, t_q, t_kv) -> splits. Target: 132 SMs x 1 CTA = 132 at every head
+# dim (a forward CTA of 384 threads at 168 registers fills an SM's register
+# file); before the forward's Hopper redesign 396 at head_dim 64, 264 at 128.
 POLICY = [
-    ((32, 1, 24, 64), 13),   # whisper-base cross-attention prefill, B = 4
-    ((8, 1, 24, 64), 24),    # B = 1: every kv tile its own split
-    ((32, 1, 24, 128), 9),
-    ((8, 1, 5, 16), 5),      # the reduced whisper of the CPU tests
-    ((32, 24, 24, 64), 1),   # encoder self-attention: q tiles fill the card
-    ((32, 2, 24, 64), 1),    # more than one q tile: no split
-    ((32, 1, 3, 64), 1),     # fewer than 4 kv tiles
-    ((396, 1, 24, 64), 1),   # batch x heads alone fill the card
-    ((395, 1, 24, 64), 2),
-    ((264, 1, 24, 128), 1),
+    ((32, 1, 24), 5),     # whisper-base cross-attention prefill, B = 4
+    ((8, 1, 24), 17),     # B = 1
+    ((33, 1, 24), 4),
+    ((8, 1, 5), 5),       # the reduced whisper of the CPU tests: every kv tile
+    ((32, 24, 24), 1),    # encoder self-attention: q tiles fill the card
+    ((32, 2, 24), 1),     # more than one q tile: no split
+    ((32, 1, 3), 1),      # fewer than 4 kv tiles
+    ((132, 1, 24), 1),    # batch x heads alone fill the card
+    ((131, 1, 24), 2),
+    ((264, 1, 24), 1),
 ]
 
 
