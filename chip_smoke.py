@@ -23,9 +23,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      kernels (delta pre-pass, fused dK/dV/dQ, and the split backward's
      dK/dV and dQ kernels, whose dK and dV must be bitwise the fused
      kernel's and whose dQ must be bitwise the same from two launches) and
-     the forward again at the training step's; the fused kernel is timed in
-     turns with SDPA's backward (fused, SDPA, SDPA, fused), the dK/dV
-     kernel beside them, and once more without its dQ bulk reduction;
+     the forward again at the training step's; the fused kernel and the
+     whole split backward (delta, dK/dV, dQ) are timed in turns with SDPA's
+     backward (fused, split, SDPA, SDPA, split, fused), the dK/dV kernel
+     beside them, and the fused kernel once more without its dQ bulk
+     reduction; ptxas's registers, spills and any serialised wgmma per
+     instantiation are printed with the build's seconds;
   4. the serving slice: qwen3-8b at full width (36 layers, bf16, random
      weights from a seed) serves 6 requests through the port's
      ServingEngine; every prefill and decode must go through the kernels
@@ -90,10 +93,11 @@ reference, the prefill timed in turns through the auto split count and
 through kv_splits=1, and a profile of its ticks.
 Phase 3 also holds the paged decode kernel against its plain version
 (page sizes 16 and 64, G in {1, 4, 8}, a window-256/sink-4 spec, shuffled
-pages) and times it beside the contiguous decode kernel, and holds the
-segment (varlen) variants of the forward, fused, dK/dV and dQ kernels
-against their plain versions (the packed source's ids at the training
-shape, G = 1 and 4 at S = 700, distinct q and kv ids), checks that
+pages, NaN in every pool row no length reaches) and times it in turns
+with the contiguous decode kernel (contiguous, paged, paged, contiguous),
+and holds the segment (varlen) variants of the forward, fused, dK/dV and
+dQ kernels against their plain versions (the packed source's ids at the
+training shape, G = 1 and 4 at S = 700, distinct q and kv ids), checks that
 all-ones ids give the unsegmented kernels' outputs bitwise, and times them
 beside the unsegmented kernels, with bounds over the same-segment pairs.
 Phase 3 also holds the dense-schedule kernels (forward, fused, dK/dV and
@@ -211,18 +215,28 @@ def time_ms(torch, fn, iters: int, flush) -> float:
 
 def ptxas_summary(_build, sources) -> str:
     """One line per compiled kernel instantiation: its mangled name's
-    template arguments, registers and spill bytes, from nvcc's -Xptxas -v."""
+    template arguments, registers and spill bytes, from nvcc's -Xptxas -v,
+    and the reason ptxas gives where it serialises the instantiation's
+    wgmma instructions."""
     import re
+
+    def pretty(mangled):  # ...fa2_fwd_kernelILi64ELi4ELb0ELb1EEEv... -> fa2_fwd_kernel<64,4,0,1>
+        k = re.search(r"(fa2_\w+?kernel)I(.*?)EEv", mangled)
+        return f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)', k.group(2)))}>" if k else mangled
 
     lines = []
     for src in sources:
+        report = _build.report_path(src).read_text().splitlines()
+        serialized = {}
+        for line in report:
+            m = re.search(r"wgmma.*serialized (.*?) in the function '(\S+?)'", line)
+            if m:
+                serialized[pretty(m.group(2))] = m.group(1)
         name = None
-        for line in _build.report_path(src).read_text().splitlines():
+        for line in report:
             m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:  # ...fa2_fwd_kernelILi64ELi4ELb0ELb1EEEv... -> fa2_fwd_kernel<64,4,0,1>
-                k = re.search(r"(fa2_\w+?kernel)I(.*?)EEv", m.group(1))
-                name = (f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)', k.group(2)))}>"
-                        if k else m.group(1))
+            if m:
+                name = pretty(m.group(1))
                 continue
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m and name:
@@ -230,8 +244,11 @@ def ptxas_summary(_build, sources) -> str:
                 continue
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
-                lines.append(f"  {src}.cu {name}: {m.group(1)} registers, {spills}")
+                note = f"; wgmma serialized {serialized[name]}" if name in serialized else ""
+                lines.append(f"  {src}.cu {name}: {m.group(1)} registers, {spills}{note}")
                 name = None
+    n = sum(" wgmma serialized " in line for line in lines)
+    lines.append(f"  instantiations whose wgmma ptxas serialises: {n}")
     return "\n".join(lines)
 
 
@@ -472,12 +489,24 @@ def shuffled_table(torch, B: int, n_pages: int, seed: int):
     return (torch.randperm(B * n_pages, generator=gen) + 1).reshape(B, n_pages).to(torch.int32)
 
 
+def stale_nan(torch, planes, table, lengths, ps: int):
+    """``planes`` (Hkv, P, ps, D) with NaN in every pool row that no length
+    reaches: past each length inside its last page, unused pages, the null
+    page."""
+    live = torch.zeros(planes.shape[1:3], dtype=torch.bool, device=planes.device)
+    for b, n in enumerate(lengths):
+        pos = torch.arange(n, device=planes.device)
+        live[table[b, pos // ps].long(), pos % ps] = True
+    return planes.masked_fill(~live[None, :, :, None], float("nan"))
+
+
 def paged_kernel_phase(torch, dev, flush):
     """The paged decode kernel against its plain version (page sizes 16 and
     64, G in {1, 4, 8}, ragged lengths with 0 and an odd-page length, a
     window-256/sink-4 spec, shuffled pages), bitwise invariance to the
-    physical page order, (0, -inf) partials for a length-0 row; then its
-    time at the serving path's decode shape beside the contiguous kernel's."""
+    physical page order, (0, -inf) partials for a length-0 row, the same
+    partials with NaN in every pool row no length reaches; then its time at
+    the serving path's decode shape in turns with the contiguous kernel's."""
     from repro_torch.kernels import flash_decode as dec
     from repro_torch.kernels import ops
 
@@ -520,9 +549,17 @@ def paged_kernel_phase(torch, dev, flush):
                     fail("flash_decode_paged changed with the physical page order")
                 if not ((o[:HKV] == 0).all() and torch.isneginf(lse[:HKV]).all()):
                     fail("a length-0 row must give (o = 0, lse = -inf) partials")
+                o3, lse3 = dec.flash_decode_paged(
+                    q, stale_nan(torch, kp, table, lengths, ps),
+                    stale_nan(torch, vp, table, lengths, ps), lens, table, num_splits=8,
+                    window=window, sink=sink)
+                torch.cuda.synchronize()
+                if not (torch.equal(o2, o3) and torch.equal(lse2, lse3)):
+                    fail("flash_decode_paged changed with NaN in pool rows no length reaches")
                 err = max(err, eo)
-    log("flash_decode_paged: partials bitwise equal under a second shuffle of the pages, "
-        "and (0, -inf) for the length-0 row, in every case")
+    log("flash_decode_paged: partials bitwise equal under a second shuffle of the pages and "
+        "with NaN in every pool row no length reaches, and (0, -inf) for the length-0 row, "
+        "in every case")
 
     # Timing at the serving path's decode shape, as flash_decode is timed.
     G = HQ // HKV
@@ -544,11 +581,16 @@ def paged_kernel_phase(torch, dev, flush):
         return dec.flash_decode(qh, kc, vc, lens_run, num_splits=8)
 
     # 16 pages of 16 per split cut the cache where the contiguous kernel's
-    # 256-position chunks do, so the two kernels do the same arithmetic.
+    # 256-position chunks do, so the two kernels compute the same partials
+    # (in 16-row units against 64-row tiles: equal up to rounding).
     (o_c, lse_c), (o_p, lse_p) = contiguous(), paged()
-    log(f"flash_decode_paged vs flash_decode on the same cache at the timing shape: partials "
-        f"bitwise equal {torch.equal(o_c, o_p) and torch.equal(lse_c, lse_p)}, "
-        f"max|o diff|={max_err(torch, o_p, o_c):.3e}")
+    eo, el = max_err(torch, o_p, o_c), max_err(torch, lse_p, lse_c)
+    log(f"flash_decode_paged vs flash_decode on the same cache at the timing shape: "
+        f"max|o diff|={eo:.3e} (tol {DEC_TOL['o']}), max|lse diff|={el:.3e} (tol "
+        f"{DEC_TOL['lse']}); bitwise equal {torch.equal(o_c, o_p) and torch.equal(lse_c, lse_p)}")
+    if not (eo <= DEC_TOL["o"] and el <= DEC_TOL["lse"]):
+        fail("flash_decode_paged and flash_decode disagree on the same cache")
+    # In turns: contiguous, paged, paged, contiguous.
     c_ms = [time_ms(torch, contiguous, 50, flush)]
     p_ms = [time_ms(torch, paged, 50, flush), time_ms(torch, paged, 50, flush)]
     c_ms.append(time_ms(torch, contiguous, 50, flush))
@@ -563,11 +605,13 @@ def paged_kernel_phase(torch, dev, flush):
     ms = sum(p_ms) / 2
     log(f"flash_decode_paged B={B} lengths={lens_run.tolist()} {n_pages} pages of {ps} per row "
         f"(shuffled), splits {ns}: kernel {ms:.4f} ms (runs {p_ms[0]:.4f}, {p_ms[1]:.4f}), "
-        f"plain {plain_ms:.4f} ms, bound {paged_bound:.4f} ms ({paged_by}); contiguous "
-        f"flash_decode at the same lengths, same call: {c_ms[0]:.4f}, {c_ms[1]:.4f} ms")
+        f"plain {plain_ms:.4f} ms, bound {paged_bound:.4f} ms ({paged_by}), "
+        f"{ms / paged_bound:.2f}x the bound; in turns (contiguous, paged, paged, contiguous) "
+        f"with flash_decode at the same lengths: {c_ms[0]:.4f}, {c_ms[1]:.4f} ms, paged / "
+        f"contiguous {ms / (sum(c_ms) / 2):.4f}")
     return {"flash_decode_paged": dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=paged_bound, bound_by=paged_by,
-        library_ms=None, contiguous_ms_same_call=sum(c_ms) / 2)}
+        library_ms=None, contiguous_ms_in_turns=sum(c_ms) / 2)}
 
 
 def bwd_kernel_phase(torch, dev, flush):
@@ -683,12 +727,20 @@ def bwd_kernel_phase(torch, dev, flush):
     # less its forward) in turns: fused, SDPA fwd+bwd, SDPA fwd, SDPA fwd,
     # SDPA fwd+bwd, fused; dK/dV beside them.
     sdpa_fwd, sdpa_fwd_bwd = sdpa_calls(torch, q, k, v, do)
+
+    def split_total():
+        d = bwd.flash_bwd_delta(o, do)
+        bwd.flash_bwd_dkv(q, k, v, do, lse, d, spec, **tiles)
+        bwd.flash_bwd_dq(q, k, v, do, lse, d, spec, **tiles)
+
+    # The whole split backward (delta, dK/dV, dQ) in the same turns.
     calls = {"fused": lambda: bwd.flash_bwd_fused(*args, **tiles), "sdpa": sdpa_fwd_bwd,
-             "sdpa_fwd": sdpa_fwd}
+             "sdpa_fwd": sdpa_fwd, "split": split_total}
     turns = {name: [] for name in calls}
-    for name in ("fused", "sdpa", "sdpa_fwd", "sdpa_fwd", "sdpa", "fused"):
+    for name in ("fused", "split", "sdpa", "sdpa_fwd", "sdpa_fwd", "sdpa", "split", "fused"):
         turns[name].append(time_ms(torch, calls[name], 20, flush))
-    fused_ms, lib_fb_ms, lib_fwd_ms = (sum(turns[n]) / 2 for n in ("fused", "sdpa", "sdpa_fwd"))
+    fused_ms, lib_fb_ms, lib_fwd_ms, split_sdpa_ms = (
+        sum(turns[n]) / 2 for n in ("fused", "sdpa", "sdpa_fwd", "split"))
     lib_bwd_ms = lib_fb_ms - lib_fwd_ms
     fused_plain_ms = time_ms(torch, lambda: bwd.flash_bwd_fused_plain(*args, **tiles), 3, flush)
     # The same launch with dQ's staging and bulk reduction left out (dS K is
@@ -699,11 +751,6 @@ def bwd_kernel_phase(torch, dev, flush):
     dq_ms = time_ms(torch, lambda: bwd.flash_bwd_dq(*args, **tiles), 20, flush)
     dkv_plain_ms = time_ms(torch, lambda: bwd.flash_bwd_dkv_plain(*args, **tiles), 3, flush)
     dq_plain_ms = time_ms(torch, lambda: bwd.flash_bwd_dq_plain(*args, **tiles), 3, flush)
-
-    def split_total():
-        d = bwd.flash_bwd_delta(o, do)
-        bwd.flash_bwd_dkv(q, k, v, do, lse, d, spec, **tiles)
-        bwd.flash_bwd_dq(q, k, v, do, lse, d, spec, **tiles)
 
     def fused_total():
         d = bwd.flash_bwd_delta(o, do)
@@ -736,8 +783,9 @@ def bwd_kernel_phase(torch, dev, flush):
         f"{fused_plain_ms:.4f} ms, sdpa backward {lib_bwd_ms:.4f} ms (fwd+bwd "
         f"{lib_fb_ms:.4f} less fwd {lib_fwd_ms:.4f}), bound {fused_bound:.4f} ms ({fused_by}); "
         f"delta + fused {delta_ms + fused_ms:.4f} ms")
-    log(f"in turns (fused, sdpa, sdpa fwd, sdpa fwd, sdpa, fused), B={B} S={S}: fused "
-        f"{turns['fused'][0]:.4f}, {turns['fused'][1]:.4f} ms; sdpa fwd+bwd "
+    log(f"in turns (fused, split, sdpa, sdpa fwd, sdpa fwd, sdpa, split, fused), B={B} "
+        f"S={S}: fused {turns['fused'][0]:.4f}, {turns['fused'][1]:.4f} ms; split (delta + dkv "
+        f"+ dq) {turns['split'][0]:.4f}, {turns['split'][1]:.4f} ms; sdpa fwd+bwd "
         f"{turns['sdpa'][0]:.4f}, {turns['sdpa'][1]:.4f} ms; sdpa fwd "
         f"{turns['sdpa_fwd'][0]:.4f}, {turns['sdpa_fwd'][1]:.4f} ms; fused / sdpa backward "
         f"{fused_ms / lib_bwd_ms:.4f}; flash_bwd_dkv beside them {dkv_ms:.4f} ms "
@@ -749,7 +797,10 @@ def bwd_kernel_phase(torch, dev, flush):
         f"bound {dkv_bound:.4f} ms ({dkv_by}); library none (no one PyTorch call gives dK, dV "
         f"alone)")
     log(f"flash_bwd_dq B={B} S={S}: kernel {dq_ms:.4f} ms, plain {dq_plain_ms:.4f} ms, "
-        f"bound {dq_bound:.4f} ms ({dq_by}); library none (no one PyTorch call gives dQ alone)")
+        f"bound {dq_bound:.4f} ms ({dq_by}), {dq_ms / dq_bound:.2f}x the bound; library none "
+        f"(no one PyTorch call gives dQ alone); information: the split backward (delta + dkv + "
+        f"dq) {split_sdpa_ms:.4f} ms against sdpa's backward {lib_bwd_ms:.4f} ms in the same "
+        f"turns, {split_sdpa_ms / lib_bwd_ms:.4f}x")
     log(f"backward totals in turns (fused, split, split, fused), B={B} S={S}: delta + fused "
         f"{fused_total_ms:.4f} ms (runs {totals['fused'][0]:.4f}, {totals['fused'][1]:.4f}), "
         f"delta + dkv + dq (split) {split_total_ms:.4f} ms (runs {totals['split'][0]:.4f}, "
@@ -767,7 +818,8 @@ def bwd_kernel_phase(torch, dev, flush):
                               bound_ms=dkv_bound, bound_by=dkv_by, library_ms=None),
         "flash_bwd_dq": dict(max_abs_err=dq_err, ms=dq_ms, plain_ms=dq_plain_ms,
                              bound_ms=dq_bound, bound_by=dq_by, library_ms=None,
-                             split_total_ms_in_turns=split_total_ms),
+                             split_total_ms_in_turns=split_total_ms,
+                             split_backward_sdpa_ratio_in_turns=split_sdpa_ms / lib_bwd_ms),
         "flash_fwd_at_training_shape": dict(ms=fwd_ms, plain_ms=fwd_plain_ms,
                                             bound_ms=fwd_bound, bound_by=fwd_by,
                                             library_ms=fwd_lib_ms,
@@ -2411,8 +2463,8 @@ def main() -> None:
     for src in sources:
         log(f"ptxas report of csrc/{src}.cu:\n{_build.report_path(src).read_text()}")
     log("ptxas, registers and spills by kernel instantiation (registers at entry; the "
-        "forward's and the KV-stationary backward's warpgroups then run at 24 (producer) and "
-        "240 (consumers) by setmaxnreg):\n" + ptxas_summary(_build, sources))
+        "forward's, the KV-stationary backward's and the dq kernel's warpgroups then run at 24 "
+        "(producer) and 240 (consumers) by setmaxnreg):\n" + ptxas_summary(_build, sources))
 
     scratch = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     results = kernel_phase(torch, dev, scratch.zero_)

@@ -84,19 +84,54 @@
 // by the tensor cores.
 //
 // fa2_bwd_dq_kernel replaces src/repro/kernels/flash_bwd.py:459
-// flash_bwd_dq (compact body _dq_kernel_compact :422). It is Q-stationary:
-// one CTA of 4 warps per (q tile of 64 rows, batch * q head) walks its
-// slice of the forward's q-major table (build_q_tile_schedule) over the
-// visible kv tiles in ascending order, reading kv head h / G. The Q and
-// dO tiles stay in shared memory, lse and delta in registers (one value a
-// row), and K and V tiles stream through a 2-stage cp.async ring. Per
-// tile and warp (16 q rows): S = Q K^T and dP = dO V^T, P = exp(S - lse),
-// dS = P o (dP - delta), then dQ += dS K with dS taken from the registers
-// as bf16 A fragments and K through ldmatrix.trans (the shapes of the
-// forward's S = Q K^T and O += P V). dQ stays in f32 registers (64 a
-// thread) and is written once: a fixed order, so dQ is bitwise
-// reproducible. Three products per tile: bound by the tensor cores.
-// A CTA whose slice is empty still writes its zeros.
+// flash_bwd_dq (compact body _dq_kernel_compact :422). It is Q-stationary,
+// the twin of the forward (csrc/flash_fwd.cu) built from the same sm90.cuh
+// primitives: three products per visible tile (S = Q K^T, dP = dO V^T,
+// dQ += dS K), so at training lengths it is bound by the tensor cores, and
+// only wgmma fed by TMA reaches their rate. The design:
+//   * one CTA per (pair of 64-row q tiles 2m, 2m + 1, batch * q head): 384
+//     threads, a producer warpgroup (one warp works; setmaxnreg lowers it to
+//     24 registers) and two consumer warpgroups (raised to 240), one per q
+//     tile, each holding its 64 rows' dQ as an f32 wgmma accumulator (64
+//     registers a thread). High pairs (the longest causal walks) start
+//     first. An odd t_q leaves the last CTA one tile; its second warpgroup
+//     computes and writes nothing;
+//   * the producer loads the pair's Q and dO once by TMA (the 4-d (D, H, S,
+//     B) maps of the KV-stationary kernels), stages each row's lse (times
+//     log2 e, with the fused kernel's kHidden rule for a row that sees no
+//     key, +inf past Sq) and delta, then walks the ascending union of the
+//     two q tiles' slices of the q-major table (PairWalk with group 1, as
+//     the forward; kernels/schedule.py pair_walk), or under DENSE every kv
+//     tile, which it classifies for both q tiles. K_j and V_j stream through
+//     a 4-stage ring with full and empty mbarriers; under SEG the kv tile's
+//     ids follow by cp.async on the stage's barrier when a tile needs the
+//     element mask. Each step is handed over as a record (kv tile; per q
+//     tile: takes it, needs the element mask);
+//   * per taken step and consumer warpgroup: S = Q K^T and dP = dO V^T
+//     (wgmma m64n64k16, both operands from shared memory: Q, or Q and dO,
+//     as register fragments measured no faster, tools/ab_kernels.py);
+//     P = exp2(S log2 e - lse log2 e)
+//     with the element mask where the record asks for it; dS = P o (dP -
+//     delta), rounded to bf16 in registers as the A operand of dQ += dS K
+//     (m64n128k16, K read MN-major);
+//   * the warpgroup overlaps its own steps as the forward does: step j's S
+//     and dP are issued together with step j - 1's dS K, and step j's
+//     softmax and dS run while that product runs. The step record and the
+//     warpgroup index are broadcast from lane 0, and every taken step issues
+//     all three products (the first of a run with dS = 0, which adds exact
+//     zeros), so ptxas sees uniform branches and no accumulator defined
+//     between a product's issue and its wait, and serialises nothing;
+//   * dQ is written once, in f32, from the accumulator: a warpgroup takes
+//     exactly its own tile's steps in ascending kv order, with no atomics,
+//     so dQ is bitwise the same from launch to launch, and dense dQ is the
+//     compact dQ to the bit. A row that sees no key gets zeros.
+// What bounds it now (chip_smoke.py and tools/ab_kernels.py on an H100
+// 80GB HBM3 at 700 W, training shape): it runs at 3.25x its bound. A
+// 2-stage ring instead of 4 costs 1.27x, so the K/V stream matters; Q as
+// register fragments changes nothing, Q and dO cost 1.04x. One CTA an SM (194 KB of shared memory), so a CTA's prologue and
+// epilogue are not hidden; 64-column steps, so the waits and the record
+// hand-over come every 64 keys; causal pairs finish unevenly in the last
+// wave.
 //
 // Packed (varlen) batches take the SEG instantiation of the fused, dkv and
 // dq kernels, which replaces the segment branches of the same Pallas
@@ -106,17 +141,17 @@
 // the kernel's orientation), indexed by b = blockIdx.x / Hkv in the
 // KV-stationary kernels and by b = bh / Hq in the dq kernel:
 //   * a step without SEG_ACTIVE is skipped before its tiles are prefetched,
-//     so it costs neither a copy nor a product. In the KV-stationary walk a
-//     tile's entry without the bit is dropped from the union, and a step
-//     that neither tile keeps is never fetched; the ring's stage alternates
-//     with the count of fetched steps. The bits are read by every thread,
-//     so the barriers stay uniform;
+//     so it costs neither a copy nor a product. In both pair walks a tile's
+//     entry without the bit is dropped from the union, and a step that
+//     neither tile keeps is never fetched; the ring's stage alternates with
+//     the count of fetched steps. Only the producer reads the bits;
 //   * a step applies the element mask when it is flagged masked or lacks
 //     SEG_UNIFORM, and the mask then also needs q_id == kv_id. The owner
 //     tile's ids sit in registers (two rows a thread); the streamed tile's
 //     64 ids travel with it in the same stage (the KV-stationary
-//     producer's lanes copy them, the dq kernel's cp.async group). Rows past
-//     the end read as the masks.py sentinels;
+//     producer's lanes copy them; the dq producer's lanes by cp.async, only
+//     when a tile needs the element mask). Rows past the end read as the
+//     masks.py sentinels, or as 0 where the mask hides them anyway;
 //   * a kv tile with no active step writes zero dK and dV, a q tile zero
 //     dQ, as every CTA writes its whole tile anyway.
 // The SEG code of the fused and dkv kernels is one source, so split dK and
@@ -131,20 +166,20 @@
 // group, every q tile i = 0 .. t_q - 1 (the (g, i) order of the JAX dense
 // grid (BHk, t_kv, G, t_q), flash_bwd.py:291), a dq CTA every kv tile in
 // ascending order. Each step fetches its tiles (Q and dO, or K and V, with
-// SEG their ids) through the same ring, then classifies the tile in the
-// kernel (classify_tile: the spec, q_offset and the ragged kv edge; with
-// SEG the min and max of the owner's ids, reduced once, and of the staged
-// ids: the KV-stationary producer reduces them with shuffles, every dq
-// thread reads them from shared memory) and skips the products of an empty
-// one; a KV-stationary warpgroup classifies both tiles of its pair, so the
-// two agree on whether the step has a dQ product. The cost of the hidden tiles' copies is the point: this is
+// SEG their ids) through the same ring, then the producer classifies the
+// step for both tiles of its pair (classify_tile: the spec, q_offset and the
+// ragged kv edge; with SEG the min and max of the owners' ids, reduced
+// once, and of the staged ids, reduced with shuffles) and a warpgroup whose
+// tile is empty there skips the step's products; in the KV-stationary
+// kernels both tiles' classes decide whether the step has a dQ product. The
+// cost of the hidden tiles' copies is the point: this is
 // the baseline the compact schedule is measured against. Visible tiles
 // come in the compact order with the compact mask decisions, so dense dK,
 // dV and split dQ are the compact kernels' to the bit; the dense fused dQ
 // goes through the same bulk reductions and agrees up to their order.
 //
-// The delta and dq kernels still run on mma.sync and cp.async; the dq
-// kernel's redesign comes next.
+// The delta kernel is plain CUDA (16-byte loads and shuffles): it is bound
+// by HBM and needs no tensor core.
 //
 // Semantics match the JAX kernels: masked scores take the finite
 // DEFAULT_MASK_VALUE, K/V rows past the end read as zeros and are masked,
@@ -163,7 +198,6 @@ constexpr int kBlockM = 64;  // q rows of a streamed tile
 constexpr int kBlockN = 64;  // kv rows a CTA owns
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kDqThreads = 4 * 32;  // the dq kernel: one warp per 16 q rows
 
 struct DeltaParams {
   const __nv_bfloat16* o;
@@ -204,79 +238,9 @@ struct BwdParams {
   int n_vis;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* smem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
-}
-
-// Copy rows [row0, row0 + ROWS) of a (rows, D) slice with row stride
-// `stride` into shared memory; rows at or past `nrows` are zero-filled.
-template <int ROWS, int D, int STRIDE, int THREADS = kThreads>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long stride, int row0, int nrows) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += THREADS) {
-    const int r = idx / CHUNKS, c = idx % CHUNKS;
-    const int g = row0 + r;
-    const bool valid = g < nrows;
-    const __nv_bfloat16* from = valid ? src + g * stride + c * 8 : src;
-    cp_async16(dst + r * STRIDE + c * 8, from, valid);
-  }
-}
-
-// Copy the N segment ids of rows [row0, row0 + N) into shared memory in the
-// current cp.async group; ids at or past `nrows` read as `pad`.
-template <int N, int THREADS>
-__device__ __forceinline__ void load_ids(int* dst, const int* src, int row0, int nrows,
-                                         int pad) {
-  for (int r = threadIdx.x; r < N; r += THREADS) {
-    if (row0 + r < nrows)
-      cp_async4(dst + r, src + row0 + r);
-    else
-      dst[r] = pad;
-  }
 }
 
 // (empty, needs the element mask) of the tile of BM q positions from q_lo
@@ -326,17 +290,6 @@ __device__ __forceinline__ void id_range(const int* g, int row0, int nrows, int 
     const int id = row0 + r < nrows ? g[row0 + r] : pad;
     lo = min(lo, id);
     hi = max(hi, id);
-  }
-}
-
-// min and max of N staged ids in shared memory (broadcast reads).
-template <int N>
-__device__ __forceinline__ void id_range(const int* s, int& lo, int& hi) {
-  lo = hi = s[0];
-#pragma unroll 8
-  for (int r = 1; r < N; ++r) {
-    lo = min(lo, s[r]);
-    hi = max(hi, s[r]);
   }
 }
 
@@ -399,10 +352,10 @@ constexpr int kDqRow = 72;              // f32 dQ staging row: 64 values + 32 by
 // the two terms scaled apart, and a hidden element's exp2(kHidden log2(e) -
 // lse') is exp(kMaskValue - lse) on every row: 1 there, 0 elsewhere.
 
-// The TMA maps of one launch: q, dO (64-row boxes) and k, v (128-row boxes),
-// each a 4-d (D, H, S, B) view of the strided tensor, 64 columns a box,
-// 128-byte swizzled.
-struct KvMaps {
+// The TMA maps of one launch: q, dO (64-row boxes) and k, v (128-row boxes
+// in the KV-stationary kernels, 64 in the dq kernel), each a 4-d (D, H, S,
+// B) view of the strided tensor, 64 columns a box, 128-byte swizzled.
+struct BwdMaps {
   CUtensorMap q, dout, k, v;
 };
 
@@ -429,7 +382,7 @@ struct KvSmem {
 // kernel (no dS buffer, no dQ product, no staging; dK and dV bitwise the
 // same). SEG: the segment variant of either. DENSE: every q tile, no table.
 template <bool DQ, bool SEG, bool DENSE>
-__device__ __forceinline__ void kv_stationary(const BwdParams& p, const KvMaps& maps) {
+__device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps& maps) {
   using L = KvSmem<DQ>;
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are skipped before their fetch
   constexpr int BM = kBlockM;
@@ -800,14 +753,14 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const KvMaps& 
 
 template <int D, bool SEG, bool DENSE>
 __global__ void __launch_bounds__(kKvThreads, 1)
-    fa2_bwd_fused_kernel(const BwdParams p, const __grid_constant__ KvMaps maps) {
+    fa2_bwd_fused_kernel(const BwdParams p, const __grid_constant__ BwdMaps maps) {
   static_assert(D == 128, "the KV-stationary kernels take head_dim 128");
   kv_stationary<true, SEG, DENSE>(p, maps);
 }
 
 template <int D, bool SEG, bool DENSE>
 __global__ void __launch_bounds__(kKvThreads, 1)
-    fa2_bwd_dkv_kernel(const BwdParams p, const __grid_constant__ KvMaps maps) {
+    fa2_bwd_dkv_kernel(const BwdParams p, const __grid_constant__ BwdMaps maps) {
   static_assert(D == 128, "the KV-stationary kernels take head_dim 128");
   kv_stationary<false, SEG, DENSE>(p, maps);
 }
@@ -815,213 +768,359 @@ __global__ void __launch_bounds__(kKvThreads, 1)
 
 // --------------------------------------------------------------------- dq
 
-template <int D, bool SEG, bool DENSE>
-__global__ void __launch_bounds__(kDqThreads) fa2_bwd_dq_kernel(const BwdParams p) {
-  constexpr int BM = kBlockM;
-  constexpr int BN = kBlockN;
-  constexpr int STRIDE = D + 8;   // padded row: ldmatrix rows hit distinct banks
-  constexpr int KSTEPS = D / 16;  // k-steps of S and dP over head_dim
-  constexpr int NT_S = BN / 8;    // n-tiles over a tile's kv columns
-  constexpr int NT_D = D / 8;     // n-tiles over head_dim
+constexpr int kDqStages = 4;  // the dq kernel's K/V ring
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][STRIDE]
-  __nv_bfloat16* sdO = sQ + BM * STRIDE;                             // [BM][STRIDE]
-  __nv_bfloat16* sK = sdO + BM * STRIDE;                             // [2][BN][STRIDE]
-  __nv_bfloat16* sV = sK + 2 * BN * STRIDE;                          // [2][BN][STRIDE]
-  int* sKid = reinterpret_cast<int*>(sV + 2 * BN * STRIDE);          // SEG: [2][BN] kv ids
+// Shared memory of the dq kernel, in bytes from a 1024-aligned base: the
+// pair's Q and dO tiles (each two 64-column halves of 64 rows), the K and V
+// stages (64 rows each), each stage's kv ids (SEG) and step record, the
+// pair's 128 staged lse and delta values, then the mbarriers.
+struct DqSmem {
+  static constexpr uint32_t TILE = kBlockM * 128 * 2;  // 16 KB
+  static constexpr uint32_t Q = 0, DO = 2 * TILE, K = 4 * TILE;
+  static constexpr uint32_t V = K + kDqStages * TILE;
+  static constexpr uint32_t KID = V + kDqStages * TILE;
+  static constexpr uint32_t STEP = KID + kDqStages * kBlockN * 4;
+  static constexpr uint32_t LSE = STEP + kDqStages * 8;
+  static constexpr uint32_t DELTA = LSE + 2 * kBlockM * 4;
+  static constexpr uint32_t BARS = DELTA + 2 * kBlockM * 4;  // full, empty, q
+  static constexpr uint32_t BYTES = BARS + (2 * kDqStages + 1) * 8;
+};
 
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;  // this warp's 16 q rows within the tile
-  const int g8 = lane / 4, t4 = lane % 4;
-  const int qt = p.t_q - 1 - blockIdx.x;  // longest causal rows start first
-  const int bh = blockIdx.y;
-  const int b = bh / p.Hq, h = bh % p.Hq, hk = h / p.group;
-  const __nv_bfloat16* kg = p.k + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* vg = p.v + b * p.v_sb + hk * p.v_sh;
-  const int q0 = qt * BM;
-  // The walk: the table's steps [beg, end) of this q tile, or under DENSE
-  // every kv tile (step = kv tile).
-  const int beg = DENSE ? 0 : p.table[qt];
-  const int end = DENSE ? (p.Skv + BN - 1) / BN : p.table[qt + 1];
-  const int* steps = DENSE ? nullptr : p.table + p.t_q + 1;
-  const int row_a = q0 + warp * 16 + g8;  // this thread's two q rows
-  const int row_b = row_a + 8;
-  // SEG: this batch row's step bits (compact), and the ids of the thread's
-  // two rows; DENSE with SEG: the range of the q tile's ids.
-  constexpr bool SKIP = SEG && !DENSE;  // inactive steps are skipped before their fetch
-  const int* bits = SKIP ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
-  const int* kid_g = SEG ? p.kv_seg + b * p.kv_seg_sb : nullptr;
-  int qid[2] = {0, 0};
-  int qid_lo = 0, qid_hi = 0;
-  if (SEG) {
-    const int* qid_g = p.q_seg + b * p.q_seg_sb;
-    qid[0] = row_a < p.Sq ? qid_g[row_a] : kQPadSegment;
-    qid[1] = row_b < p.Sq ? qid_g[row_b] : kQPadSegment;
-    if (DENSE) id_range<BM>(qid_g, q0, p.Sq, kQPadSegment, qid_lo, qid_hi);
-  }
-  // The first active step at or after `it` (every step without SKIP).
-  auto next_active = [&](int it) {
-    if (SKIP)
-      while (it < end && !(bits[it] & kSegActive)) ++it;
-    return it;
-  };
-  auto tile_of = [&](int it) { return DENSE ? it : steps[it] >> 1; };
-  const int first = next_active(beg);
-
-  // dQ: rows row_a / row_b, columns t * 8 + 2 * t4.
-  float acc[NT_D][4];
+// dQ (64 x 128 f32) += dS (64 x 64 bf16, registers) K (64 x 128, a stage,
+// MN-major).
+__device__ __forceinline__ void ds_k_product(float (&dq)[64], const uint32_t (&pc)[4][4],
+                                             uint32_t k) {
 #pragma unroll
-  for (int t = 0; t < NT_D; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-
-  if (first < end) {
-    load_tile<BM, D, STRIDE, kDqThreads>(sQ, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq);
-    load_tile<BM, D, STRIDE, kDqThreads>(sdO, p.dout + b * p.d_sb + h * p.d_sh, p.d_ss, q0,
-                                         p.Sq);
-    const int j0 = tile_of(first);
-    load_tile<BN, D, STRIDE, kDqThreads>(sK, kg, p.k_ss, j0 * BN, p.Skv);
-    load_tile<BN, D, STRIDE, kDqThreads>(sV, vg, p.v_ss, j0 * BN, p.Skv);
-    if (SEG) load_ids<BN, kDqThreads>(sKid, kid_g, j0 * BN, p.Skv, kKvPadSegment);
-    cp_async_commit();
-
-    // lse (-inf -> 0; +inf past the end) and delta of the two rows.
-    float lse_r[2], delta_r[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r ? row_b : row_a;
-      const long long at = static_cast<long long>(bh) * p.Sq + row;
-      const float l = row < p.Sq ? p.lse[at] : INFINITY;
-      lse_r[r] = l == -INFINITY ? 0.f : l;
-      delta_r[r] = row < p.Sq ? p.delta[at] : 0.f;
-    }
-
-    // With SKIP, `nxt` skips inactive steps before their tiles are fetched,
-    // and `n` counts the tiles computed (the stage alternates with it).
-    for (int it = first, n = 0; it < end; ++n) {
-      const int nxt = SKIP ? next_active(it + 1) : it + 1;
-      const int stage = SKIP ? (n & 1) : ((it - beg) & 1);
-      if (nxt < end) {
-        const int jn = tile_of(nxt);
-        load_tile<BN, D, STRIDE, kDqThreads>(sK + (stage ^ 1) * BN * STRIDE, kg, p.k_ss,
-                                             jn * BN, p.Skv);
-        load_tile<BN, D, STRIDE, kDqThreads>(sV + (stage ^ 1) * BN * STRIDE, vg, p.v_ss,
-                                             jn * BN, p.Skv);
-        if (SEG) load_ids<BN, kDqThreads>(sKid + (stage ^ 1) * BN, kid_g, jn * BN, p.Skv,
-                                          kKvPadSegment);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-
-      const int j = tile_of(it);
-      const __nv_bfloat16* cK = sK + stage * BN * STRIDE;
-      const __nv_bfloat16* cV = sV + stage * BN * STRIDE;
-      const int* cKid = sKid + stage * BN;
-      bool masked, empty = false;
-      if (DENSE) {
-        TileClass c = classify_tile(p, q0 + p.q_offset, j * BN);
-        if (SEG) {
-          int lo, hi;
-          id_range<BN>(cKid, lo, hi);
-          c = with_ids(c, qid_lo, qid_hi, lo, hi);
-        }
-        empty = c.empty;
-        masked = c.mask;
-      } else {
-        masked = (steps[it] & 1) || (SEG && !(bits[it] & kSegUniform));
-      }
-      if (empty) {  // DENSE: fetched, nothing to compute
-        __syncthreads();  // this stage (its ids were read) is refilled next
-        it = nxt;
-        continue;
-      }
-
-      // S = Q K^T (line 11) and dP = dO V^T (line 13): this warp's 16 q
-      // rows x the tile's 64 kv columns, A fragments from sQ / sdO.
-      float s[NT_S][4], dp[NT_S][4];
-#pragma unroll
-      for (int t = 0; t < NT_S; ++t) {
-        s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-        dp[t][0] = dp[t][1] = dp[t][2] = dp[t][3] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        unsigned qa[4], da[4];
-        ldmatrix_x4(qa, sQ + (warp * 16 + (lane & 15)) * STRIDE + kk * 16 + (lane >> 4) * 8);
-        ldmatrix_x4(da, sdO + (warp * 16 + (lane & 15)) * STRIDE + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int np = 0; np < NT_S / 2; ++np) {
-          const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * STRIDE + kk * 16 +
-                          ((lane >> 3) & 1) * 8;
-          unsigned kb[4], vb[4];
-          ldmatrix_x4(kb, cK + off);
-          mma_bf16(s[2 * np], qa, kb[0], kb[1]);
-          mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
-          ldmatrix_x4(vb, cV + off);
-          mma_bf16(dp[2 * np], da, vb[0], vb[1]);
-          mma_bf16(dp[2 * np + 1], da, vb[2], vb[3]);
-        }
-      }
-
-      // P = exp(S - lse) (line 11), dS = P o (dP - delta) (line 14), into s.
-      // Element e is q row row_a (e < 2) or row_b, kv column
-      // j * BN + t * 8 + 2 * t4 + (e & 1).
-#pragma unroll
-      for (int t = 0; t < NT_S; ++t) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          float x = s[t][e];
-          if (masked) {
-            bool vis = visible(p, (r ? row_b : row_a) + p.q_offset,
-                               j * BN + t * 8 + 2 * t4 + (e & 1));
-            if (SEG) vis = vis && qid[r] == cKid[t * 8 + 2 * t4 + (e & 1)];
-            if (!vis) x = kMaskValue;
-          }
-          s[t][e] = expf(x - lse_r[r]) * (dp[t][e] - delta_r[r]);
-        }
-      }
-
-      // dQ += dS K (line 15): A = bf16 dS from the registers, B = K
-      // (kv rows x head_dim) through ldmatrix.trans.
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        const unsigned a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int dpair = 0; dpair < NT_D / 2; ++dpair) {
-          unsigned bfr[4];
-          ldmatrix_x4_trans(bfr, cK + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STRIDE +
-                                     dpair * 16 + (lane >> 4) * 8);
-          mma_bf16(acc[2 * dpair], a, bfr[0], bfr[1]);
-          mma_bf16(acc[2 * dpair + 1], a, bfr[2], bfr[3]);
-        }
-      }
-      __syncthreads();  // this stage is refilled two iterations on
-      it = nxt;
-    }
-  }
-
-  // dQ of the tile, written once (zeros where the slice is empty).
-  const long long rs = static_cast<long long>(p.Hq) * D;
-  float* out = p.dq + static_cast<long long>(b) * p.Sq * rs + h * D + 2 * t4;
-#pragma unroll
-  for (int t = 0; t < NT_D; ++t) {
-    if (row_a < p.Sq)
-      *reinterpret_cast<float2*>(out + row_a * rs + t * 8) = make_float2(acc[t][0], acc[t][1]);
-    if (row_b < p.Sq)
-      *reinterpret_cast<float2*>(out + row_b * rs + t * 8) = make_float2(acc[t][2], acc[t][3]);
-  }
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128(dq, pc[kk], sw128_desc(k + kk * 2048, 8192));
 }
 
-template <int D, bool SEG>
-size_t dq_smem_bytes() {
-  return static_cast<size_t>(2 * kBlockM + 4 * kBlockN) * (D + 8) * sizeof(__nv_bfloat16) +
-         (SEG ? 2 * kBlockN * sizeof(int) : 0);
+template <int D, bool SEG, bool DENSE>
+__global__ void __launch_bounds__(kKvThreads, 1)
+    fa2_bwd_dq_kernel(const BwdParams p, const __grid_constant__ BwdMaps maps) {
+  static_assert(D == 128, "the dq kernel takes head_dim 128");
+  using L = DqSmem;
+  constexpr bool SKIP = SEG && !DENSE;  // inactive steps are dropped before their fetch
+  constexpr int BM = kBlockM, BN = kBlockN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* empty = full + kDqStages;
+  uint64_t* q_bar = empty + kDqStages;
+  int* sKid = reinterpret_cast<int*>(sm + L::KID);
+  float* sLse = reinterpret_cast<float*>(sm + L::LSE);  // lse * log2(e), +inf past Sq
+  float* sDelta = reinterpret_cast<float*>(sm + L::DELTA);
+  // Per stage: (kv tile, step flags); a negative tile ends the walk. The
+  // producer walks and classifies; the consumers read this.
+  int2* sStep = reinterpret_cast<int2*>(sm + L::STEP);
+
+  const int i0 = 2 * ((p.t_q + 1) / 2 - 1 - static_cast<int>(blockIdx.x));  // longest walks first
+  const bool has1 = i0 + 1 < p.t_q;  // an odd t_q leaves the last pair one tile
+  const int bh = blockIdx.y;
+  const int b = bh / p.Hq, h = bh % p.Hq, hk = h / p.group;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes; TMA bytes on top
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(q_bar, 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform (see rec)
+  if (wg == 0) {
+    // Producer: one warp. Q, dO, lse and delta once; then, per step of the
+    // walk, K_j and V_j by TMA, the kv tile's ids (SEG) and the step's record.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(q_bar, (has1 ? 4 : 2) * L::TILE);
+        for (int x = 0; x < (has1 ? 2 : 1); ++x)
+          for (int half = 0; half < 2; ++half) {
+            tma_load(sm + L::Q + x * L::TILE + half * 8192, maps.q, q_bar, half * 64, h,
+                     (i0 + x) * BM, b);
+            tma_load(sm + L::DO + x * L::TILE + half * 8192, maps.dout, q_bar, half * 64, h,
+                     (i0 + x) * BM, b);
+          }
+      }
+      const long long row0 = static_cast<long long>(bh) * p.Sq;
+      for (int r = lane; r < 2 * BM; r += 32) {
+        const int qr = i0 * BM + r;
+        float l = INFINITY, d = 0.f;
+        if (qr < p.Sq) {
+          l = p.lse[row0 + qr];
+          l = l == -INFINITY        ? 0.f
+              : l < 0.5f * kMaskValue ? kHidden * kLog2e + (l - kMaskValue) * kLog2e
+                                      : l * kLog2e;  // kHidden: a row that sees no key
+          d = p.delta[row0 + qr];
+        }
+        sLse[r] = l;
+        sDelta[r] = d;
+      }
+      mbar_arrive(q_bar);
+
+      PairWalk<SKIP, DENSE> walk;
+      walk.group = 1;
+      walk.n_tiles = (p.Skv + BN - 1) / BN;
+      walk.g = 0;
+      if (DENSE) {
+        walk.steps = walk.bits = nullptr;
+        walk.a0 = walk.a1 = walk.b0 = walk.b1 = 0;
+      } else {
+        walk.steps = p.table + p.t_q + 1;
+        walk.bits = SKIP ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
+        walk.a0 = p.table[i0];
+        walk.a1 = p.table[i0 + 1];
+        walk.b0 = has1 ? p.table[i0 + 1] : 0;
+        walk.b1 = has1 ? p.table[i0 + 2] : 0;
+      }
+      walk.ia = walk.a0;
+      walk.ib = walk.b0;
+      const int* kid_g = SEG ? p.kv_seg + b * p.kv_seg_sb : nullptr;
+      int q_lo[2] = {0, 0}, q_hi[2] = {0, 0};  // DENSE with SEG: each q tile's id range
+      if (DENSE && SEG) {
+        const int* qid_g = p.q_seg + b * p.q_seg_sb;
+        for (int x = 0; x < 2; ++x) {
+          int lo = 0x7fffffff, hi = -0x7fffffff;
+          for (int r = (i0 + x) * BM + lane; r < (i0 + x + 1) * BM; r += 32) {
+            const int id = r < p.Sq ? qid_g[r] : kQPadSegment;
+            lo = min(lo, id);
+            hi = max(hi, id);
+          }
+          warp_range(lo, hi);
+          q_lo[x] = lo;
+          q_hi[x] = hi;
+        }
+      }
+      int g, j, ea, eb;
+      // (A `break` out of this loop crashes ptxas 12.9; the loop ends on `more`.)
+      bool more = true;
+      for (int n = 0; more; ++n) {
+        more = walk.next(g, j, ea, eb);
+        const int stage = n % kDqStages;
+        mbar_wait(&empty[stage], ((n / kDqStages) & 1) ^ 1);
+        if (!more) {  // the walk's end: a record with a negative tile, no copies
+          if (lane == 0) sStep[stage] = make_int2(-1, 0);
+          mbar_arrive(&full[stage]);
+          continue;
+        }
+        const int k0 = j * BN;
+        if (lane == 0) {
+          mbar_expect_tx(&full[stage], 2 * L::TILE);
+          for (int half = 0; half < 2; ++half) {
+            tma_load(sm + L::K + stage * L::TILE + half * 8192, maps.k, &full[stage], half * 64,
+                     hk, k0, b);
+            tma_load(sm + L::V + stage * L::TILE + half * 8192, maps.v, &full[stage], half * 64,
+                     hk, k0, b);
+          }
+        }
+        // Which tiles take the step, and which need the element mask: the
+        // table's flags and step bits, or under DENSE the classifier (with
+        // SEG on both tiles' id ranges, so it reads the kv ids first).
+        int flags = 0;
+        if (DENSE) {
+          int lo = 0x7fffffff, hi = -0x7fffffff;
+          if (SEG) {
+            for (int r = lane; r < BN; r += 32) {
+              const int id = k0 + r < p.Skv ? kid_g[k0 + r] : kKvPadSegment;
+              sKid[stage * BN + r] = id;
+              lo = min(lo, id);
+              hi = max(hi, id);
+            }
+            warp_range(lo, hi);
+          }
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            TileClass c = classify_tile(p, (i0 + x) * BM + p.q_offset, k0);
+            if (SEG) c = with_ids(c, q_lo[x], q_hi[x], lo, hi);
+            if ((x == 0 || has1) && !c.empty)
+              flags |= (x ? kTake1 : kTake0) | (c.mask ? (x ? kMask1 : kMask0) : 0);
+          }
+        } else {
+          if (ea >= 0)
+            flags |= kTake0 | ((walk.steps[ea] & 1) || (SEG && !(walk.bits[ea] & kSegUniform))
+                                   ? kMask0 : 0);
+          if (eb >= 0)
+            flags |= kTake1 | ((walk.steps[eb] & 1) || (SEG && !(walk.bits[eb] & kSegUniform))
+                                   ? kMask1 : 0);
+          // Only the element mask reads the kv ids: copy them when a tile
+          // needs it, by cp.async, whose completion the stage's full barrier
+          // also waits for. A row past Skv reads 0; the mask hides its
+          // column anyway (visible() is false past Skv).
+          if (SEG && (flags & (kMask0 | kMask1))) {
+            for (int r = lane; r < BN; r += 32) {
+              const bool in = k0 + r < p.Skv;
+              asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                               smem_u32(sKid + stage * BN + r)),
+                           "l"(kid_g + (in ? k0 + r : 0)), "r"(in ? 4 : 0)
+                           : "memory");
+            }
+            asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                             smem_u32(&full[stage]))
+                         : "memory");
+          }
+        }
+        if (lane == 0) sStep[stage] = make_int2(j, flags);
+        mbar_arrive(&full[stage]);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    // Consumer warpgroup w owns q tile i0 + w: rows q0 .. q0 + 63.
+    const int w = wg - 1;
+    const int t = threadIdx.x - 128 * wg;
+    const int wq = t / 32, lane = t % 32, g8 = lane / 4, t4 = lane % 4;
+    const int q0 = (i0 + w) * BM;
+    const int r_a = wq * 16 + g8;  // this thread's rows of the tile: r_a, r_a + 8
+    const int row_a = q0 + r_a, row_b = row_a + 8;
+    int qid[2] = {0, 0};
+    if (SEG) {
+      const int* qid_g = p.q_seg + b * p.q_seg_sb;
+      qid[0] = row_a < p.Sq ? qid_g[row_a] : kQPadSegment;
+      qid[1] = row_b < p.Sq ? qid_g[row_b] : kQPadSegment;
+    }
+    const int take = w ? kTake1 : kTake0, needs_mask = w ? kMask1 : kMask0;
+    const uint32_t sQ = smem_u32(sm + L::Q) + w * L::TILE;
+    const uint32_t sdO = smem_u32(sm + L::DO) + w * L::TILE;
+    const uint32_t sK = smem_u32(sm + L::K), sV = smem_u32(sm + L::V);
+
+    // dQ of the tile: rows r_a / r_a + 8, columns 8 tt + 2 t4 (+1).
+    float dq[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    uint32_t pc[4][4];  // dS of the pending step: bf16 A fragments of dQ += dS K
+    int pend = -1;      // the stage whose dQ += dS K is not issued yet
+
+    mbar_wait(q_bar, 0);
+    const float lse_r[2] = {sLse[w * BM + r_a], sLse[w * BM + r_a + 8]};
+    const float delta_r[2] = {sDelta[w * BM + r_a], sDelta[w * BM + r_a + 8]};
+    for (int n = 0;; ++n) {
+      const int stage = n % kDqStages;
+      mbar_wait(&full[stage], (n / kDqStages) & 1);
+      // The record, broadcast from lane 0: ptxas then sees the branches
+      // around the wgmmas as warp-uniform and does not serialise them.
+      int2 rec = sStep[stage];
+      rec.x = __shfl_sync(0xffffffffu, rec.x, 0);
+      rec.y = __shfl_sync(0xffffffffu, rec.y, 0);
+      if (rec.x < 0) break;
+      if (!(rec.y & take)) {
+        // Not this tile's step: finish the pending product, so that no stage
+        // stays held while the producer waits for it, and release both.
+        if (pend >= 0) {
+          wgmma_fence();
+          ds_k_product(dq, pc, sK + pend * L::TILE);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) fence_regs(pc[kk]);
+          mbar_arrive(&empty[pend]);
+          pend = -1;
+        }
+        mbar_arrive(&empty[stage]);
+        continue;
+      }
+      const int j = rec.x;
+      const uint32_t cK = sK + stage * L::TILE, cV = sV + stage * L::TILE;
+
+      // S = Q K^T (line 11) and dP = dO V^T (line 13), 64 x 64 over head_dim
+      // in two swizzled halves, issued together with the pending step's
+      // dQ += dS K (line 15). The first step of a run has none pending: it
+      // issues one with dS = 0 (dQ += 0 exactly), so the products and their
+      // waits are the same on every taken step.
+      const bool first = pend < 0;
+      if (first)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pc[kk][e] = 0u;
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_ss_n64<0, 0>(s, sw128_desc(sQ + (kk >> 2) * 8192 + (kk & 3) * 32, 16),
+                           sw128_desc(cK + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_ss_n64<0, 0>(dp, sw128_desc(sdO + (kk >> 2) * 8192 + (kk & 3) * 32, 16),
+                           sw128_desc(cV + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
+      wgmma_commit();
+      ds_k_product(dq, pc, sK + (first ? stage : pend) * L::TILE);
+      wgmma_commit();
+      wgmma_wait<2>();
+      fence_regs(s);
+
+      // P = exp2(S log2(e) - lse log2(e)); element i of n-block tt is row
+      // row_a (i < 2) or row_b, kv column j * 64 + 8 tt + 2 t4 + (i & 1). A
+      // hidden element scores kHidden: P is exp(mask - lse), 1 on a row that
+      // sees no key.
+      const bool masked = rec.y & needs_mask;
+      const int* cKid = sKid + stage * BN;
+#pragma unroll
+      for (int tt = 0; tt < 8; ++tt) {
+        const int cc = tt * 8 + 2 * t4;
+        int2 kid = make_int2(0, 0);
+        if (SEG && masked) kid = *reinterpret_cast<const int2*>(cKid + cc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x = s[4 * tt + i];
+          if (masked) {
+            bool vis = visible(p, (i < 2 ? row_a : row_b) + p.q_offset, j * BN + cc + (i & 1));
+            if (SEG) vis = vis && qid[i >> 1] == ((i & 1) ? kid.y : kid.x);
+            if (!vis) x = kHidden;
+          }
+          s[4 * tt + i] = exp2f(fmaf(x, kLog2e, -lse_r[i >> 1]));
+        }
+      }
+      wgmma_wait<1>();
+      fence_regs(dp);
+      // dS = P o (dP - delta) (line 14), rounded to bf16 as dS K's A operand.
+      uint32_t pn[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 8 * kk + 2 * e;  // rows a, b, a, b; columns 16 kk + 2 t4 (+8)
+          const float d = delta_r[e & 1];
+          pn[kk][e] = pack_bf16(s[i] * (dp[i] - d), s[i + 1] * (dp[i + 1] - d));
+        }
+      }
+      wgmma_wait<0>();  // the pending dQ += dS K is done: its stage is free
+      fence_regs(dq);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(pc[kk]);
+      if (!first) mbar_arrive(&empty[pend]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pc[kk][e] = pn[kk][e];
+      pend = stage;
+    }
+    if (pend >= 0) {  // the last step's dQ += dS K
+      wgmma_fence();
+      ds_k_product(dq, pc, sK + pend * L::TILE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(pc[kk]);
+      mbar_arrive(&empty[pend]);
+    }
+
+    // dQ of the tile, written once (zeros where the tile took no step).
+    const long long rs = static_cast<long long>(p.Hq) * D;
+    float* out = p.dq + static_cast<long long>(b) * p.Sq * rs + h * D + 2 * t4;
+#pragma unroll
+    for (int tt = 0; tt < D / 8; ++tt) {
+      if (row_a < p.Sq)
+        *reinterpret_cast<float2*>(out + row_a * rs + tt * 8) = make_float2(dq[4 * tt], dq[4 * tt + 1]);
+      if (row_b < p.Sq)
+        *reinterpret_cast<float2*>(out + row_b * rs + tt * 8) =
+            make_float2(dq[4 * tt + 2], dq[4 * tt + 3]);
+    }
+  }
 }
 
 // Fill the fields every backward kernel reads (all but dq, dk, dv, t_q, t_kv).
@@ -1056,16 +1155,6 @@ BwdParams bwd_params(const void* q, const void* k, const void* v, const void* do
   return p;
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, const BwdParams& p, dim3 grid, int threads, size_t smem,
-                   void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return cudaGetLastError();
-}
-
 // Whether an entry's arguments are consistent: segments are on with q ids;
 // the compact schedule reads a table (with segments, step bits too), the
 // dense one neither.
@@ -1075,19 +1164,19 @@ bool schedule_args_ok(const BwdParams& p, int dense) {
 }
 
 
-bool make_kv_maps(KvMaps* maps, const BwdParams& p, int batch) {
+bool make_maps(BwdMaps* maps, const BwdParams& p, int batch, int kv_rows) {
   return make_map(&maps->q, p.q, batch, p.Sq, p.Hq, 128, p.q_sb, p.q_ss, p.q_sh, kBlockM) &&
          make_map(&maps->dout, p.dout, batch, p.Sq, p.Hq, 128, p.d_sb, p.d_ss, p.d_sh, kBlockM) &&
-         make_map(&maps->k, p.k, batch, p.Skv, p.Hkv, 128, p.k_sb, p.k_ss, p.k_sh, kPairRows) &&
-         make_map(&maps->v, p.v, batch, p.Skv, p.Hkv, 128, p.v_sb, p.v_ss, p.v_sh, kPairRows);
+         make_map(&maps->k, p.k, batch, p.Skv, p.Hkv, 128, p.k_sb, p.k_ss, p.k_sh, kv_rows) &&
+         make_map(&maps->v, p.v, batch, p.Skv, p.Hkv, 128, p.v_sb, p.v_ss, p.v_sh, kv_rows);
 }
 
 // The KV-stationary kernels (fused: DQ) of one (SEG, DENSE) pair: one CTA
 // per (pair of kv tiles, batch * kv head).
 template <bool DQ, bool SEG, bool DENSE>
 cudaError_t launch_kv(const BwdParams& p, int batch, int t_kv, void* stream) {
-  KvMaps maps;
-  if (!make_kv_maps(&maps, p, batch)) return cudaErrorInvalidValue;
+  BwdMaps maps;
+  if (!make_maps(&maps, p, batch, kPairRows)) return cudaErrorInvalidValue;
   auto kernel = DQ ? fa2_bwd_fused_kernel<128, SEG, DENSE> : fa2_bwd_dkv_kernel<128, SEG, DENSE>;
   const size_t smem = KvSmem<DQ>::BYTES + 1024;  // + the 1024-byte alignment of the base
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1107,6 +1196,22 @@ cudaError_t dispatch_kv(const BwdParams& p, int batch, int t_kv, bool seg, bool 
                : launch_kv<DQ, false, true>(p, batch, t_kv, stream);
   return seg ? launch_kv<DQ, true, false>(p, batch, t_kv, stream)
              : launch_kv<DQ, false, false>(p, batch, t_kv, stream);
+}
+
+// The dq kernel of one (SEG, DENSE) pair: one CTA per (pair of q tiles,
+// batch * q head).
+template <bool SEG, bool DENSE>
+cudaError_t launch_dq(const BwdParams& p, int batch, void* stream) {
+  BwdMaps maps;
+  if (!make_maps(&maps, p, batch, kBlockN)) return cudaErrorInvalidValue;
+  auto kernel = fa2_bwd_dq_kernel<128, SEG, DENSE>;
+  const size_t smem = DqSmem::BYTES + 1024;  // + the 1024-byte alignment of the base
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((p.t_q + 1) / 2, batch * p.Hq), kKvThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(p, maps);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1196,16 +1301,9 @@ extern "C" int fa2_bwd_dq_bf16(const void* q, const void* k, const void* v, cons
                            n_vis);
   p.dq = static_cast<float*>(dq);
   p.t_q = t_q;
-  if (!schedule_args_ok(p, dense)) return cudaErrorInvalidValue;
-  const dim3 grid(t_q, batch * Hq);
+  if (t_q < 1 || !schedule_args_ok(p, dense)) return cudaErrorInvalidValue;
   const bool seg = q_seg != nullptr;
   if (dense)
-    return seg ? launch(fa2_bwd_dq_kernel<128, true, true>, p, grid, kDqThreads,
-                        dq_smem_bytes<128, true>(), stream)
-               : launch(fa2_bwd_dq_kernel<128, false, true>, p, grid, kDqThreads,
-                        dq_smem_bytes<128, false>(), stream);
-  return seg ? launch(fa2_bwd_dq_kernel<128, true, false>, p, grid, kDqThreads,
-                      dq_smem_bytes<128, true>(), stream)
-             : launch(fa2_bwd_dq_kernel<128, false, false>, p, grid, kDqThreads,
-                      dq_smem_bytes<128, false>(), stream);
+    return seg ? launch_dq<true, true>(p, batch, stream) : launch_dq<false, true>(p, batch, stream);
+  return seg ? launch_dq<true, false>(p, batch, stream) : launch_dq<false, false>(p, batch, stream);
 }

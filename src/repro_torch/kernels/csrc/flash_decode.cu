@@ -1,8 +1,7 @@
 // Split-KV flash decode for Hopper (sm_90a): one new token per sequence,
 // against a contiguous cache or through a block table into a page pool.
 //
-// Two entries share one tile body (decode_split), templated on how a cache
-// row's address is found:
+// Two entries, each with its own body:
 //   * fa2_decode_bf16 replaces the Pallas TPU kernel
 //     src/repro/kernels/flash_decode.py:77 flash_decode_kernel (body
 //     _decode_kernel :34). It reads the (B, S, Hkv, D) serving cache in
@@ -14,53 +13,92 @@
 //     tile's 64 ids travel with its K/V tile in the same cp.async group
 //     (256 bytes a stage); ids at or past the split's end read as -1. A
 //     split that sees nothing writes (0, -inf), and with all ids equal the
-//     arithmetic is the unsegmented kernel's, bit for bit.
+//     arithmetic is the unsegmented kernel's, bit for bit. Its body is
+//     decode_split below.
 //   * fa2_decode_paged_bf16 replaces src/repro/kernels/flash_decode.py:250
 //     flash_decode_paged_kernel (body _paged_decode_kernel :161). K/V live
 //     in the pool's page planes (Hkv, P, ps, D); logical row g of sequence
 //     b sits in physical page tbl[b, g / ps] at offset g % ps. Split c
 //     covers the pp logical pages [c * pp, c * pp + pp), the JAX geometry
-//     (ns = ceil(n_pages / pp)). The CTA reads its split's pp table entries
-//     once into shared memory.
-// Grid (batch * kv heads, splits): each CTA runs the G q heads of one GQA
-// group against one split and writes a locally normalized f32 partial
-// (o, lse) in the JAX layout, o_parts (B*Hkv, ns, G, D) and lse_parts
-// (B*Hkv, ns, G); the caller folds the splits with combine_lse_outputs.
+//     (ns = ceil(n_pages / pp)). Its body is fa2_decode_paged_kernel below.
+// Both write, per (batch * kv head, split), the G q heads of one GQA group
+// as a locally normalized f32 partial (o, lse) in the JAX layout, o_parts
+// (B*Hkv, ns, G, D) and lse_parts (B*Hkv, ns, G); the caller folds the
+// splits with combine_lse_outputs.
 //
-// What bounds it on an H100: decode does 4 * G * D flops per cached
+// What bounds them on an H100: decode does 4 * G * D flops per cached
 // position against 2 * D * 2 bytes of K/V, so it is bound by HBM (3.35
-// TB/s) by two orders of magnitude. The design therefore tries to move only
-// the bytes the data needs, once, with many of them in flight:
-//   * K/V are read in place (the JAX wrapper transposed the whole contiguous
-//     cache to head-major every step);
-//   * one K/V row is read once for all G q heads of its group;
-//   * positions at or past the sequence's length, and whole 64-row tiles
-//     outside the sliding window, are never read, so a short sequence in a
-//     long cache costs what its length costs; the paged entry reads no row
-//     that is not visible at all, so a page with no visible column, and a
-//     slot of length 0, cost no K/V traffic;
-//   * each 64-row K and V tile is copied to shared memory with cp.async,
-//     every 16-byte chunk of it in flight at once (with pages, each chunk's
-//     source comes from its row's page), in a two-stage ring so the next
-//     tile's copy overlaps this tile's math; scores and P V then read
-//     shared memory only.
-// Head dims: the contiguous kernel is instantiated at 128 (qwen3) and 64
-// (whisper; one thread per output column, so 64 threads and one thread per
-// cache row in the scores), the paged one at 128.
+// TB/s) by two orders of magnitude. Both move only the bytes the data needs,
+// once: K/V in place (the JAX wrapper transposed the whole contiguous cache
+// to head-major every step), one K/V row for all G q heads of its group, no
+// position at or past the sequence's length and no tile (contiguous) or page
+// (paged) without a visible position, so a short sequence in a long cache
+// costs what its length costs.
 //
-// Scores are f32 dot products of bf16 values; P is rounded to bf16 before
-// P V, as the JAX kernels do. Splits with no visible position give
-// (o = 0, lse = -inf). The arithmetic depends on logical positions only, so
-// the physical order of pages does not change a paged result by one bit.
+// decode_split: one CTA of D threads per (batch * kv head, split); each
+// 64-row K and V tile is copied to shared memory with cp.async, every
+// 16-byte chunk in flight at once, in a two-stage ring so the next tile's
+// copy overlaps this tile's math; scores with f32 FMAs, the softmax one warp
+// per q head and P V one thread per output column, with CTA-wide barriers
+// between them. Head dims 128 (qwen3) and 64 (whisper; one thread per
+// output column, so 64 threads and one thread per cache row in the scores).
+//
+// The paged body (head_dim 128) answers what held that design back at the
+// serving shape (B = 4, lengths 15 to 1508 of 2048, pages of 16, 8 splits):
+// one CTA of 4 warps per split left 88 of 256 CTAs with work and long
+// splits ran their tiles one after another; three CTA-wide barriers a tile
+// kept the 4 warps waiting on latency; each 16-byte chunk paid two integer
+// divisions by a run-time page size to find its page. Now:
+//   * a split is a cluster of two CTAs of four warps; its visible pages (at
+//     most two ascending runs: the sink's and the window's) are dealt to the
+//     eight warps in contiguous runs of ordinals (kernels/flash_decode.py
+//     paged_deal states the dealing), so at the serving shape 168 CTAs have
+//     work and a warp of a long split holds two pages;
+//   * each warp reads its own pages' table entries, once, and lane 0 moves
+//     each page of K and of V as one 1-D bulk copy (cp.async.bulk, ps * 256
+//     bytes; a page of more than 64 rows as pieces of 64) into the warp's
+//     own ring of stages (two, or one for pages over 32 rows), counted on an
+//     mbarrier; a page, or piece, without a visible row is never fetched;
+//   * the math is mma.sync (m16n8k16) on 16-row units with no CTA-wide
+//     barrier: S^T = K q^T with the unit's 16 kv rows as the fragment's
+//     rows and the G <= 8 q heads as its 8 columns (K read straight from the
+//     bulk-copied rows: the head_dim order of the fragments is permuted, the
+//     same for K and q, so each thread reads 16-byte runs); the online
+//     softmax in the exp2 domain per q head over the unit; O^T += V^T P^T
+//     with P^T moved between lanes by shuffles and V's rows reordered in
+//     registers (byte permutes). The unswizzled 256-byte rows cost 2-way
+//     (K) and 4-way (V) bank conflicts, which a bulk copy cannot avoid;
+//   * rows inside a fetched page that are not visible (past the length:
+//     stale pool data, possibly not finite) take the mask value in S and
+//     zeros in V, so their P is exactly 0 and nothing of them reaches O;
+//   * each warp keeps its own (m, l, acc) and leaves it in its CTA's shared
+//     memory; after a cluster barrier rank 0 merges the eight in worker
+//     order (by logical position), the other CTA's over distributed shared
+//     memory, a warp per q head so that a head's loads go out together, and
+//     a second barrier keeps the other CTA alive until it has read them.
+// What bounds it now (tools/ab_kernels.py on an H100 80GB HBM3 at 700 W,
+// serving shape, L2 flushed before each launch): a launch whose lengths are
+// all 0 takes 0.0065 ms, the copies and the merge without the math 0.0143,
+// the whole kernel 0.0160: the bulk copies' HBM latency, on top of the
+// launch, then the last warps' math and the merge. Measured slower: 8 warps
+// a CTA (1.25x), one CTA a split (1.04x), one stage a warp (1.01x), the
+// partials stored into rank 0's shared memory (1.06x), rank 0 merging a
+// head at a time (1.06x); the table read beside the length gains 1%.
+//
+// Scores are f32 sums of bf16 products; P is rounded to bf16 before P V, as
+// the JAX kernels do. Splits with no visible position give (o = 0, lse =
+// -inf). The arithmetic depends on logical positions only, so the physical
+// order of pages does not change a paged result by one bit.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
-constexpr float kMaskValue = -0.7f * 3.402823466e38f;  // DEFAULT_MASK_VALUE
+namespace cg = cooperative_groups;
+
 constexpr int kTile = 64;  // cache rows per tile
 constexpr int kMaxGroup = 8;
 
@@ -90,6 +128,7 @@ struct PagedParams {
   float* lse_parts;    // (B * Hkv, ns, G)
   int Hkv, G, P, ps, n_pages, pp, ns;
   int window, sink;  // window < 0: no window
+  int slots;         // ring stages of each warp
 };
 
 // Row g of one kv head in a contiguous cache.
@@ -100,20 +139,6 @@ struct ContiguousRows {
     return base + g * stride;
   }
   __device__ __forceinline__ const __nv_bfloat16* any() const { return base; }
-};
-
-// Logical row g of one kv head through the split's table entries (logical
-// pages page0 .. page0 + pp - 1, in shared memory).
-template <int D>
-struct PagedRows {
-  const __nv_bfloat16* plane;  // (P, ps, D) of this kv head
-  const int* tbl;
-  int page0, ps;
-  __device__ __forceinline__ const __nv_bfloat16* operator()(int g) const {
-    const long long page = tbl[g / ps - page0];
-    return plane + (page * ps + g % ps) * D;
-  }
-  __device__ __forceinline__ const __nv_bfloat16* any() const { return plane; }
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
@@ -366,41 +391,330 @@ __global__ void __launch_bounds__(D) fa2_decode_kernel(const DecodeParams p) {
                        p.lse_parts + part_idx * p.G, sK, sV);
 }
 
-template <int D>
-__global__ void __launch_bounds__(D) fa2_decode_paged_kernel(const PagedParams p) {
-  constexpr int STRIDE = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][kTile][STRIDE]
-  __nv_bfloat16* sV = sK + 2 * kTile * STRIDE;                     // [2][kTile][STRIDE]
-  int* s_tbl = reinterpret_cast<int*>(sV + 2 * kTile * STRIDE);    // [pp]
+// ------------------------------------------------------------ paged decode
 
-  const int bhk = blockIdx.x, split = blockIdx.y;
-  const int b = bhk / p.Hkv, hk = bhk % p.Hkv;
-  const int S = p.n_pages * p.ps;  // logical capacity: no column past it exists
-  const int L = min(p.lengths[b], S);
-  const int page0 = split * p.pp;
-  const int lo = page0 * p.ps;
-  const int end = min(min(lo + p.pp * p.ps, S), L);  // past it nothing is visible
-  const int n_tbl = min(p.pp, p.n_pages - page0);
-  for (int i = threadIdx.x; i < n_tbl; i += D) {
-    const int page = p.table[static_cast<long long>(b) * p.n_pages + page0 + i];
-    // An id outside the pool reads the null page rather than past the planes.
-    s_tbl[i] = (page >= 0 && page < p.P) ? page : 0;
+constexpr int kPagedWarps = 4;    // workers of a CTA, each owning whole pages
+constexpr int kPagedCluster = 2;  // CTAs of a split, merged through distributed shared memory
+constexpr int kPagedWorkers = kPagedWarps * kPagedCluster;
+constexpr int kPieceRows = 64;    // rows of one bulk copy: a page of up to 64 rows
+constexpr int kPartFloats = kMaxGroup * 128 + 2 * kMaxGroup;  // a worker's acc, m, l
+
+// The visible positions of a sequence of length L: [0, L), and with a window
+// only those at or past L - window or before the sink. The logical pages of
+// a split [page0, page1) that hold one form at most two ascending ranges
+// (the sink's pages, the window's pages), numbered by ordinal.
+struct VisiblePages {
+  int L, ps, win_lo, sink;  // win_lo: the first in-window position (0: no window)
+  int a0, a1, b0, b1, count;
+
+  __device__ VisiblePages(int L_, int ps_, int page0, int page1, int window, int sink_)
+      : L(L_), ps(ps_), win_lo(window < 0 ? 0 : max(L_ - window, 0)), sink(window < 0 ? 0 : sink_) {
+    const int past = (L + ps - 1) / ps;  // pages with a row before L
+    a0 = a1 = page0;
+    if (window >= 0) a1 = max(page0, min(page1, (min(sink, L) + ps - 1) / ps));
+    b0 = max(page0, win_lo / ps);
+    b1 = max(b0, min(page1, past));
+    if (a1 >= b0) {  // the ranges meet: one
+      b0 = a0;
+      b1 = max(a1, b1);
+      a1 = a0;
+    }
+    count = (a1 - a0) + (b1 - b0);
   }
-  __syncthreads();
+  __device__ __forceinline__ int page(int ordinal) const {
+    return ordinal < a1 - a0 ? a0 + ordinal : b0 + ordinal - (a1 - a0);
+  }
+  // Whether positions [lo, hi) hold a visible one.
+  __device__ __forceinline__ bool any(int lo, int hi) const {
+    hi = min(hi, L);
+    return lo < hi && (hi > win_lo || lo < sink);
+  }
+  __device__ __forceinline__ bool visible(int pos) const {
+    return pos < L && (pos >= win_lo || pos < sink);
+  }
+};
 
-  const long long plane = static_cast<long long>(hk) * p.P * p.ps * D;
-  const PagedRows<D> krows{p.k + plane, s_tbl, page0, p.ps};
-  const PagedRows<D> vrows{p.v + plane, s_tbl, page0, p.ps};
-  const int win_lo = p.window < 0 ? 0 : L - p.window;
-  const int window = p.window, sink = p.sink;
-  // Only visible rows are fetched: below the length, and inside the window
-  // or the sink.
-  const auto load = [=](int g) { return g < end && (window < 0 || g >= win_lo || g < sink); };
-  const long long part_idx = static_cast<long long>(bhk) * p.ns + split;
-  decode_split<D, false>(p.q + static_cast<long long>(bhk) * p.G * D, krows, vrows, load,
-                         Segments<false>{nullptr, 0}, p.G, L, lo, end, p.window, p.sink,
-                         p.o_parts + part_idx * p.G * D, p.lse_parts + part_idx * p.G, sK, sV);
+// The pieces (bulk copies of at most kPieceRows rows) with a visible row of
+// visible pages o .. o1 - 1, in logical order; a page of at most
+// kPieceRows rows is one piece.
+struct PieceWalk {
+  const VisiblePages* vis;
+  int o, o1, piece, pieces;
+  __device__ __forceinline__ bool next(int& page, int& pc) {
+    while (o < o1) {
+      page = vis->page(o);
+      pc = piece;
+      if (++piece == pieces) {
+        piece = 0;
+        ++o;
+      }
+      const int lo = page * vis->ps + pc * kPieceRows;
+      if (vis->any(lo, min(lo + kPieceRows, (page + 1) * vis->ps))) return true;
+    }
+    return false;
+  }
+};
+
+// c (16 x 8 f32) += a (16 x 16 bf16) b (16 x 8 bf16), mma.sync fragments.
+__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Word x (0 .. 3, known at compile time) of a 16-byte load.
+__device__ __forceinline__ uint32_t word(const uint4& v, int x) {
+  return x == 0 ? v.x : x == 1 ? v.y : x == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The paged split: a cluster of kPagedCluster CTAs of kPagedWarps warps, the
+// split's visible pages dealt to its kPagedWorkers warps in contiguous runs
+// of ordinals (kernels/flash_decode.py paged_deal). Each warp streams its
+// pages through its own ring of bulk copies and keeps its own (m, l, acc);
+// the CTA of rank 0 merges the workers in order and writes the partial.
+template <int D>
+__global__ void __cluster_dims__(1, kPagedCluster, 1) __launch_bounds__(kPagedWarps * 32)
+    fa2_decode_paged_kernel(const PagedParams p) {
+  static_assert(D == 128, "the paged decode takes head_dim 128");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bhk = blockIdx.x, split = blockIdx.y / kPagedCluster;
+  const int b = bhk / p.Hkv, hk = bhk % p.Hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g8 = lane / 4, c4 = lane % 4;
+  // q as the B operand of S^T = K q^T: column g8 (a q head; zeros past G),
+  // head_dim in the order of the K fragments below (words 16 kk2 + 4 c4 ..
+  // + 3 of a row feed k-steps 2 kk2 and 2 kk2 + 1). Loaded first, so that
+  // its latency overlaps the length's.
+  uint4 qb[4];
+#pragma unroll
+  for (int kk2 = 0; kk2 < 4; ++kk2) {
+    qb[kk2] = make_uint4(0u, 0u, 0u, 0u);
+    if (g8 < p.G)
+      qb[kk2] = *reinterpret_cast<const uint4*>(p.q + (static_cast<long long>(bhk) * p.G + g8) * D +
+                                                kk2 * 32 + c4 * 8);
+  }
+  const int L = max(min(p.lengths[b], p.n_pages * p.ps), 0);
+  const int page0 = split * p.pp;
+  const VisiblePages vis(L, p.ps, page0, min(page0 + p.pp, p.n_pages), p.window, p.sink);
+  const long long part = static_cast<long long>(bhk) * p.ns + split;
+  if (vis.count == 0) {  // nothing visible (the same in every CTA of the cluster): (0, -inf)
+    if (rank == 0)
+      for (int i = threadIdx.x; i < p.G * D; i += blockDim.x) {
+        p.o_parts[part * p.G * D + i] = 0.f;
+        if (i < p.G) p.lse_parts[part * p.G + i] = -INFINITY;
+      }
+    return;
+  }
+
+  // Shared memory: per warp `slots` stages of a K and a V piece (rows
+  // rounded up to 16), then each worker's (acc, m, l), then the warps'
+  // full barriers.
+  const int piece_rows = min(p.ps, kPieceRows);
+  const uint32_t half = static_cast<uint32_t>((piece_rows + 15) / 16 * 16) * D * 2;
+  unsigned char* ring = smem_raw + static_cast<size_t>(warp) * p.slots * 2 * half;
+  float* parts = reinterpret_cast<float*>(smem_raw + static_cast<size_t>(kPagedWarps) * p.slots * 2 * half);
+  uint64_t* full = reinterpret_cast<uint64_t*>(parts + kPagedWarps * kPartFloats) + warp * p.slots;
+  if (lane == 0) {
+    for (int s = 0; s < p.slots; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+
+  // This warp's visible ordinals and their pieces; lane 0 issues the
+  // copies `slots` pieces ahead of the math.
+  const int worker = rank * kPagedWarps + warp;
+  const int o0 = worker * vis.count / kPagedWorkers, o1 = (worker + 1) * vis.count / kPagedWorkers;
+  const int pieces = (p.ps + kPieceRows - 1) / kPieceRows;
+  PieceWalk walk{&vis, o0, o1, 0, pieces}, ahead = walk;
+  const __nv_bfloat16* kplane = p.k + static_cast<long long>(hk) * p.P * p.ps * D;
+  const __nv_bfloat16* vplane = p.v + static_cast<long long>(hk) * p.P * p.ps * D;
+  const int* tbl = p.table + static_cast<long long>(b) * p.n_pages;
+  int cur_page = -1, phys = 0;  // lane 0: the table entry of the last page issued
+  auto issue = [&](int n) {     // lane 0: the next piece of `ahead` into stage n % slots
+    int page, pc;
+    if (!ahead.next(page, pc)) return;
+    if (page != cur_page) {
+      cur_page = page;
+      phys = tbl[page];
+      if (phys < 0 || phys >= p.P) phys = 0;  // outside the pool: the null page
+    }
+    const int rows = min(kPieceRows, p.ps - pc * kPieceRows);
+    const long long at = (static_cast<long long>(phys) * p.ps + pc * kPieceRows) * D;
+    const uint32_t bytes = static_cast<uint32_t>(rows) * D * 2;
+    unsigned char* st = ring + static_cast<size_t>(n % p.slots) * 2 * half;
+    uint64_t* bar = &full[n % p.slots];
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+                 "r"(2 * bytes)
+                 : "memory");
+    bulk_load(st, kplane + at, bytes, bar);
+    bulk_load(st + half, vplane + at, bytes, bar);
+  };
+  if (lane == 0)
+    for (int n = 0; n < p.slots; ++n) issue(n);
+
+  // O^T (D x G) accumulators: m-tile mt, rows (head_dim) 16 g8 + 2 mt (+1),
+  // columns (q heads) 2 c4 (+1); the running max of heads 2 c4, 2 c4 + 1
+  // (natural log, and times log2 e) and this thread's share of their sums.
+  float acc[8][4];
+#pragma unroll
+  for (int mt = 0; mt < 8; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, ms[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  int page, pc;
+  for (int n = 0; walk.next(page, pc); ++n) {
+    mbar_wait(&full[n % p.slots], (n / p.slots) & 1);
+    const unsigned char* sk = ring + static_cast<size_t>(n % p.slots) * 2 * half;
+    const unsigned char* sv = sk + half;
+    const int base = page * p.ps + pc * kPieceRows;
+    const int rows = min(kPieceRows, p.ps - pc * kPieceRows);
+    for (int u = 0; u < rows; u += 16) {
+      // Units of 16 rows; row r is visible if it is one of the piece's and
+      // its position is. Rows that are not (past the length: stale pool
+      // data) take the mask value in S and zeros in V.
+      auto row_ok = [&](int r) { return u + r < rows && vis.visible(base + u + r); };
+      if (!vis.any(base + u, base + min(u + 16, rows))) continue;  // uniform in the warp
+      const unsigned char* ku = sk + u * D * 2;
+      const unsigned char* vu = sv + u * D * 2;
+      // S^T (16 kv rows x 8 heads) = K q^T: rows 2 g8, 2 g8 + 1 of the unit
+      // are the fragment's rows g8, g8 + 8.
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk2 = 0; kk2 < 4; ++kk2) {
+        const uint4 x = *reinterpret_cast<const uint4*>(ku + (2 * g8) * D * 2 + kk2 * 64 + c4 * 16);
+        const uint4 y =
+            *reinterpret_cast<const uint4*>(ku + (2 * g8 + 1) * D * 2 + kk2 * 64 + c4 * 16);
+        mma16816(c, x.x, y.x, x.y, y.y, qb[kk2].x, qb[kk2].y);
+        mma16816(c, x.z, y.z, x.w, y.w, qb[kk2].z, qb[kk2].w);
+      }
+      const bool va = row_ok(2 * g8), vb = row_ok(2 * g8 + 1);
+      if (!va) c[0] = c[1] = kMaskValue;
+      if (!vb) c[2] = c[3] = kMaskValue;
+      // Online softmax of heads 2 c4 (c0, c2) and 2 c4 + 1 (c1, c3) over the
+      // unit's rows: the max over the 8 lanes of the same c4.
+      float mx[2] = {fmaxf(c[0], c[2]), fmaxf(c[1], c[3])}, alpha[2], pr[2][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], off));
+        const float m_new = fmaxf(m[e], mx[e]), ms_new = m_new * kLog2e;
+        alpha[e] = exp2f(ms[e] - ms_new);  // 0 on the first unit (ms = -inf)
+        pr[e][0] = exp2f(fmaf(c[e], kLog2e, -ms_new));
+        pr[e][1] = exp2f(fmaf(c[e + 2], kLog2e, -ms_new));
+        l[e] = l[e] * alpha[e] + pr[e][0] + pr[e][1];
+        m[e] = m_new;
+        ms[e] = ms_new;
+      }
+#pragma unroll
+      for (int mt = 0; mt < 8; ++mt) {
+        acc[mt][0] *= alpha[0];
+        acc[mt][1] *= alpha[1];
+        acc[mt][2] *= alpha[0];
+        acc[mt][3] *= alpha[1];
+      }
+      // P^T as the B operand of O^T += V^T P^T (bf16, as the JAX kernel
+      // casts P): column g8, rows 2 c4 (+1) and 2 c4 + 8 (+9), from the lanes
+      // whose S^T rows those are.
+      const uint32_t pk[2] = {pack_bf16(pr[0][0], pr[0][1]), pack_bf16(pr[1][0], pr[1][1])};
+      const int src = 4 * c4 + (g8 >> 1);
+      const uint32_t e0 = __shfl_sync(0xffffffffu, pk[0], src);
+      const uint32_t d0 = __shfl_sync(0xffffffffu, pk[1], src);
+      const uint32_t e1 = __shfl_sync(0xffffffffu, pk[0], src + 16);
+      const uint32_t d1 = __shfl_sync(0xffffffffu, pk[1], src + 16);
+      const uint32_t b0 = (g8 & 1) ? d0 : e0, b1 = (g8 & 1) ? d1 : e1;
+      // V rows 2 c4, 2 c4 + 1, 2 c4 + 8, 2 c4 + 9, head_dim 16 g8 .. + 15
+      // (m-tile mt: word mt), zeros where the row is not visible.
+      uint4 vr[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 2 * c4 + (i & 1) + (i >> 1) * 8;
+        const bool ok = row_ok(r);
+#pragma unroll
+        for (int hlf = 0; hlf < 2; ++hlf) {
+          const uint4 x = *reinterpret_cast<const uint4*>(vu + r * D * 2 + g8 * 32 + hlf * 16);
+          vr[i][hlf] = ok ? x : make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 8; ++mt) {
+        const uint32_t w0 = word(vr[0][mt >> 2], mt & 3), w1 = word(vr[1][mt >> 2], mt & 3);
+        const uint32_t w2 = word(vr[2][mt >> 2], mt & 3), w3 = word(vr[3][mt >> 2], mt & 3);
+        mma16816(acc[mt], __byte_perm(w0, w1, 0x5410), __byte_perm(w0, w1, 0x7632),
+                 __byte_perm(w2, w3, 0x5410), __byte_perm(w2, w3, 0x7632), b0, b1);
+      }
+    }
+    __syncwarp();  // every lane has read this stage
+    if (lane == 0) issue(n + p.slots);
+  }
+
+  // This worker's (acc, m, l) into its CTA's shared memory: acc[g][d], then
+  // m[g], l[g].
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 4);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 8);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 16);
+  }
+  float* mine = parts + warp * kPartFloats;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    float* row = mine + (2 * c4 + e) * D + 16 * g8;
+#pragma unroll
+    for (int mt = 0; mt < 8; ++mt)
+      *reinterpret_cast<float2*>(row + 2 * mt) = make_float2(acc[mt][e], acc[mt][e + 2]);
+    if (g8 == 0) {
+      mine[kMaxGroup * D + 2 * c4 + e] = m[e];
+      mine[kMaxGroup * D + kMaxGroup + 2 * c4 + e] = l[e];
+    }
+  }
+  cluster.sync();  // every worker's partial is in its CTA's shared memory
+
+  // Rank 0 merges the workers in order (by logical position), the other
+  // CTA's over distributed shared memory: warp w takes heads w, w + 4, ..,
+  // lane l columns 4 l .. 4 l + 3, so that all the loads of a head go out
+  // together.
+  auto part_of = [&](int k) -> const float* {
+    return cluster.map_shared_rank(parts, k / kPagedWarps) + (k % kPagedWarps) * kPartFloats;
+  };
+  if (rank == 0) {
+    for (int g = warp; g < p.G; g += kPagedWarps) {
+      float mk[kPagedWorkers], lk[kPagedWorkers];
+      float4 ak[kPagedWorkers];
+#pragma unroll
+      for (int k = 0; k < kPagedWorkers; ++k) {
+        const float* w = part_of(k);
+        mk[k] = w[kMaxGroup * D + g];
+        lk[k] = w[kMaxGroup * D + kMaxGroup + g];
+        ak[k] = *reinterpret_cast<const float4*>(w + g * D + 4 * lane);
+      }
+      float mx = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < kPagedWorkers; ++k) mx = fmaxf(mx, mk[k]);
+      float sum = 0.f;
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < kPagedWorkers; ++k) {
+        const float e = expf(mk[k] - mx);  // 0 for a worker with no rows
+        sum += e * lk[k];
+        o.x += e * ak[k].x;
+        o.y += e * ak[k].y;
+        o.z += e * ak[k].z;
+        o.w += e * ak[k].w;
+      }
+      *reinterpret_cast<float4*>(p.o_parts + (part * p.G + g) * D + 4 * lane) =
+          make_float4(o.x / sum, o.y / sum, o.z / sum, o.w / sum);
+      if (lane == 0) p.lse_parts[part * p.G + g] = mx + logf(sum);
+    }
+  }
+  cluster.sync();  // rank 0 has read the other CTA's shared memory
 }
 
 template <class Kernel, class Params>
@@ -464,7 +778,12 @@ extern "C" int fa2_decode_paged_bf16(const void* q, const void* k_pages, const v
   p.Hkv = Hkv; p.G = G; p.P = P; p.ps = ps; p.n_pages = n_pages; p.pp = pp; p.ns = ns;
   p.window = window; p.sink = sink;
   if (G < 1 || G > kMaxGroup || head_dim != 128 || ps < 1 || pp < 1) return cudaErrorInvalidValue;
-  const size_t smem = ring_bytes<128>() + static_cast<size_t>(pp) * sizeof(int);
-  return launch(fa2_decode_paged_kernel<128>, p, dim3(batch * Hkv, ns), 128, smem,
-                static_cast<cudaStream_t>(stream));
+  // Two stages a warp where the ring stays within 128 KB (pieces of up to
+  // 32 rows), else one (pieces of 64 rows: 128 KB for the four warps).
+  const size_t half = static_cast<size_t>((min(ps, kPieceRows) + 15) / 16 * 16) * 128 * 2;
+  p.slots = 2 * kPagedWarps * 2 * half <= 128 * 1024 ? 2 : 1;
+  const size_t smem = kPagedWarps * (p.slots * (2 * half + sizeof(uint64_t)) +
+                                     kPartFloats * sizeof(float));
+  return launch(fa2_decode_paged_kernel<128>, p, dim3(batch * Hkv, ns * kPagedCluster),
+                kPagedWarps * 32, smem, static_cast<cudaStream_t>(stream));
 }

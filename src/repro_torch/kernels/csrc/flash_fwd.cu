@@ -234,14 +234,6 @@ __device__ __forceinline__ TileClass with_ids(TileClass c, int q_lo, int q_hi, i
   return c;
 }
 
-__device__ __forceinline__ void warp_range(int& lo, int& hi) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-  }
-}
-
 __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
   if (col >= p.Skv) return false;
   if (p.causal) {

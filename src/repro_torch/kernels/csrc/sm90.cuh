@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels of
-// flash_fwd.cu and flash_bwd.cu: mbarriers, TMA loads and their tensor maps,
-// bulk reductions, named barriers, wgmma and its shared-memory descriptors,
-// the walk of a CTA that owns a pair of tiles, and the constants of the step
-// tables and masks that both read. Header-only, in an anonymous namespace:
-// each source that includes it gets its own copy, and only what it uses is
-// compiled. The build (kernels/_build.py) hashes this header with every
-// source, so an edit here rebuilds both libraries.
+// flash_fwd.cu, flash_bwd.cu and flash_decode.cu: mbarriers, TMA loads and
+// their tensor maps, 1-D bulk copies, bulk reductions, named barriers, wgmma
+// and its shared-memory descriptors, the walk of a CTA that owns a pair of
+// tiles, and the constants of the step tables and masks that they read.
+// Header-only, in an anonymous namespace: each source that includes it gets
+// its own copy, and only what it uses is compiled. The build
+// (kernels/_build.py) hashes this header with every source, so an edit here
+// rebuilds every library.
 
 #pragma once
 
@@ -72,6 +73,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& map, uint
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_u32(bar)), "r"(d0), "r"(h), "r"(s0), "r"(b)
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global memory into shared memory; completion counts its bytes on
+// `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -204,6 +217,15 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The min and max of (lo, hi) over the 32 lanes of a warp.
+__device__ __forceinline__ void warp_range(int& lo, int& hi) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
 }
 
 // The walk of a CTA that owns a pair of tiles (a0 slice, b0 slice of one

@@ -14,7 +14,9 @@ them on an H100 and how the design answers):
   flash_decode_paged_kernel``. k/v are the page pool's planes
   (Hkv, P, page_size, D), read through an int32 block table (B, n_pages) of
   physical page ids (0 = the null page); each split covers ``pp`` logical
-  pages, the JAX geometry: :func:`paged_geometry`.
+  pages, the JAX geometry: :func:`paged_geometry`. Inside the kernel a
+  split's visible pages are dealt to eight warps (two CTAs of a cluster)
+  and merged back into the split's one partial: :func:`paged_deal`.
 
 Common layouts: q (B*Hkv, G, D) pre-scaled, the G q heads of each kv head
 together; lengths (B,) int32 visible entries per row (the JAX kernels take
@@ -214,9 +216,6 @@ def flash_decode_plain(q, k, v, lengths, *, num_splits: int = 8,
 flash_decode_plain.calls = 0
 
 
-# Table entries a CTA stages in shared memory beside its K/V ring (68 KB):
-# 16,384 of them keep the CTA within the H100's 227 KB.
-KERNEL_MAX_PAGES_PER_SPLIT = 16384
 
 
 def paged_geometry(n_pages: int, num_splits: int):
@@ -226,6 +225,50 @@ def paged_geometry(n_pages: int, num_splits: int):
     ns = max(1, min(num_splits, n_pages))
     pp = -(-n_pages // ns)
     return -(-n_pages // pp), pp
+
+
+# The paged kernel's workers per split: a cluster of 2 CTAs of 4 warps.
+PAGED_WORKERS = 8
+
+
+def paged_visible_runs(length: int, ps: int, page0: int, page1: int,
+                       window: Optional[int] = None, sink: int = 0):
+    """The logical pages in [page0, page1) that hold a visible position of a
+    sequence of ``length``, as ascending, disjoint (start, stop) runs: at most
+    two, the sink's pages and the window's (one without a window). A page is
+    visible as in ``flash_decode_paged_plain``: it starts before the length
+    and, with a window, ends past ``length - window`` or starts before the
+    sink."""
+    past = -(-length // ps)  # pages that start before the length
+    if window is None:
+        return [(page0, min(page1, past))] if min(page1, past) > page0 else []
+    sink_end = max(page0, min(page1, -(-min(sink, length) // ps)))
+    win0 = max(page0, max(length - window, 0) // ps)
+    win1 = max(win0, min(page1, past))
+    runs = [(page0, sink_end), (win0, win1)]
+    if sink_end >= win0:  # the two meet: one run
+        runs = [(page0, max(sink_end, win1))]
+    return [(a, b) for a, b in runs if b > a]
+
+
+def paged_deal(length: int, ps: int, n_pages: int, num_splits: int = 8,
+               window: Optional[int] = None, sink: int = 0, workers: int = PAGED_WORKERS):
+    """How the paged kernel deals a sequence's pages: per split of
+    :func:`paged_geometry`, per worker (warp ``w`` of cluster rank ``r`` is
+    worker ``4 r + w``), the logical pages it reads, ascending. The split's
+    visible pages, in logical order, go to the workers in contiguous runs:
+    worker ``k`` of ``n`` visible pages takes ordinals ``[k n // workers,
+    (k + 1) n // workers)``. The kernel merges the workers' partials in
+    worker order, which is logical order."""
+    ns, pp = paged_geometry(n_pages, num_splits)
+    length = max(min(length, n_pages * ps), 0)
+    deal = []
+    for c in range(ns):
+        pages = [p for a, b in paged_visible_runs(length, ps, c * pp, min(c * pp + pp, n_pages),
+                                                   window, sink) for p in range(a, b)]
+        n = len(pages)
+        deal.append([pages[k * n // workers:(k + 1) * n // workers] for k in range(workers)])
+    return deal
 
 
 def _check_paged_layout(q, k_pages, v_pages, lengths, block_table):
@@ -263,9 +306,6 @@ def flash_decode_paged(q, k_pages, v_pages, lengths, block_table, *, num_splits:
     if block_table.dtype != torch.int32 or block_table.device != q.device:
         raise TypeError(f"block_table must be int32 on {q.device}")
     ns, pp = paged_geometry(n_pages, num_splits)
-    if pp > KERNEL_MAX_PAGES_PER_SPLIT:
-        raise ValueError(f"{pp} pages per split exceed the kernel's "
-                         f"{KERNEL_MAX_PAGES_PER_SPLIT}; use more splits")
     o_parts = torch.empty((B * Hkv, ns, G, D), dtype=torch.float32, device=q.device)
     lse_parts = torch.empty((B * Hkv, ns, G), dtype=torch.float32, device=q.device)
     err = _lib().fa2_decode_paged_bf16(

@@ -170,6 +170,10 @@ BWD_CASES = [
     (1, 700, 32, 8, dict(causal=True, window=256), "contiguous"),
     (2, 700, 32, 8, dict(causal=True), "strided"),
     (1, 333, 8, 8, dict(causal=True, window=100, sink=4), "strided"),
+    # G 1 and 4 at q_offset -100 with an odd number of q tiles (the dQ
+    # kernel's last CTA holds one), one through strided views
+    (1, 700, 8, 8, dict(causal=True, q_offset=-100), "strided"),
+    (2, 333, 32, 8, dict(causal=True, q_offset=-100), "contiguous"),
 ]
 
 
@@ -220,8 +224,8 @@ def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec,
     """dkv and dq against their plain versions; dk and dv bitwise the fused
     kernel's (the same body without its dQ phase), the dense schedule's and,
     through the SEG kernels, all-ones ids' (the same walk, products and
-    order); dq bitwise the same from a second launch (no atomics); zeros
-    where a row sees no key."""
+    order); dq bitwise the same from a second launch (no atomics), the
+    dense schedule's and all-ones ids'; zeros where a row sees no key."""
     spec = MaskSpec(**spec)
     args = (*_bwd_inputs(cuda, B, S, Hq, Hkv, spec, view), spec)
     tiles = dict(block_q=64, block_kv=64)
@@ -238,6 +242,8 @@ def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec,
     dk_d, dv_d = bwd_mod.flash_bwd_dkv(*args, schedule="dense", **tiles)
     _, dk_fs, dv_fs = bwd_mod.flash_bwd_fused_varlen(*args, ones, ones, **tiles)
     dk_s, dv_s = bwd_mod.flash_bwd_dkv_varlen(*args, ones, ones, **tiles)
+    dq_d = bwd_mod.flash_bwd_dq(*args, schedule="dense", **tiles)
+    dq_s = bwd_mod.flash_bwd_dq_varlen(*args, ones, ones, **tiles)
     torch.cuda.synchronize()
     dk_p, dv_p = bwd_mod.flash_bwd_dkv_plain(*args, **tiles)
     dq_p = bwd_mod.flash_bwd_dq_plain(*args, **tiles)
@@ -247,7 +253,7 @@ def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec,
         assert _rel_err(a, b) < GRAD_REL_TOL, name
     for dk_x, dv_x in ((dk_f, dv_f), (dk_fd, dv_fd), (dk_d, dv_d), (dk_fs, dv_fs), (dk_s, dv_s)):
         assert torch.equal(dk, dk_x) and torch.equal(dv, dv_x)
-    assert torch.equal(dq, dq2)
+    assert torch.equal(dq, dq2) and torch.equal(dq, dq_d) and torch.equal(dq, dq_s)
     assert (dq[:, :_unseen_rows(spec)] == 0).all()
 
 
@@ -308,23 +314,39 @@ def _planes(c, table, ps):
     return out
 
 
+# (ps, G, window, sink, S, stale): S / ps pages a row; "stale" fills every
+# pool row that no length reaches (past each length inside its last page,
+# the unused pages, the null page) with NaN, and the kernel must give the
+# partials it gives with zeros there; 25 and 10 pages are not a multiple of
+# the 8 splits; pages of 128 rows go as two bulk copies each, the window
+# leaving some of them out.
+PAGED_CASES = [
+    (16, 4, None, 0, 512, False),
+    (64, 1, None, 0, 512, False),
+    (16, 8, 256, 4, 512, False),
+    (64, 4, 100, 0, 512, False),
+    (8, 2, None, 0, 512, False),
+    (16, 4, None, 0, 400, True),
+    (64, 8, 100, 4, 640, True),
+    (128, 4, 100, 4, 640, True),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("ps,G,window,sink", [
-    (16, 4, None, 0),
-    (64, 1, None, 0),
-    (16, 8, 256, 4),
-    (64, 4, 100, 0),
-    (8, 2, None, 0),
-])
-def test_paged_decode_kernel_matches_plain(cuda, ps, G, window, sink):
+@pytest.mark.parametrize("ps,G,window,sink,S,stale", PAGED_CASES)
+def test_paged_decode_kernel_matches_plain(cuda, ps, G, window, sink, S, stale):
     """The paged kernel against its plain version (ragged lengths with 0 and
     an odd-page length); bitwise the same partials under a second shuffle
-    of the physical pages; (0, -inf) partials for the length-0 row."""
+    of the physical pages; (0, -inf) partials for the length-0 row; with
+    ``stale``, the same partials with NaN in the rows no length reaches."""
     gen = torch.Generator(device=cuda).manual_seed(4)
-    B, S, Hkv = 4, 512, 8
+    B, Hkv = 4, 8
     q = _randn(gen, (B * Hkv, G, 128), cuda)
     kc, vc = _randn(gen, (B, S, Hkv, 128), cuda), _randn(gen, (B, S, Hkv, 128), cuda)
-    lens = torch.tensor([0, 1, 333, 512], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([0, 1, 333, S], dtype=torch.int32, device=cuda)
+    if stale:
+        past = torch.arange(S, device=cuda)[None] >= lens[:, None]  # (B, S)
+        kc, vc = (c.masked_fill(past[..., None, None], 0.0) for c in (kc, vc))
     parts = []
     for seed in (0, 1):
         perm = torch.randperm(B * (S // ps), generator=torch.Generator().manual_seed(seed)) + 1
@@ -344,6 +366,17 @@ def test_paged_decode_kernel_matches_plain(cuda, ps, G, window, sink):
     assert _err(lse, lse_p) < LSE_TOL
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     assert (o[:Hkv] == 0).all() and torch.isneginf(lse[:Hkv]).all()
+    if stale:
+        pos = torch.arange(S, device=cuda)
+        live = torch.zeros(kp.shape[1:3], dtype=torch.bool, device=cuda)  # (pages, ps)
+        for b in range(B):
+            seen = pos < lens[b]
+            live[table[b, pos[seen] // ps].long(), pos[seen] % ps] = True
+        kn, vn = (x.masked_fill(~live[None, :, :, None], float("nan")) for x in (kp, vp))
+        o3, lse3 = dec_mod.flash_decode_paged(q, kn, vn, lens, table, num_splits=8,
+                                              window=window, sink=sink)
+        torch.cuda.synchronize()
+        assert torch.equal(o2, o3) and torch.equal(lse2, lse3)
 
 
 @pytest.mark.gpu
@@ -439,6 +472,8 @@ VARLEN_CASES = [
     (2, 300, 16, 4, dict(causal=False), "packed"),
     (2, 700, 32, 8, dict(causal=True), "distinct"),
     (2, 700, 32, 8, dict(causal=True), "half"),
+    (1, 700, 8, 8, dict(causal=True), "half"),
+    (1, 333, 32, 8, dict(causal=True, window=100, sink=4), "half"),
 ]
 
 
@@ -765,6 +800,7 @@ DENSE_CASES = [
     (1, 700, 8, 8, dict(causal=True, window=256, sink=4), "packed"),
     (2, 700, 32, 8, dict(causal=True), "distinct"),
     (2, 700, 32, 8, dict(causal=True), "half"),
+    (1, 700, 8, 8, dict(causal=True), "half"),
 ]
 
 
