@@ -75,7 +75,26 @@ Phases (any failure exits non-zero; there is no CPU fallback):
  13. the dense training slice: phase 9 (split backward) with
      schedule="dense"; counts exact (the dense forward, dK/dV and dQ, the
      delta pre-pass; every compact kernel and plain version 0), every
-     step's loss bitwise phase 9's, the step reported beside phase 9's.
+     step's loss bitwise phase 9's, the step reported beside phase 9's;
+ 14. the north star's preset: gpt-20m at its published widths (4 layers,
+     d_model 256, 4 heads of 64) in bf16 through the train CLI's ``train``,
+     8 steps at B = 8, S = 512, with the fused and with the split backward,
+     and once through impl="ref"; counts exact (per layer and step the
+     forward, delta, then fused or dK/dV + dQ once, all at head_dim 64), the
+     loss must fall and follow the reference's; tokens/s, MFU, peak memory;
+ 15. whisper-base training at its published widths and depth, B = 8
+     utterances of 1500 seeded frame embeddings and 448 tokens, 8 AdamW
+     steps through ``build_train_step``, then through impl="ref"; counts
+     exact (remat: the forward twice an attention call), the loss must fall
+     and follow the reference's; tokens/s and peak memory.
+Phase 3 also holds the four backward kernels at head_dim 64 against their
+plain versions at whisper's encoder (B 8, S 1500, FULL), cross-attention
+(448 rows against 1500 frames), decoder (448, causal) and gpt-20m's
+(B 8, S 512, 4 heads, causal) shapes, their SEG and DENSE forms at the
+decoder's, with the bitwise invariants (split dK/dV the fused kernel's, dQ
+over two launches, dense the compact kernels', all-ones ids the
+unsegmented kernels'), and times the fused and the split backward at each
+shape in turns with SDPA's backward, beside the bounds.
 Phase 3 also holds this slice's kernels against their plain versions and
 times them: the split-KV forward at whisper's cross-attention (B = 1 and 4,
 4 prompt rows against 1500 frames, head_dim 64; the auto split count and a
@@ -166,6 +185,18 @@ PARITY_LAYERS, PARITY_S = 2, 1024
 PARITY_LOSS_REL = 1e-4
 PARITY_COS = 0.999
 PARITY_REL = 0.03
+# The gpt-20m preset in bf16 through the train CLI's train() (B, S, steps),
+# and whisper-base training (B 8, WH_FRAMES frames, WH_CACHE tokens). Losses
+# against impl="ref" (f32 attention inside, P never rounded) from the same
+# weights and batches, relative: step 0 within the qwen3 phases'
+# PARITY_LOSS_REL (the same weights and batch; only attention's rounding
+# differs), every later step within one bf16 ulp (2^-8), the rounding the
+# kernels' bf16 P carries through the AdamW updates. The first chip run
+# read step 0 at 2.8e-5 (gpt-20m) and 1.4e-5 (whisper-base), and at most
+# 3.9e-4 over 8 steps.
+GPT_B, GPT_S, GPT_STEPS = 8, 512, 8
+WH_TRAIN_B, WH_TRAIN_STEPS = 8, 8
+GPT_LOSS_REL = WH_LOSS_REL = 2.0 ** -8
 
 
 def log(msg: str) -> None:
@@ -259,15 +290,16 @@ def max_err(torch, a, b) -> float:
     return (a.float()[fin] - b.float()[fin]).abs().max().item() if fin.any() else 0.0
 
 
-def sdpa_calls(torch, q, k, v, do, mask=None):
+def sdpa_calls(torch, q, k, v, do, mask=None, causal=True):
     """The library yardstick on the kernels' inputs (q pre-scaled, so scale
     1; GQA): SDPA's forward and its forward + backward as two calls.
-    Causal, or with the boolean ``mask`` (B, 1, Sq, Skv)."""
+    Causal (or with ``causal`` False, FULL), or with the boolean ``mask``
+    (B, 1, Sq, Skv)."""
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
-    kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+    kw = dict(is_causal=causal) if mask is None else dict(attn_mask=mask)
 
     def fwd_only():
         with torch.no_grad():
@@ -293,20 +325,24 @@ def in_turns(torch, kernel, library, iters: int, flush):
     return (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2, [round(t, 4) for t in runs]
 
 
-def attention_bounds(pairs: int, B: int, S: int, id_bytes: int = 0) -> dict:
+def attention_bounds(pairs: int, B: int, S: int, id_bytes: int = 0, *, Skv=None, Hq=HQ,
+                     Hkv=HKV, D=HD) -> dict:
     """Roofline bounds (ms, what bounds) of the forward, fused, dK/dV and dQ
-    kernels at qwen3 widths, B x S: ``pairs`` (q, k) pairs the mask needs
-    per q head, summed over the batch; each input read once, each output
-    written once (the gradients in f32), the segment ids' ``id_bytes``."""
-    q_bytes = B * S * HQ * HD * 2
-    kv_bytes = B * S * HKV * HD * 2
-    row_bytes = B * HQ * S * 4
+    kernels at qwen3 widths (or ``Hq``, ``Hkv``, ``D``), B x S q rows
+    against ``Skv`` (default S) kv rows: ``pairs`` (q, k) pairs the mask
+    needs per q head, summed over the batch; each input read once, each
+    output written once (the gradients in f32), the segment ids'
+    ``id_bytes``."""
+    Skv = S if Skv is None else Skv
+    q_bytes = B * S * Hq * D * 2
+    kv_bytes = B * Skv * Hkv * D * 2
+    row_bytes = B * Hq * S * 4
     in_bytes = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + id_bytes  # q, dO, k, v, lse, delta
     return {
-        "flash_fwd": bound(4 * HD * pairs * HQ, 2 * q_bytes + 2 * kv_bytes + row_bytes + id_bytes),
-        "flash_bwd_fused": bound(10 * HD * pairs * HQ, in_bytes + 2 * q_bytes + 4 * kv_bytes),
-        "flash_bwd_dkv": bound(8 * HD * pairs * HQ, in_bytes + 4 * kv_bytes),
-        "flash_bwd_dq": bound(6 * HD * pairs * HQ, in_bytes + 2 * q_bytes),
+        "flash_fwd": bound(4 * D * pairs * Hq, 2 * q_bytes + 2 * kv_bytes + row_bytes + id_bytes),
+        "flash_bwd_fused": bound(10 * D * pairs * Hq, in_bytes + 2 * q_bytes + 4 * kv_bytes),
+        "flash_bwd_dkv": bound(8 * D * pairs * Hq, in_bytes + 4 * kv_bytes),
+        "flash_bwd_dq": bound(6 * D * pairs * Hq, in_bytes + 2 * q_bytes),
     }
 
 
@@ -1843,28 +1879,233 @@ def whisper_kernel_phase(torch, dev, flush):
     return out
 
 
-class DenseCount:
-    """A wrapper's dense-schedule launch count, read and zeroed through
-    ``launches`` like the wrappers' own (compact) counts."""
+# The head_dim-64 backward's shapes, (B, Sq, Skv, heads, causal): whisper-base's
+# encoder (1500 frames, FULL), cross-attention (448 decoder rows against the
+# frames), decoder (448 rows, causal), all at B 8 and 8 heads, and the gpt-20m
+# preset's training step (B 8, S 512, 4 heads, causal).
+HD64_SHAPES = {
+    "encoder": (8, 1500, 1500, 8, False),
+    "cross": (8, 448, 1500, 8, False),
+    "decoder": (8, 448, 448, 8, True),
+    "gpt20m": (8, 512, 512, 4, True),
+}
+HD64_NAMES = ("flash_bwd_delta", "flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq")
 
-    def __init__(self, wrapper):
-        self.wrapper = wrapper
+
+def bwd_hd64_kernel_phase(torch, dev, flush):
+    """The four backward kernels at head_dim 64 against their plain versions
+    at every HD64_SHAPES shape (the SEG and DENSE forms of fused, dK/dV and
+    dQ at the decoder's), with the bitwise invariants (split dK/dV the fused
+    kernel's, dQ over two launches, dense the compact kernels', all-ones ids
+    the unsegmented kernels'); then each shape's times after an L2 flush:
+    the fused and the whole split backward in turns with SDPA's backward
+    (fused, split, sdpa, sdpa fwd, sdpa fwd, sdpa, split, fused), delta,
+    dK/dV and dQ alone, the plain versions, and the bounds. The encoder's
+    shape gives each kernel's top-level numbers; every shape's are under
+    ``at_shapes``."""
+    from repro_torch.core.masks import MaskSpec
+    from repro_torch.kernels import flash_bwd as bwd
+    from repro_torch.kernels import flash_fwd as fwd
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.schedule import build_kv_tile_schedule
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    D = 64
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    tiles = dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
+    errs = {name: 0.0 for name in HD64_NAMES}
+    at = {name: {} for name in HD64_NAMES}
+    for shape, (B, Sq, Skv, H, causal) in HD64_SHAPES.items():
+        spec = MaskSpec(causal=causal)
+        what = f"{shape} B={B} Sq={Sq} Skv={Skv} H={H} D={D} {'causal' if causal else 'FULL'}"
+        q = ops._prep(randn(B, Sq, H, D), 1 / math.sqrt(D))
+        k, v, do = randn(B, Skv, H, D), randn(B, Skv, H, D), randn(B, Sq, H, D)
+        o, lse = fwd.flash_fwd(q, k, v, spec, **tiles)
+        delta = bwd.flash_bwd_delta(o, do)
+        args = (q, k, v, do, lse, delta, spec)
+        fused = bwd.flash_bwd_fused(*args, **tiles)
+        dq_f2 = bwd.flash_bwd_fused(*args, **tiles)[0]
+        dk, dv = bwd.flash_bwd_dkv(*args, **tiles)
+        dq, dq2 = (bwd.flash_bwd_dq(*args, **tiles) for _ in range(2))
+        torch.cuda.synchronize()
+        plain = bwd.flash_bwd_fused_plain(*args, **tiles)
+        got = {"flash_bwd_delta": (delta,), "flash_bwd_fused": fused,
+               "flash_bwd_dkv": (dk, dv), "flash_bwd_dq": (dq,)}
+        want = {"flash_bwd_delta": (bwd.flash_bwd_delta_plain(o, do),),
+                "flash_bwd_fused": plain,
+                "flash_bwd_dkv": bwd.flash_bwd_dkv_plain(*args, **tiles),
+                "flash_bwd_dq": (bwd.flash_bwd_dq_plain(*args, **tiles),)}
+        rel = {}
+        for name in HD64_NAMES:
+            for a in got[name]:
+                if not torch.isfinite(a).all():
+                    fail(f"{name} (head_dim 64) gave a non-finite output at {what}")
+            e = max(max_err(torch, a, b) for a, b in zip(got[name], want[name]))
+            errs[name] = max(errs[name], e)
+            rel[name] = max(max_err(torch, a, b) / max(b.abs().max().item(), 1e-6)
+                            for a, b in zip(got[name], want[name]))
+        bitwise = (torch.equal(dk, fused[1]) and torch.equal(dv, fused[2]), torch.equal(dq, dq2))
+        log(f"backward at head_dim 64, {what}: max|delta-plain|="
+            f"{max_err(torch, delta, want['flash_bwd_delta'][0]):.3e} "
+            f"(tol {DELTA_TOL}); worst relative error fused {rel['flash_bwd_fused']:.3e}, dK/dV "
+            f"{rel['flash_bwd_dkv']:.3e}, dQ {rel['flash_bwd_dq']:.3e} (tol {GRAD_REL_TOL}); split "
+            f"dk, dv bitwise the fused kernel's: {bitwise[0]}; dq of two split launches bitwise "
+            f"equal: {bitwise[1]}; fused dq elements that differ between two launches: "
+            f"{int((fused[0] != dq_f2).sum())} of {dq.numel()}")
+        if not max_err(torch, delta, want["flash_bwd_delta"][0]) <= DELTA_TOL:
+            fail(f"flash_bwd_delta (head_dim 64) disagrees with its plain version at {what}")
+        if not max(rel[n] for n in HD64_NAMES[1:]) <= GRAD_REL_TOL:
+            fail(f"a backward kernel (head_dim 64) disagrees with its plain version at {what}")
+        if not all(bitwise):
+            fail(f"a bitwise invariant of the split backward fails at head_dim 64, {what}")
+        if shape == "decoder":
+            seg_dense_checks(torch, dev, args, fused, dk, dv, dq, tiles, what)
+
+        # Times after an L2 flush; bounds by the causal or FULL pairs.
+        pairs = B * (Sq * (Sq + 1) // 2 if causal else Sq * Skv)
+        bounds = attention_bounds(pairs, B, Sq, Skv=Skv, Hq=H, Hkv=H, D=D)
+        bounds["flash_bwd_delta"] = bound(2 * B * Sq * H * D, 2 * B * Sq * H * D * 2 + B * H * Sq * 4)
+        sdpa_fwd, sdpa_fwd_bwd = sdpa_calls(torch, q, k, v, do, causal=causal)
+
+        def split_total():
+            d = bwd.flash_bwd_delta(o, do)
+            bwd.flash_bwd_dkv(q, k, v, do, lse, d, spec, **tiles)
+            bwd.flash_bwd_dq(q, k, v, do, lse, d, spec, **tiles)
+
+        calls = {"fused": lambda: bwd.flash_bwd_fused(*args, **tiles), "split": split_total,
+                 "sdpa": sdpa_fwd_bwd, "sdpa_fwd": sdpa_fwd}
+        turns = {name: [] for name in calls}
+        for name in ("fused", "split", "sdpa", "sdpa_fwd", "sdpa_fwd", "sdpa", "split", "fused"):
+            turns[name].append(time_ms(torch, calls[name], 20, flush))
+        fused_ms, split_ms, fb_ms, f_ms = (sum(turns[n]) / 2
+                                           for n in ("fused", "split", "sdpa", "sdpa_fwd"))
+        lib_bwd_ms = fb_ms - f_ms
+        ms = {"flash_bwd_fused": fused_ms,
+              "flash_bwd_delta": time_ms(torch, lambda: bwd.flash_bwd_delta(o, do), 20, flush),
+              "flash_bwd_dkv": time_ms(torch, lambda: bwd.flash_bwd_dkv(*args, **tiles), 20,
+                                       flush),
+              "flash_bwd_dq": time_ms(torch, lambda: bwd.flash_bwd_dq(*args, **tiles), 20, flush)}
+        plains = {"flash_bwd_delta": lambda: bwd.flash_bwd_delta_plain(o, do),
+                  "flash_bwd_fused": lambda: bwd.flash_bwd_fused_plain(*args, **tiles),
+                  "flash_bwd_dkv": lambda: bwd.flash_bwd_dkv_plain(*args, **tiles),
+                  "flash_bwd_dq": lambda: bwd.flash_bwd_dq_plain(*args, **tiles)}
+        t_q, t_kv = -(-Sq // tiles["block_q"]), -(-Skv // tiles["block_kv"])
+        n_vis = int(build_kv_tile_schedule(spec, t_q, t_kv, tiles["block_q"], tiles["block_kv"],
+                                           Skv).row_ptr[-1])
+        log(f"  times at {what} (after an L2 flush): in turns (fused, split, sdpa, sdpa fwd, "
+            f"sdpa fwd, sdpa, split, fused) fused {turns['fused']} ms, split (delta + dkv + dq) "
+            f"{turns['split']} ms, sdpa fwd+bwd {turns['sdpa']} ms, sdpa fwd {turns['sdpa_fwd']} "
+            f"ms; fused / sdpa backward {fused_ms / lib_bwd_ms:.4f}, split / sdpa backward "
+            f"{split_ms / lib_bwd_ms:.4f}; {n_vis} visible 64 x 64 tiles a head")
+        for name in HD64_NAMES:
+            plain_ms = time_ms(torch, plains[name], 2, flush)
+            b_ms, b_by = bounds[name]
+            lib = lib_bwd_ms if name == "flash_bwd_fused" else None
+            at[name][shape] = dict(ms=ms[name], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                   library_ms=lib)
+            if name == "flash_bwd_fused":
+                at[name][shape].update(sdpa_ratio_in_turns=fused_ms / lib_bwd_ms)
+            if name == "flash_bwd_dq":
+                at[name][shape].update(split_total_ms_in_turns=split_ms,
+                                       split_backward_sdpa_ratio_in_turns=split_ms / lib_bwd_ms)
+            log(f"  {name} (head_dim 64) {shape}: kernel {ms[name]:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {ms[name] / b_ms:.2f}x the "
+                f"bound; library " + ("none" if lib is None else f"sdpa backward {lib:.4f} ms"))
+        del q, k, v, do, o, lse, delta, args, fused, plain, got, want
+    out = {}
+    for name in HD64_NAMES:
+        top = at[name]["encoder"]
+        out[f"{name}_hd64"] = dict(max_abs_err=errs[name], **top, at_shapes=at[name])
+    return out
+
+
+def seg_dense_checks(torch, dev, args, fused, dk, dv, dq, tiles, what):
+    """At one head_dim-64 shape: the SEG kernels (the packed source's ids)
+    and the DENSE kernels against their plain versions; dense dK, dV and dQ
+    bitwise the compact ones (the fused dQ within GRAD_REL_TOL: its bulk
+    reductions have no order); all-ones ids bitwise the unsegmented
+    kernels."""
+    from repro_torch.kernels import flash_bwd as bwd
+    from repro_torch.kernels import flash_fwd as fwd
+
+    q, k, v, do, lse, delta, spec = args
+    B, Sq = q.shape[:2]
+    ids = torch.from_numpy(packed_ids(B, Sq)).to(dev)
+    ones = torch.ones((B, Sq), dtype=torch.int32, device=dev)
+    o_s, lse_s = fwd.flash_fwd_varlen(q, k, v, spec, ids, ids, **tiles)
+    d_s = bwd.flash_bwd_delta(o_s, do)
+    seg_args = (q, k, v, do, lse_s, d_s, spec)
+    checks = {}
+    seg = bwd.flash_bwd_fused_varlen(*seg_args, ids, ids, **tiles)
+    seg_dkv = bwd.flash_bwd_dkv_varlen(*seg_args, ids, ids, **tiles)
+    seg_dq = bwd.flash_bwd_dq_varlen(*seg_args, ids, ids, **tiles)
+    dense = bwd.flash_bwd_fused(*args, schedule="dense", **tiles)
+    dense_dkv = bwd.flash_bwd_dkv(*args, schedule="dense", **tiles)
+    dense_dq = bwd.flash_bwd_dq(*args, schedule="dense", **tiles)
+    ones_f = bwd.flash_bwd_fused_varlen(*args, ones, ones, **tiles)
+    ones_dkv = bwd.flash_bwd_dkv_varlen(*args, ones, ones, **tiles)
+    ones_dq = bwd.flash_bwd_dq_varlen(*args, ones, ones, **tiles)
+    torch.cuda.synchronize()
+    plain_kw = dict(q_seg=ids, kv_seg=ids, **tiles)
+    pairs = {"fused SEG": (seg, bwd.flash_bwd_fused_plain(*seg_args, **plain_kw)),
+             "dkv SEG": (seg_dkv, bwd.flash_bwd_dkv_plain(*seg_args, **plain_kw)),
+             "dq SEG": ((seg_dq,), (bwd.flash_bwd_dq_plain(*seg_args, **plain_kw),)),
+             "fused DENSE": (dense, bwd.flash_bwd_fused_plain(*args, schedule="dense", **tiles)),
+             "dkv DENSE": (dense_dkv, bwd.flash_bwd_dkv_plain(*args, schedule="dense", **tiles)),
+             "dq DENSE": ((dense_dq,), (bwd.flash_bwd_dq_plain(*args, schedule="dense",
+                                                               **tiles),))}
+    for name, (got, want) in pairs.items():
+        checks[name] = max(max_err(torch, a, b) / max(b.abs().max().item(), 1e-6)
+                           for a, b in zip(got, want))
+    bitwise = {
+        "dense dk, dv == compact (fused and dkv)": all(torch.equal(a, b) for a, b in zip(
+            (dense[1], dense[2], dense_dkv[0], dense_dkv[1]), (dk, dv, dk, dv))),
+        "dense dq == compact (split)": torch.equal(dense_dq, dq),
+        "all-ones ids == unsegmented (fused dk, dv; dkv; dq)": all(torch.equal(a, b) for a, b in zip(
+            (ones_f[1], ones_f[2], ones_dkv[0], ones_dkv[1], ones_dq), (dk, dv, dk, dv, dq))),
+        "SEG split dk, dv == SEG fused": torch.equal(seg_dkv[0], seg[1])
+                                         and torch.equal(seg_dkv[1], seg[2]),
+    }
+    dense_fused_dq = max_err(torch, dense[0], fused[0]) / max(fused[0].abs().max().item(), 1e-6)
+    log(f"  SEG (packed ids, documents per row {ids.amax(dim=1).tolist()}) and DENSE at {what}: "
+        "worst relative error against the plain versions "
+        + ", ".join(f"{n} {e:.3e}" for n, e in checks.items()) + f" (tol {GRAD_REL_TOL}); "
+        + "; ".join(f"{n}: {b}" for n, b in bitwise.items())
+        + f"; dense fused dq against compact, relative {dense_fused_dq:.3e}")
+    if not max(checks.values()) <= GRAD_REL_TOL or not dense_fused_dq <= GRAD_REL_TOL:
+        fail(f"a SEG or DENSE backward kernel at head_dim 64 disagrees at {what}")
+    if not all(bitwise.values()):
+        fail(f"a bitwise invariant of the SEG or DENSE backward fails at head_dim 64, {what}")
+
+
+class SubCount:
+    """One of a wrapper's other launch counts (``dense_launches``: the dense
+    schedule's; ``hd64_launches``: those at head_dim 64), read and zeroed
+    through ``launches`` like the wrappers' own counts."""
+
+    def __init__(self, wrapper, attr: str):
+        self.wrapper, self.attr = wrapper, attr
 
     @property
     def launches(self) -> int:
-        return self.wrapper.dense_launches
+        return getattr(self.wrapper, self.attr)
 
     @launches.setter
     def launches(self, n: int) -> None:
-        self.wrapper.dense_launches = n
+        setattr(self.wrapper, self.attr, n)
 
 
 def with_dense(wrappers) -> dict:
-    """{name: counter} of ``wrappers``, and ``<name>_dense`` for each that
-    also counts dense-schedule launches."""
+    """{name: counter} of ``wrappers``, ``<name>_dense`` for each that also
+    counts dense-schedule launches, and ``<name>_hd64`` for each that counts
+    its head_dim-64 launches apart (the backward's)."""
     counters = {f.__name__: f for f in wrappers}
-    counters.update({f"{f.__name__}_dense": DenseCount(f) for f in wrappers
-                     if hasattr(f, "dense_launches")})
+    for suffix in ("dense", "hd64"):
+        counters.update({f"{f.__name__}_{suffix}": SubCount(f, f"{suffix}_launches")
+                         for f in wrappers if hasattr(f, f"{suffix}_launches")})
     return counters
 
 
@@ -2086,18 +2327,24 @@ def read_counts(counters, plains) -> dict:
     return counts
 
 
-def training_want(counters, plains, n: int, bwds, suffix: str = "") -> dict:
-    """Exact launch counts of ``n`` layer-steps under each backward mode of
-    ``bwds``, through the kernels named with ``suffix`` (``_varlen``,
-    ``_dense``, both or none): the forward twice (remat), delta once, then
-    the fused kernel or dK/dV and dQ once; every other kernel and every
-    plain version 0."""
+def training_want(counters, plains, n: int, bwds, suffix: str = "", *, remat: bool = True,
+                  hd64: bool = False) -> dict:
+    """Exact launch counts of ``n`` attention calls (layer-steps) under each
+    backward mode of ``bwds``, through the kernels named with ``suffix``
+    (``_varlen``, ``_dense``, both or none): the forward twice (``remat``)
+    or once, delta once, then the fused kernel or dK/dV and dQ once; with
+    ``hd64`` the backward's head_dim-64 counts the same; every other kernel
+    and every plain version 0."""
     want = {k: 0 for k in counters}
     for bwd in bwds:
-        want[f"flash_fwd{suffix}"] += 2 * n
-        want["flash_bwd_delta"] += n
-        for name in ("flash_bwd_fused",) if bwd == "fused" else ("flash_bwd_dkv", "flash_bwd_dq"):
-            want[name + suffix] += n
+        want[f"flash_fwd{suffix}"] += (2 if remat else 1) * n
+        names = ["flash_bwd_delta"]
+        names += ["flash_bwd_fused" + suffix] if bwd == "fused" else [
+            "flash_bwd_dkv" + suffix, "flash_bwd_dq" + suffix]
+        for name in names:
+            want[name] += n
+            if hd64:
+                want[name + "_hd64"] += n
     want["plain"] = [0] * len(plains)
     return want
 
@@ -2440,6 +2687,172 @@ def packed_train_phase(torch, dev, fused_summary):
     return counts
 
 
+def gpt_train_phase(torch, dev):
+    """The north star's path: the gpt-20m preset at its published widths (4
+    layers, d_model 256, 4 heads of 64, no remat) in bf16, trained through
+    the train CLI's ``train`` on the synthetic stream (B 8, S 512, GPT_STEPS
+    AdamW steps from seed 0), with the fused and with the split backward
+    (``TrainLoopConfig.attn_bwd``), and once through ``impl="ref"`` (dense
+    attention) from the same seed and batches. Each kernel run's launches
+    must be exact (per layer and step: the forward once, delta once, the
+    fused kernel or dK/dV and dQ once, all at head_dim 64; no plain
+    version), its loss must fall, step 0's loss must be the reference's
+    within PARITY_LOSS_REL (the same weights and batch; only attention's
+    rounding differs) and every step's within GPT_LOSS_REL. One more fused
+    step under torch.profiler gives the device busy share and attention's
+    device time. Returns {bwd: launch counts} and {bwd: summary}."""
+    from repro_torch.core.attention import AttentionConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import PRESETS, TrainLoopConfig, train
+    from repro_torch.training.optimizer import AdamWConfig
+
+    cfg = dataclasses.replace(PRESETS["gpt-20m"], dtype="bfloat16")
+    opt_cfg = AdamWConfig(warmup_steps=2, total_steps=GPT_STEPS)
+    counters, plains = kernel_counters()
+    counts, summaries, losses = {}, {}, {}
+    for run in ("fused", "split", "ref"):
+        loop = TrainLoopConfig(steps=GPT_STEPS, seq_len=GPT_S, batch_size=GPT_B, log_every=1,
+                               seed=0, device=str(dev), attn_impl="ref" if run == "ref" else
+                               "flash_cuda", attn_bwd=None if run == "ref" else run)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts(counters, plains)
+        model, opt_state, history = train(cfg, loop, opt_cfg)
+        torch.cuda.synchronize()
+        losses[run] = history["loss"]
+        if run == "ref":
+            break
+        counts[run] = read_counts(counters, plains)
+        med = sorted(history["step_time"])[GPT_STEPS // 2]
+        tokens = GPT_B * GPT_S
+        mfu = train_model_flops(cfg, GPT_B, GPT_S) / med / PEAK_BF16_FLOPS
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        summaries[run] = dict(losses=history["loss"], median_ms=med * 1e3,
+                              tokens_per_s=tokens / med, mfu=mfu, peak_gib=peak)
+        log(f"gpt-20m training (bf16, bwd={run}) B={GPT_B} S={GPT_S}: losses "
+            f"{[round(x, 5) for x in history['loss']]}; median step {med * 1e3:.2f} ms (first "
+            f"{history['step_time'][0] * 1e3:.1f} ms), {tokens / med:.1f} tokens/s, MFU {mfu:.4f} "
+            f"of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, max_memory_allocated {peak:.3f} GiB")
+        log(f"launches on the gpt-20m training path (bwd={run}): {counts[run]}")
+        if not all(math.isfinite(x) for x in history["loss"] + history["grad_norm"]):
+            fail(f"gpt-20m training (bwd={run}) gave a non-finite loss or gradient norm")
+        if not sum(history["loss"][-2:]) / 2 < history["loss"][0]:
+            fail(f"the gpt-20m training loss (bwd={run}) did not fall")
+        want = training_want(counters, plains, GPT_STEPS * cfg.num_layers, (run,), remat=False,
+                             hd64=True)
+        if counts[run] != want:
+            fail(f"gpt-20m training launches (bwd={run}) {counts[run]}, want {want}")
+        if run == "fused":
+            inputs, targets = SyntheticLM(DataConfig(GPT_B, GPT_S, cfg.vocab_size,
+                                                     seed=0)).batch(0)
+            batch = {"inputs": torch.from_numpy(inputs).to(dev),
+                     "targets": torch.from_numpy(targets).to(dev)}
+            step_fn = build_train_step(cfg, AttentionConfig(impl="flash_cuda"), opt_cfg)
+            busy, attn_ms = profile_train_step(torch, step_fn, model, opt_state, batch, med)
+            summaries[run].update(busy_share=busy, attention_ms=attn_ms)
+            log("attention device time per gpt-20m step: " + (
+                "not measured" if attn_ms is None else f"{attn_ms:.3f} ms of the profiled step"))
+        del model, opt_state
+    log(f"gpt-20m training through impl=ref (dense attention): losses "
+        f"{[round(x, 5) for x in losses['ref']]}")
+    for run in ("fused", "split"):
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses[run], losses["ref"])]
+        log(f"gpt-20m bwd={run} against impl=ref, relative loss difference by step: "
+            + ", ".join(f"{r:.3e}" for r in rel) + f" (step 0 limit {PARITY_LOSS_REL}, every "
+            f"step {GPT_LOSS_REL})")
+        if not (rel[0] <= PARITY_LOSS_REL and max(rel) <= GPT_LOSS_REL):
+            fail(f"gpt-20m training through flash_cuda (bwd={run}) disagrees with impl=ref")
+    return counts, summaries
+
+
+def whisper_train_phase(torch, dev):
+    """Whisper-base at its published widths and depth (6 + 6 layers, d_model
+    512, 8 heads of 64, bf16, remat), random weights from seed 0, trained
+    through ``build_train_step`` (the library API; the JAX package has no
+    whisper CLI either): B 8 utterances of 1500 seeded frame embeddings
+    (made on the card from seed 100 + step) and 448 decoder tokens of the
+    synthetic stream, WH_TRAIN_STEPS AdamW steps through flash_cuda and
+    again through impl="ref". Launches exact (per attention call and step:
+    the forward twice, delta once, the fused kernel once, at head_dim 64;
+    no plain version); the loss must fall; step 0's loss must be the
+    reference's within PARITY_LOSS_REL and every step's within
+    WH_LOSS_REL. One more step under torch.profiler gives the device busy
+    share and attention's device time. Returns the kernel run's launch
+    counts and a summary."""
+    from repro_torch.configs import registry
+    from repro_torch.core.attention import AttentionConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.whisper import init_whisper
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+
+    cfg = registry.get("whisper-base")
+    data = SyntheticLM(DataConfig(batch_size=WH_TRAIN_B, seq_len=WH_CACHE,
+                                  vocab_size=cfg.vocab_size, seed=0))
+    batches = []
+    for step in range(WH_TRAIN_STEPS):
+        gen = torch.Generator(device=dev).manual_seed(100 + step)
+        inputs, targets = data.batch(step)
+        batches.append({
+            "frames": torch.randn((WH_TRAIN_B, WH_FRAMES, cfg.d_model), generator=gen,
+                                  device=dev).to(torch.bfloat16),
+            "inputs": torch.from_numpy(inputs).to(dev),
+            "targets": torch.from_numpy(targets).to(dev)})
+    opt_cfg = AdamWConfig(warmup_steps=2, total_steps=WH_TRAIN_STEPS)
+    counters, plains = kernel_counters()
+    losses, summary = {}, {}
+    for impl in ("flash_cuda", "ref"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = init_whisper(cfg, seed=0, device=dev)
+        opt_state = init_opt_state(dict(model.named_parameters()))
+        step_fn = build_train_step(cfg, AttentionConfig(impl=impl), opt_cfg)
+        torch.cuda.synchronize()
+        zero_counts(counters, plains)
+        losses[impl], times = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            opt_state, m = step_fn(model, opt_state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses[impl].append(m["loss"])
+            if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])) or m["skipped"]:
+                fail(f"whisper training ({impl}) gave a non-finite loss or gradient norm")
+        med = sorted(times)[len(times) // 2]
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        tokens = WH_TRAIN_B * WH_CACHE
+        log(f"whisper-base training ({impl}) B={WH_TRAIN_B}, {WH_FRAMES} frames, {WH_CACHE} "
+            f"tokens: losses {[round(x, 5) for x in losses[impl]]}; median step {med * 1e3:.1f} "
+            f"ms (first {times[0] * 1e3:.1f} ms), {tokens / med:.1f} decoder tokens/s "
+            f"({WH_TRAIN_B * WH_FRAMES / med:.1f} frames/s), max_memory_allocated {peak:.3f} GiB")
+        if impl == "flash_cuda":
+            counts = read_counts(counters, plains)
+            summary = dict(losses=losses[impl], median_ms=med * 1e3, tokens_per_s=tokens / med,
+                           frames_per_s=WH_TRAIN_B * WH_FRAMES / med, peak_gib=peak)
+            log(f"launches on the whisper training path: {counts}")
+            n = WH_TRAIN_STEPS * (cfg.encoder.num_layers + 2 * cfg.num_layers)
+            want = training_want(counters, plains, n, ("fused",), hd64=True)
+            if counts != want:
+                fail(f"whisper training launches {counts}, want {want} (forward twice an "
+                     f"attention call with remat)")
+            if not sum(losses[impl][-2:]) / 2 < losses[impl][0]:
+                fail("the whisper training loss did not fall")
+            busy, attn_ms = profile_train_step(torch, step_fn, model, opt_state, batches[0], med)
+            summary.update(busy_share=busy, attention_ms=attn_ms)
+            log("attention device time per whisper training step: " + (
+                "not measured" if attn_ms is None else f"{attn_ms:.3f} ms of the profiled step"))
+        del model, opt_state, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["flash_cuda"], losses["ref"])]
+    log("whisper training, flash_cuda against impl=ref, relative loss difference by step: "
+        + ", ".join(f"{r:.3e}" for r in rel) + f" (step 0 limit {PARITY_LOSS_REL}, every step "
+        f"{WH_LOSS_REL})")
+    if not (rel[0] <= PARITY_LOSS_REL and max(rel) <= WH_LOSS_REL):
+        fail("whisper training through flash_cuda disagrees with impl=ref")
+    return counts, summary
+
+
 def main() -> None:
     import torch
 
@@ -2473,6 +2886,7 @@ def main() -> None:
     results.update(varlen_kernel_phase(torch, dev, scratch.zero_))
     results.update(dense_kernel_phase(torch, dev, scratch.zero_))
     results.update(whisper_kernel_phase(torch, dev, scratch.zero_))
+    results.update(bwd_hd64_kernel_phase(torch, dev, scratch.zero_))
     del scratch
     whisper_counts, whisper_summary = whisper_phase(torch, dev)
     gc.collect()
@@ -2506,6 +2920,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     dense_counts = dense_train_phase(torch, dev, split_summary)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpt_counts, gpt_summaries = gpt_train_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wh_train_counts, wh_train_summary = whisper_train_phase(torch, dev)
 
     results["flash_fwd"]["at_training_shape"] = results.pop("flash_fwd_at_training_shape")
     replaces = {"flash_fwd": "src/repro/kernels/flash_fwd.py:354",
@@ -2535,7 +2955,12 @@ def main() -> None:
                 "flash_bwd_dq_dense": "src/repro/kernels/flash_bwd.py:390",
                 "flash_bwd_fused_varlen_dense": "src/repro/kernels/flash_bwd.py:633",
                 "flash_bwd_dkv_varlen_dense": "src/repro/kernels/flash_bwd.py:157",
-                "flash_bwd_dq_varlen_dense": "src/repro/kernels/flash_bwd.py:390"}
+                "flash_bwd_dq_varlen_dense": "src/repro/kernels/flash_bwd.py:390",
+                # The backward at head_dim 64 (whisper-base, the gpt presets).
+                "flash_bwd_delta_hd64": "src/repro/kernels/flash_bwd.py:80",
+                "flash_bwd_fused_hd64": "src/repro/kernels/flash_bwd.py:718",
+                "flash_bwd_dkv_hd64": "src/repro/kernels/flash_bwd.py:234",
+                "flash_bwd_dq_hd64": "src/repro/kernels/flash_bwd.py:459"}
     source = {"flash_fwd": "flash_fwd", "flash_decode": "flash_decode",
               "flash_decode_paged": "flash_decode", "flash_bwd_delta": "flash_bwd",
               "flash_bwd_fused": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
@@ -2545,33 +2970,44 @@ def main() -> None:
               "flash_fwd_splitkv_varlen": "flash_fwd", "flash_fwd_hd64": "flash_fwd",
               "flash_decode_hd64": "flash_decode", "flash_decode_varlen": "flash_decode"}
     source.update({k: "flash_fwd" if k.startswith("flash_fwd") else "flash_bwd"
-                   for k in replaces if k.endswith("_dense")})
-    # The head_dim-64 entries are instantiations behind the flash_fwd and
-    # flash_decode wrappers: their launches are the whisper path's (every
-    # call there is at head_dim 64), which the qwen3 paths never make, so
-    # the head_dim-128 entries of those wrappers leave the whisper path out.
-    counted = {"flash_fwd_hd64": "flash_fwd", "flash_decode_hd64": "flash_decode"}
+                   for k in replaces if k not in source})
+    paths = {"serving": serve_counts, "paged_serving": paged_counts, "training": train_counts,
+             "training_split": split_counts, "training_packed": packed_counts,
+             "training_packed_parity": packed_parity_counts, "training_dense": dense_counts,
+             "training_dense_parity": dense_parity_counts,
+             "training_packed_dense_parity": packed_dense_parity_counts,
+             "whisper_serving": whisper_counts, "training_gpt20m": gpt_counts["fused"],
+             "training_gpt20m_split": gpt_counts["split"], "training_whisper": wh_train_counts}
+    # An entry named "_hd64" counts its kernel's launches at head_dim 64, and
+    # the entry of the same kernel without the suffix the other launches.
+    # The backward wrappers count their head_dim-64 launches apart
+    # (``<name>_hd64``); the forward and decode wrappers do not, so their
+    # launches on the paths that run at head_dim 64 only (whisper-base,
+    # gpt-20m) are the "_hd64" entries'.
+    hd64_paths = ("whisper_serving", "training_gpt20m", "training_gpt20m_split",
+                  "training_whisper")
+    by_dim = {"flash_fwd_hd64": "flash_fwd", "flash_decode_hd64": "flash_decode"}
+
+    def launches(k, path, counts):
+        if k in by_dim:
+            return counts.get(by_dim[k], 0) if path in hd64_paths else 0
+        if k in by_dim.values() and path in hd64_paths:
+            return 0
+        if k.endswith("_hd64"):
+            return counts.get(k, 0)
+        return counts.get(k, 0) - counts.get(f"{k}_hd64", 0)
+
     kernels = []
     for k in replaces:
-        if k in counted:
-            by_path = {"whisper_serving": whisper_counts[counted[k]]}
-        else:
-            by_path = {"serving": serve_counts.get(k, 0), "paged_serving": paged_counts.get(k, 0),
-                       "training": train_counts.get(k, 0),
-                       "training_split": split_counts.get(k, 0),
-                       "training_packed": packed_counts.get(k, 0),
-                       "training_packed_parity": packed_parity_counts.get(k, 0),
-                       "training_dense": dense_counts.get(k, 0),
-                       "training_dense_parity": dense_parity_counts.get(k, 0),
-                       "training_packed_dense_parity": packed_dense_parity_counts.get(k, 0)}
-            if k not in counted.values():
-                by_path["whisper_serving"] = whisper_counts.get(k, 0)
+        by_path = {path: launches(k, path, counts) for path, counts in paths.items()}
         kernels.append({
             "name": k, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source[k]}.cu",
             "replaces": replaces[k], "launches": sum(by_path.values()),
             "launches_by_path": by_path, **results[k],
         })
     log(f"whisper serving: {json.dumps(whisper_summary)}")
+    log(f"gpt-20m training: {json.dumps(gpt_summaries)}")
+    log(f"whisper training: {json.dumps(wh_train_summary)}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.masks import MaskSpec
-from repro_torch.kernels import ops
+from repro_torch.kernels import flash_bwd, flash_decode, flash_fwd, ops
 from repro_torch.kernels.ref import attention_reference
 
 IMPLS = ("ref", "flash_cuda")
@@ -52,6 +52,37 @@ class AttentionConfig:
         ops.check_kv_splits(self.kv_splits)
         if self.schedule is not None:
             ops.check_schedule(self.schedule)
+
+
+def check_card_support(cfg, attn_cfg: AttentionConfig, device, *, training: bool,
+                       paged: bool = False) -> None:
+    """Refuse up front, before any tensor reaches the device, a model that
+    the CUDA kernels cannot run: ``attn_cfg.impl == "flash_cuda"`` on a CUDA
+    ``device`` (a name or a ``torch.device``) with ``cfg.dtype`` other than
+    bfloat16, or a ``cfg.head_dim`` that the forward kernels, and for
+    ``training`` the backward kernels, else the decode kernels (``paged``:
+    the paged decode's) are not instantiated for. The plain CPU path and
+    ``impl="ref"`` take any of them."""
+    if attn_cfg.impl != "flash_cuda" or torch.device(device).type != "cuda":
+        return
+    if cfg.dtype != "bfloat16":
+        raise ValueError(
+            f"{cfg.name} is {cfg.dtype}, and the CUDA kernels take bfloat16 only (as the "
+            "paper's kernels take fp16/bf16): run it in bfloat16 (the train CLI's --dtype "
+            "bfloat16) or through the dense reference (--attn ref)")
+    kernels = {"forward": flash_fwd.KERNEL_HEAD_DIMS}
+    if training:
+        kernels["backward"] = flash_bwd.KERNEL_HEAD_DIMS
+    else:
+        kernels["decode"] = (flash_decode.PAGED_HEAD_DIMS if paged
+                             else flash_decode.KERNEL_HEAD_DIMS)
+    for what, dims in kernels.items():
+        if cfg.head_dim not in dims:
+            item = 3 if what == "decode" and paged and cfg.head_dim == 64 else 2
+            raise ValueError(
+                f"{cfg.name} has head_dim {cfg.head_dim}; the CUDA {what} kernels take head_dim "
+                f"{dims} (ROADMAP.md queue 2, item {item}). Use --attn ref, or --device cpu for "
+                "the plain path")
 
 
 def attention(q, k, v, spec: MaskSpec, cfg: AttentionConfig = AttentionConfig(), *,

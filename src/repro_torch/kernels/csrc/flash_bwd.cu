@@ -73,6 +73,20 @@
 // 50 MB L2) share the TMA engine and L2 with the Q/dO stream. One CTA an
 // SM (about 200 KB of shared memory).
 //
+// Head_dim 64 (whisper-base, the gpt presets) is the same source with D a
+// template argument, as in the forward: a 64-row tile is D / 64 TMA boxes,
+// S^T and dP^T take D / 16 k-steps, dK and dV are 64 x D accumulators
+// (wgmma_rs_k64<D> in sm90.cuh: m64n64k16 at 64). Half of head_dim is 32
+// columns at 64: an n32 product whose MN-major B starts 64 bytes into a
+// 128-byte swizzled row, an operand layout this kernel does not risk. So
+// there dQ's step is split over the kv rows instead: each warpgroup
+// multiplies its own tile's 64 dS rows by the same 64 rows of K, all 64
+// columns, and both parts are added into dq. That is as many bulk
+// reductions a step as at 128 and twice the bytes of the dQ it adds; the
+// walk, the products' order and the dK/dV code are untouched, so split
+// dK/dV stay bitwise the fused kernel's. Shared memory falls to about 132
+// KB; still one CTA an SM. The dq and delta kernels take D the same way.
+//
 // The split backward (bwd="split", the deterministic mode) is the other
 // two, with no atomics anywhere:
 //
@@ -360,13 +374,18 @@ struct BwdMaps {
 };
 
 // Shared memory of the KV-stationary kernels, in bytes from a 1024-aligned
-// base: K and V (two 64-column halves of 128 rows), the Q/dO ring (halves of
-// 64 rows), with DQ two bf16 dS^T buffers (128 kv rows x 64 q) and the f32
-// dQ staging of each consumer warpgroup, then each stage's lse, delta, q
-// ids and step record, then the mbarriers and the staged dQ's (q0, head).
-template <bool DQ>
+// base: K and V (D / 64 boxes of 128 rows x 64 columns, 16 KB apart), the
+// Q/dO ring (D / 64 boxes of 64 rows a stage, 8 KB apart), with DQ two bf16
+// dS^T buffers (128 kv rows x 64 q) and the f32 dQ staging of each consumer
+// warpgroup, then each stage's lse, delta, q ids and step record, then the
+// mbarriers and the staged dQ's (q0, head). About 200 KB at D = 128, 132 KB
+// at D = 64.
+template <int D, bool DQ>
 struct KvSmem {
-  static constexpr uint32_t K = 0, V = 32768, Q = 65536, DO = 98304, DS = 131072;
+  static constexpr uint32_t KV = kPairRows * D * 2;  // K or V of the pair
+  static constexpr uint32_t QT = kBlockM * D * 2;    // a Q or dO stage
+  static constexpr uint32_t K = 0, V = KV, Q = 2 * KV, DO = Q + kStages * QT;
+  static constexpr uint32_t DS = DO + kStages * QT;
   static constexpr uint32_t DQS = DS + (DQ ? 2 * 16384 : 0);
   static constexpr uint32_t LSE = DQS + (DQ ? 2 * kBlockM * kDqRow * 4 : 0);
   static constexpr uint32_t DELTA = LSE + kStages * kBlockM * 4;
@@ -381,9 +400,11 @@ struct KvSmem {
 // The KV-stationary body: with DQ, the fused kernel; without, the dkv
 // kernel (no dS buffer, no dQ product, no staging; dK and dV bitwise the
 // same). SEG: the segment variant of either. DENSE: every q tile, no table.
-template <bool DQ, bool SEG, bool DENSE>
+// D: head_dim, 64 or 128.
+template <int D, bool DQ, bool SEG, bool DENSE>
 __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps& maps) {
-  using L = KvSmem<DQ>;
+  static_assert(D == 64 || D == 128, "the KV-stationary kernels take head_dim 64 or 128");
+  using L = KvSmem<D, DQ>;
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are skipped before their fetch
   constexpr int BM = kBlockM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -447,9 +468,9 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
       if (lane == 0) {
         asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                          smem_u32(kv_bar)),
-                     "r"(4 * 16384)
+                     "r"(2 * L::KV)
                      : "memory");
-        for (int half = 0; half < 2; ++half) {
+        for (int half = 0; half < D / 64; ++half) {
           tma_load(sm + L::K + half * 16384, maps.k, kv_bar, half * 64, hk, k0, b);
           tma_load(sm + L::V + half * 16384, maps.v, kv_bar, half * 64, hk, k0, b);
         }
@@ -475,11 +496,11 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         }
         const int h = hk * p.group + g, q0 = qt * BM;
         if (lane == 0) {
-          mbar_expect_tx(&full[stage], 4 * 8192);
-          for (int half = 0; half < 2; ++half) {
-            tma_load(sm + L::Q + stage * 16384 + half * 8192, maps.q, &full[stage], half * 64, h,
+          mbar_expect_tx(&full[stage], 2 * L::QT);
+          for (int half = 0; half < D / 64; ++half) {
+            tma_load(sm + L::Q + stage * L::QT + half * 8192, maps.q, &full[stage], half * 64, h,
                      q0, b);
-            tma_load(sm + L::DO + stage * 16384 + half * 8192, maps.dout, &full[stage],
+            tma_load(sm + L::DO + stage * L::QT + half * 8192, maps.dout, &full[stage],
                      half * 64, h, q0, b);
           }
         }
@@ -535,8 +556,9 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
       }
     } else if (DQ && threadIdx.x < 96 && p.dq != nullptr) {
       // dQ writers: warp 1 + w adds consumer warpgroup w's staged 64 x 64
-      // f32 half into dq by bulk reduction, 256 bytes a row, then frees the
-      // staging; (q0, head) = (-1, -1) ends the walk.
+      // f32 part (D = 128: its half of head_dim; D = 64: its kv tile's
+      // share of the whole row) into dq by bulk reduction, 256 bytes a row,
+      // then frees the staging; (q0, head) = (-1, -1) ends the walk.
       const int w = threadIdx.x / 32 - 1, lane = threadIdx.x % 32;
       const uint32_t stg = smem_u32(sm + L::DQS) + w * BM * kDqRow * 4;
       for (int u = 0;; ++u) {
@@ -546,7 +568,8 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         for (int r = lane; r < BM; r += 32)
           if (m.x + r < p.Sq)
             bulk_reduce_add(
-                p.dq + ((static_cast<long long>(b) * p.Sq + m.x + r) * p.Hq + m.y) * 128 + w * 64,
+                p.dq + ((static_cast<long long>(b) * p.Sq + m.x + r) * p.Hq + m.y) * D +
+                    (D == 128 ? w * 64 : 0),
                 stg + r * kDqRow * 4, 256);
         bulk_commit();
         bulk_wait_read();
@@ -575,9 +598,9 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
     const uint32_t stg = smem_u32(sm + L::DQS) + w * BM * kDqRow * 4;  // f32 dQ staging
 
     // dV and dK of the tile: rows kv_a / kv_b, columns 8 tt + 2 t4 (+1).
-    float dv[64], dk[64];
+    float dv[D / 2], dk[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dv[i] = dk[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dv[i] = dk[i] = 0.f;
 
     mbar_wait(kv_bar, 0);
     int n_dq = 0;  // steps with a dQ product: the dS buffer alternates with it
@@ -590,7 +613,7 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
       const bool vis0 = step.z & kTake0, vis1 = step.z & kTake1;
       const bool masked = step.z & (w ? kMask1 : kMask0);
       const bool mine = w ? vis1 : vis0;  // uniform in the warpgroup
-      const uint32_t cQ = sQ + stage * 16384, cdO = sdO + stage * 16384;
+      const uint32_t cQ = sQ + stage * L::QT, cdO = sdO + stage * L::QT;
       const uint32_t cdS = sdS + (n_dq & 1) * 16384;
       // This thread's dS^T pair (row R, columns 8 tt + 2 t4, +1) of n-block
       // tt sits at ds_at ^ (tt << 4) in the 128-byte swizzle (R & 7 == g8);
@@ -600,15 +623,15 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         float s[32], dp[32];
         uint32_t pP[4][4], pS[4][4];  // bf16 P^T and dS^T: the A operands of dV and dK
         // S^T = K Q^T (line 11) and dP^T = V dO^T (line 13): 64 kv rows x 64
-        // q columns, k over head_dim in two swizzled halves.
+        // q columns, k over head_dim in D / 64 swizzled boxes.
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
+        for (int kk = 0; kk < D / 16; ++kk)
           wgmma_ss_n64<0, 0>(s, sw128_desc(sK + (kk >> 2) * 16384 + w * 8192 + (kk & 3) * 32, 16),
                              sw128_desc(cQ + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
         wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
+        for (int kk = 0; kk < D / 16; ++kk)
           wgmma_ss_n64<0, 0>(dp, sw128_desc(sV + (kk >> 2) * 16384 + w * 8192 + (kk & 3) * 32, 16),
                              sw128_desc(cdO + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
         wgmma_commit();
@@ -646,8 +669,7 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         }
         // dV += P^T dO (line 12): k over the tile's 64 q rows.
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128(dv, pP[kk], sw128_desc(cdO + kk * 2048, 8192));
+        wgmma_rs_k64<D>(dv, pP, cdO);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(dp);
@@ -668,8 +690,7 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         }
         // dK += dS^T Q (line 16).
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128(dk, pS[kk], sw128_desc(cQ + kk * 2048, 8192));
+        wgmma_rs_k64<D>(dk, pS, cQ);
         wgmma_commit();
         if (DQ) {
 #pragma unroll
@@ -690,8 +711,10 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
       mbar_arrive(&empty[stage]);  // this stage's Q, dO, lse, delta and ids are read
       if (DQ && (vis0 || vis1)) {
         // dQ_i += dS K_j (line 15) over the pair's 128 kv rows, both
-        // warpgroups, each a half of head_dim; a hidden tile's dS rows are
-        // zeros.
+        // warpgroups: at D = 128 each takes a half of head_dim (its 64-column
+        // box of K) over all 128 rows; at D = 64 each takes its own kv tile's
+        // 64 rows over the whole of head_dim, and both parts are added into
+        // dq. A hidden tile's dS rows are zeros.
         if (!mine) {
 #pragma unroll
           for (int tt = 0; tt < 8; ++tt) {
@@ -702,16 +725,18 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         fence_async_smem();
         named_sync(1, kConsumers);  // both tiles' dS are in the buffer
         float dq[32];
+        const uint32_t dsA = cdS + (D == 128 ? 0 : w * 8192);
+        const uint32_t kB = sK + w * (D == 128 ? 16384 : 8192);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
-          wgmma_ss_n64<1, 1>(dq, sw128_desc(cdS + kk * 2048, 8192),
-                             sw128_desc(sK + w * 16384 + kk * 2048, 8192), kk > 0);
+        for (int kk = 0; kk < (D == 128 ? 8 : 4); ++kk)
+          wgmma_ss_n64<1, 1>(dq, sw128_desc(dsA + kk * 2048, 8192),
+                             sw128_desc(kB + kk * 2048, 8192), kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
         if (p.dq != nullptr) {
-          // Stage this warpgroup's 64 x 64 f32 half for its writer warp.
+          // Stage this warpgroup's 64 x 64 f32 part for its writer warp.
           mbar_wait(&dq_empty[w], (n_dq & 1) ^ 1);
           const uint32_t at = stg + ((wq * 16 + g8) * kDqRow + 2 * t4) * 4;
 #pragma unroll
@@ -734,10 +759,10 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
 
     // dK and dV of the tile, summed over the group's q heads: written once.
     if (w == 0 || has1) {
-      const long long rs = static_cast<long long>(p.Hkv) * 128;
-      const long long base = static_cast<long long>(b) * p.Skv * rs + hk * 128 + 2 * t4;
+      const long long rs = static_cast<long long>(p.Hkv) * D;
+      const long long base = static_cast<long long>(b) * p.Skv * rs + hk * D + 2 * t4;
 #pragma unroll
-      for (int tt = 0; tt < 16; ++tt) {
+      for (int tt = 0; tt < D / 8; ++tt) {
         if (kv_a < p.Skv) {
           *reinterpret_cast<float2*>(p.dv + base + kv_a * rs + tt * 8) = make_float2(dv[4 * tt], dv[4 * tt + 1]);
           *reinterpret_cast<float2*>(p.dk + base + kv_a * rs + tt * 8) = make_float2(dk[4 * tt], dk[4 * tt + 1]);
@@ -754,15 +779,13 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
 template <int D, bool SEG, bool DENSE>
 __global__ void __launch_bounds__(kKvThreads, 1)
     fa2_bwd_fused_kernel(const BwdParams p, const __grid_constant__ BwdMaps maps) {
-  static_assert(D == 128, "the KV-stationary kernels take head_dim 128");
-  kv_stationary<true, SEG, DENSE>(p, maps);
+  kv_stationary<D, true, SEG, DENSE>(p, maps);
 }
 
 template <int D, bool SEG, bool DENSE>
 __global__ void __launch_bounds__(kKvThreads, 1)
     fa2_bwd_dkv_kernel(const BwdParams p, const __grid_constant__ BwdMaps maps) {
-  static_assert(D == 128, "the KV-stationary kernels take head_dim 128");
-  kv_stationary<false, SEG, DENSE>(p, maps);
+  kv_stationary<D, false, SEG, DENSE>(p, maps);
 }
 
 
@@ -771,11 +794,12 @@ __global__ void __launch_bounds__(kKvThreads, 1)
 constexpr int kDqStages = 4;  // the dq kernel's K/V ring
 
 // Shared memory of the dq kernel, in bytes from a 1024-aligned base: the
-// pair's Q and dO tiles (each two 64-column halves of 64 rows), the K and V
-// stages (64 rows each), each stage's kv ids (SEG) and step record, the
-// pair's 128 staged lse and delta values, then the mbarriers.
+// pair's Q and dO tiles (each D / 64 boxes of 64 rows x 64 columns), the K
+// and V stages (64 rows each), each stage's kv ids (SEG) and step record,
+// the pair's 128 staged lse and delta values, then the mbarriers.
+template <int D>
 struct DqSmem {
-  static constexpr uint32_t TILE = kBlockM * 128 * 2;  // 16 KB
+  static constexpr uint32_t TILE = kBlockM * D * 2;  // a 64-row tile: 16 KB at D = 128
   static constexpr uint32_t Q = 0, DO = 2 * TILE, K = 4 * TILE;
   static constexpr uint32_t V = K + kDqStages * TILE;
   static constexpr uint32_t KID = V + kDqStages * TILE;
@@ -786,19 +810,11 @@ struct DqSmem {
   static constexpr uint32_t BYTES = BARS + (2 * kDqStages + 1) * 8;
 };
 
-// dQ (64 x 128 f32) += dS (64 x 64 bf16, registers) K (64 x 128, a stage,
-// MN-major).
-__device__ __forceinline__ void ds_k_product(float (&dq)[64], const uint32_t (&pc)[4][4],
-                                             uint32_t k) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128(dq, pc[kk], sw128_desc(k + kk * 2048, 8192));
-}
-
 template <int D, bool SEG, bool DENSE>
 __global__ void __launch_bounds__(kKvThreads, 1)
     fa2_bwd_dq_kernel(const BwdParams p, const __grid_constant__ BwdMaps maps) {
-  static_assert(D == 128, "the dq kernel takes head_dim 128");
-  using L = DqSmem;
+  static_assert(D == 64 || D == 128, "the dq kernel takes head_dim 64 or 128");
+  using L = DqSmem<D>;
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are dropped before their fetch
   constexpr int BM = kBlockM, BN = kBlockN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -837,7 +853,7 @@ __global__ void __launch_bounds__(kKvThreads, 1)
       if (lane == 0) {
         mbar_expect_tx(q_bar, (has1 ? 4 : 2) * L::TILE);
         for (int x = 0; x < (has1 ? 2 : 1); ++x)
-          for (int half = 0; half < 2; ++half) {
+          for (int half = 0; half < D / 64; ++half) {
             tma_load(sm + L::Q + x * L::TILE + half * 8192, maps.q, q_bar, half * 64, h,
                      (i0 + x) * BM, b);
             tma_load(sm + L::DO + x * L::TILE + half * 8192, maps.dout, q_bar, half * 64, h,
@@ -908,7 +924,7 @@ __global__ void __launch_bounds__(kKvThreads, 1)
         const int k0 = j * BN;
         if (lane == 0) {
           mbar_expect_tx(&full[stage], 2 * L::TILE);
-          for (int half = 0; half < 2; ++half) {
+          for (int half = 0; half < D / 64; ++half) {
             tma_load(sm + L::K + stage * L::TILE + half * 8192, maps.k, &full[stage], half * 64,
                      hk, k0, b);
             tma_load(sm + L::V + stage * L::TILE + half * 8192, maps.v, &full[stage], half * 64,
@@ -986,9 +1002,9 @@ __global__ void __launch_bounds__(kKvThreads, 1)
     const uint32_t sK = smem_u32(sm + L::K), sV = smem_u32(sm + L::V);
 
     // dQ of the tile: rows r_a / r_a + 8, columns 8 tt + 2 t4 (+1).
-    float dq[64];
+    float dq[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
     uint32_t pc[4][4];  // dS of the pending step: bf16 A fragments of dQ += dS K
     int pend = -1;      // the stage whose dQ += dS K is not issued yet
 
@@ -1009,7 +1025,7 @@ __global__ void __launch_bounds__(kKvThreads, 1)
         // stays held while the producer waits for it, and release both.
         if (pend >= 0) {
           wgmma_fence();
-          ds_k_product(dq, pc, sK + pend * L::TILE);
+          wgmma_rs_k64<D>(dq, pc, sK + pend * L::TILE);
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(dq);
@@ -1025,7 +1041,7 @@ __global__ void __launch_bounds__(kKvThreads, 1)
       const uint32_t cK = sK + stage * L::TILE, cV = sV + stage * L::TILE;
 
       // S = Q K^T (line 11) and dP = dO V^T (line 13), 64 x 64 over head_dim
-      // in two swizzled halves, issued together with the pending step's
+      // in D / 64 swizzled boxes, issued together with the pending step's
       // dQ += dS K (line 15). The first step of a run has none pending: it
       // issues one with dS = 0 (dQ += 0 exactly), so the products and their
       // waits are the same on every taken step.
@@ -1038,16 +1054,16 @@ __global__ void __launch_bounds__(kKvThreads, 1)
       float s[32], dp[32];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)
         wgmma_ss_n64<0, 0>(s, sw128_desc(sQ + (kk >> 2) * 8192 + (kk & 3) * 32, 16),
                            sw128_desc(cK + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
       wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)
         wgmma_ss_n64<0, 0>(dp, sw128_desc(sdO + (kk >> 2) * 8192 + (kk & 3) * 32, 16),
                            sw128_desc(cV + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
       wgmma_commit();
-      ds_k_product(dq, pc, sK + (first ? stage : pend) * L::TILE);
+      wgmma_rs_k64<D>(dq, pc, sK + (first ? stage : pend) * L::TILE);
       wgmma_commit();
       wgmma_wait<2>();
       fence_regs(s);
@@ -1100,7 +1116,7 @@ __global__ void __launch_bounds__(kKvThreads, 1)
     }
     if (pend >= 0) {  // the last step's dQ += dS K
       wgmma_fence();
-      ds_k_product(dq, pc, sK + pend * L::TILE);
+      wgmma_rs_k64<D>(dq, pc, sK + pend * L::TILE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
@@ -1164,21 +1180,21 @@ bool schedule_args_ok(const BwdParams& p, int dense) {
 }
 
 
-bool make_maps(BwdMaps* maps, const BwdParams& p, int batch, int kv_rows) {
-  return make_map(&maps->q, p.q, batch, p.Sq, p.Hq, 128, p.q_sb, p.q_ss, p.q_sh, kBlockM) &&
-         make_map(&maps->dout, p.dout, batch, p.Sq, p.Hq, 128, p.d_sb, p.d_ss, p.d_sh, kBlockM) &&
-         make_map(&maps->k, p.k, batch, p.Skv, p.Hkv, 128, p.k_sb, p.k_ss, p.k_sh, kv_rows) &&
-         make_map(&maps->v, p.v, batch, p.Skv, p.Hkv, 128, p.v_sb, p.v_ss, p.v_sh, kv_rows);
+bool make_maps(BwdMaps* maps, const BwdParams& p, int batch, int D, int kv_rows) {
+  return make_map(&maps->q, p.q, batch, p.Sq, p.Hq, D, p.q_sb, p.q_ss, p.q_sh, kBlockM) &&
+         make_map(&maps->dout, p.dout, batch, p.Sq, p.Hq, D, p.d_sb, p.d_ss, p.d_sh, kBlockM) &&
+         make_map(&maps->k, p.k, batch, p.Skv, p.Hkv, D, p.k_sb, p.k_ss, p.k_sh, kv_rows) &&
+         make_map(&maps->v, p.v, batch, p.Skv, p.Hkv, D, p.v_sb, p.v_ss, p.v_sh, kv_rows);
 }
 
-// The KV-stationary kernels (fused: DQ) of one (SEG, DENSE) pair: one CTA
+// The KV-stationary kernels (fused: DQ) of one (D, SEG, DENSE): one CTA
 // per (pair of kv tiles, batch * kv head).
-template <bool DQ, bool SEG, bool DENSE>
+template <int D, bool DQ, bool SEG, bool DENSE>
 cudaError_t launch_kv(const BwdParams& p, int batch, int t_kv, void* stream) {
   BwdMaps maps;
-  if (!make_maps(&maps, p, batch, kPairRows)) return cudaErrorInvalidValue;
-  auto kernel = DQ ? fa2_bwd_fused_kernel<128, SEG, DENSE> : fa2_bwd_dkv_kernel<128, SEG, DENSE>;
-  const size_t smem = KvSmem<DQ>::BYTES + 1024;  // + the 1024-byte alignment of the base
+  if (!make_maps(&maps, p, batch, D, kPairRows)) return cudaErrorInvalidValue;
+  auto kernel = DQ ? fa2_bwd_fused_kernel<D, SEG, DENSE> : fa2_bwd_dkv_kernel<D, SEG, DENSE>;
+  const size_t smem = KvSmem<D, DQ>::BYTES + 1024;  // + the 1024-byte alignment of the base
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -1188,30 +1204,51 @@ cudaError_t launch_kv(const BwdParams& p, int batch, int t_kv, void* stream) {
 }
 
 
-template <bool DQ>
+template <int D, bool DQ>
 cudaError_t dispatch_kv(const BwdParams& p, int batch, int t_kv, bool seg, bool dense,
                         void* stream) {
   if (dense)
-    return seg ? launch_kv<DQ, true, true>(p, batch, t_kv, stream)
-               : launch_kv<DQ, false, true>(p, batch, t_kv, stream);
-  return seg ? launch_kv<DQ, true, false>(p, batch, t_kv, stream)
-             : launch_kv<DQ, false, false>(p, batch, t_kv, stream);
+    return seg ? launch_kv<D, DQ, true, true>(p, batch, t_kv, stream)
+               : launch_kv<D, DQ, false, true>(p, batch, t_kv, stream);
+  return seg ? launch_kv<D, DQ, true, false>(p, batch, t_kv, stream)
+             : launch_kv<D, DQ, false, false>(p, batch, t_kv, stream);
 }
 
-// The dq kernel of one (SEG, DENSE) pair: one CTA per (pair of q tiles,
+template <bool DQ>
+cudaError_t dispatch_kv_by_dim(const BwdParams& p, int batch, int t_kv, int head_dim, bool seg,
+                               bool dense, void* stream) {
+  return head_dim == 64 ? dispatch_kv<64, DQ>(p, batch, t_kv, seg, dense, stream)
+                        : dispatch_kv<128, DQ>(p, batch, t_kv, seg, dense, stream);
+}
+
+// The dq kernel of one (D, SEG, DENSE): one CTA per (pair of q tiles,
 // batch * q head).
-template <bool SEG, bool DENSE>
+template <int D, bool SEG, bool DENSE>
 cudaError_t launch_dq(const BwdParams& p, int batch, void* stream) {
   BwdMaps maps;
-  if (!make_maps(&maps, p, batch, kBlockN)) return cudaErrorInvalidValue;
-  auto kernel = fa2_bwd_dq_kernel<128, SEG, DENSE>;
-  const size_t smem = DqSmem::BYTES + 1024;  // + the 1024-byte alignment of the base
+  if (!make_maps(&maps, p, batch, D, kBlockN)) return cudaErrorInvalidValue;
+  auto kernel = fa2_bwd_dq_kernel<D, SEG, DENSE>;
+  const size_t smem = DqSmem<D>::BYTES + 1024;  // + the 1024-byte alignment of the base
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<dim3((p.t_q + 1) / 2, batch * p.Hq), kKvThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(p, maps);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch_dq(const BwdParams& p, int batch, bool seg, bool dense, void* stream) {
+  if (dense)
+    return seg ? launch_dq<D, true, true>(p, batch, stream)
+               : launch_dq<D, false, true>(p, batch, stream);
+  return seg ? launch_dq<D, true, false>(p, batch, stream)
+             : launch_dq<D, false, false>(p, batch, stream);
+}
+
+// The head dims and tiles the backward kernels are instantiated for.
+bool kernel_shape_ok(int head_dim, int block_q, int block_kv) {
+  return (head_dim == 64 || head_dim == 128) && block_q == kBlockM && block_kv == kBlockN;
 }
 
 }  // namespace
@@ -1227,16 +1264,20 @@ extern "C" int fa2_bwd_delta_bf16(const void* o, const void* dout, void* delta, 
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.d_sb = d_sb; p.d_ss = d_ss; p.d_sh = d_sh;
   p.Hq = Hq; p.Sq = Sq;
-  if (head_dim != 128) return cudaErrorInvalidValue;
   const dim3 grid((Sq + kBlockM - 1) / kBlockM, batch * Hq);
-  fa2_bwd_delta_kernel<128><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  if (head_dim == 64)
+    fa2_bwd_delta_kernel<64><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  else if (head_dim == 128)
+    fa2_bwd_delta_kernel<128><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  else
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
-// The entries below take the instantiations the training path needs
-// (qwen3: head_dim 128, 64 x 64 tiles), without and with segments (null
-// q ids: none), on the compact schedule (table, step bits) or the dense
-// one (dense != 0: neither).
+// The entries below take the instantiations the training paths need
+// (head_dim 128: qwen3; 64: whisper and the gpt presets; 64 x 64 tiles),
+// without and with segments (null q ids: none), on the compact schedule
+// (table, step bits) or the dense one (dense != 0: neither).
 
 extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dq, void* dk,
@@ -1249,7 +1290,7 @@ extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, c
                                   int dense, const void* q_seg, const void* kv_seg,
                                   long long q_seg_sb, long long kv_seg_sb, const void* bits,
                                   int n_vis, void* stream) {
-  if (head_dim != 128 || block_q != kBlockM || block_kv != kBlockN) return cudaErrorInvalidValue;
+  if (!kernel_shape_ok(head_dim, block_q, block_kv)) return cudaErrorInvalidValue;
   BwdParams p = bwd_params(q, k, v, dout, lse, delta, table, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh, d_sb, d_ss, d_sh, Hq, Hkv, Sq, Skv, causal, window,
                            sink, q_offset, q_seg, kv_seg, q_seg_sb, kv_seg_sb, bits,
@@ -1259,7 +1300,8 @@ extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, c
   p.dv = static_cast<float*>(dv);
   p.t_kv = t_kv;
   if (!schedule_args_ok(p, dense)) return cudaErrorInvalidValue;
-  return dispatch_kv<true>(p, batch, t_kv, q_seg != nullptr, dense != 0, stream);
+  return dispatch_kv_by_dim<true>(p, batch, t_kv, head_dim, q_seg != nullptr, dense != 0,
+                                  stream);
 }
 
 extern "C" int fa2_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
@@ -1272,7 +1314,7 @@ extern "C" int fa2_bwd_dkv_bf16(const void* q, const void* k, const void* v, con
                                 int sink, int q_offset, int t_kv, int dense, const void* q_seg,
                                 const void* kv_seg, long long q_seg_sb, long long kv_seg_sb,
                                 const void* bits, int n_vis, void* stream) {
-  if (head_dim != 128 || block_q != kBlockM || block_kv != kBlockN) return cudaErrorInvalidValue;
+  if (!kernel_shape_ok(head_dim, block_q, block_kv)) return cudaErrorInvalidValue;
   BwdParams p = bwd_params(q, k, v, dout, lse, delta, table, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh, d_sb, d_ss, d_sh, Hq, Hkv, Sq, Skv, causal, window,
                            sink, q_offset, q_seg, kv_seg, q_seg_sb, kv_seg_sb, bits,
@@ -1281,7 +1323,8 @@ extern "C" int fa2_bwd_dkv_bf16(const void* q, const void* k, const void* v, con
   p.dv = static_cast<float*>(dv);
   p.t_kv = t_kv;
   if (!schedule_args_ok(p, dense)) return cudaErrorInvalidValue;
-  return dispatch_kv<false>(p, batch, t_kv, q_seg != nullptr, dense != 0, stream);
+  return dispatch_kv_by_dim<false>(p, batch, t_kv, head_dim, q_seg != nullptr, dense != 0,
+                                   stream);
 }
 
 extern "C" int fa2_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
@@ -1294,7 +1337,7 @@ extern "C" int fa2_bwd_dq_bf16(const void* q, const void* k, const void* v, cons
                                int q_offset, int t_q, int dense, const void* q_seg,
                                const void* kv_seg, long long q_seg_sb, long long kv_seg_sb,
                                const void* bits, int n_vis, void* stream) {
-  if (head_dim != 128 || block_q != kBlockM || block_kv != kBlockN) return cudaErrorInvalidValue;
+  if (!kernel_shape_ok(head_dim, block_q, block_kv)) return cudaErrorInvalidValue;
   BwdParams p = bwd_params(q, k, v, dout, lse, delta, table, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh, d_sb, d_ss, d_sh, Hq, Hkv, Sq, Skv, causal, window,
                            sink, q_offset, q_seg, kv_seg, q_seg_sb, kv_seg_sb, bits,
@@ -1303,7 +1346,6 @@ extern "C" int fa2_bwd_dq_bf16(const void* q, const void* k, const void* v, cons
   p.t_q = t_q;
   if (t_q < 1 || !schedule_args_ok(p, dense)) return cudaErrorInvalidValue;
   const bool seg = q_seg != nullptr;
-  if (dense)
-    return seg ? launch_dq<true, true>(p, batch, stream) : launch_dq<false, true>(p, batch, stream);
-  return seg ? launch_dq<true, false>(p, batch, stream) : launch_dq<false, false>(p, batch, stream);
+  return head_dim == 64 ? dispatch_dq<64>(p, batch, seg, dense != 0, stream)
+                        : dispatch_dq<128>(p, batch, seg, dense != 0, stream);
 }

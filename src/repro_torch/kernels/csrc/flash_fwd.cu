@@ -245,19 +245,6 @@ __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
   return d < p.window || col < p.sink;
 }
 
-// O (64 x D f32) += P (64 x 64 bf16, registers) V (64 x D, a stage, MN-major).
-template <int D>
-__device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&pc)[4][4],
-                                           uint32_t v) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if constexpr (D == 128)
-      wgmma_rs_n128(o, pc[kk], sw128_desc(v + kk * 2048, 8192));
-    else
-      wgmma_rs_n64<1>(o, pc[kk], sw128_desc(v + kk * 2048, 8192), 1);
-  }
-}
-
 template <int D, bool SEG, bool SPLIT, bool DENSE>
 __global__ void __launch_bounds__(kThreads, 1)
     fa2_fwd_kernel(const FwdParams p, const __grid_constant__ FwdMaps maps) {
@@ -468,7 +455,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         // stays held while the producer waits for it, and release both.
         if (pend >= 0) {
           wgmma_fence();
-          pv_product<D>(o, pc, sV + pend * L::TILE);
+          wgmma_rs_k64<D>(o, pc, sV + pend * L::TILE);
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(o);
@@ -501,7 +488,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int kk = 0; kk < D / 16; ++kk)
         wgmma_rs_n64<0>(s, qf[kk], sw128_desc(cK + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
       wgmma_commit();
-      pv_product<D>(o, pc, sV + (first ? stage : pend) * L::TILE);
+      wgmma_rs_k64<D>(o, pc, sV + (first ? stage : pend) * L::TILE);
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(s);
@@ -582,7 +569,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     if (pend >= 0) {  // the last step's O += P V
       wgmma_fence();
-      pv_product<D>(o, pc, sV + pend * L::TILE);
+      wgmma_rs_k64<D>(o, pc, sV + pend * L::TILE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);

@@ -219,6 +219,24 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x D f32) += A (64 x 64 bf16: four k-steps of register fragments) *
+// B (64 x D at shared address b, MN-major: D / 64 boxes of 64 rows x 128
+// bytes, 8 KB apart, as TMA lands a 64-row tile); D = 64 or 128. P V of the
+// forward, P^T dO and dS^T Q of the KV-stationary backward, dS K of the dq
+// kernel.
+template <int D>
+__device__ __forceinline__ void wgmma_rs_k64(float (&d)[D / 2], const uint32_t (&a)[4][4],
+                                             uint32_t b) {
+  static_assert(D == 64 || D == 128, "wgmma_rs_k64 takes D = 64 or 128");
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (D == 128)
+      wgmma_rs_n128(d, a[kk], sw128_desc(b + kk * 2048, 8192));
+    else
+      wgmma_rs_n64<1>(d, a[kk], sw128_desc(b + kk * 2048, 8192), 1);
+  }
+}
+
 // The min and max of (lo, hi) over the 32 lanes of a warp.
 __device__ __forceinline__ void warp_range(int& lo, int& hi) {
 #pragma unroll

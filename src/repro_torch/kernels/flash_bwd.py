@@ -78,9 +78,16 @@ from repro_torch.kernels.flash_fwd import (_check_kernel_inputs, _check_layout, 
                                            check_segments, count_launch, segment_args)
 from repro_torch.kernels.schedule import check_schedule, device_schedule
 
-# Head dims the backward kernels are instantiated for: 128 (qwen3). Head dim
-# 64 (whisper training) comes with the backward's next instantiation.
-KERNEL_HEAD_DIMS = (128,)
+# Head dims the backward kernels are instantiated for: 128 (qwen3) and 64
+# (whisper-base, the gpt presets). Each wrapper also counts its head_dim-64
+# launches apart (``hd64_launches``, a subset of its other counts).
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+def _count(wrapper, schedule: str, head_dim: int) -> None:
+    count_launch(wrapper, schedule)
+    if head_dim == 64:
+        wrapper.hd64_launches += 1
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -113,10 +120,13 @@ def flash_bwd_delta(o, do):
     )
     _build.check(err, "fa2_bwd_delta_bf16")
     flash_bwd_delta.launches += 1
+    if D == 64:
+        flash_bwd_delta.hd64_launches += 1
     return delta
 
 
 flash_bwd_delta.launches = 0  # kernel launches (CUDA tensors only)
+flash_bwd_delta.hd64_launches = 0  # of which at head_dim 64
 
 
 def flash_bwd_delta_plain(o, do):
@@ -155,6 +165,7 @@ def flash_bwd_fused(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, bl
 
 flash_bwd_fused.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_fused.dense_launches = 0  # dense kernel launches (CUDA tensors only)
+flash_bwd_fused.hd64_launches = 0  # launches of either schedule at head_dim 64
 
 
 def flash_bwd_fused_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, *,
@@ -166,6 +177,7 @@ def flash_bwd_fused_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_se
 
 flash_bwd_fused_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_fused_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
+flash_bwd_fused_varlen.hd64_launches = 0  # launches of either schedule at head_dim 64
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int,
@@ -178,6 +190,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, bloc
 
 flash_bwd_dkv.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dkv.dense_launches = 0  # dense kernel launches (CUDA tensors only)
+flash_bwd_dkv.hd64_launches = 0  # launches of either schedule at head_dim 64
 
 
 def flash_bwd_dkv_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, *,
@@ -189,6 +202,7 @@ def flash_bwd_dkv_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg,
 
 flash_bwd_dkv_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dkv_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
+flash_bwd_dkv_varlen.hd64_launches = 0  # launches of either schedule at head_dim 64
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int,
@@ -200,6 +214,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block
 
 flash_bwd_dq.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dq.dense_launches = 0  # dense kernel launches (CUDA tensors only)
+flash_bwd_dq.hd64_launches = 0  # launches of either schedule at head_dim 64
 
 
 def flash_bwd_dq_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, *,
@@ -211,6 +226,7 @@ def flash_bwd_dq_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, 
 
 flash_bwd_dq_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dq_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
+flash_bwd_dq_varlen.hd64_launches = 0  # launches of either schedule at head_dim 64
 
 
 def _plain_kw(segments, block_q, block_kv, schedule):
@@ -231,7 +247,7 @@ def _fused(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv, 
     dq = torch.zeros((B, Sq, Hq, D), dtype=torch.float32, device=q.device)
     dk, dv = _launch_fused(q, k, v, do, lse, delta, spec, block_q, block_kv, dq, segments,
                            schedule)
-    count_launch(wrapper, schedule)
+    _count(wrapper, schedule, D)
     return dq, dk, dv
 
 
@@ -249,7 +265,7 @@ def _dkv(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv, sc
     dk, dv = _empty_dkv(q, k)
     err = _lib().fa2_bwd_dkv_bf16(*args[:6], dk.data_ptr(), dv.data_ptr(), *args[6:])
     _build.check(err, "fa2_bwd_dkv_bf16")
-    count_launch(wrapper, schedule)
+    _count(wrapper, schedule, q.shape[3])
     return dk, dv
 
 
@@ -268,7 +284,7 @@ def _dq(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv, sch
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     err = _lib().fa2_bwd_dq_bf16(*args[:6], dq.data_ptr(), *args[6:])
     _build.check(err, "fa2_bwd_dq_bf16")
-    count_launch(wrapper, schedule)
+    _count(wrapper, schedule, q.shape[3])
     return dq
 
 

@@ -12,10 +12,12 @@ Usage:
 per request; ``--engine paged`` serves from a shared page pool and decodes
 through a block table (attention-only archs).
 
-``--device cuda`` (the default) needs a card and raises without one; the
-CUDA kernels take bfloat16 at head_dim 128, so on the card serve a
-full-width config (``--reduce`` shrinks to float32 at head_dim 16, which
-the plain CPU path serves).
+``--device cuda`` (the default) needs a card and raises without one. The
+CUDA kernels take bfloat16 at head_dim 64 and 128 (the paged decode at
+128), so on the card serve a full-width config (``--reduce`` shrinks to
+float32 at head_dim 16, which the plain CPU path serves); a model they
+cannot take is refused before anything reaches the card
+(``core.attention.check_card_support``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
-from repro_torch.core.attention import IMPLS, AttentionConfig
+from repro_torch.core.attention import IMPLS, AttentionConfig, check_card_support
 from repro_torch.models.lm import init_lm
 from repro_torch.serving.engine import PagedServingEngine, Request, ServingEngine
 
@@ -56,8 +58,10 @@ def main(argv=None):
     cfg = registry.get(args.arch)
     if args.reduce:
         cfg = registry.reduce_config(cfg)
-    model = init_lm(cfg, args.seed, args.device)
     attn_cfg = AttentionConfig(impl=args.attn)
+    check_card_support(cfg, attn_cfg, args.device, training=False,
+                       paged=args.engine == "paged")
+    model = init_lm(cfg, args.seed, args.device)
     if args.engine == "paged":
         num_pages = args.num_pages or (args.max_batch * args.cache // args.page_size + 1)
         n_max = args.pages_per_seq or max(1, args.cache // args.page_size)

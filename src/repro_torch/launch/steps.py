@@ -37,13 +37,20 @@ def loss_fn(cfg, attn_cfg: AttentionConfig, model, batch: Dict[str, torch.Tensor
             ce_chunk: int = 512):
     """(loss, metrics) of one batch {"inputs", "targets"[, "loss_mask",
     "segment_ids"]} (the counterpart of ``loss_fn``, JAX ``steps.py:35``);
-    segment ids make it a packed (varlen) batch."""
-    hidden, aux, nprefix = model(batch["inputs"], attn_cfg,
-                                 segment_ids=batch.get("segment_ids"))
+    segment ids make it a packed (varlen) batch. An encoder-decoder config
+    (whisper) also reads ``batch["frames"]`` (B, T, d_model) and unembeds
+    through the decoder's token table (JAX ``_embed_params``, ``steps.py:31``)."""
+    if cfg.family == "encdec":
+        hidden, aux, nprefix = model(batch["frames"], batch["inputs"], attn_cfg)
+        embed = model.decoder.embed
+    else:
+        hidden, aux, nprefix = model(batch["inputs"], attn_cfg,
+                                     segment_ids=batch.get("segment_ids"))
+        embed = model.embed
     if nprefix:
         hidden = hidden[:, nprefix:]
     loss, metrics = chunked_cross_entropy(
-        model.embed, hidden, batch["targets"], vocab_valid=cfg.vocab_size,
+        embed, hidden, batch["targets"], vocab_valid=cfg.vocab_size,
         mask=batch.get("loss_mask"), chunk=ce_chunk,
     )
     return loss + aux, {"ce_loss": loss, "aux_loss": aux, **metrics}

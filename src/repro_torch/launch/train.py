@@ -2,20 +2,23 @@
 
 The counterpart of ``repro/launch/train.py`` without what waits for later
 slices (ROADMAP.md, modules to port): checkpointing and restarts, fault
-injection, a mesh and telemetry. ``--device`` is the one flag the JAX CLI
-lacks, as in the serving CLI. ``--packed`` trains on packed (varlen) rows:
-ragged documents back to back, attention kept inside each, RoPE positions
+injection, a mesh and telemetry. ``--device`` and ``--dtype`` are the flags
+the JAX CLI lacks. ``--packed`` trains on packed (varlen) rows: ragged
+documents back to back, attention kept inside each, RoPE positions
 restarting at each document.
 
 Usage:
+  python -m repro_torch.launch.train --preset gpt-20m --dtype bfloat16 --steps 4
   python -m repro_torch.launch.train --arch qwen3-8b --reduce --device cpu --steps 4
   python -m repro_torch.launch.train --preset gpt-20m --device cpu --steps 2
   python -m repro_torch.launch.train --arch qwen3-8b --reduce --device cpu --packed --steps 2
 
-``--device cuda`` (the default) needs a card and raises without one; the
-CUDA kernels take bfloat16 at head_dim 128, so on the card train a
-full-width config (``--reduce`` and the presets are float32 at head_dim 16
-or 64, which the plain CPU path runs).
+``--device cuda`` (the default) needs a card and raises without one. The
+CUDA kernels take bfloat16 at head_dim 64 and 128: the presets and the
+reduced configs are float32 (their CPU parity with the JAX package holds
+in f32), so on the card train a preset with ``--dtype bfloat16``. A model
+the kernels cannot take (float32, or head_dim 160 or 256) is refused
+before anything reaches the card (``core.attention.check_card_support``).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.attention import IMPLS, AttentionConfig
+from repro_torch.core.attention import IMPLS, AttentionConfig, check_card_support
 from repro_torch.data.pipeline import DataConfig, make_source
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models.lm import init_lm
@@ -59,19 +62,27 @@ class TrainLoopConfig:
     batch_size: int = 8
     microbatches: int = 1
     attn_impl: str = "flash_cuda"
+    # flash_cuda backward mode (AttentionConfig.bwd; None: fused); set
+    # through the library only, as the JAX trainer has no flag for it.
+    attn_bwd: Optional[str] = None
     log_every: int = 10
     seed: int = 0
     device: str = "cuda"
     packed: bool = False  # varlen packing: segment-masked attention
 
 
-def resolve_model(arch: Optional[str], preset: Optional[str], reduce: bool) -> ModelConfig:
+def resolve_model(arch: Optional[str], preset: Optional[str], reduce: bool,
+                  dtype: Optional[str] = None) -> ModelConfig:
+    """The config of ``--preset`` or ``--arch`` (``--reduce``: its smoke
+    size), in ``dtype`` where given, else in its own dtype."""
     if preset:
-        return PRESETS[preset]
-    if not arch:
+        cfg = PRESETS[preset]
+    elif not arch:
         raise ValueError("--arch or --preset required")
-    cfg = registry.get(arch)
-    return registry.reduce_config(cfg) if reduce else cfg
+    else:
+        cfg = registry.get(arch)
+        cfg = registry.reduce_config(cfg) if reduce else cfg
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
 
 
 def _sync(device: torch.device) -> None:
@@ -84,7 +95,8 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, opt_cfg: Optional[AdamWConfig
     per-step ``loss``, ``grad_norm``, ``lr`` and ``step_time`` (seconds of
     the step, data excluded, ending in a device synchronise)."""
     opt_cfg = opt_cfg or AdamWConfig(total_steps=loop.steps)
-    attn_cfg = AttentionConfig(impl=loop.attn_impl)
+    attn_cfg = AttentionConfig(impl=loop.attn_impl, bwd=loop.attn_bwd)
+    check_card_support(cfg, attn_cfg, loop.device, training=True)
     data = make_source(DataConfig(batch_size=loop.batch_size, seq_len=loop.seq_len,
                                   vocab_size=cfg.vocab_size, seed=loop.seed,
                                   source="packed" if loop.packed else "synthetic"))
@@ -93,7 +105,7 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, opt_cfg: Optional[AdamWConfig
     opt_state = init_opt_state(params)
     step_fn = build_train_step(cfg, attn_cfg, opt_cfg, microbatches=loop.microbatches)
     n_params = sum(p.numel() for p in params.values())
-    print(f"[train] {cfg.name}: {n_params / 1e6:.1f}M params on {model.device}, "
+    print(f"[train] {cfg.name}: {n_params / 1e6:.1f}M params ({cfg.dtype}) on {model.device}, "
           f"{loop.steps} steps x {loop.batch_size}x{loop.seq_len} tokens, "
           f"attn={loop.attn_impl}{' packed' if loop.packed else ''}", flush=True)
     history = {"loss": [], "grad_norm": [], "lr": [], "step_time": []}
@@ -123,6 +135,9 @@ def main(argv=None):
     ap.add_argument("--arch", default=None, help="registry architecture id")
     ap.add_argument("--preset", default=None, choices=sorted(PRESETS))
     ap.add_argument("--reduce", action="store_true", help="use the reduced smoke config")
+    ap.add_argument("--dtype", default=None, choices=("float32", "bfloat16"),
+                    help="compute dtype (default: the config's own); the CUDA kernels take "
+                         "bfloat16")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--batch", type=int, default=8)
@@ -135,7 +150,7 @@ def main(argv=None):
                     help="varlen sequence packing (segment-masked attention)")
     args = ap.parse_args(argv)
 
-    cfg = resolve_model(args.arch, args.preset, args.reduce)
+    cfg = resolve_model(args.arch, args.preset, args.reduce, args.dtype)
     loop = TrainLoopConfig(
         steps=args.steps, seq_len=args.seq, batch_size=args.batch,
         microbatches=args.microbatches, attn_impl=args.attn, log_every=args.log_every,

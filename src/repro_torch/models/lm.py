@@ -40,8 +40,12 @@ SUPPORTED_KINDS = ("attn", "attn_local")
 
 def check_supported(cfg) -> None:
     """Raise for what this decoder-only LM cannot build. Every dense arch of
-    the registry (qwen3, deepseek-coder, stablelm, gemma3) passes; the
-    encoder-decoder family is :class:`repro_torch.models.whisper.Whisper`."""
+    the registry (qwen3, deepseek-coder, stablelm, gemma3) passes here, and
+    runs on the plain CPU path; on the card the CUDA kernels take head_dim
+    64 and 128 only, so gemma3-1b (256) and stablelm-12b (160) train and
+    serve there through ``impl="ref"``: the entry points refuse
+    ``flash_cuda`` for them up front (``core.attention.check_card_support``).
+    The encoder-decoder family is :class:`repro_torch.models.whisper.Whisper`."""
     if cfg.family == "encdec":
         raise NotImplementedError(
             f"{cfg.name} is an encoder-decoder model: build it with "

@@ -15,8 +15,10 @@ cross-attention (a few prompt rows against every frame) on the split-KV
 forward where the auto policy splits it, and every decode tick's self- and
 cross-attention on the decode kernel. Layers run in a Python loop (the JAX
 package scans over the vmap-stacked layer tree). The serving entry points
-run under ``torch.no_grad``; training whisper (``loss_fn``'s encoder-decoder
-branch) is not ported yet.
+run under ``torch.no_grad``. Training goes through :meth:`Whisper.forward`
+(``launch/steps.loss_fn``'s encoder-decoder branch); with ``cfg.remat`` each
+encoder and decoder layer is recomputed in the backward, as the JAX package
+checkpoints each layer body.
 
 Weights: :func:`init_whisper` draws them on the target device from a seeded
 ``torch.Generator``; :func:`params_from_jax` converts the JAX
@@ -30,6 +32,7 @@ from typing import Any, Dict, List, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.registry import torch_dtype
 from repro_torch.core.attention import AttentionConfig
@@ -117,16 +120,33 @@ class Whisper(nn.Module):
                 m.init_(gen)
         return self
 
+    def _layer(self, body, layer, *args):
+        """``body(layer, *args)``, recomputed in the backward when ``cfg.remat``
+        and autograd records (JAX ``whisper.py:89``, ``:120``: ``jax.checkpoint``
+        of each layer body)."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(body, layer, *args, use_reentrant=False)
+        return body(layer, *args)
+
+    def _enc_body(self, layer, h, positions, attn_cfg):
+        h = h + apply_attention(layer.attn, self.cfg, layer.ln1(h), positions, FULL, attn_cfg)
+        return self._mlp_block(layer, h)
+
+    def _dec_body(self, layer, h, enc, positions, attn_cfg):
+        cfg = self.cfg
+        h = h + apply_attention(layer.self_attn, cfg, layer.ln1(h), positions, CAUSAL, attn_cfg)
+        h = h + apply_attention(layer.cross, cfg, layer.lnx(h), positions, FULL, attn_cfg,
+                                x_kv=enc)
+        return self._mlp_block(layer, h)
+
     def encode(self, frames: torch.Tensor, attn_cfg: AttentionConfig) -> torch.Tensor:
         """frames (B, T, d_model), precomputed frame embeddings (the stub
         frontend) -> encoder output (B, T, d_model) (JAX ``whisper.py:75``)."""
-        cfg = self.cfg
         T, d = frames.shape[1], frames.shape[2]
         h = frames + sinusoidal_positions(T, d, frames.device)[None].to(frames.dtype)
         positions = torch.arange(T, device=h.device)
         for layer in self.encoder.layers:
-            h = h + apply_attention(layer.attn, cfg, layer.ln1(h), positions, FULL, attn_cfg)
-            h = self._mlp_block(layer, h)
+            h = self._layer(self._enc_body, layer, h, positions, attn_cfg)
         return self.encoder.ln_post(h)
 
     def _dec_embed(self, tokens: torch.Tensor, start: Union[int, torch.Tensor] = 0):
@@ -146,17 +166,13 @@ class Whisper(nn.Module):
     def forward(self, frames: torch.Tensor, tokens: torch.Tensor, attn_cfg: AttentionConfig):
         """Teacher-forced forward -> (decoder hidden (B, S, d), aux loss 0,
         prefix 0), the counterpart of JAX ``whisper.py:105``; the caller
-        unembeds."""
-        cfg = self.cfg
+        unembeds. Gradients reach the encoder through every decoder layer's
+        cross-attention."""
         enc = self.encode(frames, attn_cfg)
         h = self._dec_embed(tokens)
         positions = torch.arange(tokens.shape[1], device=h.device)
         for layer in self.decoder.layers:
-            h = h + apply_attention(layer.self_attn, cfg, layer.ln1(h), positions, CAUSAL,
-                                    attn_cfg)
-            h = h + apply_attention(layer.cross, cfg, layer.lnx(h), positions, FULL, attn_cfg,
-                                    x_kv=enc)
-            h = self._mlp_block(layer, h)
+            h = self._layer(self._dec_body, layer, h, enc, positions, attn_cfg)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return self.decoder.ln_f(h), aux, 0
 

@@ -1,0 +1,110 @@
+"""What the entry points refuse before anything reaches the card, and the
+train CLI's ``--dtype``.
+
+The CUDA kernels take bfloat16 at head_dim 64 and 128 (the paged decode at
+128). ``core.attention.check_card_support`` refuses ``flash_cuda`` on a
+CUDA device for anything else, and the train and serve CLIs call it before
+they build a model: on this machine, which has no card, the CLIs must
+therefore fail with that refusal (a ValueError naming the way out), never
+with the missing card (``resolve_device``'s RuntimeError) or a TypeError
+from inside a kernel wrapper. The check takes a device name, so it runs
+here as it would on a card."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from repro_torch.configs import registry
+from repro_torch.core.attention import AttentionConfig, check_card_support
+from repro_torch.launch import serve
+from repro_torch.launch import train as train_cli
+
+ROOT = Path(__file__).resolve().parents[1]
+FLASH, REF = AttentionConfig(impl="flash_cuda"), AttentionConfig(impl="ref")
+
+
+def _gpt20m(dtype=None):
+    return train_cli.resolve_model(None, "gpt-20m", False, dtype)
+
+
+def test_float32_is_refused_on_the_card_with_the_way_out():
+    cfg = _gpt20m()
+    assert cfg.dtype == "float32"  # the preset's own dtype, as in the JAX package
+    for device in ("cuda", "cuda:0"):
+        with pytest.raises(ValueError, match="--dtype bfloat16") as err:
+            check_card_support(cfg, FLASH, device, training=True)
+        assert "--attn ref" in str(err.value)
+    check_card_support(_gpt20m("bfloat16"), FLASH, "cuda", training=True)
+    # The plain CPU path and the dense reference take float32.
+    check_card_support(cfg, FLASH, "cpu", training=True)
+    check_card_support(cfg, REF, "cuda", training=True)
+
+
+@pytest.mark.parametrize("arch,head_dim", [("gemma3-1b", 256), ("stablelm-12b", 160)])
+@pytest.mark.parametrize("training", [True, False])
+def test_head_dims_the_kernels_lack_are_refused_on_the_card(arch, head_dim, training):
+    cfg = registry.get(arch)
+    assert cfg.head_dim == head_dim and cfg.dtype == "bfloat16"
+    with pytest.raises(ValueError, match="queue 2, item 2"):
+        check_card_support(cfg, FLASH, "cuda", training=training)
+    check_card_support(cfg, FLASH, "cpu", training=training)
+    check_card_support(cfg, REF, "cuda", training=training)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "whisper-base"])
+def test_head_dims_64_and_128_train_and_serve_on_the_card(arch):
+    cfg = registry.get(arch)
+    check_card_support(cfg, FLASH, "cuda", training=True)
+    check_card_support(cfg, FLASH, "cuda", training=False)
+
+
+def test_paged_decode_at_head_dim_64_is_refused_on_the_card():
+    cfg = registry.get("whisper-base")
+    with pytest.raises(ValueError, match="queue 2, item 3"):
+        check_card_support(cfg, FLASH, "cuda", training=False, paged=True)
+    check_card_support(registry.get("qwen3-8b"), FLASH, "cuda", training=False, paged=True)
+
+
+def test_train_cli_refuses_before_building_the_model():
+    """The preset in float32 on the default device (cuda) through the
+    default flash_cuda: the refusal, not the missing card."""
+    with pytest.raises(ValueError, match="--dtype bfloat16"):
+        train_cli.main(["--preset", "gpt-20m", "--steps", "1"])
+    with pytest.raises(ValueError, match="head_dim 256"):
+        train_cli.main(["--arch", "gemma3-1b", "--steps", "1"])
+
+
+def test_serve_cli_refuses_before_building_the_model():
+    with pytest.raises(ValueError, match="head_dim 160"):
+        serve.main(["--arch", "stablelm-12b"])
+    with pytest.raises(ValueError, match="bfloat16"):
+        serve.main(["--arch", "qwen3-8b", "--reduce"])
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+def test_train_cli_dtype(dtype):
+    """``--dtype bfloat16 --device cpu`` builds the preset in bf16 and takes
+    a step; without ``--dtype`` the preset stays float32."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--preset", "gpt-20m", "--device",
+           "cpu", "--steps", "1", "--seq", "64", "--batch", "2"]
+    if dtype:
+        cmd += ["--dtype", dtype]
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert f"({dtype or 'float32'})" in proc.stdout
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert np.isfinite(out["first5_loss"]) and out["tokens_per_s"] > 0
+
+
+def test_resolve_model_keeps_the_config_dtype_unless_asked():
+    assert _gpt20m().dtype == "float32"
+    assert _gpt20m("bfloat16").dtype == "bfloat16"
+    reduced = train_cli.resolve_model("qwen3-8b", None, True, "bfloat16")
+    assert reduced.dtype == "bfloat16" and reduced.d_model == 64
+    assert train_cli.resolve_model("qwen3-8b", None, False).dtype == "bfloat16"

@@ -135,14 +135,16 @@ def _rel_err(a, b):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [128, 64])
 @pytest.mark.parametrize("B,S", [(1, 64), (2, 700), (2, 2048)])
-def test_delta_kernel_matches_plain(cuda, B, S):
+def test_delta_kernel_matches_plain(cuda, B, S, D):
     gen = torch.Generator(device=cuda).manual_seed(2)
-    o, do = _randn(gen, (B, S, 32, 128), cuda), _randn(gen, (B, S, 32, 128), cuda)
-    before = bwd_mod.flash_bwd_delta.launches
+    o, do = _randn(gen, (B, S, 32, D), cuda), _randn(gen, (B, S, 32, D), cuda)
+    before = (bwd_mod.flash_bwd_delta.launches, bwd_mod.flash_bwd_delta.hd64_launches)
     delta = bwd_mod.flash_bwd_delta(o, do)
     torch.cuda.synchronize()
-    assert bwd_mod.flash_bwd_delta.launches == before + 1
+    assert (bwd_mod.flash_bwd_delta.launches, bwd_mod.flash_bwd_delta.hd64_launches) == (
+        before[0] + 1, before[1] + (D == 64))
     assert _err(delta, bwd_mod.flash_bwd_delta_plain(o, do)) < DELTA_TOL
 
 
@@ -177,15 +179,18 @@ BWD_CASES = [
 ]
 
 
-def _bwd_inputs(cuda, B, S, Hq, Hkv, spec, view="contiguous"):
+def _bwd_inputs(cuda, B, S, Hq, Hkv, spec, view="contiguous", D=128, Skv=None):
+    """q, k, v, dO at head_dim D (S q rows, Skv kv rows: S unless given),
+    the forward kernel's lse and the delta kernel's delta."""
+    Skv = S if Skv is None else Skv
     gen = torch.Generator(device=cuda).manual_seed(3)
-    q = ops._prep(_randn(gen, (B, S, Hq, 128), cuda), 1 / math.sqrt(128))
-    k, v = _randn(gen, (B, S, Hkv, 128), cuda), _randn(gen, (B, S, Hkv, 128), cuda)
-    do = _randn(gen, (B, S, Hq, 128), cuda)
+    q = ops._prep(_randn(gen, (B, S, Hq, D), cuda), 1 / math.sqrt(D))
+    k, v = _randn(gen, (B, Skv, Hkv, D), cuda), _randn(gen, (B, Skv, Hkv, D), cuda)
+    do = _randn(gen, (B, S, Hq, D), cuda)
     if view == "strided":
-        wide = torch.zeros((B, S, 2 * Hq, 128), dtype=q.dtype, device=cuda)
+        wide = torch.zeros((B, S, 2 * Hq, D), dtype=q.dtype, device=cuda)
         wide[:, :, Hq:] = q
-        kv = torch.stack((k, v), dim=2)  # (B, S, 2, Hkv, 128)
+        kv = torch.stack((k, v), dim=2)  # (B, Skv, 2, Hkv, D)
         q, k, v = wide[:, :, Hq:], kv[:, :, 0], kv[:, :, 1]
         do = do.transpose(1, 2).contiguous().transpose(1, 2)  # head stride > row stride
         assert not any(x.is_contiguous() for x in (q, k, v, do))
@@ -201,15 +206,39 @@ def _unseen_rows(spec):
     return max(-spec.q_offset, 0) // 64 * 64
 
 
+# Rectangular and ragged shapes at whisper's sizes and beyond, (B, Sq, Skv,
+# H, spec): the cross-attention (448 decoder rows against 1500 frames,
+# FULL), the encoder (1500 frames, FULL: a 28-row tail tile on both axes),
+# and a causal chunk of 300 q rows at the end of 700 keys (q_offset 400).
+RECT_CASES = [
+    (2, 448, 1500, 8, dict()),
+    (2, 1500, 1500, 8, dict()),
+    (1, 300, 700, 8, dict(causal=True, q_offset=400)),
+]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [128, 64])
 @pytest.mark.parametrize("B,S,Hq,Hkv,spec,view", BWD_CASES)
-def test_fused_backward_kernel_matches_plain(cuda, B, S, Hq, Hkv, spec, view):
+def test_fused_backward_kernel_matches_plain(cuda, B, S, Hq, Hkv, spec, view, D):
+    _check_fused(cuda, B, S, S, Hq, Hkv, spec, view, D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [128, 64])
+@pytest.mark.parametrize("B,Sq,Skv,H,spec", RECT_CASES)
+def test_fused_backward_kernel_on_rectangular_shapes(cuda, B, Sq, Skv, H, spec, D):
+    _check_fused(cuda, B, Sq, Skv, H, H, spec, "contiguous", D)
+
+
+def _check_fused(cuda, B, Sq, Skv, Hq, Hkv, spec, view, D):
     spec = MaskSpec(**spec)
-    args = (*_bwd_inputs(cuda, B, S, Hq, Hkv, spec, view), spec)
-    before = bwd_mod.flash_bwd_fused.launches
+    args = (*_bwd_inputs(cuda, B, Sq, Hq, Hkv, spec, view, D, Skv), spec)
+    before = (bwd_mod.flash_bwd_fused.launches, bwd_mod.flash_bwd_fused.hd64_launches)
     got = bwd_mod.flash_bwd_fused(*args, block_q=64, block_kv=64)
     torch.cuda.synchronize()
-    assert bwd_mod.flash_bwd_fused.launches == before + 1
+    assert (bwd_mod.flash_bwd_fused.launches, bwd_mod.flash_bwd_fused.hd64_launches) == (
+        before[0] + 1, before[1] + (D == 64))
     want = bwd_mod.flash_bwd_fused_plain(*args, block_q=64, block_kv=64)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == torch.float32 and a.shape == b.shape, name
@@ -219,15 +248,27 @@ def test_fused_backward_kernel_matches_plain(cuda, B, S, Hq, Hkv, spec, view):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [128, 64])
 @pytest.mark.parametrize("B,S,Hq,Hkv,spec,view", BWD_CASES)
-def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec, view):
+def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec, view, D):
     """dkv and dq against their plain versions; dk and dv bitwise the fused
     kernel's (the same body without its dQ phase), the dense schedule's and,
     through the SEG kernels, all-ones ids' (the same walk, products and
     order); dq bitwise the same from a second launch (no atomics), the
     dense schedule's and all-ones ids'; zeros where a row sees no key."""
+    _check_split(cuda, B, S, S, Hq, Hkv, spec, view, D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [128, 64])
+@pytest.mark.parametrize("B,Sq,Skv,H,spec", RECT_CASES)
+def test_split_backward_kernels_on_rectangular_shapes(cuda, B, Sq, Skv, H, spec, D):
+    _check_split(cuda, B, Sq, Skv, H, H, spec, "contiguous", D)
+
+
+def _check_split(cuda, B, S, Skv, Hq, Hkv, spec, view, D):
     spec = MaskSpec(**spec)
-    args = (*_bwd_inputs(cuda, B, S, Hq, Hkv, spec, view), spec)
+    args = (*_bwd_inputs(cuda, B, S, Hq, Hkv, spec, view, D, Skv), spec)
     tiles = dict(block_q=64, block_kv=64)
     before = (bwd_mod.flash_bwd_dkv.launches, bwd_mod.flash_bwd_dq.launches)
     dk, dv = bwd_mod.flash_bwd_dkv(*args, **tiles)
@@ -238,12 +279,13 @@ def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec,
     assert (bwd_mod.flash_bwd_dkv.launches, bwd_mod.flash_bwd_dq.launches) == (
         before[0] + 1, before[1] + 2)
     ones = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    kv_ones = torch.ones((B, Skv), dtype=torch.int32, device=cuda)
     _, dk_fd, dv_fd = bwd_mod.flash_bwd_fused(*args, schedule="dense", **tiles)
     dk_d, dv_d = bwd_mod.flash_bwd_dkv(*args, schedule="dense", **tiles)
-    _, dk_fs, dv_fs = bwd_mod.flash_bwd_fused_varlen(*args, ones, ones, **tiles)
-    dk_s, dv_s = bwd_mod.flash_bwd_dkv_varlen(*args, ones, ones, **tiles)
+    _, dk_fs, dv_fs = bwd_mod.flash_bwd_fused_varlen(*args, ones, kv_ones, **tiles)
+    dk_s, dv_s = bwd_mod.flash_bwd_dkv_varlen(*args, ones, kv_ones, **tiles)
     dq_d = bwd_mod.flash_bwd_dq(*args, schedule="dense", **tiles)
-    dq_s = bwd_mod.flash_bwd_dq_varlen(*args, ones, ones, **tiles)
+    dq_s = bwd_mod.flash_bwd_dq_varlen(*args, ones, kv_ones, **tiles)
     torch.cuda.synchronize()
     dk_p, dv_p = bwd_mod.flash_bwd_dkv_plain(*args, **tiles)
     dq_p = bwd_mod.flash_bwd_dq_plain(*args, **tiles)
@@ -255,6 +297,24 @@ def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec,
         assert torch.equal(dk, dk_x) and torch.equal(dv, dv_x)
     assert torch.equal(dq, dq2) and torch.equal(dq, dq_d) and torch.equal(dq, dq_s)
     assert (dq[:, :_unseen_rows(spec)] == 0).all()
+
+
+def _zeroed(counters, plains):
+    """Zero the wrappers' launch counts (the backward's head_dim-64 ones
+    too) and the plain versions' call counts."""
+    for f in counters:
+        f.launches = 0
+        if hasattr(f, "hd64_launches"):
+            f.hd64_launches = 0
+    for f in plains:
+        f.calls = 0
+
+
+BWD_COUNTERS = (fwd_mod.flash_fwd, bwd_mod.flash_bwd_delta, bwd_mod.flash_bwd_fused,
+                bwd_mod.flash_bwd_dkv, bwd_mod.flash_bwd_dq)
+BWD_PLAINS = (fwd_mod.flash_fwd_plain, bwd_mod.flash_bwd_delta_plain,
+              bwd_mod.flash_bwd_fused_plain, bwd_mod.flash_bwd_dkv_plain,
+              bwd_mod.flash_bwd_dq_plain)
 
 
 @pytest.mark.gpu
@@ -270,20 +330,64 @@ def test_training_step_runs_through_the_kernels(cuda, bwd):
     step = build_train_step(cfg, AttentionConfig(impl="flash_cuda", bwd=bwd), AdamWConfig())
     tokens = torch.randint(0, cfg.vocab_size, (1, 257), generator=torch.Generator().manual_seed(0))
     batch = {"inputs": tokens[:, :-1].to(cuda), "targets": tokens[:, 1:].to(cuda)}
-    counters = (fwd_mod.flash_fwd, bwd_mod.flash_bwd_delta, bwd_mod.flash_bwd_fused,
-                bwd_mod.flash_bwd_dkv, bwd_mod.flash_bwd_dq)
-    plains = (fwd_mod.flash_fwd_plain, bwd_mod.flash_bwd_delta_plain,
-              bwd_mod.flash_bwd_fused_plain, bwd_mod.flash_bwd_dkv_plain,
-              bwd_mod.flash_bwd_dq_plain)
-    for f in counters:
-        f.launches = 0
-    for f in plains:
-        f.calls = 0
+    _zeroed(BWD_COUNTERS, BWD_PLAINS)
     state, metrics = step(model, state, batch)
     torch.cuda.synchronize()
     want = [4, 2, 2, 0, 0] if bwd == "fused" else [4, 2, 0, 2, 2]
-    assert [f.launches for f in counters] == want
-    assert [f.calls for f in plains] == [0] * 5
+    assert [f.launches for f in BWD_COUNTERS] == want
+    assert [f.calls for f in BWD_PLAINS] == [0] * 5
+    assert math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])
+    assert metrics["skipped"] == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bwd", ["fused", "split"])
+def test_gpt20m_bf16_training_runs_through_the_head_dim_64_kernels(cuda, bwd):
+    """Two steps of the gpt-20m preset (4 layers, 4 heads of 64, no remat)
+    in bf16 through the train CLI's ``train``: per layer and step the
+    forward once, delta once, then the fused kernel or dK/dV and dQ once,
+    all at head_dim 64; no plain version."""
+    from repro_torch.launch.train import PRESETS, TrainLoopConfig, train
+
+    cfg = dataclasses.replace(PRESETS["gpt-20m"], dtype="bfloat16")
+    _zeroed(BWD_COUNTERS, BWD_PLAINS)
+    loop = TrainLoopConfig(steps=2, seq_len=256, batch_size=2, attn_bwd=bwd, log_every=1)
+    _, _, history = train(cfg, loop)
+    torch.cuda.synchronize()
+    n = 2 * cfg.num_layers
+    want = [n, n, n, 0, 0] if bwd == "fused" else [n, n, 0, n, n]
+    assert [f.launches for f in BWD_COUNTERS] == want
+    assert [f.hd64_launches for f in BWD_COUNTERS[1:]] == want[1:]
+    assert [f.calls for f in BWD_PLAINS] == [0] * 5
+    assert all(math.isfinite(x) for x in history["loss"] + history["grad_norm"])
+
+
+@pytest.mark.gpu
+def test_whisper_training_step_runs_through_the_kernels(cuda):
+    """A whisper-base step at full width and depth (6 + 6 layers, d_model
+    512, 8 heads of 64, remat) on 1500 frames and 448 tokens: every
+    attention call (encoder FULL, decoder causal, cross 448 x 1500) runs the
+    forward twice (remat), delta once and the fused kernel once, at head_dim
+    64; no plain version; the loss and gradient norm are finite. (At 448
+    rows the cross-attention has 7 q tiles, so the forward does not split
+    the kv axis.)"""
+    from repro_torch.models.whisper import init_whisper
+
+    cfg = registry.get("whisper-base")
+    model = init_whisper(cfg, seed=0, device=cuda)
+    state = init_opt_state(dict(model.named_parameters()))
+    step = build_train_step(cfg, AttentionConfig(impl="flash_cuda"), AdamWConfig())
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    frames = torch.randn((2, 1500, cfg.d_model), generator=gen, device=cuda).to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 449), generator=gen, device=cuda)
+    batch = {"frames": frames, "inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
+    _zeroed(BWD_COUNTERS, BWD_PLAINS)
+    state, metrics = step(model, state, batch)
+    torch.cuda.synchronize()
+    n = cfg.encoder.num_layers + 2 * cfg.num_layers  # attention calls a step
+    assert [f.launches for f in BWD_COUNTERS] == [2 * n, n, n, 0, 0]
+    assert [f.hd64_launches for f in BWD_COUNTERS[1:]] == [n, n, 0, 0]
+    assert [f.calls for f in BWD_PLAINS] == [0] * 5
     assert math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])
     assert metrics["skipped"] == 0.0
 

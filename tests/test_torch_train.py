@@ -29,6 +29,7 @@ from repro.data.pipeline import SyntheticVarlenLM as JaxSyntheticVarlenLM
 from repro.launch import steps as jax_steps
 from repro.launch.train import PRESETS as JAX_PRESETS
 from repro.models import lm as jax_lm
+from repro.models import whisper as jax_whisper
 from repro.training import losses as jax_losses
 from repro.training import optimizer as jax_opt
 from repro_torch.configs import registry
@@ -38,6 +39,8 @@ from repro_torch.launch import steps
 from repro_torch.launch.train import PRESETS
 from repro_torch.models.layers import Embedding
 from repro_torch.models.lm import LM, params_from_jax
+from repro_torch.models.whisper import Whisper
+from repro_torch.models.whisper import params_from_jax as whisper_params_from_jax
 from repro_torch.training import losses, optimizer
 from test_torch_serving import jax_trace_state  # noqa: F401  (the per-test JAX shim)
 
@@ -253,16 +256,25 @@ def _no_decay_flags(tree):
     return jax.tree_util.tree_unflatten(tdef, flags)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-1b", "deepseek-coder-33b", "gpt-20m"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-1b", "deepseek-coder-33b", "gpt-20m",
+                                  "whisper-base"])
 def test_no_decay_sets_equal(arch):
+    """The port's weight-decay rule picks the same parameters as the JAX
+    rule. Whisper's names differ from the LM's (LayerNorm ``scale`` and
+    ``bias``, projection biases ``bq``/``b_in``, which the JAX rule decays,
+    learned ``positions``)."""
     if arch in PRESETS:
         jcfg, cfg = JAX_PRESETS[arch], PRESETS[arch]
     else:
         jcfg = jax_registry.reduce_config(jax_registry.get(arch))
         cfg = registry.reduce_config(registry.get(arch))
-    tree = jax.eval_shape(lambda: jax_lm.init_lm(jcfg, jax.random.PRNGKey(0)))
-    want = params_from_jax(cfg, _no_decay_flags(tree))
-    names = [n for n, _ in LM(cfg, device="cpu").named_parameters()]
+    if cfg.family == "encdec":
+        init, module, from_jax = jax_whisper.init_whisper, Whisper, whisper_params_from_jax
+    else:
+        init, module, from_jax = jax_lm.init_lm, LM, params_from_jax
+    tree = jax.eval_shape(lambda: init(jcfg, jax.random.PRNGKey(0)))
+    want = from_jax(cfg, _no_decay_flags(tree))
+    names = [n for n, _ in module(cfg, device="cpu").named_parameters()]
     assert sorted(names) == sorted(want)
     got = {n: optimizer._no_decay(n) for n in names}
     assert got == {n: bool(t.flatten()[0]) for n, t in want.items()}

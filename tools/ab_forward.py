@@ -44,7 +44,7 @@ _PV_ALWAYS = """      const bool first = pend < 0;
 #pragma unroll
           for (int e = 0; e < 4; ++e) pc[kk][e] = 0u;
 """
-_PV_ISSUE = """      pv_product<D>(o, pc, sV + (first ? stage : pend) * L::TILE);
+_PV_PRODUCT = """      wgmma_rs_k64<D>(o, pc, sV + (first ? stage : pend) * L::TILE);
       wgmma_commit();
       wgmma_wait<1>();
 """
@@ -88,7 +88,7 @@ VARIANTS = {
          ("      if (!(rec.y & take)) {\n",
           "      if (!(rec.y & take)) {\n"
           "        asm volatile(\"bar.arrive %0, 256;\\n\" ::\"r\"(3 + (w ^ 1)) : \"memory\");\n"),
-         (_PV_ISSUE, _PV_ISSUE.replace(
+         (_PV_PRODUCT, _PV_PRODUCT.replace(
              "      wgmma_wait<1>();\n",
              "      asm volatile(\"bar.arrive %0, 256;\\n\" ::\"r\"(3 + (w ^ 1)) : \"memory\");\n"
              "      wgmma_wait<1>();\n"))]),
@@ -96,8 +96,8 @@ VARIANTS = {
         "issues P V (and waits for it) only when a step is pending, instead of a P = 0 "
         "product on a run's first step",
         [(_PV_ALWAYS, "      const bool first = pend < 0;\n"),
-         (_PV_ISSUE, """      if (!first) {
-        pv_product<D>(o, pc, sV + pend * L::TILE);
+         (_PV_PRODUCT, """      if (!first) {
+        wgmma_rs_k64<D>(o, pc, sV + pend * L::TILE);
         wgmma_commit();
         wgmma_wait<1>();
       } else {
