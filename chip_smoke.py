@@ -283,6 +283,29 @@ def ptxas_summary(_build, sources) -> str:
     return "\n".join(lines)
 
 
+def past_lengths(torch, x, lengths, value):
+    """The cache x (B, S, Hkv, D) with ``value`` in every row at or past its
+    batch row's length (``lengths`` (B,) on x's device)."""
+    past = torch.arange(x.shape[1], device=x.device)[None, :] >= lengths[:, None].long()
+    return x.masked_fill(past[:, :, None, None], value)
+
+
+def stale_rows_check(torch, dec, what, q, k, v, lengths, **kw):
+    """The decode's partials with NaN in every cache row at or past each
+    length must be those with zeros there, bit for bit (rows inside a
+    fetched unit that are not visible are selected away, never multiplied)."""
+    zero = dec.flash_decode(q, past_lengths(torch, k, lengths, 0.0),
+                            past_lengths(torch, v, lengths, 0.0), lengths, **kw)
+    nan = dec.flash_decode(q, past_lengths(torch, k, lengths, float("nan")),
+                           past_lengths(torch, v, lengths, float("nan")), lengths, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(zero, nan))
+    log(f"{what}: partials with NaN in every row past each length bitwise those with zeros "
+        f"there: {same}")
+    if not same:
+        fail(f"{what}: NaN in rows past the length changed the partials")
+
+
 def max_err(torch, a, b) -> float:
     fin = torch.isfinite(b)
     if not torch.equal(torch.isfinite(a), fin):
@@ -455,6 +478,8 @@ def kernel_phase(torch, dev, flush):
         f"max|lse-ref|={el_m:.3e} (tol {DEC_TOL['lse']})")
     if not (em <= DEC_TOL["o"] and el_m <= DEC_TOL["lse"]):
         fail("the merged flash_decode output disagrees with the dense reference")
+    stale_rows_check(torch, dec, f"flash_decode B={B} S={S} G={G} D={HD}", qh, kc, vc, lens,
+                     num_splits=8)
     dec_err = max(eo, em)
 
     # Timing at the serving path's shapes: the longest prefill bucket, and a
@@ -476,16 +501,17 @@ def kernel_phase(torch, dev, flush):
 
     lens_run = torch.tensor([n + 8 for n in PROMPT_LENS[:4]], dtype=torch.int32, device=dev)
     ns, _ = dec.decode_geometry(S, 8)
-    dec_ms = time_ms(torch, lambda: dec.flash_decode(qh, kc, vc, lens_run, num_splits=8),
-                     50, flush)
     dec_plain_ms = time_ms(
         torch, lambda: dec.flash_decode_plain(qh, kc, vc, lens_run, num_splits=8), 5, flush)
     kq = kc.transpose(1, 2).contiguous()
     vq = vc.transpose(1, 2).contiguous()
     qq = qd.transpose(1, 2).contiguous()
     mask = (torch.arange(S, device=dev)[None, :] < lens_run[:, None])[:, None, None, :]
-    dec_lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qq, kq, vq, attn_mask=mask, enable_gqa=True), 50, flush)
+    # The kernel and SDPA in turns (kernel, sdpa, sdpa, kernel).
+    dec_ms, dec_lib_ms, dec_turns = in_turns(
+        torch, lambda: dec.flash_decode(qh, kc, vc, lens_run, num_splits=8),
+        lambda: F.scaled_dot_product_attention(qq, kq, vq, attn_mask=mask, enable_gqa=True),
+        50, flush)
     n_pos = int(lens_run.clamp(max=S).sum())
     dec_bound, dec_by = bound(
         4 * G * HD * n_pos * HKV,
@@ -496,13 +522,15 @@ def kernel_phase(torch, dev, flush):
         f"sdpa, fwd) {fwd_turns}: fwd / sdpa {fwd_ms / fwd_lib_ms:.4f}")
     log(f"flash_decode B={B} S={S} lengths={lens_run.tolist()}: kernel {dec_ms:.4f} ms, "
         f"plain {dec_plain_ms:.4f} ms, sdpa {dec_lib_ms:.4f} ms, "
-        f"bound {dec_bound:.4f} ms ({dec_by})")
+        f"bound {dec_bound:.4f} ms ({dec_by}), {dec_ms / dec_bound:.2f}x the bound; in turns "
+        f"(kernel, sdpa, sdpa, kernel) {dec_turns}: kernel / sdpa {dec_ms / dec_lib_ms:.4f}")
     return {
         "flash_fwd": dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain_ms,
                           bound_ms=fwd_bound, bound_by=fwd_by, library_ms=fwd_lib_ms,
                           sdpa_ratio_in_turns=fwd_ms / fwd_lib_ms),
         "flash_decode": dict(max_abs_err=dec_err, ms=dec_ms, plain_ms=dec_plain_ms,
-                             bound_ms=dec_bound, bound_by=dec_by, library_ms=dec_lib_ms),
+                             bound_ms=dec_bound, bound_by=dec_by, library_ms=dec_lib_ms,
+                             sdpa_ratio_in_turns=dec_ms / dec_lib_ms),
     }
 
 
@@ -814,7 +842,8 @@ def bwd_kernel_phase(torch, dev, flush):
         f"sdpa fwd {fwd_lib_ms:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by}); in turns (fwd, "
         f"sdpa fwd, sdpa fwd, fwd) {fwd_turns}: fwd / sdpa fwd {fwd_ms / fwd_lib_ms:.4f}")
     log(f"flash_bwd_delta B={B} S={S}: kernel {delta_ms:.4f} ms, plain "
-        f"{delta_plain_ms:.4f} ms, bound {delta_bound:.4f} ms ({delta_by})")
+        f"{delta_plain_ms:.4f} ms, bound {delta_bound:.4f} ms ({delta_by}), "
+        f"{delta_ms / delta_bound:.2f}x the bound")
     log(f"flash_bwd_fused B={B} S={S}: kernel {fused_ms:.4f} ms, plain "
         f"{fused_plain_ms:.4f} ms, sdpa backward {lib_bwd_ms:.4f} ms (fwd+bwd "
         f"{lib_fb_ms:.4f} less fwd {lib_fwd_ms:.4f}), bound {fused_bound:.4f} ms ({fused_by}); "
@@ -1808,11 +1837,16 @@ def whisper_kernel_phase(torch, dev, flush):
         eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
         if not (eo <= DEC_TOL["o"] and el <= DEC_TOL["lse"]):
             fail(f"flash_decode at head_dim 64 disagrees with its plain version ({what})")
-        k_ms = time_ms(torch, lambda: dec.flash_decode(qh, kc, vc, lens, num_splits=8), 50, flush)
+        if what == "self":
+            stale_rows_check(torch, dec, f"flash_decode (head_dim 64, self) B={WH_B} S={S}", qh,
+                             kc, vc, lens, num_splits=8)
         p_ms = time_ms(torch, lambda: dec.flash_decode_plain(qh, kc, vc, lens, num_splits=8), 5,
                        flush)
         mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-        l_ms = time_ms(torch, sdpa(qd, kc, vc, attn_mask=mask), 50, flush)
+        # The kernel and SDPA in turns (kernel, sdpa, sdpa, kernel).
+        k_ms, l_ms, turns = in_turns(
+            torch, lambda: dec.flash_decode(qh, kc, vc, lens, num_splits=8),
+            sdpa(qd, kc, vc, attn_mask=mask), 50, flush)
         n_pos = int(lens.sum())
         ns, _ = dec.decode_geometry(S, 8)
         b_ms, b_by = bound(4 * WH_D * n_pos * WH_H,
@@ -1820,9 +1854,10 @@ def whisper_kernel_phase(torch, dev, flush):
                            + WH_B * WH_H * ns * (WH_D + 1) * 4 + WH_B * 4)
         log(f"flash_decode (head_dim 64, {what}) B={WH_B} S={S} lengths={lengths}: "
             f"max|o-plain|={eo:.3e}, max|lse-plain|={el:.3e}; kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms, sdpa {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            f"{p_ms:.4f} ms, sdpa {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); in turns "
+            f"(kernel, sdpa, sdpa, kernel) {turns}: kernel / sdpa {k_ms / l_ms:.4f}")
         res[what] = dict(max_abs_err=eo, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=l_ms)
+                         library_ms=l_ms, sdpa_ratio_in_turns=k_ms / l_ms)
     out["flash_decode_hd64"] = dict(res["cross"], at_self_shape=res["self"])
 
     # --- the SEG decode at the qwen3 decode shape, packed cache
@@ -1855,6 +1890,32 @@ def whisper_kernel_phase(torch, dev, flush):
     if not (eo <= DEC_TOL["o"] and el <= DEC_TOL["lse"] and em <= DEC_TOL["o"] and bitwise):
         fail("flash_decode_varlen disagrees with its plain version, the reference or the "
              "unsegmented kernel")
+    # A split whose rows are all of other segments gives (0, -inf); a 16-row
+    # unit of other segments only (inside split 0) leaves the output finite.
+    ns, chunk = dec.decode_geometry(S, 8)
+    for what, rows in (("split 1", slice(chunk, 2 * chunk)), ("unit 2 of split 0", slice(32, 48))):
+        ids = torch.ones((B, S), dtype=torch.int32, device=dev)
+        ids[:, rows] = 2
+        ones = torch.ones((B,), dtype=torch.int32, device=dev)
+        o, lse = dec.flash_decode_varlen(qh, kc, vc, lens0, ids, ones, num_splits=8)
+        torch.cuda.synchronize()
+        o_p, lse_p = dec.flash_decode_plain(qh, kc, vc, lens0, num_splits=8, segments=(ids, ones))
+        e, e_lse = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
+        o5, lse5 = o.reshape(B, HKV, ns, G, HD), lse.reshape(B, HKV, ns, G)
+        if rows.start == chunk:
+            reached = lens0 > chunk
+            ok = bool(torch.isneginf(lse5[reached][:, :, 1]).all()
+                      and (o5[reached][:, :, 1] == 0).all())
+        else:
+            ok = bool(torch.isfinite(lse5[lens0 > 0][:, :, 0]).all())
+        ok = (ok and bool(torch.isfinite(o).all()) and e <= DEC_TOL["o"]
+              and e_lse <= DEC_TOL["lse"])
+        log(f"flash_decode_varlen, {what} of other segments only, lengths {lens0.tolist()}: "
+            f"max|o-plain|={e:.3e}, max|lse-plain|={e_lse:.3e}; "
+            + ("(0, -inf) for that split" if rows.start == chunk else "split 0 finite")
+            + f": {ok}")
+        if not ok:
+            fail(f"flash_decode_varlen with {what} of other segments only")
     seg_fn = lambda: dec.flash_decode_varlen(qh, kc, vc, lens, kv_seg, q_seg, num_splits=8)  # noqa
     full_fn = lambda: dec.flash_decode(qh, kc, vc, lens, num_splits=8)  # noqa: E731
     runs = [time_ms(torch, f, 50, flush) for f in (seg_fn, full_fn, full_fn, seg_fn)]

@@ -5,9 +5,12 @@
 // fa2_bwd_delta_kernel replaces the Pallas TPU kernel
 // src/repro/kernels/flash_bwd.py:80 flash_bwd_delta: delta = rowsum(dO o O)
 // (Algorithm 2 line 4). It reads O and dO once and writes 4 bytes a row, so
-// on an H100 it is bound by HBM (3.35 TB/s): one CTA per (64-row q tile,
-// batch * q head), each thread loads 16 bytes of O and 16 of dO per row
-// and 16 threads finish a row with shuffles.
+// on an H100 it is bound by HBM (3.35 TB/s). It reads them in memory
+// order: a CTA takes R consecutive positions (b, s) and every head of each,
+// R * Hq * D * 2 contiguous bytes of a contiguous (B, Sq, Hq, D) tensor
+// (the earlier design, a CTA per 64 positions of one head, read
+// 256-byte pieces Hq * D * 2 bytes apart); the delta paragraph below says
+// what bounds it now.
 //
 // fa2_bwd_fused_kernel replaces src/repro/kernels/flash_bwd.py:718
 // flash_bwd_fused (compact body _fused_kernel_compact :672): dK, dV and dQ
@@ -193,7 +196,29 @@
 // goes through the same bulk reductions and agrees up to their order.
 //
 // The delta kernel is plain CUDA (16-byte loads and shuffles): it is bound
-// by HBM and needs no tensor core.
+// by HBM and needs no tensor core. A CTA of 256 threads takes R positions
+// and all their heads (R = 8, the 32-byte sector of its output runs,
+// doubled while a CTA holds fewer than 256 rows and the grid still fills
+// the 132 SMs once: 8 at the training shape, 32 at whisper's encoder);
+// each thread has 4 16-byte loads of O and 4 of dO in flight before it
+// reduces (53 registers: four CTAs an SM, so the training shape's 512 CTAs
+// and the encoder's 376 run in one wave), D / 8 threads finish a row with
+// shuffles in a fixed order (no atomics: bwd="split" stays bitwise run to
+// run), and the R x Hq sums go out through shared memory as runs of R
+// floats per head. A grid of one CTA per block of positions, not a
+// persistent loop: several CTAs an SM overlap one another's latency.
+// Strided views (a transposed dO) take the same path through their
+// strides, out of memory order. What bounds it (tools/ab_kernels.py on an
+// H100 80GB HBM3 at 700 W, training shape B 2, S 2048, 32 heads, D 128:
+// bound 0.0202 ms; PERF.md has the runs): not the order of the reads (a
+// head-major copy of the same data, read out of order, takes the same
+// time, 0.97-1.00x, and so does the earlier walk of a CTA per head with
+// the same loads, 0.96-1.01x); HBM's rate less a fixed cost of launch and
+// tail (0.0279-0.0288 ms after a flush that only reads), and under the
+// timing's L2 flush (zeroing 96 MB, which leaves L2 full of dirty lines)
+// the write-back of those lines, which shares HBM with the reads. Loads
+// marked evict-first in L2 replace the stream's own lines and leave most of
+// the dirty ones in place: 0.0313-0.0323 ms, where plain loads take 1.14x.
 //
 // Semantics match the JAX kernels: masked scores take the finite
 // DEFAULT_MASK_VALUE, K/V rows past the end read as zeros and are masked,
@@ -220,6 +245,7 @@ struct DeltaParams {
   long long o_sb, o_ss, o_sh;
   long long d_sb, d_ss, d_sh;
   int Hq, Sq;
+  int R;  // positions a CTA
 };
 
 struct BwdParams {
@@ -320,33 +346,79 @@ __device__ __forceinline__ bool visible(const BwdParams& p, int qpos, int col) {
 
 // ------------------------------------------------------------------ delta
 
+constexpr int kDeltaThreads = 256;
+constexpr int kDeltaUnroll = 4;  // rows of O and of dO a thread has in flight
+
+// An L2 policy that marks the lines of a load evict-first: a stream read
+// once replaces its own lines, not the rest of the cache.
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ uint4 load_evict_first(const void* ptr, uint64_t policy) {
+  uint4 v;
+  asm("ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(ptr), "l"(policy));
+  return v;
+}
+
+// delta for R consecutive positions (b, s0 .. s0 + R - 1) and every head of
+// each: R * Hq rows of D values, in the order they sit in a contiguous
+// (B, Sq, Hq, D) tensor. D / 8 threads a row, 16 bytes each; every thread
+// issues its kDeltaUnroll loads of O and of dO before it reduces any. A
+// row's sum is fixed: its 8 products per thread in order, then a shuffle
+// tree over its D / 8 threads. The R x Hq results are staged in shared
+// memory and written to (B, Hq, Sq) as runs of R floats per head. O and dO
+// are read once: their loads are evict-first in L2.
 template <int D>
-__global__ void __launch_bounds__(kThreads) fa2_bwd_delta_kernel(const DeltaParams p) {
-  constexpr int TPR = D / 8;                 // threads per row, 8 values each
-  constexpr int ROWS_PER_PASS = kThreads / TPR;
-  const int bh = blockIdx.y;
-  const int b = bh / p.Hq, h = bh % p.Hq;
-  const int c = threadIdx.x % TPR;
-  const __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh + c * 8;
-  const __nv_bfloat16* dg = p.dout + b * p.d_sb + h * p.d_sh + c * 8;
-  for (int r = threadIdx.x / TPR; r < kBlockM; r += ROWS_PER_PASS) {
-    const int row = blockIdx.x * kBlockM + r;
-    float acc = 0.f;
-    if (row < p.Sq) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(og + row * p.o_ss);
-      const uint4 dv = *reinterpret_cast<const uint4*>(dg + row * p.d_ss);
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+__global__ void __launch_bounds__(kDeltaThreads) fa2_bwd_delta_kernel(const DeltaParams p) {
+  constexpr int TPR = D / 8;                  // threads per row, 8 values each
+  constexpr int ROWS_PER_PASS = kDeltaThreads / TPR;
+  extern __shared__ float s_delta[];          // [R][Hq]
+  const int b = blockIdx.y, s0 = blockIdx.x * p.R;
+  const int rows = p.R * p.Hq, live = min(p.R, p.Sq - s0) * p.Hq;
+  const int c = threadIdx.x % TPR, r0 = threadIdx.x / TPR;
+  const uint64_t policy = evict_first_policy();
+  const __nv_bfloat16* og = p.o + b * p.o_sb + c * 8;
+  const __nv_bfloat16* dg = p.dout + b * p.d_sb + c * 8;
+  // The same trip count in every thread: the shuffles need whole warps.
+  for (int base = 0; base < rows; base += kDeltaUnroll * ROWS_PER_PASS) {
+    uint4 ov[kDeltaUnroll], dv[kDeltaUnroll];
+#pragma unroll
+    for (int u = 0; u < kDeltaUnroll; ++u) {
+      const int row = base + u * ROWS_PER_PASS + r0;
+      ov[u] = dv[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (row < live) {
+        const int s = s0 + row / p.Hq, h = row % p.Hq;
+        ov[u] = load_evict_first(og + s * p.o_ss + h * p.o_sh, policy);
+        dv[u] = load_evict_first(dg + s * p.d_ss + h * p.d_sh, policy);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kDeltaUnroll; ++u) {
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov[u]);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv[u]);
+      float acc = 0.f;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float2 a = __bfloat1622float2(o2[e]);
         const float2 d = __bfloat1622float2(d2[e]);
         acc += a.x * d.x + a.y * d.y;
       }
-    }
 #pragma unroll
-    for (int off = TPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (c == 0 && row < p.Sq) p.delta[static_cast<long long>(bh) * p.Sq + row] = acc;
+      for (int off = TPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      const int row = base + u * ROWS_PER_PASS + r0;
+      if (c == 0 && row < live) s_delta[row] = acc;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows; i += kDeltaThreads) {
+    const int h = i / p.R, r = i % p.R;
+    if (s0 + r < p.Sq)
+      p.delta[(static_cast<long long>(b) * p.Hq + h) * p.Sq + s0 + r] = s_delta[r * p.Hq + h];
   }
 }
 
@@ -1264,11 +1336,19 @@ extern "C" int fa2_bwd_delta_bf16(const void* o, const void* dout, void* delta, 
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.d_sb = d_sb; p.d_ss = d_ss; p.d_sh = d_sh;
   p.Hq = Hq; p.Sq = Sq;
-  const dim3 grid((Sq + kBlockM - 1) / kBlockM, batch * Hq);
+  // R positions a CTA: 8 (whole 32-byte sectors of delta's runs), doubled
+  // while a CTA holds fewer than 256 rows and the grid still fills the
+  // card's 132 SMs once.
+  int R = 8;
+  while (R * Hq < 256 && batch * ((Sq + 2 * R - 1) / (2 * R)) >= 132) R *= 2;
+  p.R = R;
+  const dim3 grid((Sq + R - 1) / R, batch);
+  const size_t smem = static_cast<size_t>(R) * Hq * sizeof(float);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
-    fa2_bwd_delta_kernel<64><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+    fa2_bwd_delta_kernel<64><<<grid, kDeltaThreads, smem, s>>>(p);
   else if (head_dim == 128)
-    fa2_bwd_delta_kernel<128><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+    fa2_bwd_delta_kernel<128><<<grid, kDeltaThreads, smem, s>>>(p);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

@@ -10,13 +10,15 @@ them on an H100 and how the design answers):
   (B, S, Hkv, D), read in place. Its split geometry is the kernel's
   (ceil-div, 8-aligned chunks with a masked tail), not ``core/decode.py``'s
   (which degrades ``num_splits`` until it divides S): :func:`decode_geometry`.
+  Inside the kernel a split's visible 16-row units are dealt to eight warps
+  (two CTAs of a cluster) and merged back into the split's one partial:
+  :func:`decode_deal`.
 * :func:`flash_decode_paged` replaces ``flash_decode.py:250
   flash_decode_paged_kernel``. k/v are the page pool's planes
   (Hkv, P, page_size, D), read through an int32 block table (B, n_pages) of
   physical page ids (0 = the null page); each split covers ``pp`` logical
-  pages, the JAX geometry: :func:`paged_geometry`. Inside the kernel a
-  split's visible pages are dealt to eight warps (two CTAs of a cluster)
-  and merged back into the split's one partial: :func:`paged_deal`.
+  pages, the JAX geometry: :func:`paged_geometry`. Its pages are dealt to
+  the warps in the same way: :func:`paged_deal`.
 
 Common layouts: q (B*Hkv, G, D) pre-scaled, the G q heads of each kv head
 together; lengths (B,) int32 visible entries per row (the JAX kernels take
@@ -50,6 +52,62 @@ def decode_geometry(S: int, num_splits: int):
     ns = max(1, min(num_splits, -(-S // 8)))
     chunk = -(-(-(-S // ns)) // 8) * 8
     return -(-S // chunk), chunk
+
+
+# Both kernels' workers per split (a cluster of 2 CTAs of 4 warps), and the
+# contiguous kernel's unit of work: 16 cache rows, an mma.sync fragment.
+DECODE_WORKERS = PAGED_WORKERS = 8
+DECODE_UNIT = 16
+
+
+def _unit_runs(limit: int, size: int, u0: int, u1: int, win_lo: int, sink: int):
+    """The units in [u0, u1) (unit u: positions [u size, u size + size))
+    that hold a visible position, as ascending, disjoint (start, stop) runs:
+    at most two, the sink's and the window's. A position is visible below
+    ``limit`` and at or past ``win_lo`` or before ``sink`` (no window:
+    ``win_lo = sink = 0``). ``VisibleUnits`` in ``csrc/flash_decode.cu``."""
+    past = -(-limit // size)  # units with a position before the limit
+    sink_end = max(u0, min(u1, -(-min(sink, limit) // size)))
+    win0 = max(u0, max(win_lo, 0) // size)
+    win1 = max(win0, min(u1, past))
+    runs = [(u0, sink_end), (win0, win1)]
+    if sink_end >= win0:  # the two meet: one run
+        runs = [(u0, max(sink_end, win1))]
+    return [(a, b) for a, b in runs if b > a]
+
+
+def _deal(units, workers: int):
+    """Visible units, in order, dealt to ``workers`` in contiguous runs:
+    worker ``k`` of ``n`` takes ordinals ``[k n // workers, (k + 1) n //
+    workers)``."""
+    n = len(units)
+    return [units[k * n // workers:(k + 1) * n // workers] for k in range(workers)]
+
+
+def decode_deal(length: int, S: int, num_splits: int = 8, window: Optional[int] = None,
+                sink: int = 0, workers: int = DECODE_WORKERS, unit: int = DECODE_UNIT):
+    """How the contiguous kernel deals a sequence's cache: per split of
+    :func:`decode_geometry`, per worker (warp ``w`` of cluster rank ``r`` is
+    worker ``4 r + w``), the starts of the ``unit``-row units it reads,
+    ascending. Units are counted from the split's start ``lo``; a unit holds
+    positions ``[start, start + unit)`` cut at the split's end ``min(lo +
+    chunk, S, length)``, past which nothing is read. The split's units with
+    a visible position (below the length; with a window at or past ``length
+    - window`` or before the sink) go to the workers as :func:`paged_deal`
+    deals pages, and the kernel merges the workers in worker order, which is
+    position order."""
+    ns, chunk = decode_geometry(S, num_splits)
+    L = max(min(length, S), 0)
+    win_lo = 0 if window is None else max(L - window, 0)
+    sk = 0 if window is None else sink
+    deal = []
+    for c in range(ns):
+        lo = c * chunk
+        end = min(lo + chunk, S, L)
+        n_units = -(-(end - lo) // unit) if end > lo else 0
+        runs = _unit_runs(end - lo, unit, 0, n_units, win_lo - lo, sk - lo)
+        deal.append(_deal([lo + u * unit for a, b in runs for u in range(a, b)], workers))
+    return deal
 
 
 def _check_layout(q, k, v, lengths, segments=None):
@@ -227,10 +285,6 @@ def paged_geometry(n_pages: int, num_splits: int):
     return -(-n_pages // pp), pp
 
 
-# The paged kernel's workers per split: a cluster of 2 CTAs of 4 warps.
-PAGED_WORKERS = 8
-
-
 def paged_visible_runs(length: int, ps: int, page0: int, page1: int,
                        window: Optional[int] = None, sink: int = 0):
     """The logical pages in [page0, page1) that hold a visible position of a
@@ -239,16 +293,9 @@ def paged_visible_runs(length: int, ps: int, page0: int, page1: int,
     visible as in ``flash_decode_paged_plain``: it starts before the length
     and, with a window, ends past ``length - window`` or starts before the
     sink."""
-    past = -(-length // ps)  # pages that start before the length
     if window is None:
-        return [(page0, min(page1, past))] if min(page1, past) > page0 else []
-    sink_end = max(page0, min(page1, -(-min(sink, length) // ps)))
-    win0 = max(page0, max(length - window, 0) // ps)
-    win1 = max(win0, min(page1, past))
-    runs = [(page0, sink_end), (win0, win1)]
-    if sink_end >= win0:  # the two meet: one run
-        runs = [(page0, max(sink_end, win1))]
-    return [(a, b) for a, b in runs if b > a]
+        return _unit_runs(length, ps, page0, page1, 0, 0)
+    return _unit_runs(length, ps, page0, page1, max(length - window, 0), sink)
 
 
 def paged_deal(length: int, ps: int, n_pages: int, num_splits: int = 8,
@@ -262,13 +309,9 @@ def paged_deal(length: int, ps: int, n_pages: int, num_splits: int = 8,
     worker order, which is logical order."""
     ns, pp = paged_geometry(n_pages, num_splits)
     length = max(min(length, n_pages * ps), 0)
-    deal = []
-    for c in range(ns):
-        pages = [p for a, b in paged_visible_runs(length, ps, c * pp, min(c * pp + pp, n_pages),
-                                                   window, sink) for p in range(a, b)]
-        n = len(pages)
-        deal.append([pages[k * n // workers:(k + 1) * n // workers] for k in range(workers)])
-    return deal
+    return [_deal([p for a, b in paged_visible_runs(length, ps, c * pp, min(c * pp + pp, n_pages),
+                                                    window, sink) for p in range(a, b)], workers)
+            for c in range(ns)]
 
 
 def _check_paged_layout(q, k_pages, v_pages, lengths, block_table):

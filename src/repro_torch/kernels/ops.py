@@ -62,12 +62,18 @@ MIN_SPLIT_KV_TILES = 4
 
 
 def default_kv_splits(bh: int, t_q: int, t_kv: int) -> int:
-    """The kv splits when none is given: ``min(t_kv, ceil(FWD_TARGET_CTAS /
+    """The kv splits when none is given: ``min(t_kv, floor(FWD_TARGET_CTAS /
     bh))`` in the short-q, long-kv corner (``t_q == 1``, ``t_kv >= 4``,
     ``bh`` below the target), else 1. Splits change the summation order
-    (exact up to rounding), so other shapes split only when asked."""
+    (exact up to rounding), so other shapes split only when asked.
+
+    The floor keeps the split CTAs within one wave of the card: a sweep at
+    whisper's cross-attention prefill (4 q rows against 1500 frames, head_dim
+    64; PERF.md, split sweep on an H100) measured 4 splits at 0.0190 ms
+    against 0.0231 for the 5 that the ceiling gave at B = 4 (bh 32), and 16
+    at 0.0172 against 0.0207 for 17 at B = 1 (bh 8)."""
     if t_q == 1 and t_kv >= MIN_SPLIT_KV_TILES and bh < FWD_TARGET_CTAS:
-        return min(t_kv, -(-FWD_TARGET_CTAS // bh))
+        return min(t_kv, FWD_TARGET_CTAS // bh)
     return 1
 
 

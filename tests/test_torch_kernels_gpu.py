@@ -98,25 +98,59 @@ def test_forward_kernel_matches_plain(cuda, B, S, Hkv, spec, view):
     assert _err(lse, lse_p) < LSE_TOL
 
 
+def _past_lengths(x, lengths, value):
+    """The cache x (B, S, Hkv, D) with ``value`` in every row at or past its
+    batch row's length."""
+    rows = torch.arange(x.shape[1], device=x.device)[None, :]
+    past = rows >= torch.tensor(lengths, device=x.device)[:, None]
+    return x.masked_fill(past[:, :, None, None], value)
+
+
+# (S, lengths, window, sink, splits, stale): a length 0, 1, one that ends
+# inside a 16-row unit and the full cache; S 700 (chunks of 88 and 48
+# rows: units cut at the split's end); a window with sinks; and NaN in every
+# cache row at or past its length ("stale": the partials must be those with
+# zeros there, bit for bit).
+DECODE_CASES = [
+    (2048, [1, 0, 777, 2048], None, 0, 8, False),
+    (2048, [2048, 5, 1500, 64], 300, 4, 8, False),
+    (700, [700, 0, 333, 17], None, 0, 8, False),
+    (700, [700, 1, 333, 16], 100, 4, 17, False),
+    (700, [699, 0, 333, 17], None, 0, 17, True),
+    (2048, [2048, 5, 1500, 64], 300, 4, 8, True),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("lengths,window,sink", [
-    ([1, 0, 777, 2048], None, 0),
-    ([2048, 5, 1500, 64], 300, 4),
-])
-def test_decode_kernel_matches_plain(cuda, lengths, window, sink):
+@pytest.mark.parametrize("D", [128, 64])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("S,lengths,window,sink,splits,stale", DECODE_CASES)
+def test_decode_kernel_matches_plain(cuda, S, lengths, window, sink, splits, stale, G, D):
     gen = torch.Generator(device=cuda).manual_seed(1)
-    B, S, Hkv, G, D = 4, 2048, 8, 4, 128
+    B, Hkv = 4, 8
     q = _randn(gen, (B * Hkv, G, D), cuda)
     k, v = _randn(gen, (B, S, Hkv, D), cuda), _randn(gen, (B, S, Hkv, D), cuda)
+    k, v = _past_lengths(k, lengths, 0.0), _past_lengths(v, lengths, 0.0)
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     before = dec_mod.flash_decode.launches
-    o, lse = dec_mod.flash_decode(q, k, v, lens, num_splits=8, window=window, sink=sink)
+    o, lse = dec_mod.flash_decode(q, k, v, lens, num_splits=splits, window=window, sink=sink)
     torch.cuda.synchronize()
     assert dec_mod.flash_decode.launches == before + 1
-    o_p, lse_p = dec_mod.flash_decode_plain(q, k, v, lens, num_splits=8,
+    o_p, lse_p = dec_mod.flash_decode_plain(q, k, v, lens, num_splits=splits,
                                             window=window, sink=sink)
     assert _err(o, o_p) < O_TOL
     assert _err(lse, lse_p) < LSE_TOL
+    ns, _ = dec_mod.decode_geometry(S, splits)
+    empty = lens == 0
+    assert (o.reshape(B, Hkv, ns, G, D)[empty] == 0).all()
+    assert torch.isneginf(lse.reshape(B, Hkv, ns, G)[empty]).all()
+    if stale:
+        nan = float("nan")
+        o_n, lse_n = dec_mod.flash_decode(q, _past_lengths(k, lengths, nan),
+                                          _past_lengths(v, lengths, nan), lens,
+                                          num_splits=splits, window=window, sink=sink)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o_n) and torch.equal(lse, lse_n)
 
 
 @pytest.mark.gpu
@@ -134,12 +168,33 @@ def _rel_err(a, b):
     return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-6)
 
 
+# (B, S, Hq, view): the training shapes at 32 heads, whisper's and gpt-20m's
+# head counts (the kernel takes 8 to 64 positions a CTA by Hq), lengths no
+# block of positions divides, and a transposed dO (head stride above the
+# row stride), which the kernel reads through its strides.
+DELTA_CASES = [
+    (1, 64, 32, "contiguous"),
+    (2, 700, 32, "contiguous"),
+    (2, 2048, 32, "contiguous"),
+    (8, 1500, 8, "contiguous"),
+    (8, 448, 8, "contiguous"),
+    (8, 512, 4, "contiguous"),
+    (3, 333, 4, "contiguous"),
+    (1, 13, 8, "contiguous"),
+    (2, 700, 32, "transposed"),
+    (3, 333, 8, "transposed"),
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [128, 64])
-@pytest.mark.parametrize("B,S", [(1, 64), (2, 700), (2, 2048)])
-def test_delta_kernel_matches_plain(cuda, B, S, D):
+@pytest.mark.parametrize("B,S,Hq,view", DELTA_CASES)
+def test_delta_kernel_matches_plain(cuda, B, S, Hq, view, D):
     gen = torch.Generator(device=cuda).manual_seed(2)
-    o, do = _randn(gen, (B, S, 32, D), cuda), _randn(gen, (B, S, 32, D), cuda)
+    o, do = _randn(gen, (B, S, Hq, D), cuda), _randn(gen, (B, S, Hq, D), cuda)
+    if view == "transposed":
+        do = do.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not do.is_contiguous()
     before = (bwd_mod.flash_bwd_delta.launches, bwd_mod.flash_bwd_delta.hd64_launches)
     delta = bwd_mod.flash_bwd_delta(o, do)
     torch.cuda.synchronize()
@@ -807,15 +862,38 @@ def _packed_cache_ids(B, S, seed=11):
     return kv, q
 
 
+def _other_segment_ids(B, S, rows, cuda):
+    """Every position in the query's segment (id 1) but ``rows`` (a slice of
+    positions), which carry id 2 in every batch row."""
+    kv = torch.ones((B, S), dtype=torch.int32)
+    kv[:, rows] = 2
+    return kv.to(cuda), torch.ones((B,), dtype=torch.int32, device=cuda)
+
+
+# ids: "packed" (2-4 segments a row), "other_split" (all of split 1's
+# positions in another segment: that split gives (0, -inf) wherever the
+# length reaches it), "other_unit" (one 16-row unit inside split 0 of other
+# segments only: its softmax is skipped and the output stays finite).
 @pytest.mark.gpu
-@pytest.mark.parametrize("D,G,window", [(128, 4, None), (64, 1, None), (128, 4, 300)])
-def test_segment_decode_kernel_matches_plain(cuda, D, G, window):
+@pytest.mark.parametrize("D,G,window,ids", [(128, 4, None, "packed"), (64, 1, None, "packed"),
+                                            (128, 4, 300, "packed"),
+                                            (128, 4, None, "other_split"),
+                                            (64, 1, None, "other_split"),
+                                            (128, 8, None, "other_unit"),
+                                            (64, 1, None, "other_unit")])
+def test_segment_decode_kernel_matches_plain(cuda, D, G, window, ids):
     gen = torch.Generator(device=cuda).manual_seed(12)
     B, S, Hkv = 4, 2048, 8
     q = _randn(gen, (B * Hkv, G, D), cuda)
     k, v = _randn(gen, (B, S, Hkv, D), cuda), _randn(gen, (B, S, Hkv, D), cuda)
     lens = torch.tensor([2048, 700, 1500, 64], dtype=torch.int32, device=cuda)
-    kv_seg, q_seg = (x.to(cuda) for x in _packed_cache_ids(B, S))
+    ns, chunk = dec_mod.decode_geometry(S, 8)
+    if ids == "packed":
+        kv_seg, q_seg = (x.to(cuda) for x in _packed_cache_ids(B, S))
+    elif ids == "other_split":
+        kv_seg, q_seg = _other_segment_ids(B, S, slice(chunk, 2 * chunk), cuda)
+    else:
+        kv_seg, q_seg = _other_segment_ids(B, S, slice(32, 48), cuda)
     before = dec_mod.flash_decode_varlen.launches
     o, lse = dec_mod.flash_decode_varlen(q, k, v, lens, kv_seg, q_seg, num_splits=8,
                                          window=window)
@@ -825,7 +903,17 @@ def test_segment_decode_kernel_matches_plain(cuda, D, G, window):
                                             segments=(kv_seg, q_seg))
     assert _err(o, o_p) < O_TOL
     assert _err(lse, lse_p) < LSE_TOL
-    assert torch.isneginf(lse).any()  # splits outside the query's segment
+    assert torch.isfinite(o).all()
+    lse4 = lse.reshape(B, Hkv, ns, G)
+    if ids == "packed":
+        assert torch.isneginf(lse).any()  # splits outside the query's segment
+    elif ids == "other_split":
+        reached = lens > chunk  # rows whose length reaches into split 1
+        assert torch.isneginf(lse4[reached][:, :, 1]).all()
+        assert (o.reshape(B, Hkv, ns, G, D)[reached][:, :, 1] == 0).all()
+        assert torch.isfinite(lse4[reached][:, :, 0]).all()
+    else:
+        assert torch.isfinite(lse4[:, :, 0]).all()
 
 
 @pytest.mark.gpu
