@@ -125,6 +125,22 @@ training shape and against the compact kernels to the bit (the fused dQ,
 whose bulk reductions have no order, within GRAD_REL_TOL), there and on a grid of
 specs at S = 700 with G = 1 and 4, and times dense and compact in turns,
 with the FULL spec (no tile hidden) as the control.
+Phase 3 also holds the head_dim-256 kernels (gemma3-1b: 4 q heads over one
+kv head, a 512-token window on 5 of 6 layers) against their plain versions:
+the forward (B 1, S 1536, causal and windowed, and ragged S), the decode
+(B 4 of a 2048 cache, ragged lengths, 8 splits, G 4, with and without the
+window, NaN in every row past each length, its SEG instantiation) and the
+paged decode (pages of 16 and 64, two page orders, stale NaN rows, bitwise
+the contiguous partials at 16), and times each beside its bound, the
+forward and decode in turns with SDPA (the window as an explicit mask).
+After phase 6, the gemma3 serving slice: gemma3-1b at its published widths
+and depth (26 layers, bf16, random weights from seed 0) serves the six
+requests through both engines (the paged one preempting once) with exact
+launch counts at head_dim 256 (no plain version, no reference), holds a
+prefill and a B = 4 decode step against the dense reference and the step
+through shuffled pages bitwise against the contiguous cache, times and
+profiles both engines' ticks, and serves through the serve CLI once per
+engine.
 The last two lines are the kernels' JSON record and the result line.
 """
 
@@ -369,6 +385,22 @@ def attention_bounds(pairs: int, B: int, S: int, id_bytes: int = 0, *, Skv=None,
     }
 
 
+def check_fwd(torch, what, got, want):
+    """max |o - plain| of a forward's (o, lse) against its plain version's,
+    failing on a disagreement or on a non-finite output where the plain
+    version is finite."""
+    (o, lse), (o_p, lse_p) = got, want
+    eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
+    log(f"{what}: max|o-plain|={eo:.3e} (tol {FWD_TOL['o']}), "
+        f"max|lse-plain|={el:.3e} (tol {FWD_TOL['lse']})")
+    if not (eo <= FWD_TOL["o"] and el <= FWD_TOL["lse"]):
+        fail(f"{what} disagrees with its plain version")
+    if not (torch.isfinite(o).all() and torch.equal(torch.isfinite(lse),
+                                                    torch.isfinite(lse_p))):
+        fail(f"{what}: a non-finite output where the plain version is finite")
+    return eo
+
+
 def kernel_phase(torch, dev, flush):
     import torch.nn.functional as F
 
@@ -390,20 +422,6 @@ def kernel_phase(torch, dev, flush):
     def fwd_inputs(B, S):
         return ops._prep(randn(B, S, HQ, HD), scale), randn(B, S, HKV, HD), randn(B, S, HKV, HD)
 
-    def check_fwd(what, got, want):
-        """max |o - plain|, failing on a disagreement or on a non-finite
-        output where the plain version is finite."""
-        (o, lse), (o_p, lse_p) = got, want
-        eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
-        log(f"{what}: max|o-plain|={eo:.3e} (tol {FWD_TOL['o']}), "
-            f"max|lse-plain|={el:.3e} (tol {FWD_TOL['lse']})")
-        if not (eo <= FWD_TOL["o"] and el <= FWD_TOL["lse"]):
-            fail(f"{what} disagrees with its plain version")
-        if not (torch.isfinite(o).all() and torch.equal(torch.isfinite(lse),
-                                                        torch.isfinite(lse_p))):
-            fail(f"{what}: a non-finite output where the plain version is finite")
-        return eo
-
     fwd_err = 0.0
     # S 700 and S 64 give an odd number of q tiles (the last CTA holds one),
     # S 333 a ragged last tile of an even number.
@@ -411,7 +429,7 @@ def kernel_phase(torch, dev, flush):
         for S in (64, 333, 700, 2048):
             q, k, v = fwd_inputs(B, S)
             fwd_err = max(fwd_err, check_fwd(
-                f"flash_fwd B={B} S={S} causal Hq={HQ} Hkv={HKV} D={HD}",
+                torch, f"flash_fwd B={B} S={S} causal Hq={HQ} Hkv={HKV} D={HD}",
                 fwd.flash_fwd(q, k, v, spec, block_q=bq, block_kv=bk),
                 fwd.flash_fwd_plain(q, k, v, spec, block_q=bq, block_kv=bk)))
     # Rows 0-99 see no key; 64-99 sit in a q tile the CTAs visit, where the
@@ -420,7 +438,7 @@ def kernel_phase(torch, dev, flush):
     q, k, v = fwd_inputs(1, 700)
     off = MaskSpec(causal=True, q_offset=-100)
     fwd_err = max(fwd_err, check_fwd(
-        "flash_fwd B=1 S=700 causal q_offset=-100",
+        torch, "flash_fwd B=1 S=700 causal q_offset=-100",
         fwd.flash_fwd(q, k, v, off, block_q=bq, block_kv=bk),
         fwd.flash_fwd_plain(q, k, v, off, block_q=bq, block_kv=bk)))
     # Segment ids that hide half a q tile: q rows 32-63 of each tile carry an
@@ -431,7 +449,7 @@ def kernel_phase(torch, dev, flush):
     q_ids = kv_ids.clone()
     q_ids[:, (torch.arange(S, device=dev) % bq) >= bq // 2] = 7
     fwd_err = max(fwd_err, check_fwd(
-        f"flash_fwd_varlen B={B} S={S} causal, ids hiding half of every q tile",
+        torch, f"flash_fwd_varlen B={B} S={S} causal, ids hiding half of every q tile",
         fwd.flash_fwd_varlen(q, k, v, spec, q_ids, kv_ids, block_q=bq, block_kv=bk),
         fwd.flash_fwd_plain(q, k, v, spec, block_q=bq, block_kv=bk, q_seg=q_ids,
                             kv_seg=kv_ids)))
@@ -442,7 +460,7 @@ def kernel_phase(torch, dev, flush):
     if qv.is_contiguous():
         fail("the fused qkv slices should be strided views")
     fwd_err = max(fwd_err, check_fwd(
-        f"flash_fwd B={B} S={S} causal on strided views of a fused qkv tensor",
+        torch, f"flash_fwd B={B} S={S} causal on strided views of a fused qkv tensor",
         fwd.flash_fwd(qv, kv_, vv, spec, block_q=bq, block_kv=bk),
         fwd.flash_fwd_plain(qv, kv_, vv, spec, block_q=bq, block_kv=bk)))
 
@@ -1338,9 +1356,13 @@ def serving_prompts(cfg):
 
 def run_engine(torch, dev, cfg, engine, n_requests: int, path: str):
     """Tick ``engine`` until every request has finished, with every kernel
-    launch count and plain-version call count set to 0 just before; check
-    that each request generated MAX_NEW + 1 tokens inside the vocabulary.
-    Returns the counts read just after."""
+    launch count and plain-version call count set to 0 just before and the
+    dense reference (``impl="ref"``) counted while it runs; check that each
+    request generated MAX_NEW + 1 tokens inside the vocabulary and that no
+    plain version and no reference ran. Returns the counts read just after
+    and the run's tokens/s, median decode-only tick (ms) and peak memory
+    (GiB)."""
+    import repro_torch.core.attention as attention
     from repro_torch.kernels import flash_decode as dec
     from repro_torch.kernels import flash_fwd as fwd
 
@@ -1352,29 +1374,41 @@ def run_engine(torch, dev, cfg, engine, n_requests: int, path: str):
         f.launches = 0
     for f in plains.values():
         f.calls = 0
+    reference, ref_calls = attention.attention_reference, [0]
+
+    def counted_reference(*args, **kw):
+        ref_calls[0] += 1
+        return reference(*args, **kw)
+
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     decode_ticks, admit_ticks = [], []  # seconds of each engine tick
-    t0 = time.perf_counter()
-    while (engine.queue or any(s is not None for s in engine.slots)) and engine.ticks < 1000:
-        queued, t_tick = len(engine.queue), time.perf_counter()
-        engine.tick()
-        torch.cuda.synchronize()
-        (admit_ticks if len(engine.queue) < queued else decode_ticks).append(
-            time.perf_counter() - t_tick)
-    dt = time.perf_counter() - t0
+    attention.attention_reference = counted_reference
+    try:
+        t0 = time.perf_counter()
+        while (engine.queue or any(s is not None for s in engine.slots)) and engine.ticks < 1000:
+            queued, t_tick = len(engine.queue), time.perf_counter()
+            engine.tick()
+            torch.cuda.synchronize()
+            (admit_ticks if len(engine.queue) < queued else decode_ticks).append(
+                time.perf_counter() - t_tick)
+        dt = time.perf_counter() - t0
+    finally:
+        attention.attention_reference = reference
     counts = {k: f.launches for k, f in kernels.items()}
     counts.update({k: f.calls for k, f in plains.items()})
+    counts["attention_reference"] = ref_calls[0]
     finished = engine.finished
     tokens = sum(len(r.generated) for r in finished.values())
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"{path}: served {len(finished)} requests (prompt lengths {list(PROMPT_LENS)}) in "
         f"{engine.ticks} ticks: {tokens} tokens in {dt:.3f} s = {tokens / dt:.1f} tokens/s; "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        f"max_memory_allocated {peak:.2f} GiB")
     decode_ticks.sort()
+    median = decode_ticks[len(decode_ticks) // 2]
     log(f"{path}: ticks with admission (prefill + decode): {len(admit_ticks)}, "
         f"{sum(admit_ticks):.3f} s in all; decode-only ticks: {len(decode_ticks)}, "
-        f"median {decode_ticks[len(decode_ticks) // 2] * 1e3:.2f} ms "
-        f"(min {decode_ticks[0] * 1e3:.2f} ms)")
+        f"median {median * 1e3:.2f} ms (min {decode_ticks[0] * 1e3:.2f} ms)")
     log(f"launches on the {path} path: {counts}")
     if sorted(finished) != list(range(n_requests)):
         fail(f"{path}: finished requests {sorted(finished)}")
@@ -1382,9 +1416,9 @@ def run_engine(torch, dev, cfg, engine, n_requests: int, path: str):
         if len(req.generated) != MAX_NEW + 1 or not all(
                 0 <= t < cfg.vocab_size for t in req.generated):
             fail(f"{path}: request {rid} generated {req.generated}")
-    if any(counts[k] for k in plains):
-        fail(f"a plain version ran on the {path} path")
-    return counts
+    if any(counts[k] for k in plains) or ref_calls[0]:
+        fail(f"a plain version or the dense reference ran on the {path} path")
+    return counts, dict(tokens_per_s=tokens / dt, median_tick_ms=median * 1e3, peak_gib=peak)
 
 
 def slice_phase(torch, dev):
@@ -1407,7 +1441,7 @@ def slice_phase(torch, dev):
     for rid, prompt in enumerate(prompts):
         engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
 
-    counts = run_engine(torch, dev, cfg, engine, len(prompts), "serving")
+    counts, _ = run_engine(torch, dev, cfg, engine, len(prompts), "serving")
     if counts["flash_fwd"] <= 0 or counts["flash_decode"] <= 0:
         fail("the serving path did not launch both kernels")
 
@@ -1450,7 +1484,7 @@ def paged_slice_phase(torch, dev, cfg, model):
                                 page_size=PAGE_SIZE, pages_per_seq_max=PAGES_PER_SEQ)
     for rid, prompt in enumerate(prompts):
         engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
-    counts = run_engine(torch, dev, cfg, engine, len(prompts), "paged_serving")
+    counts, _ = run_engine(torch, dev, cfg, engine, len(prompts), "paged_serving")
     log(f"paged_serving: pool of {PAGED_POOL_PAGES} pages of {PAGE_SIZE} ({engine.kv_capacity()} "
         f"positions, {engine.pool.usable_pages} usable pages) against the fixed engine's "
         f"4 x {CACHE}; preemptions {engine.preemptions} (expected {PAGED_PREEMPTIONS}); "
@@ -1534,7 +1568,7 @@ def device_busy(torch, prof):
     return busy_us, by_name, len(spans)
 
 
-def tick_phase(torch, cfg, model) -> None:
+def tick_phase(torch, cfg, model) -> dict:
     """Decode ticks of the two engines on one model: a fresh fixed-slot and a
     fresh paged engine (the paged phase's pool) each admit the same four
     short requests. Their decode-only ticks are then timed in turns, fixed,
@@ -1543,7 +1577,8 @@ def tick_phase(torch, cfg, model) -> None:
     run under torch.profiler: the union of the device-side events is the
     busy time, divided by the profiled ticks' wall time and by the engine's
     unprofiled median tick; the kernels by device time and the host
-    operators by their own host time say where the tick goes."""
+    operators by their own host time say where the tick goes. Returns each
+    engine's median tick (ms) and busy share (None: not measured)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1580,13 +1615,15 @@ def tick_phase(torch, cfg, model) -> None:
             ticks[name].append(timed_tick(engines[name]))
     median = {name: float(np.median(t)) for name, t in ticks.items()}
     pairs = [p > f for f, p in zip(ticks["fixed"], ticks["paged"])]
-    log(f"decode-only ticks in turns (fixed, paged, paged, fixed) x {TICK_ROUNDS}, B=4: "
+    log(f"{cfg.name} decode-only ticks in turns (fixed, paged, paged, fixed) x {TICK_ROUNDS}, B=4: "
         + "; ".join(f"{name} median {median[name] * 1e3:.2f} ms (quartiles "
                     f"{np.percentile(t, 25) * 1e3:.2f}, {np.percentile(t, 75) * 1e3:.2f})"
                     for name, t in ticks.items())
         + f"; paged / fixed {median['paged'] / median['fixed']:.3f}, paged slower in "
         f"{sum(pairs)} of {len(pairs)} pairs")
 
+    summary = {name: dict(median_tick_ms=median[name] * 1e3, busy_share=None)
+               for name in engines}
     for name, engine in engines.items():
         walls = []
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1594,12 +1631,13 @@ def tick_phase(torch, cfg, model) -> None:
                 walls.append(timed_tick(engine))
         busy_us, by_name, n_events = device_busy(torch, prof)
         if not n_events:
-            log(f"{name} decode tick device busy share: not measured (the profiler recorded "
-                "no device events)")
+            log(f"{cfg.name} {name} decode tick device busy share: not measured (the profiler "
+                "recorded no device events)")
             continue
         busy_ms = busy_us / 1e3 / PROFILED_TICKS
         wall_ms = sum(walls) / PROFILED_TICKS * 1e3
-        log(f"{name} decode tick under torch.profiler ({PROFILED_TICKS} ticks, B=4): "
+        summary[name]["busy_share"] = busy_ms / (median[name] * 1e3)
+        log(f"{cfg.name} {name} decode tick under torch.profiler ({PROFILED_TICKS} ticks, B=4): "
             f"{n_events / PROFILED_TICKS:.0f} device events per tick, device busy "
             f"{busy_ms:.3f} ms per tick; wall {wall_ms:.3f} ms per profiled tick -> busy share "
             f"{busy_ms / wall_ms:.4f}; against the unprofiled median tick "
@@ -1613,6 +1651,7 @@ def tick_phase(torch, cfg, model) -> None:
         for e in host:
             log(f"  host   {e.self_cpu_time_total / 1e3 / PROFILED_TICKS:8.3f} ms/tick, "
                 f"{e.count / PROFILED_TICKS:6.0f} calls/tick: {e.key[:80]}")
+    return summary
 
 
 
@@ -2914,6 +2953,332 @@ def whisper_train_phase(torch, dev):
     return counts, summary
 
 
+# gemma3-1b's attention widths (src/repro_torch/configs/archs.py): four q
+# heads over one kv head of 256, a 512-token window on five of six layers.
+G3_HQ, G3_HKV, G3_D, G3_WINDOW = 4, 1, 256, 512
+
+
+def causal_pairs(S: int, window=None) -> int:
+    """(q, k) pairs a causal mask with ``window`` (None: none) needs over S rows."""
+    return sum(min(q + 1, window or q + 1) for q in range(S))
+
+
+def hd256_kernel_phase(torch, dev, flush):
+    """The head_dim-256 kernels at gemma3-1b's shapes against their plain
+    versions: the forward (B 1, S 1536, causal and window 512, and ragged
+    S), the decode (B 4 of a 2048 cache, ragged lengths, 8 splits, G 4, with
+    and without the window; NaN in every row past each length; the SEG
+    instantiation on packed and on equal ids) and the paged decode (pages of
+    16 and 64 under two page orders, NaN in every pool row no length
+    reaches, bitwise the contiguous partials at 16). Then each timed after
+    the L2 flush beside its bound, the forward and the decode in turns with
+    SDPA (the window as an explicit mask), the paged decode in turns with the
+    contiguous one."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.masks import MaskSpec
+    from repro_torch.kernels import flash_decode as dec
+    from repro_torch.kernels import flash_fwd as fwd
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    bq, bk, D, G = ops.BLOCK_Q, ops.BLOCK_KV, G3_D, G3_HQ // G3_HKV
+    scale = 1.0 / math.sqrt(D)
+    specs = {"causal": MaskSpec(causal=True), "window": MaskSpec(causal=True, window=G3_WINDOW)}
+
+    def fwd_inputs(B, S):
+        return (ops._prep(randn(B, S, G3_HQ, D), scale), randn(B, S, G3_HKV, D),
+                randn(B, S, G3_HKV, D))
+
+    # --- the forward: S 1536 (the longest prefill bucket), S 700 (an odd
+    # number of q tiles, a ragged last one) and S 333 at B 2.
+    fwd_err = 0.0
+    for B, S in ((1, 1536), (1, 700), (2, 333)):
+        q, k, v = fwd_inputs(B, S)
+        for name, spec in specs.items():
+            fwd_err = max(fwd_err, check_fwd(
+                torch, f"flash_fwd B={B} S={S} {name} Hq={G3_HQ} Hkv={G3_HKV} D={D}",
+                fwd.flash_fwd(q, k, v, spec, block_q=bq, block_kv=bk),
+                fwd.flash_fwd_plain(q, k, v, spec, block_q=bq, block_kv=bk)))
+    Bf, Sf = 1, 1536
+    q, k, v = fwd_inputs(Bf, Sf)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    rows = torch.arange(Sf, device=dev)
+    ago = rows[:, None] - rows[None, :]
+    library = {"causal": dict(is_causal=True),
+               "window": dict(attn_mask=((ago >= 0) & (ago < G3_WINDOW))[None, None])}
+    fwd_rows = {}
+    for name, spec in specs.items():
+        plain_ms = time_ms(torch, lambda: fwd.flash_fwd_plain(q, k, v, spec, block_q=bq,
+                                                              block_kv=bk), 3, flush)
+        ms, lib_ms, turns = in_turns(
+            torch, lambda: fwd.flash_fwd(q, k, v, spec, block_q=bq, block_kv=bk),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, scale=1.0,
+                                                   **library[name]), 20, flush)
+        b_ms, b_by = bound(4 * D * causal_pairs(Sf, spec.window) * Bf * G3_HQ,
+                           2 * Bf * Sf * (G3_HQ + G3_HKV) * D * 2 + Bf * G3_HQ * Sf * 4)
+        log(f"flash_fwd D={D} B={Bf} S={Sf} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x the bound; in "
+            f"turns (fwd, sdpa, sdpa, fwd) {turns}: fwd / sdpa {ms / lib_ms:.4f}")
+        fwd_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=lib_ms, sdpa_ratio_in_turns=ms / lib_ms)
+
+    # --- the contiguous decode at the fixed engine's shape.
+    B, S = 4, CACHE
+    qd = ops._prep(randn(B, 1, G3_HQ, D), scale)
+    qh = qd.reshape(B * G3_HKV, G, D).contiguous()
+    kc, vc = randn(B, S, G3_HKV, D), randn(B, S, G3_HKV, D)
+    lens = torch.tensor([1, 0, 1337, 2048], dtype=torch.int32, device=dev)
+    ns, _ = dec.decode_geometry(S, 8)
+    dec_err = 0.0
+    for name, window in (("causal", None), ("window", G3_WINDOW)):
+        what = f"flash_decode D={D} B={B} S={S} G={G} lengths={lens.tolist()} splits=8 {name}"
+        o, lse = dec.flash_decode(qh, kc, vc, lens, num_splits=8, window=window)
+        torch.cuda.synchronize()
+        o_p, lse_p = dec.flash_decode_plain(qh, kc, vc, lens, num_splits=8, window=window)
+        eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
+        empty = bool((o.reshape(B, G3_HKV, ns, G, D)[1] == 0).all()
+                     and torch.isneginf(lse.reshape(B, G3_HKV, ns, G)[1]).all())
+        log(f"{what}: partials max|o-plain|={eo:.3e} (tol {DEC_TOL['o']}), max|lse-plain|="
+            f"{el:.3e} (tol {DEC_TOL['lse']}); (0, -inf) for the length-0 row: {empty}")
+        if not (eo <= DEC_TOL["o"] and el <= DEC_TOL["lse"] and empty):
+            fail(f"{what} disagrees with its plain version")
+        stale_rows_check(torch, dec, what, qh, kc, vc, lens, num_splits=8, window=window)
+        dec_err = max(dec_err, eo)
+    # The SEG instantiation: a packed cache against the plain version, and
+    # equal ids bitwise the unsegmented kernel.
+    kv_seg, q_seg = (x.to(dev) for x in packed_cache_ids(torch, B, S))
+    o, lse = dec.flash_decode_varlen(qh, kc, vc, lens, kv_seg, q_seg, num_splits=8)
+    torch.cuda.synchronize()
+    o_p, lse_p = dec.flash_decode_plain(qh, kc, vc, lens, num_splits=8, segments=(kv_seg, q_seg))
+    eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
+    eq = dec.flash_decode_varlen(qh, kc, vc, lens, torch.full_like(kv_seg, 3),
+                                 torch.full_like(q_seg, 3), num_splits=8, window=G3_WINDOW)
+    same = all(torch.equal(a, b) for a, b in zip(
+        eq, dec.flash_decode(qh, kc, vc, lens, num_splits=8, window=G3_WINDOW)))
+    log(f"flash_decode_varlen D={D} G={G}, 2-4 segments a row: max|o-plain|={eo:.3e}, "
+        f"max|lse-plain|={el:.3e}; equal ids (window {G3_WINDOW}) bitwise the unsegmented "
+        f"kernel: {same}")
+    if not (eo <= DEC_TOL["o"] and el <= DEC_TOL["lse"] and same):
+        fail("flash_decode_varlen at head_dim 256 disagrees with its plain version or the "
+             "unsegmented kernel")
+
+    lens_run = torch.tensor([n + 8 for n in PROMPT_LENS[:4]], dtype=torch.int32, device=dev)
+    qq = qd.transpose(1, 2).contiguous()
+    kq, vq = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    cols = torch.arange(S, device=dev)[None, :]
+    dec_rows = {}
+    for name, window in (("causal", None), ("window", G3_WINDOW)):
+        visible = cols < lens_run[:, None]
+        if window:
+            visible &= cols >= lens_run[:, None] - window
+        plain_ms = time_ms(torch, lambda: dec.flash_decode_plain(
+            qh, kc, vc, lens_run, num_splits=8, window=window), 5, flush)
+        ms, lib_ms, turns = in_turns(
+            torch, lambda: dec.flash_decode(qh, kc, vc, lens_run, num_splits=8, window=window),
+            lambda: F.scaled_dot_product_attention(qq, kq, vq, attn_mask=visible[:, None, None],
+                                                   enable_gqa=True, scale=1.0), 50, flush)
+        n_pos = int(visible.sum())
+        b_ms, b_by = bound(4 * G * D * n_pos * G3_HKV,
+                           n_pos * G3_HKV * D * 2 * 2 + B * G3_HQ * D * 2
+                           + B * G3_HKV * ns * G * (D + 1) * 4 + B * 4)
+        log(f"flash_decode D={D} B={B} S={S} lengths={lens_run.tolist()} {name} ({n_pos} "
+            f"visible positions): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x the bound; in turns (kernel, "
+            f"sdpa, sdpa, kernel) {turns}: kernel / sdpa {ms / lib_ms:.4f}")
+        dec_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=lib_ms, sdpa_ratio_in_turns=ms / lib_ms)
+
+    # --- the paged decode: pages of 16 (the engine's) and 64, each under two
+    # shuffles of the physical pages.
+    lengths = [0, 1, 700, 2048]  # 700 ends inside a page at both page sizes
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    paged_err = 0.0
+    for ps in (16, 64):
+        n_pages = S // ps
+        for name, window in (("causal", None), ("window", G3_WINDOW)):
+            what = f"flash_decode_paged D={D} ps={ps} G={G} lengths={lengths} {name}"
+            parts = []
+            for seed in (0, 1):
+                table = shuffled_table(torch, B, n_pages, seed).to(dev)
+                kp = paginate(torch, kc, table, B * n_pages + 1)
+                vp = paginate(torch, vc, table, B * n_pages + 1)
+                table[0] = 0  # the length-0 slot: an all-null row
+                parts.append(dec.flash_decode_paged(qh, kp, vp, lens, table, num_splits=8,
+                                                    window=window))
+            torch.cuda.synchronize()
+            (o, lse), (o2, lse2) = parts
+            o_p, lse_p = dec.flash_decode_paged_plain(qh, kp, vp, lens, table, num_splits=8,
+                                                      window=window)
+            eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
+            o3, lse3 = dec.flash_decode_paged(
+                qh, stale_nan(torch, kp, table, lengths, ps), stale_nan(torch, vp, table, lengths,
+                                                                         ps),
+                lens, table, num_splits=8, window=window)
+            o_c, lse_c = dec.flash_decode(qh, kc, vc, lens, num_splits=8, window=window)
+            torch.cuda.synchronize()
+            orders = torch.equal(o, o2) and torch.equal(lse, lse2)
+            stale = torch.equal(o2, o3) and torch.equal(lse2, lse3)
+            contiguous = torch.equal(o, o_c) and torch.equal(lse, lse_c)
+            log(f"{what}: max|o-plain|={eo:.3e}, max|lse-plain|={el:.3e}; bitwise under a "
+                f"second page order {orders}, with NaN in every pool row no length reaches "
+                f"{stale}, the contiguous kernel's partials {contiguous}")
+            if not (eo <= DEC_TOL["o"] and el <= DEC_TOL["lse"] and orders and stale):
+                fail(f"{what} disagrees with its plain version or changed with the page order "
+                     "or stale rows")
+            if ps == 16 and not contiguous:
+                fail(f"{what}: pages of 16 must give the contiguous kernel's partials to the bit")
+            paged_err = max(paged_err, eo)
+    ps, n_pages = PAGE_SIZE, PAGES_PER_SEQ
+    table = shuffled_table(torch, B, n_pages, 2).to(dev)
+    kp = paginate(torch, kc, table, B * n_pages + 1)
+    vp = paginate(torch, vc, table, B * n_pages + 1)
+
+    def paged():
+        return dec.flash_decode_paged(qh, kp, vp, lens_run, table, num_splits=8)
+
+    def contiguous():
+        return dec.flash_decode(qh, kc, vc, lens_run, num_splits=8)
+
+    runs = [time_ms(torch, f, 50, flush) for f in (contiguous, paged, paged, contiguous)]
+    ms, c_ms = (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2
+    plain_ms = time_ms(torch, lambda: dec.flash_decode_paged_plain(
+        qh, kp, vp, lens_run, table, num_splits=8), 5, flush)
+    n_pos = int(lens_run.sum())
+    pns, _ = dec.paged_geometry(n_pages, 8)
+    b_ms, b_by = bound(4 * G * D * n_pos * G3_HKV,
+                       n_pos * G3_HKV * D * 2 * 2 + B * G3_HQ * D * 2 + B * n_pages * 4 + B * 4
+                       + B * G3_HKV * pns * G * (D + 1) * 4)
+    log(f"flash_decode_paged D={D} B={B} lengths={lens_run.tolist()} {n_pages} pages of {ps} "
+        f"(shuffled): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{ms / b_ms:.2f}x the bound; in turns (contiguous, paged, paged, contiguous) "
+        f"{[round(t, 4) for t in runs]}: paged / contiguous {ms / c_ms:.4f}")
+    return {
+        "flash_fwd_hd256": dict(max_abs_err=fwd_err, **fwd_rows["causal"],
+                                windowed=fwd_rows["window"]),
+        "flash_decode_hd256": dict(max_abs_err=dec_err, **dec_rows["causal"],
+                                   windowed=dec_rows["window"]),
+        "flash_decode_paged_hd256": dict(max_abs_err=paged_err, ms=ms, plain_ms=plain_ms,
+                                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                                         contiguous_ms_in_turns=c_ms),
+    }
+
+
+def gemma3_phase(torch, dev):
+    """The gemma3 serving slice: gemma3-1b at its published widths and depth
+    (26 layers, d_model 1152, 4 q heads over 1 kv head of 256, a 512-token
+    window on 5 of 6 layers, vocab 262,144, bf16, random weights from seed 0)
+    serves the six requests of ``serving_prompts`` through ServingEngine (4
+    slots of CACHE) and PagedServingEngine (the qwen3 paged phase's pool,
+    which preempts once), with exact launch counts at head_dim 256 and no
+    plain version or reference; the prefill of the 1500-token prompt and a
+    B = 4 decode step against impl="ref", the same step through shuffled
+    pages; the decode ticks of both engines (``tick_phase``); then the serve
+    CLI once through each engine. Returns both runs' counts and a summary."""
+    from repro_torch.configs import registry
+    from repro_torch.core.attention import AttentionConfig, check_card_support
+    from repro_torch.kernels import flash_decode as dec
+    from repro_torch.kernels import flash_fwd as fwd
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serving.engine import PagedServingEngine, Request, ServingEngine
+
+    cfg = registry.get("gemma3-1b")
+    fl_cfg, ref_cfg = AttentionConfig(impl="flash_cuda"), AttentionConfig(impl="ref")
+    for paged in (False, True):
+        check_card_support(cfg, fl_cfg, dev, training=False, paged=paged)
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"gemma3-1b: {cfg.num_layers} layers {cfg.layer_pattern} (window {cfg.window}), d_model "
+        f"{cfg.d_model}, {cfg.num_heads} q heads over {cfg.num_kv_heads} kv head of "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B params ({cfg.dtype}), "
+        f"initialised in {time.perf_counter() - t0:.1f} s")
+    n = cfg.num_layers
+    prompts = serving_prompts(cfg)
+    summary = {}
+
+    engine = ServingEngine(cfg, model, fl_cfg, max_batch=4, cache_size=CACHE)
+    for rid, prompt in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
+    counts, summary["fixed"] = run_engine(torch, dev, cfg, engine, len(prompts), "gemma3_serving")
+    if (counts["flash_fwd"] != len(prompts) * n or counts["flash_decode"] != engine.ticks * n
+            or counts["flash_decode_paged"]):
+        fail(f"gemma3 serving: want flash_fwd {len(prompts) * n} (a prefill a request and "
+             f"layer), flash_decode {engine.ticks * n} (a tick and layer), paged 0")
+
+    engine = PagedServingEngine(cfg, model, fl_cfg, max_batch=4, num_pages=PAGED_POOL_PAGES,
+                                page_size=PAGE_SIZE, pages_per_seq_max=PAGES_PER_SEQ)
+    for rid, prompt in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
+    paged_counts, summary["paged"] = run_engine(torch, dev, cfg, engine, len(prompts),
+                                                "gemma3_paged_serving")
+    summary["paged"]["preemptions"] = engine.preemptions
+    log(f"gemma3_paged_serving: preemptions {engine.preemptions} (expected "
+        f"{PAGED_PREEMPTIONS}); pages in use at the end {engine.pool.used_pages}")
+    if (engine.preemptions != PAGED_PREEMPTIONS or engine.pool.used_pages
+            or paged_counts["flash_decode_paged"] != engine.ticks * n
+            or paged_counts["flash_decode"] or not paged_counts["flash_fwd"]
+            or paged_counts["flash_fwd"] % n):
+        fail("gemma3 paged serving: the preemption, the pool or the launch counts are wrong")
+
+    # Logits against the dense reference on the card: the prefill of the
+    # 1500-token prompt (three windows long), then a B = 4 decode step from
+    # its cache at ragged lengths inside and past the window.
+    tokens_in = torch.tensor([prompts[3]], device=dev)
+    h_ref, _, _ = model.prefill(tokens_in, ref_cfg, CACHE)
+    h_fl, cache_fl, _ = model.prefill(tokens_in, fl_cfg, CACHE)
+    l_fl = model.logits_from_hidden(h_fl)
+    compare_logits(torch, f"gemma3 prefill of {len(prompts[3])} tokens",
+                   model.logits_from_hidden(h_ref), l_fl)
+    cache_fl = [{"kv": {k: t.expand(4, -1, -1, -1).clone() for k, t in c["kv"].items()}}
+                for c in cache_fl]
+    cache_ref = [{"kv": {k: t.clone() for k, t in c["kv"].items()}} for c in cache_fl]
+    table = shuffled_table(torch, 4, PAGES_PER_SEQ, 3).to(dev)
+    planes = [{"kv": {k: paginate(torch, t, table, 4 * PAGES_PER_SEQ + 1)
+                      for k, t in c["kv"].items()}} for c in cache_fl]
+    step_len = torch.tensor([len(prompts[3]), 1, 700, 513], dtype=torch.int32, device=dev)
+    first = int(l_fl[..., :cfg.vocab_size].argmax())
+    step_tok = torch.tensor([[first], [5], [17], [99]], device=dev)
+    d_ref, _ = model.decode_step(step_tok, cache_ref, step_len, ref_cfg)
+    d_fl, _ = model.decode_step(step_tok, cache_fl, step_len, fl_cfg)
+    d_pg, _ = model.decode_step(step_tok, planes, step_len, fl_cfg, block_table=table)
+    compare_logits(torch, f"gemma3 decode step, B=4, lengths {step_len.tolist()}", d_ref, d_fl)
+    same = torch.equal(d_fl, d_pg)
+    log(f"gemma3 decode step through shuffled pages of {PAGE_SIZE}: logits bitwise the "
+        f"contiguous cache's {same}")
+    if not same:
+        fail("gemma3: the paged decode step's logits differ from the contiguous one's")
+    del cache_fl, cache_ref, planes
+
+    summary["ticks"] = tick_phase(torch, cfg, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The serve CLI on the card, as a user runs it (short prompts, its own
+    # model from --seed 0).
+    kernels = (fwd.flash_fwd, dec.flash_decode, dec.flash_decode_paged)
+    for engine_name, used in (("fixed", dec.flash_decode), ("paged", dec.flash_decode_paged)):
+        for f in kernels:
+            f.launches = 0
+        serve.main(["--arch", "gemma3-1b", "--engine", engine_name, "--requests", "4",
+                    "--max-new", "8"])
+        got = {f.__name__: f.launches for f in kernels}
+        log(f"serve CLI --arch gemma3-1b --engine {engine_name}: launches {got}")
+        if not (fwd.flash_fwd.launches and used.launches) or sum(got.values()) != (
+                fwd.flash_fwd.launches + used.launches):
+            fail(f"the serve CLI's {engine_name} engine did not run through its kernels")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts, paged_counts, summary
+
+
 def main() -> None:
     import torch
 
@@ -2936,9 +3301,10 @@ def main() -> None:
         f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
     for src in sources:
         log(f"ptxas report of csrc/{src}.cu:\n{_build.report_path(src).read_text()}")
+    ptxas = ptxas_summary(_build, sources)
     log("ptxas, registers and spills by kernel instantiation (registers at entry; the "
         "forward's, the KV-stationary backward's and the dq kernel's warpgroups then run at 24 "
-        "(producer) and 240 (consumers) by setmaxnreg):\n" + ptxas_summary(_build, sources))
+        "(producer) and 240 (consumers) by setmaxnreg):\n" + ptxas)
 
     scratch = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     results = kernel_phase(torch, dev, scratch.zero_)
@@ -2948,6 +3314,7 @@ def main() -> None:
     results.update(dense_kernel_phase(torch, dev, scratch.zero_))
     results.update(whisper_kernel_phase(torch, dev, scratch.zero_))
     results.update(bwd_hd64_kernel_phase(torch, dev, scratch.zero_))
+    results.update(hd256_kernel_phase(torch, dev, scratch.zero_))
     del scratch
     whisper_counts, whisper_summary = whisper_phase(torch, dev)
     gc.collect()
@@ -2957,6 +3324,10 @@ def main() -> None:
         paged_counts = paged_slice_phase(torch, dev, cfg, model)
         tick_phase(torch, cfg, model)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        g3_counts, g3_paged_counts, g3_summary = gemma3_phase(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
     train_parity_phase(torch, dev)
@@ -2989,6 +3360,11 @@ def main() -> None:
     wh_train_counts, wh_train_summary = whisper_train_phase(torch, dev)
 
     results["flash_fwd"]["at_training_shape"] = results.pop("flash_fwd_at_training_shape")
+    for k, inst in (("flash_fwd_hd256", "fa2_fwd_kernel<256,"),
+                    ("flash_decode_hd256", "fa2_decode_kernel<256,0>"),
+                    ("flash_decode_paged_hd256", "fa2_decode_paged_kernel<256>")):
+        results[k]["ptxas"] = [line.split(": ", 1)[1] for line in ptxas.splitlines()
+                               if inst in line]
     replaces = {"flash_fwd": "src/repro/kernels/flash_fwd.py:354",
                 "flash_decode": "src/repro/kernels/flash_decode.py:77",
                 "flash_decode_paged": "src/repro/kernels/flash_decode.py:250",
@@ -3021,7 +3397,11 @@ def main() -> None:
                 "flash_bwd_delta_hd64": "src/repro/kernels/flash_bwd.py:80",
                 "flash_bwd_fused_hd64": "src/repro/kernels/flash_bwd.py:718",
                 "flash_bwd_dkv_hd64": "src/repro/kernels/flash_bwd.py:234",
-                "flash_bwd_dq_hd64": "src/repro/kernels/flash_bwd.py:459"}
+                "flash_bwd_dq_hd64": "src/repro/kernels/flash_bwd.py:459",
+                # Head dim 256 (gemma3-1b serving).
+                "flash_fwd_hd256": "src/repro/kernels/flash_fwd.py:354",
+                "flash_decode_hd256": "src/repro/kernels/flash_decode.py:77",
+                "flash_decode_paged_hd256": "src/repro/kernels/flash_decode.py:250"}
     source = {"flash_fwd": "flash_fwd", "flash_decode": "flash_decode",
               "flash_decode_paged": "flash_decode", "flash_bwd_delta": "flash_bwd",
               "flash_bwd_fused": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
@@ -3029,7 +3409,8 @@ def main() -> None:
               "flash_bwd_fused_varlen": "flash_bwd", "flash_bwd_dkv_varlen": "flash_bwd",
               "flash_bwd_dq_varlen": "flash_bwd", "flash_fwd_splitkv": "flash_fwd",
               "flash_fwd_splitkv_varlen": "flash_fwd", "flash_fwd_hd64": "flash_fwd",
-              "flash_decode_hd64": "flash_decode", "flash_decode_varlen": "flash_decode"}
+              "flash_decode_hd64": "flash_decode", "flash_decode_varlen": "flash_decode",
+              "flash_decode_hd256": "flash_decode", "flash_decode_paged_hd256": "flash_decode"}
     source.update({k: "flash_fwd" if k.startswith("flash_fwd") else "flash_bwd"
                    for k in replaces if k not in source})
     paths = {"serving": serve_counts, "paged_serving": paged_counts, "training": train_counts,
@@ -3038,21 +3419,28 @@ def main() -> None:
              "training_dense_parity": dense_parity_counts,
              "training_packed_dense_parity": packed_dense_parity_counts,
              "whisper_serving": whisper_counts, "training_gpt20m": gpt_counts["fused"],
-             "training_gpt20m_split": gpt_counts["split"], "training_whisper": wh_train_counts}
-    # An entry named "_hd64" counts its kernel's launches at head_dim 64, and
-    # the entry of the same kernel without the suffix the other launches.
-    # The backward wrappers count their head_dim-64 launches apart
-    # (``<name>_hd64``); the forward and decode wrappers do not, so their
-    # launches on the paths that run at head_dim 64 only (whisper-base,
-    # gpt-20m) are the "_hd64" entries'.
+             "training_gpt20m_split": gpt_counts["split"], "training_whisper": wh_train_counts,
+             "gemma3_serving": g3_counts, "gemma3_paged_serving": g3_paged_counts}
+    # An entry named "_hd64" ("_hd256") counts its kernel's launches at head
+    # dim 64 (256), and the entry of the same kernel without the suffix the
+    # other launches. The backward wrappers count their head_dim-64 launches
+    # apart (``<name>_hd64``); the forward and decode wrappers do not, so
+    # their launches on the paths that run at one head dim only (64:
+    # whisper-base, gpt-20m; 256: gemma3-1b) are that head dim's entries'.
     hd64_paths = ("whisper_serving", "training_gpt20m", "training_gpt20m_split",
                   "training_whisper")
-    by_dim = {"flash_fwd_hd64": "flash_fwd", "flash_decode_hd64": "flash_decode"}
+    hd256_paths = ("gemma3_serving", "gemma3_paged_serving")
+    by_dim = {"flash_fwd_hd64": ("flash_fwd", hd64_paths),
+              "flash_decode_hd64": ("flash_decode", hd64_paths),
+              "flash_fwd_hd256": ("flash_fwd", hd256_paths),
+              "flash_decode_hd256": ("flash_decode", hd256_paths),
+              "flash_decode_paged_hd256": ("flash_decode_paged", hd256_paths)}
 
     def launches(k, path, counts):
         if k in by_dim:
-            return counts.get(by_dim[k], 0) if path in hd64_paths else 0
-        if k in by_dim.values() and path in hd64_paths:
+            base, on = by_dim[k]
+            return counts.get(base, 0) if path in on else 0
+        if any(base == k and path in on for base, on in by_dim.values()):
             return 0
         if k.endswith("_hd64"):
             return counts.get(k, 0)
@@ -3069,6 +3457,7 @@ def main() -> None:
     log(f"whisper serving: {json.dumps(whisper_summary)}")
     log(f"gpt-20m training: {json.dumps(gpt_summaries)}")
     log(f"whisper training: {json.dumps(wh_train_summary)}")
+    log(f"gemma3-1b serving: {json.dumps(g3_summary)}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -61,8 +61,10 @@ def check_card_support(cfg, attn_cfg: AttentionConfig, device, *, training: bool
     ``device`` (a name or a ``torch.device``) with ``cfg.dtype`` other than
     bfloat16, or a ``cfg.head_dim`` that the forward kernels, and for
     ``training`` the backward kernels, else the decode kernels (``paged``:
-    the paged decode's) are not instantiated for. The plain CPU path and
-    ``impl="ref"`` take any of them."""
+    the paged decode's) are not instantiated for: gemma3-1b's 256 serves
+    (fixed and paged) but does not train, stablelm-12b's 160 does neither
+    (ROADMAP.md queue 2, item 2), whisper's 64 has no paged decode (item
+    3). The plain CPU path and ``impl="ref"`` take any of them."""
     if attn_cfg.impl != "flash_cuda" or torch.device(device).type != "cuda":
         return
     if cfg.dtype != "bfloat16":

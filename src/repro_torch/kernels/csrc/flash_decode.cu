@@ -5,7 +5,8 @@
 //   * fa2_decode_bf16 replaces the Pallas TPU kernel
 //     src/repro/kernels/flash_decode.py:77 flash_decode_kernel (body
 //     _decode_kernel :34). It reads the (B, S, Hkv, D) serving cache in
-//     place, at head_dim 128 (qwen3) and 64 (whisper). Splits are ceil-div,
+//     place, at head_dim 128 (qwen3), 64 (whisper) and 256 (gemma3). Splits
+//     are ceil-div,
 //     8-aligned chunks of S (kernels/flash_decode.py decode_geometry). Its
 //     SEG instantiation is the packed cache of the same kernel (segment
 //     branch, mask at :52-55): with int32 ids kv_seg (B, S) and q_seg (B,),
@@ -18,7 +19,7 @@
 //     b sits in physical page tbl[b, g / ps] at offset g % ps. Split c
 //     covers the pp logical pages [c * pp, c * pp + pp), the JAX geometry
 //     (ns = ceil(n_pages / pp)). Its body is fa2_decode_paged_kernel, at
-//     head_dim 128.
+//     head_dim 128 and 256.
 // Both write, per (batch * kv head, split), the G q heads of one GQA group
 // as a locally normalized f32 partial (o, lse) in the JAX layout, o_parts
 // (B*Hkv, ns, G, D) and lse_parts (B*Hkv, ns, G); the caller folds the
@@ -53,7 +54,9 @@
 //     bytes each) of K and sixteen of V, issued by the warp's 32 lanes at
 //     once and counted on the stage's barrier; no row at or past min(end,
 //     S) is read. Paged: lane 0 moves each page of K and of V as one bulk
-//     copy (ps * D * 2 bytes; a page of more than 64 rows in pieces of 64);
+//     copy (ps * D * 2 bytes; a page of more than 64 rows in pieces of 64,
+//     at head_dim 256 of more than 32 rows in pieces of 32, so that a
+//     piece of K and V stays 32 KB);
 //   * the math is mma.sync (m16n8k16) on 16-row units: S^T = K q^T with the
 //     unit's 16 kv rows as the fragment's rows and the G <= 8 q heads as
 //     its 8 columns (K read straight from the copied rows: the head_dim
@@ -445,7 +448,7 @@ __device__ __forceinline__ void issue_unit(unsigned char* stage, uint64_t* bar,
 template <int D, bool SEG>
 __global__ void __cluster_dims__(1, kDecodeCluster, 1) __launch_bounds__(kDecodeWarps * 32)
     fa2_decode_kernel(const DecodeParams p) {
-  static_assert(D == 64 || D == 128, "the decode takes head_dim 64 or 128");
+  static_assert(D == 64 || D == 128 || D == 256, "the decode takes head_dim 64, 128 or 256");
   constexpr int STAGE = 2 * kUnit * D * 2;  // a unit's K rows, then its V rows
   constexpr int WORKERS = kDecodeWarps * kDecodeCluster;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -543,14 +546,19 @@ __global__ void __cluster_dims__(1, kDecodeCluster, 1) __launch_bounds__(kDecode
 constexpr int kPagedWarps = 4;    // workers of a CTA, each owning whole pages
 constexpr int kPagedCluster = 2;  // CTAs of a split, merged through distributed shared memory
 constexpr int kPagedWorkers = kPagedWarps * kPagedCluster;
-constexpr int kPieceRows = 64;    // rows of one bulk copy: a page of up to 64 rows
 
-// The pieces (bulk copies of at most kPieceRows rows) with a visible row of
-// visible pages o .. o1 - 1, in logical order; a page of at most
-// kPieceRows rows is one piece.
+// Rows of one bulk copy: a page of up to 64 rows (32 at head_dim 256) is one
+// piece, a longer page several.
+template <int D>
+__host__ __device__ constexpr int paged_piece_rows() {
+  return D == 256 ? 32 : 64;
+}
+
+// The pieces (bulk copies of at most `rows` rows) with a visible row of
+// visible pages o .. o1 - 1, in logical order.
 struct PieceWalk {
   const VisibleUnits* vis;
-  int o, o1, piece, pieces;
+  int o, o1, piece, pieces, rows;
   __device__ __forceinline__ bool next(int& page, int& pc) {
     while (o < o1) {
       page = vis->unit(o);
@@ -559,8 +567,8 @@ struct PieceWalk {
         piece = 0;
         ++o;
       }
-      const int lo = page * vis->size + pc * kPieceRows;
-      if (vis->any(lo, min(lo + kPieceRows, (page + 1) * vis->size))) return true;
+      const int lo = page * vis->size + pc * rows;
+      if (vis->any(lo, min(lo + rows, (page + 1) * vis->size))) return true;
     }
     return false;
   }
@@ -574,7 +582,8 @@ struct PieceWalk {
 template <int D>
 __global__ void __cluster_dims__(1, kPagedCluster, 1) __launch_bounds__(kPagedWarps * 32)
     fa2_decode_paged_kernel(const PagedParams p) {
-  static_assert(D == 128, "the paged decode takes head_dim 128");
+  static_assert(D == 128 || D == 256, "the paged decode takes head_dim 128 or 256");
+  constexpr int kPieceRows = paged_piece_rows<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
   const int bhk = blockIdx.x, split = blockIdx.y / kPagedCluster;
@@ -613,7 +622,7 @@ __global__ void __cluster_dims__(1, kPagedCluster, 1) __launch_bounds__(kPagedWa
   const int worker = rank * kPagedWarps + warp;
   const int o0 = worker * vis.count / kPagedWorkers, o1 = (worker + 1) * vis.count / kPagedWorkers;
   const int pieces = (p.ps + kPieceRows - 1) / kPieceRows;
-  PieceWalk walk{&vis, o0, o1, 0, pieces}, ahead = walk;
+  PieceWalk walk{&vis, o0, o1, 0, pieces, kPieceRows}, ahead = walk;
   const __nv_bfloat16* kplane = p.k + static_cast<long long>(hk) * p.P * p.ps * D;
   const __nv_bfloat16* vplane = p.v + static_cast<long long>(hk) * p.P * p.ps * D;
   const int* tbl = p.table + static_cast<long long>(b) * p.n_pages;
@@ -684,6 +693,19 @@ cudaError_t launch(Kernel kernel, const Params& p, dim3 grid, int threads, size_
   return cudaGetLastError();
 }
 
+// The paged kernel at head_dim D: two stages a warp where the ring stays
+// within 128 KB (pieces of up to 32 rows at 128, 16 at 256), else one
+// (pieces of 64 rows at 128, 32 at 256: 128 KB for the four warps).
+template <int D>
+cudaError_t launch_paged(PagedParams& p, dim3 grid, cudaStream_t stream) {
+  const size_t half =
+      static_cast<size_t>((min(p.ps, paged_piece_rows<D>()) + 15) / 16 * 16) * D * 2;
+  p.slots = 2 * kPagedWarps * 2 * half <= 128 * 1024 ? 2 : 1;
+  const size_t smem = kPagedWarps * (p.slots * (2 * half + sizeof(uint64_t)) +
+                                     part_floats<D>() * sizeof(float));
+  return launch(fa2_decode_paged_kernel<D>, p, grid, kPagedWarps * 32, smem, stream);
+}
+
 }  // namespace
 
 extern "C" int fa2_decode_bf16(const void* q, const void* k, const void* v, const void* lengths,
@@ -717,6 +739,9 @@ extern "C" int fa2_decode_bf16(const void* q, const void* k, const void* v, cons
   if (head_dim == 64)
     return seg ? launch(fa2_decode_kernel<64, true>, p, grid, threads, decode_smem<64>(), s)
                : launch(fa2_decode_kernel<64, false>, p, grid, threads, decode_smem<64>(), s);
+  if (head_dim == 256)
+    return seg ? launch(fa2_decode_kernel<256, true>, p, grid, threads, decode_smem<256>(), s)
+               : launch(fa2_decode_kernel<256, false>, p, grid, threads, decode_smem<256>(), s);
   return cudaErrorInvalidValue;
 }
 
@@ -735,13 +760,10 @@ extern "C" int fa2_decode_paged_bf16(const void* q, const void* k_pages, const v
   p.lse_parts = static_cast<float*>(lse_parts);
   p.Hkv = Hkv; p.G = G; p.P = P; p.ps = ps; p.n_pages = n_pages; p.pp = pp; p.ns = ns;
   p.window = window; p.sink = sink;
-  if (G < 1 || G > kMaxGroup || head_dim != 128 || ps < 1 || pp < 1) return cudaErrorInvalidValue;
-  // Two stages a warp where the ring stays within 128 KB (pieces of up to
-  // 32 rows), else one (pieces of 64 rows: 128 KB for the four warps).
-  const size_t half = static_cast<size_t>((min(ps, kPieceRows) + 15) / 16 * 16) * 128 * 2;
-  p.slots = 2 * kPagedWarps * 2 * half <= 128 * 1024 ? 2 : 1;
-  const size_t smem = kPagedWarps * (p.slots * (2 * half + sizeof(uint64_t)) +
-                                     part_floats<128>() * sizeof(float));
-  return launch(fa2_decode_paged_kernel<128>, p, dim3(batch * Hkv, ns * kPagedCluster),
-                kPagedWarps * 32, smem, static_cast<cudaStream_t>(stream));
+  if (G < 1 || G > kMaxGroup || ps < 1 || pp < 1) return cudaErrorInvalidValue;
+  const dim3 grid(batch * Hkv, ns * kPagedCluster);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 128) return launch_paged<128>(p, grid, s);
+  if (head_dim == 256) return launch_paged<256>(p, grid, s);
+  return cudaErrorInvalidValue;
 }

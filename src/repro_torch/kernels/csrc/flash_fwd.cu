@@ -127,7 +127,23 @@
 // kernel's to the bit, with and without segments.
 //
 // Head dims: every variant is instantiated at 128 (qwen3) and 64
-// (whisper); a 64-row tile is D / 64 TMA boxes of 64 rows x 128 bytes.
+// (whisper); a 64-row tile is D / 64 TMA boxes of 64 rows x 128 bytes. At
+// 256 (gemma3) only the compact, unsegmented single-pass kernel is
+// instantiated (the serving prefill's), and the same design needs two
+// changes to fit an SM:
+//   * registers: a consumer's O is 64 x 256 f32, 128 registers a thread;
+//     with Q as register fragments (64 more), S (32) and P (16) it would
+//     exceed setmaxnreg's 240. So Q stays in shared memory and S = Q K^T
+//     reads both operands from there (wgmma with A from shared memory, as
+//     FlashAttention-3 does at 256); P V is two n128 products a k-step;
+//   * shared memory: a 64-row tile is 32 KB, so the pair's Q (64 KB) and a
+//     4-stage K/V ring (256 KB) exceed the 227 KB a CTA may use; the ring
+//     has 2 stages (192 KB in all). A warpgroup holds two stages at once
+//     (the pending P V's and the step's S), so the producer can refill a
+//     stage only after the step's softmax: at 256 the copies of the next
+//     step are not hidden behind a whole step.
+// At gemma3's prefill (B 1, S 1536, 4 q heads: 48 CTAs on 132 SMs) the 256
+// kernel takes about 14x its bound, 1.54x SDPA's forward (PERF.md row 1g).
 
 #include <math.h>
 
@@ -139,7 +155,12 @@ constexpr int kBlockM = 64;             // q rows of a tile: one consumer warpgr
 constexpr int kBlockN = 64;             // kv rows of a step
 constexpr int kThreads = 3 * 128;       // producer warpgroup, two consumer warpgroups
 constexpr int kConsumers = 2 * 128;
-constexpr int kStages = 4;              // the K/V ring
+
+// Stages of the K/V ring: 4, or 2 at head_dim 256 (shared memory).
+template <int D>
+__host__ __device__ constexpr int fwd_stages() {
+  return D == 256 ? 2 : 4;
+}
 
 struct FwdParams {
   const __nv_bfloat16* q;
@@ -174,14 +195,15 @@ struct FwdMaps {
 // mbarriers. A 64-row tile is D / 64 boxes of 64 rows x 128 bytes (8 KB).
 template <int D>
 struct FwdSmem {
+  static constexpr int STAGES = fwd_stages<D>();
   static constexpr uint32_t TILE = D * kBlockM * 2;
   static constexpr uint32_t Q = 0;
   static constexpr uint32_t K = 2 * TILE;
-  static constexpr uint32_t V = K + kStages * TILE;
-  static constexpr uint32_t KID = V + kStages * TILE;
-  static constexpr uint32_t STEP = KID + kStages * kBlockN * 4;
-  static constexpr uint32_t BARS = STEP + kStages * 8;  // full, empty, q
-  static constexpr uint32_t BYTES = BARS + (2 * kStages + 1) * 8;
+  static constexpr uint32_t V = K + STAGES * TILE;
+  static constexpr uint32_t KID = V + STAGES * TILE;
+  static constexpr uint32_t STEP = KID + STAGES * kBlockN * 4;
+  static constexpr uint32_t BARS = STEP + STAGES * 8;  // full, empty, q
+  static constexpr uint32_t BYTES = BARS + (2 * STAGES + 1) * 8;
 };
 
 // 2^x, flushing results below the normal range to 0 (one MUFU.EX2).
@@ -248,8 +270,11 @@ __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
 template <int D, bool SEG, bool SPLIT, bool DENSE>
 __global__ void __launch_bounds__(kThreads, 1)
     fa2_fwd_kernel(const FwdParams p, const __grid_constant__ FwdMaps maps) {
-  static_assert(D == 64 || D == 128, "the forward takes head_dim 64 or 128");
+  static_assert(D == 64 || D == 128 || (D == 256 && !SEG && !SPLIT && !DENSE),
+                "the forward takes head_dim 64 or 128, and 256 compact and unsegmented");
   using L = FwdSmem<D>;
+  constexpr int kStages = L::STAGES;
+  constexpr bool QSS = D == 256;  // Q read from shared memory by every S = Q K^T
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are dropped before their fetch
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -430,16 +455,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     int pend = -1;      // the stage whose O += P V is not issued yet
 
     mbar_wait(q_bar, 0);
-    // Q as bf16 A fragments in registers, read once from its swizzled tile.
-    uint32_t qf[D / 16][4];
+    // Q as bf16 A fragments in registers, read once from its swizzled tile
+    // (QSS: left in shared memory).
+    uint32_t qf[QSS ? 1 : D / 16][4];
+    if constexpr (!QSS) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int row = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int col = kk * 16 + (lane >> 4) * 8;
-      const uint32_t at = sQ + (col >> 6) * 8192 + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4);
-      asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                   : "=r"(qf[kk][0]), "=r"(qf[kk][1]), "=r"(qf[kk][2]), "=r"(qf[kk][3])
-                   : "r"(at));
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int row = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = kk * 16 + (lane >> 4) * 8;
+        const uint32_t at =
+            sQ + (col >> 6) * 8192 + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4);
+        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                     : "=r"(qf[kk][0]), "=r"(qf[kk][1]), "=r"(qf[kk][2]), "=r"(qf[kk][3])
+                     : "r"(at));
+      }
     }
     for (int n = 0;; ++n) {
       const int stage = n % kStages;
@@ -470,8 +499,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int j = rec.x;
       const uint32_t cK = sK + stage * L::TILE;
 
-      // S = Q K^T (64 x 64, Q from registers, K over head_dim in D / 64
-      // swizzled boxes), issued together with the pending step's O += P V.
+      // S = Q K^T (64 x 64, Q from registers or with QSS from its tile, K
+      // over head_dim in D / 64 swizzled boxes, both K-major), issued
+      // together with the pending step's O += P V.
       // The first step of a run has none pending: it issues one with P = 0
       // (O += 0 exactly), so the products and their waits are the same on
       // every taken step; with them conditional, ptxas serialises every
@@ -485,8 +515,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       float s[32];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_rs_n64<0>(s, qf[kk], sw128_desc(cK + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t kd = sw128_desc(cK + (kk >> 2) * 8192 + (kk & 3) * 32, 16);
+        if constexpr (QSS)
+          wgmma_ss_n64<0, 0>(s, sw128_desc(sQ + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kd, kk > 0);
+        else
+          wgmma_rs_n64<0>(s, qf[kk], kd, kk > 0);
+      }
       wgmma_commit();
       wgmma_rs_k64<D>(o, pc, sV + (first ? stage : pend) * L::TILE);
       wgmma_commit();
@@ -611,8 +646,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     } else {
       // bf16 O through this warpgroup's Q tile (its values are in registers
-      // since the start), in TMA's 128-byte swizzle (conflict-free pair
-      // stores), then 16-byte chunks of rows to memory.
+      // since the start; with QSS its last reader, the last S = Q K^T, has
+      // completed), in TMA's 128-byte swizzle (conflict-free pair stores),
+      // then 16-byte chunks of rows to memory.
       unsigned char* stg = sm + L::Q + w * L::TILE;
       named_sync(1 + w, 128);  // every warp has read its Q fragments
 #pragma unroll
@@ -680,7 +716,7 @@ cudaError_t launch(const FwdParams& p, int batch, int Hkv, cudaStream_t stream,
   if (err != cudaSuccess) return err;
   const dim3 grid((p.t_q + 1) / 2, batch * p.Hq, p.ks);
   kernel<<<grid, kThreads, smem, stream>>>(p, maps);
-  if (SPLIT) {
+  if constexpr (SPLIT) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     fa2_fwd_fold_kernel<D><<<dim3(p.Sq, batch * p.Hq), D, 0, stream>>>(p, o_fold, lse_fold);
@@ -691,14 +727,19 @@ cudaError_t launch(const FwdParams& p, int batch, int Hkv, cudaStream_t stream,
 template <int D>
 cudaError_t dispatch(const FwdParams& p, int batch, int Hkv, bool seg, bool split, bool dense,
                      cudaStream_t s, __nv_bfloat16* of, float* lf) {
-  if (dense)
-    return seg ? launch<D, true, false, true>(p, batch, Hkv, s, of, lf)
-               : launch<D, false, false, true>(p, batch, Hkv, s, of, lf);
-  if (seg)
-    return split ? launch<D, true, true>(p, batch, Hkv, s, of, lf)
-                 : launch<D, true, false>(p, batch, Hkv, s, of, lf);
-  return split ? launch<D, false, true>(p, batch, Hkv, s, of, lf)
-               : launch<D, false, false>(p, batch, Hkv, s, of, lf);
+  if constexpr (D == 256) {  // compact and unsegmented only (the header says why)
+    if (seg || split || dense) return cudaErrorInvalidValue;
+    return launch<256, false, false>(p, batch, Hkv, s, of, lf);
+  } else {
+    if (dense)
+      return seg ? launch<D, true, false, true>(p, batch, Hkv, s, of, lf)
+                 : launch<D, false, false, true>(p, batch, Hkv, s, of, lf);
+    if (seg)
+      return split ? launch<D, true, true>(p, batch, Hkv, s, of, lf)
+                   : launch<D, true, false>(p, batch, Hkv, s, of, lf);
+    return split ? launch<D, false, true>(p, batch, Hkv, s, of, lf)
+                 : launch<D, false, false>(p, batch, Hkv, s, of, lf);
+  }
 }
 
 }  // namespace
@@ -736,7 +777,8 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
   // Head dims 128 (qwen3) and 64 (whisper); without and with segments (null
   // ids: none); the compact schedule (table; with segments, step bits) or
   // the dense one (no table, no bits); single-pass, or (compact only)
-  // split-KV partials (o, lse) folded into (o_fold, lse_fold).
+  // split-KV partials (o, lse) folded into (o_fold, lse_fold). Head dim 256
+  // (gemma3): the compact, unsegmented single pass only.
   if (block_q != kBlockM || block_kv != kBlockN || ks < 1 || t_q < 1) return cudaErrorInvalidValue;
   if (split && (dense || o_fold == nullptr || lse_fold == nullptr))
     return cudaErrorInvalidValue;
@@ -748,5 +790,7 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
   if (head_dim == 128)
     return dispatch<128>(p, batch, Hkv, seg, split != 0, dense != 0, s, of, lf);
   if (head_dim == 64) return dispatch<64>(p, batch, Hkv, seg, split != 0, dense != 0, s, of, lf);
+  if (head_dim == 256)
+    return dispatch<256>(p, batch, Hkv, seg, split != 0, dense != 0, s, of, lf);
   return cudaErrorInvalidValue;
 }

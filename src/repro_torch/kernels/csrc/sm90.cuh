@@ -221,19 +221,26 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 
 // d (64 x D f32) += A (64 x 64 bf16: four k-steps of register fragments) *
 // B (64 x D at shared address b, MN-major: D / 64 boxes of 64 rows x 128
-// bytes, 8 KB apart, as TMA lands a 64-row tile); D = 64 or 128. P V of the
-// forward, P^T dO and dS^T Q of the KV-stationary backward, dS K of the dq
-// kernel.
+// bytes, 8 KB apart, as TMA lands a 64-row tile); D = 64, 128 or 256. P V
+// of the forward, P^T dO and dS^T Q of the KV-stationary backward, dS K of
+// the dq kernel. At 256 each k-step is two n128 products, columns 0-127
+// into d[0 .. 63] and 128-255 into d[64 .. 127]: the accumulator layout of
+// one m64n256k16, whose fragment puts column block t at d[4 t .. 4 t + 3].
 template <int D>
 __device__ __forceinline__ void wgmma_rs_k64(float (&d)[D / 2], const uint32_t (&a)[4][4],
                                              uint32_t b) {
-  static_assert(D == 64 || D == 128, "wgmma_rs_k64 takes D = 64 or 128");
+  static_assert(D == 64 || D == 128 || D == 256, "wgmma_rs_k64 takes D = 64, 128 or 256");
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    if constexpr (D == 128)
+    if constexpr (D == 256) {
+      wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d), a[kk], sw128_desc(b + kk * 2048, 8192));
+      wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d + 64), a[kk],
+                    sw128_desc(b + 2 * 8192 + kk * 2048, 8192));
+    } else if constexpr (D == 128) {
       wgmma_rs_n128(d, a[kk], sw128_desc(b + kk * 2048, 8192));
-    else
+    } else {
       wgmma_rs_n64<1>(d, a[kk], sw128_desc(b + kk * 2048, 8192), 1);
+    }
   }
 }
 
@@ -327,7 +334,7 @@ EncodeTiled encode_tiled() {
 }
 
 // The (D, H, S, B) map of a strided bf16 tensor (B, S, H, D) with unit last
-// stride, D = 64 or 128: boxes of 64 columns x `rows` rows of one head,
+// stride, D a multiple of 64: boxes of 64 columns x `rows` rows of one head,
 // 128-byte swizzled, rows past S read as zeros. The strides (elements) are
 // multiples of 8 and the base 16-byte aligned (the wrappers check both), as
 // TMA needs.

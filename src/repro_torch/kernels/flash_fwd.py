@@ -38,7 +38,9 @@ version); the wrapper returns both as a :class:`SplitForward`.
 :func:`flash_fwd_splitkv_varlen` is its segment variant. Both are the same
 kernel source instantiated with ``SPLIT``.
 
-The kernels are instantiated at head_dim 64 and 128 (``KERNEL_HEAD_DIMS``).
+The kernels are instantiated at head_dim 64 and 128 in every mode, and at
+256 in the compact, unsegmented single pass only (``KERNEL_HEAD_DIMS``,
+``ALL_MODES_HEAD_DIMS``): the other modes refuse 256 before the launch.
 
 ``schedule="dense"`` on :func:`flash_fwd` and :func:`flash_fwd_varlen`
 replaces the dense body ``_fwd_kernel_dense`` (``flash_fwd.py:206``, with
@@ -73,9 +75,12 @@ from repro_torch.kernels.schedule import (build_kv_tile_schedule, build_q_tile_s
                                           device_schedule, device_step_bits, segment_step_bits)
 
 # (block_q, block_kv) and head dims the CUDA kernels are instantiated for:
-# 128 (qwen3) and 64 (whisper), every variant (segments, split-KV).
+# 128 (qwen3) and 64 (whisper) in every mode (segments, split-KV, dense);
+# 256 (gemma3) in the compact, unsegmented single pass, the serving
+# prefill's (its other modes are ROADMAP.md queue 2, item 2).
 KERNEL_BLOCKS = ((64, 64),)
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
+ALL_MODES_HEAD_DIMS = (64, 128)
 
 
 def _tiles(n: int, block: int) -> int:
@@ -196,10 +201,15 @@ def _launch(q, k, v, spec, block_q, block_kv, segments, kv_splits=None, schedule
         raise ValueError(f"flash_fwd runs on cuda (kernel) or cpu (plain), not {q.device}")
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
-    _check_kernel_inputs("the CUDA forward", (block_q, block_kv), q=q, k=k, v=v)
-    t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
     split = kv_splits is not None
     dense = schedule == "dense"
+    modes = [m for m, on in (("segment", segments is not None), ("split-KV", split),
+                             ("dense", dense)) if on]
+    if modes and D not in ALL_MODES_HEAD_DIMS:
+        raise ValueError(f"the CUDA forward's {' and '.join(modes)} mode takes head_dim in "
+                         f"{ALL_MODES_HEAD_DIMS}, got {D} (ROADMAP.md queue 2, item 2)")
+    _check_kernel_inputs("the CUDA forward", (block_q, block_kv), q=q, k=k, v=v)
+    t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
     if split and dense:
         raise ValueError("the dense schedule has no split-KV kernel")
     ks = split_count(Skv, block_kv, kv_splits) if split else 1

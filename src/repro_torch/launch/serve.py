@@ -13,11 +13,12 @@ per request; ``--engine paged`` serves from a shared page pool and decodes
 through a block table (attention-only archs).
 
 ``--device cuda`` (the default) needs a card and raises without one. The
-CUDA kernels take bfloat16 at head_dim 64 and 128 (the paged decode at
-128), so on the card serve a full-width config (``--reduce`` shrinks to
-float32 at head_dim 16, which the plain CPU path serves); a model they
-cannot take is refused before anything reaches the card
-(``core.attention.check_card_support``).
+CUDA kernels serve bfloat16 at head_dim 64, 128 and 256 (the paged decode
+at 128 and 256), so on the card serve a full-width config, e.g.
+``--arch gemma3-1b [--engine paged]`` (``--reduce`` shrinks to float32 at
+head_dim 16, which the plain CPU path serves); a model they cannot take
+(stablelm-12b's head_dim 160; whisper's 64 on the paged engine) is refused
+before anything reaches the card (``core.attention.check_card_support``).
 """
 
 from __future__ import annotations

@@ -1,14 +1,16 @@
 """What the entry points refuse before anything reaches the card, and the
 train CLI's ``--dtype``.
 
-The CUDA kernels take bfloat16 at head_dim 64 and 128 (the paged decode at
-128). ``core.attention.check_card_support`` refuses ``flash_cuda`` on a
-CUDA device for anything else, and the train and serve CLIs call it before
-they build a model: on this machine, which has no card, the CLIs must
-therefore fail with that refusal (a ValueError naming the way out), never
-with the missing card (``resolve_device``'s RuntimeError) or a TypeError
-from inside a kernel wrapper. The check takes a device name, so it runs
-here as it would on a card."""
+The CUDA kernels take bfloat16 at head_dim 64 and 128, and serve (forward,
+decode, paged decode) at 256; the paged decode has no 64.
+``core.attention.check_card_support`` refuses ``flash_cuda`` on a CUDA
+device for anything else, and the train and serve CLIs call it before they
+build a model: on this machine, which has no card, the CLIs must therefore
+fail with that refusal (a ValueError naming the way out), never with the
+missing card (``resolve_device``'s RuntimeError) or a TypeError from inside
+a kernel wrapper; what the kernels take gets past the check and stops at
+the missing card. The check takes a device name, so it runs here as it
+would on a card."""
 
 import json
 import os
@@ -18,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.configs import registry
 from repro_torch.core.attention import AttentionConfig, check_card_support
@@ -45,15 +48,28 @@ def test_float32_is_refused_on_the_card_with_the_way_out():
     check_card_support(cfg, REF, "cuda", training=True)
 
 
-@pytest.mark.parametrize("arch,head_dim", [("gemma3-1b", 256), ("stablelm-12b", 160)])
-@pytest.mark.parametrize("training", [True, False])
-def test_head_dims_the_kernels_lack_are_refused_on_the_card(arch, head_dim, training):
+# gemma3-1b's head_dim 256 has no backward kernels yet; stablelm-12b's 160
+# has no kernel at all (forward, decode, paged decode, backward).
+@pytest.mark.parametrize("arch,head_dim,training,paged", [
+    ("gemma3-1b", 256, True, False),
+    ("stablelm-12b", 160, True, False),
+    ("stablelm-12b", 160, False, False),
+    ("stablelm-12b", 160, False, True),
+])
+def test_head_dims_the_kernels_lack_are_refused_on_the_card(arch, head_dim, training, paged):
     cfg = registry.get(arch)
     assert cfg.head_dim == head_dim and cfg.dtype == "bfloat16"
-    with pytest.raises(ValueError, match="queue 2, item 2"):
-        check_card_support(cfg, FLASH, "cuda", training=training)
-    check_card_support(cfg, FLASH, "cpu", training=training)
-    check_card_support(cfg, REF, "cuda", training=training)
+    with pytest.raises(ValueError, match=f"head_dim {head_dim}.*queue 2, item 2"):
+        check_card_support(cfg, FLASH, "cuda", training=training, paged=paged)
+    check_card_support(cfg, FLASH, "cpu", training=training, paged=paged)
+    check_card_support(cfg, REF, "cuda", training=training, paged=paged)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_gemma3_at_head_dim_256_serves_on_the_card(paged):
+    cfg = registry.get("gemma3-1b")
+    assert cfg.head_dim == 256 and cfg.dtype == "bfloat16"
+    check_card_support(cfg, FLASH, "cuda", training=False, paged=paged)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "whisper-base"])
@@ -84,6 +100,16 @@ def test_serve_cli_refuses_before_building_the_model():
         serve.main(["--arch", "stablelm-12b"])
     with pytest.raises(ValueError, match="bfloat16"):
         serve.main(["--arch", "qwen3-8b", "--reduce"])
+
+
+@pytest.mark.parametrize("engine", ["fixed", "paged"])
+def test_serve_cli_takes_gemma3_to_the_card(engine):
+    """gemma3-1b on the default device through flash_cuda passes the check
+    and stops only at the missing card, before any weight is made."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CLI would serve on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "gemma3-1b", "--engine", engine])
 
 
 @pytest.mark.parametrize("dtype", [None, "bfloat16"])

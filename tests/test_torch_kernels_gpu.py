@@ -25,7 +25,7 @@ from repro_torch.kernels import flash_fwd as fwd_mod
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models.lm import init_lm
-from repro_torch.serving.engine import PagedServingEngine, Request
+from repro_torch.serving.engine import PagedServingEngine, Request, ServingEngine
 from repro_torch.training.optimizer import AdamWConfig, init_opt_state
 
 # bf16 outputs (one bf16 ulp near |o| ~ 1 is 0.008); f32 lse.
@@ -75,17 +75,18 @@ FWD_CASES = [
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [128, 256])
 @pytest.mark.parametrize("B,S,Hkv,spec,view", FWD_CASES)
-def test_forward_kernel_matches_plain(cuda, B, S, Hkv, spec, view):
+def test_forward_kernel_matches_plain(cuda, B, S, Hkv, spec, view, D):
     """The forward against its plain version; ``_err`` also asserts that the
     kernel's outputs are finite exactly where the plain version's are."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    q = ops._prep(_randn(gen, (B, S, 32, 128), cuda), 1 / math.sqrt(128))
-    k, v = _randn(gen, (B, S, Hkv, 128), cuda), _randn(gen, (B, S, Hkv, 128), cuda)
+    q = ops._prep(_randn(gen, (B, S, 32, D), cuda), 1 / math.sqrt(D))
+    k, v = _randn(gen, (B, S, Hkv, D), cuda), _randn(gen, (B, S, Hkv, D), cuda)
     if view == "strided":
-        wide = torch.zeros((B, S, 64, 128), dtype=q.dtype, device=cuda)
+        wide = torch.zeros((B, S, 64, D), dtype=q.dtype, device=cuda)
         wide[:, :, 32:] = q
-        kv = torch.stack((k, v), dim=2)  # (B, S, 2, Hkv, 128)
+        kv = torch.stack((k, v), dim=2)  # (B, S, 2, Hkv, D)
         q, k, v = wide[:, :, 32:], kv[:, :, 0], kv[:, :, 1]
         assert not any(x.is_contiguous() for x in (q, k, v))
     spec = MaskSpec(**spec)
@@ -122,7 +123,7 @@ DECODE_CASES = [
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [128, 64])
+@pytest.mark.parametrize("D", [128, 64, 256])
 @pytest.mark.parametrize("G", [1, 4, 8])
 @pytest.mark.parametrize("S,lengths,window,sink,splits,stale", DECODE_CASES)
 def test_decode_kernel_matches_plain(cuda, S, lengths, window, sink, splits, stale, G, D):
@@ -161,6 +162,19 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     qb = q.to(torch.bfloat16)
     with pytest.raises(ValueError, match="block_q"):
         fwd_mod.flash_fwd(qb, qb, qb, MaskSpec(causal=True), block_q=32, block_kv=64)
+    # At head_dim 256 only the compact, unsegmented single pass is built.
+    q256 = torch.zeros((1, 256, 4, 256), dtype=torch.bfloat16, device=cuda)
+    ids = torch.zeros((1, 256), dtype=torch.int32, device=cuda)
+    spec = MaskSpec(causal=True)
+    for mode, call in (
+            ("segment", lambda: fwd_mod.flash_fwd_varlen(q256, q256, q256, spec, ids, ids,
+                                                         block_q=64, block_kv=64)),
+            ("split-KV", lambda: fwd_mod.flash_fwd_splitkv(q256, q256, q256, spec, block_q=64,
+                                                           block_kv=64, kv_splits=2)),
+            ("dense", lambda: fwd_mod.flash_fwd(q256, q256, q256, spec, block_q=64,
+                                                block_kv=64, schedule="dense"))):
+        with pytest.raises(ValueError, match=f"{mode} mode .* queue 2, item 2"):
+            call()
 
 
 def _rel_err(a, b):
@@ -492,16 +506,18 @@ PAGED_CASES = [
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [128, 256])
 @pytest.mark.parametrize("ps,G,window,sink,S,stale", PAGED_CASES)
-def test_paged_decode_kernel_matches_plain(cuda, ps, G, window, sink, S, stale):
+def test_paged_decode_kernel_matches_plain(cuda, ps, G, window, sink, S, stale, D):
     """The paged kernel against its plain version (ragged lengths with 0 and
     an odd-page length); bitwise the same partials under a second shuffle
     of the physical pages; (0, -inf) partials for the length-0 row; with
-    ``stale``, the same partials with NaN in the rows no length reaches."""
+    ``stale``, the same partials with NaN in the rows no length reaches.
+    At D 256 a page of more than 32 rows goes as pieces of 32."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     B, Hkv = 4, 8
-    q = _randn(gen, (B * Hkv, G, 128), cuda)
-    kc, vc = _randn(gen, (B, S, Hkv, 128), cuda), _randn(gen, (B, S, Hkv, 128), cuda)
+    q = _randn(gen, (B * Hkv, G, D), cuda)
+    kc, vc = _randn(gen, (B, S, Hkv, D), cuda), _randn(gen, (B, S, Hkv, D), cuda)
     lens = torch.tensor([0, 1, 333, S], dtype=torch.int32, device=cuda)
     if stale:
         past = torch.arange(S, device=cuda)[None] >= lens[:, None]  # (B, S)
@@ -536,6 +552,39 @@ def test_paged_decode_kernel_matches_plain(cuda, ps, G, window, sink, S, stale):
                                               window=window, sink=sink)
         torch.cuda.synchronize()
         assert torch.equal(o2, o3) and torch.equal(lse2, lse3)
+
+
+# (S, lengths, window, sink, G, Hkv): gemma3's decode (one kv head, G 4,
+# window 512) and qwen3's; pages of 16 cut the cache where the contiguous
+# kernel's 16-row units do.
+PAGED_AS_CONTIGUOUS_CASES = [
+    (2048, [1, 0, 777, 2048], None, 0, 4, 1),
+    (2048, [15, 108, 708, 1508], 512, 0, 4, 1),
+    (2048, [2048, 5, 1500, 64], 300, 4, 4, 8),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("S,lengths,window,sink,G,Hkv", PAGED_AS_CONTIGUOUS_CASES)
+def test_paged_decode_at_page_size_16_is_bitwise_the_contiguous_kernel(
+        cuda, S, lengths, window, sink, G, Hkv, D):
+    """Both decodes share their unit math, dealing and merge: through
+    shuffled pages of 16 the paged partials are the contiguous kernel's to
+    the bit."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    B, ps = len(lengths), 16
+    q = _randn(gen, (B * Hkv, G, D), cuda)
+    kc, vc = _randn(gen, (B, S, Hkv, D), cuda), _randn(gen, (B, S, Hkv, D), cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    perm = torch.randperm(B * (S // ps), generator=torch.Generator().manual_seed(0)) + 1
+    table = perm.reshape(B, S // ps).to(device=cuda, dtype=torch.int32)
+    kw = dict(num_splits=8, window=window, sink=sink)
+    o_c, lse_c = dec_mod.flash_decode(q, kc, vc, lens, **kw)
+    o_p, lse_p = dec_mod.flash_decode_paged(q, _planes(kc, table, ps), _planes(vc, table, ps),
+                                            lens, table, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o_c, o_p) and torch.equal(lse_c, lse_p)
 
 
 @pytest.mark.gpu
@@ -592,6 +641,48 @@ def test_paged_engine_runs_through_the_kernels(cuda):
     assert engine.preemptions == 1 and engine.pool.used_pages == 0
     fwd_n, dec_n, paged_n = (f.launches for f in kernels)
     assert fwd_n > 0 and paged_n == engine.ticks * cfg.num_layers and dec_n == 0
+    assert [f.calls for f in plains] == [0, 0, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_gemma3_engines_run_through_the_head_dim_256_kernels(cuda, paged):
+    """One layer pattern (5 windowed layers, 1 global) of full-width
+    gemma3-1b (head_dim 256, one kv head for four q heads) through both
+    engines on flash_cuda: every request finishes with max_new + 1 tokens,
+    every prefill goes through the forward kernel and every decode through
+    the decode kernel of the engine, at head_dim 256; no plain version
+    runs."""
+    cfg = dataclasses.replace(registry.get("gemma3-1b"), num_layers=6)
+    assert cfg.head_dim == 256 and cfg.window == 512
+    model = init_lm(cfg, seed=0, device=cuda)
+    attn = AttentionConfig(impl="flash_cuda")
+    if paged:
+        engine = PagedServingEngine(cfg, model, attn, max_batch=4, num_pages=150, page_size=16,
+                                    pages_per_seq_max=128)
+    else:
+        engine = ServingEngine(cfg, model, attn, max_batch=4, cache_size=2048)
+    gen = torch.Generator().manual_seed(0)
+    for rid, n in enumerate((7, 100, 700, 1500, 33, 260)):
+        prompt = torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=16))
+    kernels = (fwd_mod.flash_fwd, dec_mod.flash_decode, dec_mod.flash_decode_paged)
+    plains = (fwd_mod.flash_fwd_plain, dec_mod.flash_decode_plain,
+              dec_mod.flash_decode_paged_plain)
+    for f in kernels:
+        f.launches = 0
+    for f in plains:
+        f.calls = 0
+    with torch.no_grad():
+        finished = engine.run(max_ticks=200)
+    torch.cuda.synchronize()
+    assert sorted(finished) == list(range(6))
+    for req in finished.values():
+        assert len(req.generated) == 17
+        assert all(0 <= t < cfg.vocab_size for t in req.generated)
+    fwd_n, dec_n, paged_n = (f.launches for f in kernels)
+    assert fwd_n > 0 and (paged_n if paged else dec_n) == engine.ticks * cfg.num_layers
+    assert (dec_n if paged else paged_n) == 0
     assert [f.calls for f in plains] == [0, 0, 0]
 
 

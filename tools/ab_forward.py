@@ -54,11 +54,6 @@ _PV_WAIT = """      wgmma_wait<0>();  // the pending O += P V is done: its stage
       for (int kk = 0; kk < 4; ++kk) fence_regs(pc[kk]);
       if (!first) mbar_arrive(&empty[pend]);
 """
-_Q_FRAGMENTS = """    uint32_t qf[D / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {"""
-_S_RS = ("        wgmma_rs_n64<0>(s, qf[kk], sw128_desc(cK + (kk >> 2) * 8192 + (kk & 3) * 32, 16),"
-         " kk > 0);")
 _IDS_MASKED = """          if (SEG && (flags & (kMask0 | kMask1))) {
             for (int r = lane; r < kBlockN; r += 32) {
               const bool in = k0 + r < p.Skv;
@@ -119,12 +114,11 @@ VARIANTS = {
          ("      rec.x = __shfl_sync(0xffffffffu, rec.x, 0);\n"
           "      rec.y = __shfl_sync(0xffffffffu, rec.y, 0);\n", "")]),
     "q_in_smem": (
-        "reads Q for S = Q K^T from its shared-memory tile (wgmma SS) instead of registers",
-        [(_Q_FRAGMENTS, "    uint32_t qf[1][4];\n#pragma unroll\n    for (int kk = 0; kk < 0; ++kk) {"),
-         (_S_RS, "        wgmma_ss_n64<0, 0>(s, sw128_desc(sQ + (kk >> 2) * 8192 + (kk & 3) * 32,"
-                 " 16), sw128_desc(cK + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);")]),
-    "stages3": ("a 3-stage K/V ring instead of 4",
-                [("constexpr int kStages = 4;", "constexpr int kStages = 3;")]),
+        "reads Q for S = Q K^T from its shared-memory tile (wgmma SS) instead of registers, "
+        "as the head_dim-256 instantiation does",
+        [("  constexpr bool QSS = D == 256;", "  constexpr bool QSS = true;")]),
+    "stages3": ("a 3-stage K/V ring instead of 4 (at head_dim 64 and 128)",
+                [("  return D == 256 ? 2 : 4;", "  return D == 256 ? 2 : 3;")]),
     "ids_every_step": (
         "SEG: the producer's lanes load the kv tile's ids at every step (plain loads on its "
         "path), instead of a cp.async copy only when a tile needs the element mask",
