@@ -141,6 +141,21 @@ prefill and a B = 4 decode step against the dense reference and the step
 through shuffled pages bitwise against the contiguous cache, times and
 profiles both engines' ticks, and serves through the serve CLI once per
 engine.
+Phase 3 also holds the four backward kernels at head_dim 256 (gemma3-1b's
+training: B 4, S 2048, 4 q heads over 1 kv head, causal and window 512;
+the window at S 700, a ragged S, rows that see no key) against their plain
+versions, split dK/dV bitwise the fused kernel's and dQ bitwise over two
+launches, and times them at the training shape beside their bounds, the
+fused and the whole split backward in turns with SDPA's backward. Last, the
+gemma3 training slice: gemma3-1b at its published widths and depth (26
+layers, bf16, seed 0) trains 8 AdamW steps at B 4, S 2048 through the train
+CLI's ``train`` with the fused and the split backward and once through
+impl="ref"; launch counts exact (per step the forward twice in the 24
+layers of the remat groups and once in the 2 tail layers, per layer delta
+once, fused or dK/dV and dQ once, all at head_dim 256), the loss must
+fall and follow the reference's; tokens/s, MFU, peak memory, the profiled
+step's busy share and attention time; the split backward bitwise
+reproducible at the training shape.
 The last two lines are the kernels' JSON record and the result line.
 """
 
@@ -1989,7 +2004,119 @@ HD64_SHAPES = {
     "decoder": (8, 448, 448, 8, True),
     "gpt20m": (8, 512, 512, 4, True),
 }
-HD64_NAMES = ("flash_bwd_delta", "flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq")
+BWD_NAMES = ("flash_bwd_delta", "flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def bwd_kernels_at(torch, randn, D, B, Sq, Skv, Hq, Hkv, spec, pairs, what, flush, *,
+                   timed=True, sdpa_kw=None, extra=None):
+    """The four backward kernels at head_dim D on one shape (``randn`` makes
+    q, k, v, dO in that order) against their plain versions, with the
+    bitwise invariants (split dK/dV the fused kernel's, dQ over two
+    launches); ``extra(args, fused, dk, dv, dq)`` runs more checks on the
+    same inputs. With ``timed``, each is then timed after an L2 flush beside
+    its bound (``pairs``: the (q, k) pairs the mask needs, over the batch):
+    the fused and the whole split backward in turns with SDPA's backward
+    (fused, split, sdpa, sdpa fwd, sdpa fwd, sdpa, split, fused;
+    ``sdpa_kw``: ``sdpa_calls``'s mask), delta, dK/dV and dQ alone, the
+    plain versions. Returns ({name: max |err|}, {name: times} or None)."""
+    from repro_torch.kernels import flash_bwd as bwd
+    from repro_torch.kernels import flash_fwd as fwd
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.schedule import build_kv_tile_schedule
+
+    tiles = dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
+    q = ops._prep(randn(B, Sq, Hq, D), 1 / math.sqrt(D))
+    k, v, do = randn(B, Skv, Hkv, D), randn(B, Skv, Hkv, D), randn(B, Sq, Hq, D)
+    o, lse = fwd.flash_fwd(q, k, v, spec, **tiles)
+    delta = bwd.flash_bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, spec)
+    fused = bwd.flash_bwd_fused(*args, **tiles)
+    dq_f2 = bwd.flash_bwd_fused(*args, **tiles)[0]
+    dk, dv = bwd.flash_bwd_dkv(*args, **tiles)
+    dq, dq2 = (bwd.flash_bwd_dq(*args, **tiles) for _ in range(2))
+    torch.cuda.synchronize()
+    got = {"flash_bwd_delta": (delta,), "flash_bwd_fused": fused,
+           "flash_bwd_dkv": (dk, dv), "flash_bwd_dq": (dq,)}
+    want = {"flash_bwd_delta": (bwd.flash_bwd_delta_plain(o, do),),
+            "flash_bwd_fused": bwd.flash_bwd_fused_plain(*args, **tiles),
+            "flash_bwd_dkv": bwd.flash_bwd_dkv_plain(*args, **tiles),
+            "flash_bwd_dq": (bwd.flash_bwd_dq_plain(*args, **tiles),)}
+    errs, rel = {}, {}
+    for name in BWD_NAMES:
+        for a in got[name]:
+            if not torch.isfinite(a).all():
+                fail(f"{name} (head_dim {D}) gave a non-finite output at {what}")
+        errs[name] = max(max_err(torch, a, b) for a, b in zip(got[name], want[name]))
+        rel[name] = max(max_err(torch, a, b) / max(b.abs().max().item(), 1e-6)
+                        for a, b in zip(got[name], want[name]))
+    bitwise = (torch.equal(dk, fused[1]) and torch.equal(dv, fused[2]), torch.equal(dq, dq2))
+    log(f"backward at head_dim {D}, {what}: max|delta-plain|="
+        f"{errs['flash_bwd_delta']:.3e} (tol {DELTA_TOL}); worst relative error fused "
+        f"{rel['flash_bwd_fused']:.3e}, dK/dV {rel['flash_bwd_dkv']:.3e}, dQ "
+        f"{rel['flash_bwd_dq']:.3e} (tol {GRAD_REL_TOL}); split dk, dv bitwise the fused "
+        f"kernel's: {bitwise[0]}; dq of two split launches bitwise equal: {bitwise[1]}; fused dq "
+        f"elements that differ between two launches: {int((fused[0] != dq_f2).sum())} of "
+        f"{dq.numel()}")
+    if not errs["flash_bwd_delta"] <= DELTA_TOL:
+        fail(f"flash_bwd_delta (head_dim {D}) disagrees with its plain version at {what}")
+    if not max(rel[n] for n in BWD_NAMES[1:]) <= GRAD_REL_TOL:
+        fail(f"a backward kernel (head_dim {D}) disagrees with its plain version at {what}")
+    if not all(bitwise):
+        fail(f"a bitwise invariant of the split backward fails at head_dim {D}, {what}")
+    if extra is not None:
+        extra(args, fused, dk, dv, dq)
+    if not timed:
+        return errs, None
+
+    bounds = attention_bounds(pairs, B, Sq, Skv=Skv, Hq=Hq, Hkv=Hkv, D=D)
+    bounds["flash_bwd_delta"] = bound(2 * B * Sq * Hq * D, 2 * B * Sq * Hq * D * 2 + B * Hq * Sq * 4)
+    sdpa_fwd, sdpa_fwd_bwd = sdpa_calls(torch, q, k, v, do, **(sdpa_kw or {}))
+
+    def split_total():
+        d = bwd.flash_bwd_delta(o, do)
+        bwd.flash_bwd_dkv(q, k, v, do, lse, d, spec, **tiles)
+        bwd.flash_bwd_dq(q, k, v, do, lse, d, spec, **tiles)
+
+    calls = {"fused": lambda: bwd.flash_bwd_fused(*args, **tiles), "split": split_total,
+             "sdpa": sdpa_fwd_bwd, "sdpa_fwd": sdpa_fwd}
+    turns = {name: [] for name in calls}
+    for name in ("fused", "split", "sdpa", "sdpa_fwd", "sdpa_fwd", "sdpa", "split", "fused"):
+        turns[name].append(time_ms(torch, calls[name], 20, flush))
+    fused_ms, split_ms, fb_ms, f_ms = (sum(turns[n]) / 2
+                                       for n in ("fused", "split", "sdpa", "sdpa_fwd"))
+    lib_bwd_ms = fb_ms - f_ms
+    ms = {"flash_bwd_fused": fused_ms,
+          "flash_bwd_delta": time_ms(torch, lambda: bwd.flash_bwd_delta(o, do), 20, flush),
+          "flash_bwd_dkv": time_ms(torch, lambda: bwd.flash_bwd_dkv(*args, **tiles), 20, flush),
+          "flash_bwd_dq": time_ms(torch, lambda: bwd.flash_bwd_dq(*args, **tiles), 20, flush)}
+    plains = {"flash_bwd_delta": lambda: bwd.flash_bwd_delta_plain(o, do),
+              "flash_bwd_fused": lambda: bwd.flash_bwd_fused_plain(*args, **tiles),
+              "flash_bwd_dkv": lambda: bwd.flash_bwd_dkv_plain(*args, **tiles),
+              "flash_bwd_dq": lambda: bwd.flash_bwd_dq_plain(*args, **tiles)}
+    t_q, t_kv = -(-Sq // tiles["block_q"]), -(-Skv // tiles["block_kv"])
+    n_vis = int(build_kv_tile_schedule(spec, t_q, t_kv, tiles["block_q"], tiles["block_kv"],
+                                       Skv).row_ptr[-1])
+    log(f"  times at {what} (after an L2 flush): in turns (fused, split, sdpa, sdpa fwd, "
+        f"sdpa fwd, sdpa, split, fused) fused {turns['fused']} ms, split (delta + dkv + dq) "
+        f"{turns['split']} ms, sdpa fwd+bwd {turns['sdpa']} ms, sdpa fwd {turns['sdpa_fwd']} "
+        f"ms; fused / sdpa backward {fused_ms / lib_bwd_ms:.4f}, split / sdpa backward "
+        f"{split_ms / lib_bwd_ms:.4f}; {n_vis} visible 64 x 64 tiles a head")
+    rows = {}
+    for name in BWD_NAMES:
+        plain_ms = time_ms(torch, plains[name], 2, flush)
+        b_ms, b_by = bounds[name]
+        lib = lib_bwd_ms if name == "flash_bwd_fused" else None
+        rows[name] = dict(ms=ms[name], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=lib)
+        if name == "flash_bwd_fused":
+            rows[name].update(sdpa_ratio_in_turns=fused_ms / lib_bwd_ms)
+        if name == "flash_bwd_dq":
+            rows[name].update(split_total_ms_in_turns=split_ms,
+                              split_backward_sdpa_ratio_in_turns=split_ms / lib_bwd_ms)
+        log(f"  {name} (head_dim {D}): kernel {ms[name]:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), {ms[name] / b_ms:.2f}x the bound; library "
+            + ("none" if lib is None else f"sdpa backward {lib:.4f} ms"))
+    return errs, rows
 
 
 def bwd_hd64_kernel_phase(torch, dev, flush):
@@ -1997,129 +2124,34 @@ def bwd_hd64_kernel_phase(torch, dev, flush):
     at every HD64_SHAPES shape (the SEG and DENSE forms of fused, dK/dV and
     dQ at the decoder's), with the bitwise invariants (split dK/dV the fused
     kernel's, dQ over two launches, dense the compact kernels', all-ones ids
-    the unsegmented kernels'); then each shape's times after an L2 flush:
-    the fused and the whole split backward in turns with SDPA's backward
-    (fused, split, sdpa, sdpa fwd, sdpa fwd, sdpa, split, fused), delta,
-    dK/dV and dQ alone, the plain versions, and the bounds. The encoder's
-    shape gives each kernel's top-level numbers; every shape's are under
-    ``at_shapes``."""
+    the unsegmented kernels'), each shape timed (``bwd_kernels_at``). The
+    encoder's shape gives each kernel's top-level numbers; every shape's are
+    under ``at_shapes``."""
     from repro_torch.core.masks import MaskSpec
-    from repro_torch.kernels import flash_bwd as bwd
-    from repro_torch.kernels import flash_fwd as fwd
     from repro_torch.kernels import ops
-    from repro_torch.kernels.schedule import build_kv_tile_schedule
 
     gen = torch.Generator(device=dev).manual_seed(7)
-    D = 64
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     tiles = dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
-    errs = {name: 0.0 for name in HD64_NAMES}
-    at = {name: {} for name in HD64_NAMES}
+    errs = {name: 0.0 for name in BWD_NAMES}
+    at = {name: {} for name in BWD_NAMES}
     for shape, (B, Sq, Skv, H, causal) in HD64_SHAPES.items():
-        spec = MaskSpec(causal=causal)
-        what = f"{shape} B={B} Sq={Sq} Skv={Skv} H={H} D={D} {'causal' if causal else 'FULL'}"
-        q = ops._prep(randn(B, Sq, H, D), 1 / math.sqrt(D))
-        k, v, do = randn(B, Skv, H, D), randn(B, Skv, H, D), randn(B, Sq, H, D)
-        o, lse = fwd.flash_fwd(q, k, v, spec, **tiles)
-        delta = bwd.flash_bwd_delta(o, do)
-        args = (q, k, v, do, lse, delta, spec)
-        fused = bwd.flash_bwd_fused(*args, **tiles)
-        dq_f2 = bwd.flash_bwd_fused(*args, **tiles)[0]
-        dk, dv = bwd.flash_bwd_dkv(*args, **tiles)
-        dq, dq2 = (bwd.flash_bwd_dq(*args, **tiles) for _ in range(2))
-        torch.cuda.synchronize()
-        plain = bwd.flash_bwd_fused_plain(*args, **tiles)
-        got = {"flash_bwd_delta": (delta,), "flash_bwd_fused": fused,
-               "flash_bwd_dkv": (dk, dv), "flash_bwd_dq": (dq,)}
-        want = {"flash_bwd_delta": (bwd.flash_bwd_delta_plain(o, do),),
-                "flash_bwd_fused": plain,
-                "flash_bwd_dkv": bwd.flash_bwd_dkv_plain(*args, **tiles),
-                "flash_bwd_dq": (bwd.flash_bwd_dq_plain(*args, **tiles),)}
-        rel = {}
-        for name in HD64_NAMES:
-            for a in got[name]:
-                if not torch.isfinite(a).all():
-                    fail(f"{name} (head_dim 64) gave a non-finite output at {what}")
-            e = max(max_err(torch, a, b) for a, b in zip(got[name], want[name]))
-            errs[name] = max(errs[name], e)
-            rel[name] = max(max_err(torch, a, b) / max(b.abs().max().item(), 1e-6)
-                            for a, b in zip(got[name], want[name]))
-        bitwise = (torch.equal(dk, fused[1]) and torch.equal(dv, fused[2]), torch.equal(dq, dq2))
-        log(f"backward at head_dim 64, {what}: max|delta-plain|="
-            f"{max_err(torch, delta, want['flash_bwd_delta'][0]):.3e} "
-            f"(tol {DELTA_TOL}); worst relative error fused {rel['flash_bwd_fused']:.3e}, dK/dV "
-            f"{rel['flash_bwd_dkv']:.3e}, dQ {rel['flash_bwd_dq']:.3e} (tol {GRAD_REL_TOL}); split "
-            f"dk, dv bitwise the fused kernel's: {bitwise[0]}; dq of two split launches bitwise "
-            f"equal: {bitwise[1]}; fused dq elements that differ between two launches: "
-            f"{int((fused[0] != dq_f2).sum())} of {dq.numel()}")
-        if not max_err(torch, delta, want["flash_bwd_delta"][0]) <= DELTA_TOL:
-            fail(f"flash_bwd_delta (head_dim 64) disagrees with its plain version at {what}")
-        if not max(rel[n] for n in HD64_NAMES[1:]) <= GRAD_REL_TOL:
-            fail(f"a backward kernel (head_dim 64) disagrees with its plain version at {what}")
-        if not all(bitwise):
-            fail(f"a bitwise invariant of the split backward fails at head_dim 64, {what}")
-        if shape == "decoder":
-            seg_dense_checks(torch, dev, args, fused, dk, dv, dq, tiles, what)
-
-        # Times after an L2 flush; bounds by the causal or FULL pairs.
+        what = f"{shape} B={B} Sq={Sq} Skv={Skv} H={H} D=64 {'causal' if causal else 'FULL'}"
         pairs = B * (Sq * (Sq + 1) // 2 if causal else Sq * Skv)
-        bounds = attention_bounds(pairs, B, Sq, Skv=Skv, Hq=H, Hkv=H, D=D)
-        bounds["flash_bwd_delta"] = bound(2 * B * Sq * H * D, 2 * B * Sq * H * D * 2 + B * H * Sq * 4)
-        sdpa_fwd, sdpa_fwd_bwd = sdpa_calls(torch, q, k, v, do, causal=causal)
-
-        def split_total():
-            d = bwd.flash_bwd_delta(o, do)
-            bwd.flash_bwd_dkv(q, k, v, do, lse, d, spec, **tiles)
-            bwd.flash_bwd_dq(q, k, v, do, lse, d, spec, **tiles)
-
-        calls = {"fused": lambda: bwd.flash_bwd_fused(*args, **tiles), "split": split_total,
-                 "sdpa": sdpa_fwd_bwd, "sdpa_fwd": sdpa_fwd}
-        turns = {name: [] for name in calls}
-        for name in ("fused", "split", "sdpa", "sdpa_fwd", "sdpa_fwd", "sdpa", "split", "fused"):
-            turns[name].append(time_ms(torch, calls[name], 20, flush))
-        fused_ms, split_ms, fb_ms, f_ms = (sum(turns[n]) / 2
-                                           for n in ("fused", "split", "sdpa", "sdpa_fwd"))
-        lib_bwd_ms = fb_ms - f_ms
-        ms = {"flash_bwd_fused": fused_ms,
-              "flash_bwd_delta": time_ms(torch, lambda: bwd.flash_bwd_delta(o, do), 20, flush),
-              "flash_bwd_dkv": time_ms(torch, lambda: bwd.flash_bwd_dkv(*args, **tiles), 20,
-                                       flush),
-              "flash_bwd_dq": time_ms(torch, lambda: bwd.flash_bwd_dq(*args, **tiles), 20, flush)}
-        plains = {"flash_bwd_delta": lambda: bwd.flash_bwd_delta_plain(o, do),
-                  "flash_bwd_fused": lambda: bwd.flash_bwd_fused_plain(*args, **tiles),
-                  "flash_bwd_dkv": lambda: bwd.flash_bwd_dkv_plain(*args, **tiles),
-                  "flash_bwd_dq": lambda: bwd.flash_bwd_dq_plain(*args, **tiles)}
-        t_q, t_kv = -(-Sq // tiles["block_q"]), -(-Skv // tiles["block_kv"])
-        n_vis = int(build_kv_tile_schedule(spec, t_q, t_kv, tiles["block_q"], tiles["block_kv"],
-                                           Skv).row_ptr[-1])
-        log(f"  times at {what} (after an L2 flush): in turns (fused, split, sdpa, sdpa fwd, "
-            f"sdpa fwd, sdpa, split, fused) fused {turns['fused']} ms, split (delta + dkv + dq) "
-            f"{turns['split']} ms, sdpa fwd+bwd {turns['sdpa']} ms, sdpa fwd {turns['sdpa_fwd']} "
-            f"ms; fused / sdpa backward {fused_ms / lib_bwd_ms:.4f}, split / sdpa backward "
-            f"{split_ms / lib_bwd_ms:.4f}; {n_vis} visible 64 x 64 tiles a head")
-        for name in HD64_NAMES:
-            plain_ms = time_ms(torch, plains[name], 2, flush)
-            b_ms, b_by = bounds[name]
-            lib = lib_bwd_ms if name == "flash_bwd_fused" else None
-            at[name][shape] = dict(ms=ms[name], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                   library_ms=lib)
-            if name == "flash_bwd_fused":
-                at[name][shape].update(sdpa_ratio_in_turns=fused_ms / lib_bwd_ms)
-            if name == "flash_bwd_dq":
-                at[name][shape].update(split_total_ms_in_turns=split_ms,
-                                       split_backward_sdpa_ratio_in_turns=split_ms / lib_bwd_ms)
-            log(f"  {name} (head_dim 64) {shape}: kernel {ms[name]:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {ms[name] / b_ms:.2f}x the "
-                f"bound; library " + ("none" if lib is None else f"sdpa backward {lib:.4f} ms"))
-        del q, k, v, do, o, lse, delta, args, fused, plain, got, want
-    out = {}
-    for name in HD64_NAMES:
-        top = at[name]["encoder"]
-        out[f"{name}_hd64"] = dict(max_abs_err=errs[name], **top, at_shapes=at[name])
-    return out
+        extra = None
+        if shape == "decoder":
+            def extra(args, fused, dk, dv, dq, what=what):
+                seg_dense_checks(torch, dev, args, fused, dk, dv, dq, tiles, what)
+        e, rows = bwd_kernels_at(torch, randn, 64, B, Sq, Skv, H, H, MaskSpec(causal=causal),
+                                 pairs, what, flush, sdpa_kw=dict(causal=causal), extra=extra)
+        for name in BWD_NAMES:
+            errs[name] = max(errs[name], e[name])
+            at[name][shape] = rows[name]
+    return {f"{name}_hd64": dict(max_abs_err=errs[name], **at[name]["encoder"],
+                                 at_shapes=at[name]) for name in BWD_NAMES}
 
 
 def seg_dense_checks(torch, dev, args, fused, dk, dv, dq, tiles, what):
@@ -2183,8 +2215,9 @@ def seg_dense_checks(torch, dev, args, fused, dk, dv, dq, tiles, what):
 
 class SubCount:
     """One of a wrapper's other launch counts (``dense_launches``: the dense
-    schedule's; ``hd64_launches``: those at head_dim 64), read and zeroed
-    through ``launches`` like the wrappers' own counts."""
+    schedule's; ``hd64_launches``, ``hd256_launches``: those at head_dim 64,
+    256), read and zeroed through ``launches`` like the wrappers' own
+    counts."""
 
     def __init__(self, wrapper, attr: str):
         self.wrapper, self.attr = wrapper, attr
@@ -2200,10 +2233,11 @@ class SubCount:
 
 def with_dense(wrappers) -> dict:
     """{name: counter} of ``wrappers``, ``<name>_dense`` for each that also
-    counts dense-schedule launches, and ``<name>_hd64`` for each that counts
-    its head_dim-64 launches apart (the backward's)."""
+    counts dense-schedule launches, and ``<name>_hd64`` and ``<name>_hd256``
+    for each that counts its head_dim-64 and 256 launches apart (the
+    backward's)."""
     counters = {f.__name__: f for f in wrappers}
-    for suffix in ("dense", "hd64"):
+    for suffix in ("dense", "hd64", "hd256"):
         counters.update({f"{f.__name__}_{suffix}": SubCount(f, f"{suffix}_launches")
                          for f in wrappers if hasattr(f, f"{suffix}_launches")})
     return counters
@@ -2428,23 +2462,25 @@ def read_counts(counters, plains) -> dict:
 
 
 def training_want(counters, plains, n: int, bwds, suffix: str = "", *, remat: bool = True,
-                  hd64: bool = False) -> dict:
+                  hd64: bool = False, hd256: bool = False, forwards=None) -> dict:
     """Exact launch counts of ``n`` attention calls (layer-steps) under each
     backward mode of ``bwds``, through the kernels named with ``suffix``
     (``_varlen``, ``_dense``, both or none): the forward twice (``remat``)
-    or once, delta once, then the fused kernel or dK/dV and dQ once; with
-    ``hd64`` the backward's head_dim-64 counts the same; every other kernel
-    and every plain version 0."""
+    or once (``forwards``, where given: that many forward launches), delta
+    once, then the fused kernel or dK/dV and dQ once; with ``hd64``
+    (``hd256``) the backward's head_dim-64 (256) counts the same; every
+    other kernel and every plain version 0."""
     want = {k: 0 for k in counters}
     for bwd in bwds:
-        want[f"flash_fwd{suffix}"] += (2 if remat else 1) * n
+        want[f"flash_fwd{suffix}"] += (2 if remat else 1) * n if forwards is None else forwards
         names = ["flash_bwd_delta"]
         names += ["flash_bwd_fused" + suffix] if bwd == "fused" else [
             "flash_bwd_dkv" + suffix, "flash_bwd_dq" + suffix]
         for name in names:
             want[name] += n
-            if hd64:
-                want[name + "_hd64"] += n
+            for on, dim in ((hd64, "_hd64"), (hd256, "_hd256")):
+                if on:
+                    want[name + dim] += n
     want["plain"] = [0] * len(plains)
     return want
 
@@ -3279,6 +3315,183 @@ def gemma3_phase(torch, dev):
     return counts, paged_counts, summary
 
 
+
+# gemma3-1b training: the synthetic stream at B 4, S 2048 (the length the
+# port's qwen3 slice trains at; four sequences fill one card's memory with
+# room to spare), 8 AdamW steps, the model uncut.
+G3_TRAIN_B, G3_TRAIN_S, G3_TRAIN_STEPS = 4, 2048, 8
+# The head_dim-256 backward's shapes, (B, S, spec): the training shape with
+# gemma3's global (causal) and local (window 512) layers, an odd number of
+# tiles with the window (one tile a CTA at 256), a ragged S, and rows that
+# see no key (q_offset -100: rows 64-99 inside a tile the kernels visit).
+HD256_BWD_SHAPES = {
+    "causal": (G3_TRAIN_B, G3_TRAIN_S, dict(causal=True)),
+    "window": (G3_TRAIN_B, G3_TRAIN_S, dict(causal=True, window=G3_WINDOW)),
+    "window_700": (1, 700, dict(causal=True, window=G3_WINDOW)),
+    "causal_333": (2, 333, dict(causal=True)),
+    "masked_rows_300": (1, 300, dict(causal=True, q_offset=-100)),
+}
+
+
+def hd256_bwd_kernel_phase(torch, dev, flush):
+    """The four backward kernels at head_dim 256 (gemma3-1b: 4 q heads over
+    1 kv head) against their plain versions at every HD256_BWD_SHAPES
+    shape, with the bitwise invariants (split dK/dV the fused kernel's, dQ
+    over two launches); the training shape (causal and window 512) timed
+    (``bwd_kernels_at``; SDPA with the window as an explicit mask). The
+    causal shape gives each kernel's top-level numbers; the window's are
+    under ``at_shapes``."""
+    from repro_torch.core.masks import MaskSpec
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    errs = {name: 0.0 for name in BWD_NAMES}
+    at = {name: {} for name in BWD_NAMES}
+    for shape, (B, S, spec_kw) in HD256_BWD_SHAPES.items():
+        spec = MaskSpec(**spec_kw)
+        what = f"{shape} B={B} S={S} Hq={G3_HQ} Hkv={G3_HKV} D={G3_D} {spec_kw}"
+        timed = (B, S) == (G3_TRAIN_B, G3_TRAIN_S)
+        sdpa_kw = None
+        if timed and spec.window is not None:
+            ago = torch.arange(S, device=dev)[:, None] - torch.arange(S, device=dev)[None, :]
+            sdpa_kw = dict(mask=((ago >= 0) & (ago < spec.window))[None, None])
+        e, rows = bwd_kernels_at(torch, randn, G3_D, B, S, S, G3_HQ, G3_HKV, spec,
+                                 B * causal_pairs(S, spec.window), what, flush, timed=timed,
+                                 sdpa_kw=sdpa_kw)
+        for name in BWD_NAMES:
+            errs[name] = max(errs[name], e[name])
+            if timed:
+                at[name][shape] = rows[name]
+    return {f"{name}_hd256": dict(max_abs_err=errs[name], **at[name]["causal"],
+                                  at_shapes=at[name]) for name in BWD_NAMES}
+
+
+def gemma3_train_phase(torch, dev):
+    """The gemma3 training slice: gemma3-1b at its published widths and depth
+    (26 layers, d_model 1152, 4 q heads over 1 kv head of 256, a 512-token
+    window on 5 of 6 layers, tied embeddings over a 262,144 vocab, bf16,
+    remat, seed 0) through the train CLI's ``train`` on the synthetic stream
+    (B 4, S 2048, G3_TRAIN_STEPS AdamW steps), with the fused and with the
+    split backward, and once through impl="ref" from the same seed and
+    batches. Each kernel run's launches must be exact (per layer and step:
+    the forward twice in the 24 layers of the remat groups and once in the
+    2 tail layers, delta once, the fused kernel or dK/dV and dQ once, all
+    at head_dim 256; no plain version), its loss must fall, step
+    0's loss must be the reference's within PARITY_LOSS_REL and every
+    step's within GPT_LOSS_REL, and step 0's loss the same through both
+    backward modes (the same forward). One more fused step under
+    torch.profiler gives the device busy share and attention's device time.
+    Then ops.flash_attention(bwd="split") forward and backward twice at the
+    training shape must give bitwise-equal gradients. Returns {bwd: launch
+    counts} and {bwd: summary}."""
+    from repro_torch.configs import registry
+    from repro_torch.core.attention import AttentionConfig
+    from repro_torch.core.masks import MaskSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import TrainLoopConfig, train
+    from repro_torch.training.optimizer import AdamWConfig
+
+    cfg = registry.get("gemma3-1b")
+    B, S, steps = G3_TRAIN_B, G3_TRAIN_S, G3_TRAIN_STEPS
+    opt_cfg = AdamWConfig(warmup_steps=2, total_steps=steps)
+    # Remat recomputes each group of cfg.group_size (6) layers in the
+    # backward; the tail layers (26 % 6 = 2) are not checkpointed, as in the
+    # JAX package (lm.py:255): 2 x 24 + 2 forward launches a step.
+    grouped = cfg.num_groups * cfg.group_size
+    forwards = steps * (2 * grouped + cfg.num_layers - grouped)
+    counters, plains = kernel_counters()
+    counts, summaries, losses = {}, {}, {}
+    for run in ("fused", "split", "ref"):
+        loop = TrainLoopConfig(steps=steps, seq_len=S, batch_size=B, log_every=1, seed=0,
+                               device=str(dev), attn_impl="ref" if run == "ref" else "flash_cuda",
+                               attn_bwd=None if run == "ref" else run)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts(counters, plains)
+        model, opt_state, history = train(cfg, loop, opt_cfg)
+        torch.cuda.synchronize()
+        losses[run] = history["loss"]
+        if not all(math.isfinite(x) for x in history["loss"] + history["grad_norm"]):
+            fail(f"gemma3-1b training ({run}) gave a non-finite loss or gradient norm")
+        if run == "ref":
+            del model, opt_state
+            break
+        counts[run] = read_counts(counters, plains)
+        med = sorted(history["step_time"])[steps // 2]
+        mfu = train_model_flops(cfg, B, S) / med / PEAK_BF16_FLOPS
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        summaries[run] = dict(losses=history["loss"], median_ms=med * 1e3,
+                              tokens_per_s=B * S / med, mfu=mfu, peak_gib=peak, busy_share=None,
+                              attention_ms=None)
+        log(f"gemma3-1b training (bwd={run}) at published widths and depth, {cfg.num_layers} "
+            f"layers, B={B} S={S}: losses {[round(x, 5) for x in history['loss']]}; median step "
+            f"{med * 1e3:.1f} ms (first {history['step_time'][0] * 1e3:.1f} ms), "
+            f"{B * S / med:.1f} tokens/s, model FLOPs {train_model_flops(cfg, B, S) / 1e12:.3f} "
+            f"TFLOP a step, MFU {mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, "
+            f"max_memory_allocated {peak:.2f} GiB")
+        log(f"launches on the gemma3-1b training path (bwd={run}): {counts[run]}")
+        if not sum(history["loss"][-2:]) / 2 < history["loss"][0]:
+            fail(f"the gemma3-1b training loss (bwd={run}) did not fall")
+        want = training_want(counters, plains, steps * cfg.num_layers, (run,), hd256=True,
+                             forwards=forwards)
+        if counts[run] != want:
+            fail(f"gemma3-1b training launches (bwd={run}) {counts[run]}, want {want} "
+                 "(the forward twice a layer of the remat groups, once a tail layer)")
+        if run == "fused":
+            inputs, targets = SyntheticLM(DataConfig(B, S, cfg.vocab_size, seed=0)).batch(0)
+            batch = {"inputs": torch.from_numpy(inputs).to(dev),
+                     "targets": torch.from_numpy(targets).to(dev)}
+            step_fn = build_train_step(cfg, AttentionConfig(impl="flash_cuda"), opt_cfg)
+            busy, attn_ms = profile_train_step(torch, step_fn, model, opt_state, batch, med)
+            summaries[run].update(busy_share=busy, attention_ms=attn_ms)
+            log("attention device time per gemma3-1b step: " + (
+                "not measured" if attn_ms is None else f"{attn_ms:.3f} ms of the profiled step"))
+            del batch
+        del model, opt_state
+    log(f"gemma3-1b training through impl=ref (dense attention): losses "
+        f"{[round(x, 5) for x in losses['ref']]}")
+    if losses["split"][0] != losses["fused"][0]:
+        fail(f"gemma3-1b step 0's loss through bwd=split ({losses['split'][0]!r}) differs from "
+             f"bwd=fused's ({losses['fused'][0]!r}); the forward is the same")
+    for run in ("fused", "split"):
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses[run], losses["ref"])]
+        summaries[run]["loss_rel_to_ref"] = rel
+        log(f"gemma3-1b bwd={run} against impl=ref, relative loss difference by step: "
+            + ", ".join(f"{r:.3e}" for r in rel) + f" (step 0 limit {PARITY_LOSS_REL}, every "
+            f"step {GPT_LOSS_REL})")
+        if not (rel[0] <= PARITY_LOSS_REL and max(rel) <= GPT_LOSS_REL):
+            fail(f"gemma3-1b training through flash_cuda (bwd={run}) disagrees with impl=ref")
+    log(summary_line("gemma3-1b training, split against fused backward", summaries["split"],
+                     summaries["fused"]))
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    shapes = ((B, S, G3_HQ, G3_D), (B, S, G3_HKV, G3_D), (B, S, G3_HKV, G3_D))
+    q0, k0, v0 = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16) for s in shapes)
+    do = torch.randn(shapes[0], generator=gen, device=dev).to(torch.bfloat16)
+    for spec in (MaskSpec(causal=True), MaskSpec(causal=True, window=G3_WINDOW)):
+        grads = []
+        for _ in range(2):
+            q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
+            ops.flash_attention(q, k, v, spec, bwd="split").backward(do)
+            grads.append((q.grad, k.grad, v.grad))
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(*grads)]
+        log(f"ops.flash_attention(bwd=split) forward + backward twice at B={B} S={S} "
+            f"Hq={G3_HQ} Hkv={G3_HKV} D={G3_D} window={spec.window}: dq, dk, dv bitwise equal "
+            f"{same}")
+        if not all(same) or not all(torch.isfinite(g.float()).all() for g in grads[0]):
+            fail("the split backward at head_dim 256 is not bitwise reproducible (or not "
+                 "finite)")
+    return counts, summaries
+
+
 def main() -> None:
     import torch
 
@@ -3315,6 +3528,7 @@ def main() -> None:
     results.update(whisper_kernel_phase(torch, dev, scratch.zero_))
     results.update(bwd_hd64_kernel_phase(torch, dev, scratch.zero_))
     results.update(hd256_kernel_phase(torch, dev, scratch.zero_))
+    results.update(hd256_bwd_kernel_phase(torch, dev, scratch.zero_))
     del scratch
     whisper_counts, whisper_summary = whisper_phase(torch, dev)
     gc.collect()
@@ -3358,11 +3572,18 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     wh_train_counts, wh_train_summary = whisper_train_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    g3_train_counts, g3_train_summaries = gemma3_train_phase(torch, dev)
 
     results["flash_fwd"]["at_training_shape"] = results.pop("flash_fwd_at_training_shape")
     for k, inst in (("flash_fwd_hd256", "fa2_fwd_kernel<256,"),
                     ("flash_decode_hd256", "fa2_decode_kernel<256,0>"),
-                    ("flash_decode_paged_hd256", "fa2_decode_paged_kernel<256>")):
+                    ("flash_decode_paged_hd256", "fa2_decode_paged_kernel<256>"),
+                    ("flash_bwd_delta_hd256", "fa2_bwd_delta_kernel<256>"),
+                    ("flash_bwd_fused_hd256", "fa2_bwd_fused_kernel<256,"),
+                    ("flash_bwd_dkv_hd256", "fa2_bwd_dkv_kernel<256,"),
+                    ("flash_bwd_dq_hd256", "fa2_bwd_dq_kernel<256,")):
         results[k]["ptxas"] = [line.split(": ", 1)[1] for line in ptxas.splitlines()
                                if inst in line]
     replaces = {"flash_fwd": "src/repro/kernels/flash_fwd.py:354",
@@ -3401,7 +3622,12 @@ def main() -> None:
                 # Head dim 256 (gemma3-1b serving).
                 "flash_fwd_hd256": "src/repro/kernels/flash_fwd.py:354",
                 "flash_decode_hd256": "src/repro/kernels/flash_decode.py:77",
-                "flash_decode_paged_hd256": "src/repro/kernels/flash_decode.py:250"}
+                "flash_decode_paged_hd256": "src/repro/kernels/flash_decode.py:250",
+                # The backward at head_dim 256 (gemma3-1b training).
+                "flash_bwd_delta_hd256": "src/repro/kernels/flash_bwd.py:80",
+                "flash_bwd_fused_hd256": "src/repro/kernels/flash_bwd.py:718",
+                "flash_bwd_dkv_hd256": "src/repro/kernels/flash_bwd.py:234",
+                "flash_bwd_dq_hd256": "src/repro/kernels/flash_bwd.py:459"}
     source = {"flash_fwd": "flash_fwd", "flash_decode": "flash_decode",
               "flash_decode_paged": "flash_decode", "flash_bwd_delta": "flash_bwd",
               "flash_bwd_fused": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
@@ -3420,16 +3646,20 @@ def main() -> None:
              "training_packed_dense_parity": packed_dense_parity_counts,
              "whisper_serving": whisper_counts, "training_gpt20m": gpt_counts["fused"],
              "training_gpt20m_split": gpt_counts["split"], "training_whisper": wh_train_counts,
-             "gemma3_serving": g3_counts, "gemma3_paged_serving": g3_paged_counts}
+             "gemma3_serving": g3_counts, "gemma3_paged_serving": g3_paged_counts,
+             "training_gemma3": g3_train_counts["fused"],
+             "training_gemma3_split": g3_train_counts["split"]}
     # An entry named "_hd64" ("_hd256") counts its kernel's launches at head
     # dim 64 (256), and the entry of the same kernel without the suffix the
-    # other launches. The backward wrappers count their head_dim-64 launches
-    # apart (``<name>_hd64``); the forward and decode wrappers do not, so
-    # their launches on the paths that run at one head dim only (64:
-    # whisper-base, gpt-20m; 256: gemma3-1b) are that head dim's entries'.
+    # other launches. The backward wrappers count their head_dim-64 and 256
+    # launches apart (``<name>_hd64``, ``<name>_hd256``); the forward and
+    # decode wrappers do not, so their launches on the paths that run at one
+    # head dim only (64: whisper-base, gpt-20m; 256: gemma3-1b) are that head
+    # dim's entries'.
     hd64_paths = ("whisper_serving", "training_gpt20m", "training_gpt20m_split",
                   "training_whisper")
-    hd256_paths = ("gemma3_serving", "gemma3_paged_serving")
+    hd256_paths = ("gemma3_serving", "gemma3_paged_serving", "training_gemma3",
+                   "training_gemma3_split")
     by_dim = {"flash_fwd_hd64": ("flash_fwd", hd64_paths),
               "flash_decode_hd64": ("flash_decode", hd64_paths),
               "flash_fwd_hd256": ("flash_fwd", hd256_paths),
@@ -3442,9 +3672,9 @@ def main() -> None:
             return counts.get(base, 0) if path in on else 0
         if any(base == k and path in on for base, on in by_dim.values()):
             return 0
-        if k.endswith("_hd64"):
+        if k.endswith(("_hd64", "_hd256")):
             return counts.get(k, 0)
-        return counts.get(k, 0) - counts.get(f"{k}_hd64", 0)
+        return counts.get(k, 0) - counts.get(f"{k}_hd64", 0) - counts.get(f"{k}_hd256", 0)
 
     kernels = []
     for k in replaces:
@@ -3458,6 +3688,7 @@ def main() -> None:
     log(f"gpt-20m training: {json.dumps(gpt_summaries)}")
     log(f"whisper training: {json.dumps(wh_train_summary)}")
     log(f"gemma3-1b serving: {json.dumps(g3_summary)}")
+    log(f"gemma3-1b training: {json.dumps(g3_train_summaries)}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -55,16 +55,17 @@ class AttentionConfig:
 
 
 def check_card_support(cfg, attn_cfg: AttentionConfig, device, *, training: bool,
-                       paged: bool = False) -> None:
+                       paged: bool = False, packed: bool = False) -> None:
     """Refuse up front, before any tensor reaches the device, a model that
     the CUDA kernels cannot run: ``attn_cfg.impl == "flash_cuda"`` on a CUDA
     ``device`` (a name or a ``torch.device``) with ``cfg.dtype`` other than
     bfloat16, or a ``cfg.head_dim`` that the forward kernels, and for
-    ``training`` the backward kernels, else the decode kernels (``paged``:
-    the paged decode's) are not instantiated for: gemma3-1b's 256 serves
-    (fixed and paged) but does not train, stablelm-12b's 160 does neither
-    (ROADMAP.md queue 2, item 2), whisper's 64 has no paged decode (item
-    3). The plain CPU path and ``impl="ref"`` take any of them."""
+    ``training`` the backward kernels (``packed``: their segment variants),
+    else the decode kernels (``paged``: the paged decode's) are not
+    instantiated for: gemma3-1b's 256 serves (fixed and paged) and trains,
+    but not packed, stablelm-12b's 160 does none of it (ROADMAP.md queue 2,
+    item 2), whisper's 64 has no paged decode (item 3). The plain CPU path
+    and ``impl="ref"`` take any of them."""
     if attn_cfg.impl != "flash_cuda" or torch.device(device).type != "cuda":
         return
     if cfg.dtype != "bfloat16":
@@ -75,6 +76,8 @@ def check_card_support(cfg, attn_cfg: AttentionConfig, device, *, training: bool
     kernels = {"forward": flash_fwd.KERNEL_HEAD_DIMS}
     if training:
         kernels["backward"] = flash_bwd.KERNEL_HEAD_DIMS
+        if packed:  # the segment variants of the forward and backward kernels
+            kernels["segment (packed)"] = flash_bwd.ALL_MODES_HEAD_DIMS
     else:
         kernels["decode"] = (flash_decode.PAGED_HEAD_DIMS if paged
                              else flash_decode.KERNEL_HEAD_DIMS)

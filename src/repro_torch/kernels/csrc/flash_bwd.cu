@@ -90,6 +90,39 @@
 // dK/dV stay bitwise the fused kernel's. Shared memory falls to about 132
 // KB; still one CTA an SM. The dq and delta kernels take D the same way.
 //
+// Head_dim 256 (gemma3-1b training) is instantiated compact and unsegmented
+// only (the SEG and DENSE forms refuse it), with one change of shape in the
+// KV-stationary and dq kernels, the `HALF` flag: a 64 x 256 f32 accumulator
+// is 128 registers a consumer thread, so a pair's dK and dV (256) cannot fit
+// setmaxnreg's 240, and a pair's K and V (128 KB) with a 2-stage Q/dO ring
+// (128 KB) exceed the 227 KB a CTA may use. So, as FlashAttention-3 does at
+// 256, a CTA owns ONE 64-row tile and each consumer warpgroup holds half of
+// head_dim of its accumulators (64 + 64 registers for dK and dV, 64 for
+// dQ: the registers of the D = 128 kernels):
+//   * KV-stationary: both warpgroups compute the same S^T = K Q^T and
+//     dP^T = V dO^T over all 256 columns (the same products in the same
+//     order, so both hold the same P^T and dS^T fragments), then warpgroup w
+//     adds P^T dO[:, 128 w ..] and dS^T Q[:, 128 w ..] (n128 products) into
+//     its half. The two recomputations cost 1.5x the minimal products of
+//     dK/dV; splitting S^T's q columns between the warpgroups and trading
+//     P^T and dS^T through shared memory is the later design. Shared
+//     memory: K and V 64 KB, a 64 KB Q/dO stage; the dK/dV kernel keeps 2
+//     stages (195 KB), the fused kernel 1 (182 KB), because its two 8 KB dS^T
+//     buffers and two 18 KB dQ stagings have no room beside a second stage.
+//     With one stage the next Q/dO copy overlaps the step's dQ products
+//     only. The fused dQ: each warpgroup stores half of dS^T's q columns,
+//     the two meet at the named barrier, and each multiplies dS by its half
+//     of K's columns as two 64-column parts (m64n64k16 over the tile's 64
+//     rows), each staged and bulk-reduced into dq by its writer warp;
+//   * dq: one CTA per (q tile, batch * q head), highest tiles first; both
+//     warpgroups compute the same S and dP, and warpgroup w adds dS K[:,
+//     128 w ..] into its half of dQ (1.67x the minimal products). Q and dO
+//     of the tile (64 KB) and a 2-stage K/V ring (128 KB): 194 KB. dQ is
+//     still written once, without atomics, so bwd="split" stays bitwise the
+//     same from launch to launch.
+// Split dK/dV stay bitwise the fused kernel's: one source, the DQ flag only
+// adds the dQ phase and sets the ring depth, which moves no arithmetic.
+//
 // The split backward (bwd="split", the deterministic mode) is the other
 // two, with no atomics anywhere:
 //
@@ -199,7 +232,8 @@
 // by HBM and needs no tensor core. A CTA of 256 threads takes R positions
 // and all their heads (R = 8, the 32-byte sector of its output runs,
 // doubled while a CTA holds fewer than 256 rows and the grid still fills
-// the 132 SMs once: 8 at the training shape, 32 at whisper's encoder);
+// the 132 SMs once: 8 at the training shape, 32 at whisper's encoder and
+// at gemma3's training shape, where D = 256 makes a row one warp);
 // each thread has 4 16-byte loads of O and 4 of dO in flight before it
 // reduces (53 registers: four CTAs an SM, so the training shape's 512 CTAs
 // and the encoder's 376 run in one wave), D / 8 threads finish a row with
@@ -430,8 +464,14 @@ __global__ void __launch_bounds__(kDeltaThreads) fa2_bwd_delta_kernel(const Delt
 constexpr int kPairRows = 2 * kBlockN;  // kv rows of a KV-stationary CTA: two tiles
 constexpr int kKvThreads = 3 * 128;     // producer warpgroup, two consumer warpgroups
 constexpr int kConsumers = 2 * 128;
-constexpr int kStages = 2;              // the Q/dO ring
 constexpr int kDqRow = 72;              // f32 dQ staging row: 64 values + 32 bytes of padding
+
+// The kv rows a KV-stationary CTA owns: a pair of 64-row tiles, or at head_dim
+// 256 one tile, whose two consumer warpgroups take half of head_dim each.
+template <int D>
+constexpr int kv_rows() {
+  return D == 256 ? kBlockN : kPairRows;
+}
 // A hidden element scores kHidden (sm90.cuh). A row that sees no key has
 // lse = kMaskValue + log n, so P = exp(kMaskValue - lse) = 1 there; the
 // producer stages such a row's lse as (kHidden + lse - kMaskValue) log2(e),
@@ -446,25 +486,30 @@ struct BwdMaps {
 };
 
 // Shared memory of the KV-stationary kernels, in bytes from a 1024-aligned
-// base: K and V (D / 64 boxes of 128 rows x 64 columns, 16 KB apart), the
-// Q/dO ring (D / 64 boxes of 64 rows a stage, 8 KB apart), with DQ two bf16
-// dS^T buffers (128 kv rows x 64 q) and the f32 dQ staging of each consumer
-// warpgroup, then each stage's lse, delta, q ids and step record, then the
-// mbarriers and the staged dQ's (q0, head). About 200 KB at D = 128, 132 KB
-// at D = 64.
+// base: K and V (D / 64 boxes of ROWS rows x 64 columns, BOX bytes apart),
+// the Q/dO ring (D / 64 boxes of 64 rows a stage, 8 KB apart), with DQ two
+// bf16 dS^T buffers (ROWS kv rows x 64 q) and the f32 dQ staging of each
+// consumer warpgroup, then each stage's lse, delta, q ids and step record,
+// then the mbarriers and the staged dQ's (q0, head). About 200 KB at
+// D = 128, 132 KB at D = 64; at 256 (one kv tile) 195 KB for dK/dV and,
+// with one stage, 182 KB for the fused kernel.
 template <int D, bool DQ>
 struct KvSmem {
-  static constexpr uint32_t KV = kPairRows * D * 2;  // K or V of the pair
-  static constexpr uint32_t QT = kBlockM * D * 2;    // a Q or dO stage
-  static constexpr uint32_t K = 0, V = KV, Q = 2 * KV, DO = Q + kStages * QT;
-  static constexpr uint32_t DS = DO + kStages * QT;
-  static constexpr uint32_t DQS = DS + (DQ ? 2 * 16384 : 0);
+  // The Q/dO ring: 2 stages, 1 for the fused kernel at 256 (a stage is 64
+  // KB there, and the dS^T buffers and dQ stagings must fit beside K and V).
+  static constexpr int ROWS = kv_rows<D>(), STAGES = D == 256 && DQ ? 1 : 2;
+  static constexpr uint32_t BOX = ROWS * 128;     // a 64-column box of K or V
+  static constexpr uint32_t KV = ROWS * D * 2;    // K or V of the CTA
+  static constexpr uint32_t QT = kBlockM * D * 2;  // a Q or dO stage
+  static constexpr uint32_t K = 0, V = KV, Q = 2 * KV, DO = Q + STAGES * QT;
+  static constexpr uint32_t DS = DO + STAGES * QT;
+  static constexpr uint32_t DQS = DS + (DQ ? 2 * BOX : 0);
   static constexpr uint32_t LSE = DQS + (DQ ? 2 * kBlockM * kDqRow * 4 : 0);
-  static constexpr uint32_t DELTA = LSE + kStages * kBlockM * 4;
-  static constexpr uint32_t QID = DELTA + kStages * kBlockM * 4;
-  static constexpr uint32_t STEP = QID + kStages * kBlockM * 4;  // per stage: the step's record
-  static constexpr uint32_t BARS = STEP + kStages * 16;  // full, empty, kv, dq_full, dq_empty
-  static constexpr uint32_t DQ_META = BARS + (2 * kStages + 5) * 8;  // per warpgroup: (q0, h)
+  static constexpr uint32_t DELTA = LSE + STAGES * kBlockM * 4;
+  static constexpr uint32_t QID = DELTA + STAGES * kBlockM * 4;
+  static constexpr uint32_t STEP = QID + STAGES * kBlockM * 4;  // per stage: the step's record
+  static constexpr uint32_t BARS = STEP + STAGES * 16;  // full, empty, kv, dq_full, dq_empty
+  static constexpr uint32_t DQ_META = BARS + (2 * STAGES + 5) * 8;  // per warpgroup: (q0, h)
   static constexpr uint32_t BYTES = DQ_META + 2 * 8;
 };
 
@@ -472,18 +517,25 @@ struct KvSmem {
 // The KV-stationary body: with DQ, the fused kernel; without, the dkv
 // kernel (no dS buffer, no dQ product, no staging; dK and dV bitwise the
 // same). SEG: the segment variant of either. DENSE: every q tile, no table.
-// D: head_dim, 64 or 128.
+// D: head_dim, 64 or 128, or 256 compact and unsegmented (HALF below).
 template <int D, bool DQ, bool SEG, bool DENSE>
 __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps& maps) {
-  static_assert(D == 64 || D == 128, "the KV-stationary kernels take head_dim 64 or 128");
+  static_assert(D == 64 || D == 128 || (D == 256 && !SEG && !DENSE),
+                "the KV-stationary kernels take head_dim 64 or 128, and 256 compact and "
+                "unsegmented");
   using L = KvSmem<D, DQ>;
+  constexpr int S = L::STAGES;
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are skipped before their fetch
+  // Head_dim 256: the CTA owns one kv tile and consumer warpgroup w holds
+  // columns [128 w, 128 w + 128) of its dK and dV (the header says why).
+  constexpr bool HALF = D == 256;
+  constexpr int DC = HALF ? D / 2 : D;  // columns of dK and dV a warpgroup holds
   constexpr int BM = kBlockM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
-  uint64_t* empty = full + kStages;
-  uint64_t* kv_bar = empty + kStages;
+  uint64_t* empty = full + S;
+  uint64_t* kv_bar = empty + S;
   uint64_t* dq_full = kv_bar + 1;   // per consumer warpgroup: its dQ half is staged
   uint64_t* dq_empty = dq_full + 2;  // the staging is read: it may be refilled
   int2* dq_meta = reinterpret_cast<int2*>(sm + L::DQ_META);
@@ -495,11 +547,11 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
   int4* sStep = reinterpret_cast<int4*>(sm + L::STEP);
 
   const int b = blockIdx.x / p.Hkv, hk = blockIdx.x % p.Hkv;
-  const int j0 = 2 * blockIdx.y;  // low kv tiles (the longest causal runs) first
+  const int j0 = HALF ? blockIdx.y : 2 * blockIdx.y;  // low kv tiles (the longest causal runs) first
   const int k0 = j0 * kBlockN;
-  const bool has1 = j0 + 1 < p.t_kv;  // an odd t_kv leaves the last pair one tile
+  const bool has1 = !HALF && j0 + 1 < p.t_kv;  // an odd t_kv leaves the last pair one tile
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 32);  // the producer warp's lanes; TMA bytes on top
       mbar_init(&empty[s], kConsumers);
     }
@@ -543,8 +595,8 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
                      "r"(2 * L::KV)
                      : "memory");
         for (int half = 0; half < D / 64; ++half) {
-          tma_load(sm + L::K + half * 16384, maps.k, kv_bar, half * 64, hk, k0, b);
-          tma_load(sm + L::V + half * 16384, maps.v, kv_bar, half * 64, hk, k0, b);
+          tma_load(sm + L::K + half * L::BOX, maps.k, kv_bar, half * 64, hk, k0, b);
+          tma_load(sm + L::V + half * L::BOX, maps.v, kv_bar, half * 64, hk, k0, b);
         }
       }
       const int* qid_g = SEG ? p.q_seg + b * p.q_seg_sb : nullptr;
@@ -559,8 +611,8 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
       bool more = true;
       for (int n = 0; more; ++n) {
         more = walk.next(g, qt, ea, eb);
-        const int stage = n & 1;
-        mbar_wait(&empty[stage], ((n >> 1) & 1) ^ 1);
+        const int stage = n % S;
+        mbar_wait(&empty[stage], ((n / S) & 1) ^ 1);
         if (!more) {  // the walk's end: a record with a negative head, no copies
           if (lane == 0) sStep[stage] = make_int4(-1, 0, 0, 0);
           mbar_arrive(&full[stage]);
@@ -629,19 +681,20 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
     } else if (DQ && threadIdx.x < 96 && p.dq != nullptr) {
       // dQ writers: warp 1 + w adds consumer warpgroup w's staged 64 x 64
       // f32 part (D = 128: its half of head_dim; D = 64: its kv tile's
-      // share of the whole row) into dq by bulk reduction, 256 bytes a row,
-      // then frees the staging; (q0, head) = (-1, -1) ends the walk.
+      // share of the whole row; D = 256: a step's two parts, columns
+      // 128 w + 64 c for c = 0, 1) into dq by bulk reduction, 256 bytes a
+      // row, then frees the staging; (q0, head) = (-1, -1) ends the walk.
       const int w = threadIdx.x / 32 - 1, lane = threadIdx.x % 32;
       const uint32_t stg = smem_u32(sm + L::DQS) + w * BM * kDqRow * 4;
       for (int u = 0;; ++u) {
         mbar_wait(&dq_full[w], u & 1);
         const int2 m = dq_meta[w];
         if (m.x < 0) break;
+        const int col = HALF ? (2 * w + (u & 1)) * 64 : D == 128 ? w * 64 : 0;
         for (int r = lane; r < BM; r += 32)
           if (m.x + r < p.Sq)
             bulk_reduce_add(
-                p.dq + ((static_cast<long long>(b) * p.Sq + m.x + r) * p.Hq + m.y) * D +
-                    (D == 128 ? w * 64 : 0),
+                p.dq + ((static_cast<long long>(b) * p.Sq + m.x + r) * p.Hq + m.y) * D + col,
                 stg + r * kDqRow * 4, 256);
         bulk_commit();
         bulk_wait_read();
@@ -652,11 +705,14 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    // Consumer warpgroup w owns kv tile j0 + w: rows kw0 .. kw0 + 63.
+    // Consumer warpgroup w owns kv tile j0 + w: rows kw0 .. kw0 + 63 (HALF:
+    // both own tile j0, w its columns [128 w, 128 w + 128) of dK and dV).
     const int w = wg - 1;
     const int t = threadIdx.x - 128 * wg;
     const int wq = t / 32, lane = t % 32, g8 = lane / 4, t4 = lane % 4;
-    const int kw0 = k0 + w * kBlockN;
+    const int kw0 = k0 + (HALF ? 0 : w * kBlockN);
+    const uint32_t rows_at = HALF ? 0 : w * 8192;  // its kv rows inside a box of K or V
+    const uint32_t cols_at = HALF ? w * 16384 : 0;  // its columns' first box in a Q/dO stage
     const int kv_a = kw0 + wq * 16 + g8, kv_b = kv_a + 8;  // this thread's two kv rows
     int kvid[2] = {0, 0};
     if (SEG) {
@@ -669,42 +725,46 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
     const uint32_t sdS = smem_u32(sm + L::DS);
     const uint32_t stg = smem_u32(sm + L::DQS) + w * BM * kDqRow * 4;  // f32 dQ staging
 
-    // dV and dK of the tile: rows kv_a / kv_b, columns 8 tt + 2 t4 (+1).
-    float dv[D / 2], dk[D / 2];
+    // dV and dK of the tile: rows kv_a / kv_b, columns 8 tt + 2 t4 (+1)
+    // (HALF: of the warpgroup's half).
+    float dv[DC / 2], dk[DC / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dv[i] = dk[i] = 0.f;
+    for (int i = 0; i < DC / 2; ++i) dv[i] = dk[i] = 0.f;
 
     mbar_wait(kv_bar, 0);
-    int n_dq = 0;  // steps with a dQ product: the dS buffer alternates with it
+    int n_dq = 0;   // steps with a dQ product: the dS buffer alternates with it
+    int n_stg = 0;  // 64 x 64 dQ parts staged: the staging handshake's phase
     for (int n = 0;; ++n) {
-      const int stage = n & 1;
-      mbar_wait(&full[stage], (n >> 1) & 1);
+      const int stage = n % S;
+      mbar_wait(&full[stage], (n / S) & 1);
       const int4 step = sStep[stage];
       if (step.x < 0) break;
       const int h = hk * p.group + step.x, q0 = step.y * BM;
       const bool vis0 = step.z & kTake0, vis1 = step.z & kTake1;
-      const bool masked = step.z & (w ? kMask1 : kMask0);
-      const bool mine = w ? vis1 : vis0;  // uniform in the warpgroup
+      const bool masked = step.z & (w && !HALF ? kMask1 : kMask0);
+      const bool mine = w && !HALF ? vis1 : vis0;  // uniform in the warpgroup
       const uint32_t cQ = sQ + stage * L::QT, cdO = sdO + stage * L::QT;
-      const uint32_t cdS = sdS + (n_dq & 1) * 16384;
+      const uint32_t cdS = sdS + (n_dq & 1) * L::BOX;
       // This thread's dS^T pair (row R, columns 8 tt + 2 t4, +1) of n-block
       // tt sits at ds_at ^ (tt << 4) in the 128-byte swizzle (R & 7 == g8);
       // row R + 8 is 1024 bytes on.
-      const uint32_t ds_at = cdS + (w * 64 + wq * 16 + g8) * 128 + (g8 << 4) + t4 * 4;
+      const uint32_t ds_at =
+          cdS + ((HALF ? 0 : w * 64) + wq * 16 + g8) * 128 + (g8 << 4) + t4 * 4;
       if (mine) {
         float s[32], dp[32];
         uint32_t pP[4][4], pS[4][4];  // bf16 P^T and dS^T: the A operands of dV and dK
         // S^T = K Q^T (line 11) and dP^T = V dO^T (line 13): 64 kv rows x 64
-        // q columns, k over head_dim in D / 64 swizzled boxes.
+        // q columns, k over head_dim in D / 64 swizzled boxes (HALF: both
+        // warpgroups compute the whole of both).
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64<0, 0>(s, sw128_desc(sK + (kk >> 2) * 16384 + w * 8192 + (kk & 3) * 32, 16),
+          wgmma_ss_n64<0, 0>(s, sw128_desc(sK + (kk >> 2) * L::BOX + rows_at + (kk & 3) * 32, 16),
                              sw128_desc(cQ + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
         wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64<0, 0>(dp, sw128_desc(sV + (kk >> 2) * 16384 + w * 8192 + (kk & 3) * 32, 16),
+          wgmma_ss_n64<0, 0>(dp, sw128_desc(sV + (kk >> 2) * L::BOX + rows_at + (kk & 3) * 32, 16),
                              sw128_desc(cdO + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
         wgmma_commit();
         wgmma_wait<1>();
@@ -741,7 +801,7 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         }
         // dV += P^T dO (line 12): k over the tile's 64 q rows.
         wgmma_fence();
-        wgmma_rs_k64<D>(dv, pP, cdO);
+        wgmma_rs_k64<DC>(dv, pP, cdO + cols_at);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(dp);
@@ -762,11 +822,14 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         }
         // dK += dS^T Q (line 16).
         wgmma_fence();
-        wgmma_rs_k64<D>(dk, pS, cQ);
+        wgmma_rs_k64<DC>(dk, pS, cQ + cols_at);
         wgmma_commit();
         if (DQ) {
+          // HALF: both warpgroups hold the same dS^T; each stores half of its
+          // q columns.
 #pragma unroll
           for (int tt = 0; tt < 8; ++tt) {
+            if (HALF && (tt >> 2) != w) continue;
             st_shared(ds_at ^ (tt << 4), pS[tt >> 1][(tt & 1) * 2]);
             st_shared((ds_at ^ (tt << 4)) + 1024, pS[tt >> 1][(tt & 1) * 2 + 1]);
           }
@@ -782,11 +845,12 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
       }
       mbar_arrive(&empty[stage]);  // this stage's Q, dO, lse, delta and ids are read
       if (DQ && (vis0 || vis1)) {
-        // dQ_i += dS K_j (line 15) over the pair's 128 kv rows, both
-        // warpgroups: at D = 128 each takes a half of head_dim (its 64-column
-        // box of K) over all 128 rows; at D = 64 each takes its own kv tile's
+        // dQ_i += dS K_j (line 15) over the CTA's kv rows, both warpgroups:
+        // at D = 128 each takes a half of head_dim (its 64-column box of K)
+        // over the pair's 128 rows; at D = 64 each takes its own kv tile's
         // 64 rows over the whole of head_dim, and both parts are added into
-        // dq. A hidden tile's dS rows are zeros.
+        // dq; at D = 256 each takes its half of head_dim as two 64-column
+        // parts over the tile's 64 rows. A hidden tile's dS rows are zeros.
         if (!mine) {
 #pragma unroll
           for (int tt = 0; tt < 8; ++tt) {
@@ -796,45 +860,51 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         }
         fence_async_smem();
         named_sync(1, kConsumers);  // both tiles' dS are in the buffer
-        float dq[32];
-        const uint32_t dsA = cdS + (D == 128 ? 0 : w * 8192);
-        const uint32_t kB = sK + w * (D == 128 ? 16384 : 8192);
-        wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < (D == 128 ? 8 : 4); ++kk)
-          wgmma_ss_n64<1, 1>(dq, sw128_desc(dsA + kk * 2048, 8192),
-                             sw128_desc(kB + kk * 2048, 8192), kk > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dq);
-        if (p.dq != nullptr) {
-          // Stage this warpgroup's 64 x 64 f32 part for its writer warp.
-          mbar_wait(&dq_empty[w], (n_dq & 1) ^ 1);
-          const uint32_t at = stg + ((wq * 16 + g8) * kDqRow + 2 * t4) * 4;
+        for (int c = 0; c < (HALF ? 2 : 1); ++c) {
+          float dq[32];
+          const uint32_t dsA = cdS + (D == 64 ? w * 8192 : 0);
+          const uint32_t kB = sK + (HALF ? (2 * w + c) * 8192 : w * (D == 128 ? 16384 : 8192));
+          wgmma_fence();
 #pragma unroll
-          for (int tt = 0; tt < 8; ++tt) {
-            st_shared(at + tt * 32, dq[4 * tt], dq[4 * tt + 1]);
-            st_shared(at + 8 * kDqRow * 4 + tt * 32, dq[4 * tt + 2], dq[4 * tt + 3]);
+          for (int kk = 0; kk < (D == 128 ? 8 : 4); ++kk)
+            wgmma_ss_n64<1, 1>(dq, sw128_desc(dsA + kk * 2048, 8192),
+                               sw128_desc(kB + kk * 2048, 8192), kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq);
+          if (p.dq != nullptr) {
+            // Stage this warpgroup's 64 x 64 f32 part for its writer warp.
+            mbar_wait(&dq_empty[w], (n_stg & 1) ^ 1);
+            const uint32_t at = stg + ((wq * 16 + g8) * kDqRow + 2 * t4) * 4;
+#pragma unroll
+            for (int tt = 0; tt < 8; ++tt) {
+              st_shared(at + tt * 32, dq[4 * tt], dq[4 * tt + 1]);
+              st_shared(at + 8 * kDqRow * 4 + tt * 32, dq[4 * tt + 2], dq[4 * tt + 3]);
+            }
+            if (t == 0) dq_meta[w] = make_int2(q0, h);
+            fence_async_smem();
+            mbar_arrive(&dq_full[w]);
           }
-          if (t == 0) dq_meta[w] = make_int2(q0, h);
-          fence_async_smem();
-          mbar_arrive(&dq_full[w]);
+          ++n_stg;
         }
         ++n_dq;
       }
     }
     if (DQ && p.dq != nullptr) {  // end the writer's walk
-      mbar_wait(&dq_empty[w], (n_dq & 1) ^ 1);
+      mbar_wait(&dq_empty[w], (n_stg & 1) ^ 1);
       if (t == 0) dq_meta[w] = make_int2(-1, -1);
       mbar_arrive(&dq_full[w]);
     }
 
-    // dK and dV of the tile, summed over the group's q heads: written once.
-    if (w == 0 || has1) {
+    // dK and dV of the tile, summed over the group's q heads: written once
+    // (HALF: each warpgroup its half of the columns).
+    if (w == 0 || has1 || HALF) {
       const long long rs = static_cast<long long>(p.Hkv) * D;
-      const long long base = static_cast<long long>(b) * p.Skv * rs + hk * D + 2 * t4;
+      const long long base =
+          static_cast<long long>(b) * p.Skv * rs + hk * D + (HALF ? w * DC : 0) + 2 * t4;
 #pragma unroll
-      for (int tt = 0; tt < D / 8; ++tt) {
+      for (int tt = 0; tt < DC / 8; ++tt) {
         if (kv_a < p.Skv) {
           *reinterpret_cast<float2*>(p.dv + base + kv_a * rs + tt * 8) = make_float2(dv[4 * tt], dv[4 * tt + 1]);
           *reinterpret_cast<float2*>(p.dk + base + kv_a * rs + tt * 8) = make_float2(dk[4 * tt], dk[4 * tt + 1]);
@@ -863,31 +933,38 @@ __global__ void __launch_bounds__(kKvThreads, 1)
 
 // --------------------------------------------------------------------- dq
 
-constexpr int kDqStages = 4;  // the dq kernel's K/V ring
-
 // Shared memory of the dq kernel, in bytes from a 1024-aligned base: the
-// pair's Q and dO tiles (each D / 64 boxes of 64 rows x 64 columns), the K
-// and V stages (64 rows each), each stage's kv ids (SEG) and step record,
-// the pair's 128 staged lse and delta values, then the mbarriers.
+// CTA's Q and dO tiles (each D / 64 boxes of 64 rows x 64 columns; two q
+// tiles, or at head_dim 256 one), the K and V stages (64 rows each; a
+// 4-stage ring, 2 at 256), each stage's kv ids (SEG) and step record, room
+// for two tiles' 128 staged lse and delta values, then the mbarriers. About
+// 194 KB at D = 128 and at 256.
 template <int D>
 struct DqSmem {
+  static constexpr int TILES = D == 256 ? 1 : 2, STAGES = D == 256 ? 2 : 4;
   static constexpr uint32_t TILE = kBlockM * D * 2;  // a 64-row tile: 16 KB at D = 128
-  static constexpr uint32_t Q = 0, DO = 2 * TILE, K = 4 * TILE;
-  static constexpr uint32_t V = K + kDqStages * TILE;
-  static constexpr uint32_t KID = V + kDqStages * TILE;
-  static constexpr uint32_t STEP = KID + kDqStages * kBlockN * 4;
-  static constexpr uint32_t LSE = STEP + kDqStages * 8;
+  static constexpr uint32_t Q = 0, DO = TILES * TILE, K = 2 * TILES * TILE;
+  static constexpr uint32_t V = K + STAGES * TILE;
+  static constexpr uint32_t KID = V + STAGES * TILE;
+  static constexpr uint32_t STEP = KID + STAGES * kBlockN * 4;
+  static constexpr uint32_t LSE = STEP + STAGES * 8;
   static constexpr uint32_t DELTA = LSE + 2 * kBlockM * 4;
   static constexpr uint32_t BARS = DELTA + 2 * kBlockM * 4;  // full, empty, q
-  static constexpr uint32_t BYTES = BARS + (2 * kDqStages + 1) * 8;
+  static constexpr uint32_t BYTES = BARS + (2 * STAGES + 1) * 8;
 };
 
 template <int D, bool SEG, bool DENSE>
 __global__ void __launch_bounds__(kKvThreads, 1)
     fa2_bwd_dq_kernel(const BwdParams p, const __grid_constant__ BwdMaps maps) {
-  static_assert(D == 64 || D == 128, "the dq kernel takes head_dim 64 or 128");
+  static_assert(D == 64 || D == 128 || (D == 256 && !SEG && !DENSE),
+                "the dq kernel takes head_dim 64 or 128, and 256 compact and unsegmented");
   using L = DqSmem<D>;
+  constexpr int kDqStages = L::STAGES;
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are dropped before their fetch
+  // Head_dim 256: the CTA owns one q tile and consumer warpgroup w holds
+  // columns [128 w, 128 w + 128) of its dQ (the header says why).
+  constexpr bool HALF = D == 256;
+  constexpr int DC = HALF ? D / 2 : D;  // columns of dQ a warpgroup holds
   constexpr int BM = kBlockM, BN = kBlockN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -901,8 +978,10 @@ __global__ void __launch_bounds__(kKvThreads, 1)
   // producer walks and classifies; the consumers read this.
   int2* sStep = reinterpret_cast<int2*>(sm + L::STEP);
 
-  const int i0 = 2 * ((p.t_q + 1) / 2 - 1 - static_cast<int>(blockIdx.x));  // longest walks first
-  const bool has1 = i0 + 1 < p.t_q;  // an odd t_q leaves the last pair one tile
+  // Longest walks first.
+  const int i0 = HALF ? p.t_q - 1 - static_cast<int>(blockIdx.x)
+                      : 2 * ((p.t_q + 1) / 2 - 1 - static_cast<int>(blockIdx.x));
+  const bool has1 = !HALF && i0 + 1 < p.t_q;  // an odd t_q leaves the last pair one tile
   const int bh = blockIdx.y;
   const int b = bh / p.Hq, h = bh % p.Hq, hk = h / p.group;
   if (threadIdx.x == 0) {
@@ -1055,11 +1134,14 @@ __global__ void __launch_bounds__(kKvThreads, 1)
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    // Consumer warpgroup w owns q tile i0 + w: rows q0 .. q0 + 63.
+    // Consumer warpgroup w owns q tile i0 + w: rows q0 .. q0 + 63 (HALF:
+    // both own tile i0, w its columns [128 w, 128 w + 128) of dQ).
     const int w = wg - 1;
     const int t = threadIdx.x - 128 * wg;
     const int wq = t / 32, lane = t % 32, g8 = lane / 4, t4 = lane % 4;
-    const int q0 = (i0 + w) * BM;
+    const int wt = HALF ? 0 : w;  // its q tile of the pair
+    const uint32_t cols_at = HALF ? w * 16384 : 0;  // its columns' first box in a K stage
+    const int q0 = (i0 + wt) * BM;
     const int r_a = wq * 16 + g8;  // this thread's rows of the tile: r_a, r_a + 8
     const int row_a = q0 + r_a, row_b = row_a + 8;
     int qid[2] = {0, 0};
@@ -1068,21 +1150,23 @@ __global__ void __launch_bounds__(kKvThreads, 1)
       qid[0] = row_a < p.Sq ? qid_g[row_a] : kQPadSegment;
       qid[1] = row_b < p.Sq ? qid_g[row_b] : kQPadSegment;
     }
-    const int take = w ? kTake1 : kTake0, needs_mask = w ? kMask1 : kMask0;
-    const uint32_t sQ = smem_u32(sm + L::Q) + w * L::TILE;
-    const uint32_t sdO = smem_u32(sm + L::DO) + w * L::TILE;
+    const int take = wt ? kTake1 : kTake0, needs_mask = wt ? kMask1 : kMask0;
+    const uint32_t sQ = smem_u32(sm + L::Q) + wt * L::TILE;
+    const uint32_t sdO = smem_u32(sm + L::DO) + wt * L::TILE;
     const uint32_t sK = smem_u32(sm + L::K), sV = smem_u32(sm + L::V);
+    const uint32_t sKc = sK + cols_at;  // dS K's B operand: the warpgroup's columns of K
 
-    // dQ of the tile: rows r_a / r_a + 8, columns 8 tt + 2 t4 (+1).
-    float dq[D / 2];
+    // dQ of the tile: rows r_a / r_a + 8, columns 8 tt + 2 t4 (+1) (HALF: of
+    // the warpgroup's half).
+    float dq[DC / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    for (int i = 0; i < DC / 2; ++i) dq[i] = 0.f;
     uint32_t pc[4][4];  // dS of the pending step: bf16 A fragments of dQ += dS K
     int pend = -1;      // the stage whose dQ += dS K is not issued yet
 
     mbar_wait(q_bar, 0);
-    const float lse_r[2] = {sLse[w * BM + r_a], sLse[w * BM + r_a + 8]};
-    const float delta_r[2] = {sDelta[w * BM + r_a], sDelta[w * BM + r_a + 8]};
+    const float lse_r[2] = {sLse[wt * BM + r_a], sLse[wt * BM + r_a + 8]};
+    const float delta_r[2] = {sDelta[wt * BM + r_a], sDelta[wt * BM + r_a + 8]};
     for (int n = 0;; ++n) {
       const int stage = n % kDqStages;
       mbar_wait(&full[stage], (n / kDqStages) & 1);
@@ -1097,7 +1181,7 @@ __global__ void __launch_bounds__(kKvThreads, 1)
         // stays held while the producer waits for it, and release both.
         if (pend >= 0) {
           wgmma_fence();
-          wgmma_rs_k64<D>(dq, pc, sK + pend * L::TILE);
+          wgmma_rs_k64<DC>(dq, pc, sKc + pend * L::TILE);
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(dq);
@@ -1135,7 +1219,7 @@ __global__ void __launch_bounds__(kKvThreads, 1)
         wgmma_ss_n64<0, 0>(dp, sw128_desc(sdO + (kk >> 2) * 8192 + (kk & 3) * 32, 16),
                            sw128_desc(cV + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
       wgmma_commit();
-      wgmma_rs_k64<D>(dq, pc, sK + (first ? stage : pend) * L::TILE);
+      wgmma_rs_k64<DC>(dq, pc, sKc + (first ? stage : pend) * L::TILE);
       wgmma_commit();
       wgmma_wait<2>();
       fence_regs(s);
@@ -1188,7 +1272,7 @@ __global__ void __launch_bounds__(kKvThreads, 1)
     }
     if (pend >= 0) {  // the last step's dQ += dS K
       wgmma_fence();
-      wgmma_rs_k64<D>(dq, pc, sK + pend * L::TILE);
+      wgmma_rs_k64<DC>(dq, pc, sKc + pend * L::TILE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
@@ -1197,11 +1281,12 @@ __global__ void __launch_bounds__(kKvThreads, 1)
       mbar_arrive(&empty[pend]);
     }
 
-    // dQ of the tile, written once (zeros where the tile took no step).
+    // dQ of the tile, written once (zeros where the tile took no step; HALF:
+    // each warpgroup its half of the columns).
     const long long rs = static_cast<long long>(p.Hq) * D;
-    float* out = p.dq + static_cast<long long>(b) * p.Sq * rs + h * D + 2 * t4;
+    float* out = p.dq + static_cast<long long>(b) * p.Sq * rs + h * D + (HALF ? w * DC : 0) + 2 * t4;
 #pragma unroll
-    for (int tt = 0; tt < D / 8; ++tt) {
+    for (int tt = 0; tt < DC / 8; ++tt) {
       if (row_a < p.Sq)
         *reinterpret_cast<float2*>(out + row_a * rs + tt * 8) = make_float2(dq[4 * tt], dq[4 * tt + 1]);
       if (row_b < p.Sq)
@@ -1264,14 +1349,15 @@ bool make_maps(BwdMaps* maps, const BwdParams& p, int batch, int D, int kv_rows)
 template <int D, bool DQ, bool SEG, bool DENSE>
 cudaError_t launch_kv(const BwdParams& p, int batch, int t_kv, void* stream) {
   BwdMaps maps;
-  if (!make_maps(&maps, p, batch, D, kPairRows)) return cudaErrorInvalidValue;
+  if (!make_maps(&maps, p, batch, D, kv_rows<D>())) return cudaErrorInvalidValue;
   auto kernel = DQ ? fa2_bwd_fused_kernel<D, SEG, DENSE> : fa2_bwd_dkv_kernel<D, SEG, DENSE>;
   const size_t smem = KvSmem<D, DQ>::BYTES + 1024;  // + the 1024-byte alignment of the base
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(batch * p.Hkv, (t_kv + 1) / 2), kKvThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(p, maps);
+  const int ctas = D == 256 ? t_kv : (t_kv + 1) / 2;  // one kv tile a CTA at 256, else a pair
+  kernel<<<dim3(batch * p.Hkv, ctas), kKvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, maps);
   return cudaGetLastError();
 }
 
@@ -1279,18 +1365,24 @@ cudaError_t launch_kv(const BwdParams& p, int batch, int t_kv, void* stream) {
 template <int D, bool DQ>
 cudaError_t dispatch_kv(const BwdParams& p, int batch, int t_kv, bool seg, bool dense,
                         void* stream) {
-  if (dense)
-    return seg ? launch_kv<D, DQ, true, true>(p, batch, t_kv, stream)
-               : launch_kv<D, DQ, false, true>(p, batch, t_kv, stream);
-  return seg ? launch_kv<D, DQ, true, false>(p, batch, t_kv, stream)
-             : launch_kv<D, DQ, false, false>(p, batch, t_kv, stream);
+  if constexpr (D == 256) {  // compact and unsegmented only (ROADMAP.md queue 2, item 2)
+    if (seg || dense) return cudaErrorInvalidValue;
+    return launch_kv<256, DQ, false, false>(p, batch, t_kv, stream);
+  } else {
+    if (dense)
+      return seg ? launch_kv<D, DQ, true, true>(p, batch, t_kv, stream)
+                 : launch_kv<D, DQ, false, true>(p, batch, t_kv, stream);
+    return seg ? launch_kv<D, DQ, true, false>(p, batch, t_kv, stream)
+               : launch_kv<D, DQ, false, false>(p, batch, t_kv, stream);
+  }
 }
 
 template <bool DQ>
 cudaError_t dispatch_kv_by_dim(const BwdParams& p, int batch, int t_kv, int head_dim, bool seg,
                                bool dense, void* stream) {
-  return head_dim == 64 ? dispatch_kv<64, DQ>(p, batch, t_kv, seg, dense, stream)
-                        : dispatch_kv<128, DQ>(p, batch, t_kv, seg, dense, stream);
+  return head_dim == 64    ? dispatch_kv<64, DQ>(p, batch, t_kv, seg, dense, stream)
+         : head_dim == 128 ? dispatch_kv<128, DQ>(p, batch, t_kv, seg, dense, stream)
+                           : dispatch_kv<256, DQ>(p, batch, t_kv, seg, dense, stream);
 }
 
 // The dq kernel of one (D, SEG, DENSE): one CTA per (pair of q tiles,
@@ -1304,23 +1396,31 @@ cudaError_t launch_dq(const BwdParams& p, int batch, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((p.t_q + 1) / 2, batch * p.Hq), kKvThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(p, maps);
+  const int ctas = D == 256 ? p.t_q : (p.t_q + 1) / 2;  // one q tile a CTA at 256, else a pair
+  kernel<<<dim3(ctas, batch * p.Hq), kKvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, maps);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t dispatch_dq(const BwdParams& p, int batch, bool seg, bool dense, void* stream) {
-  if (dense)
-    return seg ? launch_dq<D, true, true>(p, batch, stream)
-               : launch_dq<D, false, true>(p, batch, stream);
-  return seg ? launch_dq<D, true, false>(p, batch, stream)
-             : launch_dq<D, false, false>(p, batch, stream);
+  if constexpr (D == 256) {  // compact and unsegmented only (ROADMAP.md queue 2, item 2)
+    if (seg || dense) return cudaErrorInvalidValue;
+    return launch_dq<256, false, false>(p, batch, stream);
+  } else {
+    if (dense)
+      return seg ? launch_dq<D, true, true>(p, batch, stream)
+                 : launch_dq<D, false, true>(p, batch, stream);
+    return seg ? launch_dq<D, true, false>(p, batch, stream)
+               : launch_dq<D, false, false>(p, batch, stream);
+  }
 }
 
-// The head dims and tiles the backward kernels are instantiated for.
+// The head dims and tiles the backward kernels are instantiated for (256:
+// the compact, unsegmented kernels only).
 bool kernel_shape_ok(int head_dim, int block_q, int block_kv) {
-  return (head_dim == 64 || head_dim == 128) && block_q == kBlockM && block_kv == kBlockN;
+  return (head_dim == 64 || head_dim == 128 || head_dim == 256) && block_q == kBlockM &&
+         block_kv == kBlockN;
 }
 
 }  // namespace
@@ -1349,6 +1449,8 @@ extern "C" int fa2_bwd_delta_bf16(const void* o, const void* dout, void* delta, 
     fa2_bwd_delta_kernel<64><<<grid, kDeltaThreads, smem, s>>>(p);
   else if (head_dim == 128)
     fa2_bwd_delta_kernel<128><<<grid, kDeltaThreads, smem, s>>>(p);
+  else if (head_dim == 256)
+    fa2_bwd_delta_kernel<256><<<grid, kDeltaThreads, smem, s>>>(p);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -1357,7 +1459,8 @@ extern "C" int fa2_bwd_delta_bf16(const void* o, const void* dout, void* delta, 
 // The entries below take the instantiations the training paths need
 // (head_dim 128: qwen3; 64: whisper and the gpt presets; 64 x 64 tiles),
 // without and with segments (null q ids: none), on the compact schedule
-// (table, step bits) or the dense one (dense != 0: neither).
+// (table, step bits) or the dense one (dense != 0: neither); at head_dim 256
+// (gemma3) only compact and unsegmented.
 
 extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dq, void* dk,
@@ -1426,6 +1529,7 @@ extern "C" int fa2_bwd_dq_bf16(const void* q, const void* k, const void* v, cons
   p.t_q = t_q;
   if (t_q < 1 || !schedule_args_ok(p, dense)) return cudaErrorInvalidValue;
   const bool seg = q_seg != nullptr;
-  return head_dim == 64 ? dispatch_dq<64>(p, batch, seg, dense != 0, stream)
-                        : dispatch_dq<128>(p, batch, seg, dense != 0, stream);
+  return head_dim == 64    ? dispatch_dq<64>(p, batch, seg, dense != 0, stream)
+         : head_dim == 128 ? dispatch_dq<128>(p, batch, seg, dense != 0, stream)
+                           : dispatch_dq<256>(p, batch, seg, dense != 0, stream);
 }

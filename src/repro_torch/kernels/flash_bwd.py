@@ -22,7 +22,8 @@ Hopper the kv-tile CTAs run in parallel and in no order, so nothing marks a
 first visit: delta is this pre-pass, and dq is an f32 buffer that the
 wrapper zeroes and every CTA adds its dS K contribution into, a 64-row tile
 at a time by bulk reduction (``cp.reduce.async.bulk``). dK and dV need no
-atomics: a CTA owns a pair of kv tiles and walks the G q heads that share
+atomics: a CTA owns a pair of kv tiles (one at head_dim 256, whose halves
+of head_dim its two warpgroups split) and walks the G q heads that share
 them and, per head, the union of the two tiles' visible q tiles
 (``schedule.build_kv_tile_schedule``, ``schedule.pair_walk``), on wgmma with
 TMA loads. The sums in dq come in no fixed order, so dq is not bitwise
@@ -79,15 +80,20 @@ from repro_torch.kernels.flash_fwd import (_check_kernel_inputs, _check_layout, 
 from repro_torch.kernels.schedule import check_schedule, device_schedule
 
 # Head dims the backward kernels are instantiated for: 128 (qwen3) and 64
-# (whisper-base, the gpt presets). Each wrapper also counts its head_dim-64
-# launches apart (``hd64_launches``, a subset of its other counts).
-KERNEL_HEAD_DIMS = (64, 128)
+# (whisper-base, the gpt presets) in every mode; 256 (gemma3-1b) compact and
+# unsegmented only (its segment and dense modes are ROADMAP.md queue 2, item
+# 2). Each wrapper also counts its head_dim-64 and head_dim-256 launches
+# apart (``hd64_launches``, ``hd256_launches``: subsets of its other counts).
+KERNEL_HEAD_DIMS = (64, 128, 256)
+ALL_MODES_HEAD_DIMS = (64, 128)
 
 
 def _count(wrapper, schedule: str, head_dim: int) -> None:
     count_launch(wrapper, schedule)
     if head_dim == 64:
         wrapper.hd64_launches += 1
+    elif head_dim == 256:
+        wrapper.hd256_launches += 1
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -119,14 +125,13 @@ def flash_bwd_delta(o, do):
         B, Hq, Sq, D, _stream(o),
     )
     _build.check(err, "fa2_bwd_delta_bf16")
-    flash_bwd_delta.launches += 1
-    if D == 64:
-        flash_bwd_delta.hd64_launches += 1
+    _count(flash_bwd_delta, "compact", D)
     return delta
 
 
 flash_bwd_delta.launches = 0  # kernel launches (CUDA tensors only)
 flash_bwd_delta.hd64_launches = 0  # of which at head_dim 64
+flash_bwd_delta.hd256_launches = 0  # of which at head_dim 256
 
 
 def flash_bwd_delta_plain(o, do):
@@ -166,6 +171,7 @@ def flash_bwd_fused(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, bl
 flash_bwd_fused.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_fused.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_fused.hd64_launches = 0  # launches of either schedule at head_dim 64
+flash_bwd_fused.hd256_launches = 0  # launches at head_dim 256 (compact only)
 
 
 def flash_bwd_fused_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, *,
@@ -178,6 +184,7 @@ def flash_bwd_fused_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_se
 flash_bwd_fused_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_fused_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_fused_varlen.hd64_launches = 0  # launches of either schedule at head_dim 64
+flash_bwd_fused_varlen.hd256_launches = 0  # launches at head_dim 256 (compact only)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int,
@@ -191,6 +198,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, bloc
 flash_bwd_dkv.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dkv.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_dkv.hd64_launches = 0  # launches of either schedule at head_dim 64
+flash_bwd_dkv.hd256_launches = 0  # launches at head_dim 256 (compact only)
 
 
 def flash_bwd_dkv_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, *,
@@ -203,6 +211,7 @@ def flash_bwd_dkv_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg,
 flash_bwd_dkv_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dkv_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_dkv_varlen.hd64_launches = 0  # launches of either schedule at head_dim 64
+flash_bwd_dkv_varlen.hd256_launches = 0  # launches at head_dim 256 (compact only)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int,
@@ -215,6 +224,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block
 flash_bwd_dq.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dq.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_dq.hd64_launches = 0  # launches of either schedule at head_dim 64
+flash_bwd_dq.hd256_launches = 0  # launches at head_dim 256 (compact only)
 
 
 def flash_bwd_dq_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, *,
@@ -227,6 +237,7 @@ def flash_bwd_dq_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, 
 flash_bwd_dq_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dq_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_dq_varlen.hd64_launches = 0  # launches of either schedule at head_dim 64
+flash_bwd_dq_varlen.hd256_launches = 0  # launches at head_dim 256 (compact only)
 
 
 def _plain_kw(segments, block_q, block_kv, schedule):
@@ -320,6 +331,11 @@ def _kernel_args(what, q, k, v, do, lse, delta, spec, block_q, block_kv, segment
     (arguments, tensors to hold until the launch)."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
+    modes = [m for m, on in (("segment", segments is not None),
+                             ("dense", schedule == "dense")) if on]
+    if modes and D not in ALL_MODES_HEAD_DIMS:
+        raise ValueError(f"{what}'s {' and '.join(modes)} mode takes head_dim in "
+                         f"{ALL_MODES_HEAD_DIMS}, got {D} (ROADMAP.md queue 2, item 2)")
     _check_kernel_inputs(what, (block_q, block_kv), KERNEL_HEAD_DIMS, q=q, k=k, v=v, do=do)
     if lse.device != q.device or delta.device != q.device:
         raise ValueError("lse and delta must lie on q's device")

@@ -12,12 +12,16 @@ Usage:
   python -m repro_torch.launch.train --arch qwen3-8b --reduce --device cpu --steps 4
   python -m repro_torch.launch.train --preset gpt-20m --device cpu --steps 2
   python -m repro_torch.launch.train --arch qwen3-8b --reduce --device cpu --packed --steps 2
+  python -m repro_torch.launch.train --arch gemma3-1b --steps 4
 
 ``--device cuda`` (the default) needs a card and raises without one. The
-CUDA kernels take bfloat16 at head_dim 64 and 128: the presets and the
-reduced configs are float32 (their CPU parity with the JAX package holds
-in f32), so on the card train a preset with ``--dtype bfloat16``. A model
-the kernels cannot take (float32, or head_dim 160 or 256) is refused
+CUDA kernels take bfloat16 at head_dim 64, 128 and 256: the presets and
+the reduced configs are float32 (their CPU parity with the JAX package
+holds in f32), so on the card train a preset with ``--dtype bfloat16``.
+gemma3-1b (bfloat16, head_dim 256) trains at its published widths and
+depth through the head_dim-256 forward, delta and fused backward kernels
+(``attn_bwd="split"``: delta, dK/dV and dQ). A model the kernels cannot
+take (float32, head_dim 160, or ``--packed`` at head_dim 256) is refused
 before anything reaches the card (``core.attention.check_card_support``).
 """
 
@@ -96,7 +100,7 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, opt_cfg: Optional[AdamWConfig
     the step, data excluded, ending in a device synchronise)."""
     opt_cfg = opt_cfg or AdamWConfig(total_steps=loop.steps)
     attn_cfg = AttentionConfig(impl=loop.attn_impl, bwd=loop.attn_bwd)
-    check_card_support(cfg, attn_cfg, loop.device, training=True)
+    check_card_support(cfg, attn_cfg, loop.device, training=True, packed=loop.packed)
     data = make_source(DataConfig(batch_size=loop.batch_size, seq_len=loop.seq_len,
                                   vocab_size=cfg.vocab_size, seed=loop.seed,
                                   source="packed" if loop.packed else "synthetic"))

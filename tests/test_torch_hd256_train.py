@@ -1,0 +1,226 @@
+"""The head_dim-256 backward (gemma3-1b's training) on the port against the
+JAX package on the CPU: the delta, fused, dK/dV and dQ kernels' plain
+versions (which the CUDA kernels are held to on the card) against the
+Pallas kernels in interpret mode on the same numpy inputs, then reduced
+gemma3-1b with its head_dim put back to 256 (one layer pattern: 5 windowed
+layers and a global one, one kv head for four q heads, the window below S)
+against the JAX ``build_train_step`` on its Pallas kernels (fused and
+split): one loss with its gradients, and three AdamW steps."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jax_registry
+from repro.core.attention import AttentionConfig as JaxAttentionConfig
+from repro.core.masks import MaskSpec as JaxMaskSpec
+from repro.data.pipeline import DataConfig as JaxDataConfig
+from repro.data.pipeline import SyntheticLM as JaxSyntheticLM
+from repro.kernels import flash_bwd as jax_bwd
+from repro.launch import steps as jax_steps
+from repro.models import lm as jax_lm
+from repro.training import optimizer as jax_opt
+from repro_torch.configs import registry
+from repro_torch.core.attention import AttentionConfig
+from repro_torch.core.masks import MaskSpec
+from repro_torch.kernels import flash_bwd as bwd_mod
+from repro_torch.kernels import flash_fwd as fwd_mod
+from repro_torch.launch import steps
+from repro_torch.models.lm import LM, params_from_jax
+from repro_torch.training import optimizer
+from test_torch_serving import jax_trace_state  # noqa: F401  (the per-test JAX shim)
+from test_torch_train import GRAD_TOL, LOSS_TOL, PACKED_MOVE_TOL
+
+D = 256
+TOL = dict(atol=2e-5, rtol=2e-5)  # f32 on both sides: summation order and tiling only
+BLOCK = 32
+
+# name: (B, S, Hq, Hkv, spec): gemma3's grouping (G 4 over one kv head),
+# causal and windowed with sinks; G 1 without a mask; a ragged S (100, 130)
+# that no block divides.
+CASES = {
+    "causal_g4": (1, 96, 4, 1, dict(causal=True)),
+    "window_sink_g4_ragged": (1, 130, 4, 1, dict(causal=True, window=40, sink=8)),
+    "full_g1": (1, 64, 2, 2, dict(causal=False)),
+    "causal_g1_ragged": (2, 100, 1, 1, dict(causal=True)),
+}
+KERNELS = ("delta", "fused", "dkv", "dq")
+
+
+def _heads(x, rows):
+    """(B, S, H, D) numpy -> the JAX kernels' (B*H, rows, D), zero-padded."""
+    B, S, H, _ = x.shape
+    return np.pad(x.transpose(0, 2, 1, 3).reshape(B * H, S, D), ((0, 0), (0, rows - S), (0, 0)))
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("name", list(CASES))
+def test_backward_kernel_at_head_dim_256_matches_pallas(name, kernel):
+    """The port's wrapper on CPU tensors (its plain version) against the
+    Pallas kernel in interpret mode on the heads layout, from the same
+    pre-scaled q, forward outputs, lse and delta. dO is scaled by 1/sqrt(D)
+    as q is, so that dP = dO V^T has unit scale as in the head_dim-16 tests
+    (tests/test_torch_flash_bwd.py) and TOL measures the same f32 noise:
+    with unit dO, dP - delta on a row whose P is one-hot cancels to noise of
+    16x the size, which dq carries (3e-5 measured)."""
+    B, S, Hq, Hk, spec_kw = CASES[name]
+    rng = np.random.default_rng(sorted(CASES).index(name))
+    scale = 1 / np.sqrt(D, dtype=np.float32)
+    q = rng.standard_normal((B, S, Hq, D), dtype=np.float32) * scale
+    k, v = (rng.standard_normal((B, S, Hk, D), dtype=np.float32) for _ in range(2))
+    do = rng.standard_normal((B, S, Hq, D), dtype=np.float32) * scale
+    spec, jspec = MaskSpec(**spec_kw), JaxMaskSpec(**spec_kw)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = fwd_mod.flash_fwd(tq, tk, tv, spec, block_q=BLOCK, block_kv=BLOCK)
+    delta = bwd_mod.flash_bwd_delta(o, tdo)
+    args = (tq, tk, tv, tdo, lse, delta, spec)
+    tiles = dict(block_q=BLOCK, block_kv=BLOCK)
+    Sp = -(-S // BLOCK) * BLOCK
+    unheads = lambda x, H: np.asarray(x)[:, :S].reshape(B, H, S, D).transpose(0, 2, 1, 3)
+    lanes = lambda x: np.pad(x.reshape(B * Hq, S).numpy(), ((0, 0), (0, Sp - S)))
+    kw = dict(group=Hq // Hk, block_q=BLOCK, block_kv=BLOCK, kv_valid=S, interpret=True)
+    if kernel == "delta":
+        want = jax_bwd.flash_bwd_delta(_heads(o.numpy(), Sp), _heads(do, Sp), block_q=BLOCK,
+                                       interpret=True)
+        assert delta.shape == (B, Hq, S)
+        np.testing.assert_allclose(delta.numpy(), np.asarray(want)[:, :S].reshape(B, Hq, S),
+                                   **TOL)
+        return
+    if kernel == "fused":
+        got = dict(zip(("dq", "dk", "dv"), bwd_mod.flash_bwd_fused(*args, **tiles)))
+        # The fused Pallas kernel takes the raw lse and computes delta itself.
+        jdk, jdv, jdq = jax_bwd.flash_bwd_fused(
+            _heads(q, Sp), _heads(k, Sp), _heads(v, Sp), _heads(o.numpy(), Sp), _heads(do, Sp),
+            lanes(lse), jspec, **kw)
+        want = dict(dq=jdq, dk=jdk, dv=jdv)
+    else:
+        # The split Pallas kernels take lse with fully masked rows zeroed and
+        # delta, as the JAX wrapper hands them over (ops._core_bwd).
+        lse_s = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
+        jargs = (_heads(q, Sp), _heads(k, Sp), _heads(v, Sp), _heads(do, Sp), lanes(lse_s),
+                 lanes(delta))
+        if kernel == "dkv":
+            got = dict(zip(("dk", "dv"), bwd_mod.flash_bwd_dkv(*args, **tiles)))
+            want = dict(zip(("dk", "dv"), jax_bwd.flash_bwd_dkv(*jargs, jspec, **kw)))
+        else:
+            got = dict(dq=bwd_mod.flash_bwd_dq(*args, **tiles))
+            want = dict(dq=jax_bwd.flash_bwd_dq(*jargs, jspec, **kw))
+    for g, a in got.items():
+        b = unheads(want[g], Hq if g == "dq" else Hk)
+        assert a.dtype == torch.float32 and a.shape == b.shape, g
+        np.testing.assert_allclose(a.numpy(), b, err_msg=g, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# gemma3-1b at head_dim 256, reduced otherwise: the training step
+# ---------------------------------------------------------------------------
+
+B, S = 2, 64  # S above the reduced window (32)
+JAX_ATTN = JaxAttentionConfig(impl="flash_pallas", interpret=True, use_tuned=False)
+
+
+def _gemma3_256(reg):
+    """Reduced gemma3-1b with head_dim 256 and one layer pattern (6 layers)."""
+    cfg = reg.reduce_config(reg.get("gemma3-1b"))
+    return dataclasses.replace(cfg, head_dim=256, num_layers=len(cfg.layer_pattern))
+
+
+@pytest.fixture(scope="module")
+def gemma3():
+    jcfg = _gemma3_256(jax_registry)
+    cfg = _gemma3_256(registry)
+    assert (cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.num_layers) == (256, 4, 1, 6)
+    assert cfg.layer_pattern == ("attn_local",) * 5 + ("attn",) and cfg.window == 32 < S
+    assert cfg.remat and cfg.dtype == "float32" and cfg.tie_embeddings and cfg.qk_norm
+    return jcfg, jax_lm.init_lm(jcfg, jax.random.PRNGKey(3)), cfg
+
+
+def _port_model(cfg, jparams):
+    model = LM(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(cfg, jax.tree.map(np.asarray, jparams)))
+    return model
+
+
+def _batch(cfg, step):
+    return JaxSyntheticLM(JaxDataConfig(batch_size=B, seq_len=S, vocab_size=cfg.vocab_size,
+                                        seed=0)).batch(step)
+
+
+@pytest.mark.parametrize("bwd", ["fused", "split"])
+def test_gemma3_loss_and_gradients_at_head_dim_256_match_jax(gemma3, jax_trace_state, bwd):
+    """One loss and its gradients, the JAX side through the Pallas backward
+    of the same mode as the port's."""
+    jcfg, jparams, cfg = gemma3
+    inputs, targets = _batch(cfg, 0)
+    jattn = dataclasses.replace(JAX_ATTN, bwd=bwd)
+    grad_fn = jax.jit(jax.value_and_grad(
+        lambda p, b: jax_steps.loss_fn(jcfg, jattn, p, b), has_aux=True))
+    (jloss, _), jgrads = grad_fn(jparams, {"inputs": jnp.asarray(inputs),
+                                           "targets": jnp.asarray(targets)})
+
+    model = _port_model(cfg, jparams)
+    batch = {"inputs": torch.from_numpy(inputs).long(), "targets": torch.from_numpy(targets)}
+    loss, _ = steps.loss_fn(cfg, AttentionConfig(impl="flash_cuda", bwd=bwd), model, batch)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), **LOSS_TOL)
+    want = params_from_jax(cfg, jax.tree.map(np.asarray, jgrads))
+    got = {n: p.grad for n, p in model.named_parameters()}
+    assert sorted(got) == sorted(want)
+    for name, g in got.items():
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), err_msg=name, **GRAD_TOL)
+
+
+def test_gemma3_three_train_steps_at_head_dim_256_match_jax(gemma3, jax_trace_state):
+    """Three AdamW steps through the split backward on both sides (the
+    fused one is held above): losses, gradient norms and learning rates
+    every step, and the parameters after the third."""
+    jcfg, jparams, cfg = gemma3
+    opt_cfg = dict(warmup_steps=2, total_steps=3, lr=1e-2)
+    jattn = dataclasses.replace(JAX_ATTN, bwd="split")
+    jstep = jax.jit(jax_steps.build_train_step(jcfg, jattn, jax_opt.AdamWConfig(**opt_cfg)))
+    jstate = jax_opt.init_opt_state(jparams)
+    model = _port_model(cfg, jparams)
+    state = optimizer.init_opt_state(dict(model.named_parameters()))
+    step_fn = steps.build_train_step(cfg, AttentionConfig(impl="flash_cuda", bwd="split"),
+                                     optimizer.AdamWConfig(**opt_cfg))
+    jp, want, got = jparams, [], []
+    for step in range(3):
+        inputs, targets = _batch(cfg, step)
+        jp, jstate, jm = jstep(jp, jstate, {"inputs": jnp.asarray(inputs),
+                                            "targets": jnp.asarray(targets)})
+        want.append([float(jm[k]) for k in ("loss", "grad_norm", "lr")])
+        state, m = step_fn(model, state, {"inputs": torch.from_numpy(inputs).long(),
+                                          "targets": torch.from_numpy(targets)})
+        got.append([m[k] for k in ("loss", "grad_norm", "lr")])
+    np.testing.assert_allclose(np.array(got), np.array(want), **LOSS_TOL)
+    assert got[2][0] < got[0][0]
+    # Each parameter tensor as a whole (tests/test_torch_train.py says why:
+    # Adam turns an element's near-zero first gradient, f32 noise here, into
+    # a whole update; one w_gate element of 8192 sat 0.02 lr apart).
+    final = params_from_jax(cfg, jax.tree.map(np.asarray, jp))
+    start = params_from_jax(cfg, jax.tree.map(np.asarray, jparams))
+    for name, p in model.named_parameters():
+        moved = np.linalg.norm(final[name].numpy() - start[name].numpy())
+        apart = np.linalg.norm(p.detach().numpy() - final[name].numpy())
+        assert moved > 0 and apart <= PACKED_MOVE_TOL * moved, (name, apart, moved)
+
+
+def test_segment_and_dense_modes_refuse_head_dim_256_before_the_launch():
+    """At 256 the backward wrappers take only the compact, unsegmented
+    kernels; on a CUDA device the other modes raise before anything is
+    launched (the check needs no card: it reads only shapes and the mode)."""
+    q = torch.empty((1, 64, 4, D), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((1, 64, 1, D), dtype=torch.bfloat16, device="meta")
+    lse = torch.empty((1, 4, 64), dtype=torch.float32, device="meta")
+    ids = torch.empty((1, 64), dtype=torch.int32, device="meta")
+    spec = MaskSpec(causal=True)
+    for what, segments, schedule in (("segment", (ids, ids), "compact"),
+                                     ("dense", None, "dense")):
+        with pytest.raises(ValueError, match=f"{what} mode takes head_dim in .*queue 2, item 2"):
+            bwd_mod._kernel_args("the CUDA dK/dV kernel", q, k, k, q, lse, lse, spec, 64, 64,
+                                 segments, q_major=False, schedule=schedule)
+    assert 256 in bwd_mod.KERNEL_HEAD_DIMS and 256 not in bwd_mod.ALL_MODES_HEAD_DIMS

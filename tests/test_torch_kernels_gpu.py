@@ -200,8 +200,18 @@ DELTA_CASES = [
 ]
 
 
+def _counts(wrapper):
+    """A backward wrapper's (launches, head_dim-64 launches, head_dim-256 launches)."""
+    return wrapper.launches, wrapper.hd64_launches, wrapper.hd256_launches
+
+
+def _after_one(before, D):
+    """The counts of ``_counts`` after one launch at head_dim D."""
+    return before[0] + 1, before[1] + (D == 64), before[2] + (D == 256)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [128, 64])
+@pytest.mark.parametrize("D", [128, 64, 256])
 @pytest.mark.parametrize("B,S,Hq,view", DELTA_CASES)
 def test_delta_kernel_matches_plain(cuda, B, S, Hq, view, D):
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -209,11 +219,10 @@ def test_delta_kernel_matches_plain(cuda, B, S, Hq, view, D):
     if view == "transposed":
         do = do.transpose(1, 2).contiguous().transpose(1, 2)
         assert not do.is_contiguous()
-    before = (bwd_mod.flash_bwd_delta.launches, bwd_mod.flash_bwd_delta.hd64_launches)
+    before = _counts(bwd_mod.flash_bwd_delta)
     delta = bwd_mod.flash_bwd_delta(o, do)
     torch.cuda.synchronize()
-    assert (bwd_mod.flash_bwd_delta.launches, bwd_mod.flash_bwd_delta.hd64_launches) == (
-        before[0] + 1, before[1] + (D == 64))
+    assert _counts(bwd_mod.flash_bwd_delta) == _after_one(before, D)
     assert _err(delta, bwd_mod.flash_bwd_delta_plain(o, do)) < DELTA_TOL
 
 
@@ -275,6 +284,22 @@ def _unseen_rows(spec):
     return max(-spec.q_offset, 0) // 64 * 64
 
 
+# Head dim 256 (gemma3-1b): its grouping (4 q heads over one kv head), its
+# 512-token window and the window with sinks, at the training length and at
+# ragged ones (odd numbers of tiles: the KV-stationary and dq kernels own
+# one tile a CTA at 256), rows that see no key (q_offset -100), G 1, and
+# strided views.
+G3_BWD_CASES = [
+    (4, 2048, 4, 1, dict(causal=True), "contiguous"),
+    (4, 2048, 4, 1, dict(causal=True, window=512), "contiguous"),
+    (1, 700, 4, 1, dict(causal=True, window=512), "contiguous"),
+    (2, 333, 4, 1, dict(causal=True, window=100, sink=4), "strided"),
+    (1, 300, 4, 1, dict(causal=True, q_offset=-100), "contiguous"),
+    (2, 200, 4, 4, dict(causal=False), "contiguous"),
+    (1, 64, 4, 1, dict(causal=True), "contiguous"),
+]
+
+
 # Rectangular and ragged shapes at whisper's sizes and beyond, (B, Sq, Skv,
 # H, spec): the cross-attention (448 decoder rows against 1500 frames,
 # FULL), the encoder (1500 frames, FULL: a 28-row tail tile on both axes),
@@ -287,10 +312,16 @@ RECT_CASES = [
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [128, 64])
+@pytest.mark.parametrize("D", [128, 64, 256])
 @pytest.mark.parametrize("B,S,Hq,Hkv,spec,view", BWD_CASES)
 def test_fused_backward_kernel_matches_plain(cuda, B, S, Hq, Hkv, spec, view, D):
     _check_fused(cuda, B, S, S, Hq, Hkv, spec, view, D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Hq,Hkv,spec,view", G3_BWD_CASES)
+def test_fused_backward_kernel_at_gemma3_shapes_matches_plain(cuda, B, S, Hq, Hkv, spec, view):
+    _check_fused(cuda, B, S, S, Hq, Hkv, spec, view, 256)
 
 
 @pytest.mark.gpu
@@ -303,11 +334,10 @@ def test_fused_backward_kernel_on_rectangular_shapes(cuda, B, Sq, Skv, H, spec, 
 def _check_fused(cuda, B, Sq, Skv, Hq, Hkv, spec, view, D):
     spec = MaskSpec(**spec)
     args = (*_bwd_inputs(cuda, B, Sq, Hq, Hkv, spec, view, D, Skv), spec)
-    before = (bwd_mod.flash_bwd_fused.launches, bwd_mod.flash_bwd_fused.hd64_launches)
+    before = _counts(bwd_mod.flash_bwd_fused)
     got = bwd_mod.flash_bwd_fused(*args, block_q=64, block_kv=64)
     torch.cuda.synchronize()
-    assert (bwd_mod.flash_bwd_fused.launches, bwd_mod.flash_bwd_fused.hd64_launches) == (
-        before[0] + 1, before[1] + (D == 64))
+    assert _counts(bwd_mod.flash_bwd_fused) == _after_one(before, D)
     want = bwd_mod.flash_bwd_fused_plain(*args, block_q=64, block_kv=64)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == torch.float32 and a.shape == b.shape, name
@@ -317,15 +347,23 @@ def _check_fused(cuda, B, Sq, Skv, Hq, Hkv, spec, view, D):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [128, 64])
+@pytest.mark.parametrize("D", [128, 64, 256])
 @pytest.mark.parametrize("B,S,Hq,Hkv,spec,view", BWD_CASES)
 def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec, view, D):
     """dkv and dq against their plain versions; dk and dv bitwise the fused
     kernel's (the same body without its dQ phase), the dense schedule's and,
     through the SEG kernels, all-ones ids' (the same walk, products and
     order); dq bitwise the same from a second launch (no atomics), the
-    dense schedule's and all-ones ids'; zeros where a row sees no key."""
+    dense schedule's and all-ones ids'; zeros where a row sees no key. At
+    head_dim 256 there are no dense or SEG kernels to compare with."""
     _check_split(cuda, B, S, S, Hq, Hkv, spec, view, D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Hq,Hkv,spec,view", G3_BWD_CASES)
+def test_split_backward_kernels_at_gemma3_shapes_match_plain_and_fused(cuda, B, S, Hq, Hkv,
+                                                                       spec, view):
+    _check_split(cuda, B, S, S, Hq, Hkv, spec, view, 256)
 
 
 @pytest.mark.gpu
@@ -339,42 +377,71 @@ def _check_split(cuda, B, S, Skv, Hq, Hkv, spec, view, D):
     spec = MaskSpec(**spec)
     args = (*_bwd_inputs(cuda, B, S, Hq, Hkv, spec, view, D, Skv), spec)
     tiles = dict(block_q=64, block_kv=64)
-    before = (bwd_mod.flash_bwd_dkv.launches, bwd_mod.flash_bwd_dq.launches)
+    before = (_counts(bwd_mod.flash_bwd_dkv), _counts(bwd_mod.flash_bwd_dq))
     dk, dv = bwd_mod.flash_bwd_dkv(*args, **tiles)
     dq = bwd_mod.flash_bwd_dq(*args, **tiles)
     dq2 = bwd_mod.flash_bwd_dq(*args, **tiles)
     _, dk_f, dv_f = bwd_mod.flash_bwd_fused(*args, **tiles)
     torch.cuda.synchronize()
-    assert (bwd_mod.flash_bwd_dkv.launches, bwd_mod.flash_bwd_dq.launches) == (
-        before[0] + 1, before[1] + 2)
-    ones = torch.ones((B, S), dtype=torch.int32, device=cuda)
-    kv_ones = torch.ones((B, Skv), dtype=torch.int32, device=cuda)
-    _, dk_fd, dv_fd = bwd_mod.flash_bwd_fused(*args, schedule="dense", **tiles)
-    dk_d, dv_d = bwd_mod.flash_bwd_dkv(*args, schedule="dense", **tiles)
-    _, dk_fs, dv_fs = bwd_mod.flash_bwd_fused_varlen(*args, ones, kv_ones, **tiles)
-    dk_s, dv_s = bwd_mod.flash_bwd_dkv_varlen(*args, ones, kv_ones, **tiles)
-    dq_d = bwd_mod.flash_bwd_dq(*args, schedule="dense", **tiles)
-    dq_s = bwd_mod.flash_bwd_dq_varlen(*args, ones, kv_ones, **tiles)
-    torch.cuda.synchronize()
+    assert _counts(bwd_mod.flash_bwd_dkv) == _after_one(before[0], D)
+    assert _counts(bwd_mod.flash_bwd_dq) == _after_one(_after_one(before[1], D), D)
+    same_dkv, same_dq = [(dk_f, dv_f)], [dq2]
+    if D in bwd_mod.ALL_MODES_HEAD_DIMS:  # the dense and SEG kernels
+        ones = torch.ones((B, S), dtype=torch.int32, device=cuda)
+        kv_ones = torch.ones((B, Skv), dtype=torch.int32, device=cuda)
+        same_dkv += [bwd_mod.flash_bwd_fused(*args, schedule="dense", **tiles)[1:],
+                     bwd_mod.flash_bwd_dkv(*args, schedule="dense", **tiles),
+                     bwd_mod.flash_bwd_fused_varlen(*args, ones, kv_ones, **tiles)[1:],
+                     bwd_mod.flash_bwd_dkv_varlen(*args, ones, kv_ones, **tiles)]
+        same_dq += [bwd_mod.flash_bwd_dq(*args, schedule="dense", **tiles),
+                    bwd_mod.flash_bwd_dq_varlen(*args, ones, kv_ones, **tiles)]
+        torch.cuda.synchronize()
     dk_p, dv_p = bwd_mod.flash_bwd_dkv_plain(*args, **tiles)
     dq_p = bwd_mod.flash_bwd_dq_plain(*args, **tiles)
     for name, a, b in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
         assert a.dtype == torch.float32 and a.shape == b.shape, name
         assert torch.isfinite(a).all(), name
         assert _rel_err(a, b) < GRAD_REL_TOL, name
-    for dk_x, dv_x in ((dk_f, dv_f), (dk_fd, dv_fd), (dk_d, dv_d), (dk_fs, dv_fs), (dk_s, dv_s)):
+    for dk_x, dv_x in same_dkv:
         assert torch.equal(dk, dk_x) and torch.equal(dv, dv_x)
-    assert torch.equal(dq, dq2) and torch.equal(dq, dq_d) and torch.equal(dq, dq_s)
+    assert all(torch.equal(dq, dq_x) for dq_x in same_dq)
     assert (dq[:, :_unseen_rows(spec)] == 0).all()
 
 
+@pytest.mark.gpu
+def test_backward_kernels_refuse_segment_and_dense_modes_at_head_dim_256(cuda):
+    """At head_dim 256 only the compact, unsegmented backward kernels are
+    built: the other modes raise before any launch, naming the roadmap."""
+    spec = MaskSpec(causal=True)
+    args = (*_bwd_inputs(cuda, 1, 256, 4, 1, spec, D=256), spec)
+    ids = torch.ones((1, 256), dtype=torch.int32, device=cuda)
+    tiles = dict(block_q=64, block_kv=64)
+    calls = {
+        "segment": (lambda: bwd_mod.flash_bwd_fused_varlen(*args, ids, ids, **tiles),
+                    lambda: bwd_mod.flash_bwd_dkv_varlen(*args, ids, ids, **tiles),
+                    lambda: bwd_mod.flash_bwd_dq_varlen(*args, ids, ids, **tiles)),
+        "dense": (lambda: bwd_mod.flash_bwd_fused(*args, schedule="dense", **tiles),
+                  lambda: bwd_mod.flash_bwd_dkv(*args, schedule="dense", **tiles),
+                  lambda: bwd_mod.flash_bwd_dq(*args, schedule="dense", **tiles)),
+    }
+    wrappers = (bwd_mod.flash_bwd_fused, bwd_mod.flash_bwd_dkv, bwd_mod.flash_bwd_dq,
+                bwd_mod.flash_bwd_fused_varlen, bwd_mod.flash_bwd_dkv_varlen,
+                bwd_mod.flash_bwd_dq_varlen)
+    before = [(f.launches, f.dense_launches) for f in wrappers]
+    for mode, fns in calls.items():
+        for fn in fns:
+            with pytest.raises(ValueError, match=f"{mode} mode takes head_dim in .*queue 2, item 2"):
+                fn()
+    assert [(f.launches, f.dense_launches) for f in wrappers] == before
+
+
 def _zeroed(counters, plains):
-    """Zero the wrappers' launch counts (the backward's head_dim-64 ones
-    too) and the plain versions' call counts."""
+    """Zero the wrappers' launch counts (the backward's head_dim-64 and 256
+    ones too) and the plain versions' call counts."""
     for f in counters:
         f.launches = 0
         if hasattr(f, "hd64_launches"):
-            f.hd64_launches = 0
+            f.hd64_launches = f.hd256_launches = 0
     for f in plains:
         f.calls = 0
 
@@ -459,6 +526,40 @@ def test_whisper_training_step_runs_through_the_kernels(cuda):
     assert [f.calls for f in BWD_PLAINS] == [0] * 5
     assert math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])
     assert metrics["skipped"] == 0.0
+
+
+@pytest.mark.gpu
+def test_gemma3_training_step_runs_through_the_head_dim_256_kernels(cuda):
+    """One step of one layer pattern (5 windowed layers, 1 global) of
+    full-width gemma3-1b (head_dim 256, 4 q heads over 1 kv head) from the
+    same weights and batch through impl="ref" and through flash_cuda with
+    the fused and with the split backward: per layer the forward twice
+    (remat), delta once, then the fused kernel or dK/dV and dQ once, all at
+    head_dim 256; no plain version; the loss within 1e-4 of the
+    reference's (only attention's rounding differs) and the gradient
+    norms within 1%."""
+    cfg = dataclasses.replace(registry.get("gemma3-1b"), num_layers=6)
+    assert cfg.head_dim == 256 and cfg.window == 512 and cfg.remat
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1025), generator=torch.Generator().manual_seed(0))
+    batch = {"inputs": tokens[:, :-1].to(cuda), "targets": tokens[:, 1:].to(cuda)}
+    out = {}
+    for run in ("ref", "fused", "split"):
+        model = init_lm(cfg, seed=0, device=cuda)
+        state = init_opt_state(dict(model.named_parameters()))
+        attn = AttentionConfig(impl="ref") if run == "ref" else AttentionConfig(bwd=run)
+        _zeroed(BWD_COUNTERS, BWD_PLAINS)
+        state, out[run] = build_train_step(cfg, attn, AdamWConfig())(model, state, batch)
+        torch.cuda.synchronize()
+        n = cfg.num_layers
+        want = {"ref": [0] * 5, "fused": [2 * n, n, n, 0, 0], "split": [2 * n, n, 0, n, n]}[run]
+        assert [f.launches for f in BWD_COUNTERS] == want
+        assert [f.hd256_launches for f in BWD_COUNTERS[1:]] == want[1:]
+        assert [f.calls for f in BWD_PLAINS] == [0] * 5
+        assert math.isfinite(out[run]["loss"]) and out[run]["skipped"] == 0.0
+        del model, state
+    for run in ("fused", "split"):
+        assert abs(out[run]["loss"] - out["ref"]["loss"]) <= 1e-4 * abs(out["ref"]["loss"])
+        assert abs(out[run]["grad_norm"] / out["ref"]["grad_norm"] - 1) <= 1e-2
 
 
 @pytest.mark.gpu

@@ -52,11 +52,11 @@ _DQ_LOOP = """    for (int n = 0;; ++n) {
 
 
 def _fragments(name: str, tile: str) -> str:
-    """Register A fragments of a warpgroup's 64 x 128 bf16 tile, read once
+    """Register A fragments of a warpgroup's 64 x D bf16 tile, read once
     from its swizzled shared-memory copy with ldmatrix (the forward's Q)."""
-    return f"""    uint32_t {name}[8][4];
+    return f"""    uint32_t {name}[D / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {{
+    for (int kk = 0; kk < D / 16; ++kk) {{
       const int row = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
       const int col = kk * 16 + (lane >> 4) * 8;
       const uint32_t at = {tile} + (col >> 6) * 8192 + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4);
@@ -182,7 +182,7 @@ VARIANTS = {
         (_DQ_LOOP, _fragments("qf", "sQ") + _fragments("dof", "sdO") + _DQ_LOOP),
         (_S_SS, _S_RS), (_DP_SS, _DP_RS)]),
     "dq_stages2": ("flash_bwd", "a 2-stage K/V ring instead of 4",
-                   [("constexpr int kDqStages = 4;", "constexpr int kDqStages = 2;")]),
+                   [("STAGES = D == 256 ? 2 : 4;", "STAGES = 2;")]),
     "paged_final": ("flash_decode", "the paged decode as committed", []),
     "paged_cluster1": ("flash_decode", "one CTA of 4 warps a split, no cluster",
                        [("constexpr int kPagedCluster = 2;", "constexpr int kPagedCluster = 1;")]),
