@@ -133,6 +133,11 @@ window, NaN in every row past each length, its SEG instantiation) and the
 paged decode (pages of 16 and 64, two page orders, stale NaN rows, bitwise
 the contiguous partials at 16), and times each beside its bound, the
 forward and decode in turns with SDPA (the window as an explicit mask).
+Phase 3 also holds the head_dim-160 kernels (stablelm-12b: 32 q heads over
+8 kv heads, no window) the same way: the forward (B 1, S 1536 causal, the
+ragged S 1500, B 2 S 333), the decode and its SEG instantiation, the paged
+decode; each timed beside its bound, the forward and decode in turns with
+SDPA.
 After phase 6, the gemma3 serving slice: gemma3-1b at its published widths
 and depth (26 layers, bf16, random weights from seed 0) serves the six
 requests through both engines (the paged one preempting once) with exact
@@ -140,7 +145,11 @@ launch counts at head_dim 256 (no plain version, no reference), holds a
 prefill and a B = 4 decode step against the dense reference and the step
 through shuffled pages bitwise against the contiguous cache, times and
 profiles both engines' ticks, and serves through the serve CLI once per
-engine.
+engine. Then the stablelm serving slice, the same at head_dim 160:
+stablelm-12b at its published widths and depth (40 layers, 12.1 B
+parameters in bf16, one card's 80 GB), exact launch counts (fixed: the
+forward 240, the decode 1280; paged: the forward 280, the paged decode
+1280).
 Phase 3 also holds the four backward kernels at head_dim 256 (gemma3-1b's
 training: B 4, S 2048, 4 q heads over 1 kv head, causal and window 512;
 the window at S 700, a ragged S, rows that see no key) against their plain
@@ -191,6 +200,10 @@ PAGE_SIZE, PAGES_PER_SEQ = 16, 128  # the paged engine's logical capacity is CAC
 # 99 and 117) and never at 140 or 160.
 PAGED_POOL_PAGES = 150
 PAGED_PREEMPTIONS = 1
+# Prefill launches a layer on that schedule: the admissions' batched
+# prefills and the preempted request's second one (qwen3-8b's 252 forward
+# launches over 36 layers, gemma3-1b's 182 over 26).
+PAGED_PREFILLS = 7
 SPIN_CYCLES = 1_000_000  # about 0.5 ms at the H100's clock
 # Logits of flash_cuda against the dense reference at full depth (bf16):
 # the first chip run read cosine 0.999744 and max|diff| 0.024 x max|logit|.
@@ -2992,6 +3005,8 @@ def whisper_train_phase(torch, dev):
 # gemma3-1b's attention widths (src/repro_torch/configs/archs.py): four q
 # heads over one kv head of 256, a 512-token window on five of six layers.
 G3_HQ, G3_HKV, G3_D, G3_WINDOW = 4, 1, 256, 512
+# stablelm-12b's: 32 q heads over 8 kv heads of 160, no window.
+SL_HQ, SL_HKV, SL_D = 32, 8, 160
 
 
 def causal_pairs(S: int, window=None) -> int:
@@ -3000,16 +3015,32 @@ def causal_pairs(S: int, window=None) -> int:
 
 
 def hd256_kernel_phase(torch, dev, flush):
-    """The head_dim-256 kernels at gemma3-1b's shapes against their plain
-    versions: the forward (B 1, S 1536, causal and window 512, and ragged
-    S), the decode (B 4 of a 2048 cache, ragged lengths, 8 splits, G 4, with
-    and without the window; NaN in every row past each length; the SEG
-    instantiation on packed and on equal ids) and the paged decode (pages of
-    16 and 64 under two page orders, NaN in every pool row no length
-    reaches, bitwise the contiguous partials at 16). Then each timed after
-    the L2 flush beside its bound, the forward and the decode in turns with
-    SDPA (the window as an explicit mask), the paged decode in turns with the
-    contiguous one."""
+    """The head_dim-256 kernels at gemma3-1b's shapes (``head_dim_kernel_phase``;
+    causal and window 512; the forward also at S 700 and at B 2, S 333)."""
+    return head_dim_kernel_phase(torch, dev, flush, G3_D, G3_HQ, G3_HKV, G3_WINDOW, seed=7,
+                                 fwd_shapes=((1, 1536), (1, 700), (2, 333)))
+
+
+def hd160_kernel_phase(torch, dev, flush):
+    """The head_dim-160 kernels at stablelm-12b's shapes (``head_dim_kernel_phase``;
+    causal, no window; the forward also at the ragged S 1500 and at B 2, S 333)."""
+    return head_dim_kernel_phase(torch, dev, flush, SL_D, SL_HQ, SL_HKV, None, seed=8,
+                                 fwd_shapes=((1, 1536), (1, 1500), (2, 333)))
+
+
+def head_dim_kernel_phase(torch, dev, flush, D, hq, hkv, window, *, seed, fwd_shapes):
+    """The forward, decode and paged decode at head_dim ``D``, ``hq`` q heads
+    over ``hkv`` kv heads, against their plain versions: the forward at each
+    (B, S) of ``fwd_shapes``, causal (and with the ``window``), the decode
+    (B 4 of a 2048 cache, ragged lengths, 8 splits, with and without the
+    window; NaN in every row past each length; the SEG instantiation on
+    packed and on equal ids) and the paged decode (pages of 16 and 64 under
+    two page orders, NaN in every pool row no length reaches, bitwise the
+    contiguous partials at 16). Then each timed after the L2 flush beside
+    its bound, the forward at the first shape and the decode in turns with
+    SDPA (a window as an explicit mask), the paged decode in turns with the
+    contiguous one. Returns the records of ``flash_fwd_hd{D}``,
+    ``flash_decode_hd{D}`` and ``flash_decode_paged_hd{D}``."""
     import torch.nn.functional as F
 
     from repro_torch.core.masks import MaskSpec
@@ -3017,36 +3048,36 @@ def hd256_kernel_phase(torch, dev, flush):
     from repro_torch.kernels import flash_fwd as fwd
     from repro_torch.kernels import ops
 
-    gen = torch.Generator(device=dev).manual_seed(7)
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    bq, bk, D, G = ops.BLOCK_Q, ops.BLOCK_KV, G3_D, G3_HQ // G3_HKV
+    bq, bk, G = ops.BLOCK_Q, ops.BLOCK_KV, hq // hkv
     scale = 1.0 / math.sqrt(D)
-    specs = {"causal": MaskSpec(causal=True), "window": MaskSpec(causal=True, window=G3_WINDOW)}
+    windows = {"causal": None, **({"window": window} if window else {})}
+    specs = {name: MaskSpec(causal=True, window=w) for name, w in windows.items()}
 
     def fwd_inputs(B, S):
-        return (ops._prep(randn(B, S, G3_HQ, D), scale), randn(B, S, G3_HKV, D),
-                randn(B, S, G3_HKV, D))
+        return (ops._prep(randn(B, S, hq, D), scale), randn(B, S, hkv, D), randn(B, S, hkv, D))
 
-    # --- the forward: S 1536 (the longest prefill bucket), S 700 (an odd
-    # number of q tiles, a ragged last one) and S 333 at B 2.
+    # --- the forward: S 1536 (the longest prefill bucket), then shapes with
+    # an odd number of q tiles or a ragged last one, and B 2.
     fwd_err = 0.0
-    for B, S in ((1, 1536), (1, 700), (2, 333)):
+    for B, S in fwd_shapes:
         q, k, v = fwd_inputs(B, S)
         for name, spec in specs.items():
             fwd_err = max(fwd_err, check_fwd(
-                torch, f"flash_fwd B={B} S={S} {name} Hq={G3_HQ} Hkv={G3_HKV} D={D}",
+                torch, f"flash_fwd B={B} S={S} {name} Hq={hq} Hkv={hkv} D={D}",
                 fwd.flash_fwd(q, k, v, spec, block_q=bq, block_kv=bk),
                 fwd.flash_fwd_plain(q, k, v, spec, block_q=bq, block_kv=bk)))
-    Bf, Sf = 1, 1536
+    Bf, Sf = fwd_shapes[0]
     q, k, v = fwd_inputs(Bf, Sf)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    rows = torch.arange(Sf, device=dev)
-    ago = rows[:, None] - rows[None, :]
-    library = {"causal": dict(is_causal=True),
-               "window": dict(attn_mask=((ago >= 0) & (ago < G3_WINDOW))[None, None])}
+    library = {"causal": dict(is_causal=True)}
+    if window:
+        ago = torch.arange(Sf, device=dev)[:, None] - torch.arange(Sf, device=dev)[None, :]
+        library["window"] = dict(attn_mask=((ago >= 0) & (ago < window))[None, None])
     fwd_rows = {}
     for name, spec in specs.items():
         plain_ms = time_ms(torch, lambda: fwd.flash_fwd_plain(q, k, v, spec, block_q=bq,
@@ -3055,8 +3086,8 @@ def hd256_kernel_phase(torch, dev, flush):
             torch, lambda: fwd.flash_fwd(q, k, v, spec, block_q=bq, block_kv=bk),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, scale=1.0,
                                                    **library[name]), 20, flush)
-        b_ms, b_by = bound(4 * D * causal_pairs(Sf, spec.window) * Bf * G3_HQ,
-                           2 * Bf * Sf * (G3_HQ + G3_HKV) * D * 2 + Bf * G3_HQ * Sf * 4)
+        b_ms, b_by = bound(4 * D * causal_pairs(Sf, spec.window) * Bf * hq,
+                           2 * Bf * Sf * (hq + hkv) * D * 2 + Bf * hq * Sf * 4)
         log(f"flash_fwd D={D} B={Bf} S={Sf} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x the bound; in "
             f"turns (fwd, sdpa, sdpa, fwd) {turns}: fwd / sdpa {ms / lib_ms:.4f}")
@@ -3065,25 +3096,25 @@ def hd256_kernel_phase(torch, dev, flush):
 
     # --- the contiguous decode at the fixed engine's shape.
     B, S = 4, CACHE
-    qd = ops._prep(randn(B, 1, G3_HQ, D), scale)
-    qh = qd.reshape(B * G3_HKV, G, D).contiguous()
-    kc, vc = randn(B, S, G3_HKV, D), randn(B, S, G3_HKV, D)
+    qd = ops._prep(randn(B, 1, hq, D), scale)
+    qh = qd.reshape(B * hkv, G, D).contiguous()
+    kc, vc = randn(B, S, hkv, D), randn(B, S, hkv, D)
     lens = torch.tensor([1, 0, 1337, 2048], dtype=torch.int32, device=dev)
     ns, _ = dec.decode_geometry(S, 8)
     dec_err = 0.0
-    for name, window in (("causal", None), ("window", G3_WINDOW)):
+    for name, w in windows.items():
         what = f"flash_decode D={D} B={B} S={S} G={G} lengths={lens.tolist()} splits=8 {name}"
-        o, lse = dec.flash_decode(qh, kc, vc, lens, num_splits=8, window=window)
+        o, lse = dec.flash_decode(qh, kc, vc, lens, num_splits=8, window=w)
         torch.cuda.synchronize()
-        o_p, lse_p = dec.flash_decode_plain(qh, kc, vc, lens, num_splits=8, window=window)
+        o_p, lse_p = dec.flash_decode_plain(qh, kc, vc, lens, num_splits=8, window=w)
         eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
-        empty = bool((o.reshape(B, G3_HKV, ns, G, D)[1] == 0).all()
-                     and torch.isneginf(lse.reshape(B, G3_HKV, ns, G)[1]).all())
+        empty = bool((o.reshape(B, hkv, ns, G, D)[1] == 0).all()
+                     and torch.isneginf(lse.reshape(B, hkv, ns, G)[1]).all())
         log(f"{what}: partials max|o-plain|={eo:.3e} (tol {DEC_TOL['o']}), max|lse-plain|="
             f"{el:.3e} (tol {DEC_TOL['lse']}); (0, -inf) for the length-0 row: {empty}")
         if not (eo <= DEC_TOL["o"] and el <= DEC_TOL["lse"] and empty):
             fail(f"{what} disagrees with its plain version")
-        stale_rows_check(torch, dec, what, qh, kc, vc, lens, num_splits=8, window=window)
+        stale_rows_check(torch, dec, what, qh, kc, vc, lens, num_splits=8, window=w)
         dec_err = max(dec_err, eo)
     # The SEG instantiation: a packed cache against the plain version, and
     # equal ids bitwise the unsegmented kernel.
@@ -3093,14 +3124,14 @@ def hd256_kernel_phase(torch, dev, flush):
     o_p, lse_p = dec.flash_decode_plain(qh, kc, vc, lens, num_splits=8, segments=(kv_seg, q_seg))
     eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
     eq = dec.flash_decode_varlen(qh, kc, vc, lens, torch.full_like(kv_seg, 3),
-                                 torch.full_like(q_seg, 3), num_splits=8, window=G3_WINDOW)
+                                 torch.full_like(q_seg, 3), num_splits=8, window=window)
     same = all(torch.equal(a, b) for a, b in zip(
-        eq, dec.flash_decode(qh, kc, vc, lens, num_splits=8, window=G3_WINDOW)))
+        eq, dec.flash_decode(qh, kc, vc, lens, num_splits=8, window=window)))
     log(f"flash_decode_varlen D={D} G={G}, 2-4 segments a row: max|o-plain|={eo:.3e}, "
-        f"max|lse-plain|={el:.3e}; equal ids (window {G3_WINDOW}) bitwise the unsegmented "
+        f"max|lse-plain|={el:.3e}; equal ids (window {window}) bitwise the unsegmented "
         f"kernel: {same}")
     if not (eo <= DEC_TOL["o"] and el <= DEC_TOL["lse"] and same):
-        fail("flash_decode_varlen at head_dim 256 disagrees with its plain version or the "
+        fail(f"flash_decode_varlen at head_dim {D} disagrees with its plain version or the "
              "unsegmented kernel")
 
     lens_run = torch.tensor([n + 8 for n in PROMPT_LENS[:4]], dtype=torch.int32, device=dev)
@@ -3108,20 +3139,20 @@ def hd256_kernel_phase(torch, dev, flush):
     kq, vq = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     cols = torch.arange(S, device=dev)[None, :]
     dec_rows = {}
-    for name, window in (("causal", None), ("window", G3_WINDOW)):
+    for name, w in windows.items():
         visible = cols < lens_run[:, None]
-        if window:
-            visible &= cols >= lens_run[:, None] - window
+        if w:
+            visible &= cols >= lens_run[:, None] - w
         plain_ms = time_ms(torch, lambda: dec.flash_decode_plain(
-            qh, kc, vc, lens_run, num_splits=8, window=window), 5, flush)
+            qh, kc, vc, lens_run, num_splits=8, window=w), 5, flush)
         ms, lib_ms, turns = in_turns(
-            torch, lambda: dec.flash_decode(qh, kc, vc, lens_run, num_splits=8, window=window),
+            torch, lambda: dec.flash_decode(qh, kc, vc, lens_run, num_splits=8, window=w),
             lambda: F.scaled_dot_product_attention(qq, kq, vq, attn_mask=visible[:, None, None],
                                                    enable_gqa=True, scale=1.0), 50, flush)
         n_pos = int(visible.sum())
-        b_ms, b_by = bound(4 * G * D * n_pos * G3_HKV,
-                           n_pos * G3_HKV * D * 2 * 2 + B * G3_HQ * D * 2
-                           + B * G3_HKV * ns * G * (D + 1) * 4 + B * 4)
+        b_ms, b_by = bound(4 * G * D * n_pos * hkv,
+                           n_pos * hkv * D * 2 * 2 + B * hq * D * 2
+                           + B * hkv * ns * G * (D + 1) * 4 + B * 4)
         log(f"flash_decode D={D} B={B} S={S} lengths={lens_run.tolist()} {name} ({n_pos} "
             f"visible positions): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
             f"ms, bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x the bound; in turns (kernel, "
@@ -3136,7 +3167,7 @@ def hd256_kernel_phase(torch, dev, flush):
     paged_err = 0.0
     for ps in (16, 64):
         n_pages = S // ps
-        for name, window in (("causal", None), ("window", G3_WINDOW)):
+        for name, w in windows.items():
             what = f"flash_decode_paged D={D} ps={ps} G={G} lengths={lengths} {name}"
             parts = []
             for seed in (0, 1):
@@ -3145,17 +3176,17 @@ def hd256_kernel_phase(torch, dev, flush):
                 vp = paginate(torch, vc, table, B * n_pages + 1)
                 table[0] = 0  # the length-0 slot: an all-null row
                 parts.append(dec.flash_decode_paged(qh, kp, vp, lens, table, num_splits=8,
-                                                    window=window))
+                                                    window=w))
             torch.cuda.synchronize()
             (o, lse), (o2, lse2) = parts
             o_p, lse_p = dec.flash_decode_paged_plain(qh, kp, vp, lens, table, num_splits=8,
-                                                      window=window)
+                                                      window=w)
             eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
             o3, lse3 = dec.flash_decode_paged(
                 qh, stale_nan(torch, kp, table, lengths, ps), stale_nan(torch, vp, table, lengths,
                                                                          ps),
-                lens, table, num_splits=8, window=window)
-            o_c, lse_c = dec.flash_decode(qh, kc, vc, lens, num_splits=8, window=window)
+                lens, table, num_splits=8, window=w)
+            o_c, lse_c = dec.flash_decode(qh, kc, vc, lens, num_splits=8, window=w)
             torch.cuda.synchronize()
             orders = torch.equal(o, o2) and torch.equal(lse, lse2)
             stale = torch.equal(o2, o3) and torch.equal(lse2, lse3)
@@ -3186,35 +3217,50 @@ def hd256_kernel_phase(torch, dev, flush):
         qh, kp, vp, lens_run, table, num_splits=8), 5, flush)
     n_pos = int(lens_run.sum())
     pns, _ = dec.paged_geometry(n_pages, 8)
-    b_ms, b_by = bound(4 * G * D * n_pos * G3_HKV,
-                       n_pos * G3_HKV * D * 2 * 2 + B * G3_HQ * D * 2 + B * n_pages * 4 + B * 4
-                       + B * G3_HKV * pns * G * (D + 1) * 4)
+    b_ms, b_by = bound(4 * G * D * n_pos * hkv,
+                       n_pos * hkv * D * 2 * 2 + B * hq * D * 2 + B * n_pages * 4 + B * 4
+                       + B * hkv * pns * G * (D + 1) * 4)
     log(f"flash_decode_paged D={D} B={B} lengths={lens_run.tolist()} {n_pages} pages of {ps} "
         f"(shuffled): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
         f"{ms / b_ms:.2f}x the bound; in turns (contiguous, paged, paged, contiguous) "
         f"{[round(t, 4) for t in runs]}: paged / contiguous {ms / c_ms:.4f}")
+    windowed = lambda rows: dict(windowed=rows["window"]) if window else {}
     return {
-        "flash_fwd_hd256": dict(max_abs_err=fwd_err, **fwd_rows["causal"],
-                                windowed=fwd_rows["window"]),
-        "flash_decode_hd256": dict(max_abs_err=dec_err, **dec_rows["causal"],
-                                   windowed=dec_rows["window"]),
-        "flash_decode_paged_hd256": dict(max_abs_err=paged_err, ms=ms, plain_ms=plain_ms,
-                                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                                         contiguous_ms_in_turns=c_ms),
+        f"flash_fwd_hd{D}": dict(max_abs_err=fwd_err, **fwd_rows["causal"], **windowed(fwd_rows)),
+        f"flash_decode_hd{D}": dict(max_abs_err=dec_err, **dec_rows["causal"],
+                                    **windowed(dec_rows)),
+        f"flash_decode_paged_hd{D}": dict(max_abs_err=paged_err, ms=ms, plain_ms=plain_ms,
+                                          bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                                          contiguous_ms_in_turns=c_ms),
     }
 
 
 def gemma3_phase(torch, dev):
     """The gemma3 serving slice: gemma3-1b at its published widths and depth
     (26 layers, d_model 1152, 4 q heads over 1 kv head of 256, a 512-token
-    window on 5 of 6 layers, vocab 262,144, bf16, random weights from seed 0)
+    window on 5 of 6 layers, vocab 262,144), ``model_serving_phase``."""
+    return model_serving_phase(torch, dev, "gemma3-1b", "gemma3")
+
+
+def stablelm_phase(torch, dev):
+    """The stablelm serving slice: stablelm-12b at its published widths and
+    depth (40 layers, d_model 5120, 32 q heads over 8 kv heads of 160,
+    qk-norm, d_ff 13,824, untied embeddings over a 100,352 vocab: 12.1 B
+    parameters, 24.3 GB), ``model_serving_phase``."""
+    return model_serving_phase(torch, dev, "stablelm-12b", "stablelm")
+
+
+def model_serving_phase(torch, dev, arch: str, path: str):
+    """The registry's ``arch`` uncut (bf16, random weights from seed 0)
     serves the six requests of ``serving_prompts`` through ServingEngine (4
     slots of CACHE) and PagedServingEngine (the qwen3 paged phase's pool,
-    which preempts once), with exact launch counts at head_dim 256 and no
-    plain version or reference; the prefill of the 1500-token prompt and a
-    B = 4 decode step against impl="ref", the same step through shuffled
-    pages; the decode ticks of both engines (``tick_phase``); then the serve
-    CLI once through each engine. Returns both runs' counts and a summary."""
+    which preempts once) on the paths ``{path}_serving`` and
+    ``{path}_paged_serving``, with exact launch counts (a forward a prefill
+    and layer, a decode a tick and layer) and no plain version or
+    reference; the prefill of the 1500-token prompt and a B = 4 decode step
+    against impl="ref", the same step through shuffled pages bitwise; the
+    decode ticks of both engines (``tick_phase``); then the serve CLI once
+    through each engine. Returns both runs' counts and a summary."""
     from repro_torch.configs import registry
     from repro_torch.core.attention import AttentionConfig, check_card_support
     from repro_torch.kernels import flash_decode as dec
@@ -3223,7 +3269,7 @@ def gemma3_phase(torch, dev):
     from repro_torch.models.lm import init_lm
     from repro_torch.serving.engine import PagedServingEngine, Request, ServingEngine
 
-    cfg = registry.get("gemma3-1b")
+    cfg = registry.get(arch)
     fl_cfg, ref_cfg = AttentionConfig(impl="flash_cuda"), AttentionConfig(impl="ref")
     for paged in (False, True):
         check_card_support(cfg, fl_cfg, dev, training=False, paged=paged)
@@ -3231,9 +3277,10 @@ def gemma3_phase(torch, dev):
     model = init_lm(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"gemma3-1b: {cfg.num_layers} layers {cfg.layer_pattern} (window {cfg.window}), d_model "
-        f"{cfg.d_model}, {cfg.num_heads} q heads over {cfg.num_kv_heads} kv head of "
-        f"{cfg.head_dim}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B params ({cfg.dtype}), "
+    log(f"{arch}: {cfg.num_layers} layers {cfg.layer_pattern} (window {cfg.window}), d_model "
+        f"{cfg.d_model}, {cfg.num_heads} q heads over {cfg.num_kv_heads} kv heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
+        f"params ({cfg.dtype}, {torch.cuda.memory_allocated(dev) / 1e9:.1f} GB allocated), "
         f"initialised in {time.perf_counter() - t0:.1f} s")
     n = cfg.num_layers
     prompts = serving_prompts(cfg)
@@ -3242,10 +3289,11 @@ def gemma3_phase(torch, dev):
     engine = ServingEngine(cfg, model, fl_cfg, max_batch=4, cache_size=CACHE)
     for rid, prompt in enumerate(prompts):
         engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
-    counts, summary["fixed"] = run_engine(torch, dev, cfg, engine, len(prompts), "gemma3_serving")
+    counts, summary["fixed"] = run_engine(torch, dev, cfg, engine, len(prompts),
+                                          f"{path}_serving")
     if (counts["flash_fwd"] != len(prompts) * n or counts["flash_decode"] != engine.ticks * n
             or counts["flash_decode_paged"]):
-        fail(f"gemma3 serving: want flash_fwd {len(prompts) * n} (a prefill a request and "
+        fail(f"{arch} serving: want flash_fwd {len(prompts) * n} (a prefill a request and "
              f"layer), flash_decode {engine.ticks * n} (a tick and layer), paged 0")
 
     engine = PagedServingEngine(cfg, model, fl_cfg, max_batch=4, num_pages=PAGED_POOL_PAGES,
@@ -3253,24 +3301,23 @@ def gemma3_phase(torch, dev):
     for rid, prompt in enumerate(prompts):
         engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
     paged_counts, summary["paged"] = run_engine(torch, dev, cfg, engine, len(prompts),
-                                                "gemma3_paged_serving")
+                                                f"{path}_paged_serving")
     summary["paged"]["preemptions"] = engine.preemptions
-    log(f"gemma3_paged_serving: preemptions {engine.preemptions} (expected "
+    log(f"{path}_paged_serving: preemptions {engine.preemptions} (expected "
         f"{PAGED_PREEMPTIONS}); pages in use at the end {engine.pool.used_pages}")
     if (engine.preemptions != PAGED_PREEMPTIONS or engine.pool.used_pages
             or paged_counts["flash_decode_paged"] != engine.ticks * n
-            or paged_counts["flash_decode"] or not paged_counts["flash_fwd"]
-            or paged_counts["flash_fwd"] % n):
-        fail("gemma3 paged serving: the preemption, the pool or the launch counts are wrong")
+            or paged_counts["flash_decode"] or paged_counts["flash_fwd"] != PAGED_PREFILLS * n):
+        fail(f"{arch} paged serving: the preemption, the pool or the launch counts are wrong")
 
     # Logits against the dense reference on the card: the prefill of the
-    # 1500-token prompt (three windows long), then a B = 4 decode step from
-    # its cache at ragged lengths inside and past the window.
+    # 1500-token prompt (three of gemma3's windows long), then a B = 4 decode
+    # step from its cache at ragged lengths (inside and past such a window).
     tokens_in = torch.tensor([prompts[3]], device=dev)
     h_ref, _, _ = model.prefill(tokens_in, ref_cfg, CACHE)
     h_fl, cache_fl, _ = model.prefill(tokens_in, fl_cfg, CACHE)
     l_fl = model.logits_from_hidden(h_fl)
-    compare_logits(torch, f"gemma3 prefill of {len(prompts[3])} tokens",
+    compare_logits(torch, f"{arch} prefill of {len(prompts[3])} tokens",
                    model.logits_from_hidden(h_ref), l_fl)
     cache_fl = [{"kv": {k: t.expand(4, -1, -1, -1).clone() for k, t in c["kv"].items()}}
                 for c in cache_fl]
@@ -3284,12 +3331,12 @@ def gemma3_phase(torch, dev):
     d_ref, _ = model.decode_step(step_tok, cache_ref, step_len, ref_cfg)
     d_fl, _ = model.decode_step(step_tok, cache_fl, step_len, fl_cfg)
     d_pg, _ = model.decode_step(step_tok, planes, step_len, fl_cfg, block_table=table)
-    compare_logits(torch, f"gemma3 decode step, B=4, lengths {step_len.tolist()}", d_ref, d_fl)
+    compare_logits(torch, f"{arch} decode step, B=4, lengths {step_len.tolist()}", d_ref, d_fl)
     same = torch.equal(d_fl, d_pg)
-    log(f"gemma3 decode step through shuffled pages of {PAGE_SIZE}: logits bitwise the "
+    log(f"{arch} decode step through shuffled pages of {PAGE_SIZE}: logits bitwise the "
         f"contiguous cache's {same}")
     if not same:
-        fail("gemma3: the paged decode step's logits differ from the contiguous one's")
+        fail(f"{arch}: the paged decode step's logits differ from the contiguous one's")
     del cache_fl, cache_ref, planes
 
     summary["ticks"] = tick_phase(torch, cfg, model)
@@ -3303,10 +3350,10 @@ def gemma3_phase(torch, dev):
     for engine_name, used in (("fixed", dec.flash_decode), ("paged", dec.flash_decode_paged)):
         for f in kernels:
             f.launches = 0
-        serve.main(["--arch", "gemma3-1b", "--engine", engine_name, "--requests", "4",
+        serve.main(["--arch", arch, "--engine", engine_name, "--requests", "4",
                     "--max-new", "8"])
         got = {f.__name__: f.launches for f in kernels}
-        log(f"serve CLI --arch gemma3-1b --engine {engine_name}: launches {got}")
+        log(f"serve CLI --arch {arch} --engine {engine_name}: launches {got}")
         if not (fwd.flash_fwd.launches and used.launches) or sum(got.values()) != (
                 fwd.flash_fwd.launches + used.launches):
             fail(f"the serve CLI's {engine_name} engine did not run through its kernels")
@@ -3528,6 +3575,7 @@ def main() -> None:
     results.update(whisper_kernel_phase(torch, dev, scratch.zero_))
     results.update(bwd_hd64_kernel_phase(torch, dev, scratch.zero_))
     results.update(hd256_kernel_phase(torch, dev, scratch.zero_))
+    results.update(hd160_kernel_phase(torch, dev, scratch.zero_))
     results.update(hd256_bwd_kernel_phase(torch, dev, scratch.zero_))
     del scratch
     whisper_counts, whisper_summary = whisper_phase(torch, dev)
@@ -3542,6 +3590,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     with torch.no_grad():
         g3_counts, g3_paged_counts, g3_summary = gemma3_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        sl_counts, sl_paged_counts, sl_summary = stablelm_phase(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
     train_parity_phase(torch, dev)
@@ -3580,6 +3632,9 @@ def main() -> None:
     for k, inst in (("flash_fwd_hd256", "fa2_fwd_kernel<256,"),
                     ("flash_decode_hd256", "fa2_decode_kernel<256,0>"),
                     ("flash_decode_paged_hd256", "fa2_decode_paged_kernel<256>"),
+                    ("flash_fwd_hd160", "fa2_fwd_kernel<160,"),
+                    ("flash_decode_hd160", "fa2_decode_kernel<160,0>"),
+                    ("flash_decode_paged_hd160", "fa2_decode_paged_kernel<160>"),
                     ("flash_bwd_delta_hd256", "fa2_bwd_delta_kernel<256>"),
                     ("flash_bwd_fused_hd256", "fa2_bwd_fused_kernel<256,"),
                     ("flash_bwd_dkv_hd256", "fa2_bwd_dkv_kernel<256,"),
@@ -3627,7 +3682,11 @@ def main() -> None:
                 "flash_bwd_delta_hd256": "src/repro/kernels/flash_bwd.py:80",
                 "flash_bwd_fused_hd256": "src/repro/kernels/flash_bwd.py:718",
                 "flash_bwd_dkv_hd256": "src/repro/kernels/flash_bwd.py:234",
-                "flash_bwd_dq_hd256": "src/repro/kernels/flash_bwd.py:459"}
+                "flash_bwd_dq_hd256": "src/repro/kernels/flash_bwd.py:459",
+                # Head dim 160 (stablelm-12b serving).
+                "flash_fwd_hd160": "src/repro/kernels/flash_fwd.py:354",
+                "flash_decode_hd160": "src/repro/kernels/flash_decode.py:77",
+                "flash_decode_paged_hd160": "src/repro/kernels/flash_decode.py:250"}
     source = {"flash_fwd": "flash_fwd", "flash_decode": "flash_decode",
               "flash_decode_paged": "flash_decode", "flash_bwd_delta": "flash_bwd",
               "flash_bwd_fused": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
@@ -3636,7 +3695,8 @@ def main() -> None:
               "flash_bwd_dq_varlen": "flash_bwd", "flash_fwd_splitkv": "flash_fwd",
               "flash_fwd_splitkv_varlen": "flash_fwd", "flash_fwd_hd64": "flash_fwd",
               "flash_decode_hd64": "flash_decode", "flash_decode_varlen": "flash_decode",
-              "flash_decode_hd256": "flash_decode", "flash_decode_paged_hd256": "flash_decode"}
+              "flash_decode_hd256": "flash_decode", "flash_decode_paged_hd256": "flash_decode",
+              "flash_decode_hd160": "flash_decode", "flash_decode_paged_hd160": "flash_decode"}
     source.update({k: "flash_fwd" if k.startswith("flash_fwd") else "flash_bwd"
                    for k in replaces if k not in source})
     paths = {"serving": serve_counts, "paged_serving": paged_counts, "training": train_counts,
@@ -3648,23 +3708,29 @@ def main() -> None:
              "training_gpt20m_split": gpt_counts["split"], "training_whisper": wh_train_counts,
              "gemma3_serving": g3_counts, "gemma3_paged_serving": g3_paged_counts,
              "training_gemma3": g3_train_counts["fused"],
-             "training_gemma3_split": g3_train_counts["split"]}
-    # An entry named "_hd64" ("_hd256") counts its kernel's launches at head
-    # dim 64 (256), and the entry of the same kernel without the suffix the
-    # other launches. The backward wrappers count their head_dim-64 and 256
-    # launches apart (``<name>_hd64``, ``<name>_hd256``); the forward and
-    # decode wrappers do not, so their launches on the paths that run at one
-    # head dim only (64: whisper-base, gpt-20m; 256: gemma3-1b) are that head
-    # dim's entries'.
+             "training_gemma3_split": g3_train_counts["split"],
+             "stablelm_serving": sl_counts, "stablelm_paged_serving": sl_paged_counts}
+    # An entry named "_hd64" ("_hd160", "_hd256") counts its kernel's
+    # launches at head dim 64 (160, 256), and the entry of the same kernel
+    # without the suffix the other launches. The backward wrappers count
+    # their head_dim-64 and 256 launches apart (``<name>_hd64``,
+    # ``<name>_hd256``); the forward and decode wrappers do not, so their
+    # launches on the paths that run at one head dim only (64: whisper-base,
+    # gpt-20m; 160: stablelm-12b; 256: gemma3-1b) are that head dim's
+    # entries'.
     hd64_paths = ("whisper_serving", "training_gpt20m", "training_gpt20m_split",
                   "training_whisper")
     hd256_paths = ("gemma3_serving", "gemma3_paged_serving", "training_gemma3",
                    "training_gemma3_split")
+    hd160_paths = ("stablelm_serving", "stablelm_paged_serving")
     by_dim = {"flash_fwd_hd64": ("flash_fwd", hd64_paths),
               "flash_decode_hd64": ("flash_decode", hd64_paths),
               "flash_fwd_hd256": ("flash_fwd", hd256_paths),
               "flash_decode_hd256": ("flash_decode", hd256_paths),
-              "flash_decode_paged_hd256": ("flash_decode_paged", hd256_paths)}
+              "flash_decode_paged_hd256": ("flash_decode_paged", hd256_paths),
+              "flash_fwd_hd160": ("flash_fwd", hd160_paths),
+              "flash_decode_hd160": ("flash_decode", hd160_paths),
+              "flash_decode_paged_hd160": ("flash_decode_paged", hd160_paths)}
 
     def launches(k, path, counts):
         if k in by_dim:
@@ -3689,6 +3755,7 @@ def main() -> None:
     log(f"whisper training: {json.dumps(wh_train_summary)}")
     log(f"gemma3-1b serving: {json.dumps(g3_summary)}")
     log(f"gemma3-1b training: {json.dumps(g3_train_summaries)}")
+    log(f"stablelm-12b serving: {json.dumps(sl_summary)}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

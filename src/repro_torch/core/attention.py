@@ -63,8 +63,9 @@ def check_card_support(cfg, attn_cfg: AttentionConfig, device, *, training: bool
     ``training`` the backward kernels (``packed``: their segment variants),
     else the decode kernels (``paged``: the paged decode's) are not
     instantiated for: gemma3-1b's 256 serves (fixed and paged) and trains,
-    but not packed, stablelm-12b's 160 does none of it (ROADMAP.md queue 2,
-    item 2), whisper's 64 has no paged decode (item 3). The plain CPU path
+    but not packed; stablelm-12b's 160 serves (fixed and paged) but does
+    not train, since the backward kernels have no 160 (ROADMAP.md queue 2,
+    item 2); whisper's 64 has no paged decode (item 3). The plain CPU path
     and ``impl="ref"`` take any of them."""
     if attn_cfg.impl != "flash_cuda" or torch.device(device).type != "cuda":
         return

@@ -5,9 +5,8 @@
 //   * fa2_decode_bf16 replaces the Pallas TPU kernel
 //     src/repro/kernels/flash_decode.py:77 flash_decode_kernel (body
 //     _decode_kernel :34). It reads the (B, S, Hkv, D) serving cache in
-//     place, at head_dim 128 (qwen3), 64 (whisper) and 256 (gemma3). Splits
-//     are ceil-div,
-//     8-aligned chunks of S (kernels/flash_decode.py decode_geometry). Its
+//     place, at head_dim 128 (qwen3), 64 (whisper), 256 (gemma3) and 160
+//     (stablelm). Splits are ceil-div, 8-aligned chunks of S (kernels/flash_decode.py decode_geometry). Its
 //     SEG instantiation is the packed cache of the same kernel (segment
 //     branch, mask at :52-55): with int32 ids kv_seg (B, S) and q_seg (B,),
 //     a position is visible only where kv_seg[b, g] == q_seg[b], ANDed into
@@ -19,7 +18,7 @@
 //     b sits in physical page tbl[b, g / ps] at offset g % ps. Split c
 //     covers the pp logical pages [c * pp, c * pp + pp), the JAX geometry
 //     (ns = ceil(n_pages / pp)). Its body is fa2_decode_paged_kernel, at
-//     head_dim 128 and 256.
+//     head_dim 128, 160 and 256.
 // Both write, per (batch * kv head, split), the G q heads of one GQA group
 // as a locally normalized f32 partial (o, lse) in the JAX layout, o_parts
 // (B*Hkv, ns, G, D) and lse_parts (B*Hkv, ns, G); the caller folds the
@@ -55,8 +54,8 @@
 //     once and counted on the stage's barrier; no row at or past min(end,
 //     S) is read. Paged: lane 0 moves each page of K and of V as one bulk
 //     copy (ps * D * 2 bytes; a page of more than 64 rows in pieces of 64,
-//     at head_dim 256 of more than 32 rows in pieces of 32, so that a
-//     piece of K and V stays 32 KB);
+//     at head_dim 160 and 256 of more than 32 rows in pieces of 32, so that
+//     a piece of K and V stays within 32 KB);
 //   * the math is mma.sync (m16n8k16) on 16-row units: S^T = K q^T with the
 //     unit's 16 kv rows as the fragment's rows and the G <= 8 q heads as
 //     its 8 columns (K read straight from the copied rows: the head_dim
@@ -287,6 +286,9 @@ __device__ __forceinline__ UnitP unit_softmax(const float (&c)[4], float (&m)[2]
 // (q heads) 2 c4 (+1). A thread reads V rows 2 c4, 2 c4 + 1, 2 c4 + 8,
 // 2 c4 + 9 at head_dim (D / 8) g8 .. + D / 8 - 1 (m-tile mt: word mt), and
 // zeros where the row is not visible (a select: the bytes there may be NaN).
+// Its D / 4 bytes of a row are 16-byte loads where D / 4 is a multiple of 16
+// (D 64, 128, 256); at 160 they are 40 bytes at an 8-byte-aligned offset,
+// read as five 8-byte loads.
 template <int D>
 __device__ __forceinline__ void unit_pv(float (&acc)[D / 16][4], const unsigned char* vu,
                                         const UnitP& u, unsigned rows, int g8, int c4) {
@@ -297,21 +299,31 @@ __device__ __forceinline__ void unit_pv(float (&acc)[D / 16][4], const unsigned 
     acc[mt][2] *= u.alpha[0];
     acc[mt][3] *= u.alpha[1];
   }
-  uint4 vr[4][D / 64];
+  uint32_t vr[4][D / 16];  // word mt of each row: m-tile mt
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = 2 * c4 + (i & 1) + (i >> 1) * 8;
     const bool ok = (rows >> r) & 1u;
+    const unsigned char* at = vu + r * D * 2 + g8 * (D / 4);
+    if constexpr ((D / 4) % 16 == 0) {
 #pragma unroll
-    for (int h = 0; h < D / 64; ++h) {
-      const uint4 x = *reinterpret_cast<const uint4*>(vu + r * D * 2 + g8 * (D / 4) + h * 16);
-      vr[i][h] = ok ? x : make_uint4(0u, 0u, 0u, 0u);
+      for (int h = 0; h < D / 64; ++h) {
+        const uint4 x = *reinterpret_cast<const uint4*>(at + h * 16);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) vr[i][4 * h + e] = ok ? word(x, e) : 0u;
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < D / 32; ++h) {
+        const uint2 x = *reinterpret_cast<const uint2*>(at + h * 8);
+        vr[i][2 * h] = ok ? x.x : 0u;
+        vr[i][2 * h + 1] = ok ? x.y : 0u;
+      }
     }
   }
 #pragma unroll
   for (int mt = 0; mt < D / 16; ++mt) {
-    const uint32_t w0 = word(vr[0][mt >> 2], mt & 3), w1 = word(vr[1][mt >> 2], mt & 3);
-    const uint32_t w2 = word(vr[2][mt >> 2], mt & 3), w3 = word(vr[3][mt >> 2], mt & 3);
+    const uint32_t w0 = vr[0][mt], w1 = vr[1][mt], w2 = vr[2][mt], w3 = vr[3][mt];
     mma16816(acc[mt], __byte_perm(w0, w1, 0x5410), __byte_perm(w0, w1, 0x7632),
              __byte_perm(w2, w3, 0x5410), __byte_perm(w2, w3, 0x7632), u.b0, u.b1);
   }
@@ -341,8 +353,9 @@ __device__ __forceinline__ void store_worker(float* mine, const float (&acc)[D /
   }
 }
 
+// N floats, aligned as far as N allows (N 5 at head_dim 160: 4 bytes).
 template <int N>
-struct alignas(4 * N) Floats {
+struct alignas(4 * (N & -N)) Floats {
   float v[N];
 };
 
@@ -448,7 +461,8 @@ __device__ __forceinline__ void issue_unit(unsigned char* stage, uint64_t* bar,
 template <int D, bool SEG>
 __global__ void __cluster_dims__(1, kDecodeCluster, 1) __launch_bounds__(kDecodeWarps * 32)
     fa2_decode_kernel(const DecodeParams p) {
-  static_assert(D == 64 || D == 128 || D == 256, "the decode takes head_dim 64, 128 or 256");
+  static_assert(D == 64 || D == 128 || D == 160 || D == 256,
+                "the decode takes head_dim 64, 128, 160 or 256");
   constexpr int STAGE = 2 * kUnit * D * 2;  // a unit's K rows, then its V rows
   constexpr int WORKERS = kDecodeWarps * kDecodeCluster;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -547,11 +561,12 @@ constexpr int kPagedWarps = 4;    // workers of a CTA, each owning whole pages
 constexpr int kPagedCluster = 2;  // CTAs of a split, merged through distributed shared memory
 constexpr int kPagedWorkers = kPagedWarps * kPagedCluster;
 
-// Rows of one bulk copy: a page of up to 64 rows (32 at head_dim 256) is one
-// piece, a longer page several.
+// Rows of one bulk copy: a page of up to 64 rows (32 at head_dim 160 and
+// 256, where 64 rows of K and V would be 40 or 64 KB) is one piece, a longer
+// page several, so that a piece of K and V stays within 32 KB.
 template <int D>
 __host__ __device__ constexpr int paged_piece_rows() {
-  return D == 256 ? 32 : 64;
+  return D > 128 ? 32 : 64;
 }
 
 // The pieces (bulk copies of at most `rows` rows) with a visible row of
@@ -582,7 +597,7 @@ struct PieceWalk {
 template <int D>
 __global__ void __cluster_dims__(1, kPagedCluster, 1) __launch_bounds__(kPagedWarps * 32)
     fa2_decode_paged_kernel(const PagedParams p) {
-  static_assert(D == 128 || D == 256, "the paged decode takes head_dim 128 or 256");
+  static_assert(D == 128 || D == 160 || D == 256, "the paged decode takes head_dim 128, 160 or 256");
   constexpr int kPieceRows = paged_piece_rows<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
@@ -694,8 +709,9 @@ cudaError_t launch(Kernel kernel, const Params& p, dim3 grid, int threads, size_
 }
 
 // The paged kernel at head_dim D: two stages a warp where the ring stays
-// within 128 KB (pieces of up to 32 rows at 128, 16 at 256), else one
-// (pieces of 64 rows at 128, 32 at 256: 128 KB for the four warps).
+// within 128 KB (pieces of up to 32 rows at 128, 16 at 160 and 256), else
+// one (pieces of 64 rows at 128, 32 at 160 and 256: 128 KB for the four
+// warps at 128 and 256, 80 KB at 160).
 template <int D>
 cudaError_t launch_paged(PagedParams& p, dim3 grid, cudaStream_t stream) {
   const size_t half =
@@ -742,6 +758,9 @@ extern "C" int fa2_decode_bf16(const void* q, const void* k, const void* v, cons
   if (head_dim == 256)
     return seg ? launch(fa2_decode_kernel<256, true>, p, grid, threads, decode_smem<256>(), s)
                : launch(fa2_decode_kernel<256, false>, p, grid, threads, decode_smem<256>(), s);
+  if (head_dim == 160)
+    return seg ? launch(fa2_decode_kernel<160, true>, p, grid, threads, decode_smem<160>(), s)
+               : launch(fa2_decode_kernel<160, false>, p, grid, threads, decode_smem<160>(), s);
   return cudaErrorInvalidValue;
 }
 
@@ -765,5 +784,6 @@ extern "C" int fa2_decode_paged_bf16(const void* q, const void* k_pages, const v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 128) return launch_paged<128>(p, grid, s);
   if (head_dim == 256) return launch_paged<256>(p, grid, s);
+  if (head_dim == 160) return launch_paged<160>(p, grid, s);
   return cudaErrorInvalidValue;
 }

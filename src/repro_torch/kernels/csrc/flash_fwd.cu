@@ -128,9 +128,9 @@
 //
 // Head dims: every variant is instantiated at 128 (qwen3) and 64
 // (whisper); a 64-row tile is D / 64 TMA boxes of 64 rows x 128 bytes. At
-// 256 (gemma3) only the compact, unsegmented single-pass kernel is
-// instantiated (the serving prefill's), and the same design needs two
-// changes to fit an SM:
+// 256 (gemma3) and 160 (stablelm, below) only the compact, unsegmented
+// single-pass kernel is instantiated (the serving prefill's). At 256 the
+// same design needs two changes to fit an SM:
 //   * registers: a consumer's O is 64 x 256 f32, 128 registers a thread;
 //     with Q as register fragments (64 more), S (32) and P (16) it would
 //     exceed setmaxnreg's 240. So Q stays in shared memory and S = Q K^T
@@ -144,6 +144,22 @@
 //     step are not hidden behind a whole step.
 // At gemma3's prefill (B 1, S 1536, 4 q heads: 48 CTAs on 132 SMs) the 256
 // kernel takes about 14x its bound, 1.54x SDPA's forward (PERF.md row 1g).
+// At 160 (stablelm-12b), again the compact, unsegmented single pass only,
+// 160 is not a whole number of 64-column boxes. Of the two layouts a tile
+// could take, three 128-byte-swizzled boxes (the third half past the
+// tensor, zero-filled by TMA: 24 KB a tile, a 3-stage ring, P V as n128 +
+// n64 into a 96-column accumulator a third of which is zeros) or two such
+// boxes and a tail box of the last 32 columns, 64-byte swizzled, this
+// kernel takes the second: a tile is exactly 20 KB, so the pair's Q (40 KB)
+// and a 4-stage K/V ring (160 KB) fit in 206 KB; S = Q K^T takes its k-steps
+// 8 and 9 from the tail box through a 64-byte-swizzle descriptor
+// (sm90.cuh kmajor_desc), P V is an n128 and an n32 product a k-step
+// (wgmma_rs_k64<160>), and no product or register holds a column that is
+// not there. The cost is a second tensor map per operand (load_tile) and a
+// second swizzle in the Q fragments' and the epilogue's addressing
+// (tile_off). O is 80 registers a consumer thread, Q's fragments 40, S 32
+// and P 16, within setmaxnreg's 240, so Q stays in registers. Every
+// expect_tx counts the whole tile, boxes and tail alike (D * 64 * 2 bytes).
 
 #include <math.h>
 
@@ -185,14 +201,19 @@ struct FwdParams {
 };
 
 // The TMA maps of one launch: q, k and v, each a 4-d (D, H, S, B) view of
-// the strided tensor, boxes of 64 rows x 64 columns, 128-byte swizzled.
+// the strided tensor, boxes of 64 rows x 64 columns, 128-byte swizzled; at
+// head_dim 160 also their tail maps, boxes of 64 rows x 32 columns (columns
+// 128-159), 64-byte swizzled.
 struct FwdMaps {
   CUtensorMap q, k, v;
+  CUtensorMap q_tail, k_tail, v_tail;
 };
 
 // Shared memory, in bytes from a 1024-aligned base: the pair's two Q tiles,
 // the K and V stages, each stage's kv ids (SEG) and step record, then the
-// mbarriers. A 64-row tile is D / 64 boxes of 64 rows x 128 bytes (8 KB).
+// mbarriers. A 64-row tile is D / 64 boxes of 64 rows x 128 bytes (8 KB),
+// and at 160 a tail box of 64 rows x 64 bytes (4 KB): 20 KB, every tile
+// 1024-aligned.
 template <int D>
 struct FwdSmem {
   static constexpr int STAGES = fwd_stages<D>();
@@ -256,6 +277,18 @@ __device__ __forceinline__ TileClass with_ids(TileClass c, int q_lo, int q_hi, i
   return c;
 }
 
+// The boxes of one 64-row tile of map `full` (and at head_dim 160 its tail
+// map) at rows s0 .. s0 + 63 of head h, batch row b, into shared memory at
+// dst, counted on `bar`: D * 64 * 2 bytes in all, the tile's expect_tx.
+template <int D>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap& full,
+                                          const CUtensorMap& tail, uint64_t* bar, int h, int s0,
+                                          int b) {
+  for (int box = 0; box < D / 64; ++box)
+    tma_load(dst + box * 8192, full, bar, box * 64, h, s0, b);
+  if constexpr (D % 64 != 0) tma_load(dst + (D / 64) * 8192, tail, bar, D / 64 * 64, h, s0, b);
+}
+
 __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
   if (col >= p.Skv) return false;
   if (p.causal) {
@@ -270,8 +303,8 @@ __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
 template <int D, bool SEG, bool SPLIT, bool DENSE>
 __global__ void __launch_bounds__(kThreads, 1)
     fa2_fwd_kernel(const FwdParams p, const __grid_constant__ FwdMaps maps) {
-  static_assert(D == 64 || D == 128 || (D == 256 && !SEG && !SPLIT && !DENSE),
-                "the forward takes head_dim 64 or 128, and 256 compact and unsegmented");
+  static_assert(D == 64 || D == 128 || ((D == 160 || D == 256) && !SEG && !SPLIT && !DENSE),
+                "the forward takes head_dim 64 or 128, and 160 and 256 compact and unsegmented");
   using L = FwdSmem<D>;
   constexpr int kStages = L::STAGES;
   constexpr bool QSS = D == 256;  // Q read from shared memory by every S = Q K^T
@@ -314,9 +347,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                      "r"((has1 ? 2 : 1) * L::TILE)
                      : "memory");
         for (int x = 0; x < (has1 ? 2 : 1); ++x)
-          for (int half = 0; half < D / 64; ++half)
-            tma_load(sm + L::Q + x * L::TILE + half * 8192, maps.q, q_bar, half * 64, h,
-                     (i0 + x) * kBlockM, b);
+          load_tile<D>(sm + L::Q + x * L::TILE, maps.q, maps.q_tail, q_bar, h, (i0 + x) * kBlockM,
+                       b);
       }
       PairWalk<SKIP, DENSE> walk;
       walk.group = 1;
@@ -367,12 +399,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int k0 = j * kBlockN;
         if (lane == 0) {
           mbar_expect_tx(&full[stage], 2 * L::TILE);
-          for (int half = 0; half < D / 64; ++half) {
-            tma_load(sm + L::K + stage * L::TILE + half * 8192, maps.k, &full[stage], half * 64,
-                     hk, k0, b);
-            tma_load(sm + L::V + stage * L::TILE + half * 8192, maps.v, &full[stage], half * 64,
-                     hk, k0, b);
-          }
+          load_tile<D>(sm + L::K + stage * L::TILE, maps.k, maps.k_tail, &full[stage], hk, k0, b);
+          load_tile<D>(sm + L::V + stage * L::TILE, maps.v, maps.v_tail, &full[stage], hk, k0, b);
         }
         // Which tiles take the step, and which need the element mask: the
         // table's flags and step bits, or under DENSE the classifier (with
@@ -463,8 +491,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int kk = 0; kk < D / 16; ++kk) {
         const int row = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
         const int col = kk * 16 + (lane >> 4) * 8;
-        const uint32_t at =
-            sQ + (col >> 6) * 8192 + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4);
+        const uint32_t at = sQ + tile_off<D>(row, col);
         asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                      : "=r"(qf[kk][0]), "=r"(qf[kk][1]), "=r"(qf[kk][2]), "=r"(qf[kk][3])
                      : "r"(at));
@@ -500,7 +527,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t cK = sK + stage * L::TILE;
 
       // S = Q K^T (64 x 64, Q from registers or with QSS from its tile, K
-      // over head_dim in D / 64 swizzled boxes, both K-major), issued
+      // over head_dim in its tile's swizzled boxes, both K-major), issued
       // together with the pending step's O += P V.
       // The first step of a run has none pending: it issues one with P = 0
       // (O += 0 exactly), so the products and their waits are the same on
@@ -516,9 +543,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint64_t kd = sw128_desc(cK + (kk >> 2) * 8192 + (kk & 3) * 32, 16);
+        const uint64_t kd = kmajor_desc<D>(cK, kk);
         if constexpr (QSS)
-          wgmma_ss_n64<0, 0>(s, sw128_desc(sQ + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kd, kk > 0);
+          wgmma_ss_n64<0, 0>(s, kmajor_desc<D>(sQ, kk), kd, kk > 0);
         else
           wgmma_rs_n64<0>(s, qf[kk], kd, kk > 0);
       }
@@ -653,9 +680,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       named_sync(1 + w, 128);  // every warp has read its Q fragments
 #pragma unroll
       for (int tt = 0; tt < D / 8; ++tt) {
-        unsigned char* at = stg + (tt >> 3) * 8192 + r_a * 128 + (((tt & 7) ^ g8) << 4) + t4 * 4;
-        *reinterpret_cast<uint32_t*>(at) = pack_bf16(o[4 * tt] * inv[0], o[4 * tt + 1] * inv[0]);
-        *reinterpret_cast<uint32_t*>(at + 1024) =
+        *reinterpret_cast<uint32_t*>(stg + tile_off<D>(r_a, 8 * tt) + t4 * 4) =
+            pack_bf16(o[4 * tt] * inv[0], o[4 * tt + 1] * inv[0]);
+        *reinterpret_cast<uint32_t*>(stg + tile_off<D>(r_a + 8, 8 * tt) + t4 * 4) =
             pack_bf16(o[4 * tt + 2] * inv[1], o[4 * tt + 3] * inv[1]);
       }
       named_sync(1 + w, 128);
@@ -665,8 +692,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int r = idx / CH, c = idx % CH;
         if (q0 + r < p.Sq)
           *reinterpret_cast<uint4*>(og + (q0 + r) * p.o_ss + c * 8) =
-              *reinterpret_cast<const uint4*>(stg + (c >> 3) * 8192 + r * 128 +
-                                              (((c & 7) ^ (r & 7)) << 4));
+              *reinterpret_cast<const uint4*>(stg + tile_off<D>(r, 8 * c));
       }
     }
   }
@@ -709,6 +735,11 @@ cudaError_t launch(const FwdParams& p, int batch, int Hkv, cudaStream_t stream,
       !make_map(&maps.k, p.k, batch, p.Skv, Hkv, D, p.k_sb, p.k_ss, p.k_sh, kBlockN) ||
       !make_map(&maps.v, p.v, batch, p.Skv, Hkv, D, p.v_sb, p.v_ss, p.v_sh, kBlockN))
     return cudaErrorInvalidValue;
+  if (D % 64 != 0 &&  // the tail boxes of head_dim 160
+      (!make_map(&maps.q_tail, p.q, batch, p.Sq, p.Hq, D, p.q_sb, p.q_ss, p.q_sh, kBlockM, 32) ||
+       !make_map(&maps.k_tail, p.k, batch, p.Skv, Hkv, D, p.k_sb, p.k_ss, p.k_sh, kBlockN, 32) ||
+       !make_map(&maps.v_tail, p.v, batch, p.Skv, Hkv, D, p.v_sb, p.v_ss, p.v_sh, kBlockN, 32)))
+    return cudaErrorInvalidValue;
   auto kernel = fa2_fwd_kernel<D, SEG, SPLIT, DENSE>;
   const size_t smem = FwdSmem<D>::BYTES + 1024;  // + the 1024-byte alignment of the base
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -727,9 +758,9 @@ cudaError_t launch(const FwdParams& p, int batch, int Hkv, cudaStream_t stream,
 template <int D>
 cudaError_t dispatch(const FwdParams& p, int batch, int Hkv, bool seg, bool split, bool dense,
                      cudaStream_t s, __nv_bfloat16* of, float* lf) {
-  if constexpr (D == 256) {  // compact and unsegmented only (the header says why)
+  if constexpr (D == 160 || D == 256) {  // compact and unsegmented only (the header says why)
     if (seg || split || dense) return cudaErrorInvalidValue;
-    return launch<256, false, false>(p, batch, Hkv, s, of, lf);
+    return launch<D, false, false>(p, batch, Hkv, s, of, lf);
   } else {
     if (dense)
       return seg ? launch<D, true, false, true>(p, batch, Hkv, s, of, lf)
@@ -777,8 +808,8 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
   // Head dims 128 (qwen3) and 64 (whisper); without and with segments (null
   // ids: none); the compact schedule (table; with segments, step bits) or
   // the dense one (no table, no bits); single-pass, or (compact only)
-  // split-KV partials (o, lse) folded into (o_fold, lse_fold). Head dim 256
-  // (gemma3): the compact, unsegmented single pass only.
+  // split-KV partials (o, lse) folded into (o_fold, lse_fold). Head dims 256
+  // (gemma3) and 160 (stablelm): the compact, unsegmented single pass only.
   if (block_q != kBlockM || block_kv != kBlockN || ks < 1 || t_q < 1) return cudaErrorInvalidValue;
   if (split && (dense || o_fold == nullptr || lse_fold == nullptr))
     return cudaErrorInvalidValue;
@@ -792,5 +823,7 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
   if (head_dim == 64) return dispatch<64>(p, batch, Hkv, seg, split != 0, dense != 0, s, of, lf);
   if (head_dim == 256)
     return dispatch<256>(p, batch, Hkv, seg, split != 0, dense != 0, s, of, lf);
+  if (head_dim == 160)
+    return dispatch<160>(p, batch, Hkv, seg, split != 0, dense != 0, s, of, lf);
   return cudaErrorInvalidValue;
 }

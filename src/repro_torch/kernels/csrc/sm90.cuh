@@ -157,6 +157,38 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
+// The same for a 64-byte-swizzled operand (layout type 2): rows of 64 bytes
+// in atoms of 8 rows (512 bytes). K-major: `addr` steps 32 bytes a k-step
+// inside a row, SBO = 512 (the next 8 rows). MN-major: LBO = the stride of
+// the next 32 MN elements, SBO = 512 (the next 8 k rows). The last 32
+// columns of a head_dim-160 tile (make_map's tail box).
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (static_cast<uint64_t>(2) << 62);
+}
+
+// Byte offset of the 16-byte chunk holding column `col` (a multiple of 8)
+// of row `row` in a 64-row bf16 tile of D columns, as TMA lands it: D / 64
+// boxes of 64 rows x 128 bytes, 128-byte swizzled, 8 KB apart, then at D =
+// 160 a tail box of 64 rows x 64 bytes, 64-byte swizzled (chunk c of row r
+// at c ^ ((r >> 1) & 3)).
+template <int D>
+__device__ __forceinline__ uint32_t tile_off(int row, int col) {
+  constexpr int kWide = D / 64 * 64;  // columns in 128-byte boxes
+  if (D % 64 == 0 || col < kWide)
+    return (col >> 6) * 8192 + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4);
+  return (D / 64) * 8192 + row * 64 + (((((col - kWide) & 31) >> 3) ^ ((row >> 1) & 3)) << 4);
+}
+
+// The K-major descriptor of k-step kk (16 columns) of such a tile: the
+// operand B of S = Q K^T (and A, with Q in shared memory).
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  if (D % 64 == 0 || kk < D / 64 * 4) return sw128_desc(tile + (kk >> 2) * 8192 + (kk & 3) * 32, 16);
+  return sw64_desc(tile + (D / 64) * 8192 + (kk - D / 64 * 4) * 32, 16);
+}
+
 // d (64 x 64 f32) (+)= A (64 x 16, shared) * B (16 x 64, shared); TA/TB: MN-major.
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
@@ -219,20 +251,41 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 32 f32) += A (64 x 16 bf16, registers) * B (16 x 32, shared,
+// MN-major, 64-byte swizzled).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // d (64 x D f32) += A (64 x 64 bf16: four k-steps of register fragments) *
-// B (64 x D at shared address b, MN-major: D / 64 boxes of 64 rows x 128
-// bytes, 8 KB apart, as TMA lands a 64-row tile); D = 64, 128 or 256. P V
-// of the forward, P^T dO and dS^T Q of the KV-stationary backward, dS K of
-// the dq kernel. At 256 each k-step is two n128 products, columns 0-127
-// into d[0 .. 63] and 128-255 into d[64 .. 127]: the accumulator layout of
-// one m64n256k16, whose fragment puts column block t at d[4 t .. 4 t + 3].
+// B (64 x D at shared address b, MN-major, as TMA lands a 64-row tile:
+// D / 64 boxes of 64 rows x 128 bytes, 8 KB apart, and at D = 160 a 64-byte
+// swizzled tail box of 64 rows x 64 bytes after them); D = 64, 128, 160 or
+// 256. P V of the forward, P^T dO and dS^T Q of the KV-stationary backward,
+// dS K of the dq kernel. At 256 each k-step is two n128 products, columns
+// 0-127 into d[0 .. 63] and 128-255 into d[64 .. 127]; at 160 an n128 and an
+// n32 (columns 128-159 into d[64 .. 79]): the accumulator layout of one
+// m64nDk16, whose fragment puts column block t at d[4 t .. 4 t + 3].
 template <int D>
 __device__ __forceinline__ void wgmma_rs_k64(float (&d)[D / 2], const uint32_t (&a)[4][4],
                                              uint32_t b) {
-  static_assert(D == 64 || D == 128 || D == 256, "wgmma_rs_k64 takes D = 64, 128 or 256");
+  static_assert(D == 64 || D == 128 || D == 160 || D == 256,
+                "wgmma_rs_k64 takes D = 64, 128, 160 or 256");
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    if constexpr (D == 256) {
+    if constexpr (D == 160) {
+      wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d), a[kk], sw128_desc(b + kk * 2048, 8192));
+      wgmma_rs_n32(*reinterpret_cast<float(*)[16]>(d + 64), a[kk],
+                   sw64_desc(b + 2 * 8192 + kk * 1024, 4096));
+    } else if constexpr (D == 256) {
       wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d), a[kk], sw128_desc(b + kk * 2048, 8192));
       wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d + 64), a[kk],
                     sw128_desc(b + 2 * 8192 + kk * 2048, 8192));
@@ -334,22 +387,23 @@ EncodeTiled encode_tiled() {
 }
 
 // The (D, H, S, B) map of a strided bf16 tensor (B, S, H, D) with unit last
-// stride, D a multiple of 64: boxes of 64 columns x `rows` rows of one head,
-// 128-byte swizzled, rows past S read as zeros. The strides (elements) are
-// multiples of 8 and the base 16-byte aligned (the wrappers check both), as
-// TMA needs.
+// stride: boxes of `cols` columns (64, 128-byte swizzled; or 32, 64-byte
+// swizzled: the tail box of D = 160) x `rows` rows of one head, rows past S
+// read as zeros. The strides (elements) are multiples of 8 and the base
+// 16-byte aligned (the wrappers check both), as TMA needs.
 bool make_map(CUtensorMap* map, const void* base, int B, int S, int H, int D, long long sb,
-              long long ss, long long sh, int rows) {
+              long long ss, long long sh, int rows, int cols = 64) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

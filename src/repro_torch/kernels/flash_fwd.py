@@ -39,8 +39,9 @@ version); the wrapper returns both as a :class:`SplitForward`.
 kernel source instantiated with ``SPLIT``.
 
 The kernels are instantiated at head_dim 64 and 128 in every mode, and at
-256 in the compact, unsegmented single pass only (``KERNEL_HEAD_DIMS``,
-``ALL_MODES_HEAD_DIMS``): the other modes refuse 256 before the launch.
+160 and 256 in the compact, unsegmented single pass only
+(``KERNEL_HEAD_DIMS``, ``ALL_MODES_HEAD_DIMS``): the other modes refuse 160
+and 256 before the launch.
 
 ``schedule="dense"`` on :func:`flash_fwd` and :func:`flash_fwd_varlen`
 replaces the dense body ``_fwd_kernel_dense`` (``flash_fwd.py:206``, with
@@ -76,10 +77,10 @@ from repro_torch.kernels.schedule import (build_kv_tile_schedule, build_q_tile_s
 
 # (block_q, block_kv) and head dims the CUDA kernels are instantiated for:
 # 128 (qwen3) and 64 (whisper) in every mode (segments, split-KV, dense);
-# 256 (gemma3) in the compact, unsegmented single pass, the serving
-# prefill's (its other modes are ROADMAP.md queue 2, item 2).
+# 160 (stablelm) and 256 (gemma3) in the compact, unsegmented single pass,
+# the serving prefill's (their other modes are ROADMAP.md queue 2, item 2).
 KERNEL_BLOCKS = ((64, 64),)
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (64, 128, 160, 256)
 ALL_MODES_HEAD_DIMS = (64, 128)
 
 

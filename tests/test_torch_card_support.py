@@ -1,9 +1,9 @@
 """What the entry points refuse before anything reaches the card, and the
 train CLI's ``--dtype``.
 
-The CUDA kernels take bfloat16 at head_dim 64 and 128, and serve (forward,
-decode, paged decode) and train (unpacked) at 256; the paged decode has no
-64.
+The CUDA kernels take bfloat16 at head_dim 64 and 128, serve (forward,
+decode, paged decode) and train (unpacked) at 256, and serve at 160; the
+paged decode has no 64.
 ``core.attention.check_card_support`` refuses ``flash_cuda`` on a CUDA
 device for anything else, and the train and serve CLIs call it before they
 build a model: on this machine, which has no card, the CLIs must therefore
@@ -49,20 +49,30 @@ def test_float32_is_refused_on_the_card_with_the_way_out():
     check_card_support(cfg, REF, "cuda", training=True)
 
 
-# stablelm-12b's 160 has no kernel at all (forward, decode, paged decode,
-# backward).
-@pytest.mark.parametrize("arch,head_dim,training,paged", [
-    ("stablelm-12b", 160, True, False),
-    ("stablelm-12b", 160, False, False),
-    ("stablelm-12b", 160, False, True),
+# stablelm-12b's 160 has no backward kernel: training is refused, through
+# either backward mode, packed or not (the forward and both decodes serve
+# it: test_stablelm_at_head_dim_160_serves_on_the_card).
+@pytest.mark.parametrize("arch,head_dim,bwd,packed", [
+    ("stablelm-12b", 160, "fused", False),
+    ("stablelm-12b", 160, "split", False),
+    ("stablelm-12b", 160, "fused", True),
 ])
-def test_head_dims_the_kernels_lack_are_refused_on_the_card(arch, head_dim, training, paged):
+def test_head_dims_the_kernels_lack_are_refused_on_the_card(arch, head_dim, bwd, packed):
     cfg = registry.get(arch)
     assert cfg.head_dim == head_dim and cfg.dtype == "bfloat16"
-    with pytest.raises(ValueError, match=f"head_dim {head_dim}.*queue 2, item 2"):
-        check_card_support(cfg, FLASH, "cuda", training=training, paged=paged)
-    check_card_support(cfg, FLASH, "cpu", training=training, paged=paged)
-    check_card_support(cfg, REF, "cuda", training=training, paged=paged)
+    flash = AttentionConfig(impl="flash_cuda", bwd=bwd)
+    with pytest.raises(ValueError, match=f"head_dim {head_dim}; the CUDA backward.*queue 2, "
+                                         "item 2.*--attn ref"):
+        check_card_support(cfg, flash, "cuda", training=True, packed=packed)
+    check_card_support(cfg, flash, "cpu", training=True, packed=packed)
+    check_card_support(cfg, REF, "cuda", training=True, packed=packed)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_stablelm_at_head_dim_160_serves_on_the_card(paged):
+    cfg = registry.get("stablelm-12b")
+    assert cfg.head_dim == 160 and cfg.dtype == "bfloat16"
+    check_card_support(cfg, FLASH, "cuda", training=False, paged=paged)
 
 
 @pytest.mark.parametrize("paged", [False, True])
@@ -119,10 +129,21 @@ def test_train_cli_refuses_before_building_the_model():
 
 
 def test_serve_cli_refuses_before_building_the_model():
-    with pytest.raises(ValueError, match="head_dim 160"):
-        serve.main(["--arch", "stablelm-12b"])
+    with pytest.raises(ValueError, match="head_dim 64; the CUDA decode.*queue 2, item 3"):
+        serve.main(["--arch", "whisper-base", "--engine", "paged"])
     with pytest.raises(ValueError, match="bfloat16"):
         serve.main(["--arch", "qwen3-8b", "--reduce"])
+
+
+@pytest.mark.parametrize("engine", ["fixed", "paged"])
+def test_serve_cli_takes_stablelm_to_the_card(engine):
+    """stablelm-12b (head_dim 160) on the default device through flash_cuda
+    passes the check and stops only at the missing card, before any of its
+    12 B weights is made."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CLI would serve on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "stablelm-12b", "--engine", engine])
 
 
 @pytest.mark.parametrize("engine", ["fixed", "paged"])

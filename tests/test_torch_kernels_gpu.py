@@ -75,7 +75,7 @@ FWD_CASES = [
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [128, 256, 160])
 @pytest.mark.parametrize("B,S,Hkv,spec,view", FWD_CASES)
 def test_forward_kernel_matches_plain(cuda, B, S, Hkv, spec, view, D):
     """The forward against its plain version; ``_err`` also asserts that the
@@ -123,7 +123,7 @@ DECODE_CASES = [
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [128, 64, 256])
+@pytest.mark.parametrize("D", [128, 64, 256, 160])
 @pytest.mark.parametrize("G", [1, 4, 8])
 @pytest.mark.parametrize("S,lengths,window,sink,splits,stale", DECODE_CASES)
 def test_decode_kernel_matches_plain(cuda, S, lengths, window, sink, splits, stale, G, D):
@@ -162,19 +162,20 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     qb = q.to(torch.bfloat16)
     with pytest.raises(ValueError, match="block_q"):
         fwd_mod.flash_fwd(qb, qb, qb, MaskSpec(causal=True), block_q=32, block_kv=64)
-    # At head_dim 256 only the compact, unsegmented single pass is built.
-    q256 = torch.zeros((1, 256, 4, 256), dtype=torch.bfloat16, device=cuda)
+    # At head_dim 160 and 256 only the compact, unsegmented single pass is built.
     ids = torch.zeros((1, 256), dtype=torch.int32, device=cuda)
     spec = MaskSpec(causal=True)
-    for mode, call in (
-            ("segment", lambda: fwd_mod.flash_fwd_varlen(q256, q256, q256, spec, ids, ids,
-                                                         block_q=64, block_kv=64)),
-            ("split-KV", lambda: fwd_mod.flash_fwd_splitkv(q256, q256, q256, spec, block_q=64,
-                                                           block_kv=64, kv_splits=2)),
-            ("dense", lambda: fwd_mod.flash_fwd(q256, q256, q256, spec, block_q=64,
-                                                block_kv=64, schedule="dense"))):
-        with pytest.raises(ValueError, match=f"{mode} mode .* queue 2, item 2"):
-            call()
+    for D in (160, 256):
+        qd = torch.zeros((1, 256, 4, D), dtype=torch.bfloat16, device=cuda)
+        for mode, call in (
+                ("segment", lambda: fwd_mod.flash_fwd_varlen(qd, qd, qd, spec, ids, ids,
+                                                             block_q=64, block_kv=64)),
+                ("split-KV", lambda: fwd_mod.flash_fwd_splitkv(qd, qd, qd, spec, block_q=64,
+                                                               block_kv=64, kv_splits=2)),
+                ("dense", lambda: fwd_mod.flash_fwd(qd, qd, qd, spec, block_q=64,
+                                                    block_kv=64, schedule="dense"))):
+            with pytest.raises(ValueError, match=f"{mode} mode .* got {D} .* queue 2, item 2"):
+                call()
 
 
 def _rel_err(a, b):
@@ -607,14 +608,14 @@ PAGED_CASES = [
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [128, 256, 160])
 @pytest.mark.parametrize("ps,G,window,sink,S,stale", PAGED_CASES)
 def test_paged_decode_kernel_matches_plain(cuda, ps, G, window, sink, S, stale, D):
     """The paged kernel against its plain version (ragged lengths with 0 and
     an odd-page length); bitwise the same partials under a second shuffle
     of the physical pages; (0, -inf) partials for the length-0 row; with
     ``stale``, the same partials with NaN in the rows no length reaches.
-    At D 256 a page of more than 32 rows goes as pieces of 32."""
+    At D 160 and 256 a page of more than 32 rows goes as pieces of 32."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     B, Hkv = 4, 8
     q = _randn(gen, (B * Hkv, G, D), cuda)
@@ -666,7 +667,7 @@ PAGED_AS_CONTIGUOUS_CASES = [
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [128, 256, 160])
 @pytest.mark.parametrize("S,lengths,window,sink,G,Hkv", PAGED_AS_CONTIGUOUS_CASES)
 def test_paged_decode_at_page_size_16_is_bitwise_the_contiguous_kernel(
         cuda, S, lengths, window, sink, G, Hkv, D):
@@ -750,12 +751,28 @@ def test_paged_engine_runs_through_the_kernels(cuda):
 def test_gemma3_engines_run_through_the_head_dim_256_kernels(cuda, paged):
     """One layer pattern (5 windowed layers, 1 global) of full-width
     gemma3-1b (head_dim 256, one kv head for four q heads) through both
-    engines on flash_cuda: every request finishes with max_new + 1 tokens,
-    every prefill goes through the forward kernel and every decode through
-    the decode kernel of the engine, at head_dim 256; no plain version
-    runs."""
+    engines (``_engine_runs_through_the_kernels``)."""
     cfg = dataclasses.replace(registry.get("gemma3-1b"), num_layers=6)
     assert cfg.head_dim == 256 and cfg.window == 512
+    _engine_runs_through_the_kernels(cuda, cfg, paged)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_stablelm_engines_run_through_the_head_dim_160_kernels(cuda, paged):
+    """Two layers of full-width stablelm-12b (head_dim 160, 32 q heads over 8
+    kv heads, qk-norm, untied) through both engines
+    (``_engine_runs_through_the_kernels``)."""
+    cfg = dataclasses.replace(registry.get("stablelm-12b"), num_layers=2)
+    assert cfg.head_dim == 160 and cfg.qk_norm
+    _engine_runs_through_the_kernels(cuda, cfg, paged)
+
+
+def _engine_runs_through_the_kernels(cuda, cfg, paged):
+    """``cfg`` through the fixed-slot or the paged engine on flash_cuda:
+    every request finishes with max_new + 1 tokens, every prefill goes
+    through the forward kernel and every decode through the decode kernel
+    of the engine; no plain version runs."""
     model = init_lm(cfg, seed=0, device=cuda)
     attn = AttentionConfig(impl="flash_cuda")
     if paged:
