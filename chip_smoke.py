@@ -165,6 +165,17 @@ once, fused or dK/dV and dQ once, all at head_dim 256), the loss must
 fall and follow the reference's; tokens/s, MFU, peak memory, the profiled
 step's busy share and attention time; the split backward bitwise
 reproducible at the training shape.
+Phase 3 also holds the four backward kernels at head_dim 160 (stablelm-12b's
+training: B 2, S 2048, 32 q heads over 8 kv heads, causal; the ragged S
+1500, rows that see no key) the same way, and a default ops.flash_attention
+of 64 q rows against 1536 keys at head_dim 160 and 256 (no split-KV kernel
+there) must take one split, run the single-pass forward and match its plain
+version. Then the stablelm training slice: stablelm-12b at its published
+widths, depth cut to 8 of 40 layers (3.25 B parameters, one card's memory
+with AdamW's state), trains 8 AdamW steps at B 2, S 2048 through ``train``
+with the fused and the split backward and once through impl="ref", as the
+gemma3 slice (launch counts exact: the forward twice a layer and step,
+delta, fused or dK/dV and dQ once, all at head_dim 160).
 The last two lines are the kernels' JSON record and the result line.
 """
 
@@ -2246,11 +2257,11 @@ class SubCount:
 
 def with_dense(wrappers) -> dict:
     """{name: counter} of ``wrappers``, ``<name>_dense`` for each that also
-    counts dense-schedule launches, and ``<name>_hd64`` and ``<name>_hd256``
-    for each that counts its head_dim-64 and 256 launches apart (the
-    backward's)."""
+    counts dense-schedule launches, and ``<name>_hd64``, ``<name>_hd160`` and
+    ``<name>_hd256`` for each that counts its head_dim-64, 160 and 256
+    launches apart (the backward's)."""
     counters = {f.__name__: f for f in wrappers}
-    for suffix in ("dense", "hd64", "hd256"):
+    for suffix in ("dense", "hd64", "hd160", "hd256"):
         counters.update({f"{f.__name__}_{suffix}": SubCount(f, f"{suffix}_launches")
                          for f in wrappers if hasattr(f, f"{suffix}_launches")})
     return counters
@@ -2475,13 +2486,13 @@ def read_counts(counters, plains) -> dict:
 
 
 def training_want(counters, plains, n: int, bwds, suffix: str = "", *, remat: bool = True,
-                  hd64: bool = False, hd256: bool = False, forwards=None) -> dict:
+                  head_dim=None, forwards=None) -> dict:
     """Exact launch counts of ``n`` attention calls (layer-steps) under each
     backward mode of ``bwds``, through the kernels named with ``suffix``
     (``_varlen``, ``_dense``, both or none): the forward twice (``remat``)
     or once (``forwards``, where given: that many forward launches), delta
-    once, then the fused kernel or dK/dV and dQ once; with ``hd64``
-    (``hd256``) the backward's head_dim-64 (256) counts the same; every
+    once, then the fused kernel or dK/dV and dQ once; with ``head_dim`` (64,
+    160 or 256) the backward's counts at that head dim the same; every
     other kernel and every plain version 0."""
     want = {k: 0 for k in counters}
     for bwd in bwds:
@@ -2491,9 +2502,8 @@ def training_want(counters, plains, n: int, bwds, suffix: str = "", *, remat: bo
             "flash_bwd_dkv" + suffix, "flash_bwd_dq" + suffix]
         for name in names:
             want[name] += n
-            for on, dim in ((hd64, "_hd64"), (hd256, "_hd256")):
-                if on:
-                    want[name + dim] += n
+            if head_dim is not None:
+                want[f"{name}_hd{head_dim}"] += n
     want["plain"] = [0] * len(plains)
     return want
 
@@ -2889,7 +2899,7 @@ def gpt_train_phase(torch, dev):
         if not sum(history["loss"][-2:]) / 2 < history["loss"][0]:
             fail(f"the gpt-20m training loss (bwd={run}) did not fall")
         want = training_want(counters, plains, GPT_STEPS * cfg.num_layers, (run,), remat=False,
-                             hd64=True)
+                             head_dim=64)
         if counts[run] != want:
             fail(f"gpt-20m training launches (bwd={run}) {counts[run]}, want {want}")
         if run == "fused":
@@ -2980,7 +2990,7 @@ def whisper_train_phase(torch, dev):
                            frames_per_s=WH_TRAIN_B * WH_FRAMES / med, peak_gib=peak)
             log(f"launches on the whisper training path: {counts}")
             n = WH_TRAIN_STEPS * (cfg.encoder.num_layers + 2 * cfg.num_layers)
-            want = training_want(counters, plains, n, ("fused",), hd64=True)
+            want = training_want(counters, plains, n, ("fused",), head_dim=64)
             if counts != want:
                 fail(f"whisper training launches {counts}, want {want} (forward twice an "
                      f"attention call with remat)")
@@ -3235,6 +3245,40 @@ def head_dim_kernel_phase(torch, dev, flush, D, hq, hkv, window, *, seed, fwd_sh
     }
 
 
+def default_split_phase(torch, dev):
+    """The auto kv split where no split-KV kernel is built: a default
+    ops.flash_attention of 64 q rows against 1536 keys (the short-q,
+    long-kv corner where the policy splits at 64 and 128) at stablelm-12b's
+    head_dim 160 (32 q heads over 8) and gemma3-1b's 256 (4 over 1) must
+    resolve to one split, run the single-pass forward (one launch, the
+    split-KV kernel none) and match its plain version."""
+    from repro_torch.core.masks import MaskSpec
+    from repro_torch.kernels import flash_fwd as fwd
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for D, hq, hkv in ((SL_D, SL_HQ, SL_HKV), (G3_D, G3_HQ, G3_HKV)):
+        q = torch.randn((1, 64, hq, D), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((1, 1536, hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        spec = MaskSpec(causal=True, q_offset=1536 - 64)
+        ks = ops.resolve_kv_splits(None, q.shape, k.shape)
+        before = (fwd.flash_fwd.launches, fwd.flash_fwd_splitkv.launches)
+        o = ops.flash_attention(q, k, v, spec)
+        torch.cuda.synchronize()
+        ran = (fwd.flash_fwd.launches - before[0], fwd.flash_fwd_splitkv.launches - before[1])
+        o_p, _ = fwd.flash_fwd_plain(ops._prep(q, 1 / math.sqrt(D)), k, v, spec,
+                                     block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
+        err = max_err(torch, o, o_p)
+        log(f"default ops.flash_attention at head_dim {D}, q (1, 64, {hq}, {D}) against k "
+            f"(1, 1536, {hkv}, {D}): auto kv splits {ks} (head_dim 128 would take "
+            f"{ops.default_kv_splits(hq, 1, 24)}); launches flash_fwd {ran[0]}, "
+            f"flash_fwd_splitkv {ran[1]}; max|o-plain|={err:.3e} (tol {FWD_TOL['o']})")
+        if ks != 1 or ran != (1, 0) or not err <= FWD_TOL["o"]:
+            fail(f"the default split call at head_dim {D} did not run the single-pass kernel "
+                 "or disagrees with its plain version")
+
+
 def gemma3_phase(torch, dev):
     """The gemma3 serving slice: gemma3-1b at its published widths and depth
     (26 layers, d_model 1152, 4 q heads over 1 kv head of 256, a 512-token
@@ -3367,6 +3411,18 @@ def model_serving_phase(torch, dev, arch: str, path: str):
 # port's qwen3 slice trains at; four sequences fill one card's memory with
 # room to spare), 8 AdamW steps, the model uncut.
 G3_TRAIN_B, G3_TRAIN_S, G3_TRAIN_STEPS = 4, 2048, 8
+# stablelm-12b training: the depth cut to 8 of 40 layers (qwen3-8b's cut,
+# TRAIN_LAYERS: 3.25 B parameters, about 52 GB of bf16 weights and
+# gradients, f32 master, mu and nu), the qwen3 slice's B 2, S 2048, 8 AdamW
+# steps. The head_dim-160 backward's shapes: the training shape (timed), a
+# ragged S (1500: an odd number of tiles and a ragged last one), and rows
+# that see no key (q_offset -100).
+SL_TRAIN_LAYERS, SL_TRAIN_B, SL_TRAIN_S, SL_TRAIN_STEPS = TRAIN_LAYERS, TRAIN_B, TRAIN_S, 8
+HD160_BWD_SHAPES = {
+    "causal": (SL_TRAIN_B, SL_TRAIN_S, dict(causal=True)),
+    "causal_1500": (1, 1500, dict(causal=True)),
+    "masked_rows_300": (1, 300, dict(causal=True, q_offset=-100)),
+}
 # The head_dim-256 backward's shapes, (B, S, spec): the training shape with
 # gemma3's global (causal) and local (window 512) layers, an odd number of
 # tiles with the window (one tile a CTA at 256), a ragged S, and rows that
@@ -3382,73 +3438,112 @@ HD256_BWD_SHAPES = {
 
 def hd256_bwd_kernel_phase(torch, dev, flush):
     """The four backward kernels at head_dim 256 (gemma3-1b: 4 q heads over
-    1 kv head) against their plain versions at every HD256_BWD_SHAPES
-    shape, with the bitwise invariants (split dK/dV the fused kernel's, dQ
-    over two launches); the training shape (causal and window 512) timed
-    (``bwd_kernels_at``; SDPA with the window as an explicit mask). The
-    causal shape gives each kernel's top-level numbers; the window's are
-    under ``at_shapes``."""
+    1 kv head) at every HD256_BWD_SHAPES shape (``head_dim_bwd_kernel_phase``;
+    the training shape timed causal and with the window 512)."""
+    return head_dim_bwd_kernel_phase(torch, dev, flush, G3_D, G3_HQ, G3_HKV, HD256_BWD_SHAPES,
+                                     (G3_TRAIN_B, G3_TRAIN_S), seed=11)
+
+
+def hd160_bwd_kernel_phase(torch, dev, flush):
+    """The four backward kernels at head_dim 160 (stablelm-12b: 32 q heads
+    over 8 kv heads) at every HD160_BWD_SHAPES shape
+    (``head_dim_bwd_kernel_phase``; the training shape timed)."""
+    return head_dim_bwd_kernel_phase(torch, dev, flush, SL_D, SL_HQ, SL_HKV, HD160_BWD_SHAPES,
+                                     (SL_TRAIN_B, SL_TRAIN_S), seed=12)
+
+
+def head_dim_bwd_kernel_phase(torch, dev, flush, D, hq, hkv, shapes, timed_at, *, seed):
+    """The four backward kernels at head_dim ``D``, ``hq`` q heads over
+    ``hkv`` kv heads, against their plain versions at every (B, S, spec) of
+    ``shapes``, with the bitwise invariants (split dK/dV the fused kernel's,
+    dQ over two launches); the shapes at ``timed_at`` (B, S) timed
+    (``bwd_kernels_at``; SDPA with a window as an explicit mask). The
+    "causal" shape gives each kernel's top-level numbers; every timed
+    shape's are under ``at_shapes``."""
     from repro_torch.core.masks import MaskSpec
 
-    gen = torch.Generator(device=dev).manual_seed(11)
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     errs = {name: 0.0 for name in BWD_NAMES}
     at = {name: {} for name in BWD_NAMES}
-    for shape, (B, S, spec_kw) in HD256_BWD_SHAPES.items():
+    for shape, (B, S, spec_kw) in shapes.items():
         spec = MaskSpec(**spec_kw)
-        what = f"{shape} B={B} S={S} Hq={G3_HQ} Hkv={G3_HKV} D={G3_D} {spec_kw}"
-        timed = (B, S) == (G3_TRAIN_B, G3_TRAIN_S)
+        what = f"{shape} B={B} S={S} Hq={hq} Hkv={hkv} D={D} {spec_kw}"
+        timed = (B, S) == timed_at
         sdpa_kw = None
         if timed and spec.window is not None:
             ago = torch.arange(S, device=dev)[:, None] - torch.arange(S, device=dev)[None, :]
             sdpa_kw = dict(mask=((ago >= 0) & (ago < spec.window))[None, None])
-        e, rows = bwd_kernels_at(torch, randn, G3_D, B, S, S, G3_HQ, G3_HKV, spec,
+        e, rows = bwd_kernels_at(torch, randn, D, B, S, S, hq, hkv, spec,
                                  B * causal_pairs(S, spec.window), what, flush, timed=timed,
                                  sdpa_kw=sdpa_kw)
         for name in BWD_NAMES:
             errs[name] = max(errs[name], e[name])
             if timed:
                 at[name][shape] = rows[name]
-    return {f"{name}_hd256": dict(max_abs_err=errs[name], **at[name]["causal"],
+    return {f"{name}_hd{D}": dict(max_abs_err=errs[name], **at[name]["causal"],
                                   at_shapes=at[name]) for name in BWD_NAMES}
 
 
 def gemma3_train_phase(torch, dev):
     """The gemma3 training slice: gemma3-1b at its published widths and depth
     (26 layers, d_model 1152, 4 q heads over 1 kv head of 256, a 512-token
-    window on 5 of 6 layers, tied embeddings over a 262,144 vocab, bf16,
-    remat, seed 0) through the train CLI's ``train`` on the synthetic stream
-    (B 4, S 2048, G3_TRAIN_STEPS AdamW steps), with the fused and with the
-    split backward, and once through impl="ref" from the same seed and
-    batches. Each kernel run's launches must be exact (per layer and step:
-    the forward twice in the 24 layers of the remat groups and once in the
-    2 tail layers, delta once, the fused kernel or dK/dV and dQ once, all
-    at head_dim 256; no plain version), its loss must fall, step
-    0's loss must be the reference's within PARITY_LOSS_REL and every
-    step's within GPT_LOSS_REL, and step 0's loss the same through both
-    backward modes (the same forward). One more fused step under
-    torch.profiler gives the device busy share and attention's device time.
-    Then ops.flash_attention(bwd="split") forward and backward twice at the
-    training shape must give bitwise-equal gradients. Returns {bwd: launch
-    counts} and {bwd: summary}."""
+    window on 5 of 6 layers, tied embeddings over a 262,144 vocab) at B 4,
+    S 2048, ``model_train_phase``. Remat recomputes each group of
+    cfg.group_size (6) layers in the backward; the tail layers (26 % 6 = 2)
+    are not checkpointed, as in the JAX package (lm.py:255): 2 x 24 + 2
+    forward launches a step."""
     from repro_torch.configs import registry
-    from repro_torch.core.attention import AttentionConfig
     from repro_torch.core.masks import MaskSpec
+
+    return model_train_phase(torch, dev, registry.get("gemma3-1b"), G3_TRAIN_B, G3_TRAIN_S,
+                             G3_TRAIN_STEPS, (MaskSpec(causal=True),
+                                              MaskSpec(causal=True, window=G3_WINDOW)))
+
+
+def stablelm_train_phase(torch, dev):
+    """The stablelm training slice: stablelm-12b at its published widths
+    (d_model 5120, 32 q heads over 8 kv heads of 160, qk-norm, d_ff 13,824,
+    untied embeddings over a 100,352 vocab), depth cut to SL_TRAIN_LAYERS
+    of 40 (one card's memory: AdamW's f32 master, mu and nu beside the bf16
+    weights and gradients), at B 2, S 2048, ``model_train_phase``. Its
+    remat groups are single layers, so every layer runs the forward twice a
+    step."""
+    from repro_torch.configs import registry
+    from repro_torch.core.masks import MaskSpec
+
+    cfg = dataclasses.replace(registry.get("stablelm-12b"), num_layers=SL_TRAIN_LAYERS)
+    return model_train_phase(torch, dev, cfg, SL_TRAIN_B, SL_TRAIN_S, SL_TRAIN_STEPS,
+                             (MaskSpec(causal=True),))
+
+
+def model_train_phase(torch, dev, cfg, B, S, steps, specs):
+    """``cfg`` (bf16, remat, seed 0) through the train CLI's ``train`` on the
+    synthetic stream (``B`` x ``S``, ``steps`` AdamW steps), with the fused
+    and with the split backward, and once through impl="ref" from the same
+    seed and batches. Each kernel run's launches must be exact (per layer
+    and step: the forward twice in the layers of the remat groups and once
+    in the tail layers, delta once, the fused kernel or dK/dV and dQ once,
+    all at cfg.head_dim; no plain version), its loss must fall, step 0's
+    loss must be the reference's within PARITY_LOSS_REL and every step's
+    within GPT_LOSS_REL, and step 0's loss the same through both backward
+    modes (the same forward). One more fused step under torch.profiler
+    gives the device busy share and attention's device time and share.
+    Then ops.flash_attention(bwd="split") forward and backward twice at the
+    training shape under each mask of ``specs`` must give bitwise-equal
+    gradients. Returns {bwd: launch counts} and {bwd: summary}."""
+    from repro_torch.core.attention import AttentionConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import build_train_step
     from repro_torch.launch.train import TrainLoopConfig, train
     from repro_torch.training.optimizer import AdamWConfig
 
-    cfg = registry.get("gemma3-1b")
-    B, S, steps = G3_TRAIN_B, G3_TRAIN_S, G3_TRAIN_STEPS
+    arch, D = cfg.name, cfg.head_dim
     opt_cfg = AdamWConfig(warmup_steps=2, total_steps=steps)
-    # Remat recomputes each group of cfg.group_size (6) layers in the
-    # backward; the tail layers (26 % 6 = 2) are not checkpointed, as in the
-    # JAX package (lm.py:255): 2 x 24 + 2 forward launches a step.
     grouped = cfg.num_groups * cfg.group_size
     forwards = steps * (2 * grouped + cfg.num_layers - grouped)
     counters, plains = kernel_counters()
@@ -3464,9 +3559,10 @@ def gemma3_train_phase(torch, dev):
         zero_counts(counters, plains)
         model, opt_state, history = train(cfg, loop, opt_cfg)
         torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
         losses[run] = history["loss"]
         if not all(math.isfinite(x) for x in history["loss"] + history["grad_norm"]):
-            fail(f"gemma3-1b training ({run}) gave a non-finite loss or gradient norm")
+            fail(f"{arch} training ({run}) gave a non-finite loss or gradient norm")
         if run == "ref":
             del model, opt_state
             break
@@ -3477,19 +3573,19 @@ def gemma3_train_phase(torch, dev):
         summaries[run] = dict(losses=history["loss"], median_ms=med * 1e3,
                               tokens_per_s=B * S / med, mfu=mfu, peak_gib=peak, busy_share=None,
                               attention_ms=None)
-        log(f"gemma3-1b training (bwd={run}) at published widths and depth, {cfg.num_layers} "
-            f"layers, B={B} S={S}: losses {[round(x, 5) for x in history['loss']]}; median step "
+        log(f"{arch} training (bwd={run}) at published widths, {cfg.num_layers} layers, "
+            f"B={B} S={S}, {n_params / 1e9:.4f} B params: losses {[round(x, 5) for x in history['loss']]}; median step "
             f"{med * 1e3:.1f} ms (first {history['step_time'][0] * 1e3:.1f} ms), "
             f"{B * S / med:.1f} tokens/s, model FLOPs {train_model_flops(cfg, B, S) / 1e12:.3f} "
             f"TFLOP a step, MFU {mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, "
             f"max_memory_allocated {peak:.2f} GiB")
-        log(f"launches on the gemma3-1b training path (bwd={run}): {counts[run]}")
+        log(f"launches on the {arch} training path (bwd={run}): {counts[run]}")
         if not sum(history["loss"][-2:]) / 2 < history["loss"][0]:
-            fail(f"the gemma3-1b training loss (bwd={run}) did not fall")
-        want = training_want(counters, plains, steps * cfg.num_layers, (run,), hd256=True,
+            fail(f"the {arch} training loss (bwd={run}) did not fall")
+        want = training_want(counters, plains, steps * cfg.num_layers, (run,), head_dim=D,
                              forwards=forwards)
         if counts[run] != want:
-            fail(f"gemma3-1b training launches (bwd={run}) {counts[run]}, want {want} "
+            fail(f"{arch} training launches (bwd={run}) {counts[run]}, want {want} "
                  "(the forward twice a layer of the remat groups, once a tail layer)")
         if run == "fused":
             inputs, targets = SyntheticLM(DataConfig(B, S, cfg.vocab_size, seed=0)).batch(0)
@@ -3497,32 +3593,35 @@ def gemma3_train_phase(torch, dev):
                      "targets": torch.from_numpy(targets).to(dev)}
             step_fn = build_train_step(cfg, AttentionConfig(impl="flash_cuda"), opt_cfg)
             busy, attn_ms = profile_train_step(torch, step_fn, model, opt_state, batch, med)
-            summaries[run].update(busy_share=busy, attention_ms=attn_ms)
-            log("attention device time per gemma3-1b step: " + (
-                "not measured" if attn_ms is None else f"{attn_ms:.3f} ms of the profiled step"))
+            share = None if attn_ms is None else attn_ms / (busy * med * 1e3)
+            summaries[run].update(busy_share=busy, attention_ms=attn_ms, attention_share=share)
+            log(f"attention device time per {arch} step: " + (
+                "not measured" if attn_ms is None else f"{attn_ms:.3f} ms of the profiled step, "
+                f"{share:.4f} of its device busy time"))
             del batch
         del model, opt_state
-    log(f"gemma3-1b training through impl=ref (dense attention): losses "
+    log(f"{arch} training through impl=ref (dense attention): losses "
         f"{[round(x, 5) for x in losses['ref']]}")
     if losses["split"][0] != losses["fused"][0]:
-        fail(f"gemma3-1b step 0's loss through bwd=split ({losses['split'][0]!r}) differs from "
+        fail(f"{arch} step 0's loss through bwd=split ({losses['split'][0]!r}) differs from "
              f"bwd=fused's ({losses['fused'][0]!r}); the forward is the same")
     for run in ("fused", "split"):
         rel = [abs(a - b) / abs(b) for a, b in zip(losses[run], losses["ref"])]
         summaries[run]["loss_rel_to_ref"] = rel
-        log(f"gemma3-1b bwd={run} against impl=ref, relative loss difference by step: "
+        log(f"{arch} bwd={run} against impl=ref, relative loss difference by step: "
             + ", ".join(f"{r:.3e}" for r in rel) + f" (step 0 limit {PARITY_LOSS_REL}, every "
             f"step {GPT_LOSS_REL})")
         if not (rel[0] <= PARITY_LOSS_REL and max(rel) <= GPT_LOSS_REL):
-            fail(f"gemma3-1b training through flash_cuda (bwd={run}) disagrees with impl=ref")
-    log(summary_line("gemma3-1b training, split against fused backward", summaries["split"],
+            fail(f"{arch} training through flash_cuda (bwd={run}) disagrees with impl=ref")
+    log(summary_line(f"{arch} training, split against fused backward", summaries["split"],
                      summaries["fused"]))
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    shapes = ((B, S, G3_HQ, G3_D), (B, S, G3_HKV, G3_D), (B, S, G3_HKV, G3_D))
+    shapes = ((B, S, cfg.num_heads, D), (B, S, cfg.num_kv_heads, D),
+              (B, S, cfg.num_kv_heads, D))
     q0, k0, v0 = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16) for s in shapes)
     do = torch.randn(shapes[0], generator=gen, device=dev).to(torch.bfloat16)
-    for spec in (MaskSpec(causal=True), MaskSpec(causal=True, window=G3_WINDOW)):
+    for spec in specs:
         grads = []
         for _ in range(2):
             q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
@@ -3531,10 +3630,11 @@ def gemma3_train_phase(torch, dev):
         torch.cuda.synchronize()
         same = [torch.equal(a, b) for a, b in zip(*grads)]
         log(f"ops.flash_attention(bwd=split) forward + backward twice at B={B} S={S} "
-            f"Hq={G3_HQ} Hkv={G3_HKV} D={G3_D} window={spec.window}: dq, dk, dv bitwise equal "
+            f"Hq={cfg.num_heads} Hkv={cfg.num_kv_heads} D={D} window={spec.window}: dq, dk, dv "
+            f"bitwise equal "
             f"{same}")
         if not all(same) or not all(torch.isfinite(g.float()).all() for g in grads[0]):
-            fail("the split backward at head_dim 256 is not bitwise reproducible (or not "
+            fail(f"the split backward at head_dim {D} is not bitwise reproducible (or not "
                  "finite)")
     return counts, summaries
 
@@ -3577,6 +3677,8 @@ def main() -> None:
     results.update(hd256_kernel_phase(torch, dev, scratch.zero_))
     results.update(hd160_kernel_phase(torch, dev, scratch.zero_))
     results.update(hd256_bwd_kernel_phase(torch, dev, scratch.zero_))
+    results.update(hd160_bwd_kernel_phase(torch, dev, scratch.zero_))
+    default_split_phase(torch, dev)
     del scratch
     whisper_counts, whisper_summary = whisper_phase(torch, dev)
     gc.collect()
@@ -3627,6 +3729,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     g3_train_counts, g3_train_summaries = gemma3_train_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sl_train_counts, sl_train_summaries = stablelm_train_phase(torch, dev)
 
     results["flash_fwd"]["at_training_shape"] = results.pop("flash_fwd_at_training_shape")
     for k, inst in (("flash_fwd_hd256", "fa2_fwd_kernel<256,"),
@@ -3638,7 +3743,11 @@ def main() -> None:
                     ("flash_bwd_delta_hd256", "fa2_bwd_delta_kernel<256>"),
                     ("flash_bwd_fused_hd256", "fa2_bwd_fused_kernel<256,"),
                     ("flash_bwd_dkv_hd256", "fa2_bwd_dkv_kernel<256,"),
-                    ("flash_bwd_dq_hd256", "fa2_bwd_dq_kernel<256,")):
+                    ("flash_bwd_dq_hd256", "fa2_bwd_dq_kernel<256,"),
+                    ("flash_bwd_delta_hd160", "fa2_bwd_delta_kernel<160>"),
+                    ("flash_bwd_fused_hd160", "fa2_bwd_fused_kernel<160,"),
+                    ("flash_bwd_dkv_hd160", "fa2_bwd_dkv_kernel<160,"),
+                    ("flash_bwd_dq_hd160", "fa2_bwd_dq_kernel<160,")):
         results[k]["ptxas"] = [line.split(": ", 1)[1] for line in ptxas.splitlines()
                                if inst in line]
     replaces = {"flash_fwd": "src/repro/kernels/flash_fwd.py:354",
@@ -3686,7 +3795,12 @@ def main() -> None:
                 # Head dim 160 (stablelm-12b serving).
                 "flash_fwd_hd160": "src/repro/kernels/flash_fwd.py:354",
                 "flash_decode_hd160": "src/repro/kernels/flash_decode.py:77",
-                "flash_decode_paged_hd160": "src/repro/kernels/flash_decode.py:250"}
+                "flash_decode_paged_hd160": "src/repro/kernels/flash_decode.py:250",
+                # The backward at head_dim 160 (stablelm-12b training).
+                "flash_bwd_delta_hd160": "src/repro/kernels/flash_bwd.py:80",
+                "flash_bwd_fused_hd160": "src/repro/kernels/flash_bwd.py:718",
+                "flash_bwd_dkv_hd160": "src/repro/kernels/flash_bwd.py:234",
+                "flash_bwd_dq_hd160": "src/repro/kernels/flash_bwd.py:459"}
     source = {"flash_fwd": "flash_fwd", "flash_decode": "flash_decode",
               "flash_decode_paged": "flash_decode", "flash_bwd_delta": "flash_bwd",
               "flash_bwd_fused": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
@@ -3709,12 +3823,14 @@ def main() -> None:
              "gemma3_serving": g3_counts, "gemma3_paged_serving": g3_paged_counts,
              "training_gemma3": g3_train_counts["fused"],
              "training_gemma3_split": g3_train_counts["split"],
-             "stablelm_serving": sl_counts, "stablelm_paged_serving": sl_paged_counts}
+             "stablelm_serving": sl_counts, "stablelm_paged_serving": sl_paged_counts,
+             "training_stablelm": sl_train_counts["fused"],
+             "training_stablelm_split": sl_train_counts["split"]}
     # An entry named "_hd64" ("_hd160", "_hd256") counts its kernel's
     # launches at head dim 64 (160, 256), and the entry of the same kernel
     # without the suffix the other launches. The backward wrappers count
-    # their head_dim-64 and 256 launches apart (``<name>_hd64``,
-    # ``<name>_hd256``); the forward and decode wrappers do not, so their
+    # their head_dim-64, 160 and 256 launches apart (``<name>_hd64``,
+    # ``<name>_hd160``, ``<name>_hd256``); the forward and decode wrappers do not, so their
     # launches on the paths that run at one head dim only (64: whisper-base,
     # gpt-20m; 160: stablelm-12b; 256: gemma3-1b) are that head dim's
     # entries'.
@@ -3722,7 +3838,8 @@ def main() -> None:
                   "training_whisper")
     hd256_paths = ("gemma3_serving", "gemma3_paged_serving", "training_gemma3",
                    "training_gemma3_split")
-    hd160_paths = ("stablelm_serving", "stablelm_paged_serving")
+    hd160_paths = ("stablelm_serving", "stablelm_paged_serving", "training_stablelm",
+                   "training_stablelm_split")
     by_dim = {"flash_fwd_hd64": ("flash_fwd", hd64_paths),
               "flash_decode_hd64": ("flash_decode", hd64_paths),
               "flash_fwd_hd256": ("flash_fwd", hd256_paths),
@@ -3738,9 +3855,9 @@ def main() -> None:
             return counts.get(base, 0) if path in on else 0
         if any(base == k and path in on for base, on in by_dim.values()):
             return 0
-        if k.endswith(("_hd64", "_hd256")):
+        if k.endswith(("_hd64", "_hd160", "_hd256")):
             return counts.get(k, 0)
-        return counts.get(k, 0) - counts.get(f"{k}_hd64", 0) - counts.get(f"{k}_hd256", 0)
+        return counts.get(k, 0) - sum(counts.get(f"{k}_hd{d}", 0) for d in (64, 160, 256))
 
     kernels = []
     for k in replaces:
@@ -3756,6 +3873,7 @@ def main() -> None:
     log(f"gemma3-1b serving: {json.dumps(g3_summary)}")
     log(f"gemma3-1b training: {json.dumps(g3_train_summaries)}")
     log(f"stablelm-12b serving: {json.dumps(sl_summary)}")
+    log(f"stablelm-12b training: {json.dumps(sl_train_summaries)}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -35,9 +35,11 @@ class AttentionConfig:
     # tuned cache to consult.
     bwd: Optional[str] = None
     # Forward kv splits (flash_cuda; paper Section 3.2): None -> the auto
-    # policy (kernels/ops.default_kv_splits); an int overrides (1 disables).
-    # Splits run the split-KV kernel, exact up to the fold's rounding. The
-    # JAX config's q bands have no counterpart: every q tile is its own CTA.
+    # policy (kernels/ops.default_kv_splits; 1 at head dims 160 and 256,
+    # which have no split-KV kernel: ops.resolve_kv_splits); an int
+    # overrides (1 disables). Splits run the split-KV kernel, exact up to
+    # the fold's rounding. The JAX config's q bands have no counterpart:
+    # every q tile is its own CTA.
     kv_splits: Optional[int] = None
     # flash_cuda tile schedule: 'compact' (the CSR of visible tiles) |
     # 'dense' (every tile visited, empty ones skipped in the kernel; no kv
@@ -62,9 +64,9 @@ def check_card_support(cfg, attn_cfg: AttentionConfig, device, *, training: bool
     bfloat16, or a ``cfg.head_dim`` that the forward kernels, and for
     ``training`` the backward kernels (``packed``: their segment variants),
     else the decode kernels (``paged``: the paged decode's) are not
-    instantiated for: gemma3-1b's 256 serves (fixed and paged) and trains,
-    but not packed; stablelm-12b's 160 serves (fixed and paged) but does
-    not train, since the backward kernels have no 160 (ROADMAP.md queue 2,
+    instantiated for: gemma3-1b's 256 and stablelm-12b's 160 serve (fixed
+    and paged) and train (fused and split backward) but not packed, since
+    the segment kernels are built at 64 and 128 only (ROADMAP.md queue 2,
     item 2); whisper's 64 has no paged decode (item 3). The plain CPU path
     and ``impl="ref"`` take any of them."""
     if attn_cfg.impl != "flash_cuda" or torch.device(device).type != "cuda":

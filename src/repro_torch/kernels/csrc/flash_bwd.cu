@@ -120,6 +120,46 @@
 //     of the tile (64 KB) and a 2-stage K/V ring (128 KB): 194 KB. dQ is
 //     still written once, without atomics, so bwd="split" stays bitwise the
 //     same from launch to launch.
+// Head_dim 160 (stablelm-12b training), again compact and unsegmented only,
+// is not a whole number of 64-column TMA boxes. A 64-row tile is the
+// forward's layout at 160 (csrc/flash_fwd.cu): two 128-byte-swizzled boxes
+// and a tail box of the last 32 columns, 64-byte swizzled, through a second
+// tensor map per operand (load_tile, 20 KB a tile, every expect_tx the
+// tile's bytes); S^T and dP^T take their k-steps 8 and 9 from the tail box
+// (sm90.cuh kmajor_desc). A 64 x 160 f32 accumulator is 80 registers a
+// consumer thread, so a pair's dK and dV (160) with S^T and dP^T (64) and
+// the bf16 P^T and dS^T fragments (32) would pass setmaxnreg's 240. Of the
+// shapes that fit, this takes HALF's, split along whole boxes:
+//   * KV-stationary: one 64-row kv tile a CTA; both warpgroups compute the
+//     same S^T and dP^T over all 160 columns, then warpgroup 0 adds into
+//     box 0's columns and the tail's (96 columns: an n64 and an n32
+//     product a k-step, 48 + 48 registers for dK and dV) and warpgroup 1
+//     into box 1's (64 columns). A split at column 80 would start an
+//     MN-major operand 32 bytes into a 128-byte swizzle atom, a layout this
+//     source does not risk. The tail product is behind a branch on the
+//     warpgroup, which is broadcast from lane 0 so that ptxas sees it
+//     uniform (read from threadIdx.x instead, the 160 kernels take 1.24x
+//     and 1.32x, fused and dK/dV, and the 128 ones 1.12x and 1.17x:
+//     tools/ab_kernels.py kv_wg_thread on an H100 80GB HBM3 at 700 W).
+//     1.5x the minimal products of dK/dV, as at 256; giving each
+//     warpgroup one tensor (dV: S^T only; dK: S^T and dP^T) would cost
+//     1.25x but gives the two warpgroups different step bodies, and was
+//     not built. ptxas: 168 registers at entry, no spills for dK/dV, 48
+//     bytes of spill stores for the fused kernel (56 at 128). Shared
+//     memory: K and V 40 KB and a 2-stage Q/dO ring of 80 KB for both
+//     kernels, with the fused kernel's dS^T buffers and dQ stagings 173 KB.
+//     The fused dQ: each warpgroup multiplies dS by its box of K (n64), and
+//     warpgroup 0 then by the tail (n32), each part staged and
+//     bulk-reduced by its writer warp (256 or 128 bytes a row). What bounds
+//     it: with one kv tile a CTA every tile's dQ is reduced into dq apart,
+//     twice the reductions of a pair CTA; without them the fused kernel
+//     takes 0.58x its time (tools/ab_kernels.py, training shape); with
+//     them it is slower than the split backward, delta, dK/dV and dQ
+//     together (chip_smoke.py);
+//   * dq: the pair shape of D = 128 (dQ 80 registers, S and dP 32 each),
+//     each warpgroup one q tile at full width (dQ += dS K as wgmma_rs_k64
+//     <160>: an n128 and an n32 product a k-step); Q and dO of the pair
+//     (80 KB) and a 3-stage K/V ring (120 KB): 202 KB.
 // Split dK/dV stay bitwise the fused kernel's: one source, the DQ flag only
 // adds the dQ phase and sets the ring depth, which moves no arithmetic.
 //
@@ -236,10 +276,12 @@
 // at gemma3's training shape, where D = 256 makes a row one warp);
 // each thread has 4 16-byte loads of O and 4 of dO in flight before it
 // reduces (53 registers: four CTAs an SM, so the training shape's 512 CTAs
-// and the encoder's 376 run in one wave), D / 8 threads finish a row with
-// shuffles in a fixed order (no atomics: bwd="split" stays bitwise run to
-// run), and the R x Hq sums go out through shared memory as runs of R
-// floats per head. A grid of one CTA per block of positions, not a
+// and the encoder's 376 run in one wave), a row's D / 8 threads, on a
+// power-of-two group of lanes inside a warp (at D = 160, 20 of a warp's
+// 32: a shuffle tree over 20 lanes would mix rows), finish it with shuffles
+// in a fixed order (no atomics: bwd="split" stays bitwise run to run), and
+// the R x Hq sums go out through shared memory as runs of R floats per
+// head. A grid of one CTA per block of positions, not a
 // persistent loop: several CTAs an SM overlap one another's latency.
 // Strided views (a transposed dO) take the same path through their
 // strides, out of memory order. What bounds it (tools/ab_kernels.py on an
@@ -401,15 +443,19 @@ __device__ __forceinline__ uint4 load_evict_first(const void* ptr, uint64_t poli
 
 // delta for R consecutive positions (b, s0 .. s0 + R - 1) and every head of
 // each: R * Hq rows of D values, in the order they sit in a contiguous
-// (B, Sq, Hq, D) tensor. D / 8 threads a row, 16 bytes each; every thread
-// issues its kDeltaUnroll loads of O and of dO before it reduces any. A
-// row's sum is fixed: its 8 products per thread in order, then a shuffle
-// tree over its D / 8 threads. The R x Hq results are staged in shared
-// memory and written to (B, Hq, Sq) as runs of R floats per head. O and dO
-// are read once: their loads are evict-first in L2.
+// (B, Sq, Hq, D) tensor. A row is D / 8 16-byte chunks, one a thread, on a
+// power-of-two group of TPR lanes inside one warp (D / 8 rounded up: at
+// head_dim 160 a warp a row, whose lanes 20-31 load nothing and add 0);
+// every thread issues its kDeltaUnroll loads of O and of dO before it
+// reduces any. A row's sum is fixed: its 8 products per thread in order,
+// then a shuffle tree over its TPR lanes. The R x Hq results are staged in
+// shared memory and written to (B, Hq, Sq) as runs of R floats per head. O
+// and dO are read once: their loads are evict-first in L2.
 template <int D>
 __global__ void __launch_bounds__(kDeltaThreads) fa2_bwd_delta_kernel(const DeltaParams p) {
-  constexpr int TPR = D / 8;                  // threads per row, 8 values each
+  constexpr int CH = D / 8;                               // 16-byte chunks a row
+  constexpr int TPR = CH <= 8 ? 8 : CH <= 16 ? 16 : 32;  // threads per row
+  static_assert(D % 8 == 0 && CH <= 32, "delta takes head_dim up to 256, a multiple of 8");
   constexpr int ROWS_PER_PASS = kDeltaThreads / TPR;
   extern __shared__ float s_delta[];          // [R][Hq]
   const int b = blockIdx.y, s0 = blockIdx.x * p.R;
@@ -425,7 +471,7 @@ __global__ void __launch_bounds__(kDeltaThreads) fa2_bwd_delta_kernel(const Delt
     for (int u = 0; u < kDeltaUnroll; ++u) {
       const int row = base + u * ROWS_PER_PASS + r0;
       ov[u] = dv[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (row < live) {
+      if (row < live && (CH == TPR || c < CH)) {
         const int s = s0 + row / p.Hq, h = row % p.Hq;
         ov[u] = load_evict_first(og + s * p.o_ss + h * p.o_sh, policy);
         dv[u] = load_evict_first(dg + s * p.d_ss + h * p.d_sh, policy);
@@ -467,10 +513,10 @@ constexpr int kConsumers = 2 * 128;
 constexpr int kDqRow = 72;              // f32 dQ staging row: 64 values + 32 bytes of padding
 
 // The kv rows a KV-stationary CTA owns: a pair of 64-row tiles, or at head_dim
-// 256 one tile, whose two consumer warpgroups take half of head_dim each.
+// 160 and 256 one tile, whose two consumer warpgroups split head_dim.
 template <int D>
 constexpr int kv_rows() {
-  return D == 256 ? kBlockN : kPairRows;
+  return D == 160 || D == 256 ? kBlockN : kPairRows;
 }
 // A hidden element scores kHidden (sm90.cuh). A row that sees no key has
 // lse = kMaskValue + log n, so P = exp(kMaskValue - lse) = 1 there; the
@@ -479,20 +525,25 @@ constexpr int kv_rows() {
 // lse') is exp(kMaskValue - lse) on every row: 1 there, 0 elsewhere.
 
 // The TMA maps of one launch: q, dO (64-row boxes) and k, v (128-row boxes
-// in the KV-stationary kernels, 64 in the dq kernel), each a 4-d (D, H, S,
-// B) view of the strided tensor, 64 columns a box, 128-byte swizzled.
+// in the KV-stationary kernels' pairs, else 64), each a 4-d (D, H, S, B)
+// view of the strided tensor, 64 columns a box, 128-byte swizzled; at
+// head_dim 160 also their tail maps, boxes of 64 rows x 32 columns (columns
+// 128-159), 64-byte swizzled.
 struct BwdMaps {
   CUtensorMap q, dout, k, v;
+  CUtensorMap q_tail, dout_tail, k_tail, v_tail;
 };
 
 // Shared memory of the KV-stationary kernels, in bytes from a 1024-aligned
-// base: K and V (D / 64 boxes of ROWS rows x 64 columns, BOX bytes apart),
-// the Q/dO ring (D / 64 boxes of 64 rows a stage, 8 KB apart), with DQ two
+// base: K and V (D / 64 boxes of ROWS rows x 64 columns, BOX bytes apart,
+// and at D = 160 a tail box of 64 rows x 32 columns), the Q/dO ring (a
+// 64-row tile a stage, laid out the same way with 8 KB boxes), with DQ two
 // bf16 dS^T buffers (ROWS kv rows x 64 q) and the f32 dQ staging of each
 // consumer warpgroup, then each stage's lse, delta, q ids and step record,
 // then the mbarriers and the staged dQ's (q0, head). About 200 KB at
 // D = 128, 132 KB at D = 64; at 256 (one kv tile) 195 KB for dK/dV and,
-// with one stage, 182 KB for the fused kernel.
+// with one stage, 182 KB for the fused kernel; at 160 (one kv tile, 20 KB
+// tiles, 2 stages) 121 KB for dK/dV and 173 KB for the fused kernel.
 template <int D, bool DQ>
 struct KvSmem {
   // The Q/dO ring: 2 stages, 1 for the fused kernel at 256 (a stage is 64
@@ -514,22 +565,44 @@ struct KvSmem {
 };
 
 
+// d (64 x DC) += A (64 x 64 bf16 fragments) * the columns of dK and dV that
+// consumer warpgroup w of a KV-stationary CTA holds, of the 64-row tile at
+// shared address b (MN-major): all of head_dim; with HALF at 256 columns
+// [128 w, 128 w + 128); at 160 box w (64 columns) and, in warpgroup 0, the
+// tail (columns 128-159, into d[32 .. 47]). w is warp-uniform (broadcast),
+// so ptxas sees the tail's branch as uniform.
+template <int D, int DC>
+__device__ __forceinline__ void wg_rs_k64(float (&d)[DC / 2], const uint32_t (&a)[4][4],
+                                          uint32_t b, int w) {
+  if constexpr (D == 160) {
+    wgmma_rs_k64<64>(*reinterpret_cast<float(*)[32]>(d), a, b + w * 8192);
+    if (w == 0) wgmma_rs_k64_tail(*reinterpret_cast<float(*)[16]>(d + 32), a, b + 2 * 8192);
+  } else if constexpr (D == 256) {
+    wgmma_rs_k64<128>(d, a, b + w * 16384);
+  } else {
+    wgmma_rs_k64<D>(d, a, b);
+  }
+}
+
 // The KV-stationary body: with DQ, the fused kernel; without, the dkv
 // kernel (no dS buffer, no dQ product, no staging; dK and dV bitwise the
 // same). SEG: the segment variant of either. DENSE: every q tile, no table.
-// D: head_dim, 64 or 128, or 256 compact and unsegmented (HALF below).
+// D: head_dim, 64 or 128, or 160 and 256 compact and unsegmented (HALF
+// below).
 template <int D, bool DQ, bool SEG, bool DENSE>
 __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps& maps) {
-  static_assert(D == 64 || D == 128 || (D == 256 && !SEG && !DENSE),
-                "the KV-stationary kernels take head_dim 64 or 128, and 256 compact and "
-                "unsegmented");
+  static_assert(D == 64 || D == 128 || ((D == 160 || D == 256) && !SEG && !DENSE),
+                "the KV-stationary kernels take head_dim 64 or 128, and 160 and 256 compact "
+                "and unsegmented");
   using L = KvSmem<D, DQ>;
   constexpr int S = L::STAGES;
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are skipped before their fetch
-  // Head_dim 256: the CTA owns one kv tile and consumer warpgroup w holds
-  // columns [128 w, 128 w + 128) of its dK and dV (the header says why).
-  constexpr bool HALF = D == 256;
-  constexpr int DC = HALF ? D / 2 : D;  // columns of dK and dV a warpgroup holds
+  // Head_dims 160 and 256: the CTA owns one kv tile and its two consumer
+  // warpgroups split the columns of its dK and dV (the header says why):
+  // at 256 w holds [128 w, 128 w + 128); at 160 warpgroup 0 holds box 0 and
+  // the tail (96 columns), warpgroup 1 box 1 (64).
+  constexpr bool HALF = D == 160 || D == 256;
+  constexpr int DC = !HALF ? D : D == 256 ? 128 : 96;  // (most) columns a warpgroup holds
   constexpr int BM = kBlockM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -564,7 +637,7 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform (wg_rs_k64)
   if (wg == 0) {
     // Producer: one warp. K and V once; then, per step of the walk, Q_i and
     // dO_i by TMA (rows past Sq zero-filled), the stage's lse, delta and q
@@ -594,10 +667,8 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
                          smem_u32(kv_bar)),
                      "r"(2 * L::KV)
                      : "memory");
-        for (int half = 0; half < D / 64; ++half) {
-          tma_load(sm + L::K + half * L::BOX, maps.k, kv_bar, half * 64, hk, k0, b);
-          tma_load(sm + L::V + half * L::BOX, maps.v, kv_bar, half * 64, hk, k0, b);
-        }
+        load_tile<D, L::BOX>(sm + L::K, maps.k, maps.k_tail, kv_bar, hk, k0, b);
+        load_tile<D, L::BOX>(sm + L::V, maps.v, maps.v_tail, kv_bar, hk, k0, b);
       }
       const int* qid_g = SEG ? p.q_seg + b * p.q_seg_sb : nullptr;
       int kv_lo[2] = {0, 0}, kv_hi[2] = {0, 0};  // DENSE with SEG: each tile's id range
@@ -621,12 +692,9 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         const int h = hk * p.group + g, q0 = qt * BM;
         if (lane == 0) {
           mbar_expect_tx(&full[stage], 2 * L::QT);
-          for (int half = 0; half < D / 64; ++half) {
-            tma_load(sm + L::Q + stage * L::QT + half * 8192, maps.q, &full[stage], half * 64, h,
-                     q0, b);
-            tma_load(sm + L::DO + stage * L::QT + half * 8192, maps.dout, &full[stage],
-                     half * 64, h, q0, b);
-          }
+          load_tile<D>(sm + L::Q + stage * L::QT, maps.q, maps.q_tail, &full[stage], h, q0, b);
+          load_tile<D>(sm + L::DO + stage * L::QT, maps.dout, maps.dout_tail, &full[stage], h, q0,
+                       b);
         }
         const long long row0 = (static_cast<long long>(b) * p.Hq + h) * p.Sq;
         int lo = 0x7fffffff, hi = -0x7fffffff;
@@ -682,20 +750,26 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
       // dQ writers: warp 1 + w adds consumer warpgroup w's staged 64 x 64
       // f32 part (D = 128: its half of head_dim; D = 64: its kv tile's
       // share of the whole row; D = 256: a step's two parts, columns
-      // 128 w + 64 c for c = 0, 1) into dq by bulk reduction, 256 bytes a
-      // row, then frees the staging; (q0, head) = (-1, -1) ends the walk.
+      // 128 w + 64 c for c = 0, 1; D = 160: box w's 64 columns, and in
+      // warpgroup 0 then the tail's 32) into dq by bulk reduction, 256
+      // bytes a row (128 for the tail), then frees the staging; (q0, head)
+      // = (-1, -1) ends the walk.
       const int w = threadIdx.x / 32 - 1, lane = threadIdx.x % 32;
       const uint32_t stg = smem_u32(sm + L::DQS) + w * BM * kDqRow * 4;
       for (int u = 0;; ++u) {
         mbar_wait(&dq_full[w], u & 1);
         const int2 m = dq_meta[w];
         if (m.x < 0) break;
-        const int col = HALF ? (2 * w + (u & 1)) * 64 : D == 128 ? w * 64 : 0;
+        const bool tail = D == 160 && w == 0 && (u & 1);
+        const int col = D == 160  ? (tail ? 128 : w * 64)
+                        : HALF    ? (2 * w + (u & 1)) * 64
+                        : D == 128 ? w * 64
+                                   : 0;
         for (int r = lane; r < BM; r += 32)
           if (m.x + r < p.Sq)
             bulk_reduce_add(
                 p.dq + ((static_cast<long long>(b) * p.Sq + m.x + r) * p.Hq + m.y) * D + col,
-                stg + r * kDqRow * 4, 256);
+                stg + r * kDqRow * 4, tail ? 128 : 256);
         bulk_commit();
         bulk_wait_read();
         __syncwarp();
@@ -706,13 +780,12 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     // Consumer warpgroup w owns kv tile j0 + w: rows kw0 .. kw0 + 63 (HALF:
-    // both own tile j0, w its columns [128 w, 128 w + 128) of dK and dV).
+    // both own tile j0, w its columns of dK and dV, wg_rs_k64).
     const int w = wg - 1;
     const int t = threadIdx.x - 128 * wg;
     const int wq = t / 32, lane = t % 32, g8 = lane / 4, t4 = lane % 4;
     const int kw0 = k0 + (HALF ? 0 : w * kBlockN);
     const uint32_t rows_at = HALF ? 0 : w * 8192;  // its kv rows inside a box of K or V
-    const uint32_t cols_at = HALF ? w * 16384 : 0;  // its columns' first box in a Q/dO stage
     const int kv_a = kw0 + wq * 16 + g8, kv_b = kv_a + 8;  // this thread's two kv rows
     int kvid[2] = {0, 0};
     if (SEG) {
@@ -726,7 +799,7 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
     const uint32_t stg = smem_u32(sm + L::DQS) + w * BM * kDqRow * 4;  // f32 dQ staging
 
     // dV and dK of the tile: rows kv_a / kv_b, columns 8 tt + 2 t4 (+1)
-    // (HALF: of the warpgroup's half).
+    // (HALF: of the warpgroup's columns).
     float dv[DC / 2], dk[DC / 2];
 #pragma unroll
     for (int i = 0; i < DC / 2; ++i) dv[i] = dk[i] = 0.f;
@@ -754,18 +827,21 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         float s[32], dp[32];
         uint32_t pP[4][4], pS[4][4];  // bf16 P^T and dS^T: the A operands of dV and dK
         // S^T = K Q^T (line 11) and dP^T = V dO^T (line 13): 64 kv rows x 64
-        // q columns, k over head_dim in D / 64 swizzled boxes (HALF: both
-        // warpgroups compute the whole of both).
+        // q columns, k over head_dim in the tiles' swizzled boxes (HALF: both
+        // warpgroups compute the whole of both). K and V of one tile (HALF)
+        // are laid out as a Q tile, tail box included.
+        const auto kv_desc = [&](uint32_t base, int kk) {
+          return HALF ? kmajor_desc<D>(base, kk)
+                      : sw128_desc(base + (kk >> 2) * L::BOX + rows_at + (kk & 3) * 32, 16);
+        };
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64<0, 0>(s, sw128_desc(sK + (kk >> 2) * L::BOX + rows_at + (kk & 3) * 32, 16),
-                             sw128_desc(cQ + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
+          wgmma_ss_n64<0, 0>(s, kv_desc(sK, kk), kmajor_desc<D>(cQ, kk), kk > 0);
         wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64<0, 0>(dp, sw128_desc(sV + (kk >> 2) * L::BOX + rows_at + (kk & 3) * 32, 16),
-                             sw128_desc(cdO + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
+          wgmma_ss_n64<0, 0>(dp, kv_desc(sV, kk), kmajor_desc<D>(cdO, kk), kk > 0);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(s);
@@ -801,7 +877,7 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         }
         // dV += P^T dO (line 12): k over the tile's 64 q rows.
         wgmma_fence();
-        wgmma_rs_k64<DC>(dv, pP, cdO + cols_at);
+        wg_rs_k64<D, DC>(dv, pP, cdO, w);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(dp);
@@ -822,7 +898,7 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         }
         // dK += dS^T Q (line 16).
         wgmma_fence();
-        wgmma_rs_k64<DC>(dk, pS, cQ + cols_at);
+        wg_rs_k64<D, DC>(dk, pS, cQ, w);
         wgmma_commit();
         if (DQ) {
           // HALF: both warpgroups hold the same dS^T; each stores half of its
@@ -850,7 +926,9 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         // over the pair's 128 rows; at D = 64 each takes its own kv tile's
         // 64 rows over the whole of head_dim, and both parts are added into
         // dq; at D = 256 each takes its half of head_dim as two 64-column
-        // parts over the tile's 64 rows. A hidden tile's dS rows are zeros.
+        // parts over the tile's 64 rows; at D = 160 each its box of K (64
+        // columns), then warpgroup 0 the 32 tail columns (an n32 product).
+        // A hidden tile's dS rows are zeros.
         if (!mine) {
 #pragma unroll
           for (int tt = 0; tt < 8; ++tt) {
@@ -860,25 +938,39 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         }
         fence_async_smem();
         named_sync(1, kConsumers);  // both tiles' dS are in the buffer
+        const int parts = D == 256 ? 2 : D == 160 ? 2 - w : 1;  // 64 x 64 (tail: 32) parts
 #pragma unroll
-        for (int c = 0; c < (HALF ? 2 : 1); ++c) {
+        for (int c = 0; c < parts; ++c) {
           float dq[32];
+          const bool tail = D == 160 && c == 1;  // warpgroup 0's tail columns at 160
           const uint32_t dsA = cdS + (D == 64 ? w * 8192 : 0);
-          const uint32_t kB = sK + (HALF ? (2 * w + c) * 8192 : w * (D == 128 ? 16384 : 8192));
+          const uint32_t kB = sK + (D == 160 ? w * 8192
+                                    : HALF  ? (2 * w + c) * 8192
+                                            : w * (D == 128 ? 16384 : 8192));
           wgmma_fence();
+          if (tail) {
 #pragma unroll
-          for (int kk = 0; kk < (D == 128 ? 8 : 4); ++kk)
-            wgmma_ss_n64<1, 1>(dq, sw128_desc(dsA + kk * 2048, 8192),
-                               sw128_desc(kB + kk * 2048, 8192), kk > 0);
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss_n32<1, 1>(*reinterpret_cast<float(*)[16]>(dq),
+                                 sw128_desc(dsA + kk * 2048, 8192),
+                                 sw64_desc(sK + 2 * 8192 + kk * 1024, 4096), kk > 0);
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < (D == 128 ? 8 : 4); ++kk)
+              wgmma_ss_n64<1, 1>(dq, sw128_desc(dsA + kk * 2048, 8192),
+                                 sw128_desc(kB + kk * 2048, 8192), kk > 0);
+          }
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(dq);
           if (p.dq != nullptr) {
-            // Stage this warpgroup's 64 x 64 f32 part for its writer warp.
+            // Stage this warpgroup's 64 x 64 (tail: 64 x 32) f32 part for its
+            // writer warp.
             mbar_wait(&dq_empty[w], (n_stg & 1) ^ 1);
             const uint32_t at = stg + ((wq * 16 + g8) * kDqRow + 2 * t4) * 4;
 #pragma unroll
             for (int tt = 0; tt < 8; ++tt) {
+              if (tail && tt >= 4) continue;
               st_shared(at + tt * 32, dq[4 * tt], dq[4 * tt + 1]);
               st_shared(at + 8 * kDqRow * 4 + tt * 32, dq[4 * tt + 2], dq[4 * tt + 3]);
             }
@@ -898,20 +990,24 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
     }
 
     // dK and dV of the tile, summed over the group's q heads: written once
-    // (HALF: each warpgroup its half of the columns).
+    // (HALF: each warpgroup its columns; at 160 n-block tt of warpgroup 0
+    // is box 0's for tt < 8, then the tail's).
     if (w == 0 || has1 || HALF) {
       const long long rs = static_cast<long long>(p.Hkv) * D;
-      const long long base =
-          static_cast<long long>(b) * p.Skv * rs + hk * D + (HALF ? w * DC : 0) + 2 * t4;
+      const long long base = static_cast<long long>(b) * p.Skv * rs + hk * D + 2 * t4;
+      const int n_tt = D == 160 && w ? 8 : DC / 8;
 #pragma unroll
       for (int tt = 0; tt < DC / 8; ++tt) {
+        if (tt >= n_tt) continue;
+        const int col = D == 160 ? (tt < 8 ? w * 64 + tt * 8 : 128 + (tt - 8) * 8)
+                                 : (HALF ? w * DC : 0) + tt * 8;
         if (kv_a < p.Skv) {
-          *reinterpret_cast<float2*>(p.dv + base + kv_a * rs + tt * 8) = make_float2(dv[4 * tt], dv[4 * tt + 1]);
-          *reinterpret_cast<float2*>(p.dk + base + kv_a * rs + tt * 8) = make_float2(dk[4 * tt], dk[4 * tt + 1]);
+          *reinterpret_cast<float2*>(p.dv + base + kv_a * rs + col) = make_float2(dv[4 * tt], dv[4 * tt + 1]);
+          *reinterpret_cast<float2*>(p.dk + base + kv_a * rs + col) = make_float2(dk[4 * tt], dk[4 * tt + 1]);
         }
         if (kv_b < p.Skv) {
-          *reinterpret_cast<float2*>(p.dv + base + kv_b * rs + tt * 8) = make_float2(dv[4 * tt + 2], dv[4 * tt + 3]);
-          *reinterpret_cast<float2*>(p.dk + base + kv_b * rs + tt * 8) = make_float2(dk[4 * tt + 2], dk[4 * tt + 3]);
+          *reinterpret_cast<float2*>(p.dv + base + kv_b * rs + col) = make_float2(dv[4 * tt + 2], dv[4 * tt + 3]);
+          *reinterpret_cast<float2*>(p.dk + base + kv_b * rs + col) = make_float2(dk[4 * tt + 2], dk[4 * tt + 3]);
         }
       }
     }
@@ -934,14 +1030,16 @@ __global__ void __launch_bounds__(kKvThreads, 1)
 // --------------------------------------------------------------------- dq
 
 // Shared memory of the dq kernel, in bytes from a 1024-aligned base: the
-// CTA's Q and dO tiles (each D / 64 boxes of 64 rows x 64 columns; two q
-// tiles, or at head_dim 256 one), the K and V stages (64 rows each; a
-// 4-stage ring, 2 at 256), each stage's kv ids (SEG) and step record, room
-// for two tiles' 128 staged lse and delta values, then the mbarriers. About
-// 194 KB at D = 128 and at 256.
+// CTA's Q and dO tiles (each D / 64 boxes of 64 rows x 64 columns, and at
+// head_dim 160 a tail box of 64 rows x 32 columns; two q tiles, or at 256
+// one), the K and V stages (64 rows each; a 4-stage ring, 3 at 160, 2 at
+// 256), each stage's kv ids (SEG) and step record, room for two tiles' 128
+// staged lse and delta values, then the mbarriers. About 194 KB at D = 128
+// and at 256, 202 KB at 160.
 template <int D>
 struct DqSmem {
-  static constexpr int TILES = D == 256 ? 1 : 2, STAGES = D == 256 ? 2 : 4;
+  static constexpr int TILES = D == 256 ? 1 : 2;
+  static constexpr int STAGES = D == 256 ? 2 : D == 160 ? 3 : 4;
   static constexpr uint32_t TILE = kBlockM * D * 2;  // a 64-row tile: 16 KB at D = 128
   static constexpr uint32_t Q = 0, DO = TILES * TILE, K = 2 * TILES * TILE;
   static constexpr uint32_t V = K + STAGES * TILE;
@@ -956,8 +1054,9 @@ struct DqSmem {
 template <int D, bool SEG, bool DENSE>
 __global__ void __launch_bounds__(kKvThreads, 1)
     fa2_bwd_dq_kernel(const BwdParams p, const __grid_constant__ BwdMaps maps) {
-  static_assert(D == 64 || D == 128 || (D == 256 && !SEG && !DENSE),
-                "the dq kernel takes head_dim 64 or 128, and 256 compact and unsegmented");
+  static_assert(D == 64 || D == 128 || ((D == 160 || D == 256) && !SEG && !DENSE),
+                "the dq kernel takes head_dim 64 or 128, and 160 and 256 compact and "
+                "unsegmented");
   using L = DqSmem<D>;
   constexpr int kDqStages = L::STAGES;
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are dropped before their fetch
@@ -1003,13 +1102,11 @@ __global__ void __launch_bounds__(kKvThreads, 1)
       const int lane = threadIdx.x;
       if (lane == 0) {
         mbar_expect_tx(q_bar, (has1 ? 4 : 2) * L::TILE);
-        for (int x = 0; x < (has1 ? 2 : 1); ++x)
-          for (int half = 0; half < D / 64; ++half) {
-            tma_load(sm + L::Q + x * L::TILE + half * 8192, maps.q, q_bar, half * 64, h,
-                     (i0 + x) * BM, b);
-            tma_load(sm + L::DO + x * L::TILE + half * 8192, maps.dout, q_bar, half * 64, h,
-                     (i0 + x) * BM, b);
-          }
+        for (int x = 0; x < (has1 ? 2 : 1); ++x) {
+          load_tile<D>(sm + L::Q + x * L::TILE, maps.q, maps.q_tail, q_bar, h, (i0 + x) * BM, b);
+          load_tile<D>(sm + L::DO + x * L::TILE, maps.dout, maps.dout_tail, q_bar, h,
+                       (i0 + x) * BM, b);
+        }
       }
       const long long row0 = static_cast<long long>(bh) * p.Sq;
       for (int r = lane; r < 2 * BM; r += 32) {
@@ -1075,12 +1172,8 @@ __global__ void __launch_bounds__(kKvThreads, 1)
         const int k0 = j * BN;
         if (lane == 0) {
           mbar_expect_tx(&full[stage], 2 * L::TILE);
-          for (int half = 0; half < D / 64; ++half) {
-            tma_load(sm + L::K + stage * L::TILE + half * 8192, maps.k, &full[stage], half * 64,
-                     hk, k0, b);
-            tma_load(sm + L::V + stage * L::TILE + half * 8192, maps.v, &full[stage], half * 64,
-                     hk, k0, b);
-          }
+          load_tile<D>(sm + L::K + stage * L::TILE, maps.k, maps.k_tail, &full[stage], hk, k0, b);
+          load_tile<D>(sm + L::V + stage * L::TILE, maps.v, maps.v_tail, &full[stage], hk, k0, b);
         }
         // Which tiles take the step, and which need the element mask: the
         // table's flags and step bits, or under DENSE the classifier (with
@@ -1197,7 +1290,7 @@ __global__ void __launch_bounds__(kKvThreads, 1)
       const uint32_t cK = sK + stage * L::TILE, cV = sV + stage * L::TILE;
 
       // S = Q K^T (line 11) and dP = dO V^T (line 13), 64 x 64 over head_dim
-      // in D / 64 swizzled boxes, issued together with the pending step's
+      // in the tiles' swizzled boxes, issued together with the pending step's
       // dQ += dS K (line 15). The first step of a run has none pending: it
       // issues one with dS = 0 (dQ += 0 exactly), so the products and their
       // waits are the same on every taken step.
@@ -1211,13 +1304,11 @@ __global__ void __launch_bounds__(kKvThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64<0, 0>(s, sw128_desc(sQ + (kk >> 2) * 8192 + (kk & 3) * 32, 16),
-                           sw128_desc(cK + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
+        wgmma_ss_n64<0, 0>(s, kmajor_desc<D>(sQ, kk), kmajor_desc<D>(cK, kk), kk > 0);
       wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64<0, 0>(dp, sw128_desc(sdO + (kk >> 2) * 8192 + (kk & 3) * 32, 16),
-                           sw128_desc(cV + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);
+        wgmma_ss_n64<0, 0>(dp, kmajor_desc<D>(sdO, kk), kmajor_desc<D>(cV, kk), kk > 0);
       wgmma_commit();
       wgmma_rs_k64<DC>(dq, pc, sKc + (first ? stage : pend) * L::TILE);
       wgmma_commit();
@@ -1338,10 +1429,16 @@ bool schedule_args_ok(const BwdParams& p, int dense) {
 
 
 bool make_maps(BwdMaps* maps, const BwdParams& p, int batch, int D, int kv_rows) {
-  return make_map(&maps->q, p.q, batch, p.Sq, p.Hq, D, p.q_sb, p.q_ss, p.q_sh, kBlockM) &&
-         make_map(&maps->dout, p.dout, batch, p.Sq, p.Hq, D, p.d_sb, p.d_ss, p.d_sh, kBlockM) &&
-         make_map(&maps->k, p.k, batch, p.Skv, p.Hkv, D, p.k_sb, p.k_ss, p.k_sh, kv_rows) &&
-         make_map(&maps->v, p.v, batch, p.Skv, p.Hkv, D, p.v_sb, p.v_ss, p.v_sh, kv_rows);
+  const auto four = [&](int cols, CUtensorMap* q, CUtensorMap* dout, CUtensorMap* k,
+                        CUtensorMap* v) {
+    return make_map(q, p.q, batch, p.Sq, p.Hq, D, p.q_sb, p.q_ss, p.q_sh, kBlockM, cols) &&
+           make_map(dout, p.dout, batch, p.Sq, p.Hq, D, p.d_sb, p.d_ss, p.d_sh, kBlockM, cols) &&
+           make_map(k, p.k, batch, p.Skv, p.Hkv, D, p.k_sb, p.k_ss, p.k_sh, kv_rows, cols) &&
+           make_map(v, p.v, batch, p.Skv, p.Hkv, D, p.v_sb, p.v_ss, p.v_sh, kv_rows, cols);
+  };
+  return four(64, &maps->q, &maps->dout, &maps->k, &maps->v) &&
+         (D % 64 == 0 ||  // the tail boxes of head_dim 160
+          four(32, &maps->q_tail, &maps->dout_tail, &maps->k_tail, &maps->v_tail));
 }
 
 // The KV-stationary kernels (fused: DQ) of one (D, SEG, DENSE): one CTA
@@ -1355,7 +1452,7 @@ cudaError_t launch_kv(const BwdParams& p, int batch, int t_kv, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int ctas = D == 256 ? t_kv : (t_kv + 1) / 2;  // one kv tile a CTA at 256, else a pair
+  const int ctas = kv_rows<D>() == kBlockN ? t_kv : (t_kv + 1) / 2;  // a tile (160, 256) or a pair
   kernel<<<dim3(batch * p.Hkv, ctas), kKvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       p, maps);
   return cudaGetLastError();
@@ -1365,9 +1462,9 @@ cudaError_t launch_kv(const BwdParams& p, int batch, int t_kv, void* stream) {
 template <int D, bool DQ>
 cudaError_t dispatch_kv(const BwdParams& p, int batch, int t_kv, bool seg, bool dense,
                         void* stream) {
-  if constexpr (D == 256) {  // compact and unsegmented only (ROADMAP.md queue 2, item 2)
+  if constexpr (D == 160 || D == 256) {  // compact and unsegmented only (ROADMAP.md queue 2, item 2)
     if (seg || dense) return cudaErrorInvalidValue;
-    return launch_kv<256, DQ, false, false>(p, batch, t_kv, stream);
+    return launch_kv<D, DQ, false, false>(p, batch, t_kv, stream);
   } else {
     if (dense)
       return seg ? launch_kv<D, DQ, true, true>(p, batch, t_kv, stream)
@@ -1382,7 +1479,9 @@ cudaError_t dispatch_kv_by_dim(const BwdParams& p, int batch, int t_kv, int head
                                bool dense, void* stream) {
   return head_dim == 64    ? dispatch_kv<64, DQ>(p, batch, t_kv, seg, dense, stream)
          : head_dim == 128 ? dispatch_kv<128, DQ>(p, batch, t_kv, seg, dense, stream)
-                           : dispatch_kv<256, DQ>(p, batch, t_kv, seg, dense, stream);
+         : head_dim == 160 ? dispatch_kv<160, DQ>(p, batch, t_kv, seg, dense, stream)
+         : head_dim == 256 ? dispatch_kv<256, DQ>(p, batch, t_kv, seg, dense, stream)
+                           : cudaErrorInvalidValue;
 }
 
 // The dq kernel of one (D, SEG, DENSE): one CTA per (pair of q tiles,
@@ -1404,9 +1503,9 @@ cudaError_t launch_dq(const BwdParams& p, int batch, void* stream) {
 
 template <int D>
 cudaError_t dispatch_dq(const BwdParams& p, int batch, bool seg, bool dense, void* stream) {
-  if constexpr (D == 256) {  // compact and unsegmented only (ROADMAP.md queue 2, item 2)
+  if constexpr (D == 160 || D == 256) {  // compact and unsegmented only (ROADMAP.md queue 2, item 2)
     if (seg || dense) return cudaErrorInvalidValue;
-    return launch_dq<256, false, false>(p, batch, stream);
+    return launch_dq<D, false, false>(p, batch, stream);
   } else {
     if (dense)
       return seg ? launch_dq<D, true, true>(p, batch, stream)
@@ -1416,11 +1515,11 @@ cudaError_t dispatch_dq(const BwdParams& p, int batch, bool seg, bool dense, voi
   }
 }
 
-// The head dims and tiles the backward kernels are instantiated for (256:
-// the compact, unsegmented kernels only).
+// The head dims and tiles the backward kernels are instantiated for (160 and
+// 256: the compact, unsegmented kernels only).
 bool kernel_shape_ok(int head_dim, int block_q, int block_kv) {
-  return (head_dim == 64 || head_dim == 128 || head_dim == 256) && block_q == kBlockM &&
-         block_kv == kBlockN;
+  return (head_dim == 64 || head_dim == 128 || head_dim == 160 || head_dim == 256) &&
+         block_q == kBlockM && block_kv == kBlockN;
 }
 
 }  // namespace
@@ -1449,6 +1548,8 @@ extern "C" int fa2_bwd_delta_bf16(const void* o, const void* dout, void* delta, 
     fa2_bwd_delta_kernel<64><<<grid, kDeltaThreads, smem, s>>>(p);
   else if (head_dim == 128)
     fa2_bwd_delta_kernel<128><<<grid, kDeltaThreads, smem, s>>>(p);
+  else if (head_dim == 160)
+    fa2_bwd_delta_kernel<160><<<grid, kDeltaThreads, smem, s>>>(p);
   else if (head_dim == 256)
     fa2_bwd_delta_kernel<256><<<grid, kDeltaThreads, smem, s>>>(p);
   else
@@ -1459,8 +1560,8 @@ extern "C" int fa2_bwd_delta_bf16(const void* o, const void* dout, void* delta, 
 // The entries below take the instantiations the training paths need
 // (head_dim 128: qwen3; 64: whisper and the gpt presets; 64 x 64 tiles),
 // without and with segments (null q ids: none), on the compact schedule
-// (table, step bits) or the dense one (dense != 0: neither); at head_dim 256
-// (gemma3) only compact and unsegmented.
+// (table, step bits) or the dense one (dense != 0: neither); at head_dims 160
+// (stablelm) and 256 (gemma3) only compact and unsegmented.
 
 extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dq, void* dk,
@@ -1531,5 +1632,7 @@ extern "C" int fa2_bwd_dq_bf16(const void* q, const void* k, const void* v, cons
   const bool seg = q_seg != nullptr;
   return head_dim == 64    ? dispatch_dq<64>(p, batch, seg, dense != 0, stream)
          : head_dim == 128 ? dispatch_dq<128>(p, batch, seg, dense != 0, stream)
-                           : dispatch_dq<256>(p, batch, seg, dense != 0, stream);
+         : head_dim == 160 ? dispatch_dq<160>(p, batch, seg, dense != 0, stream)
+         : head_dim == 256 ? dispatch_dq<256>(p, batch, seg, dense != 0, stream)
+                           : cudaErrorInvalidValue;
 }

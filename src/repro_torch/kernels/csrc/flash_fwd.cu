@@ -277,18 +277,6 @@ __device__ __forceinline__ TileClass with_ids(TileClass c, int q_lo, int q_hi, i
   return c;
 }
 
-// The boxes of one 64-row tile of map `full` (and at head_dim 160 its tail
-// map) at rows s0 .. s0 + 63 of head h, batch row b, into shared memory at
-// dst, counted on `bar`: D * 64 * 2 bytes in all, the tile's expect_tx.
-template <int D>
-__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap& full,
-                                          const CUtensorMap& tail, uint64_t* bar, int h, int s0,
-                                          int b) {
-  for (int box = 0; box < D / 64; ++box)
-    tma_load(dst + box * 8192, full, bar, box * 64, h, s0, b);
-  if constexpr (D % 64 != 0) tma_load(dst + (D / 64) * 8192, tail, bar, D / 64 * 64, h, s0, b);
-}
-
 __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
   if (col >= p.Skv) return false;
   if (p.causal) {

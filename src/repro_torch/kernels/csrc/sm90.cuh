@@ -76,6 +76,19 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& map, uint
       : "memory");
 }
 
+// The boxes of one tile of map `full` (and at head_dim 160 its tail map) at
+// rows s0 .. of head h, batch row b, into shared memory at dst, BOX bytes
+// apart (8192: a 64-row box of 128-byte rows), counted on `bar`: D * 2
+// bytes a row in all, the tile's expect_tx. A tail box follows the D / 64
+// full boxes; only 64-row tiles have one.
+template <int D, uint32_t BOX = 8192>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap& full,
+                                          const CUtensorMap& tail, uint64_t* bar, int h, int s0,
+                                          int b) {
+  for (int box = 0; box < D / 64; ++box) tma_load(dst + box * BOX, full, bar, box * 64, h, s0, b);
+  if constexpr (D % 64 != 0) tma_load(dst + (D / 64) * BOX, tail, bar, D / 64 * 64, h, s0, b);
+}
+
 // A 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
 // from global memory into shared memory; completion counts its bytes on
 // `bar`.
@@ -207,6 +220,20 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// d (64 x 32 f32) (+)= A (64 x 16, shared) * B (16 x 32, shared); TA/TB: MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // d (64 x 64 f32) (+)= A (64 x 16 bf16, registers) * B (16 x 64, shared); TB: MN-major.
 template <int TB>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
@@ -295,6 +322,16 @@ __device__ __forceinline__ void wgmma_rs_k64(float (&d)[D / 2], const uint32_t (
       wgmma_rs_n64<1>(d, a[kk], sw128_desc(b + kk * 2048, 8192), 1);
     }
   }
+}
+
+// d (64 x 32 f32) += A (64 x 64 bf16: four k-steps of register fragments) *
+// B (64 x 32: the tail box of a head_dim-160 tile at shared address b,
+// 64 rows x 64 bytes, 64-byte swizzled, MN-major): the n32 half of
+// wgmma_rs_k64<160>, for a warpgroup that holds the tail columns alone.
+__device__ __forceinline__ void wgmma_rs_k64_tail(float (&d)[16], const uint32_t (&a)[4][4],
+                                                  uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n32(d, a[kk], sw64_desc(b + kk * 1024, 4096));
 }
 
 // The min and max of (lo, hi) over the 32 lanes of a warp.

@@ -22,8 +22,8 @@ Hopper the kv-tile CTAs run in parallel and in no order, so nothing marks a
 first visit: delta is this pre-pass, and dq is an f32 buffer that the
 wrapper zeroes and every CTA adds its dS K contribution into, a 64-row tile
 at a time by bulk reduction (``cp.reduce.async.bulk``). dK and dV need no
-atomics: a CTA owns a pair of kv tiles (one at head_dim 256, whose halves
-of head_dim its two warpgroups split) and walks the G q heads that share
+atomics: a CTA owns a pair of kv tiles (one at head_dim 160 and 256, whose
+columns its two warpgroups split) and walks the G q heads that share
 them and, per head, the union of the two tiles' visible q tiles
 (``schedule.build_kv_tile_schedule``, ``schedule.pair_walk``), on wgmma with
 TMA loads. The sums in dq come in no fixed order, so dq is not bitwise
@@ -80,11 +80,12 @@ from repro_torch.kernels.flash_fwd import (_check_kernel_inputs, _check_layout, 
 from repro_torch.kernels.schedule import check_schedule, device_schedule
 
 # Head dims the backward kernels are instantiated for: 128 (qwen3) and 64
-# (whisper-base, the gpt presets) in every mode; 256 (gemma3-1b) compact and
-# unsegmented only (its segment and dense modes are ROADMAP.md queue 2, item
-# 2). Each wrapper also counts its head_dim-64 and head_dim-256 launches
-# apart (``hd64_launches``, ``hd256_launches``: subsets of its other counts).
-KERNEL_HEAD_DIMS = (64, 128, 256)
+# (whisper-base, the gpt presets) in every mode; 160 (stablelm-12b) and 256
+# (gemma3-1b) compact and unsegmented only (their segment and dense modes
+# are ROADMAP.md queue 2, item 2). Each wrapper also counts its head_dim-64,
+# 160 and 256 launches apart (``hd64_launches``, ``hd160_launches``,
+# ``hd256_launches``: subsets of its other counts).
+KERNEL_HEAD_DIMS = (64, 128, 160, 256)
 ALL_MODES_HEAD_DIMS = (64, 128)
 
 
@@ -92,6 +93,8 @@ def _count(wrapper, schedule: str, head_dim: int) -> None:
     count_launch(wrapper, schedule)
     if head_dim == 64:
         wrapper.hd64_launches += 1
+    elif head_dim == 160:
+        wrapper.hd160_launches += 1
     elif head_dim == 256:
         wrapper.hd256_launches += 1
 
@@ -131,6 +134,7 @@ def flash_bwd_delta(o, do):
 
 flash_bwd_delta.launches = 0  # kernel launches (CUDA tensors only)
 flash_bwd_delta.hd64_launches = 0  # of which at head_dim 64
+flash_bwd_delta.hd160_launches = 0  # of which at head_dim 160
 flash_bwd_delta.hd256_launches = 0  # of which at head_dim 256
 
 
@@ -171,6 +175,7 @@ def flash_bwd_fused(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, bl
 flash_bwd_fused.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_fused.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_fused.hd64_launches = 0  # launches of either schedule at head_dim 64
+flash_bwd_fused.hd160_launches = 0  # launches at head_dim 160 (compact only)
 flash_bwd_fused.hd256_launches = 0  # launches at head_dim 256 (compact only)
 
 
@@ -184,6 +189,7 @@ def flash_bwd_fused_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_se
 flash_bwd_fused_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_fused_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_fused_varlen.hd64_launches = 0  # launches of either schedule at head_dim 64
+flash_bwd_fused_varlen.hd160_launches = 0  # launches at head_dim 160 (compact only)
 flash_bwd_fused_varlen.hd256_launches = 0  # launches at head_dim 256 (compact only)
 
 
@@ -198,6 +204,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, bloc
 flash_bwd_dkv.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dkv.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_dkv.hd64_launches = 0  # launches of either schedule at head_dim 64
+flash_bwd_dkv.hd160_launches = 0  # launches at head_dim 160 (compact only)
 flash_bwd_dkv.hd256_launches = 0  # launches at head_dim 256 (compact only)
 
 
@@ -211,6 +218,7 @@ def flash_bwd_dkv_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg,
 flash_bwd_dkv_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dkv_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_dkv_varlen.hd64_launches = 0  # launches of either schedule at head_dim 64
+flash_bwd_dkv_varlen.hd160_launches = 0  # launches at head_dim 160 (compact only)
 flash_bwd_dkv_varlen.hd256_launches = 0  # launches at head_dim 256 (compact only)
 
 
@@ -224,6 +232,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block
 flash_bwd_dq.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dq.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_dq.hd64_launches = 0  # launches of either schedule at head_dim 64
+flash_bwd_dq.hd160_launches = 0  # launches at head_dim 160 (compact only)
 flash_bwd_dq.hd256_launches = 0  # launches at head_dim 256 (compact only)
 
 
@@ -237,6 +246,7 @@ def flash_bwd_dq_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, 
 flash_bwd_dq_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dq_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_dq_varlen.hd64_launches = 0  # launches of either schedule at head_dim 64
+flash_bwd_dq_varlen.hd160_launches = 0  # launches at head_dim 160 (compact only)
 flash_bwd_dq_varlen.hd256_launches = 0  # launches at head_dim 256 (compact only)
 
 

@@ -13,16 +13,21 @@ Usage:
   python -m repro_torch.launch.train --preset gpt-20m --device cpu --steps 2
   python -m repro_torch.launch.train --arch qwen3-8b --reduce --device cpu --packed --steps 2
   python -m repro_torch.launch.train --arch gemma3-1b --steps 4
+  python -m repro_torch.launch.train --arch stablelm-12b --steps 4
 
 ``--device cuda`` (the default) needs a card and raises without one. The
-CUDA kernels take bfloat16 at head_dim 64, 128 and 256: the presets and
-the reduced configs are float32 (their CPU parity with the JAX package
+CUDA kernels take bfloat16 at head_dim 64, 128, 160 and 256: the presets
+and the reduced configs are float32 (their CPU parity with the JAX package
 holds in f32), so on the card train a preset with ``--dtype bfloat16``.
 gemma3-1b (bfloat16, head_dim 256) trains at its published widths and
 depth through the head_dim-256 forward, delta and fused backward kernels
-(``attn_bwd="split"``: delta, dK/dV and dQ). A model the kernels cannot
-take (float32, head_dim 160, or ``--packed`` at head_dim 256) is refused
-before anything reaches the card (``core.attention.check_card_support``).
+(``attn_bwd="split"``: delta, dK/dV and dQ), and stablelm-12b (head_dim
+160) through the head_dim-160 ones on a card that holds its 40 layers with
+AdamW's state (about 194 GB; there is no depth flag, as in the JAX CLI:
+``chip_smoke.py`` trains 8 of its layers through ``train``). A model the
+kernels cannot take (float32, or ``--packed`` at head_dim 160 or 256) is
+refused before anything reaches the card
+(``core.attention.check_card_support``).
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """What the entry points refuse before anything reaches the card, and the
 train CLI's ``--dtype``.
 
-The CUDA kernels take bfloat16 at head_dim 64 and 128, serve (forward,
-decode, paged decode) and train (unpacked) at 256, and serve at 160; the
-paged decode has no 64.
+The CUDA kernels take bfloat16 at head_dim 64 and 128, and serve (forward,
+decode, paged decode) and train (unpacked) at 160 and 256; the paged
+decode has no 64.
 ``core.attention.check_card_support`` refuses ``flash_cuda`` on a CUDA
 device for anything else, and the train and serve CLIs call it before they
 build a model: on this machine, which has no card, the CLIs must therefore
@@ -49,23 +49,36 @@ def test_float32_is_refused_on_the_card_with_the_way_out():
     check_card_support(cfg, REF, "cuda", training=True)
 
 
-# stablelm-12b's 160 has no backward kernel: training is refused, through
-# either backward mode, packed or not (the forward and both decodes serve
-# it: test_stablelm_at_head_dim_160_serves_on_the_card).
+# stablelm-12b's 160: the backward kernels are built there (compact and
+# unsegmented), so unpacked training passes through either backward mode;
+# the segment kernels are not, so packed training is what the kernels lack
+# at 160 and is refused, naming them (the forward and both decodes serve it:
+# test_stablelm_at_head_dim_160_serves_on_the_card).
 @pytest.mark.parametrize("arch,head_dim,bwd,packed", [
     ("stablelm-12b", 160, "fused", False),
     ("stablelm-12b", 160, "split", False),
     ("stablelm-12b", 160, "fused", True),
+    ("stablelm-12b", 160, "split", True),
 ])
 def test_head_dims_the_kernels_lack_are_refused_on_the_card(arch, head_dim, bwd, packed):
     cfg = registry.get(arch)
     assert cfg.head_dim == head_dim and cfg.dtype == "bfloat16"
     flash = AttentionConfig(impl="flash_cuda", bwd=bwd)
-    with pytest.raises(ValueError, match=f"head_dim {head_dim}; the CUDA backward.*queue 2, "
-                                         "item 2.*--attn ref"):
+    if packed:
+        with pytest.raises(ValueError, match=f"head_dim {head_dim}; the CUDA segment \\(packed\\)"
+                                             ".*queue 2, item 2.*--attn ref"):
+            check_card_support(cfg, flash, "cuda", training=True, packed=packed)
+    else:
         check_card_support(cfg, flash, "cuda", training=True, packed=packed)
     check_card_support(cfg, flash, "cpu", training=True, packed=packed)
     check_card_support(cfg, REF, "cuda", training=True, packed=packed)
+
+
+@pytest.mark.parametrize("bwd", ["fused", "split"])
+def test_stablelm_at_head_dim_160_trains_on_the_card(bwd):
+    cfg = registry.get("stablelm-12b")
+    assert cfg.head_dim == 160 and cfg.dtype == "bfloat16"
+    check_card_support(cfg, AttentionConfig(impl="flash_cuda", bwd=bwd), "cuda", training=True)
 
 
 @pytest.mark.parametrize("paged", [False, True])

@@ -202,17 +202,19 @@ DELTA_CASES = [
 
 
 def _counts(wrapper):
-    """A backward wrapper's (launches, head_dim-64 launches, head_dim-256 launches)."""
-    return wrapper.launches, wrapper.hd64_launches, wrapper.hd256_launches
+    """A backward wrapper's (launches, and those at head_dim 64, 160, 256)."""
+    return (wrapper.launches, wrapper.hd64_launches, wrapper.hd160_launches,
+            wrapper.hd256_launches)
 
 
 def _after_one(before, D):
     """The counts of ``_counts`` after one launch at head_dim D."""
-    return before[0] + 1, before[1] + (D == 64), before[2] + (D == 256)
+    return (before[0] + 1, before[1] + (D == 64), before[2] + (D == 160),
+            before[3] + (D == 256))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [128, 64, 256])
+@pytest.mark.parametrize("D", [128, 64, 256, 160])
 @pytest.mark.parametrize("B,S,Hq,view", DELTA_CASES)
 def test_delta_kernel_matches_plain(cuda, B, S, Hq, view, D):
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -300,6 +302,20 @@ G3_BWD_CASES = [
     (1, 64, 4, 1, dict(causal=True), "contiguous"),
 ]
 
+# Head dim 160 (stablelm-12b): 32 q heads over 8 kv heads, causal, at the
+# training shape and a ragged length (the KV-stationary kernels own one
+# tile a CTA at 160, the dq kernel a pair of q tiles: odd tile counts at
+# 1500 and 333), a window with sinks through strided views, rows that see
+# no key (q_offset -100), G 1 without a mask, and one tile.
+SL_BWD_CASES = [
+    (2, 2048, 32, 8, dict(causal=True), "contiguous"),
+    (1, 1500, 32, 8, dict(causal=True), "contiguous"),
+    (2, 333, 32, 8, dict(causal=True, window=100, sink=4), "strided"),
+    (1, 300, 32, 8, dict(causal=True, q_offset=-100), "contiguous"),
+    (2, 200, 8, 8, dict(causal=False), "contiguous"),
+    (1, 64, 32, 8, dict(causal=True), "contiguous"),
+]
+
 
 # Rectangular and ragged shapes at whisper's sizes and beyond, (B, Sq, Skv,
 # H, spec): the cross-attention (448 decoder rows against 1500 frames,
@@ -323,6 +339,12 @@ def test_fused_backward_kernel_matches_plain(cuda, B, S, Hq, Hkv, spec, view, D)
 @pytest.mark.parametrize("B,S,Hq,Hkv,spec,view", G3_BWD_CASES)
 def test_fused_backward_kernel_at_gemma3_shapes_matches_plain(cuda, B, S, Hq, Hkv, spec, view):
     _check_fused(cuda, B, S, S, Hq, Hkv, spec, view, 256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Hq,Hkv,spec,view", SL_BWD_CASES)
+def test_fused_backward_kernel_at_stablelm_shapes_matches_plain(cuda, B, S, Hq, Hkv, spec, view):
+    _check_fused(cuda, B, S, S, Hq, Hkv, spec, view, 160)
 
 
 @pytest.mark.gpu
@@ -356,7 +378,7 @@ def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec,
     through the SEG kernels, all-ones ids' (the same walk, products and
     order); dq bitwise the same from a second launch (no atomics), the
     dense schedule's and all-ones ids'; zeros where a row sees no key. At
-    head_dim 256 there are no dense or SEG kernels to compare with."""
+    head_dims 160 and 256 there are no dense or SEG kernels to compare with."""
     _check_split(cuda, B, S, S, Hq, Hkv, spec, view, D)
 
 
@@ -365,6 +387,13 @@ def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec,
 def test_split_backward_kernels_at_gemma3_shapes_match_plain_and_fused(cuda, B, S, Hq, Hkv,
                                                                        spec, view):
     _check_split(cuda, B, S, S, Hq, Hkv, spec, view, 256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Hq,Hkv,spec,view", SL_BWD_CASES)
+def test_split_backward_kernels_at_stablelm_shapes_match_plain_and_fused(cuda, B, S, Hq, Hkv,
+                                                                         spec, view):
+    _check_split(cuda, B, S, S, Hq, Hkv, spec, view, 160)
 
 
 @pytest.mark.gpu
@@ -413,8 +442,18 @@ def _check_split(cuda, B, S, Skv, Hq, Hkv, spec, view, D):
 def test_backward_kernels_refuse_segment_and_dense_modes_at_head_dim_256(cuda):
     """At head_dim 256 only the compact, unsegmented backward kernels are
     built: the other modes raise before any launch, naming the roadmap."""
+    _check_refused_modes(cuda, 256)
+
+
+@pytest.mark.gpu
+def test_backward_kernels_refuse_segment_and_dense_modes_at_head_dim_160(cuda):
+    """The same at head_dim 160."""
+    _check_refused_modes(cuda, 160)
+
+
+def _check_refused_modes(cuda, D):
     spec = MaskSpec(causal=True)
-    args = (*_bwd_inputs(cuda, 1, 256, 4, 1, spec, D=256), spec)
+    args = (*_bwd_inputs(cuda, 1, 256, 4, 1, spec, D=D), spec)
     ids = torch.ones((1, 256), dtype=torch.int32, device=cuda)
     tiles = dict(block_q=64, block_kv=64)
     calls = {
@@ -437,12 +476,12 @@ def test_backward_kernels_refuse_segment_and_dense_modes_at_head_dim_256(cuda):
 
 
 def _zeroed(counters, plains):
-    """Zero the wrappers' launch counts (the backward's head_dim-64 and 256
-    ones too) and the plain versions' call counts."""
+    """Zero the wrappers' launch counts (the backward's head_dim-64, 160 and
+    256 ones too) and the plain versions' call counts."""
     for f in counters:
         f.launches = 0
         if hasattr(f, "hd64_launches"):
-            f.hd64_launches = f.hd256_launches = 0
+            f.hd64_launches = f.hd160_launches = f.hd256_launches = 0
     for f in plains:
         f.calls = 0
 
@@ -541,6 +580,19 @@ def test_gemma3_training_step_runs_through_the_head_dim_256_kernels(cuda):
     norms within 1%."""
     cfg = dataclasses.replace(registry.get("gemma3-1b"), num_layers=6)
     assert cfg.head_dim == 256 and cfg.window == 512 and cfg.remat
+    _training_step_against_ref(cuda, cfg, 256)
+
+
+@pytest.mark.gpu
+def test_stablelm_training_step_runs_through_the_head_dim_160_kernels(cuda):
+    """The same for two layers of full-width stablelm-12b (head_dim 160, 32
+    q heads over 8 kv heads, qk-norm, untied), all at head_dim 160."""
+    cfg = dataclasses.replace(registry.get("stablelm-12b"), num_layers=2)
+    assert cfg.head_dim == 160 and cfg.qk_norm and cfg.remat
+    _training_step_against_ref(cuda, cfg, 160)
+
+
+def _training_step_against_ref(cuda, cfg, D):
     tokens = torch.randint(0, cfg.vocab_size, (2, 1025), generator=torch.Generator().manual_seed(0))
     batch = {"inputs": tokens[:, :-1].to(cuda), "targets": tokens[:, 1:].to(cuda)}
     out = {}
@@ -554,13 +606,35 @@ def test_gemma3_training_step_runs_through_the_head_dim_256_kernels(cuda):
         n = cfg.num_layers
         want = {"ref": [0] * 5, "fused": [2 * n, n, n, 0, 0], "split": [2 * n, n, 0, n, n]}[run]
         assert [f.launches for f in BWD_COUNTERS] == want
-        assert [f.hd256_launches for f in BWD_COUNTERS[1:]] == want[1:]
+        assert [getattr(f, f"hd{D}_launches") for f in BWD_COUNTERS[1:]] == want[1:]
         assert [f.calls for f in BWD_PLAINS] == [0] * 5
         assert math.isfinite(out[run]["loss"]) and out[run]["skipped"] == 0.0
         del model, state
     for run in ("fused", "split"):
         assert abs(out[run]["loss"] - out["ref"]["loss"]) <= 1e-4 * abs(out["ref"]["loss"])
         assert abs(out[run]["grad_norm"] / out["ref"]["grad_norm"] - 1) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,hq,hkv", [(160, 32, 8), (256, 4, 1)])
+def test_default_splits_at_head_dims_160_and_256_run_the_single_pass(cuda, D, hq, hkv):
+    """A default ``ops.flash_attention`` of a short q against a long kv at
+    head_dim 160 and 256, where the split-KV kernel is not built: the auto
+    policy takes one split, so the single-pass kernel runs (and matches its
+    plain version) and the split-KV kernel is never launched."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q = _randn(gen, (1, 64, hq, D), cuda)
+    k, v = _randn(gen, (1, 1536, hkv, D), cuda), _randn(gen, (1, 1536, hkv, D), cuda)
+    spec = MaskSpec(causal=True, q_offset=1536 - 64)
+    assert ops.resolve_kv_splits(None, q.shape, k.shape) == 1
+    before = (fwd_mod.flash_fwd.launches, fwd_mod.flash_fwd_splitkv.launches)
+    o = ops.flash_attention(q, k, v, spec)
+    torch.cuda.synchronize()
+    assert (fwd_mod.flash_fwd.launches, fwd_mod.flash_fwd_splitkv.launches) == (
+        before[0] + 1, before[1])
+    o_p, _ = fwd_mod.flash_fwd_plain(ops._prep(q, 1 / math.sqrt(D)), k, v, spec, block_q=64,
+                                     block_kv=64)
+    assert _err(o, o_p) < O_TOL
 
 
 @pytest.mark.gpu

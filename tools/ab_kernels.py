@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""A/B the split dQ kernel, the two decode kernels and delta against variants of themselves.
+"""A/B the split dQ kernel, the KV-stationary kernels, the two decode kernels and delta against variants of themselves.
 
-Each variant is ``csrc/flash_bwd.cu`` (the dQ kernel, delta) or
+Each variant is ``csrc/flash_bwd.cu`` (the dQ kernel, the fused and dK/dV
+kernels, delta) or
 ``csrc/flash_decode.cu`` (the contiguous and the paged decode) with one
 design decision changed, stated as text edits of that source (``VARIANTS``
 below). The script writes each variant beside a copy of ``sm90.cuh`` under
@@ -10,7 +11,9 @@ below). The script writes each variant beside a copy of ``sm90.cuh`` under
 serialised wgmmas), holds it against the plain version, and times it in
 turns with the committed kernel (each variant in order, then in reverse)
 after an L2 flush: the dQ variants at the training shape (B 2, S 2048,
-causal, 32 q heads, 8 kv heads); the decode variants at the serving path's
+causal, 32 q heads, 8 kv heads); the fused and dK/dV variants there at
+head_dim 128 and 160 (with, for the committed source, the fused kernel
+without its dQ staging and bulk reduction); the decode variants at the serving path's
 decode shape (B 4, lengths 15/108/708/1508 of 2048, 8 splits; the paged
 ones through pages of 16) and the contiguous ones also at whisper's cross
 and self shapes; delta at the training shape and at whisper's encoder
@@ -43,10 +46,8 @@ sys.path.insert(0, str(ROOT / "src"))
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 OUT = ROOT / "build" / "ab_kernels"
 
-_S_SS = """        wgmma_ss_n64<0, 0>(s, sw128_desc(sQ + (kk >> 2) * 8192 + (kk & 3) * 32, 16),
-                           sw128_desc(cK + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);"""
-_DP_SS = """        wgmma_ss_n64<0, 0>(dp, sw128_desc(sdO + (kk >> 2) * 8192 + (kk & 3) * 32, 16),
-                           sw128_desc(cV + (kk >> 2) * 8192 + (kk & 3) * 32, 16), kk > 0);"""
+_S_SS = "        wgmma_ss_n64<0, 0>(s, kmajor_desc<D>(sQ, kk), kmajor_desc<D>(cK, kk), kk > 0);"
+_DP_SS = "        wgmma_ss_n64<0, 0>(dp, kmajor_desc<D>(sdO, kk), kmajor_desc<D>(cV, kk), kk > 0);"
 _DQ_LOOP = """    for (int n = 0;; ++n) {
       const int stage = n % kDqStages;"""
 
@@ -59,7 +60,7 @@ def _fragments(name: str, tile: str) -> str:
     for (int kk = 0; kk < D / 16; ++kk) {{
       const int row = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
       const int col = kk * 16 + (lane >> 4) * 8;
-      const uint32_t at = {tile} + (col >> 6) * 8192 + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4);
+      const uint32_t at = {tile} + tile_off<D>(row, col);
       asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {{%0,%1,%2,%3}}, [%4];\\n"
                    : "=r"({name}[kk][0]), "=r"({name}[kk][1]), "=r"({name}[kk][2]), "=r"({name}[kk][3])
                    : "r"(at));
@@ -67,15 +68,15 @@ def _fragments(name: str, tile: str) -> str:
 """
 
 
-_S_RS = ("        wgmma_rs_n64<0>(s, qf[kk], sw128_desc(cK + (kk >> 2) * 8192 + (kk & 3) * 32, 16),"
-         " kk > 0);")
-_DP_RS = ("        wgmma_rs_n64<0>(dp, dof[kk], sw128_desc(cV + (kk >> 2) * 8192 + (kk & 3) * 32, 16),"
-          " kk > 0);")
+_S_RS = "        wgmma_rs_n64<0>(s, qf[kk], kmajor_desc<D>(cK, kk), kk > 0);"
+_DP_RS = "        wgmma_rs_n64<0>(dp, dof[kk], kmajor_desc<D>(cV, kk), kk > 0);"
 _SLOTS = "  p.slots = 2 * kPagedWarps * 2 * half <= 128 * 1024 ? 2 : 1;"
 _COPY_WAIT = "    mbar_wait(&full[n % p.slots], (n / p.slots) & 1);\n"
 _COPY_FIRST = "  if (lane == 0)\n    for (int n = 0; n < p.slots; ++n) issue(n);\n"
 _COPY_NEXT = "    if (lane == 0) issue(n + p.slots);\n"
 _UNIT_SKIP = "      if (vrows == 0u) continue;  // uniform in the warp\n"
+_KV_WG = ("  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);"
+          "  // warp-uniform (wg_rs_k64)\n")
 
 _ISSUE_BULK = """  if (lane == 0)
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n" ::"r"(smem_u32(bar)),
@@ -182,7 +183,10 @@ VARIANTS = {
         (_DQ_LOOP, _fragments("qf", "sQ") + _fragments("dof", "sdO") + _DQ_LOOP),
         (_S_SS, _S_RS), (_DP_SS, _DP_RS)]),
     "dq_stages2": ("flash_bwd", "a 2-stage K/V ring instead of 4",
-                   [("STAGES = D == 256 ? 2 : 4;", "STAGES = 2;")]),
+                   [("STAGES = D == 256 ? 2 : D == 160 ? 3 : 4;", "STAGES = 2;")]),
+    "kv_final": ("flash_bwd", "the fused and dK/dV kernels as committed", []),
+    "kv_wg_thread": ("flash_bwd", "the KV-stationary warpgroup index read from threadIdx.x, "
+                     "not broadcast from lane 0", [(_KV_WG, "  const int wg = threadIdx.x / 128;\n")]),
     "paged_final": ("flash_decode", "the paged decode as committed", []),
     "paged_cluster1": ("flash_decode", "one CTA of 4 warps a split, no cluster",
                        [("constexpr int kPagedCluster = 2;", "constexpr int kPagedCluster = 1;")]),
@@ -245,6 +249,7 @@ DIAGNOSTICS = {"paged_copies_only", "paged_math_only", "decode_copies_only", "de
 # Variant groups: name prefix -> (kernel whose ptxas lines are printed,
 # the wrapper module's name).
 GROUPS = {"dq": ("fa2_bwd_dq_kernel", "flash_bwd"),
+          "kv": ("fa2_bwd_fused_kernel", "flash_bwd"),
           "paged": ("fa2_decode_paged_kernel", "flash_decode"),
           "decode": ("fa2_decode_kernel", "flash_decode"),
           "delta": ("fa2_bwd_delta_kernel", "flash_bwd")}
@@ -325,7 +330,7 @@ def main() -> None:
             names.insert(0, final)
     print(nvidia_smi(), flush=True)
     libs = build(names)
-    dq_names, paged_names, decode_names, delta_names = (
+    dq_names, kv_names, paged_names, decode_names, delta_names = (
         [n for n in names if group(n) == g] for g in GROUPS)
     originals = {bwd: bwd._lib, dec: dec._lib}
 
@@ -408,6 +413,39 @@ def main() -> None:
         print("flash_bwd_dq B=2 S=2048 causal, in turns: " + "; ".join(
             f"{n} {ms[n]:.4f} ms ({ms[n] / ms['dq_final']:.4f}x final)" for n in dq_names),
             flush=True)
+    if kv_names:
+        def kv_inputs(B, S, D):
+            q = ops._prep(randn(B, S, 32, D), 1 / math.sqrt(D))
+            k, v, do = randn(B, S, 8, D), randn(B, S, 8, D), randn(B, S, 32, D)
+            o, lse = fwd.flash_fwd(q, k, v, causal, **tiles)
+            return q, k, v, do, lse, bwd.flash_bwd_delta(o, do), causal
+
+        for D in (128, 160):
+            args = kv_inputs(1, 700, D)
+            want = bwd.flash_bwd_fused_plain(*args, **tiles)
+            for name in kv_names:
+                use(name)
+                got = bwd.flash_bwd_fused(*args, **tiles)
+                dk, dv = bwd.flash_bwd_dkv(*args, **tiles)
+                torch.cuda.synchronize()
+                rel = max((a - b).abs().max().item() / b.abs().max().item()
+                          for a, b in zip(got, want))
+                ok = rel <= 3e-3 and torch.equal(dk, got[1]) and torch.equal(dv, got[2])
+                bad += not ok
+                print(f"{name}: B=1 S=700 causal D={D} fused dq, dk, dv, max|x-plain| / max|x| "
+                      f"{rel:.3e} (tol 3e-3); dK/dV bitwise the fused kernel's"
+                      f"{'' if ok else ' FAILS'}", flush=True)
+            args = kv_inputs(2, 2048, D)
+            calls = {}
+            for name in kv_names:
+                calls[f"{name} fused"] = lambda: bwd.flash_bwd_fused(*args, **tiles)
+                calls[f"{name} dkv"] = lambda: bwd.flash_bwd_dkv(*args, **tiles)
+            calls["kv_final fused without dQ's bulk reduction"] = (
+                lambda: bwd._launch_fused(*args, tiles["block_q"], tiles["block_kv"], None))
+            ms = in_turns(calls)
+            result[f"fused and dkv, training shape, D {D}"] = ms
+            print(f"flash_bwd_fused and flash_bwd_dkv B=2 S=2048 causal D={D}, in turns: "
+                  + "; ".join(f"{n} {v:.4f} ms" for n, v in ms.items()), flush=True)
     if paged_names:
         lens = torch.tensor([15, 108, 708, 1508], dtype=torch.int32, device=dev)
         B, S, ps = 4, 2048, 16
