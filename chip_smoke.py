@@ -176,6 +176,25 @@ with AdamW's state), trains 8 AdamW steps at B 2, S 2048 through ``train``
 with the fused and the split backward and once through impl="ref", as the
 gemma3 slice (launch counts exact: the forward twice a layer and step,
 delta, fused or dK/dV and dQ once, all at head_dim 160).
+Phase 3 also holds the segment (SEG) forward, fused, dK/dV and dQ kernels at
+head_dim 256 (gemma3-1b's packed training shape, B 4, S 2048, causal and
+window 512) and at 160 (stablelm-12b's, B 2, S 2048, causal), on the packed
+source's step-0 ids, against their plain versions, with split dK/dV bitwise
+the fused kernel's, dQ bitwise over two launches and all-ones ids bitwise
+the unsegmented kernels, distinct q and kv ids at S 700 (zeros where a tile
+sees nothing), and times each in turns with the unsegmented kernel beside
+its bound over the same-segment pairs and SDPA with the block-diagonal
+mask. Last, packed training: gemma3-1b (26 layers, B 4, S 2048) and
+stablelm-12b (8 of 40 layers, B 2, S 2048) each train 8 AdamW steps on the
+packed source through ``train(packed=True)``, with the fused and the split
+backward and once through impl="ref" (the segment mask), as the unpacked
+slices: launch counts exact through the segment kernels at head_dim 256 or
+160 (gemma3: the segment forward 400, delta 208, fused or dK/dV and dQ 208;
+stablelm: 128, 64, 64; no unsegmented kernel, no plain version), the loss
+falls and follows the reference's, the split backward bitwise reproducible
+on the step-0 ids; tokens/s with the non-padding share, MFU, peak memory,
+the profiled step's busy share and attention time, each beside the
+unpacked run's.
 The last two lines are the kernels' JSON record and the result line.
 """
 
@@ -949,27 +968,42 @@ def bwd_kernel_phase(torch, dev, flush):
     }
 
 
-def segment_pairs(ids) -> int:
+def segment_pairs(ids, window=None) -> int:
     """Same-segment causal (q, k) pairs of a (B, S) id array: the sum over
     the runs of equal ids of L (L + 1) / 2 (padding is a run too: it attends
-    itself)."""
+    itself); with a ``window``, of the pairs less than ``window`` apart."""
     import numpy as np
 
     total = 0
     for row in np.asarray(ids):
         cuts = np.flatnonzero(np.diff(row)) + 1
         L = np.diff(np.concatenate([[0], cuts, [len(row)]]))
-        total += int((L * (L + 1) // 2).sum())
+        if window is None:
+            total += int((L * (L + 1) // 2).sum())
+        else:
+            total += sum(causal_pairs(int(n), window) for n in L)
     return total
 
 
-def packed_ids(B: int, S: int, step: int = 0):
+def packed_ids(B: int, S: int, step: int = 0, vocab: int = 151_936):
     """The packed source's segment ids (numpy, (B, S) int32) at a step:
-    SyntheticVarlenLM with seed 0 at qwen3-8b's vocabulary."""
+    SyntheticVarlenLM with seed 0 at ``vocab`` (default qwen3-8b's)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticVarlenLM
 
-    src = SyntheticVarlenLM(DataConfig(B, S, 151_936, seed=0, source="packed"))
+    src = SyntheticVarlenLM(DataConfig(B, S, vocab, seed=0, source="packed"))
     return src.batch(step)["segment_ids"]
+
+
+def distinct_ids(torch, dev, B: int, S: int, hidden: int = 64):
+    """q and kv ids (B, S) that differ: two halves of ids 1 and 2, q rows
+    0 .. hidden - 1 an id no key has (64: a whole q tile sees nothing), the
+    last 64 keys an id no query has (their kv tile gets zero dK and dV)."""
+    q_seg = torch.ones((B, S), dtype=torch.int32)
+    q_seg[:, S // 2:] = 2
+    kv_seg = q_seg.clone()
+    q_seg[:, :hidden] = 7
+    kv_seg[:, -64:] = 9
+    return q_seg.to(dev), kv_seg.to(dev)
 
 
 def segment_mask(torch, ids):
@@ -1036,24 +1070,17 @@ def varlen_kernel_phase(torch, dev, flush):
         torch.cuda.synchronize()
         return o, lse, delta, fused, dkv, dq, dq2
 
-    def distinct_ids(B, S, hidden=64):
-        q_seg = torch.ones((B, S), dtype=torch.int32)
-        q_seg[:, S // 2:] = 2
-        kv_seg = q_seg.clone()
-        q_seg[:, :hidden] = 7   # q rows 0 .. hidden - 1: an id no key has
-        kv_seg[:, -64:] = 9  # the last keys: an id no query has
-        return q_seg.to(dev), kv_seg.to(dev)
-
     B, S = TRAIN_B, TRAIN_S
     ids = torch.from_numpy(packed_ids(B, S)).to(dev)
     ids700 = torch.from_numpy(packed_ids(2, 700)).to(dev)
     cases = [(B, S, HQ, HKV, ids, ids, "packed step 0"),
              (2, 700, HKV, HKV, ids700, ids700, "packed, G=1"),
              (2, 700, HQ, HKV, ids700, ids700, "packed, G=4"),
-             (2, 700, HQ, HKV, *distinct_ids(2, 700), "distinct q/kv ids"),
+             (2, 700, HQ, HKV, *distinct_ids(torch, dev, 2, 700), "distinct q/kv ids"),
              # q rows 0-31 see no key in a tile the CTAs visit (lse = the
              # finite mask value)
-             (2, 700, HQ, HKV, *distinct_ids(2, 700, 32), "half a q tile hidden")]
+             (2, 700, HQ, HKV, *distinct_ids(torch, dev, 2, 700, 32),
+              "half a q tile hidden")]
     err = dict(fwd=0.0, fused=0.0, dkv=0.0, dq=0.0)
     for Bc, Sc, Hq, Hkv, q_seg, kv_seg, what in cases:
         q, k, v, do = inputs(Bc, Sc, Hq, Hkv)
@@ -2492,11 +2519,15 @@ def training_want(counters, plains, n: int, bwds, suffix: str = "", *, remat: bo
     (``_varlen``, ``_dense``, both or none): the forward twice (``remat``)
     or once (``forwards``, where given: that many forward launches), delta
     once, then the fused kernel or dK/dV and dQ once; with ``head_dim`` (64,
-    160 or 256) the backward's counts at that head dim the same; every
-    other kernel and every plain version 0."""
+    160 or 256) the backward's counts at that head dim the same, and the
+    forward's where it counts that head dim apart; every other kernel and
+    every plain version 0."""
     want = {k: 0 for k in counters}
     for bwd in bwds:
-        want[f"flash_fwd{suffix}"] += (2 if remat else 1) * n if forwards is None else forwards
+        n_fwd = (2 if remat else 1) * n if forwards is None else forwards
+        want[f"flash_fwd{suffix}"] += n_fwd
+        if f"flash_fwd{suffix}_hd{head_dim}" in want:  # the segment forward's 160 and 256
+            want[f"flash_fwd{suffix}_hd{head_dim}"] += n_fwd
         names = ["flash_bwd_delta"]
         names += ["flash_bwd_fused" + suffix] if bwd == "fused" else [
             "flash_bwd_dkv" + suffix, "flash_bwd_dq" + suffix]
@@ -3017,6 +3048,9 @@ def whisper_train_phase(torch, dev):
 G3_HQ, G3_HKV, G3_D, G3_WINDOW = 4, 1, 256, 512
 # stablelm-12b's: 32 q heads over 8 kv heads of 160, no window.
 SL_HQ, SL_HKV, SL_D = 32, 8, 160
+# Their vocabularies, which the packed source's document lengths are drawn
+# beside (the SEG kernel phases take the ids packed training gets).
+G3_VOCAB, SL_VOCAB = 262_144, 100_352
 
 
 def causal_pairs(S: int, window=None) -> int:
@@ -3439,17 +3473,206 @@ HD256_BWD_SHAPES = {
 def hd256_bwd_kernel_phase(torch, dev, flush):
     """The four backward kernels at head_dim 256 (gemma3-1b: 4 q heads over
     1 kv head) at every HD256_BWD_SHAPES shape (``head_dim_bwd_kernel_phase``;
-    the training shape timed causal and with the window 512)."""
-    return head_dim_bwd_kernel_phase(torch, dev, flush, G3_D, G3_HQ, G3_HKV, HD256_BWD_SHAPES,
-                                     (G3_TRAIN_B, G3_TRAIN_S), seed=11)
+    the training shape timed causal and with the window 512), then the SEG
+    forward, fused, dK/dV and dQ at the packed training shape, causal and
+    with the window (``head_dim_seg_kernel_phase``)."""
+    from repro_torch.core.masks import MaskSpec
+
+    return {**head_dim_bwd_kernel_phase(torch, dev, flush, G3_D, G3_HQ, G3_HKV, HD256_BWD_SHAPES,
+                                        (G3_TRAIN_B, G3_TRAIN_S), seed=11),
+            **head_dim_seg_kernel_phase(torch, dev, flush, G3_D, G3_HQ, G3_HKV, G3_TRAIN_B,
+                                        G3_TRAIN_S, {"causal": MaskSpec(causal=True),
+                                                     "window": MaskSpec(causal=True,
+                                                                        window=G3_WINDOW)},
+                                        G3_VOCAB, seed=21)}
 
 
 def hd160_bwd_kernel_phase(torch, dev, flush):
     """The four backward kernels at head_dim 160 (stablelm-12b: 32 q heads
     over 8 kv heads) at every HD160_BWD_SHAPES shape
-    (``head_dim_bwd_kernel_phase``; the training shape timed)."""
-    return head_dim_bwd_kernel_phase(torch, dev, flush, SL_D, SL_HQ, SL_HKV, HD160_BWD_SHAPES,
-                                     (SL_TRAIN_B, SL_TRAIN_S), seed=12)
+    (``head_dim_bwd_kernel_phase``; the training shape timed), then the SEG
+    kernels at the packed training shape (``head_dim_seg_kernel_phase``)."""
+    from repro_torch.core.masks import MaskSpec
+
+    return {**head_dim_bwd_kernel_phase(torch, dev, flush, SL_D, SL_HQ, SL_HKV, HD160_BWD_SHAPES,
+                                        (SL_TRAIN_B, SL_TRAIN_S), seed=12),
+            **head_dim_seg_kernel_phase(torch, dev, flush, SL_D, SL_HQ, SL_HKV, SL_TRAIN_B,
+                                        SL_TRAIN_S, {"causal": MaskSpec(causal=True)}, SL_VOCAB,
+                                        seed=22)}
+
+
+SEG_NAMES = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def head_dim_seg_kernel_phase(torch, dev, flush, D, hq, hkv, B, S, specs, vocab, *, seed):
+    """The segment (SEG) forward, fused, dK/dV and dQ kernels at head_dim
+    ``D``, ``hq`` q heads over ``hkv`` kv heads, at the packed training shape
+    (B, S) with the packed source's step-0 ids (at the model's ``vocab``, as
+    ``train(packed=True)`` makes them), under each mask of ``specs`` ({name:
+    MaskSpec}; the first gives the top-level numbers, a "window" one goes
+    under ``windowed``): each against its plain version, split dK/dV bitwise
+    the fused kernel's, split dQ bitwise over two launches, all-ones ids
+    bitwise the unsegmented kernels; then at S 700 distinct q and kv ids
+    under the first mask: (0, -inf) and zero gradients where a tile sees
+    nothing. Then each timed after the L2 flush in turns with the
+    unsegmented kernel (seg, full, full, seg), its plain version, its bound
+    over the same-segment pairs the mask needs, and SDPA with the
+    block-diagonal mask (the forward; the fused kernel: forward + backward
+    less forward; dK/dV and dQ alone have no library call). Returns the
+    records of ``<kernel>_varlen_hd{D}``."""
+    from repro_torch.kernels import flash_bwd as bwd
+    from repro_torch.kernels import flash_fwd as fwd
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    tiles = dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
+
+    def inputs(Bc, Sc):
+        return (ops._prep(randn(Bc, Sc, hq, D), 1 / math.sqrt(D)), randn(Bc, Sc, hkv, D),
+                randn(Bc, Sc, hkv, D), randn(Bc, Sc, hq, D))
+
+    def run(q, k, v, do, spec, q_seg, kv_seg):
+        o, lse = fwd.flash_fwd_varlen(q, k, v, spec, q_seg, kv_seg, **tiles)
+        delta = bwd.flash_bwd_delta(o, do)
+        args = (q, k, v, do, lse, delta, spec, q_seg, kv_seg)
+        fused = bwd.flash_bwd_fused_varlen(*args, **tiles)
+        dk, dv = bwd.flash_bwd_dkv_varlen(*args, **tiles)
+        dq, dq2 = (bwd.flash_bwd_dq_varlen(*args, **tiles) for _ in range(2))
+        torch.cuda.synchronize()
+        return o, lse, delta, fused, dk, dv, dq, dq2
+
+    ids = torch.from_numpy(packed_ids(B, S, vocab=vocab)).to(dev)
+    ones = torch.ones_like(ids)
+    first = next(iter(specs))
+    cases = [(B, S, name, spec, ids, ids) for name, spec in specs.items()]
+    cases.append((2, 700, f"{first}, distinct q/kv ids", specs[first],
+                  *distinct_ids(torch, dev, 2, 700)))
+    err = {name: 0.0 for name in SEG_NAMES}
+    for Bc, Sc, name, spec, q_seg, kv_seg in cases:
+        what = f"D={D} B={Bc} S={Sc} Hq={hq} Hkv={hkv} {name}"
+        q, k, v, do = inputs(Bc, Sc)
+        o, lse, delta, fused, dk, dv, dq, dq2 = run(q, k, v, do, spec, q_seg, kv_seg)
+        plain = dict(q_seg=q_seg, kv_seg=kv_seg, **tiles)
+        args = (q, k, v, do, lse, delta, spec)
+        eo = check_fwd(torch, f"flash_fwd_varlen {what}", (o, lse),
+                       fwd.flash_fwd_plain(q, k, v, spec, **plain))
+        want = bwd.flash_bwd_fused_plain(*args, **plain)
+        want_dkv = bwd.flash_bwd_dkv_plain(*args, **plain)
+        want_dq = bwd.flash_bwd_dq_plain(*args, **plain)
+        rel = {}
+        for label, a, b in (("fused dq", fused[0], want[0]), ("fused dk", fused[1], want[1]),
+                            ("fused dv", fused[2], want[2]), ("dkv dk", dk, want_dkv[0]),
+                            ("dkv dv", dv, want_dkv[1]), ("dq", dq, want_dq)):
+            if not torch.isfinite(a).all():
+                fail(f"a SEG backward kernel gave a non-finite {label} ({what})")
+            rel[label] = max_err(torch, a, b) / max(b.abs().max().item(), 1e-6)
+        bit_dkv = torch.equal(dk, fused[1]) and torch.equal(dv, fused[2])
+        bit_dq = torch.equal(dq, dq2)
+        log(f"SEG backward {what}: relative to max|grad| "
+            + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
+            + f" (tol {GRAD_REL_TOL}); split dk, dv bitwise the fused kernel's: {bit_dkv}; "
+            f"split dq bitwise over two launches: {bit_dq}")
+        if max(rel.values()) > GRAD_REL_TOL:
+            fail(f"a SEG backward kernel at head_dim {D} disagrees with its plain version "
+                 f"({what})")
+        if not (bit_dkv and bit_dq):
+            fail(f"the SEG split backward at head_dim {D} lost a bitwise invariant ({what})")
+        err["flash_fwd"] = max(err["flash_fwd"], eo)
+        err["flash_bwd_fused"] = max(err["flash_bwd_fused"],
+                                     *(max_err(torch, a, b) for a, b in zip(fused, want)))
+        err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], max_err(torch, dk, want_dkv[0]),
+                                   max_err(torch, dv, want_dkv[1]))
+        err["flash_bwd_dq"] = max(err["flash_bwd_dq"], max_err(torch, dq, want_dq))
+        if "distinct" in name:
+            zeros = bool((o[:, :64] == 0).all() and torch.isneginf(lse[..., :64]).all()
+                         and (fused[0][:, :64] == 0).all() and (dq[:, :64] == 0).all()
+                         and (dk[:, -64:] == 0).all() and (dv[:, -64:] == 0).all())
+            log(f"  distinct ids at D={D}: q tile 0 gives o = 0, lse = -inf, dq = 0 and the "
+                f"last kv tile dk = dv = 0: {zeros}")
+            if not zeros:
+                fail(f"a tile that sees nothing must give o = 0, lse = -inf and zero gradients "
+                     f"(head_dim {D})")
+            continue
+        # All-ones ids on the same inputs: bitwise the unsegmented kernels.
+        o_u, lse_u = fwd.flash_fwd(q, k, v, spec, **tiles)
+        o1, lse1, delta1, fused1, dk1, dv1, dq1, _ = run(q, k, v, do, spec, ones, ones)
+        full_args = (q, k, v, do, lse_u, delta1, spec)
+        _, dk_f, dv_f = bwd.flash_bwd_fused(*full_args, **tiles)
+        dk_u, dv_u = bwd.flash_bwd_dkv(*full_args, **tiles)
+        dq_u = bwd.flash_bwd_dq(*full_args, **tiles)
+        torch.cuda.synchronize()
+        same = {"o": torch.equal(o_u, o1), "lse": torch.equal(lse_u, lse1),
+                "fused dk, dv": torch.equal(dk_f, fused1[1]) and torch.equal(dv_f, fused1[2]),
+                "dkv dk, dv": torch.equal(dk_u, dk1) and torch.equal(dv_u, dv1),
+                "dq": torch.equal(dq_u, dq1)}
+        log(f"  all-ones ids at {what}, bitwise the unsegmented kernels: {same}")
+        if not all(same.values()):
+            fail(f"all-ones ids do not give the unsegmented kernels' outputs bitwise at head_dim "
+                 f"{D} ({name})")
+
+    rows = {}
+    for name, spec in specs.items():
+        q, k, v, do = inputs(B, S)
+        o, lse = fwd.flash_fwd_varlen(q, k, v, spec, ids, ids, **tiles)
+        delta = bwd.flash_bwd_delta(o, do)
+        seg_args = (q, k, v, do, lse, delta, spec, ids, ids)
+        full_args = seg_args[:7]
+        kernels = {
+            "flash_fwd": (lambda: fwd.flash_fwd_varlen(q, k, v, spec, ids, ids, **tiles),
+                          lambda: fwd.flash_fwd(q, k, v, spec, **tiles)),
+            "flash_bwd_fused": (lambda: bwd.flash_bwd_fused_varlen(*seg_args, **tiles),
+                                lambda: bwd.flash_bwd_fused(*full_args, **tiles)),
+            "flash_bwd_dkv": (lambda: bwd.flash_bwd_dkv_varlen(*seg_args, **tiles),
+                              lambda: bwd.flash_bwd_dkv(*full_args, **tiles)),
+            "flash_bwd_dq": (lambda: bwd.flash_bwd_dq_varlen(*seg_args, **tiles),
+                             lambda: bwd.flash_bwd_dq(*full_args, **tiles)),
+        }
+        plain = dict(q_seg=ids, kv_seg=ids, **tiles)
+        plains = {
+            "flash_fwd": lambda: fwd.flash_fwd_plain(q, k, v, spec, **plain),
+            "flash_bwd_fused": lambda: bwd.flash_bwd_fused_plain(*full_args, **plain),
+            "flash_bwd_dkv": lambda: bwd.flash_bwd_dkv_plain(*full_args, **plain),
+            "flash_bwd_dq": lambda: bwd.flash_bwd_dq_plain(*full_args, **plain),
+        }
+        mask = segment_mask(torch, ids)
+        if spec.window is not None:
+            ago = torch.arange(S, device=dev)[:, None] - torch.arange(S, device=dev)[None, :]
+            mask = mask & (ago < spec.window)[None, None]
+        lib_fwd_ms, lib_fb_ms = sdpa_times(torch, q, k, v, do, flush, mask)
+        library = {"flash_fwd": lib_fwd_ms, "flash_bwd_fused": lib_fb_ms - lib_fwd_ms,
+                   "flash_bwd_dkv": None, "flash_bwd_dq": None}
+        pairs = segment_pairs(ids.cpu().numpy(), spec.window)
+        full_pairs = B * causal_pairs(S, spec.window)
+        bounds = attention_bounds(pairs, B, S, id_bytes=2 * B * S * 4, Hq=hq, Hkv=hkv, D=D)
+        log(f"SEG kernels at D={D} B={B} S={S} {name}: documents per row "
+            f"{[int(r.max()) for r in ids]}, same-segment pairs {pairs} of {full_pairs} "
+            f"({pairs / full_pairs:.4f})")
+        rows[name] = {}
+        for kname, (seg_fn, full_fn) in kernels.items():
+            runs = [time_ms(torch, f, 20, flush) for f in (seg_fn, full_fn, full_fn, seg_fn)]
+            seg_ms, full_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+            plain_ms = time_ms(torch, plains[kname], 2, flush)
+            b_ms, b_by = bounds[kname]
+            lib = library[kname]
+            log(f"  {kname}_varlen D={D} {name}: kernel {seg_ms:.4f} ms, the unsegmented kernel "
+                f"in turns {full_ms:.4f} ms (ratio {seg_ms / full_ms:.4f}; turns "
+                f"{[round(t, 4) for t in runs]}), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), {seg_ms / b_ms:.2f}x the bound; library "
+                + ("none" if lib is None else f"{lib:.4f} ms (SDPA, block-diagonal mask)"))
+            rows[name][kname] = dict(ms=seg_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                     library_ms=lib, unsegmented_ms_same_call=full_ms,
+                                     segment_pairs=pairs)
+    out = {}
+    for kname in SEG_NAMES:
+        rec = dict(max_abs_err=err[kname], **rows[first][kname])
+        if "window" in rows:
+            rec["windowed"] = rows["window"][kname]
+        out[f"{kname}_varlen_hd{D}"] = rec
+    return out
 
 
 def head_dim_bwd_kernel_phase(torch, dev, flush, D, hq, hkv, shapes, timed_at, *, seed):
@@ -3488,28 +3711,31 @@ def head_dim_bwd_kernel_phase(torch, dev, flush, D, hq, hkv, shapes, timed_at, *
                                   at_shapes=at[name]) for name in BWD_NAMES}
 
 
-def gemma3_train_phase(torch, dev):
+def gemma3_train_phase(torch, dev, packed: bool = False):
     """The gemma3 training slice: gemma3-1b at its published widths and depth
     (26 layers, d_model 1152, 4 q heads over 1 kv head of 256, a 512-token
     window on 5 of 6 layers, tied embeddings over a 262,144 vocab) at B 4,
-    S 2048, ``model_train_phase``. Remat recomputes each group of
-    cfg.group_size (6) layers in the backward; the tail layers (26 % 6 = 2)
-    are not checkpointed, as in the JAX package (lm.py:255): 2 x 24 + 2
-    forward launches a step."""
+    S 2048, ``model_train_phase`` (``packed``: on the packed source, through
+    the segment kernels). Remat recomputes each group of cfg.group_size (6)
+    layers in the backward; the tail layers (26 % 6 = 2) are not
+    checkpointed, as in the JAX package (lm.py:255): 2 x 24 + 2 forward
+    launches a step."""
     from repro_torch.configs import registry
     from repro_torch.core.masks import MaskSpec
 
     return model_train_phase(torch, dev, registry.get("gemma3-1b"), G3_TRAIN_B, G3_TRAIN_S,
                              G3_TRAIN_STEPS, (MaskSpec(causal=True),
-                                              MaskSpec(causal=True, window=G3_WINDOW)))
+                                              MaskSpec(causal=True, window=G3_WINDOW)),
+                             packed=packed)
 
 
-def stablelm_train_phase(torch, dev):
+def stablelm_train_phase(torch, dev, packed: bool = False):
     """The stablelm training slice: stablelm-12b at its published widths
     (d_model 5120, 32 q heads over 8 kv heads of 160, qk-norm, d_ff 13,824,
     untied embeddings over a 100,352 vocab), depth cut to SL_TRAIN_LAYERS
     of 40 (one card's memory: AdamW's f32 master, mu and nu beside the bf16
-    weights and gradients), at B 2, S 2048, ``model_train_phase``. Its
+    weights and gradients), at B 2, S 2048, ``model_train_phase``
+    (``packed``: on the packed source, through the segment kernels). Its
     remat groups are single layers, so every layer runs the forward twice a
     step."""
     from repro_torch.configs import registry
@@ -3517,41 +3743,56 @@ def stablelm_train_phase(torch, dev):
 
     cfg = dataclasses.replace(registry.get("stablelm-12b"), num_layers=SL_TRAIN_LAYERS)
     return model_train_phase(torch, dev, cfg, SL_TRAIN_B, SL_TRAIN_S, SL_TRAIN_STEPS,
-                             (MaskSpec(causal=True),))
+                             (MaskSpec(causal=True),), packed=packed)
 
 
-def model_train_phase(torch, dev, cfg, B, S, steps, specs):
+def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False):
     """``cfg`` (bf16, remat, seed 0) through the train CLI's ``train`` on the
-    synthetic stream (``B`` x ``S``, ``steps`` AdamW steps), with the fused
-    and with the split backward, and once through impl="ref" from the same
-    seed and batches. Each kernel run's launches must be exact (per layer
-    and step: the forward twice in the layers of the remat groups and once
-    in the tail layers, delta once, the fused kernel or dK/dV and dQ once,
-    all at cfg.head_dim; no plain version), its loss must fall, step 0's
+    synthetic stream (``B`` x ``S``, ``steps`` AdamW steps; ``packed``: the
+    packed (varlen) source, ``TrainLoopConfig(packed=True)``), with the
+    fused and with the split backward, and once through impl="ref" from the
+    same seed and batches. Each kernel run's launches must be exact (per
+    layer and step: the forward twice in the layers of the remat groups and
+    once in the tail layers, delta once, the fused kernel or dK/dV and dQ
+    once, all at cfg.head_dim; packed: their segment variants, no
+    unsegmented kernel; no plain version), its loss must fall, step 0's
     loss must be the reference's within PARITY_LOSS_REL and every step's
     within GPT_LOSS_REL, and step 0's loss the same through both backward
     modes (the same forward). One more fused step under torch.profiler
     gives the device busy share and attention's device time and share.
-    Then ops.flash_attention(bwd="split") forward and backward twice at the
-    training shape under each mask of ``specs`` must give bitwise-equal
-    gradients. Returns {bwd: launch counts} and {bwd: summary}."""
+    Then ops.flash_attention(bwd="split") (packed: flash_attention_varlen on
+    the source's step-0 ids) forward and backward twice at the training
+    shape under each mask of ``specs`` must give bitwise-equal gradients.
+    Returns {bwd: launch counts} and {bwd: summary}."""
+    import numpy as np
+
     from repro_torch.core.attention import AttentionConfig
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, SyntheticVarlenLM
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import build_train_step
     from repro_torch.launch.train import TrainLoopConfig, train
     from repro_torch.training.optimizer import AdamWConfig
 
     arch, D = cfg.name, cfg.head_dim
+    what = f"{arch} {'packed ' if packed else ''}training"
     opt_cfg = AdamWConfig(warmup_steps=2, total_steps=steps)
     grouped = cfg.num_groups * cfg.group_size
     forwards = steps * (2 * grouped + cfg.num_layers - grouped)
+    if packed:  # the batches train() draws: the same source, seed and steps
+        source = SyntheticVarlenLM(DataConfig(B, S, cfg.vocab_size, seed=0, source="packed"))
+        batch0 = source.batch(0)
+        real = float(np.mean([source.batch(step)["loss_mask"].mean() for step in range(steps)]))
+        log(f"{what}: documents per row at step 0 {batch0['segment_ids'].max(axis=1).tolist()}, "
+            f"non-padding share over the {steps} steps {real:.4f}")
+    else:
+        inputs, targets = SyntheticLM(DataConfig(B, S, cfg.vocab_size, seed=0)).batch(0)
+        batch0 = {"inputs": inputs, "targets": targets}
     counters, plains = kernel_counters()
     counts, summaries, losses = {}, {}, {}
     for run in ("fused", "split", "ref"):
         loop = TrainLoopConfig(steps=steps, seq_len=S, batch_size=B, log_every=1, seed=0,
                                device=str(dev), attn_impl="ref" if run == "ref" else "flash_cuda",
-                               attn_bwd=None if run == "ref" else run)
+                               attn_bwd=None if run == "ref" else run, packed=packed)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
@@ -3562,7 +3803,7 @@ def model_train_phase(torch, dev, cfg, B, S, steps, specs):
         n_params = sum(p.numel() for p in model.parameters())
         losses[run] = history["loss"]
         if not all(math.isfinite(x) for x in history["loss"] + history["grad_norm"]):
-            fail(f"{arch} training ({run}) gave a non-finite loss or gradient norm")
+            fail(f"{what} ({run}) gave a non-finite loss or gradient norm")
         if run == "ref":
             del model, opt_state
             break
@@ -3573,47 +3814,52 @@ def model_train_phase(torch, dev, cfg, B, S, steps, specs):
         summaries[run] = dict(losses=history["loss"], median_ms=med * 1e3,
                               tokens_per_s=B * S / med, mfu=mfu, peak_gib=peak, busy_share=None,
                               attention_ms=None)
-        log(f"{arch} training (bwd={run}) at published widths, {cfg.num_layers} layers, "
+        if packed:
+            summaries[run].update(non_padding_share=real, real_tokens_per_s=real * B * S / med)
+        log(f"{what} (bwd={run}) at published widths, {cfg.num_layers} layers, "
             f"B={B} S={S}, {n_params / 1e9:.4f} B params: losses {[round(x, 5) for x in history['loss']]}; median step "
             f"{med * 1e3:.1f} ms (first {history['step_time'][0] * 1e3:.1f} ms), "
-            f"{B * S / med:.1f} tokens/s, model FLOPs {train_model_flops(cfg, B, S) / 1e12:.3f} "
-            f"TFLOP a step, MFU {mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, "
+            f"{B * S / med:.1f} tokens/s"
+            + (f" (B x S; non-padding share {real:.4f}: {real * B * S / med:.1f} real tokens/s)"
+               if packed else "")
+            + f", model FLOPs {train_model_flops(cfg, B, S) / 1e12:.3f} TFLOP a step"
+            + (" (full causal attention, not the same-segment pairs)" if packed else "")
+            + f", MFU {mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, "
             f"max_memory_allocated {peak:.2f} GiB")
-        log(f"launches on the {arch} training path (bwd={run}): {counts[run]}")
+        log(f"launches on the {what} path (bwd={run}): {counts[run]}")
         if not sum(history["loss"][-2:]) / 2 < history["loss"][0]:
-            fail(f"the {arch} training loss (bwd={run}) did not fall")
-        want = training_want(counters, plains, steps * cfg.num_layers, (run,), head_dim=D,
-                             forwards=forwards)
+            fail(f"the {what} loss (bwd={run}) did not fall")
+        want = training_want(counters, plains, steps * cfg.num_layers, (run,),
+                             "_varlen" if packed else "", head_dim=D, forwards=forwards)
         if counts[run] != want:
-            fail(f"{arch} training launches (bwd={run}) {counts[run]}, want {want} "
+            fail(f"{what} launches (bwd={run}) {counts[run]}, want {want} "
                  "(the forward twice a layer of the remat groups, once a tail layer)")
         if run == "fused":
-            inputs, targets = SyntheticLM(DataConfig(B, S, cfg.vocab_size, seed=0)).batch(0)
-            batch = {"inputs": torch.from_numpy(inputs).to(dev),
-                     "targets": torch.from_numpy(targets).to(dev)}
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in batch0.items()}
             step_fn = build_train_step(cfg, AttentionConfig(impl="flash_cuda"), opt_cfg)
             busy, attn_ms = profile_train_step(torch, step_fn, model, opt_state, batch, med)
             share = None if attn_ms is None else attn_ms / (busy * med * 1e3)
             summaries[run].update(busy_share=busy, attention_ms=attn_ms, attention_share=share)
-            log(f"attention device time per {arch} step: " + (
+            log(f"attention device time per {what} step: " + (
                 "not measured" if attn_ms is None else f"{attn_ms:.3f} ms of the profiled step, "
                 f"{share:.4f} of its device busy time"))
             del batch
         del model, opt_state
-    log(f"{arch} training through impl=ref (dense attention): losses "
+    log(f"{what} through impl=ref (dense attention"
+        + (", segment mask" if packed else "") + f"): losses "
         f"{[round(x, 5) for x in losses['ref']]}")
     if losses["split"][0] != losses["fused"][0]:
-        fail(f"{arch} step 0's loss through bwd=split ({losses['split'][0]!r}) differs from "
+        fail(f"{what}: step 0's loss through bwd=split ({losses['split'][0]!r}) differs from "
              f"bwd=fused's ({losses['fused'][0]!r}); the forward is the same")
     for run in ("fused", "split"):
         rel = [abs(a - b) / abs(b) for a, b in zip(losses[run], losses["ref"])]
         summaries[run]["loss_rel_to_ref"] = rel
-        log(f"{arch} bwd={run} against impl=ref, relative loss difference by step: "
+        log(f"{what} bwd={run} against impl=ref, relative loss difference by step: "
             + ", ".join(f"{r:.3e}" for r in rel) + f" (step 0 limit {PARITY_LOSS_REL}, every "
             f"step {GPT_LOSS_REL})")
         if not (rel[0] <= PARITY_LOSS_REL and max(rel) <= GPT_LOSS_REL):
-            fail(f"{arch} training through flash_cuda (bwd={run}) disagrees with impl=ref")
-    log(summary_line(f"{arch} training, split against fused backward", summaries["split"],
+            fail(f"{what} through flash_cuda (bwd={run}) disagrees with impl=ref")
+    log(summary_line(f"{what}, split against fused backward", summaries["split"],
                      summaries["fused"]))
 
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -3621,21 +3867,25 @@ def model_train_phase(torch, dev, cfg, B, S, steps, specs):
               (B, S, cfg.num_kv_heads, D))
     q0, k0, v0 = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16) for s in shapes)
     do = torch.randn(shapes[0], generator=gen, device=dev).to(torch.bfloat16)
+    ids = torch.from_numpy(batch0["segment_ids"]).to(dev) if packed else None
     for spec in specs:
         grads = []
         for _ in range(2):
             q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
-            ops.flash_attention(q, k, v, spec, bwd="split").backward(do)
+            if packed:
+                o = ops.flash_attention_varlen(q, k, v, ids, spec, bwd="split")
+            else:
+                o = ops.flash_attention(q, k, v, spec, bwd="split")
+            o.backward(do)
             grads.append((q.grad, k.grad, v.grad))
         torch.cuda.synchronize()
         same = [torch.equal(a, b) for a, b in zip(*grads)]
-        log(f"ops.flash_attention(bwd=split) forward + backward twice at B={B} S={S} "
-            f"Hq={cfg.num_heads} Hkv={cfg.num_kv_heads} D={D} window={spec.window}: dq, dk, dv "
-            f"bitwise equal "
-            f"{same}")
+        log(f"ops.flash_attention{'_varlen' if packed else ''}(bwd=split) forward + backward "
+            f"twice at B={B} S={S} Hq={cfg.num_heads} Hkv={cfg.num_kv_heads} D={D} "
+            f"window={spec.window}: dq, dk, dv bitwise equal {same}")
         if not all(same) or not all(torch.isfinite(g.float()).all() for g in grads[0]):
-            fail(f"the split backward at head_dim {D} is not bitwise reproducible (or not "
-                 "finite)")
+            fail(f"the {'packed ' if packed else ''}split backward at head_dim {D} is not "
+                 "bitwise reproducible (or not finite)")
     return counts, summaries
 
 
@@ -3732,22 +3982,31 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     sl_train_counts, sl_train_summaries = stablelm_train_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    g3_packed_counts, g3_packed_summaries = gemma3_train_phase(torch, dev, packed=True)
+    log(summary_line("gemma3-1b packed against unpacked training (fused, this call)",
+                     g3_packed_summaries["fused"], g3_train_summaries["fused"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    sl_packed_counts, sl_packed_summaries = stablelm_train_phase(torch, dev, packed=True)
+    log(summary_line("stablelm-12b packed against unpacked training (fused, this call)",
+                     sl_packed_summaries["fused"], sl_train_summaries["fused"]))
 
     results["flash_fwd"]["at_training_shape"] = results.pop("flash_fwd_at_training_shape")
-    for k, inst in (("flash_fwd_hd256", "fa2_fwd_kernel<256,"),
-                    ("flash_decode_hd256", "fa2_decode_kernel<256,0>"),
-                    ("flash_decode_paged_hd256", "fa2_decode_paged_kernel<256>"),
-                    ("flash_fwd_hd160", "fa2_fwd_kernel<160,"),
-                    ("flash_decode_hd160", "fa2_decode_kernel<160,0>"),
-                    ("flash_decode_paged_hd160", "fa2_decode_paged_kernel<160>"),
-                    ("flash_bwd_delta_hd256", "fa2_bwd_delta_kernel<256>"),
-                    ("flash_bwd_fused_hd256", "fa2_bwd_fused_kernel<256,"),
-                    ("flash_bwd_dkv_hd256", "fa2_bwd_dkv_kernel<256,"),
-                    ("flash_bwd_dq_hd256", "fa2_bwd_dq_kernel<256,"),
-                    ("flash_bwd_delta_hd160", "fa2_bwd_delta_kernel<160>"),
-                    ("flash_bwd_fused_hd160", "fa2_bwd_fused_kernel<160,"),
-                    ("flash_bwd_dkv_hd160", "fa2_bwd_dkv_kernel<160,"),
-                    ("flash_bwd_dq_hd160", "fa2_bwd_dq_kernel<160,")):
+    ptxas_of = {"flash_decode_hd256": "fa2_decode_kernel<256,0>",
+                "flash_decode_paged_hd256": "fa2_decode_paged_kernel<256>",
+                "flash_decode_hd160": "fa2_decode_kernel<160,0>",
+                "flash_decode_paged_hd160": "fa2_decode_paged_kernel<160>",
+                "flash_bwd_delta_hd256": "fa2_bwd_delta_kernel<256>",
+                "flash_bwd_delta_hd160": "fa2_bwd_delta_kernel<160>"}
+    for D in (256, 160):  # the compact kernels, unsegmented (SEG 0) and SEG (1)
+        for seg, suffix in ((0, ""), (1, "_varlen")):
+            ptxas_of[f"flash_fwd{suffix}_hd{D}"] = f"fa2_fwd_kernel<{D},{seg},0,0>"
+            for kernel in ("fused", "dkv", "dq"):
+                ptxas_of[f"flash_bwd_{kernel}{suffix}_hd{D}"] = (
+                    f"fa2_bwd_{kernel}_kernel<{D},{seg},0>")
+    for k, inst in ptxas_of.items():
         results[k]["ptxas"] = [line.split(": ", 1)[1] for line in ptxas.splitlines()
                                if inst in line]
     replaces = {"flash_fwd": "src/repro/kernels/flash_fwd.py:354",
@@ -3800,7 +4059,17 @@ def main() -> None:
                 "flash_bwd_delta_hd160": "src/repro/kernels/flash_bwd.py:80",
                 "flash_bwd_fused_hd160": "src/repro/kernels/flash_bwd.py:718",
                 "flash_bwd_dkv_hd160": "src/repro/kernels/flash_bwd.py:234",
-                "flash_bwd_dq_hd160": "src/repro/kernels/flash_bwd.py:459"}
+                "flash_bwd_dq_hd160": "src/repro/kernels/flash_bwd.py:459",
+                # The segment branches at head_dim 256 and 160 (packed training of
+                # gemma3-1b and stablelm-12b).
+                "flash_fwd_varlen_hd256": "src/repro/kernels/flash_fwd.py:354",
+                "flash_bwd_fused_varlen_hd256": "src/repro/kernels/flash_bwd.py:718",
+                "flash_bwd_dkv_varlen_hd256": "src/repro/kernels/flash_bwd.py:234",
+                "flash_bwd_dq_varlen_hd256": "src/repro/kernels/flash_bwd.py:459",
+                "flash_fwd_varlen_hd160": "src/repro/kernels/flash_fwd.py:354",
+                "flash_bwd_fused_varlen_hd160": "src/repro/kernels/flash_bwd.py:718",
+                "flash_bwd_dkv_varlen_hd160": "src/repro/kernels/flash_bwd.py:234",
+                "flash_bwd_dq_varlen_hd160": "src/repro/kernels/flash_bwd.py:459"}
     source = {"flash_fwd": "flash_fwd", "flash_decode": "flash_decode",
               "flash_decode_paged": "flash_decode", "flash_bwd_delta": "flash_bwd",
               "flash_bwd_fused": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
@@ -3825,12 +4094,17 @@ def main() -> None:
              "training_gemma3_split": g3_train_counts["split"],
              "stablelm_serving": sl_counts, "stablelm_paged_serving": sl_paged_counts,
              "training_stablelm": sl_train_counts["fused"],
-             "training_stablelm_split": sl_train_counts["split"]}
+             "training_stablelm_split": sl_train_counts["split"],
+             "training_gemma3_packed": g3_packed_counts["fused"],
+             "training_gemma3_packed_split": g3_packed_counts["split"],
+             "training_stablelm_packed": sl_packed_counts["fused"],
+             "training_stablelm_packed_split": sl_packed_counts["split"]}
     # An entry named "_hd64" ("_hd160", "_hd256") counts its kernel's
     # launches at head dim 64 (160, 256), and the entry of the same kernel
-    # without the suffix the other launches. The backward wrappers count
-    # their head_dim-64, 160 and 256 launches apart (``<name>_hd64``,
-    # ``<name>_hd160``, ``<name>_hd256``); the forward and decode wrappers do not, so their
+    # without the suffix the other launches. The backward wrappers and the
+    # segment forward count their head_dim-64 (backward only), 160 and 256
+    # launches apart (``<name>_hd64``, ``<name>_hd160``, ``<name>_hd256``);
+    # the unsegmented forward and the decode wrappers do not, so their
     # launches on the paths that run at one head dim only (64: whisper-base,
     # gpt-20m; 160: stablelm-12b; 256: gemma3-1b) are that head dim's
     # entries'.
@@ -3874,6 +4148,8 @@ def main() -> None:
     log(f"gemma3-1b training: {json.dumps(g3_train_summaries)}")
     log(f"stablelm-12b serving: {json.dumps(sl_summary)}")
     log(f"stablelm-12b training: {json.dumps(sl_train_summaries)}")
+    log(f"gemma3-1b packed training: {json.dumps(g3_packed_summaries)}")
+    log(f"stablelm-12b packed training: {json.dumps(sl_packed_summaries)}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -62,13 +62,13 @@ def check_card_support(cfg, attn_cfg: AttentionConfig, device, *, training: bool
     the CUDA kernels cannot run: ``attn_cfg.impl == "flash_cuda"`` on a CUDA
     ``device`` (a name or a ``torch.device``) with ``cfg.dtype`` other than
     bfloat16, or a ``cfg.head_dim`` that the forward kernels, and for
-    ``training`` the backward kernels (``packed``: their segment variants),
-    else the decode kernels (``paged``: the paged decode's) are not
-    instantiated for: gemma3-1b's 256 and stablelm-12b's 160 serve (fixed
-    and paged) and train (fused and split backward) but not packed, since
-    the segment kernels are built at 64 and 128 only (ROADMAP.md queue 2,
-    item 2); whisper's 64 has no paged decode (item 3). The plain CPU path
-    and ``impl="ref"`` take any of them."""
+    ``training`` the backward kernels (``packed``: the segment variants of
+    the forward and the backward), else the decode kernels (``paged``: the
+    paged decode's) are not instantiated for: gemma3-1b's 256 and
+    stablelm-12b's 160 serve (fixed and paged) and train (fused and split
+    backward), packed too (the segment kernels are built at 64, 128, 160
+    and 256); whisper's 64 has no paged decode (ROADMAP.md queue 2, item
+    3). The plain CPU path and ``impl="ref"`` take any of them."""
     if attn_cfg.impl != "flash_cuda" or torch.device(device).type != "cuda":
         return
     if cfg.dtype != "bfloat16":
@@ -80,7 +80,8 @@ def check_card_support(cfg, attn_cfg: AttentionConfig, device, *, training: bool
     if training:
         kernels["backward"] = flash_bwd.KERNEL_HEAD_DIMS
         if packed:  # the segment variants of the forward and backward kernels
-            kernels["segment (packed)"] = flash_bwd.ALL_MODES_HEAD_DIMS
+            kernels["segment (packed)"] = tuple(d for d in flash_fwd.SEGMENT_HEAD_DIMS
+                                                if d in flash_bwd.SEGMENT_HEAD_DIMS)
     else:
         kernels["decode"] = (flash_decode.PAGED_HEAD_DIMS if paged
                              else flash_decode.KERNEL_HEAD_DIMS)

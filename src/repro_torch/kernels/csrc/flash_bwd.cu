@@ -90,8 +90,8 @@
 // dK/dV stay bitwise the fused kernel's. Shared memory falls to about 132
 // KB; still one CTA an SM. The dq and delta kernels take D the same way.
 //
-// Head_dim 256 (gemma3-1b training) is instantiated compact and unsegmented
-// only (the SEG and DENSE forms refuse it), with one change of shape in the
+// Head_dim 256 (gemma3-1b training) is instantiated compact only, without
+// and with SEG (the DENSE forms refuse it), with one change of shape in the
 // KV-stationary and dq kernels, the `HALF` flag: a 64 x 256 f32 accumulator
 // is 128 registers a consumer thread, so a pair's dK and dV (256) cannot fit
 // setmaxnreg's 240, and a pair's K and V (128 KB) with a 2-stage Q/dO ring
@@ -120,9 +120,9 @@
 //     of the tile (64 KB) and a 2-stage K/V ring (128 KB): 194 KB. dQ is
 //     still written once, without atomics, so bwd="split" stays bitwise the
 //     same from launch to launch.
-// Head_dim 160 (stablelm-12b training), again compact and unsegmented only,
-// is not a whole number of 64-column TMA boxes. A 64-row tile is the
-// forward's layout at 160 (csrc/flash_fwd.cu): two 128-byte-swizzled boxes
+// Head_dim 160 (stablelm-12b training), again compact only (without and
+// with SEG), is not a whole number of 64-column TMA boxes. A 64-row tile is
+// the forward's layout at 160 (csrc/flash_fwd.cu): two 128-byte-swizzled boxes
 // and a tail box of the last 32 columns, 64-byte swizzled, through a second
 // tensor map per operand (load_tile, 20 KB a tile, every expect_tx the
 // tile's bytes); S^T and dP^T take their k-steps 8 and 9 from the tail box
@@ -162,6 +162,19 @@
 //     (80 KB) and a 3-stage K/V ring (120 KB): 202 KB.
 // Split dK/dV stay bitwise the fused kernel's: one source, the DQ flag only
 // adds the dQ phase and sets the ring depth, which moves no arithmetic.
+// SEG at 160 and 256 (packed training) is the 64/128 segment code: with
+// HALF both warpgroups own the same kv rows (kw0 = k0), so both read the
+// same kv ids and take the tile-0 flags; the CTA's walk is one kv tile's
+// slice of the kv-major table (PairWalk with no second tile), so its step
+// bits are those of tile blockIdx.y; each stage's 64 q ids sit in the slot
+// KvSmem reserves (beside the fused kernel's single 256 stage too); the dq
+// kernel's HALF warpgroups hold the same q tile's ids. The element mask
+// acts on S^T, dP^T (or S, dP) fragments, never on the accumulators split
+// by columns. One change for every head dim: the KV-stationary consumers
+// read their kv ids from shared memory inside the mask, indexed by the kv
+// rows they hold anyway, rather than keep the ids (or their address) live
+// through the step; with two more live registers ptxas serialised the fused
+// SEG kernel's wgmma at 160 (PERF.md, row 8ls).
 //
 // The split backward (bwd="split", the deterministic mode) is the other
 // two, with no atomics anywhere:
@@ -237,7 +250,9 @@
 //     the count of fetched steps. Only the producer reads the bits;
 //   * a step applies the element mask when it is flagged masked or lacks
 //     SEG_UNIFORM, and the mask then also needs q_id == kv_id. The owner
-//     tile's ids sit in registers (two rows a thread); the streamed tile's
+//     tile's ids sit in registers (the dq kernel: two rows a thread) or in
+//     shared memory (the KV-stationary kernels: its producer's lanes copy
+//     the CTA's kv ids once, before K and V arrive); the streamed tile's
 //     64 ids travel with it in the same stage (the KV-stationary
 //     producer's lanes copy them; the dq producer's lanes by cp.async, only
 //     when a tile needs the element mask). Rows past the end read as the
@@ -540,8 +555,8 @@ struct BwdMaps {
 // 64-row tile a stage, laid out the same way with 8 KB boxes), with DQ two
 // bf16 dS^T buffers (ROWS kv rows x 64 q) and the f32 dQ staging of each
 // consumer warpgroup, then each stage's lse, delta, q ids and step record,
-// then the mbarriers and the staged dQ's (q0, head). About 200 KB at
-// D = 128, 132 KB at D = 64; at 256 (one kv tile) 195 KB for dK/dV and,
+// the CTA's kv ids, then the mbarriers and the staged dQ's (q0, head).
+// About 200 KB at D = 128, 132 KB at D = 64; at 256 (one kv tile) 195 KB for dK/dV and,
 // with one stage, 182 KB for the fused kernel; at 160 (one kv tile, 20 KB
 // tiles, 2 stages) 121 KB for dK/dV and 173 KB for the fused kernel.
 template <int D, bool DQ>
@@ -559,7 +574,8 @@ struct KvSmem {
   static constexpr uint32_t DELTA = LSE + STAGES * kBlockM * 4;
   static constexpr uint32_t QID = DELTA + STAGES * kBlockM * 4;
   static constexpr uint32_t STEP = QID + STAGES * kBlockM * 4;  // per stage: the step's record
-  static constexpr uint32_t BARS = STEP + STAGES * 16;  // full, empty, kv, dq_full, dq_empty
+  static constexpr uint32_t KVID = STEP + STAGES * 16;  // the CTA's kv ids (SEG)
+  static constexpr uint32_t BARS = KVID + ROWS * 4;  // full, empty, kv, dq_full, dq_empty
   static constexpr uint32_t DQ_META = BARS + (2 * STAGES + 5) * 8;  // per warpgroup: (q0, h)
   static constexpr uint32_t BYTES = DQ_META + 2 * 8;
 };
@@ -587,13 +603,12 @@ __device__ __forceinline__ void wg_rs_k64(float (&d)[DC / 2], const uint32_t (&a
 // The KV-stationary body: with DQ, the fused kernel; without, the dkv
 // kernel (no dS buffer, no dQ product, no staging; dK and dV bitwise the
 // same). SEG: the segment variant of either. DENSE: every q tile, no table.
-// D: head_dim, 64 or 128, or 160 and 256 compact and unsegmented (HALF
-// below).
+// D: head_dim, 64 or 128, or 160 and 256 compact, with and without SEG
+// (HALF below).
 template <int D, bool DQ, bool SEG, bool DENSE>
 __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps& maps) {
-  static_assert(D == 64 || D == 128 || ((D == 160 || D == 256) && !SEG && !DENSE),
-                "the KV-stationary kernels take head_dim 64 or 128, and 160 and 256 compact "
-                "and unsegmented");
+  static_assert(D == 64 || D == 128 || ((D == 160 || D == 256) && !DENSE),
+                "the KV-stationary kernels take head_dim 64 or 128, and 160 and 256 compact");
   using L = KvSmem<D, DQ>;
   constexpr int S = L::STAGES;
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are skipped before their fetch
@@ -615,6 +630,7 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
   float* sLse = reinterpret_cast<float*>(sm + L::LSE);  // lse * log2(e), +inf past Sq
   float* sDelta = reinterpret_cast<float*>(sm + L::DELTA);
   int* sQid = reinterpret_cast<int*>(sm + L::QID);
+  int* sKvid = reinterpret_cast<int*>(sm + L::KVID);  // SEG: the ids of the CTA's kv rows
   // Per stage: (q head of the group, q tile, step flags); a negative head ends
   // the walk. The producer walks and classifies; the consumers read this.
   int4* sStep = reinterpret_cast<int4*>(sm + L::STEP);
@@ -662,6 +678,12 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
       }
       walk.ia = walk.a0;
       walk.ib = walk.b0;
+      if (SEG) {  // the CTA's kv ids, published by lane 0's arrival on kv_bar
+        const int* kvid_g = p.kv_seg + b * p.kv_seg_sb;
+        for (int r = lane; r < L::ROWS; r += 32)
+          sKvid[r] = k0 + r < p.Skv ? kvid_g[k0 + r] : kKvPadSegment;
+        __syncwarp();
+      }
       if (lane == 0) {
         asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                          smem_u32(kv_bar)),
@@ -787,12 +809,6 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
     const int kw0 = k0 + (HALF ? 0 : w * kBlockN);
     const uint32_t rows_at = HALF ? 0 : w * 8192;  // its kv rows inside a box of K or V
     const int kv_a = kw0 + wq * 16 + g8, kv_b = kv_a + 8;  // this thread's two kv rows
-    int kvid[2] = {0, 0};
-    if (SEG) {
-      const int* kvid_g = p.kv_seg + b * p.kv_seg_sb;
-      kvid[0] = kv_a < p.Skv ? kvid_g[kv_a] : kKvPadSegment;
-      kvid[1] = kv_b < p.Skv ? kvid_g[kv_b] : kKvPadSegment;
-    }
     const uint32_t sK = smem_u32(sm + L::K), sV = smem_u32(sm + L::V);
     const uint32_t sQ = smem_u32(sm + L::Q), sdO = smem_u32(sm + L::DO);
     const uint32_t sdS = smem_u32(sm + L::DS);
@@ -849,7 +865,10 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         // P^T = exp2(S^T log2(e) - lse log2(e)); element i of n-block tt is
         // kv row kv_a (i < 2) or kv_b, q column q0 + 8 tt + 2 t4 + (i & 1).
         // A hidden element scores kHidden: P^T is exp(mask - lse), 1 on a row
-        // that sees no key.
+        // that sees no key. The kv ids are read from shared memory here, at
+        // row kv & (ROWS - 1) of the CTA's (k0 is a multiple of ROWS), so no
+        // id and no address of them stays live through the step: with either,
+        // ptxas serialised the fused SEG kernel's wgmma at 160.
         const float* cl = sLse + stage * BM;
         const float* cd = sDelta + stage * BM;
         const int* cq = sQid + stage * BM;
@@ -862,7 +881,7 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
             float x = s[4 * tt + i];
             if (masked) {
               bool v = visible(p, q0 + cc + (i & 1) + p.q_offset, i < 2 ? kv_a : kv_b);
-              if (SEG) v = v && cq[cc + (i & 1)] == kvid[i >> 1];
+              if (SEG) v = v && cq[cc + (i & 1)] == sKvid[(i < 2 ? kv_a : kv_b) & (L::ROWS - 1)];
               if (!v) x = kHidden;
             }
             s[4 * tt + i] = exp2f(fmaf(x, kLog2e, -((i & 1) ? l2.y : l2.x)));
@@ -1054,9 +1073,8 @@ struct DqSmem {
 template <int D, bool SEG, bool DENSE>
 __global__ void __launch_bounds__(kKvThreads, 1)
     fa2_bwd_dq_kernel(const BwdParams p, const __grid_constant__ BwdMaps maps) {
-  static_assert(D == 64 || D == 128 || ((D == 160 || D == 256) && !SEG && !DENSE),
-                "the dq kernel takes head_dim 64 or 128, and 160 and 256 compact and "
-                "unsegmented");
+  static_assert(D == 64 || D == 128 || ((D == 160 || D == 256) && !DENSE),
+                "the dq kernel takes head_dim 64 or 128, and 160 and 256 compact");
   using L = DqSmem<D>;
   constexpr int kDqStages = L::STAGES;
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are dropped before their fetch
@@ -1462,9 +1480,10 @@ cudaError_t launch_kv(const BwdParams& p, int batch, int t_kv, void* stream) {
 template <int D, bool DQ>
 cudaError_t dispatch_kv(const BwdParams& p, int batch, int t_kv, bool seg, bool dense,
                         void* stream) {
-  if constexpr (D == 160 || D == 256) {  // compact and unsegmented only (ROADMAP.md queue 2, item 2)
-    if (seg || dense) return cudaErrorInvalidValue;
-    return launch_kv<D, DQ, false, false>(p, batch, t_kv, stream);
+  if constexpr (D == 160 || D == 256) {  // compact only (ROADMAP.md queue 2, item 2)
+    if (dense) return cudaErrorInvalidValue;
+    return seg ? launch_kv<D, DQ, true, false>(p, batch, t_kv, stream)
+               : launch_kv<D, DQ, false, false>(p, batch, t_kv, stream);
   } else {
     if (dense)
       return seg ? launch_kv<D, DQ, true, true>(p, batch, t_kv, stream)
@@ -1503,9 +1522,10 @@ cudaError_t launch_dq(const BwdParams& p, int batch, void* stream) {
 
 template <int D>
 cudaError_t dispatch_dq(const BwdParams& p, int batch, bool seg, bool dense, void* stream) {
-  if constexpr (D == 160 || D == 256) {  // compact and unsegmented only (ROADMAP.md queue 2, item 2)
-    if (seg || dense) return cudaErrorInvalidValue;
-    return launch_dq<D, false, false>(p, batch, stream);
+  if constexpr (D == 160 || D == 256) {  // compact only (ROADMAP.md queue 2, item 2)
+    if (dense) return cudaErrorInvalidValue;
+    return seg ? launch_dq<D, true, false>(p, batch, stream)
+               : launch_dq<D, false, false>(p, batch, stream);
   } else {
     if (dense)
       return seg ? launch_dq<D, true, true>(p, batch, stream)
@@ -1516,7 +1536,7 @@ cudaError_t dispatch_dq(const BwdParams& p, int batch, bool seg, bool dense, voi
 }
 
 // The head dims and tiles the backward kernels are instantiated for (160 and
-// 256: the compact, unsegmented kernels only).
+// 256: the compact kernels only, without and with segments).
 bool kernel_shape_ok(int head_dim, int block_q, int block_kv) {
   return (head_dim == 64 || head_dim == 128 || head_dim == 160 || head_dim == 256) &&
          block_q == kBlockM && block_kv == kBlockN;
@@ -1561,7 +1581,7 @@ extern "C" int fa2_bwd_delta_bf16(const void* o, const void* dout, void* delta, 
 // (head_dim 128: qwen3; 64: whisper and the gpt presets; 64 x 64 tiles),
 // without and with segments (null q ids: none), on the compact schedule
 // (table, step bits) or the dense one (dense != 0: neither); at head_dims 160
-// (stablelm) and 256 (gemma3) only compact and unsegmented.
+// (stablelm) and 256 (gemma3) only compact, without and with segments.
 
 extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dq, void* dk,

@@ -45,7 +45,10 @@ the kernel's orientation (kv-major for fused and dK/dV, q-major for dQ).
 Inactive steps are skipped; a kv tile with no active step gets zero dK and
 dV, a q tile with none zero dQ. The delta pre-pass is row-wise and serves
 both. Each is the same kernel source instantiated with ``SEG``, so the
-split dK/dV stay bitwise the fused kernel's with segments too.
+split dK/dV stay bitwise the fused kernel's with segments too; the segment
+kernels are built at every head dim of ``KERNEL_HEAD_DIMS`` (160 and 256
+since packed training of stablelm-12b and gemma3-1b), the dense ones at 64
+and 128 (``SEGMENT_HEAD_DIMS``, ``DENSE_HEAD_DIMS``).
 
 Every wrapper takes ``schedule="compact" | "dense"``. The dense one
 replaces the dense bodies of the same three JAX kernels
@@ -76,17 +79,20 @@ import torch.nn.functional as F
 from repro_torch.core.masks import MaskSpec, apply_mask, make_tile_mask
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_fwd import (_check_kernel_inputs, _check_layout, _tiles, _Walk,
-                                           check_segments, count_launch, segment_args)
+                                           check_mode_head_dim, check_segments, count_launch,
+                                           segment_args)
 from repro_torch.kernels.schedule import check_schedule, device_schedule
 
 # Head dims the backward kernels are instantiated for: 128 (qwen3) and 64
 # (whisper-base, the gpt presets) in every mode; 160 (stablelm-12b) and 256
-# (gemma3-1b) compact and unsegmented only (their segment and dense modes
-# are ROADMAP.md queue 2, item 2). Each wrapper also counts its head_dim-64,
-# 160 and 256 launches apart (``hd64_launches``, ``hd160_launches``,
-# ``hd256_launches``: subsets of its other counts).
+# (gemma3-1b) on the compact schedule, without and with segments (their
+# dense mode is ROADMAP.md queue 2, item 2). Each wrapper also counts its
+# head_dim-64, 160 and 256 launches apart (``hd64_launches``,
+# ``hd160_launches``, ``hd256_launches``: subsets of its other counts).
 KERNEL_HEAD_DIMS = (64, 128, 160, 256)
-ALL_MODES_HEAD_DIMS = (64, 128)
+SEGMENT_HEAD_DIMS = (64, 128, 160, 256)
+DENSE_HEAD_DIMS = (64, 128)
+MODE_HEAD_DIMS = {"segment": SEGMENT_HEAD_DIMS, "dense": DENSE_HEAD_DIMS}
 
 
 def _count(wrapper, schedule: str, head_dim: int) -> None:
@@ -341,11 +347,9 @@ def _kernel_args(what, q, k, v, do, lse, delta, spec, block_q, block_kv, segment
     (arguments, tensors to hold until the launch)."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
-    modes = [m for m, on in (("segment", segments is not None),
-                             ("dense", schedule == "dense")) if on]
-    if modes and D not in ALL_MODES_HEAD_DIMS:
-        raise ValueError(f"{what}'s {' and '.join(modes)} mode takes head_dim in "
-                         f"{ALL_MODES_HEAD_DIMS}, got {D} (ROADMAP.md queue 2, item 2)")
+    check_mode_head_dim(what, D, [m for m, on in (("segment", segments is not None),
+                                                  ("dense", schedule == "dense")) if on],
+                        MODE_HEAD_DIMS)
     _check_kernel_inputs(what, (block_q, block_kv), KERNEL_HEAD_DIMS, q=q, k=k, v=v, do=do)
     if lse.device != q.device or delta.device != q.device:
         raise ValueError("lse and delta must lie on q's device")

@@ -39,9 +39,10 @@ version); the wrapper returns both as a :class:`SplitForward`.
 kernel source instantiated with ``SPLIT``.
 
 The kernels are instantiated at head_dim 64 and 128 in every mode, and at
-160 and 256 in the compact, unsegmented single pass only
-(``KERNEL_HEAD_DIMS``, ``ALL_MODES_HEAD_DIMS``): the other modes refuse 160
-and 256 before the launch.
+160 and 256 in the compact single pass, without and with segments
+(``KERNEL_HEAD_DIMS``, and per mode ``SEGMENT_HEAD_DIMS``,
+``SPLIT_KV_HEAD_DIMS``, ``DENSE_HEAD_DIMS``): the split-KV and dense modes
+refuse 160 and 256 before the launch.
 
 ``schedule="dense"`` on :func:`flash_fwd` and :func:`flash_fwd_varlen`
 replaces the dense body ``_fwd_kernel_dense`` (``flash_fwd.py:206``, with
@@ -77,11 +78,26 @@ from repro_torch.kernels.schedule import (build_kv_tile_schedule, build_q_tile_s
 
 # (block_q, block_kv) and head dims the CUDA kernels are instantiated for:
 # 128 (qwen3) and 64 (whisper) in every mode (segments, split-KV, dense);
-# 160 (stablelm) and 256 (gemma3) in the compact, unsegmented single pass,
-# the serving prefill's (their other modes are ROADMAP.md queue 2, item 2).
+# 160 (stablelm) and 256 (gemma3) in the compact single pass, the serving
+# prefill's, and its segment variant, packed training's (their split-KV and
+# dense modes are ROADMAP.md queue 2, item 2). Each mode has its tuple.
 KERNEL_BLOCKS = ((64, 64),)
 KERNEL_HEAD_DIMS = (64, 128, 160, 256)
-ALL_MODES_HEAD_DIMS = (64, 128)
+SEGMENT_HEAD_DIMS = (64, 128, 160, 256)
+SPLIT_KV_HEAD_DIMS = (64, 128)
+DENSE_HEAD_DIMS = (64, 128)
+MODE_HEAD_DIMS = {"segment": SEGMENT_HEAD_DIMS, "split-KV": SPLIT_KV_HEAD_DIMS,
+                  "dense": DENSE_HEAD_DIMS}
+
+
+def check_mode_head_dim(what: str, D: int, modes, dims=MODE_HEAD_DIMS) -> None:
+    """Raise unless every mode of ``modes`` (keys of ``dims``: "segment",
+    "split-KV", "dense") has a kernel at head_dim ``D`` by its own tuple in
+    ``dims``, naming the refused ones."""
+    refused = [m for m in modes if D not in dims[m]]
+    if refused:
+        raise ValueError(f"{what}'s {' and '.join(refused)} mode takes head_dim in "
+                         f"{dims[refused[0]]}, got {D} (ROADMAP.md queue 2, item 2)")
 
 
 def _tiles(n: int, block: int) -> int:
@@ -137,11 +153,17 @@ def flash_fwd_varlen(q, k, v, spec: MaskSpec, q_seg, kv_seg, *, block_q: int, bl
                                q_seg=q_seg, kv_seg=kv_seg, schedule=schedule)
     out = _launch(q, k, v, spec, block_q, block_kv, (q_seg, kv_seg), schedule=schedule)
     count_launch(flash_fwd_varlen, schedule)
+    if q.shape[3] == 160:
+        flash_fwd_varlen.hd160_launches += 1
+    elif q.shape[3] == 256:
+        flash_fwd_varlen.hd256_launches += 1
     return out
 
 
 flash_fwd_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_fwd_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
+flash_fwd_varlen.hd160_launches = 0  # of the compact launches, those at head_dim 160
+flash_fwd_varlen.hd256_launches = 0  # and at head_dim 256
 
 
 def split_count(Skv: int, block_kv: int, kv_splits: int) -> int:
@@ -206,9 +228,7 @@ def _launch(q, k, v, spec, block_q, block_kv, segments, kv_splits=None, schedule
     dense = schedule == "dense"
     modes = [m for m, on in (("segment", segments is not None), ("split-KV", split),
                              ("dense", dense)) if on]
-    if modes and D not in ALL_MODES_HEAD_DIMS:
-        raise ValueError(f"the CUDA forward's {' and '.join(modes)} mode takes head_dim in "
-                         f"{ALL_MODES_HEAD_DIMS}, got {D} (ROADMAP.md queue 2, item 2)")
+    check_mode_head_dim("the CUDA forward", D, modes)
     _check_kernel_inputs("the CUDA forward", (block_q, block_kv), q=q, k=k, v=v)
     t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
     if split and dense:

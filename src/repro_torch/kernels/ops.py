@@ -93,7 +93,7 @@ def resolve_kv_splits(kv_splits, q_shape, k_shape, block_q=None, block_kv=None,
 
     None also resolves to 1 at a head dim that has a forward kernel but no
     split-KV one (in ``flash_fwd.KERNEL_HEAD_DIMS``, not in
-    ``ALL_MODES_HEAD_DIMS``: 160 and 256), so the auto policy never picks a
+    ``SPLIT_KV_HEAD_DIMS``: 160 and 256), so the auto policy never picks a
     mode the card refuses; the rule holds on the CPU too, so that both
     compute the same call. An explicit count above 1 there still reaches
     the split-KV wrapper, which refuses it on the card (ROADMAP.md queue 2,
@@ -109,7 +109,7 @@ def resolve_kv_splits(kv_splits, q_shape, k_shape, block_q=None, block_kv=None,
     t_kv = -(-k_shape[1] // (block_kv or BLOCK_KV))
     if kv_splits is not None:
         ks = kv_splits
-    elif D in _fwd.KERNEL_HEAD_DIMS and D not in _fwd.ALL_MODES_HEAD_DIMS:
+    elif D in _fwd.KERNEL_HEAD_DIMS and D not in _fwd.SPLIT_KV_HEAD_DIMS:
         ks = 1  # no split-KV kernel at this head dim
     else:
         ks = default_kv_splits(B * Hq, t_q, t_kv)

@@ -24,10 +24,10 @@ depth through the head_dim-256 forward, delta and fused backward kernels
 (``attn_bwd="split"``: delta, dK/dV and dQ), and stablelm-12b (head_dim
 160) through the head_dim-160 ones on a card that holds its 40 layers with
 AdamW's state (about 194 GB; there is no depth flag, as in the JAX CLI:
-``chip_smoke.py`` trains 8 of its layers through ``train``). A model the
-kernels cannot take (float32, or ``--packed`` at head_dim 160 or 256) is
-refused before anything reaches the card
-(``core.attention.check_card_support``).
+``chip_smoke.py`` trains 8 of its layers through ``train``); both train
+``--packed`` too, through the segment variants of those kernels. A model
+the kernels cannot take (float32) is refused before anything reaches the
+card (``core.attention.check_card_support``).
 """
 
 from __future__ import annotations

@@ -42,11 +42,10 @@ def check_supported(cfg) -> None:
     """Raise for what this decoder-only LM cannot build. Every dense arch of
     the registry (qwen3, deepseek-coder, stablelm, gemma3) passes here, and
     runs on the plain CPU path. On the card the CUDA kernels serve head_dim
-    64, 128, 160 and 256 (the paged decode 128, 160 and 256) and train 64,
-    128 and 256: gemma3-1b (256) serves and trains there through
-    ``flash_cuda``, stablelm-12b (160) serves, and trains only through
-    ``impl="ref"``; the entry points refuse what the kernels lack up front
-    (``core.attention.check_card_support``).
+    64, 128, 160 and 256 (the paged decode 128, 160 and 256) and train all
+    four, on packed batches too: gemma3-1b (256) and stablelm-12b (160)
+    serve and train there through ``flash_cuda``; the entry points refuse
+    what the kernels lack up front (``core.attention.check_card_support``).
     The encoder-decoder family is :class:`repro_torch.models.whisper.Whisper`."""
     if cfg.family == "encdec":
         raise NotImplementedError(

@@ -2,8 +2,8 @@
 train CLI's ``--dtype``.
 
 The CUDA kernels take bfloat16 at head_dim 64 and 128, and serve (forward,
-decode, paged decode) and train (unpacked) at 160 and 256; the paged
-decode has no 64.
+decode, paged decode) and train (unpacked and packed) at 160 and 256; the
+paged decode has no 64.
 ``core.attention.check_card_support`` refuses ``flash_cuda`` on a CUDA
 device for anything else, and the train and serve CLIs call it before they
 build a model: on this machine, which has no card, the CLIs must therefore
@@ -13,6 +13,7 @@ a kernel wrapper; what the kernels take gets past the check and stops at
 the missing card. The check takes a device name, so it runs here as it
 would on a card."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -49,11 +50,11 @@ def test_float32_is_refused_on_the_card_with_the_way_out():
     check_card_support(cfg, REF, "cuda", training=True)
 
 
-# stablelm-12b's 160: the backward kernels are built there (compact and
-# unsegmented), so unpacked training passes through either backward mode;
-# the segment kernels are not, so packed training is what the kernels lack
-# at 160 and is refused, naming them (the forward and both decodes serve it:
-# test_stablelm_at_head_dim_160_serves_on_the_card).
+# stablelm-12b's 160: the backward kernels are built there, and their
+# segment variants with the forward's, so unpacked and packed training pass
+# through either backward mode; what the kernels lack at 160 is another
+# dtype than bfloat16, refused with the way out (the forward and both
+# decodes serve it: test_stablelm_at_head_dim_160_serves_on_the_card).
 @pytest.mark.parametrize("arch,head_dim,bwd,packed", [
     ("stablelm-12b", 160, "fused", False),
     ("stablelm-12b", 160, "split", False),
@@ -64,12 +65,10 @@ def test_head_dims_the_kernels_lack_are_refused_on_the_card(arch, head_dim, bwd,
     cfg = registry.get(arch)
     assert cfg.head_dim == head_dim and cfg.dtype == "bfloat16"
     flash = AttentionConfig(impl="flash_cuda", bwd=bwd)
-    if packed:
-        with pytest.raises(ValueError, match=f"head_dim {head_dim}; the CUDA segment \\(packed\\)"
-                                             ".*queue 2, item 2.*--attn ref"):
-            check_card_support(cfg, flash, "cuda", training=True, packed=packed)
-    else:
-        check_card_support(cfg, flash, "cuda", training=True, packed=packed)
+    check_card_support(cfg, flash, "cuda", training=True, packed=packed)
+    with pytest.raises(ValueError, match="float32, and the CUDA kernels take bfloat16.*--attn ref"):
+        check_card_support(dataclasses.replace(cfg, dtype="float32"), flash, "cuda",
+                           training=True, packed=packed)
     check_card_support(cfg, flash, "cpu", training=True, packed=packed)
     check_card_support(cfg, REF, "cuda", training=True, packed=packed)
 
@@ -103,15 +102,33 @@ def test_gemma3_at_head_dim_256_trains_on_the_card(bwd):
 
 
 def test_packed_gemma3_training_is_refused_on_the_card():
-    """The segment kernels have no head_dim 256: packed training is refused
-    up front, not inside the forward wrapper after the model is built."""
+    """Packed gemma3-1b training is refused on the card only where the
+    kernels lack its dtype (float32), up front, not inside a kernel wrapper
+    after the model is built; in bfloat16 the segment kernels at head_dim
+    256 take it, and the train CLI with ``--packed`` passes the check and
+    stops only at the missing card."""
     cfg = registry.get("gemma3-1b")
-    with pytest.raises(ValueError, match="head_dim 256.*segment.*queue 2, item 2"):
-        check_card_support(cfg, FLASH, "cuda", training=True, packed=True)
-    check_card_support(cfg, FLASH, "cpu", training=True, packed=True)
-    check_card_support(cfg, REF, "cuda", training=True, packed=True)
-    with pytest.raises(ValueError, match="head_dim 256.*segment"):
-        train_cli.main(["--arch", "gemma3-1b", "--packed", "--steps", "1"])
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    with pytest.raises(ValueError, match="float32.*--dtype bfloat16"):
+        check_card_support(f32, FLASH, "cuda", training=True, packed=True)
+    check_card_support(f32, FLASH, "cpu", training=True, packed=True)
+    check_card_support(f32, REF, "cuda", training=True, packed=True)
+    check_card_support(cfg, FLASH, "cuda", training=True, packed=True)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_cli.main(["--arch", "gemma3-1b", "--packed", "--steps", "1"])
+
+
+@pytest.mark.parametrize("bwd", ["fused", "split"])
+@pytest.mark.parametrize("arch,head_dim", [("gemma3-1b", 256), ("stablelm-12b", 160)])
+def test_packed_training_is_admitted_on_the_card(arch, head_dim, bwd):
+    """The segment variants of the forward and of both backward modes are
+    built at 256 and 160: packed training of gemma3-1b and stablelm-12b in
+    bfloat16 passes the check on the card."""
+    cfg = registry.get(arch)
+    assert cfg.head_dim == head_dim and cfg.dtype == "bfloat16"
+    check_card_support(cfg, AttentionConfig(impl="flash_cuda", bwd=bwd), "cuda",
+                       training=True, packed=True)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "whisper-base"])

@@ -210,17 +210,21 @@ def test_gemma3_three_train_steps_at_head_dim_256_match_jax(gemma3, jax_trace_st
 
 
 def test_segment_and_dense_modes_refuse_head_dim_256_before_the_launch():
-    """At 256 the backward wrappers take only the compact, unsegmented
-    kernels; on a CUDA device the other modes raise before anything is
-    launched (the check needs no card: it reads only shapes and the mode)."""
+    """At 256 the backward wrappers take the compact kernels, without and
+    with segments; on a CUDA device the dense mode (alone or with segments)
+    raises before anything is launched, naming it (the check needs no card:
+    it reads only shapes and the mode), and the segment mode passes it."""
     q = torch.empty((1, 64, 4, D), dtype=torch.bfloat16, device="meta")
     k = torch.empty((1, 64, 1, D), dtype=torch.bfloat16, device="meta")
     lse = torch.empty((1, 4, 64), dtype=torch.float32, device="meta")
     ids = torch.empty((1, 64), dtype=torch.int32, device="meta")
     spec = MaskSpec(causal=True)
-    for what, segments, schedule in (("segment", (ids, ids), "compact"),
-                                     ("dense", None, "dense")):
-        with pytest.raises(ValueError, match=f"{what} mode takes head_dim in .*queue 2, item 2"):
-            bwd_mod._kernel_args("the CUDA dK/dV kernel", q, k, k, q, lse, lse, spec, 64, 64,
-                                 segments, q_major=False, schedule=schedule)
-    assert 256 in bwd_mod.KERNEL_HEAD_DIMS and 256 not in bwd_mod.ALL_MODES_HEAD_DIMS
+    for segments in (None, (ids, ids)):
+        for q_major, kernel in ((False, "the CUDA dK/dV kernel"), (True, "the CUDA dQ kernel")):
+            with pytest.raises(ValueError, match=f"{kernel}'s dense mode takes head_dim in "
+                                                 f"\\(64, 128\\), got {D} .*queue 2, item 2"):
+                bwd_mod._kernel_args(kernel, q, k, k, q, lse, lse, spec, 64, 64, segments,
+                                     q_major=q_major, schedule="dense")
+    bwd_mod.check_mode_head_dim("the CUDA dK/dV kernel", D, ["segment"], bwd_mod.MODE_HEAD_DIMS)
+    assert D in bwd_mod.SEGMENT_HEAD_DIMS and D not in bwd_mod.DENSE_HEAD_DIMS
+    assert D in fwd_mod.SEGMENT_HEAD_DIMS and D not in fwd_mod.SPLIT_KV_HEAD_DIMS

@@ -162,18 +162,21 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     qb = q.to(torch.bfloat16)
     with pytest.raises(ValueError, match="block_q"):
         fwd_mod.flash_fwd(qb, qb, qb, MaskSpec(causal=True), block_q=32, block_kv=64)
-    # At head_dim 160 and 256 only the compact, unsegmented single pass is built.
+    # At head_dim 160 and 256 only the compact single pass is built (with and
+    # without segments): split-KV and dense, also with segments, refuse.
     ids = torch.zeros((1, 256), dtype=torch.int32, device=cuda)
     spec = MaskSpec(causal=True)
     for D in (160, 256):
         qd = torch.zeros((1, 256, 4, D), dtype=torch.bfloat16, device=cuda)
         for mode, call in (
-                ("segment", lambda: fwd_mod.flash_fwd_varlen(qd, qd, qd, spec, ids, ids,
-                                                             block_q=64, block_kv=64)),
                 ("split-KV", lambda: fwd_mod.flash_fwd_splitkv(qd, qd, qd, spec, block_q=64,
                                                                block_kv=64, kv_splits=2)),
+                ("split-KV", lambda: fwd_mod.flash_fwd_splitkv_varlen(
+                    qd, qd, qd, spec, ids, ids, block_q=64, block_kv=64, kv_splits=2)),
                 ("dense", lambda: fwd_mod.flash_fwd(qd, qd, qd, spec, block_q=64,
-                                                    block_kv=64, schedule="dense"))):
+                                                    block_kv=64, schedule="dense")),
+                ("dense", lambda: fwd_mod.flash_fwd_varlen(qd, qd, qd, spec, ids, ids, block_q=64,
+                                                           block_kv=64, schedule="dense"))):
             with pytest.raises(ValueError, match=f"{mode} mode .* got {D} .* queue 2, item 2"):
                 call()
 
@@ -378,7 +381,7 @@ def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec,
     through the SEG kernels, all-ones ids' (the same walk, products and
     order); dq bitwise the same from a second launch (no atomics), the
     dense schedule's and all-ones ids'; zeros where a row sees no key. At
-    head_dims 160 and 256 there are no dense or SEG kernels to compare with."""
+    head_dims 160 and 256 there are no dense kernels to compare with."""
     _check_split(cuda, B, S, S, Hq, Hkv, spec, view, D)
 
 
@@ -415,17 +418,17 @@ def _check_split(cuda, B, S, Skv, Hq, Hkv, spec, view, D):
     torch.cuda.synchronize()
     assert _counts(bwd_mod.flash_bwd_dkv) == _after_one(before[0], D)
     assert _counts(bwd_mod.flash_bwd_dq) == _after_one(_after_one(before[1], D), D)
-    same_dkv, same_dq = [(dk_f, dv_f)], [dq2]
-    if D in bwd_mod.ALL_MODES_HEAD_DIMS:  # the dense and SEG kernels
-        ones = torch.ones((B, S), dtype=torch.int32, device=cuda)
-        kv_ones = torch.ones((B, Skv), dtype=torch.int32, device=cuda)
+    # The SEG kernels on all-ones ids (every head dim), and the dense ones.
+    ones = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    kv_ones = torch.ones((B, Skv), dtype=torch.int32, device=cuda)
+    same_dkv = [(dk_f, dv_f), bwd_mod.flash_bwd_fused_varlen(*args, ones, kv_ones, **tiles)[1:],
+                bwd_mod.flash_bwd_dkv_varlen(*args, ones, kv_ones, **tiles)]
+    same_dq = [dq2, bwd_mod.flash_bwd_dq_varlen(*args, ones, kv_ones, **tiles)]
+    if D in bwd_mod.DENSE_HEAD_DIMS:
         same_dkv += [bwd_mod.flash_bwd_fused(*args, schedule="dense", **tiles)[1:],
-                     bwd_mod.flash_bwd_dkv(*args, schedule="dense", **tiles),
-                     bwd_mod.flash_bwd_fused_varlen(*args, ones, kv_ones, **tiles)[1:],
-                     bwd_mod.flash_bwd_dkv_varlen(*args, ones, kv_ones, **tiles)]
-        same_dq += [bwd_mod.flash_bwd_dq(*args, schedule="dense", **tiles),
-                    bwd_mod.flash_bwd_dq_varlen(*args, ones, kv_ones, **tiles)]
-        torch.cuda.synchronize()
+                     bwd_mod.flash_bwd_dkv(*args, schedule="dense", **tiles)]
+        same_dq += [bwd_mod.flash_bwd_dq(*args, schedule="dense", **tiles)]
+    torch.cuda.synchronize()
     dk_p, dv_p = bwd_mod.flash_bwd_dkv_plain(*args, **tiles)
     dq_p = bwd_mod.flash_bwd_dq_plain(*args, **tiles)
     for name, a, b in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
@@ -440,8 +443,9 @@ def _check_split(cuda, B, S, Skv, Hq, Hkv, spec, view, D):
 
 @pytest.mark.gpu
 def test_backward_kernels_refuse_segment_and_dense_modes_at_head_dim_256(cuda):
-    """At head_dim 256 only the compact, unsegmented backward kernels are
-    built: the other modes raise before any launch, naming the roadmap."""
+    """At head_dim 256 the compact backward kernels are built, without and
+    with segments: the dense mode, also with segments, raises before any
+    launch, naming the roadmap; the segment mode launches."""
     _check_refused_modes(cuda, 256)
 
 
@@ -456,32 +460,37 @@ def _check_refused_modes(cuda, D):
     args = (*_bwd_inputs(cuda, 1, 256, 4, 1, spec, D=D), spec)
     ids = torch.ones((1, 256), dtype=torch.int32, device=cuda)
     tiles = dict(block_q=64, block_kv=64)
-    calls = {
-        "segment": (lambda: bwd_mod.flash_bwd_fused_varlen(*args, ids, ids, **tiles),
-                    lambda: bwd_mod.flash_bwd_dkv_varlen(*args, ids, ids, **tiles),
-                    lambda: bwd_mod.flash_bwd_dq_varlen(*args, ids, ids, **tiles)),
-        "dense": (lambda: bwd_mod.flash_bwd_fused(*args, schedule="dense", **tiles),
-                  lambda: bwd_mod.flash_bwd_dkv(*args, schedule="dense", **tiles),
-                  lambda: bwd_mod.flash_bwd_dq(*args, schedule="dense", **tiles)),
-    }
+    dense = dict(schedule="dense", **tiles)
+    calls = (lambda: bwd_mod.flash_bwd_fused(*args, **dense),
+             lambda: bwd_mod.flash_bwd_dkv(*args, **dense),
+             lambda: bwd_mod.flash_bwd_dq(*args, **dense),
+             lambda: bwd_mod.flash_bwd_fused_varlen(*args, ids, ids, **dense),
+             lambda: bwd_mod.flash_bwd_dkv_varlen(*args, ids, ids, **dense),
+             lambda: bwd_mod.flash_bwd_dq_varlen(*args, ids, ids, **dense))
     wrappers = (bwd_mod.flash_bwd_fused, bwd_mod.flash_bwd_dkv, bwd_mod.flash_bwd_dq,
                 bwd_mod.flash_bwd_fused_varlen, bwd_mod.flash_bwd_dkv_varlen,
                 bwd_mod.flash_bwd_dq_varlen)
     before = [(f.launches, f.dense_launches) for f in wrappers]
-    for mode, fns in calls.items():
-        for fn in fns:
-            with pytest.raises(ValueError, match=f"{mode} mode takes head_dim in .*queue 2, item 2"):
-                fn()
+    for fn in calls:
+        with pytest.raises(ValueError, match="dense mode takes head_dim in .*queue 2, item 2"):
+            fn()
     assert [(f.launches, f.dense_launches) for f in wrappers] == before
+    bwd_mod.flash_bwd_fused_varlen(*args, ids, ids, **tiles)
+    bwd_mod.flash_bwd_dkv_varlen(*args, ids, ids, **tiles)
+    bwd_mod.flash_bwd_dq_varlen(*args, ids, ids, **tiles)
+    torch.cuda.synchronize()
+    assert [(f.launches, f.dense_launches) for f in wrappers[3:]] == [
+        (n + 1, d) for n, d in before[3:]]
 
 
 def _zeroed(counters, plains):
-    """Zero the wrappers' launch counts (the backward's head_dim-64, 160 and
-    256 ones too) and the plain versions' call counts."""
+    """Zero the wrappers' launch counts (their head_dim-64, 160 and 256 ones
+    too, where they keep them) and the plain versions' call counts."""
     for f in counters:
         f.launches = 0
-        if hasattr(f, "hd64_launches"):
-            f.hd64_launches = f.hd160_launches = f.hd256_launches = 0
+        for attr in ("hd64_launches", "hd160_launches", "hd256_launches"):
+            if hasattr(f, attr):
+                setattr(f, attr, 0)
     for f in plains:
         f.calls = 0
 
@@ -584,6 +593,19 @@ def test_gemma3_training_step_runs_through_the_head_dim_256_kernels(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch,layers,D", [("gemma3-1b", 6, 256), ("stablelm-12b", 2, 160)])
+def test_packed_training_step_at_head_dims_256_and_160_runs_through_the_varlen_kernels(
+        cuda, arch, layers, D):
+    """The gemma3-1b and stablelm-12b steps above on a packed batch of the
+    varlen source: only the segment variants at head_dim 256 or 160 run (no
+    unsegmented kernel, no plain version), against impl="ref" with the
+    segment mask."""
+    cfg = dataclasses.replace(registry.get(arch), num_layers=layers)
+    assert cfg.head_dim == D
+    _training_step_against_ref(cuda, cfg, D, packed=True)
+
+
+@pytest.mark.gpu
 def test_stablelm_training_step_runs_through_the_head_dim_160_kernels(cuda):
     """The same for two layers of full-width stablelm-12b (head_dim 160, 32
     q heads over 8 kv heads, qk-norm, untied), all at head_dim 160."""
@@ -592,21 +614,39 @@ def test_stablelm_training_step_runs_through_the_head_dim_160_kernels(cuda):
     _training_step_against_ref(cuda, cfg, 160)
 
 
-def _training_step_against_ref(cuda, cfg, D):
-    tokens = torch.randint(0, cfg.vocab_size, (2, 1025), generator=torch.Generator().manual_seed(0))
-    batch = {"inputs": tokens[:, :-1].to(cuda), "targets": tokens[:, 1:].to(cuda)}
+VARLEN_COUNTERS = (fwd_mod.flash_fwd_varlen, bwd_mod.flash_bwd_delta,
+                   bwd_mod.flash_bwd_fused_varlen, bwd_mod.flash_bwd_dkv_varlen,
+                   bwd_mod.flash_bwd_dq_varlen)
+
+
+def _training_step_against_ref(cuda, cfg, D, packed=False):
+    if packed:
+        from repro_torch.data.pipeline import DataConfig, SyntheticVarlenLM
+
+        data = SyntheticVarlenLM(DataConfig(2, 1024, cfg.vocab_size, seed=0, source="packed"))
+        batch = {k: torch.from_numpy(x).to(cuda) for k, x in data.batch(0).items()}
+    else:
+        tokens = torch.randint(0, cfg.vocab_size, (2, 1025),
+                               generator=torch.Generator().manual_seed(0))
+        batch = {"inputs": tokens[:, :-1].to(cuda), "targets": tokens[:, 1:].to(cuda)}
+    counters = VARLEN_COUNTERS if packed else BWD_COUNTERS
+    # Every counter of the other kind but delta's (both kinds share it).
+    others = (BWD_COUNTERS if packed else VARLEN_COUNTERS)[:1] + \
+        (BWD_COUNTERS if packed else VARLEN_COUNTERS)[2:]
     out = {}
     for run in ("ref", "fused", "split"):
         model = init_lm(cfg, seed=0, device=cuda)
         state = init_opt_state(dict(model.named_parameters()))
         attn = AttentionConfig(impl="ref") if run == "ref" else AttentionConfig(bwd=run)
-        _zeroed(BWD_COUNTERS, BWD_PLAINS)
+        _zeroed(counters + others, BWD_PLAINS)
         state, out[run] = build_train_step(cfg, attn, AdamWConfig())(model, state, batch)
         torch.cuda.synchronize()
         n = cfg.num_layers
         want = {"ref": [0] * 5, "fused": [2 * n, n, n, 0, 0], "split": [2 * n, n, 0, n, n]}[run]
-        assert [f.launches for f in BWD_COUNTERS] == want
-        assert [getattr(f, f"hd{D}_launches") for f in BWD_COUNTERS[1:]] == want[1:]
+        assert [f.launches for f in counters] == want
+        assert [f.launches for f in others] == [0] * 4
+        wide = counters if packed else counters[1:]
+        assert [getattr(f, f"hd{D}_launches") for f in wide] == want[len(want) - len(wide):]
         assert [f.calls for f in BWD_PLAINS] == [0] * 5
         assert math.isfinite(out[run]["loss"]) and out[run]["skipped"] == 0.0
         del model, state
@@ -902,49 +942,61 @@ def _distinct_ids(B, S, hidden=64):
     return q, kv
 
 
-# (B, S, Hq, Hkv, spec, ids): the training shape with the packed source's
+# (B, S, Hq, Hkv, spec, ids, D): the training shape with the packed source's
 # ids, GQA G in {1, 4} at a ragged length, a window with sinks, non-causal,
 # and distinct q and kv ids ("distinct" hides a whole q tile, "half" half of
-# one).
+# one); at head_dim 256 gemma3-1b's training shape (4 q heads over 1, causal
+# and its 512 window) and at 160 stablelm-12b's (32 over 8), each also
+# ragged, windowed with sinks and with distinct and half-hidden ids.
 VARLEN_CASES = [
-    (2, 2048, 32, 8, dict(causal=True), "packed"),
-    (1, 700, 32, 8, dict(causal=True), "packed"),
-    (1, 700, 8, 8, dict(causal=True), "packed"),
-    (1, 500, 32, 8, dict(causal=True, window=100, sink=4), "packed"),
-    (2, 300, 16, 4, dict(causal=False), "packed"),
-    (2, 700, 32, 8, dict(causal=True), "distinct"),
-    (2, 700, 32, 8, dict(causal=True), "half"),
-    (1, 700, 8, 8, dict(causal=True), "half"),
-    (1, 333, 32, 8, dict(causal=True, window=100, sink=4), "half"),
+    (2, 2048, 32, 8, dict(causal=True), "packed", 128),
+    (1, 700, 32, 8, dict(causal=True), "packed", 128),
+    (1, 700, 8, 8, dict(causal=True), "packed", 128),
+    (1, 500, 32, 8, dict(causal=True, window=100, sink=4), "packed", 128),
+    (2, 300, 16, 4, dict(causal=False), "packed", 128),
+    (2, 700, 32, 8, dict(causal=True), "distinct", 128),
+    (2, 700, 32, 8, dict(causal=True), "half", 128),
+    (1, 700, 8, 8, dict(causal=True), "half", 128),
+    (1, 333, 32, 8, dict(causal=True, window=100, sink=4), "half", 128),
+    (4, 2048, 4, 1, dict(causal=True), "packed", 256),
+    (4, 2048, 4, 1, dict(causal=True, window=512), "packed", 256),
+    (1, 700, 4, 1, dict(causal=True, window=100, sink=4), "packed", 256),
+    (2, 700, 4, 1, dict(causal=True), "distinct", 256),
+    (1, 333, 4, 1, dict(causal=True, window=512), "half", 256),
+    (2, 2048, 32, 8, dict(causal=True), "packed", 160),
+    (1, 700, 32, 8, dict(causal=True, window=100, sink=4), "packed", 160),
+    (2, 700, 32, 8, dict(causal=True), "distinct", 160),
+    (1, 333, 32, 8, dict(causal=True), "half", 160),
 ]
 
 
-def _varlen_inputs(cuda, B, S, Hq, Hkv, spec, ids):
+def _varlen_inputs(cuda, B, S, Hq, Hkv, spec, ids, D=128):
     if ids == "packed":
         q_seg = kv_seg = _packed_ids(B, S).to(cuda)
     else:
         hidden = 64 if ids == "distinct" else 32
         q_seg, kv_seg = (x.to(cuda) for x in _distinct_ids(B, S, hidden))
     gen = torch.Generator(device=cuda).manual_seed(6)
-    q = ops._prep(_randn(gen, (B, S, Hq, 128), cuda), 1 / math.sqrt(128))
-    k, v = _randn(gen, (B, S, Hkv, 128), cuda), _randn(gen, (B, S, Hkv, 128), cuda)
-    do = _randn(gen, (B, S, Hq, 128), cuda)
+    q = ops._prep(_randn(gen, (B, S, Hq, D), cuda), 1 / math.sqrt(D))
+    k, v = _randn(gen, (B, S, Hkv, D), cuda), _randn(gen, (B, S, Hkv, D), cuda)
+    do = _randn(gen, (B, S, Hq, D), cuda)
     return q, k, v, do, q_seg, kv_seg
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,Hq,Hkv,spec,ids", VARLEN_CASES)
-def test_varlen_kernels_match_plain(cuda, B, S, Hq, Hkv, spec, ids):
+@pytest.mark.parametrize("B,S,Hq,Hkv,spec,ids,D", VARLEN_CASES)
+def test_varlen_kernels_match_plain(cuda, B, S, Hq, Hkv, spec, ids, D):
     """The SEG forward, fused, dK/dV and dQ kernels against their plain
     versions; split dK/dV bitwise the fused kernel's, split dQ bitwise over
     two launches; with distinct ids, (0, -inf) and zero gradients where a
     tile sees nothing."""
     spec = MaskSpec(**spec)
-    q, k, v, do, q_seg, kv_seg = _varlen_inputs(cuda, B, S, Hq, Hkv, spec, ids)
+    q, k, v, do, q_seg, kv_seg = _varlen_inputs(cuda, B, S, Hq, Hkv, spec, ids, D)
     tiles = dict(block_q=64, block_kv=64)
     counters = (fwd_mod.flash_fwd_varlen, bwd_mod.flash_bwd_fused_varlen,
                 bwd_mod.flash_bwd_dkv_varlen, bwd_mod.flash_bwd_dq_varlen)
     before = [f.launches for f in counters]
+    wide = [getattr(f, f"hd{D}_launches", 0) for f in counters]
     o, lse = fwd_mod.flash_fwd_varlen(q, k, v, spec, q_seg, kv_seg, **tiles)
     delta = bwd_mod.flash_bwd_delta(o, do)
     args = (q, k, v, do, lse, delta, spec, q_seg, kv_seg)
@@ -954,6 +1006,8 @@ def test_varlen_kernels_match_plain(cuda, B, S, Hq, Hkv, spec, ids):
     dq2 = bwd_mod.flash_bwd_dq_varlen(*args, **tiles)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 2]
+    if D in (160, 256):
+        assert [getattr(f, f"hd{D}_launches") - b for f, b in zip(counters, wide)] == [1, 1, 1, 2]
     plain = dict(q_seg=q_seg, kv_seg=kv_seg, **tiles)
     o_p, lse_p = fwd_mod.flash_fwd_plain(q, k, v, spec, **plain)
     assert _err(o, o_p) < O_TOL
@@ -974,13 +1028,16 @@ def test_varlen_kernels_match_plain(cuda, B, S, Hq, Hkv, spec, ids):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D,Hq,Hkv,window", [(128, 32, 8, None), (256, 4, 1, None),
+                                             (256, 4, 1, 512), (160, 32, 8, None)])
 @pytest.mark.parametrize("S", [700, 2048])
-def test_all_ones_ids_are_bitwise_the_unsegmented_kernels(cuda, S):
+def test_all_ones_ids_are_bitwise_the_unsegmented_kernels(cuda, S, D, Hq, Hkv, window):
     """One segment per row: every SEG kernel gives the unsegmented kernel's
     outputs to the bit (the fused dq excepted: the order of its adds changes
-    from launch to launch, so dq is held through the split dQ kernel)."""
-    spec = MaskSpec(causal=True)
-    q, k, v, do, _, _ = _varlen_inputs(cuda, 2, S, 32, 8, spec, "packed")
+    from launch to launch, so dq is held through the split dQ kernel), at
+    qwen3's, gemma3-1b's (also with its window) and stablelm-12b's widths."""
+    spec = MaskSpec(causal=True, window=window)
+    q, k, v, do, _, _ = _varlen_inputs(cuda, 2, S, Hq, Hkv, spec, "packed", D)
     ones = torch.ones((2, S), dtype=torch.int32, device=cuda)
     tiles = dict(block_q=64, block_kv=64)
     o, lse = fwd_mod.flash_fwd(q, k, v, spec, **tiles)
