@@ -150,6 +150,25 @@ stablelm-12b at its published widths and depth (40 layers, 12.1 B
 parameters in bf16, one card's 80 GB), exact launch counts (fixed: the
 forward 240, the decode 1280; paged: the forward 280, the paged decode
 1280).
+Phase 3 also holds the head_dim-64 kernels at granite-moe-1b-a400m's shapes
+(16 q heads over 8 kv heads, G 2) the same way, with a 512-token window
+added: the forward (B 1, S 1536, S 700, B 2 S 333), the decode and its SEG
+instantiation, and the paged decode's first instantiation at 64 (pages of
+16 and 64, two page orders, stale NaN rows, bitwise the contiguous
+partials at 16; timed in turns with the contiguous kernel). Then the
+granite serving slice, as the gemma3 one: granite-moe-1b-a400m at its
+published widths and depth (24 layers, an MoE layer of 32 experts top 8 in
+each, 1.34 B parameters), exact launch counts at head_dim 64 (fixed: the
+forward 144, the decode 24 a tick; paged: the forward 168, the paged decode
+24 a tick). Its prefill and decode step are held against the dense
+reference with the reference replaying the kernels' run's expert choices
+(a top-8 choice flips where two router logits lie within bf16 rounding of
+the attention outputs, which changes a token's output by a whole expert's
+share); the free reference run's flipped (token, layer) choices and its
+logits' gap are logged beside. Then the MoE checks: one layer on (4, 1,
+1024) and (1, 1536, 1024) under torch.cuda.set_sync_debug_mode("error"),
+and the 24 MoE layers' time at a decode tick's shape against the
+engine's tick.
 Phase 3 also holds the four backward kernels at head_dim 256 (gemma3-1b's
 training: B 4, S 2048, 4 q heads over 1 kv head, causal and window 512;
 the window at S 700, a ragged S, rows that see no key) against their plain
@@ -200,6 +219,7 @@ The last two lines are the kernels' JSON record and the result line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1599,21 +1619,84 @@ def paged_slice_phase(torch, dev, cfg, model):
     return counts
 
 
+def logit_gap(torch, l_ref, l_fl):
+    """(max|diff|, max|l_ref|, the least row cosine, same argmax in every
+    row) of two logits tensors, row by row."""
+    l_ref = l_ref.float().reshape(l_ref.shape[0], -1)
+    l_fl = l_fl.float().reshape(l_fl.shape[0], -1)
+    return ((l_ref - l_fl).abs().max().item(), l_ref.abs().max().item(),
+            torch.nn.functional.cosine_similarity(l_ref, l_fl, dim=1).min().item(),
+            bool((l_ref.argmax(dim=1) == l_fl.argmax(dim=1)).all()))
+
+
 def compare_logits(torch, what, l_ref, l_fl, names=("ref", "flash_cuda")) -> None:
     """Fail unless the second logits match the first (by default flash_cuda
     against the dense reference) row by row: cosine >= LOGIT_COS and
     max|diff| <= LOGIT_REL x max|logit|."""
-    l_ref = l_ref.float().reshape(l_ref.shape[0], -1)
-    l_fl = l_fl.float().reshape(l_fl.shape[0], -1)
-    diff = (l_ref - l_fl).abs().max().item()
-    top = l_ref.abs().max().item()
-    cos = torch.nn.functional.cosine_similarity(l_ref, l_fl, dim=1).min().item()
-    same = bool((l_ref.argmax(dim=1) == l_fl.argmax(dim=1)).all())
+    diff, top, cos, same = logit_gap(torch, l_ref, l_fl)
     log(f"{what}, {names[0]} vs {names[1]} last-position logits: max|diff|={diff:.4f} "
         f"(max|logit|={top:.3f}, limit {LOGIT_REL * top:.4f}), min cosine {cos:.6f} "
         f"(limit {LOGIT_COS}), same argmax {same}")
     if not (torch.isfinite(l_fl).all() and cos >= LOGIT_COS and diff <= LOGIT_REL * top):
         fail(f"{what}: {names[1]} logits disagree with {names[0]}")
+
+
+@contextlib.contextmanager
+def routing(replay=None):
+    """Every MoE layer's top-k choice (``repro_torch.models.moe.top_k``)
+    while the block runs: recorded, in call order, in the list it yields;
+    or, with ``replay`` (such a list), forced to the recorded experts, the
+    gates still the softmax over this run's own logits at them. A model
+    without MoE records nothing."""
+    from repro_torch.models import moe
+
+    calls, top_k = [], moe.top_k
+
+    def record(logits, k):
+        out = top_k(logits, k)
+        calls.append(out[1])
+        return out
+
+    def force(logits, k):
+        experts = replay[len(calls)]
+        calls.append(experts)
+        return logits.gather(-1, experts), experts
+
+    moe.top_k = record if replay is None else force
+    try:
+        yield calls
+    finally:
+        moe.top_k = top_k
+
+
+def reference_run(torch, what, run, l_fl, fl_choices):
+    """``run()``, the logits of an impl="ref" run of what gave ``l_fl``
+    through flash_cuda, and for an MoE model (``fl_choices``: that run's
+    expert choices) how its routing differed. An MoE layer's top-k choice
+    is discrete: where two experts' router logits are within the rounding
+    of bf16 attention outputs apart, the two runs can pick different
+    experts, and the token's output changes by a whole expert's share, a
+    difference of the routing and not of the kernels. So the reference
+    runs twice: free, logging how many (token, layer) choices differ from
+    the kernels' run and its logits' gap to them; then with the kernels'
+    choices replayed, which gives the logits returned (None and no
+    routing record for a model without MoE)."""
+    if not fl_choices:
+        return run(), None
+    with routing() as ref_choices:
+        l_free = run()
+    differ = [int((a.sort(dim=-1)[0] != b.sort(dim=-1)[0]).any(dim=-1).sum())
+              for a, b in zip(ref_choices, fl_choices)]
+    choices = sum(a.shape[0] for a in fl_choices)
+    diff, top, cos, same = logit_gap(torch, l_free, l_fl)
+    log(f"{what}: top-{fl_choices[0].shape[-1]} expert choices of ref vs flash_cuda differ in "
+        f"{sum(differ)} of {choices} (token, layer) pairs (by layer {differ}); with its own "
+        f"choices ref's logits differ by max|diff|={diff:.4f} (max|logit|={top:.3f}), min "
+        f"cosine {cos:.6f}, same argmax {same}; below, ref replays flash_cuda's choices")
+    with routing(replay=fl_choices):
+        l_ref = run()
+    return l_ref, dict(choices_differ=sum(differ), choices=choices, free_max_diff=diff,
+                       free_min_cosine=cos, free_same_argmax=same)
 
 
 def device_busy(torch, prof):
@@ -3048,6 +3131,9 @@ def whisper_train_phase(torch, dev):
 G3_HQ, G3_HKV, G3_D, G3_WINDOW = 4, 1, 256, 512
 # stablelm-12b's: 32 q heads over 8 kv heads of 160, no window.
 SL_HQ, SL_HKV, SL_D = 32, 8, 160
+# granite-moe-1b-a400m's: 16 q heads over 8 kv heads of 64, no window (its
+# kernel phase adds a 512-token window to cover the windowed paths at 64).
+GR_HQ, GR_HKV, GR_D, GR_WINDOW = 16, 8, 64, 512
 # Their vocabularies, which the packed source's document lengths are drawn
 # beside (the SEG kernel phases take the ids packed training gets).
 G3_VOCAB, SL_VOCAB = 262_144, 100_352
@@ -3070,6 +3156,16 @@ def hd160_kernel_phase(torch, dev, flush):
     causal, no window; the forward also at the ragged S 1500 and at B 2, S 333)."""
     return head_dim_kernel_phase(torch, dev, flush, SL_D, SL_HQ, SL_HKV, None, seed=8,
                                  fwd_shapes=((1, 1536), (1, 1500), (2, 333)))
+
+
+def hd64_granite_kernel_phase(torch, dev, flush):
+    """The head_dim-64 kernels at granite-moe-1b-a400m's shapes
+    (``head_dim_kernel_phase``: 16 q heads over 8 kv heads, G 2; causal and
+    a 512-token window; the forward also at S 700 and at B 2, S 333): the
+    paged decode's first instantiation at 64, and the forward and decode at
+    64 at granite's widths (whisper's phase holds them at its own)."""
+    return head_dim_kernel_phase(torch, dev, flush, GR_D, GR_HQ, GR_HKV, GR_WINDOW, seed=9,
+                                 fwd_shapes=((1, 1536), (1, 700), (2, 333)))
 
 
 def head_dim_kernel_phase(torch, dev, flush, D, hq, hkv, window, *, seed, fwd_shapes):
@@ -3328,7 +3424,68 @@ def stablelm_phase(torch, dev):
     return model_serving_phase(torch, dev, "stablelm-12b", "stablelm")
 
 
-def model_serving_phase(torch, dev, arch: str, path: str):
+def granite_phase(torch, dev):
+    """The granite serving slice: granite-moe-1b-a400m at its published
+    widths and depth (24 layers, d_model 1024, 16 q heads over 8 kv heads of
+    64, an MoE layer of 32 experts top 8 with d_expert 512 in every layer,
+    tied embeddings over a 49,155 vocab: 1.34 B parameters),
+    ``model_serving_phase`` with ``moe_checks``."""
+    return model_serving_phase(torch, dev, "granite-moe-1b-a400m", "granite", extra=moe_checks)
+
+
+MOE_TIMED_ROUNDS = 20
+
+
+def moe_checks(torch, dev, model, prompts, summary) -> dict:
+    """The MoE layers of a served model: one layer on a decode tick's (4, 1,
+    d) and a prefill's (1, 1536, d) input under
+    torch.cuda.set_sync_debug_mode("error") (no step may read a value back
+    to the host); the layers' time at the decode tick's shape (B 4), on the
+    host clock around a synchronise and by CUDA events, against the fixed
+    engine's median tick."""
+    from repro_torch.models.moe import MoE
+
+    layers = [m for m in model.modules() if isinstance(m, MoE)]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    d = model.cfg.d_model
+    for shape in ((4, 1, d), (1, 1536, d)):
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, _ = layers[0](x, with_aux=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        log(f"MoE layer on {tuple(shape)} under sync debug mode 'error': no synchronisation, "
+            f"finite output {bool(torch.isfinite(y).all())}")
+        if not torch.isfinite(y).all():
+            fail(f"the MoE layer gave non-finite values on {tuple(shape)}")
+
+    x = torch.randn((4, 1, d), generator=gen, device=dev).to(torch.bfloat16)
+    walls, events = [], []
+    for _ in range(MOE_TIMED_ROUNDS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for m in layers:
+            m(x, with_aux=False)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    walls.sort()
+    events.sort()
+    wall, device = walls[len(walls) // 2], events[len(events) // 2]
+    tick = summary["ticks"]["fixed"]["median_tick_ms"]
+    log(f"{len(layers)} MoE layers at B=4 (one decode tick's): host wall {wall:.3f} ms, device "
+        f"(events) {device:.3f} ms (medians of {MOE_TIMED_ROUNDS}); against the fixed engine's "
+        f"median tick {tick:.2f} ms: {wall / tick:.4f} of the tick")
+    return dict(moe=dict(tick_ms_wall=wall, tick_ms_events=device, tick_share=wall / tick))
+
+
+def model_serving_phase(torch, dev, arch: str, path: str, extra=None):
     """The registry's ``arch`` uncut (bf16, random weights from seed 0)
     serves the six requests of ``serving_prompts`` through ServingEngine (4
     slots of CACHE) and PagedServingEngine (the qwen3 paged phase's pool,
@@ -3338,7 +3495,9 @@ def model_serving_phase(torch, dev, arch: str, path: str):
     reference; the prefill of the 1500-token prompt and a B = 4 decode step
     against impl="ref", the same step through shuffled pages bitwise; the
     decode ticks of both engines (``tick_phase``); then the serve CLI once
-    through each engine. Returns both runs' counts and a summary."""
+    through each engine. ``extra(torch, dev, model, prompts, summary)``, where
+    given, runs after the ticks on the same model and returns entries for
+    the summary. Returns both runs' counts and a summary."""
     from repro_torch.configs import registry
     from repro_torch.core.attention import AttentionConfig, check_card_support
     from repro_torch.kernels import flash_decode as dec
@@ -3391,12 +3550,17 @@ def model_serving_phase(torch, dev, arch: str, path: str):
     # Logits against the dense reference on the card: the prefill of the
     # 1500-token prompt (three of gemma3's windows long), then a B = 4 decode
     # step from its cache at ragged lengths (inside and past such a window).
+    # An MoE model's reference runs replay the kernels' run's expert choices
+    # (``reference_run``).
     tokens_in = torch.tensor([prompts[3]], device=dev)
-    h_ref, _, _ = model.prefill(tokens_in, ref_cfg, CACHE)
-    h_fl, cache_fl, _ = model.prefill(tokens_in, fl_cfg, CACHE)
+    what = f"{arch} prefill of {len(prompts[3])} tokens"
+    with routing() as fl_choices:
+        h_fl, cache_fl, _ = model.prefill(tokens_in, fl_cfg, CACHE)
     l_fl = model.logits_from_hidden(h_fl)
-    compare_logits(torch, f"{arch} prefill of {len(prompts[3])} tokens",
-                   model.logits_from_hidden(h_ref), l_fl)
+    l_ref, summary["prefill_routing"] = reference_run(
+        torch, what, lambda: model.logits_from_hidden(model.prefill(tokens_in, ref_cfg, CACHE)[0]),
+        l_fl, fl_choices)
+    compare_logits(torch, what, l_ref, l_fl)
     cache_fl = [{"kv": {k: t.expand(4, -1, -1, -1).clone() for k, t in c["kv"].items()}}
                 for c in cache_fl]
     cache_ref = [{"kv": {k: t.clone() for k, t in c["kv"].items()}} for c in cache_fl]
@@ -3406,10 +3570,16 @@ def model_serving_phase(torch, dev, arch: str, path: str):
     step_len = torch.tensor([len(prompts[3]), 1, 700, 513], dtype=torch.int32, device=dev)
     first = int(l_fl[..., :cfg.vocab_size].argmax())
     step_tok = torch.tensor([[first], [5], [17], [99]], device=dev)
-    d_ref, _ = model.decode_step(step_tok, cache_ref, step_len, ref_cfg)
-    d_fl, _ = model.decode_step(step_tok, cache_fl, step_len, fl_cfg)
+    what = f"{arch} decode step, B=4, lengths {step_len.tolist()}"
+    with routing() as fl_choices:
+        d_fl, _ = model.decode_step(step_tok, cache_fl, step_len, fl_cfg)
+    d_ref, summary["decode_routing"] = reference_run(
+        torch, what, lambda: model.decode_step(
+            step_tok, [{"kv": {k: t.clone() for k, t in c["kv"].items()}} for c in cache_ref],
+            step_len, ref_cfg)[0],
+        d_fl, fl_choices)
     d_pg, _ = model.decode_step(step_tok, planes, step_len, fl_cfg, block_table=table)
-    compare_logits(torch, f"{arch} decode step, B=4, lengths {step_len.tolist()}", d_ref, d_fl)
+    compare_logits(torch, what, d_ref, d_fl)
     same = torch.equal(d_fl, d_pg)
     log(f"{arch} decode step through shuffled pages of {PAGE_SIZE}: logits bitwise the "
         f"contiguous cache's {same}")
@@ -3418,6 +3588,8 @@ def model_serving_phase(torch, dev, arch: str, path: str):
     del cache_fl, cache_ref, planes
 
     summary["ticks"] = tick_phase(torch, cfg, model)
+    if extra is not None:
+        summary.update(extra(torch, dev, model, prompts, summary))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3926,6 +4098,10 @@ def main() -> None:
     results.update(bwd_hd64_kernel_phase(torch, dev, scratch.zero_))
     results.update(hd256_kernel_phase(torch, dev, scratch.zero_))
     results.update(hd160_kernel_phase(torch, dev, scratch.zero_))
+    granite = hd64_granite_kernel_phase(torch, dev, scratch.zero_)
+    results["flash_decode_paged_hd64"] = granite.pop("flash_decode_paged_hd64")
+    for k, row in granite.items():  # the forward and decode at 64, at granite's shapes
+        results[k]["at_granite_shape"] = row
     results.update(hd256_bwd_kernel_phase(torch, dev, scratch.zero_))
     results.update(hd160_bwd_kernel_phase(torch, dev, scratch.zero_))
     default_split_phase(torch, dev)
@@ -3946,6 +4122,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     with torch.no_grad():
         sl_counts, sl_paged_counts, sl_summary = stablelm_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        gr_counts, gr_paged_counts, gr_summary = granite_phase(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
     train_parity_phase(torch, dev)
@@ -3998,6 +4178,7 @@ def main() -> None:
                 "flash_decode_paged_hd256": "fa2_decode_paged_kernel<256>",
                 "flash_decode_hd160": "fa2_decode_kernel<160,0>",
                 "flash_decode_paged_hd160": "fa2_decode_paged_kernel<160>",
+                "flash_decode_paged_hd64": "fa2_decode_paged_kernel<64>",
                 "flash_bwd_delta_hd256": "fa2_bwd_delta_kernel<256>",
                 "flash_bwd_delta_hd160": "fa2_bwd_delta_kernel<160>"}
     for D in (256, 160):  # the compact kernels, unsegmented (SEG 0) and SEG (1)
@@ -4069,7 +4250,9 @@ def main() -> None:
                 "flash_fwd_varlen_hd160": "src/repro/kernels/flash_fwd.py:354",
                 "flash_bwd_fused_varlen_hd160": "src/repro/kernels/flash_bwd.py:718",
                 "flash_bwd_dkv_varlen_hd160": "src/repro/kernels/flash_bwd.py:234",
-                "flash_bwd_dq_varlen_hd160": "src/repro/kernels/flash_bwd.py:459"}
+                "flash_bwd_dq_varlen_hd160": "src/repro/kernels/flash_bwd.py:459",
+                # The paged decode at head_dim 64 (granite-moe-1b-a400m serving).
+                "flash_decode_paged_hd64": "src/repro/kernels/flash_decode.py:250"}
     source = {"flash_fwd": "flash_fwd", "flash_decode": "flash_decode",
               "flash_decode_paged": "flash_decode", "flash_bwd_delta": "flash_bwd",
               "flash_bwd_fused": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
@@ -4079,7 +4262,8 @@ def main() -> None:
               "flash_fwd_splitkv_varlen": "flash_fwd", "flash_fwd_hd64": "flash_fwd",
               "flash_decode_hd64": "flash_decode", "flash_decode_varlen": "flash_decode",
               "flash_decode_hd256": "flash_decode", "flash_decode_paged_hd256": "flash_decode",
-              "flash_decode_hd160": "flash_decode", "flash_decode_paged_hd160": "flash_decode"}
+              "flash_decode_hd160": "flash_decode", "flash_decode_paged_hd160": "flash_decode",
+              "flash_decode_paged_hd64": "flash_decode"}
     source.update({k: "flash_fwd" if k.startswith("flash_fwd") else "flash_bwd"
                    for k in replaces if k not in source})
     paths = {"serving": serve_counts, "paged_serving": paged_counts, "training": train_counts,
@@ -4098,7 +4282,8 @@ def main() -> None:
              "training_gemma3_packed": g3_packed_counts["fused"],
              "training_gemma3_packed_split": g3_packed_counts["split"],
              "training_stablelm_packed": sl_packed_counts["fused"],
-             "training_stablelm_packed_split": sl_packed_counts["split"]}
+             "training_stablelm_packed_split": sl_packed_counts["split"],
+             "granite_serving": gr_counts, "granite_paged_serving": gr_paged_counts}
     # An entry named "_hd64" ("_hd160", "_hd256") counts its kernel's
     # launches at head dim 64 (160, 256), and the entry of the same kernel
     # without the suffix the other launches. The backward wrappers and the
@@ -4106,16 +4291,17 @@ def main() -> None:
     # launches apart (``<name>_hd64``, ``<name>_hd160``, ``<name>_hd256``);
     # the unsegmented forward and the decode wrappers do not, so their
     # launches on the paths that run at one head dim only (64: whisper-base,
-    # gpt-20m; 160: stablelm-12b; 256: gemma3-1b) are that head dim's
-    # entries'.
+    # gpt-20m, granite-moe-1b-a400m; 160: stablelm-12b; 256: gemma3-1b) are
+    # that head dim's entries'.
     hd64_paths = ("whisper_serving", "training_gpt20m", "training_gpt20m_split",
-                  "training_whisper")
+                  "training_whisper", "granite_serving", "granite_paged_serving")
     hd256_paths = ("gemma3_serving", "gemma3_paged_serving", "training_gemma3",
                    "training_gemma3_split")
     hd160_paths = ("stablelm_serving", "stablelm_paged_serving", "training_stablelm",
                    "training_stablelm_split")
     by_dim = {"flash_fwd_hd64": ("flash_fwd", hd64_paths),
               "flash_decode_hd64": ("flash_decode", hd64_paths),
+              "flash_decode_paged_hd64": ("flash_decode_paged", hd64_paths),
               "flash_fwd_hd256": ("flash_fwd", hd256_paths),
               "flash_decode_hd256": ("flash_decode", hd256_paths),
               "flash_decode_paged_hd256": ("flash_decode_paged", hd256_paths),
@@ -4147,6 +4333,7 @@ def main() -> None:
     log(f"gemma3-1b serving: {json.dumps(g3_summary)}")
     log(f"gemma3-1b training: {json.dumps(g3_train_summaries)}")
     log(f"stablelm-12b serving: {json.dumps(sl_summary)}")
+    log(f"granite-moe-1b-a400m serving: {json.dumps(gr_summary)}")
     log(f"stablelm-12b training: {json.dumps(sl_train_summaries)}")
     log(f"gemma3-1b packed training: {json.dumps(g3_packed_summaries)}")
     log(f"stablelm-12b packed training: {json.dumps(sl_packed_summaries)}")

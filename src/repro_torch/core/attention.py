@@ -67,10 +67,17 @@ def check_card_support(cfg, attn_cfg: AttentionConfig, device, *, training: bool
     paged decode's) are not instantiated for: gemma3-1b's 256 and
     stablelm-12b's 160 serve (fixed and paged) and train (fused and split
     backward), packed too (the segment kernels are built at 64, 128, 160
-    and 256); whisper's 64 has no paged decode (ROADMAP.md queue 2, item
-    3). The plain CPU path and ``impl="ref"`` take any of them."""
+    and 256); granite-moe-1b-a400m's 64 serves (fixed and paged). MoE
+    training (``cfg.family == "moe"``) is refused on the card whatever the
+    head_dim: it waits for its own slice (ROADMAP.md queue 1, item 5). The
+    plain CPU path and ``impl="ref"`` take any of them."""
     if attn_cfg.impl != "flash_cuda" or torch.device(device).type != "cuda":
         return
+    if training and cfg.family == "moe":
+        raise ValueError(
+            f"{cfg.name} is a mixture-of-experts model: the port serves it on the card, and "
+            "training it there comes in a later slice (ROADMAP.md queue 1, item 5). Train it "
+            "with --device cpu or --attn ref")
     if cfg.dtype != "bfloat16":
         raise ValueError(
             f"{cfg.name} is {cfg.dtype}, and the CUDA kernels take bfloat16 only (as the "
@@ -87,11 +94,10 @@ def check_card_support(cfg, attn_cfg: AttentionConfig, device, *, training: bool
                              else flash_decode.KERNEL_HEAD_DIMS)
     for what, dims in kernels.items():
         if cfg.head_dim not in dims:
-            item = 3 if what == "decode" and paged and cfg.head_dim == 64 else 2
             raise ValueError(
                 f"{cfg.name} has head_dim {cfg.head_dim}; the CUDA {what} kernels take head_dim "
-                f"{dims} (ROADMAP.md queue 2, item {item}). Use --attn ref, or --device cpu for "
-                "the plain path")
+                f"{dims} (ROADMAP.md queue 2, item 2). Use --attn ref, or --device cpu for the "
+                "plain path")
 
 
 def attention(q, k, v, spec: MaskSpec, cfg: AttentionConfig = AttentionConfig(), *,

@@ -18,7 +18,7 @@
 //     b sits in physical page tbl[b, g / ps] at offset g % ps. Split c
 //     covers the pp logical pages [c * pp, c * pp + pp), the JAX geometry
 //     (ns = ceil(n_pages / pp)). Its body is fa2_decode_paged_kernel, at
-//     head_dim 128, 160 and 256.
+//     head_dim 128 (qwen3), 64 (granite-moe), 160 and 256.
 // Both write, per (batch * kv head, split), the G q heads of one GQA group
 // as a locally normalized f32 partial (o, lse) in the JAX layout, o_parts
 // (B*Hkv, ns, G, D) and lse_parts (B*Hkv, ns, G); the caller folds the
@@ -597,7 +597,8 @@ struct PieceWalk {
 template <int D>
 __global__ void __cluster_dims__(1, kPagedCluster, 1) __launch_bounds__(kPagedWarps * 32)
     fa2_decode_paged_kernel(const PagedParams p) {
-  static_assert(D == 128 || D == 160 || D == 256, "the paged decode takes head_dim 128, 160 or 256");
+  static_assert(D == 64 || D == 128 || D == 160 || D == 256,
+                "the paged decode takes head_dim 64, 128, 160 or 256");
   constexpr int kPieceRows = paged_piece_rows<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
@@ -709,9 +710,10 @@ cudaError_t launch(Kernel kernel, const Params& p, dim3 grid, int threads, size_
 }
 
 // The paged kernel at head_dim D: two stages a warp where the ring stays
-// within 128 KB (pieces of up to 32 rows at 128, 16 at 160 and 256), else
-// one (pieces of 64 rows at 128, 32 at 160 and 256: 128 KB for the four
-// warps at 128 and 256, 80 KB at 160).
+// within 128 KB (pieces of up to 64 rows at 64, 32 at 128, 16 at 160 and
+// 256), else one (pieces of 64 rows at 128, 32 at 160 and 256: 128 KB for
+// the four warps at 128 and 256, 80 KB at 160). At 64 a piece of 64 rows
+// is 8 KB of K and 8 of V, so every page size runs two stages (128 KB).
 template <int D>
 cudaError_t launch_paged(PagedParams& p, dim3 grid, cudaStream_t stream) {
   const size_t half =
@@ -785,5 +787,6 @@ extern "C" int fa2_decode_paged_bf16(const void* q, const void* k_pages, const v
   if (head_dim == 128) return launch_paged<128>(p, grid, s);
   if (head_dim == 256) return launch_paged<256>(p, grid, s);
   if (head_dim == 160) return launch_paged<160>(p, grid, s);
+  if (head_dim == 64) return launch_paged<64>(p, grid, s);
   return cudaErrorInvalidValue;
 }

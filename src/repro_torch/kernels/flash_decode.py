@@ -40,10 +40,10 @@ from repro_torch.core.masks import DEFAULT_MASK_VALUE
 from repro_torch.kernels import _build
 
 # Head dims the kernels are instantiated for: the contiguous decode at 128
-# (qwen3), 64 (whisper), 160 (stablelm) and 256 (gemma3), the paged decode
-# at 128, 160 and 256.
+# (qwen3), 64 (whisper, granite-moe), 160 (stablelm) and 256 (gemma3), the
+# paged decode at 128, 64, 160 and 256.
 KERNEL_HEAD_DIMS = (64, 128, 160, 256)
-PAGED_HEAD_DIMS = (128, 160, 256)
+PAGED_HEAD_DIMS = (64, 128, 160, 256)
 KERNEL_MAX_GROUP = 8
 
 

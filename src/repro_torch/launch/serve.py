@@ -8,20 +8,24 @@ Usage:
   python -m repro_torch.launch.serve --arch qwen3-8b --engine paged \
       --num-pages 150 --page-size 16 --pages-per-seq 128
   python -m repro_torch.launch.serve --arch stablelm-12b [--engine paged]
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m [--engine paged]
 
 ``--engine fixed`` (default) reserves a worst-case contiguous cache slot
 per request; ``--engine paged`` serves from a shared page pool and decodes
 through a block table (attention-only archs).
 
 ``--device cuda`` (the default) needs a card and raises without one. The
-CUDA kernels serve bfloat16 at head_dim 64, 128, 160 and 256 (the paged
-decode at 128, 160 and 256), so on the card serve a full-width config, e.g.
-``--arch gemma3-1b [--engine paged]`` or ``--arch stablelm-12b [--engine
-paged]`` (40 layers, 12.1 B parameters, 24.3 GB in bf16: one H100 holds
-it) (``--reduce`` shrinks to float32 at head_dim 16, which the plain CPU
-path serves); a model they cannot take (whisper's 64 on the paged engine)
-is refused before anything reaches the card
-(``core.attention.check_card_support``).
+CUDA kernels serve bfloat16 at head_dim 64, 128, 160 and 256 (both decodes),
+so on the card serve a full-width config, e.g. ``--arch gemma3-1b
+[--engine paged]``, ``--arch stablelm-12b [--engine paged]`` (40 layers,
+12.1 B parameters, 24.3 GB in bf16: one H100 holds it) or ``--arch
+granite-moe-1b-a400m [--engine paged]`` (24 MoE layers of 32 experts, top
+8; its experts are plain batched products, only attention runs the
+kernels) (``--reduce`` shrinks to float32 at head_dim 16, which the plain
+CPU path serves); a model they cannot take (float32 on the card) is
+refused before anything reaches the card
+(``core.attention.check_card_support``). Whisper (encoder-decoder) has no
+engine here, as in the JAX package: the decoder-only LM refuses it.
 """
 
 from __future__ import annotations

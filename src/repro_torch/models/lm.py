@@ -1,12 +1,13 @@
 """Decoder-only LM for attention-only configs, as an ``nn.Module``.
 
 The counterpart of ``repro/models/lm.py``: embed -> layers (``attn`` /
-``attn_local``, each attention + MLP with pre-norms) -> final norm, with
-``forward`` (training), ``prefill``, ``decode_step`` and
-``logits_from_hidden``. Layers run in a Python loop (the JAX package scans
-over layer groups). The serving entry points run under ``torch.no_grad``.
-MoE, SSM, hybrid and VLM configs are not ported yet and raise; the
-encoder-decoder family is ``models/whisper.py``.
+``attn_local``, each attention + MLP with pre-norms; the MoE layer of
+``models/moe.py`` in place of the MLP when ``cfg.moe`` is set) -> final
+norm, with ``forward`` (training: hidden and the summed MoE aux loss),
+``prefill``, ``decode_step`` and ``logits_from_hidden``. Layers run in a
+Python loop (the JAX package scans over layer groups). The serving entry
+points run under ``torch.no_grad``. SSM, hybrid and VLM configs are not
+ported yet and raise; the encoder-decoder family is ``models/whisper.py``.
 
 Weights: :func:`init_lm` draws them on the target device from a seeded
 ``torch.Generator`` with the same std rules as the JAX ``init_lm``;
@@ -34,29 +35,32 @@ from repro_torch.models.attention_layer import (
     prefill_attention,
 )
 from repro_torch.models.layers import MLP, Embedding, Norm
+from repro_torch.models.moe import MoE
 
 SUPPORTED_KINDS = ("attn", "attn_local")
 
 
 def check_supported(cfg) -> None:
     """Raise for what this decoder-only LM cannot build. Every dense arch of
-    the registry (qwen3, deepseek-coder, stablelm, gemma3) passes here, and
-    runs on the plain CPU path. On the card the CUDA kernels serve head_dim
-    64, 128, 160 and 256 (the paged decode 128, 160 and 256) and train all
-    four, on packed batches too: gemma3-1b (256) and stablelm-12b (160)
-    serve and train there through ``flash_cuda``; the entry points refuse
-    what the kernels lack up front (``core.attention.check_card_support``).
-    The encoder-decoder family is :class:`repro_torch.models.whisper.Whisper`."""
+    the registry (qwen3, deepseek-coder, stablelm, gemma3) and both MoE
+    archs (granite-moe-1b-a400m, mixtral-8x22b) pass here, and run on the
+    plain CPU path. On the card the CUDA kernels serve head_dim 64, 128, 160
+    and 256 (the paged decode too) and train all four, on packed batches
+    too: gemma3-1b (256) and stablelm-12b (160) serve and train there
+    through ``flash_cuda``, granite-moe-1b-a400m (64) serves there; the
+    entry points refuse what the kernels lack up front
+    (``core.attention.check_card_support``). The encoder-decoder family is
+    :class:`repro_torch.models.whisper.Whisper`."""
     if cfg.family == "encdec":
         raise NotImplementedError(
             f"{cfg.name} is an encoder-decoder model: build it with "
             "repro_torch.models.whisper.Whisper (init_whisper), not the decoder-only LM")
     unsupported = [k for k in cfg.layer_kinds() if k not in SUPPORTED_KINDS]
-    if cfg.family != "dense" or unsupported:
+    if cfg.family not in ("dense", "moe") or unsupported:
         raise NotImplementedError(
-            f"{cfg.name}: the port builds dense attention-only decoders and whisper so far "
-            f"(family {cfg.family!r}, layer kinds {sorted(set(cfg.layer_kinds()))}); "
-            "MoE, SSM, hybrid and VLM models come in later slices"
+            f"{cfg.name}: the port builds dense and MoE attention-only decoders and whisper "
+            f"so far (family {cfg.family!r}, layer kinds {sorted(set(cfg.layer_kinds()))}); "
+            "SSM, hybrid and VLM models come in later slices"
         )
     if (cfg.meta_tokens or cfg.learned_pos_embed or cfg.num_patches or cfg.attn_bias
             or cfg.mlp != "swiglu" or cfg.norm != "rmsnorm"):
@@ -83,7 +87,7 @@ class Layer(nn.Module):
         self.ln1 = Norm(cfg, device, dtype)
         self.mixer = Attention(cfg, device, dtype)
         self.ln2 = Norm(cfg, device, dtype)
-        self.mlp = MLP(cfg, device, dtype)
+        self.mlp = MoE(cfg, device, dtype) if cfg.moe is not None else MLP(cfg, device, dtype)
 
 
 class LM(nn.Module):
@@ -120,27 +124,40 @@ class LM(nn.Module):
         the chunked loss, ``training/losses.py``)."""
         return self.embed.logits(hidden)
 
-    def _mlp_block(self, layer: Layer, x):
-        return x + layer.mlp(layer.ln2(x))
+    def _mlp_block(self, layer: Layer, x, with_aux: bool = False):
+        """The second residual sub-block (JAX ``_apply_mlp_block``, ``lm.py:88``):
+        (x + delta, aux). aux is the MoE layer's load-balancing loss when
+        ``with_aux`` (training), else None."""
+        h = layer.ln2(x)
+        if self.cfg.moe is None:
+            return x + layer.mlp(h), None
+        delta, aux = layer.mlp(h, with_aux=with_aux)
+        return x + delta, aux
 
     def _apply_group(self, layers, x, positions, attn_cfg: AttentionConfig, segment_ids=None):
+        """-> (x, the summed aux of the layers), as the JAX scan body carries it."""
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in layers:
             mix = apply_attention(
                 layer.mixer, cfg, layer.ln1(x), positions, spec_for(cfg, layer.kind),
                 attn_cfg, rope_theta=theta_for(cfg, layer.kind), segment_ids=segment_ids,
             )
-            x = self._mlp_block(layer, x + mix)
-        return x
+            x, a = self._mlp_block(layer, x + mix, with_aux=True)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def forward(self, tokens: torch.Tensor, attn_cfg: AttentionConfig,
                 segment_ids: Optional[torch.Tensor] = None):
         """tokens (B, S) -> (hidden (B, S, d), aux_loss, n_prefix), the
         counterpart of ``lm.forward`` (JAX ``lm.py:269``); the caller
-        unembeds. With ``cfg.remat`` each group of ``cfg.group_size`` layers
-        is recomputed in the backward (``torch.utils.checkpoint``), as the
-        JAX package checkpoints each scan group (``lm.py:255``); the tail
-        layers are not checkpointed there either.
+        unembeds. aux_loss is the MoE layers' load-balancing losses summed
+        over the layers in order (0 without MoE). With ``cfg.remat`` each
+        group of ``cfg.group_size`` layers is recomputed in the backward
+        (``torch.utils.checkpoint``), as the JAX package checkpoints each
+        scan group (``lm.py:255``); the tail layers are not checkpointed
+        there either.
 
         ``segment_ids`` (B, S) int turns on packed (varlen) training:
         attention stays within segments (through every layer, the recomputed
@@ -158,16 +175,17 @@ class LM(nn.Module):
             positions = torch.arange(h.shape[1], device=h.device)
         U = cfg.group_size
         n_grouped = cfg.num_groups * U
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for g0 in range(0, n_grouped, U):
             group = self.layers[g0:g0 + U]
             if cfg.remat:
-                h = checkpoint(self._apply_group, group, h, positions, attn_cfg, segment_ids,
-                               use_reentrant=False)
+                h, a = checkpoint(self._apply_group, group, h, positions, attn_cfg, segment_ids,
+                                  use_reentrant=False)
             else:
-                h = self._apply_group(group, h, positions, attn_cfg, segment_ids)
-        h = self._apply_group(self.layers[n_grouped:], h, positions, attn_cfg, segment_ids)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        return self.ln_f(h), aux, 0
+                h, a = self._apply_group(group, h, positions, attn_cfg, segment_ids)
+            aux = aux + a
+        h, a = self._apply_group(self.layers[n_grouped:], h, positions, attn_cfg, segment_ids)
+        return self.ln_f(h), aux + a, 0
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, attn_cfg: AttentionConfig, cache_size: int,
@@ -188,7 +206,7 @@ class LM(nn.Module):
                 layer.mixer, cfg, layer.ln1(h), positions, spec_for(cfg, layer.kind),
                 attn_cfg, rope_theta=theta_for(cfg, layer.kind), cache_size=cache_size,
             )
-            h = self._mlp_block(layer, h + mix)
+            h, _ = self._mlp_block(layer, h + mix)
             caches.append({"kv": kv})
         h = self.ln_f(h)
         B = h.shape[0]
@@ -216,7 +234,7 @@ class LM(nn.Module):
                 rope_theta=theta_for(cfg, layer.kind), window=spec.window, sink=spec.sink,
                 block_table=block_table,
             )
-            h = self._mlp_block(layer, h + mix)
+            h, _ = self._mlp_block(layer, h + mix)
         h = self.ln_f(h)
         return self.logits_from_hidden(h), caches
 
@@ -229,7 +247,9 @@ def init_lm(cfg, seed: int = 0, device=DEFAULT_DEVICE) -> LM:
 def params_from_jax(cfg, tree) -> Dict[str, torch.Tensor]:
     """State dict of :class:`LM` from ``repro.models.lm.init_lm``'s tree
     (leaves as numpy arrays). Scan-stacked ``groups`` leaves carry a leading
-    ``num_groups`` axis and are unstacked into consecutive layers."""
+    ``num_groups`` axis and are unstacked into consecutive layers. An MoE
+    layer's ``mlp`` carries ``router`` (float32, as the JAX tree keeps it),
+    ``we_gate``, ``we_up`` and ``we_down``."""
     check_supported(cfg)
     U, NG = cfg.group_size, cfg.num_groups
     per_layer: List[Dict[str, Any]] = []

@@ -2,8 +2,8 @@
 train CLI's ``--dtype``.
 
 The CUDA kernels take bfloat16 at head_dim 64 and 128, and serve (forward,
-decode, paged decode) and train (unpacked and packed) at 160 and 256; the
-paged decode has no 64.
+decode, paged decode) and train (unpacked and packed) at 160 and 256;
+mixture-of-experts models serve on the card and do not train there yet.
 ``core.attention.check_card_support`` refuses ``flash_cuda`` on a CUDA
 device for anything else, and the train and serve CLIs call it before they
 build a model: on this machine, which has no card, the CLIs must therefore
@@ -139,10 +139,33 @@ def test_head_dims_64_and_128_train_and_serve_on_the_card(arch):
 
 
 def test_paged_decode_at_head_dim_64_is_refused_on_the_card():
+    """The paged decode is built at 64 (granite-moe-1b-a400m serves through
+    it), so the card check passes whisper-base's 64 too; whisper on the
+    paged engine is still refused, as an encoder-decoder model that the
+    decoder-only LM (and so either engine) does not build, as in the JAX
+    package, whose engines serve decoder-only families only."""
     cfg = registry.get("whisper-base")
-    with pytest.raises(ValueError, match="queue 2, item 3"):
-        check_card_support(cfg, FLASH, "cuda", training=False, paged=True)
-    check_card_support(registry.get("qwen3-8b"), FLASH, "cuda", training=False, paged=True)
+    check_card_support(cfg, FLASH, "cuda", training=False, paged=True)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        serve.main(["--arch", "whisper-base", "--engine", "paged", "--device", "cpu"])
+    for arch in ("qwen3-8b", "granite-moe-1b-a400m"):
+        check_card_support(registry.get(arch), FLASH, "cuda", training=False, paged=True)
+
+
+def test_moe_training_is_refused_on_the_card():
+    """granite-moe-1b-a400m serves on the card; training it there (the aux
+    loss, the expert-parallel layer) is queue 1 item 5's next slice: refused
+    up front on a CUDA device, by the train CLI before any weight is made;
+    the plain CPU path and the dense reference train it."""
+    cfg = registry.get("granite-moe-1b-a400m")
+    for device in ("cuda", "cuda:0"):
+        with pytest.raises(ValueError, match="mixture-of-experts.*queue 1, item 5"):
+            check_card_support(cfg, FLASH, device, training=True)
+    with pytest.raises(ValueError, match="queue 1, item 5"):
+        train_cli.main(["--arch", "granite-moe-1b-a400m", "--steps", "1"])
+    check_card_support(cfg, FLASH, "cpu", training=True)
+    check_card_support(cfg, REF, "cuda", training=True)
+    check_card_support(cfg, FLASH, "cuda", training=False)
 
 
 def test_train_cli_refuses_before_building_the_model():
@@ -159,7 +182,7 @@ def test_train_cli_refuses_before_building_the_model():
 
 
 def test_serve_cli_refuses_before_building_the_model():
-    with pytest.raises(ValueError, match="head_dim 64; the CUDA decode.*queue 2, item 3"):
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
         serve.main(["--arch", "whisper-base", "--engine", "paged"])
     with pytest.raises(ValueError, match="bfloat16"):
         serve.main(["--arch", "qwen3-8b", "--reduce"])
@@ -174,6 +197,18 @@ def test_serve_cli_takes_stablelm_to_the_card(engine):
         pytest.skip("a card is present: the CLI would serve on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "stablelm-12b", "--engine", engine])
+
+
+@pytest.mark.parametrize("engine", ["fixed", "paged"])
+def test_serve_cli_takes_granite_to_the_card(engine):
+    """granite-moe-1b-a400m (head_dim 64, 16 q heads over 8 kv heads, MoE)
+    on the default device through flash_cuda passes the check (the paged
+    decode is built at 64) and stops only at the missing card, before any
+    weight is made."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CLI would serve on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "granite-moe-1b-a400m", "--engine", engine])
 
 
 @pytest.mark.parametrize("engine", ["fixed", "paged"])

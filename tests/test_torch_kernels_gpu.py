@@ -25,6 +25,7 @@ from repro_torch.kernels import flash_fwd as fwd_mod
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models.lm import init_lm
+from repro_torch.models.moe import MoE
 from repro_torch.serving.engine import PagedServingEngine, Request, ServingEngine
 from repro_torch.training.optimizer import AdamWConfig, init_opt_state
 
@@ -722,14 +723,15 @@ PAGED_CASES = [
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [128, 256, 160])
+@pytest.mark.parametrize("D", [128, 256, 160, 64])
 @pytest.mark.parametrize("ps,G,window,sink,S,stale", PAGED_CASES)
 def test_paged_decode_kernel_matches_plain(cuda, ps, G, window, sink, S, stale, D):
     """The paged kernel against its plain version (ragged lengths with 0 and
     an odd-page length); bitwise the same partials under a second shuffle
     of the physical pages; (0, -inf) partials for the length-0 row; with
     ``stale``, the same partials with NaN in the rows no length reaches.
-    At D 160 and 256 a page of more than 32 rows goes as pieces of 32."""
+    At D 160 and 256 a page of more than 32 rows goes as pieces of 32, at
+    64 and 128 a page of more than 64 rows as pieces of 64."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     B, Hkv = 4, 8
     q = _randn(gen, (B * Hkv, G, D), cuda)
@@ -771,17 +773,18 @@ def test_paged_decode_kernel_matches_plain(cuda, ps, G, window, sink, S, stale, 
 
 
 # (S, lengths, window, sink, G, Hkv): gemma3's decode (one kv head, G 4,
-# window 512) and qwen3's; pages of 16 cut the cache where the contiguous
-# kernel's 16-row units do.
+# window 512), qwen3's, granite-moe's (8 kv heads, G 2); pages of 16 cut
+# the cache where the contiguous kernel's 16-row units do.
 PAGED_AS_CONTIGUOUS_CASES = [
     (2048, [1, 0, 777, 2048], None, 0, 4, 1),
     (2048, [15, 108, 708, 1508], 512, 0, 4, 1),
     (2048, [2048, 5, 1500, 64], 300, 4, 4, 8),
+    (2048, [15, 108, 708, 1508], None, 0, 2, 8),
 ]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [128, 256, 160])
+@pytest.mark.parametrize("D", [128, 256, 160, 64])
 @pytest.mark.parametrize("S,lengths,window,sink,G,Hkv", PAGED_AS_CONTIGUOUS_CASES)
 def test_paged_decode_at_page_size_16_is_bitwise_the_contiguous_kernel(
         cuda, S, lengths, window, sink, G, Hkv, D):
@@ -816,7 +819,7 @@ def test_paged_decode_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="bfloat16"):
         call(dtype=torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
-        call(D=64)
+        call(D=96)
     with pytest.raises(ValueError, match="q heads"):
         call(G=16)
     with pytest.raises(ValueError, match="contiguous"):
@@ -880,6 +883,40 @@ def test_stablelm_engines_run_through_the_head_dim_160_kernels(cuda, paged):
     cfg = dataclasses.replace(registry.get("stablelm-12b"), num_layers=2)
     assert cfg.head_dim == 160 and cfg.qk_norm
     _engine_runs_through_the_kernels(cuda, cfg, paged)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_granite_engines_run_through_the_head_dim_64_kernels(cuda, paged):
+    """Two layers of full-width granite-moe-1b-a400m (head_dim 64, 16 q heads
+    over 8 kv heads, 32 experts top 8) through both engines
+    (``_engine_runs_through_the_kernels``)."""
+    cfg = dataclasses.replace(registry.get("granite-moe-1b-a400m"), num_layers=2)
+    assert cfg.head_dim == 64 and cfg.moe.num_experts == 32
+    _engine_runs_through_the_kernels(cuda, cfg, paged)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 1), (1, 1536)])
+def test_moe_layer_reads_nothing_back_to_the_host(cuda, shape):
+    """One MoE layer of full-width granite (bf16) on a decode tick's (4, 1)
+    and a prefill's (1, 1536) input under the sync debug mode "error": no
+    step of the layer synchronises with the host (so a CUDA graph could
+    capture it), and its output is finite."""
+    cfg = registry.get("granite-moe-1b-a400m")
+    layer = MoE(cfg, cuda, torch.bfloat16)
+    with torch.no_grad():
+        layer.init_(torch.Generator(device=cuda).manual_seed(0))
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        x = torch.randn((*shape, cfg.d_model), generator=gen, device=cuda).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = layer(x, with_aux=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert aux is None and y.shape == x.shape and torch.isfinite(y).all()
 
 
 def _engine_runs_through_the_kernels(cuda, cfg, paged):

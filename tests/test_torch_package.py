@@ -11,11 +11,13 @@ import pytest
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.core.attention import AttentionConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_decode as dec_mod
 from repro_torch.kernels import flash_fwd as fwd_mod
 from repro_torch.core.masks import MaskSpec
-from repro_torch.models.lm import LM, check_supported
+from repro_torch.models.lm import LM, check_supported, init_lm
+from repro_torch.models.moe import MoE
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -76,11 +78,25 @@ def test_wrappers_take_cpu_or_cuda_only():
         dec_mod.flash_decode_paged(qd, pages, pages, lens, table)
 
 
-@pytest.mark.parametrize("name", ["falcon-mamba-7b", "granite-moe-1b-a400m",
-                                  "whisper-base", "hymba-1.5b"])
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "whisper-base", "hymba-1.5b"])
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError):
         check_supported(registry.reduce_config(registry.get(name)))
+
+
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "mixtral-8x22b"])
+def test_moe_families_build_on_the_cpu(name):
+    """The MoE archs build as decoder-only LMs (the MoE layer in place of the
+    MLP), and a reduced one runs a prefill and a decode step on the CPU."""
+    cfg = registry.reduce_config(registry.get(name))
+    check_supported(registry.get(name))
+    model = init_lm(cfg, seed=0, device="cpu")
+    assert all(isinstance(layer.mlp, MoE) for layer in model.layers)
+    attn = AttentionConfig(impl="flash_cuda")
+    tokens = torch.arange(1, 9)[None]
+    h, caches, lens = model.prefill(tokens, attn, 16)
+    logits, _ = model.decode_step(torch.tensor([[3]]), caches, lens, attn)
+    assert logits.shape == (1, 1, cfg.padded_vocab) and torch.isfinite(logits).all()
 
 
 def test_registry_mirrors_the_jax_one():
