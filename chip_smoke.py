@@ -214,6 +214,27 @@ falls and follows the reference's, the split backward bitwise reproducible
 on the step-0 ids; tokens/s with the non-padding share, MFU, peak memory,
 the profiled step's busy share and attention time, each beside the
 unpacked run's.
+Phase 2 also checks that no dense instantiation at head_dim 256 and 160
+(forward, fused, dK/dV, dQ; without and with SEG) spills more than its
+compact twin or has its wgmma serialised. Phase 3 also holds those dense
+kernels against their plain versions at gemma3-1b's training shape (B 4,
+S 2048, causal and window 512) and stablelm-12b's (B 2, S 2048, causal),
+without and with the packed source's step-0 ids, and to the bit against the
+compact kernels there (the fused dQ, whose bulk reductions have no order,
+within GRAD_REL_TOL) and on a grid of specs at B 2, S 700 (causal, window
+512, a window with sinks, a non-causal window, FULL, q_offset +-100) with G
+1 and 4, with and without packed ids; and times each in turns with its
+compact twin beside the compact bound, its plain version and SDPA. Last,
+dense-schedule training: gemma3-1b (26 layers, B 4, S 2048) and
+stablelm-12b (8 of 40 layers, B 2, S 2048) each train 8 AdamW steps through
+``build_train_step`` with AttentionConfig(schedule="dense"), each run beside
+its compact counterpart through the same loop (split backward: every
+step's loss bitwise; fused: step 0 equal, the rest within GPT_LOSS_REL;
+packed split: every step bitwise), launch counts exact through the dense
+kernels at head_dim 256 or 160 (gemma3: forward 400, delta 208, fused or
+dK/dV and dQ 208; stablelm: 128, 64, 64) and through the compact ones in
+the compact runs; the unpacked split steps profiled for the busy share and
+attention's share, dense beside compact.
 The last two lines are the kernels' JSON record and the result line.
 """
 
@@ -1260,177 +1281,208 @@ def varlen_kernel_phase(torch, dev, flush):
 # The dense phase's spec grid (S = 700, G = 1 and 4): causal, a window, a
 # window with sinks, a non-causal window, no mask, a positive q offset, a
 # negative one off the tile grid (rows that see no key in a visited tile).
-DENSE_SPECS = (dict(causal=True), dict(causal=True, window=256),
+# Dense against compact at B 2, S 700 (11 q tiles: the pair kernels' last CTA
+# holds one): causal, windows of 256 and gemma3-1b's 512, a window with
+# sinks, a non-causal window, FULL, q_offset of either sign (-100: rows that
+# see no key inside a visited tile).
+DENSE_SPECS = (dict(causal=True), dict(causal=True, window=256), dict(causal=True, window=512),
                dict(causal=True, window=256, sink=4), dict(causal=False, window=256), dict(),
                dict(causal=True, q_offset=100), dict(causal=True, q_offset=-100))
 DENSE_NAMES = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq")
 
 
-def dense_kernel_phase(torch, dev, flush):
-    """The dense-schedule kernels (forward, fused, dK/dV, dQ; each with and
-    without SEG) against their plain versions at the training shape (B = 2,
-    S = 2048, causal; segments from the packed source's step-0 ids), and
-    against the compact kernels on the same inputs: the forward (o, lse),
-    dK/dV, dQ and the fused dK/dV to the bit, the fused dQ (unordered adds) within
-    GRAD_REL_TOL; there, and again on DENSE_SPECS at S = 700 with G = 1 and
-    4, without and with segments. Then dense and compact timed in turns
-    (dense, compact, compact, dense) after an L2 flush, the FULL spec (no
-    tile hidden) as the control; bounds are compact's (the same work) and
-    the library times SDPA's as for the compact rows. Returns the kernels'
-    records, keyed ``flash_fwd_dense``, ``flash_fwd_varlen_dense``, ..."""
+def dense_wrappers(seg):
+    """{name: wrapper} of DENSE_NAMES, their ``_varlen`` forms with ``seg``."""
+    from repro_torch.kernels import flash_bwd as bwd
+    from repro_torch.kernels import flash_fwd as fwd
+
+    sfx = "_varlen" if seg else ""
+    return {n: getattr(fwd if n == "flash_fwd" else bwd, n + sfx) for n in DENSE_NAMES}
+
+
+def dense_and_compact(torch, q, k, v, do, spec, seg, tiles):
+    """{name: (dense output, compact output)} of DENSE_NAMES on the same
+    inputs (``seg``: () or (q ids, kv ids)); the backward reads the dense
+    forward's lse and the delta of its o. Returns it and the backward's
+    arguments."""
+    from repro_torch.kernels import flash_bwd as bwd
+
+    f = dense_wrappers(seg)
+    out = {"flash_fwd": [f["flash_fwd"](q, k, v, spec, *seg, schedule=sch, **tiles)
+                         for sch in ("dense", "compact")]}
+    o, lse = out["flash_fwd"][0]
+    args = (q, k, v, do, lse, bwd.flash_bwd_delta(o, do), spec, *seg)
+    for n in DENSE_NAMES[1:]:
+        out[n] = [f[n](*args, schedule=sch, **tiles) for sch in ("dense", "compact")]
+    torch.cuda.synchronize()
+    return out, args
+
+
+def dense_against_compact(torch, out):
+    """({equality: dense bitwise compact}, the fused dq's relative diff) of
+    ``dense_and_compact``'s outputs."""
+    (o_d, l_d), (o_c, l_c) = out["flash_fwd"]
+    (fd, fc), (kd, kc) = out["flash_bwd_fused"], out["flash_bwd_dkv"]
+    dq_d, dq_c = out["flash_bwd_dq"]
+    same = {"o": torch.equal(o_d, o_c), "lse": torch.equal(l_d, l_c),
+            "fused dk": torch.equal(fd[1], fc[1]), "fused dv": torch.equal(fd[2], fc[2]),
+            "dkv dk": torch.equal(kd[0], kc[0]), "dkv dv": torch.equal(kd[1], kc[1]),
+            "dq": torch.equal(dq_d, dq_c)}
+    return same, max_err(torch, fd[0], fc[0]) / max(fc[0].abs().max().item(), 1e-6)
+
+
+def dense_kernel_phase(torch, dev, flush, D, hq, hkv, B, S, specs, vocab=151_936, *,
+                       seed):
+    """The dense-schedule forward, fused, dK/dV and dQ kernels at head_dim
+    ``D`` (``hq`` q heads over ``hkv`` kv heads), each without and with SEG
+    (the packed source's step-0 ids at the model's ``vocab``), at the
+    training shape (B, S) under each mask of ``specs`` ({name: MaskSpec
+    kwargs}; the first gives the top-level numbers, a "window" one goes
+    under ``windowed``): each against its dense plain version, and against
+    the compact kernel on the same inputs (o, lse, dK, dV, split dQ and the
+    fused dK/dV to the bit; the fused dQ, whose bulk reductions have no
+    order, within GRAD_REL_TOL); then the same against the compact kernels
+    on DENSE_SPECS at B 2, S 700 with G 1 and 4 (``hkv`` kv heads), without
+    and with packed ids. Then each dense kernel timed after the L2 flush in
+    turns with its compact twin (dense, compact, compact, dense), its plain
+    version, its bound (the compact kernel's: the pairs the mask needs, with
+    SEG the same-segment ones) and SDPA with the same mask (the forward; the
+    fused kernel: forward + backward less forward); without segments also
+    under the FULL spec (no tile hidden) as the control. Returns the records
+    of ``<kernel>[_varlen]_dense``, with ``_hd{D}`` after it at a head dim
+    other than qwen3's (HD)."""
     from repro_torch.core.masks import MaskSpec
     from repro_torch.kernels import flash_bwd as bwd
     from repro_torch.kernels import flash_fwd as fwd
     from repro_torch.kernels import ops
 
-    gen = torch.Generator(device=dev).manual_seed(17)
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     tiles = dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
-    scale = 1.0 / math.sqrt(HD)
 
-    def inputs(B, S, Hq, Hkv):
-        q = ops._prep(randn(B, S, Hq, HD), scale)
-        return q, randn(B, S, Hkv, HD), randn(B, S, Hkv, HD), randn(B, S, Hq, HD)
+    def inputs(Bc, Sc, Hq, Hkv):
+        return (ops._prep(randn(Bc, Sc, Hq, D), 1 / math.sqrt(D)), randn(Bc, Sc, Hkv, D),
+                randn(Bc, Sc, Hkv, D), randn(Bc, Sc, Hq, D))
 
-    def wrappers(seg):
-        sfx = "_varlen" if seg else ""
-        return {n: getattr(fwd if n == "flash_fwd" else bwd, n + sfx) for n in DENSE_NAMES}
-
-    def both(q, k, v, do, spec, seg):
-        """{name: (dense output, compact output)} on the same inputs; the
-        backward reads the dense forward's lse and the delta of its o."""
-        f = wrappers(seg)
-        out = {"flash_fwd": [f["flash_fwd"](q, k, v, spec, *seg, schedule=sch, **tiles)
-                             for sch in ("dense", "compact")]}
-        o, lse = out["flash_fwd"][0]
-        args = (q, k, v, do, lse, bwd.flash_bwd_delta(o, do), spec, *seg)
-        for n in DENSE_NAMES[1:]:
-            out[n] = [f[n](*args, schedule=sch, **tiles) for sch in ("dense", "compact")]
-        torch.cuda.synchronize()
-        return out, args
-
-    def against_compact(out):
-        """({equality: dense bitwise compact}, fused dq's relative diff)."""
-        (o_d, l_d), (o_c, l_c) = out["flash_fwd"]
-        (fd, fc), (kd, kc) = out["flash_bwd_fused"], out["flash_bwd_dkv"]
-        dq_d, dq_c = out["flash_bwd_dq"]
-        same = {"o": torch.equal(o_d, o_c), "lse": torch.equal(l_d, l_c),
-                "fused dk": torch.equal(fd[1], fc[1]), "fused dv": torch.equal(fd[2], fc[2]),
-                "dkv dk": torch.equal(kd[0], kc[0]), "dkv dv": torch.equal(kd[1], kc[1]),
-                "dq": torch.equal(dq_d, dq_c)}
-        return same, max_err(torch, fd[0], fc[0]) / max(fc[0].abs().max().item(), 1e-6)
-
-    B, S = TRAIN_B, TRAIN_S
-    causal = MaskSpec(causal=True)
-    ids = torch.from_numpy(packed_ids(B, S)).to(dev)
-    err, data = {}, {}
-    for seg in ((), (ids, ids)):
-        sfx = "_varlen" if seg else ""
-        q, k, v, do = inputs(B, S, HQ, HKV)
-        out, args = both(q, k, v, do, causal, seg)
-        data[sfx] = (q, k, v, do, args)
-        same, rel_dq = against_compact(out)
-        plain = dict(schedule="dense", **tiles)
+    def plain_kw(seg):
+        kw = dict(schedule="dense", **tiles)
         if seg:
-            plain.update(q_seg=ids, kv_seg=ids)
-        o, lse = out["flash_fwd"][0]
-        o_p, lse_p = fwd.flash_fwd_plain(q, k, v, causal, **plain)
-        eo, el = max_err(torch, o, o_p), max_err(torch, lse, lse_p)
-        pargs = args[:7]
-        got = {"flash_bwd_fused": out["flash_bwd_fused"][0],
-               "flash_bwd_dkv": out["flash_bwd_dkv"][0], "flash_bwd_dq": (out["flash_bwd_dq"][0],)}
-        want = {"flash_bwd_fused": bwd.flash_bwd_fused_plain(*pargs, **plain),
-                "flash_bwd_dkv": bwd.flash_bwd_dkv_plain(*pargs, **plain),
-                "flash_bwd_dq": (bwd.flash_bwd_dq_plain(*pargs, **plain),)}
-        rel = {}
-        err[f"flash_fwd{sfx}_dense"] = eo
-        for n in DENSE_NAMES[1:]:
-            for a, b in zip(got[n], want[n]):
-                if not torch.isfinite(a).all():
-                    fail(f"{n}{sfx} (dense) gave a non-finite gradient")
-            rel[n] = max(max_err(torch, a, b) / max(b.abs().max().item(), 1e-6)
-                         for a, b in zip(got[n], want[n]))
-            err[f"{n}{sfx}_dense"] = max(max_err(torch, a, b) for a, b in zip(got[n], want[n]))
-        what = "packed step 0" if seg else "no segments"
-        log(f"dense kernels B={B} S={S} causal Hq={HQ} Hkv={HKV} ({what}): flash_fwd{sfx} "
-            f"max|o-plain|={eo:.3e} (tol {FWD_TOL['o']}), max|lse-plain|={el:.3e} (tol "
-            f"{FWD_TOL['lse']}); relative to max|grad|: "
-            + ", ".join(f"{n}{sfx} {e:.3e}" for n, e in rel.items())
-            + f" (tol {GRAD_REL_TOL}); bitwise the compact kernels: {same}; fused dq against "
-            f"the compact fused dq {rel_dq:.3e} (tol {GRAD_REL_TOL})")
-        if not (eo <= FWD_TOL["o"] and el <= FWD_TOL["lse"]):
-            fail(f"flash_fwd{sfx} (dense) disagrees with its plain version")
-        if max(rel.values()) > GRAD_REL_TOL:
-            fail(f"a dense backward kernel{sfx} disagrees with its plain version")
-        if not all(same.values()) or rel_dq > GRAD_REL_TOL:
-            fail(f"the dense kernels{sfx} are not the compact ones at the training shape")
+            kw.update(q_seg=seg[0], kv_seg=seg[1])
+        return kw
 
-    # The spec grid: dense against compact only.
-    ids700 = torch.from_numpy(packed_ids(2, 700)).to(dev)
+    specs = {name: MaskSpec(**kw) for name, kw in specs.items()}
+    ids = torch.from_numpy(packed_ids(B, S, vocab=vocab)).to(dev)
+    err, data = {}, {}
+    for name, spec in specs.items():
+        for seg in ((), (ids, ids)):
+            sfx = "_varlen" if seg else ""
+            what = f"D={D} B={B} S={S} Hq={hq} Hkv={hkv} {name}{' (packed step 0)' if seg else ''}"
+            q, k, v, do = inputs(B, S, hq, hkv)
+            out, args = dense_and_compact(torch, q, k, v, do, spec, seg, tiles)
+            data[name, sfx] = (q, k, v, do, args)
+            same, rel_dq = dense_against_compact(torch, out)
+            plain = plain_kw(seg)
+            eo = check_fwd(torch, f"flash_fwd{sfx} dense {what}", out["flash_fwd"][0],
+                           fwd.flash_fwd_plain(q, k, v, spec, **plain))
+            pargs = args[:7]
+            got = {"flash_bwd_fused": out["flash_bwd_fused"][0],
+                   "flash_bwd_dkv": out["flash_bwd_dkv"][0],
+                   "flash_bwd_dq": (out["flash_bwd_dq"][0],)}
+            want = {"flash_bwd_fused": bwd.flash_bwd_fused_plain(*pargs, **plain),
+                    "flash_bwd_dkv": bwd.flash_bwd_dkv_plain(*pargs, **plain),
+                    "flash_bwd_dq": (bwd.flash_bwd_dq_plain(*pargs, **plain),)}
+            rel = {}
+            err[f"flash_fwd{sfx}"] = max(err.get(f"flash_fwd{sfx}", 0.0), eo)
+            for n in DENSE_NAMES[1:]:
+                for a in got[n]:
+                    if not torch.isfinite(a).all():
+                        fail(f"{n}{sfx} (dense, head_dim {D}) gave a non-finite gradient ({what})")
+                rel[n] = max(max_err(torch, a, b) / max(b.abs().max().item(), 1e-6)
+                             for a, b in zip(got[n], want[n]))
+                err[f"{n}{sfx}"] = max(err.get(f"{n}{sfx}", 0.0),
+                                       *(max_err(torch, a, b) for a, b in zip(got[n], want[n])))
+            log(f"dense kernels {what}: relative to max|grad| "
+                + ", ".join(f"{n}{sfx} {e:.3e}" for n, e in rel.items())
+                + f" (tol {GRAD_REL_TOL}); bitwise the compact kernels: {same}; fused dq against "
+                f"the compact fused dq {rel_dq:.3e} (tol {GRAD_REL_TOL})")
+            if max(rel.values()) > GRAD_REL_TOL:
+                fail(f"a dense backward kernel{sfx} at head_dim {D} disagrees with its plain "
+                     f"version ({what})")
+            if not all(same.values()) or rel_dq > GRAD_REL_TOL:
+                fail(f"the dense kernels{sfx} at head_dim {D} are not the compact ones ({what})")
+
+    ids700 = torch.from_numpy(packed_ids(2, 700, vocab=vocab)).to(dev)
     for G in (1, 4):
         for spec_kw in DENSE_SPECS:
             for seg in ((), (ids700, ids700)):
                 spec = MaskSpec(**spec_kw)
-                out, _ = both(*inputs(2, 700, HKV * G, HKV), spec, seg)
-                same, rel_dq = against_compact(out)
-                log(f"  dense against compact, B=2 S=700 G={G} {spec}"
+                out, _ = dense_and_compact(torch, *inputs(2, 700, hkv * G, hkv), spec, seg, tiles)
+                same, rel_dq = dense_against_compact(torch, out)
+                log(f"  dense against compact, D={D} B=2 S=700 G={G} {spec}"
                     f"{' packed' if seg else ''}: bitwise {all(same.values())}, fused dq "
                     f"{rel_dq:.3e}")
                 if not all(same.values()) or rel_dq > GRAD_REL_TOL:
-                    fail(f"the dense kernels are not the compact ones at G={G} {spec} "
-                         f"{'packed ' if seg else ''}({same}, fused dq {rel_dq:.3e})")
+                    fail(f"the dense kernels at head_dim {D} are not the compact ones at G={G} "
+                         f"{spec} {'packed ' if seg else ''}({same}, fused dq {rel_dq:.3e})")
 
-    # Times in turns, at the training shape: causal without and with
-    # segments, and FULL (no tile hidden) as the control.
-    pairs = {"": B * S * (S + 1) // 2, "_varlen": segment_pairs(ids.cpu().numpy())}
-    full = MaskSpec()
-    records = {}
-    for sfx, (q, k, v, do, args) in data.items():
-        seg = args[7:]
-        lib_fwd, lib_fb = sdpa_times(torch, q, k, v, do, flush,
-                                     segment_mask(torch, ids) if seg else None)
+    rows = {}
+    first = next(iter(specs))
+    ago = torch.arange(S, device=dev)[:, None] - torch.arange(S, device=dev)[None, :]
+    for (name, sfx), (q, k, v, do, args) in data.items():
+        spec, seg = specs[name], args[7:]
+        mask = segment_mask(torch, ids) if seg else None
+        if spec.window is not None:
+            mask = (ago >= 0)[None, None] if mask is None else mask
+            mask = mask & (ago < spec.window)[None, None]
+        lib_fwd, lib_fb = sdpa_times(torch, q, k, v, do, flush, mask)
         library = {"flash_fwd": lib_fwd, "flash_bwd_fused": lib_fb - lib_fwd,
                    "flash_bwd_dkv": None, "flash_bwd_dq": None}
-        bounds = attention_bounds(pairs[sfx], B, S, id_bytes=2 * B * S * 4 if seg else 0)
-        f = wrappers(seg)
+        pairs = (segment_pairs(ids.cpu().numpy(), spec.window) if seg
+                 else B * causal_pairs(S, spec.window))
+        bounds = attention_bounds(pairs, B, S, id_bytes=2 * B * S * 4 if seg else 0, Hq=hq,
+                                  Hkv=hkv, D=D)
+        f = dense_wrappers(seg)
+        plain = plain_kw(seg)
         for n in DENSE_NAMES:
-            def call(schedule, spec=causal, n=n):
+            def call(schedule, spec_=spec, n=n):
                 if n == "flash_fwd":
-                    return f[n](q, k, v, spec, *seg, schedule=schedule, **tiles)
-                return f[n](*args[:6], spec, *seg, schedule=schedule, **tiles)
+                    return f[n](q, k, v, spec_, *seg, schedule=schedule, **tiles)
+                return f[n](*args[:6], spec_, *seg, schedule=schedule, **tiles)
 
-            runs = [time_ms(torch, lambda sch=sch: call(sch), 20, flush)
-                    for sch in ("dense", "compact", "compact", "dense")]
-            dense_ms, compact_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
-            plain = dict(schedule="dense", **tiles)
-            if seg:
-                plain.update(q_seg=ids, kv_seg=ids)
+            dense_ms, compact_ms, turns = in_turns(torch, lambda: call("dense"),
+                                                   lambda: call("compact"), 20, flush)
             pfn = getattr(fwd if n == "flash_fwd" else bwd, n + "_plain")
-            pargs = (q, k, v, causal) if n == "flash_fwd" else args[:7]
+            pargs = (q, k, v, spec) if n == "flash_fwd" else args[:7]
             plain_ms = time_ms(torch, lambda: pfn(*pargs, **plain), 2, flush)
             b_ms, b_by = bounds[n]
-            rec = dict(max_abs_err=err[f"{n}{sfx}_dense"], ms=dense_ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=library[n],
-                       compact_ms_in_turns=compact_ms, dense_over_compact=dense_ms / compact_ms)
-            line = (f"{n}{sfx} dense B={B} S={S} causal{' (packed step 0)' if seg else ''}: "
-                    f"kernel {dense_ms:.4f} ms, compact in turns {compact_ms:.4f} ms (ratio "
-                    f"{dense_ms / compact_ms:.4f}), plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
-                    f"ms ({b_by}), library "
-                    + (f"{library[n]:.4f} ms" if library[n] is not None else "none"))
-            if not seg:
-                runs = [time_ms(torch, lambda sch=sch: call(sch, full), 20, flush)
-                        for sch in ("dense", "compact", "compact", "dense")]
-                rec.update(full_spec_ms=(runs[0] + runs[3]) / 2,
-                           full_spec_compact_ms=(runs[1] + runs[2]) / 2)
-                line += (f"; FULL control: dense {rec['full_spec_ms']:.4f} ms, compact "
-                         f"{rec['full_spec_compact_ms']:.4f} ms (ratio "
-                         f"{rec['full_spec_ms'] / rec['full_spec_compact_ms']:.4f})")
+            rec = rows[name, sfx, n] = dict(
+                ms=dense_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library[n], compact_ms_in_turns=compact_ms,
+                dense_over_compact=dense_ms / compact_ms)
+            line = (f"  {n}{sfx} dense D={D} B={B} S={S} {name}: kernel {dense_ms:.4f} ms, "
+                    f"compact in turns {compact_ms:.4f} ms (ratio {dense_ms / compact_ms:.4f}; "
+                    f"turns {turns}), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                    f"{dense_ms / b_ms:.2f}x the bound; library "
+                    + ("none" if library[n] is None else f"{library[n]:.4f} ms (SDPA, same mask)"))
+            if not seg and name == first:
+                full, full_c, _ = in_turns(torch, lambda: call("dense", MaskSpec()),
+                                           lambda: call("compact", MaskSpec()), 20, flush)
+                rec.update(full_spec_ms=full, full_spec_compact_ms=full_c)
+                line += (f"; FULL control: dense {full:.4f} ms, compact {full_c:.4f} ms (ratio "
+                         f"{full / full_c:.4f})")
             log(line)
-            records[f"{n}{sfx}_dense"] = rec
-    return records
+    key = "_dense" if D == HD else f"_dense_hd{D}"
+    out = {}
+    for sfx in ("", "_varlen"):
+        for n in DENSE_NAMES:
+            rec = dict(max_abs_err=err[f"{n}{sfx}"], **rows[first, sfx, n])
+            if "window" in specs:
+                rec["windowed"] = rows["window", sfx, n]
+            out[f"{n}{sfx}{key}"] = rec
+    return out
 
 
 def serving_prompts(cfg):
@@ -2603,21 +2655,22 @@ def training_want(counters, plains, n: int, bwds, suffix: str = "", *, remat: bo
     or once (``forwards``, where given: that many forward launches), delta
     once, then the fused kernel or dK/dV and dQ once; with ``head_dim`` (64,
     160 or 256) the backward's counts at that head dim the same, and the
-    forward's where it counts that head dim apart; every other kernel and
-    every plain version 0."""
+    forward's where it counts that head dim apart (those counts take both
+    schedules); every other kernel and every plain version 0."""
     want = {k: 0 for k in counters}
+    by_dim = suffix.replace("_dense", "")  # a wrapper's head-dim count takes both schedules
     for bwd in bwds:
         n_fwd = (2 if remat else 1) * n if forwards is None else forwards
         want[f"flash_fwd{suffix}"] += n_fwd
-        if f"flash_fwd{suffix}_hd{head_dim}" in want:  # the segment forward's 160 and 256
-            want[f"flash_fwd{suffix}_hd{head_dim}"] += n_fwd
+        if f"flash_fwd{by_dim}_hd{head_dim}" in want:  # the segment forward's 160 and 256
+            want[f"flash_fwd{by_dim}_hd{head_dim}"] += n_fwd
         names = ["flash_bwd_delta"]
         names += ["flash_bwd_fused" + suffix] if bwd == "fused" else [
             "flash_bwd_dkv" + suffix, "flash_bwd_dq" + suffix]
         for name in names:
             want[name] += n
             if head_dim is not None:
-                want[f"{name}_hd{head_dim}"] += n
+                want[f"{name.replace('_dense', '')}_hd{head_dim}"] += n
     want["plain"] = [0] * len(plains)
     return want
 
@@ -2730,44 +2783,22 @@ def train_parity_phase(torch, dev, packed: bool = False, schedule: str = "compac
     return counts
 
 
-def train_phase(torch, dev, bwd: str, schedule: str = "compact"):
-    """The training slice: 8-layer, full-width qwen3-8b, TRAIN_STEPS AdamW
-    steps on the synthetic stream through flash_cuda with the ``bwd``
-    backward on the ``schedule`` kernels. Returns the main path's launch
-    counts and a summary (losses, median step, tokens/s, MFU, peak memory,
-    profiled busy share, attention's device ms)."""
-    from repro_torch.configs import registry
-    from repro_torch.core.attention import AttentionConfig
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+def run_steps(torch, dev, cfg, attn_cfg, opt_cfg, batches, counters, plains, label: str):
+    """``cfg`` from seed 0 (``init_lm``, AdamW state) through
+    ``build_train_step(cfg, attn_cfg, opt_cfg)``, one host-timed step per
+    batch of ``batches`` (dicts on ``dev``); the launch counts zeroed just
+    before the first step and read after the last. Fails on a non-finite
+    loss or gradient norm or a skipped step. Returns (model, optimizer
+    state, step function, losses, step seconds, launch counts)."""
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models.lm import init_lm
-    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.optimizer import init_opt_state
 
-    cfg = dataclasses.replace(registry.get("qwen3-8b"), num_layers=TRAIN_LAYERS)
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
     model = init_lm(cfg, seed=0, device=dev)
-    params = dict(model.named_parameters())
-    opt_state = init_opt_state(params)
+    opt_state = init_opt_state(dict(model.named_parameters()))
+    step_fn = build_train_step(cfg, attn_cfg, opt_cfg)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.values())
-    label = f"bwd={bwd}" + (f", schedule={schedule}" if schedule != "compact" else "")
-    log(f"training ({label}) qwen3-8b at published widths, {cfg.num_layers} of 36 layers: "
-        f"{n_params / 1e9:.4f} B params ({cfg.dtype}, remat {cfg.remat}), f32 master + mu + "
-        f"nu; set up in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
-    data = SyntheticLM(DataConfig(batch_size=TRAIN_B, seq_len=TRAIN_S,
-                                  vocab_size=cfg.vocab_size, seed=0))
-    step_fn = build_train_step(cfg, AttentionConfig(impl="flash_cuda", bwd=bwd, schedule=schedule),
-                               AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS))
-    batches = []
-    for step in range(TRAIN_STEPS):
-        inputs, targets = data.batch(step)
-        batches.append({"inputs": torch.from_numpy(inputs).to(dev),
-                        "targets": torch.from_numpy(targets).to(dev)})
-    counters, plains = kernel_counters()
     zero_counts(counters, plains)
-    torch.cuda.synchronize()
     losses, times = [], []
     for step, batch in enumerate(batches):
         t_step = time.perf_counter()
@@ -2779,12 +2810,42 @@ def train_phase(torch, dev, bwd: str, schedule: str = "compact"):
             f"lr {m['lr']:.3e} skipped {m['skipped']:.0f}, {times[-1] * 1e3:.1f} ms")
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])) or m["skipped"]:
             fail(f"training step {step} ({label}) gave a non-finite loss or gradient norm")
-    counts = read_counts(counters, plains)
+    return model, opt_state, step_fn, losses, times, read_counts(counters, plains)
+
+
+def train_phase(torch, dev, bwd: str, schedule: str = "compact"):
+    """The training slice: 8-layer, full-width qwen3-8b, TRAIN_STEPS AdamW
+    steps on the synthetic stream through flash_cuda with the ``bwd``
+    backward on the ``schedule`` kernels (``run_steps``). Returns the main
+    path's launch counts and a summary (losses, median step, tokens/s, MFU,
+    peak memory, profiled busy share, attention's device ms)."""
+    from repro_torch.configs import registry
+    from repro_torch.core.attention import AttentionConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+
+    cfg = dataclasses.replace(registry.get("qwen3-8b"), num_layers=TRAIN_LAYERS)
+    label = f"bwd={bwd}" + (f", schedule={schedule}" if schedule != "compact" else "")
+    data = SyntheticLM(DataConfig(batch_size=TRAIN_B, seq_len=TRAIN_S,
+                                  vocab_size=cfg.vocab_size, seed=0))
+    batches = []
+    for step in range(TRAIN_STEPS):
+        inputs, targets = data.batch(step)
+        batches.append({"inputs": torch.from_numpy(inputs).to(dev),
+                        "targets": torch.from_numpy(targets).to(dev)})
+    counters, plains = kernel_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, opt_state, step_fn, losses, times, counts = run_steps(
+        torch, dev, cfg, AttentionConfig(impl="flash_cuda", bwd=bwd, schedule=schedule),
+        AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS), batches, counters, plains, label)
+    n_params = sum(p.numel() for p in model.parameters())
     peak = torch.cuda.max_memory_allocated(dev)
     med = sorted(times)[len(times) // 2]
     tokens = TRAIN_B * TRAIN_S
     mfu = train_model_flops(cfg, TRAIN_B, TRAIN_S) / med / PEAK_BF16_FLOPS
-    log(f"training ({label}): losses {[round(x, 5) for x in losses]}; median step "
+    log(f"training ({label}) qwen3-8b at published widths, {cfg.num_layers} of 36 layers, "
+        f"{n_params / 1e9:.4f} B params ({cfg.dtype}, remat {cfg.remat}), f32 master + mu + nu: "
+        f"losses {[round(x, 5) for x in losses]}; median step "
         f"{med * 1e3:.1f} ms (first {times[0] * 1e3:.1f} ms), {tokens / med:.1f} tokens/s, model "
         f"FLOPs {train_model_flops(cfg, TRAIN_B, TRAIN_S) / 1e12:.3f} TFLOP a step, MFU "
         f"{mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; max_memory_allocated "
@@ -2800,7 +2861,7 @@ def train_phase(torch, dev, bwd: str, schedule: str = "compact"):
     busy, attn_ms = profile_train_step(torch, step_fn, model, opt_state, batches[0], med)
     log(f"attention device time per step ({label}): " + (
         "not measured" if attn_ms is None else f"{attn_ms:.3f} ms of the profiled step"))
-    del model, params, opt_state, batches
+    del model, opt_state, batches
     return counts, dict(losses=losses, median_ms=med * 1e3, tokens_per_s=tokens / med, mfu=mfu,
                         peak_gib=peak / 2**30, busy_share=busy, attention_ms=attn_ms)
 
@@ -4061,6 +4122,172 @@ def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False)
     return counts, summaries
 
 
+def dense_ptxas_check(ptxas: str) -> None:
+    """The dense instantiations at head_dim 256 and 160 (forward, fused,
+    dK/dV, dQ; without and with SEG) against their compact twins in the
+    ptxas summary: no more spill bytes; and no instantiation of any kernel
+    with its wgmma serialised."""
+    import re
+
+    rows = {}
+    for line in ptxas.splitlines():
+        m = re.match(r"\s*\S+ (fa2_\w+<[\d,]+>): (\d+) registers, spill stores (\d+) B, "
+                     r"loads (\d+) B(.*)", line)
+        if m:
+            rows[m.group(1)] = (int(m.group(2)), int(m.group(3)), int(m.group(4)),
+                                "serialized" in m.group(5))
+    for D in (256, 160):
+        for seg in (0, 1):
+            pairs = [(f"fa2_fwd_kernel<{D},{seg},0,1>", f"fa2_fwd_kernel<{D},{seg},0,0>")]
+            pairs += [(f"fa2_bwd_{k}_kernel<{D},{seg},1>", f"fa2_bwd_{k}_kernel<{D},{seg},0>")
+                      for k in ("fused", "dkv", "dq")]
+            for dense, compact in pairs:
+                if dense not in rows or compact not in rows:
+                    fail(f"ptxas reported no {dense} or no {compact}")
+                d, c = rows[dense], rows[compact]
+                log(f"ptxas {dense}: {d[0]} registers, spill stores {d[1]} B, loads {d[2]} B, "
+                    f"wgmma serialized {d[3]}; compact twin {c[0]} registers, {c[1]} B, {c[2]} B")
+                if d[3] or d[1] > c[1] or d[2] > c[2]:
+                    fail(f"{dense} spills more than {compact} or has serialised wgmma")
+    serialised = [k for k, row in rows.items() if row[3]]
+    if serialised:
+        fail(f"ptxas serialised the wgmma of {serialised}")
+
+
+def dense_by_dim(counts: dict, D: int) -> dict:
+    """A dense-schedule run's launch counts with its head_dim-``D`` launches
+    under the dense entries' names: each ``<name>_hd{D}`` count but delta's
+    (the wrappers count both schedules there; delta has one form) moves to
+    ``<name>_dense_hd{D}``, and the unsegmented forward's dense launches,
+    which it does not count by head dim, go to ``flash_fwd_dense_hd{D}``."""
+    out = dict(counts)
+    for k in counts:
+        if k.endswith(f"_hd{D}") and not k.startswith("flash_bwd_delta"):
+            out[k.replace(f"_hd{D}", f"_dense_hd{D}")] = out[k]
+            out[k] = 0
+    out[f"flash_fwd_dense_hd{D}"] = counts["flash_fwd_dense"]
+    return out
+
+
+def gemma3_dense_train_phase(torch, dev):
+    """gemma3-1b at its published widths and depth (26 layers) on the dense
+    schedule at B 4, S 2048 (``model_dense_train_phase``)."""
+    from repro_torch.configs import registry
+
+    return model_dense_train_phase(torch, dev, registry.get("gemma3-1b"), G3_TRAIN_B, G3_TRAIN_S,
+                                   G3_TRAIN_STEPS)
+
+
+def stablelm_dense_train_phase(torch, dev):
+    """stablelm-12b at its published widths, SL_TRAIN_LAYERS of 40 layers,
+    on the dense schedule at B 2, S 2048 (``model_dense_train_phase``)."""
+    from repro_torch.configs import registry
+
+    cfg = dataclasses.replace(registry.get("stablelm-12b"), num_layers=SL_TRAIN_LAYERS)
+    return model_dense_train_phase(torch, dev, cfg, SL_TRAIN_B, SL_TRAIN_S, SL_TRAIN_STEPS)
+
+
+def model_dense_train_phase(torch, dev, cfg, B, S, steps):
+    """``cfg`` (bf16, remat, seed 0) trained ``steps`` AdamW steps through
+    launch/steps.build_train_step(cfg, AttentionConfig(impl="flash_cuda",
+    bwd=..., schedule="dense"), ...) (``run_steps``), each run beside its compact
+    counterpart through the same loop in this call, from the same seed and
+    batches: on the synthetic stream with the split backward (every step's
+    loss bitwise the compact run's) and with the fused one (step 0's loss
+    equal, every later step within GPT_LOSS_REL: the dQ bulk reductions add
+    in no fixed order), and on the packed source's batches with the split
+    backward (every step bitwise). Every run's launches exact (per step the
+    forward twice a layer of the remat groups and once a tail layer, delta
+    once a layer, the fused kernel or dK/dV and dQ once a layer, all at
+    cfg.head_dim; the dense runs through the dense kernels only, the compact
+    ones through the compact kernels only; no plain version). The two
+    unpacked split runs are each profiled one more step: busy share,
+    attention's device ms and share. Returns ({run: launch counts} of the
+    dense runs, {run: summary} of all six)."""
+    from repro_torch.core.attention import AttentionConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, SyntheticVarlenLM
+    from repro_torch.training.optimizer import AdamWConfig
+
+    arch, D = cfg.name, cfg.head_dim
+    opt_cfg = AdamWConfig(warmup_steps=2, total_steps=steps)
+    grouped = cfg.num_groups * cfg.group_size
+    forwards = steps * (2 * grouped + cfg.num_layers - grouped)
+    flops = train_model_flops(cfg, B, S)
+    synthetic = SyntheticLM(DataConfig(B, S, cfg.vocab_size, seed=0))
+    packed_src = SyntheticVarlenLM(DataConfig(B, S, cfg.vocab_size, seed=0, source="packed"))
+
+    def batches(packed):
+        out = []
+        for step in range(steps):
+            if packed:
+                b = packed_src.batch(step)
+            else:
+                inputs, targets = synthetic.batch(step)
+                b = {"inputs": inputs, "targets": targets}
+            out.append({k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+        return out
+
+    counters, plains = kernel_counters()
+    counts, summaries = {}, {}
+    for bwd, packed in (("split", False), ("fused", False), ("split", True)):
+        data = batches(packed)
+        runs = {}
+        for schedule in ("compact", "dense"):
+            key = f"{'packed ' if packed else ''}{bwd} {schedule}"
+            what = f"{arch} training ({key})"
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            model, opt_state, step_fn, losses, times, run_counts = run_steps(
+                torch, dev, cfg, AttentionConfig(impl="flash_cuda", bwd=bwd, schedule=schedule),
+                opt_cfg, data, counters, plains, what)
+            med = sorted(times)[steps // 2]
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            runs[schedule] = dict(losses=losses, median_ms=med * 1e3, tokens_per_s=B * S / med,
+                                  mfu=flops / med / PEAK_BF16_FLOPS, peak_gib=peak,
+                                  busy_share=None, attention_ms=None)
+            log(f"{what}, {cfg.num_layers} layers, B={B} S={S}: losses "
+                f"{[round(x, 5) for x in losses]}; median step {med * 1e3:.1f} ms (first "
+                f"{times[0] * 1e3:.1f} ms), {B * S / med:.1f} tokens/s, MFU "
+                f"{runs[schedule]['mfu']:.4f}, max_memory_allocated {peak:.2f} GiB")
+            log(f"launches on the {what} path: {run_counts}")
+            suffix = ("_varlen" if packed else "") + ("_dense" if schedule == "dense" else "")
+            want = training_want(counters, plains, steps * cfg.num_layers, (bwd,), suffix,
+                                 head_dim=D, forwards=forwards)
+            if run_counts != want:
+                fail(f"{what} launches {run_counts}, want {want}")
+            if schedule == "dense":
+                counts[key] = run_counts
+            if bwd == "split" and not packed:
+                busy, attn_ms = profile_train_step(torch, step_fn, model, opt_state, data[0], med)
+                share = None if attn_ms is None else attn_ms / (busy * med * 1e3)
+                runs[schedule].update(busy_share=busy, attention_ms=attn_ms, attention_share=share)
+                log(f"attention device time per {what} step: " + (
+                    "not measured" if attn_ms is None else f"{attn_ms:.3f} ms of the profiled "
+                    f"step, {share:.4f} of its device busy time"))
+            del model, opt_state, step_fn
+        c, d = runs["compact"]["losses"], runs["dense"]["losses"]
+        label = f"{arch} {'packed ' if packed else ''}training, bwd={bwd}"
+        log(summary_line(f"{label}, dense against compact schedule (this loop, this call)",
+                         runs["dense"], runs["compact"]))
+        if bwd == "split":
+            same = [a == b for a, b in zip(d, c)]
+            log(f"{label}: every step's dense loss bitwise the compact run's: {same}")
+            if not all(same):
+                fail(f"{label}: the dense schedule's losses are not the compact run's to the bit")
+        else:
+            rel = [abs(a - b) / abs(b) for a, b in zip(d, c)]
+            log(f"{label}: dense against compact loss, relative by step "
+                + ", ".join(f"{r:.3e}" for r in rel)
+                + f" (step 0 exact, every step {GPT_LOSS_REL})")
+            if d[0] != c[0] or max(rel) > GPT_LOSS_REL:
+                fail(f"{label}: the dense schedule's losses are not the compact run's")
+        for schedule, summary in runs.items():
+            summaries[f"{'packed ' if packed else ''}{bwd} {schedule}"] = summary
+        del data
+    return counts, summaries
+
+
 def main() -> None:
     import torch
 
@@ -4087,13 +4314,15 @@ def main() -> None:
     log("ptxas, registers and spills by kernel instantiation (registers at entry; the "
         "forward's, the KV-stationary backward's and the dq kernel's warpgroups then run at 24 "
         "(producer) and 240 (consumers) by setmaxnreg):\n" + ptxas)
+    dense_ptxas_check(ptxas)
 
     scratch = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     results = kernel_phase(torch, dev, scratch.zero_)
     results.update(paged_kernel_phase(torch, dev, scratch.zero_))
     results.update(bwd_kernel_phase(torch, dev, scratch.zero_))
     results.update(varlen_kernel_phase(torch, dev, scratch.zero_))
-    results.update(dense_kernel_phase(torch, dev, scratch.zero_))
+    results.update(dense_kernel_phase(torch, dev, scratch.zero_, HD, HQ, HKV, TRAIN_B, TRAIN_S,
+                                      {"causal": dict(causal=True)}, seed=17))
     results.update(whisper_kernel_phase(torch, dev, scratch.zero_))
     results.update(bwd_hd64_kernel_phase(torch, dev, scratch.zero_))
     results.update(hd256_kernel_phase(torch, dev, scratch.zero_))
@@ -4104,6 +4333,12 @@ def main() -> None:
         results[k]["at_granite_shape"] = row
     results.update(hd256_bwd_kernel_phase(torch, dev, scratch.zero_))
     results.update(hd160_bwd_kernel_phase(torch, dev, scratch.zero_))
+    results.update(dense_kernel_phase(  # gemma3-1b's and stablelm-12b's training shapes
+        torch, dev, scratch.zero_, G3_D, G3_HQ, G3_HKV, G3_TRAIN_B, G3_TRAIN_S,
+        {"causal": dict(causal=True), "window": dict(causal=True, window=G3_WINDOW)}, G3_VOCAB,
+        seed=31))
+    results.update(dense_kernel_phase(torch, dev, scratch.zero_, SL_D, SL_HQ, SL_HKV, SL_TRAIN_B,
+                                      SL_TRAIN_S, {"causal": dict(causal=True)}, SL_VOCAB, seed=32))
     default_split_phase(torch, dev)
     del scratch
     whisper_counts, whisper_summary = whisper_phase(torch, dev)
@@ -4172,6 +4407,12 @@ def main() -> None:
     sl_packed_counts, sl_packed_summaries = stablelm_train_phase(torch, dev, packed=True)
     log(summary_line("stablelm-12b packed against unpacked training (fused, this call)",
                      sl_packed_summaries["fused"], sl_train_summaries["fused"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    g3_dense_counts, g3_dense_summaries = gemma3_dense_train_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sl_dense_counts, sl_dense_summaries = stablelm_dense_train_phase(torch, dev)
 
     results["flash_fwd"]["at_training_shape"] = results.pop("flash_fwd_at_training_shape")
     ptxas_of = {"flash_decode_hd256": "fa2_decode_kernel<256,0>",
@@ -4181,12 +4422,13 @@ def main() -> None:
                 "flash_decode_paged_hd64": "fa2_decode_paged_kernel<64>",
                 "flash_bwd_delta_hd256": "fa2_bwd_delta_kernel<256>",
                 "flash_bwd_delta_hd160": "fa2_bwd_delta_kernel<160>"}
-    for D in (256, 160):  # the compact kernels, unsegmented (SEG 0) and SEG (1)
+    for D in (256, 160):  # compact (DENSE 0) and dense (1), unsegmented (SEG 0) and SEG (1)
         for seg, suffix in ((0, ""), (1, "_varlen")):
-            ptxas_of[f"flash_fwd{suffix}_hd{D}"] = f"fa2_fwd_kernel<{D},{seg},0,0>"
-            for kernel in ("fused", "dkv", "dq"):
-                ptxas_of[f"flash_bwd_{kernel}{suffix}_hd{D}"] = (
-                    f"fa2_bwd_{kernel}_kernel<{D},{seg},0>")
+            for dense, sched in ((0, ""), (1, "_dense")):
+                ptxas_of[f"flash_fwd{suffix}{sched}_hd{D}"] = f"fa2_fwd_kernel<{D},{seg},0,{dense}>"
+                for kernel in ("fused", "dkv", "dq"):
+                    ptxas_of[f"flash_bwd_{kernel}{suffix}{sched}_hd{D}"] = (
+                        f"fa2_bwd_{kernel}_kernel<{D},{seg},{dense}>")
     for k, inst in ptxas_of.items():
         results[k]["ptxas"] = [line.split(": ", 1)[1] for line in ptxas.splitlines()
                                if inst in line]
@@ -4252,7 +4494,15 @@ def main() -> None:
                 "flash_bwd_dkv_varlen_hd160": "src/repro/kernels/flash_bwd.py:234",
                 "flash_bwd_dq_varlen_hd160": "src/repro/kernels/flash_bwd.py:459",
                 # The paged decode at head_dim 64 (granite-moe-1b-a400m serving).
-                "flash_decode_paged_hd64": "src/repro/kernels/flash_decode.py:250"}
+                "flash_decode_paged_hd64": "src/repro/kernels/flash_decode.py:250",
+                # The dense bodies (and their segment branches) at head_dim 256
+                # and 160 (dense-schedule training of gemma3-1b and stablelm-12b).
+                **{f"{n}{sfx}_dense_hd{D}": f"src/repro/kernels/{path}"
+                   for D in (256, 160) for sfx in ("", "_varlen")
+                   for n, path in (("flash_fwd", "flash_fwd.py:206"),
+                                   ("flash_bwd_fused", "flash_bwd.py:633"),
+                                   ("flash_bwd_dkv", "flash_bwd.py:157"),
+                                   ("flash_bwd_dq", "flash_bwd.py:390"))}}
     source = {"flash_fwd": "flash_fwd", "flash_decode": "flash_decode",
               "flash_decode_paged": "flash_decode", "flash_bwd_delta": "flash_bwd",
               "flash_bwd_fused": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
@@ -4283,7 +4533,11 @@ def main() -> None:
              "training_gemma3_packed_split": g3_packed_counts["split"],
              "training_stablelm_packed": sl_packed_counts["fused"],
              "training_stablelm_packed_split": sl_packed_counts["split"],
-             "granite_serving": gr_counts, "granite_paged_serving": gr_paged_counts}
+             "granite_serving": gr_counts, "granite_paged_serving": gr_paged_counts,
+             **{f"training_{arch}_{key.replace(' dense', '').replace(' ', '_')}_dense":
+                dense_by_dim(c, D) for arch, D, runs in (("gemma3", 256, g3_dense_counts),
+                                                         ("stablelm", 160, sl_dense_counts))
+                for key, c in runs.items()}}
     # An entry named "_hd64" ("_hd160", "_hd256") counts its kernel's
     # launches at head dim 64 (160, 256), and the entry of the same kernel
     # without the suffix the other launches. The backward wrappers and the
@@ -4337,6 +4591,8 @@ def main() -> None:
     log(f"stablelm-12b training: {json.dumps(sl_train_summaries)}")
     log(f"gemma3-1b packed training: {json.dumps(g3_packed_summaries)}")
     log(f"stablelm-12b packed training: {json.dumps(sl_packed_summaries)}")
+    log(f"gemma3-1b dense-schedule training: {json.dumps(g3_dense_summaries)}")
+    log(f"stablelm-12b dense-schedule training: {json.dumps(sl_dense_summaries)}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -90,8 +90,8 @@
 // dK/dV stay bitwise the fused kernel's. Shared memory falls to about 132
 // KB; still one CTA an SM. The dq and delta kernels take D the same way.
 //
-// Head_dim 256 (gemma3-1b training) is instantiated compact only, without
-// and with SEG (the DENSE forms refuse it), with one change of shape in the
+// Head_dim 256 (gemma3-1b training) is instantiated in every mode (compact
+// and DENSE, without and with SEG), with one change of shape in the
 // KV-stationary and dq kernels, the `HALF` flag: a 64 x 256 f32 accumulator
 // is 128 registers a consumer thread, so a pair's dK and dV (256) cannot fit
 // setmaxnreg's 240, and a pair's K and V (128 KB) with a 2-stage Q/dO ring
@@ -120,8 +120,8 @@
 //     of the tile (64 KB) and a 2-stage K/V ring (128 KB): 194 KB. dQ is
 //     still written once, without atomics, so bwd="split" stays bitwise the
 //     same from launch to launch.
-// Head_dim 160 (stablelm-12b training), again compact only (without and
-// with SEG), is not a whole number of 64-column TMA boxes. A 64-row tile is
+// Head_dim 160 (stablelm-12b training), again in every mode, is not a
+// whole number of 64-column TMA boxes. A 64-row tile is
 // the forward's layout at 160 (csrc/flash_fwd.cu): two 128-byte-swizzled boxes
 // and a tail box of the last 32 columns, 64-byte swizzled, through a second
 // tensor map per operand (load_tile, 20 KB a tile, every expect_tx the
@@ -282,6 +282,12 @@
 // come in the compact order with the compact mask decisions, so dense dK,
 // dV and split dQ are the compact kernels' to the bit; the dense fused dQ
 // goes through the same bulk reductions and agrees up to their order.
+// At 160 and 256 (HALF in the KV-stationary kernels, and the dq kernel at
+// 256) a CTA owns one tile, so the producer classifies that one only (and
+// with SEG reduces only its ids); both warpgroups take its flags, as they
+// take the table's on the compact schedule. The dq kernel at 160 keeps the
+// pair of q tiles and classifies both. The consumers' step bodies are the
+// compact ones, SEG element mask included, so nothing in them changes.
 //
 // The delta kernel is plain CUDA (16-byte loads and shuffles): it is bound
 // by HBM and needs no tensor core. A CTA of 256 threads takes R positions
@@ -603,12 +609,11 @@ __device__ __forceinline__ void wg_rs_k64(float (&d)[DC / 2], const uint32_t (&a
 // The KV-stationary body: with DQ, the fused kernel; without, the dkv
 // kernel (no dS buffer, no dQ product, no staging; dK and dV bitwise the
 // same). SEG: the segment variant of either. DENSE: every q tile, no table.
-// D: head_dim, 64 or 128, or 160 and 256 compact, with and without SEG
-// (HALF below).
+// D: head_dim, 64, 128, 160 or 256 (at 160 and 256 HALF below).
 template <int D, bool DQ, bool SEG, bool DENSE>
 __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps& maps) {
-  static_assert(D == 64 || D == 128 || ((D == 160 || D == 256) && !DENSE),
-                "the KV-stationary kernels take head_dim 64 or 128, and 160 and 256 compact");
+  static_assert(D == 64 || D == 128 || D == 160 || D == 256,
+                "the KV-stationary kernels take head_dim 64, 128, 160 or 256");
   using L = KvSmem<D, DQ>;
   constexpr int S = L::STAGES;
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are skipped before their fetch
@@ -693,11 +698,17 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         load_tile<D, L::BOX>(sm + L::V, maps.v, maps.v_tail, kv_bar, hk, k0, b);
       }
       const int* qid_g = SEG ? p.q_seg + b * p.q_seg_sb : nullptr;
-      int kv_lo[2] = {0, 0}, kv_hi[2] = {0, 0};  // DENSE with SEG: each tile's id range
-      if (DENSE && SEG) {
+      // DENSE with SEG: the id range of each kv tile the CTA owns (HALF:
+      // one), read here once, but under HALF by the fused kernel only; the
+      // dK/dV kernel with HALF reduces it from sKvid at every step (below).
+      int kv_lo[2] = {0, 0}, kv_hi[2] = {0, 0};
+      if (DENSE && SEG && (DQ || !HALF)) {
         const int* kvid_g = p.kv_seg + b * p.kv_seg_sb;
+#pragma unroll
         for (int x = 0; x < 2; ++x)
-          id_range<kBlockN>(kvid_g, k0 + x * kBlockN, p.Skv, kKvPadSegment, kv_lo[x], kv_hi[x]);
+          if (x == 0 || has1)
+            id_range<kBlockN>(kvid_g, k0 + x * kBlockN, p.Skv, kKvPadSegment, kv_lo[x],
+                              kv_hi[x]);
       }
       int g, qt, ea, eb;
       // (A `break` out of this loop crashes ptxas 12.9; the loop ends on `more`.)
@@ -735,8 +746,10 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
           if (SEG) {
             const int id = qr < p.Sq ? qid_g[qr] : kQPadSegment;
             sQid[stage * BM + r] = id;
-            lo = min(lo, id);
-            hi = max(hi, id);
+            if (!HALF) {
+              lo = min(lo, id);
+              hi = max(hi, id);
+            }
           }
         }
         // Which tiles take the step, and which need the element mask: the
@@ -744,19 +757,49 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         // SEG on both tiles' id ranges).
         int flags = 0;
         if (DENSE) {
-          TileClass c0 = classify_tile(p, q0 + p.q_offset, k0);
-          TileClass c1 = classify_tile(p, q0 + p.q_offset, k0 + kBlockN);
+          // With SEG the warp reduces the staged q tile's id range (under
+          // HALF here, from sQid; else in the staging loop) and, with HALF,
+          // the dK/dV kernel its kv tile's. Then the CTA's own tiles are
+          // classified (under HALF, has1 false, one, whose flags both
+          // warpgroups take), with HALF by lane 0 alone, the only lane that
+          // writes the record. Under HALF these placements are ptxas's: with
+          // the classifier in every lane it serialised the fused kernel's
+          // wgmma at 160, and with the q range reduced in the staging loop,
+          // the dK/dV kernel's kv range held in registers or the fused
+          // kernel's reduced here, the kernels spilled beyond their compact
+          // twins or serialised the fused kernel's wgmma at 160. The pair
+          // kernels (64, 128) keep the other placements: with these their
+          // dense dK/dV ran slower, timed in turns against them.
           if (SEG) {
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-              lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-              hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+            if (HALF) {
+              __syncwarp();
+              for (int r = lane; r < BM; r += 32) {
+                lo = min(lo, sQid[stage * BM + r]);
+                hi = max(hi, sQid[stage * BM + r]);
+              }
             }
-            c0 = with_ids(c0, lo, hi, kv_lo[0], kv_hi[0]);
-            c1 = with_ids(c1, lo, hi, kv_lo[1], kv_hi[1]);
+            warp_range(lo, hi);
+            if (!DQ && HALF) {
+#pragma unroll
+              for (int x = 0; x < 2; ++x) {
+                if (x == 1 && !has1) continue;
+                kv_lo[x] = min(sKvid[x * kBlockN + lane], sKvid[x * kBlockN + 32 + lane]);
+                kv_hi[x] = max(sKvid[x * kBlockN + lane], sKvid[x * kBlockN + 32 + lane]);
+                warp_range(kv_lo[x], kv_hi[x]);
+              }
+            }
           }
-          if (!c0.empty) flags |= kTake0 | (c0.mask ? kMask0 : 0);
-          if (has1 && !c1.empty) flags |= kTake1 | (c1.mask ? kMask1 : 0);
+          if (!HALF || lane == 0) {
+            TileClass c0 = classify_tile(p, q0 + p.q_offset, k0);
+            TileClass c1 = {true, false};
+            if (has1) c1 = classify_tile(p, q0 + p.q_offset, k0 + kBlockN);
+            if (SEG) {
+              c0 = with_ids(c0, lo, hi, kv_lo[0], kv_hi[0]);
+              if (has1) c1 = with_ids(c1, lo, hi, kv_lo[1], kv_hi[1]);
+            }
+            if (!c0.empty) flags |= kTake0 | (c0.mask ? kMask0 : 0);
+            if (has1 && !c1.empty) flags |= kTake1 | (c1.mask ? kMask1 : 0);
+          }
         } else {
           if (ea >= 0)
             flags |= kTake0 | ((walk.steps[ea] & 1) || (SEG && !(walk.bits[ea] & kSegUniform))
@@ -1073,8 +1116,8 @@ struct DqSmem {
 template <int D, bool SEG, bool DENSE>
 __global__ void __launch_bounds__(kKvThreads, 1)
     fa2_bwd_dq_kernel(const BwdParams p, const __grid_constant__ BwdMaps maps) {
-  static_assert(D == 64 || D == 128 || ((D == 160 || D == 256) && !DENSE),
-                "the dq kernel takes head_dim 64 or 128, and 160 and 256 compact");
+  static_assert(D == 64 || D == 128 || D == 160 || D == 256,
+                "the dq kernel takes head_dim 64, 128, 160 or 256");
   using L = DqSmem<D>;
   constexpr int kDqStages = L::STAGES;
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are dropped before their fetch
@@ -1160,10 +1203,14 @@ __global__ void __launch_bounds__(kKvThreads, 1)
       walk.ia = walk.a0;
       walk.ib = walk.b0;
       const int* kid_g = SEG ? p.kv_seg + b * p.kv_seg_sb : nullptr;
-      int q_lo[2] = {0, 0}, q_hi[2] = {0, 0};  // DENSE with SEG: each q tile's id range
+      // DENSE with SEG: the id range of each q tile the CTA owns (HALF: one;
+      // has1 is uniform in the warp, so warp_range's shuffles see every lane).
+      int q_lo[2] = {0, 0}, q_hi[2] = {0, 0};
       if (DENSE && SEG) {
         const int* qid_g = p.q_seg + b * p.q_seg_sb;
+#pragma unroll
         for (int x = 0; x < 2; ++x) {
+          if (x == 1 && !has1) continue;
           int lo = 0x7fffffff, hi = -0x7fffffff;
           for (int r = (i0 + x) * BM + lane; r < (i0 + x + 1) * BM; r += 32) {
             const int id = r < p.Sq ? qid_g[r] : kQPadSegment;
@@ -1480,17 +1527,11 @@ cudaError_t launch_kv(const BwdParams& p, int batch, int t_kv, void* stream) {
 template <int D, bool DQ>
 cudaError_t dispatch_kv(const BwdParams& p, int batch, int t_kv, bool seg, bool dense,
                         void* stream) {
-  if constexpr (D == 160 || D == 256) {  // compact only (ROADMAP.md queue 2, item 2)
-    if (dense) return cudaErrorInvalidValue;
-    return seg ? launch_kv<D, DQ, true, false>(p, batch, t_kv, stream)
-               : launch_kv<D, DQ, false, false>(p, batch, t_kv, stream);
-  } else {
-    if (dense)
-      return seg ? launch_kv<D, DQ, true, true>(p, batch, t_kv, stream)
-                 : launch_kv<D, DQ, false, true>(p, batch, t_kv, stream);
-    return seg ? launch_kv<D, DQ, true, false>(p, batch, t_kv, stream)
-               : launch_kv<D, DQ, false, false>(p, batch, t_kv, stream);
-  }
+  if (dense)
+    return seg ? launch_kv<D, DQ, true, true>(p, batch, t_kv, stream)
+               : launch_kv<D, DQ, false, true>(p, batch, t_kv, stream);
+  return seg ? launch_kv<D, DQ, true, false>(p, batch, t_kv, stream)
+             : launch_kv<D, DQ, false, false>(p, batch, t_kv, stream);
 }
 
 template <bool DQ>
@@ -1522,21 +1563,15 @@ cudaError_t launch_dq(const BwdParams& p, int batch, void* stream) {
 
 template <int D>
 cudaError_t dispatch_dq(const BwdParams& p, int batch, bool seg, bool dense, void* stream) {
-  if constexpr (D == 160 || D == 256) {  // compact only (ROADMAP.md queue 2, item 2)
-    if (dense) return cudaErrorInvalidValue;
-    return seg ? launch_dq<D, true, false>(p, batch, stream)
-               : launch_dq<D, false, false>(p, batch, stream);
-  } else {
-    if (dense)
-      return seg ? launch_dq<D, true, true>(p, batch, stream)
-                 : launch_dq<D, false, true>(p, batch, stream);
-    return seg ? launch_dq<D, true, false>(p, batch, stream)
-               : launch_dq<D, false, false>(p, batch, stream);
-  }
+  if (dense)
+    return seg ? launch_dq<D, true, true>(p, batch, stream)
+               : launch_dq<D, false, true>(p, batch, stream);
+  return seg ? launch_dq<D, true, false>(p, batch, stream)
+             : launch_dq<D, false, false>(p, batch, stream);
 }
 
-// The head dims and tiles the backward kernels are instantiated for (160 and
-// 256: the compact kernels only, without and with segments).
+// The head dims and tiles the backward kernels are instantiated for (every
+// head dim in every mode: compact and dense, without and with segments).
 bool kernel_shape_ok(int head_dim, int block_q, int block_kv) {
   return (head_dim == 64 || head_dim == 128 || head_dim == 160 || head_dim == 256) &&
          block_q == kBlockM && block_kv == kBlockN;
@@ -1580,8 +1615,8 @@ extern "C" int fa2_bwd_delta_bf16(const void* o, const void* dout, void* delta, 
 // The entries below take the instantiations the training paths need
 // (head_dim 128: qwen3; 64: whisper and the gpt presets; 64 x 64 tiles),
 // without and with segments (null q ids: none), on the compact schedule
-// (table, step bits) or the dense one (dense != 0: neither); at head_dims 160
-// (stablelm) and 256 (gemma3) only compact, without and with segments.
+// (table, step bits) or the dense one (dense != 0: neither); the same at
+// head_dims 160 (stablelm) and 256 (gemma3).
 
 extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dq, void* dk,

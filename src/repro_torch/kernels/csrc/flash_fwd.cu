@@ -128,10 +128,11 @@
 //
 // Head dims: every variant is instantiated at 128 (qwen3) and 64
 // (whisper); a 64-row tile is D / 64 TMA boxes of 64 rows x 128 bytes. At
-// 256 (gemma3) and 160 (stablelm, below) the compact single-pass kernel is
-// instantiated, without SEG (the serving prefill's) and with it (packed
-// training's); SPLIT and DENSE refuse both. At 256 the same design needs
-// two changes to fit an SM:
+// 256 (gemma3) and 160 (stablelm, below) the single-pass kernel is
+// instantiated, compact without SEG (the serving prefill's) and with it
+// (packed training's), and DENSE without and with SEG (dense-schedule
+// training); SPLIT refuses both. At 256 the same design needs two changes
+// to fit an SM:
 //   * registers: a consumer's O is 64 x 256 f32, 128 registers a thread;
 //     with Q as register fragments (64 more), S (32) and P (16) it would
 //     exceed setmaxnreg's 240. So Q stays in shared memory and S = Q K^T
@@ -145,7 +146,7 @@
 //     step are not hidden behind a whole step.
 // At gemma3's prefill (B 1, S 1536, 4 q heads: 48 CTAs on 132 SMs) the 256
 // kernel takes about 14x its bound, 1.54x SDPA's forward (PERF.md row 1g).
-// At 160 (stablelm-12b), again the compact single pass only, 160 is not a
+// At 160 (stablelm-12b), again the single pass only, 160 is not a
 // whole number of 64-column boxes. Of the two layouts a tile
 // could take, three 128-byte-swizzled boxes (the third half past the
 // tensor, zero-filled by TMA: 24 KB a tile, a 3-stage ring, P V as n128 +
@@ -166,6 +167,16 @@
 // acts on S's n64 fragment only, never on O's (the n128 + n32 or 2 x n128
 // P V products); a consumer adds its two q ids to O's registers, and each
 // stage's 64 kv ids (256 bytes) sit beside its step record.
+// DENSE at 160 and 256 (with and without SEG) is the 64/128 code unchanged
+// too: only the producer walks and classifies, the consumers read records.
+// The 2-stage ring at 256 holds under it: a warpgroup holds at most the
+// pending step's stage and the current one and frees them in the order it
+// took them (the pending one after the step's softmax, or at once when its
+// tile skips the step), so when both warpgroups have read step n's record
+// step n - 1's stage is free, and that is the one the producer waits on
+// for step n + 1. Long runs of steps hidden from both tiles (past the
+// diagonal, outside the window) are fetched and freed one a step. The
+// stages' kv ids fit beside the ring at 256 (512 bytes of 232,448).
 
 #include <math.h>
 
@@ -297,8 +308,8 @@ __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
 template <int D, bool SEG, bool SPLIT, bool DENSE>
 __global__ void __launch_bounds__(kThreads, 1)
     fa2_fwd_kernel(const FwdParams p, const __grid_constant__ FwdMaps maps) {
-  static_assert(D == 64 || D == 128 || ((D == 160 || D == 256) && !SPLIT && !DENSE),
-                "the forward takes head_dim 64 or 128, and 160 and 256 compact single-pass");
+  static_assert(D == 64 || D == 128 || ((D == 160 || D == 256) && !SPLIT),
+                "the forward takes head_dim 64 or 128, and 160 and 256 single-pass");
   using L = FwdSmem<D>;
   constexpr int kStages = L::STAGES;
   constexpr bool QSS = D == 256;  // Q read from shared memory by every S = Q K^T
@@ -752,14 +763,14 @@ cudaError_t launch(const FwdParams& p, int batch, int Hkv, cudaStream_t stream,
 template <int D>
 cudaError_t dispatch(const FwdParams& p, int batch, int Hkv, bool seg, bool split, bool dense,
                      cudaStream_t s, __nv_bfloat16* of, float* lf) {
-  if constexpr (D == 160 || D == 256) {  // compact single pass only (ROADMAP.md queue 2, item 2)
-    if (split || dense) return cudaErrorInvalidValue;
+  if (dense)
+    return seg ? launch<D, true, false, true>(p, batch, Hkv, s, of, lf)
+               : launch<D, false, false, true>(p, batch, Hkv, s, of, lf);
+  if constexpr (D == 160 || D == 256) {  // single pass only (ROADMAP.md queue 2, item 2)
+    if (split) return cudaErrorInvalidValue;
     return seg ? launch<D, true, false>(p, batch, Hkv, s, of, lf)
                : launch<D, false, false>(p, batch, Hkv, s, of, lf);
   } else {
-    if (dense)
-      return seg ? launch<D, true, false, true>(p, batch, Hkv, s, of, lf)
-                 : launch<D, false, false, true>(p, batch, Hkv, s, of, lf);
     if (seg)
       return split ? launch<D, true, true>(p, batch, Hkv, s, of, lf)
                    : launch<D, true, false>(p, batch, Hkv, s, of, lf);
@@ -804,8 +815,8 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
   // ids: none); the compact schedule (table; with segments, step bits) or
   // the dense one (no table, no bits); single-pass, or (compact only)
   // split-KV partials (o, lse) folded into (o_fold, lse_fold). Head dims 256
-  // (gemma3) and 160 (stablelm): the compact single pass, without and with
-  // segments.
+  // (gemma3) and 160 (stablelm): the single pass, compact and dense, without
+  // and with segments.
   if (block_q != kBlockM || block_kv != kBlockN || ks < 1 || t_q < 1) return cudaErrorInvalidValue;
   if (split && (dense || o_fold == nullptr || lse_fold == nullptr))
     return cudaErrorInvalidValue;

@@ -47,8 +47,8 @@ dV, a q tile with none zero dQ. The delta pre-pass is row-wise and serves
 both. Each is the same kernel source instantiated with ``SEG``, so the
 split dK/dV stay bitwise the fused kernel's with segments too; the segment
 kernels are built at every head dim of ``KERNEL_HEAD_DIMS`` (160 and 256
-since packed training of stablelm-12b and gemma3-1b), the dense ones at 64
-and 128 (``SEGMENT_HEAD_DIMS``, ``DENSE_HEAD_DIMS``).
+since packed training of stablelm-12b and gemma3-1b), and so are the dense
+ones (``SEGMENT_HEAD_DIMS``, ``DENSE_HEAD_DIMS``).
 
 Every wrapper takes ``schedule="compact" | "dense"``. The dense one
 replaces the dense bodies of the same three JAX kernels
@@ -83,15 +83,15 @@ from repro_torch.kernels.flash_fwd import (_check_kernel_inputs, _check_layout, 
                                            segment_args)
 from repro_torch.kernels.schedule import check_schedule, device_schedule
 
-# Head dims the backward kernels are instantiated for: 128 (qwen3) and 64
-# (whisper-base, the gpt presets) in every mode; 160 (stablelm-12b) and 256
-# (gemma3-1b) on the compact schedule, without and with segments (their
-# dense mode is ROADMAP.md queue 2, item 2). Each wrapper also counts its
+# Head dims the backward kernels are instantiated for: 128 (qwen3), 64
+# (whisper-base, the gpt presets), 160 (stablelm-12b) and 256 (gemma3-1b),
+# each on the compact and the dense schedule, without and with segments
+# (one tuple a mode, as in the forward). Each wrapper also counts its
 # head_dim-64, 160 and 256 launches apart (``hd64_launches``,
 # ``hd160_launches``, ``hd256_launches``: subsets of its other counts).
 KERNEL_HEAD_DIMS = (64, 128, 160, 256)
 SEGMENT_HEAD_DIMS = (64, 128, 160, 256)
-DENSE_HEAD_DIMS = (64, 128)
+DENSE_HEAD_DIMS = (64, 128, 160, 256)
 MODE_HEAD_DIMS = {"segment": SEGMENT_HEAD_DIMS, "dense": DENSE_HEAD_DIMS}
 
 
@@ -181,8 +181,8 @@ def flash_bwd_fused(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, bl
 flash_bwd_fused.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_fused.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_fused.hd64_launches = 0  # launches of either schedule at head_dim 64
-flash_bwd_fused.hd160_launches = 0  # launches at head_dim 160 (compact only)
-flash_bwd_fused.hd256_launches = 0  # launches at head_dim 256 (compact only)
+flash_bwd_fused.hd160_launches = 0  # launches of either schedule at head_dim 160
+flash_bwd_fused.hd256_launches = 0  # launches of either schedule at head_dim 256
 
 
 def flash_bwd_fused_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, *,
@@ -195,8 +195,8 @@ def flash_bwd_fused_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_se
 flash_bwd_fused_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_fused_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_fused_varlen.hd64_launches = 0  # launches of either schedule at head_dim 64
-flash_bwd_fused_varlen.hd160_launches = 0  # launches at head_dim 160 (compact only)
-flash_bwd_fused_varlen.hd256_launches = 0  # launches at head_dim 256 (compact only)
+flash_bwd_fused_varlen.hd160_launches = 0  # launches of either schedule at head_dim 160
+flash_bwd_fused_varlen.hd256_launches = 0  # launches of either schedule at head_dim 256
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int,
@@ -210,8 +210,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, bloc
 flash_bwd_dkv.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dkv.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_dkv.hd64_launches = 0  # launches of either schedule at head_dim 64
-flash_bwd_dkv.hd160_launches = 0  # launches at head_dim 160 (compact only)
-flash_bwd_dkv.hd256_launches = 0  # launches at head_dim 256 (compact only)
+flash_bwd_dkv.hd160_launches = 0  # launches of either schedule at head_dim 160
+flash_bwd_dkv.hd256_launches = 0  # launches of either schedule at head_dim 256
 
 
 def flash_bwd_dkv_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, *,
@@ -224,8 +224,8 @@ def flash_bwd_dkv_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg,
 flash_bwd_dkv_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dkv_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_dkv_varlen.hd64_launches = 0  # launches of either schedule at head_dim 64
-flash_bwd_dkv_varlen.hd160_launches = 0  # launches at head_dim 160 (compact only)
-flash_bwd_dkv_varlen.hd256_launches = 0  # launches at head_dim 256 (compact only)
+flash_bwd_dkv_varlen.hd160_launches = 0  # launches of either schedule at head_dim 160
+flash_bwd_dkv_varlen.hd256_launches = 0  # launches of either schedule at head_dim 256
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block_kv: int,
@@ -238,8 +238,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, spec: MaskSpec, *, block_q: int, block
 flash_bwd_dq.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dq.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_dq.hd64_launches = 0  # launches of either schedule at head_dim 64
-flash_bwd_dq.hd160_launches = 0  # launches at head_dim 160 (compact only)
-flash_bwd_dq.hd256_launches = 0  # launches at head_dim 256 (compact only)
+flash_bwd_dq.hd160_launches = 0  # launches of either schedule at head_dim 160
+flash_bwd_dq.hd256_launches = 0  # launches of either schedule at head_dim 256
 
 
 def flash_bwd_dq_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, *,
@@ -252,8 +252,8 @@ def flash_bwd_dq_varlen(q, k, v, do, lse, delta, spec: MaskSpec, q_seg, kv_seg, 
 flash_bwd_dq_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_bwd_dq_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 flash_bwd_dq_varlen.hd64_launches = 0  # launches of either schedule at head_dim 64
-flash_bwd_dq_varlen.hd160_launches = 0  # launches at head_dim 160 (compact only)
-flash_bwd_dq_varlen.hd256_launches = 0  # launches at head_dim 256 (compact only)
+flash_bwd_dq_varlen.hd160_launches = 0  # launches of either schedule at head_dim 160
+flash_bwd_dq_varlen.hd256_launches = 0  # launches of either schedule at head_dim 256
 
 
 def _plain_kw(segments, block_q, block_kv, schedule):

@@ -39,10 +39,10 @@ version); the wrapper returns both as a :class:`SplitForward`.
 kernel source instantiated with ``SPLIT``.
 
 The kernels are instantiated at head_dim 64 and 128 in every mode, and at
-160 and 256 in the compact single pass, without and with segments
-(``KERNEL_HEAD_DIMS``, and per mode ``SEGMENT_HEAD_DIMS``,
-``SPLIT_KV_HEAD_DIMS``, ``DENSE_HEAD_DIMS``): the split-KV and dense modes
-refuse 160 and 256 before the launch.
+160 and 256 in the single pass, compact and dense, without and with
+segments (``KERNEL_HEAD_DIMS``, and per mode ``SEGMENT_HEAD_DIMS``,
+``SPLIT_KV_HEAD_DIMS``, ``DENSE_HEAD_DIMS``): the split-KV mode refuses 160
+and 256 before the launch.
 
 ``schedule="dense"`` on :func:`flash_fwd` and :func:`flash_fwd_varlen`
 replaces the dense body ``_fwd_kernel_dense`` (``flash_fwd.py:206``, with
@@ -78,14 +78,15 @@ from repro_torch.kernels.schedule import (build_kv_tile_schedule, build_q_tile_s
 
 # (block_q, block_kv) and head dims the CUDA kernels are instantiated for:
 # 128 (qwen3) and 64 (whisper) in every mode (segments, split-KV, dense);
-# 160 (stablelm) and 256 (gemma3) in the compact single pass, the serving
-# prefill's, and its segment variant, packed training's (their split-KV and
-# dense modes are ROADMAP.md queue 2, item 2). Each mode has its tuple.
+# 160 (stablelm) and 256 (gemma3) in the single pass, compact (the serving
+# prefill's) and dense, each with its segment variant (packed training's;
+# their split-KV mode is ROADMAP.md queue 2, item 2). Each mode has its
+# tuple.
 KERNEL_BLOCKS = ((64, 64),)
 KERNEL_HEAD_DIMS = (64, 128, 160, 256)
 SEGMENT_HEAD_DIMS = (64, 128, 160, 256)
 SPLIT_KV_HEAD_DIMS = (64, 128)
-DENSE_HEAD_DIMS = (64, 128)
+DENSE_HEAD_DIMS = (64, 128, 160, 256)
 MODE_HEAD_DIMS = {"segment": SEGMENT_HEAD_DIMS, "split-KV": SPLIT_KV_HEAD_DIMS,
                   "dense": DENSE_HEAD_DIMS}
 
@@ -162,7 +163,7 @@ def flash_fwd_varlen(q, k, v, spec: MaskSpec, q_seg, kv_seg, *, block_q: int, bl
 
 flash_fwd_varlen.launches = 0  # compact kernel launches (CUDA tensors only)
 flash_fwd_varlen.dense_launches = 0  # dense kernel launches (CUDA tensors only)
-flash_fwd_varlen.hd160_launches = 0  # of the compact launches, those at head_dim 160
+flash_fwd_varlen.hd160_launches = 0  # of the launches of either schedule, those at head_dim 160
 flash_fwd_varlen.hd256_launches = 0  # and at head_dim 256
 
 

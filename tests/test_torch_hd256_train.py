@@ -209,11 +209,15 @@ def test_gemma3_three_train_steps_at_head_dim_256_match_jax(gemma3, jax_trace_st
         assert moved > 0 and apart <= PACKED_MOVE_TOL * moved, (name, apart, moved)
 
 
-def test_segment_and_dense_modes_refuse_head_dim_256_before_the_launch():
-    """At 256 the backward wrappers take the compact kernels, without and
-    with segments; on a CUDA device the dense mode (alone or with segments)
-    raises before anything is launched, naming it (the check needs no card:
-    it reads only shapes and the mode), and the segment mode passes it."""
+def test_segment_and_dense_modes_refuse_head_dim_256_before_the_launch(monkeypatch):
+    """At 256 the backward wrappers take the compact and the dense kernels,
+    without and with segments: the dense mode (alone or with segments)
+    passes every check before the launch and builds the C entry's arguments
+    with no table (the check needs no card: it reads only shapes and the
+    mode; the stream is stubbed), while the forward's split-KV mode, which
+    has no kernel at 256, still raises before anything is launched, naming
+    the roadmap."""
+    monkeypatch.setattr(bwd_mod, "_stream", lambda t: 0)
     q = torch.empty((1, 64, 4, D), dtype=torch.bfloat16, device="meta")
     k = torch.empty((1, 64, 1, D), dtype=torch.bfloat16, device="meta")
     lse = torch.empty((1, 4, 64), dtype=torch.float32, device="meta")
@@ -221,10 +225,14 @@ def test_segment_and_dense_modes_refuse_head_dim_256_before_the_launch():
     spec = MaskSpec(causal=True)
     for segments in (None, (ids, ids)):
         for q_major, kernel in ((False, "the CUDA dK/dV kernel"), (True, "the CUDA dQ kernel")):
-            with pytest.raises(ValueError, match=f"{kernel}'s dense mode takes head_dim in "
-                                                 f"\\(64, 128\\), got {D} .*queue 2, item 2"):
-                bwd_mod._kernel_args(kernel, q, k, k, q, lse, lse, spec, 64, 64, segments,
-                                     q_major=q_major, schedule="dense")
-    bwd_mod.check_mode_head_dim("the CUDA dK/dV kernel", D, ["segment"], bwd_mod.MODE_HEAD_DIMS)
-    assert D in bwd_mod.SEGMENT_HEAD_DIMS and D not in bwd_mod.DENSE_HEAD_DIMS
-    assert D in fwd_mod.SEGMENT_HEAD_DIMS and D not in fwd_mod.SPLIT_KV_HEAD_DIMS
+            args, _ = bwd_mod._kernel_args(kernel, q, k, k, q, lse, lse, spec, 64, 64, segments,
+                                           q_major=q_major, schedule="dense")
+            assert args[6] is None  # no table under the dense schedule
+    for modes in (["dense"], ["segment", "dense"]):
+        bwd_mod.check_mode_head_dim("the CUDA dK/dV kernel", D, modes, bwd_mod.MODE_HEAD_DIMS)
+        fwd_mod.check_mode_head_dim("the CUDA forward", D, modes)
+    with pytest.raises(ValueError, match=f"the CUDA forward's split-KV mode takes head_dim in "
+                                         f"\\(64, 128\\), got {D} .*queue 2, item 2"):
+        fwd_mod.check_mode_head_dim("the CUDA forward", D, ["split-KV"])
+    assert D in bwd_mod.SEGMENT_HEAD_DIMS and D in bwd_mod.DENSE_HEAD_DIMS
+    assert D in fwd_mod.DENSE_HEAD_DIMS and D not in fwd_mod.SPLIT_KV_HEAD_DIMS

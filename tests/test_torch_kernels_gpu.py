@@ -163,22 +163,19 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     qb = q.to(torch.bfloat16)
     with pytest.raises(ValueError, match="block_q"):
         fwd_mod.flash_fwd(qb, qb, qb, MaskSpec(causal=True), block_q=32, block_kv=64)
-    # At head_dim 160 and 256 only the compact single pass is built (with and
-    # without segments): split-KV and dense, also with segments, refuse.
+    # At head_dim 160 and 256 only the single pass is built (compact and
+    # dense, with and without segments; test_dense_kernels_match_plain_and_
+    # compact runs the dense one there): split-KV, also with segments, refuses.
     ids = torch.zeros((1, 256), dtype=torch.int32, device=cuda)
     spec = MaskSpec(causal=True)
     for D in (160, 256):
         qd = torch.zeros((1, 256, 4, D), dtype=torch.bfloat16, device=cuda)
-        for mode, call in (
-                ("split-KV", lambda: fwd_mod.flash_fwd_splitkv(qd, qd, qd, spec, block_q=64,
-                                                               block_kv=64, kv_splits=2)),
-                ("split-KV", lambda: fwd_mod.flash_fwd_splitkv_varlen(
-                    qd, qd, qd, spec, ids, ids, block_q=64, block_kv=64, kv_splits=2)),
-                ("dense", lambda: fwd_mod.flash_fwd(qd, qd, qd, spec, block_q=64,
-                                                    block_kv=64, schedule="dense")),
-                ("dense", lambda: fwd_mod.flash_fwd_varlen(qd, qd, qd, spec, ids, ids, block_q=64,
-                                                           block_kv=64, schedule="dense"))):
-            with pytest.raises(ValueError, match=f"{mode} mode .* got {D} .* queue 2, item 2"):
+        for call in (
+                lambda: fwd_mod.flash_fwd_splitkv(qd, qd, qd, spec, block_q=64, block_kv=64,
+                                                  kv_splits=2),
+                lambda: fwd_mod.flash_fwd_splitkv_varlen(qd, qd, qd, spec, ids, ids, block_q=64,
+                                                         block_kv=64, kv_splits=2)):
+            with pytest.raises(ValueError, match=f"split-KV mode .* got {D} .* queue 2, item 2"):
                 call()
 
 
@@ -381,8 +378,8 @@ def test_split_backward_kernels_match_plain_and_fused(cuda, B, S, Hq, Hkv, spec,
     kernel's (the same body without its dQ phase), the dense schedule's and,
     through the SEG kernels, all-ones ids' (the same walk, products and
     order); dq bitwise the same from a second launch (no atomics), the
-    dense schedule's and all-ones ids'; zeros where a row sees no key. At
-    head_dims 160 and 256 there are no dense kernels to compare with."""
+    dense schedule's and all-ones ids'; zeros where a row sees no key
+    (every head dim has its dense kernels)."""
     _check_split(cuda, B, S, S, Hq, Hkv, spec, view, D)
 
 
@@ -443,45 +440,43 @@ def _check_split(cuda, B, S, Skv, Hq, Hkv, spec, view, D):
 
 
 @pytest.mark.gpu
-def test_backward_kernels_refuse_segment_and_dense_modes_at_head_dim_256(cuda):
-    """At head_dim 256 the compact backward kernels are built, without and
-    with segments: the dense mode, also with segments, raises before any
-    launch, naming the roadmap; the segment mode launches."""
-    _check_refused_modes(cuda, 256)
+def test_backward_dense_kernels_are_the_compact_ones_at_head_dim_256(cuda):
+    """At head_dim 256 the backward kernels are built in both schedules,
+    without and with segments: each dense kernel launches (counted as a
+    dense launch and as one at 256) and gives the compact kernel's dK, dV
+    and split dQ to the bit, the fused dQ within the tolerance."""
+    _check_dense_modes(cuda, 256)
 
 
 @pytest.mark.gpu
-def test_backward_kernels_refuse_segment_and_dense_modes_at_head_dim_160(cuda):
+def test_backward_dense_kernels_are_the_compact_ones_at_head_dim_160(cuda):
     """The same at head_dim 160."""
-    _check_refused_modes(cuda, 160)
+    _check_dense_modes(cuda, 160)
 
 
-def _check_refused_modes(cuda, D):
+def _check_dense_modes(cuda, D):
     spec = MaskSpec(causal=True)
     args = (*_bwd_inputs(cuda, 1, 256, 4, 1, spec, D=D), spec)
     ids = torch.ones((1, 256), dtype=torch.int32, device=cuda)
+    ids[:, 100:] = 2  # two documents: a tile that needs the element mask
     tiles = dict(block_q=64, block_kv=64)
     dense = dict(schedule="dense", **tiles)
-    calls = (lambda: bwd_mod.flash_bwd_fused(*args, **dense),
-             lambda: bwd_mod.flash_bwd_dkv(*args, **dense),
-             lambda: bwd_mod.flash_bwd_dq(*args, **dense),
-             lambda: bwd_mod.flash_bwd_fused_varlen(*args, ids, ids, **dense),
-             lambda: bwd_mod.flash_bwd_dkv_varlen(*args, ids, ids, **dense),
-             lambda: bwd_mod.flash_bwd_dq_varlen(*args, ids, ids, **dense))
     wrappers = (bwd_mod.flash_bwd_fused, bwd_mod.flash_bwd_dkv, bwd_mod.flash_bwd_dq,
                 bwd_mod.flash_bwd_fused_varlen, bwd_mod.flash_bwd_dkv_varlen,
                 bwd_mod.flash_bwd_dq_varlen)
-    before = [(f.launches, f.dense_launches) for f in wrappers]
-    for fn in calls:
-        with pytest.raises(ValueError, match="dense mode takes head_dim in .*queue 2, item 2"):
-            fn()
-    assert [(f.launches, f.dense_launches) for f in wrappers] == before
-    bwd_mod.flash_bwd_fused_varlen(*args, ids, ids, **tiles)
-    bwd_mod.flash_bwd_dkv_varlen(*args, ids, ids, **tiles)
-    bwd_mod.flash_bwd_dq_varlen(*args, ids, ids, **tiles)
-    torch.cuda.synchronize()
-    assert [(f.launches, f.dense_launches) for f in wrappers[3:]] == [
-        (n + 1, d) for n, d in before[3:]]
+    before = [(f.launches, f.dense_launches, getattr(f, f"hd{D}_launches")) for f in wrappers]
+    for seg in ((), (ids, ids)):
+        fused, dkv, dq = wrappers[3:] if seg else wrappers[:3]
+        got = fused(*args, *seg, **dense), dkv(*args, *seg, **dense), dq(*args, *seg, **dense)
+        want = fused(*args, *seg, **tiles), dkv(*args, *seg, **tiles), dq(*args, *seg, **tiles)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0][1], want[0][1]) and torch.equal(got[0][2], want[0][2])
+        assert _rel_err(got[0][0], want[0][0]) < GRAD_REL_TOL
+        assert torch.equal(got[1][0], want[1][0]) and torch.equal(got[1][1], want[1][1])
+        assert torch.equal(got[2], want[2])
+        assert all(torch.isfinite(x).all() for x in (*got[0], *got[1], got[2]))
+    assert [(f.launches, f.dense_launches, getattr(f, f"hd{D}_launches")) for f in wrappers] == [
+        (n + 1, d + 1, w + 2) for n, d, w in before]
 
 
 def _zeroed(counters, plains):
@@ -1350,32 +1345,57 @@ def test_whisper_serving_runs_through_the_kernels(cuda):
 # ------------------------------------------------------- the dense schedule
 
 
-# (B, S, Hq, Hkv, spec, ids): the training shape, G in {1, 4} at a ragged
-# length, a window, a window with sinks, a non-causal window, no mask (no
-# tile hidden), q_offset of either sign (-100: rows that see no key in a
-# visited tile), then the segment variants on the packed source's ids and
-# on distinct q and kv ids (a whole q tile or half of one hidden).
+# (B, S, Hq, Hkv, spec, ids, D): the training shape, G in {1, 4} at a
+# ragged length, a window, a window with sinks, a non-causal window, no
+# mask (no tile hidden), q_offset of either sign (-100: rows that see no
+# key in a visited tile), then the segment variants on the packed source's
+# ids and on distinct q and kv ids (a whole q tile or half of one hidden);
+# at 256 (gemma3-1b: one kv head, the KV-stationary and dq kernels one tile
+# a CTA, a 2-stage forward ring) and 160 (stablelm-12b: one kv tile a CTA,
+# the dq kernel a pair of q tiles) the training shapes, gemma3's window 512
+# at an odd q-tile count, the same corners, and the packed ids.
 DENSE_CASES = [
-    (2, 2048, 32, 8, dict(causal=True), None),
-    (1, 700, 32, 8, dict(causal=True), None),
-    (1, 700, 8, 8, dict(causal=True, window=256), None),
-    (1, 700, 32, 8, dict(causal=True, window=256, sink=4), None),
-    (1, 700, 32, 8, dict(causal=False, window=256), None),
-    (2, 300, 16, 4, dict(causal=False), None),
-    (1, 300, 32, 8, dict(causal=True, q_offset=100), None),
-    (1, 300, 32, 8, dict(causal=True, q_offset=-128), None),
-    (1, 300, 32, 8, dict(causal=True, q_offset=-100), None),
-    (2, 2048, 32, 8, dict(causal=True), "packed"),
-    (1, 700, 8, 8, dict(causal=True, window=256, sink=4), "packed"),
-    (2, 700, 32, 8, dict(causal=True), "distinct"),
-    (2, 700, 32, 8, dict(causal=True), "half"),
-    (1, 700, 8, 8, dict(causal=True), "half"),
+    (2, 2048, 32, 8, dict(causal=True), None, 128),
+    (1, 700, 32, 8, dict(causal=True), None, 128),
+    (1, 700, 8, 8, dict(causal=True, window=256), None, 128),
+    (1, 700, 32, 8, dict(causal=True, window=256, sink=4), None, 128),
+    (1, 700, 32, 8, dict(causal=False, window=256), None, 128),
+    (2, 300, 16, 4, dict(causal=False), None, 128),
+    (1, 300, 32, 8, dict(causal=True, q_offset=100), None, 128),
+    (1, 300, 32, 8, dict(causal=True, q_offset=-128), None, 128),
+    (1, 300, 32, 8, dict(causal=True, q_offset=-100), None, 128),
+    (2, 2048, 32, 8, dict(causal=True), "packed", 128),
+    (1, 700, 8, 8, dict(causal=True, window=256, sink=4), "packed", 128),
+    (2, 700, 32, 8, dict(causal=True), "distinct", 128),
+    (2, 700, 32, 8, dict(causal=True), "half", 128),
+    (1, 700, 8, 8, dict(causal=True), "half", 128),
+    (4, 2048, 4, 1, dict(causal=True), None, 256),
+    (4, 2048, 4, 1, dict(causal=True, window=512), None, 256),
+    (1, 700, 4, 1, dict(causal=True, window=512), None, 256),
+    (1, 700, 4, 4, dict(causal=True, window=256, sink=4), None, 256),
+    (2, 700, 4, 1, dict(causal=False, window=256), None, 256),
+    (2, 300, 4, 1, dict(causal=False), None, 256),
+    (1, 300, 4, 1, dict(causal=True, q_offset=100), None, 256),
+    (1, 300, 4, 1, dict(causal=True, q_offset=-100), None, 256),
+    (4, 2048, 4, 1, dict(causal=True, window=512), "packed", 256),
+    (2, 700, 4, 1, dict(causal=True), "distinct", 256),
+    (1, 700, 4, 4, dict(causal=True), "half", 256),
+    (2, 2048, 32, 8, dict(causal=True), None, 160),
+    (1, 1500, 32, 8, dict(causal=True), None, 160),
+    (1, 700, 8, 8, dict(causal=True, window=256, sink=4), None, 160),
+    (1, 700, 32, 8, dict(causal=False, window=256), None, 160),
+    (2, 300, 16, 4, dict(causal=False), None, 160),
+    (1, 300, 32, 8, dict(causal=True, q_offset=100), None, 160),
+    (1, 300, 32, 8, dict(causal=True, q_offset=-100), None, 160),
+    (2, 2048, 32, 8, dict(causal=True), "packed", 160),
+    (2, 700, 32, 8, dict(causal=True), "distinct", 160),
+    (1, 700, 8, 8, dict(causal=True), "half", 160),
 ]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,Hq,Hkv,spec,ids", DENSE_CASES)
-def test_dense_kernels_match_plain_and_compact(cuda, B, S, Hq, Hkv, spec, ids):
+@pytest.mark.parametrize("B,S,Hq,Hkv,spec,ids,D", DENSE_CASES)
+def test_dense_kernels_match_plain_and_compact(cuda, B, S, Hq, Hkv, spec, ids, D):
     """Each dense kernel against its plain version, and against the compact
     kernel: the forward (o, lse), dK/dV, dQ and the fused dK/dV to the bit;
     the fused dQ (adds in no fixed order) within the tolerance. Dense
@@ -1383,12 +1403,12 @@ def test_dense_kernels_match_plain_and_compact(cuda, B, S, Hq, Hkv, spec, ids):
     spec = MaskSpec(**spec)
     if ids is None:
         gen = torch.Generator(device=cuda).manual_seed(15)
-        q = ops._prep(_randn(gen, (B, S, Hq, 128), cuda), 1 / math.sqrt(128))
-        k, v = _randn(gen, (B, S, Hkv, 128), cuda), _randn(gen, (B, S, Hkv, 128), cuda)
-        do = _randn(gen, (B, S, Hq, 128), cuda)
+        q = ops._prep(_randn(gen, (B, S, Hq, D), cuda), 1 / math.sqrt(D))
+        k, v = _randn(gen, (B, S, Hkv, D), cuda), _randn(gen, (B, S, Hkv, D), cuda)
+        do = _randn(gen, (B, S, Hq, D), cuda)
         seg, fwd, names = (), fwd_mod.flash_fwd, ("fused", "dkv", "dq")
     else:
-        q, k, v, do, q_seg, kv_seg = _varlen_inputs(cuda, B, S, Hq, Hkv, spec, ids)
+        q, k, v, do, q_seg, kv_seg = _varlen_inputs(cuda, B, S, Hq, Hkv, spec, ids, D)
         seg, fwd = (q_seg, kv_seg), fwd_mod.flash_fwd_varlen
         names = ("fused_varlen", "dkv_varlen", "dq_varlen")
     fused, dkv, dq_fn = (getattr(bwd_mod, f"flash_bwd_{n}") for n in names)
@@ -1450,21 +1470,24 @@ def test_dense_forward_at_head_dim_64_is_the_compact_kernel(cuda, seg):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch,layers", [("qwen3-8b", 2), ("gemma3-1b", 6), ("stablelm-12b", 2)])
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("bwd", ["fused", "split"])
-def test_dense_training_step_runs_through_the_dense_kernels(cuda, bwd, packed):
-    """A 2-layer, full-width qwen3-8b step with schedule="dense" launches the
-    dense kernels only (forward twice a layer, the delta kernel once, then
-    fused or dK/dV + dQ once), no compact kernel and no plain version; its
-    loss is the compact step's to the bit."""
+def test_dense_training_step_runs_through_the_dense_kernels(cuda, bwd, packed, arch, layers):
+    """A step of full-width qwen3-8b (head_dim 128), one layer pattern of
+    gemma3-1b (256; 5 windowed layers, 1 global) or two layers of
+    stablelm-12b (160) with schedule="dense" launches the dense kernels only
+    (the forward twice a layer of the remat groups, the delta kernel once,
+    then fused or dK/dV + dQ once), no compact kernel and no plain version;
+    its loss is the compact step's to the bit."""
     from repro_torch.data.pipeline import DataConfig, SyntheticVarlenLM
 
-    cfg = dataclasses.replace(registry.get("qwen3-8b"), num_layers=2)
+    cfg = dataclasses.replace(registry.get(arch), num_layers=layers)
     if packed:
-        data = SyntheticVarlenLM(DataConfig(1, 512, cfg.vocab_size, seed=0, source="packed"))
+        data = SyntheticVarlenLM(DataConfig(1, 1024, cfg.vocab_size, seed=0, source="packed"))
         batch = {k: torch.from_numpy(x).to(cuda) for k, x in data.batch(0).items()}
     else:
-        tokens = torch.randint(0, cfg.vocab_size, (1, 513),
+        tokens = torch.randint(0, cfg.vocab_size, (1, 1025),
                                generator=torch.Generator().manual_seed(0))
         batch = {"inputs": tokens[:, :-1].to(cuda), "targets": tokens[:, 1:].to(cuda)}
     suffix = "_varlen" if packed else ""
@@ -1487,10 +1510,13 @@ def test_dense_training_step_runs_through_the_dense_kernels(cuda, bwd, packed):
         state, metrics = step(model, state, batch)
         torch.cuda.synchronize()
         losses.append(metrics["loss"])
+        del model, state
     # The delta pre-pass has one form for both schedules.
-    assert bwd_mod.flash_bwd_delta.launches == 2
-    assert [f.dense_launches for f in kernels] == ([4, 2, 0, 0] if bwd == "fused" else
-                                                   [4, 0, 2, 2])
+    n = cfg.num_layers
+    grouped = cfg.num_groups * cfg.group_size
+    assert bwd_mod.flash_bwd_delta.launches == n
+    assert [f.dense_launches for f in kernels] == [n + grouped] + (
+        [n, 0, 0] if bwd == "fused" else [0, n, n])
     assert [f.launches for f in kernels] == [0, 0, 0, 0]
     assert [f.calls for f in plains] == [0] * 5
     assert math.isfinite(losses[1]) and metrics["skipped"] == 0.0
