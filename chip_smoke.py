@@ -186,12 +186,10 @@ step's busy share and attention time; the split backward bitwise
 reproducible at the training shape.
 Phase 3 also holds the four backward kernels at head_dim 160 (stablelm-12b's
 training: B 2, S 2048, 32 q heads over 8 kv heads, causal; the ragged S
-1500, rows that see no key) the same way, and a default ops.flash_attention
-of 64 q rows against 1536 keys at head_dim 160 and 256 (no split-KV kernel
-there) must take one split, run the single-pass forward and match its plain
-version. Then the stablelm training slice: stablelm-12b at its published
-widths, depth cut to 8 of 40 layers (3.25 B parameters, one card's memory
-with AdamW's state), trains 8 AdamW steps at B 2, S 2048 through ``train``
+1500, rows that see no key) the same way. Then the stablelm training
+slice: stablelm-12b at its published widths, depth cut to 8 of 40 layers
+(3.25 B parameters, one card's memory with AdamW's state), trains 8 AdamW
+steps at B 2, S 2048 through ``train``
 with the fused and the split backward and once through impl="ref", as the
 gemma3 slice (launch counts exact: the forward twice a layer and step,
 delta, fused or dK/dV and dQ once, all at head_dim 160).
@@ -235,6 +233,39 @@ kernels at head_dim 256 or 160 (gemma3: forward 400, delta 208, fused or
 dK/dV and dQ 208; stablelm: 128, 64, 64) and through the compact ones in
 the compact runs; the unpacked split steps profiled for the busy share and
 attention's share, dense beside compact.
+Phase 2 also checks that the split-KV forward's instantiations at 256 and
+160 (without and with SEG) take their single-pass twins' registers, spill
+no more and have no serialised wgmma. Phase 3 also holds them and their
+fold against their plain version (partials and fold) and the fold against
+the single pass (o also within 2e-2 of the reference's max|o|, and a
+planted fault, the fold without its last split, must be rejected at the
+corner shapes): 64 q rows at the last positions against gemma3-1b's 1536,
+8192 and 32,768 keys (and 8192 under the 512 window: most splits see
+nothing) and stablelm-12b's 1536, 4096 and 32,768 with the auto split
+count, the causal prefill (B 1, S 1536) with 2 and 3 splits, the packed
+training shapes with 2 and 3 splits; and times each corner shape, the
+prefill and the packed shape in turns with the single pass, beside SDPA
+(causal_lower_right where the mask is causal without window or ids, else
+the boolean mask) and the bound of the function's own bytes. Then the short-q/long-kv corner
+of the public API (after phase 3): ops.flash_attention and
+core.attention.attention with the default splits on those corner shapes,
+launches exact (the split-KV kernel only), the auto count that of
+default_kv_splits, o against the plain version and the single pass. In
+the gemma3 and stablelm serving slices, after the engines' ticks and
+before the serve CLI: the six prompts prefilled through model.prefill with
+AttentionConfig(kv_splits=2) (launches exact: a prompt of one kv tile runs
+the single pass), each prompt's logits against kv_splits=1 and the
+1500-token one's against impl="ref", that prompt's split o in every layer
+against the single pass on the same inputs (and a planted fault the same
+limit must reject), the prefills timed in turns with
+kv_splits=1, and the fixed engine over the six requests with kv_splits=2
+(launches exact; the share of greedy tokens equal to the kv_splits=1
+run's). Last, packed training with a split forward: gemma3-1b (26 layers,
+B 4, S 2048) and the 8-layer stablelm-12b (B 2, S 2048) train 3 AdamW
+steps with AttentionConfig(bwd="split", kv_splits=2), beside kv_splits=1
+and again with kv_splits=2 in one loop: launches exact (the SEG split-KV
+forward, no single pass), the two split runs' losses bitwise, step 0
+within PARITY_LOSS_REL of kv_splits=1 and every step within GPT_LOSS_REL.
 The last two lines are the kernels' JSON record and the result line.
 """
 
@@ -1505,9 +1536,13 @@ def run_engine(torch, dev, cfg, engine, n_requests: int, path: str):
     from repro_torch.kernels import flash_fwd as fwd
 
     kernels = {"flash_fwd": fwd.flash_fwd, "flash_decode": dec.flash_decode,
-               "flash_decode_paged": dec.flash_decode_paged}
+               "flash_decode_paged": dec.flash_decode_paged,
+               "flash_fwd_splitkv": fwd.flash_fwd_splitkv,
+               "flash_fwd_splitkv_hd160": SubCount(fwd.flash_fwd_splitkv, "hd160_launches"),
+               "flash_fwd_splitkv_hd256": SubCount(fwd.flash_fwd_splitkv, "hd256_launches")}
     plains = {"flash_fwd_plain": fwd.flash_fwd_plain, "flash_decode_plain": dec.flash_decode_plain,
-              "flash_decode_paged_plain": dec.flash_decode_paged_plain}
+              "flash_decode_paged_plain": dec.flash_decode_paged_plain,
+              "flash_fwd_splitkv_plain": fwd.flash_fwd_splitkv_plain}
     for f in kernels.values():
         f.launches = 0
     for f in plains.values():
@@ -1681,16 +1716,17 @@ def logit_gap(torch, l_ref, l_fl):
             bool((l_ref.argmax(dim=1) == l_fl.argmax(dim=1)).all()))
 
 
-def compare_logits(torch, what, l_ref, l_fl, names=("ref", "flash_cuda")) -> None:
+def compare_logits(torch, what, l_ref, l_fl, names=("ref", "flash_cuda")):
     """Fail unless the second logits match the first (by default flash_cuda
     against the dense reference) row by row: cosine >= LOGIT_COS and
-    max|diff| <= LOGIT_REL x max|logit|."""
+    max|diff| <= LOGIT_REL x max|logit|. Returns ``logit_gap``'s tuple."""
     diff, top, cos, same = logit_gap(torch, l_ref, l_fl)
     log(f"{what}, {names[0]} vs {names[1]} last-position logits: max|diff|={diff:.4f} "
         f"(max|logit|={top:.3f}, limit {LOGIT_REL * top:.4f}), min cosine {cos:.6f} "
         f"(limit {LOGIT_COS}), same argmax {same}")
     if not (torch.isfinite(l_fl).all() and cos >= LOGIT_COS and diff <= LOGIT_REL * top):
         fail(f"{what}: {names[1]} logits disagree with {names[0]}")
+    return diff, top, cos, same
 
 
 @contextlib.contextmanager
@@ -2620,17 +2656,18 @@ def train_model_flops(cfg, batch: int, seq: int) -> float:
 
 def kernel_counters():
     """{name: counter} of every kernel the training paths launch, compact
-    and (``<name>_dense``) dense, and the plain versions (each counts its
-    calls)."""
+    and (``<name>_dense``) dense, the split-KV forward (``kv_splits > 1``)
+    among them, and the plain versions (each counts its calls)."""
     from repro_torch.kernels import flash_bwd as bwd
     from repro_torch.kernels import flash_fwd as fwd
 
     counters = with_dense((
         fwd.flash_fwd, bwd.flash_bwd_delta, bwd.flash_bwd_fused, bwd.flash_bwd_dkv,
         bwd.flash_bwd_dq, fwd.flash_fwd_varlen, bwd.flash_bwd_fused_varlen,
-        bwd.flash_bwd_dkv_varlen, bwd.flash_bwd_dq_varlen))
+        bwd.flash_bwd_dkv_varlen, bwd.flash_bwd_dq_varlen, fwd.flash_fwd_splitkv,
+        fwd.flash_fwd_splitkv_varlen))
     plains = (fwd.flash_fwd_plain, bwd.flash_bwd_delta_plain, bwd.flash_bwd_fused_plain,
-              bwd.flash_bwd_dkv_plain, bwd.flash_bwd_dq_plain)
+              bwd.flash_bwd_dkv_plain, bwd.flash_bwd_dq_plain, fwd.flash_fwd_splitkv_plain)
     return counters, plains
 
 
@@ -2648,22 +2685,24 @@ def read_counts(counters, plains) -> dict:
 
 
 def training_want(counters, plains, n: int, bwds, suffix: str = "", *, remat: bool = True,
-                  head_dim=None, forwards=None) -> dict:
+                  head_dim=None, forwards=None, forward: str = "flash_fwd") -> dict:
     """Exact launch counts of ``n`` attention calls (layer-steps) under each
     backward mode of ``bwds``, through the kernels named with ``suffix``
-    (``_varlen``, ``_dense``, both or none): the forward twice (``remat``)
-    or once (``forwards``, where given: that many forward launches), delta
-    once, then the fused kernel or dK/dV and dQ once; with ``head_dim`` (64,
-    160 or 256) the backward's counts at that head dim the same, and the
-    forward's where it counts that head dim apart (those counts take both
-    schedules); every other kernel and every plain version 0."""
+    (``_varlen``, ``_dense``, both or none): the forward (``forward``:
+    ``flash_fwd``, or ``flash_fwd_splitkv`` with kv splits) twice
+    (``remat``) or once (``forwards``, where given: that many forward
+    launches), delta once, then the fused kernel or dK/dV and dQ once; with
+    ``head_dim`` (64, 160 or 256) the backward's counts at that head dim the
+    same, and the forward's where it counts that head dim apart (those
+    counts take both schedules); every other kernel and every plain version
+    0."""
     want = {k: 0 for k in counters}
     by_dim = suffix.replace("_dense", "")  # a wrapper's head-dim count takes both schedules
     for bwd in bwds:
         n_fwd = (2 if remat else 1) * n if forwards is None else forwards
-        want[f"flash_fwd{suffix}"] += n_fwd
-        if f"flash_fwd{by_dim}_hd{head_dim}" in want:  # the segment forward's 160 and 256
-            want[f"flash_fwd{by_dim}_hd{head_dim}"] += n_fwd
+        want[f"{forward}{suffix}"] += n_fwd
+        if f"{forward}{by_dim}_hd{head_dim}" in want:  # the segment and split forwards' 160, 256
+            want[f"{forward}{by_dim}_hd{head_dim}"] += n_fwd
         names = ["flash_bwd_delta"]
         names += ["flash_bwd_fused" + suffix] if bwd == "fused" else [
             "flash_bwd_dkv" + suffix, "flash_bwd_dq" + suffix]
@@ -3207,16 +3246,23 @@ def causal_pairs(S: int, window=None) -> int:
 
 def hd256_kernel_phase(torch, dev, flush):
     """The head_dim-256 kernels at gemma3-1b's shapes (``head_dim_kernel_phase``;
-    causal and window 512; the forward also at S 700 and at B 2, S 333)."""
-    return head_dim_kernel_phase(torch, dev, flush, G3_D, G3_HQ, G3_HKV, G3_WINDOW, seed=7,
-                                 fwd_shapes=((1, 1536), (1, 700), (2, 333)))
+    causal and window 512; the forward also at S 700 and at B 2, S 333), then
+    the split-KV forward at its corner, prefill and packed training shapes
+    (``split_kernel_phase``)."""
+    return {**head_dim_kernel_phase(torch, dev, flush, G3_D, G3_HQ, G3_HKV, G3_WINDOW, seed=7,
+                                    fwd_shapes=((1, 1536), (1, 700), (2, 333))),
+            **split_kernel_phase(torch, dev, flush, G3_D, G3_HQ, G3_HKV, G3_CORNER, G3_WINDOW,
+                                 G3_TRAIN_B, G3_TRAIN_S, G3_VOCAB, seed=41)}
 
 
 def hd160_kernel_phase(torch, dev, flush):
     """The head_dim-160 kernels at stablelm-12b's shapes (``head_dim_kernel_phase``;
-    causal, no window; the forward also at the ragged S 1500 and at B 2, S 333)."""
-    return head_dim_kernel_phase(torch, dev, flush, SL_D, SL_HQ, SL_HKV, None, seed=8,
-                                 fwd_shapes=((1, 1536), (1, 1500), (2, 333)))
+    causal, no window; the forward also at the ragged S 1500 and at B 2, S 333),
+    then the split-KV forward as at 256 (``split_kernel_phase``)."""
+    return {**head_dim_kernel_phase(torch, dev, flush, SL_D, SL_HQ, SL_HKV, None, seed=8,
+                                    fwd_shapes=((1, 1536), (1, 1500), (2, 333))),
+            **split_kernel_phase(torch, dev, flush, SL_D, SL_HQ, SL_HKV, SL_CORNER, None,
+                                 SL_TRAIN_B, SL_TRAIN_S, SL_VOCAB, seed=42)}
 
 
 def hd64_granite_kernel_phase(torch, dev, flush):
@@ -3436,45 +3482,11 @@ def head_dim_kernel_phase(torch, dev, flush, D, hq, hkv, window, *, seed, fwd_sh
     }
 
 
-def default_split_phase(torch, dev):
-    """The auto kv split where no split-KV kernel is built: a default
-    ops.flash_attention of 64 q rows against 1536 keys (the short-q,
-    long-kv corner where the policy splits at 64 and 128) at stablelm-12b's
-    head_dim 160 (32 q heads over 8) and gemma3-1b's 256 (4 over 1) must
-    resolve to one split, run the single-pass forward (one launch, the
-    split-KV kernel none) and match its plain version."""
-    from repro_torch.core.masks import MaskSpec
-    from repro_torch.kernels import flash_fwd as fwd
-    from repro_torch.kernels import ops
-
-    gen = torch.Generator(device=dev).manual_seed(13)
-    for D, hq, hkv in ((SL_D, SL_HQ, SL_HKV), (G3_D, G3_HQ, G3_HKV)):
-        q = torch.randn((1, 64, hq, D), generator=gen, device=dev).to(torch.bfloat16)
-        k, v = (torch.randn((1, 1536, hkv, D), generator=gen, device=dev).to(torch.bfloat16)
-                for _ in range(2))
-        spec = MaskSpec(causal=True, q_offset=1536 - 64)
-        ks = ops.resolve_kv_splits(None, q.shape, k.shape)
-        before = (fwd.flash_fwd.launches, fwd.flash_fwd_splitkv.launches)
-        o = ops.flash_attention(q, k, v, spec)
-        torch.cuda.synchronize()
-        ran = (fwd.flash_fwd.launches - before[0], fwd.flash_fwd_splitkv.launches - before[1])
-        o_p, _ = fwd.flash_fwd_plain(ops._prep(q, 1 / math.sqrt(D)), k, v, spec,
-                                     block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
-        err = max_err(torch, o, o_p)
-        log(f"default ops.flash_attention at head_dim {D}, q (1, 64, {hq}, {D}) against k "
-            f"(1, 1536, {hkv}, {D}): auto kv splits {ks} (head_dim 128 would take "
-            f"{ops.default_kv_splits(hq, 1, 24)}); launches flash_fwd {ran[0]}, "
-            f"flash_fwd_splitkv {ran[1]}; max|o-plain|={err:.3e} (tol {FWD_TOL['o']})")
-        if ks != 1 or ran != (1, 0) or not err <= FWD_TOL["o"]:
-            fail(f"the default split call at head_dim {D} did not run the single-pass kernel "
-                 "or disagrees with its plain version")
-
-
 def gemma3_phase(torch, dev):
     """The gemma3 serving slice: gemma3-1b at its published widths and depth
     (26 layers, d_model 1152, 4 q heads over 1 kv head of 256, a 512-token
     window on 5 of 6 layers, vocab 262,144), ``model_serving_phase``."""
-    return model_serving_phase(torch, dev, "gemma3-1b", "gemma3")
+    return model_serving_phase(torch, dev, "gemma3-1b", "gemma3", split_prefill=True)
 
 
 def stablelm_phase(torch, dev):
@@ -3482,7 +3494,7 @@ def stablelm_phase(torch, dev):
     depth (40 layers, d_model 5120, 32 q heads over 8 kv heads of 160,
     qk-norm, d_ff 13,824, untied embeddings over a 100,352 vocab: 12.1 B
     parameters, 24.3 GB), ``model_serving_phase``."""
-    return model_serving_phase(torch, dev, "stablelm-12b", "stablelm")
+    return model_serving_phase(torch, dev, "stablelm-12b", "stablelm", split_prefill=True)
 
 
 def granite_phase(torch, dev):
@@ -3546,7 +3558,7 @@ def moe_checks(torch, dev, model, prompts, summary) -> dict:
     return dict(moe=dict(tick_ms_wall=wall, tick_ms_events=device, tick_share=wall / tick))
 
 
-def model_serving_phase(torch, dev, arch: str, path: str, extra=None):
+def model_serving_phase(torch, dev, arch: str, path: str, extra=None, split_prefill=False):
     """The registry's ``arch`` uncut (bf16, random weights from seed 0)
     serves the six requests of ``serving_prompts`` through ServingEngine (4
     slots of CACHE) and PagedServingEngine (the qwen3 paged phase's pool,
@@ -3558,7 +3570,9 @@ def model_serving_phase(torch, dev, arch: str, path: str, extra=None):
     decode ticks of both engines (``tick_phase``); then the serve CLI once
     through each engine. ``extra(torch, dev, model, prompts, summary)``, where
     given, runs after the ticks on the same model and returns entries for
-    the summary. Returns both runs' counts and a summary."""
+    the summary; with ``split_prefill``, then ``split_prefill_checks`` (its
+    counts under the summary's "split_prefill_counts" and
+    "split_serving_counts"). Returns both runs' counts and a summary."""
     from repro_torch.configs import registry
     from repro_torch.core.attention import AttentionConfig, check_card_support
     from repro_torch.kernels import flash_decode as dec
@@ -3589,6 +3603,7 @@ def model_serving_phase(torch, dev, arch: str, path: str, extra=None):
         engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
     counts, summary["fixed"] = run_engine(torch, dev, cfg, engine, len(prompts),
                                           f"{path}_serving")
+    fixed_tokens = {rid: list(req.generated) for rid, req in engine.finished.items()}
     if (counts["flash_fwd"] != len(prompts) * n or counts["flash_decode"] != engine.ticks * n
             or counts["flash_decode_paged"]):
         fail(f"{arch} serving: want flash_fwd {len(prompts) * n} (a prefill a request and "
@@ -3651,6 +3666,9 @@ def model_serving_phase(torch, dev, arch: str, path: str, extra=None):
     summary["ticks"] = tick_phase(torch, cfg, model)
     if extra is not None:
         summary.update(extra(torch, dev, model, prompts, summary))
+    if split_prefill:
+        summary["split_prefill_counts"], summary["split_serving_counts"], summary["split"] = (
+            split_prefill_checks(torch, dev, cfg, model, prompts, l_ref, fixed_tokens, path))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4122,11 +4140,13 @@ def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False)
     return counts, summaries
 
 
-def dense_ptxas_check(ptxas: str) -> None:
+def wide_ptxas_check(ptxas: str) -> None:
     """The dense instantiations at head_dim 256 and 160 (forward, fused,
-    dK/dV, dQ; without and with SEG) against their compact twins in the
-    ptxas summary: no more spill bytes; and no instantiation of any kernel
-    with its wgmma serialised."""
+    dK/dV, dQ; without and with SEG) and the split-KV forward's (without and
+    with SEG) against their compact single-pass twins in the ptxas summary:
+    no more spill bytes, and for the split forward 168 registers at entry as
+    its twin; and no instantiation of any kernel with its wgmma
+    serialised."""
     import re
 
     rows = {}
@@ -4138,17 +4158,19 @@ def dense_ptxas_check(ptxas: str) -> None:
                                 "serialized" in m.group(5))
     for D in (256, 160):
         for seg in (0, 1):
-            pairs = [(f"fa2_fwd_kernel<{D},{seg},0,1>", f"fa2_fwd_kernel<{D},{seg},0,0>")]
+            pairs = [(f"fa2_fwd_kernel<{D},{seg},0,1>", f"fa2_fwd_kernel<{D},{seg},0,0>"),
+                     (f"fa2_fwd_kernel<{D},{seg},1,0>", f"fa2_fwd_kernel<{D},{seg},0,0>")]
             pairs += [(f"fa2_bwd_{k}_kernel<{D},{seg},1>", f"fa2_bwd_{k}_kernel<{D},{seg},0>")
                       for k in ("fused", "dkv", "dq")]
-            for dense, compact in pairs:
-                if dense not in rows or compact not in rows:
-                    fail(f"ptxas reported no {dense} or no {compact}")
-                d, c = rows[dense], rows[compact]
-                log(f"ptxas {dense}: {d[0]} registers, spill stores {d[1]} B, loads {d[2]} B, "
+            for inst, compact in pairs:
+                if inst not in rows or compact not in rows:
+                    fail(f"ptxas reported no {inst} or no {compact}")
+                d, c = rows[inst], rows[compact]
+                log(f"ptxas {inst}: {d[0]} registers, spill stores {d[1]} B, loads {d[2]} B, "
                     f"wgmma serialized {d[3]}; compact twin {c[0]} registers, {c[1]} B, {c[2]} B")
-                if d[3] or d[1] > c[1] or d[2] > c[2]:
-                    fail(f"{dense} spills more than {compact} or has serialised wgmma")
+                if d[3] or d[1] > c[1] or d[2] > c[2] or d[0] != c[0]:
+                    fail(f"{inst} spills more than {compact}, takes other registers at entry "
+                         "or has serialised wgmma")
     serialised = [k for k, row in rows.items() if row[3]]
     if serialised:
         fail(f"ptxas serialised the wgmma of {serialised}")
@@ -4288,6 +4310,558 @@ def model_dense_train_phase(torch, dev, cfg, B, S, steps):
     return counts, summaries
 
 
+# The short-q/long-kv corner of the public attention API at gemma3-1b's and
+# stablelm-12b's widths: CORNER_ROWS q rows (one q tile, at the last
+# positions, causal) against the key counts of a long context, (Skv, window).
+G3_CORNER = ((1536, None), (8192, None), (32768, None), (8192, G3_WINDOW))
+SL_CORNER = ((1536, None), (4096, None), (32768, None))
+CORNER_ROWS = 64
+# The split prefill's and the packed split-forward training's kv splits,
+# and that training's steps (each run beside a kv_splits=1 one).
+SPLIT_KS, SPLIT_TRAIN_STEPS = 2, 3
+# The split forward's o is also held relative to its reference's largest
+# |o|: against thousands of keys |o| is far below 1 (about 0.04 at most at
+# 32,768 keys of randn K/V), where FWD_TOL's absolute limit alone would pass
+# a fold that dropped a split (``check_split``'s control).
+SPLIT_O_REL = 2e-2
+
+
+def nonzero(counts: dict) -> dict:
+    """The entries of a launch-count dict that are not 0 (plain calls as a list)."""
+    return {k: c for k, c in counts.items() if (any(c) if isinstance(c, list) else c)}
+
+
+def corner_spec(Skv: int, window=None):
+    """The causal mask of CORNER_ROWS q rows at the last positions of Skv
+    keys, with ``window`` (None: none)."""
+    from repro_torch.core.masks import MaskSpec
+
+    return MaskSpec(causal=True, window=window, q_offset=Skv - CORNER_ROWS)
+
+
+def spec_mask(torch, dev, Sq: int, Skv: int, spec):
+    """The boolean (Sq, Skv) mask of ``spec`` (causal or not, window, sink,
+    q_offset) on ``dev``: what SDPA is given as ``attn_mask``."""
+    pos = torch.arange(Sq, device=dev)[:, None] + spec.q_offset
+    col = torch.arange(Skv, device=dev)[None, :]
+    vis = col <= pos if spec.causal else torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+    if spec.window is not None:
+        vis = vis & (((pos - col).abs() < spec.window) | (col < spec.sink))
+    return vis
+
+
+def split_bound(B, Sq, hq, hkv, D, pairs, kv_rows, id_bytes=0):
+    """The split-KV forward's roofline bound (ms, what bounds): ``pairs``
+    visible (q, k) pairs per q head summed over the batch, 4 D flops each;
+    the function's own bytes: Q read, the ``kv_rows`` visible K and V rows
+    (summed over the batch) read, o in bf16 and lse written, and
+    ``id_bytes`` of segment ids. The f32 partials are the kernel's scratch,
+    not the function's output (as in the head_dim-64 split bound):
+    ``partial_bytes`` gives their traffic apart."""
+    nbytes = 2 * B * Sq * hq * D * 2 + kv_rows * hkv * D * 2 * 2 + B * hq * Sq * 4 + id_bytes
+    return bound(4 * D * pairs * hq, nbytes)
+
+
+def partial_bytes(B, Sq, hq, D, ks) -> int:
+    """The bytes of the split-KV forward's f32 partials (o and lse of ``ks``
+    splits), written by the walk and read back by the fold."""
+    return 2 * B * hq * ks * Sq * (D + 1) * 4
+
+
+def o_errs(torch, a, b):
+    """(max|a - b|, that over max|b|) over b's finite entries."""
+    e = max_err(torch, a, b)
+    fin = b[torch.isfinite(b)]
+    top = fin.float().abs().max().item() if fin.numel() else 0.0
+    return e, (e / top if top else e)
+
+
+def drop_last_split(torch, out):
+    """A planted fault of the fold, for controls: the o of ``out`` (a
+    SplitForward) refolded from its own partials with the last split left
+    out, each weight still taken against the true lse (so lse stays
+    right and only o's weights are wrong)."""
+    w = torch.exp(out.lse_parts[:, :, :-1] - out.lse[:, :, None]).nan_to_num(0.0)
+    o = (out.o_parts[:, :, :-1] * w[..., None]).sum(dim=2)
+    return o.permute(0, 2, 1, 3).to(out.o.dtype)
+
+
+def check_split(torch, what, out, ref, single, control=False) -> float:
+    """Fail unless the split-KV forward's fold and partials (``out``, a
+    SplitForward) match its plain version's (``ref``), finite exactly where
+    the plain version's are, and the fold matches the single pass
+    (``single``: (o, lse)): o and the o partials within FWD_TOL and within
+    SPLIT_O_REL of the reference's largest |o|, lse within FWD_TOL. With
+    ``control``, the same limits must reject a planted fault: the fold
+    without its last split (``drop_last_split``). Returns max |o - plain|
+    over the fold and the partials."""
+    (eo, ro), (epo, rpo), (so, rso) = (o_errs(torch, a, b) for a, b in (
+        (out.o, ref.o), (out.o_parts, ref.o_parts), (out.o, single[0])))
+    el, epl = max_err(torch, out.lse, ref.lse), max_err(torch, out.lse_parts, ref.lse_parts)
+    sl = max_err(torch, out.lse, single[1])
+    empty = int(torch.isneginf(out.lse_parts).all(dim=-1).sum())
+    log(f"{what}: max|o-plain|={eo:.3e} ({ro:.3e} of max|plain o|), max|lse-plain|={el:.3e}, "
+        f"partials max|o-plain|={epo:.3e} ({rpo:.3e}), max|lse-plain|={epl:.3e}; against the "
+        f"single pass max|o|={so:.3e} ({rso:.3e}), max|lse|={sl:.3e} (tol o {FWD_TOL['o']} "
+        f"and {SPLIT_O_REL} of the reference's max|o|, lse {FWD_TOL['lse']}); (batch, q head, "
+        f"split) partials that saw no key: {empty} of {out.lse_parts[..., 0].numel()}")
+    if not (max(eo, epo, so) <= FWD_TOL["o"] and max(ro, rpo, rso) <= SPLIT_O_REL
+            and max(el, epl, sl) <= FWD_TOL["lse"]):
+        fail(f"{what} disagrees with its plain version or with the single pass")
+    if not torch.isfinite(out.o).all():
+        fail(f"{what}: a non-finite output")
+    if control:
+        fe, fr = o_errs(torch, drop_last_split(torch, out), ref.o)
+        log(f"{what}, control: the fold without its last split (lse kept) reads max|o-plain|="
+            f"{fe:.3e}, {fr:.3e} of max|plain o|: FWD_TOL's absolute {FWD_TOL['o']} alone "
+            f"would {'accept' if fe <= FWD_TOL['o'] else 'reject'} it, the check "
+            f"{'accepts' if fe <= FWD_TOL['o'] and fr <= SPLIT_O_REL else 'rejects'} it")
+        if fe <= FWD_TOL["o"] and fr <= SPLIT_O_REL:
+            fail(f"{what}: the check does not see a fold that drops its last split")
+    return max(eo, epo)
+
+
+def split_kernel_phase(torch, dev, flush, D, hq, hkv, corner, window, B_seg, S_seg, vocab, *,
+                       seed):
+    """The split-KV forward and its fold at head_dim ``D`` (``hq`` q heads
+    over ``hkv``), the ``SPLIT`` and ``SEG``+``SPLIT`` instantiations, held
+    against their plain version (partials and fold) and the fold against the
+    single-pass kernel: at the corner shapes (``corner``: CORNER_ROWS q rows
+    against (Skv, window)) with the auto split count, at the causal prefill
+    (B 1, S 1536) with 2 and 3 splits (and 3 under the ``window``), and with
+    the packed source's step-0 ids (at ``vocab``) at the packed training
+    shape (``B_seg``, ``S_seg``) with 2 and 3 splits, causal (and under the
+    window). Then each corner shape and the prefill timed after the L2
+    flush in turns with the single pass (split, single, single, split),
+    beside SDPA (``causal_sdpa_ms`` where the mask is causal without a
+    window, and with the boolean mask), the plain version and the bound
+    (``split_bound``); the packed shape with 2 splits in turns with the
+    SEG single pass, beside SDPA with the block-diagonal mask. Returns the
+    records of ``flash_fwd_splitkv_hd{D}`` (the largest corner shape on
+    top) and ``flash_fwd_splitkv_varlen_hd{D}``."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.masks import MaskSpec
+    from repro_torch.kernels import flash_fwd as fwd
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tiles = dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def inputs(B, Sq, Skv):
+        return (ops._prep(randn(B, Sq, hq, D), 1 / math.sqrt(D)), randn(B, Skv, hkv, D),
+                randn(B, Skv, hkv, D))
+
+    def name_of(spec):
+        return "causal" + (f", window {spec.window}" if spec.window else "") + (
+            f", q_offset {spec.q_offset}" if spec.q_offset else "")
+
+    ids = torch.from_numpy(packed_ids(B_seg, S_seg, vocab=vocab)).to(dev)
+    seg_specs = [MaskSpec(causal=True)] + ([MaskSpec(causal=True, window=window)] if window else [])
+    corner_shapes = [(1, CORNER_ROWS, Skv, corner_spec(Skv, w)) for Skv, w in corner]
+    prefill = [(1, 1536, 1536, MaskSpec(causal=True), ks) for ks in (2, 3)]
+    if window:
+        prefill.append((1, 1536, 1536, MaskSpec(causal=True, window=window), 3))
+    cases = [(B, Sq, Skv, spec, ops.resolve_kv_splits(None, (B, Sq, hq, D), (B, Skv, hkv, D)),
+              None) for B, Sq, Skv, spec in corner_shapes]
+    cases += [(*c, None) for c in prefill]
+    cases += [(B_seg, S_seg, S_seg, spec, ks, ids) for ks in (2, 3) for spec in seg_specs]
+    err = {"": 0.0, "_varlen": 0.0}
+    for B, Sq, Skv, spec, ks, seg_ids in cases:
+        q, k, v = inputs(B, Sq, Skv)
+        seg = () if seg_ids is None else (seg_ids, seg_ids)
+        sfx = "" if seg_ids is None else "_varlen"
+        split_fn = getattr(fwd, f"flash_fwd_splitkv{sfx}")
+        out = split_fn(q, k, v, spec, *seg, kv_splits=ks, **tiles)
+        one = getattr(fwd, f"flash_fwd{sfx}")(q, k, v, spec, *seg, **tiles)
+        torch.cuda.synchronize()
+        ref = fwd.flash_fwd_splitkv_plain(
+            q, k, v, spec, kv_splits=ks, **tiles,
+            **({} if seg_ids is None else dict(q_seg=seg_ids, kv_seg=seg_ids)))
+        what = (f"flash_fwd_splitkv{sfx} D={D} B={B} Sq={Sq} Skv={Skv} Hq={hq} Hkv={hkv} "
+                f"{name_of(spec)}, {ks} splits")
+        err[sfx] = max(err[sfx], check_split(torch, what, out, ref, one,
+                                             control=Sq == CORNER_ROWS))
+
+    def timed(B, Sq, Skv, spec, ks, seg_ids=None):
+        """One shape's times: the split (``ks`` splits) in turns with the
+        single pass, the plain version, SDPA, the bound. SDPA takes a
+        causal mask without a window or ids as ``causal_lower_right`` (q at
+        the last positions), which its fused backends compute, and beside it
+        the boolean mask; a window or ids only the boolean mask."""
+        q, k, v = inputs(B, Sq, Skv)
+        seg = () if seg_ids is None else (seg_ids, seg_ids)
+        sfx = "" if seg_ids is None else "_varlen"
+        split_fn, single_fn = (getattr(fwd, f"flash_fwd{m}{sfx}") for m in ("_splitkv", ""))
+        plain = {} if seg_ids is None else dict(q_seg=seg_ids, kv_seg=seg_ids)
+        ms, one_ms, turns = in_turns(
+            torch, lambda: split_fn(q, k, v, spec, *seg, kv_splits=ks, **tiles),
+            lambda: single_fn(q, k, v, spec, *seg, **tiles), 20, flush)
+        plain_ms = time_ms(torch, lambda: fwd.flash_fwd_splitkv_plain(
+            q, k, v, spec, kv_splits=ks, **tiles, **plain), 2, flush)
+        vis = spec_mask(torch, dev, Sq, Skv, spec)[None, None]
+        if seg_ids is not None:
+            vis = vis & (seg_ids[:, :, None] == seg_ids[:, None, :])[:, None]
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        bool_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=vis, enable_gqa=True, scale=1.0), 20, flush)
+        lib_ms, form = bool_ms, "boolean mask"
+        if spec.window is None and seg_ids is None:
+            lib_ms, form = causal_sdpa_ms(torch, qt, kt, vt, flush)
+        vis_b = vis.expand(B, 1, Sq, Skv)
+        pairs = int(vis_b.sum())
+        kv_rows = int(vis_b.any(dim=2).sum())
+        b_ms, b_by = split_bound(B, Sq, hq, hkv, D, pairs, kv_rows,
+                                 0 if seg_ids is None else 2 * B * Skv * 4)
+        scratch = partial_bytes(B, Sq, hq, D, ks)
+        log(f"flash_fwd_splitkv{sfx} D={D} B={B} Sq={Sq} Skv={Skv} {name_of(spec)}, {ks} splits "
+            f"({(Sq + 127) // 128 * B * hq * ks} CTAs): kernel (walk + fold) {ms:.4f} ms, the "
+            f"single pass in turns {one_ms:.4f} ms (split / single {ms / one_ms:.4f}; turns "
+            f"{turns}), plain {plain_ms:.4f} ms, sdpa ({form}) {lib_ms:.4f} ms (split / sdpa "
+            f"{ms / lib_ms:.4f}; with the boolean mask {bool_ms:.4f} ms), bound {b_ms:.4f} ms "
+            f"({b_by}; {pairs} visible pairs a q head, {kv_rows} kv rows), {ms / b_ms:.2f}x the "
+            f"bound; the f32 partials (scratch, written and read back) {scratch} bytes, "
+            f"{scratch / PEAK_HBM_BYTES * 1e3:.4f} ms at the memory rate")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                    library_form=form, library_bool_mask_ms=bool_ms, partials_bytes=scratch,
+                    single_pass_ms_in_turns=one_ms, splits=ks, shape=[B, Sq, Skv, hq, hkv, D],
+                    mask=name_of(spec))
+
+    at_corner = [timed(B, Sq, Skv, spec, ks) for B, Sq, Skv, spec, ks, _ in
+                 cases[:len(corner_shapes)]]
+    top = max(range(len(corner)), key=lambda i: (corner[i][1] is None, corner[i][0]))
+    rec = dict(max_abs_err=err[""], **at_corner[top],
+               at_corner=[r for i, r in enumerate(at_corner) if i != top],
+               at_prefill=[timed(*c) for c in prefill])
+    seg_rows = [timed(B_seg, S_seg, S_seg, spec, SPLIT_KS, ids) for spec in seg_specs]
+    seg_rec = dict(max_abs_err=err["_varlen"], **seg_rows[0])
+    if window:
+        seg_rec["windowed"] = seg_rows[1]
+    return {f"flash_fwd_splitkv_hd{D}": rec, f"flash_fwd_splitkv_varlen_hd{D}": seg_rec}
+
+
+def causal_sdpa_ms(torch, qt, kt, vt, flush):
+    """SDPA's time (ms, the form timed) on (B, H, S, D) inputs with GQA
+    under the causal mask aligned to the last q positions,
+    ``causal_lower_right``, which its fused backends compute."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    bias = causal_lower_right(qt.shape[2], kt.shape[2])
+    return time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=bias, enable_gqa=True, scale=1.0), 20, flush), \
+        "causal_lower_right, GQA"
+
+
+def default_split_phase(torch, dev):
+    """The short-q/long-kv corner of the public attention API at gemma3-1b's
+    widths (4 q heads over 1 kv head of 256; G3_CORNER) and stablelm-12b's
+    (32 over 8 of 160; SL_CORNER): with every count set to 0 just before,
+    ``ops.flash_attention`` and ``core.attention.attention(...,
+    AttentionConfig(impl="flash_cuda"))`` with the default kv splits on each
+    shape; the counts read just after must be exact (the split-KV kernel
+    twice a shape, at that head dim; the single pass, every other kernel
+    and every plain version 0). Then each shape: the auto split count must
+    be ``default_kv_splits`` (min(t_kv, 33) for gemma3, 4 for stablelm), the
+    two calls' outputs bitwise equal and within FWD_TOL and SPLIT_O_REL of
+    the plain split version and of the single pass (``kv_splits=1``). The kernel times of
+    these shapes, in turns with the single pass and beside SDPA, are the
+    split kernel phase's. Returns {path: launch counts}."""
+    from repro_torch.core.attention import AttentionConfig, attention
+    from repro_torch.kernels import flash_fwd as fwd
+    from repro_torch.kernels import ops
+
+    counters, plains = all_counters()
+    tiles = dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for arch, D, hq, hkv, corner in (("gemma3", G3_D, G3_HQ, G3_HKV, G3_CORNER),
+                                     ("stablelm", SL_D, SL_HQ, SL_HKV, SL_CORNER)):
+        shapes = []
+        for Skv, w in corner:
+            q = torch.randn((1, CORNER_ROWS, hq, D), generator=gen, device=dev).to(torch.bfloat16)
+            k, v = (torch.randn((1, Skv, hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+            shapes.append((q, k, v, corner_spec(Skv, w)))
+        zero_counts(counters, plains.values())
+        outs = [(ops.flash_attention(q, k, v, spec),
+                 attention(q, k, v, spec, AttentionConfig(impl="flash_cuda")))
+                for q, k, v, spec in shapes]
+        torch.cuda.synchronize()
+        counts = read_counts(counters, plains.values())
+        want = {name: 0 for name in counters}
+        want.update({"flash_fwd_splitkv": 2 * len(shapes),
+                     f"flash_fwd_splitkv_hd{D}": 2 * len(shapes)})
+        path = f"{arch}_split_corner"
+        log(f"launches on the {path} path ({len(shapes)} shapes, two public calls each; those "
+            f"not 0): {nonzero(counts)}")
+        if {k: counts[k] for k in counters} != want or any(counts["plain"]):
+            fail(f"the {path} path's launches are not exact: want {want}, plain 0")
+        for (q, k, v, spec), (o, o_attn) in zip(shapes, outs):
+            Skv = k.shape[1]
+            ks = ops.resolve_kv_splits(None, q.shape, k.shape)
+            policy = ops.default_kv_splits(hq, 1, -(-Skv // ops.BLOCK_KV))
+            ref = fwd.flash_fwd_splitkv_plain(ops._prep(q, 1 / math.sqrt(D)), k, v, spec,
+                                              kv_splits=ks, **tiles)
+            one = ops.flash_attention(q, k, v, spec, kv_splits=1)
+            (e_plain, r_plain), (e_one, r_one) = o_errs(torch, o, ref.o), o_errs(torch, o, one)
+            same = torch.equal(o, o_attn)
+            log(f"default ops.flash_attention at head_dim {D}, q (1, {CORNER_ROWS}, {hq}, {D}) "
+                f"against k (1, {Skv}, {hkv}, {D}), window {spec.window}: auto kv splits {ks} "
+                f"(default_kv_splits {policy}); max|o-plain|={e_plain:.3e} ({r_plain:.3e} of "
+                f"max|plain o|), max|o-single pass|={e_one:.3e} ({r_one:.3e}) (tol "
+                f"{FWD_TOL['o']} and {SPLIT_O_REL} of the reference's max|o|); attention() "
+                f"bitwise the same: {same}")
+            if (ks != policy or ks < 2 or not max(e_plain, e_one) <= FWD_TOL["o"]
+                    or not max(r_plain, r_one) <= SPLIT_O_REL or not same):
+                fail(f"the default split call at head_dim {D} against {Skv} keys did not take "
+                     "the policy's splits or disagrees with its plain version or the single pass")
+        out[path] = counts
+    return out
+
+
+@contextlib.contextmanager
+def split_layers(torch, fault=False):
+    """While the block runs, ``kernels.ops`` reaches the split-KV wrapper
+    through a stand-in of the kernel module that also runs the single pass
+    on each call's inputs and appends ``o_errs`` of the split's o against it
+    to the list it yields (one entry a layer of a prefill). With ``fault``
+    the stand-in returns ``drop_last_split``'s o in place of the fold's (a
+    planted fault, for controls). Its kernels launch and count."""
+    import types
+
+    from repro_torch.kernels import flash_fwd as fwd
+    from repro_torch.kernels import ops
+
+    errs = []
+
+    def split(q, k, v, spec, **kwargs):
+        out = fwd.flash_fwd_splitkv(q, k, v, spec, **kwargs)
+        if fault:
+            out = out._replace(o=drop_last_split(torch, out))
+        tiles = {t: kwargs[t] for t in ("block_q", "block_kv")}
+        errs.append(o_errs(torch, out.o, fwd.flash_fwd(q, k, v, spec, **tiles)[0]))
+        return out
+
+    ops._fwd = types.SimpleNamespace(**{**vars(fwd), "flash_fwd_splitkv": split})
+    try:
+        yield errs
+    finally:
+        ops._fwd = fwd
+
+
+def split_prefill_checks(torch, dev, cfg, model, prompts, l_ref, fixed_tokens, path):
+    """A split prefill through the explicit knob: with every count set to 0
+    just before, ``model.prefill`` of each of ``prompts`` with
+    AttentionConfig(impl="flash_cuda", kv_splits=SPLIT_KS); the counts read
+    just after must be exact (a prompt of at most one kv tile clamps to one
+    split and runs the single pass: per layer the split-KV kernel once a
+    longer prompt, the single pass once a shorter one). Each prompt's
+    last-position logits against the same prefill with kv_splits=1 and the
+    1500-token prompt's against impl="ref" (``l_ref``), both within
+    ``compare_logits``' limits; that prompt's split o in every layer
+    against the single pass on the same inputs within SPLIT_O_REL, a
+    control with a planted fault (``split_layers``) rejected by that
+    limit and its logits' reading logged; the prefills of all prompts
+    timed in turns (split, single, single, split) on the host clock. Then
+    the fixed engine over the same requests with kv_splits=SPLIT_KS
+    (``run_engine``, launches exact), its tokens/s and the share of its
+    greedy tokens equal to the kv_splits=1 run's (``fixed_tokens``: {rid:
+    tokens}). Returns (prefill counts, engine counts, summary)."""
+    from repro_torch.core.attention import AttentionConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    n, D = cfg.num_layers, cfg.head_dim
+    split_cfg = AttentionConfig(impl="flash_cuda", kv_splits=SPLIT_KS)
+    one_cfg = AttentionConfig(impl="flash_cuda", kv_splits=1)
+    tokens = [torch.tensor([p], device=dev) for p in prompts]
+    n_split = sum(len(p) > ops.BLOCK_KV for p in prompts)  # prompts of two kv tiles or more
+
+    def prefill_all(attn):
+        return [model.logits_from_hidden(model.prefill(t, attn, CACHE)[0]) for t in tokens]
+
+    counters, plains = all_counters()
+    zero_counts(counters, plains.values())
+    l_split = prefill_all(split_cfg)
+    torch.cuda.synchronize()
+    counts = read_counts(counters, plains.values())
+    want = {name: 0 for name in counters}
+    want.update({"flash_fwd": (len(prompts) - n_split) * n, "flash_fwd_splitkv": n_split * n,
+                 f"flash_fwd_splitkv_hd{D}": n_split * n})
+    log(f"launches on the {path}_split_prefill path (prompt lengths {list(PROMPT_LENS)}, "
+        f"kv_splits={SPLIT_KS}; {len(prompts) - n_split} prompts of one kv tile take the single "
+        f"pass; those not 0): {nonzero(counts)}")
+    if {k: counts[k] for k in counters} != want or any(counts["plain"]):
+        fail(f"{path} split prefill launches are not exact: want {want}, plain 0")
+    # The split and the single pass differ only where the fold's bf16
+    # rounding of o differs from the single pass's (one ulp in a share of
+    # the elements), but 40 layers of random weights amplify that as they
+    # amplify the kernels' gap to impl="ref": the first card run read
+    # stablelm-12b's 100-token prompt at cosine 0.999770 and max|diff|
+    # 0.021 x max|logit| (gemma3-1b: 0.999993), so the limits are the
+    # reference comparison's.
+    l_one = prefill_all(one_cfg)
+    gaps = []
+    for p, a, b in zip(prompts, l_one, l_split):
+        diff, top, cos, same = compare_logits(torch, f"{path} prefill of {len(p)} tokens", a, b,
+                                              names=("kv_splits=1", f"kv_splits={SPLIT_KS}"))
+        gaps.append(dict(prompt=len(p), max_diff=diff, max_logit=top, min_cos=cos,
+                         same_argmax=same))
+    compare_logits(torch, f"{path} split prefill (kv_splits={SPLIT_KS}) of {len(prompts[3])} "
+                   "tokens", l_ref, l_split[3])
+    # The last-position logits of random weights barely see attention: a
+    # fold that drops its last split passes their limits at gemma3-1b (the
+    # control below reads them). Each layer's split o is therefore also held
+    # against the single pass on the same inputs within SPLIT_O_REL of its
+    # max|o|, and the same limit must reject the planted fault.
+    long = tokens[3]
+    with split_layers(torch) as errs:
+        model.prefill(long, split_cfg, CACHE)
+    with split_layers(torch, fault=True) as bad:
+        l_bad = model.logits_from_hidden(model.prefill(long, split_cfg, CACHE)[0])
+    worst, worst_bad = max(r for _, r in errs), max(r for _, r in bad)
+    diff, top, cos, _ = logit_gap(torch, l_one[3], l_bad)
+    log(f"{path} split prefill of {long.shape[1]} tokens, each of {len(errs)} layers' split o "
+        f"against the single pass on its inputs: at most {worst:.3e} of max|o| (limit "
+        f"{SPLIT_O_REL}); control (the fold without its last split, lse kept): at most "
+        f"{worst_bad:.3e} ({'rejected' if worst_bad > SPLIT_O_REL else 'accepted'}); its "
+        f"last-position logits vs kv_splits=1: max|diff|={diff:.4f} (limit "
+        f"{LOGIT_REL * top:.4f}), min cosine {cos:.6f} (limit {LOGIT_COS}): "
+        f"{'accepted' if cos >= LOGIT_COS and diff <= LOGIT_REL * top else 'rejected'} there")
+    if len(errs) != n or worst > SPLIT_O_REL:
+        fail(f"{path}: a layer's split o disagrees with the single pass on its inputs")
+    if worst_bad <= SPLIT_O_REL:
+        fail(f"{path}: the per-layer check does not see a fold that drops a split")
+    gaps.append(dict(layers_max_rel=worst, control=dict(
+        layers_max_rel=worst_bad, prompt=long.shape[1], max_diff=diff, max_logit=top,
+        min_cos=cos)))
+    del l_one, l_split, l_bad
+
+    def prefill_s(attn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill_all(attn)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    prefill_s(split_cfg)
+    turns = [prefill_s(a) for a in (split_cfg, one_cfg, one_cfg, split_cfg)]
+    split_ms, one_ms = (turns[0] + turns[3]) / 2 * 1e3, (turns[1] + turns[2]) / 2 * 1e3
+    log(f"{path} prefill of the {len(prompts)} prompts (host clock): kv_splits={SPLIT_KS} "
+        f"{split_ms:.2f} ms, kv_splits=1 {one_ms:.2f} ms in turns (split, single, single, split) "
+        f"{[round(t * 1e3, 2) for t in turns]}: ratio {split_ms / one_ms:.4f}")
+
+    engine = ServingEngine(cfg, model, split_cfg, max_batch=4, cache_size=CACHE)
+    for rid, prompt in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
+    engine_counts, engine_summary = run_engine(torch, dev, cfg, engine, len(prompts),
+                                               f"{path}_split_serving")
+    # The engine pads each prompt to a multiple of 64: the same prompts as
+    # above take one kv tile.
+    if (engine_counts["flash_fwd"] != (len(prompts) - n_split) * n
+            or engine_counts["flash_fwd_splitkv"] != n_split * n
+            or engine_counts[f"flash_fwd_splitkv_hd{D}"] != n_split * n
+            or engine_counts["flash_decode"] != engine.ticks * n
+            or engine_counts["flash_decode_paged"]):
+        fail(f"{path} split serving: want flash_fwd {(len(prompts) - n_split) * n}, "
+             f"flash_fwd_splitkv {n_split * n}, flash_decode {engine.ticks * n}")
+    same = sum(a == b for rid, req in engine.finished.items()
+               for a, b in zip(req.generated, fixed_tokens[rid]))
+    total = sum(len(t) for t in fixed_tokens.values())
+    log(f"{path}_split_serving: greedy tokens equal to the kv_splits=1 run's: {same} of {total} "
+        f"({same / total:.4f}); tokens/s {engine_summary['tokens_per_s']:.1f}")
+    summary = dict(prefill_split_ms=split_ms, prefill_single_ms=one_ms, logit_gaps=gaps,
+                   serving=engine_summary, same_token_share=same / total)
+    return counts, engine_counts, summary
+
+
+def gemma3_split_train_phase(torch, dev):
+    """gemma3-1b (26 layers) on packed batches with a split forward
+    (``model_split_train_phase``, B 4, S 2048)."""
+    from repro_torch.configs import registry
+
+    return model_split_train_phase(torch, dev, registry.get("gemma3-1b"), G3_TRAIN_B,
+                                   G3_TRAIN_S, SPLIT_TRAIN_STEPS)
+
+
+def stablelm_split_train_phase(torch, dev):
+    """stablelm-12b, SL_TRAIN_LAYERS of 40 layers, on packed batches with a
+    split forward (``model_split_train_phase``, B 2, S 2048)."""
+    from repro_torch.configs import registry
+
+    cfg = dataclasses.replace(registry.get("stablelm-12b"), num_layers=SL_TRAIN_LAYERS)
+    return model_split_train_phase(torch, dev, cfg, SL_TRAIN_B, SL_TRAIN_S, SPLIT_TRAIN_STEPS)
+
+
+def model_split_train_phase(torch, dev, cfg, B, S, steps):
+    """``cfg`` (bf16, remat, seed 0) trained ``steps`` AdamW steps on the
+    packed source's batches through launch/steps.build_train_step(cfg,
+    AttentionConfig(impl="flash_cuda", bwd="split", kv_splits=...), ...)
+    (``run_steps``), three runs in one loop from the same seed and batches:
+    kv_splits=SPLIT_KS, kv_splits=1, and kv_splits=SPLIT_KS again. Launches
+    exact in each (the SEG split-KV forward, or the SEG single pass, twice
+    a layer of the remat groups and once a tail layer; delta, the SEG dK/dV
+    and dQ once a layer; all at cfg.head_dim; no plain version); the split
+    runs' losses bitwise equal to each other (the fold and the split
+    backward are deterministic), and against kv_splits=1 step 0 within
+    PARITY_LOSS_REL and every step within GPT_LOSS_REL. Returns (launch
+    counts of the first split run, {run: summary})."""
+    from repro_torch.core.attention import AttentionConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticVarlenLM
+    from repro_torch.training.optimizer import AdamWConfig
+
+    arch, D = cfg.name, cfg.head_dim
+    opt_cfg = AdamWConfig(warmup_steps=2, total_steps=steps)
+    grouped = cfg.num_groups * cfg.group_size
+    forwards = steps * (2 * grouped + cfg.num_layers - grouped)
+    src = SyntheticVarlenLM(DataConfig(B, S, cfg.vocab_size, seed=0, source="packed"))
+    data = [{k: torch.from_numpy(v).to(dev) for k, v in src.batch(step).items()}
+            for step in range(steps)]
+    counters, plains = kernel_counters()
+    runs, counts = {}, None
+    for key, ks in (("split", SPLIT_KS), ("single", 1), ("split again", SPLIT_KS)):
+        what = f"{arch} packed training, split backward, kv_splits={ks} ({key})"
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, opt_state, step_fn, losses, times, run_counts = run_steps(
+            torch, dev, cfg, AttentionConfig(impl="flash_cuda", bwd="split", kv_splits=ks),
+            opt_cfg, data, counters, plains, what)
+        del model, opt_state, step_fn
+        med = sorted(times)[steps // 2]
+        runs[key] = dict(losses=losses, median_ms=med * 1e3, first_ms=times[0] * 1e3,
+                         tokens_per_s=B * S / med)
+        log(f"{what}, {cfg.num_layers} layers, B={B} S={S}: losses "
+            f"{[round(x, 5) for x in losses]}; median step {med * 1e3:.1f} ms (first "
+            f"{times[0] * 1e3:.1f} ms), {B * S / med:.1f} tokens/s")
+        log(f"launches on the {what} path (those not 0): {nonzero(run_counts)}")
+        want = training_want(counters, plains, steps * cfg.num_layers, ("split",), "_varlen",
+                             head_dim=D, forwards=forwards,
+                             forward="flash_fwd_splitkv" if ks > 1 else "flash_fwd")
+        if run_counts != want:
+            fail(f"{what} launches {run_counts}, want {want}")
+        if key == "split":
+            counts = run_counts
+    split, single = runs["split"]["losses"], runs["single"]["losses"]
+    bitwise = [a == b for a, b in zip(split, runs["split again"]["losses"])]
+    rel = [abs(a - b) / abs(b) for a, b in zip(split, single)]
+    # The split runs bracket the single one (split, single, split).
+    split_ms = (runs["split"]["median_ms"] + runs["split again"]["median_ms"]) / 2
+    log(f"{arch} packed training with a split forward: losses bitwise over two runs {bitwise}; "
+        f"against kv_splits=1, relative by step " + ", ".join(f"{r:.3e}" for r in rel)
+        + f" (step 0 {PARITY_LOSS_REL}, every step {GPT_LOSS_REL}); median step "
+        f"{split_ms:.1f} ms (the two split runs' mean) against {runs['single']['median_ms']:.1f} "
+        f"ms, ratio {split_ms / runs['single']['median_ms']:.4f}")
+    if not all(bitwise):
+        fail(f"{arch}: the split-forward training is not bitwise the same over two runs")
+    if rel[0] > PARITY_LOSS_REL or max(rel) > GPT_LOSS_REL:
+        fail(f"{arch}: the split-forward training's losses are not kv_splits=1's")
+    return counts, runs
+
+
 def main() -> None:
     import torch
 
@@ -4314,7 +4888,7 @@ def main() -> None:
     log("ptxas, registers and spills by kernel instantiation (registers at entry; the "
         "forward's, the KV-stationary backward's and the dq kernel's warpgroups then run at 24 "
         "(producer) and 240 (consumers) by setmaxnreg):\n" + ptxas)
-    dense_ptxas_check(ptxas)
+    wide_ptxas_check(ptxas)
 
     scratch = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     results = kernel_phase(torch, dev, scratch.zero_)
@@ -4339,7 +4913,7 @@ def main() -> None:
         seed=31))
     results.update(dense_kernel_phase(torch, dev, scratch.zero_, SL_D, SL_HQ, SL_HKV, SL_TRAIN_B,
                                       SL_TRAIN_S, {"causal": dict(causal=True)}, SL_VOCAB, seed=32))
-    default_split_phase(torch, dev)
+    corner_counts = default_split_phase(torch, dev)
     del scratch
     whisper_counts, whisper_summary = whisper_phase(torch, dev)
     gc.collect()
@@ -4413,6 +4987,16 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     sl_dense_counts, sl_dense_summaries = stablelm_dense_train_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    g3_split_train_counts, g3_split_train_summaries = gemma3_split_train_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sl_split_train_counts, sl_split_train_summaries = stablelm_split_train_phase(torch, dev)
+    split_paths = {}
+    for arch, summary in (("gemma3", g3_summary), ("stablelm", sl_summary)):
+        split_paths[f"{arch}_split_prefill"] = summary.pop("split_prefill_counts")
+        split_paths[f"{arch}_split_serving"] = summary.pop("split_serving_counts")
 
     results["flash_fwd"]["at_training_shape"] = results.pop("flash_fwd_at_training_shape")
     ptxas_of = {"flash_decode_hd256": "fa2_decode_kernel<256,0>",
@@ -4429,9 +5013,13 @@ def main() -> None:
                 for kernel in ("fused", "dkv", "dq"):
                     ptxas_of[f"flash_bwd_{kernel}{suffix}{sched}_hd{D}"] = (
                         f"fa2_bwd_{kernel}_kernel<{D},{seg},{dense}>")
+            # The split walk (SPLIT 1) and its fold.
+            ptxas_of[f"flash_fwd_splitkv{suffix}_hd{D}"] = (f"fa2_fwd_kernel<{D},{seg},1,0>",
+                                                           f"fa2_fwd_fold_kernel<{D}>")
     for k, inst in ptxas_of.items():
+        insts = inst if isinstance(inst, tuple) else (inst,)
         results[k]["ptxas"] = [line.split(": ", 1)[1] for line in ptxas.splitlines()
-                               if inst in line]
+                               if any(i in line for i in insts)]
     replaces = {"flash_fwd": "src/repro/kernels/flash_fwd.py:354",
                 "flash_decode": "src/repro/kernels/flash_decode.py:77",
                 "flash_decode_paged": "src/repro/kernels/flash_decode.py:250",
@@ -4502,7 +5090,13 @@ def main() -> None:
                    for n, path in (("flash_fwd", "flash_fwd.py:206"),
                                    ("flash_bwd_fused", "flash_bwd.py:633"),
                                    ("flash_bwd_dkv", "flash_bwd.py:157"),
-                                   ("flash_bwd_dq", "flash_bwd.py:390"))}}
+                                   ("flash_bwd_dq", "flash_bwd.py:390"))},
+                # The split-KV forward and its segment branch at head_dim 256
+                # and 160 (the short-q/long-kv corner, a split prefill of
+                # gemma3-1b and stablelm-12b, packed training with a split
+                # forward).
+                **{f"flash_fwd_splitkv{sfx}_hd{D}": "src/repro/kernels/flash_fwd.py:510"
+                   for D in (256, 160) for sfx in ("", "_varlen")}}
     source = {"flash_fwd": "flash_fwd", "flash_decode": "flash_decode",
               "flash_decode_paged": "flash_decode", "flash_bwd_delta": "flash_bwd",
               "flash_bwd_fused": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
@@ -4537,7 +5131,10 @@ def main() -> None:
              **{f"training_{arch}_{key.replace(' dense', '').replace(' ', '_')}_dense":
                 dense_by_dim(c, D) for arch, D, runs in (("gemma3", 256, g3_dense_counts),
                                                          ("stablelm", 160, sl_dense_counts))
-                for key, c in runs.items()}}
+                for key, c in runs.items()},
+             **corner_counts, **split_paths,
+             "training_gemma3_packed_split_forward": g3_split_train_counts,
+             "training_stablelm_packed_split_forward": sl_split_train_counts}
     # An entry named "_hd64" ("_hd160", "_hd256") counts its kernel's
     # launches at head dim 64 (160, 256), and the entry of the same kernel
     # without the suffix the other launches. The backward wrappers and the
@@ -4550,9 +5147,11 @@ def main() -> None:
     hd64_paths = ("whisper_serving", "training_gpt20m", "training_gpt20m_split",
                   "training_whisper", "granite_serving", "granite_paged_serving")
     hd256_paths = ("gemma3_serving", "gemma3_paged_serving", "training_gemma3",
-                   "training_gemma3_split")
+                   "training_gemma3_split", "gemma3_split_corner", "gemma3_split_prefill",
+                   "gemma3_split_serving")
     hd160_paths = ("stablelm_serving", "stablelm_paged_serving", "training_stablelm",
-                   "training_stablelm_split")
+                   "training_stablelm_split", "stablelm_split_corner", "stablelm_split_prefill",
+                   "stablelm_split_serving")
     by_dim = {"flash_fwd_hd64": ("flash_fwd", hd64_paths),
               "flash_decode_hd64": ("flash_decode", hd64_paths),
               "flash_decode_paged_hd64": ("flash_decode_paged", hd64_paths),
@@ -4593,6 +5192,10 @@ def main() -> None:
     log(f"stablelm-12b packed training: {json.dumps(sl_packed_summaries)}")
     log(f"gemma3-1b dense-schedule training: {json.dumps(g3_dense_summaries)}")
     log(f"stablelm-12b dense-schedule training: {json.dumps(sl_dense_summaries)}")
+    log(f"gemma3-1b packed training with a split forward: "
+        f"{json.dumps(g3_split_train_summaries)}")
+    log(f"stablelm-12b packed training with a split forward: "
+        f"{json.dumps(sl_split_train_summaries)}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

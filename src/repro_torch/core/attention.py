@@ -35,8 +35,7 @@ class AttentionConfig:
     # tuned cache to consult.
     bwd: Optional[str] = None
     # Forward kv splits (flash_cuda; paper Section 3.2): None -> the auto
-    # policy (kernels/ops.default_kv_splits; 1 at head dims 160 and 256,
-    # which have no split-KV kernel: ops.resolve_kv_splits); an int
+    # policy (kernels/ops.default_kv_splits, at every head dim); an int
     # overrides (1 disables). Splits run the split-KV kernel, exact up to
     # the fold's rounding. The JAX config's q bands have no counterpart:
     # every q tile is its own CTA.
@@ -62,12 +61,12 @@ def check_card_support(cfg, attn_cfg: AttentionConfig, device, *, training: bool
     the CUDA kernels cannot run: ``attn_cfg.impl == "flash_cuda"`` on a CUDA
     ``device`` (a name or a ``torch.device``) with ``cfg.dtype`` other than
     bfloat16, or a ``cfg.head_dim`` that the forward kernels, and for
-    ``training`` the backward kernels (``packed``: the segment variants of
-    the forward and the backward), else the decode kernels (``paged``: the
-    paged decode's) are not instantiated for: gemma3-1b's 256 and
+    ``training`` the backward kernels, else the decode kernels (``paged``:
+    the paged decode's) are not instantiated for: gemma3-1b's 256 and
     stablelm-12b's 160 serve (fixed and paged) and train (fused and split
-    backward), packed too (the segment kernels are built at 64, 128, 160
-    and 256); granite-moe-1b-a400m's 64 serves (fixed and paged). MoE
+    backward); granite-moe-1b-a400m's 64 serves (fixed and paged).
+    ``packed`` adds no condition: the forward and backward kernels are
+    built with segments at each of their head dims. MoE
     training (``cfg.family == "moe"``) is refused on the card whatever the
     head_dim: it waits for its own slice (ROADMAP.md queue 1, item 5). The
     plain CPU path and ``impl="ref"`` take any of them."""
@@ -86,9 +85,6 @@ def check_card_support(cfg, attn_cfg: AttentionConfig, device, *, training: bool
     kernels = {"forward": flash_fwd.KERNEL_HEAD_DIMS}
     if training:
         kernels["backward"] = flash_bwd.KERNEL_HEAD_DIMS
-        if packed:  # the segment variants of the forward and backward kernels
-            kernels["segment (packed)"] = tuple(d for d in flash_fwd.SEGMENT_HEAD_DIMS
-                                                if d in flash_bwd.SEGMENT_HEAD_DIMS)
     else:
         kernels["decode"] = (flash_decode.PAGED_HEAD_DIMS if paged
                              else flash_decode.KERNEL_HEAD_DIMS)

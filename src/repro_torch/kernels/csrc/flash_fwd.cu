@@ -111,7 +111,16 @@
 // 4) on 132 SMs, each walking every kv tile in series; the work is bound by
 // the bytes of K and V, read at the card's rate only when enough CTAs are
 // in flight. Splits multiply the CTAs by ks and cut each walk to 1/ks. At
-// Sq <= 64 the pair has one tile, so half of each such CTA idles.
+// Sq <= 64 the pair has one tile, so half of each such CTA idles. SPLIT is
+// instantiated at every head dim, with and without SEG. Its epilogue writes
+// O's f32 partial straight from the accumulator registers: register 4 tt +
+// i of a consumer thread is column 8 tt + 2 t4 (+1), the mapping that the
+// bf16 epilogue's staging uses, and at 160 (an n128 and an n32 accumulator)
+// and 256 (two n128) the second accumulator's registers follow the first's,
+// so tt runs over every column, the tail's 128-159 included. A split whose
+// range holds no step of a tile hands over only the end record: its
+// consumers read that record and write the merge identity (0, -inf). The
+// fold kernel runs D threads a row (five warps at 160).
 //
 // The DENSE instantiation (with and without SEG; never with SPLIT, which
 // the JAX package refuses under the dense schedule, flash_fwd.py:391) reads
@@ -128,11 +137,12 @@
 //
 // Head dims: every variant is instantiated at 128 (qwen3) and 64
 // (whisper); a 64-row tile is D / 64 TMA boxes of 64 rows x 128 bytes. At
-// 256 (gemma3) and 160 (stablelm, below) the single-pass kernel is
-// instantiated, compact without SEG (the serving prefill's) and with it
-// (packed training's), and DENSE without and with SEG (dense-schedule
-// training); SPLIT refuses both. At 256 the same design needs two changes
-// to fit an SM:
+// 256 (gemma3) and 160 (stablelm, below) every variant is instantiated
+// too: compact without SEG (the serving prefill's) and with it (packed
+// training's), DENSE without and with SEG (dense-schedule training), and
+// SPLIT without and with SEG (the short-q/long-kv corner, a split prefill,
+// packed training with a split forward). At 256 the same design needs two
+// changes to fit an SM:
 //   * registers: a consumer's O is 64 x 256 f32, 128 registers a thread;
 //     with Q as register fragments (64 more), S (32) and P (16) it would
 //     exceed setmaxnreg's 240. So Q stays in shared memory and S = Q K^T
@@ -146,11 +156,11 @@
 //     step are not hidden behind a whole step.
 // At gemma3's prefill (B 1, S 1536, 4 q heads: 48 CTAs on 132 SMs) the 256
 // kernel takes about 14x its bound, 1.54x SDPA's forward (PERF.md row 1g).
-// At 160 (stablelm-12b), again the single pass only, 160 is not a
-// whole number of 64-column boxes. Of the two layouts a tile
-// could take, three 128-byte-swizzled boxes (the third half past the
-// tensor, zero-filled by TMA: 24 KB a tile, a 3-stage ring, P V as n128 +
-// n64 into a 96-column accumulator a third of which is zeros) or two such
+// At 160 (stablelm-12b), 160 is not a whole number of 64-column boxes. Of
+// the two layouts a tile could take, three 128-byte-swizzled boxes (the
+// third half past the tensor, zero-filled by TMA: 24 KB a tile, a 3-stage
+// ring, P V as n128 + n64 into a 96-column accumulator a third of which is
+// zeros) or two such
 // boxes and a tail box of the last 32 columns, 64-byte swizzled, this
 // kernel takes the second: a tile is exactly 20 KB, so the pair's Q (40 KB)
 // and a 4-stage K/V ring (160 KB) fit in 206 KB; S = Q K^T takes its k-steps
@@ -308,8 +318,8 @@ __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
 template <int D, bool SEG, bool SPLIT, bool DENSE>
 __global__ void __launch_bounds__(kThreads, 1)
     fa2_fwd_kernel(const FwdParams p, const __grid_constant__ FwdMaps maps) {
-  static_assert(D == 64 || D == 128 || ((D == 160 || D == 256) && !SPLIT),
-                "the forward takes head_dim 64 or 128, and 160 and 256 single-pass");
+  static_assert(D == 64 || D == 128 || D == 160 || D == 256,
+                "the forward takes head_dim 64, 128, 160 or 256");
   using L = FwdSmem<D>;
   constexpr int kStages = L::STAGES;
   constexpr bool QSS = D == 256;  // Q read from shared memory by every S = Q K^T
@@ -766,17 +776,11 @@ cudaError_t dispatch(const FwdParams& p, int batch, int Hkv, bool seg, bool spli
   if (dense)
     return seg ? launch<D, true, false, true>(p, batch, Hkv, s, of, lf)
                : launch<D, false, false, true>(p, batch, Hkv, s, of, lf);
-  if constexpr (D == 160 || D == 256) {  // single pass only (ROADMAP.md queue 2, item 2)
-    if (split) return cudaErrorInvalidValue;
-    return seg ? launch<D, true, false>(p, batch, Hkv, s, of, lf)
+  if (seg)
+    return split ? launch<D, true, true>(p, batch, Hkv, s, of, lf)
+                 : launch<D, true, false>(p, batch, Hkv, s, of, lf);
+  return split ? launch<D, false, true>(p, batch, Hkv, s, of, lf)
                : launch<D, false, false>(p, batch, Hkv, s, of, lf);
-  } else {
-    if (seg)
-      return split ? launch<D, true, true>(p, batch, Hkv, s, of, lf)
-                   : launch<D, true, false>(p, batch, Hkv, s, of, lf);
-    return split ? launch<D, false, true>(p, batch, Hkv, s, of, lf)
-                 : launch<D, false, false>(p, batch, Hkv, s, of, lf);
-  }
 }
 
 }  // namespace
@@ -811,12 +815,11 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
   p.bits = static_cast<const int*>(bits);
   p.q_seg_sb = q_seg_sb; p.kv_seg_sb = kv_seg_sb; p.n_vis = n_vis;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // Head dims 128 (qwen3) and 64 (whisper); without and with segments (null
-  // ids: none); the compact schedule (table; with segments, step bits) or
-  // the dense one (no table, no bits); single-pass, or (compact only)
-  // split-KV partials (o, lse) folded into (o_fold, lse_fold). Head dims 256
-  // (gemma3) and 160 (stablelm): the single pass, compact and dense, without
-  // and with segments.
+  // Head dims 128 (qwen3), 64 (whisper), 256 (gemma3) and 160 (stablelm);
+  // without and with segments (null ids: none); the compact schedule
+  // (table; with segments, step bits) or the dense one (no table, no bits);
+  // single-pass, or (compact only) split-KV partials (o, lse) folded into
+  // (o_fold, lse_fold).
   if (block_q != kBlockM || block_kv != kBlockN || ks < 1 || t_q < 1) return cudaErrorInvalidValue;
   if (split && (dense || o_fold == nullptr || lse_fold == nullptr))
     return cudaErrorInvalidValue;

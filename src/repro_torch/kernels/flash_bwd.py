@@ -48,7 +48,7 @@ both. Each is the same kernel source instantiated with ``SEG``, so the
 split dK/dV stay bitwise the fused kernel's with segments too; the segment
 kernels are built at every head dim of ``KERNEL_HEAD_DIMS`` (160 and 256
 since packed training of stablelm-12b and gemma3-1b), and so are the dense
-ones (``SEGMENT_HEAD_DIMS``, ``DENSE_HEAD_DIMS``).
+ones.
 
 Every wrapper takes ``schedule="compact" | "dense"``. The dense one
 replaces the dense bodies of the same three JAX kernels
@@ -79,30 +79,22 @@ import torch.nn.functional as F
 from repro_torch.core.masks import MaskSpec, apply_mask, make_tile_mask
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_fwd import (_check_kernel_inputs, _check_layout, _tiles, _Walk,
-                                           check_mode_head_dim, check_segments, count_launch,
+                                           check_segments, count_head_dim, count_launch,
                                            segment_args)
 from repro_torch.kernels.schedule import check_schedule, device_schedule
 
 # Head dims the backward kernels are instantiated for: 128 (qwen3), 64
 # (whisper-base, the gpt presets), 160 (stablelm-12b) and 256 (gemma3-1b),
 # each on the compact and the dense schedule, without and with segments
-# (one tuple a mode, as in the forward). Each wrapper also counts its
+# (as the forward). Each wrapper also counts its
 # head_dim-64, 160 and 256 launches apart (``hd64_launches``,
 # ``hd160_launches``, ``hd256_launches``: subsets of its other counts).
 KERNEL_HEAD_DIMS = (64, 128, 160, 256)
-SEGMENT_HEAD_DIMS = (64, 128, 160, 256)
-DENSE_HEAD_DIMS = (64, 128, 160, 256)
-MODE_HEAD_DIMS = {"segment": SEGMENT_HEAD_DIMS, "dense": DENSE_HEAD_DIMS}
 
 
 def _count(wrapper, schedule: str, head_dim: int) -> None:
     count_launch(wrapper, schedule)
-    if head_dim == 64:
-        wrapper.hd64_launches += 1
-    elif head_dim == 160:
-        wrapper.hd160_launches += 1
-    elif head_dim == 256:
-        wrapper.hd256_launches += 1
+    count_head_dim(wrapper, head_dim)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -347,9 +339,6 @@ def _kernel_args(what, q, k, v, do, lse, delta, spec, block_q, block_kv, segment
     (arguments, tensors to hold until the launch)."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
-    check_mode_head_dim(what, D, [m for m, on in (("segment", segments is not None),
-                                                  ("dense", schedule == "dense")) if on],
-                        MODE_HEAD_DIMS)
     _check_kernel_inputs(what, (block_q, block_kv), KERNEL_HEAD_DIMS, q=q, k=k, v=v, do=do)
     if lse.device != q.device or delta.device != q.device:
         raise ValueError("lse and delta must lie on q's device")

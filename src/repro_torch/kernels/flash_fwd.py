@@ -38,11 +38,9 @@ version); the wrapper returns both as a :class:`SplitForward`.
 :func:`flash_fwd_splitkv_varlen` is its segment variant. Both are the same
 kernel source instantiated with ``SPLIT``.
 
-The kernels are instantiated at head_dim 64 and 128 in every mode, and at
-160 and 256 in the single pass, compact and dense, without and with
-segments (``KERNEL_HEAD_DIMS``, and per mode ``SEGMENT_HEAD_DIMS``,
-``SPLIT_KV_HEAD_DIMS``, ``DENSE_HEAD_DIMS``): the split-KV mode refuses 160
-and 256 before the launch.
+The kernels are instantiated at head_dim 64, 128, 160 and 256
+(``KERNEL_HEAD_DIMS``) in every mode: the single pass, compact and dense,
+and the split-KV forward, each without and with segments.
 
 ``schedule="dense"`` on :func:`flash_fwd` and :func:`flash_fwd_varlen`
 replaces the dense body ``_fwd_kernel_dense`` (``flash_fwd.py:206``, with
@@ -77,28 +75,11 @@ from repro_torch.kernels.schedule import (build_kv_tile_schedule, build_q_tile_s
                                           device_schedule, device_step_bits, segment_step_bits)
 
 # (block_q, block_kv) and head dims the CUDA kernels are instantiated for:
-# 128 (qwen3) and 64 (whisper) in every mode (segments, split-KV, dense);
-# 160 (stablelm) and 256 (gemma3) in the single pass, compact (the serving
-# prefill's) and dense, each with its segment variant (packed training's;
-# their split-KV mode is ROADMAP.md queue 2, item 2). Each mode has its
-# tuple.
+# 128 (qwen3), 64 (whisper), 160 (stablelm) and 256 (gemma3), each in every
+# mode (single pass and split-KV, compact and dense, with and without
+# segments).
 KERNEL_BLOCKS = ((64, 64),)
 KERNEL_HEAD_DIMS = (64, 128, 160, 256)
-SEGMENT_HEAD_DIMS = (64, 128, 160, 256)
-SPLIT_KV_HEAD_DIMS = (64, 128)
-DENSE_HEAD_DIMS = (64, 128, 160, 256)
-MODE_HEAD_DIMS = {"segment": SEGMENT_HEAD_DIMS, "split-KV": SPLIT_KV_HEAD_DIMS,
-                  "dense": DENSE_HEAD_DIMS}
-
-
-def check_mode_head_dim(what: str, D: int, modes, dims=MODE_HEAD_DIMS) -> None:
-    """Raise unless every mode of ``modes`` (keys of ``dims``: "segment",
-    "split-KV", "dense") has a kernel at head_dim ``D`` by its own tuple in
-    ``dims``, naming the refused ones."""
-    refused = [m for m in modes if D not in dims[m]]
-    if refused:
-        raise ValueError(f"{what}'s {' and '.join(refused)} mode takes head_dim in "
-                         f"{dims[refused[0]]}, got {D} (ROADMAP.md queue 2, item 2)")
 
 
 def _tiles(n: int, block: int) -> int:
@@ -121,6 +102,15 @@ def count_launch(wrapper, schedule: str) -> None:
         wrapper.dense_launches += 1
     else:
         wrapper.launches += 1
+
+
+def count_head_dim(wrapper, D: int) -> None:
+    """One more of ``wrapper``'s launches at head_dim ``D``, where the
+    wrapper counts that head dim apart (``hd160_launches``,
+    ``hd256_launches``: subsets of its other counts)."""
+    name = f"hd{D}_launches"
+    if hasattr(wrapper, name):
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def flash_fwd(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int,
@@ -154,10 +144,7 @@ def flash_fwd_varlen(q, k, v, spec: MaskSpec, q_seg, kv_seg, *, block_q: int, bl
                                q_seg=q_seg, kv_seg=kv_seg, schedule=schedule)
     out = _launch(q, k, v, spec, block_q, block_kv, (q_seg, kv_seg), schedule=schedule)
     count_launch(flash_fwd_varlen, schedule)
-    if q.shape[3] == 160:
-        flash_fwd_varlen.hd160_launches += 1
-    elif q.shape[3] == 256:
-        flash_fwd_varlen.hd256_launches += 1
+    count_head_dim(flash_fwd_varlen, q.shape[3])
     return out
 
 
@@ -194,10 +181,13 @@ def flash_fwd_splitkv(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int,
                                        kv_splits=kv_splits)
     out = _launch(q, k, v, spec, block_q, block_kv, None, kv_splits)
     flash_fwd_splitkv.launches += 1
+    count_head_dim(flash_fwd_splitkv, q.shape[3])
     return out
 
 
 flash_fwd_splitkv.launches = 0  # kernel launches (CUDA tensors only)
+flash_fwd_splitkv.hd160_launches = 0  # of those, the launches at head_dim 160
+flash_fwd_splitkv.hd256_launches = 0  # and at head_dim 256
 
 
 def flash_fwd_splitkv_varlen(q, k, v, spec: MaskSpec, q_seg, kv_seg, *, block_q: int,
@@ -211,10 +201,13 @@ def flash_fwd_splitkv_varlen(q, k, v, spec: MaskSpec, q_seg, kv_seg, *, block_q:
                                        kv_splits=kv_splits, q_seg=q_seg, kv_seg=kv_seg)
     out = _launch(q, k, v, spec, block_q, block_kv, (q_seg, kv_seg), kv_splits)
     flash_fwd_splitkv_varlen.launches += 1
+    count_head_dim(flash_fwd_splitkv_varlen, q.shape[3])
     return out
 
 
 flash_fwd_splitkv_varlen.launches = 0  # kernel launches (CUDA tensors only)
+flash_fwd_splitkv_varlen.hd160_launches = 0  # of those, the launches at head_dim 160
+flash_fwd_splitkv_varlen.hd256_launches = 0  # and at head_dim 256
 
 
 def _launch(q, k, v, spec, block_q, block_kv, segments, kv_splits=None, schedule="compact"):
@@ -227,9 +220,6 @@ def _launch(q, k, v, spec, block_q, block_kv, segments, kv_splits=None, schedule
     _, Skv, Hkv, _ = k.shape
     split = kv_splits is not None
     dense = schedule == "dense"
-    modes = [m for m, on in (("segment", segments is not None), ("split-KV", split),
-                             ("dense", dense)) if on]
-    check_mode_head_dim("the CUDA forward", D, modes)
     _check_kernel_inputs("the CUDA forward", (block_q, block_kv), q=q, k=k, v=v)
     t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
     if split and dense:

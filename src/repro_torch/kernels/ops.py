@@ -89,30 +89,19 @@ def resolve_kv_splits(kv_splits, q_shape, k_shape, block_q=None, block_kv=None,
     the kv tile count as the JAX ``_resolve_partitions`` (``ops.py:193``)
     clamps it. Public layouts: q (B, Sq, Hq, D), k (B, Skv, Hkv, D). Under
     the dense schedule, which has no split-KV kernel, an explicit count
-    above 1 raises and None resolves to 1, as in the JAX package.
-
-    None also resolves to 1 at a head dim that has a forward kernel but no
-    split-KV one (in ``flash_fwd.KERNEL_HEAD_DIMS``, not in
-    ``SPLIT_KV_HEAD_DIMS``: 160 and 256), so the auto policy never picks a
-    mode the card refuses; the rule holds on the CPU too, so that both
-    compute the same call. An explicit count above 1 there still reaches
-    the split-KV wrapper, which refuses it on the card (ROADMAP.md queue 2,
-    item 2). Every other head dim keeps :func:`default_kv_splits`."""
+    above 1 raises and None resolves to 1, as in the JAX package. Otherwise
+    None resolves through :func:`default_kv_splits` at every head dim: the
+    split-KV kernel is built wherever the forward is."""
     check_kv_splits(kv_splits)
     check_schedule(schedule)
     if schedule == "dense":
         if (kv_splits or 1) > 1:
             raise ValueError("kv_splits > 1 requires schedule='compact'")
         return 1
-    B, Sq, Hq, D = q_shape
+    B, Sq, Hq, _ = q_shape
     t_q = -(-Sq // (block_q or BLOCK_Q))
     t_kv = -(-k_shape[1] // (block_kv or BLOCK_KV))
-    if kv_splits is not None:
-        ks = kv_splits
-    elif D in _fwd.KERNEL_HEAD_DIMS and D not in _fwd.SPLIT_KV_HEAD_DIMS:
-        ks = 1  # no split-KV kernel at this head dim
-    else:
-        ks = default_kv_splits(B * Hq, t_q, t_kv)
+    ks = kv_splits if kv_splits is not None else default_kv_splits(B * Hq, t_q, t_kv)
     return max(1, min(ks, t_kv))
 
 

@@ -8,6 +8,7 @@ embeddings, four q heads over one kv head) against the JAX
 its gradients, and three AdamW steps."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -200,36 +201,44 @@ def test_stablelm_three_train_steps_at_head_dim_160_match_jax(stablelm, jax_trac
 
 
 def test_segment_and_dense_modes_refuse_head_dim_160_before_the_launch(monkeypatch):
-    """At 160 the backward wrappers take the compact and the dense kernels,
-    without and with segments: the dense mode (alone or with segments)
-    passes every check before the launch and builds the C entry's arguments
-    with no table (the check needs no card: it reads only shapes and the
-    mode; the stream is stubbed), while the forward's split-KV mode, which
-    has no kernel at 160, still raises before anything is launched, naming
-    the roadmap."""
+    """Every mode of the kernels is built at 160: the backward wrappers'
+    checks before the launch pass on the compact and the dense schedule,
+    without and with segments, and build the C entry's arguments (with no
+    table under the dense schedule), and the forward's input check passes
+    (the checks need no card: they read only shapes and the mode; the
+    stream is stubbed). The refusal before the launch is the one head-dim
+    check of ``_check_kernel_inputs``, left to a head dim with no kernel
+    (96), in every mode."""
     monkeypatch.setattr(bwd_mod, "_stream", lambda t: 0)
-    q = torch.empty((1, 64, 4, D), dtype=torch.bfloat16, device="meta")
-    k = torch.empty((1, 64, 1, D), dtype=torch.bfloat16, device="meta")
-    lse = torch.empty((1, 4, 64), dtype=torch.float32, device="meta")
-    ids = torch.empty((1, 64), dtype=torch.int32, device="meta")
     spec = MaskSpec(causal=True)
-    for segments in (None, (ids, ids)):
-        for q_major, kernel in ((False, "the CUDA dK/dV kernel"), (True, "the CUDA dQ kernel")):
-            args, _ = bwd_mod._kernel_args(kernel, q, k, k, q, lse, lse, spec, 64, 64, segments,
-                                           q_major=q_major, schedule="dense")
-            assert args[6] is None  # no table under the dense schedule
-    for modes in (["dense"], ["segment", "dense"]):
-        bwd_mod.check_mode_head_dim("the CUDA dK/dV kernel", D, modes, bwd_mod.MODE_HEAD_DIMS)
-        fwd_mod.check_mode_head_dim("the CUDA forward", D, modes)
-    with pytest.raises(ValueError, match=f"the CUDA forward's split-KV mode takes head_dim in "
-                                         f"\\(64, 128\\), got {D} .*queue 2, item 2"):
-        fwd_mod.check_mode_head_dim("the CUDA forward", D, ["split-KV"])
-    assert D in bwd_mod.SEGMENT_HEAD_DIMS and D in bwd_mod.DENSE_HEAD_DIMS
-    assert D in fwd_mod.DENSE_HEAD_DIMS and D not in fwd_mod.SPLIT_KV_HEAD_DIMS
+    ids = torch.empty((1, 64), dtype=torch.int32, device="meta")
+    lse = torch.empty((1, 4, 64), dtype=torch.float32, device="meta")
+    for D_ in (D, 96):
+        q = torch.empty((1, 64, 4, D_), dtype=torch.bfloat16, device="meta")
+        k = torch.empty((1, 64, 1, D_), dtype=torch.bfloat16, device="meta")
+        calls = [functools.partial(fwd_mod._check_kernel_inputs, "the CUDA forward", (64, 64),
+                                   q=q, k=k, v=k)]
+        for segments in (None, (ids, ids)):
+            for schedule in ("compact", "dense"):
+                for q_major, kernel in ((False, "the CUDA dK/dV kernel"),
+                                        (True, "the CUDA dQ kernel")):
+                    calls.append(functools.partial(
+                        bwd_mod._kernel_args, kernel, q, k, k, q, lse, lse, spec, 64, 64,
+                        segments, q_major=q_major, schedule=schedule))
+        for call, schedule in zip(calls, [None] + ["compact", "compact", "dense", "dense"] * 2):
+            if D_ == D:
+                out = call()
+                if schedule == "dense":
+                    assert out[0][6] is None  # no table under the dense schedule
+            else:
+                with pytest.raises(ValueError,
+                                   match=r"supports head_dim in \(64, 128, 160, 256\), got 96"):
+                    call()
+    assert D in bwd_mod.KERNEL_HEAD_DIMS and D in fwd_mod.KERNEL_HEAD_DIMS
 
 
 # ---------------------------------------------------------------------------
-# The auto kv split where no split-KV kernel is built
+# The auto kv split at every head dim
 # ---------------------------------------------------------------------------
 
 
@@ -237,30 +246,37 @@ def test_segment_and_dense_modes_refuse_head_dim_160_before_the_launch(monkeypat
 @pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv", [(1, 64, 1536, 32, 8), (1, 1, 2048, 4, 1),
                                               (2, 48, 700, 8, 8)])
 def test_auto_kv_splits_are_one_where_no_split_kv_kernel_is_built(B, Sq, Skv, Hq, Hkv, D_):
-    """``resolve_kv_splits(None, ...)`` of a short q against a long kv: 1 at
-    head dims 160 and 256 (a forward kernel, no split-KV one), the policy
-    of ``default_kv_splits`` at every other head dim (16: the CPU tests';
-    64 and 128: the card's all-modes head dims). An explicit count is
-    kept (clamped to the kv tiles)."""
+    """``resolve_kv_splits(None, ...)`` of a short q against a long kv is
+    the policy of ``default_kv_splits`` at every head dim (16: the CPU
+    tests'; 64, 128, 160 and 256: the card's, where the split-KV kernel is
+    built since its instantiations at 160 and 256, so no head dim is pinned
+    to one split any more). An explicit count is kept (clamped to the kv
+    tiles)."""
     t_kv = -(-Skv // ops.BLOCK_KV)
     auto = ops.default_kv_splits(B * Hq, -(-Sq // ops.BLOCK_Q), t_kv)
     assert auto > 1  # each shape is in the corner the policy splits
-    want = 1 if D_ in (160, 256) else min(auto, t_kv)
-    assert ops.resolve_kv_splits(None, (B, Sq, Hq, D_), (B, Skv, Hkv, D_)) == want
+    assert ops.resolve_kv_splits(None, (B, Sq, Hq, D_), (B, Skv, Hkv, D_)) == min(auto, t_kv)
     assert ops.resolve_kv_splits(3, (B, Sq, Hq, D_), (B, Skv, Hkv, D_)) == 3
 
 
 @pytest.mark.parametrize("D_", [160, 256])
 def test_default_flash_attention_at_head_dims_160_and_256_takes_one_split(D_):
-    """The CPU path of a default ``ops.flash_attention`` at 160 and 256 is
-    the single-pass plain forward, bitwise the explicit ``kv_splits=1``
-    call, so the CPU computes what the card does."""
+    """The CPU path of a default ``ops.flash_attention`` of a short q
+    against 5 kv tiles at 160 and 256 takes the auto split (5, one kv tile
+    a split) through the split-KV plain version, as the card takes the
+    split-KV kernel: bitwise the explicit ``kv_splits=5`` call and within
+    2e-5 of the single pass (``kv_splits=1``), which now differs from it
+    only in summation order."""
     rng = np.random.default_rng(D_)
     q = torch.from_numpy(rng.standard_normal((1, 16, 4, D_), dtype=np.float32))
     k, v = (torch.from_numpy(rng.standard_normal((1, 300, 1, D_), dtype=np.float32))
             for _ in range(2))
     spec = MaskSpec(causal=True, q_offset=300 - 16)
-    before = fwd_mod.flash_fwd_plain.calls
+    assert ops.resolve_kv_splits(None, q.shape, k.shape) == 5
+    before = (fwd_mod.flash_fwd_plain.calls, fwd_mod.flash_fwd_splitkv_plain.calls)
     o = ops.flash_attention(q, k, v, spec)
-    assert fwd_mod.flash_fwd_plain.calls == before + 1
-    assert torch.equal(o, ops.flash_attention(q, k, v, spec, kv_splits=1))
+    assert (fwd_mod.flash_fwd_plain.calls, fwd_mod.flash_fwd_splitkv_plain.calls) == (
+        before[0], before[1] + 1)
+    assert torch.equal(o, ops.flash_attention(q, k, v, spec, kv_splits=5))
+    np.testing.assert_allclose(o.numpy(), ops.flash_attention(q, k, v, spec, kv_splits=1).numpy(),
+                               **TOL)

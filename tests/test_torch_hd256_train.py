@@ -8,6 +8,7 @@ against the JAX ``build_train_step`` on its Pallas kernels (fused and
 split): one loss with its gradients, and three AdamW steps."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -210,29 +211,37 @@ def test_gemma3_three_train_steps_at_head_dim_256_match_jax(gemma3, jax_trace_st
 
 
 def test_segment_and_dense_modes_refuse_head_dim_256_before_the_launch(monkeypatch):
-    """At 256 the backward wrappers take the compact and the dense kernels,
-    without and with segments: the dense mode (alone or with segments)
-    passes every check before the launch and builds the C entry's arguments
-    with no table (the check needs no card: it reads only shapes and the
-    mode; the stream is stubbed), while the forward's split-KV mode, which
-    has no kernel at 256, still raises before anything is launched, naming
-    the roadmap."""
+    """Every mode of the kernels is built at 256: the backward wrappers'
+    checks before the launch pass on the compact and the dense schedule,
+    without and with segments, and build the C entry's arguments (with no
+    table under the dense schedule), and the forward's input check passes
+    (the checks need no card: they read only shapes and the mode; the
+    stream is stubbed). The refusal before the launch is the one head-dim
+    check of ``_check_kernel_inputs``, left to a head dim with no kernel
+    (96), in every mode."""
     monkeypatch.setattr(bwd_mod, "_stream", lambda t: 0)
-    q = torch.empty((1, 64, 4, D), dtype=torch.bfloat16, device="meta")
-    k = torch.empty((1, 64, 1, D), dtype=torch.bfloat16, device="meta")
-    lse = torch.empty((1, 4, 64), dtype=torch.float32, device="meta")
-    ids = torch.empty((1, 64), dtype=torch.int32, device="meta")
     spec = MaskSpec(causal=True)
-    for segments in (None, (ids, ids)):
-        for q_major, kernel in ((False, "the CUDA dK/dV kernel"), (True, "the CUDA dQ kernel")):
-            args, _ = bwd_mod._kernel_args(kernel, q, k, k, q, lse, lse, spec, 64, 64, segments,
-                                           q_major=q_major, schedule="dense")
-            assert args[6] is None  # no table under the dense schedule
-    for modes in (["dense"], ["segment", "dense"]):
-        bwd_mod.check_mode_head_dim("the CUDA dK/dV kernel", D, modes, bwd_mod.MODE_HEAD_DIMS)
-        fwd_mod.check_mode_head_dim("the CUDA forward", D, modes)
-    with pytest.raises(ValueError, match=f"the CUDA forward's split-KV mode takes head_dim in "
-                                         f"\\(64, 128\\), got {D} .*queue 2, item 2"):
-        fwd_mod.check_mode_head_dim("the CUDA forward", D, ["split-KV"])
-    assert D in bwd_mod.SEGMENT_HEAD_DIMS and D in bwd_mod.DENSE_HEAD_DIMS
-    assert D in fwd_mod.DENSE_HEAD_DIMS and D not in fwd_mod.SPLIT_KV_HEAD_DIMS
+    ids = torch.empty((1, 64), dtype=torch.int32, device="meta")
+    lse = torch.empty((1, 4, 64), dtype=torch.float32, device="meta")
+    for D_ in (D, 96):
+        q = torch.empty((1, 64, 4, D_), dtype=torch.bfloat16, device="meta")
+        k = torch.empty((1, 64, 1, D_), dtype=torch.bfloat16, device="meta")
+        calls = [functools.partial(fwd_mod._check_kernel_inputs, "the CUDA forward", (64, 64),
+                                   q=q, k=k, v=k)]
+        for segments in (None, (ids, ids)):
+            for schedule in ("compact", "dense"):
+                for q_major, kernel in ((False, "the CUDA dK/dV kernel"),
+                                        (True, "the CUDA dQ kernel")):
+                    calls.append(functools.partial(
+                        bwd_mod._kernel_args, kernel, q, k, k, q, lse, lse, spec, 64, 64,
+                        segments, q_major=q_major, schedule=schedule))
+        for call, schedule in zip(calls, [None] + ["compact", "compact", "dense", "dense"] * 2):
+            if D_ == D:
+                out = call()
+                if schedule == "dense":
+                    assert out[0][6] is None  # no table under the dense schedule
+            else:
+                with pytest.raises(ValueError,
+                                   match=r"supports head_dim in \(64, 128, 160, 256\), got 96"):
+                    call()
+    assert D in bwd_mod.KERNEL_HEAD_DIMS and D in fwd_mod.KERNEL_HEAD_DIMS

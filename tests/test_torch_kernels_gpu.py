@@ -163,20 +163,21 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     qb = q.to(torch.bfloat16)
     with pytest.raises(ValueError, match="block_q"):
         fwd_mod.flash_fwd(qb, qb, qb, MaskSpec(causal=True), block_q=32, block_kv=64)
-    # At head_dim 160 and 256 only the single pass is built (compact and
-    # dense, with and without segments; test_dense_kernels_match_plain_and_
-    # compact runs the dense one there): split-KV, also with segments, refuses.
+    # Every mode of the forward is built at 64, 128, 160 and 256 (split-KV
+    # too, with and without segments; test_split_forward_kernel_matches_plain
+    # runs it at 160 and 256): a head dim with no kernel refuses in each,
+    # before the launch.
     ids = torch.zeros((1, 256), dtype=torch.int32, device=cuda)
     spec = MaskSpec(causal=True)
-    for D in (160, 256):
-        qd = torch.zeros((1, 256, 4, D), dtype=torch.bfloat16, device=cuda)
-        for call in (
-                lambda: fwd_mod.flash_fwd_splitkv(qd, qd, qd, spec, block_q=64, block_kv=64,
-                                                  kv_splits=2),
-                lambda: fwd_mod.flash_fwd_splitkv_varlen(qd, qd, qd, spec, ids, ids, block_q=64,
-                                                         block_kv=64, kv_splits=2)):
-            with pytest.raises(ValueError, match=f"split-KV mode .* got {D} .* queue 2, item 2"):
-                call()
+    qd = torch.zeros((1, 256, 4, 96), dtype=torch.bfloat16, device=cuda)
+    for call in (
+            lambda: fwd_mod.flash_fwd(qd, qd, qd, spec, block_q=64, block_kv=64),
+            lambda: fwd_mod.flash_fwd_splitkv(qd, qd, qd, spec, block_q=64, block_kv=64,
+                                              kv_splits=2),
+            lambda: fwd_mod.flash_fwd_splitkv_varlen(qd, qd, qd, spec, ids, ids, block_q=64,
+                                                     block_kv=64, kv_splits=2)):
+        with pytest.raises(ValueError, match=r"head_dim in \(64, 128, 160, 256\), got 96"):
+            call()
 
 
 def _rel_err(a, b):
@@ -422,10 +423,9 @@ def _check_split(cuda, B, S, Skv, Hq, Hkv, spec, view, D):
     same_dkv = [(dk_f, dv_f), bwd_mod.flash_bwd_fused_varlen(*args, ones, kv_ones, **tiles)[1:],
                 bwd_mod.flash_bwd_dkv_varlen(*args, ones, kv_ones, **tiles)]
     same_dq = [dq2, bwd_mod.flash_bwd_dq_varlen(*args, ones, kv_ones, **tiles)]
-    if D in bwd_mod.DENSE_HEAD_DIMS:
-        same_dkv += [bwd_mod.flash_bwd_fused(*args, schedule="dense", **tiles)[1:],
-                     bwd_mod.flash_bwd_dkv(*args, schedule="dense", **tiles)]
-        same_dq += [bwd_mod.flash_bwd_dq(*args, schedule="dense", **tiles)]
+    same_dkv += [bwd_mod.flash_bwd_fused(*args, schedule="dense", **tiles)[1:],
+                 bwd_mod.flash_bwd_dkv(*args, schedule="dense", **tiles)]
+    same_dq += [bwd_mod.flash_bwd_dq(*args, schedule="dense", **tiles)]
     torch.cuda.synchronize()
     dk_p, dv_p = bwd_mod.flash_bwd_dkv_plain(*args, **tiles)
     dq_p = bwd_mod.flash_bwd_dq_plain(*args, **tiles)
@@ -655,22 +655,25 @@ def _training_step_against_ref(cuda, cfg, D, packed=False):
 @pytest.mark.parametrize("D,hq,hkv", [(160, 32, 8), (256, 4, 1)])
 def test_default_splits_at_head_dims_160_and_256_run_the_single_pass(cuda, D, hq, hkv):
     """A default ``ops.flash_attention`` of a short q against a long kv at
-    head_dim 160 and 256, where the split-KV kernel is not built: the auto
-    policy takes one split, so the single-pass kernel runs (and matches its
-    plain version) and the split-KV kernel is never launched."""
+    head_dim 160 and 256: the auto policy takes ``default_kv_splits`` (4 at
+    stablelm's 32 q heads, 24 at gemma3's 4: one kv tile a split), so the
+    split-KV kernel runs once and the single-pass kernel never; its output
+    matches its plain version and the single pass's (``kv_splits=1``)."""
     gen = torch.Generator(device=cuda).manual_seed(6)
     q = _randn(gen, (1, 64, hq, D), cuda)
     k, v = _randn(gen, (1, 1536, hkv, D), cuda), _randn(gen, (1, 1536, hkv, D), cuda)
     spec = MaskSpec(causal=True, q_offset=1536 - 64)
-    assert ops.resolve_kv_splits(None, q.shape, k.shape) == 1
+    ks = ops.resolve_kv_splits(None, q.shape, k.shape)
+    assert ks == ops.default_kv_splits(hq, 1, 24) == {160: 4, 256: 24}[D]
     before = (fwd_mod.flash_fwd.launches, fwd_mod.flash_fwd_splitkv.launches)
     o = ops.flash_attention(q, k, v, spec)
     torch.cuda.synchronize()
     assert (fwd_mod.flash_fwd.launches, fwd_mod.flash_fwd_splitkv.launches) == (
-        before[0] + 1, before[1])
-    o_p, _ = fwd_mod.flash_fwd_plain(ops._prep(q, 1 / math.sqrt(D)), k, v, spec, block_q=64,
-                                     block_kv=64)
-    assert _err(o, o_p) < O_TOL
+        before[0], before[1] + 1)
+    ref = fwd_mod.flash_fwd_splitkv_plain(ops._prep(q, 1 / math.sqrt(D)), k, v, spec,
+                                          block_q=64, block_kv=64, kv_splits=ks)
+    assert _err(o, ref.o) < O_TOL
+    assert _err(o, ops.flash_attention(q, k, v, spec, kv_splits=1)) < O_TOL
 
 
 @pytest.mark.gpu
@@ -1161,6 +1164,23 @@ SPLIT_CASES = [
     (2, 300, 300, 32, 8, 128, dict(causal=True), 3),  # q tiles x splits, causal
     (1, 50, 900, 8, 8, 64, dict(causal=True, q_offset=850), 6),
     (1, 150, 1000, 32, 8, 128, dict(causal=True, q_offset=850), 4),  # t_q = 3
+    # gemma3-1b's widths (4 q heads over 1, D 256): a short q against the
+    # auto splits' key counts, the 512 window (most splits see nothing), the
+    # causal prefill (t_q 24) with 2 and 3 splits, a window with sinks at an
+    # odd t_q with empty splits.
+    (1, 64, 1536, 4, 1, 256, dict(causal=True, q_offset=1472), 24),
+    (1, 64, 8192, 4, 1, 256, dict(causal=True, q_offset=8128), 33),
+    (1, 64, 1536, 4, 1, 256, dict(causal=True, window=512, q_offset=1472), 24),
+    (1, 1536, 1536, 4, 1, 256, dict(causal=True), 2),
+    (1, 1536, 1536, 4, 1, 256, dict(causal=True), 3),
+    (1, 300, 700, 4, 1, 256, dict(causal=True, window=100, sink=4, q_offset=400), 5),
+    # stablelm-12b's widths (32 q heads over 8, D 160: the tail box).
+    (1, 64, 1536, 32, 8, 160, dict(causal=True, q_offset=1472), 4),
+    (1, 64, 4096, 32, 8, 160, dict(causal=True, q_offset=4032), 4),
+    (1, 1536, 1536, 32, 8, 160, dict(causal=True), 2),
+    (1, 1536, 1536, 32, 8, 160, dict(causal=True), 3),
+    (2, 20, 530, 8, 2, 160, dict(causal=False), 5),
+    (1, 150, 1000, 32, 8, 160, dict(causal=True, q_offset=850), 4),
 ]
 
 
@@ -1188,17 +1208,29 @@ def test_split_forward_kernel_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, spec, 
 
 
 @pytest.mark.gpu
-def test_split_forward_segment_kernel_matches_plain(cuda):
-    q, k, v = _qkv(cuda, 9, 2, 700, 700, 32, 8, 128)
+@pytest.mark.parametrize("Hq,Hkv,D,spec,ks", [
+    (32, 8, 128, dict(causal=True), 3),
+    (4, 1, 256, dict(causal=True), 2),
+    (4, 1, 256, dict(causal=True, window=512), 3),
+    (32, 8, 160, dict(causal=True), 2),
+    (32, 8, 160, dict(causal=True), 3),
+])
+def test_split_forward_segment_kernel_matches_plain(cuda, Hq, Hkv, D, spec, ks):
+    """The SEG split-KV kernel on packed ids (B 2, S 700) against its plain
+    version, partials and fold, and the fold against the SEG single pass:
+    at qwen3's, gemma3-1b's (with its window) and stablelm-12b's widths."""
+    q, k, v = _qkv(cuda, 9, 2, 700, 700, Hq, Hkv, D)
     ids = _packed_ids(2, 700).to(cuda)
-    spec = MaskSpec(causal=True)
+    spec = MaskSpec(**spec)
     out = fwd_mod.flash_fwd_splitkv_varlen(q, k, v, spec, ids, ids, block_q=64, block_kv=64,
-                                           kv_splits=3)
+                                           kv_splits=ks)
     torch.cuda.synchronize()
-    ref = fwd_mod.flash_fwd_splitkv_plain(q, k, v, spec, block_q=64, block_kv=64, kv_splits=3,
+    ref = fwd_mod.flash_fwd_splitkv_plain(q, k, v, spec, block_q=64, block_kv=64, kv_splits=ks,
                                           q_seg=ids, kv_seg=ids)
     for got, want, tol in zip(out, ref, (O_TOL, LSE_TOL, O_TOL, LSE_TOL)):
         assert _err(got, want) < tol
+    o_1, lse_1 = fwd_mod.flash_fwd_varlen(q, k, v, spec, ids, ids, block_q=64, block_kv=64)
+    assert _err(out.o, o_1) < O_TOL and _err(out.lse, lse_1) < LSE_TOL
 
 
 @pytest.mark.gpu
