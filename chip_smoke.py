@@ -172,16 +172,23 @@ engine's tick.
 Phase 3 also holds the four backward kernels at head_dim 256 (gemma3-1b's
 training: B 4, S 2048, 4 q heads over 1 kv head, causal and window 512;
 the window at S 700, a ragged S, rows that see no key) against their plain
-versions, split dK/dV bitwise the fused kernel's and dQ bitwise over two
-launches, and times them at the training shape beside their bounds, the
-fused and the whole split backward in turns with SDPA's backward. Last, the
-gemma3 training slice: gemma3-1b at its published widths and depth (26
+versions, split dK/dV bitwise the fused kernel's and over two launches and
+dQ bitwise over two launches (each launch's grid and head split logged:
+the causal training shape splits the group's q heads one a CTA), and times
+them at the training shape beside their bounds, the fused and the whole
+split backward in turns with SDPA's backward; the group-sum kernel that
+adds the split's f32 dK/dV partials, bitwise its plain version, timed on
+the training shape's partials (at 160 too); and every fused and dK/dV
+instantiation's spill stores against the earlier design's
+(``KV_SPILLS_BEFORE``). Last, the gemma3 training slice: gemma3-1b at its published widths and depth (26
 layers, bf16, seed 0) trains 8 AdamW steps at B 4, S 2048 through the train
 CLI's ``train`` with the fused and the split backward and once through
 impl="ref"; launch counts exact (per step the forward twice in the 24
 layers of the remat groups and once in the 2 tail layers, per layer delta
-once, fused or dK/dV and dQ once, all at head_dim 256), the loss must
-fall and follow the reference's; tokens/s, MFU, peak memory, the profiled
+once, fused or dK/dV and dQ once, all at head_dim 256, and a group sum
+for each of the 4 causal layers' fused or dK/dV launches), the loss must
+fall and follow the reference's (the fused step beside the earlier
+design's, from an earlier call); tokens/s, MFU, peak memory, the profiled
 step's busy share and attention time; the split backward bitwise
 reproducible at the training shape.
 Phase 3 also holds the four backward kernels at head_dim 160 (stablelm-12b's
@@ -399,7 +406,10 @@ def ptxas_summary(_build, sources) -> str:
 
     def pretty(mangled):  # ...fa2_fwd_kernelILi64ELi4ELb0ELb1EEEv... -> fa2_fwd_kernel<64,4,0,1>
         k = re.search(r"(fa2_\w+?kernel)I(.*?)EEv", mangled)
-        return f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)', k.group(2)))}>" if k else mangled
+        if k:
+            return f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)', k.group(2)))}>"
+        k = re.search(r"\d(fa2_\w+?_kernel)E", mangled)  # a kernel that is not a template
+        return k.group(1) if k else mangled
 
     lines = []
     for src in sources:
@@ -2254,7 +2264,7 @@ def bwd_kernels_at(torch, randn, D, B, Sq, Skv, Hq, Hkv, spec, pairs, what, flus
     args = (q, k, v, do, lse, delta, spec)
     fused = bwd.flash_bwd_fused(*args, **tiles)
     dq_f2 = bwd.flash_bwd_fused(*args, **tiles)[0]
-    dk, dv = bwd.flash_bwd_dkv(*args, **tiles)
+    (dk, dv), (dk2, dv2) = (bwd.flash_bwd_dkv(*args, **tiles) for _ in range(2))
     dq, dq2 = (bwd.flash_bwd_dq(*args, **tiles) for _ in range(2))
     torch.cuda.synchronize()
     got = {"flash_bwd_delta": (delta,), "flash_bwd_fused": fused,
@@ -2271,12 +2281,18 @@ def bwd_kernels_at(torch, randn, D, B, Sq, Skv, Hq, Hkv, spec, pairs, what, flus
         errs[name] = max(max_err(torch, a, b) for a, b in zip(got[name], want[name]))
         rel[name] = max(max_err(torch, a, b) / max(b.abs().max().item(), 1e-6)
                         for a, b in zip(got[name], want[name]))
-    bitwise = (torch.equal(dk, fused[1]) and torch.equal(dv, fused[2]), torch.equal(dq, dq2))
-    log(f"backward at head_dim {D}, {what}: max|delta-plain|="
+    bitwise = (torch.equal(dk, fused[1]) and torch.equal(dv, fused[2]) and torch.equal(dk, dk2)
+               and torch.equal(dv, dv2), torch.equal(dq, dq2))
+    split = bwd.kv_head_split(spec, B, Sq, Skv, Hq, Hkv, D, tiles["block_q"], tiles["block_kv"])
+    grid = bwd.kv_grid(B, Hkv, Skv, D, tiles["block_kv"], split)
+    log(f"backward at head_dim {D}, {what}: the fused and dK/dV launches' grid {grid} "
+        f"(head split {split}{', the partials summed by flash_bwd_group_sum' if split > 1 else ''}); "
+        f"max|delta-plain|="
         f"{errs['flash_bwd_delta']:.3e} (tol {DELTA_TOL}); worst relative error fused "
         f"{rel['flash_bwd_fused']:.3e}, dK/dV {rel['flash_bwd_dkv']:.3e}, dQ "
         f"{rel['flash_bwd_dq']:.3e} (tol {GRAD_REL_TOL}); split dk, dv bitwise the fused "
-        f"kernel's: {bitwise[0]}; dq of two split launches bitwise equal: {bitwise[1]}; fused dq "
+        f"kernel's and over two launches: {bitwise[0]}; dq of two split launches bitwise equal: "
+        f"{bitwise[1]}; fused dq "
         f"elements that differ between two launches: {int((fused[0] != dq_f2).sum())} of "
         f"{dq.numel()}")
     if not errs["flash_bwd_delta"] <= DELTA_TOL:
@@ -2475,7 +2491,7 @@ def all_counters():
         fwd.flash_fwd, fwd.flash_fwd_varlen, fwd.flash_fwd_splitkv, fwd.flash_fwd_splitkv_varlen,
         dec.flash_decode, dec.flash_decode_varlen, dec.flash_decode_paged, bwd.flash_bwd_delta,
         bwd.flash_bwd_fused, bwd.flash_bwd_dkv, bwd.flash_bwd_dq, bwd.flash_bwd_fused_varlen,
-        bwd.flash_bwd_dkv_varlen, bwd.flash_bwd_dq_varlen))
+        bwd.flash_bwd_dkv_varlen, bwd.flash_bwd_dq_varlen, bwd.flash_bwd_group_sum))
     plains = {f.__name__: f for f in (
         fwd.flash_fwd_plain, fwd.flash_fwd_splitkv_plain, dec.flash_decode_plain,
         dec.flash_decode_paged_plain, bwd.flash_bwd_delta_plain, bwd.flash_bwd_fused_plain,
@@ -2665,7 +2681,7 @@ def kernel_counters():
         fwd.flash_fwd, bwd.flash_bwd_delta, bwd.flash_bwd_fused, bwd.flash_bwd_dkv,
         bwd.flash_bwd_dq, fwd.flash_fwd_varlen, bwd.flash_bwd_fused_varlen,
         bwd.flash_bwd_dkv_varlen, bwd.flash_bwd_dq_varlen, fwd.flash_fwd_splitkv,
-        fwd.flash_fwd_splitkv_varlen))
+        fwd.flash_fwd_splitkv_varlen, bwd.flash_bwd_group_sum))
     plains = (fwd.flash_fwd_plain, bwd.flash_bwd_delta_plain, bwd.flash_bwd_fused_plain,
               bwd.flash_bwd_dkv_plain, bwd.flash_bwd_dq_plain, fwd.flash_fwd_splitkv_plain)
     return counters, plains
@@ -2685,7 +2701,8 @@ def read_counts(counters, plains) -> dict:
 
 
 def training_want(counters, plains, n: int, bwds, suffix: str = "", *, remat: bool = True,
-                  head_dim=None, forwards=None, forward: str = "flash_fwd") -> dict:
+                  head_dim=None, forwards=None, forward: str = "flash_fwd",
+                  group_sums: int = 0) -> dict:
     """Exact launch counts of ``n`` attention calls (layer-steps) under each
     backward mode of ``bwds``, through the kernels named with ``suffix``
     (``_varlen``, ``_dense``, both or none): the forward (``forward``:
@@ -2694,8 +2711,10 @@ def training_want(counters, plains, n: int, bwds, suffix: str = "", *, remat: bo
     launches), delta once, then the fused kernel or dK/dV and dQ once; with
     ``head_dim`` (64, 160 or 256) the backward's counts at that head dim the
     same, and the forward's where it counts that head dim apart (those
-    counts take both schedules); every other kernel and every plain version
-    0."""
+    counts take both schedules); under each mode ``group_sums`` group-sum
+    launches (the fused or dK/dV launches that split the group's q heads,
+    ``group_sum_launches``), at ``head_dim`` too; every other kernel and
+    every plain version 0."""
     want = {k: 0 for k in counters}
     by_dim = suffix.replace("_dense", "")  # a wrapper's head-dim count takes both schedules
     for bwd in bwds:
@@ -2710,8 +2729,26 @@ def training_want(counters, plains, n: int, bwds, suffix: str = "", *, remat: bo
             want[name] += n
             if head_dim is not None:
                 want[f"{name.replace('_dense', '')}_hd{head_dim}"] += n
+        if group_sums:
+            want["flash_bwd_group_sum"] += group_sums
+            want[f"flash_bwd_group_sum_hd{head_dim}"] += group_sums
     want["plain"] = [0] * len(plains)
     return want
+
+
+def group_sum_launches(cfg, B: int, S: int, steps: int) -> int:
+    """The group-sum launches of ``steps`` training steps of ``cfg`` at B x
+    S: one for each layer's fused or dK/dV launch whose kv-head group the
+    wrapper splits over CTAs (``flash_bwd.kv_head_split`` on the layer's
+    mask; segment ids and the schedule do not enter the rule)."""
+    from repro_torch.kernels import flash_bwd as bwd
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import spec_for
+
+    return steps * sum(
+        bwd.kv_head_split(spec_for(cfg, kind), B, S, S, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.head_dim, ops.BLOCK_Q, ops.BLOCK_KV) > 1
+        for kind in cfg.layer_kinds())
 
 
 def summary_line(what: str, summary: dict, other: dict) -> str:
@@ -3696,6 +3733,12 @@ def model_serving_phase(torch, dev, arch: str, path: str, extra=None, split_pref
 # port's qwen3 slice trains at; four sequences fill one card's memory with
 # room to spare), 8 AdamW steps, the model uncut.
 G3_TRAIN_B, G3_TRAIN_S, G3_TRAIN_STEPS = 4, 2048, 8
+# The median fused-backward training steps of gemma3-1b and stablelm-12b
+# (unpacked, the shapes below) in this script's earlier runs on an H100
+# 80GB HBM3 at 700 W, before the one-tile backward's redesign at 256 and
+# 160: logged beside this run's. Another call, not in turns: a reference,
+# not a comparison.
+G3_TRAIN_MS_BEFORE, SL_TRAIN_MS_BEFORE = 415.3, 378.5
 # stablelm-12b training: the depth cut to 8 of 40 layers (qwen3-8b's cut,
 # TRAIN_LAYERS: 3.25 B parameters, about 52 GB of bf16 weights and
 # gradients, f32 master, mu and nu), the qwen3 slice's B 2, S 2048, 8 AdamW
@@ -3726,7 +3769,9 @@ def hd256_bwd_kernel_phase(torch, dev, flush):
     1 kv head) at every HD256_BWD_SHAPES shape (``head_dim_bwd_kernel_phase``;
     the training shape timed causal and with the window 512), then the SEG
     forward, fused, dK/dV and dQ at the packed training shape, causal and
-    with the window (``head_dim_seg_kernel_phase``)."""
+    with the window (``head_dim_seg_kernel_phase``), and the group-sum kernel
+    that sums the training shape's causal launches' partials
+    (``group_sum_phase``)."""
     from repro_torch.core.masks import MaskSpec
 
     return {**head_dim_bwd_kernel_phase(torch, dev, flush, G3_D, G3_HQ, G3_HKV, HD256_BWD_SHAPES,
@@ -3735,24 +3780,66 @@ def hd256_bwd_kernel_phase(torch, dev, flush):
                                         G3_TRAIN_S, {"causal": MaskSpec(causal=True),
                                                      "window": MaskSpec(causal=True,
                                                                         window=G3_WINDOW)},
-                                        G3_VOCAB, seed=21)}
+                                        G3_VOCAB, seed=21),
+            **group_sum_phase(torch, dev, flush, G3_D, G3_TRAIN_B, G3_TRAIN_S, G3_HQ, G3_HKV,
+                              seed=41)}
 
 
 def hd160_bwd_kernel_phase(torch, dev, flush):
     """The four backward kernels at head_dim 160 (stablelm-12b: 32 q heads
     over 8 kv heads) at every HD160_BWD_SHAPES shape
     (``head_dim_bwd_kernel_phase``; the training shape timed), then the SEG
-    kernels at the packed training shape (``head_dim_seg_kernel_phase``)."""
+    kernels at the packed training shape (``head_dim_seg_kernel_phase``) and
+    the group-sum kernel on partials of the training shape, one q head a
+    share (``group_sum_phase``; stablelm's own launches take no split)."""
     from repro_torch.core.masks import MaskSpec
 
     return {**head_dim_bwd_kernel_phase(torch, dev, flush, SL_D, SL_HQ, SL_HKV, HD160_BWD_SHAPES,
                                         (SL_TRAIN_B, SL_TRAIN_S), seed=12),
             **head_dim_seg_kernel_phase(torch, dev, flush, SL_D, SL_HQ, SL_HKV, SL_TRAIN_B,
                                         SL_TRAIN_S, {"causal": MaskSpec(causal=True)}, SL_VOCAB,
-                                        seed=22)}
+                                        seed=22),
+            **group_sum_phase(torch, dev, flush, SL_D, SL_TRAIN_B, SL_TRAIN_S, SL_HQ, SL_HKV,
+                              seed=42)}
 
 
 SEG_NAMES = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def group_sum_phase(torch, dev, flush, D, B, S, hq, hkv, *, seed):
+    """The group-sum kernel at head_dim ``D`` on random f32 partials of the
+    training shape (B, S, ``hq`` shares over ``hkv`` kv heads: one q head a
+    share, the halves of one scratch buffer as the wrapper allocates them)
+    against its plain version, bitwise (the same adds in the same order),
+    then timed after an L2 flush beside its bound (bytes: the partials read
+    once, the sums written once; its (G - 1) f32 adds an output value are
+    far below the card's f32 rate), its plain version and one PyTorch call
+    that computes the same sums (``sum`` over the shares of the buffer).
+    Returns {name: row}."""
+    from repro_torch.kernels import flash_bwd as bwd
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    parts = torch.randn((2, B, S, hq, D), generator=gen, device=dev)
+    pk, pv = parts[0], parts[1]
+    got = bwd.flash_bwd_group_sum(pk, pv, hkv)
+    torch.cuda.synchronize()
+    want = bwd.flash_bwd_group_sum_plain(pk, pv, hkv)
+    err = max(max_err(torch, a, b) for a, b in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    G = hq // hkv
+    b_ms, b_by = bound(0, parts.numel() * 4 + 2 * B * S * hkv * D * 4)
+    ms = time_ms(torch, lambda: bwd.flash_bwd_group_sum(pk, pv, hkv), 20, flush)
+    plain_ms = time_ms(torch, lambda: bwd.flash_bwd_group_sum_plain(pk, pv, hkv), 5, flush)
+    view = parts.view(2, B, S, hkv, G, D)
+    lib_ms = time_ms(torch, lambda: view.sum(dim=4), 20, flush)
+    log(f"flash_bwd_group_sum (head_dim {D}) on partials (2, {B}, {S}, {hq}, {D}) f32, {G} "
+        f"shares a kv head: bitwise its plain version: {same} (max|err| {err:.3e}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x "
+        f"the bound; library (sum over the shares) {lib_ms:.4f} ms")
+    if not same:
+        fail(f"flash_bwd_group_sum (head_dim {D}) is not its plain version to the bit")
+    return {f"flash_bwd_group_sum_hd{D}": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)}
 
 
 def head_dim_seg_kernel_phase(torch, dev, flush, D, hq, hkv, B, S, specs, vocab, *, seed):
@@ -3977,7 +4064,7 @@ def gemma3_train_phase(torch, dev, packed: bool = False):
     return model_train_phase(torch, dev, registry.get("gemma3-1b"), G3_TRAIN_B, G3_TRAIN_S,
                              G3_TRAIN_STEPS, (MaskSpec(causal=True),
                                               MaskSpec(causal=True, window=G3_WINDOW)),
-                             packed=packed)
+                             packed=packed, before_ms=None if packed else G3_TRAIN_MS_BEFORE)
 
 
 def stablelm_train_phase(torch, dev, packed: bool = False):
@@ -3994,10 +4081,12 @@ def stablelm_train_phase(torch, dev, packed: bool = False):
 
     cfg = dataclasses.replace(registry.get("stablelm-12b"), num_layers=SL_TRAIN_LAYERS)
     return model_train_phase(torch, dev, cfg, SL_TRAIN_B, SL_TRAIN_S, SL_TRAIN_STEPS,
-                             (MaskSpec(causal=True),), packed=packed)
+                             (MaskSpec(causal=True),), packed=packed,
+                             before_ms=None if packed else SL_TRAIN_MS_BEFORE)
 
 
-def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False):
+def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False,
+                      before_ms=None):
     """``cfg`` (bf16, remat, seed 0) through the train CLI's ``train`` on the
     synthetic stream (``B`` x ``S``, ``steps`` AdamW steps; ``packed``: the
     packed (varlen) source, ``TrainLoopConfig(packed=True)``), with the
@@ -4014,7 +4103,8 @@ def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False)
     Then ops.flash_attention(bwd="split") (packed: flash_attention_varlen on
     the source's step-0 ids) forward and backward twice at the training
     shape under each mask of ``specs`` must give bitwise-equal gradients.
-    Returns {bwd: launch counts} and {bwd: summary}."""
+    ``before_ms``: the earlier design's median fused step, logged beside
+    this run's. Returns {bwd: launch counts} and {bwd: summary}."""
     import numpy as np
 
     from repro_torch.core.attention import AttentionConfig
@@ -4078,10 +4168,15 @@ def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False)
             + f", MFU {mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, "
             f"max_memory_allocated {peak:.2f} GiB")
         log(f"launches on the {what} path (bwd={run}): {counts[run]}")
+        if run == "fused" and before_ms is not None:
+            summaries[run]["median_ms_before"] = before_ms
+            log(f"{what} (bwd=fused) median step {med * 1e3:.1f} ms; the earlier backward design's "
+                f"{before_ms} ms (an earlier run of this script, another call: not in turns)")
         if not sum(history["loss"][-2:]) / 2 < history["loss"][0]:
             fail(f"the {what} loss (bwd={run}) did not fall")
         want = training_want(counters, plains, steps * cfg.num_layers, (run,),
-                             "_varlen" if packed else "", head_dim=D, forwards=forwards)
+                             "_varlen" if packed else "", head_dim=D, forwards=forwards,
+                             group_sums=group_sum_launches(cfg, B, S, steps))
         if counts[run] != want:
             fail(f"{what} launches (bwd={run}) {counts[run]}, want {want} "
                  "(the forward twice a layer of the remat groups, once a tail layer)")
@@ -4140,13 +4235,32 @@ def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False)
     return counts, summaries
 
 
+# Spill stores (bytes) of the KV-stationary instantiations, fa2_bwd_{fused,
+# dkv}_kernel<D, SEG, DENSE>, in the design before the one-tile kernels'
+# redesign at 160 and 256 (both warpgroups computing S^T and dP^T, one dQ
+# staging a warpgroup, no head split), read from ptxas on the H100 machine:
+# the redesigned ones may spill no more, and the pair kernels (64, 128),
+# whose body the redesign leaves as it was, no more either.
+KV_SPILLS_BEFORE = {
+    **{f"fa2_bwd_fused_kernel<{D},{seg},{dense}>": n for D in (64, 128)
+       for (seg, dense), n in {(0, 0): 56, (0, 1): 40, (1, 0): 104, (1, 1): 96}.items()},
+    **{f"fa2_bwd_fused_kernel<160,{seg},{dense}>": n
+       for (seg, dense), n in {(0, 0): 48, (0, 1): 32, (1, 0): 80, (1, 1): 68}.items()},
+    **{f"fa2_bwd_fused_kernel<256,{seg},{dense}>": n
+       for (seg, dense), n in {(0, 0): 64, (0, 1): 28, (1, 0): 88, (1, 1): 60}.items()},
+    **{f"fa2_bwd_dkv_kernel<{D},{seg},{dense}>": 4 if D in (64, 128) and seg and dense else 0
+       for D in (64, 128, 160, 256) for seg in (0, 1) for dense in (0, 1)},
+}
+
+
 def wide_ptxas_check(ptxas: str) -> None:
     """The dense instantiations at head_dim 256 and 160 (forward, fused,
     dK/dV, dQ; without and with SEG) and the split-KV forward's (without and
     with SEG) against their compact single-pass twins in the ptxas summary:
     no more spill bytes, and for the split forward 168 registers at entry as
-    its twin; and no instantiation of any kernel with its wgmma
-    serialised."""
+    its twin; every fused and dK/dV instantiation at 168 registers at entry
+    and no more spill stores than KV_SPILLS_BEFORE; and no instantiation of
+    any kernel with its wgmma serialised."""
     import re
 
     rows = {}
@@ -4171,6 +4285,14 @@ def wide_ptxas_check(ptxas: str) -> None:
                 if d[3] or d[1] > c[1] or d[2] > c[2] or d[0] != c[0]:
                     fail(f"{inst} spills more than {compact}, takes other registers at entry "
                          "or has serialised wgmma")
+    for inst, before in KV_SPILLS_BEFORE.items():
+        if inst not in rows:
+            fail(f"ptxas reported no {inst}")
+        regs, stores, loads, _ = rows[inst]
+        log(f"ptxas {inst}: {regs} registers, spill stores {stores} B (before the redesign "
+            f"{before} B), loads {loads} B")
+        if regs != 168 or stores > before:
+            fail(f"{inst} takes other registers at entry than 168 or spills more than before")
     serialised = [k for k, row in rows.items() if row[3]]
     if serialised:
         fail(f"ptxas serialised the wgmma of {serialised}")
@@ -4179,12 +4301,13 @@ def wide_ptxas_check(ptxas: str) -> None:
 def dense_by_dim(counts: dict, D: int) -> dict:
     """A dense-schedule run's launch counts with its head_dim-``D`` launches
     under the dense entries' names: each ``<name>_hd{D}`` count but delta's
-    (the wrappers count both schedules there; delta has one form) moves to
+    and the group sum's (the wrappers count both schedules there; those two
+    have one form) moves to
     ``<name>_dense_hd{D}``, and the unsegmented forward's dense launches,
     which it does not count by head dim, go to ``flash_fwd_dense_hd{D}``."""
     out = dict(counts)
     for k in counts:
-        if k.endswith(f"_hd{D}") and not k.startswith("flash_bwd_delta"):
+        if k.endswith(f"_hd{D}") and not k.startswith(("flash_bwd_delta", "flash_bwd_group_sum")):
             out[k.replace(f"_hd{D}", f"_dense_hd{D}")] = out[k]
             out[k] = 0
     out[f"flash_fwd_dense_hd{D}"] = counts["flash_fwd_dense"]
@@ -4275,7 +4398,8 @@ def model_dense_train_phase(torch, dev, cfg, B, S, steps):
             log(f"launches on the {what} path: {run_counts}")
             suffix = ("_varlen" if packed else "") + ("_dense" if schedule == "dense" else "")
             want = training_want(counters, plains, steps * cfg.num_layers, (bwd,), suffix,
-                                 head_dim=D, forwards=forwards)
+                                 head_dim=D, forwards=forwards,
+                                 group_sums=group_sum_launches(cfg, B, S, steps))
             if run_counts != want:
                 fail(f"{what} launches {run_counts}, want {want}")
             if schedule == "dense":
@@ -4840,7 +4964,8 @@ def model_split_train_phase(torch, dev, cfg, B, S, steps):
         log(f"launches on the {what} path (those not 0): {nonzero(run_counts)}")
         want = training_want(counters, plains, steps * cfg.num_layers, ("split",), "_varlen",
                              head_dim=D, forwards=forwards,
-                             forward="flash_fwd_splitkv" if ks > 1 else "flash_fwd")
+                             forward="flash_fwd_splitkv" if ks > 1 else "flash_fwd",
+                             group_sums=group_sum_launches(cfg, B, S, steps))
         if run_counts != want:
             fail(f"{what} launches {run_counts}, want {want}")
         if key == "split":
@@ -5005,7 +5130,9 @@ def main() -> None:
                 "flash_decode_paged_hd160": "fa2_decode_paged_kernel<160>",
                 "flash_decode_paged_hd64": "fa2_decode_paged_kernel<64>",
                 "flash_bwd_delta_hd256": "fa2_bwd_delta_kernel<256>",
-                "flash_bwd_delta_hd160": "fa2_bwd_delta_kernel<160>"}
+                "flash_bwd_delta_hd160": "fa2_bwd_delta_kernel<160>",
+                "flash_bwd_group_sum_hd256": "fa2_bwd_group_sum_kernel",
+                "flash_bwd_group_sum_hd160": "fa2_bwd_group_sum_kernel"}
     for D in (256, 160):  # compact (DENSE 0) and dense (1), unsegmented (SEG 0) and SEG (1)
         for seg, suffix in ((0, ""), (1, "_varlen")):
             for dense, sched in ((0, ""), (1, "_dense")):
@@ -5071,6 +5198,12 @@ def main() -> None:
                 "flash_bwd_fused_hd160": "src/repro/kernels/flash_bwd.py:718",
                 "flash_bwd_dkv_hd160": "src/repro/kernels/flash_bwd.py:234",
                 "flash_bwd_dq_hd160": "src/repro/kernels/flash_bwd.py:459",
+                # The second pass of the fused and dK/dV kernels at 256 and
+                # 160 where their grid splits a group's q heads over CTAs:
+                # it replaces no TPU kernel of its own (the TPU's sequential
+                # grid sums the group in the fused kernel's VMEM block).
+                "flash_bwd_group_sum_hd256": "src/repro/kernels/flash_bwd.py:718",
+                "flash_bwd_group_sum_hd160": "src/repro/kernels/flash_bwd.py:718",
                 # The segment branches at head_dim 256 and 160 (packed training of
                 # gemma3-1b and stablelm-12b).
                 "flash_fwd_varlen_hd256": "src/repro/kernels/flash_fwd.py:354",

@@ -90,83 +90,103 @@
 // dK/dV stay bitwise the fused kernel's. Shared memory falls to about 132
 // KB; still one CTA an SM. The dq and delta kernels take D the same way.
 //
-// Head_dim 256 (gemma3-1b training) is instantiated in every mode (compact
-// and DENSE, without and with SEG), with one change of shape in the
-// KV-stationary and dq kernels, the `HALF` flag: a 64 x 256 f32 accumulator
-// is 128 registers a consumer thread, so a pair's dK and dV (256) cannot fit
-// setmaxnreg's 240, and a pair's K and V (128 KB) with a 2-stage Q/dO ring
-// (128 KB) exceed the 227 KB a CTA may use. So, as FlashAttention-3 does at
-// 256, a CTA owns ONE 64-row tile and each consumer warpgroup holds half of
-// head_dim of its accumulators (64 + 64 registers for dK and dV, 64 for
-// dQ: the registers of the D = 128 kernels):
-//   * KV-stationary: both warpgroups compute the same S^T = K Q^T and
-//     dP^T = V dO^T over all 256 columns (the same products in the same
-//     order, so both hold the same P^T and dS^T fragments), then warpgroup w
-//     adds P^T dO[:, 128 w ..] and dS^T Q[:, 128 w ..] (n128 products) into
-//     its half. The two recomputations cost 1.5x the minimal products of
-//     dK/dV; splitting S^T's q columns between the warpgroups and trading
-//     P^T and dS^T through shared memory is the later design. Shared
-//     memory: K and V 64 KB, a 64 KB Q/dO stage; the dK/dV kernel keeps 2
-//     stages (195 KB), the fused kernel 1 (182 KB), because its two 8 KB dS^T
-//     buffers and two 18 KB dQ stagings have no room beside a second stage.
-//     With one stage the next Q/dO copy overlaps the step's dQ products
-//     only. The fused dQ: each warpgroup stores half of dS^T's q columns,
-//     the two meet at the named barrier, and each multiplies dS by its half
-//     of K's columns as two 64-column parts (m64n64k16 over the tile's 64
-//     rows), each staged and bulk-reduced into dq by its writer warp;
-//   * dq: one CTA per (q tile, batch * q head), highest tiles first; both
-//     warpgroups compute the same S and dP, and warpgroup w adds dS K[:,
-//     128 w ..] into its half of dQ (1.67x the minimal products). Q and dO
-//     of the tile (64 KB) and a 2-stage K/V ring (128 KB): 194 KB. dQ is
-//     still written once, without atomics, so bwd="split" stays bitwise the
-//     same from launch to launch.
-// Head_dim 160 (stablelm-12b training), again in every mode, is not a
-// whole number of 64-column TMA boxes. A 64-row tile is
-// the forward's layout at 160 (csrc/flash_fwd.cu): two 128-byte-swizzled boxes
-// and a tail box of the last 32 columns, 64-byte swizzled, through a second
-// tensor map per operand (load_tile, 20 KB a tile, every expect_tx the
-// tile's bytes); S^T and dP^T take their k-steps 8 and 9 from the tail box
-// (sm90.cuh kmajor_desc). A 64 x 160 f32 accumulator is 80 registers a
-// consumer thread, so a pair's dK and dV (160) with S^T and dP^T (64) and
-// the bf16 P^T and dS^T fragments (32) would pass setmaxnreg's 240. Of the
-// shapes that fit, this takes HALF's, split along whole boxes:
-//   * KV-stationary: one 64-row kv tile a CTA; both warpgroups compute the
-//     same S^T and dP^T over all 160 columns, then warpgroup 0 adds into
-//     box 0's columns and the tail's (96 columns: an n64 and an n32
-//     product a k-step, 48 + 48 registers for dK and dV) and warpgroup 1
-//     into box 1's (64 columns). A split at column 80 would start an
-//     MN-major operand 32 bytes into a 128-byte swizzle atom, a layout this
-//     source does not risk. The tail product is behind a branch on the
-//     warpgroup, which is broadcast from lane 0 so that ptxas sees it
-//     uniform (read from threadIdx.x instead, the 160 kernels take 1.24x
-//     and 1.32x, fused and dK/dV, and the 128 ones 1.12x and 1.17x:
-//     tools/ab_kernels.py kv_wg_thread on an H100 80GB HBM3 at 700 W).
-//     1.5x the minimal products of dK/dV, as at 256; giving each
-//     warpgroup one tensor (dV: S^T only; dK: S^T and dP^T) would cost
-//     1.25x but gives the two warpgroups different step bodies, and was
-//     not built. ptxas: 168 registers at entry, no spills for dK/dV, 48
-//     bytes of spill stores for the fused kernel (56 at 128). Shared
-//     memory: K and V 40 KB and a 2-stage Q/dO ring of 80 KB for both
-//     kernels, with the fused kernel's dS^T buffers and dQ stagings 173 KB.
-//     The fused dQ: each warpgroup multiplies dS by its box of K (n64), and
-//     warpgroup 0 then by the tail (n32), each part staged and
-//     bulk-reduced by its writer warp (256 or 128 bytes a row). What bounds
-//     it: with one kv tile a CTA every tile's dQ is reduced into dq apart,
-//     twice the reductions of a pair CTA; without them the fused kernel
-//     takes 0.58x its time (tools/ab_kernels.py, training shape); with
-//     them it is slower than the split backward, delta, dK/dV and dQ
-//     together (chip_smoke.py);
-//   * dq: the pair shape of D = 128 (dQ 80 registers, S and dP 32 each),
-//     each warpgroup one q tile at full width (dQ += dS K as wgmma_rs_k64
-//     <160>: an n128 and an n32 product a k-step); Q and dO of the pair
-//     (80 KB) and a 3-stage K/V ring (120 KB): 202 KB.
+// Head_dims 256 (gemma3-1b training) and 160 (stablelm-12b) are
+// instantiated in every mode (compact and DENSE, without and with SEG),
+// with one change of shape in the KV-stationary and dq kernels, the `HALF`
+// flag: a 64 x 256 f32 accumulator is 128 registers a consumer thread (at
+// 160, 80), so a pair's dK and dV cannot fit setmaxnreg's 240, and at 256
+// a pair's K and V (128 KB) with a 2-stage Q/dO ring (128 KB) exceed the
+// 227 KB a CTA may use. So, as FlashAttention-3 does at 256, a
+// KV-stationary CTA owns ONE 64-row kv tile and its two consumer
+// warpgroups split the columns of dK and dV: at 256 w holds [128 w, 128 w
+// + 128) (64 + 64 registers); at 160, which is not a whole number of
+// 64-column TMA boxes (a tile is the forward's layout: two 128-byte
+// swizzled boxes and a 64-byte-swizzled tail box of the last 32 columns,
+// through a second tensor map per operand, load_tile, 20 KB a tile),
+// warpgroup 0 holds box 0 and the tail (96 columns, 48 + 48 registers) and
+// warpgroup 1 box 1. A split at column 80 would start an MN-major operand
+// 32 bytes into a 128-byte swizzle atom, a layout this source does not
+// risk. The one-tile design, against the plain pair walk above:
+//   * the grid fills the card at one kv head: a CTA a tile leaves gemma3's
+//     training shape (B 4, Hkv 1, t_kv 32) 128 CTAs, one wave whose causal
+//     walks run 4 (32 - j) steps, twice the balanced share. Where the
+//     wrapper finds the grid short (kernels/flash_bwd.py kv_head_split: fewer
+//     CTAs than two waves and the longest walk over 1.5x the balanced
+//     share), it splits the group's q heads over hsplit CTAs a tile (grid
+//     (B * Hkv, hsplit, t_kv), blockIdx.y the share: read from the grid it
+//     costs the 24-register producer no register), each walking its
+//     p.hgroup heads and writing f32 dK/dV partials (B, Skv, Hkv * hsplit,
+//     D), which fa2_bwd_group_sum_kernel below adds in a fixed order: no
+//     atomics. gemma3's causal layers split one q head a CTA (512 CTAs);
+//     its window layers (even walks) and stablelm (512 CTAs) do not;
+//   * S^T and dP^T once a step: each warpgroup computes them for half of
+//     the step's 64 q columns (n32 products over head_dim, Q's rows 32 w ..
+//     read K-major from the stage: sm90.cuh kmajor_desc_half), writes its
+//     bf16 P^T and dS^T halves into 64 x 64 shared buffers (128-byte
+//     swizzled, the K-major A layout), and after one named barrier adds
+//     P^T dO and dS^T Q into its columns with both operands from shared
+//     memory (wgmma SS, wg_ss_k64). Five products of 64 x 64 x D a step
+//     where the earlier design, both warpgroups computing the whole of S^T
+//     and dP^T, made seven (the dK/dV kernel four where it made six). The
+//     dS^T buffers alternate (the other warpgroup's dQ may still read the
+//     last one), and so do the P^T buffers where the ring has two stages;
+//     with one stage the producer refills it only once both warpgroups
+//     have read this step's P^T, so one buffer serves (STG: below);
+//   * dQ reductions that do not hold up the products: dQ_i += dS K over the
+//     tile's rows, each warpgroup its columns (256: two 64-column parts;
+//     160: box 0, or box 1 and the tail, 96 contiguous columns, so one
+//     384-byte bulk reduction a row where two ran). The compact fused
+//     kernel at 256 stages its f32 dQ in the Q/dO stage the step has just
+//     consumed (KvSmem::STG: a stage is Q | dO | 4 KB): after a second
+//     named barrier each warpgroup writes its 64 x 128 part into its half,
+//     rows kStgRow floats apart, and its writer warp adds it into dq, 512
+//     bytes a row, then frees the stage (stage_dq_writer). So its ring has
+//     two stages where staging buffers left room for one, no consumer waits
+//     on a writer, and one dS^T and one P^T buffer serve (the second
+//     barrier keeps either warpgroup off them until the other has read
+//     them). The others stage dQ in a ring of f32 buffers a warpgroup (at
+//     160 one for warpgroup 0's 64 columns and two for warpgroup 1's 96;
+//     the dense fused kernel at 256 two each, beside one Q/dO stage: with
+//     two stages its producer warp spilled more than the earlier design),
+//     which its writer warp drains in order (half_dq_writer): a consumer
+//     waits only when its ring is full, and it releases the Q/dO stage
+//     before the dQ product completes.
+// Shared memory (KvSmem has the sums): at 256 the dK/dV kernel 225.9 KB,
+// the fused kernel 217.9 KB (compact, two stages) and 225.1 KB (dense, one);
+// at 160 153.9 and 223.9 KB. ptxas: 168 registers at entry, spills no more
+// than the earlier design's (fused at 256: 64, SEG 88, DENSE 28, both 60
+// bytes of spill stores, the compact ones now 48 and 80; at 160: 48, 80,
+// 32, 68; dK/dV none), no serialised wgmma. The tail products at 160
+// sit behind a branch on the warpgroup, broadcast from lane 0 so that
+// ptxas sees it uniform (read from threadIdx.x instead, the earlier 160
+// kernels took 1.24x and 1.32x, fused and dK/dV, and the 128 ones 1.12x
+// and 1.17x: tools/ab_kernels.py kv_wg_thread on an H100 80GB HBM3 at
+// 700 W). What bounds them now (tools/ab_kernels.py wide_*, an H100 80GB
+// HBM3 at 700 W, in turns with the earlier design): the fused kernel at
+// gemma3's causal shape takes 0.53x the earlier one's time (0.77x without
+// the head split), at stablelm's 0.60x; without dQ's bulk reductions it
+// takes 0.71x and 0.83x of its time; the steps stay serial within a
+// warpgroup (products, exp2 and the exchange, products, the dQ staging),
+// so the tensor cores idle between them.
+//   * dq: one CTA per (q tile, batch * q head) at 256, highest tiles
+//     first; both warpgroups compute the same S and dP, and warpgroup w
+//     adds dS K[:, 128 w ..] into its half of dQ (1.67x the minimal
+//     products). Q and dO of the tile (64 KB) and a 2-stage K/V ring (128
+//     KB): 194 KB. At 160 the pair shape of D = 128 (dQ 80 registers, S and
+//     dP 32 each), each warpgroup one q tile at full width (dQ += dS K as
+//     wgmma_rs_k64<160>: an n128 and an n32 product a k-step); Q and dO of
+//     the pair (80 KB) and a 3-stage K/V ring (120 KB): 202 KB. dQ is
+//     written once, without atomics, so bwd="split" stays bitwise the same
+//     from launch to launch.
 // Split dK/dV stay bitwise the fused kernel's: one source, the DQ flag only
-// adds the dQ phase and sets the ring depth, which moves no arithmetic.
+// adds the dQ phase and sets the ring depth (and the P^T buffers), which
+// moves no arithmetic.
 // SEG at 160 and 256 (packed training) is the 64/128 segment code: with
 // HALF both warpgroups own the same kv rows (kw0 = k0), so both read the
 // same kv ids and take the tile-0 flags; the CTA's walk is one kv tile's
-// slice of the kv-major table (PairWalk with no second tile), so its step
-// bits are those of tile blockIdx.y; each stage's 64 q ids sit in the slot
+// slice of the kv-major table (PairWalk with no second tile) for its
+// share's heads, so its step bits are those of its tile; each stage's 64 q
+// ids sit in the slot
 // KvSmem reserves (beside the fused kernel's single 256 stage too); the dq
 // kernel's HALF warpgroups hold the same q tile's ids. The element mask
 // acts on S^T, dP^T (or S, dP) fragments, never on the accumulators split
@@ -177,7 +197,8 @@
 // SEG kernel's wgmma at 160 (PERF.md, row 8ls).
 //
 // The split backward (bwd="split", the deterministic mode) is the other
-// two, with no atomics anywhere:
+// two, with no atomics anywhere (the group sum, where the grid splits, is
+// a fixed-order pass):
 //
 // fa2_bwd_dkv_kernel replaces src/repro/kernels/flash_bwd.py:234
 // flash_bwd_dkv (compact body _dkv_kernel_compact :193): the fused
@@ -373,6 +394,11 @@ struct BwdParams {
   const int* bits;
   long long q_seg_sb, kv_seg_sb;
   int n_vis;
+  // The KV-stationary kernels at 160 and 256: q heads a CTA takes. With
+  // hgroup < group the group is split over hsplit = group / hgroup CTAs a
+  // kv tile, each writing its dK and dV into dk, dv as partials (B, Skv,
+  // Hkv * hsplit, D); hgroup = group: dk, dv themselves.
+  int hgroup;
 };
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -532,6 +558,7 @@ constexpr int kPairRows = 2 * kBlockN;  // kv rows of a KV-stationary CTA: two t
 constexpr int kKvThreads = 3 * 128;     // producer warpgroup, two consumer warpgroups
 constexpr int kConsumers = 2 * 128;
 constexpr int kDqRow = 72;              // f32 dQ staging row: 64 values + 32 bytes of padding
+constexpr int kStgRow = 136;            // the same in a Q/dO stage (KvSmem::STG): 128 values
 
 // The kv rows a KV-stationary CTA owns: a pair of 64-row tiles, or at head_dim
 // 160 and 256 one tile, whose two consumer warpgroups split head_dim.
@@ -555,73 +582,194 @@ struct BwdMaps {
   CUtensorMap q_tail, dout_tail, k_tail, v_tail;
 };
 
+// The f32 dQ staging of consumer warpgroup w of a KV-stationary CTA (not
+// the compact fused kernel at 256, which stages in its Q/dO stages:
+// KvSmem::STG): its part of a step's dQ (the columns it adds into dq, 64,
+// or at 160 in warpgroup 1 96), a staging row (the part and 32 bytes of
+// padding), the buffers of its ring (2 at 256 and in warpgroup 1 at 160,
+// else 1) and their offsets from the first.
+template <int D>
+__host__ __device__ constexpr int dq_cols(int w) { return D == 160 && w ? 96 : 64; }
+template <int D>
+__host__ __device__ constexpr int dq_row(int w) { return dq_cols<D>(w) + kDqRow - 64; }
+template <int D>
+__host__ __device__ constexpr int dq_nstg(int w) {
+  return D == 256 || (D == 160 && w) ? 2 : 1;
+}
+template <int D>
+__host__ __device__ constexpr uint32_t dq_stg_bytes(int w) { return kBlockM * dq_row<D>(w) * 4; }
+template <int D>
+__host__ __device__ constexpr uint32_t dq_stg(int w, int buf) {
+  return (w ? dq_nstg<D>(0) * dq_stg_bytes<D>(0) : 0) + buf * dq_stg_bytes<D>(w);
+}
+
 // Shared memory of the KV-stationary kernels, in bytes from a 1024-aligned
 // base: K and V (D / 64 boxes of ROWS rows x 64 columns, BOX bytes apart,
 // and at D = 160 a tail box of 64 rows x 32 columns), the Q/dO ring (a
-// 64-row tile a stage, laid out the same way with 8 KB boxes), with DQ two
-// bf16 dS^T buffers (ROWS kv rows x 64 q) and the f32 dQ staging of each
-// consumer warpgroup, then each stage's lse, delta, q ids and step record,
-// the CTA's kv ids, then the mbarriers and the staged dQ's (q0, head).
-// About 200 KB at D = 128, 132 KB at D = 64; at 256 (one kv tile) 195 KB for dK/dV and,
-// with one stage, 182 KB for the fused kernel; at 160 (one kv tile, 20 KB
-// tiles, 2 stages) 121 KB for dK/dV and 173 KB for the fused kernel.
-template <int D, bool DQ>
+// 64-row tile a stage, laid out the same way with 8 KB boxes), the bf16
+// dS^T buffers (ROWS kv rows x 64 q; the pair kernels only with DQ) and, at
+// 160 and 256, the bf16 P^T buffers the two warpgroups trade their halves
+// through, with DQ the f32 dQ staging buffers of each consumer warpgroup,
+// then each stage's lse, delta, q ids and step record, the CTA's kv ids,
+// then the mbarriers and each staging buffer's (q0, head). About 200 KB at
+// D = 128, 132 KB at D = 64. One kv tile a CTA (HALF):
+//   * 256: dK/dV 2 stages, 2 + 2 buffers: 64 + 128 + 16 + 16 KB + 1.9 KB =
+//     225.9 KB; compact fused (STG) 2 stages of Q | dO | 4 KB, 1 + 1
+//     buffers: 64 + 136 + 8 + 8 KB + 1.9 KB = 217.9 KB; dense fused 1
+//     stage, 2 dS^T buffers, 1 P^T buffer, 2 stagings of 64 x 72 floats a
+//     warpgroup: 64 + 64 + 16 + 8 + 72 KB + 1.1 KB = 225.1 KB;
+//   * 160: 20 KB tiles, 2 stages, 2 + 2 buffers: 40 + 80 + 16 + 16 KB + 1.9
+//     KB = 153.9 KB for dK/dV; the fused kernel adds warpgroup 0's staging
+//     (64 x 72 floats) and two of warpgroup 1 (64 x 104: its 96 columns):
+//     223.9 KB.
+// A CTA may use 227 KB (232,448 bytes) with the 1024 bytes of alignment.
+template <int D, bool DQ, bool DENSE>
 struct KvSmem {
-  // The Q/dO ring: 2 stages, 1 for the fused kernel at 256 (a stage is 64
-  // KB there, and the dS^T buffers and dQ stagings must fit beside K and V).
-  static constexpr int ROWS = kv_rows<D>(), STAGES = D == 256 && DQ ? 1 : 2;
+  static constexpr bool HALF = D == 160 || D == 256;
+  // The compact fused kernel at 256 stages its dQ in the Q/dO stage the
+  // step has consumed (STG): a stage is laid out Q | dO | 4 KB, so that a
+  // warpgroup's 64 x 128 f32 part, rows padded to kStgRow floats, fits in
+  // its half; it needs no staging buffers, and one dS^T and one P^T buffer
+  // (a second named barrier a step keeps both warpgroups off them until
+  // the other has read them). The dense one keeps staging buffers and one
+  // Q/dO stage: with two, its producer warp spilled more than before.
+  static constexpr bool STG = D == 256 && DQ && !DENSE;
+  static constexpr int ROWS = kv_rows<D>();
+  static constexpr int STAGES = D == 256 && DQ && DENSE ? 1 : 2;  // the Q/dO ring
+  static constexpr int NDS = STG ? 1 : HALF || DQ ? 2 : 0;       // dS^T buffers
+  // P^T buffers. With one stage the producer refills it only once both
+  // warpgroups have read its Q and dO, so neither writes the next step's
+  // P^T before the other's dV has read this one.
+  static constexpr int NPT = !HALF ? 0 : STG || STAGES == 1 ? 1 : 2;
+  static constexpr int NDQB = HALF ? 4 : 2;  // dQ handshakes: (warpgroup, buffer or stage)
   static constexpr uint32_t BOX = ROWS * 128;     // a 64-column box of K or V
   static constexpr uint32_t KV = ROWS * D * 2;    // K or V of the CTA
-  static constexpr uint32_t QT = kBlockM * D * 2;  // a Q or dO stage
-  static constexpr uint32_t K = 0, V = KV, Q = 2 * KV, DO = Q + STAGES * QT;
-  static constexpr uint32_t DS = DO + STAGES * QT;
-  static constexpr uint32_t DQS = DS + (DQ ? 2 * BOX : 0);
-  static constexpr uint32_t LSE = DQS + (DQ ? 2 * kBlockM * kDqRow * 4 : 0);
+  static constexpr uint32_t QT = kBlockM * D * 2;  // a Q or dO tile
+  static constexpr uint32_t QSTR = STG ? 2 * QT + 4096 : QT;  // one stage's Q to the next's
+  static constexpr uint32_t K = 0, V = KV, Q = 2 * KV, DO = STG ? Q + QT : Q + STAGES * QT;
+  static constexpr uint32_t DS = STG ? Q + STAGES * QSTR : DO + STAGES * QT;
+  static constexpr uint32_t PT = DS + NDS * BOX;
+  static constexpr uint32_t DQS = PT + NPT * BOX;
+  static constexpr uint32_t LSE = DQS + (DQ && !STG ? dq_stg<D>(1, dq_nstg<D>(1)) : 0);
   static constexpr uint32_t DELTA = LSE + STAGES * kBlockM * 4;
   static constexpr uint32_t QID = DELTA + STAGES * kBlockM * 4;
   static constexpr uint32_t STEP = QID + STAGES * kBlockM * 4;  // per stage: the step's record
   static constexpr uint32_t KVID = STEP + STAGES * 16;  // the CTA's kv ids (SEG)
   static constexpr uint32_t BARS = KVID + ROWS * 4;  // full, empty, kv, dq_full, dq_empty
-  static constexpr uint32_t DQ_META = BARS + (2 * STAGES + 5) * 8;  // per warpgroup: (q0, h)
-  static constexpr uint32_t BYTES = DQ_META + 2 * 8;
+  static constexpr uint32_t DQ_META = BARS + (2 * STAGES + 1 + 2 * NDQB) * 8;  // (q0, h) each
+  static constexpr uint32_t BYTES = DQ_META + NDQB * 8;
+  static_assert(BYTES + 1024 <= 232448, "a CTA may use 227 KB of shared memory");
 };
 
 
-// d (64 x DC) += A (64 x 64 bf16 fragments) * the columns of dK and dV that
-// consumer warpgroup w of a KV-stationary CTA holds, of the 64-row tile at
-// shared address b (MN-major): all of head_dim; with HALF at 256 columns
-// [128 w, 128 w + 128); at 160 box w (64 columns) and, in warpgroup 0, the
-// tail (columns 128-159, into d[32 .. 47]). w is warp-uniform (broadcast),
-// so ptxas sees the tail's branch as uniform.
+// d (64 x DC) += A (64 x 64 bf16 at shared address a, 128-byte swizzled,
+// K-major: the P^T or dS^T buffer both warpgroups wrote their halves of) *
+// the columns of dK and dV that consumer warpgroup w of a one-tile CTA
+// (HALF) holds, of the 64-row tile at shared address b (MN-major): at 256
+// columns [128 w, 128 w + 128); at 160 box w (64 columns) and, in
+// warpgroup 0, the tail (columns 128-159, into d[32 .. 47]). w is
+// warp-uniform (broadcast), so ptxas sees the tail's branch as uniform.
 template <int D, int DC>
-__device__ __forceinline__ void wg_rs_k64(float (&d)[DC / 2], const uint32_t (&a)[4][4],
-                                          uint32_t b, int w) {
-  if constexpr (D == 160) {
-    wgmma_rs_k64<64>(*reinterpret_cast<float(*)[32]>(d), a, b + w * 8192);
-    if (w == 0) wgmma_rs_k64_tail(*reinterpret_cast<float(*)[16]>(d + 32), a, b + 2 * 8192);
-  } else if constexpr (D == 256) {
-    wgmma_rs_k64<128>(d, a, b + w * 16384);
-  } else {
-    wgmma_rs_k64<D>(d, a, b);
+__device__ __forceinline__ void wg_ss_k64(float (&d)[DC / 2], uint32_t a, uint32_t b, int w) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t ak = sw128_desc(a + kk * 32, 16);
+    if constexpr (D == 160) {
+      wgmma_ss_n64<0, 1>(*reinterpret_cast<float(*)[32]>(d), ak,
+                         sw128_desc(b + w * 8192 + kk * 2048, 8192), 1);
+      if (w == 0)
+        wgmma_ss_n32<0, 1>(*reinterpret_cast<float(*)[16]>(d + 32), ak,
+                           sw64_desc(b + 2 * 8192 + kk * 1024, 4096), 1);
+    } else {
+      wgmma_ss_n128<0, 1>(d, ak, sw128_desc(b + w * 16384 + kk * 2048, 8192), 1);
+    }
+  }
+}
+
+// A dQ writer warp of a one-tile (HALF) fused kernel that stages dQ in
+// buffers (not STG): warp 1 + W adds consumer warpgroup W's staged parts
+// into dq by bulk reduction, in the order they were staged (buffer u %
+// dq_nstg(W) of its ring, from shared address dqs + dq_stg(W, buffer)),
+// then frees the buffer: at 256 (dense) a 64-column part, columns 128 W +
+// 64 c for part c of a step (buffer c); at 160 box 0 (warpgroup 0, 256
+// bytes a row) or box 1 and the tail (warpgroup 1, 96 contiguous columns,
+// 384 bytes a row). (q0, head) = (-1, -1) ends the walk. W is a template
+// argument, so the ring's shape takes none of the writer's 24 registers.
+template <int D, int W>
+__device__ __forceinline__ void half_dq_writer(const BwdParams& p, uint32_t dqs,
+                                               uint64_t* dq_full, uint64_t* dq_empty,
+                                               const int2* dq_meta, int b, int lane) {
+  constexpr int NSTG = dq_nstg<D>(W);
+  for (int u = 0;; ++u) {
+    const int buf = u % NSTG;
+    mbar_wait(&dq_full[2 * W + buf], (u / NSTG) & 1);
+    const int2 m = dq_meta[2 * W + buf];
+    if (m.x < 0) break;
+    const int col = D == 256 ? (2 * W + buf) * 64 : W * 64;
+    const uint32_t src = dqs + dq_stg<D>(W, 0) + buf * dq_stg_bytes<D>(W);
+    for (int r = lane; r < kBlockM; r += 32)
+      if (m.x + r < p.Sq)
+        bulk_reduce_add(
+            p.dq + ((static_cast<long long>(b) * p.Sq + m.x + r) * p.Hq + m.y) * D + col,
+            src + r * dq_row<D>(W) * 4, dq_cols<D>(W) * 4);
+    bulk_commit();
+    bulk_wait_read();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&dq_empty[2 * W + buf]);
+  }
+}
+
+// A dQ writer warp of the fused kernel at 256 (KvSmem::STG): warp 1 + W
+// adds consumer warpgroup W's 64 x 128 f32 part of each step's dQ, staged
+// in the step's Q/dO stage (its half of the stage, rows kStgRow floats
+// apart), into dq's columns [128 W, 128 W + 128) by bulk reduction, 512
+// bytes a row, then frees the stage for the producer (empty: both writers'
+// lane 0). The stage of step u alternates; (q0, head) = (-2, 0): a step
+// with no dQ, whose stage it frees at once; (-1, -1) ends the walk. The
+// step's handshake barrier and record are its stage's, so a consumer
+// cannot stage step u + 2 before this warp has read step u's.
+template <int D, int W, class L>
+__device__ __forceinline__ void stage_dq_writer(const BwdParams& p, uint32_t qs,
+                                                uint64_t* dq_full, uint64_t* empty,
+                                                const int2* dq_meta, int b, int lane) {
+  for (int u = 0;; ++u) {
+    const int stage = u % L::STAGES;
+    mbar_wait(&dq_full[2 * stage + W], (u / L::STAGES) & 1);
+    const int2 m = dq_meta[2 * stage + W];
+    if (m.x == -1) break;
+    if (m.x >= 0) {
+      const uint32_t src = qs + stage * L::QSTR + W * (L::QSTR / 2);
+      for (int r = lane; r < kBlockM; r += 32)
+        if (m.x + r < p.Sq)
+          bulk_reduce_add(
+              p.dq + ((static_cast<long long>(b) * p.Sq + m.x + r) * p.Hq + m.y) * D + W * D / 2,
+              src + r * kStgRow * 4, D / 2 * 4);
+      bulk_commit();
+      bulk_wait_read();
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
   }
 }
 
 // The KV-stationary body: with DQ, the fused kernel; without, the dkv
-// kernel (no dS buffer, no dQ product, no staging; dK and dV bitwise the
-// same). SEG: the segment variant of either. DENSE: every q tile, no table.
-// D: head_dim, 64, 128, 160 or 256 (at 160 and 256 HALF below).
+// kernel (no dQ product, no staging; dK and dV bitwise the same). SEG: the
+// segment variant of either. DENSE: every q tile, no table. D: head_dim,
+// 64 or 128 (a pair of kv tiles a CTA) or 160 and 256 (HALF below).
 template <int D, bool DQ, bool SEG, bool DENSE>
 __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps& maps) {
   static_assert(D == 64 || D == 128 || D == 160 || D == 256,
                 "the KV-stationary kernels take head_dim 64, 128, 160 or 256");
-  using L = KvSmem<D, DQ>;
+  using L = KvSmem<D, DQ, DENSE>;
   constexpr int S = L::STAGES;
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are skipped before their fetch
   // Head_dims 160 and 256: the CTA owns one kv tile and its two consumer
   // warpgroups split the columns of its dK and dV (the header says why):
   // at 256 w holds [128 w, 128 w + 128); at 160 warpgroup 0 holds box 0 and
-  // the tail (96 columns), warpgroup 1 box 1 (64).
-  constexpr bool HALF = D == 160 || D == 256;
+  // the tail (96 columns), warpgroup 1 box 1 (64). Each computes S^T and
+  // dP^T for half of a step's q columns and trades P^T and dS^T through
+  // shared memory.
+  constexpr bool HALF = L::HALF;
   constexpr int DC = !HALF ? D : D == 256 ? 128 : 96;  // (most) columns a warpgroup holds
   constexpr int BM = kBlockM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -629,8 +777,8 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
   uint64_t* empty = full + S;
   uint64_t* kv_bar = empty + S;
-  uint64_t* dq_full = kv_bar + 1;   // per consumer warpgroup: its dQ half is staged
-  uint64_t* dq_empty = dq_full + 2;  // the staging is read: it may be refilled
+  uint64_t* dq_full = kv_bar + 1;         // per staging buffer: a dQ part is staged
+  uint64_t* dq_empty = dq_full + L::NDQB;  // the staging is read: it may be refilled
   int2* dq_meta = reinterpret_cast<int2*>(sm + L::DQ_META);
   float* sLse = reinterpret_cast<float*>(sm + L::LSE);  // lse * log2(e), +inf past Sq
   float* sDelta = reinterpret_cast<float*>(sm + L::DELTA);
@@ -640,25 +788,34 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
   // the walk. The producer walks and classifies; the consumers read this.
   int4* sStep = reinterpret_cast<int4*>(sm + L::STEP);
 
+  // blockIdx.x is (batch row, kv head). With HALF the group's q heads may
+  // be split into hs = gridDim.y shares of p.hgroup heads, blockIdx.y the
+  // CTA's, each writing the dK and dV of its heads into a partial of its
+  // own (the wrapper sums the partials), and blockIdx.z is the kv tile; the
+  // pair kernels take the whole group. (Read from the grid, the share costs
+  // the producer warp no register: a share decoded from blockIdx.x by
+  // division spilled the SEG kernels beyond their earlier design.)
+  const int hs = HALF ? gridDim.y : 1, sp = HALF ? blockIdx.y : 0;
   const int b = blockIdx.x / p.Hkv, hk = blockIdx.x % p.Hkv;
-  const int j0 = HALF ? blockIdx.y : 2 * blockIdx.y;  // low kv tiles (the longest causal runs) first
+  const int j0 = HALF ? blockIdx.z : 2 * blockIdx.y;  // low kv tiles (the longest causal runs) first
   const int k0 = j0 * kBlockN;
   const bool has1 = !HALF && j0 + 1 < p.t_kv;  // an odd t_kv leaves the last pair one tile
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 32);  // the producer warp's lanes; TMA bytes on top
-      mbar_init(&empty[s], kConsumers);
+      // With STG the writer warps free a stage once they have read its dQ.
+      mbar_init(&empty[s], L::STG && p.dq != nullptr ? 2 : kConsumers);
     }
     mbar_init(kv_bar, 1);
-    for (int w = 0; w < 2; ++w) {
-      mbar_init(&dq_full[w], 128);
-      mbar_init(&dq_empty[w], 1);
+    for (int i = 0; i < L::NDQB; ++i) {
+      mbar_init(&dq_full[i], 128);
+      mbar_init(&dq_empty[i], 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform (wg_rs_k64)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform (wg_ss_k64)
   if (wg == 0) {
     // Producer: one warp. K and V once; then, per step of the walk, Q_i and
     // dO_i by TMA (rows past Sq zero-filled), the stage's lse, delta and q
@@ -667,7 +824,7 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       PairWalk<SKIP, DENSE> walk;
-      walk.group = p.group;
+      walk.group = HALF ? p.hgroup : p.group;  // the q heads of the CTA's share
       walk.n_tiles = (p.Sq + BM - 1) / BM;
       walk.g = 0;
       if (DENSE) {
@@ -722,11 +879,11 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
           mbar_arrive(&full[stage]);
           continue;
         }
-        const int h = hk * p.group + g, q0 = qt * BM;
+        const int h = hk * p.group + (HALF ? sp * p.hgroup : 0) + g, q0 = qt * BM;
         if (lane == 0) {
           mbar_expect_tx(&full[stage], 2 * L::QT);
-          load_tile<D>(sm + L::Q + stage * L::QT, maps.q, maps.q_tail, &full[stage], h, q0, b);
-          load_tile<D>(sm + L::DO + stage * L::QT, maps.dout, maps.dout_tail, &full[stage], h, q0,
+          load_tile<D>(sm + L::Q + stage * L::QSTR, maps.q, maps.q_tail, &full[stage], h, q0, b);
+          load_tile<D>(sm + L::DO + stage * L::QSTR, maps.dout, maps.dout_tail, &full[stage], h, q0,
                        b);
         }
         const long long row0 = (static_cast<long long>(b) * p.Hq + h) * p.Sq;
@@ -812,50 +969,57 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         mbar_arrive(&full[stage]);
       }
     } else if (DQ && threadIdx.x < 96 && p.dq != nullptr) {
-      // dQ writers: warp 1 + w adds consumer warpgroup w's staged 64 x 64
-      // f32 part (D = 128: its half of head_dim; D = 64: its kv tile's
-      // share of the whole row; D = 256: a step's two parts, columns
-      // 128 w + 64 c for c = 0, 1; D = 160: box w's 64 columns, and in
-      // warpgroup 0 then the tail's 32) into dq by bulk reduction, 256
-      // bytes a row (128 for the tail), then frees the staging; (q0, head)
-      // = (-1, -1) ends the walk.
       const int w = threadIdx.x / 32 - 1, lane = threadIdx.x % 32;
-      const uint32_t stg = smem_u32(sm + L::DQS) + w * BM * kDqRow * 4;
-      for (int u = 0;; ++u) {
-        mbar_wait(&dq_full[w], u & 1);
-        const int2 m = dq_meta[w];
-        if (m.x < 0) break;
-        const bool tail = D == 160 && w == 0 && (u & 1);
-        const int col = D == 160  ? (tail ? 128 : w * 64)
-                        : HALF    ? (2 * w + (u & 1)) * 64
-                        : D == 128 ? w * 64
-                                   : 0;
-        for (int r = lane; r < BM; r += 32)
-          if (m.x + r < p.Sq)
-            bulk_reduce_add(
-                p.dq + ((static_cast<long long>(b) * p.Sq + m.x + r) * p.Hq + m.y) * D + col,
-                stg + r * kDqRow * 4, tail ? 128 : 256);
-        bulk_commit();
-        bulk_wait_read();
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&dq_empty[w]);
+      if constexpr (L::STG) {
+        const uint32_t qs = smem_u32(sm + L::Q);
+        if (w == 0)
+          stage_dq_writer<D, 0, L>(p, qs, dq_full, empty, dq_meta, b, lane);
+        else
+          stage_dq_writer<D, 1, L>(p, qs, dq_full, empty, dq_meta, b, lane);
+      } else if constexpr (HALF) {
+        const uint32_t dqs = smem_u32(sm + L::DQS);
+        if (w == 0)
+          half_dq_writer<D, 0>(p, dqs, dq_full, dq_empty, dq_meta, b, lane);
+        else
+          half_dq_writer<D, 1>(p, dqs, dq_full, dq_empty, dq_meta, b, lane);
+      } else {
+        // dQ writers: warp 1 + w adds consumer warpgroup w's staged 64 x 64
+        // f32 part (D = 128: its half of head_dim; D = 64: its kv tile's
+        // share of the whole row) into dq by bulk reduction, 256 bytes a
+        // row, then frees the staging; (q0, head) = (-1, -1) ends the walk.
+        const uint32_t stg = smem_u32(sm + L::DQS) + w * BM * kDqRow * 4;
+        for (int u = 0;; ++u) {
+          mbar_wait(&dq_full[w], u & 1);
+          const int2 m = dq_meta[w];
+          if (m.x < 0) break;
+          const int col = D == 128 ? w * 64 : 0;
+          for (int r = lane; r < BM; r += 32)
+            if (m.x + r < p.Sq)
+              bulk_reduce_add(
+                  p.dq + ((static_cast<long long>(b) * p.Sq + m.x + r) * p.Hq + m.y) * D + col,
+                  stg + r * kDqRow * 4, 256);
+          bulk_commit();
+          bulk_wait_read();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&dq_empty[w]);
+        }
       }
       bulk_wait();
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     // Consumer warpgroup w owns kv tile j0 + w: rows kw0 .. kw0 + 63 (HALF:
-    // both own tile j0, w its columns of dK and dV, wg_rs_k64).
+    // both own tile j0, w its columns of dK and dV, wg_ss_k64).
     const int w = wg - 1;
     const int t = threadIdx.x - 128 * wg;
     const int wq = t / 32, lane = t % 32, g8 = lane / 4, t4 = lane % 4;
     const int kw0 = k0 + (HALF ? 0 : w * kBlockN);
-    const uint32_t rows_at = HALF ? 0 : w * 8192;  // its kv rows inside a box of K or V
+    const uint32_t rows_at = HALF ? 0 : w * 8192;  // pair: its kv rows inside a box of K or V
     const int kv_a = kw0 + wq * 16 + g8, kv_b = kv_a + 8;  // this thread's two kv rows
     const uint32_t sK = smem_u32(sm + L::K), sV = smem_u32(sm + L::V);
     const uint32_t sQ = smem_u32(sm + L::Q), sdO = smem_u32(sm + L::DO);
     const uint32_t sdS = smem_u32(sm + L::DS);
-    const uint32_t stg = smem_u32(sm + L::DQS) + w * BM * kDqRow * 4;  // f32 dQ staging
+    const uint32_t stg = smem_u32(sm + L::DQS) + w * BM * kDqRow * 4;  // pair: f32 dQ staging
 
     // dV and dK of the tile: rows kv_a / kv_b, columns 8 tt + 2 t4 (+1)
     // (HALF: of the warpgroup's columns).
@@ -864,175 +1028,347 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
     for (int i = 0; i < DC / 2; ++i) dv[i] = dk[i] = 0.f;
 
     mbar_wait(kv_bar, 0);
-    int n_dq = 0;   // steps with a dQ product: the dS buffer alternates with it
-    int n_stg = 0;  // 64 x 64 dQ parts staged: the staging handshake's phase
-    for (int n = 0;; ++n) {
-      const int stage = n % S;
-      mbar_wait(&full[stage], (n / S) & 1);
-      const int4 step = sStep[stage];
-      if (step.x < 0) break;
-      const int h = hk * p.group + step.x, q0 = step.y * BM;
-      const bool vis0 = step.z & kTake0, vis1 = step.z & kTake1;
-      const bool masked = step.z & (w && !HALF ? kMask1 : kMask0);
-      const bool mine = w && !HALF ? vis1 : vis0;  // uniform in the warpgroup
-      const uint32_t cQ = sQ + stage * L::QT, cdO = sdO + stage * L::QT;
-      const uint32_t cdS = sdS + (n_dq & 1) * L::BOX;
-      // This thread's dS^T pair (row R, columns 8 tt + 2 t4, +1) of n-block
-      // tt sits at ds_at ^ (tt << 4) in the 128-byte swizzle (R & 7 == g8);
-      // row R + 8 is 1024 bytes on.
-      const uint32_t ds_at =
-          cdS + ((HALF ? 0 : w * 64) + wq * 16 + g8) * 128 + (g8 << 4) + t4 * 4;
-      if (mine) {
-        float s[32], dp[32];
-        uint32_t pP[4][4], pS[4][4];  // bf16 P^T and dS^T: the A operands of dV and dK
-        // S^T = K Q^T (line 11) and dP^T = V dO^T (line 13): 64 kv rows x 64
-        // q columns, k over head_dim in the tiles' swizzled boxes (HALF: both
-        // warpgroups compute the whole of both). K and V of one tile (HALF)
-        // are laid out as a Q tile, tail box included.
-        const auto kv_desc = [&](uint32_t base, int kk) {
-          return HALF ? kmajor_desc<D>(base, kk)
-                      : sw128_desc(base + (kk >> 2) * L::BOX + rows_at + (kk & 3) * 32, 16);
-        };
-        wgmma_fence();
+    if constexpr (HALF) {
+      // This thread's P^T and dS^T values sit in row R = 16 wq + g8 (kv row
+      // kv_a) of the step's 64 x 64 buffers, q columns 32 w + 8 tt + 2 t4
+      // (+1) for tt = 0 .. 3: 16-byte chunk 4 w + tt of the 128-byte
+      // swizzled row, at x_at ^ (tt << 4); row R + 8 (kv_b) is 1024 bytes on.
+      const uint32_t sPT = smem_u32(sm + L::PT);
+      const uint32_t x_at = (wq * 16 + g8) * 128 + ((g8 ^ (4 * w)) << 4) + t4 * 4;
+      // The dQ staging ring of the warpgroup (not STG): nstg buffers of 64
+      // rows of dq_row(w) floats, this thread's rows R and R + 8 at stg_at.
+      const int nstg = dq_nstg<D>(w);
+      const uint32_t stg0 = smem_u32(sm + L::DQS + dq_stg<D>(w, 0));
+      const uint32_t stg_at = ((wq * 16 + g8) * dq_row<D>(w) + 2 * t4) * 4;
+      int n_x = 0;    // steps taken: the P^T and dS^T buffers alternate with it
+      int n_stg = 0;  // dQ parts staged: the ring's position
+      int n = 0;      // steps (STG: the writers' records follow them)
+      for (;; ++n) {
+        const int stage = n % S;
+        mbar_wait(&full[stage], (n / S) & 1);
+        // The record, broadcast from lane 0: ptxas then sees the branches
+        // around the wgmmas as warp-uniform.
+        int4 step = sStep[stage];
+        step.x = __shfl_sync(0xffffffffu, step.x, 0);
+        step.y = __shfl_sync(0xffffffffu, step.y, 0);
+        step.z = __shfl_sync(0xffffffffu, step.z, 0);
+        if (step.x < 0) break;
+        if (!(step.z & kTake0)) {  // DENSE: the tile is empty there, no products
+          if (L::STG && p.dq != nullptr) {  // the writers free the stage
+            if (t == 0) dq_meta[2 * stage + w] = make_int2(-2, 0);
+            mbar_arrive(&dq_full[2 * stage + w]);
+          } else {
+            mbar_arrive(&empty[stage]);
+          }
+          continue;
+        }
+        const int h = hk * p.group + sp * p.hgroup + step.x, q0 = step.y * BM;
+        const bool masked = step.z & kMask0;
+        const uint32_t cQ = sQ + stage * L::QSTR, cdO = sdO + stage * L::QSTR;
+        const uint32_t cPT = sPT + (n_x % L::NPT) * L::BOX;
+        const uint32_t cdS = sdS + (L::NDS == 1 ? 0 : n_x & 1) * L::BOX;
+        {
+          // S^T = K Q^T (line 11) and dP^T = V dO^T (line 13) for the
+          // warpgroup's 32 q columns: n32 products over head_dim, K and V
+          // laid out as a Q tile, tail box included; the two warpgroups
+          // compute each element once.
+          float s[16], dp[16];
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64<0, 0>(s, kv_desc(sK, kk), kmajor_desc<D>(cQ, kk), kk > 0);
-        wgmma_commit();
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss_n32<0, 0>(s, kmajor_desc<D>(sK, kk), kmajor_desc_half<D>(cQ, kk, w),
+                               kk > 0);
+          wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64<0, 0>(dp, kv_desc(sV, kk), kmajor_desc<D>(cdO, kk), kk > 0);
-        wgmma_commit();
-        wgmma_wait<1>();
-        fence_regs(s);
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss_n32<0, 0>(dp, kmajor_desc<D>(sV, kk), kmajor_desc_half<D>(cdO, kk, w),
+                               kk > 0);
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs(s);
 
-        // P^T = exp2(S^T log2(e) - lse log2(e)); element i of n-block tt is
-        // kv row kv_a (i < 2) or kv_b, q column q0 + 8 tt + 2 t4 + (i & 1).
-        // A hidden element scores kHidden: P^T is exp(mask - lse), 1 on a row
-        // that sees no key. The kv ids are read from shared memory here, at
-        // row kv & (ROWS - 1) of the CTA's (k0 is a multiple of ROWS), so no
-        // id and no address of them stays live through the step: with either,
-        // ptxas serialised the fused SEG kernel's wgmma at 160.
-        const float* cl = sLse + stage * BM;
-        const float* cd = sDelta + stage * BM;
-        const int* cq = sQid + stage * BM;
+          // P^T = exp2(S^T log2(e) - lse log2(e)); element i of n-block tt is
+          // kv row kv_a (i < 2) or kv_b, q column q0 + cc + (i & 1). A hidden
+          // element scores kHidden: P^T is exp(mask - lse), 1 on a row that
+          // sees no key. The kv ids are read from shared memory here (the
+          // header says why). Rounded to bf16 into the P^T buffer.
+          const float* cl = sLse + stage * BM;
+          const float* cd = sDelta + stage * BM;
+          const int* cq = sQid + stage * BM;
 #pragma unroll
-        for (int tt = 0; tt < 8; ++tt) {
-          const int cc = tt * 8 + 2 * t4;
-          const float2 l2 = *reinterpret_cast<const float2*>(cl + cc);
+          for (int tt = 0; tt < 4; ++tt) {
+            const int cc = 32 * w + tt * 8 + 2 * t4;
+            const float2 l2 = *reinterpret_cast<const float2*>(cl + cc);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float x = s[4 * tt + i];
-            if (masked) {
-              bool v = visible(p, q0 + cc + (i & 1) + p.q_offset, i < 2 ? kv_a : kv_b);
-              if (SEG) v = v && cq[cc + (i & 1)] == sKvid[(i < 2 ? kv_a : kv_b) & (L::ROWS - 1)];
-              if (!v) x = kHidden;
+            for (int i = 0; i < 4; ++i) {
+              float x = s[4 * tt + i];
+              if (masked) {
+                bool v = visible(p, q0 + cc + (i & 1) + p.q_offset, i < 2 ? kv_a : kv_b);
+                if (SEG)
+                  v = v && cq[cc + (i & 1)] == sKvid[(i < 2 ? kv_a : kv_b) & (L::ROWS - 1)];
+                if (!v) x = kHidden;
+              }
+              s[4 * tt + i] = exp2f(fmaf(x, kLog2e, -((i & 1) ? l2.y : l2.x)));
             }
-            s[4 * tt + i] = exp2f(fmaf(x, kLog2e, -((i & 1) ? l2.y : l2.x)));
+            st_shared(cPT + (x_at ^ (tt << 4)), pack_bf16(s[4 * tt], s[4 * tt + 1]));
+            st_shared(cPT + (x_at ^ (tt << 4)) + 1024, pack_bf16(s[4 * tt + 2], s[4 * tt + 3]));
           }
-        }
+          wgmma_wait<0>();
+          fence_regs(dp);
+          // dS^T = P^T o (dP^T - delta) (line 14), rounded to bf16 into the
+          // dS^T buffer.
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          pP[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-          pP[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-          pP[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-          pP[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-        }
-        // dV += P^T dO (line 12): k over the tile's 64 q rows.
-        wgmma_fence();
-        wg_rs_k64<D, DC>(dv, pP, cdO, w);
-        wgmma_commit();
-        wgmma_wait<1>();
-        fence_regs(dp);
-
-        // dS^T = P^T o (dP^T - delta) (line 14), rounded to bf16.
+          for (int tt = 0; tt < 4; ++tt) {
+            const float2 d2 = *reinterpret_cast<const float2*>(cd + 32 * w + tt * 8 + 2 * t4);
 #pragma unroll
-        for (int tt = 0; tt < 8; ++tt) {
-          const float2 d2 = *reinterpret_cast<const float2*>(cd + tt * 8 + 2 * t4);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dp[4 * tt + i] = s[4 * tt + i] * (dp[4 * tt + i] - ((i & 1) ? d2.y : d2.x));
-        }
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          pS[kk][0] = pack_bf16(dp[8 * kk], dp[8 * kk + 1]);
-          pS[kk][1] = pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
-          pS[kk][2] = pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
-          pS[kk][3] = pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
-        }
-        // dK += dS^T Q (line 16).
-        wgmma_fence();
-        wg_rs_k64<D, DC>(dk, pS, cQ, w);
-        wgmma_commit();
-        if (DQ) {
-          // HALF: both warpgroups hold the same dS^T; each stores half of its
-          // q columns.
-#pragma unroll
-          for (int tt = 0; tt < 8; ++tt) {
-            if (HALF && (tt >> 2) != w) continue;
-            st_shared(ds_at ^ (tt << 4), pS[tt >> 1][(tt & 1) * 2]);
-            st_shared((ds_at ^ (tt << 4)) + 1024, pS[tt >> 1][(tt & 1) * 2 + 1]);
-          }
-        }
-        wgmma_wait<0>();  // dV and dK: P^T and dS^T are free
-        fence_regs(dv);
-        fence_regs(dk);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          fence_regs(pP[kk]);
-          fence_regs(pS[kk]);
-        }
-      }
-      mbar_arrive(&empty[stage]);  // this stage's Q, dO, lse, delta and ids are read
-      if (DQ && (vis0 || vis1)) {
-        // dQ_i += dS K_j (line 15) over the CTA's kv rows, both warpgroups:
-        // at D = 128 each takes a half of head_dim (its 64-column box of K)
-        // over the pair's 128 rows; at D = 64 each takes its own kv tile's
-        // 64 rows over the whole of head_dim, and both parts are added into
-        // dq; at D = 256 each takes its half of head_dim as two 64-column
-        // parts over the tile's 64 rows; at D = 160 each its box of K (64
-        // columns), then warpgroup 0 the 32 tail columns (an n32 product).
-        // A hidden tile's dS rows are zeros.
-        if (!mine) {
-#pragma unroll
-          for (int tt = 0; tt < 8; ++tt) {
-            st_shared(ds_at ^ (tt << 4), 0u);
-            st_shared((ds_at ^ (tt << 4)) + 1024, 0u);
+            for (int i = 0; i < 4; ++i)
+              dp[4 * tt + i] = s[4 * tt + i] * (dp[4 * tt + i] - ((i & 1) ? d2.y : d2.x));
+            st_shared(cdS + (x_at ^ (tt << 4)), pack_bf16(dp[4 * tt], dp[4 * tt + 1]));
+            st_shared(cdS + (x_at ^ (tt << 4)) + 1024, pack_bf16(dp[4 * tt + 2], dp[4 * tt + 3]));
           }
         }
         fence_async_smem();
-        named_sync(1, kConsumers);  // both tiles' dS are in the buffer
-        const int parts = D == 256 ? 2 : D == 160 ? 2 - w : 1;  // 64 x 64 (tail: 32) parts
+        named_sync(1, kConsumers);  // both halves of P^T and dS^T are in their buffers
+        // dV += P^T dO (line 12) and dK += dS^T Q (line 16), k over the
+        // step's 64 q rows, into the warpgroup's columns.
+        float dq[DQ ? (D == 256 ? 64 : 48) : 1];
+        wgmma_fence();
+        wg_ss_k64<D, DC>(dv, cPT, cdO, w);
+        wg_ss_k64<D, DC>(dk, cdS, cQ, w);
+        wgmma_commit();
+        if constexpr (DQ) {
+          // dQ_i += dS K_j (line 15) over the tile's 64 kv rows, dS read
+          // MN-major from the dS^T buffer: at 256 the warpgroup's half of
+          // head_dim as two 64-column parts (columns 128 w + 64 c into
+          // dq[32 c ..]); at 160 box w, and in warpgroup 1 then the tail
+          // (into dq[32 ..]).
 #pragma unroll
-        for (int c = 0; c < parts; ++c) {
-          float dq[32];
-          const bool tail = D == 160 && c == 1;  // warpgroup 0's tail columns at 160
-          const uint32_t dsA = cdS + (D == 64 ? w * 8192 : 0);
-          const uint32_t kB = sK + (D == 160 ? w * 8192
-                                    : HALF  ? (2 * w + c) * 8192
-                                            : w * (D == 128 ? 16384 : 8192));
-          wgmma_fence();
-          if (tail) {
+          for (int c = 0; c < (D == 256 ? 2 : 1); ++c)
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk)
-              wgmma_ss_n32<1, 1>(*reinterpret_cast<float(*)[16]>(dq),
-                                 sw128_desc(dsA + kk * 2048, 8192),
-                                 sw64_desc(sK + 2 * 8192 + kk * 1024, 4096), kk > 0);
-          } else {
+              wgmma_ss_n64<1, 1>(*reinterpret_cast<float(*)[32]>(dq + 32 * c),
+                                 sw128_desc(cdS + kk * 2048, 8192),
+                                 sw128_desc(sK + (D == 256 ? 2 * w + c : w) * 8192 + kk * 2048,
+                                            8192),
+                                 kk > 0);
+          if (D == 160 && w == 1)
 #pragma unroll
-            for (int kk = 0; kk < (D == 128 ? 8 : 4); ++kk)
-              wgmma_ss_n64<1, 1>(dq, sw128_desc(dsA + kk * 2048, 8192),
-                                 sw128_desc(kB + kk * 2048, 8192), kk > 0);
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss_n32<1, 1>(*reinterpret_cast<float(*)[16]>(dq + 32),
+                                 sw128_desc(cdS + kk * 2048, 8192),
+                                 sw64_desc(sK + 2 * 8192 + kk * 1024, 4096), kk > 0);
+          wgmma_commit();
+        }
+        // dV and dK are done: this stage's Q and dO, and P^T, are read. P^T
+        // and dS^T (which the other warpgroup's dQ may still read) alternate
+        // between two buffers each; with STG, one each, and the second named
+        // barrier below keeps either warpgroup from the next step's until
+        // the other's products have read them.
+        wgmma_wait<DQ ? 1 : 0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        if (!(L::STG && p.dq != nullptr)) mbar_arrive(&empty[stage]);
+        if constexpr (L::STG) {
+          wgmma_wait<0>();
+          fence_regs(dq);
+          // Both warpgroups are done with this stage's Q and dO: its memory
+          // takes the step's dQ, the warpgroup's 128 columns in its half
+          // (rows kStgRow floats apart), for its writer warp, which frees
+          // the stage once it has read them.
+          named_sync(2, kConsumers);
+          if (p.dq != nullptr) {
+            const uint32_t at =
+                cQ + w * (L::QSTR / 2) + ((wq * 16 + g8) * kStgRow + 2 * t4) * 4;
+#pragma unroll
+            for (int tt = 0; tt < 16; ++tt) {
+              st_shared(at + tt * 32, dq[4 * tt], dq[4 * tt + 1]);
+              st_shared(at + 8 * kStgRow * 4 + tt * 32, dq[4 * tt + 2], dq[4 * tt + 3]);
+            }
+            if (t == 0) dq_meta[2 * stage + w] = make_int2(q0, h);
+            fence_async_smem();
+            mbar_arrive(&dq_full[2 * stage + w]);
           }
+        } else if constexpr (DQ) {
+          wgmma_wait<0>();
+          fence_regs(dq);
+          if (p.dq != nullptr) {
+            // Stage each part for the writer warp in the next buffer of the
+            // ring: a wait only when the ring is full.
+#pragma unroll
+            for (int c = 0; c < (D == 256 ? 2 : 1); ++c) {
+              const int buf = n_stg % nstg;
+              mbar_wait(&dq_empty[2 * w + buf], ((n_stg / nstg) & 1) ^ 1);
+              const uint32_t at = stg0 + buf * dq_stg_bytes<D>(w) + stg_at;
+#pragma unroll
+              for (int tt = 0; tt < (D == 160 ? 12 : 8); ++tt) {
+                if (D == 160 && w == 0 && tt >= 8) continue;
+                st_shared(at + tt * 32, dq[32 * c + 4 * tt], dq[32 * c + 4 * tt + 1]);
+                st_shared(at + 8 * dq_row<D>(w) * 4 + tt * 32, dq[32 * c + 4 * tt + 2],
+                          dq[32 * c + 4 * tt + 3]);
+              }
+              if (t == 0) dq_meta[2 * w + buf] = make_int2(q0, h);
+              fence_async_smem();
+              mbar_arrive(&dq_full[2 * w + buf]);
+              ++n_stg;
+            }
+          }
+        }
+        ++n_x;
+      }
+      if (L::STG && p.dq != nullptr) {  // end the writer's walk at the last record's stage
+        if (t == 0) dq_meta[2 * (n % S) + w] = make_int2(-1, -1);
+        mbar_arrive(&dq_full[2 * (n % S) + w]);
+      } else if (DQ && p.dq != nullptr) {  // end the writer's walk
+        const int buf = n_stg % nstg;
+        mbar_wait(&dq_empty[2 * w + buf], ((n_stg / nstg) & 1) ^ 1);
+        if (t == 0) dq_meta[2 * w + buf] = make_int2(-1, -1);
+        mbar_arrive(&dq_full[2 * w + buf]);
+      }
+    } else {
+      int n_dq = 0;   // steps with a dQ product: the dS buffer alternates with it
+      int n_stg = 0;  // 64 x 64 dQ parts staged: the staging handshake's phase
+      for (int n = 0;; ++n) {
+        const int stage = n % S;
+        mbar_wait(&full[stage], (n / S) & 1);
+        const int4 step = sStep[stage];
+        if (step.x < 0) break;
+        const int h = hk * p.group + step.x, q0 = step.y * BM;
+        const bool vis0 = step.z & kTake0, vis1 = step.z & kTake1;
+        const bool masked = step.z & (w ? kMask1 : kMask0);
+        const bool mine = w ? vis1 : vis0;  // uniform in the warpgroup
+        const uint32_t cQ = sQ + stage * L::QT, cdO = sdO + stage * L::QT;
+        const uint32_t cdS = sdS + (n_dq & 1) * L::BOX;
+        // This thread's dS^T pair (row R, columns 8 tt + 2 t4, +1) of n-block
+        // tt sits at ds_at ^ (tt << 4) in the 128-byte swizzle (R & 7 == g8);
+        // row R + 8 is 1024 bytes on.
+        const uint32_t ds_at = cdS + (w * 64 + wq * 16 + g8) * 128 + (g8 << 4) + t4 * 4;
+        if (mine) {
+          float s[32], dp[32];
+          uint32_t pP[4][4], pS[4][4];  // bf16 P^T and dS^T: the A operands of dV and dK
+          // S^T = K Q^T (line 11) and dP^T = V dO^T (line 13): 64 kv rows x 64
+          // q columns, k over head_dim in the tiles' swizzled boxes.
+          const auto kv_desc = [&](uint32_t base, int kk) {
+            return sw128_desc(base + (kk >> 2) * L::BOX + rows_at + (kk & 3) * 32, 16);
+          };
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss_n64<0, 0>(s, kv_desc(sK, kk), kmajor_desc<D>(cQ, kk), kk > 0);
+          wgmma_commit();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss_n64<0, 0>(dp, kv_desc(sV, kk), kmajor_desc<D>(cdO, kk), kk > 0);
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs(s);
+
+          // P^T = exp2(S^T log2(e) - lse log2(e)); element i of n-block tt is
+          // kv row kv_a (i < 2) or kv_b, q column q0 + 8 tt + 2 t4 + (i & 1).
+          // A hidden element scores kHidden: P^T is exp(mask - lse), 1 on a row
+          // that sees no key. The kv ids are read from shared memory here, at
+          // row kv & (ROWS - 1) of the CTA's (k0 is a multiple of ROWS), so no
+          // id and no address of them stays live through the step: with either,
+          // ptxas serialised the fused SEG kernel's wgmma at 160.
+          const float* cl = sLse + stage * BM;
+          const float* cd = sDelta + stage * BM;
+          const int* cq = sQid + stage * BM;
+#pragma unroll
+          for (int tt = 0; tt < 8; ++tt) {
+            const int cc = tt * 8 + 2 * t4;
+            const float2 l2 = *reinterpret_cast<const float2*>(cl + cc);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              float x = s[4 * tt + i];
+              if (masked) {
+                bool v = visible(p, q0 + cc + (i & 1) + p.q_offset, i < 2 ? kv_a : kv_b);
+                if (SEG)
+                  v = v && cq[cc + (i & 1)] == sKvid[(i < 2 ? kv_a : kv_b) & (L::ROWS - 1)];
+                if (!v) x = kHidden;
+              }
+              s[4 * tt + i] = exp2f(fmaf(x, kLog2e, -((i & 1) ? l2.y : l2.x)));
+            }
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            pP[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+            pP[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+            pP[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+            pP[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+          }
+          // dV += P^T dO (line 12): k over the tile's 64 q rows.
+          wgmma_fence();
+          wgmma_rs_k64<D>(dv, pP, cdO);
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs(dp);
+
+          // dS^T = P^T o (dP^T - delta) (line 14), rounded to bf16.
+#pragma unroll
+          for (int tt = 0; tt < 8; ++tt) {
+            const float2 d2 = *reinterpret_cast<const float2*>(cd + tt * 8 + 2 * t4);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) dp[4 * tt + i] = s[4 * tt + i] * (dp[4 * tt + i] - ((i & 1) ? d2.y : d2.x));
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            pS[kk][0] = pack_bf16(dp[8 * kk], dp[8 * kk + 1]);
+            pS[kk][1] = pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
+            pS[kk][2] = pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
+            pS[kk][3] = pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
+          }
+          // dK += dS^T Q (line 16).
+          wgmma_fence();
+          wgmma_rs_k64<D>(dk, pS, cQ);
+          wgmma_commit();
+          if (DQ) {
+#pragma unroll
+            for (int tt = 0; tt < 8; ++tt) {
+              st_shared(ds_at ^ (tt << 4), pS[tt >> 1][(tt & 1) * 2]);
+              st_shared((ds_at ^ (tt << 4)) + 1024, pS[tt >> 1][(tt & 1) * 2 + 1]);
+            }
+          }
+          wgmma_wait<0>();  // dV and dK: P^T and dS^T are free
+          fence_regs(dv);
+          fence_regs(dk);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            fence_regs(pP[kk]);
+            fence_regs(pS[kk]);
+          }
+        }
+        mbar_arrive(&empty[stage]);  // this stage's Q, dO, lse, delta and ids are read
+        if (DQ && (vis0 || vis1)) {
+          // dQ_i += dS K_j (line 15) over the CTA's kv rows, both warpgroups:
+          // at D = 128 each takes a half of head_dim (its 64-column box of K)
+          // over the pair's 128 rows; at D = 64 each takes its own kv tile's
+          // 64 rows over the whole of head_dim, and both parts are added into
+          // dq. A hidden tile's dS rows are zeros.
+          if (!mine) {
+#pragma unroll
+            for (int tt = 0; tt < 8; ++tt) {
+              st_shared(ds_at ^ (tt << 4), 0u);
+              st_shared((ds_at ^ (tt << 4)) + 1024, 0u);
+            }
+          }
+          fence_async_smem();
+          named_sync(1, kConsumers);  // both tiles' dS are in the buffer
+          float dq[32];
+          const uint32_t dsA = cdS + (D == 64 ? w * 8192 : 0);
+          const uint32_t kB = sK + w * (D == 128 ? 16384 : 8192);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < (D == 128 ? 8 : 4); ++kk)
+            wgmma_ss_n64<1, 1>(dq, sw128_desc(dsA + kk * 2048, 8192),
+                               sw128_desc(kB + kk * 2048, 8192), kk > 0);
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(dq);
           if (p.dq != nullptr) {
-            // Stage this warpgroup's 64 x 64 (tail: 64 x 32) f32 part for its
-            // writer warp.
+            // Stage this warpgroup's 64 x 64 f32 part for its writer warp.
             mbar_wait(&dq_empty[w], (n_stg & 1) ^ 1);
             const uint32_t at = stg + ((wq * 16 + g8) * kDqRow + 2 * t4) * 4;
 #pragma unroll
             for (int tt = 0; tt < 8; ++tt) {
-              if (tail && tt >= 4) continue;
               st_shared(at + tt * 32, dq[4 * tt], dq[4 * tt + 1]);
               st_shared(at + 8 * kDqRow * 4 + tt * 32, dq[4 * tt + 2], dq[4 * tt + 3]);
             }
@@ -1041,22 +1377,23 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
             mbar_arrive(&dq_full[w]);
           }
           ++n_stg;
+          ++n_dq;
         }
-        ++n_dq;
+      }
+      if (DQ && p.dq != nullptr) {  // end the writer's walk
+        mbar_wait(&dq_empty[w], (n_stg & 1) ^ 1);
+        if (t == 0) dq_meta[w] = make_int2(-1, -1);
+        mbar_arrive(&dq_full[w]);
       }
     }
-    if (DQ && p.dq != nullptr) {  // end the writer's walk
-      mbar_wait(&dq_empty[w], (n_stg & 1) ^ 1);
-      if (t == 0) dq_meta[w] = make_int2(-1, -1);
-      mbar_arrive(&dq_full[w]);
-    }
 
-    // dK and dV of the tile, summed over the group's q heads: written once
+    // dK and dV of the tile, summed over the CTA's q heads: written once
     // (HALF: each warpgroup its columns; at 160 n-block tt of warpgroup 0
-    // is box 0's for tt < 8, then the tail's).
+    // is box 0's for tt < 8, then the tail's; with hs shares a partial of
+    // Hkv * hs heads, the CTA's at hk * hs + sp).
     if (w == 0 || has1 || HALF) {
-      const long long rs = static_cast<long long>(p.Hkv) * D;
-      const long long base = static_cast<long long>(b) * p.Skv * rs + hk * D + 2 * t4;
+      const long long rs = static_cast<long long>(p.Hkv) * hs * D;
+      const long long base = static_cast<long long>(b) * p.Skv * rs + (hk * hs + sp) * D + 2 * t4;
       const int n_tt = D == 160 && w ? 8 : DC / 8;
 #pragma unroll
       for (int tt = 0; tt < DC / 8; ++tt) {
@@ -1086,6 +1423,43 @@ template <int D, bool SEG, bool DENSE>
 __global__ void __launch_bounds__(kKvThreads, 1)
     fa2_bwd_dkv_kernel(const BwdParams p, const __grid_constant__ BwdMaps maps) {
   kv_stationary<D, false, SEG, DENSE>(p, maps);
+}
+
+// ------------------------------------------------------------- group sum
+
+// fa2_bwd_group_sum_kernel replaces no TPU kernel. It is the second pass of
+// the KV-stationary kernels at 160 and 256 where their grid splits a
+// group's q heads over several CTAs (hsplit, chosen by the wrapper where a
+// CTA a kv tile would leave the card short of work): each CTA wrote the dK
+// and dV of its heads into f32 partials (B, Skv, Hkv * hsplit, D), and this
+// pass adds each kv head's hsplit partials in a fixed order, 0 first, into
+// dk and dv (B, Skv, Hkv, D): no atomics, so dK and dV stay bitwise the
+// same from launch to launch. It reads the partials once and writes the
+// sums once, so it is bound by HBM: 16-byte loads (streaming: the partials
+// are dead after it) and stores, a thread a 4-float piece of an output row,
+// the same piece of its hsplit partial rows (D * 4 bytes apart) summed in
+// registers; blockIdx.y picks dK or dV. 32-bit indices (the entry refuses
+// more than 2^31 pieces): a 64-bit division is a call ptxas gives a stack.
+constexpr int kSumThreads = 256;
+
+__global__ void __launch_bounds__(kSumThreads) fa2_bwd_group_sum_kernel(
+    const float* part_k, const float* part_v, float* dk, float* dv, int n4, int d4,
+    int hsplit) {
+  const float4* part = reinterpret_cast<const float4*>(blockIdx.y ? part_v : part_k);
+  float4* out = reinterpret_cast<float4*>(blockIdx.y ? dv : dk);
+  for (int i = blockIdx.x * kSumThreads + threadIdx.x; i < n4; i += gridDim.x * kSumThreads) {
+    const int r = i / d4;
+    const float4* src = part + static_cast<long long>(r) * hsplit * d4 + (i - r * d4);
+    float4 a = __ldcs(src);
+    for (int x = 1; x < hsplit; ++x) {
+      const float4 y = __ldcs(src + x * d4);
+      a.x += y.x;
+      a.y += y.y;
+      a.z += y.z;
+      a.w += y.w;
+    }
+    out[i] = a;
+  }
 }
 
 
@@ -1481,6 +1855,7 @@ BwdParams bwd_params(const void* q, const void* k, const void* v, const void* do
   p.kv_seg = static_cast<const int*>(kv_seg);
   p.bits = static_cast<const int*>(bits);
   p.q_seg_sb = q_seg_sb; p.kv_seg_sb = kv_seg_sb; p.n_vis = n_vis;
+  p.hgroup = p.group;
   return p;
 }
 
@@ -1490,6 +1865,13 @@ BwdParams bwd_params(const void* q, const void* k, const void* v, const void* do
 bool schedule_args_ok(const BwdParams& p, int dense) {
   if (dense) return p.table == nullptr && p.bits == nullptr;
   return p.table != nullptr && (p.q_seg == nullptr || p.bits != nullptr);
+}
+
+// Whether the KV-stationary kernels take a split of the group's q heads
+// into hsplit shares: whole shares, and more than one only at 160 and 256.
+bool head_split_ok(int hsplit, int group, int head_dim) {
+  return hsplit >= 1 && group % hsplit == 0 &&
+         (hsplit == 1 || head_dim == 160 || head_dim == 256);
 }
 
 
@@ -1507,19 +1889,22 @@ bool make_maps(BwdMaps* maps, const BwdParams& p, int batch, int D, int kv_rows)
 }
 
 // The KV-stationary kernels (fused: DQ) of one (D, SEG, DENSE): one CTA
-// per (pair of kv tiles, batch * kv head).
+// per (pair of kv tiles, or one at 160 and 256, batch * kv head * share of
+// the group's q heads).
 template <int D, bool DQ, bool SEG, bool DENSE>
 cudaError_t launch_kv(const BwdParams& p, int batch, int t_kv, void* stream) {
   BwdMaps maps;
   if (!make_maps(&maps, p, batch, D, kv_rows<D>())) return cudaErrorInvalidValue;
   auto kernel = DQ ? fa2_bwd_fused_kernel<D, SEG, DENSE> : fa2_bwd_dkv_kernel<D, SEG, DENSE>;
-  const size_t smem = KvSmem<D, DQ>::BYTES + 1024;  // + the 1024-byte alignment of the base
+  const size_t smem = KvSmem<D, DQ, DENSE>::BYTES + 1024;  // + the alignment of the base
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int ctas = kv_rows<D>() == kBlockN ? t_kv : (t_kv + 1) / 2;  // a tile (160, 256) or a pair
-  kernel<<<dim3(batch * p.Hkv, ctas), kKvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, maps);
+  const dim3 grid = kv_rows<D>() == kBlockN ? dim3(batch * p.Hkv, p.group / p.hgroup, ctas)
+                                            : dim3(batch * p.Hkv, ctas);
+  kernel<<<grid, kKvThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(p, maps);
   return cudaGetLastError();
 }
 
@@ -1626,7 +2011,7 @@ extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, c
                                   long long d_ss, long long d_sh, int batch, int Hq, int Hkv,
                                   int Sq, int Skv, int head_dim, int block_q, int block_kv,
                                   int causal, int window, int sink, int q_offset, int t_kv,
-                                  int dense, const void* q_seg, const void* kv_seg,
+                                  int dense, int hsplit, const void* q_seg, const void* kv_seg,
                                   long long q_seg_sb, long long kv_seg_sb, const void* bits,
                                   int n_vis, void* stream) {
   if (!kernel_shape_ok(head_dim, block_q, block_kv)) return cudaErrorInvalidValue;
@@ -1638,7 +2023,9 @@ extern "C" int fa2_bwd_fused_bf16(const void* q, const void* k, const void* v, c
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
   p.t_kv = t_kv;
-  if (!schedule_args_ok(p, dense)) return cudaErrorInvalidValue;
+  if (!schedule_args_ok(p, dense) || !head_split_ok(hsplit, p.group, head_dim))
+    return cudaErrorInvalidValue;
+  p.hgroup = p.group / hsplit;
   return dispatch_kv_by_dim<true>(p, batch, t_kv, head_dim, q_seg != nullptr, dense != 0,
                                   stream);
 }
@@ -1650,9 +2037,9 @@ extern "C" int fa2_bwd_dkv_bf16(const void* q, const void* k, const void* v, con
                                 long long v_ss, long long v_sh, long long d_sb, long long d_ss,
                                 long long d_sh, int batch, int Hq, int Hkv, int Sq, int Skv,
                                 int head_dim, int block_q, int block_kv, int causal, int window,
-                                int sink, int q_offset, int t_kv, int dense, const void* q_seg,
-                                const void* kv_seg, long long q_seg_sb, long long kv_seg_sb,
-                                const void* bits, int n_vis, void* stream) {
+                                int sink, int q_offset, int t_kv, int dense, int hsplit,
+                                const void* q_seg, const void* kv_seg, long long q_seg_sb,
+                                long long kv_seg_sb, const void* bits, int n_vis, void* stream) {
   if (!kernel_shape_ok(head_dim, block_q, block_kv)) return cudaErrorInvalidValue;
   BwdParams p = bwd_params(q, k, v, dout, lse, delta, table, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh, d_sb, d_ss, d_sh, Hq, Hkv, Sq, Skv, causal, window,
@@ -1661,7 +2048,9 @@ extern "C" int fa2_bwd_dkv_bf16(const void* q, const void* k, const void* v, con
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
   p.t_kv = t_kv;
-  if (!schedule_args_ok(p, dense)) return cudaErrorInvalidValue;
+  if (!schedule_args_ok(p, dense) || !head_split_ok(hsplit, p.group, head_dim))
+    return cudaErrorInvalidValue;
+  p.hgroup = p.group / hsplit;
   return dispatch_kv_by_dim<false>(p, batch, t_kv, head_dim, q_seg != nullptr, dense != 0,
                                    stream);
 }
@@ -1690,4 +2079,22 @@ extern "C" int fa2_bwd_dq_bf16(const void* q, const void* k, const void* v, cons
          : head_dim == 160 ? dispatch_dq<160>(p, batch, seg, dense != 0, stream)
          : head_dim == 256 ? dispatch_dq<256>(p, batch, seg, dense != 0, stream)
                            : cudaErrorInvalidValue;
+}
+
+// dk, dv (rows x head_dim f32) = the sums of part_k, part_v (rows x hsplit x
+// head_dim f32, contiguous) over their hsplit partials, in order.
+extern "C" int fa2_bwd_group_sum_f32(const void* part_k, const void* part_v, void* dk, void* dv,
+                                     long long rows, int hsplit, int head_dim, void* stream) {
+  const int d4 = head_dim / 4;
+  const long long n4 = rows * d4;
+  if (hsplit < 1 || head_dim % 4 != 0 || rows < 0 || n4 > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if (n4 == 0) return cudaSuccess;
+  // Enough CTAs for 8 a streaming multiprocessor, each over whole strides.
+  const long long blocks = (n4 + kSumThreads - 1) / kSumThreads;
+  const dim3 grid(static_cast<unsigned>(blocks < 132 * 8 ? blocks : 132 * 8), 2);
+  fa2_bwd_group_sum_kernel<<<grid, kSumThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part_k), static_cast<const float*>(part_v),
+      static_cast<float*>(dk), static_cast<float*>(dv), static_cast<int>(n4), d4, hsplit);
+  return cudaGetLastError();
 }

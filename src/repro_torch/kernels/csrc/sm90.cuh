@@ -202,6 +202,44 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
   return sw64_desc(tile + (D / 64) * 8192 + (kk - D / 64 * 4) * 32, 16);
 }
 
+// The K-major descriptor of k-step kk of rows [32 h, 32 h + 32) of such a
+// tile (h = 0, 1): the n32 operand B of a product over half of its rows.
+// The rows start 4096 bytes into a 128-byte-swizzled box and 2048 into the
+// tail box, whole swizzle atoms of either.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc_half(uint32_t tile, int kk, int h) {
+  if (D % 64 == 0 || kk < D / 64 * 4)
+    return sw128_desc(tile + h * 4096 + (kk >> 2) * 8192 + (kk & 3) * 32, 16);
+  return sw64_desc(tile + (D / 64) * 8192 + h * 2048 + (kk - D / 64 * 4) * 32, 16);
+}
+
+// d (64 x 128 f32) (+)= A (64 x 16, shared) * B (16 x 128, shared); TA/TB: MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // d (64 x 64 f32) (+)= A (64 x 16, shared) * B (16 x 64, shared); TA/TB: MN-major.
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
@@ -322,16 +360,6 @@ __device__ __forceinline__ void wgmma_rs_k64(float (&d)[D / 2], const uint32_t (
       wgmma_rs_n64<1>(d, a[kk], sw128_desc(b + kk * 2048, 8192), 1);
     }
   }
-}
-
-// d (64 x 32 f32) += A (64 x 64 bf16: four k-steps of register fragments) *
-// B (64 x 32: the tail box of a head_dim-160 tile at shared address b,
-// 64 rows x 64 bytes, 64-byte swizzled, MN-major): the n32 half of
-// wgmma_rs_k64<160>, for a warpgroup that holds the tail columns alone.
-__device__ __forceinline__ void wgmma_rs_k64_tail(float (&d)[16], const uint32_t (&a)[4][4],
-                                                  uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n32(d, a[kk], sw64_desc(b + kk * 1024, 4096));
 }
 
 // The min and max of (lo, hi) over the 32 lanes of a warp.

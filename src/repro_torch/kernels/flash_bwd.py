@@ -26,8 +26,12 @@ atomics: a CTA owns a pair of kv tiles (one at head_dim 160 and 256, whose
 columns its two warpgroups split) and walks the G q heads that share
 them and, per head, the union of the two tiles' visible q tiles
 (``schedule.build_kv_tile_schedule``, ``schedule.pair_walk``), on wgmma with
-TMA loads. The sums in dq come in no fixed order, so dq is not bitwise
-reproducible from run to run; it is held to ``allclose``. The split kernels write every output element exactly once,
+TMA loads. At 160 and 256, where :func:`kv_head_split` finds a CTA a kv
+tile short of the card, the G heads are split over CTAs, each writing f32
+dK/dV partials into scratch that :func:`flash_bwd_group_sum`, a kernel that
+replaces no TPU kernel, adds in a fixed order: still no atomics. The sums
+in dq come in no fixed order, so dq is not bitwise reproducible from run
+to run; it is held to ``allclose``. The split kernels write every output element exactly once,
 zeros included where a tile sees nothing, so their outputs need no
 zeroing. The sources are ``csrc/flash_bwd.cu``; its header says what
 bounds each kernel on an H100 and how the design answers.
@@ -73,6 +77,7 @@ import ctypes
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -81,7 +86,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_fwd import (_check_kernel_inputs, _check_layout, _tiles, _Walk,
                                            check_segments, count_head_dim, count_launch,
                                            segment_args)
-from repro_torch.kernels.schedule import check_schedule, device_schedule
+from repro_torch.kernels.schedule import build_kv_tile_schedule, check_schedule, device_schedule
 
 # Head dims the backward kernels are instantiated for: 128 (qwen3), 64
 # (whisper-base, the gpt presets), 160 (stablelm-12b) and 256 (gemma3-1b),
@@ -90,6 +95,41 @@ from repro_torch.kernels.schedule import check_schedule, device_schedule
 # head_dim-64, 160 and 256 launches apart (``hd64_launches``,
 # ``hd160_launches``, ``hd256_launches``: subsets of its other counts).
 KERNEL_HEAD_DIMS = (64, 128, 160, 256)
+
+# Streaming multiprocessors of an H100: the card whose grid the head split
+# below fills.
+SMS = 132
+
+
+def kv_head_split(spec: MaskSpec, B: int, Sq: int, Skv: int, Hq: int, Hkv: int, D: int,
+                  block_q: int, block_kv: int) -> int:
+    """How many CTAs a kv tile the KV-stationary kernels (fused, dK/dV)
+    take: 1, or at head_dim 160 and 256 (one kv tile a CTA) the group's
+    size G, one q head a CTA, each writing f32 dK/dV partials that
+    :func:`flash_bwd_group_sum` adds in a fixed order. A fixed rule of the
+    shape and mask, never of the schedule or the segment ids (so dense,
+    compact and segment kernels, fused and dK/dV, split alike and stay
+    bitwise comparable): split where the plain grid, B * Hkv * t_kv CTAs,
+    is under two waves of the card's SMs and its longest walk (G times the
+    most visible q tiles of a kv tile) exceeds 1.5 times the balanced share
+    of the steps (all of them over the SMs). gemma3-1b's causal training
+    shape (128 CTAs, walks of 4 to 128 steps) splits; its 512 window (128
+    even walks) and stablelm-12b's (512 CTAs) do not."""
+    G = Hq // Hkv
+    t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
+    if D not in (160, 256) or G == 1 or B * Hkv * t_kv >= 2 * SMS:
+        return 1
+    steps = np.diff(build_kv_tile_schedule(spec, t_q, t_kv, block_q, block_kv, Skv).row_ptr)
+    total = B * Hkv * G * int(steps.sum())
+    return G if total and G * int(steps.max()) * SMS > 1.5 * total else 1
+
+
+def kv_grid(B: int, Hkv: int, Skv: int, D: int, block_kv: int, hsplit: int) -> tuple:
+    """The KV-stationary kernels' launch grid (``launch_kv`` in
+    csrc/flash_bwd.cu): (B * Hkv, hsplit, t_kv) at head_dim 160 and 256,
+    one kv tile a CTA; (B * Hkv, pairs of kv tiles, 1) at 64 and 128."""
+    t_kv = _tiles(Skv, block_kv)
+    return (B * Hkv, hsplit, t_kv) if D in (160, 256) else (B * Hkv, -(-t_kv // 2), 1)
 
 
 def _count(wrapper, schedule: str, head_dim: int) -> None:
@@ -277,13 +317,8 @@ def _dkv(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv, sc
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, spec,
                                    **_plain_kw(segments, block_q, block_kv, schedule))
     _check_device(wrapper.__name__, q)
-    # lse, delta and ``held`` (segment ids, step bits) stay alive until the launch.
-    lse, delta = lse.contiguous(), delta.contiguous()
-    args, held = _kernel_args("the CUDA dK/dV kernel", q, k, v, do, lse, delta, spec, block_q,
-                              block_kv, segments, q_major=False, schedule=schedule)
-    dk, dv = _empty_dkv(q, k)
-    err = _lib().fa2_bwd_dkv_bf16(*args[:6], dk.data_ptr(), dv.data_ptr(), *args[6:])
-    _build.check(err, "fa2_bwd_dkv_bf16")
+    dk, dv = _launch_kv(False, q, k, v, do, lse, delta, spec, block_q, block_kv, None, segments,
+                        schedule)
     _count(wrapper, schedule, q.shape[3])
     return dk, dv
 
@@ -308,35 +343,112 @@ def _dq(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv, sch
 
 
 def _launch_fused(q, k, v, do, lse, delta, spec, block_q, block_kv, dq, segments=None,
-                  schedule="compact"):
+                  schedule="compact", hsplit=None):
     """Launch the fused kernel; returns (dk, dv). ``dq`` None launches the
     timing variant that computes dS K but skips its staging and bulk
-    reduction into dq."""
+    reduction into dq. ``hsplit`` None: :func:`kv_head_split`'s."""
+    return _launch_kv(True, q, k, v, do, lse, delta, spec, block_q, block_kv, dq, segments,
+                      schedule, hsplit)
+
+
+def _launch_kv(fused, q, k, v, do, lse, delta, spec, block_q, block_kv, dq, segments, schedule,
+               hsplit=None):
+    """Launch the fused (``fused``: adding into ``dq``, or None) or the
+    dK/dV kernel; returns (dk, dv). With a head split (``hsplit`` > 1;
+    None: :func:`kv_head_split`'s) the kernel writes f32 partials (B, Skv,
+    Hkv * hsplit, D) into scratch, which :func:`flash_bwd_group_sum` adds
+    into dk and dv."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if hsplit is None:
+        hsplit = kv_head_split(spec, B, Sq, Skv, Hq, Hkv, D, block_q, block_kv)
+    what = "the CUDA fused backward" if fused else "the CUDA dK/dV kernel"
     # lse, delta and ``held`` (segment ids, step bits) stay alive until the launch.
     lse, delta = lse.contiguous(), delta.contiguous()
-    args, held = _kernel_args("the CUDA fused backward", q, k, v, do, lse, delta, spec,
-                              block_q, block_kv, segments, q_major=False, schedule=schedule)
-    dk, dv = _empty_dkv(q, k)
-    err = _lib().fa2_bwd_fused_bf16(*args[:6], None if dq is None else dq.data_ptr(),
-                                    dk.data_ptr(), dv.data_ptr(), *args[6:])
-    _build.check(err, "fa2_bwd_fused_bf16")
+    args, held = _kernel_args(what, q, k, v, do, lse, delta, spec, block_q, block_kv, segments,
+                              q_major=False, schedule=schedule, hsplit=hsplit)
+    dk, dv = _empty_dkv(q, k, hsplit)
+    if fused:
+        err = _lib().fa2_bwd_fused_bf16(*args[:6], None if dq is None else dq.data_ptr(),
+                                        dk.data_ptr(), dv.data_ptr(), *args[6:])
+        _build.check(err, "fa2_bwd_fused_bf16")
+    else:
+        err = _lib().fa2_bwd_dkv_bf16(*args[:6], dk.data_ptr(), dv.data_ptr(), *args[6:])
+        _build.check(err, "fa2_bwd_dkv_bf16")
+    return (dk, dv) if hsplit == 1 else flash_bwd_group_sum(dk, dv, Hkv)
+
+
+def _empty_dkv(q, k, hsplit=1):
+    """dk and dv (B, Skv, Hkv, D) f32, or with a head split their partials
+    (B, Skv, Hkv * hsplit, D), the two halves of one scratch buffer:
+    written once by the kernel, zeros where a kv tile sees no q row of the
+    CTA's heads."""
+    B, Skv, Hkv, D = k.shape
+    if hsplit == 1:
+        dk = torch.empty((B, Skv, Hkv, D), dtype=torch.float32, device=q.device)
+        return dk, torch.empty_like(dk)
+    parts = torch.empty((2, B, Skv, Hkv * hsplit, D), dtype=torch.float32, device=q.device)
+    return parts[0], parts[1]
+
+
+def flash_bwd_group_sum(part_k, part_v, hkv: int):
+    """dk, dv (B, Skv, hkv, D) f32: each kv head's partials of a head split,
+    ``part_k``, ``part_v`` (B, Skv, hkv * hsplit, D) f32, added in order
+    (partial 0 first). A kernel that replaces no TPU kernel: the TPU's
+    sequential grid sums a kv tile's q heads in one VMEM block; the Hopper
+    grid splits them over CTAs where that fills the card
+    (:func:`kv_head_split`)."""
+    B, Skv, H, D = part_k.shape
+    if part_v.shape != part_k.shape or H % hkv or part_k.dtype != torch.float32:
+        raise ValueError(f"want f32 partials (B, Skv, {hkv} * hsplit, D) twice; got "
+                         f"{part_k.dtype} {tuple(part_k.shape)}, {tuple(part_v.shape)}")
+    if part_k.device.type == "cpu":
+        return flash_bwd_group_sum_plain(part_k, part_v, hkv)
+    _check_device("flash_bwd_group_sum", part_k)
+    if not (part_k.is_contiguous() and part_v.is_contiguous()) or D % 4:
+        raise ValueError("the group sum takes contiguous partials of a head_dim divisible by 4")
+    dk = torch.empty((B, Skv, hkv, D), dtype=torch.float32, device=part_k.device)
+    dv = torch.empty_like(dk)
+    err = _lib().fa2_bwd_group_sum_f32(part_k.data_ptr(), part_v.data_ptr(), dk.data_ptr(),
+                                       dv.data_ptr(), B * Skv * hkv, H // hkv, D,
+                                       _stream(part_k))
+    _build.check(err, "fa2_bwd_group_sum_f32")
+    _count(flash_bwd_group_sum, "compact", D)
     return dk, dv
 
 
-def _empty_dkv(q, k):
-    # Written once by the kernel, zeros where a kv tile sees no q row.
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    return dk, torch.empty_like(dk)
+flash_bwd_group_sum.launches = 0  # kernel launches (CUDA tensors only)
+flash_bwd_group_sum.hd160_launches = 0  # of which at head_dim 160
+flash_bwd_group_sum.hd256_launches = 0  # of which at head_dim 256
+
+
+def flash_bwd_group_sum_plain(part_k, part_v, hkv: int):
+    """The group sum in plain PyTorch: the same f32 adds in the same order,
+    so the same result to the bit."""
+    flash_bwd_group_sum_plain.calls += 1
+    out = []
+    for part in (part_k, part_v):
+        B, Skv, H, D = part.shape
+        x = part.reshape(B, Skv, hkv, H // hkv, D)
+        acc = x[:, :, :, 0].clone()
+        for i in range(1, H // hkv):
+            acc = acc + x[:, :, :, i]
+        out.append(acc)
+    return tuple(out)
+
+
+flash_bwd_group_sum_plain.calls = 0
 
 
 def _kernel_args(what, q, k, v, do, lse, delta, spec, block_q, block_kv, segments, *,
-                 q_major: bool, schedule: str):
+                 q_major: bool, schedule: str, hsplit: int = 1):
     """Check what the kernels take and build the arguments of a C entry
     around its outputs: the six input pointers, then the table (none for
     the dense schedule), strides, sizes, tiles, mask, owner-tile count,
-    dense flag, segment arguments and stream. ``lse`` and ``delta`` must
-    be contiguous (the caller holds them until the launch). Returns
-    (arguments, tensors to hold until the launch)."""
+    dense flag, the KV-stationary kernels' head split (``hsplit``), segment
+    arguments and stream. ``lse`` and ``delta`` must be contiguous (the
+    caller holds them until the launch). Returns (arguments, tensors to
+    hold until the launch)."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     _check_kernel_inputs(what, (block_q, block_kv), KERNEL_HEAD_DIMS, q=q, k=k, v=v, do=do)
@@ -347,6 +459,10 @@ def _kernel_args(what, q, k, v, do, lse, delta, spec, block_q, block_kv, segment
     t_q, t_kv = _tiles(Sq, block_q), _tiles(Skv, block_kv)
     if not q_major and t_kv > 65535:
         raise ValueError("kv tiles exceed the grid's y limit (65535)")
+    if hsplit != 1 and (q_major or D not in (160, 256) or (Hq // Hkv) % hsplit):
+        raise ValueError(f"a head split of {hsplit} is taken by the KV-stationary kernels at "
+                         f"head_dim 160 and 256 in whole shares of the group ({Hq // Hkv}); "
+                         f"got head_dim {D}")
     dense = schedule == "dense"
     sched = None if dense else device_schedule(spec, t_q, t_kv, block_q, block_kv, Skv,
                                                not q_major, str(q.device))
@@ -357,8 +473,8 @@ def _kernel_args(what, q, k, v, do, lse, delta, spec, block_q, block_kv, segment
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         B, Hq, Hkv, Sq, Skv, D, block_q, block_kv,
         int(spec.causal), -1 if spec.window is None else int(spec.window),
-        int(spec.sink), int(spec.q_offset), t_q if q_major else t_kv, int(dense), *seg.args,
-        _stream(q),
+        int(spec.sink), int(spec.q_offset), t_q if q_major else t_kv, int(dense),
+        *(() if q_major else (hsplit,)), *seg.args, _stream(q),
     ), seg.keep
 
 
@@ -368,11 +484,12 @@ def _lib():
     P, I, L = _build.VOIDP, _build.INT, _build.I64
     lib.fa2_bwd_delta_bf16.argtypes = [P] * 3 + [L] * 6 + [I] * 4 + [P]
     seg = [P, P, L, L, P, I]  # q ids, kv ids, their batch strides, step bits, steps
-    lib.fa2_bwd_fused_bf16.argtypes = [P] * 10 + [L] * 12 + [I] * 14 + seg + [P]
-    lib.fa2_bwd_dkv_bf16.argtypes = [P] * 9 + [L] * 12 + [I] * 14 + seg + [P]
+    lib.fa2_bwd_fused_bf16.argtypes = [P] * 10 + [L] * 12 + [I] * 15 + seg + [P]
+    lib.fa2_bwd_dkv_bf16.argtypes = [P] * 9 + [L] * 12 + [I] * 15 + seg + [P]
     lib.fa2_bwd_dq_bf16.argtypes = [P] * 8 + [L] * 12 + [I] * 14 + seg + [P]
+    lib.fa2_bwd_group_sum_f32.argtypes = [P] * 4 + [L, I, I, P]
     for fn in (lib.fa2_bwd_delta_bf16, lib.fa2_bwd_fused_bf16, lib.fa2_bwd_dkv_bf16,
-               lib.fa2_bwd_dq_bf16):
+               lib.fa2_bwd_dq_bf16, lib.fa2_bwd_group_sum_f32):
         fn.restype = ctypes.c_int
     return lib
 

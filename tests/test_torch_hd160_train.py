@@ -200,7 +200,7 @@ def test_stablelm_three_train_steps_at_head_dim_160_match_jax(stablelm, jax_trac
         assert moved > 0 and apart <= PACKED_MOVE_TOL * moved, (name, apart, moved)
 
 
-def test_segment_and_dense_modes_refuse_head_dim_160_before_the_launch(monkeypatch):
+def test_every_mode_passes_the_launch_checks_at_head_dim_160_and_only_96_is_refused(monkeypatch):
     """Every mode of the kernels is built at 160: the backward wrappers'
     checks before the launch pass on the compact and the dense schedule,
     without and with segments, and build the C entry's arguments (with no
@@ -245,7 +245,7 @@ def test_segment_and_dense_modes_refuse_head_dim_160_before_the_launch(monkeypat
 @pytest.mark.parametrize("D_", [16, 64, 128, 160, 256])
 @pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv", [(1, 64, 1536, 32, 8), (1, 1, 2048, 4, 1),
                                               (2, 48, 700, 8, 8)])
-def test_auto_kv_splits_are_one_where_no_split_kv_kernel_is_built(B, Sq, Skv, Hq, Hkv, D_):
+def test_auto_kv_splits_follow_default_kv_splits_at_every_head_dim(B, Sq, Skv, Hq, Hkv, D_):
     """``resolve_kv_splits(None, ...)`` of a short q against a long kv is
     the policy of ``default_kv_splits`` at every head dim (16: the CPU
     tests'; 64, 128, 160 and 256: the card's, where the split-KV kernel is
@@ -260,7 +260,7 @@ def test_auto_kv_splits_are_one_where_no_split_kv_kernel_is_built(B, Sq, Skv, Hq
 
 
 @pytest.mark.parametrize("D_", [160, 256])
-def test_default_flash_attention_at_head_dims_160_and_256_takes_one_split(D_):
+def test_default_flash_attention_at_head_dims_160_and_256_takes_the_auto_split(D_):
     """The CPU path of a default ``ops.flash_attention`` of a short q
     against 5 kv tiles at 160 and 256 takes the auto split (5, one kv tile
     a split) through the split-KV plain version, as the card takes the

@@ -210,7 +210,7 @@ def test_gemma3_three_train_steps_at_head_dim_256_match_jax(gemma3, jax_trace_st
         assert moved > 0 and apart <= PACKED_MOVE_TOL * moved, (name, apart, moved)
 
 
-def test_segment_and_dense_modes_refuse_head_dim_256_before_the_launch(monkeypatch):
+def test_every_mode_passes_the_launch_checks_at_head_dim_256_and_only_96_is_refused(monkeypatch):
     """Every mode of the kernels is built at 256: the backward wrappers'
     checks before the launch pass on the compact and the dense schedule,
     without and with segments, and build the C entry's arguments (with no

@@ -479,6 +479,86 @@ def _check_dense_modes(cuda, D):
         (n + 1, d + 1, w + 2) for n, d, w in before]
 
 
+# The head split at 160 and 256 (``flash_bwd.kv_head_split``), (B, Sq, Skv,
+# Hq, Hkv, spec): an odd number of kv tiles with Skv not a multiple of 64
+# (700), a causal chunk of 300 q rows at the end of 700 keys (q_offset 400),
+# gemma3's 512 window at its training length (most of a CTA's q heads'
+# steps hidden), q_offset -100 (rows that see no key), G 4 at stablelm's
+# grouping, and G 1 (no split to take).
+SPLIT_CASES = [
+    (1, 700, 700, 4, 1, dict(causal=True)),
+    (2, 300, 700, 4, 1, dict(causal=True, q_offset=400)),
+    (1, 2048, 2048, 4, 1, dict(causal=True, window=512)),
+    (1, 300, 300, 4, 1, dict(causal=True, q_offset=-100)),
+    (1, 333, 333, 32, 8, dict(causal=True)),
+    (2, 333, 333, 4, 4, dict(causal=True)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [256, 160])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,spec", SPLIT_CASES)
+def test_head_split_layout_against_the_plain_grid(cuda, B, Sq, Skv, Hq, Hkv, spec, D):
+    """The fused and dK/dV kernels with the group's q heads split one a CTA
+    (the partials summed by the group-sum kernel) and on the plain grid, in
+    every mode (compact and dense, without and with segments): each against
+    the plain version; dK and dV of the two layouts equal up to the group
+    sum's order; within a layout, split dK/dV bitwise the fused kernel's
+    and bitwise over two launches; one group-sum launch a split launch and
+    none on the plain grid."""
+    spec = MaskSpec(**spec)
+    args = (*_bwd_inputs(cuda, B, Sq, Hq, Hkv, spec, D=D, Skv=Skv), spec)
+    G = Hq // Hkv
+    q_ids = torch.ones((B, Sq), dtype=torch.int32, device=cuda)
+    kv_ids = torch.ones((B, Skv), dtype=torch.int32, device=cuda)
+    q_ids[:, Sq // 3:] = 2  # two documents: steps that need the element mask
+    kv_ids[:, Skv // 3:] = 2
+    want = {seg: bwd_mod.flash_bwd_fused_plain(*args, block_q=64, block_kv=64,
+                                               **(dict(q_seg=q_ids, kv_seg=kv_ids) if seg else {}))
+            for seg in (False, True)}
+    for seg in (False, True):
+        for schedule in ("compact", "dense"):
+            segments = (q_ids, kv_ids) if seg else None
+            got = {}
+            for hsplit in ((1, G) if G > 1 else (1,)):
+                before = bwd_mod.flash_bwd_group_sum.launches
+                dq = torch.zeros(args[0].shape, dtype=torch.float32, device=cuda)
+                fused = bwd_mod._launch_kv(True, *args, 64, 64, dq, segments, schedule, hsplit)
+                dkv = [bwd_mod._launch_kv(False, *args, 64, 64, None, segments, schedule, hsplit)
+                       for _ in range(2)]
+                torch.cuda.synchronize()
+                assert bwd_mod.flash_bwd_group_sum.launches == before + (3 if hsplit > 1 else 0)
+                for name, a, b in zip(("dq", "dk", "dv"), (dq, *fused), want[seg]):
+                    assert torch.isfinite(a).all(), name
+                    assert _rel_err(a, b) < GRAD_REL_TOL, (name, hsplit, schedule, seg)
+                for dk, dv in dkv:
+                    assert torch.equal(dk, fused[0]) and torch.equal(dv, fused[1])
+                got[hsplit] = fused
+            if G > 1:
+                for a, b in zip(got[1], got[G]):
+                    assert _rel_err(a, b) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [256, 160])
+@pytest.mark.parametrize("G", [2, 4])
+def test_group_sum_kernel_matches_plain(cuda, G, D):
+    """The group-sum kernel against its plain version: the same f32 adds in
+    the same order, so bitwise; at (B, Skv, Hkv) = (2, 700, 3)."""
+    gen = torch.Generator(device=cuda).manual_seed(G)
+    pk, pv = (torch.randn((2, 700, 3 * G, D), generator=gen, device=cuda) for _ in range(2))
+    before = (bwd_mod.flash_bwd_group_sum.launches,
+              getattr(bwd_mod.flash_bwd_group_sum, f"hd{D}_launches"))
+    dk, dv = bwd_mod.flash_bwd_group_sum(pk, pv, 3)
+    torch.cuda.synchronize()
+    assert (bwd_mod.flash_bwd_group_sum.launches,
+            getattr(bwd_mod.flash_bwd_group_sum, f"hd{D}_launches")) == (before[0] + 1,
+                                                                         before[1] + 1)
+    want = bwd_mod.flash_bwd_group_sum_plain(pk, pv, 3)
+    assert dk.shape == (2, 700, 3, D)
+    assert torch.equal(dk, want[0]) and torch.equal(dv, want[1])
+
+
 def _zeroed(counters, plains):
     """Zero the wrappers' launch counts (their head_dim-64, 160 and 256 ones
     too, where they keep them) and the plain versions' call counts."""
@@ -653,7 +733,7 @@ def _training_step_against_ref(cuda, cfg, D, packed=False):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("D,hq,hkv", [(160, 32, 8), (256, 4, 1)])
-def test_default_splits_at_head_dims_160_and_256_run_the_single_pass(cuda, D, hq, hkv):
+def test_default_splits_at_head_dims_160_and_256_run_the_split_kv_kernel(cuda, D, hq, hkv):
     """A default ``ops.flash_attention`` of a short q against a long kv at
     head_dim 160 and 256: the auto policy takes ``default_kv_splits`` (4 at
     stablelm's 32 q heads, 24 at gemma3's 4: one kv tile a split), so the

@@ -19,7 +19,13 @@ ones through pages of 16) and the contiguous ones also at whisper's cross
 and self shapes; delta at the training shape and at whisper's encoder
 shape, each variant on the (B, S, H, D) tensors and on a strided view of a
 head-major copy of them, after the usual flush (zeroing 96 MB, which
-leaves L2 full of dirty lines) and after one that only reads 96 MB.
+leaves L2 full of dirty lines) and after one that only reads 96 MB; the
+"wide" group, the fused and dK/dV kernels at head_dim 256 and 160 against
+an earlier design of them (wide_parent: that commit's flash_bwd.cu and
+sm90.cuh, which the caller copies under ``build/ab_kernels/parent/``;
+``PARENT`` says how) at gemma3-1b's and stablelm-12b's training shapes,
+beside the committed kernel without its head split and without dQ's bulk
+reductions.
 
 Run from the repository root on a machine with an H100 and nvcc:
 
@@ -76,7 +82,7 @@ _COPY_FIRST = "  if (lane == 0)\n    for (int n = 0; n < p.slots; ++n) issue(n);
 _COPY_NEXT = "    if (lane == 0) issue(n + p.slots);\n"
 _UNIT_SKIP = "      if (vrows == 0u) continue;  // uniform in the warp\n"
 _KV_WG = ("  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);"
-          "  // warp-uniform (wg_rs_k64)\n")
+          "  // warp-uniform (wg_ss_k64)\n")
 
 _ISSUE_BULK = """  if (lane == 0)
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n" ::"r"(smem_u32(bar)),
@@ -242,7 +248,47 @@ VARIANTS = {
     "delta_r8": ("flash_bwd", "8 positions a CTA at every shape",
                  [("  while (R * Hq < 256 && batch * ((Sq + 2 * R - 1) / (2 * R)) >= 132) R *= 2;\n",
                    "")]),
+    "wide_final": ("flash_bwd", "the fused and dK/dV kernels at 256 and 160 as committed", []),
+    "wide_parent": ("flash_bwd", "the fused and dK/dV kernels of the parent design (PARENT's "
+                    "sources: both warpgroups compute S^T and dP^T, one dQ staging a "
+                    "warpgroup, no head split)", []),
 }
+
+# The parent commit's flash_bwd.cu and sm90.cuh, for the wide_parent variant:
+# write them here first, e.g.
+#   mkdir -p build/ab_kernels/parent
+#   git show <commit>:src/repro_torch/kernels/csrc/flash_bwd.cu > build/ab_kernels/parent/flash_bwd.cu
+#   git show <commit>:src/repro_torch/kernels/csrc/sm90.cuh > build/ab_kernels/parent/sm90.cuh
+PARENT = OUT / "parent"
+
+
+class _ParentLib:
+    """The parent design's library behind the committed wrappers. Its
+    KV-stationary entries take no head split: the calls drop the wrappers'
+    (always 1 for this library, see ``use``), the other entries pass
+    through."""
+
+    def __init__(self, lib):
+        from repro_torch.kernels import _build
+
+        P, I, L = _build.VOIDP, _build.INT, _build.I64
+        seg = [P, P, L, L, P, I]
+        lib.fa2_bwd_fused_bf16.argtypes = [P] * 10 + [L] * 12 + [I] * 14 + seg + [P]
+        lib.fa2_bwd_dkv_bf16.argtypes = [P] * 9 + [L] * 12 + [I] * 14 + seg + [P]
+        lib.fa2_bwd_delta_bf16.argtypes = [P] * 3 + [L] * 6 + [I] * 4 + [P]
+        lib.fa2_bwd_dq_bf16.argtypes = [P] * 8 + [L] * 12 + [I] * 14 + seg + [P]
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def fa2_bwd_fused_bf16(self, *args):  # the head split is argument 36
+        assert args[36] == 1
+        return self.lib.fa2_bwd_fused_bf16(*args[:36], *args[37:])
+
+    def fa2_bwd_dkv_bf16(self, *args):  # argument 35 (no dq)
+        assert args[35] == 1
+        return self.lib.fa2_bwd_dkv_bf16(*args[:35], *args[36:])
 
 DIAGNOSTICS = {"paged_copies_only", "paged_math_only", "decode_copies_only", "decode_math_only"}
 
@@ -252,7 +298,8 @@ GROUPS = {"dq": ("fa2_bwd_dq_kernel", "flash_bwd"),
           "kv": ("fa2_bwd_fused_kernel", "flash_bwd"),
           "paged": ("fa2_decode_paged_kernel", "flash_decode"),
           "decode": ("fa2_decode_kernel", "flash_decode"),
-          "delta": ("fa2_bwd_delta_kernel", "flash_bwd")}
+          "delta": ("fa2_bwd_delta_kernel", "flash_bwd"),
+          "wide": ("fa2_bwd_fused_kernel", "flash_bwd")}
 
 
 def group(name: str) -> str:
@@ -275,7 +322,10 @@ def build(names):
     procs = {}
     for name in names:
         src, _, edits = VARIANTS[name]
-        text = (CSRC / f"{src}.cu").read_text()
+        srcdir = PARENT if name == "wide_parent" else CSRC
+        if not (srcdir / f"{src}.cu").exists():
+            raise SystemExit(f"variant {name}: no {srcdir / src}.cu (see PARENT)")
+        text = (srcdir / f"{src}.cu").read_text()
         for old, new in edits:
             if text.count(old) != 1 or new == old:
                 raise SystemExit(f"variant {name}: an edit no longer matches {src}.cu, or "
@@ -284,7 +334,7 @@ def build(names):
         d = OUT / name
         d.mkdir(parents=True, exist_ok=True)
         (d / f"{src}.cu").write_text(text)
-        shutil.copy(CSRC / "sm90.cuh", d / "sm90.cuh")
+        shutil.copy(srcdir / "sm90.cuh", d / "sm90.cuh")
         procs[name] = subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
                                         str(d / f"{src}.cu")], stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
@@ -304,6 +354,9 @@ def build(names):
               f"instantiation {regs}; ptxas performance notes {notes or 'none'}", flush=True)
         module = bwd if GROUPS[group(name)][1] == "flash_bwd" else dec
         lib = ctypes.CDLL(str(OUT / name / "lib.so"))
+        if name == "wide_parent":
+            libs[name] = _ParentLib(lib)
+            continue
         load = _build.load
         _build.load = lambda _name, lib=lib: lib
         try:
@@ -330,13 +383,16 @@ def main() -> None:
             names.insert(0, final)
     print(nvidia_smi(), flush=True)
     libs = build(names)
-    dq_names, kv_names, paged_names, decode_names, delta_names = (
+    dq_names, kv_names, paged_names, decode_names, delta_names, wide_names = (
         [n for n in names if group(n) == g] for g in GROUPS)
     originals = {bwd: bwd._lib, dec: dec._lib}
+    head_split = bwd.kv_head_split
 
     def use(name):
         module = bwd if GROUPS[group(name)][1] == "flash_bwd" else dec
         module._lib = lambda: libs[name]
+        # The parent design has no head split.
+        bwd.kv_head_split = (lambda *a, **kw: 1) if name == "wide_parent" else head_split
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -551,6 +607,54 @@ def main() -> None:
                       f"(bytes), after the {flush} flush, in turns: " + "; ".join(
                           f"{n} {ms[n]:.4f} ms ({ms[n] / bound:.2f}x the bound, "
                           f"{ms[n] / ms['delta_final']:.4f}x final)" for n in calls), flush=True)
+    if wide_names:
+        # The fused and dK/dV kernels at gemma3-1b's and stablelm-12b's
+        # training shapes (causal; gemma3 also under its 512 window), each
+        # variant in turns with the others; beside the committed kernel, the
+        # same without its head split (hsplit 1: the plain grid) and without
+        # dQ's staging and bulk reduction.
+        shapes = {"gemma3-1b causal": (4, 2048, 4, 1, 256, MaskSpec(causal=True)),
+                  "gemma3-1b window 512": (4, 2048, 4, 1, 256, MaskSpec(causal=True, window=512)),
+                  "stablelm-12b causal": (2, 2048, 32, 8, 160, causal)}
+        for shape, (B, S, hq, hkv, D, spec) in shapes.items():
+            q = ops._prep(randn(B, S, hq, D), 1 / math.sqrt(D))
+            k, v, do = randn(B, S, hkv, D), randn(B, S, hkv, D), randn(B, S, hq, D)
+            o, lse = fwd.flash_fwd(q, k, v, spec, **tiles)
+            args = (q, k, v, do, lse, bwd.flash_bwd_delta(o, do), spec)
+            want = bwd.flash_bwd_fused_plain(*args, **tiles)
+            split = bwd.kv_head_split(spec, B, S, S, hq, hkv, D, 64, 64)
+            for name in wide_names:
+                use(name)
+                got = bwd.flash_bwd_fused(*args, **tiles)
+                dk, dv = bwd.flash_bwd_dkv(*args, **tiles)
+                torch.cuda.synchronize()
+                rel = max((a - b).abs().max().item() / b.abs().max().item()
+                          for a, b in zip(got, want))
+                ok = rel <= 1e-2 and torch.equal(dk, got[1]) and torch.equal(dv, got[2])
+                bad += not ok
+                print(f"{name}: {shape} B={B} S={S} Hq={hq} Hkv={hkv} D={D} fused dq, dk, dv, "
+                      f"max|x-plain| / max|x| {rel:.3e} (tol 1e-2); dK/dV bitwise the fused "
+                      f"kernel's{'' if ok else ' FAILS'}", flush=True)
+            calls = {}
+            for name in wide_names:
+                calls[f"{name} fused"] = lambda: bwd.flash_bwd_fused(*args, **tiles)
+                calls[f"{name} dkv"] = lambda: bwd.flash_bwd_dkv(*args, **tiles)
+
+            def fused_as(hsplit, with_dq=True):
+                dq = torch.zeros(q.shape, dtype=torch.float32, device=dev) if with_dq else None
+                bwd._launch_fused(*args, 64, 64, dq, hsplit=hsplit)
+
+            if "wide_final" in wide_names:
+                if split > 1:
+                    calls["wide_final fused without the head split"] = lambda: fused_as(1)
+                calls["wide_final fused without dQ's bulk reduction"] = (
+                    lambda: fused_as(None, with_dq=False))
+            ms = in_turns(calls)
+            result[f"wide, {shape}"] = dict(ms, head_split=split)
+            print(f"flash_bwd_fused and flash_bwd_dkv {shape} B={B} S={S} Hq={hq} Hkv={hkv} "
+                  f"D={D} (head split {split}), in turns: " + "; ".join(
+                      f"{n} {v:.4f} ms" for n, v in ms.items()), flush=True)
+    bwd.kv_head_split = head_split
     for module, lib in originals.items():
         module._lib = lib
     print(json.dumps({"device": torch.cuda.get_device_name(0), "ms": result}), flush=True)
