@@ -10,7 +10,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
      for sm_90a, one nvcc per source, all started together, and print
      nvcc's -Xptxas -v reports (and each instantiation's registers and
-     spills);
+     spills); the forward's head_dim-64/128/160 and fold lines must equal
+     the numbers the parent design built them with (``FWD_PTXAS_BEFORE``),
+     and no head_dim-256 forward instantiation (either tile mode) may spill
+     or serialise its wgmma (the parent's spilled none);
   3. kernels: hold each kernel against its plain PyTorch version on the
      card in bf16 at qwen3-8b widths (the forward also at odd numbers of
      q tiles, q_offset -100, segment ids that hide half of every q tile,
@@ -439,6 +442,58 @@ def ptxas_summary(_build, sources) -> str:
     return "\n".join(lines)
 
 
+def fwd_inst(D: int, seg: int, split: int, dense: int, single: int = 0) -> str:
+    """The ptxas summary's name of a forward instantiation: the pair kernel
+    at head_dim 64, 128 and 160, ``fa2_fwd_wide_kernel`` at 256 (``single``:
+    its one-q-tile mode)."""
+    if D == 256:
+        return f"fa2_fwd_wide_kernel<{seg},{split},{dense},{single}>"
+    return f"fa2_fwd_kernel<{D},{seg},{split},{dense}>"
+
+
+# The forward's ptxas lines as the parent design built them (registers at
+# entry, spill stores, spill loads in bytes; NVIDIA's nvcc for sm_90a): the
+# head_dim-64/128/160 pair kernel and the folds, which the head_dim-256
+# redesign left as they were. The 256 instantiations of the parent spilled
+# nothing, so no fa2_fwd_wide_kernel may.
+FWD_PTXAS_BEFORE = {
+    **{f"fa2_fwd_kernel<{D},{seg},{split},{dense}>":
+       (168, 40, 48) if D in (64, 128) and seg and dense else (168, 0, 0)
+       for D in (64, 128, 160) for seg in (0, 1) for split, dense in ((0, 0), (1, 0), (0, 1))},
+    **{f"fa2_fwd_fold_kernel<{D}>": (32, 0, 0) for D in (64, 128, 160, 256)},
+}
+
+
+def fwd_ptxas_check(ptxas: str) -> None:
+    """The forward's instantiations in the ptxas summary: at head_dim 64,
+    128 and 160 and the fold kernel every line as ``FWD_PTXAS_BEFORE``; at
+    256 every ``fa2_fwd_wide_kernel`` (6 modes, 2 tile modes) without
+    spills (serialised wgmma: ``wide_ptxas_check``)."""
+    import re
+
+    rows = {}
+    for line in ptxas.splitlines():
+        m = re.match(r"\s*flash_fwd\.cu (fa2_\w+<[\d,]+>): (\d+) registers, spill stores (\d+) "
+                     r"B, loads (\d+) B", line)
+        if m:
+            rows[m.group(1)] = tuple(int(m.group(i)) for i in (2, 3, 4))
+    changed = [(k, v, rows.get(k)) for k, v in FWD_PTXAS_BEFORE.items() if rows.get(k) != v]
+    log(f"ptxas, the forward against the parent design's build: "
+        f"{len(FWD_PTXAS_BEFORE) - len(changed)} of {len(FWD_PTXAS_BEFORE)} head_dim-64/128/160 "
+        f"and fold lines equal")
+    if changed:
+        fail(f"the forward's ptxas lines changed at 64/128/160 (instantiation, before, now): "
+             f"{changed}")
+    wide = [fwd_inst(256, seg, split, dense, one) for seg in (0, 1)
+            for split, dense in ((0, 0), (1, 0), (0, 1)) for one in (0, 1)]
+    missing = [k for k in wide if k not in rows]
+    spilled = [(k, rows[k]) for k in wide if k in rows and rows[k][1:] != (0, 0)]
+    log(f"ptxas, the head_dim-256 forward: {len(wide) - len(missing) - len(spilled)} of "
+        f"{len(wide)} instantiations without spills")
+    if missing or spilled:
+        fail(f"ptxas reported no {missing} or they spill {spilled}")
+
+
 def past_lengths(torch, x, lengths, value):
     """The cache x (B, S, Hkv, D) with ``value`` in every row at or past its
     batch row's length (``lengths`` (B,) on x's device)."""
@@ -502,6 +557,14 @@ def in_turns(torch, kernel, library, iters: int, flush):
     kernel) on one card: (kernel ms, library ms, the four times rounded)."""
     runs = [time_ms(torch, fn, iters, flush) for fn in (kernel, library, library, kernel)]
     return (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2, [round(t, 4) for t in runs]
+
+
+def tile_mode(fwd, B: int, Hq: int, Sq: int, D: int, ks: int = 1) -> str:
+    """How the forward's grid takes this shape (``flash_fwd.single_q_tile``)."""
+    t_q = -(-Sq // 64)
+    if fwd.single_q_tile(B, Hq, t_q, D, ks):
+        return f"one q tile a CTA, {B * Hq * t_q * ks} CTAs"
+    return f"a pair of q tiles a CTA, {B * Hq * -(-t_q // 2) * ks} CTAs"
 
 
 def attention_bounds(pairs: int, B: int, S: int, id_bytes: int = 0, *, Skv=None, Hq=HQ,
@@ -3283,7 +3346,9 @@ def causal_pairs(S: int, window=None) -> int:
 
 def hd256_kernel_phase(torch, dev, flush):
     """The head_dim-256 kernels at gemma3-1b's shapes (``head_dim_kernel_phase``;
-    causal and window 512; the forward also at S 700 and at B 2, S 333), then
+    causal and window 512; the forward also at S 700 and at B 2, S 333, each
+    shape's tile mode logged, and timed in turns with SDPA at the prefill and
+    at the training shape, ``wide_fwd_at_training_shape``), then
     the split-KV forward at its corner, prefill and packed training shapes
     (``split_kernel_phase``)."""
     return {**head_dim_kernel_phase(torch, dev, flush, G3_D, G3_HQ, G3_HKV, G3_WINDOW, seed=7,
@@ -3352,7 +3417,8 @@ def head_dim_kernel_phase(torch, dev, flush, D, hq, hkv, window, *, seed, fwd_sh
         q, k, v = fwd_inputs(B, S)
         for name, spec in specs.items():
             fwd_err = max(fwd_err, check_fwd(
-                torch, f"flash_fwd B={B} S={S} {name} Hq={hq} Hkv={hkv} D={D}",
+                torch, f"flash_fwd B={B} S={S} {name} Hq={hq} Hkv={hkv} D={D} "
+                f"({tile_mode(fwd, B, hq, S, D)})",
                 fwd.flash_fwd(q, k, v, spec, block_q=bq, block_kv=bk),
                 fwd.flash_fwd_plain(q, k, v, spec, block_q=bq, block_kv=bk)))
     Bf, Sf = fwd_shapes[0]
@@ -3377,6 +3443,9 @@ def head_dim_kernel_phase(torch, dev, flush, D, hq, hkv, window, *, seed, fwd_sh
             f"turns (fwd, sdpa, sdpa, fwd) {turns}: fwd / sdpa {ms / lib_ms:.4f}")
         fwd_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                               library_ms=lib_ms, sdpa_ratio_in_turns=ms / lib_ms)
+    if D == 256:
+        fwd_rows["causal"].update(wide_fwd_at_training_shape(torch, dev, flush, randn, hq,
+                                                             hkv))
 
     # --- the contiguous decode at the fixed engine's shape.
     B, S = 4, CACHE
@@ -3517,6 +3586,41 @@ def head_dim_kernel_phase(torch, dev, flush, D, hq, hkv, window, *, seed, fwd_sh
                                           bound_ms=b_ms, bound_by=b_by, library_ms=None,
                                           contiguous_ms_in_turns=c_ms),
     }
+
+
+def wide_fwd_at_training_shape(torch, dev, flush, randn, hq, hkv) -> dict:
+    """The head_dim-256 forward (row 1g) at gemma3-1b's training shape (B 4,
+    S 2048, causal: a pair of q tiles a CTA) in turns with SDPA (kernel,
+    SDPA, SDPA, kernel) after the L2 flush, held to its plain version
+    first. The design before this one is timed beside it by
+    ``tools/ab_forward.py parent``."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.masks import MaskSpec
+    from repro_torch.kernels import flash_fwd as fwd
+    from repro_torch.kernels import ops
+
+    D, B, S, tiles = 256, 4, 2048, dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
+    spec = MaskSpec(causal=True)
+    q = ops._prep(randn(B, S, hq, D), 1.0 / math.sqrt(D))
+    k, v = randn(B, S, hkv, D), randn(B, S, hkv, D)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mode = tile_mode(fwd, B, hq, S, D)
+    err = check_fwd(torch, f"flash_fwd D={D} B={B} S={S} causal ({mode})",
+                    fwd.flash_fwd(q, k, v, spec, **tiles),
+                    fwd.flash_fwd_plain(q, k, v, spec, **tiles))
+    ms, lib_ms, order = in_turns(
+        torch, lambda: fwd.flash_fwd(q, k, v, spec, **tiles),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, scale=1.0,
+                                               is_causal=True), 20, flush)
+    b_ms, b_by = bound(4 * D * causal_pairs(S) * B * hq,
+                       2 * B * S * (hq + hkv) * D * 2 + B * hq * S * 4)
+    log(f"flash_fwd D={D} B={B} S={S} causal at the training shape ({mode}): kernel {ms:.4f} "
+        f"ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); in turns (fwd, sdpa, sdpa, "
+        f"fwd) {order}: fwd / sdpa {ms / lib_ms:.4f}")
+    return {"at_training_shape": dict(ms=ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                                      mode=mode, max_abs_err=err,
+                                      sdpa_ratio_in_turns=ms / lib_ms)}
 
 
 def gemma3_phase(torch, dev):
@@ -4256,7 +4360,8 @@ KV_SPILLS_BEFORE = {
 def wide_ptxas_check(ptxas: str) -> None:
     """The dense instantiations at head_dim 256 and 160 (forward, fused,
     dK/dV, dQ; without and with SEG) and the split-KV forward's (without and
-    with SEG) against their compact single-pass twins in the ptxas summary:
+    with SEG; the 256 forward's in each tile mode) against their compact
+    single-pass twins in the ptxas summary:
     no more spill bytes, and for the split forward 168 registers at entry as
     its twin; every fused and dK/dV instantiation at 168 registers at entry
     and no more spill stores than KV_SPILLS_BEFORE; and no instantiation of
@@ -4272,8 +4377,10 @@ def wide_ptxas_check(ptxas: str) -> None:
                                 "serialized" in m.group(5))
     for D in (256, 160):
         for seg in (0, 1):
-            pairs = [(f"fa2_fwd_kernel<{D},{seg},0,1>", f"fa2_fwd_kernel<{D},{seg},0,0>"),
-                     (f"fa2_fwd_kernel<{D},{seg},1,0>", f"fa2_fwd_kernel<{D},{seg},0,0>")]
+            pairs = [(fwd_inst(D, seg, 0, 1, one), fwd_inst(D, seg, 0, 0, one))
+                     for one in ((0, 1) if D == 256 else (0,))]
+            pairs += [(fwd_inst(D, seg, 1, 0, one), fwd_inst(D, seg, 0, 0, one))
+                      for one in ((0, 1) if D == 256 else (0,))]
             pairs += [(f"fa2_bwd_{k}_kernel<{D},{seg},1>", f"fa2_bwd_{k}_kernel<{D},{seg},0>")
                       for k in ("fused", "dkv", "dq")]
             for inst, compact in pairs:
@@ -4606,7 +4713,7 @@ def split_kernel_phase(torch, dev, flush, D, hq, hkv, corner, window, B_seg, S_s
             q, k, v, spec, kv_splits=ks, **tiles,
             **({} if seg_ids is None else dict(q_seg=seg_ids, kv_seg=seg_ids)))
         what = (f"flash_fwd_splitkv{sfx} D={D} B={B} Sq={Sq} Skv={Skv} Hq={hq} Hkv={hkv} "
-                f"{name_of(spec)}, {ks} splits")
+                f"{name_of(spec)}, {ks} splits ({tile_mode(fwd, B, hq, Sq, D, ks)})")
         err[sfx] = max(err[sfx], check_split(torch, what, out, ref, one,
                                              control=Sq == CORNER_ROWS))
 
@@ -4642,7 +4749,7 @@ def split_kernel_phase(torch, dev, flush, D, hq, hkv, corner, window, B_seg, S_s
                                  0 if seg_ids is None else 2 * B * Skv * 4)
         scratch = partial_bytes(B, Sq, hq, D, ks)
         log(f"flash_fwd_splitkv{sfx} D={D} B={B} Sq={Sq} Skv={Skv} {name_of(spec)}, {ks} splits "
-            f"({(Sq + 127) // 128 * B * hq * ks} CTAs): kernel (walk + fold) {ms:.4f} ms, the "
+            f"({tile_mode(fwd, B, hq, Sq, D, ks)}): kernel (walk + fold) {ms:.4f} ms, the "
             f"single pass in turns {one_ms:.4f} ms (split / single {ms / one_ms:.4f}; turns "
             f"{turns}), plain {plain_ms:.4f} ms, sdpa ({form}) {lib_ms:.4f} ms (split / sdpa "
             f"{ms / lib_ms:.4f}; with the boolean mask {bool_ms:.4f} ms), bound {b_ms:.4f} ms "
@@ -4652,7 +4759,7 @@ def split_kernel_phase(torch, dev, flush, D, hq, hkv, corner, window, B_seg, S_s
         return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                     library_form=form, library_bool_mask_ms=bool_ms, partials_bytes=scratch,
                     single_pass_ms_in_turns=one_ms, splits=ks, shape=[B, Sq, Skv, hq, hkv, D],
-                    mask=name_of(spec))
+                    mask=name_of(spec), mode=tile_mode(fwd, B, hq, Sq, D, ks))
 
     at_corner = [timed(B, Sq, Skv, spec, ks) for B, Sq, Skv, spec, ks, _ in
                  cases[:len(corner_shapes)]]
@@ -5014,6 +5121,7 @@ def main() -> None:
         "forward's, the KV-stationary backward's and the dq kernel's warpgroups then run at 24 "
         "(producer) and 240 (consumers) by setmaxnreg):\n" + ptxas)
     wide_ptxas_check(ptxas)
+    fwd_ptxas_check(ptxas)
 
     scratch = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     results = kernel_phase(torch, dev, scratch.zero_)
@@ -5136,13 +5244,15 @@ def main() -> None:
     for D in (256, 160):  # compact (DENSE 0) and dense (1), unsegmented (SEG 0) and SEG (1)
         for seg, suffix in ((0, ""), (1, "_varlen")):
             for dense, sched in ((0, ""), (1, "_dense")):
-                ptxas_of[f"flash_fwd{suffix}{sched}_hd{D}"] = f"fa2_fwd_kernel<{D},{seg},0,{dense}>"
+                ptxas_of[f"flash_fwd{suffix}{sched}_hd{D}"] = tuple(
+                    fwd_inst(D, seg, 0, dense, one) for one in ((0, 1) if D == 256 else (0,)))
                 for kernel in ("fused", "dkv", "dq"):
                     ptxas_of[f"flash_bwd_{kernel}{suffix}{sched}_hd{D}"] = (
                         f"fa2_bwd_{kernel}_kernel<{D},{seg},{dense}>")
             # The split walk (SPLIT 1) and its fold.
-            ptxas_of[f"flash_fwd_splitkv{suffix}_hd{D}"] = (f"fa2_fwd_kernel<{D},{seg},1,0>",
-                                                           f"fa2_fwd_fold_kernel<{D}>")
+            ptxas_of[f"flash_fwd_splitkv{suffix}_hd{D}"] = (
+                *(fwd_inst(D, seg, 1, 0, one) for one in ((0, 1) if D == 256 else (0,))),
+                f"fa2_fwd_fold_kernel<{D}>")
     for k, inst in ptxas_of.items():
         insts = inst if isinstance(inst, tuple) else (inst,)
         results[k]["ptxas"] = [line.split(": ", 1)[1] for line in ptxas.splitlines()

@@ -5,12 +5,30 @@ The counterpart of ``merge_partials`` / ``combine_lse_outputs`` in
 ``(o, lse)`` partials with these, as plain torch outside the kernel (the
 JAX package leaves the same merge to XLA). :func:`fold_partials` is the
 one-pass fold the split-KV forward's kernel does on the card, here as its
-plain version.
+plain version; :func:`merge_running` merges two running states, as the
+head_dim-256 forward's warpgroups do in one-q-tile mode.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def merge_running(a, b):
+    """Merge two running (un-normalised) online-softmax states of the same
+    rows, each (m, l, acc): m (..., rows) the running max, l (..., rows) the
+    row sums and acc (..., rows, d) the output, both relative to m. The
+    result is the state one walk over both states' steps would reach, up to
+    summation order: a state with no step (m = -inf, l = 0) adds nothing,
+    and rows whose max is the mask value in both add both sums, as one walk
+    would (finalised partials cannot: their lse has absorbed log l). The
+    merge of the forward's one-q-tile mode, whose two warpgroups each walk
+    every second step of a tile (``kernels/flash_fwd.py``)."""
+    (m_a, l_a, acc_a), (m_b, l_b, acc_b) = a, b
+    m = torch.maximum(m_a, m_b)
+    m_safe = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    w_a, w_b = torch.exp(m_a - m_safe), torch.exp(m_b - m_safe)  # exp(-inf) = 0
+    return m, l_a * w_a + l_b * w_b, acc_a * w_a[..., None] + acc_b * w_b[..., None]
 
 
 def merge_partials(o_a, lse_a, o_b, lse_b):

@@ -141,21 +141,48 @@
 // too: compact without SEG (the serving prefill's) and with it (packed
 // training's), DENSE without and with SEG (dense-schedule training), and
 // SPLIT without and with SEG (the short-q/long-kv corner, a split prefill,
-// packed training with a split forward). At 256 the same design needs two
-// changes to fit an SM:
+// packed training with a split forward).
+// At 256 the kernel is fa2_fwd_wide_kernel, the same walk, records and
+// consumer math redesigned around three limits of the SM:
 //   * registers: a consumer's O is 64 x 256 f32, 128 registers a thread;
 //     with Q as register fragments (64 more), S (32) and P (16) it would
 //     exceed setmaxnreg's 240. So Q stays in shared memory and S = Q K^T
 //     reads both operands from there (wgmma with A from shared memory, as
 //     FlashAttention-3 does at 256); P V is two n128 products a k-step;
-//   * shared memory: a 64-row tile is 32 KB, so the pair's Q (64 KB) and a
-//     4-stage K/V ring (256 KB) exceed the 227 KB a CTA may use; the ring
-//     has 2 stages (192 KB in all). A warpgroup holds two stages at once
-//     (the pending P V's and the step's S), so the producer can refill a
-//     stage only after the step's softmax: at 256 the copies of the next
-//     step are not hidden behind a whole step.
-// At gemma3's prefill (B 1, S 1536, 4 q heads: 48 CTAs on 132 SMs) the 256
-// kernel takes about 14x its bound, 1.54x SDPA's forward (PERF.md row 1g).
+//   * shared memory: a tile is 32 KB, so a pair's Q (64 KB) leaves room
+//     for 2 stages of K and V (192 KB in all). With one barrier a stage, a
+//     warpgroup held two stages (the pending P V's and the step's S) and
+//     the producer refilled a stage only after a step's softmax. So K and
+//     V have their own full and empty barriers (FlashAttention-3's two
+//     pipelines): a consumer frees K_j once S_j has completed (and the mask
+//     has read the stage's ids), before its softmax, and V_j after the
+//     O += P V that reads it. The producer loads K of a position, then V of
+//     the one before: the next K lands while a step's softmax and P V run.
+//     In pair mode a warpgroup whose tile skips a step never touches that
+//     V; the producer frees it on its behalf (count 128), after its own
+//     wait on the stage, so the arrival falls in that use's phase;
+//   * the grid: a pair of q tiles a CTA gives gemma3's prefill (B 1, S
+//     1536, 4 q heads) 48 CTAs on 132 SMs, with causal walks of 1 to 47
+//     tile-steps. Where the pair grid is under one wave (kernels/flash_fwd.py
+//     single_q_tile: B Hq ceil(t_q / 2) ks < 132, or t_q = 1), the wrapper
+//     launches one q tile a CTA (grid (t_q, B Hq, ks); SINGLE) and the
+//     producer deals the tile's taken steps to the two warpgroups in turn,
+//     by their ordinal (the record's kTake0 / kTake1; under DENSE only
+//     taken steps are produced, under SEG only active ones, so dense and
+//     compact deal alike and stay bitwise equal). Each warpgroup keeps its
+//     own m, l and O; a warpgroup reads only its own positions of the ring
+//     (every second one), which has 3 stages here (32 KB of Q + 6 x 32 KB).
+//     Under the deal a warpgroup holds its pending V until its next step,
+//     two positions on: with 2 V stages the producer would wait for a
+//     stage only the waiting warpgroup could free; with 3 it waits for the
+//     other warpgroup's previous step. At the walk's end warpgroup 1 hands
+//     (O, m, l) to warpgroup 0 through the freed ring (named barriers 3 and
+//     4) and warpgroup 0 merges them in that fixed order (no atomics: the
+//     forward stays bitwise the same from run to run) and writes the
+//     tile; SPLIT merges before it writes its f32 partials, and a split
+//     with no step writes (0, -inf). The prefill then runs 96 CTAs whose
+//     longest walk is 24 tile-steps, 12 a warpgroup (47 before), and at
+//     the corner (t_q = 1) the second warpgroup takes half of each split.
 // At 160 (stablelm-12b), 160 is not a whole number of 64-column boxes. Of
 // the two layouts a tile could take, three 128-byte-swizzled boxes (the
 // third half past the tensor, zero-filled by TMA: 24 KB a tile, a 3-stage
@@ -172,21 +199,16 @@
 // (tile_off). O is 80 registers a consumer thread, Q's fragments 40, S 32
 // and P 16, within setmaxnreg's 240, so Q stays in registers. Every
 // expect_tx counts the whole tile, boxes and tail alike (D * 64 * 2 bytes).
-// SEG at 160 and 256 is the 64/128 code unchanged: ids are per row, so the
-// tail box and Q in shared memory change no id addressing; the element mask
+// SEG at 160 and 256 works as at 64/128: ids are per row, so the tail box
+// and Q in shared memory change no id addressing; the element mask
 // acts on S's n64 fragment only, never on O's (the n128 + n32 or 2 x n128
 // P V products); a consumer adds its two q ids to O's registers, and each
 // stage's 64 kv ids (256 bytes) sit beside its step record.
-// DENSE at 160 and 256 (with and without SEG) is the 64/128 code unchanged
-// too: only the producer walks and classifies, the consumers read records.
-// The 2-stage ring at 256 holds under it: a warpgroup holds at most the
-// pending step's stage and the current one and frees them in the order it
-// took them (the pending one after the step's softmax, or at once when its
-// tile skips the step), so when both warpgroups have read step n's record
-// step n - 1's stage is free, and that is the one the producer waits on
-// for step n + 1. Long runs of steps hidden from both tiles (past the
-// diagonal, outside the window) are fetched and freed one a step. The
-// stages' kv ids fit beside the ring at 256 (512 bytes of 232,448).
+// DENSE at 160 is the 64/128 code unchanged too: only the producer walks
+// and classifies, the consumers read records. At 256 in pair mode a step
+// hidden from both tiles (past the diagonal, outside the window) fetches
+// its K and no V (nothing would wait for V's bytes); in single mode the
+// producer classifies first and produces only the steps its tile takes.
 
 #include <math.h>
 
@@ -199,11 +221,8 @@ constexpr int kBlockN = 64;             // kv rows of a step
 constexpr int kThreads = 3 * 128;       // producer warpgroup, two consumer warpgroups
 constexpr int kConsumers = 2 * 128;
 
-// Stages of the K/V ring: 4, or 2 at head_dim 256 (shared memory).
-template <int D>
-__host__ __device__ constexpr int fwd_stages() {
-  return D == 256 ? 2 : 4;
-}
+// Stages of the K/V ring of the pair kernel (head_dim 64, 128 and 160).
+constexpr int kFwdStages = 4;
 
 struct FwdParams {
   const __nv_bfloat16* q;
@@ -225,6 +244,9 @@ struct FwdParams {
   const int* bits;
   long long q_seg_sb, kv_seg_sb;
   int n_vis;
+  // Head dim 256 only: one q tile a CTA (grid (t_q, B * Hq, ks);
+  // fa2_fwd_wide_kernel<..., true>) instead of a pair.
+  int single;
 };
 
 // The TMA maps of one launch: q, k and v, each a 4-d (D, H, S, B) view of
@@ -243,7 +265,7 @@ struct FwdMaps {
 // 1024-aligned.
 template <int D>
 struct FwdSmem {
-  static constexpr int STAGES = fwd_stages<D>();
+  static constexpr int STAGES = kFwdStages;
   static constexpr uint32_t TILE = D * kBlockM * 2;
   static constexpr uint32_t Q = 0;
   static constexpr uint32_t K = 2 * TILE;
@@ -318,11 +340,10 @@ __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
 template <int D, bool SEG, bool SPLIT, bool DENSE>
 __global__ void __launch_bounds__(kThreads, 1)
     fa2_fwd_kernel(const FwdParams p, const __grid_constant__ FwdMaps maps) {
-  static_assert(D == 64 || D == 128 || D == 160 || D == 256,
-                "the forward takes head_dim 64, 128, 160 or 256");
+  static_assert(D == 64 || D == 128 || D == 160,
+                "the pair kernel takes head_dim 64, 128 or 160 (256: fa2_fwd_wide_kernel)");
   using L = FwdSmem<D>;
   constexpr int kStages = L::STAGES;
-  constexpr bool QSS = D == 256;  // Q read from shared memory by every S = Q K^T
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are dropped before their fetch
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -498,19 +519,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     int pend = -1;      // the stage whose O += P V is not issued yet
 
     mbar_wait(q_bar, 0);
-    // Q as bf16 A fragments in registers, read once from its swizzled tile
-    // (QSS: left in shared memory).
-    uint32_t qf[QSS ? 1 : D / 16][4];
-    if constexpr (!QSS) {
+    // Q as bf16 A fragments in registers, read once from its swizzled tile.
+    uint32_t qf[D / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int row = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int col = kk * 16 + (lane >> 4) * 8;
-        const uint32_t at = sQ + tile_off<D>(row, col);
-        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                     : "=r"(qf[kk][0]), "=r"(qf[kk][1]), "=r"(qf[kk][2]), "=r"(qf[kk][3])
-                     : "r"(at));
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int row = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      const int col = kk * 16 + (lane >> 4) * 8;
+      const uint32_t at = sQ + tile_off<D>(row, col);
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                   : "=r"(qf[kk][0]), "=r"(qf[kk][1]), "=r"(qf[kk][2]), "=r"(qf[kk][3])
+                   : "r"(at));
     }
     for (int n = 0;; ++n) {
       const int stage = n % kStages;
@@ -541,9 +559,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int j = rec.x;
       const uint32_t cK = sK + stage * L::TILE;
 
-      // S = Q K^T (64 x 64, Q from registers or with QSS from its tile, K
-      // over head_dim in its tile's swizzled boxes, both K-major), issued
-      // together with the pending step's O += P V.
+      // S = Q K^T (64 x 64, Q from registers, K over head_dim in its tile's
+      // swizzled boxes, K-major), issued together with the pending step's
+      // O += P V.
       // The first step of a run has none pending: it issues one with P = 0
       // (O += 0 exactly), so the products and their waits are the same on
       // every taken step; with them conditional, ptxas serialises every
@@ -557,13 +575,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       float s[32];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint64_t kd = kmajor_desc<D>(cK, kk);
-        if constexpr (QSS)
-          wgmma_ss_n64<0, 0>(s, kmajor_desc<D>(sQ, kk), kd, kk > 0);
-        else
-          wgmma_rs_n64<0>(s, qf[kk], kd, kk > 0);
-      }
+      for (int kk = 0; kk < D / 16; ++kk) wgmma_rs_n64<0>(s, qf[kk], kmajor_desc<D>(cK, kk), kk > 0);
       wgmma_commit();
       wgmma_rs_k64<D>(o, pc, sV + (first ? stage : pend) * L::TILE);
       wgmma_commit();
@@ -688,11 +700,550 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     } else {
       // bf16 O through this warpgroup's Q tile (its values are in registers
-      // since the start; with QSS its last reader, the last S = Q K^T, has
-      // completed), in TMA's 128-byte swizzle (conflict-free pair stores),
-      // then 16-byte chunks of rows to memory.
+      // since the start), in TMA's 128-byte swizzle (conflict-free pair
+      // stores), then 16-byte chunks of rows to memory.
       unsigned char* stg = sm + L::Q + w * L::TILE;
       named_sync(1 + w, 128);  // every warp has read its Q fragments
+#pragma unroll
+      for (int tt = 0; tt < D / 8; ++tt) {
+        *reinterpret_cast<uint32_t*>(stg + tile_off<D>(r_a, 8 * tt) + t4 * 4) =
+            pack_bf16(o[4 * tt] * inv[0], o[4 * tt + 1] * inv[0]);
+        *reinterpret_cast<uint32_t*>(stg + tile_off<D>(r_a + 8, 8 * tt) + t4 * 4) =
+            pack_bf16(o[4 * tt + 2] * inv[1], o[4 * tt + 3] * inv[1]);
+      }
+      named_sync(1 + w, 128);
+      __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+      constexpr int CH = D / 8;  // 16-byte chunks a row
+      for (int idx = t; idx < kBlockM * CH; idx += 128) {
+        const int r = idx / CH, c = idx % CH;
+        if (q0 + r < p.Sq)
+          *reinterpret_cast<uint4*>(og + (q0 + r) * p.o_ss + c * 8) =
+              *reinterpret_cast<const uint4*>(stg + tile_off<D>(r, 8 * c));
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ head dim 256
+
+// Arrivals of the wide kernel's barriers: one that also sets the phase's
+// expected bytes, and `count` at once.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_cnt(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+constexpr int kWideStages = 3;  // the most stages of either ring (single mode)
+
+// Shared memory of the 256 kernel, in bytes from a 1024-aligned base: seven
+// 32 KB tiles (single mode: Q, 3 K stages, 3 V stages; pair mode: the two Q
+// tiles, 2 K stages, 2 V stages), each stage's kv ids and step record, the
+// q tiles' id ranges (DENSE with SEG), then the mbarriers: per stage K full,
+// K empty, V full, V empty, and Q's. 230,288 bytes, with the base's
+// alignment 231,312 of the 232,448 a CTA may use.
+struct WideSmem {
+  static constexpr uint32_t TILE = 256 * kBlockM * 2;
+  static constexpr uint32_t KID = 7 * TILE;
+  static constexpr uint32_t STEP = KID + kWideStages * kBlockN * 4;
+  static constexpr uint32_t QRANGE = STEP + kWideStages * 8;
+  static constexpr uint32_t BARS = QRANGE + 4 * 4;
+  static constexpr uint32_t BYTES = BARS + (4 * kWideStages + 1) * 8;
+};
+
+// The head_dim-256 forward (see the note at the top of this file): the pair
+// kernel's walk, step records and consumer math, with K and V each on their
+// own full and empty barriers, and with SINGLE one q tile a CTA whose steps
+// the producer deals to the two consumer warpgroups in turn. The tile mode
+// is a template flag: at run time it would hold registers the producer's 24
+// cannot spare.
+template <bool SEG, bool SPLIT, bool DENSE, bool SINGLE>
+__global__ void __launch_bounds__(kThreads, 1)
+    fa2_fwd_wide_kernel(const FwdParams p, const __grid_constant__ FwdMaps maps) {
+  constexpr int D = 256;
+  using L = WideSmem;
+  constexpr bool SKIP = SEG && !DENSE;  // inactive steps are dropped before their fetch
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* k_empty = k_full + kWideStages;
+  uint64_t* v_full = k_empty + kWideStages;
+  uint64_t* v_empty = v_full + kWideStages;
+  uint64_t* q_bar = v_empty + kWideStages;
+  int* sKid = reinterpret_cast<int*>(sm + L::KID);
+  int2* sStep = reinterpret_cast<int2*>(sm + L::STEP);
+  int* sQr = reinterpret_cast<int*>(sm + L::QRANGE);
+
+  constexpr bool single = SINGLE;
+  constexpr int nst = single ? 3 : 2;  // stages of each ring
+  constexpr int nq = single ? 1 : 2;   // Q tiles in front of the rings
+  // The CTA's q tile i0 (single), or its pair i0, i0 + 1; longest walks first.
+  const int i0 = single ? p.t_q - 1 - static_cast<int>(blockIdx.x)
+                        : 2 * ((p.t_q + 1) / 2 - 1 - static_cast<int>(blockIdx.x));
+  const bool has1 = !single && i0 + 1 < p.t_q;
+  const int bh = blockIdx.y;
+  const int split = SPLIT ? blockIdx.z : 0;
+  const int b = bh / p.Hq, h = bh % p.Hq, hk = h / p.group;
+  if (threadIdx.x == 0) {
+    // A stage is freed by every consumer thread that reads its records
+    // (pair), or by the one warpgroup it was dealt to (single).
+    constexpr int users = single ? 128 : kConsumers;
+    for (int s = 0; s < nst; ++s) {
+      mbar_init(&k_full[s], 32);  // the producer warp's lanes; TMA bytes on top
+      mbar_init(&k_empty[s], users);
+      mbar_init(&v_full[s], 1);   // the producer's lane 0 with the bytes
+      mbar_init(&v_empty[s], users);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform (see rec)
+  if (wg == 0) {
+    // Producer: one warp. Q once; then per position of the ring, K_j of the
+    // next step and its record, then V of the previous position's step.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_tx(q_bar, (has1 ? 2 : 1) * L::TILE);
+        for (int x = 0; x < (has1 ? 2 : 1); ++x)
+          load_tile<D>(sm + x * L::TILE, maps.q, maps.q_tail, q_bar, h, (i0 + x) * kBlockM, b);
+      }
+      // The compact walk; DENSE counts every kv tile in jn instead.
+      PairWalk<SKIP, false> walk;
+      int jn = -1;
+      if (!DENSE) {
+        walk.group = 1;
+        walk.g = 0;
+        const int own = i0 * p.ks + split;  // tile i0's owner; tile i0 + 1's is ks on
+        walk.steps = p.table + p.t_q * p.ks + 1;
+        walk.bits = SKIP ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
+        walk.a0 = p.table[own];
+        walk.a1 = p.table[own + 1];
+        walk.b0 = has1 ? p.table[own + p.ks] : 0;
+        walk.b1 = has1 ? p.table[own + p.ks + 1] : 0;
+        walk.ia = walk.a0;
+        walk.ib = walk.b0;
+      }
+      if (DENSE && SEG) {  // each q tile's id range, kept in shared memory
+        const int* qid_g = p.q_seg + b * p.q_seg_sb;
+        for (int x = 0; x < (has1 ? 2 : 1); ++x) {
+          int lo = 0x7fffffff, hi = -0x7fffffff;
+#pragma unroll
+          for (int k = 0; k < kBlockM / 32; ++k) {
+            const int r = (i0 + x) * kBlockM + lane + 32 * k;
+            const int id = r < p.Sq ? qid_g[r] : kQPadSegment;
+            lo = min(lo, id);
+            hi = max(hi, id);
+          }
+          warp_range(lo, hi);
+          if (lane == 0) {
+            sQr[2 * x] = lo;
+            sQr[2 * x + 1] = hi;
+          }
+        }
+      }
+      // The producer has 24 registers: the previous position's step is read
+      // back from its record, the id loops have fixed trip counts and the
+      // tile mode is a template flag (each of these kept ptxas from spilling).
+      int kst = 0, kph = 0;  // the stage and parity of this position
+      if (lane == 0) sStep[nst - 1] = make_int2(-1, 0);  // no step before the first position
+      __syncwarp();
+      int j;  // this position's kv tile; -1: an end record
+      bool more = true;
+      // (A `break` out of this loop crashes ptxas 12.9; it ends on its condition.)
+      do {
+        mbar_wait(&k_empty[kst], kph ^ 1);
+        // The step this position carries (j < 0: the walk has ended) and
+        // which q tile takes it and needs the element mask: the table's
+        // flags and step bits, or under DENSE the classifier (with SEG on
+        // the id ranges; the kv ids go to this stage as it reads them). In
+        // single mode DENSE skips the tiles its q tile does not take.
+        int flags = 0;
+        j = -1;
+        while (more && j < 0) {
+          int g, jj, ea = -1, eb = -1;
+          if (DENSE) {
+            jj = ++jn;
+            more = jj < (p.Skv + kBlockN - 1) / kBlockN;
+          } else {
+            more = walk.next(g, jj, ea, eb);
+          }
+          if (more) {
+            flags = 0;
+            if (DENSE) {
+              const int k0 = jj * kBlockN;
+              int lo = 0x7fffffff, hi = -0x7fffffff;
+              if (SEG) {
+                const int* kid_g = p.kv_seg + b * p.kv_seg_sb;
+#pragma unroll
+                for (int k = 0; k < kBlockN / 32; ++k) {
+                  const int r = lane + 32 * k;
+                  const int id = k0 + r < p.Skv ? kid_g[k0 + r] : kKvPadSegment;
+                  sKid[kst * kBlockN + r] = id;
+                  lo = min(lo, id);
+                  hi = max(hi, id);
+                }
+                warp_range(lo, hi);
+              }
+#pragma unroll
+              for (int x = 0; x < 2; ++x) {
+                TileClass c = classify_tile<kBlockM, kBlockN>(
+                    p.causal, p.window, p.sink, p.Skv, (i0 + x) * kBlockM + p.q_offset, k0);
+                if (SEG) c = with_ids(c, sQr[2 * x], sQr[2 * x + 1], lo, hi);
+                if ((x == 0 || has1) && !c.empty)
+                  flags |= (x ? kTake1 : kTake0) | (c.mask ? (x ? kMask1 : kMask0) : 0);
+              }
+            } else {
+              if (ea >= 0)
+                flags |= kTake0 | ((walk.steps[ea] & 1) || (SEG && !(walk.bits[ea] & kSegUniform))
+                                       ? kMask0 : 0);
+              if (eb >= 0)
+                flags |= kTake1 | ((walk.steps[eb] & 1) || (SEG && !(walk.bits[eb] & kSegUniform))
+                                       ? kMask1 : 0);
+            }
+            if (!(DENSE && single) || flags) j = jj;
+          }
+        }
+        if (j >= 0) {
+          // Single mode: tile 0's flags move to the warpgroup dealt, that of
+          // the position's parity (position kst + 3 laps: (kst ^ kph) & 1).
+          if (single) flags <<= (kst ^ kph) & 1;
+          if (lane == 0) {
+            mbar_expect_tx(&k_full[kst], L::TILE);
+            load_tile<D>(sm + (nq + kst) * L::TILE, maps.k, maps.k_tail, &k_full[kst], hk,
+                         j * kBlockN, b);
+          }
+          // Only the element mask reads the kv ids: copy them when a tile
+          // needs it, by cp.async, whose completion K's full barrier also
+          // waits for. A row past Skv reads 0; the mask hides its column.
+          if (SKIP && (flags & (kMask0 | kMask1))) {
+            const int k0 = j * kBlockN;
+            const int* kid_g = p.kv_seg + b * p.kv_seg_sb;
+            for (int r = lane; r < kBlockN; r += 32) {
+              const bool in = k0 + r < p.Skv;
+              asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                               smem_u32(sKid + kst * kBlockN + r)),
+                           "l"(kid_g + (in ? k0 + r : 0)), "r"(in ? 4 : 0)
+                           : "memory");
+            }
+            asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                             smem_u32(&k_full[kst]))
+                         : "memory");
+          }
+        }
+        if (lane == 0) sStep[kst] = make_int2(j, flags);
+        mbar_arrive(&k_full[kst]);
+        // V of the previous position's step (its record, which lane 0 wrote,
+        // is still in its stage), once the stage's last reader has freed V
+        // there. The warpgroups that skip the step (pair mode) never read
+        // it: lane 0 frees the stage for them, after the wait, so their
+        // arrivals fall in this use's phase. A step that neither takes
+        // (DENSE) loads no V: nothing would wait for its bytes.
+        const int vst = kst == 0 ? nst - 1 : kst - 1;
+        int px = 0, py = 0;
+        if (lane == 0) {
+          px = sStep[vst].x;
+          py = sStep[vst].y;
+        }
+        px = __shfl_sync(0xffffffffu, px, 0);
+        if (px >= 0) {
+          mbar_wait(&v_empty[vst], (kst == 0 ? kph ^ 1 : kph) ^ 1);
+          if (lane == 0) {
+            const int skip = single ? 0 : 2 - __popc(py & (kTake0 | kTake1));
+            if (skip < 2) {
+              mbar_arrive_tx(&v_full[vst], L::TILE);
+              load_tile<D>(sm + (nq + nst + vst) * L::TILE, maps.v, maps.v_tail, &v_full[vst],
+                           hk, px * kBlockN, b);
+            } else {
+              mbar_arrive(&v_full[vst]);
+            }
+            if (skip) mbar_arrive_cnt(&v_empty[vst], 128 * skip);
+          }
+        }
+        if (++kst == nst) {
+          kst = 0;
+          kph ^= 1;
+        }
+      } while (j >= 0);
+      if (single) {  // a second end record: each warpgroup reads every second position
+        mbar_wait(&k_empty[kst], kph ^ 1);
+        if (lane == 0) sStep[kst] = make_int2(-1, 0);
+        mbar_arrive(&k_full[kst]);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    // Consumer warpgroup w: pair mode, q tile i0 + w and every position;
+    // single mode, the CTA's tile i0 and positions w, w + 2, ...
+    const int w = wg - 1;
+    const int t = threadIdx.x - 128 * wg;
+    const int wq = t / 32, lane = t % 32, g8 = lane / 4, t4 = lane % 4;
+    const int q0 = (single ? i0 : i0 + w) * kBlockM;
+    const int r_a = wq * 16 + g8;  // this thread's rows of the tile: r_a, r_a + 8
+    const int row_a = q0 + r_a, row_b = row_a + 8;
+    int qid[2] = {0, 0};
+    if (SEG) {
+      const int* qid_g = p.q_seg + b * p.q_seg_sb;
+      qid[0] = row_a < p.Sq ? qid_g[row_a] : kQPadSegment;
+      qid[1] = row_b < p.Sq ? qid_g[row_b] : kQPadSegment;
+    }
+    const int take = w ? kTake1 : kTake0, needs_mask = w ? kMask1 : kMask0;
+    const uint32_t sQ = smem_u32(sm) + (single ? 0 : w * L::TILE);
+    const uint32_t sK = smem_u32(sm) + nq * L::TILE, sV = sK + nst * L::TILE;
+
+    // O of the tile: rows r_a / r_a + 8, columns 8 tt + 2 t4 (+1).
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_r[2] = {-INFINITY, -INFINITY};  // the rows' running max
+    float m_s[2] = {-INFINITY, -INFINITY};  // the same times log2(e)
+    float l_r[2] = {0.f, 0.f};              // this thread's share of the row sums
+    uint32_t pc[4][4];  // P of the pending step: bf16 A fragments of O += P V
+    int pend = -1;      // the stage whose O += P V is not issued yet
+    int pph = 0;        // its parity
+    constexpr int stride = single ? 2 : 1;
+    int st = single ? w : 0, ph = 0;  // this warpgroup's position: stage and parity
+
+    mbar_wait(q_bar, 0);
+    for (;;) {
+      mbar_wait(&k_full[st], ph);
+      // The record, broadcast from lane 0: ptxas then sees the branches
+      // around the wgmmas as warp-uniform and does not serialise them.
+      int2 rec = sStep[st];
+      rec.x = __shfl_sync(0xffffffffu, rec.x, 0);
+      rec.y = __shfl_sync(0xffffffffu, rec.y, 0);
+      if (rec.x < 0) break;
+      if (!(rec.y & take)) {
+        // Pair mode, not this tile's step: finish the pending product, so
+        // that no V stays held while the producer waits for it; free K.
+        if (pend >= 0) {
+          mbar_wait(&v_full[pend], pph);
+          wgmma_fence();
+          wgmma_rs_k64<D>(o, pc, sV + pend * L::TILE);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(o);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) fence_regs(pc[kk]);
+          mbar_arrive(&v_empty[pend]);
+          pend = -1;
+        }
+        mbar_arrive(&k_empty[st]);
+      } else {
+        const int j = rec.x;
+        const uint32_t cK = sK + st * L::TILE;
+        // S = Q K^T (64 x 64, both from their swizzled tiles, K-major),
+        // issued together with the pending step's O += P V once its V has
+        // landed. The first step of a run has none pending: it issues one
+        // with P = 0 on the Q tile, which has landed (O += 0 exactly for
+        // finite q: a non-finite q row turns its whole tile to NaN, the
+        // wrappers' stated precondition; this step's own V would cost a
+        // wait, 1-6% in turns, tools/ab_forward.py first_pv_on_own_v), so
+        // the products and their waits are the same on every taken step;
+        // with them conditional, ptxas serialises every wgmma.
+        const bool first = pend < 0;
+        if (first)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pc[kk][e] = 0u;
+        mbar_wait(first ? q_bar : &v_full[pend], first ? 0 : pph);
+        float s[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64<0, 0>(s, kmajor_desc<D>(sQ, kk), kmajor_desc<D>(cK, kk), kk > 0);
+        wgmma_commit();
+        wgmma_rs_k64<D>(o, pc, first ? sQ : sV + pend * L::TILE);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+
+        // The element mask: element i of n-block tt is row row_a (i < 2) or
+        // row_b, kv column j * 64 + 8 tt + 2 t4 + (i & 1); hidden: kHidden.
+        if (rec.y & needs_mask) {
+          const int* cKid = sKid + st * kBlockN;
+#pragma unroll
+          for (int tt = 0; tt < 8; ++tt) {
+            const int cc = tt * 8 + 2 * t4;
+            int2 kid = make_int2(0, 0);
+            if (SEG) kid = *reinterpret_cast<const int2*>(cKid + cc);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              bool vis = visible(p, (i < 2 ? row_a : row_b) + p.q_offset, j * kBlockN + cc + (i & 1));
+              if (SEG) vis = vis && qid[i >> 1] == ((i & 1) ? kid.y : kid.x);
+              if (!vis) s[4 * tt + i] = kHidden;
+            }
+          }
+        }
+        // S has completed and the stage's ids are read: K's stage is free
+        // while this step's softmax and P V run.
+        mbar_arrive(&k_empty[st]);
+
+        // Online softmax (FA2 Algorithm 1 lines 8-10, un-rescaled
+        // accumulator) in the exp2 domain.
+        float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+        for (int tt = 0; tt < 8; ++tt) {
+          mx[0] = fmaxf(mx[0], fmaxf(s[4 * tt], s[4 * tt + 1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[4 * tt + 2], s[4 * tt + 3]));
+        }
+        float ms[2], alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          ms[r] = mx[r] * kLog2e;
+          alpha[r] = exp2_ftz(m_s[r] - ms[r]);  // 0 on the first visit (m_s = -inf)
+        }
+#pragma unroll
+        for (int tt = 0; tt < 8; ++tt) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[4 * tt + i] = exp2_ftz(fmaf(s[4 * tt + i], kLog2e, -ms[i >> 1]));
+            rs[i >> 1] += s[4 * tt + i];
+          }
+        }
+        uint32_t pn[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          pn[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+          pn[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+          pn[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+          pn[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+        wgmma_wait<0>();  // the pending O += P V is done: its V stage is free
+        fence_regs(o);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs(pc[kk]);
+        if (!first) mbar_arrive(&v_empty[pend]);
+#pragma unroll
+        for (int tt = 0; tt < D / 8; ++tt) {
+          o[4 * tt] *= alpha[0];
+          o[4 * tt + 1] *= alpha[0];
+          o[4 * tt + 2] *= alpha[1];
+          o[4 * tt + 3] *= alpha[1];
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l_r[r] = l_r[r] * alpha[r] + rs[r];
+          m_r[r] = mx[r];
+          m_s[r] = ms[r];
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pc[kk][e] = pn[kk][e];
+        pend = st;
+        pph = ph;
+      }
+      st += stride;
+      if (st >= nst) {
+        st -= nst;
+        ph ^= 1;
+      }
+    }
+    if (pend >= 0) {  // the last step's O += P V
+      mbar_wait(&v_full[pend], pph);
+      wgmma_fence();
+      wgmma_rs_k64<D>(o, pc, sV + pend * L::TILE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(pc[kk]);
+      mbar_arrive(&v_empty[pend]);
+    }
+
+    if (single) {
+      // The two warpgroups' states of the one tile, merged once in a fixed
+      // order through the ring, which every load and product has left by
+      // now: warpgroup 1 writes (o, m, l) after warpgroup 0 has passed its
+      // walk (named barrier 3), warpgroup 0 reads them after the writes
+      // (barrier 4), then o = o0 a0 + o1 a1 and l = l0 a0 + l1 a1 with a_w =
+      // exp2(m_w log2 e - m log2 e), m = max(m0, m1). A warpgroup dealt no
+      // step (m = -inf, l = 0) adds nothing; rows that saw no key in either
+      // (m = kHidden) add both l's, as the single walk would.
+      float4* xo = reinterpret_cast<float4*>(sm + L::TILE);      // K stages 0-1: 64 KB
+      float4* xs = reinterpret_cast<float4*>(sm + 3 * L::TILE);  // K stage 2
+      if (w == 1) {
+        named_sync(3, 256);
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c)
+          xo[c * 128 + t] = make_float4(o[4 * c], o[4 * c + 1], o[4 * c + 2], o[4 * c + 3]);
+        xs[t] = make_float4(m_r[0], m_r[1], l_r[0], l_r[1]);
+        asm volatile("bar.arrive 4, 256;\n" ::: "memory");
+        return;
+      }
+      asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+      named_sync(4, 256);
+      const float4 ml = xs[t];
+      const float m1[2] = {ml.x, ml.y}, l1[2] = {ml.z, ml.w};
+      float a0[2], a1[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m = fmaxf(m_r[r], m1[r]);
+        const float base = m == -INFINITY ? 0.f : m * kLog2e;
+        a0[r] = exp2_ftz(m_s[r] - base);
+        a1[r] = exp2_ftz(m1[r] * kLog2e - base);
+        l_r[r] = l_r[r] * a0[r] + l1[r] * a1[r];
+        m_r[r] = m;
+      }
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        const float4 x = xo[c * 128 + t];
+        o[4 * c] = o[4 * c] * a0[0] + x.x * a1[0];
+        o[4 * c + 1] = o[4 * c + 1] * a0[0] + x.y * a1[0];
+        o[4 * c + 2] = o[4 * c + 2] * a0[1] + x.z * a1[1];
+        o[4 * c + 3] = o[4 * c + 3] * a0[1] + x.w * a1[1];
+      }
+    }
+
+    // Finalize: the row sums over the row's four threads, one 1/l per row
+    // (C1), the natural-log lse. A row that saw nothing has o = 0, l = 0.
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+      inv[r] = l_r[r] == 0.f ? 1.f : 1.f / l_r[r];
+    }
+    if (t4 == 0) {
+      float* lg = p.lse + (static_cast<long long>(bh) * p.ks + split) * p.Sq;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r ? row_b : row_a;
+        if (row < p.Sq)
+          lg[row] = l_r[r] == 0.f ? -INFINITY
+                                  : (m_r[r] == kHidden ? kMaskValue : m_r[r]) + logf(l_r[r]);
+      }
+    }
+    if (SPLIT) {
+      float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + split * p.o_split;
+#pragma unroll
+      for (int tt = 0; tt < D / 8; ++tt) {
+        const int col = tt * 8 + 2 * t4;
+        if (row_a < p.Sq)
+          *reinterpret_cast<float2*>(og + row_a * p.o_ss + col) =
+              make_float2(o[4 * tt] * inv[0], o[4 * tt + 1] * inv[0]);
+        if (row_b < p.Sq)
+          *reinterpret_cast<float2*>(og + row_b * p.o_ss + col) =
+              make_float2(o[4 * tt + 2] * inv[1], o[4 * tt + 3] * inv[1]);
+      }
+    } else {
+      // bf16 O through the warpgroup's Q tile (its last reader, the last
+      // S = Q K^T, has completed; in single mode both warpgroups' have), in
+      // TMA's 128-byte swizzle, then 16-byte chunks of rows to memory.
+      unsigned char* stg = sm + (single ? 0 : w * L::TILE);
+      named_sync(1 + w, 128);
 #pragma unroll
       for (int tt = 0; tt < D / 8; ++tt) {
         *reinterpret_cast<uint32_t*>(stg + tile_off<D>(r_a, 8 * tt) + t4 * 4) =
@@ -755,12 +1306,23 @@ cudaError_t launch(const FwdParams& p, int batch, int Hkv, cudaStream_t stream,
        !make_map(&maps.k_tail, p.k, batch, p.Skv, Hkv, D, p.k_sb, p.k_ss, p.k_sh, kBlockN, 32) ||
        !make_map(&maps.v_tail, p.v, batch, p.Skv, Hkv, D, p.v_sb, p.v_ss, p.v_sh, kBlockN, 32)))
     return cudaErrorInvalidValue;
-  auto kernel = fa2_fwd_kernel<D, SEG, SPLIT, DENSE>;
-  const size_t smem = FwdSmem<D>::BYTES + 1024;  // + the 1024-byte alignment of the base
+  auto kernel = [&p] {
+    if constexpr (D == 256)
+      return p.single ? fa2_fwd_wide_kernel<SEG, SPLIT, DENSE, true>
+                      : fa2_fwd_wide_kernel<SEG, SPLIT, DENSE, false>;
+    else
+      return fa2_fwd_kernel<D, SEG, SPLIT, DENSE>;
+  }();
+  constexpr size_t smem = [] {
+    if constexpr (D == 256)
+      return WideSmem::BYTES;
+    else
+      return FwdSmem<D>::BYTES;
+  }() + 1024;  // + the 1024-byte alignment of the base
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.t_q + 1) / 2, batch * p.Hq, p.ks);
+  const dim3 grid(p.single ? p.t_q : (p.t_q + 1) / 2, batch * p.Hq, p.ks);
   kernel<<<grid, kThreads, smem, stream>>>(p, maps);
   if constexpr (SPLIT) {
     err = cudaGetLastError();
@@ -795,7 +1357,7 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
                             int dense, const void* q_seg,
                             const void* kv_seg, long long q_seg_sb, long long kv_seg_sb,
                             const void* bits, int n_vis, void* o_fold, void* lse_fold,
-                            void* stream) {
+                            void* stream, int single) {
   FwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -814,17 +1376,20 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
   p.kv_seg = static_cast<const int*>(kv_seg);
   p.bits = static_cast<const int*>(bits);
   p.q_seg_sb = q_seg_sb; p.kv_seg_sb = kv_seg_sb; p.n_vis = n_vis;
+  p.single = single;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // Head dims 128 (qwen3), 64 (whisper), 256 (gemma3) and 160 (stablelm);
   // without and with segments (null ids: none); the compact schedule
   // (table; with segments, step bits) or the dense one (no table, no bits);
   // single-pass, or (compact only) split-KV partials (o, lse) folded into
-  // (o_fold, lse_fold).
+  // (o_fold, lse_fold); at 256 a pair of q tiles a CTA or (single) one.
   if (block_q != kBlockM || block_kv != kBlockN || ks < 1 || t_q < 1) return cudaErrorInvalidValue;
+  if (single && head_dim != 256) return cudaErrorInvalidValue;
   if (split && (dense || o_fold == nullptr || lse_fold == nullptr))
     return cudaErrorInvalidValue;
   const bool seg = q_seg != nullptr;
-  if (dense ? table != nullptr : table == nullptr || (seg && bits == nullptr))
+  // (No step bits where no step is visible: bits may be null when n_vis is 0.)
+  if (dense ? table != nullptr : table == nullptr || (seg && bits == nullptr && n_vis > 0))
     return cudaErrorInvalidValue;
   auto* of = static_cast<__nv_bfloat16*>(o_fold);
   auto* lf = static_cast<float*>(lse_fold);

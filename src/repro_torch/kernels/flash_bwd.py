@@ -86,7 +86,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_fwd import (_check_kernel_inputs, _check_layout, _tiles, _Walk,
                                            check_segments, count_head_dim, count_launch,
                                            segment_args)
-from repro_torch.kernels.schedule import build_kv_tile_schedule, check_schedule, device_schedule
+from repro_torch.kernels.schedule import (SMS, build_kv_tile_schedule, check_schedule,
+                                          device_schedule)
 
 # Head dims the backward kernels are instantiated for: 128 (qwen3), 64
 # (whisper-base, the gpt presets), 160 (stablelm-12b) and 256 (gemma3-1b),
@@ -95,10 +96,6 @@ from repro_torch.kernels.schedule import build_kv_tile_schedule, check_schedule,
 # head_dim-64, 160 and 256 launches apart (``hd64_launches``,
 # ``hd160_launches``, ``hd256_launches``: subsets of its other counts).
 KERNEL_HEAD_DIMS = (64, 128, 160, 256)
-
-# Streaming multiprocessors of an H100: the card whose grid the head split
-# below fills.
-SMS = 132
 
 
 def kv_head_split(spec: MaskSpec, B: int, Sq: int, Skv: int, Hq: int, Hkv: int, D: int,

@@ -42,6 +42,16 @@ The kernels are instantiated at head_dim 64, 128, 160 and 256
 (``KERNEL_HEAD_DIMS``) in every mode: the single pass, compact and dense,
 and the split-KV forward, each without and with segments.
 
+At head_dim 256, where a CTA per pair of q tiles would leave the card short
+(:func:`single_q_tile`), a CTA takes one q tile and deals its steps to its
+two consumer warpgroups in turn, each with its own running state, merged
+once at the end (``csrc/flash_fwd.cu``, ``fa2_fwd_wide_kernel``). The plain
+versions follow the same rule and deal, so they stay the kernels' oracles;
+every wrapper and plain version takes a private ``single_tile`` override
+(None: the rule) for tests and A/B runs. The 256 kernel takes finite q
+only: a run's first zero product reads the Q tile, so a non-finite q row
+turns its whole 64-row q tile to NaN, not only its own row.
+
 ``schedule="dense"`` on :func:`flash_fwd` and :func:`flash_fwd_varlen`
 replaces the dense body ``_fwd_kernel_dense`` (``flash_fwd.py:206``, with
 its segment branch): the same CTAs walk every kv tile in ascending order
@@ -68,9 +78,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.masks import (MaskSpec, apply_mask, make_segment_mask, make_tile_mask,
                                     pad_segments)
-from repro_torch.core.online_softmax import fold_partials
+from repro_torch.core.online_softmax import fold_partials, merge_running
 from repro_torch.kernels import _build
-from repro_torch.kernels.schedule import (build_kv_tile_schedule, build_q_tile_schedule,
+from repro_torch.kernels.schedule import (SMS, build_kv_tile_schedule, build_q_tile_schedule,
                                           build_split_schedule, check_schedule, decode_step_bits,
                                           device_schedule, device_step_bits, segment_step_bits)
 
@@ -95,6 +105,31 @@ def _check_layout(q, k, v):
         raise ValueError(f"q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
 
 
+def single_q_tile(B: int, Hq: int, t_q: int, D: int, ks: int = 1) -> bool:
+    """Whether the forward takes one q tile a CTA (True) or a pair (False):
+    at head_dim 256 only, where the pair grid, B * Hq * ceil(t_q / 2) * ks
+    CTAs, is under one wave of the card's SMs, or where there is one q tile
+    (t_q == 1: a pair would leave its second warpgroup idle). A fixed rule
+    of the shape, never of the schedule, the mask or the segment ids, so
+    dense, compact and segment launches take the same mode and stay bitwise
+    comparable. gemma3-1b's prefill (B 1, S 1536: 48 pair CTAs), a split
+    prefill (96) and the short-q/long-kv corner take one tile; its training
+    shape (B 4, S 2048: 256) keeps the pair, which reads each K/V tile once
+    for two q tiles and is the faster mode where the grid fills the card
+    (``tools/ab_forward.py single_grid``)."""
+    return D == 256 and (t_q == 1 or B * Hq * -(-t_q // 2) * ks < SMS)
+
+
+def _tile_mode(single_tile, B: int, Hq: int, t_q: int, D: int, ks: int = 1) -> bool:
+    """The mode a launch takes: :func:`single_q_tile`'s, or the private
+    override ``single_tile`` (one q tile a CTA is built at head_dim 256 only)."""
+    if single_tile is None:
+        return single_q_tile(B, Hq, t_q, D, ks)
+    if single_tile and D != 256:
+        raise ValueError(f"one q tile a CTA is built at head_dim 256 only, not {D}")
+    return bool(single_tile)
+
+
 def count_launch(wrapper, schedule: str) -> None:
     """One more launch of ``wrapper``'s kernel: ``wrapper.launches`` counts
     the compact schedule's, ``wrapper.dense_launches`` the dense one's."""
@@ -114,15 +149,17 @@ def count_head_dim(wrapper, D: int) -> None:
 
 
 def flash_fwd(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int,
-              schedule: str = "compact"):
-    """FA2 forward on pre-scaled q. See the module docstring for layouts;
-    ``schedule`` is one of ``schedule.SCHEDULES``."""
+              schedule: str = "compact", single_tile=None):
+    """FA2 forward on pre-scaled q. See the module docstring for layouts
+    (and, at head_dim 256, its precondition of finite q); ``schedule`` is
+    one of ``schedule.SCHEDULES``."""
     _check_layout(q, k, v)
     check_schedule(schedule)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, spec, block_q=block_q, block_kv=block_kv,
-                               schedule=schedule)
-    out = _launch(q, k, v, spec, block_q, block_kv, None, schedule=schedule)
+                               schedule=schedule, single_tile=single_tile)
+    out = _launch(q, k, v, spec, block_q, block_kv, None, schedule=schedule,
+                  single_tile=single_tile)
     count_launch(flash_fwd, schedule)
     return out
 
@@ -132,7 +169,7 @@ flash_fwd.dense_launches = 0  # dense kernel launches (CUDA tensors only)
 
 
 def flash_fwd_varlen(q, k, v, spec: MaskSpec, q_seg, kv_seg, *, block_q: int, block_kv: int,
-                     schedule: str = "compact"):
+                     schedule: str = "compact", single_tile=None):
     """The segment variant of :func:`flash_fwd`: int32 q_seg (B, Sq) and
     kv_seg (B, Skv). Rows that share a segment with no key of any visited
     tile give o = 0, lse = -inf."""
@@ -141,8 +178,10 @@ def flash_fwd_varlen(q, k, v, spec: MaskSpec, q_seg, kv_seg, *, block_q: int, bl
     check_schedule(schedule)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, spec, block_q=block_q, block_kv=block_kv,
-                               q_seg=q_seg, kv_seg=kv_seg, schedule=schedule)
-    out = _launch(q, k, v, spec, block_q, block_kv, (q_seg, kv_seg), schedule=schedule)
+                               q_seg=q_seg, kv_seg=kv_seg, schedule=schedule,
+                               single_tile=single_tile)
+    out = _launch(q, k, v, spec, block_q, block_kv, (q_seg, kv_seg), schedule=schedule,
+                  single_tile=single_tile)
     count_launch(flash_fwd_varlen, schedule)
     count_head_dim(flash_fwd_varlen, q.shape[3])
     return out
@@ -172,14 +211,14 @@ class SplitForward(NamedTuple):
 
 
 def flash_fwd_splitkv(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int,
-                      kv_splits: int) -> SplitForward:
+                      kv_splits: int, single_tile=None) -> SplitForward:
     """Split-KV forward on pre-scaled q, partials and their fold. See the
     module docstring."""
     _check_layout(q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_splitkv_plain(q, k, v, spec, block_q=block_q, block_kv=block_kv,
-                                       kv_splits=kv_splits)
-    out = _launch(q, k, v, spec, block_q, block_kv, None, kv_splits)
+                                       kv_splits=kv_splits, single_tile=single_tile)
+    out = _launch(q, k, v, spec, block_q, block_kv, None, kv_splits, single_tile=single_tile)
     flash_fwd_splitkv.launches += 1
     count_head_dim(flash_fwd_splitkv, q.shape[3])
     return out
@@ -191,15 +230,17 @@ flash_fwd_splitkv.hd256_launches = 0  # and at head_dim 256
 
 
 def flash_fwd_splitkv_varlen(q, k, v, spec: MaskSpec, q_seg, kv_seg, *, block_q: int,
-                             block_kv: int, kv_splits: int):
+                             block_kv: int, kv_splits: int, single_tile=None):
     """The segment variant of :func:`flash_fwd_splitkv` (int32 q_seg (B, Sq),
     kv_seg (B, Skv))."""
     _check_layout(q, k, v)
     check_segments(q, k, q_seg, kv_seg)
     if q.device.type == "cpu":
         return flash_fwd_splitkv_plain(q, k, v, spec, block_q=block_q, block_kv=block_kv,
-                                       kv_splits=kv_splits, q_seg=q_seg, kv_seg=kv_seg)
-    out = _launch(q, k, v, spec, block_q, block_kv, (q_seg, kv_seg), kv_splits)
+                                       kv_splits=kv_splits, q_seg=q_seg, kv_seg=kv_seg,
+                                       single_tile=single_tile)
+    out = _launch(q, k, v, spec, block_q, block_kv, (q_seg, kv_seg), kv_splits,
+                  single_tile=single_tile)
     flash_fwd_splitkv_varlen.launches += 1
     count_head_dim(flash_fwd_splitkv_varlen, q.shape[3])
     return out
@@ -210,10 +251,12 @@ flash_fwd_splitkv_varlen.hd160_launches = 0  # of those, the launches at head_di
 flash_fwd_splitkv_varlen.hd256_launches = 0  # and at head_dim 256
 
 
-def _launch(q, k, v, spec, block_q, block_kv, segments, kv_splits=None, schedule="compact"):
+def _launch(q, k, v, spec, block_q, block_kv, segments, kv_splits=None, schedule="compact",
+            single_tile=None):
     """One launch of the forward kernel; ``kv_splits`` None is the
     single-pass kernel, (o in q's dtype, lse), an int the split-KV one and
-    its fold, a :class:`SplitForward`. The dense schedule reads no table."""
+    its fold, a :class:`SplitForward`. The dense schedule reads no table.
+    At head_dim 256 a CTA takes one q tile or a pair (:func:`_tile_mode`)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on cuda (kernel) or cpu (plain), not {q.device}")
     B, Sq, Hq, D = q.shape
@@ -227,6 +270,7 @@ def _launch(q, k, v, spec, block_q, block_kv, segments, kv_splits=None, schedule
     ks = split_count(Skv, block_kv, kv_splits) if split else 1
     if ks > 65535:
         raise ValueError(f"{ks} kv splits exceed the grid's z limit (65535)")
+    single = _tile_mode(single_tile, B, Hq, t_q, D, ks)
     sched = None if dense else device_schedule(spec, t_q, t_kv, block_q, block_kv, Skv, False,
                                                str(q.device), ks)
     seg = segment_args(segments, sched, block_q, block_kv, kv_major=False)
@@ -253,7 +297,7 @@ def _launch(q, k, v, spec, block_q, block_kv, segments, kv_splits=None, schedule
         int(spec.causal), -1 if spec.window is None else int(spec.window),
         int(spec.sink), int(spec.q_offset), t_q, int(split), ks, int(dense), *seg.args,
         o_fold.data_ptr() if split else None, lse_fold.data_ptr() if split else None,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        torch.cuda.current_stream(q.device).cuda_stream, int(single),
     )
     _build.check(err, "fa2_fwd_bf16")
     return SplitForward(o_fold, lse_fold, o, lse) if split else (o, lse)
@@ -323,13 +367,13 @@ def _check_kernel_inputs(what: str, blocks, head_dims=KERNEL_HEAD_DIMS, **tensor
 def _lib():
     lib = _build.load("flash_fwd")
     P, I, L = _build.VOIDP, _build.INT, _build.I64
-    lib.fa2_fwd_bf16.argtypes = [P] * 6 + [L] * 13 + [I] * 16 + [P, P, L, L, P, I, P, P, P]
+    lib.fa2_fwd_bf16.argtypes = [P] * 6 + [L] * 13 + [I] * 16 + [P, P, L, L, P, I, P, P, P, I]
     lib.fa2_fwd_bf16.restype = ctypes.c_int
     return lib
 
 
 def flash_fwd_plain(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int,
-                    q_seg=None, kv_seg=None, schedule: str = "compact"):
+                    q_seg=None, kv_seg=None, schedule: str = "compact", single_tile=None):
     """The kernel's algorithm in plain PyTorch (f32 math, any device).
 
     Same tiles, same visit order (the per-q-tile schedule), same mask value
@@ -341,14 +385,17 @@ def flash_fwd_plain(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int,
     ids, applies where the rule of ``schedule.decode_step_bits`` says.
     ``schedule="dense"`` walks every kv tile and classifies it by
     :func:`visibility` instead (:class:`_Walk`): the same steps, so the
-    same result to the bit."""
+    same result to the bit. In one-q-tile mode (:func:`_tile_mode`) a
+    tile's steps are dealt to two running states, as the kernel deals
+    them to its warpgroups (:func:`_plain_walk`)."""
     flash_fwd_plain.calls += 1
     _check_layout(q, k, v)
     B, Sq, Hq, D = q.shape
     t_q, t_kv = _tiles(Sq, block_q), _tiles(k.shape[1], block_kv)
     walk = _Walk.of(schedule, spec, t_q, t_kv, block_q, block_kv, k.shape[1], q_seg, kv_seg,
                     kv_major=False)
-    o, lse = _plain_walk(q, k, v, spec, block_q, block_kv, walk)
+    o, lse = _plain_walk(q, k, v, spec, block_q, block_kv, walk,
+                         _tile_mode(single_tile, B, Hq, t_q, D))
     return o[0].reshape(B, Sq, Hq, D).to(q.dtype), lse[0].reshape(B, Hq, Sq)
 
 
@@ -356,7 +403,8 @@ flash_fwd_plain.calls = 0
 
 
 def flash_fwd_splitkv_plain(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: int,
-                            kv_splits: int, q_seg=None, kv_seg=None) -> SplitForward:
+                            kv_splits: int, q_seg=None, kv_seg=None,
+                            single_tile=None) -> SplitForward:
     """The split-KV kernels' algorithm in plain PyTorch: the walk of
     :func:`flash_fwd_plain` over :func:`build_split_schedule`'s owners, each
     (q tile, split) finalised on its own into f32 partials o_parts
@@ -368,7 +416,8 @@ def flash_fwd_splitkv_plain(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: 
     t_q, t_kv = _tiles(Sq, block_q), _tiles(k.shape[1], block_kv)
     sched = build_split_schedule(spec, t_q, t_kv, block_q, block_kv, k.shape[1], kv_splits)
     walk = _Walk(spec, block_q, block_kv, k.shape[1], q_seg, kv_seg, kv_major=False, csr=sched)
-    o, lse = _plain_walk(q, k, v, spec, block_q, block_kv, walk)
+    o, lse = _plain_walk(q, k, v, spec, block_q, block_kv, walk,
+                         _tile_mode(single_tile, B, Hq, t_q, D, sched.splits))
     ks = sched.splits  # o (ks, B, Sq, Hk, G, D), lse (ks, B, Hk, G, Sq)
     o_parts = o.permute(1, 3, 4, 0, 2, 5).reshape(B, Hq, ks, Sq, D)
     lse_parts = lse.permute(1, 2, 3, 0, 4).reshape(B, Hq, ks, Sq)
@@ -379,11 +428,14 @@ def flash_fwd_splitkv_plain(q, k, v, spec: MaskSpec, *, block_q: int, block_kv: 
 flash_fwd_splitkv_plain.calls = 0
 
 
-def _plain_walk(q, k, v, spec, block_q, block_kv, walk):
+def _plain_walk(q, k, v, spec, block_q, block_kv, walk, single=False):
     """Every owner of the q-major ``walk`` (q tile ``a // splits``, split
     ``a % splits``) walked and finalised as the kernel does: o (ks, B, Sq,
     Hk, G, D) f32 and lse (ks, B, Hk, G, Sq); an owner with no step gives
-    (0, -inf)."""
+    (0, -inf). ``single``: the kernel's one-q-tile mode, where an owner's
+    steps go to two running states in turn, by their ordinal among the
+    steps each batch row takes (a CTA is one batch row and head), and the
+    two are merged at the end, state 0 first (:func:`merge_running`)."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hk, _ = k.shape
     G = Hq // Hk
@@ -403,8 +455,9 @@ def _plain_walk(q, k, v, spec, block_q, block_kv, walk):
         qi = qh[:, r0:r1]
         rows = torch.arange(r0, r1, device=q.device) + spec.q_offset
         m = torch.full((B, Hk, G, r1 - r0), float("-inf"), device=q.device)
-        l = torch.zeros_like(m)
-        acc = torch.zeros((B, Hk, G, r1 - r0, D), device=q.device)
+        state = (m, torch.zeros_like(m), torch.zeros((B, Hk, G, r1 - r0, D), device=q.device))
+        states = [state, state] if single else [state]
+        dealt = torch.zeros(B, dtype=torch.long, device=q.device)  # steps taken per batch row
         for j, active, needs_mask in walk.steps(a):
             c0, c1 = j * block_kv, (j + 1) * block_kv
             sc = torch.einsum("bqhgd,bkhd->bhgqk", qi, kp[:, c0:c1])
@@ -414,21 +467,39 @@ def _plain_walk(q, k, v, spec, block_q, block_kv, walk):
                 tm = make_tile_mask(spec, rows, cols)
                 vis = vis if tm is None else vis & tm
                 sc = apply_mask(sc, seg.mask(vis, r0, r1, c0, c1))
-            m_new = torch.maximum(m, sc.amax(dim=-1))
-            alpha = torch.where(torch.isneginf(m), torch.zeros_like(m), torch.exp(m - m_new))
-            p = torch.exp(sc - m_new[..., None])
-            l_new = l * alpha + p.sum(dim=-1)
-            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(),
-                              vp[:, c0:c1].float())
-            acc = seg.select(active, acc * alpha[..., None] + pv, acc)
-            l = seg.select(active, l_new, l)
-            m = seg.select(active, m_new, m)
+            vt = vp[:, c0:c1].float()
+            if not single:
+                states[0] = _online_step(states[0], sc, vt, v.dtype, active, seg.select)
+                continue
+            took = torch.ones(B, dtype=torch.bool, device=q.device) if active is True else active
+            for w in (0, 1):
+                sel = took & (dealt % 2 == w)
+                if sel.any():
+                    states[w] = _online_step(states[w], sc, vt, v.dtype,
+                                             True if sel.all() else sel, seg.select)
+            dealt += took
+        m, l, acc = merge_running(*states) if single else states[0]
         l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
         o[split, :, r0:r1] = (acc / l_safe[..., None]).permute(0, 3, 1, 2, 4)
         lse[split, ..., r0:r1] = torch.where(
             l == 0.0, torch.full_like(l, float("-inf")), m + torch.log(l_safe)
         )
     return o, lse
+
+
+def _online_step(state, sc, vt, p_dtype, active, select):
+    """One step of the online softmax (FA2 Algorithm 1 lines 8-10, the
+    accumulator un-rescaled) on the running ``state`` (m, l, acc), for the
+    batch rows in ``active``: scores ``sc``, V tile ``vt``, P rounded to
+    ``p_dtype`` before P V, as the kernel rounds it."""
+    m, l, acc = state
+    m_new = torch.maximum(m, sc.amax(dim=-1))
+    alpha = torch.where(torch.isneginf(m), torch.zeros_like(m), torch.exp(m - m_new))
+    p = torch.exp(sc - m_new[..., None])
+    l_new = l * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(p_dtype).float(), vt)
+    return (select(active, m_new, m), select(active, l_new, l),
+            select(active, acc * alpha[..., None] + pv, acc))
 
 
 def visibility(spec: MaskSpec, i: int, j: int, bq: int, bk: int, kv_valid: int,

@@ -22,7 +22,7 @@ from repro_torch.core.online_softmax import combine_lse_outputs
 from repro_torch.kernels import flash_bwd as _bwd
 from repro_torch.kernels import flash_decode as _dec
 from repro_torch.kernels import flash_fwd as _fwd
-from repro_torch.kernels.schedule import SCHEDULES, check_schedule  # noqa: F401 (re-export)
+from repro_torch.kernels.schedule import SCHEDULES, SMS, check_schedule  # noqa: F401 (re-export)
 
 # Split-KV decode fan-out when none is given (the JAX package's fallback
 # when its tuned cache has no entry).
@@ -55,9 +55,8 @@ BLOCK_Q = BLOCK_KV = 64
 # ``setmaxnreg`` moves them to 24 / 240), 64,512 of the SM's 65,536, so
 # one fits at either head dim (shared memory: 82 KB at 64, 162 KB at 128)
 # and the target is the same at every head dim.
-H100_SMS = 132
 FWD_CTAS_PER_SM = 1
-FWD_TARGET_CTAS = H100_SMS * FWD_CTAS_PER_SM
+FWD_TARGET_CTAS = SMS * FWD_CTAS_PER_SM
 MIN_SPLIT_KV_TILES = 4
 
 

@@ -67,6 +67,11 @@ from repro_torch.core.masks import MaskSpec, pad_segments, tile_visibility
 SEG_ACTIVE = 1   # the tiles' id ranges overlap
 SEG_UNIFORM = 2  # both tiles hold one and the same id: no element mask
 
+# Streaming multiprocessors of an H100: the card whose grid the kernels'
+# shape rules fill (``flash_fwd.single_q_tile``, ``flash_bwd.kv_head_split``,
+# ``ops.default_kv_splits``).
+SMS = 132
+
 # Tile schedules: "compact" walks the CSR's visible tiles only; "dense"
 # visits (and fetches) every tile and skips the products of the empty ones.
 SCHEDULES = ("compact", "dense")

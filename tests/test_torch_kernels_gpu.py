@@ -1633,3 +1633,96 @@ def test_dense_training_step_runs_through_the_dense_kernels(cuda, bwd, packed, a
     assert [f.calls for f in plains] == [0] * 5
     assert math.isfinite(losses[1]) and metrics["skipped"] == 0.0
     assert losses[0] == losses[1]
+
+
+# The head_dim-256 forward's two tile modes at gemma3-1b's widths (4 q heads
+# over one kv head; ``flash_fwd.single_q_tile``): (B, S, mode) shapes whose
+# pair grid is under one wave of SMs and take one q tile a CTA (B 1, S 1536:
+# 48 pair CTAs; S 1450: an odd, ragged 23 q tiles) and one that keeps the
+# pair (B 4, S 2048: 256), each causal, under the 512 window, and at
+# q_offset -100 (a q tile and rows that see no key), without and with the
+# packed source's ids.
+HD256_SHAPES = [(1, 1536, "single"), (1, 1450, "single"), (4, 2048, "pair")]
+HD256_SPECS = [dict(causal=True), dict(causal=True, window=512),
+               dict(causal=True, q_offset=-100)]
+
+
+def _fwd_counts(wrapper):
+    return wrapper.launches, wrapper.dense_launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg", [False, True], ids=["unsegmented", "packed"])
+@pytest.mark.parametrize("spec", HD256_SPECS)
+@pytest.mark.parametrize("B,S,mode", HD256_SHAPES)
+def test_hd256_forward_in_both_tile_modes(cuda, B, S, mode, spec, seg):
+    """Compact and DENSE (with and without SEG) in the mode the rule takes
+    and in the other one (forced through the private override): each
+    within the tolerance of its plain version in the same mode, dense
+    bitwise the compact kernel, a second launch bitwise the first, one
+    launch counted per call."""
+    q, k, v = _qkv(cuda, 23, B, S, S, 4, 1, 256)
+    assert fwd_mod.single_q_tile(B, 4, -(-S // 64), 256) == (mode == "single")
+    spec = MaskSpec(**spec)
+    ids = (_packed_ids(B, S).to(cuda),) * 2 if seg else ()
+    plain_ids = dict(q_seg=ids[0], kv_seg=ids[1]) if seg else {}
+    fwd = fwd_mod.flash_fwd_varlen if seg else fwd_mod.flash_fwd
+    for single in (None, mode != "single"):
+        kw = dict(block_q=64, block_kv=64, single_tile=single)
+        before = _fwd_counts(fwd)
+        o, lse = fwd(q, k, v, spec, *ids, **kw)
+        o2, lse2 = fwd(q, k, v, spec, *ids, **kw)
+        o_d, lse_d = fwd(q, k, v, spec, *ids, schedule="dense", **kw)
+        torch.cuda.synchronize()
+        assert _fwd_counts(fwd) == (before[0] + 2, before[1] + 1)
+        o_p, lse_p = fwd_mod.flash_fwd_plain(q, k, v, spec, **plain_ids, **kw)
+        assert _err(o, o_p) < O_TOL and _err(lse, lse_p) < LSE_TOL
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        assert torch.equal(o, o_d) and torch.equal(lse, lse_d)
+
+
+# (B, Sq, Skv, kv splits, mode): the short-q/long-kv corner (one q tile:
+# one tile a CTA, its splits' walks dealt to both warpgroups), gemma3-1b's
+# split prefill (96 CTAs: one tile) and the split at its training shape
+# (512: the pair).
+HD256_SPLIT_CASES = [(1, 64, 8192, 16, "single"), (1, 1536, 1536, 2, "single"),
+                     (4, 2048, 2048, 2, "pair")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg", [False, True], ids=["unsegmented", "packed"])
+@pytest.mark.parametrize("B,Sq,Skv,ks,mode", HD256_SPLIT_CASES)
+def test_hd256_split_forward_in_both_tile_modes(cuda, B, Sq, Skv, ks, mode, seg):
+    """SPLIT (with and without SEG) at 256 in the rule's mode and the other
+    one: partials and fold within the tolerance of the plain version in the
+    same mode, a second launch bitwise the first, one launch counted; at
+    the corner also the single pass (t_q = 1: one tile a CTA)."""
+    q, k, v = _qkv(cuda, 29, B, Sq, Skv, 4, 1, 256)
+    t_q = -(-Sq // 64)
+    n = fwd_mod.split_count(Skv, 64, ks)
+    assert fwd_mod.single_q_tile(B, 4, t_q, 256, n) == (mode == "single")
+    spec = MaskSpec(causal=True, q_offset=Skv - Sq)
+    ids = ()
+    if seg:
+        kv_ids = _packed_ids(B, Skv).to(cuda)
+        ids = (kv_ids[:, Skv - Sq:].contiguous(), kv_ids)
+    plain_ids = dict(q_seg=ids[0], kv_seg=ids[1]) if seg else {}
+    fwd = fwd_mod.flash_fwd_splitkv_varlen if seg else fwd_mod.flash_fwd_splitkv
+    for single in (None, mode != "single"):
+        kw = dict(block_q=64, block_kv=64, single_tile=single)
+        before = fwd.hd256_launches
+        out = fwd(q, k, v, spec, *ids, kv_splits=ks, **kw)
+        out2 = fwd(q, k, v, spec, *ids, kv_splits=ks, **kw)
+        torch.cuda.synchronize()
+        assert fwd.hd256_launches == before + 2
+        ref = fwd_mod.flash_fwd_splitkv_plain(q, k, v, spec, kv_splits=ks, **plain_ids, **kw)
+        assert _err(out.o, ref.o) < O_TOL and _err(out.lse, ref.lse) < LSE_TOL
+        assert _err(out.o_parts, ref.o_parts) < O_TOL
+        assert _err(out.lse_parts, ref.lse_parts) < LSE_TOL
+        assert all(torch.equal(a, b) for a, b in zip(out, out2))
+        if t_q == 1:
+            single_fwd = fwd_mod.flash_fwd_varlen if seg else fwd_mod.flash_fwd
+            o, lse = single_fwd(q, k, v, spec, *ids, **kw)
+            torch.cuda.synchronize()
+            o_p, lse_p = fwd_mod.flash_fwd_plain(q, k, v, spec, **plain_ids, **kw)
+            assert _err(o, o_p) < O_TOL and _err(lse, lse_p) < LSE_TOL
