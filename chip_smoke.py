@@ -10,10 +10,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
      for sm_90a, one nvcc per source, all started together, and print
      nvcc's -Xptxas -v reports (and each instantiation's registers and
-     spills); the forward's head_dim-64/128/160 and fold lines must equal
-     the numbers the parent design built them with (``FWD_PTXAS_BEFORE``),
-     and no head_dim-256 forward instantiation (either tile mode) may spill
-     or serialise its wgmma (the parent's spilled none);
+     spills); the forward's head_dim-64/128 lines must equal the numbers
+     the design before the wide kernels built them with, and the fold's
+     those of its redesign (``FWD_PTXAS_BEFORE``), and no head_dim-160 or
+     -256 forward instantiation (either tile mode) may spill or serialise
+     its wgmma (their parents spilled none);
   3. kernels: hold each kernel against its plain PyTorch version on the
      card in bf16 at qwen3-8b widths (the forward also at odd numbers of
      q tiles, q_offset -100, segment ids that hide half of every q tile,
@@ -138,9 +139,17 @@ the contiguous partials at 16), and times each beside its bound, the
 forward and decode in turns with SDPA (the window as an explicit mask).
 Phase 3 also holds the head_dim-160 kernels (stablelm-12b: 32 q heads over
 8 kv heads, no window) the same way: the forward (B 1, S 1536 causal, the
-ragged S 1500, B 2 S 333), the decode and its SEG instantiation, the paged
-decode; each timed beside its bound, the forward and decode in turns with
-SDPA.
+ragged S 1500, S 260, B 2 S 333), the decode and its SEG instantiation, the
+paged decode; each timed beside its bound, the forward (also at the
+training shape, B 2, S 2048) and decode in turns with SDPA; then the
+forward in both tile modes forced through the override (the prefill and
+the training shape, with and without the packed source's ids, DENSE
+bitwise compact; the split at the prefill with 2 and 3 splits, at every
+corner shape and packed), each against its plain version in the same mode
+and bitwise over two launches. Then the split forward in one-q-tile mode
+at gemma3-1b's corner (32,768 keys) and split prefill and at stablelm-12b's
+corner, 1000 launches each, every one bitwise the first
+(``repeat_launches``).
 After phase 6, the gemma3 serving slice: gemma3-1b at its published widths
 and depth (26 layers, bf16, random weights from seed 0) serves the six
 requests through both engines (the paged one preempting once) with exact
@@ -256,7 +265,8 @@ count, the causal prefill (B 1, S 1536) with 2 and 3 splits, the packed
 training shapes with 2 and 3 splits; and times each corner shape, the
 prefill and the packed shape in turns with the single pass, beside SDPA
 (causal_lower_right where the mask is causal without window or ids, else
-the boolean mask) and the bound of the function's own bytes. Then the short-q/long-kv corner
+the boolean mask) and the bound of the function's own bytes, and the walk
+and the fold each timed alone beside the fold's bound. Then the short-q/long-kv corner
 of the public API (after phase 3): ops.flash_attention and
 core.attention.attention with the default splits on those corner shapes,
 launches exact (the split-KV kernel only), the auto count that of
@@ -286,6 +296,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -355,13 +366,35 @@ WH_TRAIN_B, WH_TRAIN_STEPS = 8, 8
 GPT_LOSS_REL = WH_LOSS_REL = 2.0 ** -8
 
 
+T0 = time.perf_counter()  # each log line carries the seconds since the start
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke {time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
 
 
 def fail(msg: str) -> None:
-    print(f"[chip_smoke] FAIL: {msg}", file=sys.stderr, flush=True)
+    print(f"[chip_smoke {time.perf_counter() - T0:7.1f} s] FAIL: {msg}", file=sys.stderr,
+          flush=True)
     sys.exit(1)
+
+
+def run(main_fn) -> None:
+    """``main_fn()``; an exception it raises is printed with its traceback
+    and the last log line's phase to stderr, and the process ends at once
+    with code 1: after a device fault, the teardown of every live CUDA
+    object would print a warning of its own and bury the traceback."""
+    try:
+        main_fn()
+    except SystemExit:
+        raise
+    except BaseException:  # noqa: BLE001 - reported, then the process ends
+        import traceback
+
+        sys.stdout.flush()
+        print(f"[chip_smoke {time.perf_counter() - T0:7.1f} s] FAIL: an exception "
+              f"ended the run:\n{traceback.format_exc()}", file=sys.stderr, flush=True)
+        os._exit(1)
 
 
 def smi_line() -> str:
@@ -442,31 +475,39 @@ def ptxas_summary(_build, sources) -> str:
     return "\n".join(lines)
 
 
+WIDE_DIMS = (160, 256)  # the head dims of fa2_fwd_wide_kernel (flash_fwd.WIDE_HEAD_DIMS)
+# Registers at entry of the fold kernel (fa2_fwd_fold_kernel<D>, every D),
+# as its redesign built it on the H100 machine's nvcc.
+FOLD_REGISTERS = 40
+
+
 def fwd_inst(D: int, seg: int, split: int, dense: int, single: int = 0) -> str:
     """The ptxas summary's name of a forward instantiation: the pair kernel
-    at head_dim 64, 128 and 160, ``fa2_fwd_wide_kernel`` at 256 (``single``:
-    its one-q-tile mode)."""
-    if D == 256:
-        return f"fa2_fwd_wide_kernel<{seg},{split},{dense},{single}>"
+    at head_dim 64 and 128, ``fa2_fwd_wide_kernel`` at 160 and 256
+    (``single``: its one-q-tile mode)."""
+    if D in WIDE_DIMS:
+        return f"fa2_fwd_wide_kernel<{D},{seg},{split},{dense},{single}>"
     return f"fa2_fwd_kernel<{D},{seg},{split},{dense}>"
 
 
-# The forward's ptxas lines as the parent design built them (registers at
-# entry, spill stores, spill loads in bytes; NVIDIA's nvcc for sm_90a): the
-# head_dim-64/128/160 pair kernel and the folds, which the head_dim-256
-# redesign left as they were. The 256 instantiations of the parent spilled
-# nothing, so no fa2_fwd_wide_kernel may.
+# The forward's ptxas lines (registers at entry, spill stores, spill loads
+# in bytes; NVIDIA's nvcc for sm_90a) that later designs must keep: the
+# head_dim-64/128 pair kernel as the design before the wide kernels built
+# it (the 160 and 256 redesigns left its body as it was), and the fold as
+# its redesign built it (16-byte chunks of rows; before it: 32 registers, no
+# spills). The wide kernel's parents spilled nothing, so no
+# fa2_fwd_wide_kernel may.
 FWD_PTXAS_BEFORE = {
     **{f"fa2_fwd_kernel<{D},{seg},{split},{dense}>":
-       (168, 40, 48) if D in (64, 128) and seg and dense else (168, 0, 0)
-       for D in (64, 128, 160) for seg in (0, 1) for split, dense in ((0, 0), (1, 0), (0, 1))},
-    **{f"fa2_fwd_fold_kernel<{D}>": (32, 0, 0) for D in (64, 128, 160, 256)},
+       (168, 40, 48) if seg and dense else (168, 0, 0)
+       for D in (64, 128) for seg in (0, 1) for split, dense in ((0, 0), (1, 0), (0, 1))},
+    **{f"fa2_fwd_fold_kernel<{D}>": (FOLD_REGISTERS, 0, 0) for D in (64, 128, 160, 256)},
 }
 
 
 def fwd_ptxas_check(ptxas: str) -> None:
-    """The forward's instantiations in the ptxas summary: at head_dim 64,
-    128 and 160 and the fold kernel every line as ``FWD_PTXAS_BEFORE``; at
+    """The forward's instantiations in the ptxas summary: at head_dim 64 and
+    128 and the fold kernel every line as ``FWD_PTXAS_BEFORE``; at 160 and
     256 every ``fa2_fwd_wide_kernel`` (6 modes, 2 tile modes) without
     spills (serialised wgmma: ``wide_ptxas_check``)."""
     import re
@@ -478,18 +519,18 @@ def fwd_ptxas_check(ptxas: str) -> None:
         if m:
             rows[m.group(1)] = tuple(int(m.group(i)) for i in (2, 3, 4))
     changed = [(k, v, rows.get(k)) for k, v in FWD_PTXAS_BEFORE.items() if rows.get(k) != v]
-    log(f"ptxas, the forward against the parent design's build: "
-        f"{len(FWD_PTXAS_BEFORE) - len(changed)} of {len(FWD_PTXAS_BEFORE)} head_dim-64/128/160 "
+    log(f"ptxas, the forward against the earlier builds: "
+        f"{len(FWD_PTXAS_BEFORE) - len(changed)} of {len(FWD_PTXAS_BEFORE)} head_dim-64/128 "
         f"and fold lines equal")
     if changed:
-        fail(f"the forward's ptxas lines changed at 64/128/160 (instantiation, before, now): "
-             f"{changed}")
-    wide = [fwd_inst(256, seg, split, dense, one) for seg in (0, 1)
+        fail(f"the forward's ptxas lines changed at 64/128 or in the fold (instantiation, "
+             f"before, now): {changed}")
+    wide = [fwd_inst(D, seg, split, dense, one) for D in WIDE_DIMS for seg in (0, 1)
             for split, dense in ((0, 0), (1, 0), (0, 1)) for one in (0, 1)]
     missing = [k for k in wide if k not in rows]
     spilled = [(k, rows[k]) for k in wide if k in rows and rows[k][1:] != (0, 0)]
-    log(f"ptxas, the head_dim-256 forward: {len(wide) - len(missing) - len(spilled)} of "
-        f"{len(wide)} instantiations without spills")
+    log(f"ptxas, the head_dim-160 and -256 forward: {len(wide) - len(missing) - len(spilled)} "
+        f"of {len(wide)} instantiations without spills")
     if missing or spilled:
         fail(f"ptxas reported no {missing} or they spill {spilled}")
 
@@ -3359,12 +3400,133 @@ def hd256_kernel_phase(torch, dev, flush):
 
 def hd160_kernel_phase(torch, dev, flush):
     """The head_dim-160 kernels at stablelm-12b's shapes (``head_dim_kernel_phase``;
-    causal, no window; the forward also at the ragged S 1500 and at B 2, S 333),
-    then the split-KV forward as at 256 (``split_kernel_phase``)."""
-    return {**head_dim_kernel_phase(torch, dev, flush, SL_D, SL_HQ, SL_HKV, None, seed=8,
-                                    fwd_shapes=((1, 1536), (1, 1500), (2, 333))),
+    causal, no window; the forward also at the ragged S 1500, at S 260 (one
+    q tile a CTA) and at B 2, S 333, and timed at the training shape), then
+    the split-KV forward as at 256 (``split_kernel_phase``), then the
+    forward in both tile modes (``wide_tile_modes``)."""
+    rows = {**head_dim_kernel_phase(torch, dev, flush, SL_D, SL_HQ, SL_HKV, None, seed=8,
+                                    fwd_shapes=((1, 1536), (1, 1500), (1, 260), (2, 333))),
             **split_kernel_phase(torch, dev, flush, SL_D, SL_HQ, SL_HKV, SL_CORNER, None,
                                  SL_TRAIN_B, SL_TRAIN_S, SL_VOCAB, seed=42)}
+    rows[f"flash_fwd_hd{SL_D}"]["both_tile_modes_max_abs_err"] = wide_tile_modes(
+        torch, dev, SL_D, SL_HQ, SL_HKV, SL_CORNER, SL_TRAIN_B, SL_TRAIN_S, SL_VOCAB, seed=43)
+    return rows
+
+
+def wide_tile_modes(torch, dev, D, hq, hkv, corner, B_tr, S_tr, vocab, *, seed) -> float:
+    """The head_dim-``D`` forward (``fa2_fwd_wide_kernel``) in both tile
+    modes, each forced through the wrappers' private ``single_tile``
+    override, against its plain version in the same mode: the single pass,
+    causal, at the prefill (B 1, S 1536) and the training shape (``B_tr``,
+    ``S_tr``; also on the packed source's step-0 ids), each DENSE bitwise
+    compact and a second launch bitwise the first; the split-KV forward at
+    the prefill with 2 and 3 splits, at every ``corner`` shape with the auto
+    split (with ``check_split``'s planted fault as control) and at the
+    packed training shape with 2 splits, each a second launch bitwise the
+    first. Returns the largest max |o - plain|."""
+    from repro_torch.core.masks import MaskSpec
+    from repro_torch.kernels import flash_fwd as fwd
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tiles = dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
+
+    def inputs(B, Sq, Skv):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+        return ops._prep(randn(B, Sq, hq, D), 1 / math.sqrt(D)), randn(B, Skv, hkv, D), \
+            randn(B, Skv, hkv, D)
+
+    def mode_name(single):
+        return "one q tile a CTA" if single else "a pair of q tiles a CTA"
+
+    causal = MaskSpec(causal=True)
+    ids = torch.from_numpy(packed_ids(B_tr, S_tr, vocab=vocab)).to(dev)
+    err = 0.0
+    for B, S, seg in ((1, 1536, ()), (B_tr, S_tr, ()), (B_tr, S_tr, (ids, ids))):
+        q, k, v = inputs(B, S, S)
+        plain_ids = dict(q_seg=seg[0], kv_seg=seg[1]) if seg else {}
+        wrapper = fwd.flash_fwd_varlen if seg else fwd.flash_fwd
+        for single in (False, True):
+            kw = dict(tiles, single_tile=single)
+            got = wrapper(q, k, v, causal, *seg, **kw)
+            again = wrapper(q, k, v, causal, *seg, **kw)
+            dense = wrapper(q, k, v, causal, *seg, schedule="dense", **kw)
+            torch.cuda.synchronize()
+            what = (f"{wrapper.__name__} D={D} B={B} S={S} causal, {mode_name(single)} "
+                    f"(forced; the rule's: {tile_mode(fwd, B, hq, S, D)})")
+            err = max(err, check_fwd(torch, what, got, fwd.flash_fwd_plain(
+                q, k, v, causal, **plain_ids, **kw)))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            dense_same = all(torch.equal(a, b) for a, b in zip(got, dense))
+            log(f"{what}: a second launch bitwise the first {same}; DENSE bitwise compact "
+                f"{dense_same}")
+            if not (same and dense_same):
+                fail(f"{what}: not bitwise over two launches or DENSE not bitwise compact")
+    cases = [(1, 1536, 1536, causal, ks, None) for ks in (2, 3)]
+    cases += [(1, CORNER_ROWS, Skv, corner_spec(Skv, w), ops.resolve_kv_splits(
+        None, (1, CORNER_ROWS, hq, D), (1, Skv, hkv, D)), None) for Skv, w in corner]
+    cases.append((B_tr, S_tr, S_tr, causal, SPLIT_KS, ids))
+    for B, Sq, Skv, spec, ks, seg_ids in cases:
+        q, k, v = inputs(B, Sq, Skv)
+        seg = () if seg_ids is None else (seg_ids, seg_ids)
+        plain_ids = {} if seg_ids is None else dict(q_seg=seg_ids, kv_seg=seg_ids)
+        sfx = "" if seg_ids is None else "_varlen"
+        split_fn, single_fn = (getattr(fwd, f"flash_fwd{m}{sfx}") for m in ("_splitkv", ""))
+        for single in (False, True):
+            kw = dict(tiles, single_tile=single)
+            out = split_fn(q, k, v, spec, *seg, kv_splits=ks, **kw)
+            again = split_fn(q, k, v, spec, *seg, kv_splits=ks, **kw)
+            one = single_fn(q, k, v, spec, *seg, **kw)
+            torch.cuda.synchronize()
+            ref = fwd.flash_fwd_splitkv_plain(q, k, v, spec, kv_splits=ks, **plain_ids, **kw)
+            what = (f"{split_fn.__name__} D={D} B={B} Sq={Sq} Skv={Skv}, {ks} splits, "
+                    f"{mode_name(single)} (forced; the rule's: "
+                    f"{tile_mode(fwd, B, hq, Sq, D, ks)})")
+            err = max(err, check_split(torch, what, out, ref, one, control=Sq == CORNER_ROWS))
+            if not all(torch.equal(a, b) for a, b in zip(out, again)):
+                fail(f"{what}: not bitwise over two launches")
+    return err
+
+
+REPEATS = 1000  # launches of each repeat_launches shape
+
+
+def repeat_launches(torch, dev) -> None:
+    """The split forward in one-q-tile mode (each warpgroup waits on every
+    second position of the ring) at gemma3-1b's corner (32,768 keys, 33
+    splits, the 3-stage ring at 256) and split prefill, and at
+    stablelm-12b's corner, launched ``REPEATS`` times each: every launch
+    must be bitwise the first (partials and fold). With one barrier slot a
+    stage of the 3-stage ring, about one launch in 2000 at gemma3's corner
+    took another position's record and tiles."""
+    from repro_torch.core.masks import MaskSpec
+    from repro_torch.kernels import flash_fwd as fwd
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(44)
+    for D, hq, hkv, Sq, Skv, ks in ((G3_D, G3_HQ, G3_HKV, CORNER_ROWS, 32768, None),
+                                    (G3_D, G3_HQ, G3_HKV, 1536, 1536, 2),
+                                    (SL_D, SL_HQ, SL_HKV, CORNER_ROWS, 32768, None)):
+        q = ops._prep(torch.randn((1, Sq, hq, D), generator=gen, device=dev).to(torch.bfloat16),
+                      1 / math.sqrt(D))
+        k, v = (torch.randn((1, Skv, hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        ks = ks or ops.resolve_kv_splits(None, q.shape, k.shape)
+        kw = dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV, kv_splits=ks, single_tile=True)
+        spec = MaskSpec(causal=True, q_offset=Skv - Sq)
+        first = fwd.flash_fwd_splitkv(q, k, v, spec, **kw)
+        differed = torch.zeros((), dtype=torch.int64, device=dev)
+        for _ in range(REPEATS):
+            out = fwd.flash_fwd_splitkv(q, k, v, spec, **kw)
+            differed += torch.stack([torch.ne(a, b).any() for a, b in zip(out, first)]).any()
+        n = int(differed.item())
+        log(f"flash_fwd_splitkv D={D} Sq={Sq} Skv={Skv}, {ks} splits, one q tile a CTA: "
+            f"{REPEATS - n} of {REPEATS} launches bitwise the first")
+        if n:
+            fail(f"flash_fwd_splitkv D={D} Sq={Sq} Skv={Skv}: {n} of {REPEATS} launches not "
+                 f"bitwise the first")
 
 
 def hd64_granite_kernel_phase(torch, dev, flush):
@@ -3443,9 +3605,9 @@ def head_dim_kernel_phase(torch, dev, flush, D, hq, hkv, window, *, seed, fwd_sh
             f"turns (fwd, sdpa, sdpa, fwd) {turns}: fwd / sdpa {ms / lib_ms:.4f}")
         fwd_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                               library_ms=lib_ms, sdpa_ratio_in_turns=ms / lib_ms)
-    if D == 256:
-        fwd_rows["causal"].update(wide_fwd_at_training_shape(torch, dev, flush, randn, hq,
-                                                             hkv))
+    if D in WIDE_DIMS:
+        fwd_rows["causal"].update(wide_fwd_at_training_shape(
+            torch, dev, flush, randn, D, hq, hkv, G3_TRAIN_B if D == 256 else SL_TRAIN_B))
 
     # --- the contiguous decode at the fixed engine's shape.
     B, S = 4, CACHE
@@ -3588,19 +3750,19 @@ def head_dim_kernel_phase(torch, dev, flush, D, hq, hkv, window, *, seed, fwd_sh
     }
 
 
-def wide_fwd_at_training_shape(torch, dev, flush, randn, hq, hkv) -> dict:
-    """The head_dim-256 forward (row 1g) at gemma3-1b's training shape (B 4,
-    S 2048, causal: a pair of q tiles a CTA) in turns with SDPA (kernel,
-    SDPA, SDPA, kernel) after the L2 flush, held to its plain version
-    first. The design before this one is timed beside it by
-    ``tools/ab_forward.py parent``."""
+def wide_fwd_at_training_shape(torch, dev, flush, randn, D, hq, hkv, B) -> dict:
+    """The head_dim-``D`` forward (rows 1g, 1l) at the training shape (B,
+    S 2048, causal: a pair of q tiles a CTA; gemma3-1b's B 4, stablelm-12b's
+    B 2) in turns with SDPA (kernel, SDPA, SDPA, kernel) after the L2 flush,
+    held to its plain version first. The design before this one is timed
+    beside it by ``tools/ab_forward.py parent``."""
     import torch.nn.functional as F
 
     from repro_torch.core.masks import MaskSpec
     from repro_torch.kernels import flash_fwd as fwd
     from repro_torch.kernels import ops
 
-    D, B, S, tiles = 256, 4, 2048, dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
+    S, tiles = 2048, dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
     spec = MaskSpec(causal=True)
     q = ops._prep(randn(B, S, hq, D), 1.0 / math.sqrt(D))
     k, v = randn(B, S, hkv, D), randn(B, S, hkv, D)
@@ -4360,7 +4522,7 @@ KV_SPILLS_BEFORE = {
 def wide_ptxas_check(ptxas: str) -> None:
     """The dense instantiations at head_dim 256 and 160 (forward, fused,
     dK/dV, dQ; without and with SEG) and the split-KV forward's (without and
-    with SEG; the 256 forward's in each tile mode) against their compact
+    with SEG; the forward's in each tile mode) against their compact
     single-pass twins in the ptxas summary:
     no more spill bytes, and for the split forward 168 registers at entry as
     its twin; every fused and dK/dV instantiation at 168 registers at entry
@@ -4377,10 +4539,9 @@ def wide_ptxas_check(ptxas: str) -> None:
                                 "serialized" in m.group(5))
     for D in (256, 160):
         for seg in (0, 1):
-            pairs = [(fwd_inst(D, seg, 0, 1, one), fwd_inst(D, seg, 0, 0, one))
-                     for one in ((0, 1) if D == 256 else (0,))]
+            pairs = [(fwd_inst(D, seg, 0, 1, one), fwd_inst(D, seg, 0, 0, one)) for one in (0, 1)]
             pairs += [(fwd_inst(D, seg, 1, 0, one), fwd_inst(D, seg, 0, 0, one))
-                      for one in ((0, 1) if D == 256 else (0,))]
+                      for one in (0, 1)]
             pairs += [(f"fa2_bwd_{k}_kernel<{D},{seg},1>", f"fa2_bwd_{k}_kernel<{D},{seg},0>")
                       for k in ("fused", "dkv", "dq")]
             for inst, compact in pairs:
@@ -4748,6 +4909,8 @@ def split_kernel_phase(torch, dev, flush, D, hq, hkv, corner, window, B_seg, S_s
         b_ms, b_by = split_bound(B, Sq, hq, hkv, D, pairs, kv_rows,
                                  0 if seg_ids is None else 2 * B * Skv * 4)
         scratch = partial_bytes(B, Sq, hq, D, ks)
+        walk_ms, fold_ms, fold_b = split_apart(
+            torch, fwd, lambda: split_fn(q, k, v, spec, *seg, kv_splits=ks, **tiles), flush)
         log(f"flash_fwd_splitkv{sfx} D={D} B={B} Sq={Sq} Skv={Skv} {name_of(spec)}, {ks} splits "
             f"({tile_mode(fwd, B, hq, Sq, D, ks)}): kernel (walk + fold) {ms:.4f} ms, the "
             f"single pass in turns {one_ms:.4f} ms (split / single {ms / one_ms:.4f}; turns "
@@ -4755,11 +4918,14 @@ def split_kernel_phase(torch, dev, flush, D, hq, hkv, corner, window, B_seg, S_s
             f"{ms / lib_ms:.4f}; with the boolean mask {bool_ms:.4f} ms), bound {b_ms:.4f} ms "
             f"({b_by}; {pairs} visible pairs a q head, {kv_rows} kv rows), {ms / b_ms:.2f}x the "
             f"bound; the f32 partials (scratch, written and read back) {scratch} bytes, "
-            f"{scratch / PEAK_HBM_BYTES * 1e3:.4f} ms at the memory rate")
+            f"{scratch / PEAK_HBM_BYTES * 1e3:.4f} ms at the memory rate; apart: the walk "
+            f"{walk_ms:.4f} ms, the fold {fold_ms:.4f} ms against its bound {fold_b:.4f} ms "
+            f"(bytes), {fold_ms / fold_b:.2f}x")
         return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                     library_form=form, library_bool_mask_ms=bool_ms, partials_bytes=scratch,
                     single_pass_ms_in_turns=one_ms, splits=ks, shape=[B, Sq, Skv, hq, hkv, D],
-                    mask=name_of(spec), mode=tile_mode(fwd, B, hq, Sq, D, ks))
+                    mask=name_of(spec), mode=tile_mode(fwd, B, hq, Sq, D, ks), walk_ms=walk_ms,
+                    fold_ms=fold_ms, fold_bound_ms=fold_b)
 
     at_corner = [timed(B, Sq, Skv, spec, ks) for B, Sq, Skv, spec, ks, _ in
                  cases[:len(corner_shapes)]]
@@ -4772,6 +4938,27 @@ def split_kernel_phase(torch, dev, flush, D, hq, hkv, corner, window, B_seg, S_s
     if window:
         seg_rec["windowed"] = seg_rows[1]
     return {f"flash_fwd_splitkv_hd{D}": rec, f"flash_fwd_splitkv_varlen_hd{D}": seg_rec}
+
+
+def split_apart(torch, fwd, call, flush):
+    """The split-KV forward's walk alone and its fold alone, each timed after
+    the L2 flush: ``call`` (one split-KV wrapper call) with the fold's launch
+    left out (``flash_fwd._fold`` a no-op while it runs), then the fold
+    kernel on that call's partials. Returns (walk ms, fold ms, the fold's
+    bound in ms: the partials read once, o and lse written once, over the
+    memory rate)."""
+    out = call()
+    o, lse = torch.empty_like(out.o), torch.empty_like(out.lse)
+    fold = fwd._fold
+    fwd._fold = lambda *args: None
+    try:
+        walk_ms = time_ms(torch, call, 20, flush)
+    finally:
+        fwd._fold = fold
+    fold_ms = time_ms(torch, lambda: fold(out.o_parts, out.lse_parts, o, lse), 20, flush)
+    nbytes = 4 * (out.o_parts.numel() + out.lse_parts.numel() + out.lse.numel()) \
+        + out.o.element_size() * out.o.numel()
+    return walk_ms, fold_ms, nbytes / PEAK_HBM_BYTES * 1e3
 
 
 def causal_sdpa_ms(torch, qt, kt, vt, flush):
@@ -5134,6 +5321,7 @@ def main() -> None:
     results.update(bwd_hd64_kernel_phase(torch, dev, scratch.zero_))
     results.update(hd256_kernel_phase(torch, dev, scratch.zero_))
     results.update(hd160_kernel_phase(torch, dev, scratch.zero_))
+    repeat_launches(torch, dev)
     granite = hd64_granite_kernel_phase(torch, dev, scratch.zero_)
     results["flash_decode_paged_hd64"] = granite.pop("flash_decode_paged_hd64")
     for k, row in granite.items():  # the forward and decode at 64, at granite's shapes
@@ -5245,13 +5433,13 @@ def main() -> None:
         for seg, suffix in ((0, ""), (1, "_varlen")):
             for dense, sched in ((0, ""), (1, "_dense")):
                 ptxas_of[f"flash_fwd{suffix}{sched}_hd{D}"] = tuple(
-                    fwd_inst(D, seg, 0, dense, one) for one in ((0, 1) if D == 256 else (0,)))
+                    fwd_inst(D, seg, 0, dense, one) for one in (0, 1))
                 for kernel in ("fused", "dkv", "dq"):
                     ptxas_of[f"flash_bwd_{kernel}{suffix}{sched}_hd{D}"] = (
                         f"fa2_bwd_{kernel}_kernel<{D},{seg},{dense}>")
             # The split walk (SPLIT 1) and its fold.
             ptxas_of[f"flash_fwd_splitkv{suffix}_hd{D}"] = (
-                *(fwd_inst(D, seg, 1, 0, one) for one in ((0, 1) if D == 256 else (0,))),
+                *(fwd_inst(D, seg, 1, 0, one) for one in (0, 1)),
                 f"fa2_fwd_fold_kernel<{D}>")
     for k, inst in ptxas_of.items():
         insts = inst if isinstance(inst, tuple) else (inst,)
@@ -5446,4 +5634,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    run(main)

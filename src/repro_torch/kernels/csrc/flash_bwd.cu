@@ -1860,11 +1860,12 @@ BwdParams bwd_params(const void* q, const void* k, const void* v, const void* do
 }
 
 // Whether an entry's arguments are consistent: segments are on with q ids;
-// the compact schedule reads a table (with segments, step bits too), the
-// dense one neither.
+// the compact schedule reads a table (with segments, step bits too, which
+// may be null where no step is visible: n_vis 0, and no walk reads them),
+// the dense one neither.
 bool schedule_args_ok(const BwdParams& p, int dense) {
   if (dense) return p.table == nullptr && p.bits == nullptr;
-  return p.table != nullptr && (p.q_seg == nullptr || p.bits != nullptr);
+  return p.table != nullptr && (p.q_seg == nullptr || p.bits != nullptr || p.n_vis == 0);
 }
 
 // Whether the KV-stationary kernels take a split of the group's q heads

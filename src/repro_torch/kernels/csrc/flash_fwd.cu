@@ -72,7 +72,8 @@
 // CTA; 64-column steps (the tables' granularity), so the O rescale, the
 // waits and the record hand-over come every 64 keys; 32 KB of K and V a
 // step from L2 for 128 q rows at head_dim 128; causal pairs finish
-// unevenly in the last wave. Under SEG the producer reads each step's bits
+// unevenly in the last wave (at 160 and 256 the grid's order answers that,
+// below). Under SEG the producer reads each step's bits
 // from memory before it can hand the step over, which shows at head_dim 64
 // (shorter steps); a register window over the slices spilled or lost.
 //
@@ -102,16 +103,17 @@
 // each tile's locally normalised o and lse as f32 partials (B, Hq, ks, Sq,
 // D) / (B, Hq, ks, Sq); an owner with no step writes (0, -inf), the merge
 // identity. A second launch on the same stream, fa2_fwd_fold_kernel, folds
-// the splits in one pass (one CTA of D threads per (q row, batch * q
-// head), the logsumexp of the split lse, then o = sum_s exp(lse_s - m) o_s
-// / l) into the single-pass kernel's outputs, bf16 o (B, Sq, Hq, D) and
-// f32 lse (B, Hq, Sq). What it is for: a short query against a long key
-// set (whisper's cross-attention, 4 prompt rows against 1500 frames) is one
-// q tile, so the single-pass grid has only batch * heads CTAs (32 at B =
-// 4) on 132 SMs, each walking every kv tile in series; the work is bound by
-// the bytes of K and V, read at the card's rate only when enough CTAs are
-// in flight. Splits multiply the CTAs by ks and cut each walk to 1/ks. At
-// Sq <= 64 the pair has one tile, so half of each such CTA idles. SPLIT is
+// the splits in one pass (the logsumexp of the split lse, then o = sum_s
+// exp(lse_s - m) o_s / l) into the single-pass kernel's outputs, bf16 o
+// (B, Sq, Hq, D) and f32 lse (B, Hq, Sq). What it is for: a short query
+// against a long key set (whisper's cross-attention, 4 prompt rows against
+// 1500 frames) is one q tile, so the single-pass grid has only batch *
+// heads CTAs (32 at B = 4) on 132 SMs, each walking every kv tile in
+// series; the work is bound by the bytes of K and V, read at the card's
+// rate only when enough CTAs are in flight. Splits multiply the CTAs by ks
+// and cut each walk to 1/ks. At Sq <= 64 the pair kernel (64, 128) has one
+// tile, so half of each such CTA idles (the wide kernel takes one q tile a
+// CTA there). SPLIT is
 // instantiated at every head dim, with and without SEG. Its epilogue writes
 // O's f32 partial straight from the accumulator registers: register 4 tt +
 // i of a consumer thread is column 8 tt + 2 t4 (+1), the mapping that the
@@ -119,8 +121,7 @@
 // and 256 (two n128) the second accumulator's registers follow the first's,
 // so tt runs over every column, the tail's 128-159 included. A split whose
 // range holds no step of a tile hands over only the end record: its
-// consumers read that record and write the merge identity (0, -inf). The
-// fold kernel runs D threads a row (five warps at 160).
+// consumers read that record and write the merge identity (0, -inf).
 //
 // The DENSE instantiation (with and without SEG; never with SPLIT, which
 // the JAX package refuses under the dense schedule, flash_fwd.py:391) reads
@@ -142,73 +143,97 @@
 // training's), DENSE without and with SEG (dense-schedule training), and
 // SPLIT without and with SEG (the short-q/long-kv corner, a split prefill,
 // packed training with a split forward).
-// At 256 the kernel is fa2_fwd_wide_kernel, the same walk, records and
-// consumer math redesigned around three limits of the SM:
-//   * registers: a consumer's O is 64 x 256 f32, 128 registers a thread;
-//     with Q as register fragments (64 more), S (32) and P (16) it would
-//     exceed setmaxnreg's 240. So Q stays in shared memory and S = Q K^T
-//     reads both operands from there (wgmma with A from shared memory, as
-//     FlashAttention-3 does at 256); P V is two n128 products a k-step;
-//   * shared memory: a tile is 32 KB, so a pair's Q (64 KB) leaves room
-//     for 2 stages of K and V (192 KB in all). With one barrier a stage, a
-//     warpgroup held two stages (the pending P V's and the step's S) and
-//     the producer refilled a stage only after a step's softmax. So K and
-//     V have their own full and empty barriers (FlashAttention-3's two
-//     pipelines): a consumer frees K_j once S_j has completed (and the mask
-//     has read the stage's ids), before its softmax, and V_j after the
-//     O += P V that reads it. The producer loads K of a position, then V of
-//     the one before: the next K lands while a step's softmax and P V run.
-//     In pair mode a warpgroup whose tile skips a step never touches that
-//     V; the producer frees it on its behalf (count 128), after its own
-//     wait on the stage, so the arrival falls in that use's phase;
+// At 256 and 160 the kernel is fa2_fwd_wide_kernel<D>, the same walk,
+// records and consumer math redesigned around three limits of the SM:
+//   * registers: at 256 a consumer's O is 64 x 256 f32, 128 registers a
+//     thread; with Q as register fragments (64 more), S (32) and P (16) it
+//     would exceed setmaxnreg's 240. So Q stays in shared memory there and
+//     S = Q K^T reads both operands from it (wgmma with A from shared
+//     memory, as FlashAttention-3 does at 256); P V is two n128 products a
+//     k-step. At 160 O is 80 registers, Q's fragments 40, S 32 and P 16,
+//     so Q is read once into registers (tools/ab_forward.py q_in_smem);
+//   * shared memory: a tile is 32 KB at 256, so a pair's Q (64 KB) leaves
+//     room for 2 stages of K and V; at 160 (20 KB) for 4. With one barrier
+//     a stage, a warpgroup held two stages (the pending P V's and the
+//     step's S) and the producer refilled a stage only after a step's
+//     softmax. So K and V have their own full and empty barriers
+//     (FlashAttention-3's two pipelines): a consumer frees K_j once S_j has
+//     completed (and the mask has read the stage's ids), before its
+//     softmax, and V_j after the O += P V that reads it. The producer loads
+//     K of a position, then V of the one before: the next K lands while a
+//     step's softmax and P V run. In pair mode a warpgroup whose tile skips
+//     a step never touches that V; the producer frees it on its behalf
+//     (count 128), after its own wait on the stage, so the arrival falls in
+//     that use's phase;
 //   * the grid: a pair of q tiles a CTA gives gemma3's prefill (B 1, S
 //     1536, 4 q heads) 48 CTAs on 132 SMs, with causal walks of 1 to 47
-//     tile-steps. Where the pair grid is under one wave (kernels/flash_fwd.py
-//     single_q_tile: B Hq ceil(t_q / 2) ks < 132, or t_q = 1), the wrapper
-//     launches one q tile a CTA (grid (t_q, B Hq, ks); SINGLE) and the
-//     producer deals the tile's taken steps to the two warpgroups in turn,
-//     by their ordinal (the record's kTake0 / kTake1; under DENSE only
-//     taken steps are produced, under SEG only active ones, so dense and
-//     compact deal alike and stay bitwise equal). Each warpgroup keeps its
-//     own m, l and O; a warpgroup reads only its own positions of the ring
-//     (every second one), which has 3 stages here (32 KB of Q + 6 x 32 KB).
-//     Under the deal a warpgroup holds its pending V until its next step,
-//     two positions on: with 2 V stages the producer would wait for a
-//     stage only the waiting warpgroup could free; with 3 it waits for the
-//     other warpgroup's previous step. At the walk's end warpgroup 1 hands
-//     (O, m, l) to warpgroup 0 through the freed ring (named barriers 3 and
-//     4) and warpgroup 0 merges them in that fixed order (no atomics: the
-//     forward stays bitwise the same from run to run) and writes the
-//     tile; SPLIT merges before it writes its f32 partials, and a split
-//     with no step writes (0, -inf). The prefill then runs 96 CTAs whose
-//     longest walk is 24 tile-steps, 12 a warpgroup (47 before), and at
-//     the corner (t_q = 1) the second warpgroup takes half of each split.
-// At 160 (stablelm-12b), 160 is not a whole number of 64-column boxes. Of
-// the two layouts a tile could take, three 128-byte-swizzled boxes (the
-// third half past the tensor, zero-filled by TMA: 24 KB a tile, a 3-stage
-// ring, P V as n128 + n64 into a 96-column accumulator a third of which is
-// zeros) or two such
-// boxes and a tail box of the last 32 columns, 64-byte swizzled, this
-// kernel takes the second: a tile is exactly 20 KB, so the pair's Q (40 KB)
-// and a 4-stage K/V ring (160 KB) fit in 206 KB; S = Q K^T takes its k-steps
-// 8 and 9 from the tail box through a 64-byte-swizzle descriptor
-// (sm90.cuh kmajor_desc), P V is an n128 and an n32 product a k-step
-// (wgmma_rs_k64<160>), and no product or register holds a column that is
-// not there. The cost is a second tensor map per operand (load_tile) and a
-// second swizzle in the Q fragments' and the epilogue's addressing
-// (tile_off). O is 80 registers a consumer thread, Q's fragments 40, S 32
-// and P 16, within setmaxnreg's 240, so Q stays in registers. Every
-// expect_tx counts the whole tile, boxes and tail alike (D * 64 * 2 bytes).
+//     tile-steps, and stablelm's short-q/long-kv corner (one q tile, 4
+//     splits, 32 heads) 128 CTAs each with an idle warpgroup. Where the
+//     pair grid is under one wave (kernels/flash_fwd.py single_q_tile: B Hq
+//     ceil(t_q / 2) ks < 132, or t_q = 1), the wrapper launches one q tile
+//     a CTA (SINGLE) and the producer deals the tile's taken steps to the
+//     two warpgroups in turn, by their ordinal (the record's kTake0 /
+//     kTake1; under DENSE only taken steps are produced, under SEG only
+//     active ones, so dense and compact deal alike and stay bitwise
+//     equal). Each warpgroup keeps its own m, l and O; a warpgroup reads
+//     only its own positions of the ring (every second one), which has 3
+//     stages at 256 (32 KB of Q + 6 x 32 KB) and 4 at 160. Under the deal a
+//     warpgroup holds its pending V until its next step, two positions on:
+//     with 2 V stages the producer would wait for a stage only the waiting
+//     warpgroup could free; with 3 or more it waits for the other
+//     warpgroup's previous step. A warpgroup waits on a barrier by parity,
+//     which tells apart only adjacent phases, so it must see each phase of
+//     every barrier it waits on: the 3-stage ring at 256 has 6 barrier
+//     slots (position p: stage p mod 3, slot p mod 6, each slot one
+//     warpgroup's); with one slot a stage a warpgroup's wait on stage s
+//     could pass while the other's load three positions before was still
+//     landing, and it then took that position's record and tiles for its
+//     own: a wrong split partial in about one of 2000 launches at gemma3's
+//     corner (32,768 keys, 33 splits; tools/stress_kernels.py), a hang of
+//     the same launch in an earlier build. At the walk's end warpgroup 1
+//     hands (O, m, l) to warpgroup 0 through the freed ring (named
+//     barriers 3 and 4) and warpgroup 0 merges them in that fixed order (no atomics: the forward
+//     stays bitwise the same from run to run) and writes the tile; SPLIT
+//     merges before it writes its f32 partials, and a split with no step
+//     writes (0, -inf). gemma3's prefill then runs 96 CTAs whose longest
+//     walk is 24 tile-steps, 12 a warpgroup (47 before), and at the corner
+//     (t_q = 1) the second warpgroup takes half of each split.
+//     The grid puts batch * q head on x, the fastest axis of the block
+//     dispatch, and the tiles, longest walks first, on y: the first wave
+//     then holds the longest walks of every head (stablelm's prefill: 384
+//     pair CTAs, 12 per head, walks of 2 to 24 tile-steps), where with the
+//     tiles on x it held every walk of the first 11 heads and the longest
+//     walks started last (tools/ab_forward.py tile_major_grid).
+// At 160, 160 is not a whole number of 64-column boxes. Of the two layouts
+// a tile could take, three 128-byte-swizzled boxes (the third half past the
+// tensor, zero-filled by TMA: 24 KB a tile, P V as n128 + n64 into a
+// 96-column accumulator a third of which is zeros) or two such boxes and a
+// tail box of the last 32 columns, 64-byte swizzled, this kernel takes the
+// second: a tile is exactly 20 KB; S = Q K^T takes its k-steps 8 and 9 from
+// the tail box through a 64-byte-swizzle descriptor (sm90.cuh kmajor_desc),
+// P V is an n128 and an n32 product a k-step (wgmma_rs_k64<160>), and no
+// product or register holds a column that is not there. The cost is a
+// second tensor map per operand (load_tile) and a second swizzle in the Q
+// fragments' and the epilogue's addressing (tile_off). Every expect_tx
+// counts the whole tile, boxes and tail alike (D * 64 * 2 bytes). The
+// first step of a warpgroup's run issues its P = 0 product on a zero tile
+// that the CTA clears at its start (there is room for one at 160), so a
+// non-finite q row spoils only its own row; at 256 there is no room and the
+// product reads the Q tile, so a non-finite q row turns its whole tile to
+// NaN (the wrappers' stated precondition there).
 // SEG at 160 and 256 works as at 64/128: ids are per row, so the tail box
-// and Q in shared memory change no id addressing; the element mask
-// acts on S's n64 fragment only, never on O's (the n128 + n32 or 2 x n128
-// P V products); a consumer adds its two q ids to O's registers, and each
+// and Q in shared memory change no id addressing; the element mask acts on
+// S's n64 fragment only, never on O's (the n128 + n32 or 2 x n128 P V
+// products); a consumer adds its two q ids to O's registers, and each
 // stage's 64 kv ids (256 bytes) sit beside its step record.
-// DENSE at 160 is the 64/128 code unchanged too: only the producer walks
-// and classifies, the consumers read records. At 256 in pair mode a step
-// hidden from both tiles (past the diagonal, outside the window) fetches
-// its K and no V (nothing would wait for V's bytes); in single mode the
-// producer classifies first and produces only the steps its tile takes.
+// DENSE at 160 and 256: only the producer walks and classifies, the
+// consumers read records. In pair mode a step hidden from both tiles (past
+// the diagonal, outside the window) fetches its K and no V (nothing would
+// wait for V's bytes); in single mode the producer classifies first and
+// produces only the steps its tile takes.
+//
+// The fold of SPLIT's partials (fa2_fwd_fold_kernel) is its own launch
+// (fa2_fwd_fold_f32) after the walk's on the same stream; see its note.
 
 #include <math.h>
 
@@ -221,7 +246,7 @@ constexpr int kBlockN = 64;             // kv rows of a step
 constexpr int kThreads = 3 * 128;       // producer warpgroup, two consumer warpgroups
 constexpr int kConsumers = 2 * 128;
 
-// Stages of the K/V ring of the pair kernel (head_dim 64, 128 and 160).
+// Stages of the K/V ring of the pair kernel (head_dim 64 and 128).
 constexpr int kFwdStages = 4;
 
 struct FwdParams {
@@ -244,8 +269,8 @@ struct FwdParams {
   const int* bits;
   long long q_seg_sb, kv_seg_sb;
   int n_vis;
-  // Head dim 256 only: one q tile a CTA (grid (t_q, B * Hq, ks);
-  // fa2_fwd_wide_kernel<..., true>) instead of a pair.
+  // Head dims 160 and 256 only: one q tile a CTA
+  // (fa2_fwd_wide_kernel<D, ..., true>) instead of a pair.
   int single;
 };
 
@@ -258,11 +283,10 @@ struct FwdMaps {
   CUtensorMap q_tail, k_tail, v_tail;
 };
 
-// Shared memory, in bytes from a 1024-aligned base: the pair's two Q tiles,
-// the K and V stages, each stage's kv ids (SEG) and step record, then the
-// mbarriers. A 64-row tile is D / 64 boxes of 64 rows x 128 bytes (8 KB),
-// and at 160 a tail box of 64 rows x 64 bytes (4 KB): 20 KB, every tile
-// 1024-aligned.
+// Shared memory of the pair kernel, in bytes from a 1024-aligned base: the
+// pair's two Q tiles, the K and V stages, each stage's kv ids (SEG) and
+// step record, then the mbarriers. A 64-row tile is D / 64 boxes of 64 rows
+// x 128 bytes (8 KB), every tile 1024-aligned.
 template <int D>
 struct FwdSmem {
   static constexpr int STAGES = kFwdStages;
@@ -340,8 +364,8 @@ __device__ __forceinline__ bool visible(const FwdParams& p, int qpos, int col) {
 template <int D, bool SEG, bool SPLIT, bool DENSE>
 __global__ void __launch_bounds__(kThreads, 1)
     fa2_fwd_kernel(const FwdParams p, const __grid_constant__ FwdMaps maps) {
-  static_assert(D == 64 || D == 128 || D == 160,
-                "the pair kernel takes head_dim 64, 128 or 160 (256: fa2_fwd_wide_kernel)");
+  static_assert(D == 64 || D == 128,
+                "the pair kernel takes head_dim 64 or 128 (160, 256: fa2_fwd_wide_kernel)");
   using L = FwdSmem<D>;
   constexpr int kStages = L::STAGES;
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are dropped before their fetch
@@ -724,7 +748,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ------------------------------------------------------------ head dim 256
+// ----------------------------------------------------- head dims 160 and 256
 
 // Arrivals of the wide kernel's barriers: one that also sets the phase's
 // expected bytes, and `count` at once.
@@ -739,61 +763,97 @@ __device__ __forceinline__ void mbar_arrive_cnt(uint64_t* bar, uint32_t count) {
                : "memory");
 }
 
-constexpr int kWideStages = 3;  // the most stages of either ring (single mode)
-
-// Shared memory of the 256 kernel, in bytes from a 1024-aligned base: seven
-// 32 KB tiles (single mode: Q, 3 K stages, 3 V stages; pair mode: the two Q
-// tiles, 2 K stages, 2 V stages), each stage's kv ids and step record, the
-// q tiles' id ranges (DENSE with SEG), then the mbarriers: per stage K full,
-// K empty, V full, V empty, and Q's. 230,288 bytes, with the base's
-// alignment 231,312 of the 232,448 a CTA may use.
+// Shared memory of the wide kernel at head_dim D, in bytes from a
+// 1024-aligned base: the tiles (pair mode: the two Q tiles, then
+// PAIR_STAGES K stages and as many V stages; single mode: one Q tile, then
+// SINGLE_STAGES of each; at 160 a zero tile last), each stage's kv ids and
+// step record, the q tiles' id ranges (DENSE with SEG), then the mbarriers:
+// per barrier slot K full, K empty, V full, V empty, and Q's. A position's
+// slot is its stage in pair mode; in single mode, where each warpgroup
+// waits on every second position only, a ring of an odd number of stages
+// has twice as many slots, so that every slot serves one warpgroup and it
+// waits on each of its phases in turn (with one slot a stage, stage s's
+// next user is the other warpgroup, whose parity wait can pass while the
+// slot is still a phase behind: it then reads the record and tiles of the
+// position three before). At 256: seven 32 KB tiles, 230,384 bytes
+// (231,408 with the base's alignment, of the 232,448 a CTA may use); at
+// 160: eleven 20 KB tiles, 226,488 (227,512).
+template <int D>
 struct WideSmem {
-  static constexpr uint32_t TILE = 256 * kBlockM * 2;
-  static constexpr uint32_t KID = 7 * TILE;
-  static constexpr uint32_t STEP = KID + kWideStages * kBlockN * 4;
-  static constexpr uint32_t QRANGE = STEP + kWideStages * 8;
+  static constexpr uint32_t TILE = D * kBlockM * 2;
+  static constexpr int PAIR_STAGES = D == 256 ? 2 : 4;
+  static constexpr int SINGLE_STAGES = D == 256 ? 3 : 4;
+  static constexpr int STAGES = PAIR_STAGES > SINGLE_STAGES ? PAIR_STAGES : SINGLE_STAGES;
+  static constexpr int SINGLE_SLOTS = SINGLE_STAGES % 2 ? 2 * SINGLE_STAGES : SINGLE_STAGES;
+  static constexpr int SLOTS = PAIR_STAGES > SINGLE_SLOTS ? PAIR_STAGES : SINGLE_SLOTS;
+  // The first step's P = 0 product reads a zero tile where one fits.
+  static constexpr bool ZERO_TILE = D != 256;
+  static constexpr int RING_TILES = 2 + 2 * PAIR_STAGES > 1 + 2 * SINGLE_STAGES
+                                        ? 2 + 2 * PAIR_STAGES : 1 + 2 * SINGLE_STAGES;
+  static constexpr uint32_t ZERO = RING_TILES * TILE;
+  static constexpr uint32_t KID = (RING_TILES + (ZERO_TILE ? 1 : 0)) * TILE;
+  static constexpr uint32_t STEP = KID + STAGES * kBlockN * 4;
+  static constexpr uint32_t QRANGE = STEP + STAGES * 8;
   static constexpr uint32_t BARS = QRANGE + 4 * 4;
-  static constexpr uint32_t BYTES = BARS + (4 * kWideStages + 1) * 8;
+  static constexpr uint32_t BYTES = BARS + (4 * SLOTS + 1) * 8;
+  static_assert(BYTES + 1024 <= 232448, "the wide kernel's shared memory exceeds a CTA's");
 };
 
-// The head_dim-256 forward (see the note at the top of this file): the pair
-// kernel's walk, step records and consumer math, with K and V each on their
-// own full and empty barriers, and with SINGLE one q tile a CTA whose steps
-// the producer deals to the two consumer warpgroups in turn. The tile mode
-// is a template flag: at run time it would hold registers the producer's 24
-// cannot spare.
-template <bool SEG, bool SPLIT, bool DENSE, bool SINGLE>
+// The head_dim-160 and -256 forward (see the note at the top of this file):
+// the pair kernel's walk, step records and consumer math, with K and V each
+// on their own full and empty barriers, and with SINGLE one q tile a CTA
+// whose steps the producer deals to the two consumer warpgroups in turn.
+// The tile mode is a template flag: at run time it would hold registers the
+// producer's 24 cannot spare.
+template <int D, bool SEG, bool SPLIT, bool DENSE, bool SINGLE>
 __global__ void __launch_bounds__(kThreads, 1)
     fa2_fwd_wide_kernel(const FwdParams p, const __grid_constant__ FwdMaps maps) {
-  constexpr int D = 256;
-  using L = WideSmem;
+  static_assert(D == 160 || D == 256, "the wide kernel takes head_dim 160 or 256");
+  using L = WideSmem<D>;
+  constexpr bool QREG = D == 160;  // Q as register fragments (at 256 they do not fit)
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are dropped before their fetch
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* k_full = reinterpret_cast<uint64_t*>(sm + L::BARS);
-  uint64_t* k_empty = k_full + kWideStages;
-  uint64_t* v_full = k_empty + kWideStages;
-  uint64_t* v_empty = v_full + kWideStages;
-  uint64_t* q_bar = v_empty + kWideStages;
+  uint64_t* k_empty = k_full + L::SLOTS;
+  uint64_t* v_full = k_empty + L::SLOTS;
+  uint64_t* v_empty = v_full + L::SLOTS;
+  uint64_t* q_bar = v_empty + L::SLOTS;
   int* sKid = reinterpret_cast<int*>(sm + L::KID);
   int2* sStep = reinterpret_cast<int2*>(sm + L::STEP);
   int* sQr = reinterpret_cast<int*>(sm + L::QRANGE);
 
   constexpr bool single = SINGLE;
-  constexpr int nst = single ? 3 : 2;  // stages of each ring
-  constexpr int nq = single ? 1 : 2;   // Q tiles in front of the rings
-  // The CTA's q tile i0 (single), or its pair i0, i0 + 1; longest walks first.
-  const int i0 = single ? p.t_q - 1 - static_cast<int>(blockIdx.x)
-                        : 2 * ((p.t_q + 1) / 2 - 1 - static_cast<int>(blockIdx.x));
+  constexpr int nst = single ? L::SINGLE_STAGES : L::PAIR_STAGES;  // stages of each ring
+  constexpr int nb = single ? L::SINGLE_SLOTS : nst;  // barrier slots: nst or 2 nst
+  constexpr int nq = single ? 1 : 2;  // Q tiles in front of the rings
+  // A position in slot b holds stage b mod nst; its stage's previous user,
+  // nst positions before, was in slot back(b, ph).x at phase back(b, ph).y.
+  auto stage = [](int b) { return nb == nst || b < nst ? b : b - nst; };
+  auto back = [](int b, int ph) {
+    return nb == nst ? make_int2(b, ph ^ 1) : b >= nst ? make_int2(b - nst, ph)
+                                                       : make_int2(b + nst, ph ^ 1);
+  };
+  // batch * q head on x, the fastest axis of the dispatch order, then the
+  // CTA's q tile i0 (single) or its pair i0, i0 + 1 on y, longest walks
+  // first: the first wave holds every head's longest walks.
+  const int bh = blockIdx.x;
+  const int i0 = single ? p.t_q - 1 - static_cast<int>(blockIdx.y)
+                        : 2 * ((p.t_q + 1) / 2 - 1 - static_cast<int>(blockIdx.y));
   const bool has1 = !single && i0 + 1 < p.t_q;
-  const int bh = blockIdx.y;
   const int split = SPLIT ? blockIdx.z : 0;
   const int b = bh / p.Hq, h = bh % p.Hq, hk = h / p.group;
+  if constexpr (L::ZERO_TILE) {
+    uint4* zero = reinterpret_cast<uint4*>(sm + L::ZERO);
+    for (int i = threadIdx.x; i < static_cast<int>(L::TILE / 16); i += kThreads)
+      zero[i] = make_uint4(0u, 0u, 0u, 0u);
+    fence_async_smem();  // the zeros are read by wgmma
+  }
   if (threadIdx.x == 0) {
     // A stage is freed by every consumer thread that reads its records
     // (pair), or by the one warpgroup it was dealt to (single).
     constexpr int users = single ? 128 : kConsumers;
-    for (int s = 0; s < nst; ++s) {
+    for (int s = 0; s < nb; ++s) {
       mbar_init(&k_full[s], 32);  // the producer warp's lanes; TMA bytes on top
       mbar_init(&k_empty[s], users);
       mbar_init(&v_full[s], 1);   // the producer's lane 0 with the bytes
@@ -853,14 +913,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       // The producer has 24 registers: the previous position's step is read
       // back from its record, the id loops have fixed trip counts and the
       // tile mode is a template flag (each of these kept ptxas from spilling).
-      int kst = 0, kph = 0;  // the stage and parity of this position
+      int kb = 0, kph = 0;  // the barrier slot and parity of this position
       if (lane == 0) sStep[nst - 1] = make_int2(-1, 0);  // no step before the first position
       __syncwarp();
       int j;  // this position's kv tile; -1: an end record
       bool more = true;
       // (A `break` out of this loop crashes ptxas 12.9; it ends on its condition.)
       do {
-        mbar_wait(&k_empty[kst], kph ^ 1);
+        const int kst = stage(kb);
+        const int2 free_k = back(kb, kph);
+        mbar_wait(&k_empty[free_k.x], free_k.y);
         // The step this position carries (j < 0: the walk has ended) and
         // which q tile takes it and needs the element mask: the table's
         // flags and step bits, or under DENSE the classifier (with SEG on
@@ -914,11 +976,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         if (j >= 0) {
           // Single mode: tile 0's flags move to the warpgroup dealt, that of
-          // the position's parity (position kst + 3 laps: (kst ^ kph) & 1).
-          if (single) flags <<= (kst ^ kph) & 1;
+          // the position's parity, its slot's (single mode has an even
+          // number of slots).
+          if (single) flags <<= kb & 1;
           if (lane == 0) {
-            mbar_expect_tx(&k_full[kst], L::TILE);
-            load_tile<D>(sm + (nq + kst) * L::TILE, maps.k, maps.k_tail, &k_full[kst], hk,
+            mbar_expect_tx(&k_full[kb], L::TILE);
+            load_tile<D>(sm + (nq + kst) * L::TILE, maps.k, maps.k_tail, &k_full[kb], hk,
                          j * kBlockN, b);
           }
           // Only the element mask reads the kv ids: copy them when a tile
@@ -935,19 +998,20 @@ __global__ void __launch_bounds__(kThreads, 1)
                            : "memory");
             }
             asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
-                             smem_u32(&k_full[kst]))
+                             smem_u32(&k_full[kb]))
                          : "memory");
           }
         }
         if (lane == 0) sStep[kst] = make_int2(j, flags);
-        mbar_arrive(&k_full[kst]);
+        mbar_arrive(&k_full[kb]);
         // V of the previous position's step (its record, which lane 0 wrote,
         // is still in its stage), once the stage's last reader has freed V
         // there. The warpgroups that skip the step (pair mode) never read
         // it: lane 0 frees the stage for them, after the wait, so their
         // arrivals fall in this use's phase. A step that neither takes
         // (DENSE) loads no V: nothing would wait for its bytes.
-        const int vst = kst == 0 ? nst - 1 : kst - 1;
+        const int vb = kb == 0 ? nb - 1 : kb - 1;  // the previous position's slot
+        const int vst = stage(vb);
         int px = 0, py = 0;
         if (lane == 0) {
           px = sStep[vst].x;
@@ -955,28 +1019,30 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         px = __shfl_sync(0xffffffffu, px, 0);
         if (px >= 0) {
-          mbar_wait(&v_empty[vst], (kst == 0 ? kph ^ 1 : kph) ^ 1);
+          const int2 free_v = back(vb, kb == 0 ? kph ^ 1 : kph);
+          mbar_wait(&v_empty[free_v.x], free_v.y);
           if (lane == 0) {
             const int skip = single ? 0 : 2 - __popc(py & (kTake0 | kTake1));
             if (skip < 2) {
-              mbar_arrive_tx(&v_full[vst], L::TILE);
-              load_tile<D>(sm + (nq + nst + vst) * L::TILE, maps.v, maps.v_tail, &v_full[vst],
+              mbar_arrive_tx(&v_full[vb], L::TILE);
+              load_tile<D>(sm + (nq + nst + vst) * L::TILE, maps.v, maps.v_tail, &v_full[vb],
                            hk, px * kBlockN, b);
             } else {
-              mbar_arrive(&v_full[vst]);
+              mbar_arrive(&v_full[vb]);
             }
-            if (skip) mbar_arrive_cnt(&v_empty[vst], 128 * skip);
+            if (skip) mbar_arrive_cnt(&v_empty[vb], 128 * skip);
           }
         }
-        if (++kst == nst) {
-          kst = 0;
+        if (++kb == nb) {
+          kb = 0;
           kph ^= 1;
         }
       } while (j >= 0);
       if (single) {  // a second end record: each warpgroup reads every second position
-        mbar_wait(&k_empty[kst], kph ^ 1);
-        if (lane == 0) sStep[kst] = make_int2(-1, 0);
-        mbar_arrive(&k_full[kst]);
+        const int2 free_k = back(kb, kph);
+        mbar_wait(&k_empty[free_k.x], free_k.y);
+        if (lane == 0) sStep[stage(kb)] = make_int2(-1, 0);
+        mbar_arrive(&k_full[kb]);
       }
     }
   } else {
@@ -998,6 +1064,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int take = w ? kTake1 : kTake0, needs_mask = w ? kMask1 : kMask0;
     const uint32_t sQ = smem_u32(sm) + (single ? 0 : w * L::TILE);
     const uint32_t sK = smem_u32(sm) + nq * L::TILE, sV = sK + nst * L::TILE;
+    // What a run's first P = 0 product reads: any finite tile that has landed.
+    const uint32_t sZ = L::ZERO_TILE ? smem_u32(sm) + L::ZERO : sQ;
 
     // O of the tile: rows r_a / r_a + 8, columns 8 tt + 2 t4 (+1).
     float o[D / 2];
@@ -1007,14 +1075,29 @@ __global__ void __launch_bounds__(kThreads, 1)
     float m_s[2] = {-INFINITY, -INFINITY};  // the same times log2(e)
     float l_r[2] = {0.f, 0.f};              // this thread's share of the row sums
     uint32_t pc[4][4];  // P of the pending step: bf16 A fragments of O += P V
-    int pend = -1;      // the stage whose O += P V is not issued yet
+    int pend = -1;      // the slot whose O += P V is not issued yet
     int pph = 0;        // its parity
     constexpr int stride = single ? 2 : 1;
-    int st = single ? w : 0, ph = 0;  // this warpgroup's position: stage and parity
+    int cb = single ? w : 0, ph = 0;  // this warpgroup's position: slot and parity
 
     mbar_wait(q_bar, 0);
+    // QREG: Q as bf16 A fragments in registers, read once from its swizzled
+    // tile.
+    [[maybe_unused]] uint32_t qf[QREG ? D / 16 : 1][4];
+    if constexpr (QREG) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int row = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = kk * 16 + (lane >> 4) * 8;
+        const uint32_t at = sQ + tile_off<D>(row, col);
+        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                     : "=r"(qf[kk][0]), "=r"(qf[kk][1]), "=r"(qf[kk][2]), "=r"(qf[kk][3])
+                     : "r"(at));
+      }
+    }
     for (;;) {
-      mbar_wait(&k_full[st], ph);
+      const int st = stage(cb);
+      mbar_wait(&k_full[cb], ph);
       // The record, broadcast from lane 0: ptxas then sees the branches
       // around the wgmmas as warp-uniform and does not serialise them.
       int2 rec = sStep[st];
@@ -1027,7 +1110,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (pend >= 0) {
           mbar_wait(&v_full[pend], pph);
           wgmma_fence();
-          wgmma_rs_k64<D>(o, pc, sV + pend * L::TILE);
+          wgmma_rs_k64<D>(o, pc, sV + stage(pend) * L::TILE);
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(o);
@@ -1036,33 +1119,39 @@ __global__ void __launch_bounds__(kThreads, 1)
           mbar_arrive(&v_empty[pend]);
           pend = -1;
         }
-        mbar_arrive(&k_empty[st]);
+        mbar_arrive(&k_empty[cb]);
       } else {
         const int j = rec.x;
         const uint32_t cK = sK + st * L::TILE;
-        // S = Q K^T (64 x 64, both from their swizzled tiles, K-major),
-        // issued together with the pending step's O += P V once its V has
-        // landed. The first step of a run has none pending: it issues one
-        // with P = 0 on the Q tile, which has landed (O += 0 exactly for
-        // finite q: a non-finite q row turns its whole tile to NaN, the
-        // wrappers' stated precondition; this step's own V would cost a
-        // wait, 1-6% in turns, tools/ab_forward.py first_pv_on_own_v), so
-        // the products and their waits are the same on every taken step;
-        // with them conditional, ptxas serialises every wgmma.
+        // S = Q K^T (64 x 64, K-major from its swizzled tile; Q from
+        // registers or its tile), then the pending step's O += P V once its
+        // V has landed: the producer loads that V after this step's K, so S
+        // runs while it lands (tools/ab_forward.py v_wait_before_s). The
+        // first step of a run has none pending: it issues one with P = 0 on
+        // the zero tile (at 256 on the Q tile: O += 0 exactly for finite q,
+        // a non-finite q row turns its whole tile to NaN, the wrappers'
+        // stated precondition there; this step's own V would cost a wait,
+        // tools/ab_forward.py first_pv_on_own_v), so the products and their
+        // waits are the same on every taken step; with them conditional,
+        // ptxas serialises every wgmma.
         const bool first = pend < 0;
         if (first)
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
             for (int e = 0; e < 4; ++e) pc[kk][e] = 0u;
-        mbar_wait(first ? q_bar : &v_full[pend], first ? 0 : pph);
         float s[32];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64<0, 0>(s, kmajor_desc<D>(sQ, kk), kmajor_desc<D>(cK, kk), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          if constexpr (QREG)
+            wgmma_rs_n64<0>(s, qf[kk], kmajor_desc<D>(cK, kk), kk > 0);
+          else
+            wgmma_ss_n64<0, 0>(s, kmajor_desc<D>(sQ, kk), kmajor_desc<D>(cK, kk), kk > 0);
+        }
         wgmma_commit();
-        wgmma_rs_k64<D>(o, pc, first ? sQ : sV + pend * L::TILE);
+        mbar_wait(first ? q_bar : &v_full[pend], first ? 0 : pph);
+        wgmma_rs_k64<D>(o, pc, first ? sZ : sV + stage(pend) * L::TILE);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(s);
@@ -1086,7 +1175,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         // S has completed and the stage's ids are read: K's stage is free
         // while this step's softmax and P V run.
-        mbar_arrive(&k_empty[st]);
+        mbar_arrive(&k_empty[cb]);
 
         // Online softmax (FA2 Algorithm 1 lines 8-10, un-rescaled
         // accumulator) in the exp2 domain.
@@ -1142,19 +1231,19 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
           for (int e = 0; e < 4; ++e) pc[kk][e] = pn[kk][e];
-        pend = st;
+        pend = cb;
         pph = ph;
       }
-      st += stride;
-      if (st >= nst) {
-        st -= nst;
+      cb += stride;
+      if (cb >= nb) {
+        cb -= nb;
         ph ^= 1;
       }
     }
     if (pend >= 0) {  // the last step's O += P V
       mbar_wait(&v_full[pend], pph);
       wgmma_fence();
-      wgmma_rs_k64<D>(o, pc, sV + pend * L::TILE);
+      wgmma_rs_k64<D>(o, pc, sV + stage(pend) * L::TILE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -1172,7 +1261,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // exp2(m_w log2 e - m log2 e), m = max(m0, m1). A warpgroup dealt no
       // step (m = -inf, l = 0) adds nothing; rows that saw no key in either
       // (m = kHidden) add both l's, as the single walk would.
-      float4* xo = reinterpret_cast<float4*>(sm + L::TILE);      // K stages 0-1: 64 KB
+      float4* xo = reinterpret_cast<float4*>(sm + L::TILE);      // K stages 0-1: 2 tiles
       float4* xs = reinterpret_cast<float4*>(sm + 3 * L::TILE);  // K stage 2
       if (w == 1) {
         named_sync(3, 256);
@@ -1239,9 +1328,10 @@ __global__ void __launch_bounds__(kThreads, 1)
               make_float2(o[4 * tt + 2] * inv[1], o[4 * tt + 3] * inv[1]);
       }
     } else {
-      // bf16 O through the warpgroup's Q tile (its last reader, the last
-      // S = Q K^T, has completed; in single mode both warpgroups' have), in
-      // TMA's 128-byte swizzle, then 16-byte chunks of rows to memory.
+      // bf16 O through the warpgroup's Q tile (its last readers, the Q
+      // fragments' reads or the last S = Q K^T, have completed; in single
+      // mode both warpgroups' have), in TMA's swizzle, then 16-byte chunks
+      // of rows to memory.
       unsigned char* stg = sm + (single ? 0 : w * L::TILE);
       named_sync(1 + w, 128);
 #pragma unroll
@@ -1264,38 +1354,62 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The fold of SPLIT's partials: CTA (row, bh) of D threads, thread d folds
-// column d of q row `row` of batch * q head `bh` over the ks splits. The
-// partials are contiguous (B, Hq, ks, Sq, D) / (B, Hq, ks, Sq), the outputs
-// contiguous (B, Sq, Hq, D) bf16 / (B, Hq, Sq) f32. A row that no split saw
-// (every lse -inf) gives o = 0, lse = -inf.
+// The fold of SPLIT's partials, o_parts (B, Hq, ks, Sq, D) and lse_parts
+// (B, Hq, ks, Sq), contiguous f32, into o (B, Sq, Hq, D) bf16 and lse (B,
+// Hq, Sq) f32, contiguous: thread (row, c) of grid column bh folds columns
+// 4 c .. 4 c + 3 of q row `row` of batch * q head bh over the ks splits, m
+// = the max of the split lse, then o = sum_s exp(lse_s - m) o_s / l. It is
+// bound by the bytes of the partials, read once: every thread loads 16
+// bytes a split, neighbouring threads neighbouring chunks of a row and
+// then of the next rows (a CTA reads 4 KB of each split in one run), the
+// loads of four splits in flight at once; a row's lse comes from L1 after
+// its first reader. A row that no split saw (every lse -inf) gives o = 0,
+// lse = -inf.
+constexpr int kFoldThreads = 256;
+
 template <int D>
-__global__ void __launch_bounds__(D) fa2_fwd_fold_kernel(const FwdParams p,
-                                                         __nv_bfloat16* o, float* lse) {
-  const int row = blockIdx.x, bh = blockIdx.y, d = threadIdx.x;
-  const long long base = static_cast<long long>(bh) * p.ks * p.Sq + row;
-  const float* lp = p.lse + base;
-  const float* op = static_cast<const float*>(p.o) + base * D + d;
+__global__ void __launch_bounds__(kFoldThreads)
+    fa2_fwd_fold_kernel(const float* __restrict__ o_parts, const float* __restrict__ lse_parts,
+                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Hq, int Sq,
+                        int ks) {
+  constexpr int C = D / 4;  // 16-byte chunks of a row
+  const int bh = blockIdx.y;
+  const int idx = blockIdx.x * kFoldThreads + threadIdx.x;
+  const int row = idx / C, c = idx % C;
+  if (row >= Sq) return;
+  const long long base = static_cast<long long>(bh) * ks * Sq + row;
+  const float* lp = lse_parts + base;
+  const float4* op = reinterpret_cast<const float4*>(o_parts + base * D) + c;
+  const long long step = static_cast<long long>(Sq) * C;  // float4s from a split to the next
   float m = -INFINITY;
-  for (int s = 0; s < p.ks; ++s) m = fmaxf(m, lp[static_cast<long long>(s) * p.Sq]);
+  for (int s = 0; s < ks; ++s) m = fmaxf(m, __ldg(lp + static_cast<long long>(s) * Sq));
   const float m_safe = m == -INFINITY ? 0.f : m;
-  float l = 0.f, acc = 0.f;
-  for (int s = 0; s < p.ks; ++s) {
-    const float w = expf(lp[static_cast<long long>(s) * p.Sq] - m_safe);
+  float l = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int s = 0; s < ks; ++s) {
+    const float w = expf(__ldg(lp + static_cast<long long>(s) * Sq) - m_safe);
+    const float4 x = __ldcs(op + s * step);  // read once: do not keep it in L1
     l += w;
-    acc += w * op[static_cast<long long>(s) * p.Sq * D];
+    acc.x += w * x.x;
+    acc.y += w * x.y;
+    acc.z += w * x.z;
+    acc.w += w * x.w;
   }
   const float l_safe = l == 0.f ? 1.f : l;
-  const int b = bh / p.Hq, h = bh % p.Hq;
-  o[((static_cast<long long>(b) * p.Sq + row) * p.Hq + h) * D + d] =
-      __float2bfloat16(acc / l_safe);
-  if (d == 0)
-    lse[static_cast<long long>(bh) * p.Sq + row] = l == 0.f ? -INFINITY : m_safe + logf(l_safe);
+  const int b = bh / Hq, h = bh % Hq;
+  uint2 out;
+  out.x = pack_bf16(acc.x / l_safe, acc.y / l_safe);
+  out.y = pack_bf16(acc.z / l_safe, acc.w / l_safe);
+  *reinterpret_cast<uint2*>(o + ((static_cast<long long>(b) * Sq + row) * Hq + h) * D + 4 * c) =
+      out;
+  if (c == 0)
+    lse[static_cast<long long>(bh) * Sq + row] = l == 0.f ? -INFINITY : m_safe + logf(l_safe);
 }
 
 template <int D, bool SEG, bool SPLIT, bool DENSE = false>
-cudaError_t launch(const FwdParams& p, int batch, int Hkv, cudaStream_t stream,
-                   __nv_bfloat16* o_fold, float* lse_fold) {
+cudaError_t launch(const FwdParams& p, int batch, int Hkv, cudaStream_t stream) {
+  constexpr bool kWide = D == 160 || D == 256;
   FwdMaps maps;
   if (!make_map(&maps.q, p.q, batch, p.Sq, p.Hq, D, p.q_sb, p.q_ss, p.q_sh, kBlockM) ||
       !make_map(&maps.k, p.k, batch, p.Skv, Hkv, D, p.k_sb, p.k_ss, p.k_sh, kBlockN) ||
@@ -1307,42 +1421,50 @@ cudaError_t launch(const FwdParams& p, int batch, int Hkv, cudaStream_t stream,
        !make_map(&maps.v_tail, p.v, batch, p.Skv, Hkv, D, p.v_sb, p.v_ss, p.v_sh, kBlockN, 32)))
     return cudaErrorInvalidValue;
   auto kernel = [&p] {
-    if constexpr (D == 256)
-      return p.single ? fa2_fwd_wide_kernel<SEG, SPLIT, DENSE, true>
-                      : fa2_fwd_wide_kernel<SEG, SPLIT, DENSE, false>;
+    if constexpr (D == 160 || D == 256)
+      return p.single ? fa2_fwd_wide_kernel<D, SEG, SPLIT, DENSE, true>
+                      : fa2_fwd_wide_kernel<D, SEG, SPLIT, DENSE, false>;
     else
       return fa2_fwd_kernel<D, SEG, SPLIT, DENSE>;
   }();
   constexpr size_t smem = [] {
-    if constexpr (D == 256)
-      return WideSmem::BYTES;
+    if constexpr (D == 160 || D == 256)
+      return WideSmem<D>::BYTES;
     else
       return FwdSmem<D>::BYTES;
   }() + 1024;  // + the 1024-byte alignment of the base
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.single ? p.t_q : (p.t_q + 1) / 2, batch * p.Hq, p.ks);
+  // The wide kernel takes batch * q head on x (see its note), the pair
+  // kernel its q tiles.
+  const int tiles = p.single ? p.t_q : (p.t_q + 1) / 2;
+  const dim3 grid = kWide ? dim3(batch * p.Hq, tiles, p.ks) : dim3(tiles, batch * p.Hq, p.ks);
   kernel<<<grid, kThreads, smem, stream>>>(p, maps);
-  if constexpr (SPLIT) {
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    fa2_fwd_fold_kernel<D><<<dim3(p.Sq, batch * p.Hq), D, 0, stream>>>(p, o_fold, lse_fold);
-  }
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t dispatch(const FwdParams& p, int batch, int Hkv, bool seg, bool split, bool dense,
-                     cudaStream_t s, __nv_bfloat16* of, float* lf) {
+                     cudaStream_t s) {
   if (dense)
-    return seg ? launch<D, true, false, true>(p, batch, Hkv, s, of, lf)
-               : launch<D, false, false, true>(p, batch, Hkv, s, of, lf);
+    return seg ? launch<D, true, false, true>(p, batch, Hkv, s)
+               : launch<D, false, false, true>(p, batch, Hkv, s);
   if (seg)
-    return split ? launch<D, true, true>(p, batch, Hkv, s, of, lf)
-                 : launch<D, true, false>(p, batch, Hkv, s, of, lf);
-  return split ? launch<D, false, true>(p, batch, Hkv, s, of, lf)
-               : launch<D, false, false>(p, batch, Hkv, s, of, lf);
+    return split ? launch<D, true, true>(p, batch, Hkv, s)
+                 : launch<D, true, false>(p, batch, Hkv, s);
+  return split ? launch<D, false, true>(p, batch, Hkv, s)
+               : launch<D, false, false>(p, batch, Hkv, s);
+}
+
+template <int D>
+cudaError_t fold(const float* o_parts, const float* lse_parts, __nv_bfloat16* o, float* lse,
+                 int batch, int Hq, int Sq, int ks, cudaStream_t stream) {
+  const long long chunks = static_cast<long long>(Sq) * (D / 4);
+  const dim3 grid(static_cast<unsigned>((chunks + kFoldThreads - 1) / kFoldThreads), batch * Hq);
+  fa2_fwd_fold_kernel<D><<<grid, kFoldThreads, 0, stream>>>(o_parts, lse_parts, o, lse, Hq, Sq,
+                                                            ks);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1356,8 +1478,7 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
                             int window, int sink, int q_offset, int t_q, int split, int ks,
                             int dense, const void* q_seg,
                             const void* kv_seg, long long q_seg_sb, long long kv_seg_sb,
-                            const void* bits, int n_vis, void* o_fold, void* lse_fold,
-                            void* stream, int single) {
+                            const void* bits, int n_vis, void* stream, int single) {
   FwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -1381,24 +1502,37 @@ extern "C" int fa2_fwd_bf16(const void* q, const void* k, const void* v, void* o
   // Head dims 128 (qwen3), 64 (whisper), 256 (gemma3) and 160 (stablelm);
   // without and with segments (null ids: none); the compact schedule
   // (table; with segments, step bits) or the dense one (no table, no bits);
-  // single-pass, or (compact only) split-KV partials (o, lse) folded into
-  // (o_fold, lse_fold); at 256 a pair of q tiles a CTA or (single) one.
+  // single-pass (o, lse), or (compact only) split-KV f32 partials (o, lse),
+  // which fa2_fwd_fold_f32 folds; at 160 and 256 a pair of q tiles a CTA
+  // or (single) one.
   if (block_q != kBlockM || block_kv != kBlockN || ks < 1 || t_q < 1) return cudaErrorInvalidValue;
-  if (single && head_dim != 256) return cudaErrorInvalidValue;
-  if (split && (dense || o_fold == nullptr || lse_fold == nullptr))
-    return cudaErrorInvalidValue;
+  if (single && head_dim != 256 && head_dim != 160) return cudaErrorInvalidValue;
+  if (split && dense) return cudaErrorInvalidValue;
   const bool seg = q_seg != nullptr;
   // (No step bits where no step is visible: bits may be null when n_vis is 0.)
   if (dense ? table != nullptr : table == nullptr || (seg && bits == nullptr && n_vis > 0))
     return cudaErrorInvalidValue;
-  auto* of = static_cast<__nv_bfloat16*>(o_fold);
-  auto* lf = static_cast<float*>(lse_fold);
-  if (head_dim == 128)
-    return dispatch<128>(p, batch, Hkv, seg, split != 0, dense != 0, s, of, lf);
-  if (head_dim == 64) return dispatch<64>(p, batch, Hkv, seg, split != 0, dense != 0, s, of, lf);
-  if (head_dim == 256)
-    return dispatch<256>(p, batch, Hkv, seg, split != 0, dense != 0, s, of, lf);
-  if (head_dim == 160)
-    return dispatch<160>(p, batch, Hkv, seg, split != 0, dense != 0, s, of, lf);
+  if (head_dim == 128) return dispatch<128>(p, batch, Hkv, seg, split != 0, dense != 0, s);
+  if (head_dim == 64) return dispatch<64>(p, batch, Hkv, seg, split != 0, dense != 0, s);
+  if (head_dim == 256) return dispatch<256>(p, batch, Hkv, seg, split != 0, dense != 0, s);
+  if (head_dim == 160) return dispatch<160>(p, batch, Hkv, seg, split != 0, dense != 0, s);
+  return cudaErrorInvalidValue;
+}
+
+// The fold of a split-KV launch's partials (fa2_fwd_fold_kernel), on the
+// walk's stream after it: o_parts (B, Hq, ks, Sq, D), lse_parts (B, Hq, ks,
+// Sq) f32 -> o (B, Sq, Hq, D) bf16, lse (B, Hq, Sq) f32, all contiguous.
+extern "C" int fa2_fwd_fold_f32(const void* o_parts, const void* lse_parts, void* o, void* lse,
+                                int batch, int Hq, int Sq, int ks, int head_dim, void* stream) {
+  const auto* op = static_cast<const float*>(o_parts);
+  const auto* lp = static_cast<const float*>(lse_parts);
+  auto* of = static_cast<__nv_bfloat16*>(o);
+  auto* lf = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ks < 1 || Sq < 1 || batch * Hq < 1) return cudaErrorInvalidValue;
+  if (head_dim == 128) return fold<128>(op, lp, of, lf, batch, Hq, Sq, ks, s);
+  if (head_dim == 64) return fold<64>(op, lp, of, lf, batch, Hq, Sq, ks, s);
+  if (head_dim == 256) return fold<256>(op, lp, of, lf, batch, Hq, Sq, ks, s);
+  if (head_dim == 160) return fold<160>(op, lp, of, lf, batch, Hq, Sq, ks, s);
   return cudaErrorInvalidValue;
 }

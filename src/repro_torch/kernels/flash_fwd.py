@@ -4,7 +4,8 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_fwd.py:354 flash_fwd``
 (compact schedule; banded launches included, since on Hopper the q tile is
 a parallel grid axis anyway). The kernel source is ``csrc/flash_fwd.cu``
 (FlashAttention-3's forward: a CTA per pair of q tiles, a TMA producer
-warp, two consumer warpgroups on wgmma; its Hopper helpers are
+warp, two consumer warpgroups on wgmma; at head_dim 160 and 256 its own
+kernel, ``fa2_fwd_wide_kernel``; its Hopper helpers are
 ``csrc/sm90.cuh``); its header says what bounds it on an H100 and how the
 design answers.
 
@@ -31,8 +32,9 @@ the two tiles' visible tiles in its range, and each tile writes its
 locally normalised f32 partial, o_parts
 (B, Hq, ks, Sq, D) and lse_parts (B, Hq, ks, Sq) -- the JAX layout
 (BH, ks, Sq, D) / (BH, ks, Sq). A (q tile, split) with no visible tile
-writes (0, -inf). A second kernel on the same stream folds the partials
-in one pass into the single-pass kernel's (o, lse)
+writes (0, -inf). A second kernel on the same stream (its own C entry,
+:func:`_fold`) folds the partials in one pass into the single-pass
+kernel's (o, lse)
 (:func:`~repro_torch.core.online_softmax.fold_partials` is its plain
 version); the wrapper returns both as a :class:`SplitForward`.
 :func:`flash_fwd_splitkv_varlen` is its segment variant. Both are the same
@@ -42,15 +44,16 @@ The kernels are instantiated at head_dim 64, 128, 160 and 256
 (``KERNEL_HEAD_DIMS``) in every mode: the single pass, compact and dense,
 and the split-KV forward, each without and with segments.
 
-At head_dim 256, where a CTA per pair of q tiles would leave the card short
-(:func:`single_q_tile`), a CTA takes one q tile and deals its steps to its
-two consumer warpgroups in turn, each with its own running state, merged
-once at the end (``csrc/flash_fwd.cu``, ``fa2_fwd_wide_kernel``). The plain
-versions follow the same rule and deal, so they stay the kernels' oracles;
-every wrapper and plain version takes a private ``single_tile`` override
-(None: the rule) for tests and A/B runs. The 256 kernel takes finite q
-only: a run's first zero product reads the Q tile, so a non-finite q row
-turns its whole 64-row q tile to NaN, not only its own row.
+At head_dim 160 and 256, where a CTA per pair of q tiles would leave the
+card short (:func:`single_q_tile`), a CTA takes one q tile and deals its
+steps to its two consumer warpgroups in turn, each with its own running
+state, merged once at the end (``csrc/flash_fwd.cu``,
+``fa2_fwd_wide_kernel``). The plain versions follow the same rule and
+deal, so they stay the kernels' oracles; every wrapper and plain version
+takes a private ``single_tile`` override (None: the rule) for tests and A/B
+runs. The 256 kernel takes finite q only: a run's first zero product reads
+the Q tile, so a non-finite q row turns its whole 64-row q tile to NaN,
+not only its own row (at 160 that product reads a tile of zeros).
 
 ``schedule="dense"`` on :func:`flash_fwd` and :func:`flash_fwd_varlen`
 replaces the dense body ``_fwd_kernel_dense`` (``flash_fwd.py:206``, with
@@ -90,6 +93,9 @@ from repro_torch.kernels.schedule import (SMS, build_kv_tile_schedule, build_q_t
 # segments).
 KERNEL_BLOCKS = ((64, 64),)
 KERNEL_HEAD_DIMS = (64, 128, 160, 256)
+# The head dims of ``fa2_fwd_wide_kernel``, which takes one q tile a CTA
+# where the pair grid is short of the card.
+WIDE_HEAD_DIMS = (160, 256)
 
 
 def _tiles(n: int, block: int) -> int:
@@ -107,26 +113,30 @@ def _check_layout(q, k, v):
 
 def single_q_tile(B: int, Hq: int, t_q: int, D: int, ks: int = 1) -> bool:
     """Whether the forward takes one q tile a CTA (True) or a pair (False):
-    at head_dim 256 only, where the pair grid, B * Hq * ceil(t_q / 2) * ks
-    CTAs, is under one wave of the card's SMs, or where there is one q tile
-    (t_q == 1: a pair would leave its second warpgroup idle). A fixed rule
-    of the shape, never of the schedule, the mask or the segment ids, so
-    dense, compact and segment launches take the same mode and stay bitwise
-    comparable. gemma3-1b's prefill (B 1, S 1536: 48 pair CTAs), a split
-    prefill (96) and the short-q/long-kv corner take one tile; its training
-    shape (B 4, S 2048: 256) keeps the pair, which reads each K/V tile once
-    for two q tiles and is the faster mode where the grid fills the card
+    at head_dim 160 and 256 only (``WIDE_HEAD_DIMS``), where the pair grid,
+    B * Hq * ceil(t_q / 2) * ks CTAs, is under one wave of the card's SMs,
+    or where there is one q tile (t_q == 1: a pair would leave its second
+    warpgroup idle). A fixed rule of the shape, never of the schedule, the
+    mask or the segment ids, so dense, compact and segment launches take
+    the same mode and stay bitwise comparable. gemma3-1b's prefill (B 1, S
+    1536: 48 pair CTAs), a split prefill (96), short stablelm-12b prompts
+    (S up to 512 at B 1) and both models' short-q/long-kv corners take one
+    tile; gemma3's training shape (B 4, S 2048: 256) and stablelm's prefill
+    (B 1, S 1536: 384) keep the pair, which reads each K/V tile once for
+    two q tiles and is the faster mode where the grid fills the card
     (``tools/ab_forward.py single_grid``)."""
-    return D == 256 and (t_q == 1 or B * Hq * -(-t_q // 2) * ks < SMS)
+    return D in WIDE_HEAD_DIMS and (t_q == 1 or B * Hq * -(-t_q // 2) * ks < SMS)
 
 
 def _tile_mode(single_tile, B: int, Hq: int, t_q: int, D: int, ks: int = 1) -> bool:
     """The mode a launch takes: :func:`single_q_tile`'s, or the private
-    override ``single_tile`` (one q tile a CTA is built at head_dim 256 only)."""
+    override ``single_tile`` (one q tile a CTA is built at head_dim 160 and
+    256 only)."""
     if single_tile is None:
         return single_q_tile(B, Hq, t_q, D, ks)
-    if single_tile and D != 256:
-        raise ValueError(f"one q tile a CTA is built at head_dim 256 only, not {D}")
+    if single_tile and D not in WIDE_HEAD_DIMS:
+        raise ValueError(f"one q tile a CTA is built at head_dim 160 and head_dim 256 only, "
+                         f"not {D}")
     return bool(single_tile)
 
 
@@ -256,7 +266,8 @@ def _launch(q, k, v, spec, block_q, block_kv, segments, kv_splits=None, schedule
     """One launch of the forward kernel; ``kv_splits`` None is the
     single-pass kernel, (o in q's dtype, lse), an int the split-KV one and
     its fold, a :class:`SplitForward`. The dense schedule reads no table.
-    At head_dim 256 a CTA takes one q tile or a pair (:func:`_tile_mode`)."""
+    At head_dim 160 and 256 a CTA takes one q tile or a pair
+    (:func:`_tile_mode`)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on cuda (kernel) or cpu (plain), not {q.device}")
     B, Sq, Hq, D = q.shape
@@ -271,19 +282,18 @@ def _launch(q, k, v, spec, block_q, block_kv, segments, kv_splits=None, schedule
     if ks > 65535:
         raise ValueError(f"{ks} kv splits exceed the grid's z limit (65535)")
     single = _tile_mode(single_tile, B, Hq, t_q, D, ks)
+    if D in WIDE_HEAD_DIMS and (t_q if single else -(-t_q // 2)) > 65535:
+        raise ValueError(f"{t_q} q tiles exceed the grid's y limit (65535)")
     sched = None if dense else device_schedule(spec, t_q, t_kv, block_q, block_kv, Skv, False,
                                                str(q.device), ks)
     seg = segment_args(segments, sched, block_q, block_kv, kv_major=False)
-    # The single-pass outputs, or the fold's (the fold kernel takes all four
-    # tensors contiguous).
-    o_fold = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
-    lse_fold = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    if split:
+    if split:  # the f32 partials, contiguous as the fold reads them
         o = torch.empty((B, Hq, ks, Sq, D), dtype=torch.float32, device=q.device)
         lse = torch.empty((B, Hq, ks, Sq), dtype=torch.float32, device=q.device)
         o_strides = (o.stride(0), o.stride(3), o.stride(1), o.stride(2))
     else:
-        o, lse = o_fold, lse_fold
+        o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
         o_strides = (o.stride(0), o.stride(1), o.stride(2), 0)
     lib = _lib()
     err = lib.fa2_fwd_bf16(
@@ -296,11 +306,28 @@ def _launch(q, k, v, spec, block_q, block_kv, segments, kv_splits=None, schedule
         B, Hq, Hkv, Sq, Skv, D, block_q, block_kv,
         int(spec.causal), -1 if spec.window is None else int(spec.window),
         int(spec.sink), int(spec.q_offset), t_q, int(split), ks, int(dense), *seg.args,
-        o_fold.data_ptr() if split else None, lse_fold.data_ptr() if split else None,
         torch.cuda.current_stream(q.device).cuda_stream, int(single),
     )
     _build.check(err, "fa2_fwd_bf16")
-    return SplitForward(o_fold, lse_fold, o, lse) if split else (o, lse)
+    if not split:
+        return o, lse
+    o_fold = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    lse_fold = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    _fold(o, lse, o_fold, lse_fold)
+    return SplitForward(o_fold, lse_fold, o, lse)
+
+
+def _fold(o_parts, lse_parts, o, lse) -> None:
+    """The fold kernel's launch, on the current stream after the split walk's:
+    contiguous f32 partials o_parts (B, Hq, ks, Sq, D) and lse_parts (B, Hq,
+    ks, Sq) into the contiguous o (B, Sq, Hq, D) bf16 and lse (B, Hq, Sq) f32
+    given. Part of every split-KV launch (the wrappers count the walk and
+    its fold as one); the A/B and smoke tools time it alone."""
+    B, Hq, ks, Sq, D = o_parts.shape
+    err = _lib().fa2_fwd_fold_f32(o_parts.data_ptr(), lse_parts.data_ptr(), o.data_ptr(),
+                                  lse.data_ptr(), B, Hq, Sq, ks, D,
+                                  torch.cuda.current_stream(o.device).cuda_stream)
+    _build.check(err, "fa2_fwd_fold_f32")
 
 
 def check_segments(q, k, q_seg, kv_seg) -> None:
@@ -367,8 +394,10 @@ def _check_kernel_inputs(what: str, blocks, head_dims=KERNEL_HEAD_DIMS, **tensor
 def _lib():
     lib = _build.load("flash_fwd")
     P, I, L = _build.VOIDP, _build.INT, _build.I64
-    lib.fa2_fwd_bf16.argtypes = [P] * 6 + [L] * 13 + [I] * 16 + [P, P, L, L, P, I, P, P, P, I]
+    lib.fa2_fwd_bf16.argtypes = [P] * 6 + [L] * 13 + [I] * 16 + [P, P, L, L, P, I, P, I]
     lib.fa2_fwd_bf16.restype = ctypes.c_int
+    lib.fa2_fwd_fold_f32.argtypes = [P] * 4 + [I] * 5 + [P]
+    lib.fa2_fwd_fold_f32.restype = ctypes.c_int
     return lib
 
 

@@ -38,7 +38,8 @@ D, HQ, HKV = 256, 4, 1  # gemma3-1b's attention widths
 # prefill (96), the engine's prefills up to B * ceil(t_q / 2) = 32 (128 CTAs)
 # and from 33 (132, one whole wave), its training shape (256), the
 # short-q/long-kv corner (one q tile, 33 splits: 132 CTAs, but a pair would
-# idle a warpgroup); head dims 64, 128 and 160 always keep the pair.
+# idle a warpgroup); head dims 64 and 128 always keep the pair, 160 takes the
+# same rule (stablelm-12b's corner: one q tile; tests/test_torch_fwd_hd160_tile.py).
 RULE_CASES = [
     ("gemma3-1b", 1, 1536, 1, True),
     ("gemma3-1b", 1, 1536, 2, True),
@@ -49,7 +50,7 @@ RULE_CASES = [
     ("gemma3-1b", 1, 64, 33, True),
     ("gemma3-1b", 4, 1, 1, True),
     ("qwen3-8b", 1, 1536, 1, False),
-    ("stablelm-12b", 1, 64, 4, False),
+    ("stablelm-12b", 1, 64, 4, True),
     ("whisper-base", 4, 4, 5, False),
     ("granite-moe-1b-a400m", 1, 1536, 1, False),
 ]

@@ -1726,3 +1726,170 @@ def test_hd256_split_forward_in_both_tile_modes(cuda, B, Sq, Skv, ks, mode, seg)
             torch.cuda.synchronize()
             o_p, lse_p = fwd_mod.flash_fwd_plain(q, k, v, spec, **plain_ids, **kw)
             assert _err(o, o_p) < O_TOL and _err(lse, lse_p) < LSE_TOL
+
+
+# The head_dim-160 forward's two tile modes at stablelm-12b's widths (32 q
+# heads over 8 kv heads): (B, S, mode) shapes whose pair grid fills the card
+# and keep the pair (B 1, S 1536: 384 pair CTAs; B 2, S 2048: 1024) and one
+# under a wave that takes one q tile a CTA (B 1, S 260: 96 pair CTAs, an
+# odd 5 q tiles and a ragged last one), each causal, under a 512 window and
+# at q_offset -100, without and with the packed source's ids.
+HD160_SHAPES = [(1, 1536, "pair"), (1, 260, "single"), (2, 2048, "pair")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg", [False, True], ids=["unsegmented", "packed"])
+@pytest.mark.parametrize("spec", HD256_SPECS)
+@pytest.mark.parametrize("B,S,mode", HD160_SHAPES)
+def test_hd160_forward_in_both_tile_modes(cuda, B, S, mode, spec, seg):
+    """As at 256: compact and DENSE (with and without SEG) in the mode the
+    rule takes and in the other one, each within the tolerance of its plain
+    version in the same mode, dense bitwise the compact kernel, a second
+    launch bitwise the first, one launch counted per call."""
+    q, k, v = _qkv(cuda, 31, B, S, S, 32, 8, 160)
+    assert fwd_mod.single_q_tile(B, 32, -(-S // 64), 160) == (mode == "single")
+    spec = MaskSpec(**spec)
+    ids = (_packed_ids(B, S).to(cuda),) * 2 if seg else ()
+    plain_ids = dict(q_seg=ids[0], kv_seg=ids[1]) if seg else {}
+    fwd = fwd_mod.flash_fwd_varlen if seg else fwd_mod.flash_fwd
+    for single in (None, mode != "single"):
+        kw = dict(block_q=64, block_kv=64, single_tile=single)
+        before = _fwd_counts(fwd)
+        o, lse = fwd(q, k, v, spec, *ids, **kw)
+        o2, lse2 = fwd(q, k, v, spec, *ids, **kw)
+        o_d, lse_d = fwd(q, k, v, spec, *ids, schedule="dense", **kw)
+        torch.cuda.synchronize()
+        assert _fwd_counts(fwd) == (before[0] + 2, before[1] + 1)
+        o_p, lse_p = fwd_mod.flash_fwd_plain(q, k, v, spec, **plain_ids, **kw)
+        assert _err(o, o_p) < O_TOL and _err(lse, lse_p) < LSE_TOL
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        assert torch.equal(o, o_d) and torch.equal(lse, lse_d)
+
+
+# (B, Sq, Skv, kv splits, mode): stablelm-12b's short-q/long-kv corner (one
+# q tile, 4 splits: one tile a CTA, each split's walk dealt to both
+# warpgroups) and its split prefill (2 and 3 splits: 768 and 1152 pair CTAs).
+HD160_SPLIT_CASES = [(1, 64, 8192, 4, "single"), (1, 1536, 1536, 2, "pair"),
+                     (1, 1536, 1536, 3, "pair")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg", [False, True], ids=["unsegmented", "packed"])
+@pytest.mark.parametrize("B,Sq,Skv,ks,mode", HD160_SPLIT_CASES)
+def test_hd160_split_forward_in_both_tile_modes(cuda, B, Sq, Skv, ks, mode, seg):
+    """SPLIT (with and without SEG) at 160 in the rule's mode and the other
+    one: partials and fold within the tolerance of the plain version in the
+    same mode, a second launch bitwise the first, one launch counted; the
+    fold on its own launch bitwise the wrapper's; at the corner also the
+    single pass."""
+    q, k, v = _qkv(cuda, 37, B, Sq, Skv, 32, 8, 160)
+    t_q = -(-Sq // 64)
+    n = fwd_mod.split_count(Skv, 64, ks)
+    assert fwd_mod.single_q_tile(B, 32, t_q, 160, n) == (mode == "single")
+    spec = MaskSpec(causal=True, q_offset=Skv - Sq)
+    ids = ()
+    if seg:
+        kv_ids = _packed_ids(B, Skv).to(cuda)
+        ids = (kv_ids[:, Skv - Sq:].contiguous(), kv_ids)
+    plain_ids = dict(q_seg=ids[0], kv_seg=ids[1]) if seg else {}
+    fwd = fwd_mod.flash_fwd_splitkv_varlen if seg else fwd_mod.flash_fwd_splitkv
+    for single in (None, mode != "single"):
+        kw = dict(block_q=64, block_kv=64, single_tile=single)
+        before = fwd.hd160_launches
+        out = fwd(q, k, v, spec, *ids, kv_splits=ks, **kw)
+        out2 = fwd(q, k, v, spec, *ids, kv_splits=ks, **kw)
+        o_f, lse_f = torch.empty_like(out.o), torch.empty_like(out.lse)
+        fwd_mod._fold(out.o_parts, out.lse_parts, o_f, lse_f)
+        torch.cuda.synchronize()
+        assert fwd.hd160_launches == before + 2
+        ref = fwd_mod.flash_fwd_splitkv_plain(q, k, v, spec, kv_splits=ks, **plain_ids, **kw)
+        assert _err(out.o, ref.o) < O_TOL and _err(out.lse, ref.lse) < LSE_TOL
+        assert _err(out.o_parts, ref.o_parts) < O_TOL
+        assert _err(out.lse_parts, ref.lse_parts) < LSE_TOL
+        assert all(torch.equal(a, b) for a, b in zip(out, out2))
+        assert torch.equal(o_f, out.o) and torch.equal(lse_f, out.lse)
+        if t_q == 1:
+            single_fwd = fwd_mod.flash_fwd_varlen if seg else fwd_mod.flash_fwd
+            o, lse = single_fwd(q, k, v, spec, *ids, **kw)
+            torch.cuda.synchronize()
+            o_p, lse_p = fwd_mod.flash_fwd_plain(q, k, v, spec, **plain_ids, **kw)
+            assert _err(o, o_p) < O_TOL and _err(lse, lse_p) < LSE_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("single", [False, True], ids=["pair", "single"])
+def test_hd160_non_finite_q_row_spoils_only_its_row(cuda, single):
+    """At 160 a run's first zero product reads a tile of zeros, not the Q
+    tile, so the 160 forward takes any q: a q row of NaN gives NaN in that
+    row only, and every other row matches the plain version, in both tile
+    modes."""
+    q, k, v = _qkv(cuda, 41, 1, 700, 700, 32, 8, 160)
+    q[0, 70, 3] = float("nan")
+    spec = MaskSpec(causal=True)
+    kw = dict(block_q=64, block_kv=64, single_tile=single)
+    o, lse = fwd_mod.flash_fwd(q, k, v, spec, **kw)
+    torch.cuda.synchronize()
+    bad = ~torch.isfinite(o).all(dim=-1)
+    assert bad[0, 70, 3] and int(bad.sum()) == 1
+    o_p, lse_p = fwd_mod.flash_fwd_plain(q, k, v, spec, **kw)
+    assert _err(o, o_p) < O_TOL and _err(lse, lse_p) < LSE_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [128, 160])
+def test_segment_backward_with_no_visible_step(cuda, D):
+    """A segment launch in which no step is visible (one q tile at q_offset
+    -100 against one kv tile: every q position precedes every key): the
+    step bits are empty and their pointer null, which the backward's C
+    entries take. The forward gives (0, -inf), the fused, dK/dV and dQ
+    kernels zero gradients equal to their plain versions, each launch
+    counted."""
+    q, k, v = _qkv(cuda, 43, 1, 64, 64, 32, 8, D)
+    do = _randn(torch.Generator(device=cuda).manual_seed(44), (1, 64, 32, D), cuda)
+    ids = _packed_ids(1, 64).to(cuda)
+    spec = MaskSpec(causal=True, q_offset=-100)
+    tiles = dict(block_q=64, block_kv=64)
+    counters = (fwd_mod.flash_fwd_varlen, bwd_mod.flash_bwd_fused_varlen,
+                bwd_mod.flash_bwd_dkv_varlen, bwd_mod.flash_bwd_dq_varlen)
+    before = [f.launches for f in counters]
+    o, lse = fwd_mod.flash_fwd_varlen(q, k, v, spec, ids, ids, **tiles)
+    delta = bwd_mod.flash_bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, spec, ids, ids)
+    fused = bwd_mod.flash_bwd_fused_varlen(*args, **tiles)
+    dk, dv = bwd_mod.flash_bwd_dkv_varlen(*args, **tiles)
+    dq = bwd_mod.flash_bwd_dq_varlen(*args, **tiles)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1]
+    assert (o == 0).all() and torch.isneginf(lse).all()
+    plain = dict(q_seg=ids, kv_seg=ids, **tiles)
+    want = bwd_mod.flash_bwd_fused_plain(*args[:7], **plain)
+    for a, b in zip(fused, want):
+        assert torch.equal(a, b) and (a == 0).all()
+    assert torch.equal(dq, bwd_mod.flash_bwd_dq_plain(*args[:7], **plain))
+    for a, b in zip((dk, dv), bwd_mod.flash_bwd_dkv_plain(*args[:7], **plain)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Hq,Hkv,Sq,Skv,ks", [
+    (256, 4, 1, 64, 32768, None),   # gemma3-1b's corner: 33 splits, 3-stage ring
+    (256, 4, 1, 1536, 1536, 2),     # its split prefill, one q tile a CTA
+    (160, 32, 8, 64, 32768, None),  # stablelm-12b's corner: 4 splits, 4-stage ring
+], ids=["hd256-corner", "hd256-split-prefill", "hd160-corner"])
+def test_wide_single_tile_split_is_bitwise_over_many_launches(cuda, D, Hq, Hkv, Sq, Skv, ks):
+    """The split forward in one-q-tile mode, where each warpgroup waits on
+    every second position of the ring, launched 2000 times: every launch
+    bitwise the first (the partials and the fold). With one barrier slot a
+    stage of the 3-stage ring at 256, about one launch in 2000 took another
+    position's record and tiles at the corner and gave a different split
+    partial."""
+    q, k, v = _qkv(cuda, 41, 1, Sq, Skv, Hq, Hkv, D)
+    ks = ks or ops.resolve_kv_splits(None, q.shape, k.shape)
+    spec = MaskSpec(causal=True, q_offset=Skv - Sq)
+    kw = dict(block_q=64, block_kv=64, kv_splits=ks, single_tile=True)
+    first = fwd_mod.flash_fwd_splitkv(q, k, v, spec, **kw)
+    differed = torch.zeros((), dtype=torch.int64, device=cuda)
+    for _ in range(2000):
+        out = fwd_mod.flash_fwd_splitkv(q, k, v, spec, **kw)
+        differed += torch.stack([torch.ne(a, b).any() for a, b in zip(out, first)]).any()
+    assert differed.item() == 0, f"{differed.item()} of 2000 launches not bitwise the first"
