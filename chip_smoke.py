@@ -94,11 +94,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 Phase 3 also holds the four backward kernels at head_dim 64 against their
 plain versions at whisper's encoder (B 8, S 1500, FULL), cross-attention
 (448 rows against 1500 frames), decoder (448, causal) and gpt-20m's
-(B 8, S 512, 4 heads, causal) shapes, their SEG and DENSE forms at the
-decoder's, with the bitwise invariants (split dK/dV the fused kernel's, dQ
-over two launches, dense the compact kernels', all-ones ids the
-unsegmented kernels'), and times the fused and the split backward at each
-shape in turns with SDPA's backward, beside the bounds.
+(B 8, S 512, 4 heads, causal) shapes and at rectangular and ragged ones,
+their SEG, DENSE and DENSE+SEG forms at every one, with the bitwise
+invariants (split dK/dV the fused kernel's, dQ over two launches, dense the
+compact kernels', all-ones ids the unsegmented kernels'), and times the
+fused and the split backward at each of the four in turns with SDPA's
+backward, beside the bounds; the fused kernel at the encoder and cross
+shapes is launched 1000 times (dK and dV bitwise the first launch, dQ
+within tolerance of it), and the KV-stationary kernels' head_dim-128 ptxas
+lines must equal those of the design before the head_dim-64 redesign
+(``KV128_PTXAS_BEFORE``).
 Phase 3 also holds this slice's kernels against their plain versions and
 times them: the split-KV forward at whisper's cross-attention (B = 1 and 4,
 4 prompt rows against 1500 frames, head_dim 64; the auto split count and a
@@ -328,6 +333,10 @@ PAGED_PREEMPTIONS = 1
 # launches over 36 layers, gemma3-1b's 182 over 26).
 PAGED_PREFILLS = 7
 SPIN_CYCLES = 1_000_000  # about 0.5 ms at the H100's clock
+# About 2 ms: before calls that go through autograd (SDPA's backward), whose
+# host enqueue took over 0.5 ms on a busy host, and before every call timed
+# in turns with them.
+LONG_SPIN_CYCLES = 4 * SPIN_CYCLES
 # Logits of flash_cuda against the dense reference at full depth (bf16):
 # the first chip run read cosine 0.999744 and max|diff| 0.024 x max|logit|.
 LOGIT_COS = 0.999
@@ -410,19 +419,19 @@ def bound(flops: float, nbytes: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_ms(torch, fn, iters: int, flush) -> float:
+def time_ms(torch, fn, iters: int, flush, spin: int = SPIN_CYCLES) -> float:
     """Mean device time of ``fn`` over ``iters`` calls, each bracketed by its
     own CUDA events after an L2 flush (the serving path finds K/V cold).
-    Before each start event the card spins for about half a millisecond, so
-    the host has enqueued the call before the event runs and the host's
-    dispatch time stays out of the measurement."""
+    Before each start event the card spins (``spin`` cycles, about half a
+    millisecond by default), so the host has enqueued the call before the
+    event runs and the host's dispatch time stays out of the measurement."""
     fn()
     fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(iters):
         flush()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -535,6 +544,40 @@ def fwd_ptxas_check(ptxas: str) -> None:
         fail(f"ptxas reported no {missing} or they spill {spilled}")
 
 
+# The KV-stationary kernels' head_dim-128 ptxas lines (registers at entry,
+# spill stores, spill loads in bytes; NVIDIA's nvcc for sm_90a) as the design
+# before the head_dim-64 redesign built them: that redesign is D == 64
+# branches, and the 128 body must stay as it was.
+KV128_PTXAS_BEFORE = {
+    **{f"fa2_bwd_fused_kernel<128,{seg},{dense}>": n for (seg, dense), n in {
+        (0, 0): (168, 56, 96), (0, 1): (168, 40, 44), (1, 0): (168, 104, 180),
+        (1, 1): (168, 96, 112)}.items()},
+    **{f"fa2_bwd_dkv_kernel<128,{seg},{dense}>": n for (seg, dense), n in {
+        (0, 0): (168, 0, 0), (0, 1): (168, 0, 0), (1, 0): (168, 0, 0),
+        (1, 1): (168, 4, 4)}.items()},
+}
+
+
+def kv128_ptxas_check(ptxas: str) -> None:
+    """The fused and dK/dV kernels' head_dim-128 instantiations in the ptxas
+    summary: every line as ``KV128_PTXAS_BEFORE``."""
+    import re
+
+    rows = {}
+    for line in ptxas.splitlines():
+        m = re.match(r"\s*flash_bwd\.cu (fa2_bwd_\w+<[\d,]+>): (\d+) registers, spill stores "
+                     r"(\d+) B, loads (\d+) B", line)
+        if m:
+            rows[m.group(1)] = tuple(int(m.group(i)) for i in (2, 3, 4))
+    changed = [(k, v, rows.get(k)) for k, v in KV128_PTXAS_BEFORE.items() if rows.get(k) != v]
+    log(f"ptxas, the KV-stationary kernels at head_dim 128 against the design before the "
+        f"head_dim-64 redesign: {len(KV128_PTXAS_BEFORE) - len(changed)} of "
+        f"{len(KV128_PTXAS_BEFORE)} lines equal")
+    if changed:
+        fail(f"the KV-stationary kernels' head_dim-128 ptxas lines changed (instantiation, "
+             f"before, now): {changed}")
+
+
 def past_lengths(torch, x, lengths, value):
     """The cache x (B, S, Hkv, D) with ``value`` in every row at or past its
     batch row's length (``lengths`` (B,) on x's device)."""
@@ -590,7 +633,8 @@ def sdpa_calls(torch, q, k, v, do, mask=None, causal=True):
 def sdpa_times(torch, q, k, v, do, flush, mask=None):
     """SDPA's forward and its forward + backward (``sdpa_calls``), in ms."""
     fwd_only, fwd_bwd = sdpa_calls(torch, q, k, v, do, mask)
-    return time_ms(torch, fwd_only, 20, flush), time_ms(torch, fwd_bwd, 20, flush)
+    return (time_ms(torch, fwd_only, 20, flush, LONG_SPIN_CYCLES),
+            time_ms(torch, fwd_bwd, 20, flush, LONG_SPIN_CYCLES))
 
 
 def in_turns(torch, kernel, library, iters: int, flush):
@@ -1064,7 +1108,7 @@ def bwd_kernel_phase(torch, dev, flush):
              "sdpa_fwd": sdpa_fwd, "split": split_total}
     turns = {name: [] for name in calls}
     for name in ("fused", "split", "sdpa", "sdpa_fwd", "sdpa_fwd", "sdpa", "split", "fused"):
-        turns[name].append(time_ms(torch, calls[name], 20, flush))
+        turns[name].append(time_ms(torch, calls[name], 20, flush, LONG_SPIN_CYCLES))
     fused_ms, lib_fb_ms, lib_fwd_ms, split_sdpa_ms = (
         sum(turns[n]) / 2 for n in ("fused", "sdpa", "sdpa_fwd", "split"))
     lib_bwd_ms = lib_fb_ms - lib_fwd_ms
@@ -2340,6 +2384,14 @@ HD64_SHAPES = {
     "decoder": (8, 448, 448, 8, True),
     "gpt20m": (8, 512, 512, 4, True),
 }
+# Untimed head_dim-64 shapes: rectangular and ragged (no tile divides the
+# lengths; 11 kv tiles, so the last KV-stationary pair has one), causal
+# with Sq < Skv (the kv rows past the last q position see no row).
+HD64_MORE_SHAPES = {
+    "rectangular ragged": (2, 200, 700, 8, False),
+    "ragged causal": (2, 333, 333, 8, True),
+    "causal short q": (1, 130, 700, 4, True),
+}
 BWD_NAMES = ("flash_bwd_delta", "flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq")
 
 
@@ -2423,7 +2475,7 @@ def bwd_kernels_at(torch, randn, D, B, Sq, Skv, Hq, Hkv, spec, pairs, what, flus
              "sdpa": sdpa_fwd_bwd, "sdpa_fwd": sdpa_fwd}
     turns = {name: [] for name in calls}
     for name in ("fused", "split", "sdpa", "sdpa_fwd", "sdpa_fwd", "sdpa", "split", "fused"):
-        turns[name].append(time_ms(torch, calls[name], 20, flush))
+        turns[name].append(time_ms(torch, calls[name], 20, flush, LONG_SPIN_CYCLES))
     fused_ms, split_ms, fb_ms, f_ms = (sum(turns[n]) / 2
                                        for n in ("fused", "split", "sdpa", "sdpa_fwd"))
     lib_bwd_ms = fb_ms - f_ms
@@ -2463,12 +2515,14 @@ def bwd_kernels_at(torch, randn, D, B, Sq, Skv, Hq, Hkv, spec, pairs, what, flus
 
 def bwd_hd64_kernel_phase(torch, dev, flush):
     """The four backward kernels at head_dim 64 against their plain versions
-    at every HD64_SHAPES shape (the SEG and DENSE forms of fused, dK/dV and
-    dQ at the decoder's), with the bitwise invariants (split dK/dV the fused
-    kernel's, dQ over two launches, dense the compact kernels', all-ones ids
-    the unsegmented kernels'), each shape timed (``bwd_kernels_at``). The
-    encoder's shape gives each kernel's top-level numbers; every shape's are
-    under ``at_shapes``."""
+    at every HD64_SHAPES shape, each timed (``bwd_kernels_at``), and untimed
+    at the rectangular and ragged HD64_MORE_SHAPES; at every shape also the
+    SEG, DENSE and DENSE+SEG forms of fused, dK/dV and dQ, so that every
+    head_dim-64 instantiation is held to its plain version
+    (``seg_dense_checks``), with the bitwise invariants (split dK/dV the
+    fused kernel's, dQ over two launches, dense the compact kernels', all-ones
+    ids the unsegmented kernels'). The encoder's shape gives each kernel's
+    top-level numbers; every timed shape's are under ``at_shapes``."""
     from repro_torch.core.masks import MaskSpec
     from repro_torch.kernels import ops
 
@@ -2480,57 +2534,69 @@ def bwd_hd64_kernel_phase(torch, dev, flush):
     tiles = dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
     errs = {name: 0.0 for name in BWD_NAMES}
     at = {name: {} for name in BWD_NAMES}
-    for shape, (B, Sq, Skv, H, causal) in HD64_SHAPES.items():
+    for shape, (B, Sq, Skv, H, causal) in {**HD64_SHAPES, **HD64_MORE_SHAPES}.items():
         what = f"{shape} B={B} Sq={Sq} Skv={Skv} H={H} D=64 {'causal' if causal else 'FULL'}"
         pairs = B * (Sq * (Sq + 1) // 2 if causal else Sq * Skv)
-        extra = None
-        if shape == "decoder":
-            def extra(args, fused, dk, dv, dq, what=what):
-                seg_dense_checks(torch, dev, args, fused, dk, dv, dq, tiles, what)
+
+        def extra(args, fused, dk, dv, dq, what=what):
+            seg_dense_checks(torch, dev, args, fused, dk, dv, dq, tiles, what)
+
+        timed = shape in HD64_SHAPES
         e, rows = bwd_kernels_at(torch, randn, 64, B, Sq, Skv, H, H, MaskSpec(causal=causal),
-                                 pairs, what, flush, sdpa_kw=dict(causal=causal), extra=extra)
+                                 pairs, what, flush, timed=timed, sdpa_kw=dict(causal=causal),
+                                 extra=extra)
         for name in BWD_NAMES:
             errs[name] = max(errs[name], e[name])
-            at[name][shape] = rows[name]
+            if timed:
+                at[name][shape] = rows[name]
     return {f"{name}_hd64": dict(max_abs_err=errs[name], **at[name]["encoder"],
                                  at_shapes=at[name]) for name in BWD_NAMES}
 
 
 def seg_dense_checks(torch, dev, args, fused, dk, dv, dq, tiles, what):
-    """At one head_dim-64 shape: the SEG kernels (the packed source's ids)
-    and the DENSE kernels against their plain versions; dense dK, dV and dQ
-    bitwise the compact ones (the fused dQ within GRAD_REL_TOL: its bulk
+    """At one head_dim-64 shape: the SEG kernels (the packed source's ids
+    for the q and the kv rows), the DENSE kernels and the DENSE+SEG ones
+    against their plain versions; dense dK, dV and dQ bitwise the compact
+    ones, with and without ids (the fused dQ within GRAD_REL_TOL: its bulk
     reductions have no order); all-ones ids bitwise the unsegmented
-    kernels."""
+    kernels; SEG split dK/dV bitwise SEG fused."""
     from repro_torch.kernels import flash_bwd as bwd
     from repro_torch.kernels import flash_fwd as fwd
 
     q, k, v, do, lse, delta, spec = args
-    B, Sq = q.shape[:2]
-    ids = torch.from_numpy(packed_ids(B, Sq)).to(dev)
-    ones = torch.ones((B, Sq), dtype=torch.int32, device=dev)
-    o_s, lse_s = fwd.flash_fwd_varlen(q, k, v, spec, ids, ids, **tiles)
+    B, Sq, Skv = q.shape[0], q.shape[1], k.shape[1]
+    ids = (torch.from_numpy(packed_ids(B, Sq)).to(dev), torch.from_numpy(packed_ids(B, Skv)).to(dev))
+    ones = (torch.ones((B, Sq), dtype=torch.int32, device=dev),
+            torch.ones((B, Skv), dtype=torch.int32, device=dev))
+    o_s, lse_s = fwd.flash_fwd_varlen(q, k, v, spec, *ids, **tiles)
     d_s = bwd.flash_bwd_delta(o_s, do)
     seg_args = (q, k, v, do, lse_s, d_s, spec)
     checks = {}
-    seg = bwd.flash_bwd_fused_varlen(*seg_args, ids, ids, **tiles)
-    seg_dkv = bwd.flash_bwd_dkv_varlen(*seg_args, ids, ids, **tiles)
-    seg_dq = bwd.flash_bwd_dq_varlen(*seg_args, ids, ids, **tiles)
+    seg = bwd.flash_bwd_fused_varlen(*seg_args, *ids, **tiles)
+    seg_dkv = bwd.flash_bwd_dkv_varlen(*seg_args, *ids, **tiles)
+    seg_dq = bwd.flash_bwd_dq_varlen(*seg_args, *ids, **tiles)
     dense = bwd.flash_bwd_fused(*args, schedule="dense", **tiles)
     dense_dkv = bwd.flash_bwd_dkv(*args, schedule="dense", **tiles)
     dense_dq = bwd.flash_bwd_dq(*args, schedule="dense", **tiles)
-    ones_f = bwd.flash_bwd_fused_varlen(*args, ones, ones, **tiles)
-    ones_dkv = bwd.flash_bwd_dkv_varlen(*args, ones, ones, **tiles)
-    ones_dq = bwd.flash_bwd_dq_varlen(*args, ones, ones, **tiles)
+    sd = bwd.flash_bwd_fused_varlen(*seg_args, *ids, schedule="dense", **tiles)
+    sd_dkv = bwd.flash_bwd_dkv_varlen(*seg_args, *ids, schedule="dense", **tiles)
+    sd_dq = bwd.flash_bwd_dq_varlen(*seg_args, *ids, schedule="dense", **tiles)
+    ones_f = bwd.flash_bwd_fused_varlen(*args, *ones, **tiles)
+    ones_dkv = bwd.flash_bwd_dkv_varlen(*args, *ones, **tiles)
+    ones_dq = bwd.flash_bwd_dq_varlen(*args, *ones, **tiles)
     torch.cuda.synchronize()
-    plain_kw = dict(q_seg=ids, kv_seg=ids, **tiles)
+    plain_kw = dict(q_seg=ids[0], kv_seg=ids[1], **tiles)
     pairs = {"fused SEG": (seg, bwd.flash_bwd_fused_plain(*seg_args, **plain_kw)),
              "dkv SEG": (seg_dkv, bwd.flash_bwd_dkv_plain(*seg_args, **plain_kw)),
              "dq SEG": ((seg_dq,), (bwd.flash_bwd_dq_plain(*seg_args, **plain_kw),)),
              "fused DENSE": (dense, bwd.flash_bwd_fused_plain(*args, schedule="dense", **tiles)),
              "dkv DENSE": (dense_dkv, bwd.flash_bwd_dkv_plain(*args, schedule="dense", **tiles)),
              "dq DENSE": ((dense_dq,), (bwd.flash_bwd_dq_plain(*args, schedule="dense",
-                                                               **tiles),))}
+                                                               **tiles),)),
+             "fused DENSE+SEG": (sd, bwd.flash_bwd_fused_plain(*seg_args, schedule="dense",
+                                                              **plain_kw)),
+             "dkv DENSE+SEG": (sd_dkv, bwd.flash_bwd_dkv_plain(*seg_args, schedule="dense",
+                                                              **plain_kw))}
     for name, (got, want) in pairs.items():
         checks[name] = max(max_err(torch, a, b) / max(b.abs().max().item(), 1e-6)
                            for a, b in zip(got, want))
@@ -2538,17 +2604,24 @@ def seg_dense_checks(torch, dev, args, fused, dk, dv, dq, tiles, what):
         "dense dk, dv == compact (fused and dkv)": all(torch.equal(a, b) for a, b in zip(
             (dense[1], dense[2], dense_dkv[0], dense_dkv[1]), (dk, dv, dk, dv))),
         "dense dq == compact (split)": torch.equal(dense_dq, dq),
+        "DENSE+SEG dk, dv, split dq == SEG (fused and dkv)": all(torch.equal(a, b) for a, b in zip(
+            (sd[1], sd[2], sd_dkv[0], sd_dkv[1], sd_dq), (seg[1], seg[2], seg[1], seg[2],
+                                                         seg_dq))),
         "all-ones ids == unsegmented (fused dk, dv; dkv; dq)": all(torch.equal(a, b) for a, b in zip(
             (ones_f[1], ones_f[2], ones_dkv[0], ones_dkv[1], ones_dq), (dk, dv, dk, dv, dq))),
         "SEG split dk, dv == SEG fused": torch.equal(seg_dkv[0], seg[1])
                                          and torch.equal(seg_dkv[1], seg[2]),
     }
-    dense_fused_dq = max_err(torch, dense[0], fused[0]) / max(fused[0].abs().max().item(), 1e-6)
-    log(f"  SEG (packed ids, documents per row {ids.amax(dim=1).tolist()}) and DENSE at {what}: "
-        "worst relative error against the plain versions "
+    dense_fused_dq = max(
+        max_err(torch, a, b) / max(b.abs().max().item(), 1e-6)
+        for a, b in ((dense[0], fused[0]), (sd[0], seg[0])))
+    log(f"  SEG (packed ids, documents per row {ids[0].amax(dim=1).tolist()} q, "
+        f"{ids[1].amax(dim=1).tolist()} kv), DENSE and DENSE+SEG at {what}: worst relative "
+        "error against the plain versions "
         + ", ".join(f"{n} {e:.3e}" for n, e in checks.items()) + f" (tol {GRAD_REL_TOL}); "
         + "; ".join(f"{n}: {b}" for n, b in bitwise.items())
-        + f"; dense fused dq against compact, relative {dense_fused_dq:.3e}")
+        + f"; dense fused dq against compact (with and without ids), relative "
+        f"{dense_fused_dq:.3e}")
     if not max(checks.values()) <= GRAD_REL_TOL or not dense_fused_dq <= GRAD_REL_TOL:
         fail(f"a SEG or DENSE backward kernel at head_dim 64 disagrees at {what}")
     if not all(bitwise.values()):
@@ -3500,7 +3573,9 @@ def repeat_launches(torch, dev) -> None:
     stablelm-12b's corner, launched ``REPEATS`` times each: every launch
     must be bitwise the first (partials and fold). With one barrier slot a
     stage of the 3-stage ring, about one launch in 2000 at gemma3's corner
-    took another position's record and tiles."""
+    took another position's record and tiles. Then the head_dim-64 fused
+    backward at whisper's encoder and cross shapes, ``REPEATS`` times each:
+    dK and dV bitwise the first launch, dQ within GRAD_REL_TOL of it."""
     from repro_torch.core.masks import MaskSpec
     from repro_torch.kernels import flash_fwd as fwd
     from repro_torch.kernels import ops
@@ -3527,6 +3602,38 @@ def repeat_launches(torch, dev) -> None:
         if n:
             fail(f"flash_fwd_splitkv D={D} Sq={Sq} Skv={Skv}: {n} of {REPEATS} launches not "
                  f"bitwise the first")
+    # The head_dim-64 fused backward (its dQ hand-over between the two
+    # warpgroups, their staging rings, the steps left in flight) at
+    # whisper's encoder and cross shapes: dK and dV bitwise the first
+    # launch's, dQ (bulk reductions in no fixed order) within GRAD_REL_TOL of
+    # it, relative to its largest value.
+    from repro_torch.kernels import flash_bwd as bwd
+
+    tiles = dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV)
+    for shape in ("encoder", "cross"):
+        B, Sq, Skv, H, causal = HD64_SHAPES[shape]
+        spec = MaskSpec(causal=causal)
+        q = ops._prep(torch.randn((B, Sq, H, 64), generator=gen, device=dev).to(torch.bfloat16),
+                      1 / 8)
+        k, v = (torch.randn((B, Skv, H, 64), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        do = torch.randn((B, Sq, H, 64), generator=gen, device=dev).to(torch.bfloat16)
+        o, lse = fwd.flash_fwd(q, k, v, spec, **tiles)
+        args = (q, k, v, do, lse, bwd.flash_bwd_delta(o, do), spec)
+        first = bwd.flash_bwd_fused(*args, **tiles)
+        differed = torch.zeros((), dtype=torch.int64, device=dev)
+        worst = torch.zeros((), dtype=torch.float32, device=dev)
+        for _ in range(REPEATS):
+            dq, dk, dv = bwd.flash_bwd_fused(*args, **tiles)
+            differed += torch.ne(dk, first[1]).any() | torch.ne(dv, first[2]).any()
+            worst = torch.maximum(worst, (dq - first[0]).abs().max())
+        n, rel = int(differed.item()), worst.item() / first[0].abs().max().item()
+        log(f"flash_bwd_fused D=64 at whisper's {shape} shape: {REPEATS - n} of {REPEATS} "
+            f"launches with dK, dV bitwise the first; dQ at most {rel:.3e} from the first, "
+            f"relative (tol {GRAD_REL_TOL})")
+        if n or not rel <= GRAD_REL_TOL:
+            fail(f"flash_bwd_fused D=64 at the {shape} shape: {n} of {REPEATS} launches' dK/dV "
+                 f"not bitwise the first, or dQ {rel:.3e} from it")
 
 
 def hd64_granite_kernel_phase(torch, dev, flush):
@@ -5309,6 +5416,7 @@ def main() -> None:
         "(producer) and 240 (consumers) by setmaxnreg):\n" + ptxas)
     wide_ptxas_check(ptxas)
     fwd_ptxas_check(ptxas)
+    kv128_ptxas_check(ptxas)
 
     scratch = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     results = kernel_phase(torch, dev, scratch.zero_)

@@ -79,17 +79,39 @@
 // Head_dim 64 (whisper-base, the gpt presets) is the same source with D a
 // template argument, as in the forward: a 64-row tile is D / 64 TMA boxes,
 // S^T and dP^T take D / 16 k-steps, dK and dV are 64 x D accumulators
-// (wgmma_rs_k64<D> in sm90.cuh: m64n64k16 at 64). Half of head_dim is 32
-// columns at 64: an n32 product whose MN-major B starts 64 bytes into a
-// 128-byte swizzled row, an operand layout this kernel does not risk. So
-// there dQ's step is split over the kv rows instead: each warpgroup
-// multiplies its own tile's 64 dS rows by the same 64 rows of K, all 64
-// columns, and both parts are added into dq. That is as many bulk
-// reductions a step as at 128 and twice the bytes of the dQ it adds; the
-// walk, the products' order and the dK/dV code are untouched, so split
-// dK/dV stay bitwise the fused kernel's. Shared memory falls to about 132
-// KB; still one CTA an SM. The dq and delta kernels take D the same way.
-//
+// (wgmma_rs_k64<D> in sm90.cuh: m64n64k16 at 64). Its products are a
+// quarter of 128's a step, so dQ's bytes and the producer weigh more; the
+// fused kernel at 64 differs from 128 in two ways (D == 64 branches; the
+// 128 code is as it was, and the dK/dV kernel at 64 is the 128 body):
+//   * dQ once a step over the pair's 128 kv rows (m64n64k16, k 128, from
+//     the shared dS^T buffer), by one warpgroup a dQ step in turn: half the
+//     bulk reductions (a 64 x 64 f32 part, 16 KB, a step), where each
+//     warpgroup added its own tile's 64 rows' part. Half of head_dim a
+//     warpgroup, as at 128, would be an n32 product whose MN-major B starts
+//     64 bytes into a 128-byte swizzled row, a layout this source does not
+//     risk. The other warpgroup only arrives at the step's named barrier
+//     (bar.arrive) and goes on; the barriers alternate with the turns (two
+//     ids), so an arrival never completes the other turn's phase, and the
+//     two dS^T buffers suffice: a buffer is written again two dQ steps on,
+//     after its reader's next arrival (tools/model_bwd64_dq.py models the
+//     hand-over; one barrier or one buffer breaks it). A warpgroup stages
+//     every second part, so its writer warp has the other's turn to drain;
+//   * warp 3 of the producer warpgroup (idle at 128) stages each step's lse
+//     and delta rows (KvSmem::ROWS_WARP): it walks the producer warp's walk
+//     again and arrives on the same full barrier, so the rows' load latency
+//     (a lane's two rows one after the other) is no longer between a step's
+//     copies and the next's; with dQ's bulk reductions filling the memory
+//     system it held the fused kernel back (the dK/dV kernel spilled with
+//     it and ran no faster).
+// The walk, the products and their order into each accumulator are
+// untouched, so split dK/dV stay bitwise the fused kernel's. About 132 KB
+// of shared memory; one CTA an SM. What bounds it now (tools/ab_kernels.py
+// hd64_*, PERF.md): the steps stay serial within a warpgroup (products,
+// exp2, products, the dQ hand-over): two q tiles a step (m64n128 S^T and
+// dP^T, k 128 dV and dK) measured slower, and so did leaving a step's dV
+// and dK in flight under the next step's S^T in the fused kernel; a deeper
+// Q/dO ring and more dQ staging buffers changed nothing. The dq and delta
+// kernels take D = 64 as they take 128.
 // Head_dims 256 (gemma3-1b training) and 160 (stablelm-12b) are
 // instantiated in every mode (compact and DENSE, without and with SEG),
 // with one change of shape in the KV-stationary and dq kernels, the `HALF`
@@ -634,6 +656,11 @@ struct KvSmem {
   // the other has read them). The dense one keeps staging buffers and one
   // Q/dO stage: with two, its producer warp spilled more than before.
   static constexpr bool STG = D == 256 && DQ && !DENSE;
+  // In the fused kernel at 64 warp 3 of the producer warpgroup stages each
+  // step's lse and delta rows (the header's head_dim-64 paragraph);
+  // elsewhere the producer warp (the dK/dV kernel at 64: with the rows warp
+  // it spilled and ran no faster).
+  static constexpr bool ROWS_WARP = D == 64 && DQ;
   static constexpr int ROWS = kv_rows<D>();
   static constexpr int STAGES = D == 256 && DQ && DENSE ? 1 : 2;  // the Q/dO ring
   static constexpr int NDS = STG ? 1 : HALF || DQ ? 2 : 0;       // dS^T buffers
@@ -752,6 +779,32 @@ __device__ __forceinline__ void stage_dq_writer(const BwdParams& p, uint32_t qs,
   }
 }
 
+// The walk of a KV-stationary CTA (its kv tiles j0 and, if has1, j0 + 1;
+// `group` q heads of batch row b): the kv-major table's slices, or under
+// DENSE every q tile.
+template <bool SKIP, bool DENSE>
+__device__ __forceinline__ PairWalk<SKIP, DENSE> kv_walk(const BwdParams& p, int group, int j0,
+                                                         bool has1, int b) {
+  PairWalk<SKIP, DENSE> walk;
+  walk.group = group;
+  walk.n_tiles = (p.Sq + kBlockM - 1) / kBlockM;
+  walk.g = 0;
+  if (DENSE) {
+    walk.steps = walk.bits = nullptr;
+    walk.a0 = walk.a1 = walk.b0 = walk.b1 = 0;
+  } else {
+    walk.steps = p.table + p.t_kv + 1;
+    walk.bits = SKIP ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
+    walk.a0 = p.table[j0];
+    walk.a1 = p.table[j0 + 1];
+    walk.b0 = has1 ? p.table[j0 + 1] : 0;
+    walk.b1 = has1 ? p.table[j0 + 2] : 0;
+  }
+  walk.ia = walk.a0;
+  walk.ib = walk.b0;
+  return walk;
+}
+
 // The KV-stationary body: with DQ, the fused kernel; without, the dkv
 // kernel (no dQ product, no staging; dK and dV bitwise the same). SEG: the
 // segment variant of either. DENSE: every q tile, no table. D: head_dim,
@@ -802,7 +855,8 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
   const bool has1 = !HALF && j0 + 1 < p.t_kv;  // an odd t_kv leaves the last pair one tile
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 32);  // the producer warp's lanes; TMA bytes on top
+      // The producer warp's lanes (and the rows warp's); TMA bytes on top.
+      mbar_init(&full[s], L::ROWS_WARP ? 64 : 32);
       // With STG the writer warps free a stage once they have read its dQ.
       mbar_init(&empty[s], L::STG && p.dq != nullptr ? 2 : kConsumers);
     }
@@ -823,23 +877,8 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
-      PairWalk<SKIP, DENSE> walk;
-      walk.group = HALF ? p.hgroup : p.group;  // the q heads of the CTA's share
-      walk.n_tiles = (p.Sq + BM - 1) / BM;
-      walk.g = 0;
-      if (DENSE) {
-        walk.steps = walk.bits = nullptr;
-        walk.a0 = walk.a1 = walk.b0 = walk.b1 = 0;
-      } else {
-        walk.steps = p.table + p.t_kv + 1;
-        walk.bits = SKIP ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
-        walk.a0 = p.table[j0];
-        walk.a1 = p.table[j0 + 1];
-        walk.b0 = has1 ? p.table[j0 + 1] : 0;
-        walk.b1 = has1 ? p.table[j0 + 2] : 0;
-      }
-      walk.ia = walk.a0;
-      walk.ib = walk.b0;
+      // The q heads of the CTA's share.
+      PairWalk<SKIP, DENSE> walk = kv_walk<SKIP, DENSE>(p, HALF ? p.hgroup : p.group, j0, has1, b);
       if (SEG) {  // the CTA's kv ids, published by lane 0's arrival on kv_bar
         const int* kvid_g = p.kv_seg + b * p.kv_seg_sb;
         for (int r = lane; r < L::ROWS; r += 32)
@@ -888,24 +927,43 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         }
         const long long row0 = (static_cast<long long>(b) * p.Hq + h) * p.Sq;
         int lo = 0x7fffffff, hi = -0x7fffffff;
-        for (int r = lane; r < BM; r += 32) {
-          const int qr = q0 + r;
-          float l = INFINITY, d = 0.f;
-          if (qr < p.Sq) {
-            l = p.lse[row0 + qr];
-            l = l == -INFINITY        ? 0.f
-                : l < 0.5f * kMaskValue ? kHidden * kLog2e + (l - kMaskValue) * kLog2e
-                                        : l * kLog2e;  // kHidden: a row that sees no key
-            d = p.delta[row0 + qr];
-          }
-          sLse[stage * BM + r] = l;
-          sDelta[stage * BM + r] = d;
+        if constexpr (L::ROWS_WARP) {
+          // The rows warp stages lse and delta; this warp the q ids (SEG),
+          // both of a lane's rows' loads in flight together.
           if (SEG) {
-            const int id = qr < p.Sq ? qid_g[qr] : kQPadSegment;
-            sQid[stage * BM + r] = id;
-            if (!HALF) {
-              lo = min(lo, id);
-              hi = max(hi, id);
+            int idr[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int qr = q0 + lane + 32 * u;
+              idr[u] = qr < p.Sq ? qid_g[qr] : kQPadSegment;
+            }
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              sQid[stage * BM + lane + 32 * u] = idr[u];
+              lo = min(lo, idr[u]);
+              hi = max(hi, idr[u]);
+            }
+          }
+        } else {
+          for (int r = lane; r < BM; r += 32) {
+            const int qr = q0 + r;
+            float l = INFINITY, d = 0.f;
+            if (qr < p.Sq) {
+              l = p.lse[row0 + qr];
+              l = l == -INFINITY        ? 0.f
+                  : l < 0.5f * kMaskValue ? kHidden * kLog2e + (l - kMaskValue) * kLog2e
+                                          : l * kLog2e;  // kHidden: a row that sees no key
+              d = p.delta[row0 + qr];
+            }
+            sLse[stage * BM + r] = l;
+            sDelta[stage * BM + r] = d;
+            if (SEG) {
+              const int id = qr < p.Sq ? qid_g[qr] : kQPadSegment;
+              sQid[stage * BM + r] = id;
+              if (!HALF) {
+                lo = min(lo, id);
+                hi = max(hi, id);
+              }
             }
           }
         }
@@ -966,6 +1024,46 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
                                    ? kMask1 : 0);
         }
         if (lane == 0) sStep[stage] = make_int4(g, qt, flags, 0);
+        mbar_arrive(&full[stage]);
+      }
+    } else if (L::ROWS_WARP && threadIdx.x >= 96) {
+      // The rows warp (warp 3; KvSmem::ROWS_WARP): the producer warp's walk
+      // again, and per step the q tile's lse (times log2 e, the kHidden
+      // rule, +inf past Sq) and delta rows into the stage, both of a lane's
+      // rows' loads in flight together, then its arrival on the stage's
+      // full barrier. Off the producer warp, their latency no longer comes
+      // between a step's copies and the next's.
+      const int lane = threadIdx.x % 32;
+      PairWalk<SKIP, DENSE> walk = kv_walk<SKIP, DENSE>(p, p.group, j0, has1, b);
+      bool more = true;
+      for (int n = 0; more; ++n) {
+        int g, qt, ea, eb;
+        more = walk.next(g, qt, ea, eb);
+        const int stage = n % S;
+        mbar_wait(&empty[stage], ((n / S) & 1) ^ 1);
+        if (more) {
+          const int q0 = qt * BM;
+          const long long row0 = (static_cast<long long>(b) * p.Hq + hk * p.group + g) * p.Sq;
+          float l[2] = {INFINITY, INFINITY}, d[2] = {0.f, 0.f};
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int qr = q0 + lane + 32 * u;
+            if (qr < p.Sq) {
+              l[u] = p.lse[row0 + qr];
+              d[u] = p.delta[row0 + qr];
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int r = lane + 32 * u;
+            if (q0 + r < p.Sq)
+              l[u] = l[u] == -INFINITY        ? 0.f
+                     : l[u] < 0.5f * kMaskValue ? kHidden * kLog2e + (l[u] - kMaskValue) * kLog2e
+                                                : l[u] * kLog2e;  // kHidden: a row that sees no key
+            sLse[stage * BM + r] = l[u];
+            sDelta[stage * BM + r] = d[u];
+          }
+        }
         mbar_arrive(&full[stage]);
       }
     } else if (DQ && threadIdx.x < 96 && p.dq != nullptr) {
@@ -1338,11 +1436,10 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
         }
         mbar_arrive(&empty[stage]);  // this stage's Q, dO, lse, delta and ids are read
         if (DQ && (vis0 || vis1)) {
-          // dQ_i += dS K_j (line 15) over the CTA's kv rows, both warpgroups:
-          // at D = 128 each takes a half of head_dim (its 64-column box of K)
-          // over the pair's 128 rows; at D = 64 each takes its own kv tile's
-          // 64 rows over the whole of head_dim, and both parts are added into
-          // dq. A hidden tile's dS rows are zeros.
+          // dQ_i += dS K_j (line 15) over the pair's 128 kv rows: at D = 128
+          // both warpgroups, each a half of head_dim (its 64-column box of
+          // K); at D = 64 one warpgroup a step, in turn, the whole row. A
+          // hidden tile's dS rows are zeros.
           if (!mine) {
 #pragma unroll
             for (int tt = 0; tt < 8; ++tt) {
@@ -1351,32 +1448,71 @@ __device__ __forceinline__ void kv_stationary(const BwdParams& p, const BwdMaps&
             }
           }
           fence_async_smem();
-          named_sync(1, kConsumers);  // both tiles' dS are in the buffer
-          float dq[32];
-          const uint32_t dsA = cdS + (D == 64 ? w * 8192 : 0);
-          const uint32_t kB = sK + w * (D == 128 ? 16384 : 8192);
-          wgmma_fence();
+          if constexpr (D == 64) {
+            // Warpgroup n_dq % 2 (broadcast from lane 0, so that ptxas sees
+            // the branch uniform) computes the step's dQ; the other arrives
+            // at the step's barrier and goes on to its next step. The
+            // barriers alternate with the turns, so an arrival never meets
+            // the other turn's phase. The buffer of dQ step m is written
+            // again at step m + 2: by this warpgroup after its own product,
+            // by the other after its wait at step m + 1, which this
+            // warpgroup's arrival there ends.
+            const int who = __shfl_sync(0xffffffffu, n_dq & 1, 0);
+            if (who != w) {
+              named_arrive(1 + who, kConsumers);
+            } else {
+              named_sync(1 + w, kConsumers);  // both tiles' dS are in the buffer
+              float dq[32];
+              wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < (D == 128 ? 8 : 4); ++kk)
-            wgmma_ss_n64<1, 1>(dq, sw128_desc(dsA + kk * 2048, 8192),
-                               sw128_desc(kB + kk * 2048, 8192), kk > 0);
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(dq);
-          if (p.dq != nullptr) {
-            // Stage this warpgroup's 64 x 64 f32 part for its writer warp.
-            mbar_wait(&dq_empty[w], (n_stg & 1) ^ 1);
-            const uint32_t at = stg + ((wq * 16 + g8) * kDqRow + 2 * t4) * 4;
+              for (int kk = 0; kk < 8; ++kk)
+                wgmma_ss_n64<1, 1>(dq, sw128_desc(cdS + kk * 2048, 8192),
+                                   sw128_desc(sK + kk * 2048, 8192), kk > 0);
+              wgmma_commit();
+              wgmma_wait<0>();
+              fence_regs(dq);
+              if (p.dq != nullptr) {
+                // Stage it for the warpgroup's writer warp, which has had the
+                // other warpgroup's turn to read the last one.
+                mbar_wait(&dq_empty[w], (n_stg & 1) ^ 1);
+                const uint32_t at = stg + ((wq * 16 + g8) * kDqRow + 2 * t4) * 4;
 #pragma unroll
-            for (int tt = 0; tt < 8; ++tt) {
-              st_shared(at + tt * 32, dq[4 * tt], dq[4 * tt + 1]);
-              st_shared(at + 8 * kDqRow * 4 + tt * 32, dq[4 * tt + 2], dq[4 * tt + 3]);
+                for (int tt = 0; tt < 8; ++tt) {
+                  st_shared(at + tt * 32, dq[4 * tt], dq[4 * tt + 1]);
+                  st_shared(at + 8 * kDqRow * 4 + tt * 32, dq[4 * tt + 2], dq[4 * tt + 3]);
+                }
+                if (t == 0) dq_meta[w] = make_int2(q0, h);
+                fence_async_smem();
+                mbar_arrive(&dq_full[w]);
+              }
+              ++n_stg;
             }
-            if (t == 0) dq_meta[w] = make_int2(q0, h);
-            fence_async_smem();
-            mbar_arrive(&dq_full[w]);
+          } else {
+            named_sync(1, kConsumers);  // both tiles' dS are in the buffer
+            float dq[32];
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk)
+              wgmma_ss_n64<1, 1>(dq, sw128_desc(cdS + kk * 2048, 8192),
+                                 sw128_desc(sK + w * 16384 + kk * 2048, 8192), kk > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(dq);
+            if (p.dq != nullptr) {
+              // Stage this warpgroup's 64 x 64 f32 part for its writer warp.
+              mbar_wait(&dq_empty[w], (n_stg & 1) ^ 1);
+              const uint32_t at = stg + ((wq * 16 + g8) * kDqRow + 2 * t4) * 4;
+#pragma unroll
+              for (int tt = 0; tt < 8; ++tt) {
+                st_shared(at + tt * 32, dq[4 * tt], dq[4 * tt + 1]);
+                st_shared(at + 8 * kDqRow * 4 + tt * 32, dq[4 * tt + 2], dq[4 * tt + 3]);
+              }
+              if (t == 0) dq_meta[w] = make_int2(q0, h);
+              fence_async_smem();
+              mbar_arrive(&dq_full[w]);
+            }
+            ++n_stg;
           }
-          ++n_stg;
           ++n_dq;
         }
       }

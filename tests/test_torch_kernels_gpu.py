@@ -439,6 +439,56 @@ def _check_split(cuda, B, S, Skv, Hq, Hkv, spec, view, D):
     assert (dq[:, :_unseen_rows(spec)] == 0).all()
 
 
+# Head dim 64 at whisper-base's and gpt-20m's shapes, (B, Sq, Skv, H, spec):
+# the encoder (FULL, 1500 frames), the cross-attention (448 rows against
+# 1500 frames), the decoder (448, causal: 7 kv tiles, so the last
+# KV-stationary pair holds one), gpt-20m's step (B 8, S 512, 4 heads,
+# causal), and rectangular and ragged ones (200 x 700 FULL, 11 kv tiles;
+# 333 causal; 130 causal rows against 700 keys, most of which see no row).
+HD64_KV_CASES = [
+    (8, 1500, 1500, 8, dict()),
+    (8, 448, 1500, 8, dict()),
+    (8, 448, 448, 8, dict(causal=True)),
+    (8, 512, 512, 4, dict(causal=True)),
+    (2, 200, 700, 8, dict()),
+    (2, 333, 333, 8, dict(causal=True)),
+    (1, 130, 700, 4, dict(causal=True)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,H,spec", HD64_KV_CASES)
+def test_head_dim_64_kv_kernels_match_plain_in_every_mode(cuda, B, Sq, Skv, H, spec):
+    """Every head_dim-64 fused and dK/dV instantiation (compact, SEG, DENSE,
+    DENSE+SEG; the packed source's ids on the q and the kv rows) against its
+    plain version; in each mode dK/dV bitwise the fused kernel's and over two
+    launches; the dense modes' dK and dV bitwise the compact ones'."""
+    spec = MaskSpec(**spec)
+    args = (*_bwd_inputs(cuda, B, Sq, H, H, spec, "contiguous", 64, Skv), spec)
+    ids = (_packed_ids(B, Sq).to(cuda), _packed_ids(B, Skv, seed=1).to(cuda))
+    tiles = dict(block_q=64, block_kv=64)
+    o_s, lse_s = fwd_mod.flash_fwd_varlen(*args[:3], spec, *ids, **tiles)
+    seg_args = (*args[:4], lse_s, bwd_mod.flash_bwd_delta(o_s, args[3]), spec)
+    dkv = {}
+    for sched in ("compact", "dense"):
+        for seg in (False, True):
+            a, extra = (seg_args, ids) if seg else (args, ())
+            sfx = "_varlen" if seg else ""
+            fused = getattr(bwd_mod, "flash_bwd_fused" + sfx)(*a, *extra, schedule=sched, **tiles)
+            split = [getattr(bwd_mod, "flash_bwd_dkv" + sfx)(*a, *extra, schedule=sched, **tiles)
+                     for _ in range(2)]
+            torch.cuda.synchronize()
+            kw = dict(q_seg=ids[0], kv_seg=ids[1]) if seg else {}
+            want = bwd_mod.flash_bwd_fused_plain(*a, schedule=sched, **kw, **tiles)
+            for name, x, y in zip(("dq", "dk", "dv"), fused, want):
+                assert x.shape == y.shape and _rel_err(x, y) < GRAD_REL_TOL, (sched, seg, name)
+            for dk, dv in split:
+                assert torch.equal(dk, fused[1]) and torch.equal(dv, fused[2]), (sched, seg)
+            dkv[sched, seg] = fused[1:]
+    for seg in (False, True):
+        assert all(torch.equal(x, y) for x, y in zip(dkv["dense", seg], dkv["compact", seg]))
+
+
 @pytest.mark.gpu
 def test_backward_dense_kernels_are_the_compact_ones_at_head_dim_256(cuda):
     """At head_dim 256 the backward kernels are built in both schedules,

@@ -25,7 +25,12 @@ an earlier design of them (wide_parent: that commit's flash_bwd.cu and
 sm90.cuh, which the caller copies under ``build/ab_kernels/parent/``;
 ``PARENT`` says how) at gemma3-1b's and stablelm-12b's training shapes,
 beside the committed kernel without its head split and without dQ's bulk
-reductions.
+reductions; the "hd64" group, the fused and dK/dV kernels at head_dim 64
+at whisper-base's encoder, cross-attention and decoder shapes and gpt-20m's
+training shape (``HD64_SHAPES``), the committed kernel and each design
+element of it undone alone (``hd64_*``), the parent design (hd64_parent,
+from ``PARENT`` as wide_parent), each design's fused kernel without dQ's
+staging and bulk reduction, and SDPA's backward, all in the same turns.
 
 Run from the repository root on a machine with an H100 and nvcc:
 
@@ -180,6 +185,30 @@ _DELTA_LOADS_NORMAL = """        ov[u] = *reinterpret_cast<const uint4*>(og + s 
         dv[u] = *reinterpret_cast<const uint4*>(dg + s * p.d_ss + h * p.d_sh);
 """
 
+# The head_dim-64 dQ: by one warpgroup a step in turn over the pair's 128 kv
+# rows, or by each over its own tile.
+_DQ_TURNS = """            const int who = __shfl_sync(0xffffffffu, n_dq & 1, 0);
+            if (who != w) {
+              named_arrive(1 + who, kConsumers);
+            } else {
+              named_sync(1 + w, kConsumers);  // both tiles' dS are in the buffer
+              float dq[32];
+              wgmma_fence();
+#pragma unroll
+              for (int kk = 0; kk < 8; ++kk)
+                wgmma_ss_n64<1, 1>(dq, sw128_desc(cdS + kk * 2048, 8192),
+                                   sw128_desc(sK + kk * 2048, 8192), kk > 0);
+"""
+_DQ_EACH_TILE = """            {
+              named_sync(1, kConsumers);  // both tiles' dS are in the buffer
+              float dq[32];
+              wgmma_fence();
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                wgmma_ss_n64<1, 1>(dq, sw128_desc(cdS + w * 8192 + kk * 2048, 8192),
+                                   sw128_desc(sK + w * 8192 + kk * 2048, 8192), kk > 0);
+"""
+
 # name -> (source, what it changes, [(old text, new text), ...]).
 VARIANTS = {
     "dq_final": ("flash_bwd", "the dQ kernel as committed", []),
@@ -252,9 +281,19 @@ VARIANTS = {
     "wide_parent": ("flash_bwd", "the fused and dK/dV kernels of the parent design (PARENT's "
                     "sources: both warpgroups compute S^T and dP^T, one dQ staging a "
                     "warpgroup, no head split)", []),
+    "hd64_final": ("flash_bwd", "the head_dim-64 fused and dK/dV kernels as committed", []),
+    "hd64_parent": ("flash_bwd", "the head_dim-64 fused and dK/dV kernels of the parent design "
+                    "(PARENT's sources)", []),
+    "hd64_rows_in_producer": ("flash_bwd", "the producer warp stages lse and delta, as at 128 "
+                              "(warp 3 idle)", [("static constexpr bool ROWS_WARP = D == 64 && DQ;",
+                                                 "static constexpr bool ROWS_WARP = false;")]),
+    "hd64_dq_each_tile": ("flash_bwd", "each warpgroup computes dQ over its own kv tile every "
+                          "step, both wait at the barrier (the parent's dQ: twice the "
+                          "reductions)", [(_DQ_TURNS, _DQ_EACH_TILE)]),
 }
 
-# The parent commit's flash_bwd.cu and sm90.cuh, for the wide_parent variant:
+# The parent commit's flash_bwd.cu and sm90.cuh, for the wide_parent and
+# hd64_parent variants:
 # write them here first, e.g.
 #   mkdir -p build/ab_kernels/parent
 #   git show <commit>:src/repro_torch/kernels/csrc/flash_bwd.cu > build/ab_kernels/parent/flash_bwd.cu
@@ -299,7 +338,18 @@ GROUPS = {"dq": ("fa2_bwd_dq_kernel", "flash_bwd"),
           "paged": ("fa2_decode_paged_kernel", "flash_decode"),
           "decode": ("fa2_decode_kernel", "flash_decode"),
           "delta": ("fa2_bwd_delta_kernel", "flash_bwd"),
-          "wide": ("fa2_bwd_fused_kernel", "flash_bwd")}
+          "wide": ("fa2_bwd_fused_kernel", "flash_bwd"),
+          "hd64": ("fa2_bwd_fused_kernel", "flash_bwd")}
+
+# The head_dim-64 backward's shapes (B, Sq, Skv, heads, causal), as
+# chip_smoke.py HD64_SHAPES: whisper-base's encoder, cross-attention and
+# decoder, and the gpt-20m preset's training step.
+HD64_SHAPES = {
+    "encoder": (8, 1500, 1500, 8, False),
+    "cross": (8, 448, 1500, 8, False),
+    "decoder": (8, 448, 448, 8, True),
+    "gpt20m": (8, 512, 512, 4, True),
+}
 
 
 def group(name: str) -> str:
@@ -322,7 +372,7 @@ def build(names):
     procs = {}
     for name in names:
         src, _, edits = VARIANTS[name]
-        srcdir = PARENT if name == "wide_parent" else CSRC
+        srcdir = PARENT if name.endswith("_parent") else CSRC
         if not (srcdir / f"{src}.cu").exists():
             raise SystemExit(f"variant {name}: no {srcdir / src}.cu (see PARENT)")
         text = (srcdir / f"{src}.cu").read_text()
@@ -345,17 +395,24 @@ def build(names):
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
         kernel = GROUPS[group(name)][0]
         regs = []
+        kernels = (kernel, "fa2_bwd_dkv_kernel") if group(name) == "hd64" else (kernel,)
         for block in log.split("Compiling entry function")[1:]:
-            if kernel in block.splitlines()[0]:
-                regs.append("/".join(re.findall(r"Used (\d+) registers", block)[:1]
-                                     + re.findall(r"(\d+) bytes spill stores", block)[:1]))
+            head = block.splitlines()[0]
+            for k in kernels:
+                m = re.search(k + r"I(.*?)EEv", head)
+                if m:
+                    args = ",".join(re.findall(r"L[ib](\d+)", m.group(1)))
+                    regs.append(f"{k.split('_')[2]}<{args}> " + "/".join(
+                        re.findall(r"Used (\d+) registers", block)[:1]
+                        + re.findall(r"(\d+) bytes spill stores", block)[:1]
+                        + re.findall(r"(\d+) bytes spill loads", block)[:1]))
         notes = sorted(set(re.findall(r"\((C75\d+)\) Potential Performance Loss", log)))
-        print(f"{name}: {VARIANTS[name][1]}; {kernel} registers/spill-store bytes per "
+        print(f"{name}: {VARIANTS[name][1]}; registers/spill-store/spill-load bytes per "
               f"instantiation {regs}; ptxas performance notes {notes or 'none'}", flush=True)
         module = bwd if GROUPS[group(name)][1] == "flash_bwd" else dec
         lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-        if name == "wide_parent":
-            libs[name] = _ParentLib(lib)
+        if name.endswith("_parent") and "int hsplit" not in text:
+            libs[name] = _ParentLib(lib)  # a design before the head split
             continue
         load = _build.load
         _build.load = lambda _name, lib=lib: lib
@@ -383,7 +440,7 @@ def main() -> None:
             names.insert(0, final)
     print(nvidia_smi(), flush=True)
     libs = build(names)
-    dq_names, kv_names, paged_names, decode_names, delta_names, wide_names = (
+    dq_names, kv_names, paged_names, decode_names, delta_names, wide_names, hd64_names = (
         [n for n in names if group(n) == g] for g in GROUPS)
     originals = {bwd: bwd._lib, dec: dec._lib}
     head_split = bwd.kv_head_split
@@ -391,8 +448,9 @@ def main() -> None:
     def use(name):
         module = bwd if GROUPS[group(name)][1] == "flash_bwd" else dec
         module._lib = lambda: libs[name]
-        # The parent design has no head split.
-        bwd.kv_head_split = (lambda *a, **kw: 1) if name == "wide_parent" else head_split
+        # A parent design before the head split has none.
+        bwd.kv_head_split = ((lambda *a, **kw: 1) if isinstance(libs[name], _ParentLib)
+                             else head_split)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -406,14 +464,14 @@ def main() -> None:
     # and reading 96 MB (it leaves clean lines).
     flushes = {"write": scratch.zero_, "read": lambda: scratch.view(torch.int32).amax()}
 
-    def time_ms(fn, iters=30, flush="write"):
+    def time_ms(fn, iters=30, flush="write", spin=1_000_000):
         fn()
         fn()
         torch.cuda.synchronize()
         events = []
         for _ in range(iters):
             flushes[flush]()
-            torch.cuda._sleep(1_000_000)
+            torch.cuda._sleep(spin)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
@@ -422,12 +480,12 @@ def main() -> None:
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in events) / iters
 
-    def in_turns(calls, flush="write"):
+    def in_turns(calls, flush="write", spin=1_000_000):
         runs = {n: [] for n in calls}
         for name in list(calls) + list(calls)[::-1]:
             if name.split(" ")[0] in libs:
                 use(name.split(" ")[0])
-            runs[name].append(time_ms(calls[name], flush=flush))
+            runs[name].append(time_ms(calls[name], flush=flush, spin=spin))
         return {n: sum(r) / 2 for n, r in runs.items()}
 
     def check(name, what, got, want, tol):
@@ -654,6 +712,78 @@ def main() -> None:
             print(f"flash_bwd_fused and flash_bwd_dkv {shape} B={B} S={S} Hq={hq} Hkv={hkv} "
                   f"D={D} (head split {split}), in turns: " + "; ".join(
                       f"{n} {v:.4f} ms" for n, v in ms.items()), flush=True)
+    if hd64_names:
+        # The fused and dK/dV kernels at head_dim 64 at whisper-base's and
+        # gpt-20m's shapes, each variant in turns with the others, beside
+        # each variant built from a design's sources (final, parent) without
+        # dQ's staging and bulk reduction, and SDPA's backward (its forward
+        # and backward less its forward, both in the same turns).
+        for shape, (B, Sq, Skv, H, causal_) in HD64_SHAPES.items():
+            spec = MaskSpec(causal=causal_)
+            q = ops._prep(randn(B, Sq, H, 64), 1 / 8)
+            k, v, do = randn(B, Skv, H, 64), randn(B, Skv, H, 64), randn(B, Sq, H, 64)
+            o, lse = fwd.flash_fwd(q, k, v, spec, **tiles)
+            args = (q, k, v, do, lse, bwd.flash_bwd_delta(o, do), spec)
+            want = bwd.flash_bwd_fused_plain(*args, **tiles)
+            what = f"{shape} B={B} Sq={Sq} Skv={Skv} H={H} D=64 {'causal' if causal_ else 'FULL'}"
+            for name in hd64_names:
+                use(name)
+                got = bwd.flash_bwd_fused(*args, **tiles)
+                dk, dv = bwd.flash_bwd_dkv(*args, **tiles)
+                torch.cuda.synchronize()
+                rel = max((a - b).abs().max().item() / b.abs().max().item()
+                          for a, b in zip(got, want))
+                ok = rel <= 3e-3 and torch.equal(dk, got[1]) and torch.equal(dv, got[2])
+                bad += not ok and name not in DIAGNOSTICS
+                print(f"{name}: {what} fused dq, dk, dv, max|x-plain| / max|x| {rel:.3e} "
+                      f"(tol 3e-3); dK/dV bitwise the fused kernel's"
+                      f"{'' if ok else ' (a diagnostic)' if name in DIAGNOSTICS else ' FAILS'}",
+                      flush=True)
+            calls = {}
+            for name in hd64_names:
+                calls[f"{name} fused"] = lambda: bwd.flash_bwd_fused(*args, **tiles)
+                calls[f"{name} dkv"] = lambda: bwd.flash_bwd_dkv(*args, **tiles)
+                if name in ("hd64_final", "hd64_parent"):
+                    calls[f"{name} fused without dQ's bulk reduction"] = (
+                        lambda: bwd._launch_fused(*args, 64, 64, None))
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+
+            def sdpa(backward):
+                with torch.set_grad_enabled(backward):
+                    out = torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal_, scale=1.0)
+                    if backward:
+                        torch.autograd.grad(out, (qt, kt, vt), dot)
+
+            calls["sdpa fwd+bwd"] = lambda: sdpa(True)
+            calls["sdpa fwd"] = lambda: sdpa(False)
+            # A spin of about 2 ms before each timed call: the host enqueues
+            # SDPA's backward (autograd) before the start event runs.
+            ms = in_turns(calls, spin=4_000_000)
+            ms["sdpa bwd (fwd+bwd less fwd)"] = ms["sdpa fwd+bwd"] - ms["sdpa fwd"]
+            result[f"hd64, {shape}"] = ms
+            print(f"flash_bwd_fused and flash_bwd_dkv at {what}, in turns: " + "; ".join(
+                f"{n} {v:.4f} ms" for n, v in ms.items()), flush=True)
+        # Rows 6 and 8 (head_dim 128, qwen3's training shape): the committed
+        # kernels against the parent design's, which the head_dim-64 design
+        # must leave as they were.
+        both = [n for n in ("hd64_final", "hd64_parent") if n in hd64_names]
+        if len(both) == 2:
+            q = ops._prep(randn(2, 2048, 32, 128), 1 / math.sqrt(128))
+            k, v, do = randn(2, 2048, 8, 128), randn(2, 2048, 8, 128), randn(2, 2048, 32, 128)
+            o, lse = fwd.flash_fwd(q, k, v, causal, **tiles)
+            args = (q, k, v, do, lse, bwd.flash_bwd_delta(o, do), causal)
+            calls = {}
+            for name in both:
+                calls[f"{name} fused"] = lambda: bwd.flash_bwd_fused(*args, **tiles)
+                calls[f"{name} dkv"] = lambda: bwd.flash_bwd_dkv(*args, **tiles)
+            ms = in_turns(calls)
+            result["hd64, head_dim 128 training shape"] = ms
+            print("flash_bwd_fused and flash_bwd_dkv at head_dim 128, B=2 S=2048 causal, in "
+                  "turns: " + "; ".join(f"{n} {v:.4f} ms" for n, v in ms.items())
+                  + f"; final / parent: fused {ms['hd64_final fused'] / ms['hd64_parent fused']:.4f}"
+                  f", dkv {ms['hd64_final dkv'] / ms['hd64_parent dkv']:.4f}", flush=True)
     bwd.kv_head_split = head_split
     for module, lib in originals.items():
         module._lib = lib

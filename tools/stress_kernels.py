@@ -1,8 +1,12 @@
 """Repeat launches of the head_dim-160 and -256 kernels (the forward,
 ``fa2_fwd_wide_kernel``, in every mode and both tile modes, with the split
-fold; the fused, dK/dV and dQ backward in every mode) and hold each launch
+fold; the fused, dK/dV and dQ backward in every mode) and of the head_dim-64
+fused and dK/dV backward (compact, SEG and DENSE at whisper-base's encoder,
+cross-attention and decoder shapes and gpt-20m's), and hold each launch
 bitwise to the first: a race inside a kernel shows either as a launch fault
-or as an output that differs from launch to launch.
+or as an output that differs from launch to launch. The fused kernel's dQ
+(f32 bulk reductions in no fixed order) is held within 3e-3 of the first
+launch's, relative to its largest value, at head_dim 64.
 
     python tools/stress_kernels.py [--reps N] [--only SUBSTRING] [--flush] [--detail]
 
@@ -33,7 +37,17 @@ SL = dict(D=160, hq=32, hkv=8, vocab=100_352, train=(2, 2048),
           corner=((1536, None), (4096, None), (32768, None)))
 G3 = dict(D=256, hq=4, hkv=1, vocab=262_144, train=(4, 2048),
           corner=((1536, None), (8192, None), (32768, None), (8192, 512)))
+W64 = dict(D=64, hq=8, hkv=8, vocab=51_865)
 CORNER_ROWS = 64
+DQ_REL_TOL = 3e-3  # chip_smoke.py GRAD_REL_TOL
+# The head_dim-64 backward's shapes (B, Sq, Skv, heads, causal), as
+# chip_smoke.py HD64_SHAPES.
+HD64_SHAPES = {
+    "encoder": (8, 1500, 1500, 8, False),
+    "cross": (8, 448, 1500, 8, False),
+    "decoder": (8, 448, 448, 8, True),
+    "gpt20m": (8, 512, 512, 4, True),
+}
 
 
 def cases():
@@ -90,6 +104,13 @@ def cases():
                     out.append((f"D{D} bwd {kind} dense B{Bt} S{St}",
                                 dict(m=m, kind=f"bwd_{kind}", B=Bt, Sq=St, Skv=St,
                                      sched=sched, single=None)))
+    for shape, (B, Sq, Skv, H, causal) in HD64_SHAPES.items():
+        for mode in ("compact", "SEG", "DENSE"):
+            for kind in ("fused", "dkv"):
+                out.append((f"D64 bwd {kind} {mode} {shape}",
+                            dict(m=W64, kind=f"bwd_{kind}", B=B, Sq=Sq, Skv=Skv, hq=H, hkv=H,
+                                 causal=causal, single=None, varlen=mode == "SEG",
+                                 sched="dense" if mode == "DENSE" else "compact")))
     return out
 
 
@@ -98,7 +119,9 @@ def run_case(torch, a, reps: int, flush=None, detail: bool = False) -> dict:
     launches whose outputs are not bitwise the first's (on the device,
     without a sync per launch; with ``detail``, after each launch, and the
     first three differing launches are described). The fused backward's dQ
-    (f32 sums in no fixed order) is not compared."""
+    (f32 sums in no fixed order) is not compared bitwise: at head_dim 64 its
+    largest distance from the first launch's, relative to the first's
+    largest value, is reported (``dq_rel``)."""
     from repro_torch.core.masks import MaskSpec
     from repro_torch.data.pipeline import DataConfig, SyntheticVarlenLM
     from repro_torch.kernels import flash_bwd as bwd
@@ -106,7 +129,7 @@ def run_case(torch, a, reps: int, flush=None, detail: bool = False) -> dict:
     from repro_torch.kernels import ops
 
     m, dev = a["m"], torch.device("cuda", 0)
-    D, hq, hkv = m["D"], m["hq"], m["hkv"]
+    D, hq, hkv = m["D"], a.get("hq", m["hq"]), a.get("hkv", m["hkv"])
     gen = torch.Generator(device=dev).manual_seed(7)
 
     def randn(*shape):
@@ -115,14 +138,14 @@ def run_case(torch, a, reps: int, flush=None, detail: bool = False) -> dict:
     B, Sq, Skv = a["B"], a["Sq"], a["Skv"]
     q = ops._prep(randn(B, Sq, hq, D), 1 / math.sqrt(D))
     k, v = randn(B, Skv, hkv, D), randn(B, Skv, hkv, D)
-    spec = MaskSpec(causal=True, window=a.get("window"), sink=a.get("sink", 0),
-                    q_offset=a.get("q_offset", 0))
+    spec = MaskSpec(causal=a.get("causal", True), window=a.get("window"),
+                    sink=a.get("sink", 0), q_offset=a.get("q_offset", 0))
     kw = dict(block_q=ops.BLOCK_Q, block_kv=ops.BLOCK_KV, single_tile=a["single"])
     seg = ()
     if a["kind"] in ("varlen", "split_varlen") or a.get("varlen"):
-        src = SyntheticVarlenLM(DataConfig(B, Sq, m["vocab"], seed=0, source="packed"))
-        ids = torch.from_numpy(src.batch(0)["segment_ids"]).to(dev)
-        seg = (ids, ids)
+        seg = tuple(torch.from_numpy(SyntheticVarlenLM(DataConfig(
+            B, S, m["vocab"], seed=0, source="packed")).batch(0)["segment_ids"]).to(dev)
+            for S in (Sq, Skv))
     if a["kind"] == "fwd":
         def call():
             return fwd.flash_fwd(q, k, v, spec, schedule=a["sched"], **kw)
@@ -139,8 +162,7 @@ def run_case(torch, a, reps: int, flush=None, detail: bool = False) -> dict:
 
         def call():
             got = wrapper(q, k, v, do, lse, delta, spec, *seg, schedule=a["sched"], **tiles)
-            got = got if isinstance(got, tuple) else (got,)
-            return got[1:] if a["kind"] == "bwd_fused" else got
+            return got if isinstance(got, tuple) else (got,)
     else:
         ks = a["ks"] or ops.resolve_kv_splits(None, (B, Sq, hq, D), (B, Skv, hkv, D))
         wrapper = fwd.flash_fwd_splitkv_varlen if seg else fwd.flash_fwd_splitkv
@@ -149,22 +171,29 @@ def run_case(torch, a, reps: int, flush=None, detail: bool = False) -> dict:
             return tuple(wrapper(q, k, v, spec, *seg, kv_splits=ks, **kw))
     ref = call()
     torch.cuda.synchronize()
+    # The fused backward's dq: compared within DQ_REL_TOL (at 64), not bitwise.
+    loose = 1 if a["kind"] == "bwd_fused" else 0
+    dq_worst = torch.zeros((), dtype=torch.float32, device=dev)
     bad = torch.zeros(reps, dtype=torch.bool, device=dev)
     diffs = []
     for r in range(reps):
         if flush is not None:
             flush()
         got = call()
-        for x, y in zip(got, ref):
+        if loose:
+            dq_worst = torch.maximum(dq_worst, (got[0] - ref[0]).abs().max())
+        for x, y in zip(got[loose:], ref[loose:]):
             bad[r] |= torch.ne(x.nan_to_num(), y.nan_to_num()).any()
         if detail and len(diffs) < 3 and bool(bad[r].item()):
-            diffs.append({"launch": r, "outputs": [where(torch, i, x, y)
-                                                   for i, (x, y) in enumerate(zip(got, ref))
-                                                   if not torch.equal(x.nan_to_num(),
-                                                                      y.nan_to_num())]})
+            diffs.append({"launch": r, "outputs": [
+                where(torch, i, x, y) for i, (x, y) in enumerate(zip(got[loose:], ref[loose:]))
+                if not torch.equal(x.nan_to_num(), y.nan_to_num())]})
     torch.cuda.synchronize()
     out = {"launches": reps, "differed": int(bad.sum().item()),
            "finite": bool(torch.isfinite(ref[0]).all().item())}
+    if loose and D == 64:
+        rel = dq_worst.item() / max(ref[0].abs().max().item(), 1e-6)
+        out.update(dq_rel=rel, differed=out["differed"] + reps * (not rel <= DQ_REL_TOL))
     return {**out, "diffs": diffs} if diffs else out
 
 
