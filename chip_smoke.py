@@ -103,7 +103,10 @@ backward, beside the bounds; the fused kernel at the encoder and cross
 shapes is launched 1000 times (dK and dV bitwise the first launch, dQ
 within tolerance of it), and the KV-stationary kernels' head_dim-128 ptxas
 lines must equal those of the design before the head_dim-64 redesign
-(``KV128_PTXAS_BEFORE``).
+(``KV128_PTXAS_BEFORE``), the dQ kernel's head_dim-64 and -128 lines those
+of the design before the head_dim-160/256 redesign (``DQ_PTXAS_BEFORE``),
+and every head_dim-160 and -256 dQ instantiation takes 168 registers at
+entry without spills.
 Phase 3 also holds this slice's kernels against their plain versions and
 times them: the split-KV forward at whisper's cross-attention (B = 1 and 4,
 4 prompt rows against 1500 frames, head_dim 64; the auto split count and a
@@ -154,7 +157,8 @@ corner shape and packed), each against its plain version in the same mode
 and bitwise over two launches. Then the split forward in one-q-tile mode
 at gemma3-1b's corner (32,768 keys) and split prefill and at stablelm-12b's
 corner, 1000 launches each, every one bitwise the first
-(``repeat_launches``).
+(``repeat_launches``), and so the head_dim-256 and -160 dQ kernels at
+gemma3-1b's and stablelm-12b's causal training shapes.
 After phase 6, the gemma3 serving slice: gemma3-1b at its published widths
 and depth (26 layers, bf16, random weights from seed 0) serves the six
 requests through both engines (the paged one preempting once) with exact
@@ -558,9 +562,17 @@ KV128_PTXAS_BEFORE = {
 }
 
 
-def kv128_ptxas_check(ptxas: str) -> None:
-    """The fused and dK/dV kernels' head_dim-128 instantiations in the ptxas
-    summary: every line as ``KV128_PTXAS_BEFORE``."""
+# The dQ kernel's head_dim-64 and -128 ptxas lines as the design before the
+# head_dim-160/256 redesign built them (the 256 body is one of its own,
+# dq_wide; the 64/128 body, which also takes 160, must stay as it was).
+DQ_PTXAS_BEFORE = {f"fa2_bwd_dq_kernel<{D},{seg},{dense}>": (168, 48, 48)
+                   if D == 64 and seg and dense else (168, 0, 0)
+                   for D in (64, 128) for seg in (0, 1) for dense in (0, 1)}
+
+
+def bwd_ptxas_check(ptxas: str, before: dict, what: str) -> None:
+    """The backward instantiations of ``before`` in the ptxas summary: every
+    line (registers at entry, spill stores, spill loads) as there."""
     import re
 
     rows = {}
@@ -569,13 +581,10 @@ def kv128_ptxas_check(ptxas: str) -> None:
                      r"(\d+) B, loads (\d+) B", line)
         if m:
             rows[m.group(1)] = tuple(int(m.group(i)) for i in (2, 3, 4))
-    changed = [(k, v, rows.get(k)) for k, v in KV128_PTXAS_BEFORE.items() if rows.get(k) != v]
-    log(f"ptxas, the KV-stationary kernels at head_dim 128 against the design before the "
-        f"head_dim-64 redesign: {len(KV128_PTXAS_BEFORE) - len(changed)} of "
-        f"{len(KV128_PTXAS_BEFORE)} lines equal")
+    changed = [(k, v, rows.get(k)) for k, v in before.items() if rows.get(k) != v]
+    log(f"ptxas, {what}: {len(before) - len(changed)} of {len(before)} lines equal")
     if changed:
-        fail(f"the KV-stationary kernels' head_dim-128 ptxas lines changed (instantiation, "
-             f"before, now): {changed}")
+        fail(f"ptxas lines changed, {what} (instantiation, before, now): {changed}")
 
 
 def past_lengths(torch, x, lengths, value):
@@ -2403,9 +2412,9 @@ def bwd_kernels_at(torch, randn, D, B, Sq, Skv, Hq, Hkv, spec, pairs, what, flus
     launches); ``extra(args, fused, dk, dv, dq)`` runs more checks on the
     same inputs. With ``timed``, each is then timed after an L2 flush beside
     its bound (``pairs``: the (q, k) pairs the mask needs, over the batch):
-    the fused and the whole split backward in turns with SDPA's backward
-    (fused, split, sdpa, sdpa fwd, sdpa fwd, sdpa, split, fused;
-    ``sdpa_kw``: ``sdpa_calls``'s mask), delta, dK/dV and dQ alone, the
+    the fused and the whole split backward and dQ in turns with SDPA's
+    backward (fused, split, dq, sdpa, sdpa fwd, sdpa fwd, sdpa, dq, split,
+    fused; ``sdpa_kw``: ``sdpa_calls``'s mask), delta and dK/dV alone, the
     plain versions. Returns ({name: max |err|}, {name: times} or None)."""
     from repro_torch.kernels import flash_bwd as bwd
     from repro_torch.kernels import flash_fwd as fwd
@@ -2472,17 +2481,19 @@ def bwd_kernels_at(torch, randn, D, B, Sq, Skv, Hq, Hkv, spec, pairs, what, flus
         bwd.flash_bwd_dq(q, k, v, do, lse, d, spec, **tiles)
 
     calls = {"fused": lambda: bwd.flash_bwd_fused(*args, **tiles), "split": split_total,
+             "dq": lambda: bwd.flash_bwd_dq(*args, **tiles),
              "sdpa": sdpa_fwd_bwd, "sdpa_fwd": sdpa_fwd}
     turns = {name: [] for name in calls}
-    for name in ("fused", "split", "sdpa", "sdpa_fwd", "sdpa_fwd", "sdpa", "split", "fused"):
+    for name in ("fused", "split", "dq", "sdpa", "sdpa_fwd", "sdpa_fwd", "sdpa", "dq", "split",
+                 "fused"):
         turns[name].append(time_ms(torch, calls[name], 20, flush, LONG_SPIN_CYCLES))
-    fused_ms, split_ms, fb_ms, f_ms = (sum(turns[n]) / 2
-                                       for n in ("fused", "split", "sdpa", "sdpa_fwd"))
+    fused_ms, split_ms, dq_ms, fb_ms, f_ms = (sum(turns[n]) / 2
+                                              for n in ("fused", "split", "dq", "sdpa", "sdpa_fwd"))
     lib_bwd_ms = fb_ms - f_ms
     ms = {"flash_bwd_fused": fused_ms,
           "flash_bwd_delta": time_ms(torch, lambda: bwd.flash_bwd_delta(o, do), 20, flush),
           "flash_bwd_dkv": time_ms(torch, lambda: bwd.flash_bwd_dkv(*args, **tiles), 20, flush),
-          "flash_bwd_dq": time_ms(torch, lambda: bwd.flash_bwd_dq(*args, **tiles), 20, flush)}
+          "flash_bwd_dq": dq_ms}
     plains = {"flash_bwd_delta": lambda: bwd.flash_bwd_delta_plain(o, do),
               "flash_bwd_fused": lambda: bwd.flash_bwd_fused_plain(*args, **tiles),
               "flash_bwd_dkv": lambda: bwd.flash_bwd_dkv_plain(*args, **tiles),
@@ -2490,11 +2501,12 @@ def bwd_kernels_at(torch, randn, D, B, Sq, Skv, Hq, Hkv, spec, pairs, what, flus
     t_q, t_kv = -(-Sq // tiles["block_q"]), -(-Skv // tiles["block_kv"])
     n_vis = int(build_kv_tile_schedule(spec, t_q, t_kv, tiles["block_q"], tiles["block_kv"],
                                        Skv).row_ptr[-1])
-    log(f"  times at {what} (after an L2 flush): in turns (fused, split, sdpa, sdpa fwd, "
-        f"sdpa fwd, sdpa, split, fused) fused {turns['fused']} ms, split (delta + dkv + dq) "
-        f"{turns['split']} ms, sdpa fwd+bwd {turns['sdpa']} ms, sdpa fwd {turns['sdpa_fwd']} "
-        f"ms; fused / sdpa backward {fused_ms / lib_bwd_ms:.4f}, split / sdpa backward "
-        f"{split_ms / lib_bwd_ms:.4f}; {n_vis} visible 64 x 64 tiles a head")
+    log(f"  times at {what} (after an L2 flush): in turns (fused, split, dq, sdpa, sdpa fwd, "
+        f"sdpa fwd, sdpa, dq, split, fused) fused {turns['fused']} ms, split (delta + dkv + dq) "
+        f"{turns['split']} ms, dq {turns['dq']} ms, sdpa fwd+bwd {turns['sdpa']} ms, sdpa fwd "
+        f"{turns['sdpa_fwd']} ms; fused / sdpa backward {fused_ms / lib_bwd_ms:.4f}, split / "
+        f"sdpa backward {split_ms / lib_bwd_ms:.4f}, dq / sdpa backward "
+        f"{dq_ms / lib_bwd_ms:.4f}; {n_vis} visible 64 x 64 tiles a head")
     rows = {}
     for name in BWD_NAMES:
         plain_ms = time_ms(torch, plains[name], 2, flush)
@@ -3575,7 +3587,10 @@ def repeat_launches(torch, dev) -> None:
     stage of the 3-stage ring, about one launch in 2000 at gemma3's corner
     took another position's record and tiles. Then the head_dim-64 fused
     backward at whisper's encoder and cross shapes, ``REPEATS`` times each:
-    dK and dV bitwise the first launch, dQ within GRAD_REL_TOL of it."""
+    dK and dV bitwise the first launch, dQ within GRAD_REL_TOL of it; and
+    the head_dim-256 and -160 dQ kernels at gemma3-1b's and stablelm-12b's
+    causal training shapes, ``REPEATS`` times each, every dQ bitwise the
+    first."""
     from repro_torch.core.masks import MaskSpec
     from repro_torch.kernels import flash_fwd as fwd
     from repro_torch.kernels import ops
@@ -3634,6 +3649,29 @@ def repeat_launches(torch, dev) -> None:
         if n or not rel <= GRAD_REL_TOL:
             fail(f"flash_bwd_fused D=64 at the {shape} shape: {n} of {REPEATS} launches' dK/dV "
                  f"not bitwise the first, or dQ {rel:.3e} from it")
+    # The dQ kernel at 256 (the dS hand-over between the two warpgroups
+    # through alternating slots, K and V on their own rings) and at 160 (K
+    # and V on their own rings) at the causal training shapes.
+    spec = MaskSpec(causal=True)
+    for D, hq, hkv, B, S in ((G3_D, G3_HQ, G3_HKV, G3_TRAIN_B, G3_TRAIN_S),
+                             (SL_D, SL_HQ, SL_HKV, SL_TRAIN_B, SL_TRAIN_S)):
+        q = ops._prep(torch.randn((B, S, hq, D), generator=gen, device=dev).to(torch.bfloat16),
+                      1 / math.sqrt(D))
+        k, v = (torch.randn((B, S, hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        do = torch.randn((B, S, hq, D), generator=gen, device=dev).to(torch.bfloat16)
+        o, lse = fwd.flash_fwd(q, k, v, spec, **tiles)
+        args = (q, k, v, do, lse, bwd.flash_bwd_delta(o, do), spec)
+        first = bwd.flash_bwd_dq(*args, **tiles)
+        differed = torch.zeros((), dtype=torch.int64, device=dev)
+        for _ in range(REPEATS):
+            differed += torch.ne(bwd.flash_bwd_dq(*args, **tiles), first).any()
+        n = int(differed.item())
+        log(f"flash_bwd_dq D={D} B={B} S={S} Hq={hq} Hkv={hkv} causal: {REPEATS - n} of "
+            f"{REPEATS} launches bitwise the first")
+        if n:
+            fail(f"flash_bwd_dq D={D} at the causal training shape: {n} of {REPEATS} launches "
+                 f"not bitwise the first")
 
 
 def hd64_granite_kernel_phase(torch, dev, flush):
@@ -4632,7 +4670,8 @@ def wide_ptxas_check(ptxas: str) -> None:
     with SEG; the forward's in each tile mode) against their compact
     single-pass twins in the ptxas summary:
     no more spill bytes, and for the split forward 168 registers at entry as
-    its twin; every fused and dK/dV instantiation at 168 registers at entry
+    its twin; every dQ instantiation at 168 registers at entry without
+    spills; every fused and dK/dV instantiation at 168 registers at entry
     and no more spill stores than KV_SPILLS_BEFORE; and no instantiation of
     any kernel with its wgmma serialised."""
     import re
@@ -4660,6 +4699,16 @@ def wide_ptxas_check(ptxas: str) -> None:
                 if d[3] or d[1] > c[1] or d[2] > c[2] or d[0] != c[0]:
                     fail(f"{inst} spills more than {compact}, takes other registers at entry "
                          "or has serialised wgmma")
+    # The dQ kernel at 160 (dq_pair) and 256 (dq_wide): 168 registers at
+    # entry and no spills, as its parent design.
+    for inst in (f"fa2_bwd_dq_kernel<{D},{seg},{dense}>" for D in (256, 160) for seg in (0, 1)
+                 for dense in (0, 1)):
+        if inst not in rows:
+            fail(f"ptxas reported no {inst}")
+        log(f"ptxas {inst}: {rows[inst][0]} registers, spill stores {rows[inst][1]} B, loads "
+            f"{rows[inst][2]} B (before the redesign 168, 0, 0)")
+        if rows[inst][:3] != (168, 0, 0):
+            fail(f"{inst} takes other registers at entry than 168 or spills")
     for inst, before in KV_SPILLS_BEFORE.items():
         if inst not in rows:
             fail(f"ptxas reported no {inst}")
@@ -5413,10 +5462,14 @@ def main() -> None:
     ptxas = ptxas_summary(_build, sources)
     log("ptxas, registers and spills by kernel instantiation (registers at entry; the "
         "forward's, the KV-stationary backward's and the dq kernel's warpgroups then run at 24 "
-        "(producer) and 240 (consumers) by setmaxnreg):\n" + ptxas)
+        "(producer) and 240 (consumers) by setmaxnreg, the dq kernel at head_dim 256 at 40 and "
+        "232):\n" + ptxas)
     wide_ptxas_check(ptxas)
     fwd_ptxas_check(ptxas)
-    kv128_ptxas_check(ptxas)
+    bwd_ptxas_check(ptxas, KV128_PTXAS_BEFORE, "the KV-stationary kernels at head_dim 128 "
+                    "against the design before the head_dim-64 redesign")
+    bwd_ptxas_check(ptxas, DQ_PTXAS_BEFORE, "the dQ kernel at head_dim 64 and 128 against the "
+                    "design before the head_dim-160/256 redesign")
 
     scratch = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     results = kernel_phase(torch, dev, scratch.zero_)

@@ -190,16 +190,9 @@
 // takes 0.71x and 0.83x of its time; the steps stay serial within a
 // warpgroup (products, exp2 and the exchange, products, the dQ staging),
 // so the tensor cores idle between them.
-//   * dq: one CTA per (q tile, batch * q head) at 256, highest tiles
-//     first; both warpgroups compute the same S and dP, and warpgroup w
-//     adds dS K[:, 128 w ..] into its half of dQ (1.67x the minimal
-//     products). Q and dO of the tile (64 KB) and a 2-stage K/V ring (128
-//     KB): 194 KB. At 160 the pair shape of D = 128 (dQ 80 registers, S and
-//     dP 32 each), each warpgroup one q tile at full width (dQ += dS K as
-//     wgmma_rs_k64<160>: an n128 and an n32 product a k-step); Q and dO of
-//     the pair (80 KB) and a 3-stage K/V ring (120 KB): 202 KB. dQ is
-//     written once, without atomics, so bwd="split" stays bitwise the same
-//     from launch to launch.
+//   * dq: at 256 one q tile a CTA (each warpgroup S and dP for half the
+//     step's kv columns, and half of dQ's columns), at 160 the pair of q
+//     tiles; the dq paragraph below has both.
 // Split dK/dV stay bitwise the fused kernel's: one source, the DQ flag only
 // adds the dQ phase and sets the ring depth (and the P^T buffers), which
 // moves no arithmetic.
@@ -234,14 +227,15 @@
 // the twin of the forward (csrc/flash_fwd.cu) built from the same sm90.cuh
 // primitives: three products per visible tile (S = Q K^T, dP = dO V^T,
 // dQ += dS K), so at training lengths it is bound by the tensor cores, and
-// only wgmma fed by TMA reaches their rate. The design:
+// only wgmma fed by TMA reaches their rate. The design at head_dim 64,
+// 128 and 160 (dq_pair):
 //   * one CTA per (pair of 64-row q tiles 2m, 2m + 1, batch * q head): 384
 //     threads, a producer warpgroup (one warp works; setmaxnreg lowers it to
 //     24 registers) and two consumer warpgroups (raised to 240), one per q
 //     tile, each holding its 64 rows' dQ as an f32 wgmma accumulator (64
-//     registers a thread). High pairs (the longest causal walks) start
-//     first. An odd t_q leaves the last CTA one tile; its second warpgroup
-//     computes and writes nothing;
+//     registers a thread at 128, 80 at 160). High pairs (the longest causal
+//     walks) start first. An odd t_q leaves the last CTA one tile; its
+//     second warpgroup computes and writes nothing;
 //   * the producer loads the pair's Q and dO once by TMA (the 4-d (D, H, S,
 //     B) maps of the KV-stationary kernels), stages each row's lse (times
 //     log2 e, with the fused kernel's kHidden rule for a row that sees no
@@ -249,7 +243,8 @@
 //     two q tiles' slices of the q-major table (PairWalk with group 1, as
 //     the forward; kernels/schedule.py pair_walk), or under DENSE every kv
 //     tile, which it classifies for both q tiles. K_j and V_j stream through
-//     a 4-stage ring with full and empty mbarriers; under SEG the kv tile's
+//     a 4-stage ring (3 at 160: 202 KB) with full and empty mbarriers, one
+//     pair a stage; under SEG the kv tile's
 //     ids follow by cp.async on the stage's barrier when a tile needs the
 //     element mask. Each step is handed over as a record (kv tile; per q
 //     tile: takes it, needs the element mask);
@@ -271,13 +266,69 @@
 //     exactly its own tile's steps in ascending kv order, with no atomics,
 //     so dQ is bitwise the same from launch to launch, and dense dQ is the
 //     compact dQ to the bit. A row that sees no key gets zeros.
-// What bounds it now (chip_smoke.py and tools/ab_kernels.py on an H100
-// 80GB HBM3 at 700 W, training shape): it runs at 3.25x its bound. A
-// 2-stage ring instead of 4 costs 1.27x, so the K/V stream matters; Q as
-// register fragments changes nothing, Q and dO cost 1.04x. One CTA an SM (194 KB of shared memory), so a CTA's prologue and
-// epilogue are not hidden; 64-column steps, so the waits and the record
-// hand-over come every 64 keys; causal pairs finish unevenly in the last
-// wave.
+// What bounds it (chip_smoke.py and tools/ab_kernels.py on an H100 80GB
+// HBM3 at 700 W, training shape): it runs at 3.25x its bound. A 2-stage
+// ring instead of 4 costs 1.27x, so the K/V stream matters; Q as register
+// fragments changes nothing, Q and dO cost 1.04x. One CTA an SM (194 KB of
+// shared memory), so a CTA's prologue and epilogue are not hidden; 64-column
+// steps, so the waits and the record hand-over come every 64 keys; causal
+// pairs finish unevenly in the last wave.
+// At head_dim 160 and 256 the grid puts batch * head on x and the pair
+// (160) or q tile (256), longest walks first, on y (dq_head_major;
+// kernels/flash_bwd.py dq_grid; the wrapper refuses more than 65,535 on y):
+// CUDA issues blocks x-fastest, so the first wave holds the longest causal
+// walk of every head, where tiles on x put every tile of the first heads in
+// it and the longest walks of the last heads in the last wave (gemma3's
+// training shape: 32 tiles x 16 heads, one CTA an SM). At 64 and 128 the
+// pairs stay on x (batch * head on x measured 0.93x there).
+// At head_dim 256 (dq_wide, the same walk, records, mask, overlap and
+// single write of dQ) the step and the rings differ:
+//   * a 64 x 256 f32 dQ is 128 registers a thread, so a CTA owns ONE q tile
+//     and warpgroup w holds columns [128 w, 128 w + 128) of its dQ; and S
+//     and dP are computed once a step: warpgroup w computes them for its 32
+//     of the step's 64 kv columns (m64n32 over head_dim, K's and V's rows
+//     32 w .. read K-major from the stage: sm90.cuh kmajor_desc_half), its P
+//     and dS = P o (dP - delta) with the element mask and SEG ids as above,
+//     and writes its bf16 dS into a 64 x 64 shared slot (128-byte swizzled,
+//     the K-major A layout); one named barrier; then each adds
+//     dQ[:, 128 w ..] += dS K[:, 128 w ..] with both operands from shared
+//     memory (m64n128, wg_ss_k64), issued with the next step's S and dP.
+//     Three products of 64 x 64 x 256 a step where both warpgroups
+//     computing the whole of S and dP made five; a consumer thread holds
+//     64 + 16 + 16 accumulator registers (before, 64 + 32 + 32 and the
+//     pending dS), so setmaxnreg gives the consumers 232 registers and the
+//     producer warp 40 (with 24 it spilled under DENSE with SEG). The
+//     slots alternate, and two suffice: a slot is written again two taken
+//     steps on, after both warpgroups have passed the next step's barrier,
+//     which each reaches only after its wait for the pending dQ += dS K
+//     that reads the slot (tools/model_dq_wide.py models the hand-over: one
+//     slot breaks it). A run's first product reads a tile of zeros the
+//     producer wrote once (dQ += 0 exactly), so every taken step issues the
+//     same three products;
+//   * K and V on their own rings of full and empty mbarriers (the forward's
+//     wide kernel does the same), K 3 stages and V 1 (Q/dO 64 KB + 96 + 32
+//     KB + 24 KB of dS tiles: 217.3 KB): the producer loads K_j and hands
+//     over the record (and, under SEG, the kv ids) on K's barrier, then
+//     loads V_j. A consumer frees V_j once dP has completed, and K_j once the
+//     dQ += dS K that reads it has, a step later; so V's one stage is
+//     refilled while the step's dS and the pending dQ run, and K, held for
+//     two steps, is loaded a step ahead. Every consumer waits on every
+//     position of both rings, so no parity wait passes on a phase it
+//     skipped.
+// The order of the adds into each dQ element is the one above (k-steps of
+// 16 over the step's 64 kv rows, ascending steps), so dQ stays bitwise the
+// same from launch to launch, dense dQ the compact dQ, SEG with all-ones
+// ids the unsegmented dQ, and every dQ the earlier design's. What bounds
+// them now (tools/ab_kernels.py wide_dq, an H100 80GB HBM3 at 700 W, in
+// turns with the earlier design): at gemma3's causal training shape the 256
+// kernel takes 0.57x the earlier one's time (3.3x its bound), and undoing S
+// and dP once costs 1.36x, the grid order 1.16x, the K/V split with its
+// deeper K ring 1.11x; the split backward takes 1.14x SDPA's backward. The
+// 160 kernel takes 0.88x the earlier one's time (2.9x its bound), all of it
+// the grid order: K and V on their own rings in the pair body (K 4 stages,
+// V 2) bought 1.05x unsegmented and lost 1.04x under SEG. The steps stay
+// serial within a warpgroup (products, exp2 and dS, the barrier at 256),
+// and one CTA an SM leaves a CTA's prologue and epilogue unhidden.
 //
 // Packed (varlen) batches take the SEG instantiation of the fused, dkv and
 // dq kernels, which replaces the segment branches of the same Pallas
@@ -1601,19 +1652,23 @@ __global__ void __launch_bounds__(kSumThreads) fa2_bwd_group_sum_kernel(
 
 // --------------------------------------------------------------------- dq
 
-// Shared memory of the dq kernel, in bytes from a 1024-aligned base: the
-// CTA's Q and dO tiles (each D / 64 boxes of 64 rows x 64 columns, and at
-// head_dim 160 a tail box of 64 rows x 32 columns; two q tiles, or at 256
-// one), the K and V stages (64 rows each; a 4-stage ring, 3 at 160, 2 at
-// 256), each stage's kv ids (SEG) and step record, room for two tiles' 128
-// staged lse and delta values, then the mbarriers. About 194 KB at D = 128
-// and at 256, 202 KB at 160.
+// Whether the dq kernel's grid puts batch * head on x, the q tile or pair
+// on y (at 160 and 256: every head's longest walks in the first wave),
+// rather than the pairs on x (kernels/flash_bwd.py dq_grid mirrors it).
+__host__ __device__ constexpr bool dq_head_major(int D) { return D == 160 || D == 256; }
+
+// Shared memory of the dq kernel at head_dim 64, 128 and 160 (dq_pair), in
+// bytes from a 1024-aligned base: the pair's Q and dO tiles (each D / 64
+// boxes of 64 rows x 64 columns; at 160 two 128-byte-swizzled boxes and a
+// 64-byte-swizzled tail box of 32 columns), the K and V stages of the ring
+// (4 stages, 3 at 160), each stage's kv ids (SEG) and step record, the two
+// tiles' 128 staged lse and delta values, then the mbarriers. About 194 KB
+// at D = 128, 202 KB at 160.
 template <int D>
 struct DqSmem {
-  static constexpr int TILES = D == 256 ? 1 : 2;
-  static constexpr int STAGES = D == 256 ? 2 : D == 160 ? 3 : 4;
+  static constexpr int STAGES = D == 160 ? 3 : 4;
   static constexpr uint32_t TILE = kBlockM * D * 2;  // a 64-row tile: 16 KB at D = 128
-  static constexpr uint32_t Q = 0, DO = TILES * TILE, K = 2 * TILES * TILE;
+  static constexpr uint32_t Q = 0, DO = 2 * TILE, K = 4 * TILE;
   static constexpr uint32_t V = K + STAGES * TILE;
   static constexpr uint32_t KID = V + STAGES * TILE;
   static constexpr uint32_t STEP = KID + STAGES * kBlockN * 4;
@@ -1623,18 +1678,139 @@ struct DqSmem {
   static constexpr uint32_t BYTES = BARS + (2 * STAGES + 1) * 8;
 };
 
+// Stage the lse (times log2 e, with the fused kernel's kHidden rule for a
+// row that sees no key, +inf past Sq) and delta of q rows i0 * 64 .. +
+// rows - 1 of head row bh into shared memory: the producer warp's lanes.
+__device__ __forceinline__ void stage_rows(const BwdParams& p, float* sLse, float* sDelta,
+                                           int bh, int i0, int rows, int lane) {
+  const long long row0 = static_cast<long long>(bh) * p.Sq;
+  for (int r = lane; r < rows; r += 32) {
+    const int qr = i0 * kBlockM + r;
+    float l = INFINITY, d = 0.f;
+    if (qr < p.Sq) {
+      l = p.lse[row0 + qr];
+      l = l == -INFINITY        ? 0.f
+          : l < 0.5f * kMaskValue ? kHidden * kLog2e + (l - kMaskValue) * kLog2e
+                                  : l * kLog2e;  // kHidden: a row that sees no key
+      d = p.delta[row0 + qr];
+    }
+    sLse[r] = l;
+    sDelta[r] = d;
+  }
+}
+
+// The walk of a dq CTA (its q tiles i0 and, if has1, i0 + 1 of batch row
+// b): the q-major table's slices (PairWalk with group 1, as the forward),
+// or under DENSE every kv tile.
+template <bool SKIP, bool DENSE>
+__device__ __forceinline__ PairWalk<SKIP, DENSE> dq_walk(const BwdParams& p, int i0, bool has1,
+                                                         int b) {
+  PairWalk<SKIP, DENSE> walk;
+  walk.group = 1;
+  walk.n_tiles = (p.Skv + kBlockN - 1) / kBlockN;
+  walk.g = 0;
+  if (DENSE) {
+    walk.steps = walk.bits = nullptr;
+    walk.a0 = walk.a1 = walk.b0 = walk.b1 = 0;
+  } else {
+    walk.steps = p.table + p.t_q + 1;
+    walk.bits = SKIP ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
+    walk.a0 = p.table[i0];
+    walk.a1 = p.table[i0 + 1];
+    walk.b0 = has1 ? p.table[i0 + 1] : 0;
+    walk.b1 = has1 ? p.table[i0 + 2] : 0;
+  }
+  walk.ia = walk.a0;
+  walk.ib = walk.b0;
+  return walk;
+}
+
+// The record flags of the step at kv tile j (kTake0/1, kMask0/1): the
+// table's flags and step bits (entries ea, eb of the walk), or under DENSE
+// the classifier, with SEG on the owners' id ranges (q_lo, q_hi) and the
+// kv tile's, which the producer warp's lanes copy into kid (64 ints) first.
+// Only the element mask reads the kv ids: on the compact schedule they are
+// copied by cp.async, when a tile needs it, onto `full`, whose phase then
+// also waits for them. A row past Skv reads 0 there; the mask hides its
+// column anyway (visible() is false past Skv).
+template <bool SEG, bool DENSE>
+__device__ __forceinline__ int dq_step_flags(const BwdParams& p, const int* walk_steps,
+                                             const int* walk_bits, int ea, int eb, int j, int i0,
+                                             bool has1, const int* kid_g, int* kid,
+                                             const int (&q_lo)[2], const int (&q_hi)[2],
+                                             uint64_t* full, int lane) {
+  const int k0 = j * kBlockN;
+  int flags = 0;
+  if (DENSE) {
+    int lo = 0x7fffffff, hi = -0x7fffffff;
+    if (SEG) {
+      for (int r = lane; r < kBlockN; r += 32) {
+        const int id = k0 + r < p.Skv ? kid_g[k0 + r] : kKvPadSegment;
+        kid[r] = id;
+        lo = min(lo, id);
+        hi = max(hi, id);
+      }
+      warp_range(lo, hi);
+    }
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      TileClass c = classify_tile(p, (i0 + x) * kBlockM + p.q_offset, k0);
+      if (SEG) c = with_ids(c, q_lo[x], q_hi[x], lo, hi);
+      if ((x == 0 || has1) && !c.empty)
+        flags |= (x ? kTake1 : kTake0) | (c.mask ? (x ? kMask1 : kMask0) : 0);
+    }
+  } else {
+    if (ea >= 0)
+      flags |= kTake0 | ((walk_steps[ea] & 1) || (SEG && !(walk_bits[ea] & kSegUniform))
+                             ? kMask0 : 0);
+    if (eb >= 0)
+      flags |= kTake1 | ((walk_steps[eb] & 1) || (SEG && !(walk_bits[eb] & kSegUniform))
+                             ? kMask1 : 0);
+    if (SEG && (flags & (kMask0 | kMask1))) {
+      for (int r = lane; r < kBlockN; r += 32) {
+        const bool in = k0 + r < p.Skv;
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(kid + r)),
+                     "l"(kid_g + (in ? k0 + r : 0)), "r"(in ? 4 : 0)
+                     : "memory");
+      }
+      asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(smem_u32(full))
+                   : "memory");
+    }
+  }
+  return flags;
+}
+
+// DENSE with SEG: the id range of each q tile the CTA owns (has1 is
+// uniform in the warp, so warp_range's shuffles see every lane).
+template <bool SEG, bool DENSE>
+__device__ __forceinline__ void dq_owner_ranges(const BwdParams& p, int b, int i0, bool has1,
+                                                int lane, int (&q_lo)[2], int (&q_hi)[2]) {
+  q_lo[0] = q_lo[1] = q_hi[0] = q_hi[1] = 0;
+  if (!(DENSE && SEG)) return;
+  const int* qid_g = p.q_seg + b * p.q_seg_sb;
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    if (x == 1 && !has1) continue;
+    int lo = 0x7fffffff, hi = -0x7fffffff;
+    for (int r = (i0 + x) * kBlockM + lane; r < (i0 + x + 1) * kBlockM; r += 32) {
+      const int id = r < p.Sq ? qid_g[r] : kQPadSegment;
+      lo = min(lo, id);
+      hi = max(hi, id);
+    }
+    warp_range(lo, hi);
+    q_lo[x] = lo;
+    q_hi[x] = hi;
+  }
+}
+
+// The dq kernel at head_dim 64, 128 and 160: a CTA per pair of q tiles,
+// each consumer warpgroup one tile at full width (the header's dq
+// paragraph).
 template <int D, bool SEG, bool DENSE>
-__global__ void __launch_bounds__(kKvThreads, 1)
-    fa2_bwd_dq_kernel(const BwdParams p, const __grid_constant__ BwdMaps maps) {
-  static_assert(D == 64 || D == 128 || D == 160 || D == 256,
-                "the dq kernel takes head_dim 64, 128, 160 or 256");
+__device__ __forceinline__ void dq_pair(const BwdParams& p, const BwdMaps& maps) {
   using L = DqSmem<D>;
   constexpr int kDqStages = L::STAGES;
   constexpr bool SKIP = SEG && !DENSE;  // inactive steps are dropped before their fetch
-  // Head_dim 256: the CTA owns one q tile and consumer warpgroup w holds
-  // columns [128 w, 128 w + 128) of its dQ (the header says why).
-  constexpr bool HALF = D == 256;
-  constexpr int DC = HALF ? D / 2 : D;  // columns of dQ a warpgroup holds
   constexpr int BM = kBlockM, BN = kBlockN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -1648,11 +1824,11 @@ __global__ void __launch_bounds__(kKvThreads, 1)
   // producer walks and classifies; the consumers read this.
   int2* sStep = reinterpret_cast<int2*>(sm + L::STEP);
 
-  // Longest walks first.
-  const int i0 = HALF ? p.t_q - 1 - static_cast<int>(blockIdx.x)
-                      : 2 * ((p.t_q + 1) / 2 - 1 - static_cast<int>(blockIdx.x));
-  const bool has1 = !HALF && i0 + 1 < p.t_q;  // an odd t_q leaves the last pair one tile
-  const int bh = blockIdx.y;
+  // Longest walks first (dq_head_major: every head's).
+  constexpr bool HEAD_X = dq_head_major(D);
+  const int i0 = 2 * ((p.t_q + 1) / 2 - 1 - static_cast<int>(HEAD_X ? blockIdx.y : blockIdx.x));
+  const bool has1 = i0 + 1 < p.t_q;  // an odd t_q leaves the last pair one tile
+  const int bh = HEAD_X ? blockIdx.x : blockIdx.y;
   const int b = bh / p.Hq, h = bh % p.Hq, hk = h / p.group;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kDqStages; ++s) {
@@ -1679,59 +1855,13 @@ __global__ void __launch_bounds__(kKvThreads, 1)
                        (i0 + x) * BM, b);
         }
       }
-      const long long row0 = static_cast<long long>(bh) * p.Sq;
-      for (int r = lane; r < 2 * BM; r += 32) {
-        const int qr = i0 * BM + r;
-        float l = INFINITY, d = 0.f;
-        if (qr < p.Sq) {
-          l = p.lse[row0 + qr];
-          l = l == -INFINITY        ? 0.f
-              : l < 0.5f * kMaskValue ? kHidden * kLog2e + (l - kMaskValue) * kLog2e
-                                      : l * kLog2e;  // kHidden: a row that sees no key
-          d = p.delta[row0 + qr];
-        }
-        sLse[r] = l;
-        sDelta[r] = d;
-      }
+      stage_rows(p, sLse, sDelta, bh, i0, 2 * BM, lane);
       mbar_arrive(q_bar);
 
-      PairWalk<SKIP, DENSE> walk;
-      walk.group = 1;
-      walk.n_tiles = (p.Skv + BN - 1) / BN;
-      walk.g = 0;
-      if (DENSE) {
-        walk.steps = walk.bits = nullptr;
-        walk.a0 = walk.a1 = walk.b0 = walk.b1 = 0;
-      } else {
-        walk.steps = p.table + p.t_q + 1;
-        walk.bits = SKIP ? p.bits + static_cast<long long>(b) * p.n_vis : nullptr;
-        walk.a0 = p.table[i0];
-        walk.a1 = p.table[i0 + 1];
-        walk.b0 = has1 ? p.table[i0 + 1] : 0;
-        walk.b1 = has1 ? p.table[i0 + 2] : 0;
-      }
-      walk.ia = walk.a0;
-      walk.ib = walk.b0;
+      PairWalk<SKIP, DENSE> walk = dq_walk<SKIP, DENSE>(p, i0, has1, b);
       const int* kid_g = SEG ? p.kv_seg + b * p.kv_seg_sb : nullptr;
-      // DENSE with SEG: the id range of each q tile the CTA owns (HALF: one;
-      // has1 is uniform in the warp, so warp_range's shuffles see every lane).
-      int q_lo[2] = {0, 0}, q_hi[2] = {0, 0};
-      if (DENSE && SEG) {
-        const int* qid_g = p.q_seg + b * p.q_seg_sb;
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          if (x == 1 && !has1) continue;
-          int lo = 0x7fffffff, hi = -0x7fffffff;
-          for (int r = (i0 + x) * BM + lane; r < (i0 + x + 1) * BM; r += 32) {
-            const int id = r < p.Sq ? qid_g[r] : kQPadSegment;
-            lo = min(lo, id);
-            hi = max(hi, id);
-          }
-          warp_range(lo, hi);
-          q_lo[x] = lo;
-          q_hi[x] = hi;
-        }
-      }
+      int q_lo[2], q_hi[2];
+      dq_owner_ranges<SEG, DENSE>(p, b, i0, has1, lane, q_lo, q_hi);
       int g, j, ea, eb;
       // (A `break` out of this loop crashes ptxas 12.9; the loop ends on `more`.)
       bool more = true;
@@ -1750,66 +1880,20 @@ __global__ void __launch_bounds__(kKvThreads, 1)
           load_tile<D>(sm + L::K + stage * L::TILE, maps.k, maps.k_tail, &full[stage], hk, k0, b);
           load_tile<D>(sm + L::V + stage * L::TILE, maps.v, maps.v_tail, &full[stage], hk, k0, b);
         }
-        // Which tiles take the step, and which need the element mask: the
-        // table's flags and step bits, or under DENSE the classifier (with
-        // SEG on both tiles' id ranges, so it reads the kv ids first).
-        int flags = 0;
-        if (DENSE) {
-          int lo = 0x7fffffff, hi = -0x7fffffff;
-          if (SEG) {
-            for (int r = lane; r < BN; r += 32) {
-              const int id = k0 + r < p.Skv ? kid_g[k0 + r] : kKvPadSegment;
-              sKid[stage * BN + r] = id;
-              lo = min(lo, id);
-              hi = max(hi, id);
-            }
-            warp_range(lo, hi);
-          }
-#pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            TileClass c = classify_tile(p, (i0 + x) * BM + p.q_offset, k0);
-            if (SEG) c = with_ids(c, q_lo[x], q_hi[x], lo, hi);
-            if ((x == 0 || has1) && !c.empty)
-              flags |= (x ? kTake1 : kTake0) | (c.mask ? (x ? kMask1 : kMask0) : 0);
-          }
-        } else {
-          if (ea >= 0)
-            flags |= kTake0 | ((walk.steps[ea] & 1) || (SEG && !(walk.bits[ea] & kSegUniform))
-                                   ? kMask0 : 0);
-          if (eb >= 0)
-            flags |= kTake1 | ((walk.steps[eb] & 1) || (SEG && !(walk.bits[eb] & kSegUniform))
-                                   ? kMask1 : 0);
-          // Only the element mask reads the kv ids: copy them when a tile
-          // needs it, by cp.async, whose completion the stage's full barrier
-          // also waits for. A row past Skv reads 0; the mask hides its
-          // column anyway (visible() is false past Skv).
-          if (SEG && (flags & (kMask0 | kMask1))) {
-            for (int r = lane; r < BN; r += 32) {
-              const bool in = k0 + r < p.Skv;
-              asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                               smem_u32(sKid + stage * BN + r)),
-                           "l"(kid_g + (in ? k0 + r : 0)), "r"(in ? 4 : 0)
-                           : "memory");
-            }
-            asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
-                             smem_u32(&full[stage]))
-                         : "memory");
-          }
-        }
+        const int flags = dq_step_flags<SEG, DENSE>(p, walk.steps, walk.bits, ea, eb, j, i0, has1,
+                                                    kid_g, sKid + stage * BN, q_lo, q_hi,
+                                                    &full[stage], lane);
         if (lane == 0) sStep[stage] = make_int2(j, flags);
         mbar_arrive(&full[stage]);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    // Consumer warpgroup w owns q tile i0 + w: rows q0 .. q0 + 63 (HALF:
-    // both own tile i0, w its columns [128 w, 128 w + 128) of dQ).
+    // Consumer warpgroup w owns q tile i0 + w: rows q0 .. q0 + 63.
     const int w = wg - 1;
     const int t = threadIdx.x - 128 * wg;
     const int wq = t / 32, lane = t % 32, g8 = lane / 4, t4 = lane % 4;
-    const int wt = HALF ? 0 : w;  // its q tile of the pair
-    const uint32_t cols_at = HALF ? w * 16384 : 0;  // its columns' first box in a K stage
-    const int q0 = (i0 + wt) * BM;
+    const int q0 = (i0 + w) * BM;
     const int r_a = wq * 16 + g8;  // this thread's rows of the tile: r_a, r_a + 8
     const int row_a = q0 + r_a, row_b = row_a + 8;
     int qid[2] = {0, 0};
@@ -1818,23 +1902,21 @@ __global__ void __launch_bounds__(kKvThreads, 1)
       qid[0] = row_a < p.Sq ? qid_g[row_a] : kQPadSegment;
       qid[1] = row_b < p.Sq ? qid_g[row_b] : kQPadSegment;
     }
-    const int take = wt ? kTake1 : kTake0, needs_mask = wt ? kMask1 : kMask0;
-    const uint32_t sQ = smem_u32(sm + L::Q) + wt * L::TILE;
-    const uint32_t sdO = smem_u32(sm + L::DO) + wt * L::TILE;
+    const int take = w ? kTake1 : kTake0, needs_mask = w ? kMask1 : kMask0;
+    const uint32_t sQ = smem_u32(sm + L::Q) + w * L::TILE;
+    const uint32_t sdO = smem_u32(sm + L::DO) + w * L::TILE;
     const uint32_t sK = smem_u32(sm + L::K), sV = smem_u32(sm + L::V);
-    const uint32_t sKc = sK + cols_at;  // dS K's B operand: the warpgroup's columns of K
 
-    // dQ of the tile: rows r_a / r_a + 8, columns 8 tt + 2 t4 (+1) (HALF: of
-    // the warpgroup's half).
-    float dq[DC / 2];
+    // dQ of the tile: rows r_a / r_a + 8, columns 8 tt + 2 t4 (+1).
+    float dq[D / 2];
 #pragma unroll
-    for (int i = 0; i < DC / 2; ++i) dq[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
     uint32_t pc[4][4];  // dS of the pending step: bf16 A fragments of dQ += dS K
     int pend = -1;      // the stage whose dQ += dS K is not issued yet
 
     mbar_wait(q_bar, 0);
-    const float lse_r[2] = {sLse[wt * BM + r_a], sLse[wt * BM + r_a + 8]};
-    const float delta_r[2] = {sDelta[wt * BM + r_a], sDelta[wt * BM + r_a + 8]};
+    const float lse_r[2] = {sLse[w * BM + r_a], sLse[w * BM + r_a + 8]};
+    const float delta_r[2] = {sDelta[w * BM + r_a], sDelta[w * BM + r_a + 8]};
     for (int n = 0;; ++n) {
       const int stage = n % kDqStages;
       mbar_wait(&full[stage], (n / kDqStages) & 1);
@@ -1849,7 +1931,7 @@ __global__ void __launch_bounds__(kKvThreads, 1)
         // stays held while the producer waits for it, and release both.
         if (pend >= 0) {
           wgmma_fence();
-          wgmma_rs_k64<DC>(dq, pc, sKc + pend * L::TILE);
+          wgmma_rs_k64<D>(dq, pc, sK + pend * L::TILE);
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(dq);
@@ -1885,7 +1967,7 @@ __global__ void __launch_bounds__(kKvThreads, 1)
       for (int kk = 0; kk < D / 16; ++kk)
         wgmma_ss_n64<0, 0>(dp, kmajor_desc<D>(sdO, kk), kmajor_desc<D>(cV, kk), kk > 0);
       wgmma_commit();
-      wgmma_rs_k64<DC>(dq, pc, sKc + (first ? stage : pend) * L::TILE);
+      wgmma_rs_k64<D>(dq, pc, sK + (first ? stage : pend) * L::TILE);
       wgmma_commit();
       wgmma_wait<2>();
       fence_regs(s);
@@ -1938,7 +2020,7 @@ __global__ void __launch_bounds__(kKvThreads, 1)
     }
     if (pend >= 0) {  // the last step's dQ += dS K
       wgmma_fence();
-      wgmma_rs_k64<DC>(dq, pc, sKc + pend * L::TILE);
+      wgmma_rs_k64<D>(dq, pc, sK + pend * L::TILE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
@@ -1947,10 +2029,298 @@ __global__ void __launch_bounds__(kKvThreads, 1)
       mbar_arrive(&empty[pend]);
     }
 
-    // dQ of the tile, written once (zeros where the tile took no step; HALF:
-    // each warpgroup its half of the columns).
+    // dQ of the tile, written once (zeros where the tile took no step).
     const long long rs = static_cast<long long>(p.Hq) * D;
-    float* out = p.dq + static_cast<long long>(b) * p.Sq * rs + h * D + (HALF ? w * DC : 0) + 2 * t4;
+    float* out = p.dq + static_cast<long long>(b) * p.Sq * rs + h * D + 2 * t4;
+#pragma unroll
+    for (int tt = 0; tt < D / 8; ++tt) {
+      if (row_a < p.Sq)
+        *reinterpret_cast<float2*>(out + row_a * rs + tt * 8) = make_float2(dq[4 * tt], dq[4 * tt + 1]);
+      if (row_b < p.Sq)
+        *reinterpret_cast<float2*>(out + row_b * rs + tt * 8) =
+            make_float2(dq[4 * tt + 2], dq[4 * tt + 3]);
+    }
+  }
+}
+
+// Shared memory of the dq kernel at head_dim 256 (dq_wide), in bytes from
+// a 1024-aligned base: the CTA's Q and dO tiles, the K ring (KST stages)
+// and the V ring (VST stages), three 64 x 64 bf16 dS tiles (zeros, then
+// the two slots the steps alternate between; 128-byte swizzled, the K-major
+// A layout), per K stage the kv tile's ids (SEG) and the step record, the
+// staged lse and delta, then the mbarriers: K full and empty, V full and
+// empty, q. 64 + 96 + 32 + 24 KB + 1.3 KB = 217.3 KB. A CTA may use 227 KB
+// (232,448 bytes) with the 1024 bytes of alignment.
+struct DqWideSmem {
+  static constexpr int D = 256;
+  static constexpr int KST = 3;  // K stages
+  static constexpr int VST = 1;  // V stages
+  static constexpr int NDS = 3;  // dS tiles: zeros, slot 0, slot 1
+  // setmaxnreg: a consumer thread holds 64 + 16 + 16 accumulators, so its
+  // warpgroups take 232 registers and the producer's 40, where 24 made the
+  // producer warp spill; 168 a thread at entry either way.
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+  static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS == 168 * 384, "the CTA's registers");
+  static constexpr uint32_t TILE = kBlockM * D * 2;       // a 64-row tile of Q, dO, K or V
+  static constexpr uint32_t DSB = kBlockM * kBlockN * 2;  // a dS tile: 8 KB
+  static constexpr uint32_t Q = 0, DO = TILE, K = 2 * TILE;
+  static constexpr uint32_t V = K + KST * TILE;
+  static constexpr uint32_t DS = V + VST * TILE;
+  static constexpr uint32_t KID = DS + NDS * DSB;
+  static constexpr uint32_t STEP = KID + KST * kBlockN * 4;
+  static constexpr uint32_t LSE = STEP + KST * 8;
+  static constexpr uint32_t DELTA = LSE + kBlockM * 4;
+  static constexpr uint32_t BARS = DELTA + kBlockM * 4;
+  static constexpr uint32_t BYTES = BARS + (2 * KST + 2 * VST + 1) * 8;
+  static_assert(BYTES + 1024 <= 232448, "a CTA may use 227 KB of shared memory");
+};
+
+// The dq kernel at head_dim 256 (the header's dq paragraph): a CTA per q
+// tile, warpgroup w columns [128 w, 128 w + 128) of dQ and half of the
+// step's kv columns of S and dP; K and V on their own rings; batch * head
+// on the grid's x.
+template <bool SEG, bool DENSE>
+__device__ __forceinline__ void dq_wide(const BwdParams& p, const BwdMaps& maps) {
+  using L = DqWideSmem;
+  constexpr int D = L::D;
+  constexpr bool SKIP = SEG && !DENSE;  // inactive steps are dropped before their fetch
+  constexpr int DC = D / 2;             // columns of dQ a warpgroup holds
+  constexpr int BM = kBlockM, BN = kBlockN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* k_empty = k_full + L::KST;
+  uint64_t* v_full = k_empty + L::KST;
+  uint64_t* v_empty = v_full + L::VST;
+  uint64_t* q_bar = v_empty + L::VST;
+  int* sKid = reinterpret_cast<int*>(sm + L::KID);
+  float* sLse = reinterpret_cast<float*>(sm + L::LSE);  // lse * log2(e), +inf past Sq
+  float* sDelta = reinterpret_cast<float*>(sm + L::DELTA);
+  // Per K stage: (kv tile, step flags); a negative tile ends the walk.
+  int2* sStep = reinterpret_cast<int2*>(sm + L::STEP);
+
+  // Longest walks first (dq_head_major: every head's).
+  constexpr bool HEAD_X = dq_head_major(D);
+  const int i0 = p.t_q - 1 - static_cast<int>(HEAD_X ? blockIdx.y : blockIdx.x);
+  const int bh = HEAD_X ? blockIdx.x : blockIdx.y;
+  const int b = bh / p.Hq, h = bh % p.Hq, hk = h / p.group;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::KST; ++s) {
+      mbar_init(&k_full[s], 32);  // the producer warp's lanes; TMA bytes on top
+      mbar_init(&k_empty[s], kConsumers);
+    }
+    for (int s = 0; s < L::VST; ++s) {
+      mbar_init(&v_full[s], 1);  // the producer's lane 0; TMA bytes on top
+      mbar_init(&v_empty[s], kConsumers);
+    }
+    mbar_init(q_bar, 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform (see rec)
+  if (wg == 0) {
+    // Producer: one warp. Q, dO, lse, delta and the zero dS tile once; then,
+    // per step of the walk, K_j, the kv ids (SEG) and the step's record on
+    // K's barrier, then V_j on V's.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::PRODUCER_REGS) : "memory");
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(q_bar, 2 * L::TILE);
+        load_tile<D>(sm + L::Q, maps.q, maps.q_tail, q_bar, h, i0 * BM, b);
+        load_tile<D>(sm + L::DO, maps.dout, maps.dout_tail, q_bar, h, i0 * BM, b);
+      }
+      stage_rows(p, sLse, sDelta, bh, i0, BM, lane);
+      for (int i = lane; i < static_cast<int>(L::DSB / 16); i += 32)
+        reinterpret_cast<uint4*>(sm + L::DS)[i] = make_uint4(0u, 0u, 0u, 0u);
+      fence_async_smem();  // the zeros are read by wgmma
+      mbar_arrive(q_bar);
+
+      PairWalk<SKIP, DENSE> walk = dq_walk<SKIP, DENSE>(p, i0, false, b);
+      const int* kid_g = SEG ? p.kv_seg + b * p.kv_seg_sb : nullptr;
+      int q_lo[2], q_hi[2];
+      dq_owner_ranges<SEG, DENSE>(p, b, i0, false, lane, q_lo, q_hi);
+      int g, j, ea, eb;
+      // (A `break` out of this loop crashes ptxas 12.9; the loop ends on `more`.)
+      bool more = true;
+      for (int n = 0; more; ++n) {
+        more = walk.next(g, j, ea, eb);
+        const int ks = n % L::KST;
+        mbar_wait(&k_empty[ks], ((n / L::KST) & 1) ^ 1);
+        if (!more) {  // the walk's end: a record with a negative tile, no copies
+          if (lane == 0) sStep[ks] = make_int2(-1, 0);
+          mbar_arrive(&k_full[ks]);
+          continue;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(&k_full[ks], L::TILE);
+          load_tile<D>(sm + L::K + ks * L::TILE, maps.k, maps.k_tail, &k_full[ks], hk, j * BN, b);
+        }
+        const int flags = dq_step_flags<SEG, DENSE>(p, walk.steps, walk.bits, ea, eb, j, i0, false,
+                                                    kid_g, sKid + ks * BN, q_lo, q_hi,
+                                                    &k_full[ks], lane);
+        if (lane == 0) sStep[ks] = make_int2(j, flags);
+        mbar_arrive(&k_full[ks]);
+        const int vs = n % L::VST;
+        mbar_wait(&v_empty[vs], ((n / L::VST) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&v_full[vs], L::TILE);
+          load_tile<D>(sm + L::V + vs * L::TILE, maps.v, maps.v_tail, &v_full[vs], hk, j * BN, b);
+          mbar_arrive(&v_full[vs]);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::CONSUMER_REGS) : "memory");
+    // Both consumer warpgroups own q tile i0: rows q0 .. q0 + 63, w its
+    // columns [128 w, 128 w + 128) of dQ.
+    const int w = wg - 1;
+    const int t = threadIdx.x - 128 * wg;
+    const int wq = t / 32, lane = t % 32, g8 = lane / 4, t4 = lane % 4;
+    const int q0 = i0 * BM;
+    const int r_a = wq * 16 + g8;  // this thread's rows of the tile: r_a, r_a + 8
+    const int row_a = q0 + r_a, row_b = row_a + 8;
+    int qid[2] = {0, 0};
+    if (SEG) {
+      const int* qid_g = p.q_seg + b * p.q_seg_sb;
+      qid[0] = row_a < p.Sq ? qid_g[row_a] : kQPadSegment;
+      qid[1] = row_b < p.Sq ? qid_g[row_b] : kQPadSegment;
+    }
+    const int take = kTake0, needs_mask = kMask0;
+    const uint32_t sQ = smem_u32(sm + L::Q), sdO = smem_u32(sm + L::DO);
+    const uint32_t sK = smem_u32(sm + L::K), sV = smem_u32(sm + L::V);
+
+    // dQ of the tile: rows r_a / r_a + 8, columns 8 tt + 2 t4 (+1) of the
+    // warpgroup's half.
+    float dq[DC / 2];
+#pragma unroll
+    for (int i = 0; i < DC / 2; ++i) dq[i] = 0.f;
+
+    mbar_wait(q_bar, 0);
+    const float lse_r[2] = {sLse[r_a], sLse[r_a + 8]};
+    const float delta_r[2] = {sDelta[r_a], sDelta[r_a + 8]};
+    // S and dP once a step: each warpgroup computes them for its 32 of the
+    // step's 64 kv columns and writes its half of bf16 dS into the step's slot; after
+    // the named barrier both add dS K into their columns of dQ, the
+    // product issued with the next step's S and dP. This thread's dS
+    // values sit in row r_a (and r_a + 8, 1024 bytes on) of the 64 x 64
+    // slot, kv columns 32 w + 8 tt + 2 t4 (+1): 16-byte chunk 4 w + tt of
+    // the 128-byte swizzled row, at x_at ^ (tt << 4).
+    const uint32_t sDS = smem_u32(sm + L::DS);  // the zero tile; the slots follow
+    const uint32_t x_at = r_a * 128 + ((g8 ^ (4 * w)) << 4) + t4 * 4;
+    int pend = -1;  // the K stage whose dQ += dS K is not issued yet
+    int n_x = 0;    // taken steps: the dS slot alternates with them
+    for (int n = 0;; ++n) {
+      const int ks = n % L::KST, vs = n % L::VST;
+      mbar_wait(&k_full[ks], (n / L::KST) & 1);
+      // The record, broadcast from lane 0: ptxas then sees the branches
+      // around the wgmmas as warp-uniform and does not serialise them.
+      int2 rec = sStep[ks];
+      rec.x = __shfl_sync(0xffffffffu, rec.x, 0);
+      rec.y = __shfl_sync(0xffffffffu, rec.y, 0);
+      if (rec.x < 0) break;
+      mbar_wait(&v_full[vs], (n / L::VST) & 1);  // every position's: parity waits skip none
+      const uint32_t pdS = sDS + (1 + ((n_x & 1) ^ 1)) * L::DSB;  // the pending step's slot
+      if (!(rec.y & take)) {
+        // DENSE: the tile is empty there. Finish the pending product, so
+        // that no stage stays held while the producer waits for it.
+        if (pend >= 0) {
+          wgmma_fence();
+          wg_ss_k64<D, DC>(dq, pdS, sK + pend * L::TILE, w);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq);
+          mbar_arrive(&k_empty[pend]);
+          pend = -1;
+        }
+        mbar_arrive(&k_empty[ks]);
+        mbar_arrive(&v_empty[vs]);
+        continue;
+      }
+      const int j = rec.x;
+      const uint32_t cK = sK + ks * L::TILE, cV = sV + vs * L::TILE;
+      const uint32_t cdS = sDS + (1 + (n_x & 1)) * L::DSB;  // this step's slot
+
+      // S = Q K^T (line 11) and dP = dO V^T (line 13) for the warpgroup's
+      // 32 kv columns (K's and V's rows 32 w ..): n32 products over
+      // head_dim, issued with the pending step's dQ += dS K (line 15), over
+      // both halves of its dS; the first step of a run reads the zero tile
+      // (dQ += 0 exactly), so every taken step issues the same products.
+      float s[16], dp[16];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n32<0, 0>(s, kmajor_desc<D>(sQ, kk), kmajor_desc_half<D>(cK, kk, w), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n32<0, 0>(dp, kmajor_desc<D>(sdO, kk), kmajor_desc_half<D>(cV, kk, w), kk > 0);
+      wgmma_commit();
+      wg_ss_k64<D, DC>(dq, pend < 0 ? sDS : pdS, sK + (pend < 0 ? ks : pend) * L::TILE, w);
+      wgmma_commit();
+      wgmma_wait<2>();
+      fence_regs(s);
+
+      // P = exp2(S log2(e) - lse log2(e)); element i of n-block tt is row
+      // row_a (i < 2) or row_b, kv column j * 64 + cc + (i & 1). A hidden
+      // element scores kHidden: P is exp(mask - lse), 1 on a row that sees
+      // no key.
+      const bool masked = rec.y & needs_mask;
+      const int* cKid = sKid + ks * BN;
+#pragma unroll
+      for (int tt = 0; tt < 4; ++tt) {
+        const int cc = 32 * w + tt * 8 + 2 * t4;
+        int2 kid = make_int2(0, 0);
+        if (SEG && masked) kid = *reinterpret_cast<const int2*>(cKid + cc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x = s[4 * tt + i];
+          if (masked) {
+            bool vis = visible(p, (i < 2 ? row_a : row_b) + p.q_offset, j * BN + cc + (i & 1));
+            if (SEG) vis = vis && qid[i >> 1] == ((i & 1) ? kid.y : kid.x);
+            if (!vis) x = kHidden;
+          }
+          s[4 * tt + i] = exp2f(fmaf(x, kLog2e, -lse_r[i >> 1]));
+        }
+      }
+      wgmma_wait<1>();
+      fence_regs(dp);
+      mbar_arrive(&v_empty[vs]);  // dP has read V_j
+      // dS = P o (dP - delta) (line 14), rounded to bf16 into the slot.
+#pragma unroll
+      for (int tt = 0; tt < 4; ++tt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dp[4 * tt + i] = s[4 * tt + i] * (dp[4 * tt + i] - delta_r[i >> 1]);
+        st_shared(cdS + (x_at ^ (tt << 4)), pack_bf16(dp[4 * tt], dp[4 * tt + 1]));
+        st_shared(cdS + (x_at ^ (tt << 4)) + 1024, pack_bf16(dp[4 * tt + 2], dp[4 * tt + 3]));
+      }
+      wgmma_wait<0>();  // the pending dQ += dS K is done: its K stage is free
+      fence_regs(dq);
+      if (pend >= 0) mbar_arrive(&k_empty[pend]);
+      fence_async_smem();
+      // Both halves of this step's dS are in its slot, and both
+      // warpgroups' pending products are done: the slot they read is
+      // written again only after the next step's barrier.
+      named_sync(1, kConsumers);
+      pend = ks;
+      ++n_x;
+    }
+    if (pend >= 0) {  // the last step's dQ += dS K
+      wgmma_fence();
+      wg_ss_k64<D, DC>(dq, sDS + (1 + ((n_x & 1) ^ 1)) * L::DSB, sK + pend * L::TILE, w);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      mbar_arrive(&k_empty[pend]);
+    }
+
+    // dQ of the tile, written once (zeros where the tile took no step), each
+    // warpgroup its half of the columns.
+    const long long rs = static_cast<long long>(p.Hq) * D;
+    float* out = p.dq + static_cast<long long>(b) * p.Sq * rs + h * D + w * DC + 2 * t4;
 #pragma unroll
     for (int tt = 0; tt < DC / 8; ++tt) {
       if (row_a < p.Sq)
@@ -1960,6 +2330,17 @@ __global__ void __launch_bounds__(kKvThreads, 1)
             make_float2(dq[4 * tt + 2], dq[4 * tt + 3]);
     }
   }
+}
+
+template <int D, bool SEG, bool DENSE>
+__global__ void __launch_bounds__(kKvThreads, 1)
+    fa2_bwd_dq_kernel(const BwdParams p, const __grid_constant__ BwdMaps maps) {
+  static_assert(D == 64 || D == 128 || D == 160 || D == 256,
+                "the dq kernel takes head_dim 64, 128, 160 or 256");
+  if constexpr (D == 256)
+    dq_wide<SEG, DENSE>(p, maps);
+  else
+    dq_pair<D, SEG, DENSE>(p, maps);
 }
 
 // Fill the fields every backward kernel reads (all but dq, dk, dv, t_q, t_kv).
@@ -2066,20 +2447,27 @@ cudaError_t dispatch_kv_by_dim(const BwdParams& p, int batch, int t_kv, int head
                            : cudaErrorInvalidValue;
 }
 
-// The dq kernel of one (D, SEG, DENSE): one CTA per (pair of q tiles,
-// batch * q head).
+// The dq kernel of one (D, SEG, DENSE): one CTA per (pair of q tiles, or
+// one at 256, batch * q head). At 160 and 256 batch * head is the grid's x,
+// so that the first wave holds every head's longest causal walks; at 64
+// and 128 the pairs are (dq_head_major; kernels/flash_bwd.py dq_grid).
 template <int D, bool SEG, bool DENSE>
 cudaError_t launch_dq(const BwdParams& p, int batch, void* stream) {
   BwdMaps maps;
   if (!make_maps(&maps, p, batch, D, kBlockN)) return cudaErrorInvalidValue;
   auto kernel = fa2_bwd_dq_kernel<D, SEG, DENSE>;
-  const size_t smem = DqSmem<D>::BYTES + 1024;  // + the 1024-byte alignment of the base
+  size_t smem;  // + the 1024-byte alignment of the base
+  if constexpr (D == 256)
+    smem = DqWideSmem::BYTES + 1024;
+  else
+    smem = DqSmem<D>::BYTES + 1024;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int ctas = D == 256 ? p.t_q : (p.t_q + 1) / 2;  // one q tile a CTA at 256, else a pair
-  kernel<<<dim3(ctas, batch * p.Hq), kKvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, maps);
+  const dim3 grid = dq_head_major(D) ? dim3(batch * p.Hq, ctas) : dim3(ctas, batch * p.Hq);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  kernel<<<grid, kKvThreads, smem, static_cast<cudaStream_t>(stream)>>>(p, maps);
   return cudaGetLastError();
 }
 

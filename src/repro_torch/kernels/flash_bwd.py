@@ -129,6 +129,18 @@ def kv_grid(B: int, Hkv: int, Skv: int, D: int, block_kv: int, hsplit: int) -> t
     return (B * Hkv, hsplit, t_kv) if D in (160, 256) else (B * Hkv, -(-t_kv // 2), 1)
 
 
+def dq_grid(B: int, Hq: int, Sq: int, D: int, block_q: int) -> tuple:
+    """The dQ kernel's launch grid (``launch_dq`` in csrc/flash_bwd.cu),
+    (x, y), x fastest in CUDA's issue order: at head_dim 256 (B * Hq, t_q),
+    one q tile a CTA, and at 160 (B * Hq, pairs of q tiles), batch * head on
+    x, so that the first wave holds every head's longest causal walk
+    (blockIdx.y = c takes q tile t_q - 1 - c, or the pair from q tile
+    2 (pairs - 1 - c)); at 64 and 128 (pairs of q tiles, B * Hq)."""
+    t_q = _tiles(Sq, block_q)
+    ctas = t_q if D == 256 else -(-t_q // 2)
+    return (B * Hq, ctas) if D in (160, 256) else (ctas, B * Hq)
+
+
 def _count(wrapper, schedule: str, head_dim: int) -> None:
     count_launch(wrapper, schedule)
     count_head_dim(wrapper, head_dim)
@@ -327,6 +339,10 @@ def _dq(wrapper, q, k, v, do, lse, delta, spec, segments, block_q, block_kv, sch
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, spec,
                                   **_plain_kw(segments, block_q, block_kv, schedule))
     _check_device(wrapper.__name__, q)
+    B, Sq, Hq, D = q.shape
+    grid = dq_grid(B, Hq, Sq, D, block_q)
+    if grid[1] > 65535:
+        raise ValueError(f"the dQ kernel's grid {grid} exceeds the grid's y limit (65535)")
     # lse, delta and ``held`` (segment ids, step bits) stay alive until the launch.
     lse, delta = lse.contiguous(), delta.contiguous()
     args, held = _kernel_args("the CUDA dQ kernel", q, k, v, do, lse, delta, spec, block_q,

@@ -30,7 +30,16 @@ at whisper-base's encoder, cross-attention and decoder shapes and gpt-20m's
 training shape (``HD64_SHAPES``), the committed kernel and each design
 element of it undone alone (``hd64_*``), the parent design (hd64_parent,
 from ``PARENT`` as wide_parent), each design's fused kernel without dQ's
-staging and bulk reduction, and SDPA's backward, all in the same turns.
+staging and bulk reduction, and SDPA's backward, all in the same turns;
+the "wide_dq" group, the dQ kernel at head_dim 256 and 160 in every mode
+(compact, SEG on the packed source's ids, DENSE, DENSE+SEG) at gemma3-1b's
+training shape (causal and window 512) and stablelm-12b's, the committed
+kernel, each design element undone alone (``wide_dq_*``) and the parent
+design (wide_dq_parent, from ``PARENT``), each against the plain version
+and bitwise against the committed kernel's dQ, then at the causal shapes
+the split backward (delta, dK/dV, dQ) through the committed and the parent
+library beside SDPA's backward, and rows 6, 8, 7 and 7w (head_dim 128 and
+64) through both libraries, all in turns.
 
 Run from the repository root on a machine with an H100 and nvcc:
 
@@ -57,8 +66,8 @@ sys.path.insert(0, str(ROOT / "src"))
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 OUT = ROOT / "build" / "ab_kernels"
 
-_S_SS = "        wgmma_ss_n64<0, 0>(s, kmajor_desc<D>(sQ, kk), kmajor_desc<D>(cK, kk), kk > 0);"
-_DP_SS = "        wgmma_ss_n64<0, 0>(dp, kmajor_desc<D>(sdO, kk), kmajor_desc<D>(cV, kk), kk > 0);"
+_S_SS = "\n        wgmma_ss_n64<0, 0>(s, kmajor_desc<D>(sQ, kk), kmajor_desc<D>(cK, kk), kk > 0);"
+_DP_SS = "\n        wgmma_ss_n64<0, 0>(dp, kmajor_desc<D>(sdO, kk), kmajor_desc<D>(cV, kk), kk > 0);"
 _DQ_LOOP = """    for (int n = 0;; ++n) {
       const int stage = n % kDqStages;"""
 
@@ -79,8 +88,8 @@ def _fragments(name: str, tile: str) -> str:
 """
 
 
-_S_RS = "        wgmma_rs_n64<0>(s, qf[kk], kmajor_desc<D>(cK, kk), kk > 0);"
-_DP_RS = "        wgmma_rs_n64<0>(dp, dof[kk], kmajor_desc<D>(cV, kk), kk > 0);"
+_S_RS = "\n        wgmma_rs_n64<0>(s, qf[kk], kmajor_desc<D>(cK, kk), kk > 0);"
+_DP_RS = "\n        wgmma_rs_n64<0>(dp, dof[kk], kmajor_desc<D>(cV, kk), kk > 0);"
 _SLOTS = "  p.slots = 2 * kPagedWarps * 2 * half <= 128 * 1024 ? 2 : 1;"
 _COPY_WAIT = "    mbar_wait(&full[n % p.slots], (n / p.slots) & 1);\n"
 _COPY_FIRST = "  if (lane == 0)\n    for (int n = 0; n < p.slots; ++n) issue(n);\n"
@@ -209,7 +218,179 @@ _DQ_EACH_TILE = """            {
                                    sw128_desc(sK + w * 8192 + kk * 2048, 8192), kk > 0);
 """
 
-# name -> (source, what it changes, [(old text, new text), ...]).
+# The grid orders of the dQ kernel: the 64/128 pair kernel with batch *
+# head on x, and the 160/256 kernel with its tiles on x (the parent's order).
+_DQ_HEAD_MAJOR = ("__host__ __device__ constexpr bool dq_head_major(int D) "
+                  "{ return D == 160 || D == 256; }")
+_DQ_HEAD_GRID = [(_DQ_HEAD_MAJOR, _DQ_HEAD_MAJOR.replace("D == 160 || D == 256", "D > 0"))]
+_DQ_TILE_GRID = [(_DQ_HEAD_MAJOR, _DQ_HEAD_MAJOR.replace("D == 160 || D == 256", "D == 0"))]
+_DQ_KST = "  static constexpr int KST = 3;  // K stages\n"
+_DQ_VST = "  static constexpr int VST = 1;  // V stages\n"
+_DQ_REGS = [("  static constexpr int PRODUCER_REGS = 40;\n", "  static constexpr int PRODUCER_REGS = 24;\n"),
+            ("  static constexpr int CONSUMER_REGS = 232;\n", "  static constexpr int CONSUMER_REGS = 240;\n")]
+# At 256 V freed with K, after the dQ += dS K that reads K (the parent's
+# hold), with K 2 stages and V 2 (the parent's ring).
+_DQ_V_LATE = [
+    (_DQ_KST, "  static constexpr int KST = 2;\n"),
+    (_DQ_VST, "  static constexpr int VST = 2;\n"),
+    ("      mbar_arrive(&v_empty[vs]);  // dP has read V_j\n", ""),
+    ("mbar_arrive(&k_empty[pend]);",
+     "{ mbar_arrive(&k_empty[pend]); mbar_arrive(&v_empty[pend]); }", 3)]
+# At 256 the parent's step on this design's rings: both warpgroups compute
+# the whole of S and dP (m64n64 over head_dim) and add dS K from registers
+# into their columns of dQ, with no dS slots and no barrier; the committed
+# step is compiled out.
+_DQ_STEP = "    // S and dP once a step: each warpgroup computes them for its 32 of the\n"
+_DQ_WRITE = "    // dQ of the tile, written once (zeros where the tile took no step), each\n"
+_DQ_TWICE = """    {  // wide_dq_twice: each warpgroup S and dP over all 64 kv columns
+      uint32_t pc[4][4];  // dS of the pending step: bf16 A fragments of dQ += dS K
+      int pend = -1;      // the K stage whose dQ += dS K is not issued yet
+      const uint32_t sKc = sK + w * 16384;  // dS K's B: the warpgroup's columns
+      for (int n = 0;; ++n) {
+        const int ks = n % L::KST, vs = n % L::VST;
+        mbar_wait(&k_full[ks], (n / L::KST) & 1);
+        int2 rec = sStep[ks];
+        rec.x = __shfl_sync(0xffffffffu, rec.x, 0);
+        rec.y = __shfl_sync(0xffffffffu, rec.y, 0);
+        if (rec.x < 0) break;
+        mbar_wait(&v_full[vs], (n / L::VST) & 1);
+        if (!(rec.y & take)) {
+          if (pend >= 0) {
+            wgmma_fence();
+            wgmma_rs_k64<DC>(dq, pc, sKc + pend * L::TILE);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(dq);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) fence_regs(pc[kk]);
+            mbar_arrive(&k_empty[pend]);
+            pend = -1;
+          }
+          mbar_arrive(&k_empty[ks]);
+          mbar_arrive(&v_empty[vs]);
+          continue;
+        }
+        const int j = rec.x;
+        const uint32_t cK = sK + ks * L::TILE, cV = sV + vs * L::TILE;
+        const bool first = pend < 0;
+        if (first)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pc[kk][e] = 0u;
+        float s[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64<0, 0>(s, kmajor_desc<D>(sQ, kk), kmajor_desc<D>(cK, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64<0, 0>(dp, kmajor_desc<D>(sdO, kk), kmajor_desc<D>(cV, kk), kk > 0);
+        wgmma_commit();
+        wgmma_rs_k64<DC>(dq, pc, sKc + (first ? ks : pend) * L::TILE);
+        wgmma_commit();
+        wgmma_wait<2>();
+        fence_regs(s);
+        const bool masked = rec.y & needs_mask;
+        const int* cKid = sKid + ks * BN;
+#pragma unroll
+        for (int tt = 0; tt < 8; ++tt) {
+          const int cc = tt * 8 + 2 * t4;
+          int2 kid = make_int2(0, 0);
+          if (SEG && masked) kid = *reinterpret_cast<const int2*>(cKid + cc);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float x = s[4 * tt + i];
+            if (masked) {
+              bool vis = visible(p, (i < 2 ? row_a : row_b) + p.q_offset, j * BN + cc + (i & 1));
+              if (SEG) vis = vis && qid[i >> 1] == ((i & 1) ? kid.y : kid.x);
+              if (!vis) x = kHidden;
+            }
+            s[4 * tt + i] = exp2f(fmaf(x, kLog2e, -lse_r[i >> 1]));
+          }
+        }
+        wgmma_wait<1>();
+        fence_regs(dp);
+        mbar_arrive(&v_empty[vs]);
+        uint32_t pn[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 8 * kk + 2 * e;
+            const float d = delta_r[e & 1];
+            pn[kk][e] = pack_bf16(s[i] * (dp[i] - d), s[i + 1] * (dp[i + 1] - d));
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dq);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs(pc[kk]);
+        if (!first) mbar_arrive(&k_empty[pend]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pc[kk][e] = pn[kk][e];
+        pend = ks;
+      }
+      if (pend >= 0) {
+        wgmma_fence();
+        wgmma_rs_k64<DC>(dq, pc, sKc + pend * L::TILE);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs(pc[kk]);
+        mbar_arrive(&k_empty[pend]);
+      }
+    }
+#if 0
+"""
+_DQ_TWICE_EDITS = [(_DQ_STEP, _DQ_TWICE + _DQ_STEP), (_DQ_WRITE, "#endif\n" + _DQ_WRITE),
+                   *_DQ_REGS]
+# At 160 K and V on their own rings in the pair kernel, K 4 stages and V 2
+# (the same 200 KB as 3 of each): the producer loads V_j after the step's
+# record, on V's barriers; a consumer frees V_j once dP has completed.
+_DQ_SPLIT160 = [
+    ("  static constexpr int STAGES = D == 160 ? 3 : 4;\n",
+     "  static constexpr int STAGES = 4;\n  static constexpr int VST = D == 160 ? 2 : STAGES;\n"),
+    ("  static constexpr uint32_t KID = V + STAGES * TILE;\n",
+     "  static constexpr uint32_t KID = V + VST * TILE;\n"),
+    ("  static constexpr uint32_t BYTES = BARS + (2 * STAGES + 1) * 8;\n",
+     "  static constexpr uint32_t BYTES = BARS + (2 * STAGES + 2 * VST + 1) * 8;\n"),
+    ("  uint64_t* q_bar = empty + kDqStages;\n",
+     "  uint64_t* v_full = empty + kDqStages;\n  uint64_t* v_empty = v_full + L::VST;\n"
+     "  uint64_t* q_bar = v_empty + L::VST;\n  constexpr bool VSPLIT = D == 160;\n"),
+    ("      mbar_init(&empty[s], kConsumers);\n    }\n    mbar_init(q_bar, 32);\n",
+     "      mbar_init(&empty[s], kConsumers);\n    }\n    for (int s = 0; s < L::VST; ++s) {\n"
+     "      mbar_init(&v_full[s], 1);\n      mbar_init(&v_empty[s], kConsumers);\n    }\n"
+     "    mbar_init(q_bar, 32);\n"),
+    ("          mbar_expect_tx(&full[stage], 2 * L::TILE);\n",
+     "          mbar_expect_tx(&full[stage], (VSPLIT ? 1 : 2) * L::TILE);\n"),
+    ("          load_tile<D>(sm + L::V + stage * L::TILE, maps.v, maps.v_tail, &full[stage], hk, k0, b);\n",
+     "          if (!VSPLIT)\n"
+     "          load_tile<D>(sm + L::V + stage * L::TILE, maps.v, maps.v_tail, &full[stage], hk, k0, b);\n"),
+    ("        if (lane == 0) sStep[stage] = make_int2(j, flags);\n        mbar_arrive(&full[stage]);\n      }\n",
+     "        if (lane == 0) sStep[stage] = make_int2(j, flags);\n        mbar_arrive(&full[stage]);\n"
+     "        if constexpr (VSPLIT) {\n          const int vs = n % L::VST;\n"
+     "          mbar_wait(&v_empty[vs], ((n / L::VST) & 1) ^ 1);\n          if (lane == 0) {\n"
+     "            mbar_expect_tx(&v_full[vs], L::TILE);\n"
+     "            load_tile<D>(sm + L::V + vs * L::TILE, maps.v, maps.v_tail, &v_full[vs], hk, k0, b);\n"
+     "            mbar_arrive(&v_full[vs]);\n          }\n        }\n      }\n"),
+    ("      if (rec.x < 0) break;\n      if (!(rec.y & take)) {\n",
+     "      if (rec.x < 0) break;\n      const int vs = n % L::VST;\n"
+     "      if constexpr (VSPLIT) mbar_wait(&v_full[vs], (n / L::VST) & 1);\n"
+     "      if (!(rec.y & take)) {\n"),
+    ("          pend = -1;\n        }\n        mbar_arrive(&empty[stage]);\n        continue;\n",
+     "          pend = -1;\n        }\n        mbar_arrive(&empty[stage]);\n"
+     "        if constexpr (VSPLIT) mbar_arrive(&v_empty[vs]);\n        continue;\n"),
+    ("const uint32_t cK = sK + stage * L::TILE, cV = sV + stage * L::TILE;",
+     "const uint32_t cK = sK + stage * L::TILE, cV = sV + (VSPLIT ? vs : stage) * L::TILE;"),
+    ("      wgmma_wait<1>();\n      fence_regs(dp);\n      // dS = P o (dP - delta) (line 14), rounded to bf16 as dS K's A operand.\n",
+     "      wgmma_wait<1>();\n      fence_regs(dp);\n      if constexpr (VSPLIT) mbar_arrive(&v_empty[vs]);\n"
+     "      // dS = P o (dP - delta) (line 14), rounded to bf16 as dS K's A operand.\n")]
+# name -> (source, what it changes, [(old text, new text[, occurrences]), ...]).
 VARIANTS = {
     "dq_final": ("flash_bwd", "the dQ kernel as committed", []),
     "dq_q_regs": ("flash_bwd", "S = Q K^T takes Q from registers (wgmma RS), as the forward", [
@@ -218,7 +399,10 @@ VARIANTS = {
         (_DQ_LOOP, _fragments("qf", "sQ") + _fragments("dof", "sdO") + _DQ_LOOP),
         (_S_SS, _S_RS), (_DP_SS, _DP_RS)]),
     "dq_stages2": ("flash_bwd", "a 2-stage K/V ring instead of 4",
-                   [("STAGES = D == 256 ? 2 : D == 160 ? 3 : 4;", "STAGES = 2;")]),
+                   [("static constexpr int STAGES = D == 160 ? 3 : 4;",
+                     "static constexpr int STAGES = 2;")]),
+    "dq_head_grid": ("flash_bwd", "the 64/128 dQ kernel with batch * head on the grid's x (the "
+                     "160/256 order)", _DQ_HEAD_GRID),
     "kv_final": ("flash_bwd", "the fused and dK/dV kernels as committed", []),
     "kv_wg_thread": ("flash_bwd", "the KV-stationary warpgroup index read from threadIdx.x, "
                      "not broadcast from lane 0", [(_KV_WG, "  const int wg = threadIdx.x / 128;\n")]),
@@ -281,6 +465,24 @@ VARIANTS = {
     "wide_parent": ("flash_bwd", "the fused and dK/dV kernels of the parent design (PARENT's "
                     "sources: both warpgroups compute S^T and dP^T, one dQ staging a "
                     "warpgroup, no head split)", []),
+    "wide_dq_final": ("flash_bwd", "the dQ kernel at 256 and 160 as committed", []),
+    "wide_dq_parent": ("flash_bwd", "the dQ kernel of the parent design (PARENT's sources: at "
+                       "256 both warpgroups compute S and dP, one barrier pair a K/V stage, the "
+                       "tiles on the grid's x)", []),
+    "wide_dq_twice": ("flash_bwd", "at 256 both warpgroups compute the whole of S and dP and "
+                      "add dS K from registers (the parent's step)",
+                      _DQ_TWICE_EDITS),
+    "wide_dq_v_late": ("flash_bwd", "256: V freed with K, after the dQ that reads K (one "
+                       "release of both a stage, as the parent), 2 stages of each", _DQ_V_LATE),
+    "wide_dq_regs24": ("flash_bwd", "256: setmaxnreg 24 for the producer, 240 for the "
+                       "consumers, as at 160", _DQ_REGS),
+    "wide_dq_tile_grid": ("flash_bwd", "the q tiles (256) or pairs (160) on the grid's x, "
+                          "batch * head on y (the parent's order)", _DQ_TILE_GRID),
+    "wide_dq_split160": ("flash_bwd", "160: K and V on their own rings, K 4 stages, V 2",
+                         _DQ_SPLIT160),
+    "wide_dq_k2v2": ("flash_bwd", "256: K 2 stages, V 2",
+                     [(_DQ_KST, "  static constexpr int KST = 2;\n"),
+                      (_DQ_VST, "  static constexpr int VST = 2;\n")]),
     "hd64_final": ("flash_bwd", "the head_dim-64 fused and dK/dV kernels as committed", []),
     "hd64_parent": ("flash_bwd", "the head_dim-64 fused and dK/dV kernels of the parent design "
                     "(PARENT's sources)", []),
@@ -339,7 +541,8 @@ GROUPS = {"dq": ("fa2_bwd_dq_kernel", "flash_bwd"),
           "decode": ("fa2_decode_kernel", "flash_decode"),
           "delta": ("fa2_bwd_delta_kernel", "flash_bwd"),
           "wide": ("fa2_bwd_fused_kernel", "flash_bwd"),
-          "hd64": ("fa2_bwd_fused_kernel", "flash_bwd")}
+          "hd64": ("fa2_bwd_fused_kernel", "flash_bwd"),
+          "wide_dq": ("fa2_bwd_dq_kernel", "flash_bwd")}
 
 # The head_dim-64 backward's shapes (B, Sq, Skv, heads, causal), as
 # chip_smoke.py HD64_SHAPES: whisper-base's encoder, cross-attention and
@@ -353,7 +556,8 @@ HD64_SHAPES = {
 
 
 def group(name: str) -> str:
-    return name.split("_")[0]
+    """The variant's group: the longest GROUPS key it starts with."""
+    return max((g for g in GROUPS if name.startswith(g + "_")), key=len)
 
 
 def nvidia_smi() -> str:
@@ -376,8 +580,8 @@ def build(names):
         if not (srcdir / f"{src}.cu").exists():
             raise SystemExit(f"variant {name}: no {srcdir / src}.cu (see PARENT)")
         text = (srcdir / f"{src}.cu").read_text()
-        for old, new in edits:
-            if text.count(old) != 1 or new == old:
+        for old, new, *count in edits:
+            if text.count(old) != (count[0] if count else 1) or new == old:
                 raise SystemExit(f"variant {name}: an edit no longer matches {src}.cu, or "
                                  f"changes nothing")
             text = text.replace(old, new)
@@ -440,8 +644,8 @@ def main() -> None:
             names.insert(0, final)
     print(nvidia_smi(), flush=True)
     libs = build(names)
-    dq_names, kv_names, paged_names, decode_names, delta_names, wide_names, hd64_names = (
-        [n for n in names if group(n) == g] for g in GROUPS)
+    (dq_names, kv_names, paged_names, decode_names, delta_names, wide_names, hd64_names,
+     wide_dq_names) = ([n for n in names if group(n) == g] for g in GROUPS)
     originals = {bwd: bwd._lib, dec: dec._lib}
     head_split = bwd.kv_head_split
 
@@ -784,6 +988,109 @@ def main() -> None:
                   "turns: " + "; ".join(f"{n} {v:.4f} ms" for n, v in ms.items())
                   + f"; final / parent: fused {ms['hd64_final fused'] / ms['hd64_parent fused']:.4f}"
                   f", dkv {ms['hd64_final dkv'] / ms['hd64_parent dkv']:.4f}", flush=True)
+    if wide_dq_names:
+        # The dQ kernel at head_dim 256 and 160 in every mode (rows 7g-7gds,
+        # 7l-7lds) at gemma3-1b's and stablelm-12b's training shapes, causal
+        # and (gemma3) under its 512 window, each variant in turns with the
+        # others; SEG on the packed source's step-0 ids (chip_smoke.py
+        # packed_ids). At the causal shapes also the split backward (delta,
+        # dK/dV, dQ) through the committed and the parent library, and SDPA's
+        # backward (its forward and backward less its forward), in the same
+        # turns.
+        sys.path.insert(0, str(ROOT))
+        from chip_smoke import packed_ids, sdpa_calls
+
+        shapes = {  # (B, S, Hq, Hkv, D, spec, vocab)
+            "gemma3-1b causal": (4, 2048, 4, 1, 256, causal, 262_144),
+            "gemma3-1b window 512": (4, 2048, 4, 1, 256, MaskSpec(causal=True, window=512),
+                                     262_144),
+            "stablelm-12b causal": (2, 2048, 32, 8, 160, causal, 100_352)}
+        both = [n for n in ("wide_dq_final", "wide_dq_parent") if n in wide_dq_names]
+        for shape, (B, S, hq, hkv, D, spec, vocab) in shapes.items():
+            q = ops._prep(randn(B, S, hq, D), 1 / math.sqrt(D))
+            k, v, do = randn(B, S, hkv, D), randn(B, S, hkv, D), randn(B, S, hq, D)
+            ids = torch.from_numpy(packed_ids(B, S, vocab=vocab)).to(dev)
+            use("wide_dq_final")
+            o, lse = fwd.flash_fwd(q, k, v, spec, **tiles)
+            o_s, lse_s = fwd.flash_fwd_varlen(q, k, v, spec, ids, ids, **tiles)
+            args = (q, k, v, do, lse, bwd.flash_bwd_delta(o, do), spec)
+            args_s = (q, k, v, do, lse_s, bwd.flash_bwd_delta(o_s, do), spec, ids, ids)
+            modes = {
+                "compact": (lambda: bwd.flash_bwd_dq(*args, **tiles),
+                            lambda: bwd.flash_bwd_dq_plain(*args, **tiles)),
+                "SEG": (lambda: bwd.flash_bwd_dq_varlen(*args_s, **tiles),
+                        lambda: bwd.flash_bwd_dq_plain(*args_s[:7], **tiles, q_seg=ids,
+                                                       kv_seg=ids)),
+                "DENSE": (lambda: bwd.flash_bwd_dq(*args, **tiles, schedule="dense"), None),
+                "DENSE+SEG": (lambda: bwd.flash_bwd_dq_varlen(*args_s, **tiles,
+                                                              schedule="dense"), None)}
+            wants = {}  # the dense forms hold to their compact twin's plain version
+            for mode, (call, plain) in modes.items():
+                want = wants[mode] = (plain() if plain is not None
+                                      else wants[mode.replace("DENSE", "compact").replace(
+                                          "compact+", "")])
+                outs = {}
+                for name in wide_dq_names:
+                    use(name)
+                    outs[name] = call()
+                    torch.cuda.synchronize()
+                    rel = (outs[name] - want).abs().max().item() / want.abs().max().item()
+                    same = torch.equal(outs[name], outs["wide_dq_final"])
+                    diff = (outs[name] - outs["wide_dq_final"]).abs().max().item()
+                    bad += not rel <= 3e-3
+                    print(f"{name}: {shape} {mode} dq, max|dq-plain| / max|dq| {rel:.3e} (tol "
+                          f"3e-3); bitwise the committed kernel's: {same} (max|diff| "
+                          f"{diff:.3e}){'' if rel <= 3e-3 else ' FAILS'}", flush=True)
+                ms = in_turns({n: call for n in wide_dq_names})
+                result[f"wide_dq, {shape}, {mode}"] = ms
+                print(f"flash_bwd_dq {mode} {shape} B={B} S={S} Hq={hq} Hkv={hkv} D={D}, in "
+                      "turns: " + "; ".join(f"{n} {ms[n]:.4f} ms ({ms[n] / ms['wide_dq_final']:.4f}"
+                                           "x final)" for n in wide_dq_names), flush=True)
+            if spec.window is not None:
+                continue
+            d_args = args[:5]
+
+            def split_backward():
+                delta = bwd.flash_bwd_delta(o, do)
+                bwd.flash_bwd_dkv(*d_args, delta, spec, **tiles)
+                bwd.flash_bwd_dq(*d_args, delta, spec, **tiles)
+
+            calls = {f"{n} split backward": split_backward for n in both}
+            calls.update({f"{n} dq": modes["compact"][0] for n in both})
+            sdpa_fwd, sdpa_fwd_bwd = sdpa_calls(torch, q, k, v, do)
+            calls["sdpa fwd+bwd"], calls["sdpa fwd"] = sdpa_fwd_bwd, sdpa_fwd
+            # A spin of about 2 ms before each timed call: the host enqueues
+            # SDPA's backward (autograd) before the start event runs.
+            ms = in_turns(calls, spin=4_000_000)
+            ms["sdpa bwd (fwd+bwd less fwd)"] = ms["sdpa fwd+bwd"] - ms["sdpa fwd"]
+            result[f"wide_dq, {shape}, split backward"] = ms
+            print(f"the split backward at {shape}, in turns: " + "; ".join(
+                f"{n} {v:.4f} ms" for n, v in ms.items()) + "; " + "; ".join(
+                f"{n} split / sdpa bwd {ms[f'{n} split backward'] / ms['sdpa bwd (fwd+bwd less fwd)']:.4f}"
+                for n in both), flush=True)
+        # Rows 6, 8 and 7 (head_dim 128, qwen3's training shape) and 7w (64,
+        # whisper's encoder): the committed library against the parent's,
+        # whose bodies there this design leaves as they were.
+        if len(both) == 2:
+            for shape, (B, S, H, Hk, D, causal_) in {
+                    "head_dim 128 training": (2, 2048, 32, 8, 128, True),
+                    "head_dim 64 whisper encoder": (8, 1500, 8, 8, 64, False)}.items():
+                spec = MaskSpec(causal=causal_)
+                q = ops._prep(randn(B, S, H, D), 1 / math.sqrt(D))
+                k, v, do = randn(B, S, Hk, D), randn(B, S, Hk, D), randn(B, S, H, D)
+                o, lse = fwd.flash_fwd(q, k, v, spec, **tiles)
+                args = (q, k, v, do, lse, bwd.flash_bwd_delta(o, do), spec)
+                calls = {}
+                for name in both:
+                    calls[f"{name} fused"] = lambda: bwd.flash_bwd_fused(*args, **tiles)
+                    calls[f"{name} dkv"] = lambda: bwd.flash_bwd_dkv(*args, **tiles)
+                    calls[f"{name} dq"] = lambda: bwd.flash_bwd_dq(*args, **tiles)
+                ms = in_turns(calls)
+                result[f"wide_dq, {shape}"] = ms
+                print(f"flash_bwd_fused, flash_bwd_dkv and flash_bwd_dq at {shape}, in turns: "
+                      + "; ".join(f"{n} {v:.4f} ms" for n, v in ms.items()) + "; final / parent: "
+                      + ", ".join(f"{k} {ms[f'wide_dq_final {k}'] / ms[f'wide_dq_parent {k}']:.4f}"
+                                  for k in ("fused", "dkv", "dq")), flush=True)
     bwd.kv_head_split = head_split
     for module, lib in originals.items():
         module._lib = lib
