@@ -295,6 +295,21 @@ steps with AttentionConfig(bwd="split", kv_splits=2), beside kv_splits=1
 and again with kv_splits=2 in one loop: launches exact (the SEG split-KV
 forward, no single pass), the two split runs' losses bitwise, step 0
 within PARITY_LOSS_REL of kv_splits=1 and every step within GPT_LOSS_REL.
+The blocked phase drives the paper's algorithm as the port's blocked
+PyTorch program (impl="flash_torch", an eager loop over tiles, not a CUDA
+kernel) and its FA1 baseline on the card, in three parts, each with every
+kernel's launch count and every plain version's call count read 0: (a)
+after the qwen3-8b serving model is freed, attention at the paper's Fig. 4
+widths (B 8, S 2048, 16 heads of 128, bf16, causal and not): flash_torch at
+128 x 128 tiles (causal: the packed mode, 136 of 256 tiles) forward and
+backward against impl="ref" in f32 on the same operands (the pre-scaled
+q), FA1 against flash_torch, and FA1, flash_torch, flash_cuda and SDPA
+timed in turns (``utils.timing.interleaved_timeit``) with TFLOP/s by the
+paper's formula; (c), before that model is freed, the six requests through
+both engines with impl="flash_torch" (tokens/s, tokens equal to the
+flash_cuda runs') and a prefill's logits against flash_cuda; (b) after phase
+14, gpt-20m trained 8 steps through ``train`` with impl="flash_torch",
+against phase 14's impl="ref" losses.
 The last two lines are the kernels' JSON record and the result line.
 """
 
@@ -377,6 +392,15 @@ PARITY_REL = 0.03
 GPT_B, GPT_S, GPT_STEPS = 8, 512, 8
 WH_TRAIN_B, WH_TRAIN_STEPS = 8, 8
 GPT_LOSS_REL = WH_LOSS_REL = 2.0 ** -8
+# The blocked phase's attention: the paper's Fig. 4 widths (hidden 2048 as
+# 16 heads of 128, B x S = 16k tokens) and the blocked path's tiles.
+FIG4_B, FIG4_S, FIG4_H, FIG4_D = 8, 2048, 16, 128
+BLOCKED_TILE = 128
+# The blocked path's bf16 dq, dk, dv against the reference's f32 gradients
+# on the same operands: max|diff| relative to max|grad| and the least
+# cosine. The first chip run read 2.3e-3 to 4.3e-3 and cosine 0.999997.
+BLOCKED_GRAD_REL = 1e-2
+BLOCKED_GRAD_COS = 0.9999
 
 
 T0 = time.perf_counter()  # each log line carries the seconds since the start
@@ -1784,6 +1808,7 @@ def slice_phase(torch, dev):
     counts, _ = run_engine(torch, dev, cfg, engine, len(prompts), "serving")
     if counts["flash_fwd"] <= 0 or counts["flash_decode"] <= 0:
         fail("the serving path did not launch both kernels")
+    tokens = {rid: req.generated for rid, req in engine.finished.items()}
 
     # The dense reference on the card gives the same last-position logits,
     # for a prefill and for one decode step from the same cache.
@@ -1806,7 +1831,7 @@ def slice_phase(torch, dev):
     d_fl, _ = model.decode_step(step_tok, cache_fl, step_len, fl_cfg)
     compare_logits(torch, f"decode step, B=4, lengths {step_len.tolist()}", d_ref, d_fl)
     del cache_fl, cache_ref
-    return counts, cfg, model
+    return counts, cfg, model, tokens
 
 
 def paged_slice_phase(torch, dev, cfg, model):
@@ -1825,6 +1850,7 @@ def paged_slice_phase(torch, dev, cfg, model):
     for rid, prompt in enumerate(prompts):
         engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
     counts, _ = run_engine(torch, dev, cfg, engine, len(prompts), "paged_serving")
+    tokens = {rid: req.generated for rid, req in engine.finished.items()}
     log(f"paged_serving: pool of {PAGED_POOL_PAGES} pages of {PAGE_SIZE} ({engine.kv_capacity()} "
         f"positions, {engine.pool.usable_pages} usable pages) against the fixed engine's "
         f"4 x {CACHE}; preemptions {engine.preemptions} (expected {PAGED_PREEMPTIONS}); "
@@ -1870,7 +1896,7 @@ def paged_slice_phase(torch, dev, cfg, model):
     h_fl, _, _ = model.prefill(inputs, fl_cfg, cache_size, lens=lens)
     compare_logits(torch, f"W=4 admission prefill, lengths {lens.tolist()} padded to {pad_to}",
                    model.logits_from_hidden(h_ref), model.logits_from_hidden(h_fl))
-    return counts
+    return counts, tokens
 
 
 def logit_gap(torch, l_ref, l_fl):
@@ -2844,21 +2870,6 @@ def whisper_phase(torch, dev):
         log("whisper decode tick device busy share: not measured (no device events)")
     return counts, summary
 
-def train_model_flops(cfg, batch: int, seq: int) -> float:
-    """Model FLOPs of one training step: 6 x parameters x tokens plus
-    12 x q_dim x S^2 per attention layer and sequence (no causal halving),
-    the formula of the JAX package's ``utils/flops.py:64 train_model_flops``
-    re-derived here (dense, untied or tied, attention-only configs)."""
-    d, V = cfg.d_model, cfg.padded_vocab
-    params = V * d * (1 if cfg.tie_embeddings else 2)
-    params += cfg.num_layers * (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim + 3 * d * cfg.d_ff)
-    flops = 6.0 * params * batch * seq
-    for kind in cfg.layer_kinds():
-        w = cfg.kind_window(kind)
-        flops += 12.0 * cfg.q_dim * (min(w, seq) if w else seq) * seq * batch
-    return flops
-
-
 def kernel_counters():
     """{name: counter} of every kernel the training paths launch, compact
     and (``<name>_dense``) dense, the split-KV forward (``kv_splits > 1``)
@@ -3085,9 +3096,11 @@ def train_phase(torch, dev, bwd: str, schedule: str = "compact"):
     path's launch counts and a summary (losses, median step, tokens/s, MFU,
     peak memory, profiled busy share, attention's device ms)."""
     from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.attention import AttentionConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.utils.flops import train_model_flops
 
     cfg = dataclasses.replace(registry.get("qwen3-8b"), num_layers=TRAIN_LAYERS)
     label = f"bwd={bwd}" + (f", schedule={schedule}" if schedule != "compact" else "")
@@ -3107,12 +3120,13 @@ def train_phase(torch, dev, bwd: str, schedule: str = "compact"):
     peak = torch.cuda.max_memory_allocated(dev)
     med = sorted(times)[len(times) // 2]
     tokens = TRAIN_B * TRAIN_S
-    mfu = train_model_flops(cfg, TRAIN_B, TRAIN_S) / med / PEAK_BF16_FLOPS
+    step_flops = train_model_flops(cfg, ShapeConfig("train", "train", TRAIN_S, TRAIN_B))
+    mfu = step_flops / med / PEAK_BF16_FLOPS
     log(f"training ({label}) qwen3-8b at published widths, {cfg.num_layers} of 36 layers, "
         f"{n_params / 1e9:.4f} B params ({cfg.dtype}, remat {cfg.remat}), f32 master + mu + nu: "
         f"losses {[round(x, 5) for x in losses]}; median step "
         f"{med * 1e3:.1f} ms (first {times[0] * 1e3:.1f} ms), {tokens / med:.1f} tokens/s, model "
-        f"FLOPs {train_model_flops(cfg, TRAIN_B, TRAIN_S) / 1e12:.3f} TFLOP a step, MFU "
+        f"FLOPs {step_flops / 1e12:.3f} TFLOP a step, MFU "
         f"{mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; max_memory_allocated "
         f"{peak / 2**30:.2f} GiB")
     log(f"launches on the training path ({label}): {counts}")
@@ -3230,11 +3244,13 @@ def packed_train_phase(torch, dev, fused_summary):
     import numpy as np
 
     from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.attention import AttentionConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticVarlenLM
     from repro_torch.launch.steps import build_train_step
     from repro_torch.launch.train import TrainLoopConfig, train
     from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.utils.flops import train_model_flops
 
     cfg = dataclasses.replace(registry.get("qwen3-8b"), num_layers=TRAIN_LAYERS)
     opt_cfg = AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
@@ -3255,7 +3271,8 @@ def packed_train_phase(torch, dev, fused_summary):
     losses, times = history["loss"], history["step_time"]
     med = sorted(times)[len(times) // 2]
     tokens = TRAIN_B * TRAIN_S
-    mfu = train_model_flops(cfg, TRAIN_B, TRAIN_S) / med / PEAK_BF16_FLOPS
+    shape = ShapeConfig("train", "train", TRAIN_S, TRAIN_B)
+    mfu = train_model_flops(cfg, shape) / med / PEAK_BF16_FLOPS
     log(f"packed training: losses {[round(x, 5) for x in losses]}; median step {med * 1e3:.1f} "
         f"ms (first {times[0] * 1e3:.1f} ms), {tokens / med:.1f} tokens/s (B x S; non-padding "
         f"share {real:.4f}: {real * tokens / med:.1f} real tokens/s), MFU {mfu:.4f} by phase 8's "
@@ -3299,12 +3316,15 @@ def gpt_train_phase(torch, dev):
     within PARITY_LOSS_REL (the same weights and batch; only attention's
     rounding differs) and every step's within GPT_LOSS_REL. One more fused
     step under torch.profiler gives the device busy share and attention's
-    device time. Returns {bwd: launch counts} and {bwd: summary}."""
+    device time. Returns {bwd: launch counts}, {bwd: summary} and the
+    reference's losses."""
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.attention import AttentionConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.steps import build_train_step
     from repro_torch.launch.train import PRESETS, TrainLoopConfig, train
     from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.utils.flops import train_model_flops
 
     cfg = dataclasses.replace(PRESETS["gpt-20m"], dtype="bfloat16")
     opt_cfg = AdamWConfig(warmup_steps=2, total_steps=GPT_STEPS)
@@ -3325,7 +3345,8 @@ def gpt_train_phase(torch, dev):
         counts[run] = read_counts(counters, plains)
         med = sorted(history["step_time"])[GPT_STEPS // 2]
         tokens = GPT_B * GPT_S
-        mfu = train_model_flops(cfg, GPT_B, GPT_S) / med / PEAK_BF16_FLOPS
+        shape = ShapeConfig("train", "train", GPT_S, GPT_B)
+        mfu = train_model_flops(cfg, shape) / med / PEAK_BF16_FLOPS
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         summaries[run] = dict(losses=history["loss"], median_ms=med * 1e3,
                               tokens_per_s=tokens / med, mfu=mfu, peak_gib=peak)
@@ -3362,7 +3383,256 @@ def gpt_train_phase(torch, dev):
             f"step {GPT_LOSS_REL})")
         if not (rel[0] <= PARITY_LOSS_REL and max(rel) <= GPT_LOSS_REL):
             fail(f"gpt-20m training through flash_cuda (bwd={run}) disagrees with impl=ref")
-    return counts, summaries
+    return counts, summaries, losses["ref"]
+
+
+def expect_no_launches(what: str, counters, plains) -> None:
+    """Fail unless every kernel counter and plain-version call count of
+    ``all_counters()`` (zeroed by the caller) reads 0."""
+    counts = read_counts(counters, plains.values())
+    launched = {k: n for k, n in counts.items() if k != "plain" and n}
+    called = [f.__name__ for f, n in zip(plains.values(), counts["plain"]) if n]
+    log(f"{what}: kernel launches {launched or 0}, plain-version calls {called or 0}")
+    if launched or called:
+        fail(f"{what} reached a CUDA kernel or a plain version")
+
+
+def fig4_flops(causal: bool, bwd: bool) -> float:
+    """The paper's attention FLOPs at FIG4_* (``benchmarks/fig4_6_attn_speed.py:40
+    _flops``): 4 S^2 D H B, halved when causal, x 3.5 for forward + backward."""
+    f = 4.0 * FIG4_S * FIG4_S * FIG4_D * FIG4_H * FIG4_B
+    if causal:
+        f /= 2
+    if bwd:
+        f *= 3.5
+    return f
+
+
+def blocked_attention_phase(torch, dev) -> dict:
+    """Part (a) of the blocked phase: attention at the paper's Fig. 4 widths
+    (FIG4_*, bf16, causal and not). flash_torch at BLOCKED_TILE tiles runs
+    forward and backward; its o and lse are held against impl="ref"'s
+    ``attention_reference`` in f32 on the same operands (the pre-scaled q,
+    rounded to bf16 as the blocked program rounds it, at scale 1) within
+    FWD_TOL, its dq, dk and dv against the reference's f32 gradients within
+    BLOCKED_GRAD_REL and BLOCKED_GRAD_COS; FA1 on the same operands
+    against flash_torch (o, and m + log l against lse, within FWD_TOL). No
+    CUDA kernel and no plain version may run. Then FA1's forward,
+    flash_torch's and flash_cuda's forward and forward + backward and
+    SDPA's, timed in turns (``utils.timing.interleaved_timeit``, host clock,
+    each call synchronised), with TFLOP/s by the paper's formula."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import flash
+    from repro_torch.core.attention import AttentionConfig, attention
+    from repro_torch.core.flash_v1 import flash_v1_attention
+    from repro_torch.core.masks import MaskSpec
+    from repro_torch.kernels.ref import attention_reference
+    from repro_torch.utils.timing import interleaved_timeit
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    shape = (FIG4_B, FIG4_S, FIG4_H, FIG4_D)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(FIG4_D)
+    q_s = (q.float() * scale).to(torch.bfloat16)  # the blocked program's own operand
+    tiles = dict(block_q=BLOCKED_TILE, block_kv=BLOCKED_TILE)
+    t = FIG4_S // BLOCKED_TILE
+    blocked = AttentionConfig(impl="flash_torch", **tiles)
+    cuda = AttentionConfig(impl="flash_cuda")
+    counters, plains = all_counters()
+    summary = {}
+    for causal in (True, False):
+        spec = MaskSpec(causal=causal)
+        mask = "causal" if causal else "non-causal"
+        mode = flash.FlashConfig(spec=spec, **tiles).resolve_mode(t, t)
+        pairs = len(flash._visible_pairs(spec, t, t, BLOCKED_TILE, BLOCKED_TILE)[0])
+        zero_counts(counters, plains.values())
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        o, lse = flash.flash_attention_with_lse(q, k, v, spec, **tiles)
+        grads = torch.autograd.grad(attention(qg, kg, vg, spec, blocked), (qg, kg, vg), do)
+        o1, m1, l1 = flash_v1_attention(q_s, k, v, spec, scale=1.0, block_kv=BLOCKED_TILE)
+        torch.cuda.synchronize()
+        expect_no_launches(f"flash_torch and FA1 at Fig. 4 widths ({mask})", counters, plains)
+        del qg, kg, vg
+
+        qr, kr, vr = (x.float().requires_grad_() for x in (q_s, k, v))
+        o_r, lse_r = attention_reference(qr, kr, vr, spec, scale=1.0)
+        dq_r, dk_r, dv_r = torch.autograd.grad(o_r, (qr, kr, vr), do.float())
+        eo, el = max_err(torch, o.float(), o_r.detach()), max_err(torch, lse, lse_r.detach())
+        want = (dq_r * scale, dk_r, dv_r)  # the reference's q is the pre-scaled one
+        rel, cos = {}, {}
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+            rel[name] = max_err(torch, g.float(), w) / w.abs().max().item()
+            cos[name] = torch.nn.functional.cosine_similarity(
+                g.float().flatten(), w.flatten(), dim=0).item()
+        e1o, e1l = max_err(torch, o1.float(), o.float()), max_err(torch, m1 + torch.log(l1), lse)
+        del qr, kr, vr, o_r, lse_r, dq_r, dk_r, dv_r, want
+        log(f"flash_torch B={FIG4_B} S={FIG4_S} H={FIG4_H} D={FIG4_D} {mask} (bf16, {mode} mode, "
+            f"{pairs} of {t * t} tiles of {BLOCKED_TILE}) against impl=ref in f32 on the same "
+            f"operands: max|o-ref|={eo:.3e} (tol {FWD_TOL['o']}), max|lse-ref|={el:.3e} (tol "
+            f"{FWD_TOL['lse']}); gradients: "
+            + ", ".join(f"{n} max|diff|/max|ref| {rel[n]:.3e} cosine {cos[n]:.6f}" for n in rel)
+            + f" (limits {BLOCKED_GRAD_REL} and {BLOCKED_GRAD_COS}); FA1 against flash_torch: "
+            f"max|o1-o|={e1o:.3e}, max|m+log(l)-lse|={e1l:.3e}")
+        if not (eo <= FWD_TOL["o"] and el <= FWD_TOL["lse"] and torch.isfinite(o).all()):
+            fail(f"flash_torch disagrees with impl=ref at Fig. 4 widths ({mask})")
+        if not (max(rel.values()) <= BLOCKED_GRAD_REL
+                and min(cos.values()) >= BLOCKED_GRAD_COS):
+            fail(f"flash_torch's gradients disagree with impl=ref at Fig. 4 widths ({mask})")
+        if not (e1o <= FWD_TOL["o"] and e1l <= FWD_TOL["lse"]):
+            fail(f"FA1 disagrees with flash_torch at Fig. 4 widths ({mask})")
+
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+
+        def forward(cfg):
+            def run():
+                with torch.no_grad():
+                    return attention(q, k, v, spec, cfg)
+            return run
+
+        def forward_backward(cfg):
+            return lambda: torch.autograd.grad(attention(qg, kg, vg, spec, cfg), (qg, kg, vg), do)
+
+        def sdpa_forward():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        def sdpa_forward_backward():
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+        best = interleaved_timeit({
+            "fa1_fwd": lambda: flash_v1_attention(q, k, v, spec, block_kv=BLOCKED_TILE),
+            "flash_torch_fwd": forward(blocked), "flash_torch_fwd_bwd": forward_backward(blocked),
+            "flash_cuda_fwd": forward(cuda), "flash_cuda_fwd_bwd": forward_backward(cuda),
+            "sdpa_fwd": sdpa_forward, "sdpa_fwd_bwd": sdpa_forward_backward})
+        del qt, kt, vt, dot, qg, kg, vg
+        row = {name: dict(ms=sec * 1e3,
+                          tflops=fig4_flops(causal, name.endswith("bwd")) / sec / 1e12)
+               for name, sec in best.items()}
+        log(f"blocked attention at Fig. 4 widths ({mask}), {best.provenance} on the host clock "
+            "(FA1 and flash_torch: eager PyTorch loop, not a CUDA kernel): "
+            + "; ".join(f"{n} {r['ms']:.3f} ms" for n, r in row.items()))
+        log(f"TFLOP/s by the paper's formula ({mask}, B={FIG4_B} S={FIG4_S} H={FIG4_H} "
+            f"D={FIG4_D}): " + "; ".join(f"{n} {r['tflops']:.2f}" for n, r in row.items()))
+        summary[mask] = dict(mode=mode, tiles=pairs, max_o_err=eo, max_lse_err=el,
+                             grad_rel=rel, grad_cos=cos, fa1_o_err=e1o, fa1_lse_err=e1l,
+                             timing=best.provenance, **row)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return summary
+
+
+def blocked_serving_phase(torch, dev, cfg, model, cuda_tokens) -> dict:
+    """Part (c) of the blocked phase: the serving model (qwen3-8b, uncut)
+    serves the six requests through the fixed and the paged engine with
+    impl="flash_torch" (the blocked prefill and the split decode); no CUDA
+    kernel and no plain version may run. Logs tokens/s and how many greedy
+    tokens equal the flash_cuda runs' (``cuda_tokens``: {"fixed", "paged"}:
+    {rid: tokens}). Then holds against flash_cuda (``compare_logits``) a
+    prefill's last-position logits and one decode step's from that
+    prefill's cache, four rows of it at ragged lengths (one of them 1, so
+    most of the split decode's splits are empty), through the contiguous
+    cache and through shuffled pages; each impl steps from its own copy."""
+    from repro_torch.core.attention import AttentionConfig
+    from repro_torch.serving.engine import PagedServingEngine, Request, ServingEngine
+
+    blocked = AttentionConfig(impl="flash_torch")
+    prompts = serving_prompts(cfg)
+    counters, plains = all_counters()
+    summary = {}
+    for name in ("fixed", "paged"):
+        if name == "fixed":
+            engine = ServingEngine(cfg, model, blocked, max_batch=4, cache_size=CACHE)
+        else:
+            engine = PagedServingEngine(cfg, model, blocked, max_batch=4,
+                                        num_pages=PAGED_POOL_PAGES, page_size=PAGE_SIZE,
+                                        pages_per_seq_max=PAGES_PER_SEQ)
+        for rid, prompt in enumerate(prompts):
+            engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
+        zero_counts(counters, plains.values())
+        _, run = run_engine(torch, dev, cfg, engine, len(prompts), f"flash_torch {name} serving")
+        expect_no_launches(f"flash_torch {name} serving", counters, plains)
+        got = {rid: req.generated for rid, req in engine.finished.items()}
+        same = sum(a == b for rid in got for a, b in zip(got[rid], cuda_tokens[name][rid]))
+        total = sum(len(t) for t in got.values())
+        whole = sum(got[rid] == cuda_tokens[name][rid] for rid in got)
+        log(f"flash_torch {name} serving (eager PyTorch loop, not a CUDA kernel): "
+            f"{run['tokens_per_s']:.1f} tokens/s; {same} of {total} greedy tokens equal the "
+            f"flash_cuda run's at the same position, {whole} of {len(got)} requests equal whole"
+            + (f"; preemptions {engine.preemptions}" if name == "paged" else ""))
+        summary[name] = dict(tokens_per_s=run["tokens_per_s"], median_tick_ms=run["median_tick_ms"],
+                             tokens_equal=same, tokens=total)
+    cuda = AttentionConfig(impl="flash_cuda")
+    tokens_in = torch.tensor([prompts[2]], device=dev)
+    h_cuda, cache, _ = model.prefill(tokens_in, cuda, CACHE)
+    zero_counts(counters, plains.values())
+    h_blocked = model.prefill(tokens_in, blocked, CACHE)[0]
+    torch.cuda.synchronize()
+    expect_no_launches("flash_torch prefill", counters, plains)
+    l_cuda = model.logits_from_hidden(h_cuda)
+    compare_logits(torch, f"prefill of {len(prompts[2])} tokens", l_cuda,
+                   model.logits_from_hidden(h_blocked), names=("flash_cuda", "flash_torch"))
+    cache = [{n: t.expand(4, -1, -1, -1).clone() for n, t in c["kv"].items()} for c in cache]
+    table = shuffled_table(torch, 4, PAGES_PER_SEQ, 3).to(dev)
+    step_len = torch.tensor([len(prompts[2]), 1, 350, 64], dtype=torch.int32, device=dev)
+    first = int(l_cuda[..., :cfg.vocab_size].argmax())
+    step_tok = torch.tensor([[first], [5], [17], [99]], device=dev)
+    for name in ("contiguous cache", "shuffled pages"):
+        paged = name == "shuffled pages"
+        kw = dict(block_table=table) if paged else {}
+        logits = []
+        for impl in (cuda, blocked):
+            kv = [{"kv": {n: (paginate(torch, t, table, 4 * PAGES_PER_SEQ + 1) if paged
+                              else t.clone()) for n, t in c.items()}} for c in cache]
+            zero_counts(counters, plains.values())
+            logits.append(model.decode_step(step_tok, kv, step_len, impl, **kw)[0])
+            torch.cuda.synchronize()
+            del kv
+        expect_no_launches(f"flash_torch decode step ({name})", counters, plains)
+        compare_logits(torch, f"decode step ({name}), B=4, lengths {step_len.tolist()}",
+                       *logits, names=("flash_cuda", "flash_torch"))
+    del cache
+    return summary
+
+
+def blocked_train_phase(torch, dev, ref_losses) -> dict:
+    """Part (b) of the blocked phase: gpt-20m in bf16 through the train CLI's
+    ``train`` with impl="flash_torch" at the CLI's defaults (512 x 512
+    tiles), phase 14's batches and seed (B GPT_B, S GPT_S, GPT_STEPS
+    steps); no CUDA kernel and no plain version may run; the loss must
+    fall, step 0 be within PARITY_LOSS_REL of phase 14's impl="ref" run
+    (``ref_losses``) and every step within GPT_LOSS_REL."""
+    from repro_torch.launch.train import PRESETS, TrainLoopConfig, train
+    from repro_torch.training.optimizer import AdamWConfig
+
+    cfg = dataclasses.replace(PRESETS["gpt-20m"], dtype="bfloat16")
+    loop = TrainLoopConfig(steps=GPT_STEPS, seq_len=GPT_S, batch_size=GPT_B, log_every=1, seed=0,
+                           device=str(dev), attn_impl="flash_torch")
+    counters, plains = all_counters()
+    zero_counts(counters, plains.values())
+    model, _, history = train(cfg, loop, AdamWConfig(warmup_steps=2, total_steps=GPT_STEPS))
+    torch.cuda.synchronize()
+    expect_no_launches("gpt-20m training through flash_torch", counters, plains)
+    del model
+    losses = history["loss"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    med = sorted(history["step_time"])[GPT_STEPS // 2]
+    log(f"gpt-20m training (bf16, flash_torch: eager PyTorch loop, not a CUDA kernel) B={GPT_B} "
+        f"S={GPT_S}: losses {[round(x, 5) for x in losses]}; median step {med * 1e3:.2f} ms, "
+        f"{GPT_B * GPT_S / med:.1f} tokens/s; against impl=ref, relative loss difference by "
+        "step: " + ", ".join(f"{r:.3e}" for r in rel)
+        + f" (step 0 limit {PARITY_LOSS_REL}, every step {GPT_LOSS_REL})")
+    if not all(math.isfinite(x) for x in losses + history["grad_norm"]):
+        fail("gpt-20m training through flash_torch gave a non-finite loss or gradient norm")
+    if not sum(losses[-2:]) / 2 < losses[0]:
+        fail("the gpt-20m training loss through flash_torch did not fall")
+    if not (rel[0] <= PARITY_LOSS_REL and max(rel) <= GPT_LOSS_REL):
+        fail("gpt-20m training through flash_torch disagrees with impl=ref")
+    return dict(losses=losses, median_ms=med * 1e3, tokens_per_s=GPT_B * GPT_S / med)
 
 
 def whisper_train_phase(torch, dev):
@@ -4518,16 +4788,19 @@ def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False,
     this run's. Returns {bwd: launch counts} and {bwd: summary}."""
     import numpy as np
 
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.attention import AttentionConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, SyntheticVarlenLM
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import build_train_step
     from repro_torch.launch.train import TrainLoopConfig, train
     from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.utils.flops import train_model_flops
 
     arch, D = cfg.name, cfg.head_dim
     what = f"{arch} {'packed ' if packed else ''}training"
     opt_cfg = AdamWConfig(warmup_steps=2, total_steps=steps)
+    step_flops = train_model_flops(cfg, ShapeConfig("train", "train", S, B))
     grouped = cfg.num_groups * cfg.group_size
     forwards = steps * (2 * grouped + cfg.num_layers - grouped)
     if packed:  # the batches train() draws: the same source, seed and steps
@@ -4561,7 +4834,7 @@ def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False,
             break
         counts[run] = read_counts(counters, plains)
         med = sorted(history["step_time"])[steps // 2]
-        mfu = train_model_flops(cfg, B, S) / med / PEAK_BF16_FLOPS
+        mfu = step_flops / med / PEAK_BF16_FLOPS
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         summaries[run] = dict(losses=history["loss"], median_ms=med * 1e3,
                               tokens_per_s=B * S / med, mfu=mfu, peak_gib=peak, busy_share=None,
@@ -4574,7 +4847,7 @@ def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False,
             f"{B * S / med:.1f} tokens/s"
             + (f" (B x S; non-padding share {real:.4f}: {real * B * S / med:.1f} real tokens/s)"
                if packed else "")
-            + f", model FLOPs {train_model_flops(cfg, B, S) / 1e12:.3f} TFLOP a step"
+            + f", model FLOPs {step_flops / 1e12:.3f} TFLOP a step"
             + (" (full causal attention, not the same-segment pairs)" if packed else "")
             + f", MFU {mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, "
             f"max_memory_allocated {peak:.2f} GiB")
@@ -4773,15 +5046,17 @@ def model_dense_train_phase(torch, dev, cfg, B, S, steps):
     unpacked split runs are each profiled one more step: busy share,
     attention's device ms and share. Returns ({run: launch counts} of the
     dense runs, {run: summary} of all six)."""
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.attention import AttentionConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, SyntheticVarlenLM
     from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.utils.flops import train_model_flops
 
     arch, D = cfg.name, cfg.head_dim
     opt_cfg = AdamWConfig(warmup_steps=2, total_steps=steps)
     grouped = cfg.num_groups * cfg.group_size
     forwards = steps * (2 * grouped + cfg.num_layers - grouped)
-    flops = train_model_flops(cfg, B, S)
+    flops = train_model_flops(cfg, ShapeConfig("train", "train", S, B))
     synthetic = SyntheticLM(DataConfig(B, S, cfg.vocab_size, seed=0))
     packed_src = SyntheticVarlenLM(DataConfig(B, S, cfg.vocab_size, seed=0, source="packed"))
 
@@ -5500,11 +5775,16 @@ def main() -> None:
     whisper_counts, whisper_summary = whisper_phase(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    serve_counts, cfg, model = slice_phase(torch, dev)
+    serve_counts, cfg, model, fixed_tokens = slice_phase(torch, dev)
     with torch.no_grad():
-        paged_counts = paged_slice_phase(torch, dev, cfg, model)
+        paged_counts, paged_tokens = paged_slice_phase(torch, dev, cfg, model)
         tick_phase(torch, cfg, model)
+        blocked_summary = blocked_serving_phase(torch, dev, cfg, model,
+                                                {"fixed": fixed_tokens, "paged": paged_tokens})
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    blocked_summary["attention"] = blocked_attention_phase(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
     with torch.no_grad():
@@ -5543,7 +5823,10 @@ def main() -> None:
     dense_counts = dense_train_phase(torch, dev, split_summary)
     gc.collect()
     torch.cuda.empty_cache()
-    gpt_counts, gpt_summaries = gpt_train_phase(torch, dev)
+    gpt_counts, gpt_summaries, gpt_ref_losses = gpt_train_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    blocked_summary["training_gpt20m"] = blocked_train_phase(torch, dev, gpt_ref_losses)
     gc.collect()
     torch.cuda.empty_cache()
     wh_train_counts, wh_train_summary = whisper_train_phase(torch, dev)
@@ -5788,6 +6071,8 @@ def main() -> None:
         f"{json.dumps(g3_split_train_summaries)}")
     log(f"stablelm-12b packed training with a split forward: "
         f"{json.dumps(sl_split_train_summaries)}")
+    log(f"the blocked path (impl=flash_torch, an eager PyTorch loop, not a CUDA kernel): "
+        f"{json.dumps(blocked_summary)}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

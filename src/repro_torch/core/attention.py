@@ -3,14 +3,19 @@
 Every model calls :func:`attention` / :func:`decode_attention`; the backend
 is chosen by config, never by model code:
 
-  impl = 'ref'         dense O(N^2)-memory attention (the oracle),
-                       differentiated by autograd
-  impl = 'flash_cuda'  the hand-written Hopper kernels (kernels/ops.py),
-                       forward and backward; on CPU tensors their plain
-                       PyTorch versions
+  impl = 'ref'          dense O(N^2)-memory attention (the oracle),
+                        differentiated by autograd
+  impl = 'flash_torch'  the FA2 algorithm as a blocked PyTorch loop over
+                        tiles with its own backward (core/flash.py) and the
+                        split decode (core/decode.py); plain PyTorch on any
+                        device, never a CUDA kernel
+  impl = 'flash_cuda'   the hand-written Hopper kernels (kernels/ops.py),
+                        forward and backward; on CPU tensors their plain
+                        PyTorch versions
 
-The counterpart of ``repro/core/attention.py`` (``flash_cuda`` stands where
-``flash_pallas`` stands there). There is no ring routing yet.
+The counterpart of ``repro/core/attention.py`` (``flash_torch`` stands where
+``flash_xla`` stands there, ``flash_cuda`` where ``flash_pallas`` does).
+No impl falls back to another. There is no ring routing yet.
 """
 
 from __future__ import annotations
@@ -20,11 +25,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import decode as _decode
+from repro_torch.core import flash as _flash
 from repro_torch.core.masks import MaskSpec
 from repro_torch.kernels import flash_bwd, flash_decode, flash_fwd, ops
 from repro_torch.kernels.ref import attention_reference
 
-IMPLS = ("ref", "flash_cuda")
+IMPLS = ("ref", "flash_torch", "flash_cuda")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +51,13 @@ class AttentionConfig:
     # 'dense' (every tile visited, empty ones skipped in the kernel; no kv
     # splits). None -> 'compact': the port has no tuned cache to consult.
     schedule: Optional[str] = None
+    # flash_torch tile sizes (None -> core/flash.DEFAULT_BLOCK); its tile
+    # mode is the 'auto' rule (core/flash.FlashConfig.resolve_mode).
+    # flash_cuda takes the kernels' fixed 64 x 64 tiles (ops.BLOCK_Q,
+    # ops.BLOCK_KV; ROADMAP.md queue 1, item 7): there these raise rather
+    # than be ignored.
+    block_q: Optional[int] = None
+    block_kv: Optional[int] = None
 
     def __post_init__(self):
         if self.impl not in IMPLS:
@@ -53,6 +67,16 @@ class AttentionConfig:
         ops.check_kv_splits(self.kv_splits)
         if self.schedule is not None:
             ops.check_schedule(self.schedule)
+        if self.impl != "flash_torch":
+            if self.block_q is not None or self.block_kv is not None:
+                raise ValueError(
+                    f"impl={self.impl!r} takes no block_q / block_kv: the CUDA kernels' tiles "
+                    "are fixed at 64 x 64 until the tuned block sizes are ported (ROADMAP.md "
+                    "queue 1, item 7); the blocked path takes them (impl='flash_torch')")
+        elif self.bwd is not None or self.kv_splits is not None or self.schedule is not None:
+            raise ValueError("bwd, kv_splits and schedule are the CUDA kernels' knobs "
+                             "(impl='flash_cuda'); impl='flash_torch' takes block_q and "
+                             "block_kv")
 
 
 def check_card_support(cfg, attn_cfg: AttentionConfig, device, *, training: bool,
@@ -69,7 +93,8 @@ def check_card_support(cfg, attn_cfg: AttentionConfig, device, *, training: bool
     built with segments at each of their head dims. MoE
     training (``cfg.family == "moe"``) is refused on the card whatever the
     head_dim: it waits for its own slice (ROADMAP.md queue 1, item 5). The
-    plain CPU path and ``impl="ref"`` take any of them."""
+    plain CPU path, ``impl="ref"`` and ``impl="flash_torch"`` (plain PyTorch
+    on any device) take any of them."""
     if attn_cfg.impl != "flash_cuda" or torch.device(device).type != "cuda":
         return
     if training and cfg.family == "moe":
@@ -106,6 +131,10 @@ def attention(q, k, v, spec: MaskSpec, cfg: AttentionConfig = AttentionConfig(),
     (JAX ``attention.py:64``)."""
     if cfg.impl == "ref":
         return attention_reference(q, k, v, spec, scale=scale, segment_ids=segment_ids)[0]
+    if cfg.impl == "flash_torch":
+        return _flash.flash_attention(
+            q, k, v, spec, scale=scale, block_q=cfg.block_q, block_kv=cfg.block_kv,
+            segment_ids=segment_ids)
     knobs = dict(scale=scale, bwd=cfg.bwd or "fused", kv_splits=cfg.kv_splits,
                  schedule=cfg.schedule or "compact")
     if segment_ids is not None:
@@ -130,6 +159,10 @@ def decode_attention(q, k_cache, v_cache, cache_length,
         return _decode_reference(q, k_cache, v_cache, cache_length, window=window, sink=sink,
                                  scale=scale, kv_segment_ids=kv_segment_ids,
                                  q_segment=q_segment)
+    if cfg.impl == "flash_torch":
+        return _decode.flash_decode(q, k_cache, v_cache, cache_length, window=window, sink=sink,
+                                    scale=scale, num_splits=ops.DEFAULT_DECODE_SPLITS,
+                                    kv_segment_ids=kv_segment_ids, q_segment=q_segment)[0]
     return ops.flash_decode(q, k_cache, v_cache, cache_length, window=window,
                             sink=sink, scale=scale, kv_segment_ids=kv_segment_ids,
                             q_segment=q_segment)[0]
@@ -146,19 +179,18 @@ def decode_attention_paged(q, k_pages, v_pages, cache_length, block_table,
     no K/V on the kernel path and gives 0.
 
     ``ref`` gathers the table's pages into a contiguous (B, n_pages*ps, Hkv,
-    D) view and runs the dense oracle, as ``repro/core/decode.py:103
-    flash_decode_paged`` gathers for its split decode. The split fan-out is
-    ``ops.DEFAULT_DECODE_SPLITS``: the TPU-tuned cache is not consulted."""
+    D) view and runs the dense oracle; ``flash_torch`` gathers the same way
+    for its split decode (``core/decode.py``, JAX ``decode.py:103``). The
+    split fan-out is ``ops.DEFAULT_DECODE_SPLITS``: the TPU-tuned cache is
+    not consulted."""
     if cfg.impl == "ref":
-        B, n_pages = block_table.shape
-        Hk, _, ps, D = k_pages.shape
-        tbl = block_table.to(k_pages.device).long()
-
-        def gather(pages):  # (Hk, B, n_pages, ps, D) -> (B, n_pages*ps, Hk, D)
-            return pages[:, tbl].permute(1, 2, 3, 0, 4).reshape(B, n_pages * ps, Hk, D)
-
-        return _decode_reference(q, gather(k_pages), gather(v_pages), cache_length,
+        return _decode_reference(q, _decode.gather_pages(k_pages, block_table),
+                                 _decode.gather_pages(v_pages, block_table), cache_length,
                                  window=window, sink=sink, scale=scale)
+    if cfg.impl == "flash_torch":
+        return _decode.flash_decode_paged(q, k_pages, v_pages, cache_length, block_table,
+                                          window=window, sink=sink, scale=scale,
+                                          num_splits=ops.DEFAULT_DECODE_SPLITS)[0]
     return ops.flash_decode_paged(q, k_pages, v_pages, cache_length, block_table,
                                   window=window, sink=sink, scale=scale,
                                   num_splits=ops.DEFAULT_DECODE_SPLITS)[0]

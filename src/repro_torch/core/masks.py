@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+NEG_INF = float("-inf")
 # Large-but-finite mask value used inside the kernels: subtracting a true
 # -inf can produce NaN via (-inf) - (-inf) in the running-max update when a
 # whole row is masked. The same constant as the JAX package (0.7 * f32 max).
@@ -47,6 +48,10 @@ class MaskSpec:
     @property
     def is_trivial(self) -> bool:
         return not self.causal and self.window is None
+
+
+FULL = MaskSpec(causal=False)
+CAUSAL = MaskSpec(causal=True)
 
 
 class SegmentInfo(NamedTuple):

@@ -1,17 +1,69 @@
-"""Online-softmax merge of finalized attention partials.
+"""Online-softmax algebra (Milakov & Gimelshein 2018; FA2 Section 3.1).
 
-The counterpart of ``merge_partials`` / ``combine_lse_outputs`` in
-``repro/core/online_softmax.py``. Split-KV decode folds its per-split
-``(o, lse)`` partials with these, as plain torch outside the kernel (the
-JAX package leaves the same merge to XLA). :func:`fold_partials` is the
-one-pass fold the split-KV forward's kernel does on the card, here as its
-plain version; :func:`merge_running` merges two running states, as the
-head_dim-256 forward's warpgroups do in one-q-tile mode.
+The counterpart of ``repro/core/online_softmax.py``. The state of a row
+block is a triple ``(m, l, o)``: the running row max, the running row sum
+of exp(scores - m), and the output NOT yet divided by l, all f32. FA2's
+tweak C1 keeps ``o`` unscaled through the KV loop and divides by ``l`` once
+at the end (:func:`finalize`), which also gives the logsumexp the backward
+keeps. :func:`combine` is associative, which is what lets the KV loop,
+the split-KV decode and a merge of partials reach the same result.
+
+Finalized partials ``(o, lse)`` merge with :func:`merge_partials` /
+:func:`combine_lse_outputs`; :func:`fold_partials` is the one-pass fold
+the split-KV forward's kernel does on the card, here as its plain version;
+:func:`merge_running` merges two running states, as the head_dim-256
+forward's warpgroups do in one-q-tile mode.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+
+class SoftmaxState(NamedTuple):
+    m: torch.Tensor  # (..., rows)
+    l: torch.Tensor  # (..., rows)
+    o: torch.Tensor  # (..., rows, d) -- unscaled
+
+
+def init_state(rows_shape, d, dtype=torch.float32, device=None) -> SoftmaxState:
+    """The state of rows that have seen no key: m = -inf, l = 0, o = 0."""
+    return SoftmaxState(
+        m=torch.full(rows_shape, float("-inf"), dtype=dtype, device=device),
+        l=torch.zeros(rows_shape, dtype=dtype, device=device),
+        o=torch.zeros((*rows_shape, d), dtype=dtype, device=device),
+    )
+
+
+def block_state(s: torch.Tensor, v: torch.Tensor) -> SoftmaxState:
+    """State for a single block of scores s (..., rows, cols) against v
+    (..., cols, d)."""
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return SoftmaxState(m=m, l=p.sum(dim=-1), o=p @ v)
+
+
+def combine(a: SoftmaxState, b: SoftmaxState) -> SoftmaxState:
+    """Merge two online-softmax states (associative); a state whose m is
+    -inf adds nothing."""
+    m = torch.maximum(a.m, b.m)
+    zero = torch.zeros_like(m)
+    alpha_a = torch.where(torch.isneginf(a.m), zero, torch.exp(a.m - m))
+    alpha_b = torch.where(torch.isneginf(b.m), zero, torch.exp(b.m - m))
+    return SoftmaxState(m=m, l=a.l * alpha_a + b.l * alpha_b,
+                        o=a.o * alpha_a[..., None] + b.o * alpha_b[..., None])
+
+
+def finalize(s: SoftmaxState):
+    """-> (o, lse): the softmax-weighted output and the row logsumexp; a row
+    with l = 0 (no key seen) gives o = 0 and lse = -inf."""
+    empty = s.l == 0.0
+    l_safe = torch.where(empty, torch.ones_like(s.l), s.l)
+    o = s.o / l_safe[..., None]
+    lse = torch.where(empty, torch.full_like(s.m, float("-inf")), s.m + torch.log(l_safe))
+    return o, lse
 
 
 def merge_running(a, b):

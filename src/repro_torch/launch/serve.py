@@ -9,6 +9,15 @@ Usage:
       --num-pages 150 --page-size 16 --pages-per-seq 128
   python -m repro_torch.launch.serve --arch stablelm-12b [--engine paged]
   python -m repro_torch.launch.serve --arch granite-moe-1b-a400m [--engine paged]
+  python -m repro_torch.launch.serve --arch qwen3-8b --reduce --device cpu --attn flash_torch
+
+``--attn`` takes ``flash_cuda`` (the default: the hand-written kernels),
+``flash_torch`` (the blocked PyTorch prefill and the split decode of
+``core/flash.py`` and ``core/decode.py``, on the CPU or the card: the
+counterpart of the JAX CLI's default ``flash_xla``) or ``ref`` (dense
+attention). The JAX CLI defaults to its XLA program because there the
+Pallas kernels run interpreted off the TPU; here the kernels are the main
+path on the card, so they are the default.
 
 ``--engine fixed`` (default) reserves a worst-case contiguous cache slot
 per request; ``--engine paged`` serves from a shared page pool and decodes

@@ -14,6 +14,14 @@ Usage:
   python -m repro_torch.launch.train --arch qwen3-8b --reduce --device cpu --packed --steps 2
   python -m repro_torch.launch.train --arch gemma3-1b --steps 4
   python -m repro_torch.launch.train --arch stablelm-12b --steps 4
+  python -m repro_torch.launch.train --preset gpt-20m --device cpu --attn flash_torch --steps 2
+
+``--attn`` takes ``flash_cuda`` (the default: the hand-written kernels),
+``flash_torch`` (the paper's algorithm as a blocked PyTorch loop, 512 x 512
+tiles, on the CPU or the card: the counterpart of the JAX CLI's default
+``flash_xla``) or ``ref`` (dense attention). The JAX CLI defaults to its
+XLA program because there the Pallas kernels run interpreted off the TPU;
+here the kernels are the main path on the card, so they are the default.
 
 ``--device cuda`` (the default) needs a card and raises without one. The
 CUDA kernels take bfloat16 at head_dim 64, 128, 160 and 256: the presets

@@ -36,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.registry import torch_dtype
 from repro_torch.core.attention import AttentionConfig
-from repro_torch.core.masks import MaskSpec
+from repro_torch.core.masks import CAUSAL, FULL
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.attention_layer import (
     Attention,
@@ -48,9 +48,6 @@ from repro_torch.models.attention_layer import (
     prefill_attention,
 )
 from repro_torch.models.layers import MLP, Embedding, Norm, sinusoidal_positions
-
-FULL = MaskSpec()
-CAUSAL = MaskSpec(causal=True)
 
 
 def check_supported(cfg) -> None:
