@@ -310,6 +310,32 @@ both engines with impl="flash_torch" (tokens/s, tokens equal to the
 flash_cuda runs') and a prefill's logits against flash_cuda; (b) after phase
 14, gpt-20m trained 8 steps through ``train`` with impl="flash_torch",
 against phase 14's impl="ref" losses.
+Telemetry (``repro_torch.obs``): after phase 5 the qwen3-8b model serves
+the six requests again through both engines with a metrics registry and a
+Perfetto tracer; the greedy tokens and launch counts must be those of
+phases 4 and 5, the snapshot's counters the engine's own counts (ticks,
+admissions, retirements, decode tokens, preemptions, pages in use), and
+the trace valid with every request's lifecycle; then fresh engines
+without and with telemetry tick in turns (the tick times printed, not
+gated) and under torch.profiler, where they must launch as many device
+kernels per tick.
+Phase 3 also holds the head_dim-64 forward and the four backward kernels
+at granite-moe-1b-a400m's training shape (B 2, S 2048, 16 q heads over 8
+kv heads, causal) against their plain versions, with the bitwise
+invariants, and times them beside their bounds and SDPA. Then the granite
+training slice: granite-moe-1b-a400m at its published widths and depth
+(24 layers, an MoE layer of 32 experts top 8 in each) trains 5 AdamW steps
+(GR_TRAIN_STEPS) at B 2, S 2048 through ``train`` with the fused and the
+split backward,
+and through impl="ref" once for each, replaying that run's expert
+choices (recorded per step, the recomputed remat groups' included, which
+must equal the forward's); launch counts exact at head_dim 64 (forward
+240, delta 120, fused or dK/dV and dQ 120), step 0 within PARITY_LOSS_REL
+and every step within GPT_LOSS_REL of its reference, the loss falls; one
+reference step with its own choices logs the flips; one MoE layer runs
+forward and backward under the sync debug mode "error"; the fused run
+carries a metrics registry and a trace, whose train/mfu must be the MFU
+of the run's own step times.
 The last two lines are the kernels' JSON record and the result line.
 """
 
@@ -329,7 +355,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 HQ, HKV, HD = 32, 8, 128  # qwen3-8b attention widths
 FWD_TOL = dict(o=2e-2, lse=1e-3)  # bf16 outputs; f32 lse
@@ -360,7 +385,12 @@ LONG_SPIN_CYCLES = 4 * SPIN_CYCLES
 # the first chip run read cosine 0.999744 and max|diff| 0.024 x max|logit|.
 LOGIT_COS = 0.999
 LOGIT_REL = 0.05
-PROFILED_TICKS = 8
+# Ticks of each engine under torch.profiler (busy share, kernels by device
+# time, host operators). Cut from 8 to 2 when the granite training and
+# telemetry phases came in: reading back a profile of 8 qwen3-8b ticks took
+# about 24 s on the H100's host, and the 8 engine profiles of the serving
+# slices were the largest cut that keeps the script inside its time.
+PROFILED_TICKS, PROFILED_TICKS_BEFORE = 2, 8
 TICK_ROUNDS = 8  # rounds of fixed, paged, paged, fixed decode ticks
 # f32 delta from bf16 O and dO, summation order only: the first chip run
 # read at most 3.8e-6.
@@ -442,8 +472,24 @@ def smi_line() -> str:
     return out[0]
 
 
+def peak_flops() -> float:
+    """The card's dense bf16 peak FLOP/s from the port's one table of it
+    (``repro_torch.obs.mfu.peak_flops``: 989e12 for the H100 SXM; it raises
+    for a card the table lacks unless REPRO_PEAK_FLOPS gives the peak)."""
+    from repro_torch.obs.mfu import peak_flops as card_peak
+
+    return card_peak("cuda")
+
+
+def model_mfu(flops: float, seconds: float) -> float:
+    """MFU of ``flops`` of model work in ``seconds`` (``repro_torch.obs.mfu.mfu``)."""
+    from repro_torch.obs.mfu import mfu
+
+    return mfu(flops, seconds, peak_flops())
+
+
 def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    t_ops, t_bytes = flops / peak_flops(), nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1899,6 +1945,138 @@ def paged_slice_phase(torch, dev, cfg, model):
     return counts, tokens
 
 
+TELEMETRY_ROUNDS = 4  # rounds of off, on, on, off decode ticks
+TELEMETRY_PROFILED_TICKS = 2  # ticks of each engine under torch.profiler
+
+
+def telemetry_serving_phase(torch, dev, cfg, model, runs) -> dict:
+    """Telemetry (``repro_torch.obs``) on the card, on the serving phases'
+    model: the six requests again through a fixed and a paged engine with a
+    metrics registry and a Perfetto tracer (``run_engine``). Their greedy
+    tokens and launch counts must be those of the same engines without
+    telemetry (``runs``: {"fixed"|"paged": (counts, tokens)} of phases 4
+    and 5), the trace valid with each request's lifecycle (and the paged
+    run's preempt/resume pair), and the snapshot's counters the engine's own
+    counts. Then, per engine, a fresh engine without and one with
+    telemetry admit the same four requests; their decode-only ticks are
+    timed in turns (off, on, on, off) x TELEMETRY_ROUNDS, not gated, and
+    TELEMETRY_PROFILED_TICKS more ticks of each under torch.profiler (device
+    activity only) must launch as many kernels (by name they may differ: an
+    elementwise kernel's vectorised or unrolled form follows its buffers'
+    alignment, which two engines' caches need not share; the names that
+    differ are logged). The copies and sets are logged, not gated: the
+    profiler has recorded one pageable host-to-device copy more or less in
+    one of two identical paged windows. Returns {engine: summary}."""
+    import collections
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.attention import AttentionConfig
+    from repro_torch.obs import MetricsRegistry, TraceRecorder, validate_trace
+    from repro_torch.serving.engine import PagedServingEngine, Request, ServingEngine
+
+    fl_cfg = AttentionConfig(impl="flash_cuda")
+    prompts = serving_prompts(cfg)
+
+    def make(kind, **telemetry):
+        if kind == "fixed":
+            return ServingEngine(cfg, model, fl_cfg, max_batch=4, cache_size=CACHE, **telemetry)
+        return PagedServingEngine(cfg, model, fl_cfg, max_batch=4, num_pages=PAGED_POOL_PAGES,
+                                  page_size=PAGE_SIZE, pages_per_seq_max=PAGES_PER_SEQ,
+                                  **telemetry)
+
+    summary = {}
+    for kind, (want_counts, want_tokens) in runs.items():
+        tracer = TraceRecorder(process=f"serve:{kind}")
+        engine = make(kind, registry=MetricsRegistry(), tracer=tracer)
+        for rid, prompt in enumerate(prompts):
+            engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
+        counts, _ = run_engine(torch, dev, cfg, engine, len(prompts),
+                               f"{kind} serving with telemetry")
+        tokens = {rid: req.generated for rid, req in engine.finished.items()}
+        snap = engine.snapshot()
+        n, preempted = len(prompts), getattr(engine, "preemptions", 0)
+        decoded = sum(len(t) for t in tokens.values()) - (n + preempted)
+        want = {"serving/ticks": engine.ticks, "decode/ticks": engine.ticks,
+                "serving/admissions": n + preempted, "serving/admit_bucket/count": n + preempted,
+                "serving/queue_wait_ticks/count": n + preempted, "serving/retirements": n,
+                "serving/tokens": decoded, "decode/tokens": decoded,
+                "serving/active_slots": 0, "serving/queue_depth": 0}
+        if kind == "paged":
+            want.update({"serving/preemptions": preempted, "serving/page_oom": preempted,
+                         "kv_pool/used_pages": 0, "kv_pool/resident_seqs": 0})
+        got = {k: snap[k] for k in want}
+        events = validate_trace(json.loads(json.dumps(tracer.to_json())))
+        lifecycle = all({"submit", "queue_wait", "prefill", "decode", "retire"}
+                        <= {e["name"] for e in events if e.get("tid") == rid}
+                        for rid in range(n))
+        pairs = [sorted(e["args"]["rid"] for e in events if e["name"] == name)
+                 for name in ("preempt", "resume")]
+        log(f"{kind} serving with telemetry: greedy tokens bitwise the run without it "
+            f"{tokens == want_tokens}; launch counts equal {counts == want_counts}; snapshot "
+            f"{got} against the engine's own counts {want}; trace valid, {len(events)} events, "
+            f"every request's lifecycle {lifecycle}, preempted / resumed requests {pairs}; "
+            f"decode/mfu {snap['decode/mfu']:.6f}, decode/tokens_per_s "
+            f"{snap['decode/tokens_per_s']:.1f}")
+        if tokens != want_tokens or counts != want_counts:
+            fail(f"{kind} serving with telemetry changed the tokens or the launches")
+        if got != {k: float(v) for k, v in want.items()} or not lifecycle or (
+                pairs[0] != pairs[1] or len(pairs[0]) != preempted):
+            fail(f"{kind} serving: the telemetry disagrees with the engine's own counts")
+        summary[kind] = dict(decode_mfu=snap["decode/mfu"],
+                             decode_tokens_per_s=snap["decode/tokens_per_s"])
+
+    max_new = 3 + 4 * TELEMETRY_ROUNDS + TELEMETRY_PROFILED_TICKS
+    for kind in ("fixed", "paged"):
+        engines = {"off": make(kind),
+                   "on": make(kind, registry=MetricsRegistry(), tracer=TraceRecorder())}
+        for engine in engines.values():
+            rng = np.random.default_rng(1)
+            for rid, n in enumerate((7, 100, 33, 260)):
+                engine.submit(Request(rid=rid, prompt=rng.integers(1, cfg.vocab_size, n).tolist(),
+                                      max_new_tokens=max_new))
+            for _ in range(3):  # admission, then two warm decode ticks
+                engine.tick()
+        torch.cuda.synchronize()
+        ticks = {name: [] for name in engines}
+        for _ in range(TELEMETRY_ROUNDS):
+            for name in ("off", "on", "on", "off"):
+                t0 = time.perf_counter()
+                engines[name].tick()
+                torch.cuda.synchronize()
+                ticks[name].append(time.perf_counter() - t0)
+        device = {}
+        for name, engine in engines.items():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(TELEMETRY_PROFILED_TICKS):
+                    engine.tick()
+                torch.cuda.synchronize()
+            device[name] = collections.Counter(
+                e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        med = {name: float(np.median(t)) * 1e3 for name, t in ticks.items()}
+        kernels, copies = {}, {}
+        for name, events in device.items():
+            copies[name] = sum(n for k, n in events.items() if k.startswith(("Memcpy", "Memset")))
+            kernels[name] = sum(events.values()) - copies[name]
+        apart = (device["on"] - device["off"]) + (device["off"] - device["on"])
+        log(f"{cfg.name} {kind} decode-only ticks in turns (off, on, on, off) x "
+            f"{TELEMETRY_ROUNDS}, B=4: without telemetry median {med['off']:.2f} ms, with "
+            f"{med['on']:.2f} ms (ratio {med['on'] / med['off']:.4f}; not gated); under "
+            f"torch.profiler ({TELEMETRY_PROFILED_TICKS} ticks each) device kernels per tick "
+            f"without {kernels['off'] / TELEMETRY_PROFILED_TICKS:.1f}, with "
+            f"{kernels['on'] / TELEMETRY_PROFILED_TICKS:.1f}; copies and sets "
+            f"{copies['off']} and {copies['on']} in all; names whose counts differ: "
+            f"{dict(list(apart.items())[:6])}")
+        if not kernels["off"]:
+            log(f"{kind}: device kernels per tick not measured (the profiler recorded none)")
+        elif kernels["on"] != kernels["off"]:
+            fail(f"{kind} serving: telemetry changed the kernels of a decode tick")
+        summary[kind].update(tick_ms_without=med["off"], tick_ms_with=med["on"],
+                             kernels_per_tick=kernels["off"] / TELEMETRY_PROFILED_TICKS or None)
+    return summary
+
+
 def logit_gap(torch, l_ref, l_fl):
     """(max|diff|, max|l_ref|, the least row cosine, same argmax in every
     row) of two logits tensors, row by row."""
@@ -3121,13 +3299,13 @@ def train_phase(torch, dev, bwd: str, schedule: str = "compact"):
     med = sorted(times)[len(times) // 2]
     tokens = TRAIN_B * TRAIN_S
     step_flops = train_model_flops(cfg, ShapeConfig("train", "train", TRAIN_S, TRAIN_B))
-    mfu = step_flops / med / PEAK_BF16_FLOPS
+    mfu = model_mfu(step_flops, med)
     log(f"training ({label}) qwen3-8b at published widths, {cfg.num_layers} of 36 layers, "
         f"{n_params / 1e9:.4f} B params ({cfg.dtype}, remat {cfg.remat}), f32 master + mu + nu: "
         f"losses {[round(x, 5) for x in losses]}; median step "
         f"{med * 1e3:.1f} ms (first {times[0] * 1e3:.1f} ms), {tokens / med:.1f} tokens/s, model "
         f"FLOPs {step_flops / 1e12:.3f} TFLOP a step, MFU "
-        f"{mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; max_memory_allocated "
+        f"{mfu:.4f} of {peak_flops() / 1e12:.0f} TFLOP/s; max_memory_allocated "
         f"{peak / 2**30:.2f} GiB")
     log(f"launches on the training path ({label}): {counts}")
     if not sum(losses[-2:]) / 2 < losses[0]:
@@ -3272,7 +3450,7 @@ def packed_train_phase(torch, dev, fused_summary):
     med = sorted(times)[len(times) // 2]
     tokens = TRAIN_B * TRAIN_S
     shape = ShapeConfig("train", "train", TRAIN_S, TRAIN_B)
-    mfu = train_model_flops(cfg, shape) / med / PEAK_BF16_FLOPS
+    mfu = model_mfu(train_model_flops(cfg, shape), med)
     log(f"packed training: losses {[round(x, 5) for x in losses]}; median step {med * 1e3:.1f} "
         f"ms (first {times[0] * 1e3:.1f} ms), {tokens / med:.1f} tokens/s (B x S; non-padding "
         f"share {real:.4f}: {real * tokens / med:.1f} real tokens/s), MFU {mfu:.4f} by phase 8's "
@@ -3346,14 +3524,14 @@ def gpt_train_phase(torch, dev):
         med = sorted(history["step_time"])[GPT_STEPS // 2]
         tokens = GPT_B * GPT_S
         shape = ShapeConfig("train", "train", GPT_S, GPT_B)
-        mfu = train_model_flops(cfg, shape) / med / PEAK_BF16_FLOPS
+        mfu = model_mfu(train_model_flops(cfg, shape), med)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         summaries[run] = dict(losses=history["loss"], median_ms=med * 1e3,
                               tokens_per_s=tokens / med, mfu=mfu, peak_gib=peak)
         log(f"gpt-20m training (bf16, bwd={run}) B={GPT_B} S={GPT_S}: losses "
             f"{[round(x, 5) for x in history['loss']]}; median step {med * 1e3:.2f} ms (first "
             f"{history['step_time'][0] * 1e3:.1f} ms), {tokens / med:.1f} tokens/s, MFU {mfu:.4f} "
-            f"of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, max_memory_allocated {peak:.3f} GiB")
+            f"of {peak_flops() / 1e12:.0f} TFLOP/s, max_memory_allocated {peak:.3f} GiB")
         log(f"launches on the gpt-20m training path (bwd={run}): {counts[run]}")
         if not all(math.isfinite(x) for x in history["loss"] + history["grad_norm"]):
             fail(f"gpt-20m training (bwd={run}) gave a non-finite loss or gradient norm")
@@ -4766,8 +4944,173 @@ def stablelm_train_phase(torch, dev, packed: bool = False):
                              before_ms=None if packed else SL_TRAIN_MS_BEFORE)
 
 
+# granite-moe-1b-a400m training: the qwen3 slice's B 2, S 2048, the model
+# uncut (24 layers, 1.34 B parameters, about 22 GB with AdamW's f32 master,
+# mu and nu beside the bf16 weights and gradients), 5 AdamW steps where the
+# other slices take 8. On an H100 80GB HBM3 (700 W), a split run given a
+# fused run's expert choices drifted from it by 2.5e-3 in loss at step 5,
+# and two impl="ref" runs not at all (tools/granite_spread.py): the fused
+# backward's unordered dQ sums grow through training from random weights
+# whose loss starts near 280. The kernels drifted from impl="ref" about as
+# far (up to 3.8e-3 at step 7, against GPT_LOSS_REL's 3.9e-3), so the
+# steps past 4 would hold that spread to the limit, not the kernels; steps
+# 0-4 stayed within 1.1e-3 of each other and of the reference in every run.
+GR_TRAIN_B, GR_TRAIN_S, GR_TRAIN_STEPS = TRAIN_B, TRAIN_S, 5
+
+
+def granite_train_kernel_phase(torch, dev, flush):
+    """The head_dim-64 forward and the four backward kernels at granite's
+    training shape (B 2, S 2048, 16 q heads over 8 kv heads, causal): the
+    forward held to its plain version and timed in turns with SDPA
+    (``wide_fwd_at_training_shape``); delta, fused, dK/dV and dQ held to
+    their plain versions with the bitwise invariants and timed beside their
+    bounds, the fused and the whole split backward in turns with SDPA's
+    backward (``bwd_kernels_at``). Returns the forward's record and
+    {name: record} of the backward kernels."""
+    from repro_torch.core.masks import MaskSpec
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    B, S = GR_TRAIN_B, GR_TRAIN_S
+    fwd_row = wide_fwd_at_training_shape(torch, dev, flush, randn, GR_D, GR_HQ, GR_HKV, B)
+    what = f"granite training B={B} S={S} Hq={GR_HQ} Hkv={GR_HKV} D={GR_D} causal"
+    errs, rows = bwd_kernels_at(torch, randn, GR_D, B, S, S, GR_HQ, GR_HKV,
+                                MaskSpec(causal=True), B * causal_pairs(S), what, flush,
+                                sdpa_kw=dict(causal=True))
+    return fwd_row["at_training_shape"], {name: dict(max_abs_err=errs[name], **rows[name])
+                                          for name in BWD_NAMES}
+
+
+def granite_train_phase(torch, dev):
+    """The granite training slice: granite-moe-1b-a400m at its published
+    widths and depth (24 layers, d_model 1024, 16 q heads over 8 kv heads
+    of 64, an MoE layer of 32 experts top 8 with d_expert 512 in every
+    layer, tied embeddings over a 49,155 vocab) at B 2, S 2048,
+    ``model_train_phase`` with the experts' choices replayed in the
+    reference runs and telemetry on the fused run. Its remat groups are
+    single layers, so every layer runs the forward twice a step."""
+    from repro_torch.configs import registry
+    from repro_torch.core.masks import MaskSpec
+
+    return model_train_phase(torch, dev, registry.get("granite-moe-1b-a400m"), GR_TRAIN_B,
+                             GR_TRAIN_S, GR_TRAIN_STEPS, (MaskSpec(causal=True),),
+                             telemetry=True)
+
+
+def moe_steps(torch, cfg, calls, steps: int, what: str) -> list:
+    """The top-k expert choices a training run of the MoE ``cfg`` made
+    (``routing``'s record), by step. A step's forward makes two calls a
+    layer (the aux loss's, then ``moe_body``'s); its backward recomputes
+    every remat group (``torch.utils.checkpoint``), the last group first,
+    with the same two calls a layer. Fails unless the record holds exactly
+    that many calls and every recomputed choice equals the forward's; logs
+    how many of the aux loss's choices differ from ``moe_body``'s (the same
+    logits twice). Returns [[the step's choices in call order] by step]."""
+    L, U, G = cfg.num_layers, cfg.group_size, cfg.num_groups
+    per_step = 2 * L + 2 * G * U
+    if len(calls) != steps * per_step:
+        fail(f"{what}: {len(calls)} top-k calls, want {steps * per_step} ({steps} steps of "
+             f"{2 * L} in the forward and {2 * G * U} in the recomputed groups)")
+    by_step = [calls[i * per_step:(i + 1) * per_step] for i in range(steps)]
+    recomputed = aux_apart = 0
+    for step in by_step:
+        fwd, again = step[:2 * L], step[2 * L:]
+        want = [c for g in reversed(range(G)) for c in fwd[2 * g * U:2 * (g + 1) * U]]
+        recomputed += sum(not torch.equal(a, b) for a, b in zip(again, want))
+        aux_apart += sum(not torch.equal(fwd[i], fwd[i + 1]) for i in range(0, 2 * L, 2))
+    log(f"{what}: {len(calls)} top-{calls[0].shape[-1]} calls of {calls[0].shape[0]} tokens "
+        f"({per_step} a step: {2 * L} in the forward, {2 * G * U} recomputed in the backward); "
+        f"recomputed choices that differ from the forward's: {recomputed}; aux-loss calls whose "
+        f"choices differ from moe_body's: {aux_apart} of {steps * L}")
+    if recomputed:
+        fail(f"{what}: the backward's recompute chose other experts than the forward")
+    return by_step
+
+
+def free_reference_step(torch, dev, cfg, B, S, opt_cfg, fused_step0, fused_loss0, what) -> dict:
+    """One training step of the MoE ``cfg`` through impl="ref" with its own
+    expert choices (no replay), as ``reference_run`` does for serving: how
+    many (token, call) choices of its forward differ from the fused run's
+    step 0 (the same weights and batch), by layer, and its loss against the
+    fused run's. Logged, not gated: a choice flips where two router logits
+    lie within the rounding of bf16 attention outputs apart."""
+    from repro_torch.launch.train import TrainLoopConfig, train
+
+    L = cfg.num_layers
+    loop = TrainLoopConfig(steps=1, seq_len=S, batch_size=B, log_every=1, seed=0,
+                           device=str(dev), attn_impl="ref")
+    with routing() as calls:
+        _, _, history = train(cfg, loop, opt_cfg)
+    torch.cuda.synchronize()
+    differ = [int((a.sort(dim=-1)[0] != b.sort(dim=-1)[0]).any(dim=-1).sum())
+              for a, b in zip(calls[1:2 * L:2], fused_step0[1:2 * L:2])]
+    loss = history["loss"][0]
+    rel = abs(loss - fused_loss0) / abs(fused_loss0)
+    log(f"{what}: impl=ref with its own expert choices, step 0: top-{calls[0].shape[-1]} choices "
+        f"of moe_body differ from bwd=fused's in {sum(differ)} of {L * B * S} (token, layer) "
+        f"pairs (by layer {differ}); its loss {loss!r} against bwd=fused's {fused_loss0!r}, "
+        f"relative {rel:.3e}; the reference runs above replay the kernel runs' choices")
+    return dict(choices_differ=sum(differ), choices=L * B * S, loss_rel_to_fused=rel)
+
+
+def moe_backward_sync_check(torch, dev, model, B: int, S: int) -> None:
+    """One MoE layer of ``model`` forward and backward (with its aux loss)
+    on a (B, S, d) input under torch.cuda.set_sync_debug_mode("error"): no
+    step of either may read a value back to the host."""
+    from repro_torch.models.moe import MoE
+
+    layer = next(m for m in model.modules() if isinstance(m, MoE))
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((B, S, model.cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    x.requires_grad_()
+    layer.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = layer(x)
+        (y.float().square().mean() + aux).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    grads = [x.grad] + [p.grad for p in layer.parameters()]
+    finite = all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
+    log(f"MoE layer forward + backward on ({B}, {S}, {model.cfg.d_model}) under sync debug mode "
+        f"'error': no synchronisation; input and parameter gradients finite {finite}")
+    if not finite:
+        fail("the MoE layer's backward gave a missing or non-finite gradient")
+
+
+def train_telemetry_checks(torch, what, reg, trace_path, history, step_flops, B, S) -> dict:
+    """The fused run's telemetry (``TrainLoopConfig(registry=, trace_out=)``):
+    the snapshot's steps, tokens and loss the run's own; ``train/mfu`` the
+    MFU of the run's own step times and FLOPs over the same steps (to
+    1e-9); the trace valid, a data, compute and step span a step."""
+    from repro_torch.obs import validate_trace
+
+    snap = reg.snapshot()
+    steps, times = len(history["loss"]), history["step_time"]
+    own = model_mfu(step_flops * steps, sum(times))
+    events = validate_trace(json.loads(Path(trace_path).read_text()))
+    spans = [e["name"] for e in events if e["ph"] == "X"]
+    log(f"{what} telemetry: train/steps {snap['train/steps']}, train/tokens "
+        f"{snap['train/tokens']}, train/loss {snap['train/loss']!r} (last step's "
+        f"{history['loss'][-1]!r}), train/mfu {snap['train/mfu']:.6f} against "
+        f"{own:.6f} from the run's step times over the same {steps} steps, train/hfu "
+        f"{snap['train/hfu']:.6f}; trace valid, {len(events)} events, spans {spans[:3]} x "
+        f"{len(spans) // 3}")
+    if (snap["train/steps"] != steps or snap["train/tokens"] != steps * B * S
+            or snap["train/loss"] != history["loss"][-1]
+            or abs(snap["train/mfu"] - own) > 1e-9 * own
+            or spans != ["data", "compute", "step"] * steps):
+        fail(f"{what}: the train loop's telemetry disagrees with the run")
+    return dict(mfu_meter=snap["train/mfu"], hfu_meter=snap["train/hfu"], mfu_own=own)
+
+
 def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False,
-                      before_ms=None):
+                      before_ms=None, telemetry: bool = False):
     """``cfg`` (bf16, remat, seed 0) through the train CLI's ``train`` on the
     synthetic stream (``B`` x ``S``, ``steps`` AdamW steps; ``packed``: the
     packed (varlen) source, ``TrainLoopConfig(packed=True)``), with the
@@ -4785,7 +5128,15 @@ def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False,
     the source's step-0 ids) forward and backward twice at the training
     shape under each mask of ``specs`` must give bitwise-equal gradients.
     ``before_ms``: the earlier design's median fused step, logged beside
-    this run's. Returns {bwd: launch counts} and {bwd: summary}."""
+    this run's. An MoE ``cfg``: each kernel run records its expert choices
+    (``moe_steps``: every recomputed choice must equal the forward's), a
+    reference run replays each kernel run's (impl="ref" twice: "ref" the
+    fused run's, "ref_split" the split run's), a one-step reference run
+    with its own choices logs how many differ at step 0, and one MoE layer
+    runs forward and backward under the sync debug mode
+    (``moe_backward_sync_check``). ``telemetry``: the fused run carries a
+    metrics registry and a trace (``train_telemetry_checks``). Returns
+    {bwd: launch counts} and {bwd: summary}."""
     import numpy as np
 
     from repro_torch.configs.base import ShapeConfig
@@ -4814,31 +5165,53 @@ def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False,
         batch0 = {"inputs": inputs, "targets": targets}
     counters, plains = kernel_counters()
     counts, summaries, losses = {}, {}, {}
-    for run in ("fused", "split", "ref"):
+    moe = cfg.moe is not None
+    choices = {}  # MoE: each kernel run's expert choices, by step
+    tel = {}
+    if telemetry:
+        from repro_torch.obs import MetricsRegistry
+
+        trace_dir = ROOT / "build" / "telemetry"
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        tel = dict(registry=MetricsRegistry(), trace_out=str(trace_dir / f"{arch}_train.json"))
+    for run in ("fused", "split", "ref") + (("ref_split",) if moe else ()):
+        ref = run.startswith("ref")
         loop = TrainLoopConfig(steps=steps, seq_len=S, batch_size=B, log_every=1, seed=0,
-                               device=str(dev), attn_impl="ref" if run == "ref" else "flash_cuda",
-                               attn_bwd=None if run == "ref" else run, packed=packed)
+                               device=str(dev), attn_impl="ref" if ref else "flash_cuda",
+                               attn_bwd=None if ref else run, packed=packed,
+                               **(tel if run == "fused" else {}))
+        replay = None
+        if moe and ref:
+            replay = [c for step in choices["split" if run == "ref_split" else "fused"]
+                      for c in step]
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         zero_counts(counters, plains)
-        model, opt_state, history = train(cfg, loop, opt_cfg)
+        with routing(replay) as calls:
+            model, opt_state, history = train(cfg, loop, opt_cfg)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in model.parameters())
         losses[run] = history["loss"]
         if not all(math.isfinite(x) for x in history["loss"] + history["grad_norm"]):
             fail(f"{what} ({run}) gave a non-finite loss or gradient norm")
-        if run == "ref":
+        if ref:
             del model, opt_state
-            break
+            continue
+        if moe:
+            choices[run] = moe_steps(torch, cfg, calls, steps, f"{what} (bwd={run})")
+        del calls
         counts[run] = read_counts(counters, plains)
         med = sorted(history["step_time"])[steps // 2]
-        mfu = step_flops / med / PEAK_BF16_FLOPS
+        mfu = model_mfu(step_flops, med)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         summaries[run] = dict(losses=history["loss"], median_ms=med * 1e3,
                               tokens_per_s=B * S / med, mfu=mfu, peak_gib=peak, busy_share=None,
                               attention_ms=None)
+        if run == "fused" and tel:
+            summaries[run]["telemetry"] = train_telemetry_checks(
+                torch, what, tel["registry"], tel["trace_out"], history, step_flops, B, S)
         if packed:
             summaries[run].update(non_padding_share=real, real_tokens_per_s=real * B * S / med)
         log(f"{what} (bwd={run}) at published widths, {cfg.num_layers} layers, "
@@ -4849,7 +5222,7 @@ def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False,
                if packed else "")
             + f", model FLOPs {step_flops / 1e12:.3f} TFLOP a step"
             + (" (full causal attention, not the same-segment pairs)" if packed else "")
-            + f", MFU {mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, "
+            + f", MFU {mfu:.4f} of {peak_flops() / 1e12:.0f} TFLOP/s, "
             f"max_memory_allocated {peak:.2f} GiB")
         log(f"launches on the {what} path (bwd={run}): {counts[run]}")
         if run == "fused" and before_ms is not None:
@@ -4874,15 +5247,23 @@ def model_train_phase(torch, dev, cfg, B, S, steps, specs, packed: bool = False,
                 "not measured" if attn_ms is None else f"{attn_ms:.3f} ms of the profiled step, "
                 f"{share:.4f} of its device busy time"))
             del batch
+            if moe:
+                moe_backward_sync_check(torch, dev, model, B, S)
         del model, opt_state
-    log(f"{what} through impl=ref (dense attention"
-        + (", segment mask" if packed else "") + f"): losses "
-        f"{[round(x, 5) for x in losses['ref']]}")
+    for run in ("ref",) + (("ref_split",) if moe else ()):
+        log(f"{what} through impl=ref (dense attention"
+            + (", segment mask" if packed else "")
+            + (f", replaying bwd={'split' if run == 'ref_split' else 'fused'}'s expert choices"
+               if moe else "") + f"): losses {[round(x, 5) for x in losses[run]]}")
+    if moe:
+        summaries["fused"]["free_reference"] = free_reference_step(
+            torch, dev, cfg, B, S, opt_cfg, choices["fused"][0], losses["fused"][0], what)
     if losses["split"][0] != losses["fused"][0]:
         fail(f"{what}: step 0's loss through bwd=split ({losses['split'][0]!r}) differs from "
              f"bwd=fused's ({losses['fused'][0]!r}); the forward is the same")
     for run in ("fused", "split"):
-        rel = [abs(a - b) / abs(b) for a, b in zip(losses[run], losses["ref"])]
+        ref_losses = losses["ref_split" if moe and run == "split" else "ref"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses[run], ref_losses)]
         summaries[run]["loss_rel_to_ref"] = rel
         log(f"{what} bwd={run} against impl=ref, relative loss difference by step: "
             + ", ".join(f"{r:.3e}" for r in rel) + f" (step 0 limit {PARITY_LOSS_REL}, every "
@@ -5088,7 +5469,7 @@ def model_dense_train_phase(torch, dev, cfg, B, S, steps):
             med = sorted(times)[steps // 2]
             peak = torch.cuda.max_memory_allocated(dev) / 2**30
             runs[schedule] = dict(losses=losses, median_ms=med * 1e3, tokens_per_s=B * S / med,
-                                  mfu=flops / med / PEAK_BF16_FLOPS, peak_gib=peak,
+                                  mfu=model_mfu(flops, med), peak_gib=peak,
                                   busy_share=None, attention_ms=None)
             log(f"{what}, {cfg.num_layers} layers, B={B} S={S}: losses "
                 f"{[round(x, 5) for x in losses]}; median step {med * 1e3:.1f} ms (first "
@@ -5746,6 +6127,9 @@ def main() -> None:
     bwd_ptxas_check(ptxas, DQ_PTXAS_BEFORE, "the dQ kernel at head_dim 64 and 128 against the "
                     "design before the head_dim-160/256 redesign")
 
+    log(f"depth cut to keep the run inside its time: PROFILED_TICKS {PROFILED_TICKS_BEFORE} -> "
+        f"{PROFILED_TICKS} (each engine's profiled decode ticks; a profile of 8 qwen3-8b ticks "
+        "took about 24 s to read back)")
     scratch = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     results = kernel_phase(torch, dev, scratch.zero_)
     results.update(paged_kernel_phase(torch, dev, scratch.zero_))
@@ -5762,6 +6146,10 @@ def main() -> None:
     results["flash_decode_paged_hd64"] = granite.pop("flash_decode_paged_hd64")
     for k, row in granite.items():  # the forward and decode at 64, at granite's shapes
         results[k]["at_granite_shape"] = row
+    gr_fwd, gr_bwd = granite_train_kernel_phase(torch, dev, scratch.zero_)
+    results["flash_fwd_hd64"]["at_granite_training_shape"] = gr_fwd
+    for k, row in gr_bwd.items():
+        results[f"{k}_hd64"]["at_shapes"]["granite_train"] = row
     results.update(hd256_bwd_kernel_phase(torch, dev, scratch.zero_))
     results.update(hd160_bwd_kernel_phase(torch, dev, scratch.zero_))
     results.update(dense_kernel_phase(  # gemma3-1b's and stablelm-12b's training shapes
@@ -5778,6 +6166,9 @@ def main() -> None:
     serve_counts, cfg, model, fixed_tokens = slice_phase(torch, dev)
     with torch.no_grad():
         paged_counts, paged_tokens = paged_slice_phase(torch, dev, cfg, model)
+        telemetry_summary = telemetry_serving_phase(
+            torch, dev, cfg, model, {"fixed": (serve_counts, fixed_tokens),
+                                     "paged": (paged_counts, paged_tokens)})
         tick_phase(torch, cfg, model)
         blocked_summary = blocked_serving_phase(torch, dev, cfg, model,
                                                 {"fixed": fixed_tokens, "paged": paged_tokens})
@@ -5836,6 +6227,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     sl_train_counts, sl_train_summaries = stablelm_train_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gr_train_counts, gr_train_summaries = granite_train_phase(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
     g3_packed_counts, g3_packed_summaries = gemma3_train_phase(torch, dev, packed=True)
@@ -6003,6 +6397,8 @@ def main() -> None:
              "training_stablelm_packed": sl_packed_counts["fused"],
              "training_stablelm_packed_split": sl_packed_counts["split"],
              "granite_serving": gr_counts, "granite_paged_serving": gr_paged_counts,
+             "training_granite": gr_train_counts["fused"],
+             "training_granite_split": gr_train_counts["split"],
              **{f"training_{arch}_{key.replace(' dense', '').replace(' ', '_')}_dense":
                 dense_by_dim(c, D) for arch, D, runs in (("gemma3", 256, g3_dense_counts),
                                                          ("stablelm", 160, sl_dense_counts))
@@ -6020,7 +6416,8 @@ def main() -> None:
     # gpt-20m, granite-moe-1b-a400m; 160: stablelm-12b; 256: gemma3-1b) are
     # that head dim's entries'.
     hd64_paths = ("whisper_serving", "training_gpt20m", "training_gpt20m_split",
-                  "training_whisper", "granite_serving", "granite_paged_serving")
+                  "training_whisper", "granite_serving", "granite_paged_serving",
+                  "training_granite", "training_granite_split")
     hd256_paths = ("gemma3_serving", "gemma3_paged_serving", "training_gemma3",
                    "training_gemma3_split", "gemma3_split_corner", "gemma3_split_prefill",
                    "gemma3_split_serving")
@@ -6062,6 +6459,8 @@ def main() -> None:
     log(f"gemma3-1b training: {json.dumps(g3_train_summaries)}")
     log(f"stablelm-12b serving: {json.dumps(sl_summary)}")
     log(f"granite-moe-1b-a400m serving: {json.dumps(gr_summary)}")
+    log(f"granite-moe-1b-a400m training: {json.dumps(gr_train_summaries)}")
+    log(f"telemetry on the qwen3-8b serving engines: {json.dumps(telemetry_summary)}")
     log(f"stablelm-12b training: {json.dumps(sl_train_summaries)}")
     log(f"gemma3-1b packed training: {json.dumps(g3_packed_summaries)}")
     log(f"stablelm-12b packed training: {json.dumps(sl_packed_summaries)}")

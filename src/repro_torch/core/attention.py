@@ -88,20 +88,13 @@ def check_card_support(cfg, attn_cfg: AttentionConfig, device, *, training: bool
     ``training`` the backward kernels, else the decode kernels (``paged``:
     the paged decode's) are not instantiated for: gemma3-1b's 256 and
     stablelm-12b's 160 serve (fixed and paged) and train (fused and split
-    backward); granite-moe-1b-a400m's 64 serves (fixed and paged).
-    ``packed`` adds no condition: the forward and backward kernels are
-    built with segments at each of their head dims. MoE
-    training (``cfg.family == "moe"``) is refused on the card whatever the
-    head_dim: it waits for its own slice (ROADMAP.md queue 1, item 5). The
-    plain CPU path, ``impl="ref"`` and ``impl="flash_torch"`` (plain PyTorch
-    on any device) take any of them."""
+    backward), and so does granite-moe-1b-a400m's 64 (an MoE model trains
+    under the same rules as a dense one). ``packed`` adds no condition: the
+    forward and backward kernels are built with segments at each of their
+    head dims. The plain CPU path, ``impl="ref"`` and ``impl="flash_torch"``
+    (plain PyTorch on any device) take any of them."""
     if attn_cfg.impl != "flash_cuda" or torch.device(device).type != "cuda":
         return
-    if training and cfg.family == "moe":
-        raise ValueError(
-            f"{cfg.name} is a mixture-of-experts model: the port serves it on the card, and "
-            "training it there comes in a later slice (ROADMAP.md queue 1, item 5). Train it "
-            "with --device cpu or --attn ref")
     if cfg.dtype != "bfloat16":
         raise ValueError(
             f"{cfg.name} is {cfg.dtype}, and the CUDA kernels take bfloat16 only (as the "

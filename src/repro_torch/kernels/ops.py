@@ -90,9 +90,14 @@ def resolve_kv_splits(kv_splits, q_shape, k_shape, block_q=None, block_kv=None,
     the dense schedule, which has no split-KV kernel, an explicit count
     above 1 raises and None resolves to 1, as in the JAX package. Otherwise
     None resolves through :func:`default_kv_splits` at every head dim: the
-    split-KV kernel is built wherever the forward is."""
+    split-KV kernel is built wherever the forward is. Each call counts its
+    tier on the default metrics registry: ``knobs/flash_cuda/explicit``
+    or ``/heuristic`` (the JAX ``count_knob`` at its resolution)."""
+    from repro_torch.obs.metrics import count_knob  # here: obs.mfu imports this module
+
     check_kv_splits(kv_splits)
     check_schedule(schedule)
+    count_knob("flash_cuda", "heuristic" if kv_splits is None else "explicit")
     if schedule == "dense":
         if (kv_splits or 1) > 1:
             raise ValueError("kv_splits > 1 requires schedule='compact'")

@@ -2,8 +2,8 @@
 
 The counterpart of ``repro/launch/train.py`` without what waits for later
 slices (ROADMAP.md, modules to port): checkpointing and restarts, fault
-injection, a mesh and telemetry. ``--device`` and ``--dtype`` are the flags
-the JAX CLI lacks. ``--packed`` trains on packed (varlen) rows: ragged
+injection and a mesh. ``--device`` and ``--dtype`` are the flags the JAX
+CLI lacks. ``--packed`` trains on packed (varlen) rows: ragged
 documents back to back, attention kept inside each, RoPE positions
 restarting at each document.
 
@@ -14,6 +14,8 @@ Usage:
   python -m repro_torch.launch.train --arch qwen3-8b --reduce --device cpu --packed --steps 2
   python -m repro_torch.launch.train --arch gemma3-1b --steps 4
   python -m repro_torch.launch.train --arch stablelm-12b --steps 4
+  python -m repro_torch.launch.train --arch granite-moe-1b-a400m --dtype bfloat16 --seq 2048 \
+      --batch 2 --steps 8 --trace-out trace.json --metrics-out metrics.json
   python -m repro_torch.launch.train --preset gpt-20m --device cpu --attn flash_torch --steps 2
 
 ``--attn`` takes ``flash_cuda`` (the default: the hand-written kernels),
@@ -33,9 +35,22 @@ depth through the head_dim-256 forward, delta and fused backward kernels
 160) through the head_dim-160 ones on a card that holds its 40 layers with
 AdamW's state (about 194 GB; there is no depth flag, as in the JAX CLI:
 ``chip_smoke.py`` trains 8 of its layers through ``train``); both train
-``--packed`` too, through the segment variants of those kernels. A model
+``--packed`` too, through the segment variants of those kernels.
+granite-moe-1b-a400m (an MoE layer of 32 experts top 8 in each of its 24
+layers, head_dim 64) trains at its published widths and depth through the
+head_dim-64 kernels; its experts are batched products in PyTorch. A model
 the kernels cannot take (float32) is refused before anything reaches the
 card (``core.attention.check_card_support``).
+
+Telemetry (``repro_torch.obs``), as in the JAX CLI: a metrics registry and
+an MFU meter are always on (``train/{steps, tokens, model_flops,
+compute_seconds, mfu, hfu, tokens_per_s, model_tflops_per_s, loss}``;
+``history["registry"]``); ``--metrics-out`` writes the final snapshot with
+the kv-split knob counters folded in, ``--trace-out`` each step's ``step``
+span with its ``data`` and ``compute`` children as Perfetto JSON. The JAX
+loop's ``train/stragglers``, ``checkpoints``, ``preemptions`` and
+``restarts`` come with its fault-tolerance modules (ROADMAP.md queue 1,
+item 4).
 """
 
 from __future__ import annotations
@@ -44,7 +59,7 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -55,6 +70,7 @@ from repro_torch.core.attention import IMPLS, AttentionConfig, check_card_suppor
 from repro_torch.data.pipeline import DataConfig, make_source
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models.lm import init_lm
+from repro_torch.obs import MetricsRegistry, TraceRecorder, TrainEfficiency, default_registry
 from repro_torch.training.optimizer import AdamWConfig, init_opt_state
 
 PRESETS: Dict[str, ModelConfig] = {
@@ -86,6 +102,11 @@ class TrainLoopConfig:
     seed: int = 0
     device: str = "cuda"
     packed: bool = False  # varlen packing: segment-masked attention
+    # Telemetry: metrics always collect into ``registry`` (or a fresh one);
+    # trace_out records step -> data/compute spans as Perfetto JSON.
+    trace_out: Optional[str] = None
+    metrics_out: Optional[str] = None
+    registry: Optional[Any] = None
 
 
 def resolve_model(arch: Optional[str], preset: Optional[str], reduce: bool,
@@ -110,10 +131,15 @@ def _sync(device: torch.device) -> None:
 def train(cfg: ModelConfig, loop: TrainLoopConfig, opt_cfg: Optional[AdamWConfig] = None):
     """Run the loop; returns (model, opt_state, history). ``history`` holds
     per-step ``loss``, ``grad_norm``, ``lr`` and ``step_time`` (seconds of
-    the step, data excluded, ending in a device synchronise)."""
+    the step, data excluded, ending in a device synchronise), and the run's
+    metrics ``registry``."""
     opt_cfg = opt_cfg or AdamWConfig(total_steps=loop.steps)
     attn_cfg = AttentionConfig(impl=loop.attn_impl, bwd=loop.attn_bwd)
     check_card_support(cfg, attn_cfg, loop.device, training=True, packed=loop.packed)
+    obs = loop.registry if loop.registry is not None else MetricsRegistry()
+    eff = TrainEfficiency(cfg, loop.batch_size, loop.seq_len, obs, device=loop.device)
+    g_loss = obs.gauge("train/loss")
+    tracer = TraceRecorder(process="train") if loop.trace_out else None
     data = make_source(DataConfig(batch_size=loop.batch_size, seq_len=loop.seq_len,
                                   vocab_size=cfg.vocab_size, seed=loop.seed,
                                   source="packed" if loop.packed else "synthetic"))
@@ -125,9 +151,11 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, opt_cfg: Optional[AdamWConfig
     print(f"[train] {cfg.name}: {n_params / 1e6:.1f}M params ({cfg.dtype}) on {model.device}, "
           f"{loop.steps} steps x {loop.batch_size}x{loop.seq_len} tokens, "
           f"attn={loop.attn_impl}{' packed' if loop.packed else ''}", flush=True)
-    history = {"loss": [], "grad_norm": [], "lr": [], "step_time": []}
+    history = {"loss": [], "grad_norm": [], "lr": [], "step_time": [], "registry": obs}
     tokens = loop.batch_size * loop.seq_len
     for step in range(loop.steps):
+        t_step0 = tracer.now_us() if tracer else 0.0
+        t_data0 = time.perf_counter()
         out = data.batch(step)
         if not isinstance(out, dict):
             out = {"inputs": out[0], "targets": out[1]}
@@ -137,13 +165,30 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, opt_cfg: Optional[AdamWConfig
         opt_state, metrics = step_fn(model, opt_state, batch)
         _sync(model.device)
         dt = time.perf_counter() - t0
+        eff.step(dt)
+        g_loss.set(metrics["loss"])
+        if tracer:
+            t_data = (t0 - t_data0) * 1e6
+            tracer.complete("data", 0, t_step0, t_data)
+            tracer.complete("compute", 0, t_step0 + t_data, dt * 1e6,
+                            args={"loss": metrics["loss"], "step": step})
+            tracer.complete("step", 0, t_step0, tracer.now_us() - t_step0, args={"step": step})
         for key in ("loss", "grad_norm", "lr"):
             history[key].append(metrics[key])
         history["step_time"].append(dt)
         if step % loop.log_every == 0 or step == loop.steps - 1:
             print(f"[train] step {step:5d} loss {metrics['loss']:8.4f} "
                   f"gnorm {metrics['grad_norm']:7.3f} lr {metrics['lr']:.2e} "
-                  f"{tokens / dt:8.0f} tok/s", flush=True)
+                  f"{tokens / dt:8.0f} tok/s mfu {obs.snapshot()['train/mfu']:.4f}", flush=True)
+    if loop.metrics_out:
+        snap = obs.snapshot()
+        snap.update(default_registry().snapshot())  # the kv-split knob counters
+        with open(loop.metrics_out, "w") as f:
+            json.dump(snap, f, indent=1, sort_keys=True)
+        print(f"[train] wrote metrics snapshot to {loop.metrics_out}")
+    if tracer is not None:
+        tracer.save(loop.trace_out)
+        print(f"[train] wrote Perfetto trace ({len(tracer.events)} events) to {loop.trace_out}")
     return model, opt_state, history
 
 
@@ -165,6 +210,10 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--packed", action="store_true",
                     help="varlen sequence packing (segment-masked attention)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write step/data/compute spans as Perfetto trace_event JSON here")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the final metrics snapshot (JSON) here")
     args = ap.parse_args(argv)
 
     cfg = resolve_model(args.arch, args.preset, args.reduce, args.dtype)
@@ -172,6 +221,7 @@ def main(argv=None):
         steps=args.steps, seq_len=args.seq, batch_size=args.batch,
         microbatches=args.microbatches, attn_impl=args.attn, log_every=args.log_every,
         seed=args.seed, device=args.device, packed=args.packed,
+        trace_out=args.trace_out, metrics_out=args.metrics_out,
     )
     _, _, history = train(cfg, loop)
     loss = history["loss"]
@@ -180,6 +230,7 @@ def main(argv=None):
         "last5_loss": round(float(np.mean(loss[-5:])), 4),
         "median_step_s": round(float(np.median(history["step_time"])), 4),
         "tokens_per_s": round(args.batch * args.seq / float(np.median(history["step_time"])), 1),
+        "mfu": history["registry"].snapshot()["train/mfu"],
     }))
 
 

@@ -21,7 +21,11 @@ it), which gives ``jnp.argsort(stable=True)``'s order exactly. The JAX
 longer, whose last row (every dropped assignment's ``dest``) is sliced
 off. The combine reads each token's ``top_k`` expert outputs back through
 the sort's inverse and sums them in f32, so that it is deterministic on
-the card, where a scatter-add would sum in the order of its atomics.
+the card, where a scatter-add would sum in the order of its atomics. The
+dispatch gather's backward (:class:`_Dispatch`) does the same for the
+gradient of the tokens: ``index_select``'s own backward would add each
+token's ``top_k`` slot gradients with atomics in the activation dtype, in
+no fixed order (bf16 rounding at every addition during training).
 
 The expert products are batched matrix products over (E, cap, d), as the
 JAX package leaves its einsums to XLA; the layer holds no kernel.
@@ -136,6 +140,27 @@ def expert_ffn(x_groups, wg, wu, wd):
     return torch.bmm(h, wd)
 
 
+class _Dispatch(torch.autograd.Function):
+    """x_groups = xf[token_at] * slot_used: the dispatch gather. Its
+    backward reads each token's ``k`` slot gradients back through
+    ``assign_slot`` (each assignment's slot; the extra last row, zero, for
+    a dropped one) and sums them in f32 in assignment order, as the combine
+    sums the forward's expert outputs."""
+
+    @staticmethod
+    def forward(ctx, xf, token_at, slot_used, assign_slot):
+        ctx.save_for_backward(assign_slot)
+        ctx.tokens = xf.shape[0]
+        return xf.index_select(0, token_at) * slot_used[:, None]
+
+    @staticmethod
+    def backward(ctx, g):
+        (assign_slot,) = ctx.saved_tensors
+        rows = torch.cat([g, g.new_zeros((1, g.shape[1]))])
+        dx = rows.index_select(0, assign_slot).float().reshape(ctx.tokens, -1, g.shape[1])
+        return dx.sum(dim=1).to(g.dtype), None, None, None
+
+
 def moe_body(xf, router, wg, wu, wd, m, e_lo: int, cap: int, k: int) -> torch.Tensor:
     """xf (T, d) -> y (T, d) through experts [e_lo, e_lo + E_local), E_local
     = ``wg.shape[0]`` (``_moe_body``, ``moe.py:88``)."""
@@ -151,13 +176,14 @@ def moe_body(xf, router, wg, wu, wd, m, e_lo: int, cap: int, k: int) -> torch.Te
     token_at = token_at.scatter_(0, dest, token_of)[:n_slots]
     slot_used = torch.zeros(n_slots + 1, dtype=xf.dtype, device=xf.device)
     slot_used = slot_used.scatter_(0, dest, keep.to(xf.dtype))[:n_slots]
-    x_groups = xf.index_select(0, token_at) * slot_used[:, None]
+    assign_slot = dest.index_select(0, rank)  # each assignment's slot, n_slots if dropped
+    x_groups = _Dispatch.apply(xf, token_at, slot_used, assign_slot)
     y_groups = expert_ffn(x_groups.reshape(E_local, cap, d), wg, wu, wd)
     # Combine: each token's k outputs (a zero row where dropped), weighted
     # by its gates, summed in f32.
     y_rows = torch.cat([y_groups.reshape(n_slots, d), y_groups.new_zeros((1, d))])
     w = torch.where(keep.index_select(0, rank), gates.reshape(-1), 0.0)
-    y = y_rows.index_select(0, dest.index_select(0, rank)).float() * w[:, None]
+    y = y_rows.index_select(0, assign_slot).float() * w[:, None]
     return y.reshape(T, k, d).sum(dim=1).to(xf.dtype)
 
 

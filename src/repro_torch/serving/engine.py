@@ -13,13 +13,17 @@ requests:
     table, and decode reads pages through the table
     (``kernels/flash_decode.flash_decode_paged``).
 
-Telemetry (the JAX engines' ``_EngineTelemetry``, metrics registry and
-tracer) comes in a later slice.
+Both carry the JAX engines' telemetry (``_EngineTelemetry``): a metrics
+registry with the same names and snapshot schema, and an optional Perfetto
+tracer of each request's lifecycle. It is host-side only: it reads the
+cache lengths and times the engine already holds on the host, so it adds
+no kernel launch and no host synchronisation to a tick.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -34,6 +38,9 @@ from repro_torch.launch.steps import (
     build_prefill_step,
     build_serve_step,
 )
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.mfu import DecodeEfficiency
+from repro_torch.obs.trace import TraceRecorder
 from repro_torch.serving.kv_pool import KVPagePool
 
 
@@ -55,12 +62,119 @@ class Request:
         return self.prompt + self.generated
 
 
+# Fixed buckets for the admission-size histogram (prompt pad buckets are
+# prompt_pad multiples clamped to capacity; pow2 bounds cover both engines)
+ADMIT_BUCKETS = (16.0, 32.0, 64.0, 128.0, 256.0, 512.0, 1024.0)
+QUEUE_WAIT_BUCKETS = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
+
+
+class _EngineTelemetry:
+    """The observability surface of both engines (JAX ``engine.py:73``).
+
+    Host-side only (obs/metrics, obs/trace, obs/mfu): it runs around the
+    steps on values the engine already holds on the host -- the cache
+    lengths of the tick's read-back, the prefill's read-back, the host
+    clock -- so it adds no kernel launch and no host synchronisation.
+
+    Registry schema (``snapshot()``):
+
+      counters   serving/{tokens, admissions, retirements, ticks}
+                 decode/{ticks, tokens, model_flops, compute_seconds}
+      gauges     decode/{mfu, tokens_per_s}  (cumulative; obs/mfu)
+      gauge_fns  serving/{active_slots, slot_utilization, queue_depth,
+                 kv_cells_active, kv_cells_capacity, token_occupancy}
+                 (+ kv_pool/* and serving/{preemptions, page_fill}, and the
+                 serving/page_oom counter, paged)
+      histograms serving/admit_bucket (admitted pad bucket, tokens),
+                 serving/queue_wait_ticks (submit -> admission, ticks)
+    """
+
+    def _obs_init(self, registry: Optional[MetricsRegistry],
+                  tracer: Optional[TraceRecorder]):
+        self.obs = registry if registry is not None else MetricsRegistry()
+        self.tracer = tracer
+        self._c_tokens = self.obs.counter("serving/tokens")
+        self._c_admissions = self.obs.counter("serving/admissions")
+        self._c_retirements = self.obs.counter("serving/retirements")
+        self._c_ticks = self.obs.counter("serving/ticks")
+        self._h_bucket = self.obs.histogram("serving/admit_bucket", ADMIT_BUCKETS)
+        self._h_wait = self.obs.histogram("serving/queue_wait_ticks", QUEUE_WAIT_BUCKETS)
+        self._eff = DecodeEfficiency(self.cfg, self.obs, device=self.device)
+        self.obs.gauge_fn("serving/active_slots",
+                          lambda: sum(s is not None for s in self.slots))
+        self.obs.gauge_fn("serving/slot_utilization",
+                          lambda: sum(s is not None for s in self.slots) / self.B)
+        self.obs.gauge_fn("serving/queue_depth", lambda: len(self.queue))
+        self.obs.gauge_fn("serving/kv_cells_active", self.active_kv_cells)
+        self.obs.gauge_fn("serving/kv_cells_capacity", self.kv_capacity)
+        self.obs.gauge_fn("serving/token_occupancy",
+                          lambda: self.resident_tokens() / max(1, self.kv_capacity()))
+        self._submit_tick: Dict[int, int] = {}  # rid -> tick at (re)submit
+        self._submit_ts: Dict[int, float] = {}  # rid -> trace us at submit
+        self._decode_t0: Dict[int, float] = {}  # rid -> decode-span start us
+        self._preempted_rids: set = set()  # resumes owe a 'resume' instant
+
+    def snapshot(self) -> Dict[str, float]:
+        """Flat metrics snapshot (obs/metrics schema); both engines."""
+        return self.obs.snapshot()
+
+    def _note_submit(self, req: "Request", *, resumed: bool = False):
+        self._submit_tick[req.rid] = self.ticks
+        if self.tracer:
+            self.tracer.name_thread(req.rid, f"req {req.rid}")
+            self._submit_ts[req.rid] = self.tracer.now_us()
+            if not resumed:
+                self.tracer.instant("submit", tid=req.rid,
+                                    args={"rid": req.rid, "prompt_len": len(req.prompt)})
+
+    def _note_admission(self, req: "Request", bucket: int, t_pref0: float, t_pref1: float):
+        """One request admitted: counters and the request track's
+        queue_wait and prefill spans ([submit, admit) and [admit, the
+        prefill's result on the host))."""
+        self._c_admissions.inc()
+        self._h_bucket.observe(bucket)
+        self._h_wait.observe(self.ticks - self._submit_tick.pop(req.rid, self.ticks))
+        if self.tracer:
+            sub = self._submit_ts.pop(req.rid, t_pref0)
+            self.tracer.complete("queue_wait", req.rid, sub, t_pref0 - sub)
+            self.tracer.complete("prefill", req.rid, t_pref0, t_pref1 - t_pref0,
+                                 args={"bucket": bucket, "feed_len": len(req.feed)})
+            if req.rid in self._preempted_rids:
+                self._preempted_rids.discard(req.rid)
+                self.tracer.instant("resume", tid=req.rid, args={"rid": req.rid})
+            self._decode_t0[req.rid] = t_pref1
+
+    def _note_leave(self, req: "Request", *, preempted: bool):
+        """The request left its slot (retire or preempt): close its decode
+        span; a preempt emits the instant that its resume pairs with."""
+        if not preempted:
+            self._c_retirements.inc()
+        if self.tracer:
+            now = self.tracer.now_us()
+            t0 = self._decode_t0.pop(req.rid, now)
+            self.tracer.complete("decode", req.rid, t0, now - t0,
+                                 args={"generated": len(req.generated), "preempted": preempted})
+            self.tracer.instant("preempt" if preempted else "retire", tid=req.rid,
+                                args={"rid": req.rid})
+
+    def _note_decode_tick(self, cache_lens, t0_us: float, dt_s: float):
+        self._c_ticks.inc()
+        live = self._eff.tick(cache_lens, dt_s)
+        self._c_tokens.inc(live)
+        if self.tracer:
+            self.tracer.complete("decode_tick", 0, t0_us, dt_s * 1e6, args={"live": live})
+            self.tracer.counter("resident", {"slots": live, "tokens": self.resident_tokens()})
+
+    def _now_us(self) -> float:
+        return self.tracer.now_us() if self.tracer else 0.0
+
+
 def _new_caches(specs, device):
     return [{"kv": {name: torch.zeros(t.shape, dtype=t.dtype, device=device)
                     for name, t in layer["kv"].items()}} for layer in specs]
 
 
-class ServingEngine:
+class ServingEngine(_EngineTelemetry):
     def __init__(
         self,
         cfg: ModelConfig,
@@ -70,6 +184,8 @@ class ServingEngine:
         max_batch: int = 4,
         cache_size: int = 512,
         prompt_pad: int = 64,
+        registry: Optional[MetricsRegistry] = None,
+        tracer: Optional[TraceRecorder] = None,
     ):
         self.cfg = cfg
         self.model = model
@@ -85,12 +201,28 @@ class ServingEngine:
         self.caches = _new_caches(cache_specs(cfg, max_batch, cache_size), self.device)
         self.cache_len = torch.zeros((max_batch,), dtype=torch.int32, device=self.device)
         self.next_token = torch.zeros((max_batch, 1), dtype=torch.int32, device=self.device)
+        # The host's copy of cache_len: set at admission and retirement,
+        # and from the tick's read-back, never by a read of its own.
+        self._lens_host = [0] * max_batch
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.queue: List[Request] = []
         self.finished: Dict[int, Request] = {}
         self.ticks = 0
+        self._obs_init(registry, tracer)
+
+    def resident_tokens(self) -> int:
+        return sum(self._lens_host)
+
+    def active_kv_cells(self) -> int:
+        """KV cells the decode step touches: every slot's full slice, live
+        or not (the cost the paged engine's page skip removes)."""
+        return self.B * self.cache_size
+
+    def kv_capacity(self) -> int:
+        return self.B * self.cache_size
 
     def submit(self, req: Request):
+        self._note_submit(req)
         self.queue.append(req)
 
     def _admit(self, slot: int, req: Request):
@@ -108,13 +240,17 @@ class ServingEngine:
         batch = {"inputs": torch.from_numpy(prompt).to(self.device)}
         if self._bucket:
             batch["lens"] = torch.tensor([L], dtype=torch.int32, device=self.device)
+        t_pref0 = self._now_us()
         tok, cache1, lens = self._prefill(self.model, batch)
         for layer, new in zip(self.caches, cache1):
             for name, buf in layer["kv"].items():
                 buf[slot].copy_(new["kv"][name][0])
-        self.cache_len[slot] = lens[0]
+        self.cache_len[slot] = lens[0]  # the prefill's lens: L, bucketed or not
+        self._lens_host[slot] = L
         self.next_token[slot] = tok[0]
-        req.generated.append(int(tok[0, 0]))
+        first = int(tok[0, 0])  # the read-back that ends the prefill
+        self._note_admission(req, pad_to, t_pref0, self._now_us())
+        req.generated.append(first)
         self.slots[slot] = req
 
     def _retire(self, slot: int):
@@ -122,8 +258,10 @@ class ServingEngine:
         if req is not None:
             req.done = True
             self.finished[req.rid] = req
+            self._note_leave(req, preempted=False)
         self.slots[slot] = None
         self.cache_len[slot] = 0
+        self._lens_host[slot] = 0
 
     def tick(self):
         """Admit from the queue, run one decode step, retire finished."""
@@ -132,6 +270,8 @@ class ServingEngine:
                 self._admit(slot, self.queue.pop(0))
         if not any(self.slots):
             return
+        lens_before = [n for n, s in zip(self._lens_host, self.slots) if s is not None]
+        t0_us, t0 = self._now_us(), time.perf_counter()
         tok, self.caches = self._step(self.model, self.next_token, self.caches,
                                       self.cache_len)
         live = torch.tensor([s is not None for s in self.slots], dtype=torch.int32,
@@ -140,7 +280,9 @@ class ServingEngine:
         self.next_token = tok
         tok_host = tok[:, 0].tolist()
         lens_host = self.cache_len.tolist()
+        self._lens_host = list(lens_host)
         self.ticks += 1
+        self._note_decode_tick(lens_before, t0_us, time.perf_counter() - t0)
         for slot, req in enumerate(self.slots):
             if req is None:
                 continue
@@ -161,7 +303,7 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-class PagedServingEngine:
+class PagedServingEngine(_EngineTelemetry):
     """Continuous batching over a paged KV pool (the counterpart of
     ``PagedServingEngine``, JAX ``engine.py:360``).
 
@@ -199,6 +341,8 @@ class PagedServingEngine:
         page_size: int = 16,
         pages_per_seq_max: int = 16,
         prompt_pad: int = 64,
+        registry: Optional[MetricsRegistry] = None,
+        tracer: Optional[TraceRecorder] = None,
     ):
         self.cfg = cfg
         self.model = model
@@ -222,6 +366,13 @@ class PagedServingEngine:
         self.preemptions = 0
         self._seq = 0  # admission order, for preempt-youngest
         self._slot_seq = np.zeros((max_batch,), np.int64)
+        self._obs_init(registry, tracer)
+        self.pool.register_metrics(self.obs)
+        self._c_page_oom = self.obs.counter("serving/page_oom")
+        self.obs.gauge_fn("serving/preemptions", lambda: float(self.preemptions))
+        # the share of the allocated pages' cells that hold real KV
+        self.obs.gauge_fn("serving/page_fill",
+                          lambda: self.resident_tokens() / max(1, self.pool.used_pages * self.ps))
 
     def resident_tokens(self) -> int:
         return int(self.cache_len.sum())
@@ -249,6 +400,7 @@ class PagedServingEngine:
         assert self._need_pages(len(req.prompt)) <= self.pool.usable_pages, (
             f"request {req.rid}: prompt alone overflows the pool"
         )
+        self._note_submit(req)
         self.queue.append(req)
 
     def _bucket(self, L: int) -> int:
@@ -296,13 +448,16 @@ class PagedServingEngine:
                 lens[i] = len(feed)
                 n_dest = min(-(-len(feed) // self.ps), npb)
                 dest[i, :n_dest] = pages[:n_dest]
+            t_pref0 = self._now_us()
             tok, lens_total, self.caches = self._admit(
                 self.model, {"inputs": self._to_device(inputs), "lens": self._to_device(lens)},
                 self.caches, self._to_device(dest),
             )
             tok_host = tok.cpu().numpy()
             lens_host = lens_total.cpu().numpy()
+            t_pref1 = self._now_us()
             for i, (slot, req, pages) in enumerate(group):
+                self._note_admission(req, pad_to, t_pref0, t_pref1)
                 self.table[slot] = 0
                 self.table[slot, :len(pages)] = pages
                 self.cache_len[slot] = int(lens_host[i])
@@ -325,6 +480,7 @@ class PagedServingEngine:
         self.pool.free(req.rid)
         req.done = True
         self.finished[req.rid] = req
+        self._note_leave(req, preempted=False)
         self._clear_slot(slot)
 
     def _preempt_youngest(self) -> bool:
@@ -336,6 +492,9 @@ class PagedServingEngine:
         victim = max(active, key=lambda i: self._slot_seq[i])
         req = self.slots[victim]
         self.pool.free(req.rid)
+        self._note_leave(req, preempted=True)
+        self._preempted_rids.add(req.rid)
+        self._note_submit(req, resumed=True)
         self.queue.insert(0, req)
         self._clear_slot(victim)
         self.preemptions += 1
@@ -354,6 +513,9 @@ class PagedServingEngine:
             while self._need_pages(int(self.cache_len[slot])) > len(self.pool.pages_of(req.rid)):
                 page = self.pool.extend(req.rid)
                 if page is None:
+                    self._c_page_oom.inc()
+                    if self.tracer:
+                        self.tracer.instant("page_oom", tid=0, args={"rid": req.rid})
                     if not self._preempt_youngest():
                         raise RuntimeError("page pool exhausted with a single resident "
                                            "request; pool too small for this workload")
@@ -366,12 +528,15 @@ class PagedServingEngine:
         self._admit_tick()
         if not any(s is not None for s in self.slots):
             return
+        lens_before = self.cache_len.copy()
+        t0_us, t0 = self._now_us(), time.perf_counter()
         tok, self.caches = self._step(
             self.model, self._to_device(self.next_token), self.caches,
             self._to_device(self.table), self._to_device(self.cache_len),
         )
         tok_host = tok.cpu().numpy()
         self.ticks += 1
+        self._note_decode_tick(lens_before, t0_us, time.perf_counter() - t0)
         for slot, req in enumerate(self.slots):
             if req is None:
                 continue

@@ -1,7 +1,6 @@
 """Fixed-size KV page pool: the allocator behind paged continuous batching.
 
-A copy of ``repro/serving/kv_pool.py`` (pure Python there too), without
-``register_metrics``: the telemetry layer it feeds is not ported yet.
+A copy of ``repro/serving/kv_pool.py`` (pure Python there too).
 
 The pool owns ``num_pages`` physical pages of ``page_size`` token slots
 each, shared by every layer (one block table per sequence; layer caches are
@@ -85,3 +84,16 @@ class KVPagePool:
         pages = self._owned.pop(rid, [])
         self._free.extend(reversed(pages))
         return len(pages)
+
+    # ------------------------------------------------------ observability
+    def register_metrics(self, registry, prefix: str = "kv_pool") -> None:
+        """Register lazily sampled pool gauges into a metrics registry
+        (``repro_torch.obs.metrics.MetricsRegistry``): ``<prefix>/{num_pages,
+        used_pages, free_pages, page_utilization, resident_seqs}``. All read
+        live allocator state at snapshot time -- no write traffic on the
+        alloc/extend/free hot path."""
+        registry.gauge_fn(f"{prefix}/num_pages", lambda: float(self.usable_pages))
+        registry.gauge_fn(f"{prefix}/used_pages", lambda: float(self.used_pages))
+        registry.gauge_fn(f"{prefix}/free_pages", lambda: float(self.free_pages))
+        registry.gauge_fn(f"{prefix}/page_utilization", self.page_utilization)
+        registry.gauge_fn(f"{prefix}/resident_seqs", lambda: float(len(self._owned)))

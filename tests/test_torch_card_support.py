@@ -3,7 +3,7 @@ train CLI's ``--dtype``.
 
 The CUDA kernels take bfloat16 at head_dim 64 and 128, and serve (forward,
 decode, paged decode) and train (unpacked and packed) at 160 and 256;
-mixture-of-experts models serve on the card and do not train there yet.
+mixture-of-experts models serve and train on the card under the same rules.
 ``core.attention.check_card_support`` refuses ``flash_cuda`` on a CUDA
 device for anything else, and the train and serve CLIs call it before they
 build a model: on this machine, which has no card, the CLIs must therefore
@@ -153,16 +153,27 @@ def test_paged_decode_at_head_dim_64_is_refused_on_the_card():
 
 
 def test_moe_training_is_refused_on_the_card():
-    """granite-moe-1b-a400m serves on the card; training it there (the aux
-    loss, the expert-parallel layer) is queue 1 item 5's next slice: refused
-    up front on a CUDA device, by the train CLI before any weight is made;
-    the plain CPU path and the dense reference train it."""
+    """granite-moe-1b-a400m trains on the card in bfloat16 (its own dtype)
+    through the head_dim-64 kernels, fused and split backward, under the
+    same rules as a dense model; what the card still refuses for it is
+    float32, through the check and through the train CLI's early check
+    before any weight is made. Without a card the bf16 CLI run passes the
+    check and stops at the missing card."""
     cfg = registry.get("granite-moe-1b-a400m")
+    assert cfg.family == "moe" and cfg.dtype == "bfloat16" and cfg.head_dim == 64
     for device in ("cuda", "cuda:0"):
-        with pytest.raises(ValueError, match="mixture-of-experts.*queue 1, item 5"):
-            check_card_support(cfg, FLASH, device, training=True)
-    with pytest.raises(ValueError, match="queue 1, item 5"):
-        train_cli.main(["--arch", "granite-moe-1b-a400m", "--steps", "1"])
+        for bwd in (None, "split"):
+            check_card_support(cfg, AttentionConfig(impl="flash_cuda", bwd=bwd), device,
+                               training=True)
+        check_card_support(cfg, FLASH, device, training=True, packed=True)
+        with pytest.raises(ValueError, match="bfloat16"):
+            check_card_support(dataclasses.replace(cfg, dtype="float32"), FLASH, device,
+                               training=True)
+    with pytest.raises(ValueError, match="--dtype bfloat16"):
+        train_cli.main(["--arch", "granite-moe-1b-a400m", "--dtype", "float32", "--steps", "1"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_cli.main(["--arch", "granite-moe-1b-a400m", "--steps", "1"])
     check_card_support(cfg, FLASH, "cpu", training=True)
     check_card_support(cfg, REF, "cuda", training=True)
     check_card_support(cfg, FLASH, "cuda", training=False)
